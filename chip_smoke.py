@@ -9,15 +9,18 @@ the final line:
   2. build: every CUDA kernel of ``src/repro_torch/csrc`` with nvcc for
      sm_90a, one process per source, with seconds and ptxas usage;
   3. kernels: each kernel against its plain PyTorch version at the serving
-     path's shapes (tolerances: float32 2e-5, bfloat16 5e-2, INT8 codes
-     within 1, round-trip relative error < 0.02), with its time, the plain
+     path's shapes (tolerances: float32 2e-5, bfloat16 5e-2, the bfloat16
+     RMSNorm within one bfloat16 rounding step of the plain output element
+     by element, INT8 codes within 1, round-trip relative error < 0.02, SSD
+     chunk rtol = atol = 1e-4 x sqrt(Q N / 1024)), with its time, the plain
      version's time, the least time the card could take (bytes over
      3.35 TB/s or operations over the dtype's peak rate, whichever is
      larger) and, where one PyTorch call computes the same function, that
      call's time as a yardstick (the port never calls it);
   4. reference: the full-width model's kernel path (paged-attention
-     kernel + prefix flash kernel) against its plain path (page gather +
-     masked attention) on one short request's logits;
+     kernel + prefix flash kernel + RMSNorm kernel) against its plain path
+     (page gather + masked attention + plain RMSNorm) on one short
+     request's logits;
   5. serve: granite-3-8b at full width and depth (random weights from a
      seed) through ``ServingEngine.serve`` with chunked paged prefill and
      the fused paged decode; every request must finish and the paged-
@@ -27,11 +30,32 @@ the final line:
      preempted, swapped out and in as INT8 through the kv_quant kernels,
      and all finish;
   7. profile: where a full-batch decode step's time goes, with each decode
-     attention path, under ``torch.profiler``.
+     attention path, under ``torch.profiler``;
+  8. mamba reference: mamba2-2.7b at full width and depth (64 layers,
+     d_model 2560, 80 heads of 64, state 128; random bf16 weights from a
+     seed), its kernel path (fused RMSNorm + SSD chunk kernels) against its
+     plain path on one prompt's prefill and 4 decode steps, in f32 (must
+     agree to 1e-3) and in bf16 (printed beside bf16's own distance from
+     f32);
+  9. mamba serve: 8 requests through ``ServingEngine.serve`` on the dense
+     state backend (monolithic prefill, fused recurrent decode);
+ 10. mamba swap: 2 lanes and staged arrivals force preemptions that swap a
+     request's conv and SSM state to the host and back; each preempted
+     request's greedy tokens must equal, bit for bit, those of a run of the
+     same engine that serves it alone (no preemption);
+ 11. mamba profile: one full-batch decode step and one 1024-token prefill
+     under ``torch.profiler``, kernel and plain paths.
 
-Phases 5 and 6 are the main path: every kernel's launch count is set to 0
-before them and read after them, and each kernel must have launched.  Then
-a ``kernels`` JSON line, the card's name and power limit, and the final
+Phase 3 also holds the RMSNorm kernel (rows of 2560 and 5120 for mamba,
+4096 for granite, bf16 and f32, with ``torch.nn.functional.rms_norm`` timed
+as the library yardstick) and the SSD chunk kernel (B 1, S 1024 = 4 chunks
+of 256, and one ragged chunk of 200 rows; 80 heads of 64, state 128, f32)
+against their plain versions.  There are two main paths,
+each driven with every kernel's launch count set to 0 just before it and
+read just after: granite's phases 5 and 6 (the paged-attention, prefix
+flash and INT8 quant kernels must have launched) and mamba's phases 9 and
+10 (the RMSNorm and SSD chunk kernels must have launched).  Then a
+``kernels`` JSON line, the card's name and power limit, and the final
 ``{"ok": true, "device": {...}}`` line.  Needs one CUDA card; exits
 non-zero without one.
 """
@@ -232,14 +256,117 @@ def check_kv_quant(torch, dev):
                  bound_by=dby, library_ms=None))
 
 
+def check_fused_rmsnorm(torch, dev):
+    """The RMSNorm kernel at each main path's widths, bf16 and f32: mamba's
+    d_model 2560 and gate-norm d_inner 5120 for a decode batch (8 rows) and
+    a 1024-token prefill, granite's d_model 4096 for a decode batch and a
+    256-token prefill chunk; ``torch.nn.functional.rms_norm`` is the
+    library yardstick.  float32 must agree to 2e-5 (relative beyond 1);
+    bfloat16 must be within one bfloat16 rounding step of the plain output,
+    element by element (both sum in float32, so only the final rounding can
+    differ).  Returns the bf16 (1024, 5120) row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm, rmsnorm_ref
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    main = None
+    shapes = ((8, 2560), (1024, 2560), (8, 5120), (1024, 5120), (8, 4096),
+              (256, 4096))
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        for T, d in shapes:
+            x = (torch.randn((T, d), generator=g, device=dev) * 3).to(dt)
+            scale = (1 + 0.1 * torch.randn((d,), generator=g,
+                                           device=dev)).to(dt)
+            out = fused_rmsnorm(x, scale)
+            ref = rmsnorm_ref(x, scale)
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs()
+            err = diff.max().item()
+            if name == "float32":
+                ok = err <= 2e-5 * max(1.0, ref.float().abs().max().item())
+            else:
+                ok = bool((diff <= 2.0 ** -7 * ref.float().abs()).all())
+            if not ok:
+                fail(f"fused_rmsnorm {name} ({T}, {d}): max_abs_err {err}")
+            ms = time_ms(lambda: fused_rmsnorm(x, scale), 50)
+            plain = time_ms(lambda: rmsnorm_ref(x, scale), 20)
+            try:
+                lib_ms = time_ms(lambda: F.rms_norm(x, (d,), scale, 1e-5), 50)
+            except AttributeError:             # torch without rms_norm
+                lib_ms = None
+            b_ms, b_by = bound(nbytes(x, scale, out), 4.0 * T * d, name)
+            print(f"[kernel] fused_rmsnorm {name} T={T} d={d}: max_err="
+                  f"{err:.3g} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}) library_ms="
+                  f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}",
+                  flush=True)
+            if name == "bfloat16" and T == 1024 and d == 5120:
+                main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return main
+
+
+def ssd_flops(B, C, Q, H, P, N) -> float:
+    """Operations the SSD chunk step needs: the lower-triangular C . B^T
+    once per chunk (it is shared by the heads), and per head the decayed
+    scores, their product with xbar and the chunk state."""
+    tri = Q * (Q + 1) / 2
+    return B * C * (2.0 * tri * N + H * (tri + 2.0 * tri * P
+                                         + 2.0 * Q * P * N + 2.0 * Q))
+
+
+def check_ssd_chunk(torch, dev):
+    """The SSD chunk kernel at one full-width mamba2-2.7b prefill layer of
+    1024 tokens (B 1, C 4 chunks of Q 256, H 80, P 64, N 128, f32), and at
+    a prompt shorter than a chunk, whose single chunk of Q 200 is not a
+    multiple of the kernel's 32-row tiles.  Returns the Q 256 row."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref
+    B, H, P, N = 1, 80, 64, 128
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    main = None
+    for C, Q in ((4, 256), (1, 200)):
+        xbar = torch.randn((B, C, Q, H, P), generator=g, device=dev)
+        dA = -torch.randn((B, C, Q, H), generator=g, device=dev).abs() * 0.1
+        Bc = torch.randn((B, C, Q, N), generator=g, device=dev)
+        Cc = torch.randn((B, C, Q, N), generator=g, device=dev)
+        outs = ssd_chunk(xbar, dA, Bc, Cc)
+        refs = ssd_chunk_ref(xbar, dA, Bc, Cc)
+        torch.cuda.synchronize()
+        err = 0.0
+        # 1e-4 at the Pallas tests' shapes (Q * N <= 1024), scaled by the
+        # square root of the sums' lengths beyond them (float32 sums)
+        tol = 1e-4 * (Q * N / 1024) ** 0.5
+        for name, o, r in zip(("y_diag", "states", "chunk_decay"), outs,
+                              refs):
+            if not torch.isfinite(o).all():
+                fail(f"ssd_chunk Q={Q}: non-finite {name}")
+            if not torch.allclose(o, r, rtol=tol, atol=tol):
+                fail(f"ssd_chunk Q={Q}: {name} differs from the plain "
+                     f"version by {(o - r).abs().max().item()}")
+            err = max(err, (o - r).abs().max().item())
+        ms = time_ms(lambda: ssd_chunk(xbar, dA, Bc, Cc))
+        plain = time_ms(lambda: ssd_chunk_ref(xbar, dA, Bc, Cc), 5)
+        b_ms, b_by = bound(nbytes(xbar, dA, Bc, Cc, *outs),
+                           ssd_flops(B, C, Q, H, P, N), "float32")
+        print(f"[kernel] ssd_chunk f32 B={B} C={C} Q={Q} H={H} P={P} N={N}: "
+              f"max_err={err:.3g} (tol {tol:.2g}) kernel_ms={ms:.4f} "
+              f"plain_ms={plain:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) library_ms=none", flush=True)
+        if Q == 256:
+            main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return main
+
+
 # ------------------------------------------------------- phases 4 to 6
 
 def reference_check(torch, model, params):
     """Kernel path vs plain path of the full-width model on one short
     request: prefill 100 tokens in two chunks, then 4 decode steps, each
-    path on its own pool; every logit row finite, relative L2 error of the
-    kernel path's logits < 0.05 (bf16 rounding through 40 layers), and the
-    same greedy tokens fed to both."""
+    path on its own pool; the plain path takes no kernel (page gather,
+    masked chunk attention, plain RMSNorm).  Every logit row finite,
+    relative L2 error of the kernel path's logits < 0.05 (bf16 rounding
+    through 40 layers), and the same greedy tokens fed to both."""
     from repro_torch.serving.kv_cache import KVBackendConfig, PagedKVBackend
     rng = np.random.default_rng(SEED + 3)
     prompt = rng.integers(2, model.cfg.vocab_size, 100).tolist()
@@ -247,6 +374,7 @@ def reference_check(torch, model, params):
     impl0 = model.chunk_attn_impl
     for impl, chunk in (("kernel", "flash"), ("gather", "masked")):
         model.chunk_attn_impl = chunk
+        model.use_kernels = impl == "kernel"
         kv = PagedKVBackend(model, KVBackendConfig(
             max_slots=1, max_seq_len=2048, page_size=16, attn_impl=impl),
             num_pages=16)
@@ -276,6 +404,7 @@ def reference_check(torch, model, params):
         outs[impl] = torch.cat(rows).float()
         outs.setdefault("tok", toks)
     model.chunk_attn_impl = impl0
+    model.use_kernels = True
     a, b = outs["kernel"], outs["gather"]
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
         fail("reference: non-finite logits")
@@ -287,6 +416,25 @@ def reference_check(torch, model, params):
           f"rel_l2={rel:.4g} argmax_agree={agree:.2f}", flush=True)
     if not rel < 0.05:
         fail(f"reference: kernel-path logits differ (rel_l2 {rel})")
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def reset_counts(kernels):
@@ -465,6 +613,210 @@ def phase_profile(torch, model, params):
     model.chunk_attn_impl = impl0
 
 
+# ------------------------------------------------------ phases 8 to 11
+
+def mamba_reference_check(torch, model, params):
+    """Kernel path vs plain path of the full-width mamba2-2.7b on one
+    300-token prompt (one chunk of 256 and a ragged one padded to 256) and
+    4 decode steps, all fed the bf16 kernel path's greedy tokens, with the
+    weights in bf16 and upcast to f32.  In f32 the two paths must agree to
+    a relative L2 below 1e-3 with equal argmax: there the only difference
+    is the kernels' summation order.  In bf16 the relative L2 is printed
+    beside each bf16 path's distance from the f32 plain path, which is what
+    bf16 rounding alone does to this random-weight model over 64 layers."""
+    rng = np.random.default_rng(SEED + 7)
+    prompt = torch.tensor(rng.integers(2, model.cfg.vocab_size, (1, 300)),
+                          device=model.device)
+    p32 = _tree_map(lambda t: t.float(), params)
+    toks = []
+
+    def run(ps, use):
+        model.use_kernels = use
+        logits, cache = model.prefill(ps, {"tokens": prompt})
+        rows = [logits]
+        for i in range(4):
+            if len(toks) == i:
+                toks.append(int(rows[-1].argmax()))
+            t = torch.tensor([[toks[i]]], device=model.device)
+            rows.append(model.decode_step(ps, cache, t))
+        return torch.cat(rows).float()
+
+    outs = {(dt, use): run(ps, use)
+            for dt, ps in (("bf16", params), ("f32", p32))
+            for use in (True, False)}
+    model.use_kernels = True
+    del p32
+    if not all(torch.isfinite(o).all() for o in outs.values()):
+        fail("mamba reference: non-finite logits")
+    if any(tuple(o.shape) != (5, model.cfg.vocab_size) for o in outs.values()):
+        fail("mamba reference: logits of the wrong shape")
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    def agree(a, b):
+        return (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
+    ref = outs[("f32", False)]
+    r32, r16 = rel(outs[("f32", True)], ref), rel(outs[("bf16", True)],
+                                                   outs[("bf16", False)])
+    print(f"[mamba-reference] full-width kernel vs plain path, 300-token "
+          f"prefill + 4 decode steps, 5 logit rows: f32 rel_l2={r32:.4g} "
+          f"argmax_agree={agree(outs[('f32', True)], ref):.2f}; bf16 "
+          f"rel_l2={r16:.4g} argmax_agree="
+          f"{agree(outs[('bf16', True)], outs[('bf16', False)]):.2f}; "
+          f"bf16 kernel vs f32 plain rel_l2="
+          f"{rel(outs[('bf16', True)], ref):.4g}, bf16 plain vs f32 plain "
+          f"rel_l2={rel(outs[('bf16', False)], ref):.4g}", flush=True)
+    if not (r32 < 1e-3 and agree(outs[("f32", True)], ref) == 1.0):
+        fail(f"mamba reference: f32 kernel-path logits differ (rel_l2 {r32})")
+
+
+def phase_mamba_serve(torch, model, params):
+    from repro_torch.launch.serve import serve
+    t0 = time.perf_counter()
+    reqs, eng = serve(arch="mamba2-2.7b", arch_size="full", strategy="alise",
+                      n_requests=8, max_slots=8, seed=SEED,
+                      predictor_kind="oracle", kv_backend="dense",
+                      device=model.device, model_and_params=(model, params),
+                      verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = [r for r in reqs if r.finish_time is not None]
+    gen = sum(r.generated for r in reqs)
+    # the engine stamps a token with its iteration's start; all 8 prompts
+    # are prefilled in the first iteration, one after another, so each
+    # request's first token is measured at the end of its own (single)
+    # prefill instead, from the serve call
+    ttft = [t1 + dt - t0 for t1, _, dt in eng.prefill_times]
+    step_ms = [dt * 1e3 for *_, dt in eng.iter_times]
+    batch = [b for _, _, b, _ in eng.iter_times]
+    pre_ms = [dt * 1e3 for *_, dt in eng.prefill_times]
+    pre_tok = [n for _, n, _ in eng.prefill_times]
+    print(f"[mamba-serve] mamba2-2.7b full (64L d2560 80x64 heads N128 "
+          f"V50280 bf16) dense state, slots=8: {len(done)}/{len(reqs)} "
+          f"finished, {gen} tokens generated, {gen / wall:.1f} tok/s, wall "
+          f"{wall:.2f}s, TTFT p50 {np.median(ttft):.3f}s, preemptions "
+          f"{sum(r.preempt_count for r in reqs)}, {len(step_ms)} decode steps "
+          f"p50 {np.median(step_ms):.2f} ms (mean batch {np.mean(batch):.2f}), "
+          f"{len(pre_ms)} prefills p50 {np.median(pre_ms):.2f} ms "
+          f"({sum(pre_tok)} tokens, {sum(pre_tok) / sum(pre_ms) * 1e3:.0f} "
+          f"tok/s)", flush=True)
+    if len(done) != len(reqs):
+        fail("mamba serve: not every request finished")
+    if len(pre_ms) != len(reqs):
+        fail(f"mamba serve: {len(pre_ms)} prefills for {len(reqs)} requests")
+    for r in reqs:
+        if len(r.output_tokens) != r.generated or r.generated < 1:
+            fail(f"mamba serve: request {r.req_id} produced no tokens")
+        if not all(0 <= t < model.cfg.vocab_size for t in r.output_tokens):
+            fail(f"mamba serve: request {r.req_id} emitted an out-of-vocab "
+                 "token")
+
+
+def _mamba_swap_run(model, params, prompts, outs, staged: bool):
+    """Serve on a virtual clock with 2 dense lanes, no early EOS; with
+    ``staged`` the first two requests run 5 steps before the rest
+    arrive."""
+    from repro_torch.core.engine import EngineConfig, ServingEngine
+    from repro_torch.core.predictor import OraclePredictor
+    from repro_torch.core.request import Request, reset_request_counter
+    reset_request_counter()
+    reqs = [Request(prompt_len=len(p), arrival_time=0.0, true_out_len=o,
+                    prompt_tokens=list(p)) for p, o in zip(prompts, outs)]
+    eng = ServingEngine(model, params, EngineConfig(
+        max_slots=2, max_seq_len=2048, max_new_tokens=64, strategy="alise",
+        quantize_offload=False, kv_backend="dense", eos_token=-1),
+        predictor=OraclePredictor())
+    t = 0.0
+    first = reqs[:2] if staged else reqs
+    for r in first:
+        eng.submit(r, t)
+    for _ in range(5 if staged else 0):
+        eng.step(t)
+        t += 0.1
+    for r in reqs[len(first):]:
+        eng.submit(r, t)
+    for _ in range(2000):
+        if not eng.sched.live:
+            break
+        eng.step(t)
+        t += 0.1
+    if eng.sched.live or any(r.finish_time is None for r in reqs):
+        fail("mamba swap: engine did not drain")
+    return reqs, eng
+
+
+def phase_mamba_swap(torch, model, params, kernels):
+    """Forced state swaps with 2 lanes; returns the launch counts read
+    right after the swap run.  Then every preempted request is served alone
+    by the same engine configuration (2 lanes, so the decode batch shape is
+    the same) and its greedy tokens must be equal bit for bit."""
+    rng = np.random.default_rng(SEED + 8)
+    lens, outs = (300, 520, 90, 140, 200, 64), (40, 40, 6, 6, 6, 6)
+    prompts = [rng.integers(2, model.cfg.vocab_size, n).tolist()
+               for n in lens]
+    before = read_counts(kernels)
+    t0 = time.perf_counter()
+    reqs, eng = _mamba_swap_run(model, params, prompts, outs, staged=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = read_counts(kernels)
+    counts = {n: c - before[n] for n, c in total.items()}
+    lane_bytes = sum(t[:, 0].numel() * t.element_size()
+                     for k, t in eng.kv.cache.items() if k != "lengths")
+    pre = sum(r.preempt_count for r in reqs)
+    # one lane's round trip over the host link, timed alone
+    rid = -1
+    eng.kv.slot_req[0] = rid
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    blob = eng.kv.offload(rid)
+    t2 = time.perf_counter()
+    eng.kv.upload(rid, blob)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    eng.kv.clear(rid)
+    print(f"[mamba-swap] 2 lanes, staged arrivals, raw state offload: "
+          f"{sum(r.finish_time is not None for r in reqs)}/{len(reqs)} "
+          f"finished in {wall:.2f}s, preemptions {pre}, "
+          f"{lane_bytes / 1e6:.1f} MB swapped per preemption (conv + f32 SSM "
+          f"state of 64 layers), offload {1e3 * (t2 - t1):.1f} ms / upload "
+          f"{1e3 * (t3 - t2):.1f} ms, launches {counts}", flush=True)
+    if pre <= 0:
+        fail("mamba swap: no preemption was forced")
+    victims = [(i, r) for i, r in enumerate(reqs) if r.preempt_count > 0]
+    for i, r in victims:
+        alone, _ = _mamba_swap_run(model, params, [prompts[i]], [outs[i]],
+                                   staged=False)
+        if alone[0].preempt_count or alone[0].output_tokens != r.output_tokens:
+            fail(f"mamba swap: request {i} ({r.preempt_count} preemptions) "
+                 "emitted other greedy tokens than its unpreempted run")
+    print(f"[mamba-swap] {len(victims)} preempted requests: greedy tokens "
+          "equal to their unpreempted runs, bit for bit", flush=True)
+    return total
+
+
+def phase_mamba_profile(torch, model, params):
+    """Where the time goes in the mamba path's two model steps, kernel and
+    plain: a full-batch decode step (8 lanes, every lane active) and one
+    1024-token prefill."""
+    B = 8
+    cache = model.init_cache(B)
+    dev = model.device
+    toks = torch.full((B, 1), 7, device=dev)
+    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    prompt = torch.full((1, 1024), 7, device=dev)
+    for use in (True, False):
+        model.use_kernels = use
+        path = "kernel" if use else "plain"
+        profile_step(torch, f"mamba decode step ({path}, B={B})",
+                     lambda: model.decode_step(params, cache, toks, active))
+        profile_step(torch, f"mamba prefill ({path}, S=1024)",
+                     lambda: model.prefill(params, {"tokens": prompt}), n=3)
+    model.use_kernels = True
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -475,8 +827,10 @@ def main() -> None:
              "checkout of the repository")
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_prefill import flash_prefill_prefix
+    from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm
     from repro_torch.kernels.kv_quant import kv_dequantize, kv_quantize
     from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ssd_scan import ssd_chunk
     from repro_torch.launch.serve import build_model
 
     dev = torch.device("cuda:0")
@@ -504,10 +858,13 @@ def main() -> None:
     pa = check_paged_attention(torch, dev)
     fp = check_flash_prefix(torch, dev)
     kq, kd = check_kv_quant(torch, dev)
+    rn = check_fused_rmsnorm(torch, dev)
+    sc = check_ssd_chunk(torch, dev)
 
     kernels = {"paged_attention": paged_attention,
                "flash_prefill_prefix": flash_prefill_prefix,
-               "kv_quantize": kv_quantize, "kv_dequantize": kv_dequantize}
+               "kv_quantize": kv_quantize, "kv_dequantize": kv_dequantize,
+               "fused_rmsnorm": fused_rmsnorm, "ssd_chunk": ssd_chunk}
     t0 = time.perf_counter()
     model, params = build_model("granite-3-8b", "full", dev, "flash", SEED)
     torch.cuda.synchronize()
@@ -517,13 +874,35 @@ def main() -> None:
     print(f"[model] granite-3-8b full width/depth, {n_params:,} params bf16, "
           f"init {time.perf_counter() - t0:.1f}s", flush=True)
     reference_check(torch, model, params)
-    # the main path is phases 5 and 6 together: counts start at 0 here and
-    # are read after both (launches made by the parity checks above are
-    # not counted)
+    # granite's main path is phases 5 and 6 together: counts start at 0
+    # here and are read after both (launches made by the parity checks
+    # above are not counted)
     reset_counts(kernels)
     phase_serve(torch, model, params, kernels)
     phase_swap(torch, model, params, kernels)
     launches = read_counts(kernels)
+    print(f"[main-path] granite-3-8b (phases 5-6) launches {launches}",
+          flush=True)
+    phase_profile(torch, model, params)
+    del model, params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model, params = build_model("mamba2-2.7b", "full", dev, None, SEED)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[model] mamba2-2.7b full width/depth, {n_params:,} params bf16 "
+          f"(SSM constants f32), init {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    mamba_reference_check(torch, model, params)
+    # mamba's main path is phases 9 and 10 together (the unpreempted
+    # comparison runs of phase 10 are not counted)
+    reset_counts(kernels)
+    phase_mamba_serve(torch, model, params)
+    m_launches = phase_mamba_swap(torch, model, params, kernels)
+    print(f"[main-path] mamba2-2.7b (phases 9-10) launches {m_launches}",
+          flush=True)
+    phase_mamba_profile(torch, model, params)
 
     src = "src/repro_torch/csrc/"
     rows = [
@@ -541,11 +920,17 @@ def main() -> None:
         dict(name="kv_dequantize", route="cuda", source=src + "kv_quant.cu",
              replaces="src/repro/kernels/kv_quant/kv_quant.py:62",
              launches=launches["kv_dequantize"], **kd),
+        dict(name="fused_rmsnorm", route="cuda",
+             source=src + "fused_rmsnorm.cu",
+             replaces="src/repro/kernels/fused_rmsnorm/fused_rmsnorm.py:23",
+             launches=m_launches["fused_rmsnorm"], **rn),
+        dict(name="ssd_chunk", route="cuda", source=src + "ssd_chunk.cu",
+             replaces="src/repro/kernels/ssd_scan/ssd_scan.py:51",
+             launches=m_launches["ssd_chunk"], **sc),
     ]
     for r in rows:
         if r["launches"] <= 0:
-            fail(f"kernel {r['name']} never launched on the main path")
-    phase_profile(torch, model, params)
+            fail(f"kernel {r['name']} never launched on its main path")
     print("[kernels] " + ", ".join(
         f"{r['name']}: launches={r['launches']} parity=ok" for r in rows),
         flush=True)

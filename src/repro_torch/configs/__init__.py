@@ -1,9 +1,9 @@
 """Architecture registry of the PyTorch port.
 
-Only the architectures the port runs are registered (granite-3-8b for
-now).  Each lives in its own module (``repro_torch/configs/<id>.py``)
-exposing ``CONFIG`` (full size) and ``smoke_config()`` (reduced,
-CPU-runnable), as in the JAX package's registry.
+Only the architectures the port runs are registered.  Each lives in its
+own module (``repro_torch/configs/<id>.py``) exposing ``CONFIG`` (full
+size) and ``smoke_config()`` (reduced, CPU-runnable), as in the JAX
+package's registry.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from repro_torch.models.config import ArchConfig
 # architecture id -> module name
 _ASSIGNED = {
     "granite-3-8b": "granite_3_8b",
+    "mamba2-2.7b": "mamba2_2p7b",
 }
 
 ASSIGNED_ARCHS = tuple(_ASSIGNED)

@@ -1,5 +1,7 @@
 """Real-execution serving engine of the PyTorch port: continuous batching +
-ALISE scheduling over an actual model on the paged KV backend (paper §3.3).
+ALISE scheduling over an actual model (paper §3.3), on a pluggable KV
+backend chosen by the model's family: the paged KV pool for the attention
+family, the dense slotted state cache for the ``ssm`` family.
 
 The engine drives the same Scheduler / TieredKVManager policy code as the
 JAX package (its own copy) and executes each
@@ -7,21 +9,25 @@ JAX package (its own copy) and executes each
 
   * chunked, resumable prefill: each :class:`PrefillChunk` runs through
     ``Model.paged_prefill_chunk``, KV written into the page pool on the
-    device, resuming from the partially-filled pages;
-  * one fused decode step per iteration (``Model.paged_decode_step_sampled``):
-    embedding, layer stack, KV writes, paged attention, sampling and
-    termination run on the device; the host copies one ``(tokens,
-    reasons)`` pair;
-  * request-level KV swapping between the device pool and a host pool,
-    quantized to INT8 on the device by the ``kv_quant`` kernels (Eq. 8)
-    so the host link carries the INT8 payload;
+    device, resuming from the partially-filled pages.  A family without
+    chunked prefill (``ssm``) runs the whole prompt through the monolithic
+    ``Model.prefill`` and places its state in a dense lane;
+  * one fused decode step per iteration (``Model.paged_decode_step_sampled``
+    or ``Model.decode_step_sampled``): embedding, layer stack, KV or state
+    writes, attention or the SSM recurrence, sampling and termination run
+    on the device; the host copies one ``(tokens, reasons)`` pair;
+  * request-level swapping between the device and a host pool: paged KV
+    quantized to INT8 on the device by the ``kv_quant`` kernels (Eq. 8) so
+    the host link carries the INT8 payload; an SSM request's conv and SSM
+    state moved raw;
   * per-iteration wall-time profiling (bounded ring buffers) used to fit
     the Eq. 3-5 latency model.
 
 Not ported yet (``EngineConfig`` options that ask for one raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item): the dense
-backend, packed prefill, the shared-prefix cache, speculative decoding,
-and the cluster tier; the observability bus is left out.
+backend of the attention family, packed prefill, the shared-prefix cache,
+speculative decoding, and the cluster tier; the observability bus is left
+out.
 
 Correctness invariant (tested): with greedy sampling and quantization off,
 generated tokens do not depend on how jobs are preempted and swapped, on
@@ -47,7 +53,8 @@ from repro_torch.core.request import KVLocation, Request, RequestState
 from repro_torch.core.scheduler import (DecodeLane, PrefillChunk, Scheduler,
                                         SchedulerConfig)
 from repro_torch.models.model import Model
-from repro_torch.serving.kv_cache import KVBackendConfig, PagedKVBackend
+from repro_torch.serving.kv_cache import (DenseKVBackend, KVBackendConfig,
+                                          PagedKVBackend)
 from repro_torch.serving.sampler import REASONS, sample_and_reason
 
 
@@ -95,7 +102,8 @@ class EngineConfig:
     quantize_offload: bool = True
     hbm_bytes: Optional[float] = None      # default: fits ~max_slots*max_seq
     swap_bw: float = 32e9
-    kv_backend: str = "paged"              # the port runs the paged backend
+    kv_backend: Optional[str] = None       # None = the model's own: paged
+                                           # (attention family) | dense (ssm)
     page_size: int = 16                    # paged backend page granularity
     paged_attn_impl: str = "gather"        # gather (bit-exact reference) |
                                            # kernel (CUDA paged attention)
@@ -122,11 +130,26 @@ class EngineConfig:
     seed: int = 0
 
 
+def _kv_backend(cfg: EngineConfig, model: Model) -> str:
+    """The KV backend: the model's own (paged for the attention family,
+    dense for ``ssm``); naming the other one raises."""
+    own = "paged" if model.supports_paged() else "dense"
+    backend = cfg.kv_backend or own
+    if backend not in ("paged", "dense"):
+        raise ValueError(f"unknown kv_backend: {backend!r}")
+    if backend != own and own == "paged":
+        raise NotImplementedError(
+            f"kv_backend='dense' for family={model.cfg.family} (the "
+            "attention family's dense backend: ROADMAP.md Queue 1 item 5) "
+            "is not ported yet")
+    if backend != own:
+        raise ValueError(f"family={model.cfg.family} has no paged KV (its "
+                         "state is constant-size): use kv_backend='dense'")
+    return backend
+
+
 def _not_ported(cfg: EngineConfig) -> None:
-    todo = [(cfg.kv_backend != "paged",
-             f"kv_backend={cfg.kv_backend!r} (dense backend: ROADMAP.md "
-             "Queue 1 item 5)"),
-            (cfg.prefill_pack, "prefill_pack (ROADMAP.md Queue 1 item 8)"),
+    todo = [(cfg.prefill_pack, "prefill_pack (ROADMAP.md Queue 1 item 8)"),
             (cfg.prefix_cache, "prefix_cache (ROADMAP.md Queue 1 item 7)"),
             (cfg.spec_decode, "spec_decode (ROADMAP.md Queue 1 item 9)")]
     for bad, what in todo:
@@ -139,6 +162,7 @@ class ServingEngine:
                  predictor: Optional[LengthPredictor] = None,
                  latency: Optional[LatencyModel] = None):
         _not_ported(cfg)
+        self.kv_backend = _kv_backend(cfg, model)
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -149,12 +173,16 @@ class ServingEngine:
             hbm_bytes=hbm, dram_bytes=1e12, bytes_per_token_fp=bpt,
             swap_bw=cfg.swap_bw, quantize_offload=cfg.quantize_offload,
             reserve_policy="reserve_max" if cfg.strategy == "orca" else "ondemand",
-            reserve_max_tokens=cfg.max_new_tokens, page_size=cfg.page_size)
+            reserve_max_tokens=cfg.max_new_tokens,
+            page_size=(cfg.page_size if self.kv_backend == "paged" else None))
         self.mem = TieredKVManager(mem_cfg)
         self.predictor = predictor or RetrievalPredictor(seed=cfg.seed)
         self.latency = latency or LatencyModel(t0=1e-4, alpha=1e-6, beta=1e-2)
+        # chunked prefill needs model support (the attention family); other
+        # families keep monolithic whole-prompt spans
+        self._chunked_ok = model.supports_chunked_prefill()
         buckets: Optional[Tuple[int, ...]] = None
-        if cfg.prefill_chunk and cfg.prefill_buckets:
+        if self._chunked_ok and cfg.prefill_chunk and cfg.prefill_buckets:
             buckets = tuple(sorted({int(b) for b in cfg.prefill_buckets}))
             if buckets[0] <= 0:
                 raise ValueError("prefill buckets must be positive")
@@ -164,7 +192,7 @@ class ServingEngine:
             base_quantum=cfg.base_quantum, quantum_growth=cfg.quantum_growth,
             age_threshold=cfg.age_threshold, strategy=cfg.strategy,
             max_new_tokens=cfg.max_new_tokens,
-            prefill_chunk=cfg.prefill_chunk,
+            prefill_chunk=(cfg.prefill_chunk if self._chunked_ok else None),
             iter_token_budget=cfg.iter_token_budget,
             prefill_buckets=buckets)
         self.sched = Scheduler(sched_cfg, self.predictor, self.latency, self.mem)
@@ -176,8 +204,11 @@ class ServingEngine:
             quantize_offload=cfg.quantize_offload, page_size=cfg.page_size,
             attn_impl=cfg.paged_attn_impl, seed=cfg.seed,
             prefill_buckets=buckets)
-        num_pages = max(1, int(hbm // (cfg.page_size * bpt)))
-        self.kv = PagedKVBackend(model, bcfg, num_pages)
+        if self.kv_backend == "paged":
+            num_pages = max(1, int(hbm // (cfg.page_size * bpt)))
+            self.kv = PagedKVBackend(model, bcfg, num_pages)
+        else:
+            self.kv = DenseKVBackend(model, bcfg)
         self.host_pool: Dict[int, dict] = {}       # req_id -> offloaded KV
         # bounded profiling rings (entries lead with a perf_counter stamp):
         #   iter_times:    (t_mono, ctx_tokens, batch, dt)
@@ -218,6 +249,21 @@ class ServingEngine:
             new_ctx=one(new_ctx), true_len=one(true_len))
         out = torch.stack([tok, reason]).cpu()
         return int(out[0, 0]), REASONS[int(out[1, 0])]
+
+    def _run_prefill(self, req: Request, tokens: List[int]):
+        """Monolithic prefill for families without chunked prefill
+        (``ssm``): one ``Model.prefill`` pass over the whole prompt, its
+        state placed into a free lane.  The prompt goes in unpadded: an SSM
+        state depends on every step.  Returns the last-token logits
+        (1, V)."""
+        if self.kv.free_slot() is None:
+            raise RuntimeError("no free decode lane: the caller must check "
+                               "free_slot()")
+        toks = torch.as_tensor([tokens], dtype=torch.int64,
+                               device=self.model.device)
+        logits, pcache = self.model.prefill(self.params, {"tokens": toks})
+        self.kv.write_prefill(req.req_id, pcache, len(tokens))
+        return logits
 
     def _true_len_of(self, req: Request) -> int:
         return (req.true_out_len if self.cfg.respect_true_len
@@ -272,17 +318,26 @@ class ServingEngine:
     def _exec_prefill_chunk(self, chunk: PrefillChunk, generated_of,
                             t: float) -> bool:
         """Execute one PrefillChunk: claim a lane and admit memory, run the
-        chunk through the backend's resumable prefill and, when the final
-        chunk of a fresh prefill completes, sample the first token.
-        Returns whether the chunk made progress."""
+        chunk through the backend's resumable prefill (or, for a family
+        without one, the whole target through the monolithic prefill) and,
+        when the final chunk of a fresh prefill completes, sample the first
+        token.  Returns whether the chunk made progress."""
         r = chunk.req
         status, start, target_toks = self._chunk_prework(chunk, t)
         if status != "ready":
             return False
         t0 = time.perf_counter()
-        logits = self.kv.prefill_chunk(
-            self.params, r.req_id, target_toks[start:chunk.end], start)
-        r.prefilled = chunk.end
+        if self._chunked_ok:
+            logits = self.kv.prefill_chunk(
+                self.params, r.req_id, target_toks[start:chunk.end], start)
+            r.prefilled = chunk.end
+            n_toks = chunk.end - start
+        else:
+            if chunk.start != 0 or not chunk.last:
+                raise RuntimeError("the monolithic prefill cannot resume a "
+                                   "partial chunk")
+            logits = self._run_prefill(r, target_toks)
+            r.prefilled = n_toks = len(target_toks)
         if chunk.last and r.generated == 0:   # fresh prefill emits a token
             tok, reason = self._sample_host(
                 logits[0], r.req_id, 1, r.context_len + 1,
@@ -293,7 +348,7 @@ class ServingEngine:
             if logits.is_cuda:
                 torch.cuda.synchronize(logits.device)
             dt = time.perf_counter() - t0
-        self.prefill_times.append((t0, chunk.end - start, dt))
+        self.prefill_times.append((t0, n_toks, dt))
         return True
 
     # -------------------------------------------------------------- warmup
@@ -303,12 +358,14 @@ class ServingEngine:
         and the all-inactive decode step; the measured seconds land in
         ``self.latency.bucket_costs`` so EWT prices a bucketed chunk at its
         padded cost.  Warm chunks write a throwaway lane whose pages are
-        freed; the inactive decode writes only the scratch page."""
+        freed; the inactive decode writes only the paged backend's scratch
+        page (the dense backend keeps inactive lanes' state).  A family
+        without chunked prefill has no bucket to time."""
         if self.sched.live:
             raise RuntimeError("warmup() requires an idle engine")
         costs: Dict[int, float] = {}
         menu = self._buckets
-        if menu is None and self.cfg.prefill_chunk:
+        if menu is None and self._chunked_ok and self.cfg.prefill_chunk:
             menu = default_bucket_menu(self.cfg.prefill_chunk)
         warm_rid = -(1 << 30)       # never collides with real request ids
         for b in (menu or ()):

@@ -1,14 +1,18 @@
 """Serving launcher of the PyTorch port: end-to-end ALISE serving of a real
-model on the paged KV backend (batch mode).
+model (batch mode).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch-size full \
         --strategy alise --n-requests 16 --prefill-chunk 256
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --arch-size full --n-requests 8
 
-runs granite-3-8b at full width on the GPU with random weights from
+run granite-3-8b on the paged KV backend, and mamba2-2.7b on the dense
+state backend (each model's own; ``--kv-backend`` may name it), at full width on the GPU with random weights from
 ``--seed``; ``--arch-size smoke --device cpu`` runs the reduced config on
 the CPU.  On a GPU the paged decode attention and the chunk attention
 default to the CUDA kernels (``--paged-attn-impl kernel --chunk-attn
-flash``); ``gather``/``masked`` are the plain reference modes.
+flash``); ``gather``/``masked`` are the plain reference modes.  RMSNorm
+and the SSD chunk step always take their kernels on a GPU.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ASSIGNED_ARCHS, get_config, get_smoke_config
 from repro_torch.core.engine import EngineConfig, ServingEngine
 from repro_torch.core.predictor import OraclePredictor, RetrievalPredictor
 from repro_torch.core.request import Request, reset_request_counter
@@ -81,11 +85,11 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
           iter_token_budget: Optional[int] = None,
           paged_attn_impl: Optional[str] = None,
           chunk_attn: Optional[str] = None, page_size: int = 16,
-          device=None, model_and_params=None, warmup: bool = False,
-          verbose: bool = True):
+          kv_backend: Optional[str] = None, device=None, model_and_params=None,
+          warmup: bool = False, verbose: bool = True):
     """Build (or take) the model, serve ``n_requests`` through
-    ``ServingEngine.serve`` and print a summary.  Returns ``(requests,
-    engine)``."""
+    ``ServingEngine.serve`` and print a summary.  ``kv_backend`` None takes
+    the model's own.  Returns ``(requests, engine)``."""
     dev = resolve_device(device)
     model, params = model_and_params or build_model(
         arch, arch_size, dev, chunk_attn, seed)
@@ -93,7 +97,7 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
     max_seq, max_new = SIZES[arch_size]
     eng = ServingEngine(model, params, EngineConfig(
         max_slots=max_slots, max_seq_len=max_seq, max_new_tokens=max_new,
-        strategy=strategy, quantize_offload=quantize, kv_backend="paged",
+        strategy=strategy, quantize_offload=quantize, kv_backend=kv_backend,
         page_size=page_size, paged_attn_impl=impl,
         prefill_chunk=prefill_chunk, iter_token_budget=iter_token_budget,
         warmup_compile=warmup, seed=seed),
@@ -103,8 +107,10 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
     if verbose:
         lat = [r.e2e_latency for r in reqs if r.e2e_latency is not None]
         norm = [r.normalized_latency for r in reqs if r.normalized_latency]
+        path = (f"attn {impl}/{model.chunk_attn_impl}"
+                if eng.kv_backend == "paged" else "dense state")
         print(f"[serve] {strategy} on {eng.device} ({model.cfg.name} "
-              f"{arch_size}, attn {impl}/{model.chunk_attn_impl}): "
+              f"{arch_size}, {path}): "
               f"{len(lat)}/{len(reqs)} finished; "
               f"mean latency {np.mean(lat) if lat else float('nan'):.3f}s; "
               f"normalized {np.mean(norm) * 1e3 if norm else float('nan'):.1f}"
@@ -117,7 +123,7 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-3-8b")
+    ap.add_argument("--arch", default="granite-3-8b", choices=ASSIGNED_ARCHS)
     ap.add_argument("--arch-size", default="smoke", choices=sorted(SIZES),
                     help="'full' is the published config (CONFIG), "
                          "'smoke' the reduced one (smoke_config())")
@@ -146,6 +152,11 @@ def main():
                     choices=["masked", "flash"],
                     help="chunk attention: dense masked (reference) or the "
                          "CUDA prefix flash kernel (default on a GPU)")
+    ap.add_argument("--kv-backend", default=None,
+                    choices=["paged", "dense"],
+                    help="device KV storage (default: the model's own): the "
+                         "paged pool (attention family) or the dense slotted "
+                         "state (mamba2-2.7b)")
     ap.add_argument("--warmup", action="store_true",
                     help="time every prefill bucket before serving")
     args = ap.parse_args()
@@ -154,7 +165,7 @@ def main():
           quantize=not args.no_quantize, prefill_chunk=args.prefill_chunk,
           iter_token_budget=args.iter_token_budget,
           paged_attn_impl=args.paged_attn_impl, chunk_attn=args.chunk_attn,
-          device=args.device, warmup=args.warmup)
+          kv_backend=args.kv_backend, device=args.device, warmup=args.warmup)
 
 
 if __name__ == "__main__":

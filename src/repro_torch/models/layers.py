@@ -1,5 +1,5 @@
-"""Composable model layers, attention-family subset: norms, RoPE, GQA
-attention (full / decode), dense FFN.
+"""Composable model layers, attention-family subset: norms (RMSNorm through
+the fused kernel), RoPE, GQA attention (full / decode), dense FFN.
 
 Everything is a plain function over an explicit parameter dict, mirroring
 ``repro.models.layers`` so each function can be checked against its jnp
@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm, rmsnorm_ref
 from repro_torch.models.config import ArchConfig
 
 # --------------------------------------------------------------------- init
@@ -33,14 +34,21 @@ def init_norm(cfg: ArchConfig, dim: int, dtype, device=None):
     return p
 
 
-def apply_norm(cfg: ArchConfig, p, x, eps: float = 1e-5):
+def apply_norm(cfg: ArchConfig, p, x, eps: float = 1e-5, *,
+               use_kernel: bool = True):
+    """RMSNorm or LayerNorm over the last axis, in float32, returned in x's
+    dtype.  RMSNorm goes through the fused kernel's wrapper (the CUDA
+    kernel for a CUDA tensor, its plain version for a CPU tensor) over x
+    viewed as (rows, d); ``use_kernel=False`` takes the plain version on
+    any device.  LayerNorm stays plain."""
+    if cfg.norm_type != "layernorm":
+        rows = x.reshape(-1, x.shape[-1]).contiguous()
+        norm = fused_rmsnorm if use_kernel else rmsnorm_ref
+        return norm(rows, p["scale"], eps).reshape(x.shape)
     xf = x.float()
-    if cfg.norm_type == "layernorm":
-        xf = xf - xf.mean(-1, keepdim=True)
+    xf = xf - xf.mean(-1, keepdim=True)
     var = (xf * xf).mean(-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * p["scale"].float()
-    if cfg.norm_type == "layernorm":
-        y = y + p["bias"].float()
+    y = xf * torch.rsqrt(var + eps) * p["scale"].float() + p["bias"].float()
     return y.to(x.dtype)
 
 

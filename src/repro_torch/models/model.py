@@ -1,13 +1,15 @@
-"""Model assembly for the PyTorch port: the attention-family decoder's
-serving entry points (chunked paged prefill, fused paged decode).
+"""Model assembly for the PyTorch port: the serving entry points of the
+attention-family decoder (chunked paged prefill, fused paged decode) and
+of the Mamba-2 (``ssm``) family (monolithic prefill, fused recurrent
+decode over a dense state cache).
 
 Parameters are a plain dict: ``embed``, ``final_norm.scale`` and a list
-``layers`` with one dict per layer (``ln1``, ``attn.{wq,wk,wv,wo}``,
-``ln2``, ``ffn.*``).  Where the JAX reference runs ``lax.scan`` over
-layers stacked on axis 0, the port loops over the list in Python.  Where
-the reference rebuilt the page pool functionally and returned it, the
-port writes the pool **in place** (``index_put_``) and returns only the
-logits.
+``layers`` with one dict per layer (``ln1`` and ``attn.{wq,wk,wv,wo}`` or
+``ssm.*``, then ``ln2`` and ``ffn.*`` where the family has an FFN).  Where
+the JAX reference runs ``lax.scan`` over layers stacked on axis 0, the
+port loops over the list in Python.  Where the reference rebuilt the page
+pool or the decode cache functionally and returned it, the port writes it
+**in place** and returns only the logits.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from repro_torch.kernels.flash_prefill import flash_prefill_prefix
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models.config import ArchConfig
 from repro_torch.serving.sampler import sample_and_reason
 from repro_torch.utils import dtype_of, resolve_device
@@ -56,11 +59,20 @@ def params_from_numpy(cfg: ArchConfig, np_params, device=None) -> Params:
 
 
 class Model:
-    """Attention-family decoder (dense FFN): pure functions over explicit
-    params, on one device."""
+    """Attention-family decoder (dense FFN) or Mamba-2 stack: pure functions
+    over explicit params, on one device.
+
+    ``use_kernels`` (default True) sends every RMSNorm and the SSD chunk
+    step to their kernel wrappers (CUDA kernels for CUDA tensors, plain
+    versions for CPU tensors); False runs their plain versions on any
+    device, the reference path the kernels are held against on the card.
+    The attention kernels have their own switches (``chunk_attn_impl``,
+    the decode step's ``attn_impl``).
+    """
 
     def __init__(self, cfg: ArchConfig, *, kv_dtype: str = "bfloat16",
-                 chunk_attn_impl: str = "masked", device=None):
+                 chunk_attn_impl: str = "masked", ssd_chunk: int = 256,
+                 use_kernels: bool = True, device=None):
         if chunk_attn_impl not in ("masked", "flash"):
             raise ValueError(f"chunk_attn_impl={chunk_attn_impl!r} "
                              "(want 'masked' or 'flash')")
@@ -68,17 +80,22 @@ class Model:
             raise NotImplementedError(
                 f"family={cfg.family} (enc_dec={cfg.is_encoder_decoder}, "
                 f"moe={cfg.has_moe}) is not ported yet: ROADMAP.md Queue 1 "
-                "item 13 (other families)")
+                "item 13 (MoE, hybrid, encoder-decoder)")
         self.cfg = cfg
         self.chunk_attn_impl = chunk_attn_impl
+        self.ssd_chunk = ssd_chunk
+        self.use_kernels = use_kernels
         self.kv_dtype = kv_dtype
         self.dtype = dtype_of(cfg.param_dtype)
         self.device = resolve_device(device)
 
     @staticmethod
     def supports_family(cfg: ArchConfig) -> bool:
-        return (cfg.family not in ("ssm", "hybrid")
-                and not cfg.is_encoder_decoder and not cfg.has_moe)
+        return (cfg.family != "hybrid" and not cfg.is_encoder_decoder
+                and not cfg.has_moe)
+
+    def _norm(self, p, x):
+        return L.apply_norm(self.cfg, p, x, use_kernel=self.use_kernels)
 
     # ------------------------------------------------------------- params
     def init(self, generator: torch.Generator) -> Params:
@@ -96,13 +113,23 @@ class Model:
             params["lm_head"] = L._dense_init(
                 generator, (cfg.d_model, cfg.vocab_size), dtype=dtype,
                 device=dev)
-        params["layers"] = [
-            {"ln1": L.init_norm(cfg, cfg.d_model, dtype, dev),
-             "attn": L.init_attention(cfg, generator, dtype, dev),
-             "ln2": L.init_norm(cfg, cfg.d_model, dtype, dev),
-             "ffn": L.init_ffn(cfg, generator, dtype, dev)}
-            for _ in range(cfg.num_layers)]
+        params["layers"] = [self._init_layer(generator)
+                            for _ in range(cfg.num_layers)]
         return params
+
+    def _init_layer(self, generator):
+        """One layer in the reference's layout (``_init_sublayer``): ``ln1``
+        and the mixer, then ``ln2`` and ``ffn`` unless ``d_ff == 0``."""
+        cfg, dtype, dev = self.cfg, self.dtype, self.device
+        p = {"ln1": L.init_norm(cfg, cfg.d_model, dtype, dev)}
+        if cfg.layer_kind(0) == "ssm":
+            p["ssm"] = M.init_mamba_block(cfg, generator, dtype, dev)
+        else:
+            p["attn"] = L.init_attention(cfg, generator, dtype, dev)
+        if cfg.ffn_kind(0) == "dense":
+            p["ln2"] = L.init_norm(cfg, cfg.d_model, dtype, dev)
+            p["ffn"] = L.init_ffn(cfg, generator, dtype, dev)
+        return p
 
     # --------------------------------------------------------------- embed
     def _embed_in(self, params, tokens):
@@ -114,15 +141,22 @@ class Model:
         return h @ head
 
     def _ffn_block(self, p_l, h):
+        if "ffn" not in p_l:                # d_ff == 0: the mixer is all
+            return h
         return h + L.apply_ffn(self.cfg, p_l["ffn"],
-                               L.apply_norm(self.cfg, p_l["ln2"], h))
+                               self._norm(p_l["ln2"], h))
 
     # ------------------------------------------------------ chunked prefill
     def supports_chunked_prefill(self) -> bool:
-        return True
+        """Chunked (resumable) prefill covers the attention family; an SSM
+        state would need a cross-chunk handoff, so ``ssm`` prefills
+        monolithically (:meth:`prefill`)."""
+        return self.cfg.family != "ssm"
 
     def supports_paged(self) -> bool:
-        return True
+        """Paged KV covers the attention family; SSM state is constant-size
+        (paging buys nothing) and lives in the dense backend."""
+        return self.cfg.family != "ssm"
 
     def _chunk_attn(self, q, k_all, v_all, q_pos, kv_pos, start):
         """Attention for one prefill chunk.
@@ -171,7 +205,7 @@ class Model:
         tables = block_tables[0].long()
         for li, p_l in enumerate(params["layers"]):
             k_pool, v_pool = kv["k"][li], kv["v"][li]
-            h1 = L.apply_norm(cfg, p_l["ln1"], x)
+            h1 = self._norm(p_l["ln1"], x)
             q, k, v = L._project_qkv(cfg, p_l["attn"], h1, q_pos)
             k_pool.index_put_((wp, wo), k[0].to(k_pool.dtype))
             v_pool.index_put_((wp, wo), v[0].to(v_pool.dtype))
@@ -181,7 +215,7 @@ class Model:
             x = x + attn.reshape(1, C, -1) @ p_l["attn"]["wo"]
             x = self._ffn_block(p_l, x)
         last = min(max(chunk_len - 1, 0), C - 1)
-        x_last = L.apply_norm(cfg, params["final_norm"], x[:, last])
+        x_last = self._norm(params["final_norm"], x[:, last])
         return self._logits(params, x_last).float()
 
     # ------------------------------------------------------- paged decode
@@ -216,7 +250,7 @@ class Model:
         n_pages = block_tables.shape[1]
         for li, p_l in enumerate(params["layers"]):
             k_pool, v_pool = kv["k"][li], kv["v"][li]
-            h1 = L.apply_norm(cfg, p_l["ln1"], x)
+            h1 = self._norm(p_l["ln1"], x)
             q, k, v = L._project_qkv(cfg, p_l["attn"], h1, positions)
             k_pool.index_put_((wp, wo), k[:, 0].to(k_pool.dtype))
             v_pool.index_put_((wp, wo), v[:, 0].to(v_pool.dtype))
@@ -231,7 +265,7 @@ class Model:
                 attn = L.decode_attention(cfg, q[:, 0], kg, vg, lens1)
             x = x + (attn.reshape(B, -1) @ p_l["attn"]["wo"])[:, None, :]
             x = self._ffn_block(p_l, x)
-        x = L.apply_norm(cfg, params["final_norm"], x[:, -1, :])
+        x = self._norm(params["final_norm"], x[:, -1, :])
         return self._logits(params, x).float()
 
     def paged_decode_step_sampled(self, params, kv, tokens, block_tables,
@@ -255,3 +289,110 @@ class Model:
             max_new_tokens=max_new_tokens, max_seq_len=max_seq_len,
             new_gen=new_gen, new_ctx=new_ctx, true_len=true_len)
         return tok, torch.where(active, reason, torch.zeros_like(reason))
+
+    # ---------------------------------------------- monolithic prefill (ssm)
+    def _require_ssm(self, what: str) -> None:
+        if self.cfg.family != "ssm":
+            raise NotImplementedError(
+                f"{what} for family={self.cfg.family} is not ported yet: "
+                "ROADMAP.md Queue 1 item 5 (the attention family's dense "
+                "backend: Model.prefill_chunk and the dense decode_step)")
+
+    @torch.no_grad()
+    def prefill(self, params, batch):
+        """Process whole prompts in one pass; return (last-token logits
+        (B, V) float32, cache).
+
+        ``batch``: ``tokens`` (B, S), unpadded (an SSM state depends on
+        every step).  The cache is the reference's ``_pack_cache`` layout:
+        ``lengths`` (B,) int32, ``conv`` (L, B, W-1, Ch) in the working
+        dtype and ``ssm`` (L, B, H, P, N) float32."""
+        self._require_ssm("monolithic prefill")
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = self._embed_in(params, tokens)
+        B, S = x.shape[:2]
+        convs, ssms = [], []
+        for p_l in params["layers"]:
+            h = self._norm(p_l["ln1"], x)
+            out, state = M.mamba_block(cfg, p_l["ssm"], h,
+                                       chunk=self.ssd_chunk, return_state=True,
+                                       use_kernel=self.use_kernels)
+            x = self._ffn_block(p_l, x + out)
+            convs.append(state["conv"])
+            ssms.append(state["ssm"])
+        x_last = self._norm(params["final_norm"], x[:, -1, :])
+        cache = {"lengths": torch.full((B,), S, dtype=torch.int32,
+                                       device=x.device),
+                 "conv": torch.stack(convs), "ssm": torch.stack(ssms)}
+        return self._logits(params, x_last).float(), cache
+
+    # ------------------------------------------------ recurrent decode (ssm)
+    @torch.no_grad()
+    def decode_step(self, params, cache, tokens, active=None):
+        """One decode iteration over the dense state cache, written **in
+        place**.  ``tokens`` (B, 1).  Returns logits (B, V) float32.
+
+        ``active`` (B,) bool, when given, limits the state writes and the
+        ``lengths`` advance to active lanes: an inactive lane's state (a
+        request prefilled this iteration, or a free lane) is left as it
+        was.  Without it every lane advances, as the reference's
+        ``decode_step``."""
+        self._require_ssm("the dense decode step")
+        cfg = self.cfg
+        x = self._embed_in(params, tokens)                      # (B, 1, D)
+
+        def write(dst, src):
+            if active is None:
+                dst.copy_(src)
+            else:
+                keep = active.view(-1, *([1] * (src.dim() - 1)))
+                dst.copy_(torch.where(keep, src.to(dst.dtype), dst))
+
+        for li, p_l in enumerate(params["layers"]):
+            h = self._norm(p_l["ln1"], x)
+            state = {"conv": cache["conv"][li], "ssm": cache["ssm"][li]}
+            out, new = M.mamba_decode_step(cfg, p_l["ssm"], h[:, 0, :], state,
+                                           use_kernel=self.use_kernels)
+            write(state["conv"], new["conv"])
+            write(state["ssm"], new["ssm"])
+            x = self._ffn_block(p_l, x + out[:, None, :])
+        cache["lengths"] += (1 if active is None
+                             else active.to(cache["lengths"].dtype))
+        x = self._norm(params["final_norm"], x[:, -1, :])
+        return self._logits(params, x).float()
+
+    def decode_step_sampled(self, params, cache, tokens, active, new_gen,
+                            new_ctx, true_len, rids, *, seed: int = 0,
+                            greedy_sampling=True, temp: float = 1.0,
+                            top_k: int = 0, eos_token: int = 1,
+                            max_new_tokens: int = 128,
+                            max_seq_len: int = 256):
+        """Fused dense decode: decode + sample + terminate on the device.
+        Each lane's draw is named by ``(rids, new_gen - 1)``.  Inactive
+        lanes keep their state and get reason 0.  Returns ``(sampled (B,),
+        reason (B,))`` int32 tensors on the model's device."""
+        logits = self.decode_step(params, cache, tokens, active)
+        tok, reason = sample_and_reason(
+            logits, rids, new_gen - 1, greedy_sampling=greedy_sampling,
+            seed=seed, temp=temp, top_k=top_k, eos_token=eos_token,
+            max_new_tokens=max_new_tokens, max_seq_len=max_seq_len,
+            new_gen=new_gen, new_ctx=new_ctx, true_len=true_len)
+        return tok, torch.where(active, reason, torch.zeros_like(reason))
+
+    # --------------------------------------------------------- cache specs
+    def cache_shapes(self, batch: int) -> Dict[str, Any]:
+        """``{key: (shape, dtype)}`` of a dense decode cache for ``batch``
+        lanes (an SSM state is constant-size)."""
+        self._require_ssm("the dense decode cache")
+        cfg = self.cfg
+        n = cfg.num_layers
+        return {"lengths": ((batch,), torch.int32),
+                "conv": ((n, batch, cfg.conv_width - 1,
+                          cfg.d_inner + 2 * cfg.ssm_state), self.dtype),
+                "ssm": ((n, batch, cfg.ssm_heads, cfg.ssm_headdim,
+                         cfg.ssm_state), torch.float32)}
+
+    def init_cache(self, batch: int) -> Dict[str, Any]:
+        return {k: torch.zeros(shape, dtype=dt, device=self.device)
+                for k, (shape, dt) in self.cache_shapes(batch).items()}

@@ -1,6 +1,7 @@
-"""The paged KV page pool and the paged KV backend of the serving engine.
+"""The KV / state backends of the serving engine: the paged KV page pool
+with its paged backend, and the dense slotted backend.
 
-Two layers live here, as in ``repro.serving.kv_cache``:
+Three layers live here, as in ``repro.serving.kv_cache``:
 
   * :class:`PagedKVPool` — the vLLM-style block allocator (physical pages +
     refcounted per-request page tables) ALISE's request-level swapping
@@ -12,14 +13,20 @@ Two layers live here, as in ``repro.serving.kv_cache``:
     request-granular offload/upload blobs, and ``decode()`` — one fused
     step per iteration that samples and decides termination on the device
     (one small ``(tokens, reasons)`` copy to the host).
+  * :class:`DenseKVBackend` — one slice of ``model.init_cache`` per lane,
+    for the families whose prefill is monolithic (``ssm`` in the port):
+    each lane holds a request's constant-size conv and SSM state, and a
+    preemption swaps that state to the host and back.
 
-Offload/upload run the INT8 ``kv_quant`` kernels on the device when
+Paged offload/upload run the INT8 ``kv_quant`` kernels on the device when
 ``quantize_offload`` is set (paper Eq. 8): the host link carries the INT8
-payload plus float32 per-row scales and zeros.
+payload plus float32 per-row scales and zeros.  The dense backend stores
+conv and SSM state raw, as the reference does: INT8 applies to K/V only.
 
 Not ported yet (a config that asks for one raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item): the dense backend, packed prefill, the
-shared-prefix cache, the cluster KV tier and speculative decoding.
+naming its ``ROADMAP.md`` item): the dense backend of the attention
+family, packed prefill, the shared-prefix cache, the cluster KV tier and
+speculative decoding.
 """
 from __future__ import annotations
 
@@ -244,6 +251,16 @@ class KVBackend:
     def _t(self, a, dtype=torch.int32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
+    def chunk_pages_shortfall(self, rid: int, end: int) -> int:
+        """Physical pages missing to extend ``rid``'s KV coverage to
+        ``end`` tokens (always 0 without a page pool)."""
+        return 0
+
+    def pages_shortfall(self, rids: List[int]) -> int:
+        """Physical pages missing to decode one token for each of ``rids``
+        (always 0 without a page pool)."""
+        return 0
+
 
 class PagedKVBackend(KVBackend):
     """Paged KV storage: decode lanes share one physical page pool.
@@ -407,5 +424,85 @@ class PagedKVBackend(KVBackend):
             self._t(new_gen), self._t(new_ctx), self._t(true_len),
             self._t(rids), attn_impl=self.cfg.attn_impl,
             **self._sample_kwargs())
+        out = torch.stack([tok, reason]).cpu().numpy()
+        return out[0], out[1]
+
+
+class DenseKVBackend(KVBackend):
+    """Slotted dense decode state: ``model.init_cache(max_slots)`` on the
+    device, one slice per lane along each key's batch axis, written **in
+    place**.  In the port it serves the ``ssm`` family, whose prefill is
+    monolithic (``Model.prefill``) and whose decode state is a
+    constant-size conv window and SSM state per layer.
+    """
+
+    def __init__(self, model, cfg: KVBackendConfig):
+        super().__init__(model, cfg)
+        self.cache = model.init_cache(cfg.max_slots)
+        self._axes = self._cache_batch_axes()
+
+    def _cache_batch_axes(self) -> Dict[str, int]:
+        """Batch (lane) axis of each cache key."""
+        return {"lengths": 0, "conv": 1, "ssm": 1}
+
+    def _lane(self, key: str, slot: int):
+        """View of one lane's slice of ``cache[key]``."""
+        return self.cache[key].select(self._axes[key], slot)
+
+    # ---------------------------------------------------------- interface
+    def write_prefill(self, rid: int, pcache, length: int) -> None:
+        """Place batch index 0 of a ``Model.prefill`` cache into a free
+        lane."""
+        slot = self.free_slot()
+        if slot is None:
+            raise RuntimeError("no free decode lane: the caller must check "
+                               "free_slot()")
+        for key in self.cache:
+            if key == "lengths":
+                self.cache[key][slot] = length
+            else:
+                self._lane(key, slot).copy_(
+                    pcache[key].select(self._axes[key], 0))
+        self.slot_req[slot] = rid
+
+    def clear(self, rid: int) -> None:
+        slot = self.slot_of(rid)
+        if slot is None:
+            return
+        self.cache["lengths"][slot] = 0
+        self.slot_req[slot] = None
+
+    def offload(self, rid: int) -> dict:
+        """Copy ``rid``'s lane state to the host, raw (the reference stores
+        conv and SSM state unquantized), and free the lane."""
+        slot = self.slot_of(rid)
+        stored: dict = {"lengths": int(self.cache["lengths"][slot])}
+        for key in self.cache:
+            if key != "lengths":
+                stored[key] = ("raw", self._lane(key, slot).to("cpu",
+                                                               copy=True))
+        self.clear(rid)
+        return stored
+
+    def upload(self, rid: int, blob: dict) -> None:
+        """Restore an offloaded blob into a free lane."""
+        slot = self.free_slot()
+        if slot is None:
+            raise RuntimeError("no free decode lane for upload")
+        for key in self.cache:
+            if key == "lengths":
+                self.cache[key][slot] = blob["lengths"]
+            else:
+                self._lane(key, slot).copy_(blob[key][1])       # ("raw", t)
+        self.slot_req[slot] = rid
+
+    def decode(self, params, tokens, active, new_gen, new_ctx, true_len,
+               rids):
+        """One fused iteration -> (sampled (B,), reason (B,)) numpy.  Only
+        active lanes' state advances."""
+        tok, reason = self.model.decode_step_sampled(
+            params, self.cache, self._t(tokens, torch.int64),
+            self._t(active, torch.bool), self._t(new_gen), self._t(new_ctx),
+            self._t(true_len), self._t(rids), **self._sample_kwargs())
         out = torch.stack([tok, reason]).cpu().numpy()
         return out[0], out[1]

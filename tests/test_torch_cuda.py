@@ -8,9 +8,12 @@ so they run where JAX is not installed:
 
 Shapes sweep beyond the serving path's own (which ``chip_smoke.py``
 checks): GQA group sizes 1 to 8, head dims 64 and 128, pages of 8 to 32
-tokens, chunk lengths that are not multiples of the query tile, and rows
-that see a single key.  Tolerances are those of ``tests/test_kernels.py``:
-float32 2e-5, bfloat16 5e-2, INT8 codes within 1.
+tokens, chunk lengths that are not multiples of the query tile, rows that
+see a single key, RMSNorm widths that are not multiples of the block, and
+SSD chunks whose length, head dim and state size are not multiples of the
+kernel's tiles.  Tolerances are those of ``tests/test_kernels.py`` and
+``tests/test_kernels_ssd.py``: float32 2e-5, bfloat16 5e-2, INT8 codes
+within 1, the SSD chunk 1e-4 up to its test shapes (see ``_ssd_tol``).
 """
 import numpy as np
 import pytest
@@ -109,11 +112,90 @@ def test_kv_quant_kernels(dev, T, d):
     assert rel < 0.02
 
 
+@pytest.mark.parametrize("T,d", [(1, 64), (7, 2560), (300, 4096),
+                                 (33, 5120), (5, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+def test_fused_rmsnorm_kernel(dev, T, d, dtype, scale_dtype):
+    from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm, rmsnorm_ref
+    rng = np.random.default_rng(T + d)
+    x = _randn(rng, (T, d), dtype, dev) * 3.0
+    s = _randn(rng, (d,), scale_dtype, dev)
+    n0 = fused_rmsnorm.launches
+    out = fused_rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert fused_rmsnorm.launches == n0 + 1 and out.dtype == dtype
+    torch.testing.assert_close(out.float(), rmsnorm_ref(x, s).float(),
+                               atol=_tol(dtype), rtol=_tol(dtype))
+
+
+def _ssd_tol(Q, N):
+    """1e-4 (``tests/test_kernels_ssd.py``) up to its shapes (Q * N <= 64 *
+    16); beyond them float32 accumulation error grows with the square root
+    of the sums' lengths (N in C . B^T, Q in the sums over s), and so does
+    the tolerance."""
+    return 1e-4 * max(1.0, (Q * N / 1024) ** 0.5)
+
+
+@pytest.mark.parametrize("B,C,Q,H,P,N", [
+    (1, 2, 16, 2, 16, 16), (2, 4, 32, 4, 16, 16), (1, 2, 64, 2, 32, 8),
+    (1, 3, 37, 3, 24, 40), (2, 1, 100, 2, 64, 128), (1, 4, 256, 80, 64, 128),
+    (1, 1, 1024, 2, 128, 256),
+])
+def test_ssd_chunk_kernel(dev, B, C, Q, H, P, N):
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref
+    rng = np.random.default_rng(Q + H + N)
+    xbar = _randn(rng, (B, C, Q, H, P), torch.float32, dev)
+    dA = -_randn(rng, (B, C, Q, H), torch.float32, dev).abs() * 0.1
+    Bc = _randn(rng, (B, C, Q, N), torch.float32, dev)
+    Cc = _randn(rng, (B, C, Q, N), torch.float32, dev)
+    n0 = ssd_chunk.launches
+    out = ssd_chunk(xbar, dA, Bc, Cc)
+    torch.cuda.synchronize()
+    assert ssd_chunk.launches == n0 + 1
+    for o, r in zip(out, ssd_chunk_ref(xbar, dA, Bc, Cc)):
+        assert torch.isfinite(o).all()
+        tol = _ssd_tol(Q, N)
+        torch.testing.assert_close(o, r, atol=tol, rtol=tol)
+
+
+def test_ssd_chunked_kernel_path_matches_plain(dev):
+    """The model's SSD scan at a ragged length (padded to whole chunks) with
+    an initial state: the kernel path against the plain path."""
+    from repro_torch.models.mamba2 import ssd_chunked
+    rng = np.random.default_rng(11)
+    B, S, H, P, N = 2, 300, 4, 64, 128
+    x = _randn(rng, (B, S, H, P), torch.bfloat16, dev)
+    dt = torch.nn.functional.softplus(_randn(rng, (B, S, H), torch.float32,
+                                             dev))
+    A = -torch.exp(_randn(rng, (H,), torch.float32, dev) * 0.2)
+    Bm = _randn(rng, (B, S, N), torch.bfloat16, dev)
+    Cm = _randn(rng, (B, S, N), torch.bfloat16, dev)
+    s0 = _randn(rng, (B, H, P, N), torch.float32, dev)
+    y, s = ssd_chunked(x, dt, A, Bm, Cm, chunk=256, initial_state=s0)
+    yr, sr = ssd_chunked(x, dt, A, Bm, Cm, chunk=256, initial_state=s0,
+                         use_kernel=False)
+    torch.testing.assert_close(y.float(), yr.float(), atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(s, sr, atol=1e-3, rtol=1e-3)
+
+
 def test_kernels_reject_what_they_do_not_take(dev):
     from repro_torch.kernels.kv_quant import kv_quantize
     from repro_torch.kernels.paged_attention import paged_attention
     with pytest.raises(ValueError):
         kv_quantize(torch.zeros((4, 8), device=dev).t())     # not contiguous
+    from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+    with pytest.raises(ValueError):
+        fused_rmsnorm(torch.zeros((8, 4), device=dev).t(),    # not contiguous
+                      torch.ones((8,), device=dev))
+    with pytest.raises(TypeError):
+        z = torch.zeros((1, 1, 4, 1, 4), dtype=torch.bfloat16, device=dev)
+        ssd_chunk(z, z[..., 0], z[:, :, :, 0], z[:, :, :, 0])
+    with pytest.raises(ValueError):                         # Q > 1024
+        z = torch.zeros((1, 1, 1025, 1, 4), device=dev)
+        ssd_chunk(z, z[..., 0].contiguous(), z[:, :, :, 0].contiguous(),
+                  z[:, :, :, 0].contiguous())
     with pytest.raises(TypeError):
         paged_attention(torch.zeros((1, 2, 8), device=dev),
                         torch.zeros((2, 4, 1, 8), device=dev),

@@ -308,7 +308,7 @@ def test_serve_launcher_on_cpu():
     reqs, eng = serve(arch_size="smoke", n_requests=4, max_slots=2,
                       prefill_chunk=8, device="cpu", verbose=False)
     assert all(r.done and r.generated >= 1 for r in reqs)
-    assert eng.cfg.paged_attn_impl == "gather"
+    assert eng.cfg.paged_attn_impl == "gather" and eng.kv_backend == "paged"
     assert eng.model.chunk_attn_impl == "masked"
 
 
@@ -316,12 +316,16 @@ def test_serve_launcher_on_cpu():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter (this test process has JAX loaded): import
-    the port's package, engine, model, sampler, kv_cache and launcher,
-    then check that no ``jax*`` or ``repro.*`` module was loaded."""
+    the port's package, engine, model, Mamba-2 block, kernels, configs,
+    sampler, kv_cache and launcher, then check that no ``jax*`` or
+    ``repro.*`` module was loaded."""
     code = (
         "import sys\n"
         "import repro_torch\n"
         "import repro_torch.core.engine, repro_torch.models.model\n"
+        "import repro_torch.models.mamba2, repro_torch.configs.mamba2_2p7b\n"
+        "import repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.kernels.fused_rmsnorm\n"
         "import repro_torch.serving.sampler, repro_torch.serving.kv_cache\n"
         "import repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -239,11 +239,13 @@ def test_cpu_path_launches_nothing():
 def test_kernel_sources_and_build_flags():
     """Every kernel is CUDA C++ for sm_90a in csrc/, and each source names
     the TPU kernel it replaces."""
-    assert _build.sources() == ["flash_prefill_prefix", "kv_quant",
-                                "paged_attention"]
+    assert _build.sources() == ["flash_prefill_prefix", "fused_rmsnorm",
+                                "kv_quant", "paged_attention", "ssd_chunk"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for name, fn in (("paged_attention", "`paged_attention`"),
                      ("flash_prefill_prefix", "`flash_prefill_prefix`"),
-                     ("kv_quant", "`kv_quantize`")):
+                     ("kv_quant", "`kv_quantize`"),
+                     ("fused_rmsnorm", "`fused_rmsnorm`"),
+                     ("ssd_chunk", "`ssd_chunk`")):
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces:" in src and fn in src
