@@ -9,9 +9,11 @@ the final line:
   2. build: every CUDA kernel of ``src/repro_torch/csrc`` with nvcc for
      sm_90a, one process per source, with seconds and ptxas usage;
   3. kernels: each kernel against its plain PyTorch version at the serving
-     path's shapes (tolerances: float32 2e-5, bfloat16 5e-2, the bfloat16
-     RMSNorm within one bfloat16 rounding step of the plain output element
-     by element, INT8 codes within 1, round-trip relative error < 0.02, SSD
+     path's shapes, under ``torch.no_grad`` as the serving paths call them
+     (tolerances: float32 2e-5, bfloat16 5e-2 for the paged and prefix
+     kernels, the bfloat16 RMSNorm and full-sequence flash kernel within
+     one bfloat16 rounding step of the plain output element by element
+     (the flash kernel plus 2e-5), INT8 codes within 1, round-trip relative error < 0.02, SSD
      chunk rtol = atol = 1e-4 x sqrt(Q N / 1024)), with its time, the plain
      version's time, the least time the card could take (bytes over
      3.35 TB/s or operations over the dtype's peak rate, whichever is
@@ -44,20 +46,35 @@ the final line:
      request's greedy tokens must equal, bit for bit, those of a run of the
      same engine that serves it alone (no preemption);
  11. mamba profile: one full-batch decode step and one 1024-token prefill
-     under ``torch.profiler``, kernel and plain paths.
+     under ``torch.profiler``, kernel and plain paths;
+ 12. train reference: granite-3-8b at full width and 8 of its 40 layers in
+     float32 (random weights from a seed, one 4 x 1024 batch of the
+     synthetic stream), the loss and every gradient leaf through the
+     kernels (flash forward and RMSNorm kernel, plain recomputed
+     backwards) against ``use_kernels=False``: loss within 1e-4 relative,
+     every leaf present, nonzero and within a relative L2 of 1e-3;
+ 13. train: ``launch/train.train`` on the card, the same configuration, five
+     AdamW steps; every loss finite; ms per step, tokens/s, peak memory;
+ 14. train profile: one step under ``torch.profiler``, wall against device
+     busy, and the shares of the flash kernel, the plain attention
+     backward, the RMSNorm kernel and the weight products.
 
-Phase 3 also holds the RMSNorm kernel (rows of 2560 and 5120 for mamba,
+Phase 3 also holds the full-sequence flash kernel at the training shape
+(B 4, H 32, KVH 8, S 1024, d 128: f32 causal and bidirectional, bf16
+causal, a ragged S of 1000, d 64 bidirectional; SDPA timed as the
+yardstick), the RMSNorm kernel (rows of 2560 and 5120 for mamba,
 4096 for granite, bf16 and f32, with ``torch.nn.functional.rms_norm`` timed
 as the library yardstick) and the SSD chunk kernel (B 1, S 1024 = 4 chunks
 of 256, and one ragged chunk of 200 rows; 80 heads of 64, state 128, f32)
-against their plain versions.  There are two main paths,
+against their plain versions.  There are three main paths,
 each driven with every kernel's launch count set to 0 just before it and
 read just after: granite's phases 5 and 6 (the paged-attention, prefix
-flash and INT8 quant kernels must have launched) and mamba's phases 9 and
-10 (the RMSNorm and SSD chunk kernels must have launched).  Then a
-``kernels`` JSON line, the card's name and power limit, and the final
-``{"ok": true, "device": {...}}`` line.  Needs one CUDA card; exits
-non-zero without one.
+flash and INT8 quant kernels must have launched), mamba's phases 9 and
+10 (the RMSNorm and SSD chunk kernels must have launched) and training's
+phase 13 (the flash and RMSNorm kernels must have launched).  Each phase
+prints its seconds.  Then a ``kernels`` JSON line, the card's name and
+power limit, and the final ``{"ok": true, "device": {...}}`` line.  Needs
+one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -76,6 +93,18 @@ HBM_BYTES_PER_S = 3.35e12               # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,       # dense tensor-core rate
               "float32": 67e12}         # float32 outside the tensor cores
 SEED = 0
+
+
+class Clock:
+    """Prints each phase's seconds as it ends."""
+
+    def __init__(self, t0: float):
+        self.t = t0
+
+    def lap(self, what: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] {what}: {now - self.t:.1f}s", flush=True)
+        self.t = now
 
 
 def fail(msg: str) -> None:
@@ -209,6 +238,79 @@ def check_flash_prefix(torch, dev):
         if name == "bfloat16" and C == 256 and st == 1000:
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms)
+    return main
+
+
+def _sdpa(torch, q, k, v, causal):
+    """``F.scaled_dot_product_attention`` over GQA heads, the yardstick
+    (expanding the kv heads where this torch has no ``enable_gqa``)."""
+    import torch.nn.functional as F
+    try:
+        F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                       enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
+    except TypeError:
+        G = q.shape[1] // k.shape[1]
+        ke, ve = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+        return lambda: F.scaled_dot_product_attention(q, ke, ve,
+                                                      is_causal=causal)
+
+
+def check_flash_prefill(torch, dev):
+    """The full-sequence flash kernel at the training path's shape (B 4,
+    H 32, KVH 8, S 1024, d 128, the (B, S, H, d) projections viewed as
+    (B, H, S, d) without a copy): f32 causal and bidirectional (2e-5),
+    bf16 causal (each element within one bf16 rounding step of the plain
+    output, 2^-7 of it, plus 2e-5), a ragged S of 1000 and d 64
+    bidirectional (f32, 2e-5).  The bound counts the visible (query, key) pairs: 4 d flops
+    each.  Returns the f32 causal row, the shape training runs."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_ref)
+    B, H, KVH = 4, 32, 8
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    main = None
+    for name, S, d, causal in (("float32", 1024, 128, True),
+                               ("float32", 1024, 128, False),
+                               ("bfloat16", 1024, 128, True),
+                               ("float32", 1000, 128, True),
+                               ("float32", 1024, 64, False)):
+        dt = getattr(torch, name)
+
+        def mk(heads):
+            return torch.randn((B, S, heads, d), generator=g,
+                               device=dev).to(dt).transpose(1, 2)
+        q, k, v = mk(H), mk(KVH), mk(KVH)
+        out = flash_prefill(q, k, v, causal=causal)
+        ref = flash_prefill_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        kind = "causal" if causal else "bidirectional"
+        if name == "float32":
+            ok = err <= 2e-5
+        else:
+            # both sides accumulate in f32 and round once: at most one
+            # bf16 step of the plain output apart, plus f32's 2e-5
+            ok = bool((diff <= 2.0 ** -7 * ref.float().abs() + 2e-5).all())
+        if not ok:
+            fail(f"flash_prefill {name} {kind} S={S} d={d}: max_abs_err "
+                 f"{err} beyond its tolerance")
+        ms = time_ms(lambda: flash_prefill(q, k, v, causal=causal), 10)
+        plain = time_ms(lambda: flash_prefill_ref(q, k, v, causal=causal), 5)
+        lib_ms = time_ms(_sdpa(torch, q, k, v, causal), 10)
+        visible = S * (S + 1) // 2 if causal else S * S
+        b_ms, b_by = bound(nbytes(q, k, v, out), 4.0 * B * H * d * visible,
+                           name)
+        print(f"[kernel] flash_prefill {name} {kind} B={B} H={H} KVH={KVH} "
+              f"S={S} d={d}: max_err={err:.3g} kernel_ms={ms:.4f} "
+              f"plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"library_ms={lib_ms:.4f} (SDPA)", flush=True)
+        if main is None:
+            main = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib_ms)
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
     return main
 
 
@@ -418,25 +520,6 @@ def reference_check(torch, model, params):
         fail(f"reference: kernel-path logits differ (rel_l2 {rel})")
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def reset_counts(kernels):
     for k in kernels.values():
         k.launches = 0
@@ -537,6 +620,13 @@ def _kernel_name(name: str) -> str:
     return name.split("(")[0].split("<")[0][:40]
 
 
+def _is_kernel(torch, e) -> bool:
+    """A device event that is a kernel or copy (not a user annotation's
+    span on the device timeline)."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
+
+
 def profile_step(torch, label: str, step, n: int = 5) -> None:
     """One line on where ``step``'s time goes: host wall ms per call
     without the profiler (``n`` calls, synchronized), then the device's
@@ -558,7 +648,7 @@ def profile_step(torch, label: str, step, n: int = 5) -> None:
         torch.cuda.synchronize()
     by_kernel = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if _is_kernel(torch, e):
             name = _kernel_name(e.name)
             by_kernel[name] = (by_kernel.get(name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / n)
@@ -627,7 +717,8 @@ def mamba_reference_check(torch, model, params):
     rng = np.random.default_rng(SEED + 7)
     prompt = torch.tensor(rng.integers(2, model.cfg.vocab_size, (1, 300)),
                           device=model.device)
-    p32 = _tree_map(lambda t: t.float(), params)
+    from repro_torch.utils import tree_map
+    p32 = tree_map(lambda t: t.float(), params)
     toks = []
 
     def run(ps, use):
@@ -817,6 +908,181 @@ def phase_mamba_profile(torch, model, params):
     model.use_kernels = True
 
 
+# ---------------------------------------------------- phases 12 to 14
+
+TRAIN = dict(layers=8, batch=4, seq=1024, steps=5)
+
+
+def _train_setup(torch, dev):
+    """granite-3-8b at full width and 8 of its 40 layers in float32, as
+    ``launch/train.py`` builds it for ``seq_len`` 1024 (attention chunks of
+    512 for the plain version), and the first batch of the synthetic
+    stream."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    cfg = get_config("granite-3-8b").scaled(param_dtype="float32",
+                                            num_layers=TRAIN["layers"])
+    model = Model(cfg, attn_chunk=TRAIN["seq"] // 2, device=dev)
+    data = SyntheticLM(cfg, DataConfig(batch_size=TRAIN["batch"],
+                                       seq_len=TRAIN["seq"]))
+    return model, next(data.iterate(device=dev))
+
+
+def train_reference(torch, dev):
+    """The training path's loss and gradients through the kernels (flash
+    forward + plain recomputed backward, RMSNorm kernel + plain backward)
+    against ``use_kernels=False`` (the plain online-softmax attention and
+    plain RMSNorm, autograd throughout) on the same random params and
+    batch: the loss within 1e-4 relative, every gradient leaf present,
+    finite, nonzero and within a relative L2 of 1e-3.  A kernel that cut
+    the graph would leave its inputs' leaves without gradient or with a
+    wrong one."""
+    from repro_torch.utils import tree_leaves
+    model, batch = _train_setup(torch, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    named = [(path, p.requires_grad_(True)) for path, p in
+             tree_leaves(params)]
+    leaves = [p for _, p in named]
+    out = {}
+    for use in (True, False):
+        model.use_kernels = use
+        t0 = time.perf_counter()
+        loss, parts = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        out[use] = (loss.item(), parts["ce"].item(), grads,
+                    time.perf_counter() - t0)
+        del loss, parts
+    model.use_kernels = True
+    (lk, cek, gk, tk), (lp, cep, gp, tp) = out[True], out[False]
+    worst, worst_at = -1.0, None
+    for (path, _), a, b in zip(named, gk, gp):
+        if a is None or b is None:
+            fail(f"train reference: no gradient for {path}")
+        if not (torch.isfinite(a).all() and a.abs().max().item() > 0):
+            fail(f"train reference: gradient of {path} is zero or "
+                 "non-finite")
+        rel = ((a - b).norm() / b.norm()).item()
+        if rel > worst:
+            worst, worst_at = rel, path
+    rel_loss = abs(lk - lp) / abs(lp)
+    n_params = sum(p.numel() for p in leaves)
+    print(f"[train-reference] granite-3-8b full width, {TRAIN['layers']} "
+          f"layers, f32, {n_params:,} params, batch {TRAIN['batch']}x"
+          f"{TRAIN['seq']}: loss kernel {lk:.6f} plain {lp:.6f} (rel "
+          f"{rel_loss:.3g}, ce {cek:.6f}/{cep:.6f}); {len(leaves)} gradient "
+          f"leaves, worst rel_l2 {worst:.3g} at {'.'.join(map(str, worst_at))}"
+          f"; loss+grad {tk:.2f}s kernel path, {tp:.2f}s plain path "
+          "(first calls)", flush=True)
+    if not rel_loss <= 1e-4:
+        fail(f"train reference: loss differs by {rel_loss} relative")
+    if not worst <= 1e-3:
+        fail(f"train reference: gradient of {worst_at} differs by rel_l2 "
+             f"{worst}")
+    del out, gk, gp, params, named, leaves
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, dev, kernels):
+    """``launch/train.train`` on the card: full width, depth 8, float32,
+    batch 4 x 1024, five AdamW steps.  Every loss finite; the flash and
+    RMSNorm kernels must launch.  Returns (state, launch counts)."""
+    from repro_torch.launch.train import train
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    state, losses, step_s = train(
+        "granite-3-8b", smoke=False, num_layers=TRAIN["layers"],
+        batch_size=TRAIN["batch"], seq_len=TRAIN["seq"],
+        steps=TRAIN["steps"], log_every=TRAIN["steps"], device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(step_s))
+    toks = TRAIN["batch"] * TRAIN["seq"]
+    print(f"[train] granite-3-8b full width (d4096 32/8H ff12800 V49155), "
+          f"{TRAIN['layers']} of 40 layers, f32, AdamW, batch "
+          f"{TRAIN['batch']}x{TRAIN['seq']}: {len(losses)} steps, ms/step "
+          f"p50 {p50 * 1e3:.1f} (each: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in step_s)}), "
+          f"{toks / p50:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB "
+          f"({peak:,} B), loss first {losses[0]:.4f} last {losses[-1]:.4f}, "
+          f"wall {wall:.1f}s with init, launches {counts}", flush=True)
+    if len(losses) != TRAIN["steps"] or not all(np.isfinite(losses)):
+        fail(f"train: losses {losses}")
+    for n in ("flash_prefill", "fused_rmsnorm"):
+        if counts[n] <= 0:
+            fail(f"train: kernel {n} never launched on the training path")
+    return state, counts
+
+
+def _kernels_under(e):
+    """(name, microseconds) of the device kernels launched inside a CPU
+    event and its children."""
+    for k in e.kernels:
+        yield k.name, k.duration
+    for c in e.cpu_children:
+        yield from _kernels_under(c)
+
+
+def phase_train_profile(torch, dev, state):
+    """One training step under ``torch.profiler``: host wall time against
+    the device's busy time, and the shares of the flash kernel, the plain
+    attention backward (the device time inside the Function's
+    ``flash_prefill.backward_plain`` range), the RMSNorm kernel and the
+    weight products (gemm kernels outside that range)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import make_train_step
+    model, batch = _train_setup(torch, dev)
+    step = make_train_step(model, AdamWConfig())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    events = prof.events()
+    busy = flash = norm = gemm = 0.0
+    for e in events:
+        if _is_kernel(torch, e):
+            ms = e.time_range.elapsed_us() / 1e3
+            busy += ms
+            name = e.name.lower()
+            flash += ms if "flash_attn_kernel" in name else 0.0
+            norm += ms if "rmsnorm_kernel" in name else 0.0
+            gemm += ms if "gemm" in name else 0.0
+    back = back_gemm = 0.0
+    for e in events:
+        if (e.name == "flash_prefill.backward_plain"
+                and e.device_type == torch.autograd.DeviceType.CPU):
+            for name, us in _kernels_under(e):
+                back += us / 1e3
+                back_gemm += us / 1e3 if "gemm" in name.lower() else 0.0
+    if busy <= 0:
+        print(f"[train-profile] one step: wall {wall:.1f} ms; the profiler "
+              "saw no device time (device busy not measured)", flush=True)
+        return
+
+    def share(ms):
+        return f"{ms:.1f} ms ({ms / busy:.1%})"
+    weights = gemm - back_gemm
+    back_txt = (share(back) if back > 0 else
+                "not measured (no kernels under the backward's range)")
+    print(f"[train-profile] one step (batch {TRAIN['batch']}x{TRAIN['seq']}, "
+          f"{TRAIN['layers']} layers): wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms (idle {max(0.0, 1 - busy / wall):.1%}); flash "
+          f"kernel {share(flash)}, plain attention backward {back_txt}, "
+          f"RMSNorm kernel {share(norm)}, weight products "
+          f"{share(weights)}, other {share(busy - flash - norm - back - weights)}",
+          flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -826,12 +1092,14 @@ def main() -> None:
         fail("src/repro_torch not found next to this script: run it from a "
              "checkout of the repository")
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_prefill import flash_prefill_prefix
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_prefix)
     from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm
     from repro_torch.kernels.kv_quant import kv_dequantize, kv_quantize
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.ssd_scan import ssd_chunk
     from repro_torch.launch.serve import build_model
+    from repro_torch.utils import tree_leaves
 
     dev = torch.device("cuda:0")
     name = torch.cuda.get_device_name(0)
@@ -843,7 +1111,7 @@ def main() -> None:
     print(f"[device] {name} | {smi_line} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = _build.build_all(verbose=True)
     build_s = time.perf_counter() - t0
     print(f"[build] {len(_build.sources())} sources with nvcc for sm_90a in "
@@ -855,14 +1123,21 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    pa = check_paged_attention(torch, dev)
-    fp = check_flash_prefix(torch, dev)
-    kq, kd = check_kv_quant(torch, dev)
-    rn = check_fused_rmsnorm(torch, dev)
-    sc = check_ssd_chunk(torch, dev)
+    clock = Clock(time.perf_counter())
+    # the raw wrappers are timed under no_grad, the mode the serving paths
+    # call them in (training reaches them through their Functions)
+    with torch.no_grad():
+        pa = check_paged_attention(torch, dev)
+        fp = check_flash_prefix(torch, dev)
+        fa = check_flash_prefill(torch, dev)
+        kq, kd = check_kv_quant(torch, dev)
+        rn = check_fused_rmsnorm(torch, dev)
+        sc = check_ssd_chunk(torch, dev)
+    clock.lap("kernels (phase 3)")
 
     kernels = {"paged_attention": paged_attention,
                "flash_prefill_prefix": flash_prefill_prefix,
+               "flash_prefill": flash_prefill,
                "kv_quantize": kv_quantize, "kv_dequantize": kv_dequantize,
                "fused_rmsnorm": fused_rmsnorm, "ssd_chunk": ssd_chunk}
     t0 = time.perf_counter()
@@ -874,6 +1149,7 @@ def main() -> None:
     print(f"[model] granite-3-8b full width/depth, {n_params:,} params bf16, "
           f"init {time.perf_counter() - t0:.1f}s", flush=True)
     reference_check(torch, model, params)
+    clock.lap("granite init + reference (phase 4)")
     # granite's main path is phases 5 and 6 together: counts start at 0
     # here and are read after both (launches made by the parity checks
     # above are not counted)
@@ -883,18 +1159,21 @@ def main() -> None:
     launches = read_counts(kernels)
     print(f"[main-path] granite-3-8b (phases 5-6) launches {launches}",
           flush=True)
+    clock.lap("granite serve + swap (phases 5-6)")
     phase_profile(torch, model, params)
+    clock.lap("granite profile (phase 7)")
     del model, params
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     model, params = build_model("mamba2-2.7b", "full", dev, None, SEED)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
     print(f"[model] mamba2-2.7b full width/depth, {n_params:,} params bf16 "
           f"(SSM constants f32), init {time.perf_counter() - t0:.1f}s",
           flush=True)
     mamba_reference_check(torch, model, params)
+    clock.lap("mamba init + reference (phase 8)")
     # mamba's main path is phases 9 and 10 together (the unpreempted
     # comparison runs of phase 10 are not counted)
     reset_counts(kernels)
@@ -902,7 +1181,24 @@ def main() -> None:
     m_launches = phase_mamba_swap(torch, model, params, kernels)
     print(f"[main-path] mamba2-2.7b (phases 9-10) launches {m_launches}",
           flush=True)
+    clock.lap("mamba serve + swap (phases 9-10)")
     phase_mamba_profile(torch, model, params)
+    clock.lap("mamba profile (phase 11)")
+    del model, params
+    torch.cuda.empty_cache()
+
+    train_reference(torch, dev)
+    clock.lap("train reference (phase 12)")
+    # the training main path is phase 13: counts start at 0 there and are
+    # read right after it
+    state, t_launches = phase_train(torch, dev, kernels)
+    print(f"[main-path] granite-3-8b training (phase 13) launches "
+          f"{t_launches}", flush=True)
+    clock.lap("train (phase 13)")
+    phase_train_profile(torch, dev, state)
+    del state
+    torch.cuda.empty_cache()
+    clock.lap("train profile (phase 14)")
 
     src = "src/repro_torch/csrc/"
     rows = [
@@ -914,6 +1210,10 @@ def main() -> None:
              source=src + "flash_prefill_prefix.cu",
              replaces="src/repro/kernels/flash_prefill/flash_prefill.py:119",
              launches=launches["flash_prefill_prefix"], **fp),
+        dict(name="flash_prefill", route="cuda",
+             source=src + "flash_prefill_prefix.cu",
+             replaces="src/repro/kernels/flash_prefill/flash_prefill.py:165",
+             launches=t_launches["flash_prefill"], **fa),
         dict(name="kv_quantize", route="cuda", source=src + "kv_quant.cu",
              replaces="src/repro/kernels/kv_quant/kv_quant.py:37",
              launches=launches["kv_quantize"], **kq),
@@ -934,6 +1234,7 @@ def main() -> None:
     print("[kernels] " + ", ".join(
         f"{r['name']}: launches={r['launches']} parity=ok" for r in rows),
         flush=True)
+    print(f"[time] total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -1,33 +1,43 @@
-// Chunked-prefill flash attention over a request's prefix KV, for Hopper
-// (sm_90a), plain C interface for ctypes.
+// Flash attention for Hopper (sm_90a), plain C interface for ctypes: the
+// chunked-prefill kernel over a request's prefix KV and the full-sequence
+// kernel (causal or bidirectional), one device body for both.
 //
 // Replaces: src/repro/kernels/flash_prefill/flash_prefill.py,
-//           function `flash_prefill_prefix` (Pallas body `_prefix_kernel`).
+//   `flash_prefill_prefix` (Pallas body `_prefix_kernel`) and
+//   `flash_prefill` (Pallas body `_kernel`).
 //
-// Computes: chunk queries q (B, H, C, d) at absolute positions start[b] + i
-// attend over the request's stripe k/v (B, KVH, Smax, d) with the causal
-// mask on absolute positions (key j visible iff j <= start[b] + i); GQA
-// head h reads kv-head h / (H / KVH).  Out (B, H, C, d) in q's dtype.
-// Masking uses -1e30 and the output is acc / max(l, 1e-30), as on the TPU.
+// Computes, prefix mode: chunk queries q (B, H, C, d) at absolute positions
+// start[b] + i attend over the request's stripe k/v (B, KVH, Smax, d) with
+// the causal mask on absolute positions (key j visible iff j <= start[b] +
+// i).  Full mode: q (B, H, S, d) over k/v (B, KVH, S, d), i.e. C = Smax = S
+// and start = 0, causal (key j visible iff j <= i) or bidirectional (every
+// key visible).  GQA head h reads kv-head h / (H / KVH).  Out (B, H, C, d)
+// in q's dtype.  Masking uses -1e30 and the output is acc / max(l, 1e-30),
+// as on the TPU; key 0 is visible to every row, and the first key tile is
+// always read, so a masked score never enters the sum with weight 1.
 //
 // What bounds it on the H100: for the short chunks of decode-time
 // interleaving, bytes (the prefix K/V stripe is read once per q tile); for
-// long chunks over long prefixes, operations (4 * C * ctx * d flops per
-// head).  This first version does its math in float32 on the CUDA cores,
-// so it is far from either bound; wgmma in bf16 is later work.
+// long chunks over long prefixes and for full-sequence attention,
+// operations (4 * visible pairs * d flops per head).  This first version
+// does its math in float32 on the CUDA cores, so it is far from either
+// bound; wgmma in bf16 is later work.
 //
 // Design (simple first): one block per (b * H + h, 64-row q tile), 128
 // threads.  The TPU's sequential kv grid axis becomes a loop over 32-key
 // tiles inside the block, carrying the online-softmax state (m, l, acc) in
-// registers; tiles past the q tile's last absolute position are never read
-// (the TPU kernel's block skip).  Ragged edges are masked instead of
-// clamping block sizes to divisors: query rows >= C load zeros and are not
-// stored, keys >= Smax are masked.  Each thread owns a 4 x 4 block of the
-// 64 x 32 score tile and the same 4 rows of the output, so row statistics
-// need only a shuffle among the 8 threads that share a row.  Tiles are
-// staged in shared memory as float with one word of row padding against
-// bank conflicts.  Inputs may be strided (the last axis must be
-// contiguous), so the caller's transposed views need no copy.
+// registers; under a causal mask, tiles past the q tile's last position are
+// never read (the TPU kernel's block skip).  In full mode the grid's slow
+// axis is the q tile, walked from the last tile down, so the causal
+// kernel's long (late) tiles start first and the short ones fill the tail.
+// Ragged edges are masked instead of clamping block sizes to divisors:
+// query rows >= C load zeros and are not stored, keys >= Smax are masked.
+// Each thread owns a 4 x 4 block of the 64 x 32 score tile and the same 4
+// rows of the output, so row statistics need only a shuffle among the 8
+// threads that share a row.  Tiles are staged in shared memory as float
+// with one word of row padding against bank conflicts.  Inputs may be
+// strided (the last axis must be contiguous), so the caller's transposed
+// views need no copy.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -40,6 +50,10 @@ constexpr int kBQ = 64;   // query rows per block
 constexpr int kBK = 32;   // keys per tile
 constexpr float kNegInf = -1e30f;
 
+// kPrefix: causal over absolute positions start[b] + i; kCausal: full
+// sequence, key j visible to row i iff j <= i; kFull: every key visible.
+enum Mode { kPrefix = 0, kCausal = 1, kFull = 2 };
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void from_f(float v, float* p) { *p = v; }
@@ -47,25 +61,28 @@ __device__ __forceinline__ void from_f(float v, __nv_bfloat16* p) { *p = __float
 
 struct Strides { long long b, h, s; };   // element strides; last axis is 1
 
-template <typename T, int D>
+template <typename T, int D, int M>
 __global__ void __launch_bounds__(kThreads)
-flash_prefix_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int32_t* __restrict__ start,
-                    T* __restrict__ out, Strides qs, Strides ks, Strides vs,
-                    Strides os, int H, int KVH, int C, int Smax, float scale) {
+flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const int32_t* __restrict__ start,
+                  T* __restrict__ out, Strides qs, Strides ks, Strides vs,
+                  Strides os, int H, int KVH, int C, int Smax, float scale) {
   extern __shared__ float smem[];
   float* sQ = smem;                        // kBQ x (D + 1)
   float* sK = sQ + kBQ * (D + 1);          // kBK x (D + 1)
   float* sV = sK + kBK * (D + 1);          // kBK x D
   float* sP = sV + kBK * D;                // kBQ x (kBK + 1)
 
-  const int bh = blockIdx.y;
+  // full mode: blockIdx.x is (b, h), fastest, and the q tiles run from
+  // the last one down, so all heads' longest tiles are scheduled first
+  const int bh = (M == kPrefix) ? blockIdx.y : blockIdx.x;
+  const int qt = (M == kPrefix) ? blockIdx.x : gridDim.y - 1 - blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KVH);
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = qt * kBQ;
   const int tid = threadIdx.x;
   const int ty = tid >> 3, tx = tid & 7;   // rows ty*4.., cols tx*4.. / dims tx+8j
-  const int st = start[b];
+  const int st = (M == kPrefix) ? start[b] : 0;
 
   const T* qb = q + b * qs.b + h * qs.h;
   const T* kb = k + b * ks.b + kvh * ks.h;
@@ -86,9 +103,10 @@ flash_prefix_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
   }
 
-  // keys past the q tile's last absolute position are never visible
+  // under a causal mask, keys past the q tile's last absolute position are
+  // never visible
   const int q_last = min(C, q0 + kBQ) - 1;
-  const int n_kv = min(Smax, st + q_last + 1);
+  const int n_kv = (M == kFull) ? Smax : min(Smax, st + q_last + 1);
   const int n_tiles = (n_kv + kBK - 1) / kBK;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
@@ -127,7 +145,8 @@ flash_prefix_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kpos = k0 + tx * 4 + c;
-        s[i][c] = (kpos <= qpos && kpos < Smax) ? s[i][c] * scale : kNegInf;
+        const bool vis = kpos < Smax && (M == kFull || kpos <= qpos);
+        s[i][c] = vis ? s[i][c] * scale : kNegInf;
         mx = fmaxf(mx, s[i][c]);
       }
       // the 8 threads of a row are 8 consecutive lanes
@@ -175,35 +194,31 @@ flash_prefix_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int M>
 int launch(const void* q, const void* k, const void* v, const void* start,
            void* out, Strides qs, Strides ks, Strides vs, Strides os, int B,
            int H, int KVH, int C, int Smax, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_prefix_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_attn_kernel<T, D, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((C + kBQ - 1) / kBQ, B * H);
-  flash_prefix_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  const int nq = (C + kBQ - 1) / kBQ;
+  if (M != kPrefix && nq > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid = (M == kPrefix) ? dim3(nq, B * H) : dim3(B * H, nq);
+  flash_attn_kernel<T, D, M><<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int32_t*)start, (T*)out,
       qs, ks, vs, os, H, KVH, C, Smax, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// strides: 4 arrays of 3 element strides (batch, head, sequence) for q, k,
-// v, out; the last axis of each must be contiguous.  dtype codes: 0 =
-// float32, 1 = bfloat16 (q, k, v and out share it).  Head dims 64 and 128.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for a shape the
-// kernel does not take.
-extern "C" int flash_prefill_prefix_launch(
-    const void* q, const void* k, const void* v, const void* start, void* out,
-    const long long* q_strides, const long long* k_strides,
-    const long long* v_strides, const long long* o_strides, int B, int H,
-    int KVH, int C, int Smax, int d, int dtype, void* stream) {
+template <int M>
+int dispatch(const void* q, const void* k, const void* v, const void* start,
+             void* out, const long long* q_strides,
+             const long long* k_strides, const long long* v_strides,
+             const long long* o_strides, int B, int H, int KVH, int C,
+             int Smax, int d, int dtype, void* stream) {
   if (B <= 0 || C <= 0 || Smax <= 0 || KVH <= 0 || H % KVH != 0)
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_strides[0], q_strides[1], q_strides[2]};
@@ -211,13 +226,48 @@ extern "C" int flash_prefill_prefix_launch(
   const Strides vs{v_strides[0], v_strides[1], v_strides[2]};
   const Strides os{o_strides[0], o_strides[1], o_strides[2]};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && d == 64)
-    return launch<float, 64>(q, k, v, start, out, qs, ks, vs, os, B, H, KVH, C, Smax, s);
-  if (dtype == 0 && d == 128)
-    return launch<float, 128>(q, k, v, start, out, qs, ks, vs, os, B, H, KVH, C, Smax, s);
-  if (dtype == 1 && d == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, start, out, qs, ks, vs, os, B, H, KVH, C, Smax, s);
-  if (dtype == 1 && d == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, start, out, qs, ks, vs, os, B, H, KVH, C, Smax, s);
+#define FLASH_CASE(DT, T, DIM)                                                \
+  if (dtype == DT && d == DIM)                                                \
+    return launch<T, DIM, M>(q, k, v, start, out, qs, ks, vs, os, B, H, KVH, \
+                             C, Smax, s);
+#define FLASH_DIMS(DT, T) FLASH_CASE(DT, T, 64) FLASH_CASE(DT, T, 128)
+  FLASH_DIMS(0, float)
+  FLASH_DIMS(1, __nv_bfloat16)
+#undef FLASH_DIMS
+#undef FLASH_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// strides: 4 arrays of 3 element strides (batch, head, sequence) for q, k,
+// v, out; the last axis of each must be contiguous.  dtype codes: 0 =
+// float32, 1 = bfloat16 (q, k, v and out share it).  Head dims 64 and 128
+// (each thread owns d / 8 output dims).
+// Both entry points return cudaGetLastError(), or cudaErrorInvalidValue for
+// a shape the kernel does not take.
+extern "C" int flash_prefill_prefix_launch(
+    const void* q, const void* k, const void* v, const void* start, void* out,
+    const long long* q_strides, const long long* k_strides,
+    const long long* v_strides, const long long* o_strides, int B, int H,
+    int KVH, int C, int Smax, int d, int dtype, void* stream) {
+  return dispatch<kPrefix>(q, k, v, start, out, q_strides, k_strides,
+                           v_strides, o_strides, B, H, KVH, C, Smax, d, dtype,
+                           stream);
+}
+
+// Full-sequence attention: q (B, H, S, d), k/v (B, KVH, S, d); causal != 0
+// masks keys after each query's position.
+extern "C" int flash_prefill_launch(
+    const void* q, const void* k, const void* v, void* out,
+    const long long* q_strides, const long long* k_strides,
+    const long long* v_strides, const long long* o_strides, int B, int H,
+    int KVH, int S, int d, int causal, int dtype, void* stream) {
+  if (causal)
+    return dispatch<kCausal>(q, k, v, nullptr, out, q_strides, k_strides,
+                             v_strides, o_strides, B, H, KVH, S, S, d, dtype,
+                             stream);
+  return dispatch<kFull>(q, k, v, nullptr, out, q_strides, k_strides,
+                         v_strides, o_strides, B, H, KVH, S, S, d, dtype,
+                         stream);
 }

@@ -22,6 +22,8 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -105,6 +107,23 @@ def check(err: int, what: str) -> None:
     """Raise when a launch returned a non-zero ``cudaError_t``."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when grad mode is on and a floating input requires grad.
+
+    A kernel launched through ``ctypes`` writes into a tensor autograd knows
+    nothing of, so its output has no ``grad_fn`` and the graph would be cut
+    without a word.  Raw wrappers call this first, on every device; a
+    caller that needs gradients goes through the kernel's
+    ``torch.autograd.Function`` (whose forward runs with grad mode off)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors
+            if t is not None and t.is_floating_point()):
+        raise RuntimeError(
+            f"{what}: an input requires grad, but the raw kernel wrapper "
+            "records no backward; call it under torch.no_grad() or through "
+            "its autograd Function")
 
 
 def dtype_code(dtype) -> int:

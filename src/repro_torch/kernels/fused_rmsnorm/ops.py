@@ -1,8 +1,12 @@
-"""Fused RMSNorm: the CUDA kernel's wrapper.
+"""Fused RMSNorm: the CUDA kernel's wrapper and the autograd Function.
 
 ``fused_rmsnorm`` launches ``csrc/fused_rmsnorm.cu`` for CUDA tensors and
 takes the plain version (:mod:`.ref`) for CPU tensors; there is no fallback
 from one to the other.  ``fused_rmsnorm.launches`` counts kernel launches.
+The raw wrapper records no backward and raises when grad mode is on and an
+input requires grad; :class:`FusedRMSNorm` is its differentiable form (the
+kernel forward, a plain recomputed backward, as the JAX package, which has
+no backward kernel, differentiates the jnp norm).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ def _fn():
 def fused_rmsnorm(x, scale, eps: float = 1e-5):
     """x: (T, d) float32 or bfloat16, contiguous; scale: (d,) float32 or
     bfloat16 -> (T, d) in x's dtype, accumulated in float32."""
+    _build.refuse_grad("fused_rmsnorm", x, scale)
     if not x.is_cuda:
         return rmsnorm_ref(x, scale, eps)
     if x.dim() != 2 or not x.is_contiguous():
@@ -48,3 +53,25 @@ def fused_rmsnorm(x, scale, eps: float = 1e-5):
 
 
 fused_rmsnorm.launches = 0
+
+
+class FusedRMSNorm(torch.autograd.Function):
+    """Differentiable ``fused_rmsnorm``: ``FusedRMSNorm.apply(x, scale,
+    eps)``.  The forward launches the kernel (the plain version on the CPU)
+    and saves x and scale; the backward recomputes ``rmsnorm_ref`` under
+    grad mode and returns its gradients."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, scale)
+        return fused_rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, scale = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in (x, scale)]
+            out = rmsnorm_ref(*ins, ctx.eps)
+            dx, dscale = torch.autograd.grad(out, ins, grad_out)
+        return dx, dscale, None

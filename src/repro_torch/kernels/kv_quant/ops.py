@@ -29,6 +29,7 @@ def _lib():
 def kv_quantize(x):
     """x: (T, d) float32 -> (q int8 (T, d), lam (T, 1), z (T, 1)) float32;
     rows are (token, head) vectors (flatten any leading dims first)."""
+    _build.refuse_grad("kv_quantize", x)
     if not x.is_cuda:
         return kv_quantize_ref(x)
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
@@ -49,6 +50,7 @@ def kv_quantize(x):
 def kv_dequantize(q, lam, z, dtype=torch.float32):
     """Inverse of :func:`kv_quantize`: ``lam * (q + 128 - z)`` as dtype
     (float32 or bfloat16)."""
+    _build.refuse_grad("kv_dequantize", lam, z)
     if not q.is_cuda:
         return kv_dequantize_ref(q, lam, z, dtype)
     if q.dim() != 2 or q.dtype != torch.int8 or not q.is_contiguous():

@@ -28,6 +28,7 @@ def paged_attention(q, k_cache, v_cache, block_tables, lengths):
     """q: (B, H, d); caches: (num_pages, page, KVH, d); block_tables:
     (B, max_pages) int32; lengths: (B,) int32 valid tokens per row
     (including the token just written) -> (B, H, d) in q's dtype."""
+    _build.refuse_grad("paged_attention", q, k_cache, v_cache)
     if not q.is_cuda:
         return paged_attention_ref(q, k_cache, v_cache, block_tables, lengths)
     B, H, d = q.shape

@@ -35,6 +35,7 @@ def ssd_chunk(xbar, dA, Bc, Cc):
     """Intra-chunk SSD.  xbar: (B,C,Q,H,P); dA: (B,C,Q,H); Bc/Cc: (B,C,Q,N),
     all float32 and contiguous.  Returns (y_diag (B,C,Q,H,P), states
     (B,C,H,P,N), chunk_decay (B,C,H)), float32."""
+    _build.refuse_grad("ssd_chunk", xbar, dA, Bc, Cc)
     if not xbar.is_cuda:
         return ssd_chunk_ref(xbar, dA, Bc, Cc)
     if xbar.dim() != 5:

@@ -1,5 +1,6 @@
 """Composable model layers, attention-family subset: norms (RMSNorm through
-the fused kernel), RoPE, GQA attention (full / decode), dense FFN.
+the fused kernel), RoPE, GQA attention (full / chunked through the flash
+kernel / decode), dense FFN.
 
 Everything is a plain function over an explicit parameter dict, mirroring
 ``repro.models.layers`` so each function can be checked against its jnp
@@ -11,7 +12,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm, rmsnorm_ref
+from repro_torch.kernels.flash_prefill import FlashPrefill
+from repro_torch.kernels.fused_rmsnorm import (FusedRMSNorm, fused_rmsnorm,
+                                               rmsnorm_ref)
 from repro_torch.models.config import ArchConfig
 
 # --------------------------------------------------------------------- init
@@ -37,14 +40,23 @@ def init_norm(cfg: ArchConfig, dim: int, dtype, device=None):
 def apply_norm(cfg: ArchConfig, p, x, eps: float = 1e-5, *,
                use_kernel: bool = True):
     """RMSNorm or LayerNorm over the last axis, in float32, returned in x's
-    dtype.  RMSNorm goes through the fused kernel's wrapper (the CUDA
-    kernel for a CUDA tensor, its plain version for a CPU tensor) over x
-    viewed as (rows, d); ``use_kernel=False`` takes the plain version on
-    any device.  LayerNorm stays plain."""
+    dtype.  RMSNorm goes through the fused kernel (the CUDA kernel for a
+    CUDA tensor, its plain version for a CPU tensor) over x viewed as
+    (rows, d): through its autograd Function when grad mode is on and an
+    input requires grad, else through the raw wrapper, which costs less
+    host time per call (the decode steps); ``use_kernel=False`` takes the
+    plain version on any device.  LayerNorm stays plain."""
     if cfg.norm_type != "layernorm":
         rows = x.reshape(-1, x.shape[-1]).contiguous()
-        norm = fused_rmsnorm if use_kernel else rmsnorm_ref
-        return norm(rows, p["scale"], eps).reshape(x.shape)
+        scale = p["scale"]
+        if not use_kernel:
+            y = rmsnorm_ref(rows, scale, eps)
+        elif torch.is_grad_enabled() and (rows.requires_grad
+                                          or scale.requires_grad):
+            y = FusedRMSNorm.apply(rows, scale, eps)
+        else:
+            y = fused_rmsnorm(rows, scale, eps)
+        return y.reshape(x.shape)
     xf = x.float()
     xf = xf - xf.mean(-1, keepdim=True)
     var = (xf * xf).mean(-1, keepdim=True)
@@ -127,6 +139,68 @@ def full_attention(cfg: ArchConfig, q, k, v, *, causal: bool,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", w, v.float())
     return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def chunked_attention(cfg: ArchConfig, q, k, v, *, causal: bool,
+                      q_chunk: int = 1024, kv_chunk: int = 1024,
+                      use_kernel: bool = True):
+    """Full-sequence attention without the S x T score matrix.
+    q:(B,S,H,hd) k/v:(B,T,KVH,hd) -> (B,S,H,hd) in q's dtype.
+
+    For CUDA tensors (and ``use_kernel``) it runs the flash kernel through
+    :class:`FlashPrefill` over (B, H, S, hd) views (strided, no copy),
+    which needs T == S.  Otherwise it is the plain online-softmax version
+    of ``layers.chunked_attention``: query chunks, each walking the kv
+    chunks with a running (max, sum, acc), queries padded to a chunk
+    multiple and padded keys masked by the original T.  The chunk sizes
+    only shape the plain version; the kernel tiles by itself."""
+    if use_kernel and q.is_cuda:
+        out = FlashPrefill.apply(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal)
+        return out.transpose(1, 2)
+    B, S, H, hd = q.shape
+    T, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    q_chunk, kv_chunk = min(q_chunk, S), min(kv_chunk, T)
+    S_orig, T_orig = S, T
+    if S % q_chunk:                      # pad queries to a chunk multiple
+        q = F.pad(q, (0, 0, 0, 0, 0, -S % q_chunk))
+        S = q.shape[1]
+    if T % kv_chunk:                     # pad keys/values; masked out below
+        k = F.pad(k, (0, 0, 0, 0, 0, -T % kv_chunk))
+        v = F.pad(v, (0, 0, 0, 0, 0, -T % kv_chunk))
+        T = k.shape[1]
+    nq, nk = S // q_chunk, T // kv_chunk
+    scale = 1.0 / (hd ** 0.5)
+    dev = q.device
+    qg = q.reshape(B, nq, q_chunk, KVH, G, hd).permute(1, 0, 3, 4, 2, 5)
+    kc = k.reshape(B, nk, kv_chunk, KVH, hd).permute(1, 0, 3, 2, 4)
+    vc = v.reshape(B, nk, kv_chunk, KVH, hd).permute(1, 0, 3, 2, 4)
+    outs = []
+    for qi in range(nq):                 # (B, KVH, G, Cq, hd) per chunk
+        qb = qg[qi].float()
+        m = torch.full((B, KVH, G, q_chunk), float("-inf"), device=dev)
+        lsum = torch.zeros((B, KVH, G, q_chunk), device=dev)
+        acc = torch.zeros((B, KVH, G, q_chunk, hd), device=dev)
+        qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        for kj in range(nk):
+            s = torch.einsum("bkgqd,bkcd->bkgqc", qb, kc[kj].float()) * scale
+            kpos = kj * kv_chunk + torch.arange(kv_chunk, device=dev)
+            ok = (kpos < T_orig)[None, :]                 # mask kv padding
+            if causal:
+                ok = ok & (kpos[None, :] <= qpos[:, None])
+            s = torch.where(ok, s, torch.full_like(s, -1e30))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            lsum = lsum * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqc,bkcd->bkgqd", p, vc[kj].float())
+            m = m_new
+        outs.append(acc / torch.clamp(lsum, min=1e-30)[..., None])
+    # (nq, B, KVH, G, Cq, hd) -> (B, S, H, hd)
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, S, H, hd)
+    return out[:, :S_orig].to(q.dtype)
 
 
 def decode_attention(cfg: ArchConfig, q, k_cache, v_cache, lengths):

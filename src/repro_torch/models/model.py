@@ -1,7 +1,8 @@
 """Model assembly for the PyTorch port: the serving entry points of the
 attention-family decoder (chunked paged prefill, fused paged decode) and
 of the Mamba-2 (``ssm``) family (monolithic prefill, fused recurrent
-decode over a dense state cache).
+decode over a dense state cache), and the training loss of the attention
+family (dense FFN).
 
 Parameters are a plain dict: ``embed``, ``final_norm.scale`` and a list
 ``layers`` with one dict per layer (``ln1`` and ``attn.{wq,wk,wv,wo}`` or
@@ -24,9 +25,12 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models.config import ArchConfig
 from repro_torch.serving.sampler import sample_and_reason
-from repro_torch.utils import dtype_of, resolve_device
+from repro_torch.utils import dtype_of, resolve_device, tree_map
 
 Params = Dict[str, Any]
+
+MOE_AUX_COEF = 0.01
+ZLOSS_COEF = 1e-4
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -37,22 +41,16 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)   # own, writable copy
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def params_from_numpy(cfg: ArchConfig, np_params, device=None) -> Params:
     """Turn the JAX ``Model.init`` pytree, already converted to numpy by the
     caller (``jax.tree_util.tree_map(np.asarray, params)``), into the
     port's parameters: the same names, with ``layers`` (stacked on axis 0)
     split into one dict per layer."""
     device = resolve_device(device)
-    out: Params = {k: _tree_map(lambda a: _to_tensor(a, device), v)
+    out: Params = {k: tree_map(lambda a: _to_tensor(a, device), v)
                    for k, v in np_params.items() if k != "layers"}
     out["layers"] = [
-        _tree_map(lambda a, i=i: _to_tensor(np.asarray(a)[i], device),
+        tree_map(lambda a, i=i: _to_tensor(np.asarray(a)[i], device),
                   np_params["layers"])
         for i in range(cfg.num_layers)]
     return out
@@ -62,17 +60,20 @@ class Model:
     """Attention-family decoder (dense FFN) or Mamba-2 stack: pure functions
     over explicit params, on one device.
 
-    ``use_kernels`` (default True) sends every RMSNorm and the SSD chunk
-    step to their kernel wrappers (CUDA kernels for CUDA tensors, plain
-    versions for CPU tensors); False runs their plain versions on any
-    device, the reference path the kernels are held against on the card.
-    The attention kernels have their own switches (``chunk_attn_impl``,
-    the decode step's ``attn_impl``).
+    ``use_kernels`` (default True) sends every RMSNorm, the SSD chunk step
+    and the training loss's full-sequence attention to their kernels (CUDA
+    kernels for CUDA tensors, plain versions for CPU tensors); False runs
+    their plain versions on any device, the reference path the kernels are
+    held against on the card.  The serving attention kernels have their own
+    switches (``chunk_attn_impl``, the decode step's ``attn_impl``).
+    ``attn_chunk`` sizes the query and key chunks of the plain
+    ``chunked_attention``.
     """
 
     def __init__(self, cfg: ArchConfig, *, kv_dtype: str = "bfloat16",
-                 chunk_attn_impl: str = "masked", ssd_chunk: int = 256,
-                 use_kernels: bool = True, device=None):
+                 chunk_attn_impl: str = "masked", attn_chunk: int = 1024,
+                 ssd_chunk: int = 256, use_kernels: bool = True,
+                 device=None):
         if chunk_attn_impl not in ("masked", "flash"):
             raise ValueError(f"chunk_attn_impl={chunk_attn_impl!r} "
                              "(want 'masked' or 'flash')")
@@ -83,6 +84,7 @@ class Model:
                 "item 13 (MoE, hybrid, encoder-decoder)")
         self.cfg = cfg
         self.chunk_attn_impl = chunk_attn_impl
+        self.attn_chunk = attn_chunk
         self.ssd_chunk = ssd_chunk
         self.use_kernels = use_kernels
         self.kv_dtype = kv_dtype
@@ -145,6 +147,50 @@ class Model:
             return h
         return h + L.apply_ffn(self.cfg, p_l["ffn"],
                                self._norm(p_l["ln2"], h))
+
+    # ------------------------------------------------------------ training
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy plus the z-loss (and the MoE aux
+        term, 0 without experts) of one batch, as the reference's
+        ``Model.loss``.  ``batch``: ``tokens`` and ``targets`` (B, S)
+        integer tensors on the model's device.  Returns ``(total, {"ce",
+        "zloss", "moe_aux"})``, float32 scalars that carry the graph when
+        the params require grad."""
+        if self.cfg.family == "ssm":
+            raise NotImplementedError(
+                "training the ssm family is not ported yet: ROADMAP.md "
+                "Queue 1 item 14 (the SSD chunk kernel has no autograd "
+                "Function)")
+        x = self._embed_in(params, batch["tokens"])
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        x, aux = self._run_stack_full(params, x, positions)
+        x = self._norm(params["final_norm"], x)
+        logits = self._logits(params, x).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1,
+                           batch["targets"].long()[..., None])[..., 0]
+        ce = (logz - tgt).mean()
+        zloss = ZLOSS_COEF * (logz ** 2).mean()
+        total = ce + zloss + MOE_AUX_COEF * aux
+        return total, {"ce": ce, "zloss": zloss, "moe_aux": aux}
+
+    def _run_stack_full(self, params, x, positions):
+        """The attention-family decoder stack over whole sequences (the
+        reference's non-hybrid, non-encoder-decoder branch): per layer
+        ``ln1``, causal ``chunked_attention``, ``wo``, then the FFN block.
+        Returns ``(x, moe_aux)``; aux is 0 (no experts in the port)."""
+        cfg = self.cfg
+        B, S = x.shape[:2]
+        for p_l in params["layers"]:
+            h = self._norm(p_l["ln1"], x)
+            q, k, v = L._project_qkv(cfg, p_l["attn"], h, positions)
+            attn = L.chunked_attention(
+                cfg, q, k, v, causal=True, q_chunk=self.attn_chunk,
+                kv_chunk=self.attn_chunk, use_kernel=self.use_kernels)
+            x = x + attn.reshape(B, S, -1) @ p_l["attn"]["wo"]
+            x = self._ffn_block(p_l, x)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     # ------------------------------------------------------ chunked prefill
     def supports_chunked_prefill(self) -> bool:

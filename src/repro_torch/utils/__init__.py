@@ -25,3 +25,26 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the port on the CPU")
     return dev
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` leaf by leaf over nested dicts and lists (the port's
+    parameter and state trees)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree, path=()):
+    """``(path, leaf)`` pairs of nested dicts and lists, depth first in
+    insertion order; a path is the tuple of keys and list indices."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, path + (i,))
+    else:
+        yield path, tree

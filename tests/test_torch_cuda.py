@@ -6,14 +6,19 @@ so they run where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Shapes sweep beyond the serving path's own (which ``chip_smoke.py``
-checks): GQA group sizes 1 to 8, head dims 64 and 128, pages of 8 to 32
-tokens, chunk lengths that are not multiples of the query tile, rows that
-see a single key, RMSNorm widths that are not multiples of the block, and
-SSD chunks whose length, head dim and state size are not multiples of the
-kernel's tiles.  Tolerances are those of ``tests/test_kernels.py`` and
+Shapes sweep beyond the serving and training paths' own (which
+``chip_smoke.py`` checks): GQA group sizes 1 to 8, head dims 64 and 128,
+pages of 8 to 32 tokens, chunk and sequence lengths that are not multiples
+of the query tile, rows that see a single key, causal and bidirectional
+full-sequence attention, RMSNorm widths that are not multiples of the
+block, and SSD chunks whose length, head dim and state size are not
+multiples of the kernel's tiles.  The two autograd Functions' gradients
+are held against autograd through the plain versions, and the smoke
+config's loss and gradients on the card with kernels against those
+without.  Tolerances are those of ``tests/test_kernels.py`` and
 ``tests/test_kernels_ssd.py``: float32 2e-5, bfloat16 5e-2, INT8 codes
-within 1, the SSD chunk 1e-4 up to its test shapes (see ``_ssd_tol``).
+within 1, the SSD chunk 1e-4 up to its test shapes (see ``_ssd_tol``);
+the others are stated in each test.
 """
 import numpy as np
 import pytest
@@ -202,3 +207,111 @@ def test_kernels_reject_what_they_do_not_take(dev):
                         torch.zeros((2, 4, 1, 8), device=dev),
                         torch.zeros((1, 2), dtype=torch.int64, device=dev),
                         torch.ones((1,), dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("B,H,KVH,S,d", [
+    (1, 4, 4, 64, 64), (2, 8, 2, 128, 64), (1, 8, 1, 256, 128),
+    (2, 4, 4, 96, 128), (1, 4, 2, 1, 64), (2, 8, 2, 1000, 128),
+    (1, 8, 2, 37, 64), (4, 32, 8, 1024, 128),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_prefill_kernel(dev, B, H, KVH, S, d, dtype, causal):
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_ref)
+    rng = np.random.default_rng(S + d + causal)
+    # strided q/k/v, as chunked_attention passes them: (B, S, H, d)
+    # tensors viewed as (B, H, S, d)
+    q = _randn(rng, (B, S, H, d), dtype, dev).transpose(1, 2)
+    k = _randn(rng, (B, S, KVH, d), dtype, dev).transpose(1, 2)
+    v = _randn(rng, (B, S, KVH, d), dtype, dev).transpose(1, 2)
+    n0 = flash_prefill.launches
+    out = flash_prefill(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == n0 + 1
+    ref = flash_prefill_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_function_gradients_match_plain(dev, causal):
+    """FlashPrefill's forward (the kernel) within 2e-5 of the plain
+    version; its backward (the plain version, recomputed) against autograd
+    through the plain version, f32, at a ragged S."""
+    from repro_torch.kernels.flash_prefill import (FlashPrefill,
+                                                   flash_prefill_ref)
+    rng = np.random.default_rng(11)
+    shapes = ((2, 8, 200, 128), (2, 2, 200, 128), (2, 2, 200, 128))
+    base = [_randn(rng, s, torch.float32, dev) for s in shapes]
+    go = _randn(rng, shapes[0], torch.float32, dev)
+    ins_a = [t.clone().requires_grad_(True) for t in base]
+    ins_b = [t.clone().requires_grad_(True) for t in base]
+    out_a = FlashPrefill.apply(*ins_a, causal)
+    out_b = flash_prefill_ref(*ins_b, causal=causal)
+    torch.testing.assert_close(out_a, out_b, atol=2e-5, rtol=2e-5)
+    for ga, gb in zip(torch.autograd.grad(out_a, ins_a, go),
+                      torch.autograd.grad(out_b, ins_b, go)):
+        torch.testing.assert_close(ga, gb, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_function_gradients_match_plain(dev, dtype):
+    from repro_torch.kernels.fused_rmsnorm import FusedRMSNorm, rmsnorm_ref
+    rng = np.random.default_rng(12)
+    x = _randn(rng, (300, 4096), dtype, dev) * 3
+    s = (1 + 0.1 * _randn(rng, (4096,), torch.float32, dev)).to(dtype)
+    go = _randn(rng, (300, 4096), dtype, dev)
+    ins_a = [t.clone().requires_grad_(True) for t in (x, s)]
+    ins_b = [t.clone().requires_grad_(True) for t in (x, s)]
+    out_a = FusedRMSNorm.apply(*ins_a, 1e-5)
+    out_b = rmsnorm_ref(*ins_b, 1e-5)
+    torch.testing.assert_close(out_a.float(), out_b.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+    for ga, gb in zip(torch.autograd.grad(out_a, ins_a, go),
+                      torch.autograd.grad(out_b, ins_b, go)):
+        torch.testing.assert_close(ga.float(), gb.float(), atol=_tol(dtype),
+                                   rtol=_tol(dtype))
+
+
+def test_train_step_of_the_smoke_config(dev):
+    """The smoke granite config in float32, with heads of 64 (the flash
+    kernel takes head dims 64 and 128), on the card: its
+    loss and gradients through the flash and RMSNorm kernels against
+    ``use_kernels=False`` on the same params and batch (loss within 1e-5
+    relative, each gradient leaf nonzero and within a relative L2 of
+    1e-4), then one AdamW step on the kernel path with a finite loss."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm
+    from repro_torch.models.model import Model
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    from repro_torch.utils import tree_leaves
+    cfg = get_smoke_config("granite-3-8b").scaled(param_dtype="float32",
+                                                  head_dim=64)
+    batch = next(SyntheticLM(cfg, DataConfig(batch_size=4, seq_len=64))
+                 .iterate(device=dev))
+    model = Model(cfg, attn_chunk=32, device=dev)
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(0))
+    leaves = [p for _, p in tree_leaves(state["params"])]
+    out = {}
+    for use in (True, False):
+        model.use_kernels = use
+        n0 = (flash_prefill.launches, fused_rmsnorm.launches)
+        loss, _ = model.loss(state["params"], batch)
+        grads = torch.autograd.grad(loss, leaves)
+        n1 = (flash_prefill.launches, fused_rmsnorm.launches)
+        assert (n1[0] > n0[0] and n1[1] > n0[1]) == use
+        out[use] = (float(loss), grads)
+    assert out[True][0] == pytest.approx(out[False][0], rel=1e-5)
+    for a, b in zip(out[True][1], out[False][1]):
+        assert float(a.abs().max()) > 0
+        assert float((a - b).norm() / b.norm()) <= 1e-4
+    model.use_kernels = True
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1))
+    state, m = step(state, batch)
+    assert np.isfinite(float(m["loss"]))
+    assert all(torch.isfinite(p).all() for p in leaves)

@@ -317,7 +317,8 @@ def test_serve_launcher_on_cpu():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter (this test process has JAX loaded): import
     the port's package, engine, model, Mamba-2 block, kernels, configs,
-    sampler, kv_cache and launcher, then check that no ``jax*`` or
+    sampler, kv_cache, training modules, gradient compression and both
+    launchers, then check that no ``jax*`` or
     ``repro.*`` module was loaded."""
     code = (
         "import sys\n"
@@ -327,7 +328,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.kernels.ssd_scan\n"
         "import repro_torch.kernels.fused_rmsnorm\n"
         "import repro_torch.serving.sampler, repro_torch.serving.kv_cache\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "import repro_torch.training.optimizer, repro_torch.training.data\n"
+        "import repro_torch.training.train_step\n"
+        "import repro_torch.training.checkpoint\n"
+        "import repro_torch.distributed.collectives\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
