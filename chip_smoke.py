@@ -59,19 +59,45 @@ the final line:
      busy, and the shares of the flash kernel, the plain attention
      backward, the RMSNorm kernel and the weight products.
 
-Phase 3 also holds the full-sequence flash kernel at the training shape
+ 15. dense reference: granite on the dense KV backend (the phase-4 model,
+     after phases 5-7's paged engines are freed): one prompt prefilled
+     into a lane's stripe as one chunk (the engine's route: prefix flash
+     and RMSNorm kernels) and, apart, by the monolithic ``Model.prefill``
+     (the full-sequence flash kernel), each followed by 4 dense decode
+     steps (plain decode attention), against phase 4's paged kernel path,
+     relative L2 <= 0.05 in bf16;
+ 16. dense serve: phase 5's 16 requests through ``ServingEngine.serve`` on
+     the dense backend with the reference engine's defaults (no chunk
+     size: each prompt one chunk over its stripe; fused decode,
+     ``max_seq_len`` 2048, 8 lanes); every request must finish and the
+     prefix flash and RMSNorm kernels must have launched;
+ 17. dense swap: phase 6's setup on the dense backend with chunks of 256:
+     requests must be preempted and their K/V stripes swapped as INT8
+     through the kv_quant kernels, and all finish;
+ 18. kernel bench rows: the reference's ``benchmarks/bench_kernels.py``
+     rows on the card: the INT8 paged attention at the bench's shape (its
+     main path) and one full-batch dense decode step fused and sampled
+     against ``decode_step`` plus a host argmax per lane.
+
+Phases 15-18 run after phase 7, with the granite model still loaded.
+Phase 3 also holds the INT8 paged attention (the bench's shape and
+granite's decode shape, codes from the ``kv_quantize`` kernel; against its
+plain version and, within 0.05, float attention on the unquantized
+pages), the full-sequence flash kernel at the training shape
 (B 4, H 32, KVH 8, S 1024, d 128: f32 causal and bidirectional, bf16
-causal, a ragged S of 1000, d 64 bidirectional; SDPA timed as the
-yardstick), the RMSNorm kernel (rows of 2560 and 5120 for mamba,
+causal, a ragged S of 1000, d 64 bidirectional, and bf16 causal at B 1,
+S 2048; SDPA timed as the yardstick), the RMSNorm kernel (rows of 2560 and 5120 for mamba,
 4096 for granite, bf16 and f32, with ``torch.nn.functional.rms_norm`` timed
 as the library yardstick) and the SSD chunk kernel (B 1, S 1024 = 4 chunks
 of 256, and one ragged chunk of 200 rows; 80 heads of 64, state 128, f32)
-against their plain versions.  There are three main paths,
+against their plain versions.  There are five main paths,
 each driven with every kernel's launch count set to 0 just before it and
 read just after: granite's phases 5 and 6 (the paged-attention, prefix
-flash and INT8 quant kernels must have launched), mamba's phases 9 and
-10 (the RMSNorm and SSD chunk kernels must have launched) and training's
-phase 13 (the flash and RMSNorm kernels must have launched).  Each phase
+flash and INT8 quant kernels must have launched), granite's dense phases
+16 and 17 (the prefix flash, RMSNorm and INT8 quant kernels), the kernel bench of
+phase 18 (the INT8 paged attention), mamba's phases 9 and 10 (the RMSNorm
+and SSD chunk kernels must have launched) and training's phase 13 (the
+flash and RMSNorm kernels must have launched).  Each phase
 prints its seconds.  Then a ``kernels`` JSON line, the card's name and
 power limit, and the final ``{"ok": true, "device": {...}}`` line.  Needs
 one CUDA card; exits non-zero without one.
@@ -263,18 +289,21 @@ def check_flash_prefill(torch, dev):
     (B, H, S, d) without a copy): f32 causal and bidirectional (2e-5),
     bf16 causal (each element within one bf16 rounding step of the plain
     output, 2^-7 of it, plus 2e-5), a ragged S of 1000 and d 64
-    bidirectional (f32, 2e-5).  The bound counts the visible (query, key) pairs: 4 d flops
+    bidirectional (f32, 2e-5), and bf16 causal at B 1, S 2048 (one prompt
+    of ``Model.prefill``'s largest serving bucket, the same element-wise
+    bound).  The bound counts the visible (query, key) pairs: 4 d flops
     each.  Returns the f32 causal row, the shape training runs."""
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    flash_prefill_ref)
-    B, H, KVH = 4, 32, 8
+    H, KVH = 32, 8
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
     main = None
-    for name, S, d, causal in (("float32", 1024, 128, True),
-                               ("float32", 1024, 128, False),
-                               ("bfloat16", 1024, 128, True),
-                               ("float32", 1000, 128, True),
-                               ("float32", 1024, 64, False)):
+    for name, B, S, d, causal in (("float32", 4, 1024, 128, True),
+                                  ("float32", 4, 1024, 128, False),
+                                  ("bfloat16", 4, 1024, 128, True),
+                                  ("float32", 4, 1000, 128, True),
+                                  ("float32", 4, 1024, 64, False),
+                                  ("bfloat16", 1, 2048, 128, True)):
         dt = getattr(torch, name)
 
         def mk(heads):
@@ -356,6 +385,98 @@ def check_kv_quant(torch, dev):
                  bound_ms=qb, bound_by=qby, library_ms=None),
             dict(max_abs_err=deq_err, ms=dm, plain_ms=dp, bound_ms=db,
                  bound_by=dby, library_ms=None))
+
+
+def _q8_pool(torch, kv_quantize, k):
+    """INT8 codes and float32 per-row scales and zeros of a (num_pages,
+    page, KVH, d) pool through the ``kv_quantize`` kernel."""
+    shape = tuple(k.shape)
+    q, lam, z = kv_quantize(k.float().reshape(-1, shape[-1]).contiguous())
+    return (q.reshape(shape), lam.reshape(*shape[:-1], 1),
+            z.reshape(*shape[:-1], 1))
+
+
+def check_paged_attention_q8(torch, dev):
+    """Decode attention over INT8 pages at two shapes: the reference's
+    kernel bench row (``benchmarks/bench_kernels.py:67``: B 8, H = KVH = 8,
+    d 128, pages of 64, 64 pages a sequence so context 4096, a pool of 512
+    pages drawn at random into the tables, float32 q) and granite's decode
+    (B 8, H 32, KVH 8, d 128, pages of 16, lengths 1..2048, bf16 q).  The
+    codes come from the ``kv_quantize`` kernel.  Each row is held against
+    ``paged_attention_q8_ref`` (float32 within 2e-5; bfloat16 element by
+    element within one bf16 rounding step of the plain output plus 2e-5,
+    both sides accumulating in f32 and rounding once) and its distance
+    from float attention on the unquantized pages must stay below 0.05
+    (``tests/test_kernels.py:122``'s bound).  The bound counts the codes,
+    scales and zeros of the distinct pool rows the live table entries name
+    (the bench's tables are drawn with replacement, so lanes share pages),
+    q, the tables, the lengths and the output.  Returns the bench row."""
+    from repro_torch.kernels.kv_quant import (kv_quantize, paged_attention_q8,
+                                              paged_attention_q8_ref)
+    from repro_torch.kernels.paged_attention import paged_attention_ref
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    main = None
+    for label, name, B, H, KVH, page, npg, maxp in (
+            ("bench", "float32", 8, 8, 8, 64, 512, 64),
+            ("granite", "bfloat16", 8, 32, 8, 16, 8 * 128 + 1, 128)):
+        d = 128
+        dt = getattr(torch, name)
+        q = torch.randn((B, H, d), generator=g, device=dev).to(dt)
+        k = torch.randn((npg, page, KVH, d), generator=g, device=dev).to(dt)
+        v = torch.randn((npg, page, KVH, d), generator=g, device=dev).to(dt)
+        if label == "bench":
+            tables = torch.randint(0, npg, (B, maxp), generator=g,
+                                   device=dev, dtype=torch.int32)
+            lengths = torch.full((B,), maxp * page, dtype=torch.int32,
+                                 device=dev)
+        else:
+            tables = torch.randperm(npg - 1, generator=g, device=dev)[
+                :B * maxp].reshape(B, maxp).to(torch.int32)
+            lengths = torch.tensor(np.linspace(1, maxp * page, B)
+                                   .astype(np.int32), device=dev)
+        kq, klam, kz = _q8_pool(torch, kv_quantize, k)
+        vq, vlam, vz = _q8_pool(torch, kv_quantize, v)
+        args = (q, kq, klam, kz, vq, vlam, vz, tables, lengths)
+        out = paged_attention_q8(*args)
+        ref = paged_attention_q8_ref(*args)
+        fp = paged_attention_ref(q, k, v, tables, lengths)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        dist = (out.float() - fp.float()).abs().max().item()
+        if name == "float32":
+            ok = err <= 2e-5
+        else:
+            ok = bool((diff <= 2.0 ** -7 * ref.float().abs() + 2e-5).all())
+        if not ok:
+            fail(f"paged_attention_q8 {label} {name}: max_abs_err {err} "
+                 "beyond its tolerance")
+        if not dist < 0.05:
+            fail(f"paged_attention_q8 {label}: {dist} from float attention")
+        ms = time_ms(lambda: paged_attention_q8(*args))
+        plain = time_ms(lambda: paged_attention_q8_ref(*args), 5)
+        toks = int(lengths.sum())
+        # pool rows (page, slot) the live positions name, each read once
+        pos = torch.arange(maxp * page, device=dev)
+        rows = (tables.long()[:, pos // page] * page + pos % page)[
+            pos[None] < lengths.long()[:, None]]
+        n_rows = int(torch.unique(rows).numel())
+        moved = (2 * n_rows * KVH * (d + 8) + nbytes(q, tables, lengths)
+                 + nbytes(out))
+        b_ms, b_by = bound(moved, toks * (4.0 * H * d + 6.0 * KVH * d),
+                           "float32")
+        print(f"[kernel] paged_attention_q8 {label} {name} B={B} H={H} "
+              f"KVH={KVH} d={d} page={page} context {maxp * page} max, "
+              f"{toks} tokens over {n_rows} distinct pool rows: "
+              f"max_err={err:.3g} from_float_attention="
+              f"{dist:.3g} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) library_ms=none", flush=True)
+        if label == "bench":
+            main = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+        del q, k, v, kq, vq, klam, kz, vlam, vz, out, ref, fp, args, diff
+    torch.cuda.empty_cache()
+    return main
 
 
 def check_fused_rmsnorm(torch, dev):
@@ -518,6 +639,8 @@ def reference_check(torch, model, params):
           f"rel_l2={rel:.4g} argmax_agree={agree:.2f}", flush=True)
     if not rel < 0.05:
         fail(f"reference: kernel-path logits differ (rel_l2 {rel})")
+    return dict(prompt=prompt, tok=outs["tok"], kernel=a, rel=rel,
+                agree=agree)
 
 
 def reset_counts(kernels):
@@ -701,6 +824,240 @@ def phase_profile(torch, model, params):
                      lambda: model.paged_prefill_chunk(params, pool, *pre,
                                                        start, C))
     model.chunk_attn_impl = impl0
+
+
+# ---------------------------------------------------- phases 15 to 18
+
+def dense_reference_check(torch, model, params, ref):
+    """Granite on the dense backend against phase 4's paged kernel path on
+    the same request, by two prefill routes into a 2048-position stripe:
+    the engine's (the prompt as one chunk of ``Model.prefill_chunk``,
+    padded to its pow2 bucket: the prefix flash and RMSNorm kernels) and
+    the reference API's monolithic ``Model.prefill`` (padded to 128 with
+    ``last_index``: the full-sequence flash kernel).  Each is followed by 4
+    dense decode steps (plain decode attention) fed phase 4's greedy
+    tokens and held against phase 4's kernel-path logits: relative L2 <=
+    0.05 in bf16, printed beside phase 4's kernel-vs-plain figure."""
+    dev = model.device
+    prompt, toks = ref["prompt"], ref["tok"]
+    S = len(prompt)
+    # phase 4's rows: 2 chunk rows (the prompt's last is row 1), 4 decodes
+    b = torch.cat([ref["kernel"][1:2], ref["kernel"][2:6]])
+    for route in ("prefill_chunk", "prefill"):
+        cache = model.init_cache(1, 2048)
+        if route == "prefill_chunk":
+            Cb = max(8, 1 << (S - 1).bit_length())
+            logits = model.prefill_chunk(
+                params, cache["k"][:, 0], cache["v"][:, 0],
+                torch.tensor([prompt + [0] * (Cb - S)], device=dev), 0, S)
+        else:
+            logits, pcache = model.prefill(params, {
+                "tokens": torch.tensor([prompt + [0] * (128 - S)],
+                                       device=dev),
+                "last_index": torch.tensor([S - 1], dtype=torch.int32,
+                                           device=dev)})
+            for key in ("k", "v"):
+                cache[key][:, :, :S] = pcache[key][:, :, :S]
+            del pcache
+        cache["lengths"][:] = S
+        rows = [logits]
+        for i in range(4):
+            t = torch.tensor([[toks[i]]], device=dev)
+            rows.append(model.decode_step(params, cache, t))
+        del cache
+        a = torch.cat(rows).float()
+        if not torch.isfinite(a).all() or tuple(a.shape) != (
+                5, model.cfg.vocab_size):
+            fail(f"dense reference ({route}): logits {tuple(a.shape)}, "
+                 f"finite {bool(torch.isfinite(a).all())}")
+        rel = ((a - b).norm() / b.norm()).item()
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        print(f"[dense-reference] {route} + 4 dense decode steps vs the "
+              f"paged kernel path, 5 logit rows: rel_l2={rel:.4g} "
+              f"argmax_agree={agree:.2f} (paged kernel vs plain, phase 4: "
+              f"rel_l2={ref['rel']:.4g} argmax_agree={ref['agree']:.2f})",
+              flush=True)
+        if not rel <= 0.05:
+            fail(f"dense reference ({route}): dense-path logits differ "
+                 f"(rel_l2 {rel})")
+
+
+def phase_dense_serve(torch, model, params, kernels):
+    """Phase 5's 16 requests through ``ServingEngine.serve`` on the dense
+    backend with the reference engine's defaults: no chunk size (each
+    prompt one chunk over its lane's stripe, through the prefix flash
+    kernel), fused decode, ``max_seq_len`` 2048, 8 lanes."""
+    from repro_torch.launch.serve import serve
+    before = read_counts(kernels)
+    t0 = time.perf_counter()
+    reqs, eng = serve(arch_size="full", strategy="alise", n_requests=16,
+                      max_slots=8, seed=SEED, predictor_kind="oracle",
+                      kv_backend="dense", device=model.device,
+                      model_and_params=(model, params), verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: c - before[n] for n, c in read_counts(kernels).items()}
+    done = [r for r in reqs if r.finish_time is not None]
+    gen = sum(r.generated for r in reqs)
+    ttft = [r.first_token_time - r.arrival_time for r in done]
+    step_ms = [dt * 1e3 for *_, dt in eng.iter_times]
+    batch = [b for _, _, b, _ in eng.iter_times]
+    pre_ms = [dt * 1e3 for *_, dt in eng.prefill_times]
+    print(f"[dense-serve] granite-3-8b full, dense KV (Smax 2048), "
+          f"whole-prompt chunks, fused decode, slots=8: {len(done)}/"
+          f"{len(reqs)} finished, {gen} tokens generated, {gen / wall:.1f} "
+          f"tok/s, wall {wall:.2f}s, TTFT p50 {np.median(ttft):.3f}s, "
+          f"preemptions {sum(r.preempt_count for r in reqs)}, "
+          f"{len(step_ms)} decode steps p50 {np.median(step_ms):.2f} ms "
+          f"(p10 {np.percentile(step_ms, 10):.2f}, p90 "
+          f"{np.percentile(step_ms, 90):.2f}; mean batch {np.mean(batch):.2f})"
+          f", {len(pre_ms)} prefills p50 {np.median(pre_ms):.2f} ms, "
+          f"launches {counts}", flush=True)
+    if len(done) != len(reqs):
+        fail("dense serve: not every request finished")
+    for r in reqs:
+        if len(r.output_tokens) != r.generated or r.generated < 1:
+            fail(f"dense serve: request {r.req_id} produced no tokens")
+        if not all(0 <= t < model.cfg.vocab_size for t in r.output_tokens):
+            fail(f"dense serve: request {r.req_id} emitted an out-of-vocab "
+                 "token")
+    for n in ("flash_prefill_prefix", "fused_rmsnorm"):
+        if counts[n] <= 0:
+            fail(f"dense serve: kernel {n} never launched")
+    return counts
+
+
+def phase_dense_swap(torch, model, params, kernels):
+    """Phase 6's setup on the dense backend (2 lanes, a KV budget of 672
+    tokens, staged arrivals on a virtual clock) with chunks of 256: there
+    must be preemptions whose K/V stripes cross to the host as INT8
+    through the kv_quant kernels, and every request must finish.  Then one
+    lane's offload and upload are timed alone."""
+    from repro_torch.core.engine import EngineConfig, ServingEngine
+    from repro_torch.core.predictor import OraclePredictor
+    from repro_torch.core.quantization import kv_bytes_per_token
+    from repro_torch.core.request import Request, reset_request_counter
+    cfg = model.cfg
+    bpt = kv_bytes_per_token(cfg.num_layers, cfg.num_kv_heads, cfg.hd)
+    prompts, outs = (200, 264, 120, 136, 150, 170), (48, 48, 6, 6, 6, 6)
+    reset_request_counter()
+    rng = np.random.default_rng(SEED + 4)
+    reqs = [Request(prompt_len=p, arrival_time=0.0, true_out_len=o,
+                    prompt_tokens=rng.integers(2, cfg.vocab_size, p).tolist())
+            for p, o in zip(prompts, outs)]
+    eng = ServingEngine(model, params, EngineConfig(
+        max_slots=2, max_seq_len=2048, max_new_tokens=64, strategy="alise",
+        quantize_offload=True, hbm_bytes=2 * 336 * bpt, kv_backend="dense",
+        prefill_chunk=256), predictor=OraclePredictor())
+    before = read_counts(kernels)
+    t = 0.0
+    for r in reqs[:2]:
+        eng.submit(r, t)
+    for _ in range(5):
+        eng.step(t)
+        t += 0.1
+    for r in reqs[2:]:
+        eng.submit(r, t)
+    for _ in range(2000):
+        if not eng.sched.live:
+            break
+        eng.step(t)
+        t += 0.1
+    torch.cuda.synchronize()
+    counts = {n: c - before[n] for n, c in read_counts(kernels).items()}
+    pre = sum(r.preempt_count for r in reqs)
+    if eng.sched.live or any(r.finish_time is None for r in reqs):
+        fail("dense swap: engine did not drain")
+    # one lane of 264 tokens (a 512-position span) round trip, timed alone
+    eng.kv.prefill_chunk(params, -1, reqs[1].prompt_tokens, 0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    blob = eng.kv.offload(-1)
+    t2 = time.perf_counter()
+    eng.kv.upload(-1, blob)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    eng.kv.clear(-1)
+    swap_bytes = sum(sum(nbytes(x) for x in blob[k][1][:3])
+                     for k in ("k", "v"))
+    print(f"[dense-swap] 2 lanes, KV budget {2 * 336} tokens, chunks of 256, "
+          f"INT8 stripe offload: {sum(r.finish_time is not None for r in reqs)}"
+          f"/{len(reqs)} finished, preemptions {pre}; a 264-token lane "
+          f"(span {blob['k'][1][3][1]}) crosses as {swap_bytes / 1e6:.2f} MB "
+          f"(codes + scales + zeros), offload {1e3 * (t2 - t1):.1f} ms / "
+          f"upload {1e3 * (t3 - t2):.1f} ms; launches {counts}", flush=True)
+    if pre <= 0:
+        fail("dense swap: no preemption was forced")
+    for n in ("kv_quantize", "kv_dequantize"):
+        if counts[n] <= 0:
+            fail(f"dense swap: kernel {n} never launched")
+
+
+def phase_bench_rows(torch, model, params, kernels):
+    """The reference kernel bench's rows (``benchmarks/bench_kernels.py:
+    67-121``) on the card: INT8 paged attention at the bench's shape (row
+    5's path: its launches are counted here, from 0), then one full-batch
+    dense decode step of the full-width, full-depth model (B 8, Smax 2048,
+    every lane at position 1024) fused and sampled on the device, against
+    ``decode_step`` plus a host argmax per lane (8 host syncs).  Returns
+    the launch counts."""
+    from repro_torch.kernels.kv_quant import kv_quantize, paged_attention_q8
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    B, H, KVH, d, page, npg, maxp = 8, 8, 8, 128, 64, 512, 64
+    q = torch.randn((B, H, d), generator=g, device=dev)
+    pools = [_q8_pool(torch, kv_quantize,
+                      torch.randn((npg, page, KVH, d), generator=g,
+                                  device=dev)) for _ in range(2)]
+    tables = torch.randint(0, npg, (B, maxp), generator=g, device=dev,
+                           dtype=torch.int32)
+    lengths = torch.full((B,), maxp * page, dtype=torch.int32, device=dev)
+    args = (q, *pools[0], *pools[1], tables, lengths)
+    reset_counts(kernels)
+    q8_ms = time_ms(lambda: paged_attention_q8(*args))
+    counts = read_counts(kernels)
+    del pools, args
+    Smax = 2048
+    cache = model.init_cache(B, Smax)
+    toks = torch.ones((B, 1), dtype=torch.long, device=dev)
+    ones = torch.ones((B,), dtype=torch.int32, device=dev)
+    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    rids = torch.arange(B, dtype=torch.int32, device=dev)
+
+    def fused():
+        cache["lengths"].fill_(Smax // 2)
+        tok, reason = model.decode_step_sampled(
+            params, cache, toks, active, ones, ones, ones * Smax, rids,
+            max_seq_len=Smax)
+        return torch.stack([tok, reason]).cpu()
+
+    def per_slot():
+        cache["lengths"].fill_(Smax // 2)
+        logits = model.decode_step(params, cache, toks)
+        return [int(logits[i].argmax()) for i in range(B)]
+
+    res = {}
+    for name, fn in (("per_slot", per_slot), ("fused", fused),
+                     ("per_slot", per_slot), ("fused", fused)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        res.setdefault(name, []).append((time.perf_counter() - t0) * 200)
+    slot_ms, fused_ms = min(res["per_slot"]), min(res["fused"])
+    print(f"[bench] paged_attention_q8 B={B} ctx {maxp * page} (bench "
+          f"shape): {q8_ms:.4f} ms, launches {counts['paged_attention_q8']}; "
+          f"dense decode step B={B} Smax={Smax} at position {Smax // 2}: "
+          f"per-slot host argmax {slot_ms:.2f} ms ({B} host syncs), fused "
+          f"and sampled {fused_ms:.2f} ms (1 sync), {slot_ms / fused_ms:.2f}x "
+          f"(runs of 5, best of 2, in turns)", flush=True)
+    profile_step(torch, f"dense decode step (fused, B={B}, Smax={Smax})",
+                 fused, n=3)
+    del cache
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ------------------------------------------------------ phases 8 to 11
@@ -893,7 +1250,7 @@ def phase_mamba_profile(torch, model, params):
     plain: a full-batch decode step (8 lanes, every lane active) and one
     1024-token prefill."""
     B = 8
-    cache = model.init_cache(B)
+    cache = model.init_cache(B, 2048)
     dev = model.device
     toks = torch.full((B, 1), 7, device=dev)
     active = torch.ones((B,), dtype=torch.bool, device=dev)
@@ -1095,7 +1452,8 @@ def main() -> None:
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    flash_prefill_prefix)
     from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm
-    from repro_torch.kernels.kv_quant import kv_dequantize, kv_quantize
+    from repro_torch.kernels.kv_quant import (kv_dequantize, kv_quantize,
+                                              paged_attention_q8)
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.ssd_scan import ssd_chunk
     from repro_torch.launch.serve import build_model
@@ -1131,6 +1489,7 @@ def main() -> None:
         fp = check_flash_prefix(torch, dev)
         fa = check_flash_prefill(torch, dev)
         kq, kd = check_kv_quant(torch, dev)
+        pq8 = check_paged_attention_q8(torch, dev)
         rn = check_fused_rmsnorm(torch, dev)
         sc = check_ssd_chunk(torch, dev)
     clock.lap("kernels (phase 3)")
@@ -1139,6 +1498,7 @@ def main() -> None:
                "flash_prefill_prefix": flash_prefill_prefix,
                "flash_prefill": flash_prefill,
                "kv_quantize": kv_quantize, "kv_dequantize": kv_dequantize,
+               "paged_attention_q8": paged_attention_q8,
                "fused_rmsnorm": fused_rmsnorm, "ssd_chunk": ssd_chunk}
     t0 = time.perf_counter()
     model, params = build_model("granite-3-8b", "full", dev, "flash", SEED)
@@ -1148,7 +1508,7 @@ def main() -> None:
         for t in sub.values())
     print(f"[model] granite-3-8b full width/depth, {n_params:,} params bf16, "
           f"init {time.perf_counter() - t0:.1f}s", flush=True)
-    reference_check(torch, model, params)
+    ref = reference_check(torch, model, params)
     clock.lap("granite init + reference (phase 4)")
     # granite's main path is phases 5 and 6 together: counts start at 0
     # here and are read after both (launches made by the parity checks
@@ -1162,7 +1522,24 @@ def main() -> None:
     clock.lap("granite serve + swap (phases 5-6)")
     phase_profile(torch, model, params)
     clock.lap("granite profile (phase 7)")
-    del model, params
+    # granite on the dense backend, with the same model (the paged engines
+    # of phases 5-7 are gone)
+    torch.cuda.empty_cache()
+    dense_reference_check(torch, model, params, ref)
+    clock.lap("granite dense reference (phase 15)")
+    reset_counts(kernels)
+    phase_dense_serve(torch, model, params, kernels)
+    phase_dense_swap(torch, model, params, kernels)
+    d_launches = read_counts(kernels)
+    print(f"[main-path] granite-3-8b dense (phases 16-17) launches "
+          f"{d_launches}", flush=True)
+    clock.lap("granite dense serve + swap (phases 16-17)")
+    # row 5's path is the kernel bench (phase 18): counts start at 0 there
+    q_launches = phase_bench_rows(torch, model, params, kernels)
+    print(f"[main-path] kernel bench (phase 18) launches {q_launches}",
+          flush=True)
+    clock.lap("kernel bench rows (phase 18)")
+    del model, params, ref
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1220,6 +1597,10 @@ def main() -> None:
         dict(name="kv_dequantize", route="cuda", source=src + "kv_quant.cu",
              replaces="src/repro/kernels/kv_quant/kv_quant.py:62",
              launches=launches["kv_dequantize"], **kd),
+        dict(name="paged_attention_q8", route="cuda",
+             source=src + "paged_attention.cu",
+             replaces="src/repro/kernels/kv_quant/kv_quant.py:123",
+             launches=q_launches["paged_attention_q8"], **pq8),
         dict(name="fused_rmsnorm", route="cuda",
              source=src + "fused_rmsnorm.cu",
              replaces="src/repro/kernels/fused_rmsnorm/fused_rmsnorm.py:23",

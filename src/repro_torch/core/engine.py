@@ -1,22 +1,28 @@
 """Real-execution serving engine of the PyTorch port: continuous batching +
 ALISE scheduling over an actual model (paper §3.3), on a pluggable KV
-backend chosen by the model's family: the paged KV pool for the attention
-family, the dense slotted state cache for the ``ssm`` family.
+backend: the paged KV pool (the attention family's default here) or the
+dense slotted cache (``kv_backend="dense"``: a full K/V stripe per lane
+for the attention family, the reference's default backend, and the only
+backend of the ``ssm`` family, whose per-lane state is constant-size).
 
 The engine drives the same Scheduler / TieredKVManager policy code as the
 JAX package (its own copy) and executes each
 :class:`~repro_torch.core.scheduler.IterationPlan`:
 
-  * chunked, resumable prefill: each :class:`PrefillChunk` runs through
-    ``Model.paged_prefill_chunk``, KV written into the page pool on the
-    device, resuming from the partially-filled pages.  A family without
-    chunked prefill (``ssm``) runs the whole prompt through the monolithic
-    ``Model.prefill`` and places its state in a dense lane;
-  * one fused decode step per iteration (``Model.paged_decode_step_sampled``
-    or ``Model.decode_step_sampled``): embedding, layer stack, KV or state
-    writes, attention or the SSM recurrence, sampling and termination run
-    on the device; the host copies one ``(tokens, reasons)`` pair;
-  * request-level swapping between the device and a host pool: paged KV
+  * prefill: every :class:`PrefillChunk` of an attention prompt (a whole
+    prompt as one chunk when ``prefill_chunk`` is None) runs through the
+    backend's resumable prefill: ``Model.paged_prefill_chunk`` into the
+    page pool, or ``Model.prefill_chunk`` over the lane's dense stripe.
+    An SSM prompt, which cannot resume, goes unpadded through the
+    monolithic ``Model.prefill`` and its state is placed in a free lane;
+  * decode: one fused step per iteration (``Model.paged_decode_step_
+    sampled`` or ``Model.decode_step_sampled``): embedding, layer stack, KV
+    or state writes, attention or the SSM recurrence, sampling and
+    termination run on the device; the host copies one ``(tokens,
+    reasons)`` pair.  ``fused_decode=False`` (dense backend only) is the
+    reference's legacy path: one ``Model.decode_step`` for the logits,
+    then host sampling lane by lane;
+  * request-level swapping between the device and a host pool: K/V
     quantized to INT8 on the device by the ``kv_quant`` kernels (Eq. 8) so
     the host link carries the INT8 payload; an SSM request's conv and SSM
     state moved raw;
@@ -24,15 +30,15 @@ JAX package (its own copy) and executes each
     the Eq. 3-5 latency model.
 
 Not ported yet (``EngineConfig`` options that ask for one raise
-``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item): the dense
-backend of the attention family, packed prefill, the shared-prefix cache,
-speculative decoding, and the cluster tier; the observability bus is left
-out.
+``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item): packed
+prefill, the shared-prefix cache, speculative decoding, and the cluster
+tier; the observability bus is left out.
 
 Correctness invariant (tested): with greedy sampling and quantization off,
 generated tokens do not depend on how jobs are preempted and swapped, on
-``paged_attn_impl`` (gather | kernel) or on ``Model.chunk_attn_impl``
-(masked | flash).
+the backend (dense | paged), on chunked or monolithic prefill, on fused or
+per-slot decode, on ``paged_attn_impl`` (gather | kernel) or on
+``Model.chunk_attn_impl`` (masked | flash).
 """
 from __future__ import annotations
 
@@ -102,14 +108,19 @@ class EngineConfig:
     quantize_offload: bool = True
     hbm_bytes: Optional[float] = None      # default: fits ~max_slots*max_seq
     swap_bw: float = 32e9
-    kv_backend: Optional[str] = None       # None = the model's own: paged
-                                           # (attention family) | dense (ssm)
+    kv_backend: Optional[str] = None       # dense | paged; None = the
+                                           # model's own: paged (attention
+                                           # family) | dense (ssm)
     page_size: int = 16                    # paged backend page granularity
     paged_attn_impl: str = "gather"        # gather (bit-exact reference) |
                                            # kernel (CUDA paged attention)
+    fused_decode: bool = True              # one on-device decode + sample
+                                           # step per iteration (False:
+                                           # legacy per-slot host sampling,
+                                           # dense backend only)
     prefill_chunk: Optional[int] = None    # max prompt tokens per prefill
-                                           # chunk (None = whole prompt in
-                                           # one chunk)
+                                           # chunk (None = the whole prompt
+                                           # as one chunk)
     iter_token_budget: Optional[int] = None  # scheduler token budget per
                                              # iteration (None = unbounded)
     prefill_buckets: Optional[Tuple[int, ...]] = None
@@ -131,20 +142,18 @@ class EngineConfig:
 
 
 def _kv_backend(cfg: EngineConfig, model: Model) -> str:
-    """The KV backend: the model's own (paged for the attention family,
-    dense for ``ssm``); naming the other one raises."""
-    own = "paged" if model.supports_paged() else "dense"
-    backend = cfg.kv_backend or own
+    """The KV backend: ``cfg.kv_backend``, or the model's own (paged for
+    the attention family, dense for ``ssm``) when it is None."""
+    backend = cfg.kv_backend or ("paged" if model.supports_paged()
+                                 else "dense")
     if backend not in ("paged", "dense"):
         raise ValueError(f"unknown kv_backend: {backend!r}")
-    if backend != own and own == "paged":
-        raise NotImplementedError(
-            f"kv_backend='dense' for family={model.cfg.family} (the "
-            "attention family's dense backend: ROADMAP.md Queue 1 item 5) "
-            "is not ported yet")
-    if backend != own:
+    if backend == "paged" and not model.supports_paged():
         raise ValueError(f"family={model.cfg.family} has no paged KV (its "
                          "state is constant-size): use kv_backend='dense'")
+    if backend == "paged" and not cfg.fused_decode:
+        raise ValueError("the paged backend only implements the fused "
+                         "decode step (fused_decode=True)")
     return backend
 
 
@@ -230,10 +239,10 @@ class ServingEngine:
     # -------------------------------------------------------------- prefill
     def _sample_host(self, logits_row, rid: int, new_gen: int, new_ctx: int,
                      true_len: int):
-        """One-row sampling + termination for prefill first tokens — the
-        same ``sample_and_reason`` chain the fused decode step runs, with
-        the same per-(request, token-index) draw.  Returns
-        ``(token, reason_str)``."""
+        """One-row sampling + termination for prefill first tokens and the
+        per-slot decode path — the same ``sample_and_reason`` chain the
+        fused decode step runs, with the same per-(request, token-index)
+        draw.  Returns ``(token, reason_str)``."""
         dev = logits_row.device
 
         def one(v):
@@ -251,17 +260,16 @@ class ServingEngine:
         return int(out[0, 0]), REASONS[int(out[1, 0])]
 
     def _run_prefill(self, req: Request, tokens: List[int]):
-        """Monolithic prefill for families without chunked prefill
-        (``ssm``): one ``Model.prefill`` pass over the whole prompt, its
-        state placed into a free lane.  The prompt goes in unpadded: an SSM
-        state depends on every step.  Returns the last-token logits
-        (1, V)."""
+        """Monolithic prefill for a family without chunked prefill (``ssm``):
+        one ``Model.prefill`` pass over the unpadded prompt (the state
+        depends on every step), its cache placed into a free lane.  Returns
+        the last-token logits (1, V)."""
         if self.kv.free_slot() is None:
             raise RuntimeError("no free decode lane: the caller must check "
                                "free_slot()")
-        toks = torch.as_tensor([tokens], dtype=torch.int64,
-                               device=self.model.device)
-        logits, pcache = self.model.prefill(self.params, {"tokens": toks})
+        batch = {"tokens": torch.as_tensor([tokens], dtype=torch.int64,
+                                           device=self.model.device)}
+        logits, pcache = self.model.prefill(self.params, batch)
         self.kv.write_prefill(req.req_id, pcache, len(tokens))
         return logits
 
@@ -380,9 +388,13 @@ class ServingEngine:
                 self.kv.clear(warm_rid)
         B = self.cfg.max_slots
         zeros = np.zeros((B,), np.int32)
-        self.kv.decode(self.params, np.zeros((B, 1), np.int32),
-                       np.zeros((B,), bool), zeros, zeros,
-                       np.full((B,), np.iinfo(np.int32).max, np.int32), zeros)
+        tokens, active = np.zeros((B, 1), np.int32), np.zeros((B,), bool)
+        if self.cfg.fused_decode:
+            self.kv.decode(self.params, tokens, active, zeros, zeros,
+                           np.full((B,), np.iinfo(np.int32).max, np.int32),
+                           zeros)
+        else:
+            self.kv.decode_logits(self.params, tokens, active).cpu()
         if costs:
             merged = dict(self.latency.bucket_costs or {})
             merged.update(costs)
@@ -565,10 +577,16 @@ class ServingEngine:
                     if self.cfg.respect_true_len:
                         true_len[slot] = r.true_out_len
                     r.state = RequestState.RUNNING
-                # one fused step: decode + sample + terminate on the device
-                toks, reasons = self.kv.decode(
-                    self.params, tokens, active, base_gen + 1, base_ctx + 1,
-                    true_len, rids)
+                if self.cfg.fused_decode:
+                    # one step: decode + sample + terminate on the device
+                    toks, reasons = self.kv.decode(
+                        self.params, tokens, active, base_gen + 1,
+                        base_ctx + 1, true_len, rids)
+                else:
+                    logits = self.kv.decode_logits(self.params, tokens,
+                                                   active)
+                    if logits.is_cuda:
+                        torch.cuda.synchronize(logits.device)
                 ctx_tokens = int(sum(r.context_len for r in runnable))
                 dt = time.perf_counter() - t0
                 self.iter_times.append((t0, ctx_tokens, len(runnable), dt))
@@ -577,8 +595,15 @@ class ServingEngine:
                     # offloaded r mid-loop: this decode already wrote r's
                     # fed token's KV, so skipping would duplicate it
                     slot = slot_of[r.req_id]
-                    self._accept_token(r, int(toks[slot]), generated_of, t,
-                                       reason=REASONS[int(reasons[slot])])
+                    if self.cfg.fused_decode:
+                        tok, reason = int(toks[slot]), REASONS[
+                            int(reasons[slot])]
+                    else:               # legacy: sample lane by lane
+                        tok, reason = self._sample_host(
+                            logits[slot], r.req_id, r.generated + 1,
+                            r.context_len + 1, self._true_len_of(r))
+                    self._accept_token(r, tok, generated_of, t,
+                                       reason=reason)
                 ran_any = True
         # learning happens outside step_lock, after the dispatch work
         self.predictor.drain_feedback()

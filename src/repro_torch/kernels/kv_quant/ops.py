@@ -1,9 +1,11 @@
-"""INT8 KV quantize / dequantize: the CUDA kernels' wrappers.
+"""INT8 KV quantize / dequantize and decode attention over INT8 pages: the
+CUDA kernels' wrappers.
 
-``kv_quantize`` / ``kv_dequantize`` launch ``csrc/kv_quant.cu`` for CUDA
-tensors and take the plain versions (:mod:`.ref`) for CPU tensors; there
-is no fallback from one to the other.  Each wrapper's ``launches``
-attribute counts its kernel launches.
+``kv_quantize`` / ``kv_dequantize`` launch ``csrc/kv_quant.cu`` and
+``paged_attention_q8`` launches the int8 entry of
+``csrc/paged_attention.cu`` for CUDA tensors; each takes its plain version
+(:mod:`.ref`) for CPU tensors; there is no fallback from one to the other.
+Each wrapper's ``launches`` attribute counts its kernel launches.
 """
 from __future__ import annotations
 
@@ -12,7 +14,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.kv_quant.ref import kv_dequantize_ref, kv_quantize_ref
+from repro_torch.kernels.kv_quant.ref import (kv_dequantize_ref,
+                                              kv_quantize_ref,
+                                              paged_attention_q8_ref)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -72,5 +76,72 @@ def kv_dequantize(q, lam, z, dtype=torch.float32):
     return x
 
 
+def _q8_fn():
+    f = _build.load("paged_attention").paged_attention_q8_launch
+    f.argtypes = [_P] * 10 + [_I] * 8 + [_P]
+    f.restype = _I
+    return f
+
+
+def paged_attention_q8(q, kq, k_lam, k_z, vq, v_lam, v_z, block_tables,
+                       lengths):
+    """Decode attention over an INT8 page pool, dequantized in the kernel.
+
+    q: (B, H, d) float32 or bfloat16; kq/vq: (num_pages, page, KVH, d)
+    int8; k_lam/k_z/v_lam/v_z: (num_pages, page, KVH, 1) float32, one
+    (scale, zero) pair per (token, head) row; block_tables: (B, max_pages)
+    int32; lengths: (B,) int32 >= 1, valid tokens per row -> (B, H, d) in
+    q's dtype.  Table entries past a row's length are never read."""
+    _build.refuse_grad("paged_attention_q8", q, k_lam, k_z, v_lam, v_z)
+    if not q.is_cuda:
+        return paged_attention_q8_ref(q, kq, k_lam, k_z, vq, v_lam, v_z,
+                                      block_tables, lengths)
+    B, H, d = q.shape
+    num_pages, page, KVH, dk = kq.shape
+    max_pages = block_tables.shape[1]
+    named = (("q", q), ("kq", kq), ("k_lam", k_lam), ("k_z", k_z),
+             ("vq", vq), ("v_lam", v_lam), ("v_z", v_z),
+             ("block_tables", block_tables), ("lengths", lengths))
+    for name, t in named:
+        if t.device != q.device:
+            raise ValueError(f"paged_attention_q8: {name} on {t.device}, "
+                             f"q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"paged_attention_q8: {name} must be "
+                             "contiguous")
+    rows = (num_pages, page, KVH, 1)
+    if (vq.shape != kq.shape or dk != d or H % KVH
+            or any(tuple(t.shape) != rows for t in (k_lam, k_z, v_lam, v_z))
+            or block_tables.shape[0] != B or tuple(lengths.shape) != (B,)):
+        raise ValueError(
+            f"paged_attention_q8: shapes q {tuple(q.shape)}, codes "
+            f"{tuple(kq.shape)}/{tuple(vq.shape)}, scales "
+            f"{[tuple(t.shape) for t in (k_lam, k_z, v_lam, v_z)]}, tables "
+            f"{tuple(block_tables.shape)}, lengths {tuple(lengths.shape)}")
+    if H // KVH > 8 or d not in (64, 128) or page > 64:
+        raise ValueError(f"paged_attention_q8 kernel takes G <= 8, d 64 or "
+                         f"128, page <= 64 (got G={H // KVH}, d={d}, "
+                         f"page={page})")
+    if kq.dtype != torch.int8 or vq.dtype != torch.int8:
+        raise TypeError("paged_attention_q8: codes must be int8")
+    if any(t.dtype != torch.float32 for t in (k_lam, k_z, v_lam, v_z)):
+        raise TypeError("paged_attention_q8: scales and zeros must be "
+                        "float32")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("paged_attention_q8: block_tables and lengths must "
+                        "be int32")
+    out = torch.empty_like(q)
+    err = _q8_fn()(q.data_ptr(), kq.data_ptr(), k_lam.data_ptr(),
+                   k_z.data_ptr(), vq.data_ptr(), v_lam.data_ptr(),
+                   v_z.data_ptr(), block_tables.data_ptr(),
+                   lengths.data_ptr(), out.data_ptr(), B, H, KVH, d, page,
+                   num_pages, max_pages, _build.dtype_code(q.dtype),
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "paged_attention_q8")
+    paged_attention_q8.launches += 1
+    return out
+
+
 kv_quantize.launches = 0
 kv_dequantize.launches = 0
+paged_attention_q8.launches = 0

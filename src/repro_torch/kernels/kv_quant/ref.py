@@ -1,7 +1,10 @@
-"""Plain PyTorch version of INT8 KV quantization (paper Eq. 8)."""
+"""Plain PyTorch versions of INT8 KV quantization (paper Eq. 8) and of the
+quantized-KV paged decode attention."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 
 def kv_quantize_ref(x):
@@ -19,3 +22,12 @@ def kv_quantize_ref(x):
 
 def kv_dequantize_ref(q, lam, z, dtype=torch.float32):
     return (lam * (q.float() + 128.0 - z)).to(dtype)
+
+
+def paged_attention_q8_ref(q, kq, k_lam, k_z, vq, v_lam, v_z, block_tables,
+                           lengths):
+    """Quantized-pool oracle: dequantize the pages, then exact paged
+    attention."""
+    k = kv_dequantize_ref(kq, k_lam, k_z)
+    v = kv_dequantize_ref(vq, v_lam, v_z)
+    return paged_attention_ref(q, k, v, block_tables, lengths)

@@ -3,16 +3,22 @@ model (batch mode).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch-size full \
         --strategy alise --n-requests 16 --prefill-chunk 256
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch-size full \
+        --kv-backend dense --n-requests 16 --max-slots 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         --arch-size full --n-requests 8
 
-run granite-3-8b on the paged KV backend, and mamba2-2.7b on the dense
-state backend (each model's own; ``--kv-backend`` may name it), at full width on the GPU with random weights from
-``--seed``; ``--arch-size smoke --device cpu`` runs the reduced config on
-the CPU.  On a GPU the paged decode attention and the chunk attention
-default to the CUDA kernels (``--paged-attn-impl kernel --chunk-attn
-flash``); ``gather``/``masked`` are the plain reference modes.  RMSNorm
-and the SSD chunk step always take their kernels on a GPU.
+run granite-3-8b on the paged KV backend (its default here) or on the
+dense backend (a K/V stripe per lane, the JAX launcher's default; without
+``--prefill-chunk`` each prompt is one chunk over the lane's stripe), and
+mamba2-2.7b on the dense state backend, at full width on the GPU with
+random weights from ``--seed``; ``--arch-size smoke --device cpu`` runs
+the reduced config on the CPU.  On a GPU the paged decode attention and
+the chunk attention default to the CUDA kernels (``--paged-attn-impl
+kernel --chunk-attn flash``); ``gather``/``masked`` are the plain
+reference modes.  RMSNorm and the SSD chunk step always take their
+kernels on a GPU; the dense decode attention is plain torch, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -107,8 +113,13 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
     if verbose:
         lat = [r.e2e_latency for r in reqs if r.e2e_latency is not None]
         norm = [r.normalized_latency for r in reqs if r.normalized_latency]
-        path = (f"attn {impl}/{model.chunk_attn_impl}"
-                if eng.kv_backend == "paged" else "dense state")
+        if eng.kv_backend == "paged":
+            path = f"paged, attn {impl}/{model.chunk_attn_impl}"
+        elif model.cfg.family == "ssm":
+            path = "dense state"
+        else:
+            path = (f"dense KV, prefill chunks of {prefill_chunk or 'a prompt'}"
+                    f" ({model.chunk_attn_impl})")
         print(f"[serve] {strategy} on {eng.device} ({model.cfg.name} "
               f"{arch_size}, {path}): "
               f"{len(lat)}/{len(reqs)} finished; "
@@ -155,8 +166,9 @@ def main():
     ap.add_argument("--kv-backend", default=None,
                     choices=["paged", "dense"],
                     help="device KV storage (default: the model's own): the "
-                         "paged pool (attention family) or the dense slotted "
-                         "state (mamba2-2.7b)")
+                         "paged pool (granite's default) or the dense slotted "
+                         "cache (a K/V stripe per lane for granite; the "
+                         "only backend of mamba2-2.7b)")
     ap.add_argument("--warmup", action="store_true",
                     help="time every prefill bucket before serving")
     args = ap.parse_args()

@@ -1,8 +1,9 @@
 """Model assembly for the PyTorch port: the serving entry points of the
-attention-family decoder (chunked paged prefill, fused paged decode) and
-of the Mamba-2 (``ssm``) family (monolithic prefill, fused recurrent
-decode over a dense state cache), and the training loss of the attention
-family (dense FFN).
+attention-family decoder (chunked paged prefill and fused paged decode;
+monolithic prefill, chunked prefill over a dense per-lane stripe and fused
+dense decode) and of the Mamba-2 (``ssm``) family (monolithic prefill,
+fused recurrent decode over a dense state cache), and the training loss of
+the attention family (dense FFN).
 
 Parameters are a plain dict: ``embed``, ``final_norm.scale`` and a list
 ``layers`` with one dict per layer (``ln1`` and ``attn.{wq,wk,wv,wo}`` or
@@ -164,7 +165,7 @@ class Model:
         x = self._embed_in(params, batch["tokens"])
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        x, aux = self._run_stack_full(params, x, positions)
+        x, aux, _ = self._run_stack_full(params, x, positions)
         x = self._norm(params["final_norm"], x)
         logits = self._logits(params, x).float()
         logz = torch.logsumexp(logits, dim=-1)
@@ -175,13 +176,16 @@ class Model:
         total = ce + zloss + MOE_AUX_COEF * aux
         return total, {"ce": ce, "zloss": zloss, "moe_aux": aux}
 
-    def _run_stack_full(self, params, x, positions):
+    def _run_stack_full(self, params, x, positions, want_cache=False):
         """The attention-family decoder stack over whole sequences (the
         reference's non-hybrid, non-encoder-decoder branch): per layer
         ``ln1``, causal ``chunked_attention``, ``wo``, then the FFN block.
-        Returns ``(x, moe_aux)``; aux is 0 (no experts in the port)."""
+        Returns ``(x, moe_aux, caches)``: aux is 0 (no experts in the
+        port); with ``want_cache``, caches is ``{"k", "v"}`` (L, B, S,
+        KVH, hd), every layer's projected keys and values, else None."""
         cfg = self.cfg
         B, S = x.shape[:2]
+        ks, vs = [], []
         for p_l in params["layers"]:
             h = self._norm(p_l["ln1"], x)
             q, k, v = L._project_qkv(cfg, p_l["attn"], h, positions)
@@ -190,7 +194,13 @@ class Model:
                 kv_chunk=self.attn_chunk, use_kernel=self.use_kernels)
             x = x + attn.reshape(B, S, -1) @ p_l["attn"]["wo"]
             x = self._ffn_block(p_l, x)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            if want_cache:
+                ks.append(k)
+                vs.append(v)
+        caches = ({"k": torch.stack(ks), "v": torch.stack(vs)}
+                  if want_cache else None)
+        return (x, torch.zeros((), dtype=torch.float32, device=x.device),
+                caches)
 
     # ------------------------------------------------------ chunked prefill
     def supports_chunked_prefill(self) -> bool:
@@ -336,28 +346,43 @@ class Model:
             new_gen=new_gen, new_ctx=new_ctx, true_len=true_len)
         return tok, torch.where(active, reason, torch.zeros_like(reason))
 
-    # ---------------------------------------------- monolithic prefill (ssm)
-    def _require_ssm(self, what: str) -> None:
-        if self.cfg.family != "ssm":
-            raise NotImplementedError(
-                f"{what} for family={self.cfg.family} is not ported yet: "
-                "ROADMAP.md Queue 1 item 5 (the attention family's dense "
-                "backend: Model.prefill_chunk and the dense decode_step)")
-
+    # ------------------------------------------------- monolithic prefill
     @torch.no_grad()
     def prefill(self, params, batch):
         """Process whole prompts in one pass; return (last-token logits
-        (B, V) float32, cache).
+        (B, V) float32, cache), the cache in the reference's
+        ``_pack_cache`` layout with ``lengths`` (B,) int32 = S.
 
-        ``batch``: ``tokens`` (B, S), unpadded (an SSM state depends on
-        every step).  The cache is the reference's ``_pack_cache`` layout:
-        ``lengths`` (B,) int32, ``conv`` (L, B, W-1, Ch) in the working
-        dtype and ``ssm`` (L, B, H, P, N) float32."""
-        self._require_ssm("monolithic prefill")
+        Attention family: ``batch`` holds ``tokens`` (B, S), right-padded
+        where ``last_index`` (B,) names each row's true last token (its
+        logits are returned); the stack's attention is
+        ``layers.chunked_attention`` (the flash kernel on the card).  The
+        cache holds every layer's ``k``/``v`` (L, B, S, KVH, hd) in
+        ``kv_dtype``, padded positions included (the serving engine
+        prefills attention prompts through :meth:`prefill_chunk` instead).
+
+        ``ssm``: ``tokens`` unpadded (an SSM state depends on every step);
+        the cache holds ``conv`` (L, B, W-1, Ch) in the working dtype and
+        ``ssm`` (L, B, H, P, N) float32."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = self._embed_in(params, tokens)
         B, S = x.shape[:2]
+        lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
+        if cfg.family != "ssm":
+            positions = torch.arange(S, device=x.device)[None].expand(B, S)
+            x, _, caches = self._run_stack_full(params, x, positions,
+                                                want_cache=True)
+            last = batch.get("last_index")
+            if last is not None:
+                x_last = x[torch.arange(B, device=x.device), last.long()]
+            else:
+                x_last = x[:, -1, :]
+            x_last = self._norm(params["final_norm"], x_last)
+            kvd = dtype_of(self.kv_dtype)
+            cache = {"lengths": lengths, "k": caches["k"].to(kvd),
+                     "v": caches["v"].to(kvd)}
+            return self._logits(params, x_last).float(), cache
         convs, ssms = [], []
         for p_l in params["layers"]:
             h = self._norm(p_l["ln1"], x)
@@ -368,25 +393,109 @@ class Model:
             convs.append(state["conv"])
             ssms.append(state["ssm"])
         x_last = self._norm(params["final_norm"], x[:, -1, :])
-        cache = {"lengths": torch.full((B,), S, dtype=torch.int32,
-                                       device=x.device),
+        cache = {"lengths": lengths,
                  "conv": torch.stack(convs), "ssm": torch.stack(ssms)}
         return self._logits(params, x_last).float(), cache
 
-    # ------------------------------------------------ recurrent decode (ssm)
+    @torch.no_grad()
+    def prefill_chunk(self, params, k_stripe, v_stripe, tokens, start: int,
+                      chunk_len: int):
+        """One resumable prefill chunk over one lane's dense KV stripe.
+
+        ``k_stripe``/``v_stripe``: (L, Smax, KVH, hd), the lane's stripes
+        (views into the cache) with positions ``[0, start)`` written by
+        earlier chunks; written **in place**.  ``tokens``: (1, C),
+        right-padded past ``chunk_len``.  The chunk's KV lands at
+        ``[start, start + C)`` (rows past Smax are dropped, as the
+        reference's scatter drops them) and each query at ``start + i``
+        attends the stripe's keys ``j <= start + i`` through
+        :meth:`_chunk_attn`, so stale positions never reach the output.
+        Returns the logits (1, V) float32 at ``chunk_len - 1``."""
+        if not self.supports_chunked_prefill():
+            raise ValueError(f"chunked prefill unsupported for family="
+                             f"{self.cfg.family}")
+        cfg = self.cfg
+        dev = tokens.device
+        C = tokens.shape[1]
+        Smax = k_stripe.shape[1]
+        x = self._embed_in(params, tokens)
+        q_pos = (start + torch.arange(C, device=dev))[None, :]
+        kv_pos = torch.arange(Smax, device=dev)[None, :]
+        n_in = max(0, min(C, Smax - start))          # rows inside the stripe
+        start_vec = torch.full((1,), start, dtype=torch.int32, device=dev)
+        for li, p_l in enumerate(params["layers"]):
+            k_l, v_l = k_stripe[li], v_stripe[li]
+            h1 = self._norm(p_l["ln1"], x)
+            q, k, v = L._project_qkv(cfg, p_l["attn"], h1, q_pos)
+            k_l[start:start + n_in] = k[0, :n_in].to(k_l.dtype)
+            v_l[start:start + n_in] = v[0, :n_in].to(v_l.dtype)
+            attn = self._chunk_attn(q, k_l[None], v_l[None], q_pos, kv_pos,
+                                    start_vec)
+            x = x + attn.reshape(1, C, -1) @ p_l["attn"]["wo"]
+            x = self._ffn_block(p_l, x)
+        last = min(max(chunk_len - 1, 0), C - 1)
+        x_last = self._norm(params["final_norm"], x[:, last])
+        return self._logits(params, x_last).float()
+
+    # ------------------------------------------------------- dense decode
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, active=None):
-        """One decode iteration over the dense state cache, written **in
-        place**.  ``tokens`` (B, 1).  Returns logits (B, V) float32.
+        """One decode iteration over the dense cache, written **in place**.
+        ``tokens`` (B, 1).  Returns logits (B, V) float32.
 
-        ``active`` (B,) bool, when given, limits the state writes and the
-        ``lengths`` advance to active lanes: an inactive lane's state (a
-        request prefilled this iteration, or a free lane) is left as it
-        was.  Without it every lane advances, as the reference's
-        ``decode_step``."""
-        self._require_ssm("the dense decode step")
-        cfg = self.cfg
+        Attention family: each lane's new K/V is written at ``lengths``
+        and it attends ``lengths + 1`` positions through
+        ``layers.decode_attention``.  That attention is plain torch, as in
+        the reference (jnp there, no Pallas kernel); the norms take the
+        RMSNorm kernel.  ``ssm``: the conv window and SSM state advance one
+        step.
+
+        ``active`` (B,) bool, when given, limits the writes and the
+        ``lengths`` advance to active lanes: an inactive lane's state or
+        stripe (a request prefilled this iteration, or a free lane) is left
+        as it was.  Without it every lane advances, as the reference's
+        ``decode_step`` (a lane at ``lengths == Smax`` writes nothing, as
+        the reference's scatter drops it)."""
         x = self._embed_in(params, tokens)                      # (B, 1, D)
+        if self.cfg.family == "ssm":
+            x = self._ssm_decode_layers(params, cache, x, active)
+        else:
+            x = self._attn_decode_layers(params, cache, x, active)
+        cache["lengths"] += (1 if active is None
+                             else active.to(cache["lengths"].dtype))
+        x = self._norm(params["final_norm"], x[:, -1, :])
+        return self._logits(params, x).float()
+
+    def _attn_decode_layers(self, params, cache, x, active):
+        cfg = self.cfg
+        B = x.shape[0]
+        lengths = cache["lengths"]
+        Smax = cache["k"].shape[2]
+        lanes = torch.arange(B, device=x.device)
+        keep = lengths < Smax
+        if active is not None:
+            keep = keep & active
+        pos = lengths.clamp(max=Smax - 1).long()
+        keep = keep.view(B, 1, 1)
+        lens1 = lengths + 1
+
+        def write(dst, src):             # dst (B, Smax, KVH, hd) in place
+            old = dst[lanes, pos]
+            dst[lanes, pos] = torch.where(keep, src.to(dst.dtype), old)
+
+        for li, p_l in enumerate(params["layers"]):
+            kc, vc = cache["k"][li], cache["v"][li]
+            h1 = self._norm(p_l["ln1"], x)
+            q, k, v = L._project_qkv(cfg, p_l["attn"], h1, lengths[:, None])
+            write(kc, k[:, 0])
+            write(vc, v[:, 0])
+            attn = L.decode_attention(cfg, q[:, 0], kc, vc, lens1)
+            x = x + (attn.reshape(B, -1) @ p_l["attn"]["wo"])[:, None, :]
+            x = self._ffn_block(p_l, x)
+        return x
+
+    def _ssm_decode_layers(self, params, cache, x, active):
+        cfg = self.cfg
 
         def write(dst, src):
             if active is None:
@@ -403,10 +512,7 @@ class Model:
             write(state["conv"], new["conv"])
             write(state["ssm"], new["ssm"])
             x = self._ffn_block(p_l, x + out[:, None, :])
-        cache["lengths"] += (1 if active is None
-                             else active.to(cache["lengths"].dtype))
-        x = self._norm(params["final_norm"], x[:, -1, :])
-        return self._logits(params, x).float()
+        return x
 
     def decode_step_sampled(self, params, cache, tokens, active, new_gen,
                             new_ctx, true_len, rids, *, seed: int = 0,
@@ -427,18 +533,27 @@ class Model:
         return tok, torch.where(active, reason, torch.zeros_like(reason))
 
     # --------------------------------------------------------- cache specs
-    def cache_shapes(self, batch: int) -> Dict[str, Any]:
+    def cache_shapes(self, batch: int, max_len: int) -> Dict[str, Any]:
         """``{key: (shape, dtype)}`` of a dense decode cache for ``batch``
-        lanes (an SSM state is constant-size)."""
-        self._require_ssm("the dense decode cache")
+        lanes of ``max_len`` positions: ``k``/``v`` (L, batch, max_len,
+        KVH, hd) in ``kv_dtype`` for the attention family; for ``ssm`` the
+        constant-size ``conv`` and ``ssm`` state (``max_len`` unused)."""
         cfg = self.cfg
         n = cfg.num_layers
-        return {"lengths": ((batch,), torch.int32),
-                "conv": ((n, batch, cfg.conv_width - 1,
-                          cfg.d_inner + 2 * cfg.ssm_state), self.dtype),
-                "ssm": ((n, batch, cfg.ssm_heads, cfg.ssm_headdim,
-                         cfg.ssm_state), torch.float32)}
+        out: Dict[str, Any] = {"lengths": ((batch,), torch.int32)}
+        if cfg.family == "ssm":
+            out["conv"] = ((n, batch, cfg.conv_width - 1,
+                            cfg.d_inner + 2 * cfg.ssm_state), self.dtype)
+            out["ssm"] = ((n, batch, cfg.ssm_heads, cfg.ssm_headdim,
+                           cfg.ssm_state), torch.float32)
+        else:
+            kvd = dtype_of(self.kv_dtype)
+            shape = (n, batch, max_len, cfg.num_kv_heads, cfg.hd)
+            out["k"] = (shape, kvd)
+            out["v"] = (shape, kvd)
+        return out
 
-    def init_cache(self, batch: int) -> Dict[str, Any]:
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
         return {k: torch.zeros(shape, dtype=dt, device=self.device)
-                for k, (shape, dt) in self.cache_shapes(batch).items()}
+                for k, (shape, dt) in self.cache_shapes(batch,
+                                                        max_len).items()}

@@ -13,20 +13,21 @@ Three layers live here, as in ``repro.serving.kv_cache``:
     request-granular offload/upload blobs, and ``decode()`` — one fused
     step per iteration that samples and decides termination on the device
     (one small ``(tokens, reasons)`` copy to the host).
-  * :class:`DenseKVBackend` — one slice of ``model.init_cache`` per lane,
-    for the families whose prefill is monolithic (``ssm`` in the port):
-    each lane holds a request's constant-size conv and SSM state, and a
-    preemption swaps that state to the host and back.
+  * :class:`DenseKVBackend` — ``model.init_cache(max_slots, max_seq_len)``
+    with one slice per lane: for the attention family a full
+    ``max_seq_len`` K/V stripe per lane (resumable chunked prefill, a
+    whole prompt as one chunk when no chunk size is set; fused or per-slot
+    decode), for the ``ssm`` family a request's constant-size conv and SSM
+    state (monolithic prefill).  It is written in place too.
 
-Paged offload/upload run the INT8 ``kv_quant`` kernels on the device when
+Offload/upload of K/V run the INT8 ``kv_quant`` kernels on the device when
 ``quantize_offload`` is set (paper Eq. 8): the host link carries the INT8
-payload plus float32 per-row scales and zeros.  The dense backend stores
-conv and SSM state raw, as the reference does: INT8 applies to K/V only.
+payload plus float32 per-row scales and zeros.  Conv and SSM state cross
+raw, as in the reference: INT8 applies to K/V only.
 
 Not ported yet (a config that asks for one raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item): the dense backend of the attention
-family, packed prefill, the shared-prefix cache, the cluster KV tier and
-speculative decoding.
+naming its ``ROADMAP.md`` item): packed prefill, the shared-prefix cache,
+the cluster KV tier and speculative decoding.
 """
 from __future__ import annotations
 
@@ -234,6 +235,11 @@ class KVBackend:
                     max_new_tokens=c.max_new_tokens,
                     max_seq_len=c.max_seq_len, seed=c.seed)
 
+    @staticmethod
+    def _pow2_bucket(n: int) -> int:
+        """The power of two covering ``n`` (min 8)."""
+        return max(8, 1 << (max(n, 1) - 1).bit_length())
+
     def _chunk_bucket(self, n: int) -> int:
         """Dispatch-shape bucket for an ``n``-token chunk: the smallest
         entry of the ``prefill_buckets`` menu covering it, else the pow2
@@ -246,7 +252,7 @@ class KVBackend:
             raise ValueError(
                 f"{n}-token chunk exceeds the largest prefill bucket "
                 f"{menu[-1]}; the scheduler must clamp chunk spans")
-        return max(8, 1 << (n - 1).bit_length())
+        return self._pow2_bucket(n)
 
     def _t(self, a, dtype=torch.int32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -429,41 +435,67 @@ class PagedKVBackend(KVBackend):
 
 
 class DenseKVBackend(KVBackend):
-    """Slotted dense decode state: ``model.init_cache(max_slots)`` on the
-    device, one slice per lane along each key's batch axis, written **in
-    place**.  In the port it serves the ``ssm`` family, whose prefill is
-    monolithic (``Model.prefill``) and whose decode state is a
-    constant-size conv window and SSM state per layer.
+    """Slotted dense decode state: ``model.init_cache(max_slots,
+    max_seq_len)`` on the device, one slice per lane along each key's batch
+    axis, written **in place** where the reference rebuilt the cache.  For
+    the attention family every lane owns a full ``max_seq_len`` K/V stripe
+    per layer; for ``ssm`` a constant-size conv window and SSM state.
     """
 
     def __init__(self, model, cfg: KVBackendConfig):
         super().__init__(model, cfg)
-        self.cache = model.init_cache(cfg.max_slots)
+        self.cache = model.init_cache(cfg.max_slots, cfg.max_seq_len)
         self._axes = self._cache_batch_axes()
 
     def _cache_batch_axes(self) -> Dict[str, int]:
         """Batch (lane) axis of each cache key."""
-        return {"lengths": 0, "conv": 1, "ssm": 1}
+        if self.model.cfg.family == "ssm":
+            return {"lengths": 0, "conv": 1, "ssm": 1}
+        return {"lengths": 0, "k": 1, "v": 1}
 
     def _lane(self, key: str, slot: int):
         """View of one lane's slice of ``cache[key]``."""
         return self.cache[key].select(self._axes[key], slot)
 
-    # ---------------------------------------------------------- interface
-    def write_prefill(self, rid: int, pcache, length: int) -> None:
-        """Place batch index 0 of a ``Model.prefill`` cache into a free
-        lane."""
+    def _claim(self, rid: int) -> int:
         slot = self.free_slot()
         if slot is None:
             raise RuntimeError("no free decode lane: the caller must check "
                                "free_slot()")
+        self.slot_req[slot] = rid
+        return slot
+
+    # ---------------------------------------------------------- interface
+    def write_prefill(self, rid: int, pcache, length: int) -> None:
+        """Place batch index 0 of a ``Model.prefill`` cache into a free
+        lane (the ``ssm`` family's monolithic prefill; an attention prompt
+        takes :meth:`prefill_chunk`)."""
+        slot = self._claim(rid)
         for key in self.cache:
             if key == "lengths":
                 self.cache[key][slot] = length
             else:
                 self._lane(key, slot).copy_(
                     pcache[key].select(self._axes[key], 0))
-        self.slot_req[slot] = rid
+
+    def prefill_chunk(self, params, rid: int, tokens: List[int],
+                      start: int):
+        """One resumable prefill chunk of ``rid`` over its lane's stripe
+        (claiming a lane on the first chunk): ``Model.prefill_chunk`` on
+        the chunk padded to its bucket.  Returns the chunk's last-position
+        logits (1, V)."""
+        slot = self.slot_of(rid)
+        if slot is None:                    # first chunk: claim a lane
+            slot = self._claim(rid)
+        C = len(tokens)
+        Cb = self._chunk_bucket(C)
+        toks = np.zeros((1, Cb), np.int64)
+        toks[0, :C] = tokens
+        logits = self.model.prefill_chunk(
+            params, self._lane("k", slot), self._lane("v", slot),
+            self._t(toks, torch.int64), start, C)
+        self.cache["lengths"][slot] = start + C
+        return logits
 
     def clear(self, rid: int) -> None:
         slot = self.slot_of(rid)
@@ -473,28 +505,55 @@ class DenseKVBackend(KVBackend):
         self.slot_req[slot] = None
 
     def offload(self, rid: int) -> dict:
-        """Copy ``rid``'s lane state to the host, raw (the reference stores
-        conv and SSM state unquantized), and free the lane."""
+        """Copy ``rid``'s lane to the host and free the lane.  K/V travel
+        as a pow2-bucketed span of the stripe (min 8 positions, at most
+        ``max_seq_len``) with the rows past the length zeroed, as the
+        reference's blob (no stale positions cross the link); INT8 through
+        the ``kv_quantize`` kernel when ``quantize_offload``.  Conv and SSM
+        state travel raw, as in the reference."""
         slot = self.slot_of(rid)
-        stored: dict = {"lengths": int(self.cache["lengths"][slot])}
+        length = int(self.cache["lengths"][slot])
+        span = min(self._pow2_bucket(length), self.cfg.max_seq_len)
+        stored: dict = {"lengths": length}
         for key in self.cache:
-            if key != "lengths":
-                stored[key] = ("raw", self._lane(key, slot).to("cpu",
-                                                               copy=True))
+            if key == "lengths":
+                continue
+            lane = self._lane(key, slot)
+            if key in ("k", "v"):
+                pos = torch.arange(span, device=self.device)[None, :, None,
+                                                             None]
+                arr = lane[:, :span]
+                arr = torch.where(pos < length, arr, torch.zeros_like(arr))
+                if self.cfg.quantize_offload:
+                    stored[key] = ("q8", quantize_kv_device(arr))
+                    continue
+                stored[key] = ("raw", arr.cpu())
+            else:
+                stored[key] = ("raw", lane.to("cpu", copy=True))
         self.clear(rid)
         return stored
 
     def upload(self, rid: int, blob: dict) -> None:
-        """Restore an offloaded blob into a free lane."""
-        slot = self.free_slot()
-        if slot is None:
-            raise RuntimeError("no free decode lane for upload")
+        """Restore an offloaded blob into a free lane (K/V dequantized to
+        float32 on the device, then cast to the cache's dtype; the stripe
+        past the blob's span zeroed)."""
+        slot = self._claim(rid)
+        self.cache["lengths"][slot] = blob["lengths"]
         for key in self.cache:
             if key == "lengths":
-                self.cache[key][slot] = blob["lengths"]
+                continue
+            kind, item = blob[key]
+            lane = self._lane(key, slot)
+            if kind == "q8":
+                src = dequantize_kv_device(item, dtype=torch.float32,
+                                           device=self.device)
             else:
-                self._lane(key, slot).copy_(blob[key][1])       # ("raw", t)
-        self.slot_req[slot] = rid
+                src = item.to(self.device)
+            if key in ("k", "v"):
+                lane.zero_()
+                lane[:, :src.shape[1]].copy_(src.to(lane.dtype))
+            else:
+                lane.copy_(src)
 
     def decode(self, params, tokens, active, new_gen, new_ctx, true_len,
                rids):
@@ -506,3 +565,11 @@ class DenseKVBackend(KVBackend):
             self._t(true_len), self._t(rids), **self._sample_kwargs())
         out = torch.stack([tok, reason]).cpu().numpy()
         return out[0], out[1]
+
+    def decode_logits(self, params, tokens, active):
+        """The per-slot path's decode: one ``Model.decode_step`` over every
+        lane (only active lanes write and advance), returning the logits
+        (B, V) float32 on the device for the caller to sample each lane."""
+        return self.model.decode_step(
+            params, self.cache, self._t(tokens, torch.int64),
+            self._t(active, torch.bool))

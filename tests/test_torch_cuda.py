@@ -10,8 +10,9 @@ Shapes sweep beyond the serving and training paths' own (which
 ``chip_smoke.py`` checks): GQA group sizes 1 to 8, head dims 64 and 128,
 pages of 8 to 32 tokens, chunk and sequence lengths that are not multiples
 of the query tile, rows that see a single key, causal and bidirectional
-full-sequence attention, RMSNorm widths that are not multiples of the
-block, and SSD chunks whose length, head dim and state size are not
+full-sequence attention, INT8 pages at lengths around a page boundary with
+random table entries past each length, RMSNorm widths that are not
+multiples of the block, and SSD chunks whose length, head dim and state size are not
 multiples of the kernel's tiles.  The two autograd Functions' gradients
 are held against autograd through the plain versions, and the smoke
 config's loss and gradients on the card with kernels against those
@@ -70,6 +71,44 @@ def test_paged_attention_kernel(dev, B, H, KVH, d, page, npages, maxp, dtype):
     ref = paged_attention_ref(q, kc, vc, tables, lengths)
     torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
                                rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_q8_kernel(dev, G, d, page, dtype):
+    """INT8 pages: five lanes at lengths 1, page - 1, page, page + 1 and
+    the full table, whose entries past each length name random pages
+    (never read), codes from ``kv_quantize_ref``.  float32 within 2e-5;
+    bf16 element by element within one bf16 rounding step of the plain
+    output plus 2e-5 (both sides accumulate in f32 and round once)."""
+    from repro_torch.kernels.kv_quant import (kv_quantize_ref,
+                                              paged_attention_q8,
+                                              paged_attention_q8_ref)
+    KVH, maxp, npages = 2, 4, 24
+    rng = np.random.default_rng(G * 1000 + d + page)
+    q = _randn(rng, (5, G * KVH, d), dtype, dev)
+    kq, klam, kz = kv_quantize_ref(_randn(rng, (npages, page, KVH, d),
+                                          torch.float32, dev))
+    vq, vlam, vz = kv_quantize_ref(_randn(rng, (npages, page, KVH, d),
+                                          torch.float32, dev))
+    tables = torch.from_numpy(rng.integers(0, npages, (5, maxp))
+                              .astype(np.int32)).to(dev)
+    lengths = torch.tensor([1, page - 1, page, page + 1, maxp * page],
+                           dtype=torch.int32, device=dev)
+    args = (q, kq, klam, kz, vq, vlam, vz, tables, lengths)
+    n0 = paged_attention_q8.launches
+    out = paged_attention_q8(*args)
+    torch.cuda.synchronize()
+    assert paged_attention_q8.launches == n0 + 1 and out.dtype == dtype
+    ref = paged_attention_q8_ref(*args).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    else:
+        diff = (out.float() - ref).abs()
+        assert bool((diff <= 2.0 ** -7 * ref.abs() + 2e-5).all()), \
+            diff.max().item()
 
 
 @pytest.mark.parametrize("B,H,KVH,Smax,d,C", [
@@ -201,6 +240,20 @@ def test_kernels_reject_what_they_do_not_take(dev):
         z = torch.zeros((1, 1, 1025, 1, 4), device=dev)
         ssd_chunk(z, z[..., 0].contiguous(), z[:, :, :, 0].contiguous(),
                   z[:, :, :, 0].contiguous())
+    from repro_torch.kernels.kv_quant import paged_attention_q8
+    codes = torch.zeros((2, 4, 1, 64), dtype=torch.int8, device=dev)
+    scale = torch.ones((2, 4, 1, 1), device=dev)
+    tables = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    lengths = torch.ones((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):                          # float codes
+        paged_attention_q8(torch.zeros((1, 2, 64), device=dev),
+                           codes.float(), scale, scale, codes.float(), scale,
+                           scale, tables, lengths)
+    with pytest.raises(ValueError):                         # d = 32
+        paged_attention_q8(torch.zeros((1, 2, 32), device=dev),
+                           codes[..., :32].contiguous(), scale, scale,
+                           codes[..., :32].contiguous(), scale, scale,
+                           tables, lengths)
     with pytest.raises(TypeError):
         paged_attention(torch.zeros((1, 2, 8), device=dev),
                         torch.zeros((2, 4, 1, 8), device=dev),
@@ -282,7 +335,8 @@ def test_train_step_of_the_smoke_config(dev):
     relative, each gradient leaf nonzero and within a relative L2 of
     1e-4), then one AdamW step on the kernel path with a finite loss."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_prefix)
     from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm
     from repro_torch.models.model import Model
     from repro_torch.training.data import DataConfig, SyntheticLM
@@ -315,3 +369,55 @@ def test_train_step_of_the_smoke_config(dev):
     state, m = step(state, batch)
     assert np.isfinite(float(m["loss"]))
     assert all(torch.isfinite(p).all() for p in leaves)
+
+
+def test_dense_granite_kernel_path_matches_plain(dev):
+    """The smoke granite config in float32 with heads of 64 on the dense
+    backend's model path: one monolithic prefill of a right-padded prompt
+    (the flash and RMSNorm kernels), one dense decode step (RMSNorm
+    kernel, plain decode attention) and a prompt written into a lane's
+    stripe as one ``prefill_chunk`` (the engine's route: the prefix flash
+    kernel, against the masked route), each kernel path against
+    ``use_kernels=False`` on the same cache: logits within 1e-4, the
+    written K/V within 1e-5 (float32 sums in another order)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_prefix)
+    from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm
+    from repro_torch.models.model import Model
+    cfg = get_smoke_config("granite-3-8b").scaled(param_dtype="float32",
+                                                  head_dim=64)
+    model = Model(cfg, kv_dtype="float32", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 32))).to(dev)
+    toks[0, 21:] = 0
+    last = torch.tensor([20, 31], dtype=torch.int32, device=dev)
+    feed = torch.tensor([[5], [9]], device=dev)
+    out = {}
+    for use in (True, False):
+        model.use_kernels = use
+        n0 = (flash_prefill.launches, fused_rmsnorm.launches)
+        logits, pc = model.prefill(params, {"tokens": toks,
+                                            "last_index": last})
+        cache = model.init_cache(2, 64)
+        for key in ("k", "v"):
+            cache[key][:, :, :32] = pc[key]
+        cache["lengths"] = last.clone() + 1
+        step = model.decode_step(params, cache, feed)
+        n1 = (flash_prefill.launches, fused_rmsnorm.launches)
+        assert (n1[0] > n0[0] and n1[1] > n0[1]) == use
+        model.chunk_attn_impl = "flash" if use else "masked"
+        n0 = flash_prefill_prefix.launches
+        lane = model.init_cache(1, 64)
+        chunk = model.prefill_chunk(params, lane["k"][:, 0], lane["v"][:, 0],
+                                    toks[:1], 0, 21)
+        assert (flash_prefill_prefix.launches > n0) == use
+        out[use] = (logits, step, cache, chunk, lane)
+    a, b = out[True], out[False]
+    for i in (0, 1, 3):
+        torch.testing.assert_close(a[i], b[i], atol=1e-4, rtol=0)
+    for i in (2, 4):
+        for key in ("k", "v"):
+            torch.testing.assert_close(a[i][key], b[i][key], atol=1e-5,
+                                       rtol=0)

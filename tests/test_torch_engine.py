@@ -292,7 +292,7 @@ def test_cancel_and_drain_free_everything(setup):
     assert len(eng.kv.pool.free_pages) == eng.kv.pool.cfg.num_pages - 1
 
 
-@pytest.mark.parametrize("opt", [dict(kv_backend="dense"),
+@pytest.mark.parametrize("opt", [dict(kv_backend="dense", prefix_cache=True),
                                  dict(prefix_cache=True),
                                  dict(spec_decode=True),
                                  dict(prefill_pack=True)])

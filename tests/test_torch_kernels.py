@@ -25,7 +25,8 @@ from repro.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_prefill import flash_prefill_prefix  # noqa: E402
 from repro_torch.kernels.kv_quant import (kv_dequantize, kv_dequantize_ref,  # noqa: E402
-                                          kv_quantize, kv_quantize_ref)
+                                          kv_quantize, kv_quantize_ref,
+                                          paged_attention_q8)
 from repro_torch.kernels.paged_attention import (gather_pages,  # noqa: E402
                                                  paged_attention)
 
@@ -219,20 +220,24 @@ def test_quant_ref_is_the_cpu_path():
 def test_cpu_path_launches_nothing():
     """A CPU tensor takes the plain version: no kernel is built or
     launched, so no launch is counted."""
-    before = (paged_attention.launches, flash_prefill_prefix.launches,
-              kv_quantize.launches, kv_dequantize.launches)
+    wrappers = (paged_attention, flash_prefill_prefix, kv_quantize,
+                kv_dequantize, paged_attention_q8)
+    before = [w.launches for w in wrappers]
     x = torch.zeros((4, 8))
     q, lam, z = kv_quantize(x)
     kv_dequantize(q, lam, z)
+    tables = torch.zeros((1, 2), dtype=torch.int32)
     paged_attention(torch.zeros((1, 2, 8)), torch.zeros((2, 4, 1, 8)),
-                    torch.zeros((2, 4, 1, 8)),
-                    torch.zeros((1, 2), dtype=torch.int32),
+                    torch.zeros((2, 4, 1, 8)), tables,
                     torch.ones((1,), dtype=torch.int32))
+    codes = torch.zeros((2, 4, 1, 8), dtype=torch.int8)
+    scale = torch.ones((2, 4, 1, 1))
+    paged_attention_q8(torch.zeros((1, 2, 8)), codes, scale, scale, codes,
+                       scale, scale, tables, torch.ones((1,), dtype=torch.int32))
     flash_prefill_prefix(torch.zeros((1, 2, 4, 8)), torch.zeros((1, 1, 8, 8)),
                          torch.zeros((1, 1, 8, 8)),
                          torch.zeros((1,), dtype=torch.int32))
-    assert before == (paged_attention.launches, flash_prefill_prefix.launches,
-                      kv_quantize.launches, kv_dequantize.launches)
+    assert before == [w.launches for w in wrappers]
     assert not _build._libs
 
 
@@ -243,6 +248,7 @@ def test_kernel_sources_and_build_flags():
                                 "kv_quant", "paged_attention", "ssd_chunk"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for name, fn in (("paged_attention", "`paged_attention`"),
+                     ("paged_attention", "`paged_attention_q8`"),
                      ("flash_prefill_prefix", "`flash_prefill_prefix`"),
                      ("kv_quant", "`kv_quantize`"),
                      ("fused_rmsnorm", "`fused_rmsnorm`"),

@@ -294,7 +294,7 @@ def test_model_family_switches(setup):
     assert {k: tuple(v.shape) for k, v in tcache.items()} == {
         k: tuple(v.shape) for k, v in jcache.items()}
     assert tcache["ssm"].dtype == torch.float32
-    assert {k: v[0] for k, v in model.cache_shapes(3).items()} == {
+    assert {k: v[0] for k, v in model.cache_shapes(3, 64).items()} == {
         "lengths": (3,), "conv": (cfg.num_layers, *tcache["conv"].shape),
         "ssm": (cfg.num_layers, *tcache["ssm"].shape)}
     init = model.init(torch.Generator().manual_seed(0))
@@ -303,10 +303,11 @@ def test_model_family_switches(setup):
             if k != "gate_norm"} == {
         k: tuple(v.shape) for k, v in tparams["layers"][0]["ssm"].items()
         if k != "gate_norm"}
-    gran = dataclasses.replace(get_smoke_config("granite-3-8b"),
-                               param_dtype="float32")
+    gran = Model(dataclasses.replace(get_smoke_config("granite-3-8b"),
+                                     param_dtype="float32"), device="cpu")
+    assert gran.supports_chunked_prefill() and gran.supports_paged()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Model(gran, device="cpu").prefill(None, {"tokens": None})
+        model.loss(tparams, {"tokens": None, "targets": None})
 
 
 def test_dense_backend_offload_upload_round_trip(setup):

@@ -47,7 +47,7 @@ from repro_torch.kernels.flash_prefill import (FlashPrefill,  # noqa: E402
 from repro_torch.kernels.fused_rmsnorm import (FusedRMSNorm,  # noqa: E402
                                                fused_rmsnorm, rmsnorm_ref)
 from repro_torch.kernels.kv_quant import (kv_dequantize,  # noqa: E402
-                                          kv_quantize)
+                                          kv_quantize, paged_attention_q8)
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunk  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -224,6 +224,10 @@ def _grad_inputs():
                                        r(1, 1, 4, 5), r(1, 1, 4, 5)),
         "kv_quantize": lambda: kv_quantize(r(4, 8)),
         "kv_dequantize": lambda: kv_dequantize(q8, r(4, 1), r(4, 1)),
+        "paged_attention_q8": lambda: paged_attention_q8(
+            r(2, 2, 8), q8.reshape(2, 2, 1, 8), r(2, 2, 1, 1), r(2, 2, 1, 1),
+            q8.reshape(2, 2, 1, 8), r(2, 2, 1, 1), r(2, 2, 1, 1), tables,
+            torch.tensor([1, 2], dtype=torch.int32)),
     }
 
 
