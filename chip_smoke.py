@@ -7,18 +7,35 @@ the final line:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA kernel of ``src/repro_torch/csrc`` with nvcc for
-     sm_90a, one process per source, with seconds and ptxas usage;
+     sm_90a, one process per source, with seconds and, per kernel entry,
+     ptxas's registers, static shared memory and spills (and the wgmma
+     flash body's dynamic shared memory);
   3. kernels: each kernel against its plain PyTorch version at the serving
      path's shapes, under ``torch.no_grad`` as the serving paths call them
-     (tolerances: float32 2e-5, bfloat16 5e-2 for the paged and prefix
-     kernels, the bfloat16 RMSNorm and full-sequence flash kernel within
-     one bfloat16 rounding step of the plain output element by element
-     (the flash kernel plus 2e-5), INT8 codes within 1, round-trip relative error < 0.02, SSD
+     (tolerances: float32 2e-5; bfloat16 5e-2 for the paged kernel; the
+     bfloat16 prefix and full-sequence flash rows (the wgmma body, which
+     rounds P to bf16) element by element within 2^-7 |plain| + 2^-7 a +
+     2e-5, a = the softmax-weighted mean of |v| (derived in
+     ``check_bf16_attention``), with an error from the float32 truth at
+     most twice SDPA's plus 2e-5, and within 5e-2; the bfloat16 RMSNorm
+     within one bfloat16 rounding step of the plain output element by
+     element; INT8 codes within 1, round-trip relative error < 0.02, SSD
      chunk rtol = atol = 1e-4 x sqrt(Q N / 1024)), with its time, the plain
      version's time, the least time the card could take (bytes over
      3.35 TB/s or operations over the dtype's peak rate, whichever is
      larger) and, where one PyTorch call computes the same function, that
-     call's time as a yardstick (the port never calls it);
+     call's time as a yardstick (the port never calls it; SDPA pinned to
+     one backend, named).  Times are device times with the inputs out of
+     L2: the median of 3 CUDA-graph replays of a run of calls, each after
+     a read of four times the L2, less the reads alone (``time_ms``); the
+     flash-prefix and RMSNorm rows also print a host loop's per-call time
+     (``eager_ms``, inputs in L2).  The flash library's body counters
+     name the body each flash row took (the bf16 rows must take the
+     ``wgmma`` body, the f32 rows the FMA body).  The two kernels redesigned for Hopper
+     must not be slower than their library call (every reading above
+     every reading of the call fails): the bf16 prefix kernel at C 256,
+     start 1000 against SDPA, the bf16 (1024, 5120) RMSNorm against
+     ``F.rms_norm`` (printed beside its bound and a copy of its bytes);
   4. reference: the full-width model's kernel path (paged-attention
      kernel + prefix flash kernel + RMSNorm kernel) against its plain path
      (page gather + masked attention + plain RMSNorm) on one short
@@ -31,8 +48,9 @@ the final line:
      two sequences, staged arrivals on a virtual clock: requests must be
      preempted, swapped out and in as INT8 through the kv_quant kernels,
      and all finish;
-  7. profile: where a full-batch decode step's time goes, with each decode
-     attention path, under ``torch.profiler``;
+  7. profile: where a full-batch decode step's and a 256-token prefill
+     chunk's time goes, with each attention path, under
+     ``torch.profiler`` (the flash chunk must run the bf16 wgmma body);
   8. mamba reference: mamba2-2.7b at full width and depth (64 layers,
      d_model 2560, 80 heads of 64, state 128; random bf16 weights from a
      seed), its kernel path (fused RMSNorm + SSD chunk kernels) against its
@@ -104,8 +122,11 @@ one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -118,6 +139,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,       # dense tensor-core rate
               "float32": 67e12}         # float32 outside the tensor cores
+L2_BYTES = 50 * 2 ** 20                 # H100 SXM data sheet
+_SCRUB = []                             # the L2 scrub's buffer, made once
 SEED = 0
 
 
@@ -138,20 +161,95 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events,
-    after one warm-up call)."""
+def _scrub_l2():
+    """Reads a float32 buffer of four times the card's L2 (one reduction),
+    which leaves none of the data of earlier calls there."""
+    import torch
+    if not _SCRUB:
+        _SCRUB.append(torch.ones(L2_BYTES, dtype=torch.float32,
+                                 device="cuda"))
+    return _SCRUB[0].sum()
+
+
+def _replay_ms(graph) -> float:
+    import torch
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def time_ms(fn, iters: int = 20, reps: int = 3, readings=None) -> float:
+    """Device time of one call of ``fn`` whose inputs are not in L2, as a
+    serving step finds fresh activations and another layer's K/V: the
+    median of ``reps`` readings.  A reading replays, between CUDA events, a
+    CUDA graph of ``iters`` (L2 scrub, call) pairs and one of the ``iters``
+    scrubs alone, and takes the difference per call; the host's time to
+    issue the calls is in neither (after one warm-up call and one warm-up
+    replay of each).  ``readings``, when given, gets every reading."""
+    import torch
+    fn()
+    _scrub_l2()
+    torch.cuda.synchronize()
+    graphs = []
+    for calls in ((_scrub_l2, fn), (_scrub_l2,)):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                for call in calls:
+                    call()
+        graph.replay()
+        graphs.append(graph)
+    torch.cuda.synchronize()
+    got = [(_replay_ms(graphs[0]) - _replay_ms(graphs[1])) / iters
+           for _ in range(reps)]
+    del graphs
+    if readings is not None:
+        readings.extend(got)
+    return statistics.median(got)
+
+
+def verdict(label: str, ms: float, mine: list, lib_ms: float, lib: list,
+            what: str, b_ms: float, copy_ms: float = None) -> None:
+    """Prints a redesigned kernel's verdict against its library call, with
+    its time over its bound (and, for a bytes-bound row, the time of a
+    copy of the same bytes, what the card reaches in practice), and fails
+    when it is slower: every reading of the kernel above every reading of
+    the library call, so that the readings' own spread decides nothing."""
+    slower = min(mine) > max(lib)
+    copy = ("" if copy_ms is None else f"; a copy of the same bytes "
+            f"{copy_ms:.4f} ms, {copy_ms / b_ms:.2f}x")
+    print(f"[verdict] {label}: kernel {ms:.4f} ms vs {what} {lib_ms:.4f} ms "
+          f"({'SLOWER' if slower else 'no slower'}; readings "
+          f"{', '.join(f'{x:.4f}' for x in mine)} vs "
+          f"{', '.join(f'{x:.4f}' for x in lib)}), {ms / b_ms:.2f}x its "
+          f"{b_ms:.4f} ms bound{copy}", flush=True)
+    if slower:
+        fail(f"{label}: slower than {what}")
+
+
+def eager_ms(fn, iters: int = 20, reps: int = 3) -> float:
+    """Time of one call of ``fn`` issued back to back from the host: the
+    median of ``reps`` readings of CUDA events around ``iters`` calls,
+    after one warm-up call.  A call's host time is in it when that is
+    longer than its device time."""
     import torch
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    readings = []
+    for _ in range(reps):
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        readings.append(t0.elapsed_time(t1) / iters)
+    return statistics.median(readings)
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -208,8 +306,91 @@ def check_paged_attention(torch, dev):
     return rows["bfloat16"]
 
 
-def check_flash_prefix(torch, dev):
+def sdpa_call(torch, q, k, v, mask=None, causal=False):
+    """The SDPA yardstick pinned to one backend: flash for the unmasked
+    calls, else the first of the memory-efficient, cuDNN and math backends
+    that takes the position mask; GQA through ``enable_gqa``, or with the
+    kv heads expanded beforehand where the backend refuses it.  Returns
+    (a function of no arguments, the backend's name)."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    G = q.shape[1] // k.shape[1]
+    order = ([] if mask is not None else [SDPBackend.FLASH_ATTENTION]) + [
+        SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+        SDPBackend.MATH]
+    for backend in order:
+        for gqa in (True, False):
+            kk = k if gqa else k.repeat_interleave(G, dim=1)
+            vv = v if gqa else v.repeat_interleave(G, dim=1)
+            extra = {"enable_gqa": True} if gqa else {}
+
+            def call(kk=kk, vv=vv, extra=extra, backend=backend):
+                with sdpa_kernel(backend):
+                    return F.scaled_dot_product_attention(
+                        q, kk, vv, attn_mask=mask, is_causal=causal, **extra)
+            try:
+                call()
+            except (RuntimeError, TypeError):
+                continue
+            return call, backend.name + (" gqa" if gqa else " expanded")
+    fail("no SDPA backend takes the yardstick's call")
+
+
+def check_bf16_attention(torch, label, out, plain, truth, absv, lib_out):
+    """A bf16 flash row against its plain version and the float32 truth.
+
+    ``plain`` is the plain version's bf16 output; ``truth`` its float32
+    output on the same bf16 inputs; ``absv`` the plain version applied to
+    |v| in float32, a = sum_j w_j |v_j| with w the softmax weights;
+    ``lib_out`` SDPA's bf16 output.  The kernel rounds P to bf16 (unit
+    roundoff 2^-8) before P V and sums l over the unrounded P, so before
+    its output is rounded it is within 2^-8 a of the truth, and the two
+    outputs' roundings add at most 2^-8 (|out| + |truth|) <= 2^-7 |plain| +
+    2^-14 a.  So element by element |out - plain| <= 2^-7 |plain| + 2^-7 a
+    + 2e-5 (the float32 sums' slack; the FMA body's bound was 2^-7 |plain|
+    + 2e-5).  The kernel's largest error from the truth must also be at
+    most twice SDPA's, plus 2e-5; and the max error 5e-2.  Returns (max
+    error from plain, from truth, SDPA's from truth)."""
+    diff = (out.float() - plain.float()).abs()
+    bound_ = 2.0 ** -7 * plain.float().abs() + 2.0 ** -7 * absv + 2e-5
+    err = diff.max().item()
+    if not (bool((diff <= bound_).all()) and err <= 5e-2):
+        fail(f"{label}: beyond the derived bound by "
+             f"{(diff - bound_).max().item():.3g} (max_abs_err {err})")
+    t_err = (out.float() - truth).abs().max().item()
+    l_err = (lib_out.float() - truth).abs().max().item()
+    if not t_err <= 2 * l_err + 2e-5:
+        fail(f"{label}: {t_err:.3g} from the float32 truth, SDPA {l_err:.3g}")
+    return err, t_err, l_err
+
+
+def check_body(torch, label, fn, want):
+    """Fails unless one call of ``fn`` launches the flash body ``want``
+    ("fma" or "wgmma") once and the other not at all, by the library's
+    body counters (``ops.body_launches``).  Returns the bodies it took,
+    e.g. "wgmma+merge" for a split."""
+    from repro_torch.kernels.flash_prefill.ops import body_launches
+    before = body_launches()
+    fn()
+    torch.cuda.synchronize()
+    took = {k: n - before[k] for k, n in body_launches().items()}
+    other = "fma" if want == "wgmma" else "wgmma"
+    if took[want] != 1 or took[other] != 0:
+        fail(f"{label}: launched {took}, want the {want} body once")
+    return "+".join(k for k in ("fma", "wgmma", "merge") if took[k])
+
+
+def check_flash_prefix(torch, dev):
+    """The prefix kernel at granite's chunk shapes (B 1, H 32, KVH 8, d
+    128, Smax 2048, strided k/v as the serve path passes them): f32 (the
+    FMA body, 2e-5) and bf16 (the wgmma body: the derived element-wise
+    bound, the float32-truth check against SDPA, 5e-2) at chunks of 16 and
+    256 at positions 0 and 1000.  The body counters name the bodies each
+    takes (C 16 at 1000 splits its keys: body and merge).  SDPA with the
+    position mask, pinned to one backend (printed), is the yardstick.
+    Times are device times (:func:`time_ms`) and, for bf16, also a host
+    loop's per-call time (:func:`eager_ms`).  Returns the bf16 C 256 row at
+    position 1000."""
     from repro_torch.kernels.flash_prefill import (flash_prefill_prefix,
                                                    flash_prefill_prefix_ref)
     B, H, KVH, d, Smax = 1, 32, 8, 128, 2048
@@ -219,6 +400,7 @@ def check_flash_prefix(torch, dev):
                         ("bfloat16", 16, 1000), ("bfloat16", 256, 0),
                         ("bfloat16", 256, 1000)):
         dt = getattr(torch, name)
+        label = f"flash_prefill_prefix {name} C={C} start={st}"
         q = torch.randn((B, H, C, d), generator=g, device=dev).to(dt)
         # k/v as the serve path passes them: transposed views of the
         # page-gathered (B, Smax, KVH, d) stripe
@@ -230,69 +412,63 @@ def check_flash_prefix(torch, dev):
         out = flash_prefill_prefix(q, k, v, start)
         ref = flash_prefill_prefix_ref(q, k, v, start)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = 2e-5 if name == "float32" else 5e-2
-        if not err <= tol:
-            fail(f"flash_prefill_prefix {name} C={C} start={st}: "
-                 f"max_abs_err {err} > {tol}")
-        ms = time_ms(lambda: flash_prefill_prefix(q, k, v, start))
-        plain = time_ms(lambda: flash_prefill_prefix_ref(q, k, v, start), 5)
         qpos = st + torch.arange(C, device=dev)
         mask = torch.arange(Smax, device=dev)[None, :] <= qpos[:, None]
-        try:
-            def lib():
-                return F.scaled_dot_product_attention(q, k, v,
-                                                      attn_mask=mask,
-                                                      enable_gqa=True)
-            lib()
-        except TypeError:          # torch without enable_gqa: expand heads
-            ke = k.repeat_interleave(H // KVH, dim=1)
-            ve = v.repeat_interleave(H // KVH, dim=1)
-
-            def lib():
-                return F.scaled_dot_product_attention(q, ke, ve,
-                                                      attn_mask=mask)
-        lib_ms = time_ms(lib)
+        lib, backend = sdpa_call(torch, q, k, v, mask=mask)
+        if name == "float32":
+            err = (out - ref).abs().max().item()
+            if not err <= 2e-5:
+                fail(f"{label}: max_abs_err {err} > 2e-05")
+            extra = ""
+            body = check_body(torch, label,
+                              lambda: flash_prefill_prefix(q, k, v, start),
+                              "fma")
+        else:
+            qf, kf, vf = q.float(), k.float(), v.float()
+            err, t_err, l_err = check_bf16_attention(
+                torch, label, out, ref,
+                flash_prefill_prefix_ref(qf, kf, vf, start),
+                flash_prefill_prefix_ref(qf, kf, vf.abs(), start), lib())
+            body = check_body(torch, label,
+                              lambda: flash_prefill_prefix(q, k, v, start),
+                              "wgmma")
+            e_ms = eager_ms(lambda: flash_prefill_prefix(q, k, v, start))
+            extra = (f" truth_err={t_err:.3g} (SDPA {l_err:.3g}) eager_ms="
+                     f"{e_ms:.4f} library_eager_ms={eager_ms(lib):.4f}")
+        mine, theirs = [], []
+        ms = time_ms(lambda: flash_prefill_prefix(q, k, v, start),
+                     readings=mine)
+        plain = time_ms(lambda: flash_prefill_prefix_ref(q, k, v, start), 5)
+        lib_ms = time_ms(lib, readings=theirs)
         visible = C * st + C * (C + 1) // 2       # keys each row attends
         n_kv = st + C
         moved = nbytes(q) * 2 + 2 * n_kv * KVH * d * k.element_size() + 4
         b_ms, b_by = bound(moved, 4.0 * visible * H * d, name)
-        print(f"[kernel] flash_prefill_prefix {name} C={C} start={st} "
-              f"Smax={Smax}: max_err={err:.3g} kernel_ms={ms:.4f} "
-              f"plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-              f"library_ms={lib_ms:.4f}", flush=True)
+        print(f"[kernel] {label} Smax={Smax}: body {body} max_err={err:.3g}"
+              f" kernel_ms={ms:.4f} ({b_ms / ms:.1%} of bound) plain_ms="
+              f"{plain:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms="
+              f"{lib_ms:.4f} (SDPA {backend}){extra}", flush=True)
         if name == "bfloat16" and C == 256 and st == 1000:
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms)
+            verdict("flash_prefill_prefix bf16 C=256 start=1000", ms, mine,
+                    lib_ms, theirs, f"SDPA {backend}", b_ms)
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
     return main
-
-
-def _sdpa(torch, q, k, v, causal):
-    """``F.scaled_dot_product_attention`` over GQA heads, the yardstick
-    (expanding the kv heads where this torch has no ``enable_gqa``)."""
-    import torch.nn.functional as F
-    try:
-        F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                       enable_gqa=True)
-        return lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True)
-    except TypeError:
-        G = q.shape[1] // k.shape[1]
-        ke, ve = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
-        return lambda: F.scaled_dot_product_attention(q, ke, ve,
-                                                      is_causal=causal)
 
 
 def check_flash_prefill(torch, dev):
     """The full-sequence flash kernel at the training path's shape (B 4,
     H 32, KVH 8, S 1024, d 128, the (B, S, H, d) projections viewed as
-    (B, H, S, d) without a copy): f32 causal and bidirectional (2e-5),
-    bf16 causal (each element within one bf16 rounding step of the plain
-    output, 2^-7 of it, plus 2e-5), a ragged S of 1000 and d 64
+    (B, H, S, d) without a copy): f32 causal and bidirectional (2e-5, the
+    FMA body), bf16 causal (the wgmma body, held as
+    :func:`check_bf16_attention` holds it), a ragged S of 1000 and d 64
     bidirectional (f32, 2e-5), and bf16 causal at B 1, S 2048 (one prompt
-    of ``Model.prefill``'s largest serving bucket, the same element-wise
-    bound).  The bound counts the visible (query, key) pairs: 4 d flops
-    each.  Returns the f32 causal row, the shape training runs."""
+    of ``Model.prefill``'s largest serving bucket).  SDPA pinned to its
+    flash backend is the yardstick.  The bound counts the visible (query,
+    key) pairs: 4 d flops each.  Returns the f32 causal row, the shape
+    training runs."""
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    flash_prefill_ref)
     H, KVH = 32, 8
@@ -313,28 +489,35 @@ def check_flash_prefill(torch, dev):
         out = flash_prefill(q, k, v, causal=causal)
         ref = flash_prefill_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        diff = (out.float() - ref.float()).abs()
-        err = diff.max().item()
         kind = "causal" if causal else "bidirectional"
+        label = f"flash_prefill {name} {kind} B={B} S={S} d={d}"
+        lib, backend = sdpa_call(torch, q, k, v, causal=causal)
+        extra = ""
         if name == "float32":
-            ok = err <= 2e-5
+            err = (out - ref).abs().max().item()
+            if not err <= 2e-5:
+                fail(f"{label}: max_abs_err {err} > 2e-05")
         else:
-            # both sides accumulate in f32 and round once: at most one
-            # bf16 step of the plain output apart, plus f32's 2e-5
-            ok = bool((diff <= 2.0 ** -7 * ref.float().abs() + 2e-5).all())
-        if not ok:
-            fail(f"flash_prefill {name} {kind} S={S} d={d}: max_abs_err "
-                 f"{err} beyond its tolerance")
+            qf, kf, vf = q.float(), k.float(), v.float()
+            err, t_err, l_err = check_bf16_attention(
+                torch, label, out, ref,
+                flash_prefill_ref(qf, kf, vf, causal=causal),
+                flash_prefill_ref(qf, kf, vf.abs(), causal=causal), lib())
+            body = check_body(torch, label,
+                              lambda: flash_prefill(q, k, v, causal=causal),
+                              "wgmma")
+            extra = f" body {body} truth_err={t_err:.3g} (SDPA {l_err:.3g})"
+            del qf, kf, vf
         ms = time_ms(lambda: flash_prefill(q, k, v, causal=causal), 10)
         plain = time_ms(lambda: flash_prefill_ref(q, k, v, causal=causal), 5)
-        lib_ms = time_ms(_sdpa(torch, q, k, v, causal), 10)
+        lib_ms = time_ms(lib, 10)
         visible = S * (S + 1) // 2 if causal else S * S
         b_ms, b_by = bound(nbytes(q, k, v, out), 4.0 * B * H * d * visible,
                            name)
-        print(f"[kernel] flash_prefill {name} {kind} B={B} H={H} KVH={KVH} "
-              f"S={S} d={d}: max_err={err:.3g} kernel_ms={ms:.4f} "
-              f"plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-              f"library_ms={lib_ms:.4f} (SDPA)", flush=True)
+        print(f"[kernel] {label} H={H} KVH={KVH}: max_err={err:.3g} "
+              f"kernel_ms={ms:.4f} ({b_ms / ms:.1%} of bound) plain_ms="
+              f"{plain:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms="
+              f"{lib_ms:.4f} (SDPA {backend}){extra}", flush=True)
         if main is None:
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms)
@@ -487,7 +670,9 @@ def check_fused_rmsnorm(torch, dev):
     library yardstick.  float32 must agree to 2e-5 (relative beyond 1);
     bfloat16 must be within one bfloat16 rounding step of the plain output,
     element by element (both sum in float32, so only the final rounding can
-    differ).  Returns the bf16 (1024, 5120) row."""
+    differ).  Times are device times (:func:`time_ms`) and a host loop's
+    per-call times (:func:`eager_ms`) of the kernel and the library call.
+    Returns the bf16 (1024, 5120) row."""
     import torch.nn.functional as F
     from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm, rmsnorm_ref
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -511,21 +696,29 @@ def check_fused_rmsnorm(torch, dev):
                 ok = bool((diff <= 2.0 ** -7 * ref.float().abs()).all())
             if not ok:
                 fail(f"fused_rmsnorm {name} ({T}, {d}): max_abs_err {err}")
-            ms = time_ms(lambda: fused_rmsnorm(x, scale), 50)
+
+            def kern():
+                return fused_rmsnorm(x, scale)
+
+            def lib():
+                return F.rms_norm(x, (d,), scale, 1e-5)
+            mine, theirs = [], []
+            ms = time_ms(kern, 50, readings=mine)
             plain = time_ms(lambda: rmsnorm_ref(x, scale), 20)
-            try:
-                lib_ms = time_ms(lambda: F.rms_norm(x, (d,), scale, 1e-5), 50)
-            except AttributeError:             # torch without rms_norm
-                lib_ms = None
+            lib_ms = time_ms(lib, 50, readings=theirs)
             b_ms, b_by = bound(nbytes(x, scale, out), 4.0 * T * d, name)
             print(f"[kernel] fused_rmsnorm {name} T={T} d={d}: max_err="
-                  f"{err:.3g} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-                  f"bound_ms={b_ms:.4f} ({b_by}) library_ms="
-                  f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}",
-                  flush=True)
+                  f"{err:.3g} kernel_ms={ms:.4f} ({b_ms / ms:.1%} of bound) "
+                  f"plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"library_ms={lib_ms:.4f} eager_ms={eager_ms(kern, 50):.4f}"
+                  f" library_eager_ms={eager_ms(lib, 50):.4f}", flush=True)
             if name == "bfloat16" and T == 1024 and d == 5120:
                 main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                y = torch.empty_like(x)
+                verdict("fused_rmsnorm bf16 (1024, 5120)", ms, mine, lib_ms,
+                        theirs, "F.rms_norm", b_ms,
+                        copy_ms=time_ms(lambda: y.copy_(x), 50))
     return main
 
 
@@ -750,11 +943,12 @@ def _is_kernel(torch, e) -> bool:
             and not getattr(e, "is_user_annotation", False))
 
 
-def profile_step(torch, label: str, step, n: int = 5) -> None:
+def profile_step(torch, label: str, step, n: int = 5, watch=()) -> None:
     """One line on where ``step``'s time goes: host wall ms per call
     without the profiler (``n`` calls, synchronized), then the device's
     busy time per call (sum of kernel times) and its top kernels from
-    ``torch.profiler`` over ``n`` more calls."""
+    ``torch.profiler`` over ``n`` more calls, and every kernel whose name
+    holds one of ``watch`` (fails when such a kernel never ran)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         step()
@@ -781,17 +975,24 @@ def profile_step(torch, label: str, step, n: int = 5) -> None:
               "device time (device busy not measured)", flush=True)
         return
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
+    seen = [(k, v) for k, v in sorted(by_kernel.items())
+            if any(w in k for w in watch)]
+    if watch and not seen:
+        fail(f"{label}: no kernel named like {watch} ran")
     print(f"[profile] {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
           f"(idle {max(0.0, 1 - busy / wall):.1%}), {len(by_kernel)} kernel "
           "names; top: " + "; ".join(f"{k} {v:.2f} ms ({v / busy:.1%})"
-                                     for k, v in top), flush=True)
+                                     for k, v in top)
+          + "".join(f"; watched: {k} {v:.2f} ms ({v / busy:.1%})"
+                    for k, v in seen), flush=True)
 
 
 def phase_profile(torch, model, params):
     """Where the time goes in the two model steps of the serve path, with
     each attention implementation: a full-batch decode step (8 lanes at
     contexts spread over 64..1600 tokens, the serve phase's range) and one
-    256-token prefill chunk starting at position 1024."""
+    256-token prefill chunk starting at position 1024, whose flash route
+    must run the bf16 wgmma body (its time and share printed)."""
     from repro_torch.serving.kv_cache import KVBackendConfig, PagedKVBackend
     B, pg = 8, 16
     kv = PagedKVBackend(model, KVBackendConfig(
@@ -822,7 +1023,8 @@ def phase_profile(torch, model, params):
         model.chunk_attn_impl = chunk
         profile_step(torch, f"prefill chunk ({chunk}, C={C}, start={start})",
                      lambda: model.paged_prefill_chunk(params, pool, *pre,
-                                                       start, C))
+                                                       start, C),
+                     watch=("flash_attn_wgmma",) if chunk == "flash" else ())
     model.chunk_attn_impl = impl0
 
 
@@ -1440,6 +1642,35 @@ def phase_train_profile(torch, dev, state):
           flush=True)
 
 
+def ptxas_report(logs) -> list:
+    """One line per kernel entry from ``nvcc -Xptxas -v``'s output: source,
+    kernel (demangled by ``c++filt`` where the machine has it), registers,
+    static shared memory and spills."""
+    rows = []
+    for src, log in sorted(logs.items()):
+        entry, spill = "?", ""
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry = m.group(1)
+            elif "spill stores" in line:
+                spill = line.strip()
+            elif "Used" in line and "registers" in line:
+                rows.append([src, entry, line.split(":", 1)[-1].strip(),
+                             spill])
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(r[1] for r in rows),
+            capture_output=True, text=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) == len(rows):
+        for r, n in zip(rows, names):
+            r[1] = n.replace("(anonymous namespace)::", "").split("(")[0]
+    return [f"{src}: {entry}: {used}; {spill}"
+            for src, entry, used, spill in rows]
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1474,10 +1705,12 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     print(f"[build] {len(_build.sources())} sources with nvcc for sm_90a in "
           f"{build_s:.1f}s", flush=True)
-    for src, log in sorted(logs.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line.lower():
-                print(f"[build] {src}: {line.strip()}")
+    for line in ptxas_report(logs):
+        print(f"[build] {line}")
+    smem = _build.load("flash_prefill_prefix").flash_prefill_wgmma_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    print(f"[build] flash_attn_wgmma_kernel dynamic shared memory: d 64 "
+          f"{smem(64)} B, d 128 {smem(128)} B", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

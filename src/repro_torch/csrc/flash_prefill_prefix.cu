@@ -1,6 +1,6 @@
 // Flash attention for Hopper (sm_90a), plain C interface for ctypes: the
 // chunked-prefill kernel over a request's prefix KV and the full-sequence
-// kernel (causal or bidirectional), one device body for both.
+// kernel (causal or bidirectional), with two device bodies.
 //
 // Replaces: src/repro/kernels/flash_prefill/flash_prefill.py,
 //   `flash_prefill_prefix` (Pallas body `_prefix_kernel`) and
@@ -12,36 +12,44 @@
 // i).  Full mode: q (B, H, S, d) over k/v (B, KVH, S, d), i.e. C = Smax = S
 // and start = 0, causal (key j visible iff j <= i) or bidirectional (every
 // key visible).  GQA head h reads kv-head h / (H / KVH).  Out (B, H, C, d)
-// in q's dtype.  Masking uses -1e30 and the output is acc / max(l, 1e-30),
-// as on the TPU; key 0 is visible to every row, and the first key tile is
-// always read, so a masked score never enters the sum with weight 1.
+// in q's dtype, acc / max(l, 1e-30).
 //
-// What bounds it on the H100: for the short chunks of decode-time
-// interleaving, bytes (the prefix K/V stripe is read once per q tile); for
-// long chunks over long prefixes and for full-sequence attention,
-// operations (4 * visible pairs * d flops per head).  This first version
-// does its math in float32 on the CUDA cores, so it is far from either
-// bound; wgmma in bf16 is later work.
+// The two bodies, chosen per call by dtype and layout:
+// - bfloat16 takes the Hopper body of flash_prefill_wgmma.cuh (tensor
+//   cores through wgmma, K/V by TMA, GQA heads packed into one block's
+//   rows, split-KV for grids too small to fill the card; its note says
+//   how).  It rounds P to bf16 before P V, as SDPA's flash backend does.
+//   A bf16 view that TMA cannot take (an address or a stride that is not
+//   a multiple of 16 bytes) or G > 64 takes the FMA body below instead:
+//   the model's views always suit the wgmma body.
+// - float32 (training, held to 2e-5 of the plain version, which rules out
+//   TF32 and bf16 tensor cores) takes the FMA body below: f32 math on the
+//   CUDA cores.
 //
-// Design (simple first): one block per (b * H + h, 64-row q tile), 128
-// threads.  The TPU's sequential kv grid axis becomes a loop over 32-key
-// tiles inside the block, carrying the online-softmax state (m, l, acc) in
-// registers; under a causal mask, tiles past the q tile's last position are
-// never read (the TPU kernel's block skip).  In full mode the grid's slow
-// axis is the q tile, walked from the last tile down, so the causal
-// kernel's long (late) tiles start first and the short ones fill the tail.
-// Ragged edges are masked instead of clamping block sizes to divisors:
-// query rows >= C load zeros and are not stored, keys >= Smax are masked.
-// Each thread owns a 4 x 4 block of the 64 x 32 score tile and the same 4
-// rows of the output, so row statistics need only a shuffle among the 8
-// threads that share a row.  Tiles are staged in shared memory as float
-// with one word of row padding against bank conflicts.  Inputs may be
-// strided (the last axis must be contiguous), so the caller's transposed
-// views need no copy.
+// The FMA body.  What bounds it on the H100: operations (4 d flops per
+// visible pair per head) at float32's 67 TFLOP/s outside the tensor cores.
+// One block per (b * H + h, 64-row q tile), 128 threads.  The TPU's
+// sequential kv grid axis becomes a loop over 32-key tiles inside the
+// block, carrying the online-softmax state (m, l, acc) in registers; under
+// a causal mask, tiles past the q tile's last position are never read (the
+// TPU kernel's block skip).  In full mode the grid's slow axis is the q
+// tile, walked from the last tile down, so the causal kernel's long (late)
+// tiles start first and the short ones fill the tail.  Ragged edges are
+// masked instead of clamping block sizes to divisors: query rows >= C load
+// zeros and are not stored, keys >= Smax are masked (-1e30; key 0 is
+// visible to every row and the first key tile is always read, so a masked
+// score never enters the sum with weight 1).  Each thread owns a 4 x 4
+// block of the 64 x 32 score tile and the same 4 rows of the output, so
+// row statistics need only a shuffle among the 8 threads that share a row.
+// Tiles are staged in shared memory as float with one word of row padding
+// against bank conflicts.  Both bodies read strided inputs (the last axis
+// must be contiguous), so the caller's transposed views need no copy.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "flash_prefill_wgmma.cuh"
 
 namespace {
 
@@ -200,22 +208,28 @@ int launch(const void* q, const void* k, const void* v, const void* start,
            int H, int KVH, int C, int Smax, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_kernel<T, D, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static bool attr_set = false;     // once per instantiation
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attn_kernel<T, D, M>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
   const int nq = (C + kBQ - 1) / kBQ;
   if (M != kPrefix && nq > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid = (M == kPrefix) ? dim3(nq, B * H) : dim3(B * H, nq);
   flash_attn_kernel<T, D, M><<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int32_t*)start, (T*)out,
       qs, ks, vs, os, H, KVH, C, Smax, 1.0f / sqrtf((float)D));
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++wg::launched[wg::kFmaBody];
+  return (int)err;
 }
 
 template <int M>
 int dispatch(const void* q, const void* k, const void* v, const void* start,
-             void* out, const long long* q_strides,
+             void* out, void* scratch, int nsplit, const long long* q_strides,
              const long long* k_strides, const long long* v_strides,
              const long long* o_strides, int B, int H, int KVH, int C,
              int Smax, int d, int dtype, void* stream) {
@@ -226,6 +240,16 @@ int dispatch(const void* q, const void* k, const void* v, const void* start,
   const Strides vs{v_strides[0], v_strides[1], v_strides[2]};
   const Strides os{o_strides[0], o_strides[1], o_strides[2]};
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1 && (d == 64 || d == 128)) {
+    const int err =
+        d == 64 ? wg::launch<64, M>(q, k, v, start, out, scratch, nsplit,
+                                    q_strides, k_strides, v_strides,
+                                    o_strides, B, H, KVH, C, Smax, s)
+                : wg::launch<128, M>(q, k, v, start, out, scratch, nsplit,
+                                     q_strides, k_strides, v_strides,
+                                     o_strides, B, H, KVH, C, Smax, s);
+    if (err != wg::kNotTaken) return err;
+  }
 #define FLASH_CASE(DT, T, DIM)                                                \
   if (dtype == DT && d == DIM)                                                \
     return launch<T, DIM, M>(q, k, v, start, out, qs, ks, vs, os, B, H, KVH, \
@@ -242,32 +266,48 @@ int dispatch(const void* q, const void* k, const void* v, const void* start,
 
 // strides: 4 arrays of 3 element strides (batch, head, sequence) for q, k,
 // v, out; the last axis of each must be contiguous.  dtype codes: 0 =
-// float32, 1 = bfloat16 (q, k, v and out share it).  Head dims 64 and 128
-// (each thread owns d / 8 output dims).
+// float32, 1 = bfloat16 (q, k, v and out share it).  Head dims 64 and 128.
+// scratch / nsplit: the bf16 body's split-KV (kernels/flash_prefill/plan.py
+// sizes both): nsplit 1 needs no scratch; nsplit > 1 needs nsplit * B * KVH
+// * (q tiles) * 64 * (d + 2) floats.  The FMA body ignores them.
 // Both entry points return cudaGetLastError(), or cudaErrorInvalidValue for
-// a shape the kernel does not take.
+// a shape the kernels do not take.
 extern "C" int flash_prefill_prefix_launch(
     const void* q, const void* k, const void* v, const void* start, void* out,
-    const long long* q_strides, const long long* k_strides,
-    const long long* v_strides, const long long* o_strides, int B, int H,
-    int KVH, int C, int Smax, int d, int dtype, void* stream) {
-  return dispatch<kPrefix>(q, k, v, start, out, q_strides, k_strides,
-                           v_strides, o_strides, B, H, KVH, C, Smax, d, dtype,
-                           stream);
+    void* scratch, int nsplit, const long long* q_strides,
+    const long long* k_strides, const long long* v_strides,
+    const long long* o_strides, int B, int H, int KVH, int C, int Smax, int d,
+    int dtype, void* stream) {
+  return dispatch<kPrefix>(q, k, v, start, out, scratch, nsplit, q_strides,
+                           k_strides, v_strides, o_strides, B, H, KVH, C,
+                           Smax, d, dtype, stream);
 }
 
 // Full-sequence attention: q (B, H, S, d), k/v (B, KVH, S, d); causal != 0
 // masks keys after each query's position.
 extern "C" int flash_prefill_launch(
-    const void* q, const void* k, const void* v, void* out,
-    const long long* q_strides, const long long* k_strides,
+    const void* q, const void* k, const void* v, void* out, void* scratch,
+    int nsplit, const long long* q_strides, const long long* k_strides,
     const long long* v_strides, const long long* o_strides, int B, int H,
     int KVH, int S, int d, int causal, int dtype, void* stream) {
   if (causal)
-    return dispatch<kCausal>(q, k, v, nullptr, out, q_strides, k_strides,
-                             v_strides, o_strides, B, H, KVH, S, S, d, dtype,
-                             stream);
-  return dispatch<kFull>(q, k, v, nullptr, out, q_strides, k_strides,
-                         v_strides, o_strides, B, H, KVH, S, S, d, dtype,
-                         stream);
+    return dispatch<kCausal>(q, k, v, nullptr, out, scratch, nsplit,
+                             q_strides, k_strides, v_strides, o_strides, B, H,
+                             KVH, S, S, d, dtype, stream);
+  return dispatch<kFull>(q, k, v, nullptr, out, scratch, nsplit, q_strides,
+                         k_strides, v_strides, o_strides, B, H, KVH, S, S, d,
+                         dtype, stream);
+}
+
+// Dynamic shared memory of the bf16 body for head dim d (bytes), for the
+// build report; 0 for a d it does not take.
+extern "C" int flash_prefill_wgmma_smem_bytes(int d) {
+  return d == 64 ? wg::smem_bytes<64>() : d == 128 ? wg::smem_bytes<128>() : 0;
+}
+
+// Launches of the f32 FMA body, the bf16 wgmma body and its split-KV merge
+// since the library was loaded, into out[0..2]; returns 0.
+extern "C" int flash_prefill_body_launches(long long* out) {
+  for (int i = 0; i < 3; ++i) out[i] = wg::launched[i];
+  return 0;
 }

@@ -5,8 +5,9 @@ is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared
 library, loaded with ``ctypes``.  Nothing here includes PyTorch's headers,
 so a build takes seconds.  Libraries land in ``build/repro_torch/`` at the
 repository root (listed in ``.gitignore``), keyed by a hash of the source,
-so an edited source is rebuilt at its next use.  :func:`build_all` starts
-one ``nvcc`` per source, all at once.
+of every ``csrc/`` header it includes (``#include "..."``, followed
+through headers) and of the flags, so an edited source or header is
+rebuilt at its next use.  :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Nothing is built or loaded at import time: the first kernel launch (or an
 explicit :func:`build_all`) does it.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,10 +47,30 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def includes(name: str) -> List[Path]:
+    """The ``csrc/`` files that ``csrc/<name>.cu`` includes with
+    ``#include "..."``, directly or through another header, sorted."""
+    seen: Dict[Path, None] = {}
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        text = todo.pop().read_text()
+        for inc in _LOCAL_INCLUDE.findall(text):
+            path = (CSRC / inc).resolve()
+            if path not in seen and path.is_file():
+                seen[path] = None
+                todo.append(path)
+    return sorted(seen)
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for inc in includes(name):
+        h.update(inc.name.encode() + b"\0" + inc.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def sources() -> List[str]:
@@ -126,9 +148,12 @@ def refuse_grad(what: str, *tensors) -> None:
             "its autograd Function")
 
 
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
 def dtype_code(dtype) -> int:
     """The kernels' code for a torch dtype: 0 = float32, 1 = bfloat16."""
-    code = {"torch.float32": 0, "torch.bfloat16": 1}.get(str(dtype))
+    code = _DTYPE_CODES.get(dtype)
     if code is None:
         raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
     return code

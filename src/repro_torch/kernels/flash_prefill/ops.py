@@ -6,7 +6,10 @@ entry points of ``csrc/flash_prefill_prefix.cu`` for CUDA tensors and take
 the plain versions (:mod:`.ref`) for CPU tensors; there is no fallback
 from one to the other.  The kernels read strided views (only the last
 axis must be contiguous), so callers may pass transposed tensors without
-a copy.  Each wrapper's ``launches`` attribute counts its kernel launches.
+a copy.  For bfloat16 the wrappers size the split-KV of the Hopper body
+(:mod:`.plan`) and allocate its scratch.  Each wrapper's ``launches``
+attribute counts its calls that launched the kernels (the body and, for a
+split, its merge pass: one call, one count).
 
 The raw wrappers record no backward and raise when grad mode is on and an
 input requires grad.  :class:`FlashPrefill` is the differentiable form of
@@ -22,6 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_prefill import plan
 from repro_torch.kernels.flash_prefill.ref import (flash_prefill_prefix_ref,
                                                    flash_prefill_ref)
 
@@ -32,18 +36,52 @@ _Strides = ctypes.c_longlong * 3
 HEAD_DIMS = (64, 128)
 
 
-def _fn():
-    f = _build.load("flash_prefill_prefix").flash_prefill_prefix_launch
-    f.argtypes = [_P] * 9 + [_I] * 7 + [_P]
-    f.restype = _I
+_FNS = {}
+
+
+def _entry(name, argtypes):
+    """The C entry point ``name`` of the library, typed once."""
+    f = _FNS.get(name)
+    if f is None:
+        f = getattr(_build.load("flash_prefill_prefix"), name)
+        f.argtypes = argtypes
+        f.restype = _I
+        _FNS[name] = f
     return f
+
+
+def _fn():
+    return _entry("flash_prefill_prefix_launch",
+                  [_P] * 6 + [_I] + [_P] * 4 + [_I] * 7 + [_P])
 
 
 def _full_fn():
-    f = _build.load("flash_prefill_prefix").flash_prefill_launch
-    f.argtypes = [_P] * 8 + [_I] * 7 + [_P]
-    f.restype = _I
-    return f
+    return _entry("flash_prefill_launch",
+                  [_P] * 5 + [_I] + [_P] * 4 + [_I] * 7 + [_P])
+
+
+def body_launches():
+    """Launches of each device body since the library was loaded:
+    ``{"fma": n, "wgmma": n, "merge": n}`` (the float32 FMA body, the
+    bfloat16 Hopper body and its split-KV merge).  The difference across a
+    call says which body it took."""
+    got = (ctypes.c_longlong * 3)()
+    _entry("flash_prefill_body_launches", [_P])(ctypes.addressof(got))
+    return dict(zip(("fma", "wgmma", "merge"), got))
+
+
+def _split(q, B, KVH, C, Smax):
+    """(scratch, nsplit) for the bf16 body's split-KV: no scratch and 1
+    when the grid needs no split (and for float32, whose body has none)."""
+    if q.dtype != torch.bfloat16:
+        return None, 1
+    H, d = q.shape[1], q.shape[3]
+    G = H // KVH
+    nsplit = plan.num_splits(B, KVH, G, C, Smax)
+    if nsplit == 1:
+        return None, 1
+    return torch.empty(plan.scratch_floats(B, KVH, G, C, d, nsplit),
+                       dtype=torch.float32, device=q.device), nsplit
 
 
 def _strides(t):
@@ -87,11 +125,14 @@ def flash_prefill_prefix(q, k, v, start):
     if start.dtype != torch.int32 or not start.is_contiguous():
         raise TypeError("flash_prefill_prefix: start must be contiguous int32")
     out = torch.empty((B, H, C, d), dtype=q.dtype, device=q.device)
+    scratch, nsplit = _split(q, B, KVH, C, Smax)
+    part = None if scratch is None else scratch.data_ptr()
     qs, ks, vs, os_ = _strides(q), _strides(k), _strides(v), _strides(out)
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), start.data_ptr(),
-                out.data_ptr(), ctypes.addressof(qs), ctypes.addressof(ks),
-                ctypes.addressof(vs), ctypes.addressof(os_), B, H, KVH, C,
-                Smax, d, _build.dtype_code(q.dtype),
+                out.data_ptr(), part, nsplit, ctypes.addressof(qs),
+                ctypes.addressof(ks), ctypes.addressof(vs),
+                ctypes.addressof(os_), B, H, KVH, C, Smax, d,
+                _build.dtype_code(q.dtype),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_prefill_prefix")
     flash_prefill_prefix.launches += 1
@@ -116,9 +157,11 @@ def flash_prefill(q, k, v, *, causal: bool = True):
         raise ValueError(f"flash_prefill: q has {S} positions, k/v "
                          f"{k.shape[2]}")
     out = torch.empty((B, H, S, d), dtype=q.dtype, device=q.device)
+    scratch, nsplit = _split(q, B, KVH, S, S)
+    part = None if scratch is None else scratch.data_ptr()
     qs, ks, vs, os_ = _strides(q), _strides(k), _strides(v), _strides(out)
     err = _full_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     ctypes.addressof(qs), ctypes.addressof(ks),
+                     part, nsplit, ctypes.addressof(qs), ctypes.addressof(ks),
                      ctypes.addressof(vs), ctypes.addressof(os_), B, H, KVH,
                      S, d, int(bool(causal)), _build.dtype_code(q.dtype),
                      torch.cuda.current_stream(q.device).cuda_stream)

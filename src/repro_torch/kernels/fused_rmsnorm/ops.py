@@ -20,11 +20,18 @@ from repro_torch.kernels.fused_rmsnorm.ref import rmsnorm_ref
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
+_FN = []
+
+
 def _fn():
-    f = _build.load("fused_rmsnorm").fused_rmsnorm_launch
-    f.argtypes = [_P] * 3 + [_L, _I, _F, _I, _I, _P]
-    f.restype = _I
-    return f
+    """The C entry point, typed once (the decode steps call this wrapper
+    some 80 times a step, so its host time counts)."""
+    if not _FN:
+        f = _build.load("fused_rmsnorm").fused_rmsnorm_launch
+        f.argtypes = [_P] * 3 + [_L, _I, _F, _I, _I, _P]
+        f.restype = _I
+        _FN.append(f)
+    return _FN[0]
 
 
 def fused_rmsnorm(x, scale, eps: float = 1e-5):

@@ -8,11 +8,14 @@ so they run where JAX is not installed:
 
 Shapes sweep beyond the serving and training paths' own (which
 ``chip_smoke.py`` checks): GQA group sizes 1 to 8, head dims 64 and 128,
+the bf16 flash body at chunks of 1 to 2048 tokens at both ends of a
+ragged stripe (held against the float32 truth beside SDPA's error),
 pages of 8 to 32 tokens, chunk and sequence lengths that are not multiples
 of the query tile, rows that see a single key, causal and bidirectional
 full-sequence attention, INT8 pages at lengths around a page boundary with
 random table entries past each length, RMSNorm widths that are not
-multiples of the block, and SSD chunks whose length, head dim and state size are not
+multiples of the block or of the 16-byte vector and rows at misaligned
+addresses, and SSD chunks whose length, head dim and state size are not
 multiples of the kernel's tiles.  The two autograd Functions' gradients
 are held against autograd through the plain versions, and the smoke
 config's loss and gradients on the card with kernels against those
@@ -134,6 +137,146 @@ def test_flash_prefill_prefix_kernel(dev, B, H, KVH, Smax, d, C, dtype):
                                rtol=_tol(dtype))
 
 
+def _sdpa_bf16(q, k, v, mask=None, causal=False):
+    """SDPA on the same bf16 inputs, GQA heads expanded, on the first
+    backend that takes the call (flash unless there is a mask, then the
+    memory-efficient and cuDNN ones), else the math backend."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    G = q.shape[1] // k.shape[1]
+    ke, ve = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+    order = ([] if mask is not None else [SDPBackend.FLASH_ATTENTION]) + [
+        SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+        SDPBackend.MATH]
+    for backend in order:
+        try:
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(
+                    q, ke, ve, attn_mask=mask, is_causal=causal)
+        except RuntimeError:
+            continue
+    raise RuntimeError("no SDPA backend took the call")
+
+
+def _bodies(fn):
+    """(fn's result, the launches of each flash body it made): which body
+    a call took (``ops.body_launches``: ``fma``, ``wgmma``, ``merge``)."""
+    from repro_torch.kernels.flash_prefill import ops
+    before = ops.body_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    after = ops.body_launches()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def _check_bf16_attention(out, plain, truth, absv, sdpa):
+    """The bf16 flash body against its plain version and the float32 truth.
+
+    ``plain`` is the plain version's bf16 output, ``truth`` its float32
+    output on the same bf16 inputs, ``absv`` the plain version applied to
+    |v| in float32 (a = sum_j w_j |v_j|, w the softmax weights), ``sdpa``
+    SDPA's bf16 output.  The kernel rounds P to bf16 (unit roundoff 2^-8)
+    before P V and sums l over the unrounded P, so before its output
+    rounding it is within 2^-8 a of the truth; the two outputs' roundings
+    add at most 2^-8 (|out| + |truth|) <= 2^-7 |plain| + 2^-14 a.  So
+    element by element |out - plain| <= 2^-7 |plain| + 2^-7 a + 2e-5 (the
+    float32 sums' slack).  And the kernel's largest error from the truth
+    is at most twice SDPA's, plus 2e-5."""
+    diff = (out.float() - plain.float()).abs()
+    bound = 2.0 ** -7 * plain.float().abs() + 2.0 ** -7 * absv + 2e-5
+    assert bool((diff <= bound).all()), (diff - bound).max().item()
+    err = (out.float() - truth).abs().max().item()
+    lib = (sdpa.float() - truth).abs().max().item()
+    assert err <= 2 * lib + 2e-5, (err, lib)
+
+
+# the bf16 Hopper body: chunks of 1, 16, 256 and 2048 at start 0 and ending
+# at Smax (2100, not a multiple of the 64-key tile), and a batch of two at
+# both starts; GQA groups 1, 4 and 8 packed into the 64-row tile; d 64, 128
+@pytest.mark.parametrize("C", [1, 16, 256, 2048])
+@pytest.mark.parametrize("where", ["start0", "at_smax", "mixed"])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_prefill_prefix_bf16_sweep(dev, C, where, G, d):
+    from repro_torch.kernels.flash_prefill import (flash_prefill_prefix,
+                                                   flash_prefill_prefix_ref,
+                                                   plan)
+    Smax, KVH = 2100, 2
+    B = 2 if where == "mixed" else 1
+    rng = np.random.default_rng(C * 7 + G * 3 + d)
+    q = _randn(rng, (B, G * KVH, C, d), torch.bfloat16, dev)
+    k = _randn(rng, (B, Smax, KVH, d), torch.bfloat16, dev).transpose(1, 2)
+    v = _randn(rng, (B, Smax, KVH, d), torch.bfloat16, dev).transpose(1, 2)
+    starts = {"start0": [0], "at_smax": [Smax - C],
+              "mixed": [0, Smax - C]}[where]
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    n0 = flash_prefill_prefix.launches
+    out, bodies = _bodies(lambda: flash_prefill_prefix(q, k, v, start))
+    assert flash_prefill_prefix.launches == n0 + 1
+    # aligned bf16 views take the Hopper body, with its merge when split
+    split = plan.num_splits(B, KVH, G, C, Smax) > 1
+    assert bodies == {"fma": 0, "wgmma": 1, "merge": int(split)}, bodies
+    plain = flash_prefill_prefix_ref(q, k, v, start)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    truth = flash_prefill_prefix_ref(qf, kf, vf, start)
+    absv = flash_prefill_prefix_ref(qf, kf, vf.abs(), start)
+    pos = start.long()[:, None] + torch.arange(C, device=dev)[None]
+    mask = (torch.arange(Smax, device=dev)[None, None]
+            <= pos[:, :, None])[:, None]                  # (B, 1, C, Smax)
+    _check_bf16_attention(out, plain, truth, absv,
+                          _sdpa_bf16(q, k, v, mask=mask))
+
+
+def test_flash_prefill_prefix_bf16_unaligned_views(dev):
+    """bf16 views that TMA cannot take (q and k one element past a 16-byte
+    boundary) take the FMA body: the same function, held to one bf16 step
+    of the plain output plus 2e-5 element by element (that body keeps P in
+    float32)."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill_prefix,
+                                                   flash_prefill_prefix_ref)
+    rng = np.random.default_rng(21)
+    B, H, KVH, C, Smax, d = 2, 8, 2, 40, 300, 64
+
+    def shifted(shape):
+        flat = _randn(rng, (int(np.prod(shape)) + 1,), torch.bfloat16, dev)
+        return flat[1:].view(shape)
+    q = shifted((B, H, C, d))
+    k = shifted((B, Smax, KVH, d)).transpose(1, 2)
+    v = _randn(rng, (B, Smax, KVH, d), torch.bfloat16, dev).transpose(1, 2)
+    assert q.data_ptr() % 16 and k.data_ptr() % 16
+    start = torch.tensor([0, 200], dtype=torch.int32, device=dev)
+    out, bodies = _bodies(lambda: flash_prefill_prefix(q, k, v, start))
+    assert bodies == {"fma": 1, "wgmma": 0, "merge": 0}, bodies
+    ref = flash_prefill_prefix_ref(q, k, v, start).float()
+    diff = (out.float() - ref).abs()
+    assert bool((diff <= 2.0 ** -7 * ref.abs() + 2e-5).all()), \
+        diff.max().item()
+
+
+def test_flash_split_without_scratch_is_an_error(dev):
+    """A split asked for without its scratch is refused with an error
+    (cudaErrorInvalidValue), not run on the FMA body instead."""
+    import ctypes
+
+    from repro_torch.kernels.flash_prefill import ops
+    rng = np.random.default_rng(23)
+    B, H, KVH, C, Smax, d = 1, 8, 2, 16, 1024, 128
+    q = _randn(rng, (B, H, C, d), torch.bfloat16, dev)
+    k = _randn(rng, (B, KVH, Smax, d), torch.bfloat16, dev)
+    v = _randn(rng, (B, KVH, Smax, d), torch.bfloat16, dev)
+    out = torch.zeros_like(q)
+    start = torch.tensor([900], dtype=torch.int32, device=dev)
+    qs, ks, vs, os_ = (ops._strides(t) for t in (q, k, v, out))
+    err = ops._fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    start.data_ptr(), out.data_ptr(), None, 4,
+                    ctypes.addressof(qs), ctypes.addressof(ks),
+                    ctypes.addressof(vs), ctypes.addressof(os_), B, H, KVH,
+                    C, Smax, d, 1, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 1                                  # cudaErrorInvalidValue
+    assert not bool(out.any())                       # nothing ran
+
+
 @pytest.mark.parametrize("T,d", [(128, 64), (256, 128), (1000, 128),
                                  (40 * 16 * 8, 128)])
 def test_kv_quant_kernels(dev, T, d):
@@ -171,6 +314,38 @@ def test_fused_rmsnorm_kernel(dev, T, d, dtype, scale_dtype):
     assert fused_rmsnorm.launches == n0 + 1 and out.dtype == dtype
     torch.testing.assert_close(out.float(), rmsnorm_ref(x, s).float(),
                                atol=_tol(dtype), rtol=_tol(dtype))
+
+
+# 16-byte and scalar instances: the serving widths at a decode batch of 8
+# and a 1024-row prefill, widths that are no multiple of the vector (1000 is
+# one for bf16, 100 only for f32), a row too long to stay in registers
+# (40000), and contiguous (T, d) views at an odd row offset of a larger
+# buffer (d 1001: misaligned rows in both dtypes; d 100: aligned in f32)
+@pytest.mark.parametrize("T,d,offset", [
+    (8, 4096, 0), (8, 2560, 0), (8, 5120, 0), (1024, 5120, 0),
+    (256, 4096, 0), (9, 1000, 0), (3, 100, 0), (2, 40000, 0), (5, 1001, 1),
+    (8, 100, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+def test_fused_rmsnorm_widths_and_views(dev, T, d, offset, dtype,
+                                        scale_dtype):
+    """float32 within 2e-5 (relative beyond 1); bf16 element by element
+    within one bf16 rounding step of the plain output (both sum in f32)."""
+    from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm, rmsnorm_ref
+    rng = np.random.default_rng(T * 3 + d + offset)
+    x = (_randn(rng, (T + 2 * offset, d), dtype, dev) * 3)[offset:offset + T]
+    assert x.is_contiguous()
+    s = _randn(rng, (d,), scale_dtype, dev)
+    n0 = fused_rmsnorm.launches
+    out = fused_rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert fused_rmsnorm.launches == n0 + 1 and out.dtype == dtype
+    ref = rmsnorm_ref(x, s).float()
+    diff = (out.float() - ref).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 2e-5 * max(1.0, ref.abs().max().item())
+    else:
+        assert bool((diff <= 2.0 ** -7 * ref.abs()).all()), diff.max().item()
 
 
 def _ssd_tol(Q, N):
@@ -271,7 +446,7 @@ def test_kernels_reject_what_they_do_not_take(dev):
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_prefill_kernel(dev, B, H, KVH, S, d, dtype, causal):
     from repro_torch.kernels.flash_prefill import (flash_prefill,
-                                                   flash_prefill_ref)
+                                                   flash_prefill_ref, plan)
     rng = np.random.default_rng(S + d + causal)
     # strided q/k/v, as chunked_attention passes them: (B, S, H, d)
     # tensors viewed as (B, H, S, d)
@@ -279,12 +454,23 @@ def test_flash_prefill_kernel(dev, B, H, KVH, S, d, dtype, causal):
     k = _randn(rng, (B, S, KVH, d), dtype, dev).transpose(1, 2)
     v = _randn(rng, (B, S, KVH, d), dtype, dev).transpose(1, 2)
     n0 = flash_prefill.launches
-    out = flash_prefill(q, k, v, causal=causal)
-    torch.cuda.synchronize()
+    out, bodies = _bodies(lambda: flash_prefill(q, k, v, causal=causal))
     assert flash_prefill.launches == n0 + 1
+    # float32 keeps the FMA body; aligned bf16 takes the Hopper body
+    if dtype == torch.bfloat16:
+        split = plan.num_splits(B, KVH, H // KVH, S, S) > 1
+        assert bodies == {"fma": 0, "wgmma": 1, "merge": int(split)}, bodies
+    else:
+        assert bodies == {"fma": 1, "wgmma": 0, "merge": 0}, bodies
     ref = flash_prefill_ref(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
                                rtol=_tol(dtype))
+    if dtype == torch.bfloat16:          # the Hopper body
+        qf, kf, vf = q.float(), k.float(), v.float()
+        _check_bf16_attention(
+            out, ref, flash_prefill_ref(qf, kf, vf, causal=causal),
+            flash_prefill_ref(qf, kf, vf.abs(), causal=causal),
+            _sdpa_bf16(q, k, v, causal=causal))
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -23,7 +23,9 @@ from repro.kernels.kv_quant import (kv_dequantize_op, kv_quantize_op,  # noqa: E
 from repro.kernels.paged_attention import (  # noqa: E402
     paged_attention_ref as jax_paged_ref, paged_decode_attention)
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.flash_prefill import flash_prefill_prefix  # noqa: E402
+from repro_torch.kernels.flash_prefill import (  # noqa: E402
+    flash_prefill_prefix, flash_prefill_prefix_partial_ref,
+    flash_prefill_prefix_ref, merge_partials, plan)
 from repro_torch.kernels.kv_quant import (kv_dequantize, kv_dequantize_ref,  # noqa: E402
                                           kv_quantize, kv_quantize_ref,
                                           paged_attention_q8)
@@ -160,6 +162,143 @@ def test_flash_prefill_prefix_takes_strided_views():
     torch.testing.assert_close(strided, dense, atol=0, rtol=0)
 
 
+# split-KV: the plain partials over key ranges, merged, against the unsplit
+# plain output (float32, 1e-6).  Stripe of 200 keys, chunk of 24 at starts
+# 0 and 37: ranges past a row's position show it nothing (m = -inf), and
+# the later ranges show the start-0 element's rows nothing at all.
+@pytest.mark.parametrize("n_ranges", [1, 2, 3, 7])
+def test_merge_partials_equals_unsplit(n_ranges):
+    rng = np.random.default_rng(100 + n_ranges)
+    B, H, KVH, C, Smax, d = 2, 8, 2, 24, 200, 64
+    q = torch.from_numpy(rng.standard_normal((B, H, C, d)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((B, KVH, Smax, d))
+                         .astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((B, KVH, Smax, d))
+                         .astype(np.float32))
+    start = torch.tensor([0, 37], dtype=torch.int32)
+    cuts = np.linspace(0, Smax, n_ranges + 1).astype(int)
+    parts = [flash_prefill_prefix_partial_ref(q, k, v, start, lo, hi)
+             for lo, hi in zip(cuts[:-1], cuts[1:])]
+    if n_ranges > 1:
+        m_last = parts[-1][0]
+        assert bool((m_last[0] == float("-inf")).all())   # fully masked
+        assert bool(torch.isfinite(parts[0][0]).all())
+    out = merge_partials(parts)
+    ref = flash_prefill_prefix_ref(q, k, v, start)
+    torch.testing.assert_close(out, ref, atol=1e-6, rtol=0)
+
+
+# How ``block_span`` in csrc/flash_prefill_wgmma.cuh cuts one block's keys,
+# transcribed for the tests below (the library keeps no copy: the wrapper
+# needs only ``plan.num_splits`` and ``plan.scratch_floats``, and the card
+# sweeps in tests/test_torch_cuda.py run the kernel's own cut).
+def _visible_keys(mode, G, C, Smax, start, mt):
+    if mode == "full":
+        return Smax
+    P = plan.rows_per_head(G)
+    q_last = min(C, mt * P + P) - 1
+    return min(Smax, (start if mode == "prefix" else 0) + q_last + 1)
+
+
+def _split_tiles(n_tiles, nsplit):
+    n_tiles = max(1, n_tiles)
+    ns = min(nsplit, n_tiles)
+    return [(s * n_tiles // ns, (s + 1) * n_tiles // ns) for s in range(ns)]
+
+
+def _key_ranges(mode, B, KVH, G, C, Smax, starts):
+    """``{(b, kvh, q tile): [(lo, hi), ...]}`` under the host's nsplit."""
+    nsplit = plan.num_splits(B, KVH, G, C, Smax)
+    ranges = {}
+    for b in range(B):
+        for kvh in range(KVH):
+            for mt in range(plan.q_tiles(C, G)):
+                n_kv = _visible_keys(mode, G, C, Smax, int(starts[b]), mt)
+                tiles = -(-n_kv // plan.BLOCK_KEYS)
+                ranges[(b, kvh, mt)] = [
+                    (lo * plan.BLOCK_KEYS, min(hi * plan.BLOCK_KEYS, n_kv))
+                    for lo, hi in _split_tiles(tiles, nsplit)]
+    return ranges
+
+
+def test_merge_partials_of_the_kernels_ranges():
+    """The kernel's ranges for a short chunk under the host's split count
+    (the split case), merged per block, give the unsplit plain output."""
+    rng = np.random.default_rng(9)
+    B, H, KVH, C, Smax, d = 1, 8, 2, 16, 700, 64
+    q = torch.from_numpy(rng.standard_normal((B, H, C, d)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((B, KVH, Smax, d))
+                         .astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((B, KVH, Smax, d))
+                         .astype(np.float32))
+    start = torch.tensor([650], dtype=torch.int32)
+    ranges = _key_ranges("prefix", B, KVH, H // KVH, C, Smax, [650])
+    assert plan.num_splits(B, KVH, H // KVH, C, Smax) > 1
+    spans = ranges[(0, 0, 0)]
+    assert len(spans) > 1
+    out = merge_partials([flash_prefill_prefix_partial_ref(q, k, v, start,
+                                                           lo, hi)
+                          for lo, hi in spans])
+    torch.testing.assert_close(out, flash_prefill_prefix_ref(q, k, v, start),
+                               atol=1e-6, rtol=0)
+
+
+# the host's split plan: (mode, B, KVH, G, C, Smax, starts); C 1 and 16 at
+# long prefixes split, C 256 and full sequences do not
+@pytest.mark.parametrize("case", [
+    ("prefix", 1, 8, 4, 16, 2048, [1000]), ("prefix", 1, 8, 4, 1, 2048, [0]),
+    ("prefix", 2, 8, 4, 16, 2048, [0, 2031]),
+    ("prefix", 1, 8, 4, 256, 2048, [1000]), ("prefix", 1, 1, 8, 3, 4096, [7]),
+    ("prefix", 2, 2, 3, 200, 300, [0, 99]), ("causal", 1, 8, 4, 37, 37, [0]),
+    ("full", 1, 2, 1, 100, 100, [0]), ("causal", 4, 8, 4, 1024, 1024, [0] * 4),
+])
+def test_split_plan_covers_every_visible_key_once(case):
+    mode, B, KVH, G, C, Smax, starts = case
+    nsplit = plan.num_splits(B, KVH, G, C, Smax)
+    assert nsplit == plan.num_splits(B, KVH, G, C, Smax)   # deterministic
+    a = _key_ranges(mode, B, KVH, G, C, Smax, starts)
+    assert 1 <= nsplit <= max(1, plan.NUM_SMS)
+    assert len(a) == B * KVH * plan.q_tiles(C, G)
+    P = plan.rows_per_head(G)
+    for (b, _, mt), spans in a.items():
+        n_kv = _visible_keys(mode, G, C, Smax, starts[b], mt)
+        if mode != "full":
+            base = starts[b] if mode == "prefix" else 0
+            assert n_kv == min(Smax, base + min(C, (mt + 1) * P))
+        assert 1 <= len(spans) <= nsplit
+        assert all(lo < hi for lo, hi in spans)          # none empty
+        assert all(lo % plan.BLOCK_KEYS == 0 for lo, _ in spans)
+        keys = [j for lo, hi in spans for j in range(lo, hi)]
+        assert keys == list(range(n_kv))                 # each once, in order
+    if C <= 16 and Smax >= 1024:
+        assert nsplit > 1
+    if B * KVH * plan.q_tiles(C, G) >= plan.NUM_SMS:
+        assert nsplit == 1
+
+
+@pytest.mark.parametrize("n_tiles,nsplit", [(1, 16), (16, 16), (17, 4),
+                                            (5, 3), (32, 33)])
+def test_split_tiles_are_contiguous_and_nonempty(n_tiles, nsplit):
+    spans = _split_tiles(n_tiles, nsplit)
+    assert len(spans) == min(n_tiles, nsplit)
+    assert spans[0][0] == 0 and spans[-1][1] == n_tiles
+    assert all(lo < hi for lo, hi in spans)
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    sizes = [hi - lo for lo, hi in spans]
+    assert max(sizes) - min(sizes) <= 1
+
+
+def test_split_scratch_matches_the_kernels_layout():
+    """nsplit x (b, kv-head, q tile) partials of 64 rows x d accumulators,
+    then (m, l) per row: the layout ``flash_attn_merge_kernel`` reads."""
+    B, KVH, G, C, d = 1, 8, 4, 16, 128
+    n = plan.num_splits(B, KVH, G, C, 2048)
+    assert plan.scratch_floats(B, KVH, G, C, d, 1) == 0
+    assert plan.scratch_floats(B, KVH, G, C, d, n) == n * 8 * 1 * 64 * 130
+    assert plan.rows_per_head(3) == 21 and plan.q_tiles(200, 3) == 10
+    assert plan.q_tiles(5, 65) == 0 and plan.num_splits(1, 1, 65, 5, 64) == 1
+
+
 # ----------------------------------------------------------------- kv quant
 
 # the sweep of tests/test_kernels.py::test_kv_quant_roundtrip_sweep
@@ -241,6 +380,22 @@ def test_cpu_path_launches_nothing():
     assert not _build._libs
 
 
+def test_build_key_covers_included_headers(tmp_path, monkeypatch):
+    """An edited header (``#include "..."``, also through another header)
+    changes the library's key, so a stale build is never loaded."""
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint f() { return 1; }\n')
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// v1\n")
+    (tmp_path / "unused.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build.includes("k")] == ["a.cuh", "b.cuh"]
+    key = _build._target("k")
+    (tmp_path / "unused.cuh").write_text("// v2\n")
+    assert _build._target("k") == key
+    (tmp_path / "b.cuh").write_text("// v2\n")
+    assert _build._target("k") != key
+
+
 def test_kernel_sources_and_build_flags():
     """Every kernel is CUDA C++ for sm_90a in csrc/, and each source names
     the TPU kernel it replaces."""
@@ -255,3 +410,6 @@ def test_kernel_sources_and_build_flags():
                      ("ssd_chunk", "`ssd_chunk`")):
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces:" in src and fn in src
+    # the bf16 flash body is a header of the flash source, in its build key
+    assert [p.name for p in _build.includes("flash_prefill_prefix")] == [
+        "flash_prefill_wgmma.cuh"]
