@@ -31,26 +31,36 @@ the final line:
      flash-prefix and RMSNorm rows also print a host loop's per-call time
      (``eager_ms``, inputs in L2).  The flash library's body counters
      name the body each flash row took (the bf16 rows must take the
-     ``wgmma`` body, the f32 rows the FMA body).  The two kernels redesigned for Hopper
-     must not be slower than their library call (every reading above
-     every reading of the call fails): the bf16 prefix kernel at C 256,
-     start 1000 against SDPA, the bf16 (1024, 5120) RMSNorm against
-     ``F.rms_norm`` (printed beside its bound and a copy of its bytes);
+     ``wgmma`` body, the f32 rows the ``tf32x3`` body), the paged
+     library's counters that each paged call ran the split-KV body and
+     its merge.  The f32 flash rows' bound is the smaller of the f32 FMA
+     bound and the 3xTF32 one (three times the flops at TF32's rate),
+     named.  The kernels redesigned for Hopper must not be slower than
+     their library call, or their plain version where there is none
+     (every reading above every reading of the other fails): the bf16
+     prefix kernel at C 256, start 1000 against SDPA, the bf16 (1024,
+     5120) RMSNorm against ``F.rms_norm`` (printed beside its bound and a
+     copy of its bytes), the f32 causal flash kernel at the training
+     shape against SDPA, the bf16 paged attention against its plain
+     version (printed beside its bound);
   4. reference: the full-width model's kernel path (paged-attention
      kernel + prefix flash kernel + RMSNorm kernel) against its plain path
      (page gather + masked attention + plain RMSNorm) on one short
      request's logits;
   5. serve: granite-3-8b at full width and depth (random weights from a
-     seed) through ``ServingEngine.serve`` with chunked paged prefill and
-     the fused paged decode; every request must finish and the paged-
-     attention and prefix-flash kernels must have launched;
+     seed) through ``ServingEngine.serve`` on the paged backend (asked
+     for: the engine's default is dense, as the reference's) with chunked
+     paged prefill and the fused paged decode; every request must finish
+     and the paged-attention and prefix-flash kernels must have launched,
+     the paged one through its split-KV body and merge;
   6. swap: the same model with 2 lanes and a KV budget of a little over
      two sequences, staged arrivals on a virtual clock: requests must be
      preempted, swapped out and in as INT8 through the kv_quant kernels,
      and all finish;
   7. profile: where a full-batch decode step's and a 256-token prefill
      chunk's time goes, with each attention path, under
-     ``torch.profiler`` (the flash chunk must run the bf16 wgmma body);
+     ``torch.profiler`` (the kernel decode step prints the paged kernels'
+     share of device busy; the flash chunk must run the bf16 wgmma body);
   8. mamba reference: mamba2-2.7b at full width and depth (64 layers,
      d_model 2560, 80 heads of 64, state 128; random bf16 weights from a
      seed), its kernel path (fused RMSNorm + SSD chunk kernels) against its
@@ -138,7 +148,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,       # dense tensor-core rate
-              "float32": 67e12}         # float32 outside the tensor cores
+              "float32": 67e12,         # float32 outside the tensor cores
+              "tf32": 495e12}           # dense TF32 tensor-core rate
 L2_BYTES = 50 * 2 ** 20                 # H100 SXM data sheet
 _SCRUB = []                             # the L2 scrub's buffer, made once
 SEED = 0
@@ -214,7 +225,8 @@ def time_ms(fn, iters: int = 20, reps: int = 3, readings=None) -> float:
 
 def verdict(label: str, ms: float, mine: list, lib_ms: float, lib: list,
             what: str, b_ms: float, copy_ms: float = None) -> None:
-    """Prints a redesigned kernel's verdict against its library call, with
+    """Prints a redesigned kernel's verdict against its library call (or,
+    where there is none, its plain version), with
     its time over its bound (and, for a bytes-bound row, the time of a
     copy of the same bytes, what the card reaches in practice), and fails
     when it is slower: every reading of the kernel above every reading of
@@ -258,6 +270,17 @@ def bound(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def f32_attention_bound(nbytes: float, flops: float):
+    """The least time for float32 attention at f32 accuracy: the smaller of
+    the CUDA cores' bound (the flops over float32's 67 TFLOP/s) and the
+    tensor cores' by the 3xTF32 split (three times the flops over TF32's
+    495 TFLOP/s), each no less than the bytes' time.  Returns (ms, bytes
+    or operations, the basis's name)."""
+    fma = bound(nbytes, flops, "float32")
+    tc = bound(nbytes, 3.0 * flops, "tf32")
+    return (*tc, "3xTF32") if tc[0] <= fma[0] else (*fma, "f32 FMA")
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -265,7 +288,13 @@ def nbytes(*ts) -> int:
 # ------------------------------------------------------------- phase 3
 
 def check_paged_attention(torch, dev):
-    from repro_torch.kernels.paged_attention import (paged_attention,
+    """Decode attention over bf16 and f32 pages at granite's decode shape
+    (B 8, H 32, KVH 8, d 128, pages of 16, lengths 1..2048 drawn from 2048
+    + 1 pool pages).  Each call must run the split-KV body and its merge
+    once (the library's counters); the bf16 row (the serve path's) must be
+    no slower than its plain version in every reading, and prints its
+    time over its bytes bound.  Returns the bf16 row."""
+    from repro_torch.kernels.paged_attention import (ops, paged_attention,
                                                      paged_attention_ref)
     B, H, KVH, d, page = 8, 32, 8, 128, 16
     max_pages = 2048 // page
@@ -283,16 +312,25 @@ def check_paged_attention(torch, dev):
                          device=dev).to(dt)
         vc = torch.randn((num_pages, page, KVH, d), generator=g,
                          device=dev).to(dt)
+        before = ops.body_launches()
         out = paged_attention(q, kc, vc, tables, lengths)
+        torch.cuda.synchronize()
+        took = {k: n - before[k] for k, n in ops.body_launches().items()}
+        if took != {"body": 1, "merge": 1}:
+            fail(f"paged_attention {name}: launched {took}, want the "
+                 "split-KV body and its merge once each")
         ref = paged_attention_ref(q, kc, vc, tables, lengths)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         tol = 2e-5 if name == "float32" else 5e-2
         if not err <= tol:
             fail(f"paged_attention {name}: max_abs_err {err} > {tol}")
-        ms = time_ms(lambda: paged_attention(q, kc, vc, tables, lengths))
+        mine, theirs = [], []
+        ms = time_ms(lambda: paged_attention(q, kc, vc, tables, lengths),
+                     readings=mine)
         plain = time_ms(lambda: paged_attention_ref(q, kc, vc, tables,
-                                                    lengths), 5)
+                                                    lengths), 5,
+                        readings=theirs)
         toks = int(lengths.sum())
         moved = (nbytes(q, tables, lengths) * 2 - nbytes(tables, lengths)
                  + 2 * toks * KVH * d * kc.element_size())
@@ -300,9 +338,13 @@ def check_paged_attention(torch, dev):
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
         print(f"[kernel] paged_attention {name} B={B} H={H} KVH={KVH} "
-              f"d={d} page={page} lengths 1..2048: max_err={err:.3g} "
-              f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b_ms:.4f} "
-              f"({b_by}) library_ms=none", flush=True)
+              f"d={d} page={page} lengths 1..2048: body+merge max_err="
+              f"{err:.3g} kernel_ms={ms:.4f} ({b_ms / ms:.1%} of bound) "
+              f"plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              "library_ms=none", flush=True)
+        if name == "bfloat16":
+            verdict(f"paged_attention {name} B={B} lengths 1..2048", ms,
+                    mine, plain, theirs, "its plain version", b_ms)
     return rows["bfloat16"]
 
 
@@ -366,18 +408,18 @@ def check_bf16_attention(torch, label, out, plain, truth, absv, lib_out):
 
 def check_body(torch, label, fn, want):
     """Fails unless one call of ``fn`` launches the flash body ``want``
-    ("fma" or "wgmma") once and the other not at all, by the library's
-    body counters (``ops.body_launches``).  Returns the bodies it took,
-    e.g. "wgmma+merge" for a split."""
-    from repro_torch.kernels.flash_prefill.ops import body_launches
+    ("wgmma" or "tf32x3") once and no other body, by the library's body
+    counters (``ops.body_launches``; a split's merge aside).  Returns the
+    bodies it took, e.g. "wgmma+merge" for a split."""
+    from repro_torch.kernels.flash_prefill.ops import BODIES, body_launches
     before = body_launches()
     fn()
     torch.cuda.synchronize()
     took = {k: n - before[k] for k, n in body_launches().items()}
-    other = "fma" if want == "wgmma" else "wgmma"
-    if took[want] != 1 or took[other] != 0:
+    if took[want] != 1 or any(took[k] for k in BODIES
+                              if k not in (want, "merge")):
         fail(f"{label}: launched {took}, want the {want} body once")
-    return "+".join(k for k in ("fma", "wgmma", "merge") if took[k])
+    return "+".join(k for k in BODIES if took[k])
 
 
 def check_flash_prefix(torch, dev):
@@ -422,7 +464,7 @@ def check_flash_prefix(torch, dev):
             extra = ""
             body = check_body(torch, label,
                               lambda: flash_prefill_prefix(q, k, v, start),
-                              "fma")
+                              "tf32x3")
         else:
             qf, kf, vf = q.float(), k.float(), v.float()
             err, t_err, l_err = check_bf16_attention(
@@ -443,10 +485,16 @@ def check_flash_prefix(torch, dev):
         visible = C * st + C * (C + 1) // 2       # keys each row attends
         n_kv = st + C
         moved = nbytes(q) * 2 + 2 * n_kv * KVH * d * k.element_size() + 4
-        b_ms, b_by = bound(moved, 4.0 * visible * H * d, name)
+        if name == "float32":
+            b_ms, b_by, basis = f32_attention_bound(moved,
+                                                    4.0 * visible * H * d)
+            b_by_txt = f"{b_by}, {basis}"
+        else:
+            b_ms, b_by = bound(moved, 4.0 * visible * H * d, name)
+            b_by_txt = b_by
         print(f"[kernel] {label} Smax={Smax}: body {body} max_err={err:.3g}"
               f" kernel_ms={ms:.4f} ({b_ms / ms:.1%} of bound) plain_ms="
-              f"{plain:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms="
+              f"{plain:.4f} bound_ms={b_ms:.4f} ({b_by_txt}) library_ms="
               f"{lib_ms:.4f} (SDPA {backend}){extra}", flush=True)
         if name == "bfloat16" and C == 256 and st == 1000:
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
@@ -492,11 +540,14 @@ def check_flash_prefill(torch, dev):
         kind = "causal" if causal else "bidirectional"
         label = f"flash_prefill {name} {kind} B={B} S={S} d={d}"
         lib, backend = sdpa_call(torch, q, k, v, causal=causal)
-        extra = ""
         if name == "float32":
             err = (out - ref).abs().max().item()
             if not err <= 2e-5:
                 fail(f"{label}: max_abs_err {err} > 2e-05")
+            body = check_body(torch, label,
+                              lambda: flash_prefill(q, k, v, causal=causal),
+                              "tf32x3")
+            extra = f" body {body}"
         else:
             qf, kf, vf = q.float(), k.float(), v.float()
             err, t_err, l_err = check_bf16_attention(
@@ -508,19 +559,27 @@ def check_flash_prefill(torch, dev):
                               "wgmma")
             extra = f" body {body} truth_err={t_err:.3g} (SDPA {l_err:.3g})"
             del qf, kf, vf
-        ms = time_ms(lambda: flash_prefill(q, k, v, causal=causal), 10)
+        mine, theirs = [], []
+        ms = time_ms(lambda: flash_prefill(q, k, v, causal=causal), 10,
+                     readings=mine)
         plain = time_ms(lambda: flash_prefill_ref(q, k, v, causal=causal), 5)
-        lib_ms = time_ms(lib, 10)
+        lib_ms = time_ms(lib, 10, readings=theirs)
         visible = S * (S + 1) // 2 if causal else S * S
-        b_ms, b_by = bound(nbytes(q, k, v, out), 4.0 * B * H * d * visible,
-                           name)
+        flops = 4.0 * B * H * d * visible
+        if name == "float32":
+            b_ms, b_by, basis = f32_attention_bound(nbytes(q, k, v, out),
+                                                    flops)
+        else:
+            (b_ms, b_by), basis = bound(nbytes(q, k, v, out), flops,
+                                        name), name
         print(f"[kernel] {label} H={H} KVH={KVH}: max_err={err:.3g} "
               f"kernel_ms={ms:.4f} ({b_ms / ms:.1%} of bound) plain_ms="
-              f"{plain:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms="
+              f"{plain:.4f} bound_ms={b_ms:.4f} ({b_by}, {basis}) library_ms="
               f"{lib_ms:.4f} (SDPA {backend}){extra}", flush=True)
         if main is None:
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms)
+            verdict(label, ms, mine, lib_ms, theirs, f"SDPA {backend}", b_ms)
         del q, k, v, out, ref
     torch.cuda.empty_cache()
     return main
@@ -850,8 +909,9 @@ def phase_serve(torch, model, params, kernels):
     t0 = time.perf_counter()
     reqs, eng = serve(arch_size="full", strategy="alise", n_requests=16,
                       max_slots=8, seed=SEED, predictor_kind="oracle",
-                      prefill_chunk=256, paged_attn_impl="kernel",
-                      chunk_attn="flash", page_size=16, device=model.device,
+                      prefill_chunk=256, kv_backend="paged",
+                      paged_attn_impl="kernel", chunk_attn="flash",
+                      page_size=16, device=model.device,
                       model_and_params=(model, params))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1012,7 +1072,8 @@ def phase_profile(torch, model, params):
     for impl in ("kernel", "gather"):
         profile_step(torch, f"decode step ({impl}, B={B}, ctx 64..1600)",
                      lambda: model.paged_decode_step(params, pool, *dec,
-                                                     attn_impl=impl))
+                                                     attn_impl=impl),
+                     watch=("paged_attention",) if impl == "kernel" else ())
     start, C = 1024, 256
     pos = start + torch.arange(C)
     pages = torch.tensor(kv.pool.page_table[B - 1], dtype=torch.long)
@@ -1613,7 +1674,7 @@ def phase_train_profile(torch, dev, state):
             ms = e.time_range.elapsed_us() / 1e3
             busy += ms
             name = e.name.lower()
-            flash += ms if "flash_attn_kernel" in name else 0.0
+            flash += ms if "flash_attn" in name else 0.0
             norm += ms if "rmsnorm_kernel" in name else 0.0
             gemm += ms if "gemm" in name else 0.0
     back = back_gemm = 0.0
@@ -1746,12 +1807,18 @@ def main() -> None:
     # granite's main path is phases 5 and 6 together: counts start at 0
     # here and are read after both (launches made by the parity checks
     # above are not counted)
+    from repro_torch.kernels.paged_attention.ops import body_launches
     reset_counts(kernels)
+    passes = body_launches()
     phase_serve(torch, model, params, kernels)
     phase_swap(torch, model, params, kernels)
     launches = read_counts(kernels)
-    print(f"[main-path] granite-3-8b (phases 5-6) launches {launches}",
-          flush=True)
+    passes = {k: n - passes[k] for k, n in body_launches().items()}
+    print(f"[main-path] granite-3-8b (phases 5-6) launches {launches}; "
+          f"paged attention split-KV body {passes['body']}, merge "
+          f"{passes['merge']}", flush=True)
+    if passes["body"] != launches["paged_attention"] or passes["merge"] <= 0:
+        fail("the paged path did not run the split-KV body and its merge")
     clock.lap("granite serve + swap (phases 5-6)")
     phase_profile(torch, model, params)
     clock.lap("granite profile (phase 7)")

@@ -108,9 +108,7 @@ class EngineConfig:
     quantize_offload: bool = True
     hbm_bytes: Optional[float] = None      # default: fits ~max_slots*max_seq
     swap_bw: float = 32e9
-    kv_backend: Optional[str] = None       # dense | paged; None = the
-                                           # model's own: paged (attention
-                                           # family) | dense (ssm)
+    kv_backend: str = "dense"              # dense | paged
     page_size: int = 16                    # paged backend page granularity
     paged_attn_impl: str = "gather"        # gather (bit-exact reference) |
                                            # kernel (CUDA paged attention)
@@ -142,10 +140,8 @@ class EngineConfig:
 
 
 def _kv_backend(cfg: EngineConfig, model: Model) -> str:
-    """The KV backend: ``cfg.kv_backend``, or the model's own (paged for
-    the attention family, dense for ``ssm``) when it is None."""
-    backend = cfg.kv_backend or ("paged" if model.supports_paged()
-                                 else "dense")
+    """``cfg.kv_backend``, checked against the model and the decode step."""
+    backend = cfg.kv_backend
     if backend not in ("paged", "dense"):
         raise ValueError(f"unknown kv_backend: {backend!r}")
     if backend == "paged" and not model.supports_paged():

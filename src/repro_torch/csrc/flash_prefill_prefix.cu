@@ -1,6 +1,6 @@
 // Flash attention for Hopper (sm_90a), plain C interface for ctypes: the
 // chunked-prefill kernel over a request's prefix KV and the full-sequence
-// kernel (causal or bidirectional), with two device bodies.
+// kernel (causal or bidirectional), with three device bodies.
 //
 // Replaces: src/repro/kernels/flash_prefill/flash_prefill.py,
 //   `flash_prefill_prefix` (Pallas body `_prefix_kernel`) and
@@ -14,17 +14,20 @@
 // key visible).  GQA head h reads kv-head h / (H / KVH).  Out (B, H, C, d)
 // in q's dtype, acc / max(l, 1e-30).
 //
-// The two bodies, chosen per call by dtype and layout:
+// The three bodies, chosen per call by dtype and layout:
 // - bfloat16 takes the Hopper body of flash_prefill_wgmma.cuh (tensor
 //   cores through wgmma, K/V by TMA, GQA heads packed into one block's
 //   rows, split-KV for grids too small to fill the card; its note says
 //   how).  It rounds P to bf16 before P V, as SDPA's flash backend does.
-//   A bf16 view that TMA cannot take (an address or a stride that is not
-//   a multiple of 16 bytes) or G > 64 takes the FMA body below instead:
-//   the model's views always suit the wgmma body.
-// - float32 (training, held to 2e-5 of the plain version, which rules out
-//   TF32 and bf16 tensor cores) takes the FMA body below: f32 math on the
-//   CUDA cores.
+// - float32 (training, held to 2e-5 of the plain version) takes the body
+//   of flash_prefill_tf32x3.cuh: tensor cores through mma.sync in TF32,
+//   each f32 product taken as three TF32 products (the 3xTF32 split), so
+//   it keeps f32 accuracy; its bound is 3 x the operations over TF32's 495
+//   TFLOP/s (0.2083 ms at B 4, H 32, S 1024, d 128, causal), below the FMA
+//   bound of 1 x over 67 TFLOP/s (0.5133 ms).
+// - A view the tensor-core bodies cannot take (an address or a stride not
+//   a multiple of 16 bytes; or, in bf16, G > 64) takes the FMA body below.
+//   The model's views always suit the tensor-core bodies.
 //
 // The FMA body.  What bounds it on the H100: operations (4 d flops per
 // visible pair per head) at float32's 67 TFLOP/s outside the tensor cores.
@@ -42,7 +45,7 @@
 // block of the 64 x 32 score tile and the same 4 rows of the output, so
 // row statistics need only a shuffle among the 8 threads that share a row.
 // Tiles are staged in shared memory as float with one word of row padding
-// against bank conflicts.  Both bodies read strided inputs (the last axis
+// against bank conflicts.  All bodies read strided inputs (the last axis
 // must be contiguous), so the caller's transposed views need no copy.
 
 #include <cuda_runtime.h>
@@ -50,6 +53,7 @@
 #include <stdint.h>
 
 #include "flash_prefill_wgmma.cuh"
+#include "flash_prefill_tf32x3.cuh"
 
 namespace {
 
@@ -250,6 +254,16 @@ int dispatch(const void* q, const void* k, const void* v, const void* start,
                                      o_strides, B, H, KVH, C, Smax, s);
     if (err != wg::kNotTaken) return err;
   }
+  if (dtype == 0 && (d == 64 || d == 128)) {
+    const int err =
+        d == 64 ? tf::launch<64, M>(q, k, v, start, out, q_strides, k_strides,
+                                    v_strides, o_strides, B, H, KVH, C, Smax,
+                                    s)
+                : tf::launch<128, M>(q, k, v, start, out, q_strides,
+                                     k_strides, v_strides, o_strides, B, H,
+                                     KVH, C, Smax, s);
+    if (err != tf::kNotTaken) return err;
+  }
 #define FLASH_CASE(DT, T, DIM)                                                \
   if (dtype == DT && d == DIM)                                                \
     return launch<T, DIM, M>(q, k, v, start, out, qs, ks, vs, os, B, H, KVH, \
@@ -269,7 +283,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* start,
 // float32, 1 = bfloat16 (q, k, v and out share it).  Head dims 64 and 128.
 // scratch / nsplit: the bf16 body's split-KV (kernels/flash_prefill/plan.py
 // sizes both): nsplit 1 needs no scratch; nsplit > 1 needs nsplit * B * KVH
-// * (q tiles) * 64 * (d + 2) floats.  The FMA body ignores them.
+// * (q tiles) * 64 * (d + 2) floats.  The f32 and FMA bodies ignore them.
 // Both entry points return cudaGetLastError(), or cudaErrorInvalidValue for
 // a shape the kernels do not take.
 extern "C" int flash_prefill_prefix_launch(
@@ -305,9 +319,10 @@ extern "C" int flash_prefill_wgmma_smem_bytes(int d) {
   return d == 64 ? wg::smem_bytes<64>() : d == 128 ? wg::smem_bytes<128>() : 0;
 }
 
-// Launches of the f32 FMA body, the bf16 wgmma body and its split-KV merge
-// since the library was loaded, into out[0..2]; returns 0.
+// Launches of the FMA body, the bf16 wgmma body, its split-KV merge and
+// the f32 3xTF32 body since the library was loaded, into out[0..3];
+// returns 0.
 extern "C" int flash_prefill_body_launches(long long* out) {
-  for (int i = 0; i < 3; ++i) out[i] = wg::launched[i];
+  for (int i = 0; i < 4; ++i) out[i] = wg::launched[i];
   return 0;
 }

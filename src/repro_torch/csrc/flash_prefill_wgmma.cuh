@@ -78,8 +78,8 @@ constexpr int kCols = 64;       // bf16 columns in one 128-byte swizzled row
 // Launches of each device body since the library was loaded (host
 // counters, read through flash_prefill_body_launches): which body a call
 // took.
-enum Body { kFmaBody, kWgmmaBody, kMergeBody };
-inline long long launched[3] = {0, 0, 0};
+enum Body { kFmaBody, kWgmmaBody, kMergeBody, kTf32x3Body };
+inline long long launched[4] = {0, 0, 0, 0};
 
 // dynamic shared memory: Q and kStages x (K, V), plus slack to align the
 // first panel to 1024 bytes

@@ -60,19 +60,24 @@ def _full_fn():
                   [_P] * 5 + [_I] + [_P] * 4 + [_I] * 7 + [_P])
 
 
+BODIES = ("fma", "wgmma", "merge", "tf32x3")
+
+
 def body_launches():
     """Launches of each device body since the library was loaded:
-    ``{"fma": n, "wgmma": n, "merge": n}`` (the float32 FMA body, the
-    bfloat16 Hopper body and its split-KV merge).  The difference across a
+    ``{"fma": n, "wgmma": n, "merge": n, "tf32x3": n}`` (the FMA body for
+    views the tensor-core bodies cannot take, the bfloat16 wgmma body and
+    its split-KV merge, the float32 3xTF32 body).  The difference across a
     call says which body it took."""
-    got = (ctypes.c_longlong * 3)()
+    got = (ctypes.c_longlong * len(BODIES))()
     _entry("flash_prefill_body_launches", [_P])(ctypes.addressof(got))
-    return dict(zip(("fma", "wgmma", "merge"), got))
+    return dict(zip(BODIES, got))
 
 
 def _split(q, B, KVH, C, Smax):
     """(scratch, nsplit) for the bf16 body's split-KV: no scratch and 1
-    when the grid needs no split (and for float32, whose body has none)."""
+    when the grid needs no split (and for float32, whose bodies have
+    none)."""
     if q.dtype != torch.bfloat16:
         return None, 1
     H, d = q.shape[1], q.shape[3]

@@ -3,7 +3,8 @@ CUDA kernels' wrappers.
 
 ``kv_quantize`` / ``kv_dequantize`` launch ``csrc/kv_quant.cu`` and
 ``paged_attention_q8`` launches the int8 entry of
-``csrc/paged_attention.cu`` for CUDA tensors; each takes its plain version
+``csrc/paged_attention.cu`` (the split-KV body of ``paged_attention``, its
+plan and its scratch) for CUDA tensors; each takes its plain version
 (:mod:`.ref`) for CPU tensors; there is no fallback from one to the other.
 Each wrapper's ``launches`` attribute counts its kernel launches.
 """
@@ -14,6 +15,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention.ops import check_shape, split
 from repro_torch.kernels.kv_quant.ref import (kv_dequantize_ref,
                                               kv_quantize_ref,
                                               paged_attention_q8_ref)
@@ -78,7 +80,7 @@ def kv_dequantize(q, lam, z, dtype=torch.float32):
 
 def _q8_fn():
     f = _build.load("paged_attention").paged_attention_q8_launch
-    f.argtypes = [_P] * 10 + [_I] * 8 + [_P]
+    f.argtypes = [_P] * 11 + [_I] * 9 + [_P]
     f.restype = _I
     return f
 
@@ -118,10 +120,7 @@ def paged_attention_q8(q, kq, k_lam, k_z, vq, v_lam, v_z, block_tables,
             f"{tuple(kq.shape)}/{tuple(vq.shape)}, scales "
             f"{[tuple(t.shape) for t in (k_lam, k_z, v_lam, v_z)]}, tables "
             f"{tuple(block_tables.shape)}, lengths {tuple(lengths.shape)}")
-    if H // KVH > 8 or d not in (64, 128) or page > 64:
-        raise ValueError(f"paged_attention_q8 kernel takes G <= 8, d 64 or "
-                         f"128, page <= 64 (got G={H // KVH}, d={d}, "
-                         f"page={page})")
+    check_shape("paged_attention_q8", H // KVH, d, page, 16)
     if kq.dtype != torch.int8 or vq.dtype != torch.int8:
         raise TypeError("paged_attention_q8: codes must be int8")
     if any(t.dtype != torch.float32 for t in (k_lam, k_z, v_lam, v_z)):
@@ -130,11 +129,17 @@ def paged_attention_q8(q, kq, k_lam, k_z, vq, v_lam, v_z, block_tables,
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("paged_attention_q8: block_tables and lengths must "
                         "be int32")
+    if any(t.data_ptr() % 16 for t in (kq, vq)):
+        raise ValueError("paged_attention_q8: the codes must start on a "
+                         "16-byte boundary")
     out = torch.empty_like(q)
+    scratch, nsplit = split(q, B, KVH, d, page, max_pages)
     err = _q8_fn()(q.data_ptr(), kq.data_ptr(), k_lam.data_ptr(),
                    k_z.data_ptr(), vq.data_ptr(), v_lam.data_ptr(),
                    v_z.data_ptr(), block_tables.data_ptr(),
-                   lengths.data_ptr(), out.data_ptr(), B, H, KVH, d, page,
+                   lengths.data_ptr(), out.data_ptr(),
+                   None if scratch is None else scratch.data_ptr(), nsplit,
+                   B, H, KVH, d, page,
                    num_pages, max_pages, _build.dtype_code(q.dtype),
                    torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_attention_q8")

@@ -2,8 +2,11 @@
 
 ``paged_attention`` launches ``csrc/paged_attention.cu`` for CUDA tensors
 and takes the plain version (:mod:`.ref`) for CPU tensors; there is no
-fallback from one to the other.  ``paged_attention.launches`` counts
-kernel launches.
+fallback from one to the other.  The wrapper sizes the kernel's split-KV
+(:mod:`.plan`) and allocates its scratch.  ``paged_attention.launches``
+counts calls that launched the kernel (the body and, for a split, its
+merge pass: one call, one count); :func:`body_launches` counts the two
+passes apart.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention import plan
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -19,9 +23,37 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 def _fn():
     f = _build.load("paged_attention").paged_attention_launch
-    f.argtypes = [_P] * 6 + [_I] * 9 + [_P]
+    f.argtypes = [_P] * 7 + [_I] * 10 + [_P]
     f.restype = _I
     return f
+
+
+def body_launches():
+    """Launches of the split-KV body and of its merge pass since the
+    library was loaded (``{"body": n, "merge": n}``; the INT8 entry of
+    ``kv_quant`` shares both)."""
+    got = (ctypes.c_longlong * 2)()
+    f = _build.load("paged_attention").paged_attention_body_launches
+    f.argtypes, f.restype = [_P], _I
+    f(ctypes.addressof(got))
+    return dict(zip(("body", "merge"), got))
+
+
+def split(q, B, KVH, d, page, max_pages):
+    """(scratch, nsplit) for a call: no scratch when there is one split."""
+    G = q.shape[1] // KVH
+    nsplit = plan.num_splits(B, KVH, page, max_pages)
+    if nsplit == 1:
+        return None, 1
+    return torch.empty(plan.scratch_floats(B, KVH, G, d, nsplit),
+                       dtype=torch.float32, device=q.device), nsplit
+
+
+def check_shape(what, G, d, page, d_mult):
+    if G > 8 or d > 256 or d % d_mult or page > 64:
+        raise ValueError(f"{what} kernel takes G <= 8, d <= 256 a multiple "
+                         f"of {d_mult}, page <= 64 (got G={G}, d={d}, "
+                         f"page={page})")
 
 
 def paged_attention(q, k_cache, v_cache, block_tables, lengths):
@@ -49,17 +81,20 @@ def paged_attention(q, k_cache, v_cache, block_tables, lengths):
             f"paged_attention: shapes q {tuple(q.shape)}, k/v "
             f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, tables "
             f"{tuple(block_tables.shape)}, lengths {tuple(lengths.shape)}")
-    if H // KVH > 8 or d > 256 or page > 64:
-        raise ValueError(f"paged_attention kernel takes G <= 8, d <= 256, "
-                         f"page <= 64 (got G={H // KVH}, d={d}, page={page})")
+    check_shape("paged_attention", H // KVH, d, page, 8)
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("paged_attention: block_tables and lengths must be "
                         "int32")
     if v_cache.dtype != k_cache.dtype:
         raise TypeError("paged_attention: k and v caches differ in dtype")
+    if any(t.data_ptr() % 16 for t in (k_cache, v_cache)):
+        raise ValueError("paged_attention: the caches must start on a "
+                         "16-byte boundary")
     out = torch.empty_like(q)
+    scratch, nsplit = split(q, B, KVH, d, page, max_pages)
     err = _fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), nsplit,
                 B, H, KVH, d, page, num_pages, max_pages,
                 _build.dtype_code(q.dtype), _build.dtype_code(k_cache.dtype),
                 torch.cuda.current_stream(q.device).cuda_stream)

@@ -2,15 +2,15 @@
 model (batch mode).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch-size full \
-        --strategy alise --n-requests 16 --prefill-chunk 256
+        --kv-backend paged --n-requests 16 --prefill-chunk 256
     PYTHONPATH=src python -m repro_torch.launch.serve --arch-size full \
-        --kv-backend dense --n-requests 16 --max-slots 8
+        --n-requests 16 --max-slots 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         --arch-size full --n-requests 8
 
-run granite-3-8b on the paged KV backend (its default here) or on the
-dense backend (a K/V stripe per lane, the JAX launcher's default; without
-``--prefill-chunk`` each prompt is one chunk over the lane's stripe), and
+run granite-3-8b on the dense KV backend (a K/V stripe per lane; the
+default, as in the JAX launcher; without ``--prefill-chunk`` each prompt is
+one chunk over the lane's stripe) or on the paged backend, and
 mamba2-2.7b on the dense state backend, at full width on the GPU with
 random weights from ``--seed``; ``--arch-size smoke --device cpu`` runs
 the reduced config on the CPU.  On a GPU the paged decode attention and
@@ -91,11 +91,12 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
           iter_token_budget: Optional[int] = None,
           paged_attn_impl: Optional[str] = None,
           chunk_attn: Optional[str] = None, page_size: int = 16,
-          kv_backend: Optional[str] = None, device=None, model_and_params=None,
+          kv_backend: str = "dense", device=None, model_and_params=None,
           warmup: bool = False, verbose: bool = True):
     """Build (or take) the model, serve ``n_requests`` through
-    ``ServingEngine.serve`` and print a summary.  ``kv_backend`` None takes
-    the model's own.  Returns ``(requests, engine)``."""
+    ``ServingEngine.serve`` and print a summary.  ``kv_backend`` is
+    ``dense`` (the default, as in the JAX launcher) or ``paged`` (attention
+    family only).  Returns ``(requests, engine)``."""
     dev = resolve_device(device)
     model, params = model_and_params or build_model(
         arch, arch_size, dev, chunk_attn, seed)
@@ -163,12 +164,12 @@ def main():
                     choices=["masked", "flash"],
                     help="chunk attention: dense masked (reference) or the "
                          "CUDA prefix flash kernel (default on a GPU)")
-    ap.add_argument("--kv-backend", default=None,
-                    choices=["paged", "dense"],
-                    help="device KV storage (default: the model's own): the "
-                         "paged pool (granite's default) or the dense slotted "
-                         "cache (a K/V stripe per lane for granite; the "
-                         "only backend of mamba2-2.7b)")
+    ap.add_argument("--kv-backend", default="dense",
+                    choices=["dense", "paged"],
+                    help="device KV storage: the dense slotted cache (the "
+                         "default; a K/V stripe per lane for granite, the "
+                         "only backend of mamba2-2.7b) or the paged pool "
+                         "(granite only; CUDA paged attention)")
     ap.add_argument("--warmup", action="store_true",
                     help="time every prefill bucket before serving")
     args = ap.parse_args()

@@ -76,6 +76,75 @@ def test_paged_attention_kernel(dev, B, H, KVH, d, page, npages, maxp, dtype):
                                rtol=_tol(dtype))
 
 
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("page", [16, 32, 64])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_split_sweep(dev, G, page, d, dtype):
+    """The split-KV body at lengths of 1, a page boundary, a split's end,
+    one past it, one short of the full table and the full table, with
+    table entries past each length holding -1 or an index past the pool
+    (never read).  Each call launches the body once and the merge once
+    when the plan splits (it does at these shapes)."""
+    from repro_torch.kernels.paged_attention import (ops, paged_attention,
+                                                     paged_attention_ref,
+                                                     plan)
+    KVH, maxp = 2, 1024 // page
+    lens = [1, page, 0, 0, maxp * page - 1, maxp * page]
+    B = len(lens)
+    nsplit = plan.num_splits(B, KVH, page, maxp)
+    pps = plan.pages_per_split(maxp, nsplit)
+    assert nsplit > 1
+    lens[2], lens[3] = pps * page, pps * page + 1
+    npages = B * maxp
+    rng = np.random.default_rng(G * 100 + page + d)
+    q = _randn(rng, (B, G * KVH, d), dtype, dev)
+    kc = _randn(rng, (npages, page, KVH, d), dtype, dev)
+    vc = _randn(rng, (npages, page, KVH, d), dtype, dev)
+    tables = rng.permutation(npages).reshape(B, maxp).astype(np.int32)
+    for b, n in enumerate(lens):
+        tables[b, -(-n // page):] = -1 if b % 2 else npages + 7
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tables_d = torch.from_numpy(tables).to(dev)
+    before = ops.body_launches()
+    out = paged_attention(q, kc, vc, tables_d, lengths)
+    torch.cuda.synchronize()
+    after = ops.body_launches()
+    assert {k: after[k] - before[k] for k in after} == {"body": 1,
+                                                        "merge": 1}
+    ref = paged_attention_ref(q, kc, vc, tables_d.clamp(0, npages - 1),
+                              lengths)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+def test_paged_attention_one_split_needs_no_merge(dev):
+    """When B * KVH blocks fill the card the plan keeps one split: the body
+    writes every output and no merge runs."""
+    from repro_torch.kernels.paged_attention import (ops, paged_attention,
+                                                     paged_attention_ref,
+                                                     plan)
+    B, H, KVH, d, page, maxp = 20, 32, 8, 128, 16, 4
+    assert plan.num_splits(B, KVH, page, maxp) == 1
+    rng = np.random.default_rng(31)
+    q = _randn(rng, (B, H, d), torch.bfloat16, dev)
+    kc = _randn(rng, (B * maxp, page, KVH, d), torch.bfloat16, dev)
+    vc = _randn(rng, (B * maxp, page, KVH, d), torch.bfloat16, dev)
+    tables = torch.arange(B * maxp, dtype=torch.int32,
+                          device=dev).reshape(B, maxp)
+    lengths = torch.from_numpy(rng.integers(1, maxp * page + 1, (B,))
+                               .astype(np.int32)).to(dev)
+    before = ops.body_launches()
+    out = paged_attention(q, kc, vc, tables, lengths)
+    torch.cuda.synchronize()
+    after = ops.body_launches()
+    assert {k: after[k] - before[k] for k in after} == {"body": 1,
+                                                        "merge": 0}
+    torch.testing.assert_close(
+        out.float(), paged_attention_ref(q, kc, vc, tables, lengths).float(),
+        atol=5e-2, rtol=5e-2)
+
+
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("page", [16, 64])
@@ -130,8 +199,10 @@ def test_flash_prefill_prefix_kernel(dev, B, H, KVH, Smax, d, C, dtype):
     start = rng.integers(0, Smax - C + 1, (B,)).astype(np.int32)
     start[0] = 0
     start = torch.from_numpy(start).to(dev)
-    out = flash_prefill_prefix(q, k, v, start)
-    torch.cuda.synchronize()
+    out, bodies = _bodies(lambda: flash_prefill_prefix(q, k, v, start))
+    if dtype == torch.float32:                  # aligned: the 3xTF32 body
+        assert bodies == {"fma": 0, "wgmma": 0, "merge": 0, "tf32x3": 1}, \
+            bodies
     ref = flash_prefill_prefix_ref(q, k, v, start)
     torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
                                rtol=_tol(dtype))
@@ -160,7 +231,8 @@ def _sdpa_bf16(q, k, v, mask=None, causal=False):
 
 def _bodies(fn):
     """(fn's result, the launches of each flash body it made): which body
-    a call took (``ops.body_launches``: ``fma``, ``wgmma``, ``merge``)."""
+    a call took (``ops.body_launches``: ``fma``, ``wgmma``, ``merge``,
+    ``tf32x3``)."""
     from repro_torch.kernels.flash_prefill import ops
     before = ops.body_launches()
     out = fn()
@@ -215,7 +287,8 @@ def test_flash_prefill_prefix_bf16_sweep(dev, C, where, G, d):
     assert flash_prefill_prefix.launches == n0 + 1
     # aligned bf16 views take the Hopper body, with its merge when split
     split = plan.num_splits(B, KVH, G, C, Smax) > 1
-    assert bodies == {"fma": 0, "wgmma": 1, "merge": int(split)}, bodies
+    assert bodies == {"fma": 0, "wgmma": 1, "merge": int(split),
+                      "tf32x3": 0}, bodies
     plain = flash_prefill_prefix_ref(q, k, v, start)
     qf, kf, vf = q.float(), k.float(), v.float()
     truth = flash_prefill_prefix_ref(qf, kf, vf, start)
@@ -246,11 +319,50 @@ def test_flash_prefill_prefix_bf16_unaligned_views(dev):
     assert q.data_ptr() % 16 and k.data_ptr() % 16
     start = torch.tensor([0, 200], dtype=torch.int32, device=dev)
     out, bodies = _bodies(lambda: flash_prefill_prefix(q, k, v, start))
-    assert bodies == {"fma": 1, "wgmma": 0, "merge": 0}, bodies
+    assert bodies == {"fma": 1, "wgmma": 0, "merge": 0, "tf32x3": 0}, bodies
     ref = flash_prefill_prefix_ref(q, k, v, start).float()
     diff = (out.float() - ref).abs()
     assert bool((diff <= 2.0 ** -7 * ref.abs() + 2e-5).all()), \
         diff.max().item()
+
+
+@pytest.mark.parametrize("mode", ["prefix", "causal", "full"])
+def test_flash_f32_unaligned_views_take_the_fma_body(dev, mode):
+    """float32 views that cp.async cannot take (q and k one element past a
+    16-byte boundary) take the FMA body, within 2e-5 of the plain
+    version; the same call on aligned copies takes the 3xTF32 body."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_prefix,
+                                                   flash_prefill_prefix_ref,
+                                                   flash_prefill_ref)
+    rng = np.random.default_rng(22)
+    B, H, KVH, C, S, d = 2, 8, 2, 40, 300, 64
+
+    def shifted(shape):
+        flat = _randn(rng, (int(np.prod(shape)) + 1,), torch.float32, dev)
+        return flat[1:].view(shape)
+    k = shifted((B, S, KVH, d)).transpose(1, 2)
+    v = _randn(rng, (B, S, KVH, d), torch.float32, dev).transpose(1, 2)
+    if mode == "prefix":
+        q = shifted((B, H, C, d))
+        start = torch.tensor([0, 200], dtype=torch.int32, device=dev)
+
+        def call(q, k, v):
+            return flash_prefill_prefix(q, k, v, start)
+        ref = flash_prefill_prefix_ref(q, k, v, start)
+    else:
+        q = shifted((B, S, H, d)).transpose(1, 2)
+
+        def call(q, k, v):
+            return flash_prefill(q, k, v, causal=mode == "causal")
+        ref = flash_prefill_ref(q, k, v, causal=mode == "causal")
+    assert q.data_ptr() % 16 and k.data_ptr() % 16
+    out, bodies = _bodies(lambda: call(q, k, v))
+    assert bodies == {"fma": 1, "wgmma": 0, "merge": 0, "tf32x3": 0}, bodies
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    out2, bodies = _bodies(lambda: call(q.clone(), k.clone(), v))
+    assert bodies == {"fma": 0, "wgmma": 0, "merge": 0, "tf32x3": 1}, bodies
+    torch.testing.assert_close(out2, ref, atol=2e-5, rtol=2e-5)
 
 
 def test_flash_split_without_scratch_is_an_error(dev):
@@ -424,11 +536,16 @@ def test_kernels_reject_what_they_do_not_take(dev):
         paged_attention_q8(torch.zeros((1, 2, 64), device=dev),
                            codes.float(), scale, scale, codes.float(), scale,
                            scale, tables, lengths)
-    with pytest.raises(ValueError):                         # d = 32
-        paged_attention_q8(torch.zeros((1, 2, 32), device=dev),
-                           codes[..., :32].contiguous(), scale, scale,
-                           codes[..., :32].contiguous(), scale, scale,
+    with pytest.raises(ValueError):                         # d = 40
+        paged_attention_q8(torch.zeros((1, 2, 40), device=dev),
+                           codes[..., :40].contiguous(), scale, scale,
+                           codes[..., :40].contiguous(), scale, scale,
                            tables, lengths)
+    with pytest.raises(ValueError):                         # d = 36
+        paged_attention(torch.zeros((1, 2, 36), device=dev),
+                        torch.zeros((2, 4, 1, 36), device=dev),
+                        torch.zeros((2, 4, 1, 36), device=dev), tables,
+                        lengths)
     with pytest.raises(TypeError):
         paged_attention(torch.zeros((1, 2, 8), device=dev),
                         torch.zeros((2, 4, 1, 8), device=dev),
@@ -456,12 +573,15 @@ def test_flash_prefill_kernel(dev, B, H, KVH, S, d, dtype, causal):
     n0 = flash_prefill.launches
     out, bodies = _bodies(lambda: flash_prefill(q, k, v, causal=causal))
     assert flash_prefill.launches == n0 + 1
-    # float32 keeps the FMA body; aligned bf16 takes the Hopper body
+    # aligned views take the tensor-core bodies: wgmma for bf16, 3xTF32
+    # for float32
     if dtype == torch.bfloat16:
         split = plan.num_splits(B, KVH, H // KVH, S, S) > 1
-        assert bodies == {"fma": 0, "wgmma": 1, "merge": int(split)}, bodies
+        assert bodies == {"fma": 0, "wgmma": 1, "merge": int(split),
+                      "tf32x3": 0}, bodies
     else:
-        assert bodies == {"fma": 1, "wgmma": 0, "merge": 0}, bodies
+        assert bodies == {"fma": 0, "wgmma": 0, "merge": 0, "tf32x3": 1}, \
+            bodies
     ref = flash_prefill_ref(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
                                rtol=_tol(dtype))

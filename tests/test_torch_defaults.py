@@ -1,0 +1,78 @@
+"""The port's defaults against the JAX package's: ``EngineConfig`` field by
+field and the serve launcher's ``--kv-backend``, so that a run that names
+no backend takes the same path in both frameworks (the dense KV backend),
+and a granite engine built without one serves on it."""
+import argparse
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import engine as ref_engine  # noqa: E402
+from repro.launch import serve as ref_serve  # noqa: E402
+from repro_torch.core import engine as port_engine  # noqa: E402
+from repro_torch.launch import serve as port_serve  # noqa: E402
+from repro_torch.serving.kv_cache import DenseKVBackend  # noqa: E402
+
+
+def _defaults(cls):
+    out = {}
+    for f in dataclasses.fields(cls):
+        if f.default is not dataclasses.MISSING:
+            out[f.name] = f.default
+        elif f.default_factory is not dataclasses.MISSING:
+            out[f.name] = f.default_factory()
+    return out
+
+
+def test_engine_config_defaults_match_the_reference():
+    port, ref = _defaults(port_engine.EngineConfig), _defaults(
+        ref_engine.EngineConfig)
+    shared = sorted(set(port) & set(ref))
+    assert "kv_backend" in shared and len(shared) >= 20
+    differ = {n: (port[n], ref[n]) for n in shared if port[n] != ref[n]}
+    assert differ == {}, differ
+    assert port_engine.EngineConfig().kv_backend == "dense"
+
+
+class _Parsed(Exception):
+    def __init__(self, ns):
+        super().__init__()
+        self.ns = ns
+
+
+def _parsed_defaults(main, monkeypatch):
+    """The namespace ``main`` parses from an empty command line (it stops
+    right after parsing)."""
+    parse = argparse.ArgumentParser.parse_args
+
+    def stop(self, args=None, namespace=None):
+        raise _Parsed(parse(self, [], namespace))
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", stop)
+    with pytest.raises(_Parsed) as got:
+        main()
+    return got.value.ns
+
+
+def test_serve_launcher_defaults_to_the_dense_backend(monkeypatch):
+    port = _parsed_defaults(port_serve.main, monkeypatch)
+    ref = _parsed_defaults(ref_serve.main, monkeypatch)
+    assert port.kv_backend == ref.kv_backend == "dense"
+    import inspect
+    for fn in (port_serve.serve, ref_serve.serve):
+        assert inspect.signature(fn).parameters["kv_backend"].default == \
+            "dense"
+
+
+def test_granite_engine_without_a_backend_serves_dense():
+    reqs, eng = port_serve.serve(arch_size="smoke", n_requests=3,
+                                 max_slots=2, device="cpu", verbose=False)
+    assert eng.cfg.kv_backend == "dense" and eng.kv_backend == "dense"
+    assert isinstance(eng.kv, DenseKVBackend)
+    assert all(r.done and r.generated >= 1 for r in reqs)
+    model, params = port_serve.build_model("granite-3-8b", "smoke",
+                                           torch.device("cpu"), None, 0)
+    eng = port_engine.ServingEngine(model, params,
+                                    port_engine.EngineConfig(max_slots=2))
+    assert eng.kv_backend == "dense" and isinstance(eng.kv, DenseKVBackend)

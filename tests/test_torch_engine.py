@@ -253,7 +253,8 @@ def test_serve_warmup_events_and_latency_fit(setup):
     eng = port_engine.ServingEngine(
         _port_model(cfg), tparams, port_engine.EngineConfig(
             max_slots=4, max_seq_len=64, max_new_tokens=16, page_size=PAGE,
-            prefill_chunk=8, warmup_compile=True, eos_token=-1),
+            kv_backend="paged", prefill_chunk=8, warmup_compile=True,
+            eos_token=-1),
         predictor=port_predictor.OraclePredictor())
     assert set(eng.latency.bucket_costs) == {8}
     eng.stream_events = True
@@ -275,7 +276,8 @@ def test_cancel_and_drain_free_everything(setup):
     cfg, _, _, tparams = setup
     eng = port_engine.ServingEngine(
         _port_model(cfg), tparams, port_engine.EngineConfig(
-            max_slots=4, max_seq_len=64, page_size=PAGE, prefill_chunk=4),
+            max_slots=4, max_seq_len=64, kv_backend="paged", page_size=PAGE,
+            prefill_chunk=4),
         predictor=port_predictor.OraclePredictor())
     eng.stream_events = True
     reqs = _requests(port_request, cfg)
@@ -293,7 +295,7 @@ def test_cancel_and_drain_free_everything(setup):
 
 
 @pytest.mark.parametrize("opt", [dict(kv_backend="dense", prefix_cache=True),
-                                 dict(prefix_cache=True),
+                                 dict(kv_backend="paged", prefix_cache=True),
                                  dict(spec_decode=True),
                                  dict(prefill_pack=True)])
 def test_options_not_ported_raise(setup, opt):
@@ -306,7 +308,8 @@ def test_options_not_ported_raise(setup, opt):
 def test_serve_launcher_on_cpu():
     from repro_torch.launch.serve import serve
     reqs, eng = serve(arch_size="smoke", n_requests=4, max_slots=2,
-                      prefill_chunk=8, device="cpu", verbose=False)
+                      prefill_chunk=8, kv_backend="paged", device="cpu",
+                      verbose=False)
     assert all(r.done and r.generated >= 1 for r in reqs)
     assert eng.cfg.paged_attn_impl == "gather" and eng.kv_backend == "paged"
     assert eng.model.chunk_attn_impl == "masked"

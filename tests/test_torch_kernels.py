@@ -15,6 +15,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.kernels.flash_prefill.flash_prefill import \
+    flash_prefill as jax_flash_prefill  # noqa: E402
+from repro.kernels.flash_prefill.flash_prefill import \
     flash_prefill_prefix as jax_flash_prefix  # noqa: E402
 from repro.kernels.flash_prefill.ref import \
     flash_prefill_prefix_ref as jax_flash_prefix_ref  # noqa: E402
@@ -25,12 +27,15 @@ from repro.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_prefill import (  # noqa: E402
     flash_prefill_prefix, flash_prefill_prefix_partial_ref,
-    flash_prefill_prefix_ref, merge_partials, plan)
+    flash_prefill_prefix_ref, flash_prefill_ref, merge_partials, plan)
 from repro_torch.kernels.kv_quant import (kv_dequantize, kv_dequantize_ref,  # noqa: E402
                                           kv_quantize, kv_quantize_ref,
                                           paged_attention_q8)
 from repro_torch.kernels.paged_attention import (gather_pages,  # noqa: E402
-                                                 paged_attention)
+                                                 paged_attention,
+                                                 paged_attention_ref)
+from repro_torch.kernels.paged_attention import \
+    plan as paged_plan  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -112,6 +117,184 @@ def test_gather_pages_matches_jax():
     np.testing.assert_array_equal(
         gather_pages(torch.from_numpy(cache), torch.from_numpy(tables)).numpy(),
         np.asarray(jax_gather(jnp.asarray(cache), jnp.asarray(tables))))
+
+
+# ------------------------------------------- paged attention's split-KV
+
+# Shapes of the paged kernel's plan: (B, KVH, page, max_pages), among them
+# the serve and bench shapes and ones small enough to shrink the split.
+PLAN_SHAPES = [(8, 8, 16, 128), (5, 8, 16, 128), (1, 8, 16, 128),
+               (8, 8, 64, 64), (2, 2, 4, 12), (3, 1, 64, 5), (1, 1, 8, 1)]
+
+
+@pytest.mark.parametrize("B,KVH,page,max_pages", PLAN_SHAPES)
+def test_paged_split_plan_covers_live_pages_once(B, KVH, page, max_pages):
+    """The plan is a function of the shapes; its splits cover every live
+    page of every lane exactly once, in order, and name no page at or past
+    ``ceil(lengths[b] / page)``; the scratch holds every split's partial."""
+    nsplit = paged_plan.num_splits(B, KVH, page, max_pages)
+    assert nsplit == paged_plan.num_splits(B, KVH, page, max_pages)
+    assert 1 <= nsplit <= max_pages
+    pps = paged_plan.pages_per_split(max_pages, nsplit)
+    assert -(-max_pages // pps) == nsplit       # no split is empty of pages
+    full = max_pages * page
+    lengths = [n for n in (1, page, page + 1, pps * page, pps * page + 1,
+                           full - 1, full) if n <= full]
+    for n, ranges in zip(lengths, paged_plan.split_ranges(
+            lengths, page, max_pages, nsplit)):
+        live = -(-n // page)
+        pages = [p for p0, p1 in ranges for p in range(p0, p1)]
+        assert pages == list(range(live))
+        assert all(p1 > p0 and p0 % pps == 0 for p0, p1 in ranges)
+        assert len(ranges) <= nsplit
+    G, d = 4, 64
+    want = 0 if nsplit == 1 else B * KVH * nsplit * G * (d + 2)
+    assert paged_plan.scratch_floats(B, KVH, G, d, nsplit) == want
+
+
+def test_paged_split_plan_sizes_to_the_card():
+    """About 256 tokens a split at the serve shape; more, shorter splits
+    when B * KVH blocks would leave SMs idle."""
+    assert paged_plan.num_splits(8, 8, 16, 128) == 8      # 16 pages each
+    assert paged_plan.num_splits(8, 8, 64, 64) == 16      # 4 pages each
+    assert paged_plan.num_splits(1, 8, 16, 128) == 32     # 64 blocks -> 256
+    assert paged_plan.num_splits(1, 1, 16, 4) == 4
+
+
+def _split_merge_ref(q, kc, vc, tables, lengths, nsplit):
+    """The kernel's split-KV arithmetic in float32: each live split's
+    partial (m, l, acc) over its pages, m starting at -1e30 and tokens past
+    the length taking no weight, then the merge in split order; a lane with
+    one live split is that split's acc / max(l, 1e-30)."""
+    B, H, d = q.shape
+    _, page, KVH, _ = kc.shape
+    G = H // KVH
+    qg = q.float().reshape(B, KVH, G, d) / d ** 0.5
+    out = torch.empty((B, KVH, G, d))
+    ranges = paged_plan.split_ranges(lengths.tolist(), page,
+                                     tables.shape[1], nsplit)
+    for b in range(B):
+        parts = []
+        for p0, p1 in ranges[b]:
+            pages = tables[b, p0:p1].long()
+            k = kc[pages].float().reshape(-1, KVH, d)      # (T, KVH, d)
+            v = vc[pages].float().reshape(-1, KVH, d)
+            pos = p0 * page + torch.arange(k.shape[0])
+            live = pos < int(lengths[b])
+            s = torch.einsum("kgd,tkd->kgt", qg[b], k[live])
+            m = torch.maximum(s.amax(-1), torch.tensor(-1e30))
+            p = torch.exp(s - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("kgt,tkd->kgd", p,
+                                                     v[live])))
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        lsum, acc = torch.zeros_like(M), torch.zeros((KVH, G, d))
+        for m, den, a in parts:
+            w = torch.exp(m - M)
+            lsum = lsum + w * den
+            acc = acc + w[..., None] * a
+        out[b] = acc / torch.clamp(lsum, min=1e-30)[..., None]
+    return out.reshape(B, H, d)
+
+
+@pytest.mark.parametrize("nsplit", [None, 1, 3, 4, 12])
+def test_paged_split_and_merge_match_jax(nsplit):
+    """Partials per split merged in split order, at float32, within 2e-5 of
+    ``paged_attention_ref`` and of the Pallas kernel (interpret mode), at
+    lengths of 1, a page boundary, a split boundary, a split boundary plus
+    one and the full table (``None``: the plan's own split count)."""
+    rng = np.random.default_rng(40 + (nsplit or 0))
+    B, H, KVH, d, page, maxp = 5, 8, 2, 64, 4, 12
+    npg = B * maxp
+    nsplit = nsplit or paged_plan.num_splits(B, KVH, page, maxp)
+    pps = paged_plan.pages_per_split(maxp, nsplit)
+    q = rng.standard_normal((B, H, d)).astype(np.float32)
+    kc = rng.standard_normal((npg, page, KVH, d)).astype(np.float32)
+    vc = rng.standard_normal((npg, page, KVH, d)).astype(np.float32)
+    tables = rng.permutation(npg)[:B * maxp].reshape(B, maxp).astype(np.int32)
+    lengths = np.array([1, page, pps * page, pps * page + 1, maxp * page],
+                       np.int32)
+    got = _split_merge_ref(*(torch.from_numpy(a) for a in (q, kc, vc, tables,
+                                                           lengths)), nsplit)
+    ref = paged_attention_ref(*(torch.from_numpy(a) for a in (q, kc, vc,
+                                                              tables,
+                                                              lengths)))
+    pallas = paged_decode_attention(
+        *(jnp.asarray(a) for a in (q, kc, vc, tables, lengths)),
+        interpret=True)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), _np(pallas), atol=2e-5, rtol=0)
+
+
+# ----------------------------------------- the f32 flash body's 3xTF32 split
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: float32 rounded to 10 mantissa bits, to
+    nearest with ties away from zero (on the sign-magnitude bit pattern)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_cut(x):
+    """float32 cut to TF32 toward zero (the 13 low bits cleared): how the
+    tensor cores read a .tf32 operand, and so the kernel's low part."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, split=True):
+    """a @ b as the tensor cores take it: with ``split``, each operand as
+    hi = tf32(x) (to nearest, ties away), lo = x - hi cut to TF32 (toward
+    zero), as ``split()`` in csrc/flash_prefill_tf32x3.cuh makes them and
+    the tensor cores read them, and the product
+    lo hi' + hi lo' + hi hi' (each TF32 product exact in float32, sums in
+    float32); without it one TF32 product (the 1xTF32 control)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not split:
+        return ah @ bh
+    al, bl = _tf32_cut(a - ah), _tf32_cut(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _flash_tf32(q, k, v, causal, split=True):
+    """Flash attention with every product taken as :func:`_mm_tf32`: S = Q
+    K^T, softmax in float32 with P kept in float32, O = P V."""
+    B, H, S, d = q.shape
+    G = H // k.shape[1]
+    k = k.repeat_interleave(G, dim=1)
+    v = v.repeat_interleave(G, dim=1)
+    s = _mm_tf32(q, k.transpose(-1, -2), split) / d ** 0.5
+    if causal:
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return _mm_tf32(p, v, split) / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("B,H,KVH,S,d,causal", [
+    (1, 4, 2, 128, 64, True), (2, 4, 1, 64, 128, False),
+    (1, 8, 2, 256, 128, True)])
+def test_flash_3xtf32_matches_jax(B, H, KVH, S, d, causal):
+    """Flash attention with 3xTF32 products is within 2e-5 of
+    ``flash_prefill_ref`` and of the JAX ``flash_prefill`` (interpret mode);
+    the 1xTF32 control is not, so the split is what keeps f32 accuracy."""
+    rng = np.random.default_rng(S + d + H)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for shape in (
+        (B, H, S, d), (B, KVH, S, d), (B, KVH, S, d)))
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    got = _flash_tf32(qt, kt, vt, causal)
+    ref = flash_prefill_ref(qt, kt, vt, causal=causal)
+    pallas = jax_flash_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=causal, interpret=True)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), _np(pallas), atol=2e-5, rtol=0)
+    one = _flash_tf32(qt, kt, vt, causal, split=False)
+    assert (one - ref).abs().max().item() > 2e-5
+
+
+def test_tf32_roundings():
+    x = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11,
+                      1 + 2 ** -12, 3.0])
+    assert _tf32(x).tolist() == [1 + 2 ** -10, -(1 + 2 ** -10),
+                                 1 + 2 * 2 ** -10, 1.0, 3.0]
+    assert _tf32_cut(x).tolist() == [1.0, -1.0, 1 + 2 ** -10, 1.0, 3.0]
 
 
 # ------------------------------------------------------ prefix flash prefill
@@ -410,6 +593,7 @@ def test_kernel_sources_and_build_flags():
                      ("ssd_chunk", "`ssd_chunk`")):
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces:" in src and fn in src
-    # the bf16 flash body is a header of the flash source, in its build key
+    # the bf16 and f32 flash bodies are headers of the flash source, in its
+    # build key
     assert [p.name for p in _build.includes("flash_prefill_prefix")] == [
-        "flash_prefill_wgmma.cuh"]
+        "flash_prefill_tf32x3.cuh", "flash_prefill_wgmma.cuh"]
