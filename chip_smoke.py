@@ -19,8 +19,10 @@ the final line:
      ``check_bf16_attention``), with an error from the float32 truth at
      most twice SDPA's plus 2e-5, and within 5e-2; the bfloat16 RMSNorm
      within one bfloat16 rounding step of the plain output element by
-     element; INT8 codes within 1, round-trip relative error < 0.02, SSD
-     chunk rtol = atol = 1e-4 x sqrt(Q N / 1024)), with its time, the plain
+     element; INT8 codes within 1, dequantize bit for bit in float32 and
+     bfloat16, round-trip relative error < 0.02, SSD chunk rtol = atol =
+     1e-4 x sqrt(Q N / 1024), also at the model's decay range, where cum
+     reaches about -180 over a chunk), with its time, the plain
      version's time, the least time the card could take (bytes over
      3.35 TB/s or operations over the dtype's peak rate, whichever is
      larger) and, where one PyTorch call computes the same function, that
@@ -33,16 +35,20 @@ the final line:
      name the body each flash row took (the bf16 rows must take the
      ``wgmma`` body, the f32 rows the ``tf32x3`` body), the paged
      library's counters that each paged call ran the split-KV body and
-     its merge.  The f32 flash rows' bound is the smaller of the f32 FMA
+     its merge, the SSD library's that each SSD call took the body its
+     plan names (the tensor-core body at the mamba shapes), the kv_quant
+     library's that dequantize took its 16-byte body.  The bound of f32
+     work (the flash rows, the SSD chunk) is the smaller of the f32 FMA
      bound and the 3xTF32 one (three times the flops at TF32's rate),
-     named.  The kernels redesigned for Hopper must not be slower than
-     their library call, or their plain version where there is none
-     (every reading above every reading of the other fails): the bf16
+     named (``f32_bound``).  The kernels redesigned for Hopper must not be
+     slower than their library call, or their plain version where there is
+     none (every reading above every reading of the other fails): the bf16
      prefix kernel at C 256, start 1000 against SDPA, the bf16 (1024,
      5120) RMSNorm against ``F.rms_norm`` (printed beside its bound and a
      copy of its bytes), the f32 causal flash kernel at the training
-     shape against SDPA, the bf16 paged attention against its plain
-     version (printed beside its bound);
+     shape against SDPA, the bf16 paged attention, the SSD chunk (each
+     case) and the f32 INT8 dequantize (beside a copy of its bytes)
+     against their plain versions;
   4. reference: the full-width model's kernel path (paged-attention
      kernel + prefix flash kernel + RMSNorm kernel) against its plain path
      (page gather + masked attention + plain RMSNorm) on one short
@@ -74,7 +80,8 @@ the final line:
      request's greedy tokens must equal, bit for bit, those of a run of the
      same engine that serves it alone (no preemption);
  11. mamba profile: one full-batch decode step and one 1024-token prefill
-     under ``torch.profiler``, kernel and plain paths;
+     under ``torch.profiler``, kernel and plain paths (the kernel
+     prefill's line names the SSD chunk kernels' time and share);
  12. train reference: granite-3-8b at full width and 8 of its 40 layers in
      float32 (random weights from a seed, one 4 x 1024 batch of the
      synthetic stream), the loss and every gradient leaf through the
@@ -117,16 +124,18 @@ causal, a ragged S of 1000, d 64 bidirectional, and bf16 causal at B 1,
 S 2048; SDPA timed as the yardstick), the RMSNorm kernel (rows of 2560 and 5120 for mamba,
 4096 for granite, bf16 and f32, with ``torch.nn.functional.rms_norm`` timed
 as the library yardstick) and the SSD chunk kernel (B 1, S 1024 = 4 chunks
-of 256, and one ragged chunk of 200 rows; 80 heads of 64, state 128, f32)
-against their plain versions.  There are five main paths,
-each driven with every kernel's launch count set to 0 just before it and
+of 256, with small and with model-range decay, and one ragged chunk of 200
+rows; 80 heads of 64, state 128, f32) against their plain versions.
+There are five main paths, each driven with every kernel's launch count set to 0 just before it and
 read just after: granite's phases 5 and 6 (the paged-attention, prefix
 flash and INT8 quant kernels must have launched), granite's dense phases
 16 and 17 (the prefix flash, RMSNorm and INT8 quant kernels), the kernel bench of
 phase 18 (the INT8 paged attention), mamba's phases 9 and 10 (the RMSNorm
-and SSD chunk kernels must have launched) and training's phase 13 (the
+and SSD chunk kernels must have launched, every SSD call through the
+tensor-core body) and training's phase 13 (the
 flash and RMSNorm kernels must have launched).  Each phase
-prints its seconds.  Then a ``kernels`` JSON line, the card's name and
+prints its seconds.  Then a ``kernels`` JSON line (each row also names
+the ``csrc`` headers its source includes), the card's name and
 power limit, and the final ``{"ok": true, "device": {...}}`` line.  Needs
 one CUDA card; exits non-zero without one.
 """
@@ -270,12 +279,12 @@ def bound(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def f32_attention_bound(nbytes: float, flops: float):
-    """The least time for float32 attention at f32 accuracy: the smaller of
-    the CUDA cores' bound (the flops over float32's 67 TFLOP/s) and the
-    tensor cores' by the 3xTF32 split (three times the flops over TF32's
-    495 TFLOP/s), each no less than the bytes' time.  Returns (ms, bytes
-    or operations, the basis's name)."""
+def f32_bound(nbytes: float, flops: float):
+    """The least time for float32 work at f32 accuracy (attention, the SSD
+    chunk): the smaller of the CUDA cores' bound (the flops over float32's
+    67 TFLOP/s) and the tensor cores' by the 3xTF32 split (three times the
+    flops over TF32's 495 TFLOP/s), each no less than the bytes' time.
+    Returns (ms, bytes or operations, the basis's name)."""
     fma = bound(nbytes, flops, "float32")
     tc = bound(nbytes, 3.0 * flops, "tf32")
     return (*tc, "3xTF32") if tc[0] <= fma[0] else (*fma, "f32 FMA")
@@ -486,7 +495,7 @@ def check_flash_prefix(torch, dev):
         n_kv = st + C
         moved = nbytes(q) * 2 + 2 * n_kv * KVH * d * k.element_size() + 4
         if name == "float32":
-            b_ms, b_by, basis = f32_attention_bound(moved,
+            b_ms, b_by, basis = f32_bound(moved,
                                                     4.0 * visible * H * d)
             b_by_txt = f"{b_by}, {basis}"
         else:
@@ -567,7 +576,7 @@ def check_flash_prefill(torch, dev):
         visible = S * (S + 1) // 2 if causal else S * S
         flops = 4.0 * B * H * d * visible
         if name == "float32":
-            b_ms, b_by, basis = f32_attention_bound(nbytes(q, k, v, out),
+            b_ms, b_by, basis = f32_bound(nbytes(q, k, v, out),
                                                     flops)
         else:
             (b_ms, b_by), basis = bound(nbytes(q, k, v, out), flops,
@@ -586,9 +595,18 @@ def check_flash_prefill(torch, dev):
 
 
 def check_kv_quant(torch, dev):
+    """INT8 quantize and dequantize at one granite swap's rows (327,680 x
+    128): codes within 1 of the plain version, scales within 1e-6
+    relative, zeros within 1; dequantize equal to its plain version bit for
+    bit in float32 (same operations in the same order) and in bfloat16 (its
+    round to nearest even), through the 16-byte body (``ops.body_launches``);
+    the round trip within 2% of the input.  Dequantize's time is printed
+    beside its bound and a copy of the same bytes, and gated against its
+    plain version (:func:`verdict`)."""
     from repro_torch.kernels.kv_quant import (kv_dequantize,
                                               kv_dequantize_ref, kv_quantize,
                                               kv_quantize_ref)
+    from repro_torch.kernels.kv_quant import ops as kv_ops
     T, d = 40 * 64 * 16 * 8, 128          # one swap's rows at full width
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     x = torch.randn((T, d), generator=g, device=dev) * 4.0
@@ -601,28 +619,45 @@ def check_kv_quant(torch, dev):
     if not (torch.allclose(lam, lamr, rtol=1e-6, atol=0)
             and (z - zr).abs().max().item() <= 1):
         fail("kv_quantize: scales/zeros differ from the plain version")
-    xh = kv_dequantize(q, lam, z, dtype=torch.float32)
-    xr = kv_dequantize_ref(q, lam, z, dtype=torch.float32)
-    torch.cuda.synchronize()
+    for dt, view in ((torch.bfloat16, torch.int16),
+                     (torch.float32, torch.int32)):
+        before = kv_ops.body_launches()
+        xh = kv_dequantize(q, lam, z, dtype=dt)
+        torch.cuda.synchronize()
+        body = {k: n - before[k] for k, n in kv_ops.body_launches().items()}
+        xr = kv_dequantize_ref(q, lam, z, dtype=dt)
+        if not torch.equal(xh.view(view), xr.view(view)):
+            fail(f"kv_dequantize {dt}: not bit for bit the plain version "
+                 f"(max_abs_err {(xh.float() - xr.float()).abs().max()})")
+        if body != {"vec16": 1, "scalar": 0}:
+            fail(f"kv_dequantize {dt}: took bodies {body}, want the 16-byte "
+                 "body")
     deq_err = (xh - xr).abs().max().item()
     rel = ((xh - x).abs().max() / x.abs().max()).item()
-    if not deq_err <= 2e-5 * x.abs().max().item():
-        fail(f"kv_dequantize: max_abs_err {deq_err} vs plain")
     if not rel < 0.02:
         fail(f"kv quant round trip: relative error {rel} >= 0.02")
     qm = time_ms(lambda: kv_quantize(x))
     qp = time_ms(lambda: kv_quantize_ref(x), 5)
-    dm = time_ms(lambda: kv_dequantize(q, lam, z))
-    dp = time_ms(lambda: kv_dequantize_ref(q, lam, z), 5)
+    mine, theirs = [], []
+    dm = time_ms(lambda: kv_dequantize(q, lam, z), readings=mine)
+    dp = time_ms(lambda: kv_dequantize_ref(q, lam, z), 5, readings=theirs)
     qb, qby = bound(nbytes(x, q, lam, z), 6.0 * T * d, "float32")
-    db, dby = bound(nbytes(q, lam, z, xh), 3.0 * T * d, "float32")
+    moved = nbytes(q, lam, z, xh)
+    db, dby = bound(moved, 3.0 * T * d, "float32")
+    src = torch.empty(moved // 8, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src))
     print(f"[kernel] kv_quantize T={T} d={d} f32->int8: code_err={code_err} "
-          f"kernel_ms={qm:.4f} plain_ms={qp:.4f} bound_ms={qb:.4f} ({qby}) "
-          f"library_ms=none", flush=True)
-    print(f"[kernel] kv_dequantize T={T} d={d} int8->f32: max_err="
-          f"{deq_err:.3g} roundtrip_rel={rel:.4f} kernel_ms={dm:.4f} "
-          f"plain_ms={dp:.4f} bound_ms={db:.4f} ({dby}) library_ms=none",
-          flush=True)
+          f"kernel_ms={qm:.4f} ({qb / qm:.1%} of bound) plain_ms={qp:.4f} "
+          f"bound_ms={qb:.4f} ({qby}) library_ms=none", flush=True)
+    print(f"[kernel] kv_dequantize T={T} d={d} int8->f32: bitwise equal "
+          f"(f32 and bf16), body vec16, roundtrip_rel={rel:.4f} kernel_ms="
+          f"{dm:.4f} ({db / dm:.1%} of bound) plain_ms={dp:.4f} bound_ms="
+          f"{db:.4f} ({dby}) copy_ms={copy_ms:.4f} (a copy of the same "
+          f"{moved / 1e6:.1f} MB) library_ms=none", flush=True)
+    verdict(f"kv_dequantize int8->f32 ({T}, {d})", dm, mine, dp, theirs,
+            "its plain version", db, copy_ms=copy_ms)
+    del src, dst
     return (dict(max_abs_err=float(code_err), ms=qm, plain_ms=qp,
                  bound_ms=qb, bound_by=qby, library_ms=None),
             dict(max_abs_err=deq_err, ms=dm, plain_ms=dp, bound_ms=db,
@@ -790,23 +825,52 @@ def ssd_flops(B, C, Q, H, P, N) -> float:
                                          + 2.0 * Q * P * N + 2.0 * Q))
 
 
+def ssd_bodies(torch, fn):
+    """(fn's result, the launches of each SSD body it made:
+    ``ops.body_launches``' ``fma``, ``tf32x3_states``, ``tf32x3_y``)."""
+    from repro_torch.kernels.ssd_scan import ops
+    before = ops.body_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n - before[k] for k, n in ops.body_launches().items()}
+
+
 def check_ssd_chunk(torch, dev):
     """The SSD chunk kernel at one full-width mamba2-2.7b prefill layer of
-    1024 tokens (B 1, C 4 chunks of Q 256, H 80, P 64, N 128, f32), and at
-    a prompt shorter than a chunk, whose single chunk of Q 200 is not a
-    multiple of the kernel's 32-row tiles.  Returns the Q 256 row."""
-    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref
+    1024 tokens (B 1, C 4 chunks of Q 256, H 80, P 64, N 128, f32), with
+    dA = -0.1 |randn| and at the model's decay range (dA = -softplus(randn),
+    as A = -1 and dt = softplus(.) make it: cum reaches about -180 over a
+    chunk, where exp(cum[q]) . exp(-cum[s]) would overflow), and at a
+    prompt shorter than a chunk, whose single chunk of Q 200 is not a
+    multiple of the kernel's tiles.  Every output finite and within
+    1e-4 x sqrt(Q N / 1024) of the plain version; each call must take the
+    body ``plan.body`` names (the tensor-core body for all three, by the
+    body counters).  The bound is :func:`f32_bound`'s (3xTF32).  The
+    kernel is gated against its plain version (:func:`verdict`).  Returns
+    the Q 256 row with dA = -0.1 |randn|."""
+    from repro_torch.kernels.ssd_scan import plan, ssd_chunk, ssd_chunk_ref
     B, H, P, N = 1, 80, 64, 128
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     main = None
-    for C, Q in ((4, 256), (1, 200)):
+    for C, Q, decay in ((4, 256, "0.1|randn|"), (4, 256, "softplus"),
+                        (1, 200, "0.1|randn|")):
         xbar = torch.randn((B, C, Q, H, P), generator=g, device=dev)
-        dA = -torch.randn((B, C, Q, H), generator=g, device=dev).abs() * 0.1
+        dA = torch.randn((B, C, Q, H), generator=g, device=dev)
+        dA = (-torch.nn.functional.softplus(dA) if decay == "softplus"
+              else -dA.abs() * 0.1)
         Bc = torch.randn((B, C, Q, N), generator=g, device=dev)
         Cc = torch.randn((B, C, Q, N), generator=g, device=dev)
-        outs = ssd_chunk(xbar, dA, Bc, Cc)
+        outs, body = ssd_bodies(torch, lambda: ssd_chunk(xbar, dA, Bc, Cc))
         refs = ssd_chunk_ref(xbar, dA, Bc, Cc)
         torch.cuda.synchronize()
+        label = f"ssd_chunk Q={Q} dA=-{decay}"
+        want = plan.body(Q, P, N, [t.data_ptr() for t in (xbar, Bc, Cc,
+                                                          *outs[:2])])
+        took = {"fma": 1, "tf32x3_states": 0, "tf32x3_y": 0} if want == "fma" \
+            else {"fma": 0, "tf32x3_states": 1, "tf32x3_y": 1}
+        if want != "tf32x3" or body != took:
+            fail(f"{label}: the plan names the {want} body, the counters "
+                 f"read {body}")
         err = 0.0
         # 1e-4 at the Pallas tests' shapes (Q * N <= 1024), scaled by the
         # square root of the sums' lengths beyond them (float32 sums)
@@ -814,22 +878,28 @@ def check_ssd_chunk(torch, dev):
         for name, o, r in zip(("y_diag", "states", "chunk_decay"), outs,
                               refs):
             if not torch.isfinite(o).all():
-                fail(f"ssd_chunk Q={Q}: non-finite {name}")
+                fail(f"{label}: non-finite {name}")
             if not torch.allclose(o, r, rtol=tol, atol=tol):
-                fail(f"ssd_chunk Q={Q}: {name} differs from the plain "
-                     f"version by {(o - r).abs().max().item()}")
+                fail(f"{label}: {name} differs from the plain version by "
+                     f"{(o - r).abs().max().item()}")
             err = max(err, (o - r).abs().max().item())
-        ms = time_ms(lambda: ssd_chunk(xbar, dA, Bc, Cc))
-        plain = time_ms(lambda: ssd_chunk_ref(xbar, dA, Bc, Cc), 5)
-        b_ms, b_by = bound(nbytes(xbar, dA, Bc, Cc, *outs),
-                           ssd_flops(B, C, Q, H, P, N), "float32")
-        print(f"[kernel] ssd_chunk f32 B={B} C={C} Q={Q} H={H} P={P} N={N}: "
-              f"max_err={err:.3g} (tol {tol:.2g}) kernel_ms={ms:.4f} "
-              f"plain_ms={plain:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}) library_ms=none", flush=True)
-        if Q == 256:
+        mine, theirs = [], []
+        ms = time_ms(lambda: ssd_chunk(xbar, dA, Bc, Cc), readings=mine)
+        plain = time_ms(lambda: ssd_chunk_ref(xbar, dA, Bc, Cc), 5,
+                        readings=theirs)
+        b_ms, b_by, basis = f32_bound(nbytes(xbar, dA, Bc, Cc, *outs),
+                                      ssd_flops(B, C, Q, H, P, N))
+        cum = torch.cumsum(dA, dim=2).min().item()
+        print(f"[kernel] {label} f32 B={B} C={C} H={H} P={P} N={N}: "
+              f"max_err={err:.3g} (tol {tol:.2g}) cum_min={cum:.1f} body "
+              f"{want} kernel_ms={ms:.4f} ({b_ms / ms:.1%} of bound) "
+              f"plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by}, {basis}) "
+              f"library_ms=none", flush=True)
+        verdict(label, ms, mine, plain, theirs, "its plain version", b_ms)
+        if main is None:
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del xbar, dA, Bc, Cc, outs, refs
     return main
 
 
@@ -1039,12 +1109,15 @@ def profile_step(torch, label: str, step, n: int = 5, watch=()) -> None:
             if any(w in k for w in watch)]
     if watch and not seen:
         fail(f"{label}: no kernel named like {watch} ran")
+    watched = sum(v for _, v in seen)
     print(f"[profile] {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
           f"(idle {max(0.0, 1 - busy / wall):.1%}), {len(by_kernel)} kernel "
           "names; top: " + "; ".join(f"{k} {v:.2f} ms ({v / busy:.1%})"
                                      for k, v in top)
           + "".join(f"; watched: {k} {v:.2f} ms ({v / busy:.1%})"
-                    for k, v in seen), flush=True)
+                    for k, v in seen)
+          + (f"; watched together {watched:.2f} ms ({watched / busy:.1%})"
+             if len(seen) > 1 else ""), flush=True)
 
 
 def phase_profile(torch, model, params):
@@ -1459,10 +1532,12 @@ def _mamba_swap_run(model, params, prompts, outs, staged: bool):
 
 
 def phase_mamba_swap(torch, model, params, kernels):
-    """Forced state swaps with 2 lanes; returns the launch counts read
+    """Forced state swaps with 2 lanes; returns the launch counts and the
+    SSD chunk library's body counters (``ops.body_launches``), both read
     right after the swap run.  Then every preempted request is served alone
     by the same engine configuration (2 lanes, so the decode batch shape is
     the same) and its greedy tokens must be equal bit for bit."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     rng = np.random.default_rng(SEED + 8)
     lens, outs = (300, 520, 90, 140, 200, 64), (40, 40, 6, 6, 6, 6)
     prompts = [rng.integers(2, model.cfg.vocab_size, n).tolist()
@@ -1473,6 +1548,7 @@ def phase_mamba_swap(torch, model, params, kernels):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     total = read_counts(kernels)
+    bodies = ssd_ops.body_launches()
     counts = {n: c - before[n] for n, c in total.items()}
     lane_bytes = sum(t[:, 0].numel() * t.element_size()
                      for k, t in eng.kv.cache.items() if k != "lengths")
@@ -1505,13 +1581,15 @@ def phase_mamba_swap(torch, model, params, kernels):
                  "emitted other greedy tokens than its unpreempted run")
     print(f"[mamba-swap] {len(victims)} preempted requests: greedy tokens "
           "equal to their unpreempted runs, bit for bit", flush=True)
-    return total
+    return total, bodies
 
 
 def phase_mamba_profile(torch, model, params):
     """Where the time goes in the mamba path's two model steps, kernel and
     plain: a full-batch decode step (8 lanes, every lane active) and one
-    1024-token prefill."""
+    1024-token prefill, whose kernel path prints the SSD chunk kernels'
+    time and share of device busy (its tensor-core body: the states and
+    scores kernel and the y kernel)."""
     B = 8
     cache = model.init_cache(B, 2048)
     dev = model.device
@@ -1524,7 +1602,8 @@ def phase_mamba_profile(torch, model, params):
         profile_step(torch, f"mamba decode step ({path}, B={B})",
                      lambda: model.decode_step(params, cache, toks, active))
         profile_step(torch, f"mamba prefill ({path}, S=1024)",
-                     lambda: model.prefill(params, {"tokens": prompt}), n=3)
+                     lambda: model.prefill(params, {"tokens": prompt}), n=3,
+                     watch=("ssd_",) if use else ())
     model.use_kernels = True
 
 
@@ -1853,11 +1932,18 @@ def main() -> None:
     clock.lap("mamba init + reference (phase 8)")
     # mamba's main path is phases 9 and 10 together (the unpreempted
     # comparison runs of phase 10 are not counted)
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     reset_counts(kernels)
+    ssd_before = ssd_ops.body_launches()
     phase_mamba_serve(torch, model, params)
-    m_launches = phase_mamba_swap(torch, model, params, kernels)
-    print(f"[main-path] mamba2-2.7b (phases 9-10) launches {m_launches}",
-          flush=True)
+    m_launches, ssd_after = phase_mamba_swap(torch, model, params, kernels)
+    ssd_body = {k: n - ssd_before[k] for k, n in ssd_after.items()}
+    print(f"[main-path] mamba2-2.7b (phases 9-10) launches {m_launches}; "
+          f"SSD chunk bodies {ssd_body}", flush=True)
+    if (ssd_body["fma"] or ssd_body["tf32x3_states"] != m_launches["ssd_chunk"]
+            or ssd_body["tf32x3_y"] != m_launches["ssd_chunk"]):
+        fail("the mamba path's SSD chunk calls did not all take the "
+             "tensor-core body")
     clock.lap("mamba serve + swap (phases 9-10)")
     phase_mamba_profile(torch, model, params)
     clock.lap("mamba profile (phase 11)")
@@ -1909,7 +1995,12 @@ def main() -> None:
              replaces="src/repro/kernels/ssd_scan/ssd_scan.py:51",
              launches=m_launches["ssd_chunk"], **sc),
     ]
+    root = os.path.dirname(os.path.abspath(__file__))
     for r in rows:
+        # the csrc headers the source includes (flash and SSD bodies, the
+        # 3xTF32 primitives), as the build key follows them
+        r["headers"] = [os.path.relpath(str(h), root) for h in
+                        _build.includes(os.path.basename(r["source"])[:-3])]
         if r["launches"] <= 0:
             fail(f"kernel {r['name']} never launched on its main path")
     print("[kernels] " + ", ".join(

@@ -1,5 +1,5 @@
 // SSD intra-chunk step of Mamba-2 for Hopper (sm_90a), plain C interface
-// for ctypes.
+// for ctypes, with two device bodies.
 //
 // Replaces: src/repro/kernels/ssd_scan/ssd_scan.py, function `ssd_chunk`
 //           (Pallas body `_kernel`).
@@ -15,16 +15,26 @@
 // BEFORE the exp, as ssd_scan.py does: for s > q, cum[q] - cum[s] is
 // positive, its exp can overflow, and inf * 0 would give NaN.
 //
-// What bounds it on the H100: operations.  Per chunk and head the two
-// products do about Q^2/2 * (N + P) + Q * P * N multiply-adds in float32
-// against a few bytes per (q, p) and (p, n) element moved.
+// The two bodies, chosen per call by the wrapper's plan
+// (kernels/ssd_scan/plan.py: the shapes and the tensors' alignment):
+// - Q <= 256, P 64, N 128 and 16-byte aligned tensors (mamba2-2.7b's
+//   prefill: chunks of 256, or one chunk of the prompt's length) take the
+//   tensor-core body of ssd_chunk_tf32x3.cuh: the three products by
+//   mma.sync in TF32 with the 3xTF32 split (f32 accuracy), C . B^T once
+//   per (b, c, 64-row q tile) for all heads, in two launches; its note says
+//   how.  What bounds it: operations at the 3xTF32 rate (3 x 2.74 GFLOP
+//   over 495 TFLOP/s, 0.0166 ms at B 1, C 4, Q 256, H 80).
+// - Every other shape the kernel takes (Q <= 1024, P <= 128, N <= 256)
+//   takes the FMA body below.
 //
-// Design (simple first).  The TPU kernel holds a (b, c, h)'s whole (Q, Q)
-// decay matrix and its (Q, N) B and C tiles in VMEM: at Q 256 and N 128 in
-// float32 that is 256 KB + 2 x 128 KB, more than the 227 KB of shared
-// memory a Hopper block can have.  Here the query rows are tiled and B and
-// C are streamed.  Every block recomputes its chunk's cumsum (a block-wide
-// scan into shared memory), then does one of two jobs, by blockIdx.y:
+// The FMA body.  What bounds it: operations.  Per chunk and head the two
+// products do about Q^2/2 * (N + P) + Q * P * N multiply-adds in float32.
+// The TPU kernel holds a (b, c, h)'s whole (Q, Q) decay matrix and its (Q,
+// N) B and C tiles in VMEM: at Q 256 and N 128 in float32 that is 256 KB +
+// 2 x 128 KB, more than the 227 KB of shared memory a Hopper block can
+// have.  Here the query rows are tiled and B and C are streamed.  Every
+// block recomputes its chunk's cumsum (a block-wide scan into shared
+// memory), then does one of two jobs, by blockIdx.y:
 //  * a y block owns kQT query rows: it keeps their C rows in shared memory,
 //    streams B and xbar in kST-row tiles of s up to its last row, forms the
 //    masked, decayed score tile (kQT x kST) in shared memory and
@@ -32,11 +42,13 @@
 //  * a state block owns kPT rows p of the state: it streams the decayed B
 //    rows and xbar's columns in kST-row tiles and accumulates (kPT x N) in
 //    registers.
-// All arithmetic is float32 FMA on the CUDA cores.  C . B^T is the same for
-// every head of a chunk (ngroups 1) and is recomputed per head here;
-// sharing it across heads, and tensor cores, are later work.
+// All its arithmetic is float32 FMA on the CUDA cores, and C . B^T is
+// recomputed per head.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "ssd_chunk_tf32x3.cuh"
 
 namespace {
 
@@ -52,6 +64,11 @@ constexpr int kScanPer = kMaxQ / kThreads;                 // cumsum rows per th
 constexpr int kAccY = kQT * kMaxP / kThreads;              // y outputs per thread
 constexpr int kAccS = kPT * kMaxN / kThreads;              // state outputs per thread
 constexpr int kScorePer = kQT * kST / kThreads;            // score entries per thread
+
+// Launches since the library was loaded (host counters, read through
+// ssd_chunk_body_launches): the FMA body, and the tensor-core body's two
+// kernels (states and scores; y).
+long long launched[3] = {0, 0, 0};
 
 // Inclusive cumsum of dA[base + q * H] for q < Q into cum[0:Q] (shared).
 // Thread t scans rows [t*E, t*E + E) serially, E = ceil(Q / kThreads); the
@@ -239,17 +256,10 @@ ssd_chunk_kernel(const float* __restrict__ xbar, const float* __restrict__ dA,
   }
 }
 
-}  // namespace
-
-// n_bc = B * C.  Returns cudaGetLastError(), or cudaErrorInvalidValue on a
-// shape the kernel does not take (Q <= 1024, P <= 128, N <= 256).
-extern "C" int ssd_chunk_launch(const void* xbar, const void* dA,
-                                const void* Bm, const void* Cm, void* y,
-                                void* st, void* dk, int n_bc, int Q, int H,
-                                int P, int N, void* stream) {
-  if (n_bc <= 0 || Q <= 0 || Q > kMaxQ || H <= 0 || P <= 0 || P > kMaxP ||
-      N <= 0 || N > kMaxN)
-    return (int)cudaErrorInvalidValue;
+int launch_fma(const void* xbar, const void* dA, const void* Bm,
+               const void* Cm, void* y, void* st, void* dk, int n_bc, int Q,
+               int H, int P, int N, cudaStream_t stream) {
+  if (Q > kMaxQ || P > kMaxP || N > kMaxN) return (int)cudaErrorInvalidValue;
   const long long blocks_x = (long long)n_bc * H;
   if (blocks_x > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int n_y = (Q + kQT - 1) / kQT;
@@ -266,8 +276,91 @@ extern "C" int ssd_chunk_launch(const void* xbar, const void* dA,
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)blocks_x, (unsigned)(n_y + n_s));
-  ssd_chunk_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+  ssd_chunk_kernel<<<grid, kThreads, bytes, stream>>>(
       (const float*)xbar, (const float*)dA, (const float*)Bm, (const float*)Cm,
       (float*)y, (float*)st, (float*)dk, Q, H, P, N, n_y);
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++launched[0];
+  return (int)err;
+}
+
+int launch_tf32x3(const void* xbar, const void* dA, const void* Bm,
+                  const void* Cm, void* y, void* st, void* dk, void* score,
+                  const int* heads, int n_bc, int Q, int H, int P, int N,
+                  cudaStream_t stream) {
+  const void* ptrs[6] = {xbar, Bm, Cm, y, st, score};
+  for (int a = 0; a < 6; ++a)
+    if (reinterpret_cast<uintptr_t>(ptrs[a]) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+  if (Q > ssd::kMaxQ || P != ssd::kP || N != ssd::kN || heads == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int n_qt = (Q + ssd::kQT - 1) / ssd::kQT;
+  ssd::Groups groups{};
+  long long y_blocks = 0;
+  for (int i = 0; i < n_qt; ++i) {
+    if (heads[i] < 1 || heads[i] > ssd::kMaxGroup)
+      return (int)cudaErrorInvalidValue;
+    groups.heads[i] = heads[i];
+    y_blocks += (long long)((H + heads[i] - 1) / heads[i]) * n_bc;
+  }
+  const long long s_blocks = (long long)n_bc * (H + n_qt);
+  if (s_blocks > 0x7fffffffLL || y_blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        ssd::ssd_states_tf32x3_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, ssd::states_smem_bytes());
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(ssd::ssd_y_tf32x3_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               ssd::y_smem_bytes());
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  ssd::ssd_states_tf32x3_kernel<<<(unsigned)s_blocks, ssd::kThreads,
+                                  ssd::states_smem_bytes(), stream>>>(
+      (const float*)xbar, (const float*)dA, (const float*)Bm,
+      (const float*)Cm, (float*)st, (float*)dk, (float*)score, n_bc, Q, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ++launched[1];
+  ssd::ssd_y_tf32x3_kernel<<<(unsigned)y_blocks, ssd::kThreads,
+                             ssd::y_smem_bytes(), stream>>>(
+      (const float*)xbar, (const float*)dA, (const float*)score, (float*)y,
+      n_bc, Q, H, groups);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++launched[2];
+  return (int)err;
+}
+
+}  // namespace
+
+// n_bc = B * C.  score == nullptr takes the FMA body (Q <= 1024, P <= 128,
+// N <= 256); otherwise the tensor-core body, which needs Q <= 256, P 64, N
+// 128, 16-byte aligned xbar, B, C, y, states and score, a score scratch of
+// n_bc x ceil(Q / 64) x 16384 floats (plan.score_floats), and heads[i] in
+// [1, 16], the heads of a y block for each of the ceil(Q / 64) q tiles
+// (kernels/ssd_scan/plan.py).  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue on a shape or an address the chosen body does not
+// take.
+extern "C" int ssd_chunk_launch(const void* xbar, const void* dA,
+                                const void* Bm, const void* Cm, void* y,
+                                void* st, void* dk, void* score,
+                                const int* heads, int n_bc, int Q, int H,
+                                int P, int N, void* stream) {
+  if (n_bc <= 0 || Q <= 0 || H <= 0 || P <= 0 || N <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (score == nullptr)
+    return launch_fma(xbar, dA, Bm, Cm, y, st, dk, n_bc, Q, H, P, N, s);
+  return launch_tf32x3(xbar, dA, Bm, Cm, y, st, dk, score, heads, n_bc, Q, H,
+                       P, N, s);
+}
+
+// Launches of the FMA body and of the tensor-core body's two kernels since
+// the library was loaded, into out[0..2]; returns 0.
+extern "C" int ssd_chunk_body_launches(long long* out) {
+  for (int i = 0; i < 3; ++i) out[i] = launched[i];
+  return 0;
 }

@@ -6,7 +6,9 @@ CUDA kernels' wrappers.
 ``csrc/paged_attention.cu`` (the split-KV body of ``paged_attention``, its
 plan and its scratch) for CUDA tensors; each takes its plain version
 (:mod:`.ref`) for CPU tensors; there is no fallback from one to the other.
-Each wrapper's ``launches`` attribute counts its kernel launches.
+Each wrapper's ``launches`` attribute counts its kernel launches;
+:func:`body_launches` counts ``kv_dequantize``'s two bodies (the kernel
+chooses from d and the addresses: csrc/kv_quant.cu).
 """
 from __future__ import annotations
 
@@ -29,7 +31,22 @@ def _lib():
     lib.kv_quantize_launch.restype = _I
     lib.kv_dequantize_launch.argtypes = [_P] * 4 + [_L, _I, _I, _P]
     lib.kv_dequantize_launch.restype = _I
+    lib.kv_quant_body_launches.argtypes = [_P]
+    lib.kv_quant_body_launches.restype = _I
     return lib
+
+
+DEQUANTIZE_BODIES = ("vec16", "scalar")
+
+
+def body_launches():
+    """Launches of ``kv_dequantize``'s bodies since the library was
+    loaded: ``{"vec16": n, "scalar": n}`` (16 codes a thread with 16-byte
+    loads and stores, for d a multiple of 16 up to 1024 and 16-byte
+    aligned codes and output; one element a thread otherwise)."""
+    got = (ctypes.c_longlong * len(DEQUANTIZE_BODIES))()
+    _lib().kv_quant_body_launches(ctypes.addressof(got))
+    return dict(zip(DEQUANTIZE_BODIES, got))
 
 
 def kv_quantize(x):

@@ -3,7 +3,11 @@ built on it.
 
 ``ssd_chunk`` launches ``csrc/ssd_chunk.cu`` for CUDA tensors and takes the
 plain version (:mod:`.ref`) for CPU tensors; there is no fallback from one
-to the other.  ``ssd_chunk.launches`` counts kernel launches.
+to the other.  :mod:`.plan` names the body a call takes, from the shapes
+and addresses, and sizes the tensor-core body's blocks and score scratch.
+``ssd_chunk.launches`` counts the calls that launched the kernel (the
+tensor-core body's two launches are one call, one count);
+:func:`body_launches` counts each body's launches.
 ``ssd_chunked_fused`` is the torch twin of the JAX package's
 ``kernels/ssd_scan/ops.ssd_chunked_fused``: the intra-chunk part through
 ``ssd_chunk`` and the inter-chunk recurrence (C steps over (B,H,P,N)) and
@@ -16,6 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ssd_scan import plan
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -23,12 +28,32 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # the kernel's limits (csrc/ssd_chunk.cu kMaxQ / kMaxP / kMaxN)
 MAX_Q, MAX_P, MAX_N = 1024, 128, 256
 
+_FNS = {}
+
+
+def _entry(name, argtypes):
+    """The C entry point ``name`` of the library, typed once."""
+    f = _FNS.get(name)
+    if f is None:
+        f = getattr(_build.load("ssd_chunk"), name)
+        f.argtypes = argtypes
+        f.restype = _I
+        _FNS[name] = f
+    return f
+
 
 def _fn():
-    f = _build.load("ssd_chunk").ssd_chunk_launch
-    f.argtypes = [_P] * 7 + [_I] * 5 + [_P]
-    f.restype = _I
-    return f
+    return _entry("ssd_chunk_launch", [_P] * 9 + [_I] * 5 + [_P])
+
+
+def body_launches():
+    """Launches of each device body since the library was loaded:
+    ``{"fma": n, "tf32x3_states": n, "tf32x3_y": n}`` (the FMA body, and
+    the tensor-core body's states-and-scores kernel and its y kernel, one
+    each a call).  The difference across a call says which body it took."""
+    got = (ctypes.c_longlong * len(plan.BODIES))()
+    _entry("ssd_chunk_body_launches", [_P])(ctypes.addressof(got))
+    return dict(zip(plan.BODIES, got))
 
 
 def ssd_chunk(xbar, dA, Bc, Cc):
@@ -60,9 +85,18 @@ def ssd_chunk(xbar, dA, Bc, Cc):
     y = torch.empty_like(xbar)
     st = torch.empty((B, C, H, P, N), dtype=torch.float32, device=dev)
     dk = torch.empty((B, C, H), dtype=torch.float32, device=dev)
+    score, heads = None, None
+    if plan.body(Q, P, N, [t.data_ptr() for t in
+                           (xbar, Bc, Cc, y, st)]) == "tf32x3":
+        score = torch.empty(plan.score_floats(B * C, Q), dtype=torch.float32,
+                            device=dev)
+        groups = plan.heads_per_block(B * C, Q, H)
+        heads = (ctypes.c_int * len(groups))(*groups)
     err = _fn()(xbar.data_ptr(), dA.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
-                y.data_ptr(), st.data_ptr(), dk.data_ptr(), B * C, Q, H, P, N,
-                torch.cuda.current_stream(dev).cuda_stream)
+                y.data_ptr(), st.data_ptr(), dk.data_ptr(),
+                None if score is None else score.data_ptr(),
+                None if heads is None else ctypes.addressof(heads), B * C, Q,
+                H, P, N, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ssd_chunk")
     ssd_chunk.launches += 1
     return y, st, dk

@@ -15,8 +15,10 @@ of the query tile, rows that see a single key, causal and bidirectional
 full-sequence attention, INT8 pages at lengths around a page boundary with
 random table entries past each length, RMSNorm widths that are not
 multiples of the block or of the 16-byte vector and rows at misaligned
-addresses, and SSD chunks whose length, head dim and state size are not
-multiples of the kernel's tiles.  The two autograd Functions' gradients
+addresses, INT8 dequantize bit for bit through both of its bodies, and SSD
+chunks whose length, head dim and state size are not multiples of the
+kernel's tiles, at small and at the model's decay, each through the body
+its plan names.  The two autograd Functions' gradients
 are held against autograd through the plain versions, and the smoke
 config's loss and gradients on the card with kernels against those
 without.  Tolerances are those of ``tests/test_kernels.py`` and
@@ -411,6 +413,43 @@ def test_kv_quant_kernels(dev, T, d):
     assert rel < 0.02
 
 
+# the 16-byte body at row widths of 1 to 64 lane groups, with row counts
+# that leave a block's last rows empty; the scalar body for d = 40 (no
+# multiple of 16), d = 2048 (rows past the 16-byte body's) and codes at an
+# odd address (a contiguous view 3 bytes into a buffer)
+@pytest.mark.parametrize("T,d,offset", [
+    (1000, 128, 0), (13, 16, 0), (9, 32, 0), (7, 48, 0), (33, 1024, 0),
+    (40 * 16 * 8, 128, 0), (100, 40, 0), (5, 2048, 0), (100, 128, 3)])
+def test_kv_dequantize_bodies(dev, T, d, offset):
+    """float32 bit for bit the plain version (the same operations in the
+    same order), bfloat16 bit for bit its round to nearest even; the
+    16-byte body for d a multiple of 16 up to 1024 at aligned addresses,
+    else the scalar one, by the counters."""
+    from repro_torch.kernels.kv_quant import kv_dequantize, kv_dequantize_ref
+    from repro_torch.kernels.kv_quant import ops
+    rng = np.random.default_rng(T + d + offset)
+    buf = torch.from_numpy(rng.integers(-128, 128, T * d + offset).astype(
+        np.int8)).to(dev)
+    q = buf[offset:].view(T, d)
+    assert q.is_contiguous()
+    lam = _randn(rng, (T, 1), torch.float32, dev).abs() * 0.05 + 1e-3
+    z = torch.from_numpy(rng.integers(-40, 300, (T, 1)).astype(
+        np.float32)).to(dev)
+    want = ("vec16" if d % 16 == 0 and d <= 1024 and q.data_ptr() % 16 == 0
+            else "scalar")
+    ref = kv_dequantize_ref(q, lam, z, torch.float32)
+    for dtype, bits in ((torch.float32, torch.int32),
+                        (torch.bfloat16, torch.int16)):
+        before = ops.body_launches()
+        out = kv_dequantize(q, lam, z, dtype=dtype)
+        torch.cuda.synchronize()
+        took = {k: n - before[k] for k, n in ops.body_launches().items()}
+        assert took == {"vec16": int(want == "vec16"),
+                        "scalar": int(want == "scalar")}
+        assert out.dtype == dtype
+        assert torch.equal(out.view(bits), ref.to(dtype).view(bits))
+
+
 @pytest.mark.parametrize("T,d", [(1, 64), (7, 2560), (300, 4096),
                                  (33, 5120), (5, 1000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -468,26 +507,123 @@ def _ssd_tol(Q, N):
     return 1e-4 * max(1.0, (Q * N / 1024) ** 0.5)
 
 
-@pytest.mark.parametrize("B,C,Q,H,P,N", [
-    (1, 2, 16, 2, 16, 16), (2, 4, 32, 4, 16, 16), (1, 2, 64, 2, 32, 8),
-    (1, 3, 37, 3, 24, 40), (2, 1, 100, 2, 64, 128), (1, 4, 256, 80, 64, 128),
-    (1, 1, 1024, 2, 128, 256),
-])
-def test_ssd_chunk_kernel(dev, B, C, Q, H, P, N):
-    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref
-    rng = np.random.default_rng(Q + H + N)
+def _ssd_inputs(rng, B, C, Q, H, P, N, decay, dev):
+    """xbar, dA, B and C of one SSD chunk call.  ``decay`` "small": dA =
+    -0.1 |randn| (cum to about -0.08 Q); "model": dA = -softplus(randn), as
+    the model's A = -1 and dt = softplus(.) make it (cum to about -0.8 Q,
+    -180 over a chunk of 256, where exp(cum[q]) . exp(-cum[s]) would
+    overflow float32)."""
     xbar = _randn(rng, (B, C, Q, H, P), torch.float32, dev)
-    dA = -_randn(rng, (B, C, Q, H), torch.float32, dev).abs() * 0.1
+    dA = _randn(rng, (B, C, Q, H), torch.float32, dev)
+    dA = (-torch.nn.functional.softplus(dA) if decay == "model"
+          else -dA.abs() * 0.1)
     Bc = _randn(rng, (B, C, Q, N), torch.float32, dev)
     Cc = _randn(rng, (B, C, Q, N), torch.float32, dev)
-    n0 = ssd_chunk.launches
-    out = ssd_chunk(xbar, dA, Bc, Cc)
+    return xbar, dA, Bc, Cc
+
+
+def _ssd_bodies(fn):
+    """(fn's result, the launches of each SSD body it made)."""
+    from repro_torch.kernels.ssd_scan import ops
+    before = ops.body_launches()
+    out = fn()
     torch.cuda.synchronize()
+    after = ops.body_launches()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def _ssd_took(body):
+    """The body counters' reading of one call that took ``body``."""
+    if body == "fma":
+        return {"fma": 1, "tf32x3_states": 0, "tf32x3_y": 0}
+    return {"fma": 0, "tf32x3_states": 1, "tf32x3_y": 1}
+
+
+# The FMA body's shapes (head dim or state size other than 64 / 128, or Q
+# past 256), then the tensor-core body's: Q from 1 to a full chunk of 256
+# with 3 and 80 heads (no multiple of the planned head groups).  Every
+# shape at small decay; at the model's decay every shape within the
+# model's chunk (Q <= 256, cum down to about -180).  At Q 1024 the model's
+# decay takes cum to about -800, where two float32 cumsums of the same
+# values differ by more than this tolerance allows; the model never makes
+# a chunk that long, and test_ssd_chunk_long_chunk_against_float64 holds
+# the kernel there to the float64 truth instead.
+_SSD_SHAPES = [
+    (1, 2, 16, 2, 16, 16), (2, 4, 32, 4, 16, 16), (1, 2, 64, 2, 32, 8),
+    (1, 3, 37, 3, 24, 40), (2, 1, 100, 2, 64, 128), (1, 4, 256, 80, 64, 128),
+    (1, 1, 1024, 2, 128, 256), (1, 1, 1, 3, 64, 128), (2, 2, 16, 3, 64, 128),
+    (1, 1, 200, 3, 64, 128), (1, 2, 256, 3, 64, 128), (1, 1, 1, 80, 64, 128),
+    (1, 2, 16, 80, 64, 128), (1, 1, 200, 80, 64, 128),
+]
+
+
+@pytest.mark.parametrize("B,C,Q,H,P,N,decay", [
+    (*shape, decay) for decay in ("small", "model") for shape in _SSD_SHAPES
+    if decay == "small" or shape[2] <= 256])
+def test_ssd_chunk_kernel(dev, B, C, Q, H, P, N, decay):
+    from repro_torch.kernels.ssd_scan import plan, ssd_chunk, ssd_chunk_ref
+    rng = np.random.default_rng(Q + H + N)
+    xbar, dA, Bc, Cc = _ssd_inputs(rng, B, C, Q, H, P, N, decay, dev)
+    n0 = ssd_chunk.launches
+    out, took = _ssd_bodies(lambda: ssd_chunk(xbar, dA, Bc, Cc))
     assert ssd_chunk.launches == n0 + 1
+    assert took == _ssd_took(plan.body(Q, P, N))
     for o, r in zip(out, ssd_chunk_ref(xbar, dA, Bc, Cc)):
         assert torch.isfinite(o).all()
         tol = _ssd_tol(Q, N)
         torch.testing.assert_close(o, r, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("Q,P,N", [(1024, 128, 256), (256, 64, 128)])
+def test_ssd_chunk_long_chunk_against_float64(dev, Q, P, N):
+    """At the model's decay over a chunk of 1024 (cum to about -800) and of
+    256, the kernel is no further from the float64 truth (the plain version
+    on float64 inputs) than twice the float32 plain version is, in every
+    output: what error there is comes from float32 cumsums of large
+    magnitude, which both share."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref
+    rng = np.random.default_rng(Q + 7)
+    args = _ssd_inputs(rng, 1, 1, Q, 2, P, N, "model", dev)
+    assert torch.cumsum(args[1], dim=2).min().item() < -0.5 * Q
+    out = ssd_chunk(*args)
+    plain = ssd_chunk_ref(*args)
+    truth = ssd_chunk_ref(*(a.double() for a in args))
+    for o, r, t in zip(out, plain, truth):
+        assert torch.isfinite(o).all()
+        err = (o.double() - t).abs().max().item()
+        ref_err = (r.double() - t).abs().max().item()
+        assert err <= 2 * ref_err + 1e-6, (err, ref_err)
+
+
+@pytest.mark.parametrize("Q,P,N,offset", [
+    (256, 64, 128, 0), (200, 64, 128, 0), (1, 64, 128, 0),
+    (257, 64, 128, 0), (256, 32, 128, 0), (256, 64, 64, 0),
+    (256, 64, 128, 1), (64, 64, 128, 2)])
+def test_ssd_chunk_takes_the_planned_body(dev, Q, P, N, offset):
+    """Each call takes the body ``plan.body`` names from the shapes and
+    addresses: the tensor-core body for Q <= 256, P 64, N 128 in 16-byte
+    aligned tensors, the FMA body for other shapes and for contiguous
+    views ``offset`` floats into a buffer."""
+    from repro_torch.kernels.ssd_scan import plan, ssd_chunk, ssd_chunk_ref
+    B, C, H = 1, 2, 5
+    rng = np.random.default_rng(Q + P + N + offset)
+
+    def view(shape):
+        n = int(np.prod(shape))
+        buf = _randn(rng, (n + offset,), torch.float32, dev)
+        return buf[offset:].view(shape)
+    xbar = view((B, C, Q, H, P))
+    dA = -view((B, C, Q, H)).abs() * 0.1
+    Bc, Cc = view((B, C, Q, N)), view((B, C, Q, N))
+    out, took = _ssd_bodies(lambda: ssd_chunk(xbar, dA, Bc, Cc))
+    want = plan.body(Q, P, N, [t.data_ptr() for t in (xbar, Bc, Cc)])
+    assert want == ("tf32x3" if (Q <= 256 and (P, N) == (64, 128)
+                                 and offset == 0) else "fma")
+    assert took == _ssd_took(want)
+    for o, r in zip(out, ssd_chunk_ref(xbar, dA, Bc, Cc)):
+        tol = _ssd_tol(Q, N)
+        torch.testing.assert_close(o, r, atol=tol, rtol=tol)
+
 
 
 def test_ssd_chunked_kernel_path_matches_plain(dev):

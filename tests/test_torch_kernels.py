@@ -24,6 +24,7 @@ from repro.kernels.kv_quant import (kv_dequantize_op, kv_quantize_op,  # noqa: E
                                     kv_quantize_ref as jax_quantize_ref)
 from repro.kernels.paged_attention import (  # noqa: E402
     paged_attention_ref as jax_paged_ref, paged_decode_attention)
+from repro.kernels.ssd_scan import ssd_chunk as jax_ssd_chunk  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_prefill import (  # noqa: E402
     flash_prefill_prefix, flash_prefill_prefix_partial_ref,
@@ -36,6 +37,8 @@ from repro_torch.kernels.paged_attention import (gather_pages,  # noqa: E402
                                                  paged_attention_ref)
 from repro_torch.kernels.paged_attention import \
     plan as paged_plan  # noqa: E402
+from repro_torch.kernels.ssd_scan import plan as ssd_plan  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_chunk_ref  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -287,6 +290,104 @@ def test_flash_3xtf32_matches_jax(B, H, KVH, S, d, causal):
     np.testing.assert_allclose(got.numpy(), _np(pallas), atol=2e-5, rtol=0)
     one = _flash_tf32(qt, kt, vt, causal, split=False)
     assert (one - ref).abs().max().item() > 2e-5
+
+
+def _ssd_tf32(xbar, dA, Bc, Cc, split=True):
+    """The SSD chunk step with every product taken as :func:`_mm_tf32`, in
+    the decomposition of the tensor-core body (csrc/ssd_chunk_tf32x3.cuh):
+    the scores C . B^T once per chunk for all heads; per head the decay
+    exp(cum[q] - cum[s]) masked before the exp and applied to the scores
+    element by element, then (L o S) xbar; the state from xbar's rows
+    scaled by exp(cum[Q-1] - cum[s]), times B."""
+    Q = xbar.shape[2]
+    cum = torch.cumsum(dA, dim=2).permute(0, 1, 3, 2)       # (B,C,H,Q)
+    scores = _mm_tf32(Cc, Bc.transpose(-1, -2), split)      # (B,C,Q,Q)
+    seg = cum[..., :, None] - cum[..., None, :]
+    below = torch.ones((Q, Q), dtype=torch.bool).tril()
+    L = torch.exp(torch.where(below, seg, torch.full_like(seg, -np.inf)))
+    xh = xbar.permute(0, 1, 3, 2, 4)                        # (B,C,H,Q,P)
+    y = _mm_tf32(scores[:, :, None] * L, xh, split).permute(0, 1, 3, 2, 4)
+    xd = xh * torch.exp(cum[..., -1:] - cum)[..., None]
+    states = _mm_tf32(xd.transpose(-1, -2), Bc[:, :, None], split)
+    return y, states, torch.exp(cum[..., -1])
+
+
+@pytest.mark.parametrize("B,C,Q,H,P,N,decay", [
+    (1, 2, 64, 3, 32, 64, "small"), (2, 1, 40, 2, 64, 128, "model"),
+    (1, 1, 128, 2, 16, 32, "model")])
+def test_ssd_chunk_3xtf32_matches_jax(B, C, Q, H, P, N, decay):
+    """The SSD chunk step with 3xTF32 products in the tensor-core body's
+    decomposition is within 1e-4 of ``ssd_chunk_ref`` and of the JAX
+    ``ssd_chunk`` (interpret mode), at small decay and at the model's
+    (dA = -softplus(randn)); the 1xTF32 control is not."""
+    rng = np.random.default_rng(Q + H + N)
+    xbar = rng.standard_normal((B, C, Q, H, P)).astype(np.float32)
+    dA = rng.standard_normal((B, C, Q, H)).astype(np.float32)
+    dA = (-np.log1p(np.exp(dA)) if decay == "model"
+          else -np.abs(dA) * 0.1).astype(np.float32)
+    Bc, Cc = (rng.standard_normal((B, C, Q, N)).astype(np.float32)
+              for _ in range(2))
+    ts = [torch.from_numpy(a) for a in (xbar, dA, Bc, Cc)]
+    got = _ssd_tf32(*ts)
+    pallas = jax_ssd_chunk(*map(jnp.asarray, (xbar, dA, Bc, Cc)),
+                           interpret=True)
+    for g, r, j in zip(got, ssd_chunk_ref(*ts), pallas):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+        np.testing.assert_allclose(g.numpy(), _np(j), atol=1e-4, rtol=1e-4)
+    one = _ssd_tf32(*ts, split=False)
+    ref = ssd_chunk_ref(*ts)
+    assert not all(np.allclose(o.numpy(), r.numpy(), atol=1e-4, rtol=1e-4)
+                   for o, r in zip(one[:2], ref[:2]))
+
+
+@pytest.mark.parametrize("n_bc,Q,H", [
+    (4, 256, 80), (1, 200, 80), (1, 1, 3), (2, 16, 3), (3, 256, 3),
+    (64, 256, 80), (1, 130, 7), (5, 64, 17)])
+def test_ssd_plan_covers_every_head_of_every_q_tile_once(n_bc, Q, H):
+    """The y kernel's blocks (``plan.y_blocks``, in the kernel's order)
+    cover every (b, c, q tile, head) exactly once, in groups of at most
+    the planned heads (never more than a block's cumsum rows hold), the
+    last q tiles first."""
+    heads = ssd_plan.heads_per_block(n_bc, Q, H)
+    assert len(heads) == ssd_plan.q_tiles(Q)
+    assert all(1 <= h <= min(H, ssd_plan.MAX_GROUP) for h in heads)
+    seen = {}
+    blocks = ssd_plan.y_blocks(n_bc, Q, H)
+    for bc, qt, h0, h1 in blocks:
+        assert 0 < h1 - h0 <= heads[qt]
+        for h in range(h0, h1):
+            seen[(bc, qt, h)] = seen.get((bc, qt, h), 0) + 1
+    assert seen == {(bc, qt, h): 1 for bc in range(n_bc)
+                    for qt in range(ssd_plan.q_tiles(Q)) for h in range(H)}
+    order = [qt for _, qt, _, _ in blocks]
+    assert order == sorted(order, reverse=True)
+
+
+def test_ssd_plan_balances_the_main_shape():
+    """At one mamba2-2.7b prefill layer of 1024 tokens (4 chunks of 256,
+    80 heads) every y block gets about the same work, (q tile + 1) x its
+    heads, and the grid is one wave of the planned blocks a SM."""
+    heads = ssd_plan.heads_per_block(4, 256, 80)
+    work = [(qt + 1) * (h1 - h0)
+            for _, qt, h0, h1 in ssd_plan.y_blocks(4, 256, 80)]
+    assert max(work) <= 2 * min(work)
+    assert len(work) <= (ssd_plan.NUM_SMS * ssd_plan.BLOCKS_PER_SM
+                         * ssd_plan.WAVES)
+    assert heads == sorted(heads, reverse=True)
+
+
+def test_ssd_body_choice():
+    """The body the SSD plan names from shapes and addresses, and the
+    score scratch it sizes (4 warps x 32 n-tiles x 32 lanes x 4 floats a
+    (b, c, q tile))."""
+    assert ssd_plan.body(256, 64, 128) == "tf32x3"
+    assert ssd_plan.body(1, 64, 128, [0, 16, 4096]) == "tf32x3"
+    for args in ((257, 64, 128), (256, 32, 128), (256, 64, 256),
+                 (256, 64, 128, [0, 4])):
+        assert ssd_plan.body(*args) == "fma"
+    assert ssd_plan.score_floats(4, 256) == 4 * 4 * 4 * 32 * 32 * 4
 
 
 def test_tf32_roundings():
@@ -593,7 +694,10 @@ def test_kernel_sources_and_build_flags():
                      ("ssd_chunk", "`ssd_chunk`")):
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces:" in src and fn in src
-    # the bf16 and f32 flash bodies are headers of the flash source, in its
-    # build key
+    # the bf16 and f32 flash bodies and the SSD tensor-core body are
+    # headers of their sources, with the 3xTF32 primitives they share, in
+    # their build keys
     assert [p.name for p in _build.includes("flash_prefill_prefix")] == [
-        "flash_prefill_tf32x3.cuh", "flash_prefill_wgmma.cuh"]
+        "flash_prefill_tf32x3.cuh", "flash_prefill_wgmma.cuh", "tf32x3.cuh"]
+    assert [p.name for p in _build.includes("ssd_chunk")] == [
+        "ssd_chunk_tf32x3.cuh", "tf32x3.cuh"]
