@@ -54,11 +54,16 @@ the final line:
      (page gather + masked attention + plain RMSNorm) on one short
      request's logits;
   5. serve: granite-3-8b at full width and depth (random weights from a
-     seed) through ``ServingEngine.serve`` on the paged backend (asked
+     seed) through ``serve(..., warmup=True)`` on the paged backend (asked
      for: the engine's default is dense, as the reference's) with chunked
-     paged prefill and the fused paged decode; every request must finish
-     and the paged-attention and prefix-flash kernels must have launched,
-     the paged one through its split-KV body and merge;
+     paged prefill and the fused paged decode, both as CUDA graphs
+     captured at warmup; swaps unquantized (phase 6 forces INT8 ones), so
+     that greedy tokens do not depend on the wall clock's schedule; every
+     request must finish and the paged-attention and prefix-flash kernels
+     must have launched, the paged one through its split-KV body and
+     merge.  After phase 6, the same requests are served again with
+     ``cuda_graphs=False`` and their greedy tokens must equal the graphed
+     serve's bit for bit;
   6. swap: the same model with 2 lanes and a KV budget of a little over
      two sequences, staged arrivals on a virtual clock: requests must be
      preempted, swapped out and in as INT8 through the kv_quant kernels,
@@ -66,22 +71,28 @@ the final line:
   7. profile: where a full-batch decode step's and a 256-token prefill
      chunk's time goes, with each attention path, under
      ``torch.profiler`` (the kernel decode step prints the paged kernels'
-     share of device busy; the flash chunk must run the bf16 wgmma body);
+     share of device busy; the flash chunk must run the bf16 wgmma body),
+     then both steps as the engine calls them (through the paged backend:
+     inputs staged, tokens back on the host), as CUDA-graph replays and
+     eagerly: wall, device span (CUDA events) and device busy each;
   8. mamba reference: mamba2-2.7b at full width and depth (64 layers,
      d_model 2560, 80 heads of 64, state 128; random bf16 weights from a
      seed), its kernel path (fused RMSNorm + SSD chunk kernels) against its
      plain path on one prompt's prefill and 4 decode steps, in f32 (must
      agree to 1e-3) and in bf16 (printed beside bf16's own distance from
      f32);
-  9. mamba serve: 8 requests through ``ServingEngine.serve`` on the dense
-     state backend (monolithic prefill, fused recurrent decode);
+  9. mamba serve: 8 requests through ``serve(..., warmup=True)`` on the
+     dense state backend (monolithic prefill, eager; fused recurrent
+     decode as a CUDA graph), then (after phase 10) again with
+     ``cuda_graphs=False``: greedy tokens equal bit for bit;
  10. mamba swap: 2 lanes and staged arrivals force preemptions that swap a
      request's conv and SSM state to the host and back; each preempted
      request's greedy tokens must equal, bit for bit, those of a run of the
      same engine that serves it alone (no preemption);
  11. mamba profile: one full-batch decode step and one 1024-token prefill
      under ``torch.profiler``, kernel and plain paths (the kernel
-     prefill's line names the SSD chunk kernels' time and share);
+     prefill's line names the SSD chunk kernels' time and share), then the
+     decode step as the engine calls it, replayed and eager;
  12. train reference: granite-3-8b at full width and 8 of its 40 layers in
      float32 (random weights from a seed, one 4 x 1024 batch of the
      synthetic stream), the loss and every gradient leaf through the
@@ -101,18 +112,30 @@ the final line:
      (the full-sequence flash kernel), each followed by 4 dense decode
      steps (plain decode attention), against phase 4's paged kernel path,
      relative L2 <= 0.05 in bf16;
- 16. dense serve: phase 5's 16 requests through ``ServingEngine.serve`` on
-     the dense backend with the reference engine's defaults (no chunk
-     size: each prompt one chunk over its stripe; fused decode,
-     ``max_seq_len`` 2048, 8 lanes); every request must finish and the
-     prefix flash and RMSNorm kernels must have launched;
+ 16. dense serve: phase 5's 16 requests through ``serve(...,
+     warmup=True)`` on the dense backend with the reference engine's
+     defaults (no chunk size: each prompt one eager chunk over its stripe;
+     fused decode as a CUDA graph, ``max_seq_len`` 2048, 8 lanes), swaps
+     unquantized; every request must finish and the prefix flash and
+     RMSNorm kernels must have launched; after phase 17 the same requests
+     again with ``cuda_graphs=False``, greedy tokens equal bit for bit;
  17. dense swap: phase 6's setup on the dense backend with chunks of 256:
      requests must be preempted and their K/V stripes swapped as INT8
      through the kv_quant kernels, and all finish;
  18. kernel bench rows: the reference's ``benchmarks/bench_kernels.py``
      rows on the card: the INT8 paged attention at the bench's shape (its
      main path) and one full-batch dense decode step fused and sampled
-     against ``decode_step`` plus a host argmax per lane.
+     against ``decode_step`` plus a host argmax per lane, then the fused
+     step as the engine calls it, replayed and eager.
+
+The serve phases 5, 6, 9, 10, 16 and 17 run warmed engines (every step
+graph captured and every kernel library loaded before the first request):
+each prints its warmup's seconds, captures and graph-pool size, and fails
+on any capture or library build or load while serving
+(``utils/compile_counter.CompileCounter``) and on any decode step that
+did not run as a replay.  A replay adds its captured launches to every
+wrapper's ``launches`` and to the libraries' body counters, so the
+main-path counts below count replays.
 
 Phases 15-18 run after phase 7, with the granite model still loaded.
 Phase 3 also holds the INT8 paged attention (the bench's shape and
@@ -974,18 +997,112 @@ def read_counts(kernels):
     return {n: k.launches for n, k in kernels.items()}
 
 
+def graph_gate(label: str, eng, counter, saw_warmup: bool) -> None:
+    """One line on a warmed engine's step graphs, and the compile gate:
+    the keys, captures, compile events and graph-pool size of its warmup,
+    then the captures and library builds or loads ``counter`` saw after
+    the warmup (``saw_warmup``: the counter was attached before the engine
+    was built), which must be none, and, for a serve with graphs, its
+    decode replays, which must equal its decode steps."""
+    w = eng.warm_stats
+    if w is None:
+        fail(f"{label}: the engine was not warmed")
+    seen = counter.events[w["compiles"]:] if saw_warmup else counter.events
+    g = eng.kv.graphs
+    replays = g.replays["decode"] - w["replays"]["decode"]
+    steps = len(eng.iter_times)
+    print(f"[graphs] {label}: warmup {w['seconds']:.2f}s, {w['keys']} step "
+          f"keys, {w['captures']} CUDA graphs captured, {w['compiles']} "
+          f"compile events, graph pool {w['pool_bytes'] / 2**20:.1f} MiB; "
+          f"serving: {len(seen)} new "
+          f"captures or library loads, {replays} decode replays for {steps} "
+          f"decode steps, {g.replays['chunk'] - w['replays']['chunk']} "
+          f"chunk replays", flush=True)
+    if seen:
+        fail(f"{label}: captured or loaded at serve time: {seen}")
+    if g.capture and replays != steps:
+        fail(f"{label}: {steps - replays} decode steps ran without a replay")
+
+
+def same_tokens(label: str, graphed, eager) -> None:
+    """The graphed serve's greedy tokens against the eager serve's of the
+    same requests, bit for bit."""
+    a = [list(r.output_tokens) for r in graphed]
+    b = [list(r.output_tokens) for r in eager]
+    differ = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    same = not differ and len(a) == len(b)
+    print(f"[graphs] {label}: graphed vs eager serve, {len(a)} requests, "
+          f"{sum(map(len, a))} tokens: "
+          + ("equal bit for bit" if same else f"requests {differ} differ"),
+          flush=True)
+    if not same:
+        fail(f"{label}: graphed and eager greedy tokens differ")
+
+
+# the serve phases' launcher arguments (phases 5, 16 and 9), shared by the
+# graphed serve and its eager comparison.  Swaps travel unquantized here,
+# so the greedy tokens do not depend on when the wall clock's schedule
+# preempts (phases 6 and 17 force the INT8 swaps)
+PAGED_SERVE = dict(arch_size="full", strategy="alise", n_requests=16,
+                   max_slots=8, seed=SEED, predictor_kind="oracle",
+                   prefill_chunk=256, kv_backend="paged",
+                   paged_attn_impl="kernel", chunk_attn="flash",
+                   page_size=16, quantize=False, warmup=True)
+DENSE_SERVE = dict(arch_size="full", strategy="alise", n_requests=16,
+                   max_slots=8, seed=SEED, predictor_kind="oracle",
+                   kv_backend="dense", quantize=False, warmup=True,
+                   verbose=False)
+MAMBA_SERVE = dict(arch="mamba2-2.7b", arch_size="full", strategy="alise",
+                   n_requests=8, max_slots=8, seed=SEED,
+                   predictor_kind="oracle", kv_backend="dense", warmup=True,
+                   verbose=False)
+
+
+def serve_summary(eng, reqs, wall):
+    """tokens/s, TTFT p50, decode steps p50 and prefills p50 of a serve
+    (mamba's TTFT as phase 9 takes it: each prompt's prefill end, from the
+    end of the warmup)."""
+    gen = sum(r.generated for r in reqs)
+    ttft = [r.first_token_time - r.arrival_time for r in reqs
+            if r.finish_time is not None]
+    if eng.model.cfg.family == "ssm":
+        ttft = [t1 + dt - eng.warm_stats["end"]
+                for t1, _, dt in eng.prefill_times]
+    step_ms = [dt * 1e3 for *_, dt in eng.iter_times]
+    pre_ms = [dt * 1e3 for *_, dt in eng.prefill_times]
+    return (f"{gen} tokens, {gen / wall:.1f} tok/s, wall {wall:.2f}s, TTFT "
+            f"p50 {np.median(ttft):.3f}s, {len(step_ms)} decode steps p50 "
+            f"{np.median(step_ms):.2f} ms, {len(pre_ms)} prefills p50 "
+            f"{np.median(pre_ms):.2f} ms, preemptions "
+            f"{sum(r.preempt_count for r in reqs)}")
+
+
+def eager_serve(torch, label, model, params, graphed, args) -> None:
+    """The same requests served again with ``cuda_graphs=False`` (eager
+    steps on the card, warmed alike): its summary, and its greedy tokens
+    against the graphed serve's, which must be equal bit for bit."""
+    from repro_torch.launch.serve import serve
+    torch.cuda.synchronize()
+    reqs, eng = serve(**{**args, "verbose": False}, cuda_graphs=False,
+                      device=model.device, model_and_params=(model, params))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - eng.warm_stats["end"]
+    print(f"[serve-eager] {label}, cuda_graphs=False: "
+          f"{serve_summary(eng, reqs, wall)}", flush=True)
+    same_tokens(label, graphed, reqs)
+
+
 def phase_serve(torch, model, params, kernels):
     from repro_torch.launch.serve import serve
-    t0 = time.perf_counter()
-    reqs, eng = serve(arch_size="full", strategy="alise", n_requests=16,
-                      max_slots=8, seed=SEED, predictor_kind="oracle",
-                      prefill_chunk=256, kv_backend="paged",
-                      paged_attn_impl="kernel", chunk_attn="flash",
-                      page_size=16, device=model.device,
+    from repro_torch.utils.compile_counter import CompileCounter
+    counter = CompileCounter()
+    reqs, eng = serve(**PAGED_SERVE, device=model.device,
                       model_and_params=(model, params))
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - eng.warm_stats["end"]
     counts = read_counts(kernels)
+    graph_gate("granite paged serve (phase 5)", eng, counter, True)
+    counter.detach()
     done = [r for r in reqs if r.finish_time is not None]
     gen = sum(r.generated for r in reqs)
     ttft = [r.first_token_time - r.arrival_time for r in done]
@@ -1010,7 +1127,7 @@ def phase_serve(torch, model, params, kernels):
     for n in ("paged_attention", "flash_prefill_prefix"):
         if counts[n] <= 0:
             fail(f"serve: kernel {n} never launched on the serve path")
-    return counts
+    return reqs
 
 
 def phase_swap(torch, model, params, kernels):
@@ -1018,6 +1135,7 @@ def phase_swap(torch, model, params, kernels):
     from repro_torch.core.predictor import OraclePredictor
     from repro_torch.core.quantization import kv_bytes_per_token
     from repro_torch.core.request import Request, reset_request_counter
+    from repro_torch.utils.compile_counter import CompileCounter
     cfg = model.cfg
     bpt = kv_bytes_per_token(cfg.num_layers, cfg.num_kv_heads, cfg.hd)
     prompts, outs = (200, 264, 120, 136, 150, 170), (48, 48, 6, 6, 6, 6)
@@ -1029,8 +1147,9 @@ def phase_swap(torch, model, params, kernels):
     eng = ServingEngine(model, params, EngineConfig(
         max_slots=2, max_seq_len=2048, max_new_tokens=64, strategy="alise",
         quantize_offload=True, hbm_bytes=2 * 336 * bpt, kv_backend="paged",
-        page_size=16, paged_attn_impl="kernel", prefill_chunk=256),
-        predictor=OraclePredictor())
+        page_size=16, paged_attn_impl="kernel", prefill_chunk=256,
+        warmup_compile=True), predictor=OraclePredictor())
+    counter = CompileCounter()
     before = read_counts(kernels)
     t = 0.0
     for r in reqs[:2]:
@@ -1047,6 +1166,8 @@ def phase_swap(torch, model, params, kernels):
         t += 0.1
     torch.cuda.synchronize()
     counts = {n: c - before[n] for n, c in read_counts(kernels).items()}
+    graph_gate("granite paged swap (phase 6)", eng, counter, False)
+    counter.detach()
     pre = sum(r.preempt_count for r in reqs)
     print(f"[swap] 2 lanes, KV budget {2 * 336} tokens, INT8 offload: "
           f"{sum(r.finish_time is not None for r in reqs)}/{len(reqs)} "
@@ -1075,19 +1196,26 @@ def _is_kernel(torch, e) -> bool:
 
 def profile_step(torch, label: str, step, n: int = 5, watch=()) -> None:
     """One line on where ``step``'s time goes: host wall ms per call
-    without the profiler (``n`` calls, synchronized), then the device's
-    busy time per call (sum of kernel times) and its top kernels from
-    ``torch.profiler`` over ``n`` more calls, and every kernel whose name
-    holds one of ``watch`` (fails when such a kernel never ran)."""
+    without the profiler (``n`` calls, synchronized) and the device span
+    of a call (CUDA events recorded before and after it on the stream,
+    median; the device's idle gaps inside the call are in it), then the
+    device's busy time per call (sum of kernel times) and its top kernels
+    from ``torch.profiler`` over ``n`` more calls, and every kernel whose
+    name holds one of ``watch`` (fails when such a kernel never ran)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         step()
     torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(n)]
     t0 = time.perf_counter()
-    for _ in range(n):
+    for begin, end in marks:
+        begin.record()
         step()
+        end.record()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
+    span = statistics.median(b.elapsed_time(e) for b, e in marks)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -1101,8 +1229,9 @@ def profile_step(torch, label: str, step, n: int = 5, watch=()) -> None:
                                + e.time_range.elapsed_us() / 1e3 / n)
     busy = sum(by_kernel.values())
     if busy <= 0:
-        print(f"[profile] {label}: wall {wall:.2f} ms; the profiler saw no "
-              "device time (device busy not measured)", flush=True)
+        print(f"[profile] {label}: wall {wall:.2f} ms, device span "
+              f"{span:.2f} ms; the profiler saw no device time (device busy "
+              "not measured)", flush=True)
         return
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
     seen = [(k, v) for k, v in sorted(by_kernel.items())
@@ -1110,8 +1239,9 @@ def profile_step(torch, label: str, step, n: int = 5, watch=()) -> None:
     if watch and not seen:
         fail(f"{label}: no kernel named like {watch} ran")
     watched = sum(v for _, v in seen)
-    print(f"[profile] {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
-          f"(idle {max(0.0, 1 - busy / wall):.1%}), {len(by_kernel)} kernel "
+    print(f"[profile] {label}: wall {wall:.2f} ms, device span {span:.2f} ms, "
+          f"device busy {busy:.2f} ms (idle {max(0.0, 1 - busy / wall):.1%})"
+          f", {len(by_kernel)} kernel "
           "names; top: " + "; ".join(f"{k} {v:.2f} ms ({v / busy:.1%})"
                                      for k, v in top)
           + "".join(f"; watched: {k} {v:.2f} ms ({v / busy:.1%})"
@@ -1160,6 +1290,60 @@ def phase_profile(torch, model, params):
                                                        start, C),
                      watch=("flash_attn_wgmma",) if chunk == "flash" else ())
     model.chunk_attn_impl = impl0
+    del kv, pool, dec, pre
+    torch.cuda.empty_cache()
+    for graphs in (True, False):
+        how = "graphed" if graphs else "eager"
+        profile_step(torch, f"engine decode step ({how}, B={B}, ctx "
+                     "64..1600)", engine_decode(model, params, "paged",
+                                                graphs, ctx), n=3)
+        # a chunk of 256 at position 1024 of a request whose pages exist
+        kv = PagedKVBackend(model, KVBackendConfig(
+            max_slots=1, max_seq_len=2048, page_size=pg,
+            graph_buckets=(C,), cuda_graphs=graphs), num_pages=130)
+        kv.pool.allocate(0, start)
+        profile_step(torch, f"engine prefill chunk ({how}, C={C}, "
+                     f"start={start})",
+                     lambda: kv.prefill_chunk(params, 0, [7] * C, start),
+                     n=3)
+        del kv
+        torch.cuda.empty_cache()
+
+
+def engine_decode(model, params, backend, cuda_graphs, ctx):
+    """A step for profiling a KV backend's fused decode step as the
+    engine calls it (host inputs staged, tokens and reasons back on the
+    host), with or without CUDA graphs: every lane active, lane i at
+    context ``ctx[i]`` (paged: pages allocated; a step grows each lane by
+    one token; dense granite: each call starts from ``ctx`` again),
+    greedy.  The first call captures the graph."""
+    import torch
+    from repro_torch.serving.kv_cache import (DenseKVBackend,
+                                              KVBackendConfig, PagedKVBackend)
+    B = len(ctx)
+    bcfg = KVBackendConfig(max_slots=B, max_seq_len=2048, page_size=16,
+                           attn_impl="kernel", cuda_graphs=cuda_graphs)
+    if backend == "paged":
+        kv = PagedKVBackend(model, bcfg, num_pages=B * 128)
+        for i, c in enumerate(ctx):
+            kv.pool.allocate(i, int(c))
+            kv.slot_req[i] = i
+    else:
+        kv = DenseKVBackend(model, bcfg)
+    ctx = np.asarray(ctx, np.int32)
+    args = (np.full((B, 1), 7, np.int32), np.ones((B,), bool),
+            np.ones((B,), np.int32), ctx + 1,
+            np.full((B,), np.iinfo(np.int32).max, np.int32),
+            np.arange(B, dtype=np.int32))
+
+    lens = torch.from_numpy(ctx).to(model.device)
+    reset = backend == "dense" and model.cfg.family != "ssm"
+
+    def step():
+        if reset:
+            kv.cache["lengths"].copy_(lens)
+        return kv.decode(params, *args)
+    return step
 
 
 # ---------------------------------------------------- phases 15 to 18
@@ -1224,15 +1408,16 @@ def phase_dense_serve(torch, model, params, kernels):
     prompt one chunk over its lane's stripe, through the prefix flash
     kernel), fused decode, ``max_seq_len`` 2048, 8 lanes."""
     from repro_torch.launch.serve import serve
+    from repro_torch.utils.compile_counter import CompileCounter
     before = read_counts(kernels)
-    t0 = time.perf_counter()
-    reqs, eng = serve(arch_size="full", strategy="alise", n_requests=16,
-                      max_slots=8, seed=SEED, predictor_kind="oracle",
-                      kv_backend="dense", device=model.device,
-                      model_and_params=(model, params), verbose=False)
+    counter = CompileCounter()
+    reqs, eng = serve(**DENSE_SERVE, device=model.device,
+                      model_and_params=(model, params))
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - eng.warm_stats["end"]
     counts = {n: c - before[n] for n, c in read_counts(kernels).items()}
+    graph_gate("granite dense serve (phase 16)", eng, counter, True)
+    counter.detach()
     done = [r for r in reqs if r.finish_time is not None]
     gen = sum(r.generated for r in reqs)
     ttft = [r.first_token_time - r.arrival_time for r in done]
@@ -1260,7 +1445,7 @@ def phase_dense_serve(torch, model, params, kernels):
     for n in ("flash_prefill_prefix", "fused_rmsnorm"):
         if counts[n] <= 0:
             fail(f"dense serve: kernel {n} never launched")
-    return counts
+    return reqs
 
 
 def phase_dense_swap(torch, model, params, kernels):
@@ -1273,6 +1458,7 @@ def phase_dense_swap(torch, model, params, kernels):
     from repro_torch.core.predictor import OraclePredictor
     from repro_torch.core.quantization import kv_bytes_per_token
     from repro_torch.core.request import Request, reset_request_counter
+    from repro_torch.utils.compile_counter import CompileCounter
     cfg = model.cfg
     bpt = kv_bytes_per_token(cfg.num_layers, cfg.num_kv_heads, cfg.hd)
     prompts, outs = (200, 264, 120, 136, 150, 170), (48, 48, 6, 6, 6, 6)
@@ -1284,7 +1470,8 @@ def phase_dense_swap(torch, model, params, kernels):
     eng = ServingEngine(model, params, EngineConfig(
         max_slots=2, max_seq_len=2048, max_new_tokens=64, strategy="alise",
         quantize_offload=True, hbm_bytes=2 * 336 * bpt, kv_backend="dense",
-        prefill_chunk=256), predictor=OraclePredictor())
+        prefill_chunk=256, warmup_compile=True), predictor=OraclePredictor())
+    counter = CompileCounter()
     before = read_counts(kernels)
     t = 0.0
     for r in reqs[:2]:
@@ -1301,6 +1488,8 @@ def phase_dense_swap(torch, model, params, kernels):
         t += 0.1
     torch.cuda.synchronize()
     counts = {n: c - before[n] for n, c in read_counts(kernels).items()}
+    graph_gate("granite dense swap (phase 17)", eng, counter, False)
+    counter.detach()
     pre = sum(r.preempt_count for r in reqs)
     if eng.sched.live or any(r.finish_time is None for r in reqs):
         fail("dense swap: engine did not drain")
@@ -1393,6 +1582,13 @@ def phase_bench_rows(torch, model, params, kernels):
                  fused, n=3)
     del cache
     torch.cuda.empty_cache()
+    for graphs in (True, False):
+        how = "graphed" if graphs else "eager"
+        profile_step(torch, f"dense engine decode step ({how}, B={B}, "
+                     f"Smax={Smax}, at position {Smax // 2})",
+                     engine_decode(model, params, "dense", graphs,
+                                   [Smax // 2] * B), n=3)
+        torch.cuda.empty_cache()
     return counts
 
 
@@ -1458,20 +1654,21 @@ def mamba_reference_check(torch, model, params):
 
 def phase_mamba_serve(torch, model, params):
     from repro_torch.launch.serve import serve
-    t0 = time.perf_counter()
-    reqs, eng = serve(arch="mamba2-2.7b", arch_size="full", strategy="alise",
-                      n_requests=8, max_slots=8, seed=SEED,
-                      predictor_kind="oracle", kv_backend="dense",
-                      device=model.device, model_and_params=(model, params),
-                      verbose=False)
+    from repro_torch.utils.compile_counter import CompileCounter
+    counter = CompileCounter()
+    reqs, eng = serve(**MAMBA_SERVE, device=model.device,
+                      model_and_params=(model, params))
     torch.cuda.synchronize()
+    t0 = eng.warm_stats["end"]          # the serve starts when warmup ends
     wall = time.perf_counter() - t0
+    graph_gate("mamba serve (phase 9)", eng, counter, True)
+    counter.detach()
     done = [r for r in reqs if r.finish_time is not None]
     gen = sum(r.generated for r in reqs)
     # the engine stamps a token with its iteration's start; all 8 prompts
     # are prefilled in the first iteration, one after another, so each
     # request's first token is measured at the end of its own (single)
-    # prefill instead, from the serve call
+    # prefill instead, from the end of the engine's warmup
     ttft = [t1 + dt - t0 for t1, _, dt in eng.prefill_times]
     step_ms = [dt * 1e3 for *_, dt in eng.iter_times]
     batch = [b for _, _, b, _ in eng.iter_times]
@@ -1496,6 +1693,7 @@ def phase_mamba_serve(torch, model, params):
         if not all(0 <= t < model.cfg.vocab_size for t in r.output_tokens):
             fail(f"mamba serve: request {r.req_id} emitted an out-of-vocab "
                  "token")
+    return reqs
 
 
 def _mamba_swap_run(model, params, prompts, outs, staged: bool):
@@ -1505,13 +1703,15 @@ def _mamba_swap_run(model, params, prompts, outs, staged: bool):
     from repro_torch.core.engine import EngineConfig, ServingEngine
     from repro_torch.core.predictor import OraclePredictor
     from repro_torch.core.request import Request, reset_request_counter
+    from repro_torch.utils.compile_counter import CompileCounter
     reset_request_counter()
     reqs = [Request(prompt_len=len(p), arrival_time=0.0, true_out_len=o,
                     prompt_tokens=list(p)) for p, o in zip(prompts, outs)]
     eng = ServingEngine(model, params, EngineConfig(
         max_slots=2, max_seq_len=2048, max_new_tokens=64, strategy="alise",
-        quantize_offload=False, kv_backend="dense", eos_token=-1),
-        predictor=OraclePredictor())
+        quantize_offload=False, kv_backend="dense", eos_token=-1,
+        warmup_compile=True), predictor=OraclePredictor())
+    counter = CompileCounter()
     t = 0.0
     first = reqs[:2] if staged else reqs
     for r in first:
@@ -1528,6 +1728,9 @@ def _mamba_swap_run(model, params, prompts, outs, staged: bool):
         t += 0.1
     if eng.sched.live or any(r.finish_time is None for r in reqs):
         fail("mamba swap: engine did not drain")
+    if staged:
+        graph_gate("mamba swap (phase 10)", eng, counter, False)
+    counter.detach()
     return reqs, eng
 
 
@@ -1605,6 +1808,13 @@ def phase_mamba_profile(torch, model, params):
                      lambda: model.prefill(params, {"tokens": prompt}), n=3,
                      watch=("ssd_",) if use else ())
     model.use_kernels = True
+    del cache
+    for graphs in (True, False):
+        how = "graphed" if graphs else "eager"
+        profile_step(torch, f"mamba engine decode step ({how}, B={B})",
+                     engine_decode(model, params, "dense", graphs, [0] * B),
+                     n=3)
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------- phases 12 to 14
@@ -1819,14 +2029,7 @@ def main() -> None:
             os.path.abspath(__file__)), "src", "repro_torch")):
         fail("src/repro_torch not found next to this script: run it from a "
              "checkout of the repository")
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_prefill import (flash_prefill,
-                                                   flash_prefill_prefix)
-    from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm
-    from repro_torch.kernels.kv_quant import (kv_dequantize, kv_quantize,
-                                              paged_attention_q8)
-    from repro_torch.kernels.paged_attention import paged_attention
-    from repro_torch.kernels.ssd_scan import ssd_chunk
+    from repro_torch.kernels import _build, counters
     from repro_torch.launch.serve import build_model
     from repro_torch.utils import tree_leaves
 
@@ -1867,12 +2070,7 @@ def main() -> None:
         sc = check_ssd_chunk(torch, dev)
     clock.lap("kernels (phase 3)")
 
-    kernels = {"paged_attention": paged_attention,
-               "flash_prefill_prefix": flash_prefill_prefix,
-               "flash_prefill": flash_prefill,
-               "kv_quantize": kv_quantize, "kv_dequantize": kv_dequantize,
-               "paged_attention_q8": paged_attention_q8,
-               "fused_rmsnorm": fused_rmsnorm, "ssd_chunk": ssd_chunk}
+    kernels = dict(counters.WRAPPERS)       # the 8 wrappers, by name
     t0 = time.perf_counter()
     model, params = build_model("granite-3-8b", "full", dev, "flash", SEED)
     torch.cuda.synchronize()
@@ -1889,7 +2087,7 @@ def main() -> None:
     from repro_torch.kernels.paged_attention.ops import body_launches
     reset_counts(kernels)
     passes = body_launches()
-    phase_serve(torch, model, params, kernels)
+    paged_reqs = phase_serve(torch, model, params, kernels)
     phase_swap(torch, model, params, kernels)
     launches = read_counts(kernels)
     passes = {k: n - passes[k] for k, n in body_launches().items()}
@@ -1899,6 +2097,10 @@ def main() -> None:
     if passes["body"] != launches["paged_attention"] or passes["merge"] <= 0:
         fail("the paged path did not run the split-KV body and its merge")
     clock.lap("granite serve + swap (phases 5-6)")
+    # phase 5's requests again, eagerly (after the main path's counts)
+    eager_serve(torch, "granite paged (phase 5)", model, params, paged_reqs,
+                PAGED_SERVE)
+    clock.lap("granite paged eager serve (phase 5)")
     phase_profile(torch, model, params)
     clock.lap("granite profile (phase 7)")
     # granite on the dense backend, with the same model (the paged engines
@@ -1907,12 +2109,15 @@ def main() -> None:
     dense_reference_check(torch, model, params, ref)
     clock.lap("granite dense reference (phase 15)")
     reset_counts(kernels)
-    phase_dense_serve(torch, model, params, kernels)
+    dense_reqs = phase_dense_serve(torch, model, params, kernels)
     phase_dense_swap(torch, model, params, kernels)
     d_launches = read_counts(kernels)
     print(f"[main-path] granite-3-8b dense (phases 16-17) launches "
           f"{d_launches}", flush=True)
     clock.lap("granite dense serve + swap (phases 16-17)")
+    eager_serve(torch, "granite dense (phase 16)", model, params, dense_reqs,
+                DENSE_SERVE)
+    clock.lap("granite dense eager serve (phase 16)")
     # row 5's path is the kernel bench (phase 18): counts start at 0 there
     q_launches = phase_bench_rows(torch, model, params, kernels)
     print(f"[main-path] kernel bench (phase 18) launches {q_launches}",
@@ -1935,7 +2140,7 @@ def main() -> None:
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     reset_counts(kernels)
     ssd_before = ssd_ops.body_launches()
-    phase_mamba_serve(torch, model, params)
+    mamba_reqs = phase_mamba_serve(torch, model, params)
     m_launches, ssd_after = phase_mamba_swap(torch, model, params, kernels)
     ssd_body = {k: n - ssd_before[k] for k, n in ssd_after.items()}
     print(f"[main-path] mamba2-2.7b (phases 9-10) launches {m_launches}; "
@@ -1945,6 +2150,9 @@ def main() -> None:
         fail("the mamba path's SSD chunk calls did not all take the "
              "tensor-core body")
     clock.lap("mamba serve + swap (phases 9-10)")
+    eager_serve(torch, "mamba (phase 9)", model, params, mamba_reqs,
+                MAMBA_SERVE)
+    clock.lap("mamba eager serve (phase 9)")
     phase_mamba_profile(torch, model, params)
     clock.lap("mamba profile (phase 11)")
     del model, params

@@ -29,6 +29,17 @@ JAX package (its own copy) and executes each
   * per-iteration wall-time profiling (bounded ring buffers) used to fit
     the Eq. 3-5 latency model.
 
+On a CUDA device the fused decode step and the prefill chunks of the
+bucket menu run as CUDA graphs (``EngineConfig.cuda_graphs``, on by
+default; ``serving/step_graphs.py``), each captured at its first use.
+:meth:`ServingEngine.warmup` makes every first use happen before serving
+and loads every kernel library serving can reach, as the reference's
+warmup compiles every shape: a warmed engine then captures, builds and
+loads nothing at serve time (``utils/compile_counter.CompileCounter``
+counts it).  What stays eager is what the reference does not warm either:
+the ``ssm`` family's monolithic prefill, a prompt prefilled as one chunk
+when ``prefill_chunk`` is None, swaps, and the per-slot decode.
+
 Not ported yet (``EngineConfig`` options that ask for one raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item): packed
 prefill, the shared-prefix cache, speculative decoding, and the cluster
@@ -62,6 +73,7 @@ from repro_torch.models.model import Model
 from repro_torch.serving.kv_cache import (DenseKVBackend, KVBackendConfig,
                                           PagedKVBackend)
 from repro_torch.serving.sampler import REASONS, sample_and_reason
+from repro_torch.utils.compile_counter import CompileCounter
 
 
 def default_bucket_menu(prefill_chunk: int) -> Tuple[int, ...]:
@@ -127,6 +139,11 @@ class EngineConfig:
     prefix_cache: bool = False             # not ported (Queue 1 item 7)
     spec_decode: bool = False              # not ported (Queue 1 item 9)
     warmup_compile: bool = False           # run warmup() at construction
+    cuda_graphs: bool = True               # port only: on a CUDA device the
+                                           # decode step and the menu's
+                                           # chunks run as CUDA graphs
+                                           # (False: eagerly, to hold the
+                                           # graphs against)
     profile_window: int = 4096             # iter/prefill ring-buffer size
     strategy: str = "alise"
     n_queues: int = 4
@@ -192,6 +209,14 @@ class ServingEngine:
             if buckets[0] <= 0:
                 raise ValueError("prefill buckets must be positive")
         self._buckets = buckets
+        # the chunk buckets the reference's warmup compiles, which run as
+        # step graphs here (none when a prompt is one chunk)
+        menu = buckets
+        if menu is None and self._chunked_ok and cfg.prefill_chunk:
+            menu = default_bucket_menu(cfg.prefill_chunk)
+        self._graph_menu = tuple(b for b in (menu or ())
+                                 if b <= cfg.max_seq_len)
+        self.warm_stats: Optional[dict] = None   # set by warmup()
         sched_cfg = SchedulerConfig(
             max_batch=cfg.max_slots, n_queues=cfg.n_queues,
             base_quantum=cfg.base_quantum, quantum_growth=cfg.quantum_growth,
@@ -208,7 +233,8 @@ class ServingEngine:
             greedy=cfg.greedy, temperature=cfg.temperature, top_k=cfg.top_k,
             quantize_offload=cfg.quantize_offload, page_size=cfg.page_size,
             attn_impl=cfg.paged_attn_impl, seed=cfg.seed,
-            prefill_buckets=buckets)
+            prefill_buckets=buckets, graph_buckets=self._graph_menu,
+            cuda_graphs=cfg.cuda_graphs)
         if self.kv_backend == "paged":
             num_pages = max(1, int(hbm // (cfg.page_size * bpt)))
             self.kv = PagedKVBackend(model, bcfg, num_pages)
@@ -260,13 +286,16 @@ class ServingEngine:
         one ``Model.prefill`` pass over the unpadded prompt (the state
         depends on every step), its cache placed into a free lane.  Returns
         the last-token logits (1, V)."""
+        return self._run_prefill_tokens(req.req_id, tokens)
+
+    def _run_prefill_tokens(self, rid: int, tokens: List[int]):
         if self.kv.free_slot() is None:
             raise RuntimeError("no free decode lane: the caller must check "
                                "free_slot()")
         batch = {"tokens": torch.as_tensor([tokens], dtype=torch.int64,
                                            device=self.model.device)}
         logits, pcache = self.model.prefill(self.params, batch)
-        self.kv.write_prefill(req.req_id, pcache, len(tokens))
+        self.kv.write_prefill(rid, pcache, len(tokens))
         return logits
 
     def _true_len_of(self, req: Request) -> int:
@@ -357,45 +386,87 @@ class ServingEngine:
 
     # -------------------------------------------------------------- warmup
     def warmup(self) -> Dict[int, float]:
-        """Time one chunk per prefill bucket on an idle engine (twice: the
-        first run loads kernels and allocator pools, the second measures)
-        and the all-inactive decode step; the measured seconds land in
-        ``self.latency.bucket_costs`` so EWT prices a bucketed chunk at its
-        padded cost.  Warm chunks write a throwaway lane whose pages are
-        freed; the inactive decode writes only the paged backend's scratch
-        page (the dense backend keeps inactive lanes' state).  A family
-        without chunked prefill has no bucket to time."""
+        """Make the first use of every step graph serving can hit, and load
+        every kernel library it can reach, on an idle engine: each chunk
+        bucket of the menu (on the dense backend in every lane: each lane
+        has its own graph), the fused decode step at ``max_slots`` lanes
+        (or the per-slot decode, eagerly), and one short prompt and one
+        offload/upload round trip of a warm lane (:meth:`_warm_libraries`).
+        A key's first use runs it twice and captures it; each bucket is
+        then run once more and that replay's seconds land in
+        ``self.latency.bucket_costs``, so EWT prices a bucketed chunk at its
+        padded cost, as the reference records its second, post-compile
+        rep.  ``self.warm_stats`` records the keys, captures, compile
+        events, graph-pool bytes and replays, the warmup's seconds and the
+        ``time.perf_counter()`` stamp of its end.
+
+        Warm runs touch only state they release at once: a warm chunk's KV
+        lands in a lane that is cleared (dense: its rows are never attended
+        before a prompt rewrites them; paged: its pages are freed), the
+        all-inactive decode writes only the paged backend's scratch page
+        (the dense backend keeps inactive lanes' state), so a warmed engine
+        serves the same tokens bit for bit as a cold one.  A family without
+        chunked prefill has no bucket."""
         if self.sched.live:
             raise RuntimeError("warmup() requires an idle engine")
+        t_start = time.perf_counter()
+        counter = CompileCounter()
         costs: Dict[int, float] = {}
-        menu = self._buckets
-        if menu is None and self._chunked_ok and self.cfg.prefill_chunk:
-            menu = default_bucket_menu(self.cfg.prefill_chunk)
         warm_rid = -(1 << 30)       # never collides with real request ids
-        for b in (menu or ()):
-            if b > self.cfg.max_seq_len:
-                break
-            for _ in range(2):
-                t0 = time.perf_counter()
-                logits = self.kv.prefill_chunk(self.params, warm_rid,
-                                               [1] * b, 0)
-                logits.cpu()
-                costs[b] = time.perf_counter() - t0
-                self.kv.clear(warm_rid)
+        lanes = (range(self.cfg.max_slots)
+                 if isinstance(self.kv, DenseKVBackend) else (None,))
+        for lane in lanes:
+            # the fewest tokens that take each bucket: the padded chunk
+            # costs the same, and a paged chunk needs the fewest pages
+            for n, b in zip((0,) + self._graph_menu, self._graph_menu):
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    logits = self.kv.prefill_chunk(self.params, warm_rid,
+                                                   [1] * (n + 1), 0,
+                                                   slot=lane)
+                    logits.cpu()
+                    costs[b] = time.perf_counter() - t0
+                    self.kv.clear(warm_rid)
+        self._warm_libraries(warm_rid)
         B = self.cfg.max_slots
         zeros = np.zeros((B,), np.int32)
         tokens, active = np.zeros((B, 1), np.int32), np.zeros((B,), bool)
         if self.cfg.fused_decode:
-            self.kv.decode(self.params, tokens, active, zeros, zeros,
-                           np.full((B,), np.iinfo(np.int32).max, np.int32),
-                           zeros)
+            for _ in range(2):
+                self.kv.decode(self.params, tokens, active, zeros, zeros,
+                               np.full((B,), np.iinfo(np.int32).max,
+                                       np.int32), zeros)
         else:
             self.kv.decode_logits(self.params, tokens, active).cpu()
         if costs:
             merged = dict(self.latency.bucket_costs or {})
             merged.update(costs)
             self.latency.bucket_costs = merged
+        graphs = self.kv.graphs
+        end = time.perf_counter()
+        self.warm_stats = dict(
+            keys=len(graphs), captures=graphs.captures,
+            compiles=counter.count, pool_bytes=graphs.pool_bytes,
+            replays=dict(graphs.replays), seconds=end - t_start, end=end)
+        counter.detach()
         return costs
+
+    def _warm_libraries(self, warm_rid: int) -> None:
+        """Load every kernel library serving can reach: one short prompt
+        through the route a prompt takes (a chunk, or the ``ssm`` family's
+        monolithic prefill) into a free lane, then one offload/upload round
+        trip of that lane (INT8 through the ``kv_quant`` kernels when
+        ``quantize_offload``), then clear it."""
+        if self.cfg.max_seq_len < 8:
+            return
+        if self._chunked_ok:
+            self.kv.prefill_chunk(self.params, warm_rid, [1] * 8, 0)
+        else:
+            self._run_prefill_tokens(warm_rid, [1] * 8)
+        self.kv.upload(warm_rid, self.kv.offload(warm_rid))
+        self.kv.clear(warm_rid)
+        if self.model.device.type == "cuda":
+            torch.cuda.synchronize(self.model.device)
 
     # ------------------------------------------------------------ swapping
     def _offload(self, req: Request) -> None:

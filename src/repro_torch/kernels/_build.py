@@ -10,7 +10,9 @@ through headers) and of the flags, so an edited source or header is
 rebuilt at its next use.  :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Nothing is built or loaded at import time: the first kernel launch (or an
-explicit :func:`build_all`) does it.
+explicit :func:`build_all`) does it.  Each build and each load is reported
+to ``utils/compile_counter`` (``build:<name>``, ``load:<name>``), so that
+a warmed engine can show that serving built and loaded nothing.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from pathlib import Path
 from typing import Dict, List
 
 import torch
+
+from repro_torch.utils.compile_counter import note
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -105,6 +109,7 @@ def build_all(verbose: bool = False) -> Dict[str, str]:
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, out)
+                note(f"build:{name}")
         if failed:
             raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                                + "\n".join(logs[n] for n in failed))
@@ -122,7 +127,14 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(_target(name)))
+            note(f"load:{name}")
         return _libs[name]
+
+
+def loaded(name: str) -> bool:
+    """Whether the library of ``csrc/<name>.cu`` is loaded (nothing is
+    built or loaded to answer)."""
+    return name in _libs
 
 
 def check(err: int, what: str) -> None:

@@ -61,6 +61,8 @@ def _full_fn():
 
 
 BODIES = ("fma", "wgmma", "merge", "tf32x3")
+# launches of each body by replayed CUDA graphs (kernels/counters.py)
+REPLAYED = dict.fromkeys(BODIES, 0)
 
 
 def body_launches():
@@ -68,10 +70,12 @@ def body_launches():
     ``{"fma": n, "wgmma": n, "merge": n, "tf32x3": n}`` (the FMA body for
     views the tensor-core bodies cannot take, the bfloat16 wgmma body and
     its split-KV merge, the float32 3xTF32 body).  The difference across a
-    call says which body it took."""
+    call says which body it took.
+    A replayed CUDA graph's launches are in it too (``REPLAYED``, which
+    ``kernels/counters.py`` advances)."""
     got = (ctypes.c_longlong * len(BODIES))()
     _entry("flash_prefill_body_launches", [_P])(ctypes.addressof(got))
-    return dict(zip(BODIES, got))
+    return {k: n + REPLAYED[k] for k, n in zip(BODIES, got)}
 
 
 def _split(q, B, KVH, C, Smax):

@@ -37,16 +37,20 @@ def _lib():
 
 
 DEQUANTIZE_BODIES = ("vec16", "scalar")
+# launches of each body by replayed CUDA graphs (kernels/counters.py)
+REPLAYED = dict.fromkeys(DEQUANTIZE_BODIES, 0)
 
 
 def body_launches():
     """Launches of ``kv_dequantize``'s bodies since the library was
     loaded: ``{"vec16": n, "scalar": n}`` (16 codes a thread with 16-byte
     loads and stores, for d a multiple of 16 up to 1024 and 16-byte
-    aligned codes and output; one element a thread otherwise)."""
+    aligned codes and output; one element a thread otherwise).
+    A replayed CUDA graph's launches are in it too (``REPLAYED``, which
+    ``kernels/counters.py`` advances)."""
     got = (ctypes.c_longlong * len(DEQUANTIZE_BODIES))()
     _lib().kv_quant_body_launches(ctypes.addressof(got))
-    return dict(zip(DEQUANTIZE_BODIES, got))
+    return {k: n + REPLAYED[k] for k, n in zip(DEQUANTIZE_BODIES, got)}
 
 
 def kv_quantize(x):

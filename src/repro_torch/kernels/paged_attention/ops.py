@@ -28,15 +28,22 @@ def _fn():
     return f
 
 
+BODIES = ("body", "merge")
+# launches of each pass by replayed CUDA graphs (kernels/counters.py)
+REPLAYED = dict.fromkeys(BODIES, 0)
+
+
 def body_launches():
     """Launches of the split-KV body and of its merge pass since the
     library was loaded (``{"body": n, "merge": n}``; the INT8 entry of
-    ``kv_quant`` shares both)."""
+    ``kv_quant`` shares both).
+    A replayed CUDA graph's launches are in it too (``REPLAYED``, which
+    ``kernels/counters.py`` advances)."""
     got = (ctypes.c_longlong * 2)()
     f = _build.load("paged_attention").paged_attention_body_launches
     f.argtypes, f.restype = [_P], _I
     f(ctypes.addressof(got))
-    return dict(zip(("body", "merge"), got))
+    return {k: n + REPLAYED[k] for k, n in zip(BODIES, got)}
 
 
 def split(q, B, KVH, d, page, max_pages):

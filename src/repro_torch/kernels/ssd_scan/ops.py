@@ -46,14 +46,20 @@ def _fn():
     return _entry("ssd_chunk_launch", [_P] * 9 + [_I] * 5 + [_P])
 
 
+# launches of each body by replayed CUDA graphs (kernels/counters.py)
+REPLAYED = dict.fromkeys(plan.BODIES, 0)
+
+
 def body_launches():
     """Launches of each device body since the library was loaded:
     ``{"fma": n, "tf32x3_states": n, "tf32x3_y": n}`` (the FMA body, and
     the tensor-core body's states-and-scores kernel and its y kernel, one
-    each a call).  The difference across a call says which body it took."""
+    each a call).  The difference across a call says which body it took.
+    A replayed CUDA graph's launches are in it too (``REPLAYED``, which
+    ``kernels/counters.py`` advances)."""
     got = (ctypes.c_longlong * len(plan.BODIES))()
     _entry("ssd_chunk_body_launches", [_P])(ctypes.addressof(got))
-    return dict(zip(plan.BODIES, got))
+    return {k: n + REPLAYED[k] for k, n in zip(plan.BODIES, got)}
 
 
 def ssd_chunk(xbar, dA, Bc, Cc):

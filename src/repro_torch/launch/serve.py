@@ -18,7 +18,10 @@ the chunk attention default to the CUDA kernels (``--paged-attn-impl
 kernel --chunk-attn flash``); ``gather``/``masked`` are the plain
 reference modes.  RMSNorm and the SSD chunk step always take their
 kernels on a GPU; the dense decode attention is plain torch, as in the
-reference.
+reference.  On a GPU the fused decode step and the prefill chunks of the
+bucket menu run as CUDA graphs; ``--warmup`` captures them (and loads
+every kernel library serving can reach) before the first request, so
+serving captures and loads nothing.
 """
 from __future__ import annotations
 
@@ -92,11 +95,14 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
           paged_attn_impl: Optional[str] = None,
           chunk_attn: Optional[str] = None, page_size: int = 16,
           kv_backend: str = "dense", device=None, model_and_params=None,
-          warmup: bool = False, verbose: bool = True):
+          warmup: bool = False, verbose: bool = True,
+          cuda_graphs: bool = True):
     """Build (or take) the model, serve ``n_requests`` through
     ``ServingEngine.serve`` and print a summary.  ``kv_backend`` is
     ``dense`` (the default, as in the JAX launcher) or ``paged`` (attention
-    family only).  Returns ``(requests, engine)``."""
+    family only).  ``cuda_graphs=False`` runs the serving steps eagerly on
+    the card (``EngineConfig.cuda_graphs``).  Returns ``(requests,
+    engine)``."""
     dev = resolve_device(device)
     model, params = model_and_params or build_model(
         arch, arch_size, dev, chunk_attn, seed)
@@ -107,7 +113,7 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
         strategy=strategy, quantize_offload=quantize, kv_backend=kv_backend,
         page_size=page_size, paged_attn_impl=impl,
         prefill_chunk=prefill_chunk, iter_token_budget=iter_token_budget,
-        warmup_compile=warmup, seed=seed),
+        warmup_compile=warmup, cuda_graphs=cuda_graphs, seed=seed),
         predictor=_mk_predictor(predictor_kind, seed))
     reqs = build_requests(model.cfg, n_requests, seed, arch_size)
     eng.serve(reqs)
@@ -127,6 +133,11 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
               f"mean latency {np.mean(lat) if lat else float('nan'):.3f}s; "
               f"normalized {np.mean(norm) * 1e3 if norm else float('nan'):.1f}"
               f" ms/token; preemptions {sum(r.preempt_count for r in reqs)}")
+        if eng.warm_stats is not None:
+            w = eng.warm_stats
+            print(f"[serve] warmup: {w['keys']} step keys, {w['captures']} "
+                  f"CUDA graphs captured (pool {w['pool_bytes'] / 2**20:.1f}"
+                  f" MiB), {w['compiles']} compile events")
         lm = eng.fit_latency_model()
         print(f"[serve] fitted latency model: t0={lm.t0:.2e}s/tok "
               f"alpha={lm.alpha:.2e} beta={lm.beta:.2e}")
@@ -171,7 +182,9 @@ def main():
                          "only backend of mamba2-2.7b) or the paged pool "
                          "(granite only; CUDA paged attention)")
     ap.add_argument("--warmup", action="store_true",
-                    help="time every prefill bucket before serving")
+                    help="capture the serving steps (decode, every prefill "
+                         "bucket) as CUDA graphs, load every kernel library "
+                         "and time each bucket before serving")
     args = ap.parse_args()
     serve(args.arch, args.arch_size, args.strategy, args.n_requests,
           args.max_slots, seed=args.seed, predictor_kind=args.predictor,

@@ -34,6 +34,14 @@ MOE_AUX_COEF = 0.01
 ZLOSS_COEF = 1e-4
 
 
+def _scalar(v, device) -> torch.Tensor:
+    """(1,) int32 tensor on ``device`` of an int or a one-element integer
+    tensor (a tensor already there is returned as it is)."""
+    if isinstance(v, torch.Tensor):
+        return v.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.full((1,), int(v), dtype=torch.int32, device=device)
+
+
 def _to_tensor(a, device) -> torch.Tensor:
     arr = np.asarray(a)
     if arr.dtype.name == "bfloat16":     # numpy has no bf16: go via f32
@@ -234,8 +242,7 @@ class Model:
 
     @torch.no_grad()
     def paged_prefill_chunk(self, params, kv, tokens, block_tables,
-                            write_page, write_off, start: int,
-                            chunk_len: int):
+                            write_page, write_off, start, chunk_len):
         """One resumable prefill chunk whose KV lands in the page pool.
 
         ``kv``: {"k","v"} (L, num_pages, page, KVH, hd), written **in
@@ -244,8 +251,11 @@ class Model:
         scratch page; ``write_page``/``write_off``: (C,) physical
         destination of each chunk token (scratch for padded rows).  The
         chunk's queries sit at absolute positions ``start + i`` and attend
-        the request's pages gathered in logical order.  Returns the
-        last-position logits (1, V) float32, taken at ``chunk_len - 1``.
+        the request's pages gathered in logical order.  ``start`` and
+        ``chunk_len`` are ints or (1,) integer tensors on the model's device
+        (the engine's captured chunk passes tensors, so no host value is
+        baked into its graph).  Returns the last-position logits (1, V)
+        float32, taken at ``chunk_len - 1``.
         """
         cfg = self.cfg
         dev = tokens.device
@@ -253,10 +263,10 @@ class Model:
         page = kv["k"].shape[2]
         n_pages = block_tables.shape[1]
         Smax = n_pages * page
+        start_vec = _scalar(start, dev)
         x = self._embed_in(params, tokens)
-        q_pos = (start + torch.arange(C, device=dev))[None, :]
+        q_pos = start_vec.long()[:, None] + torch.arange(C, device=dev)[None]
         kv_pos = torch.arange(Smax, device=dev)[None, :]
-        start_vec = torch.full((1,), start, dtype=torch.int32, device=dev)
         wp, wo = write_page.long(), write_off.long()
         tables = block_tables[0].long()
         for li, p_l in enumerate(params["layers"]):
@@ -270,8 +280,15 @@ class Model:
             attn = self._chunk_attn(q, kg, vg, q_pos, kv_pos, start_vec)
             x = x + attn.reshape(1, C, -1) @ p_l["attn"]["wo"]
             x = self._ffn_block(p_l, x)
-        last = min(max(chunk_len - 1, 0), C - 1)
-        x_last = self._norm(params["final_norm"], x[:, last])
+        return self._last_logits(params, x, chunk_len)
+
+    def _last_logits(self, params, x, chunk_len):
+        """The logits (1, V) float32 of chunk row ``chunk_len - 1`` (clamped
+        to the chunk), selected by a device index."""
+        C = x.shape[1]
+        last = (_scalar(chunk_len, x.device).long() - 1).clamp(0, C - 1)
+        x_last = self._norm(params["final_norm"],
+                            x.index_select(1, last)[:, 0])
         return self._logits(params, x_last).float()
 
     # ------------------------------------------------------- paged decode
@@ -398,19 +415,27 @@ class Model:
         return self._logits(params, x_last).float(), cache
 
     @torch.no_grad()
-    def prefill_chunk(self, params, k_stripe, v_stripe, tokens, start: int,
-                      chunk_len: int):
+    def prefill_chunk(self, params, k_stripe, v_stripe, tokens, start,
+                      chunk_len):
         """One resumable prefill chunk over one lane's dense KV stripe.
 
         ``k_stripe``/``v_stripe``: (L, Smax, KVH, hd), the lane's stripes
         (views into the cache) with positions ``[0, start)`` written by
         earlier chunks; written **in place**.  ``tokens``: (1, C),
-        right-padded past ``chunk_len``.  The chunk's KV lands at
-        ``[start, start + C)`` (rows past Smax are dropped, as the
+        right-padded past ``chunk_len``; ``start`` and ``chunk_len`` ints
+        or (1,) integer tensors on the model's device.  The chunk's KV
+        lands at ``[start, start + C)`` (rows past Smax are dropped, as the
         reference's scatter drops them) and each query at ``start + i``
         attends the stripe's keys ``j <= start + i`` through
         :meth:`_chunk_attn`, so stale positions never reach the output.
-        Returns the logits (1, V) float32 at ``chunk_len - 1``."""
+
+        The rows are written through a device index, so no host value is
+        baked into a captured graph: row i goes to ``(start + i) mod
+        Smax``, with its new value where ``start + i < Smax`` and otherwise
+        the old value of that row (one below ``start``).  The first
+        ``min(C, Smax)`` rows have distinct indices (rows past them lie
+        past Smax), so the scatter is deterministic.  Returns the logits
+        (1, V) float32 at ``chunk_len - 1``."""
         if not self.supports_chunked_prefill():
             raise ValueError(f"chunked prefill unsupported for family="
                              f"{self.cfg.family}")
@@ -418,24 +443,26 @@ class Model:
         dev = tokens.device
         C = tokens.shape[1]
         Smax = k_stripe.shape[1]
+        start_vec = _scalar(start, dev)
         x = self._embed_in(params, tokens)
-        q_pos = (start + torch.arange(C, device=dev))[None, :]
+        q_pos = start_vec.long()[:, None] + torch.arange(C, device=dev)[None]
         kv_pos = torch.arange(Smax, device=dev)[None, :]
-        n_in = max(0, min(C, Smax - start))          # rows inside the stripe
-        start_vec = torch.full((1,), start, dtype=torch.int32, device=dev)
+        n = min(C, Smax)                     # rows that may land
+        rows = q_pos[0, :n] % Smax
+        inside = (q_pos[0, :n] < Smax)[:, None, None]
         for li, p_l in enumerate(params["layers"]):
             k_l, v_l = k_stripe[li], v_stripe[li]
             h1 = self._norm(p_l["ln1"], x)
             q, k, v = L._project_qkv(cfg, p_l["attn"], h1, q_pos)
-            k_l[start:start + n_in] = k[0, :n_in].to(k_l.dtype)
-            v_l[start:start + n_in] = v[0, :n_in].to(v_l.dtype)
+            k_l.index_put_((rows,), torch.where(
+                inside, k[0, :n].to(k_l.dtype), k_l[rows]))
+            v_l.index_put_((rows,), torch.where(
+                inside, v[0, :n].to(v_l.dtype), v_l[rows]))
             attn = self._chunk_attn(q, k_l[None], v_l[None], q_pos, kv_pos,
                                     start_vec)
             x = x + attn.reshape(1, C, -1) @ p_l["attn"]["wo"]
             x = self._ffn_block(p_l, x)
-        last = min(max(chunk_len - 1, 0), C - 1)
-        x_last = self._norm(params["final_norm"], x[:, last])
-        return self._logits(params, x_last).float()
+        return self._last_logits(params, x, chunk_len)
 
     # ------------------------------------------------------- dense decode
     @torch.no_grad()

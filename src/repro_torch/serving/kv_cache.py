@@ -20,6 +20,13 @@ Three layers live here, as in ``repro.serving.kv_cache``:
     decode), for the ``ssm`` family a request's constant-size conv and SSM
     state (monolithic prefill).  It is written in place too.
 
+The fused decode step and the prefill chunks of the engine's bucket menu
+run through :class:`~repro_torch.serving.step_graphs.StepGraphs`: on the
+card each is a CUDA graph captured at its key's first use (the engine's
+warmup makes that happen before serving) and replayed, with its integer
+inputs staged by one host-to-device copy.  Other chunks (a whole prompt
+when no chunk size is set), swaps and the per-slot decode run eagerly.
+
 Offload/upload of K/V run the INT8 ``kv_quant`` kernels on the device when
 ``quantize_offload`` is set (paper Eq. 8): the host link carries the INT8
 payload plus float32 per-row scales and zeros.  Conv and SSM state cross
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.kv_quant import kv_dequantize, kv_quantize
+from repro_torch.serving.step_graphs import StepGraphs, pack, unpack
 from repro_torch.utils import dtype_of
 
 
@@ -194,6 +202,9 @@ class KVBackendConfig:
     prefill_buckets: Optional[Tuple[int, ...]] = None
     # fixed, sorted menu of chunk-shape buckets: chunk dispatch shapes are
     # rounded up to the nearest entry (else pow2 buckets, min 8)
+    graph_buckets: Tuple[int, ...] = ()
+    # chunk buckets that run as step graphs (the engine's warmed menu)
+    cuda_graphs: bool = True       # capture the steps on a CUDA device
 
 
 class KVBackend:
@@ -203,7 +214,8 @@ class KVBackend:
     storage is implementation-defined.  ``decode()`` is the hot path: one
     step covering embedding, the layer stack, KV writes, attention,
     sampling and termination — the engine copies a single small
-    ``(tokens, reasons)`` pair to the host per iteration.
+    ``(tokens, reasons)`` pair to the host per iteration.  ``graphs``
+    runs it and the menu's chunks as step graphs.
     """
 
     def __init__(self, model, cfg: KVBackendConfig):
@@ -211,6 +223,7 @@ class KVBackend:
         self.cfg = cfg
         self.device = model.device
         self.slot_req: List[Optional[int]] = [None] * cfg.max_slots
+        self.graphs = StepGraphs(self.device, cfg.cuda_graphs)
 
     # --------------------------------------------------------------- lanes
     def slot_of(self, rid: int) -> Optional[int]:
@@ -257,6 +270,48 @@ class KVBackend:
     def _t(self, a, dtype=torch.int32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
+    def _run_chunk(self, key: tuple, staged: np.ndarray, step, neutral):
+        """A chunk step: a step graph when its bucket is on the graph menu,
+        else an eager call on the staged input.  Returns the logits (1, V),
+        copied out of the graph's pool."""
+        if key[1] in self.cfg.graph_buckets:
+            return self.graphs.run(key, staged, step, neutral).clone()
+        return step(torch.from_numpy(staged).to(self.device))
+
+    def decode(self, params, tokens, active, new_gen, new_ctx, true_len,
+               rids):
+        """One fused iteration -> (sampled (B,), reason (B,)) numpy, as the
+        step graph ``("decode",)`` over the staged :meth:`_decode_inputs`
+        (the backend's ``_decode_step``).  Only active lanes' state
+        advances."""
+        staged = self._decode_inputs(tokens, active, new_gen, new_ctx,
+                                     true_len, rids)
+        out = self.graphs.to_host(self.graphs.run(
+            ("decode",), staged, lambda buf: self._decode_step(params, buf),
+            self._neutral_decode))
+        return out[0], out[1]
+
+    def _decode_inputs(self, tokens, active, new_gen, new_ctx, true_len,
+                       rids) -> np.ndarray:
+        """A decode step's staged sampling fields (the dense step's whole
+        input; the paged step's tail)."""
+        return pack(tokens, active, new_gen, new_ctx, true_len, rids)
+
+    def _decode_views(self, buf):
+        """(tokens (B, 1), active (B,) bool, new_gen, new_ctx, true_len,
+        rids) views of :meth:`_decode_inputs`'s part of a step's input."""
+        B = self.cfg.max_slots
+        toks, act, *rest = unpack(buf, (B, 1), *[(B,)] * 5)
+        return (toks, act != 0, *rest)
+
+    def _neutral_decode(self):
+        """A decode input that writes no live state: every lane
+        inactive."""
+        B = self.cfg.max_slots
+        z = np.zeros((B,), np.int32)
+        return self._decode_inputs(np.zeros((B, 1), np.int32), z.astype(bool),
+                                   z, z, z, z)
+
     def chunk_pages_shortfall(self, rid: int, end: int) -> int:
         """Physical pages missing to extend ``rid``'s KV coverage to
         ``end`` tokens (always 0 without a page pool)."""
@@ -296,41 +351,58 @@ class PagedKVBackend(KVBackend):
 
     # ---------------------------------------------------------- interface
     def prefill_chunk(self, params, rid: int, tokens: List[int],
-                      start: int):
+                      start: int, slot: Optional[int] = None):
         """Run one resumable prefill chunk for ``rid``: write KV for
         absolute positions ``[start, start+len(tokens))`` into its pages
-        (claiming a lane on the first chunk) and return the chunk's
-        last-position logits (1, V)."""
-        slot = self.slot_of(rid)
-        if slot is None:                    # first chunk: claim a lane
-            slot = self.free_slot()
-            if slot is None:
+        (claiming a lane on the first chunk: ``slot`` when given, else the
+        first free one) and return the chunk's last-position logits (1, V).
+        A chunk of a menu bucket runs as the step graph ``("chunk",
+        bucket)``: its pages are gathered into the graph's own memory, so
+        one graph serves every lane."""
+        if self.slot_of(rid) is None:       # first chunk: claim a lane
+            slot = self.free_slot() if slot is None else slot
+            if slot is None or self.slot_req[slot] is not None:
                 raise RuntimeError("no free decode lane: the caller must "
                                    "check free_slot()")
             self.slot_req[slot] = rid
             if rid not in self.pool.page_table:
                 self.pool.allocate(rid, 0)  # empty table; chunks extend it
         C = len(tokens)
-        end = start + C
-        pg = self.cfg.page_size
         # grow page coverage to the chunk's end (caller checked
         # chunk_pages_shortfall); a chunk may start/end mid-page
-        self.pool.extend_to(rid, end)
+        self.pool.extend_to(rid, start + C)
         pt = self.pool.page_table[rid]
         Cb = self._chunk_bucket(C)
-        toks = np.zeros((1, Cb), np.int64)
+        return self._run_chunk(
+            ("chunk", Cb), self._chunk_inputs(pt, tokens, start, Cb),
+            lambda buf: self._chunk_step(params, buf, Cb),
+            lambda: self._chunk_inputs([], [], 0, Cb))
+
+    def _chunk_inputs(self, pt: List[int], tokens: List[int], start: int,
+                      Cb: int) -> np.ndarray:
+        """A chunk's staged input: its block table, tokens padded to
+        ``Cb``, each row's physical page and offset (padded rows at the
+        scratch page), ``start`` and the token count.  No pages and no
+        tokens give a chunk that writes only the scratch page."""
+        C, pg = len(tokens), self.cfg.page_size
+        toks = np.zeros((1, Cb), np.int32)
         toks[0, :C] = tokens
-        wp = np.full((Cb,), self.scratch_page, np.int64)
-        wo = np.arange(Cb, dtype=np.int64) % pg     # harmless scratch offsets
+        wp = np.full((Cb,), self.scratch_page, np.int32)
+        wo = np.arange(Cb, dtype=np.int32) % pg     # harmless scratch offsets
         pos = start + np.arange(C)
-        wp[:C] = np.asarray(pt, np.int64)[pos // pg]
+        wp[:C] = np.asarray(pt, np.int32)[pos // pg]
         wo[:C] = pos % pg
         tables = np.full((1, self.max_pages_per_seq), self.scratch_page,
                          np.int32)
         tables[0, :len(pt)] = pt
-        return self.model.paged_prefill_chunk(
-            params, self._kv(), self._t(toks, torch.int64), self._t(tables),
-            self._t(wp, torch.int64), self._t(wo, torch.int64), start, C)
+        return pack(tables, toks, wp, wo, [start], [C])
+
+    def _chunk_step(self, params, buf, Cb: int):
+        tables, toks, wp, wo, start, n = unpack(
+            buf, (1, self.max_pages_per_seq), (1, Cb), (Cb,), (Cb,), (1,),
+            (1,))
+        return self.model.paged_prefill_chunk(params, self._kv(), toks,
+                                              tables, wp, wo, start, n)
 
     def chunk_pages_shortfall(self, rid: int, end: int) -> int:
         have = len(self.pool.page_table.get(rid, []))
@@ -401,15 +473,18 @@ class PagedKVBackend(KVBackend):
         need_new = sum(1 for rid in rids if self.pool.lengths[rid] % pg == 0)
         return max(0, need_new - len(self.pool.free_pages))
 
-    def decode(self, params, tokens, active, new_gen, new_ctx, true_len,
-               rids):
-        """One fused iteration -> (sampled (B,), reason (B,)) numpy."""
+    def _decode_inputs(self, tokens, active, new_gen, new_ctx, true_len,
+                       rids) -> np.ndarray:
+        """Grow each active lane's pages by the fed token and stage the
+        step's input: block tables, lengths, each lane's write page and
+        offset (inactive lanes at the scratch page), then the sampling
+        fields."""
         B, pg = self.cfg.max_slots, self.cfg.page_size
-        maxp = self.max_pages_per_seq
-        tables = np.full((B, maxp), self.scratch_page, np.int32)
+        tables = np.full((B, self.max_pages_per_seq), self.scratch_page,
+                         np.int32)
         lens = np.zeros((B,), np.int32)
-        wp = np.full((B,), self.scratch_page, np.int64)
-        wo = np.zeros((B,), np.int64)
+        wp = np.full((B,), self.scratch_page, np.int32)
+        wo = np.zeros((B,), np.int32)
         for slot, rid in enumerate(self.slot_req):
             if rid is None or not active[slot]:
                 continue
@@ -423,15 +498,19 @@ class PagedKVBackend(KVBackend):
             lens[slot] = pos
             wp[slot] = pt[pos // pg]
             wo[slot] = pos % pg
+        return pack(tables, lens, wp, wo, super()._decode_inputs(
+            tokens, active, new_gen, new_ctx, true_len, rids))
+
+    def _decode_step(self, params, buf):
+        B, maxp = self.cfg.max_slots, self.max_pages_per_seq
+        head = B * (maxp + 3)
+        tables, lens, wp, wo = unpack(buf[:head], (B, maxp), (B,), (B,),
+                                      (B,))
+        toks, active, *fields = self._decode_views(buf[head:])
         tok, reason = self.model.paged_decode_step_sampled(
-            params, self._kv(), self._t(tokens, torch.int64),
-            self._t(tables), self._t(lens), self._t(wp, torch.int64),
-            self._t(wo, torch.int64), self._t(active, torch.bool),
-            self._t(new_gen), self._t(new_ctx), self._t(true_len),
-            self._t(rids), attn_impl=self.cfg.attn_impl,
-            **self._sample_kwargs())
-        out = torch.stack([tok, reason]).cpu().numpy()
-        return out[0], out[1]
+            params, self._kv(), toks, tables, lens, wp, wo, active, *fields,
+            attn_impl=self.cfg.attn_impl, **self._sample_kwargs())
+        return torch.stack([tok, reason])
 
 
 class DenseKVBackend(KVBackend):
@@ -457,9 +536,9 @@ class DenseKVBackend(KVBackend):
         """View of one lane's slice of ``cache[key]``."""
         return self.cache[key].select(self._axes[key], slot)
 
-    def _claim(self, rid: int) -> int:
-        slot = self.free_slot()
-        if slot is None:
+    def _claim(self, rid: int, slot: Optional[int] = None) -> int:
+        slot = self.free_slot() if slot is None else slot
+        if slot is None or self.slot_req[slot] is not None:
             raise RuntimeError("no free decode lane: the caller must check "
                                "free_slot()")
         self.slot_req[slot] = rid
@@ -479,23 +558,35 @@ class DenseKVBackend(KVBackend):
                     pcache[key].select(self._axes[key], 0))
 
     def prefill_chunk(self, params, rid: int, tokens: List[int],
-                      start: int):
+                      start: int, slot: Optional[int] = None):
         """One resumable prefill chunk of ``rid`` over its lane's stripe
-        (claiming a lane on the first chunk): ``Model.prefill_chunk`` on
-        the chunk padded to its bucket.  Returns the chunk's last-position
-        logits (1, V)."""
-        slot = self.slot_of(rid)
-        if slot is None:                    # first chunk: claim a lane
-            slot = self._claim(rid)
+        (claiming a lane on the first chunk: ``slot`` when given, else the
+        first free one): ``Model.prefill_chunk`` on the chunk padded to its
+        bucket.  A chunk of a menu bucket runs as the step graph
+        ``("chunk", bucket, lane)``: the flash kernel's tensor maps hold
+        the lane's stripe address, so each lane has its own graph.  Returns
+        the chunk's last-position logits (1, V)."""
+        lane = self.slot_of(rid)
+        if lane is None:                    # first chunk: claim a lane
+            lane = self._claim(rid, slot)
         C = len(tokens)
         Cb = self._chunk_bucket(C)
-        toks = np.zeros((1, Cb), np.int64)
+        Smax = self.cfg.max_seq_len
+        toks = np.zeros((1, Cb), np.int32)
         toks[0, :C] = tokens
-        logits = self.model.prefill_chunk(
-            params, self._lane("k", slot), self._lane("v", slot),
-            self._t(toks, torch.int64), start, C)
-        self.cache["lengths"][slot] = start + C
+        logits = self._run_chunk(
+            ("chunk", Cb, lane), pack(toks, [start], [C]),
+            lambda buf: self._chunk_step(params, buf, Cb, lane),
+            # every row past Smax: the chunk writes nothing
+            lambda: pack(np.zeros((1, Cb)), [Smax], [1]))
+        self.cache["lengths"][lane] = start + C
         return logits
+
+    def _chunk_step(self, params, buf, Cb: int, lane: int):
+        toks, start, n = unpack(buf, (1, Cb), (1,), (1,))
+        return self.model.prefill_chunk(
+            params, self._lane("k", lane), self._lane("v", lane), toks,
+            start, n)
 
     def clear(self, rid: int) -> None:
         slot = self.slot_of(rid)
@@ -555,16 +646,11 @@ class DenseKVBackend(KVBackend):
             else:
                 lane.copy_(src)
 
-    def decode(self, params, tokens, active, new_gen, new_ctx, true_len,
-               rids):
-        """One fused iteration -> (sampled (B,), reason (B,)) numpy.  Only
-        active lanes' state advances."""
+    def _decode_step(self, params, buf):
         tok, reason = self.model.decode_step_sampled(
-            params, self.cache, self._t(tokens, torch.int64),
-            self._t(active, torch.bool), self._t(new_gen), self._t(new_ctx),
-            self._t(true_len), self._t(rids), **self._sample_kwargs())
-        out = torch.stack([tok, reason]).cpu().numpy()
-        return out[0], out[1]
+            params, self.cache, *self._decode_views(buf),
+            **self._sample_kwargs())
+        return torch.stack([tok, reason])
 
     def decode_logits(self, params, tokens, active):
         """The per-slot path's decode: one ``Model.decode_step`` over every

@@ -863,3 +863,176 @@ def test_dense_granite_kernel_path_matches_plain(dev):
         for key in ("k", "v"):
             torch.testing.assert_close(a[i][key], b[i][key], atol=1e-5,
                                        rtol=0)
+
+
+# ------------------------------------------ CUDA graphs of the serving steps
+
+def _graph_model(dev, family):
+    """The smoke config of a family in bf16, the serving dtype; granite's
+    with heads of 64 (the flash kernel's head dims)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    if family == "ssm":
+        cfg = get_smoke_config("mamba2-2.7b")
+    else:
+        cfg = get_smoke_config("granite-3-8b").scaled(head_dim=64)
+    model = Model(cfg, kv_dtype="bfloat16", chunk_attn_impl="flash",
+                  device=dev)
+    return model, model.init(torch.Generator(device=dev).manual_seed(3))
+
+
+def _graph_backend(model, backend, cuda_graphs):
+    from repro_torch.serving.kv_cache import (DenseKVBackend,
+                                              KVBackendConfig, PagedKVBackend)
+    bcfg = KVBackendConfig(max_slots=4, max_seq_len=64, page_size=16,
+                           attn_impl="kernel", graph_buckets=(8, 16, 32),
+                           cuda_graphs=cuda_graphs, eos_token=-1)
+    if backend == "paged":
+        return PagedKVBackend(model, bcfg, num_pages=32)
+    return DenseKVBackend(model, bcfg)
+
+
+def _counters():
+    from repro_torch.kernels import counters
+    return counters.snapshot()
+
+
+def _serve_steps(kv, model, params):
+    """Warm every key (a throwaway chunk per bucket in every lane, an idle
+    decode step), then three prompts in chunks of buckets 8, 16 and 32
+    (mamba: monolithic prefills) and 6 fused decode steps.  Returns the
+    chunk logits, the decode outputs, the counters' movement over the
+    prompts and steps (not the warm runs), and the backend."""
+    from repro_torch.kernels import counters
+    B = kv.cfg.max_slots
+    idle = (np.zeros((B, 1), np.int32), np.zeros((B,), bool),
+            np.zeros((B,), np.int32), np.zeros((B,), np.int32),
+            np.full((B,), 2 ** 31 - 1, np.int32), np.zeros((B,), np.int32))
+    ssm = model.cfg.family == "ssm"
+    if not ssm:
+        for lane in range(B):
+            for b in (8, 16, 32):
+                kv.prefill_chunk(params, -1, [1] * b, 0, slot=lane)
+                kv.clear(-1)
+    kv.decode(params, *idle)
+    torch.cuda.synchronize()
+    before = counters.snapshot()
+    rng = np.random.default_rng(9)
+    prompts = {1: rng.integers(2, 512, 13).tolist(),
+               2: rng.integers(2, 512, 20).tolist(),
+               3: rng.integers(2, 512, 30).tolist()}
+    logits = []
+    for rid, p in prompts.items():
+        if ssm:
+            out, cache = model.prefill(params, {"tokens": torch.tensor(
+                [p], device=model.device)})
+            kv.write_prefill(rid, cache, len(p))
+            logits.append(out)
+            continue
+        cuts = {1: (0, 8, 13), 2: (0, 16, 20), 3: (0, 30)}[rid]
+        for s, e in zip(cuts, cuts[1:]):
+            logits.append(kv.prefill_chunk(params, rid, p[s:e], s))
+    toks = np.zeros((B, 1), np.int32)
+    active = np.zeros((B,), bool)
+    ctx = np.zeros((B,), np.int32)
+    rids = np.zeros((B,), np.int32)
+    for rid, p in prompts.items():
+        slot = kv.slot_of(rid)
+        toks[slot, 0], active[slot], ctx[slot], rids[slot] = (
+            int(logits[-1][0].argmax()), True, len(p), rid)
+    outs = []
+    for i in range(6):
+        got = kv.decode(params, toks, active, np.full((B,), i + 1, np.int32),
+                        ctx + i + 1, idle[4], rids)
+        outs.append(got)
+        toks[:, 0] = got[0]
+    torch.cuda.synchronize()
+    return logits, outs, counters.delta(before, counters.snapshot()), kv
+
+
+@pytest.mark.parametrize("backend,family", [
+    ("paged", "dense"), ("dense", "dense"), ("dense", "ssm")])
+def test_step_graph_replay_equals_eager(dev, backend, family):
+    """Every key kind (paged and dense decode, paged chunks, dense chunks
+    per lane, mamba's decode) replayed as a CUDA graph gives the eager
+    step's logits, tokens, reasons and KV or state bit for bit, and moves
+    every wrapper's launch count and every library's body counters as the
+    eager steps do."""
+    model, params = _graph_model(dev, family)
+    runs = {g: _serve_steps(_graph_backend(model, backend, g), model, params)
+            for g in (True, False)}
+    (lg, og, cg, kg), (le, oe, ce, ke) = runs[True], runs[False]
+    for a, b in zip(lg, le):
+        assert torch.equal(a, b)
+    for (ta, ra), (tb, rb) in zip(og, oe):
+        np.testing.assert_array_equal(ta, tb)
+        np.testing.assert_array_equal(ra, rb)
+    if backend == "paged":
+        # every page but the scratch page, the target of inactive lanes'
+        # and padded rows' writes (duplicate indices: no order is kept)
+        live = [p for p in range(kg.pool.k.shape[1])
+                if p != kg.scratch_page]
+        state = {"k": (kg.pool.k[:, live], ke.pool.k[:, live]),
+                 "v": (kg.pool.v[:, live], ke.pool.v[:, live])}
+    else:
+        state = {k: (kg.cache[k], ke.cache[k]) for k in kg.cache}
+    for key, (a, b) in state.items():
+        assert torch.equal(a, b), key
+    assert cg == ce and cg.get("fused_rmsnorm", 0) > 0
+    if backend == "paged":
+        assert cg["paged_attention"] == 6 * model.cfg.num_layers
+    if family != "ssm":
+        assert cg["flash_prefill_prefix"] > 0
+    chunks = 0 if family == "ssm" else (4 if backend == "dense" else 1) * 3
+    assert kg.graphs.captures == len(kg.graphs) == 1 + chunks
+    assert kg.graphs.replays["decode"] == 7
+    assert ke.graphs.captures == 0 and ke.graphs.replays["decode"] == 0
+
+
+@pytest.mark.parametrize("backend", ["paged", "dense"])
+def test_zero_captures_after_warmup_on_the_card(dev, backend):
+    """A warmed engine on the card serves a staged trace (chunks of two
+    buckets, INT8 swaps forced by two lanes) with no capture and no
+    library build or load, and every decode step is a replay."""
+    from repro_torch.core.engine import EngineConfig, ServingEngine
+    from repro_torch.core.predictor import OraclePredictor
+    from repro_torch.core.quantization import kv_bytes_per_token
+    from repro_torch.core.request import Request, reset_request_counter
+    from repro_torch.utils.compile_counter import CompileCounter
+    model, params = _graph_model(dev, "dense")
+    cfg = model.cfg
+    bpt = kv_bytes_per_token(cfg.num_layers, cfg.num_kv_heads, cfg.hd)
+    eng = ServingEngine(model, params, EngineConfig(
+        max_slots=2, max_seq_len=64, max_new_tokens=24, strategy="alise",
+        quantize_offload=True, hbm_bytes=2 * 40 * bpt, kv_backend=backend,
+        page_size=16, paged_attn_impl="kernel", prefill_chunk=16,
+        iter_token_budget=24, eos_token=-1, warmup_compile=True),
+        predictor=OraclePredictor())
+    w = eng.warm_stats
+    assert w["captures"] == w["keys"] == len(eng.kv.graphs) >= 3
+    assert w["pool_bytes"] > 0
+    reset_request_counter()
+    rng = np.random.default_rng(5)
+    reqs = [Request(prompt_len=p, arrival_time=0.0, true_out_len=o,
+                    prompt_tokens=rng.integers(2, 512, p).tolist())
+            for p, o in zip((7, 30, 9, 17, 3, 12), (20, 20, 4, 6, 3, 5))]
+    counter = CompileCounter()
+    t = 0.0
+    with counter.expect_no_compiles(f"serve[{backend}]"):
+        for r in reqs[:2]:
+            eng.submit(r, t)
+        for _ in range(5):
+            eng.step(t)
+            t += 0.1
+        for r in reqs[2:]:
+            eng.submit(r, t)
+        for _ in range(1000):
+            if not eng.sched.live:
+                break
+            eng.step(t)
+            t += 0.1
+    counter.detach()
+    assert all(r.done for r in reqs)
+    assert sum(r.preempt_count for r in reqs) > 0
+    assert (eng.kv.graphs.replays["decode"] - w["replays"]["decode"]
+            == len(eng.iter_times))
