@@ -112,7 +112,7 @@ the final line:
      (the full-sequence flash kernel), each followed by 4 dense decode
      steps (plain decode attention), against phase 4's paged kernel path,
      relative L2 <= 0.05 in bf16;
- 16. dense serve: phase 5's 16 requests through ``serve(...,
+ 16. dense serve: phase 5's 12 requests through ``serve(...,
      warmup=True)`` on the dense backend with the reference engine's
      defaults (no chunk size: each prompt one eager chunk over its stripe;
      fused decode as a CUDA graph, ``max_seq_len`` 2048, 8 lanes), swaps
@@ -127,8 +127,39 @@ the final line:
      main path) and one full-batch dense decode step fused and sampled
      against ``decode_step`` plus a host argmax per lane, then the fused
      step as the engine calls it, replayed and eager.
+ 19. packs and the prefix cache, at the model and backend level: a pack of
+     4 rows at bucket 256 (starts 0, 256, 512, 1000; chunk lengths 256,
+     200, 17 and 0, a padding row) through ``paged_prefill_pack`` and
+     through ``prefill_pack``, each against its three members run one by
+     one on a copy of the pool or cache (logits and written K/V within
+     5e-2 relative L2; the prefix flash kernel launched once per layer at
+     B = 4, through the wgmma body); each backend's pack step graph
+     replayed against the eager pack step on the same input, bit for bit;
+     a 1024-token prompt published and hit by a request sharing it (hit
+     exactly 1024, only the 200-token tail prefilled, logits against the
+     same request cold), the same with a 1000-token span (a copy-on-write
+     page; the publisher's page unchanged bit for bit) and through the
+     dense backend's private store; then no page or refcount left; and
+     the wall of a graphed pack of 4 chunks at buckets 64 and 128 against
+     the same 4 chunks as graphed single chunks (printed, not gated);
+ 20. serving with the online predictor, packs of 4 and the prefix cache,
+     paged (with the auto token budget at a target TPOT of 30 ms) and
+     dense, each through ``serve(..., warmup=True)``: 32 requests at t=0,
+     24 of them in 3 families that share a 1024-token system prompt; all
+     must finish with prefix hits, the dense serve (no budget) with packs
+     in its own traffic (the paged serve's own packs are printed: its auto
+     budget of a few dozen tokens seldom leaves room for two chunks of
+     one bucket; the warm batch's are not counted), no capture or library
+     load after warmup, a replay per decode step and per pack, and no page,
+     refcount or prefix entry left after the drain; it prints tokens/s,
+     TTFT p50 of hit and cold requests, decode and pack p50, the budget
+     and its fit, the predictor's gauges and predict latency; after the
+     paged serve, the same requests with the cache, packing and the
+     learned predictor off, and how many requests' greedy tokens agree
+     (printed, not gated: the wall clock sets the schedule and a pack's
+     shape gives other bits).
 
-The serve phases 5, 6, 9, 10, 16 and 17 run warmed engines (every step
+The serve phases 5, 6, 9, 10, 16, 17 and 20 run warmed engines (every step
 graph captured and every kernel library loaded before the first request):
 each prints its warmup's seconds, captures and graph-pool size, and fails
 on any capture or library build or load while serving
@@ -137,8 +168,11 @@ did not run as a replay.  A replay adds its captured launches to every
 wrapper's ``launches`` and to the libraries' body counters, so the
 main-path counts below count replays.
 
-Phases 15-18 run after phase 7, with the granite model still loaded.
-Phase 3 also holds the INT8 paged attention (the bench's shape and
+Phases 15-20 run after phase 7, with the granite model still loaded.
+Phase 3 also holds the prefix flash kernel at the packs' shapes (B 4,
+starts 0/256/512/1000, ragged chunk lengths with a padding row, at bucket
+256 and at the split buckets 32 and 16: each member's rows by the bf16
+bound above, the planned body and merge), the INT8 paged attention (the bench's shape and
 granite's decode shape, codes from the ``kv_quantize`` kernel; against its
 plain version and, within 0.05, float attention on the unquantized
 pages), the full-sequence flash kernel at the training shape
@@ -156,7 +190,9 @@ flash and INT8 quant kernels must have launched), granite's dense phases
 phase 18 (the INT8 paged attention), mamba's phases 9 and 10 (the RMSNorm
 and SSD chunk kernels must have launched, every SSD call through the
 tensor-core body) and training's phase 13 (the
-flash and RMSNorm kernels must have launched).  Each phase
+flash and RMSNorm kernels must have launched); then phase 19's two packs
+and phase 20's two serves, each counted from 0 and added to the kernels
+line's launches.  Each phase
 prints its seconds.  Then a ``kernels`` JSON line (each row also names
 the ``csrc`` headers its source includes), the card's name and
 power limit, and the final ``{"ok": true, "device": {...}}`` line.  Needs
@@ -537,6 +573,75 @@ def check_flash_prefix(torch, dev):
     torch.cuda.empty_cache()
     return main
 
+
+# the pack's kernel shapes: per bucket, each row's chunk length at starts
+# PACK_KERNEL_STARTS (the last row is pack padding, chunk length 0)
+PACK_KERNEL_STARTS = (0, 256, 512, 1000)
+PACK_KERNEL_CASES = ((256, (256, 200, 17, 0)), (32, (32, 25, 17, 0)),
+                     (16, (16, 9, 1, 0)))
+
+
+def check_flash_prefix_pack(torch, dev):
+    """The prefix kernel at a pack's shapes on granite (B 4 = the pack
+    width, H 32, KVH 8, d 128, Smax 2048, bf16; starts 0/256/512/1000,
+    ragged chunk lengths and a padding row of length 0; q, k and v as
+    transposed views, as the packs pass them) at bucket 256 (no split)
+    and at buckets 32 and 16, which the plan splits (body and merge).
+    Each member's rows are held against the plain version on the same
+    tensors with :func:`check_bf16_attention`, every output row must be
+    finite, and the body counters must show the body and merge the plan
+    names."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill_prefix,
+                                                   flash_prefill_prefix_ref)
+    from repro_torch.kernels.flash_prefill.plan import num_splits
+    B, H, KVH, d, Smax = len(PACK_KERNEL_STARTS), 32, 8, 128, 2048
+    dt = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    start = torch.tensor(PACK_KERNEL_STARTS, dtype=torch.int32, device=dev)
+    for C, lens in PACK_KERNEL_CASES:
+        label = (f"flash_prefill_prefix pack B={B} C={C} starts "
+                 f"{list(PACK_KERNEL_STARTS)} lengths {list(lens)}")
+        q = torch.randn((B, C, H, d), generator=g,
+                        device=dev).to(dt).transpose(1, 2)
+        k = torch.randn((B, Smax, KVH, d), generator=g,
+                        device=dev).to(dt).transpose(1, 2)
+        v = torch.randn((B, Smax, KVH, d), generator=g,
+                        device=dev).to(dt).transpose(1, 2)
+        out = flash_prefill_prefix(q, k, v, start)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        ref = flash_prefill_prefix_ref(q, k, v, start)
+        truth = flash_prefill_prefix_ref(qf, kf, vf, start)
+        absv = flash_prefill_prefix_ref(qf, kf, vf.abs(), start)
+        qpos = start[:, None] + torch.arange(C, device=dev)[None]
+        mask = (torch.arange(Smax, device=dev)[None, None, :]
+                <= qpos[:, :, None])[:, None]              # (B, 1, C, Smax)
+        lib, backend = sdpa_call(torch, q, k, v, mask=mask)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out.float()).all()):
+            fail(f"{label}: non-finite output rows")
+
+        def members(t):
+            return torch.cat([t[b, :, :n] for b, n in enumerate(lens) if n],
+                             dim=1)
+        err, t_err, l_err = check_bf16_attention(
+            torch, label, members(out), members(ref), members(truth),
+            members(absv), members(lib()))
+        nsplit = num_splits(B, KVH, H // KVH, C, Smax)
+        want = "wgmma+merge" if nsplit > 1 else "wgmma"
+        body = check_body(torch, label,
+                          lambda: flash_prefill_prefix(q, k, v, start),
+                          "wgmma")
+        if body != want:
+            fail(f"{label}: took {body}, the plan ({nsplit} splits) names "
+                 f"{want}")
+        ms = time_ms(lambda: flash_prefill_prefix(q, k, v, start))
+        plain = time_ms(lambda: flash_prefill_prefix_ref(q, k, v, start), 5)
+        print(f"[kernel] {label}: body {body} ({nsplit} splits) members' "
+              f"rows max_err={err:.3g} truth_err={t_err:.3g} (SDPA "
+              f"{backend} {l_err:.3g}) kernel_ms={ms:.4f} plain_ms="
+              f"{plain:.4f}", flush=True)
+        del q, k, v, out, ref, truth, absv
+    torch.cuda.empty_cache()
 
 def check_flash_prefill(torch, dev):
     """The full-sequence flash kernel at the training path's shape (B 4,
@@ -1003,7 +1108,9 @@ def graph_gate(label: str, eng, counter, saw_warmup: bool) -> None:
     then the captures and library builds or loads ``counter`` saw after
     the warmup (``saw_warmup``: the counter was attached before the engine
     was built), which must be none, and, for a serve with graphs, its
-    decode replays, which must equal its decode steps."""
+    decode and pack replays, which must equal its decode steps and its
+    packs since the warmup (the auto budget's warm batch's among them:
+    the replay counters are not read between the two serves)."""
     w = eng.warm_stats
     if w is None:
         fail(f"{label}: the engine was not warmed")
@@ -1011,17 +1118,23 @@ def graph_gate(label: str, eng, counter, saw_warmup: bool) -> None:
     g = eng.kv.graphs
     replays = g.replays["decode"] - w["replays"]["decode"]
     steps = len(eng.iter_times)
+    pack_replays = g.replays["pack"] - w["replays"]["pack"]
+    packs = sum(1 for *_, rows in eng.prefill_times if rows > 1)
     print(f"[graphs] {label}: warmup {w['seconds']:.2f}s, {w['keys']} step "
           f"keys, {w['captures']} CUDA graphs captured, {w['compiles']} "
           f"compile events, graph pool {w['pool_bytes'] / 2**20:.1f} MiB; "
           f"serving: {len(seen)} new "
           f"captures or library loads, {replays} decode replays for {steps} "
           f"decode steps, {g.replays['chunk'] - w['replays']['chunk']} "
-          f"chunk replays", flush=True)
+          f"chunk replays, {pack_replays} pack replays for "
+          f"{packs} packs", flush=True)
     if seen:
         fail(f"{label}: captured or loaded at serve time: {seen}")
     if g.capture and replays != steps:
         fail(f"{label}: {steps - replays} decode steps ran without a replay")
+    if g.capture and pack_replays != packs:
+        fail(f"{label}: {packs - pack_replays} packs ran "
+             "without a replay")
 
 
 def same_tokens(label: str, graphed, eager) -> None:
@@ -1043,12 +1156,12 @@ def same_tokens(label: str, graphed, eager) -> None:
 # graphed serve and its eager comparison.  Swaps travel unquantized here,
 # so the greedy tokens do not depend on when the wall clock's schedule
 # preempts (phases 6 and 17 force the INT8 swaps)
-PAGED_SERVE = dict(arch_size="full", strategy="alise", n_requests=16,
+PAGED_SERVE = dict(arch_size="full", strategy="alise", n_requests=12,
                    max_slots=8, seed=SEED, predictor_kind="oracle",
                    prefill_chunk=256, kv_backend="paged",
                    paged_attn_impl="kernel", chunk_attn="flash",
                    page_size=16, quantize=False, warmup=True)
-DENSE_SERVE = dict(arch_size="full", strategy="alise", n_requests=16,
+DENSE_SERVE = dict(arch_size="full", strategy="alise", n_requests=12,
                    max_slots=8, seed=SEED, predictor_kind="oracle",
                    kv_backend="dense", quantize=False, warmup=True,
                    verbose=False)
@@ -1067,9 +1180,9 @@ def serve_summary(eng, reqs, wall):
             if r.finish_time is not None]
     if eng.model.cfg.family == "ssm":
         ttft = [t1 + dt - eng.warm_stats["end"]
-                for t1, _, dt in eng.prefill_times]
+                for t1, _, dt, _ in eng.prefill_times]
     step_ms = [dt * 1e3 for *_, dt in eng.iter_times]
-    pre_ms = [dt * 1e3 for *_, dt in eng.prefill_times]
+    pre_ms = [dt * 1e3 for _, _, dt, _ in eng.prefill_times]
     return (f"{gen} tokens, {gen / wall:.1f} tok/s, wall {wall:.2f}s, TTFT "
             f"p50 {np.median(ttft):.3f}s, {len(step_ms)} decode steps p50 "
             f"{np.median(step_ms):.2f} ms, {len(pre_ms)} prefills p50 "
@@ -1108,7 +1221,7 @@ def phase_serve(torch, model, params, kernels):
     ttft = [r.first_token_time - r.arrival_time for r in done]
     step_ms = [dt * 1e3 for *_, dt in eng.iter_times]
     batch = [b for _, _, b, _ in eng.iter_times]
-    chunk_ms = [dt * 1e3 for *_, dt in eng.prefill_times]
+    chunk_ms = [dt * 1e3 for _, _, dt, _ in eng.prefill_times]
     print(f"[serve] granite-3-8b full (40L d4096 32/8H ff12800 V49155 bf16) "
           f"kernel/flash chunk=256 slots=8: {len(done)}/{len(reqs)} finished, "
           f"{gen} tokens generated, {gen / wall:.1f} tok/s, wall {wall:.2f}s, "
@@ -1403,7 +1516,7 @@ def dense_reference_check(torch, model, params, ref):
 
 
 def phase_dense_serve(torch, model, params, kernels):
-    """Phase 5's 16 requests through ``ServingEngine.serve`` on the dense
+    """Phase 5's 12 requests through ``ServingEngine.serve`` on the dense
     backend with the reference engine's defaults: no chunk size (each
     prompt one chunk over its lane's stripe, through the prefix flash
     kernel), fused decode, ``max_seq_len`` 2048, 8 lanes."""
@@ -1423,7 +1536,7 @@ def phase_dense_serve(torch, model, params, kernels):
     ttft = [r.first_token_time - r.arrival_time for r in done]
     step_ms = [dt * 1e3 for *_, dt in eng.iter_times]
     batch = [b for _, _, b, _ in eng.iter_times]
-    pre_ms = [dt * 1e3 for *_, dt in eng.prefill_times]
+    pre_ms = [dt * 1e3 for _, _, dt, _ in eng.prefill_times]
     print(f"[dense-serve] granite-3-8b full, dense KV (Smax 2048), "
           f"whole-prompt chunks, fused decode, slots=8: {len(done)}/"
           f"{len(reqs)} finished, {gen} tokens generated, {gen / wall:.1f} "
@@ -1592,6 +1705,525 @@ def phase_bench_rows(torch, model, params, kernels):
     return counts
 
 
+# ---------------------------------------------------- phases 19 and 20
+
+# phase 19's pack rows: (start, chunk length) at bucket 256; the last row
+# is pack padding (chunk length 0)
+PACK_ROWS = ((0, 256), (256, 200), (512, 17), (1000, 0))
+PACK_BUCKET = 256
+BF16_TOL = 5e-2                         # ROADMAP rule 2's bf16 tolerance
+
+
+def _held(torch, label: str, got, want) -> str:
+    """``got`` against ``want`` within the bf16 tolerance: relative L2 at
+    most 5e-2 and every value finite.  Returns the worst absolute error
+    and the relative L2 as text."""
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{label}: non-finite values")
+    rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+    err = (got - want).abs().max().item()
+    if not rel <= BF16_TOL:
+        fail(f"{label}: rel_l2 {rel:.4g} > {BF16_TOL} (max_abs_err "
+             f"{err:.4g})")
+    return f"max_abs_err={err:.4g} rel_l2={rel:.4g}"
+
+
+def _pack_prompts(model, rng, rids):
+    """One prompt per pack member, long enough for its row."""
+    V = model.cfg.vocab_size
+    return {rid: rng.integers(2, V, s + n).tolist()
+            for rid, (s, n) in zip(rids, PACK_ROWS[:3])}
+
+
+def _pack_items(params, kv, prompts):
+    """Prefill each member's earlier chunks (chunks of 256 up to its row's
+    start) through ``kv.prefill_chunk``; returns the pack's items
+    ``(rid, chunk tokens, start)``."""
+    items = []
+    for rid, (start, n) in zip(prompts, PACK_ROWS[:3]):
+        p = prompts[rid]
+        for s in range(0, start, PACK_BUCKET):
+            kv.prefill_chunk(params, rid, p[s:s + PACK_BUCKET], s)
+        items.append((rid, p[start:start + n], start))
+    return items
+
+
+def _graphed_pack(torch, label, kv, params, items, tensors, state):
+    """The pack's step graph (captured here, on the backend's neutral
+    input) replayed on ``items`` against the eager pack step on the same
+    staged input and the same starting state (``tensors()``: the pool's
+    or the cache's K and V): equal bit for bit, the members' logits and
+    ``state()`` (the paged pool without its scratch page, or the dense
+    cache)."""
+    staged = kv._pack_inputs(items, PACK_BUCKET)
+    snap = [t.clone() for t in tensors()]
+    step = (lambda buf: kv._pack_step(params, buf, PACK_BUCKET))
+    graphed = kv._run_chunk(("pack", PACK_BUCKET), staged, step,
+                            lambda: kv._pack_inputs([], PACK_BUCKET))
+    after = [t.clone() for t in state()]
+    for t, s in zip(tensors(), snap):
+        t.copy_(s)
+    eager = step(torch.from_numpy(staged).to(kv.device))
+    torch.cuda.synchronize()
+    # the padding rows' logits are garbage (on the paged backend they read
+    # the scratch page, whose duplicate writes keep no order): members only
+    m = len(items)
+    same = torch.equal(graphed[:m], eager[:m]) and all(
+        torch.equal(a, b) for a, b in zip(after, state()))
+    print(f"[pack] {label}: graphed pack (replay of ('pack', "
+          f"{PACK_BUCKET}), {kv.graphs.replays['pack']} replay) vs eager "
+          f"pack on the same input: "
+          + ("equal bit for bit" if same else "DIFFER"), flush=True)
+    if not same:
+        fail(f"{label}: the graphed pack differs from the eager pack")
+    for rid, _, _ in items:
+        kv.clear(rid)
+
+
+def _flash_bodies():
+    from repro_torch.kernels.flash_prefill import ops
+    return ops.body_launches()
+
+
+def _pack_parity(torch, label, model, kernels, tensors, run_pack,
+                 run_single, written):
+    """One pack of PACK_ROWS through ``run_pack`` (its launches counted
+    from 0: the prefix flash kernel must launch once per layer, at B = 4,
+    through the wgmma body) against its three members run one by one
+    through ``run_single`` on the state ``tensors()`` held before the
+    pack: logits and the written K/V (``written()``) held within the bf16
+    tolerance.  Returns the pack's launch counts."""
+    snap = [t.clone() for t in tensors()]
+    reset_counts(kernels)
+    bodies = _flash_bodies()
+    logits = run_pack()
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    bodies = {k: n - bodies[k] for k, n in _flash_bodies().items()}
+    packed = written()
+    for t, s in zip(tensors(), snap):
+        t.copy_(s)
+    single = torch.cat([run_single(i) for i in range(3)])
+    torch.cuda.synchronize()
+    L = model.cfg.num_layers
+    held_logits = _held(torch, label + " logits", logits[:3], single)
+    held_kv = _held(torch, label + " K/V", packed, written())
+    print(f"[pack] {label}: pack of 4 rows at bucket {PACK_BUCKET} (starts "
+          f"{[s for s, _ in PACK_ROWS]}, chunk lengths "
+          f"{[n for _, n in PACK_ROWS]}) vs its 3 members one by one: "
+          f"logits {held_logits}; written K/V {held_kv}; "
+          f"flash_prefill_prefix launches {counts['flash_prefill_prefix']} "
+          f"at B=4 (bodies {bodies})", flush=True)
+    if counts["flash_prefill_prefix"] != L:
+        fail(f"{label}: flash_prefill_prefix launched "
+             f"{counts['flash_prefill_prefix']} times, want {L} at B = 4")
+    if bodies["wgmma"] != L or bodies["fma"]:
+        fail(f"{label}: the pack's flash calls did not all take the wgmma "
+             "body")
+    return counts
+
+
+def _pack_wall(torch, model, params, kv) -> None:
+    """The wall of a graphed pack of 4 fresh chunks at buckets 64 and 128
+    against the same 4 chunks as 4 graphed single-chunk calls (each key
+    captured first; medians of 3, in turns single, pack, pack, single,
+    single, pack), printed."""
+    rng = np.random.default_rng(SEED + 192)
+    V = model.cfg.vocab_size
+    for b in (64, 128):
+        toks = {rid: rng.integers(2, V, b).tolist() for rid in range(20, 24)}
+        items = [(rid, t, 0) for rid, t in toks.items()]
+
+        def single():
+            for rid, t in toks.items():
+                kv.prefill_chunk(params, rid, t, 0)
+
+        def packed():
+            kv.prefill_pack(params, items, b)
+
+        got = {}
+        order = (single, packed,                 # first uses: captures
+                 single, packed, packed, single, single, packed)
+        for i, fn in enumerate(order):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i >= 2:
+                got.setdefault(fn.__name__, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+            for rid in toks:
+                kv.clear(rid)
+        one, four = (statistics.median(got[k]) for k in ("single",
+                                                         "packed"))
+        print(f"[pack] paged wall at bucket {b}: 4 single chunks "
+              f"{one:.2f} ms, one pack of the 4 {four:.2f} ms "
+              f"({four / one:.2f}x; graphed, median of 3)", flush=True)
+
+
+def _paged_pack_phase(torch, model, params, kernels):
+    from repro_torch.serving.kv_cache import KVBackendConfig, PagedKVBackend
+    kv = PagedKVBackend(model, KVBackendConfig(
+        max_slots=8, max_seq_len=2048, page_size=16, attn_impl="kernel",
+        graph_buckets=(64, 128, PACK_BUCKET)), num_pages=200)
+    rng = np.random.default_rng(SEED + 19)
+    scratch = kv.scratch_page
+    live = [p for p in range(kv.pool.k.shape[1]) if p != scratch]
+
+    def tensors():
+        return [kv.pool.k, kv.pool.v]
+
+    def state():
+        return [kv.pool.k[:, live], kv.pool.v[:, live]]
+
+    _graphed_pack(torch, "paged", kv, params,
+                  _pack_items(params, kv, _pack_prompts(model, rng,
+                                                        (10, 11, 12))),
+                  tensors, state)
+    items = _pack_items(params, kv, _pack_prompts(model, rng, (1, 2, 3)))
+    kv._pack_inputs(items, PACK_BUCKET)       # claim lanes, grow pages
+    rows = [kv._chunk_fields(kv.pool.page_table[rid], t, s, PACK_BUCKET)
+            for rid, t, s in items]
+    rows.append(kv._chunk_fields([], [], PACK_ROWS[3][0], PACK_BUCKET))
+    dev = model.device
+    tables, toks, wp, wo, start, n = (
+        torch.as_tensor(np.stack([np.asarray(r[f], np.int32) for r in rows]),
+                        device=dev) for f in range(6))
+    pages = sorted({int(p) for i, (_, c) in enumerate(PACK_ROWS[:3])
+                    for p in wp[i, :c].tolist()})
+    idx = torch.tensor(pages, device=dev)
+
+    def written():
+        return torch.cat([t[:, idx].flatten() for t in tensors()])
+
+    counts = _pack_parity(
+        torch, "paged", model, kernels, tensors,
+        lambda: model.paged_prefill_pack(params, kv._kv(), toks, tables, wp,
+                                         wo, start, n),
+        lambda i: model.paged_prefill_chunk(
+            params, kv._kv(), toks[i:i + 1], tables[i:i + 1], wp[i], wo[i],
+            start[i:i + 1], n[i:i + 1]),
+        written)
+    for rid, _, _ in items:
+        kv.clear(rid)
+    _pack_wall(torch, model, params, kv)
+    return counts
+
+
+def _dense_pack_phase(torch, model, params, kernels):
+    from repro_torch.serving.kv_cache import DenseKVBackend, KVBackendConfig
+    kv = DenseKVBackend(model, KVBackendConfig(
+        max_slots=4, max_seq_len=2048, graph_buckets=(PACK_BUCKET,)))
+    rng = np.random.default_rng(SEED + 19)
+
+    def tensors():
+        return [kv.cache["k"], kv.cache["v"]]
+
+    _graphed_pack(torch, "dense", kv, params,
+                  _pack_items(params, kv, _pack_prompts(model, rng,
+                                                        (10, 11, 12))),
+                  tensors, tensors)
+    items = _pack_items(params, kv, _pack_prompts(model, rng, (1, 2, 3)))
+    kv._pack_inputs(items, PACK_BUCKET)       # claim lanes
+    dev = model.device
+    lanes = [kv.slot_of(rid) for rid, _, _ in items]
+    toks = torch.zeros((4, PACK_BUCKET), dtype=torch.int32, device=dev)
+    for i, (_, t, _) in enumerate(items):
+        toks[i, :len(t)] = torch.tensor(t, dtype=torch.int32)
+    as_t = (lambda a: torch.tensor(a, dtype=torch.int32, device=dev))
+    lane_t = as_t(lanes + [lanes[0]])       # padding reads row 0's lane
+    start = as_t([s for s, _ in PACK_ROWS])
+    n = as_t([c for _, c in PACK_ROWS])
+
+    def written():
+        return torch.cat([t[:, lane, s:s + PACK_BUCKET].flatten()
+                          for lane, (s, _) in zip(lanes, PACK_ROWS)
+                          for t in tensors()])
+
+    counts = _pack_parity(
+        torch, "dense", model, kernels, tensors,
+        lambda: model.prefill_pack(params, kv.cache["k"], kv.cache["v"],
+                                   lane_t, toks, start, n),
+        lambda i: model.prefill_chunk(
+            params, kv.cache["k"][:, lanes[i]], kv.cache["v"][:, lanes[i]],
+            toks[i:i + 1], start[i:i + 1], n[i:i + 1]),
+        written)
+    del kv
+    return counts
+
+
+def _prefix_hit(torch, label, kv, params, model, shared: int, tail: int,
+                rng, rid0: int):
+    """Request A prefills its prompt (1024 tokens: the ``shared`` span
+    and its own rest) in chunks of 256 and publishes it; request B shares
+    the span and has ``tail`` tokens of its own.  B must acquire a hit of
+    exactly ``shared`` and prefill only its tail, in one chunk; its last
+    logits are held against B prefilled cold on a fresh lane.  Returns
+    (A's rid, B's rid, the cold rid, the hit, A's pages)."""
+    V = model.cfg.vocab_size
+    span = rng.integers(2, V, shared).tolist()
+    a = span + rng.integers(2, V, 1024 - shared).tolist()
+    b = span + rng.integers(2, V, tail).tolist()
+    ra, rb, rc = rid0, rid0 + 1, rid0 + 2
+    for s in range(0, len(a), 256):
+        kv.prefill_chunk(params, ra, a[s:s + 256], s)
+    published = kv.prefix_publish(ra, a, len(a))
+    hit = kv.prefix_acquire(rb, b)
+    got = kv.prefill_chunk(params, rb, b[hit:], hit)
+    for s in range(0, len(b), 256):
+        cold = kv.prefill_chunk(params, rc, b[s:s + 256], s)
+    torch.cuda.synchronize()
+    print(f"[prefix] {label}: A published {published} pages; B acquired a "
+          f"hit of {hit} tokens (shared {shared}) and prefilled its "
+          f"{len(b) - hit} uncached tokens in one chunk; last logits vs B "
+          f"cold: {_held(torch, label, got, cold)}", flush=True)
+    if hit != shared:
+        fail(f"{label}: B's hit is {hit} tokens, want {shared}")
+    return ra, rb, rc
+
+
+def phase_pack_prefix(torch, model, params, kernels):
+    """Phase 19: pack and prefix-cache parity at the model and backend
+    level (deterministic; see the module docstring).  Returns the packs'
+    launch counts (paged and dense summed)."""
+    from repro_torch.serving.kv_cache import (DenseKVBackend,
+                                              KVBackendConfig, PagedKVBackend)
+    counts = _paged_pack_phase(torch, model, params, kernels)
+    torch.cuda.empty_cache()
+    dense = _dense_pack_phase(torch, model, params, kernels)
+    counts = {k: counts[k] + dense[k] for k in counts}
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 191)
+    kv = PagedKVBackend(model, KVBackendConfig(
+        max_slots=4, max_seq_len=2048, page_size=16, attn_impl="kernel",
+        prefix_cache=True), num_pages=300)
+    rids = _prefix_hit(torch, "paged prefix hit (a 1024-token span, 64 "
+                       "pages)", kv, params, model, 1024, 200, rng, 1)
+    for rid in rids:
+        kv.clear(rid)
+    ra, rb, rc = 4, 5, 6
+    # a 1000-token span: the hit ends inside A's page 62, which B gets as
+    # a copy; B's tail writes that copy and must leave A's page unchanged
+    V = model.cfg.vocab_size
+    span = rng.integers(2, V, 1000).tolist()
+    a = span + rng.integers(2, V, 24).tolist()
+    b = span + rng.integers(2, V, 200).tolist()
+    for s in range(0, len(a), 256):
+        kv.prefill_chunk(params, ra, a[s:s + 256], s)
+    kv.prefix_publish(ra, a, len(a))
+    a_page = kv.pool.page_table[ra][1000 // 16]
+    before = (kv.pool.k[:, a_page].clone(), kv.pool.v[:, a_page].clone())
+    cows = kv.prefix_stats().cow_pages
+    hit = kv.prefix_acquire(rb, b)
+    got = kv.prefill_chunk(params, rb, b[hit:], hit)
+    for s in range(0, len(b), 256):
+        cold = kv.prefill_chunk(params, rc, b[s:s + 256], s)
+    torch.cuda.synchronize()
+    kept = (torch.equal(before[0], kv.pool.k[:, a_page])
+            and torch.equal(before[1], kv.pool.v[:, a_page]))
+    print(f"[prefix] paged shared tail page (a 1000-token span): hit "
+          f"{hit}, {kv.prefix_stats().cow_pages - cows} copy-on-write page, "
+          f"A's page {a_page} after B's tail "
+          + ("unchanged bit for bit" if kept else "CHANGED")
+          + f"; last logits vs B cold: "
+          f"{_held(torch, 'paged shared tail page', got, cold)}",
+          flush=True)
+    if hit != 1000 or kv.prefix_stats().cow_pages != cows + 1 or not kept:
+        fail("paged shared tail page: the hit, its copy-on-write page or "
+             "A's page is wrong")
+    for rid in (ra, rb, rc):
+        kv.clear(rid)
+    freed = kv.prefix_reclaim(10 ** 6)
+    pool = kv.pool
+    clean = (not pool.page_table and list(pool.refs) == [kv.scratch_page]
+             and sorted(pool.free_pages + [kv.scratch_page])
+             == list(range(pool.cfg.num_pages)))
+    print(f"[prefix] paged leaks: after releasing A and B and reclaiming "
+          f"{freed} cached pages, refcounts "
+          + ("all 0 and the free list whole" if clean
+             else f"{pool.refs}, {len(pool.free_pages)} free"), flush=True)
+    if not clean:
+        fail("paged prefix cache: pages or refcounts leaked")
+    del kv, pool
+    torch.cuda.empty_cache()
+    kv = DenseKVBackend(model, KVBackendConfig(
+        max_slots=4, max_seq_len=2048, page_size=16, prefix_cache=True))
+    _prefix_hit(torch, "dense prefix hit through DensePrefixCache.fetch",
+                kv, params, model, 1024, 200, rng, 1)
+    del kv
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase20_requests(cfg):
+    """Phase 20's traffic, all at t = 0: 3 families of 8 requests that
+    share a 1024-token system prompt, each with its own tail of 16-256
+    tokens, and 8 distinct prompts of 32-200 tokens; outputs of 16-64
+    tokens; in a seeded shuffled order."""
+    from repro_torch.core.request import Request, reset_request_counter
+    rng = np.random.default_rng(SEED + 20)
+    V = cfg.vocab_size
+    systems = [rng.integers(2, V, 1024).tolist() for _ in range(3)]
+    prompts = [systems[f] + rng.integers(2, V, int(rng.integers(16, 257)))
+               .tolist() for f in range(3) for _ in range(8)]
+    prompts += [rng.integers(2, V, int(rng.integers(32, 201))).tolist()
+                for _ in range(8)]
+    outs = rng.integers(16, 65, len(prompts))
+    order = rng.permutation(len(prompts))
+    reset_request_counter()
+    return [Request(prompt_len=len(prompts[i]), arrival_time=0.0,
+                    true_out_len=int(outs[i]), prompt_tokens=prompts[i])
+            for i in order]
+
+
+SERVE20 = dict(arch_size="full", strategy="alise", max_slots=8, seed=SEED,
+               prefill_chunk=256, page_size=16, paged_attn_impl="kernel",
+               chunk_attn="flash", warmup=True)
+
+
+def _no_leaks(eng) -> str:
+    """After the drain: no lane, host blob, lossy mark or memory
+    reservation left; the paged pool's pages are free or held by the
+    prefix index alone (then, with the index dropped, the free list
+    whole); the dense store's pages indexed or free."""
+    kv = eng.kv
+    bad = []
+    if any(r is not None for r in kv.slot_req) or eng.host_pool \
+            or eng._lossy_kv or eng.sched.live or eng.mem.reserved:
+        bad.append("engine state left")
+    held = kv.prefix.index.n_pages
+    if eng.kv_backend == "paged":
+        pool = kv.pool
+        nodes = {n.page for n in kv.prefix.index.nodes}
+        if pool.page_table or any(
+                n != 1 or (p != kv.scratch_page and p not in nodes)
+                for p, n in pool.refs.items()):
+            bad.append("page refcounts")
+        kv.prefix.drop_all()
+        if sorted(pool.free_pages + [kv.scratch_page]) \
+                != list(range(pool.cfg.num_pages)):
+            bad.append("free list")
+    elif held + len(kv.prefix.free_pages) != kv.prefix.capacity:
+        bad.append("store pages")
+    if bad:
+        fail(f"leaks after the drain: {bad}")
+    return f"no leak ({held} pages held by the index, then dropped)"
+
+
+def phase_serve20(torch, model, params, kernels, backend):
+    """Phase 20, one backend: phase20_requests through
+    ``serve(..., warmup=True)`` with the online predictor, packs of 4 and
+    the prefix cache (the paged serve with the auto token budget at a
+    target TPOT of 30 ms), gated as the module docstring says; then,
+    after the paged serve only, the same requests with the prefix cache,
+    packing and the learned predictor off, and the count of requests
+    whose greedy tokens agree (not gated).  Packs are counted in this
+    serve's own traffic (stamped at or after ``eng.serve_started``), not
+    in the auto budget's warm batch.  The serve without a budget must
+    dispatch one; under the auto budget the count is printed, not gated:
+    the scheduler (the reference's) spends the budget chunk by chunk,
+    each charged at its bucket, so a budget of a few dozen tokens seldom
+    leaves room for a second chunk of the same bucket.  The serve's launches are counted from 0 (the
+    comparison serve's are not); returns them."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.utils.compile_counter import CompileCounter
+    auto = backend == "paged"
+    extra = dict(iter_token_budget="auto", target_tpot=0.030) if auto else {}
+    reqs = phase20_requests(model.cfg)
+    reset_counts(kernels)
+    counter = CompileCounter()
+    reqs, eng = serve(**SERVE20, **extra, kv_backend=backend,
+                      prefill_pack=True, prefill_pack_width=4,
+                      prefix_cache=True, predictor_kind="online",
+                      requests=reqs, device=model.device,
+                      model_and_params=(model, params))
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    label = f"granite {backend} serve (phase 20)"
+    graph_gate(label, eng, counter, True)
+    counter.detach()
+    done = [r for r in reqs if r.finish_time is not None]
+    if len(done) != len(reqs):
+        fail(f"{label}: {len(done)}/{len(reqs)} requests finished")
+    st = eng.kv.prefix_stats()
+    t0 = eng.serve_started
+    warm = sum(1 for t, *_, rows in eng.prefill_times if rows > 1 and t < t0)
+    packs = [(rows, dt) for t, _, dt, rows in eng.prefill_times
+             if rows > 1 and t >= t0]
+    budget = eng.sched.cfg.iter_token_budget
+    gen = sum(r.generated for r in reqs)
+    wall = max(r.finish_time for r in reqs)
+    def ttft(keep):
+        got = [r.first_token_time - r.arrival_time for r in reqs if keep(r)]
+        return (f"{np.median(got) if got else float('nan'):.3f}s "
+                f"({len(got)} requests)")
+
+    # cold requests of the hit requests' length class are the families'
+    # first requests (prompts over 1024 tokens that found no hit)
+    hit = ttft(lambda r: r.cached_prefix_hint > 0)
+    cold_long = ttft(lambda r: not r.cached_prefix_hint
+                     and r.prompt_len > 1024)
+    cold_short = ttft(lambda r: not r.cached_prefix_hint
+                      and r.prompt_len <= 1024)
+    steps = [dt * 1e3 for t, _, _, dt in eng.iter_times if t >= t0]
+    pack_ms = [dt * 1e3 for _, dt in packs]
+    g = eng.predictor.gauges()
+    print(f"[serve20] {label}: {len(done)}/{len(reqs)} finished, {gen} "
+          f"tokens, {gen / wall:.1f} tok/s, wall {wall:.2f}s; TTFT p50 hit "
+          f"{hit}, cold over 1024 tokens {cold_long}, cold short "
+          f"{cold_short}; {len(steps)} decode steps p50 "
+          f"{np.median(steps):.2f} ms; "
+          f"{len(packs)} packs p50 "
+          f"{np.median(pack_ms) if pack_ms else float('nan'):.2f} ms "
+          f"(this serve's traffic; {warm} more in the auto budget's warm "
+          f"batch); "
+          f"preemptions {sum(r.preempt_count for r in reqs)}", flush=True)
+    print(f"[serve20] {label}: prefix cache {st.hits} hits ({st.partial_hits}"
+          f" partial), {st.hit_tokens} hit tokens, {st.misses} misses, "
+          f"{st.inserted_pages} pages published, {st.cow_pages} "
+          f"copy-on-write, {st.deduped_pages} deduped; packs dispatched "
+          f"{len(packs)}, mean occupancy "
+          f"{np.mean([m for m, _ in packs]) if packs else 0:.2f} of 4;"
+          f" token budget {budget}; launches {counts}", flush=True)
+    print(f"[serve20] {label}: predictor gauges: coverage p90 "
+          f"{g.get('predictor_cov90_batch', float('nan')):.3f}, MAE "
+          f"{g.get('predictor_mae_batch', float('nan')):.1f} tokens, "
+          f"{g['predictor_updates']:.0f} updates, feedback queue "
+          f"{g['predictor_feedback_depth']:.0f} (drained), mean predict "
+          f"latency {eng.predictor.mean_latency_s() * 1e3:.3f} ms per "
+          f"request", flush=True)
+    if st.hits <= 0 or st.hit_tokens <= 0:
+        fail(f"{label}: no prefix hit")
+    if not packs and budget is None:
+        fail(f"{label}: the serve's traffic dispatched no pack")
+    if not packs:
+        print(f"[serve20] {label}: no pack in the serve's traffic under "
+              f"the auto budget of {budget} tokens an iteration (not "
+              f"gated)", flush=True)
+    if auto and not isinstance(budget, int):
+        fail(f"{label}: the auto budget is {budget!r}, not an integer")
+    if g["predictor_feedback_depth"]:
+        fail(f"{label}: the predictor's feedback was not drained")
+    print(f"[serve20] {label}: {_no_leaks(eng)}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    if not auto:
+        return counts
+    ref, _ = serve(**SERVE20, kv_backend=backend, predictor_kind="oracle",
+                   iter_token_budget=budget, requests=phase20_requests(
+                       model.cfg), device=model.device,
+                   model_and_params=(model, params), verbose=False)
+    agree = sum(list(a.output_tokens) == list(b.output_tokens)
+                for a, b in zip(reqs, ref))
+    print(f"[serve20] {label}: the same requests with the prefix cache, "
+          f"packing and the learned predictor off: {agree}/{len(reqs)} "
+          f"requests' greedy tokens agree (not gated: the schedule "
+          f"follows the wall clock, and a pack's shape gives other bits)",
+          flush=True)
+    return counts
+
+
 # ------------------------------------------------------ phases 8 to 11
 
 def mamba_reference_check(torch, model, params):
@@ -1669,11 +2301,11 @@ def phase_mamba_serve(torch, model, params):
     # are prefilled in the first iteration, one after another, so each
     # request's first token is measured at the end of its own (single)
     # prefill instead, from the end of the engine's warmup
-    ttft = [t1 + dt - t0 for t1, _, dt in eng.prefill_times]
+    ttft = [t1 + dt - t0 for t1, _, dt, _ in eng.prefill_times]
     step_ms = [dt * 1e3 for *_, dt in eng.iter_times]
     batch = [b for _, _, b, _ in eng.iter_times]
-    pre_ms = [dt * 1e3 for *_, dt in eng.prefill_times]
-    pre_tok = [n for _, n, _ in eng.prefill_times]
+    pre_ms = [dt * 1e3 for _, _, dt, _ in eng.prefill_times]
+    pre_tok = [n for _, n, _, _ in eng.prefill_times]
     print(f"[mamba-serve] mamba2-2.7b full (64L d2560 80x64 heads N128 "
           f"V50280 bf16) dense state, slots=8: {len(done)}/{len(reqs)} "
           f"finished, {gen} tokens generated, {gen / wall:.1f} tok/s, wall "
@@ -2063,6 +2695,7 @@ def main() -> None:
     with torch.no_grad():
         pa = check_paged_attention(torch, dev)
         fp = check_flash_prefix(torch, dev)
+        check_flash_prefix_pack(torch, dev)
         fa = check_flash_prefill(torch, dev)
         kq, kd = check_kv_quant(torch, dev)
         pq8 = check_paged_attention_q8(torch, dev)
@@ -2123,6 +2756,20 @@ def main() -> None:
     print(f"[main-path] kernel bench (phase 18) launches {q_launches}",
           flush=True)
     clock.lap("kernel bench rows (phase 18)")
+    # phases 19-20 on the same model: the packs of phase 19 and the serves
+    # of phase 20 are main paths, each counted from 0; their counts are
+    # added to the kernels line's totals
+    totals = phase_pack_prefix(torch, model, params, kernels)
+    print(f"[main-path] granite packs (phase 19) launches {totals}",
+          flush=True)
+    clock.lap("pack + prefix parity (phase 19)")
+    for backend in ("paged", "dense"):
+        counts = phase_serve20(torch, model, params, kernels, backend)
+        print(f"[main-path] granite {backend} serve with packs, prefix "
+              f"cache and online predictor (phase 20) launches {counts}",
+              flush=True)
+        totals = {k: totals[k] + counts[k] for k in totals}
+        clock.lap(f"granite {backend} serve (phase 20)")
     del model, params, ref
     torch.cuda.empty_cache()
 
@@ -2205,6 +2852,7 @@ def main() -> None:
     ]
     root = os.path.dirname(os.path.abspath(__file__))
     for r in rows:
+        r["launches"] += totals[r["name"]]      # phases 19-20
         # the csrc headers the source includes (flash and SSD bodies, the
         # 3xTF32 primitives), as the build key follows them
         r["headers"] = [os.path.relpath(str(h), root) for h in

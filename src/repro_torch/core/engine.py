@@ -13,8 +13,15 @@ JAX package (its own copy) and executes each
     prompt as one chunk when ``prefill_chunk`` is None) runs through the
     backend's resumable prefill: ``Model.paged_prefill_chunk`` into the
     page pool, or ``Model.prefill_chunk`` over the lane's dense stripe.
-    An SSM prompt, which cannot resume, goes unpadded through the
-    monolithic ``Model.prefill`` and its state is placed in a free lane;
+    With ``prefill_pack`` the scheduler fuses equal-bucket chunks of
+    distinct requests into a :class:`PrefillPack`, which runs as one call
+    (``Model.paged_prefill_pack`` / ``Model.prefill_pack``).  An SSM
+    prompt, which cannot resume, goes unpadded through the monolithic
+    ``Model.prefill`` and its state is placed in a free lane;
+  * with ``prefix_cache``, a fresh prefill first matches the shared-prefix
+    index (``serving/prefix_cache.py``) and resumes at the hit watermark;
+    a finished prompt's full pages are published back (never KV that went
+    through an INT8 swap, which is lossy);
   * decode: one fused step per iteration (``Model.paged_decode_step_
     sampled`` or ``Model.decode_step_sampled``): embedding, layer stack, KV
     or state writes, attention or the SSM recurrence, sampling and
@@ -29,27 +36,33 @@ JAX package (its own copy) and executes each
   * per-iteration wall-time profiling (bounded ring buffers) used to fit
     the Eq. 3-5 latency model.
 
-On a CUDA device the fused decode step and the prefill chunks of the
-bucket menu run as CUDA graphs (``EngineConfig.cuda_graphs``, on by
-default; ``serving/step_graphs.py``), each captured at its first use.
+On a CUDA device the fused decode step and the prefill chunks and packs
+of the bucket menu run as CUDA graphs (``EngineConfig.cuda_graphs``, on
+by default; ``serving/step_graphs.py``), each captured at its first use.
 :meth:`ServingEngine.warmup` makes every first use happen before serving
 and loads every kernel library serving can reach, as the reference's
 warmup compiles every shape: a warmed engine then captures, builds and
 loads nothing at serve time (``utils/compile_counter.CompileCounter``
 counts it).  What stays eager is what the reference does not warm either:
 the ``ssm`` family's monolithic prefill, a prompt prefilled as one chunk
-when ``prefill_chunk`` is None, swaps, and the per-slot decode.
+when ``prefill_chunk`` is None, swaps, prefix-cache copies and the
+per-slot decode.
 
-Not ported yet (``EngineConfig`` options that ask for one raise
-``NotImplementedError`` naming the ``ROADMAP.md`` Queue 1 item): packed
-prefill, the shared-prefix cache, speculative decoding, and the cluster
-tier; the observability bus is left out.
+Not ported yet: speculative decoding (``spec_decode`` raises
+``NotImplementedError`` naming ``ROADMAP.md`` Queue 1 item 9); the cluster
+KV tier (item 10) and the observability bus (item 16) are left out, with
+no hooks.
 
 Correctness invariant (tested): with greedy sampling and quantization off,
 generated tokens do not depend on how jobs are preempted and swapped, on
-the backend (dense | paged), on chunked or monolithic prefill, on fused or
-per-slot decode, on ``paged_attn_impl`` (gather | kernel) or on
-``Model.chunk_attn_impl`` (masked | flash).
+the backend (dense | paged), on chunked or monolithic prefill, on packed
+or single chunks, on the prefix cache, on the length predictor, on fused
+or per-slot decode, on ``paged_attn_impl`` (gather | kernel) or on
+``Model.chunk_attn_impl`` (masked | flash).  The tests hold it on the CPU
+in float32.  On the card in bfloat16 a product's bits depend on its
+shape: a pack's rows, or another chunk split, round differently from
+single chunks (a pack's head product differs in the last bits), so greedy
+tokens there may differ wherever packing or chunking changes a shape.
 """
 from __future__ import annotations
 
@@ -67,7 +80,8 @@ from repro_torch.core.memory_manager import MemoryConfig, TieredKVManager
 from repro_torch.core.predictor import LengthPredictor, RetrievalPredictor
 from repro_torch.core.quantization import kv_bytes_per_token
 from repro_torch.core.request import KVLocation, Request, RequestState
-from repro_torch.core.scheduler import (DecodeLane, PrefillChunk, Scheduler,
+from repro_torch.core.scheduler import (DecodeLane, PrefillChunk,
+                                        PrefillPack, Scheduler,
                                         SchedulerConfig)
 from repro_torch.models.model import Model
 from repro_torch.serving.kv_cache import (DenseKVBackend, KVBackendConfig,
@@ -135,8 +149,15 @@ class EngineConfig:
                                              # iteration (None = unbounded)
     prefill_buckets: Optional[Tuple[int, ...]] = None
     # fixed menu of chunk-shape buckets (sorted ascending); None = pow2
-    prefill_pack: bool = False             # not ported (Queue 1 item 8)
-    prefix_cache: bool = False             # not ported (Queue 1 item 7)
+    # (packing without a menu takes the pow2 menu of prefill_chunk)
+    prefill_pack: bool = False             # fuse equal-bucket chunks of
+                                           # distinct requests into one
+                                           # PrefillPack call
+    prefill_pack_width: int = 4            # rows of every pack call
+    prefix_cache: bool = False             # cross-request shared-prefix KV
+                                           # cache (needs chunked prefill)
+    prefix_cache_pages: int = 0            # dense backend: private store
+                                           # capacity (0 = one batch's worth)
     spec_decode: bool = False              # not ported (Queue 1 item 9)
     warmup_compile: bool = False           # run warmup() at construction
     cuda_graphs: bool = True               # port only: on a CUDA device the
@@ -171,12 +192,9 @@ def _kv_backend(cfg: EngineConfig, model: Model) -> str:
 
 
 def _not_ported(cfg: EngineConfig) -> None:
-    todo = [(cfg.prefill_pack, "prefill_pack (ROADMAP.md Queue 1 item 8)"),
-            (cfg.prefix_cache, "prefix_cache (ROADMAP.md Queue 1 item 7)"),
-            (cfg.spec_decode, "spec_decode (ROADMAP.md Queue 1 item 9)")]
-    for bad, what in todo:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if cfg.spec_decode:
+        raise NotImplementedError("spec_decode (ROADMAP.md Queue 1 item 9) "
+                                  "is not ported yet")
 
 
 class ServingEngine:
@@ -190,7 +208,18 @@ class ServingEngine:
         self.cfg = cfg
         acfg = model.cfg
         bpt = kv_bytes_per_token(acfg.num_layers, acfg.num_kv_heads, acfg.hd)
-        hbm = cfg.hbm_bytes or (cfg.max_slots * cfg.max_seq_len * bpt)
+        # the dense backend's prefix cache owns a private page store, a
+        # real device allocation outside per-request accounting: charge it
+        # against the budget (and grow the default budget by it, so the
+        # cache does not shrink the lanes' share)
+        dense_store_bytes = 0.0
+        if (cfg.prefix_cache and self.kv_backend == "dense"
+                and model.supports_chunked_prefill()):
+            capacity = cfg.prefix_cache_pages or (
+                cfg.max_slots * cfg.max_seq_len // cfg.page_size)
+            dense_store_bytes = capacity * cfg.page_size * bpt
+        hbm = cfg.hbm_bytes or (cfg.max_slots * cfg.max_seq_len * bpt
+                                + dense_store_bytes)
         mem_cfg = MemoryConfig(
             hbm_bytes=hbm, dram_bytes=1e12, bytes_per_token_fp=bpt,
             swap_bw=cfg.swap_bw, quantize_offload=cfg.quantize_offload,
@@ -203,12 +232,20 @@ class ServingEngine:
         # chunked prefill needs model support (the attention family); other
         # families keep monolithic whole-prompt spans
         self._chunked_ok = model.supports_chunked_prefill()
+        # fixed chunk-shape menu: the explicit one wins; packing without
+        # one takes the pow2 menu (packs group by bucket)
         buckets: Optional[Tuple[int, ...]] = None
-        if self._chunked_ok and cfg.prefill_chunk and cfg.prefill_buckets:
-            buckets = tuple(sorted({int(b) for b in cfg.prefill_buckets}))
-            if buckets[0] <= 0:
-                raise ValueError("prefill buckets must be positive")
+        if self._chunked_ok and cfg.prefill_chunk:
+            if cfg.prefill_buckets:
+                buckets = tuple(sorted({int(b) for b in cfg.prefill_buckets}))
+                if buckets[0] <= 0:
+                    raise ValueError("prefill buckets must be positive")
+            elif cfg.prefill_pack:
+                buckets = default_bucket_menu(cfg.prefill_chunk)
         self._buckets = buckets
+        self._pack_ok = bool(cfg.prefill_pack and buckets
+                             and cfg.prefill_pack_width >= 2
+                             and model.supports_prefill_pack())
         # the chunk buckets the reference's warmup compiles, which run as
         # step graphs here (none when a prompt is one chunk)
         menu = buckets
@@ -217,6 +254,7 @@ class ServingEngine:
         self._graph_menu = tuple(b for b in (menu or ())
                                  if b <= cfg.max_seq_len)
         self.warm_stats: Optional[dict] = None   # set by warmup()
+        self.serve_started: Optional[float] = None   # set by serve()
         sched_cfg = SchedulerConfig(
             max_batch=cfg.max_slots, n_queues=cfg.n_queues,
             base_quantum=cfg.base_quantum, quantum_growth=cfg.quantum_growth,
@@ -224,7 +262,8 @@ class ServingEngine:
             max_new_tokens=cfg.max_new_tokens,
             prefill_chunk=(cfg.prefill_chunk if self._chunked_ok else None),
             iter_token_budget=cfg.iter_token_budget,
-            prefill_buckets=buckets)
+            prefill_buckets=buckets, prefill_pack=self._pack_ok,
+            prefill_pack_width=cfg.prefill_pack_width)
         self.sched = Scheduler(sched_cfg, self.predictor, self.latency, self.mem)
 
         bcfg = KVBackendConfig(
@@ -232,18 +271,35 @@ class ServingEngine:
             eos_token=cfg.eos_token, max_new_tokens=cfg.max_new_tokens,
             greedy=cfg.greedy, temperature=cfg.temperature, top_k=cfg.top_k,
             quantize_offload=cfg.quantize_offload, page_size=cfg.page_size,
-            attn_impl=cfg.paged_attn_impl, seed=cfg.seed,
+            attn_impl=cfg.paged_attn_impl,
+            prefix_cache=(cfg.prefix_cache and self._chunked_ok),
+            prefix_cache_pages=cfg.prefix_cache_pages, seed=cfg.seed,
             prefill_buckets=buckets, graph_buckets=self._graph_menu,
+            prefill_pack_width=cfg.prefill_pack_width,
             cuda_graphs=cfg.cuda_graphs)
         if self.kv_backend == "paged":
             num_pages = max(1, int(hbm // (cfg.page_size * bpt)))
             self.kv = PagedKVBackend(model, bcfg, num_pages)
         else:
             self.kv = DenseKVBackend(model, bcfg)
+        self._prefix_ok = self.kv.prefix is not None
+        if self._prefix_ok:
+            # cached pages no request references are the lowest KV tier:
+            # every page-shortfall path reclaims them before spilling
+            self.mem.register_prefix_cache(self.kv.prefix_reclaim,
+                                           self.kv.prefix_pages)
+            if dense_store_bytes:
+                self.mem.charge_static(dense_store_bytes)
         self.host_pool: Dict[int, dict] = {}       # req_id -> offloaded KV
+        # requests whose device KV went through a lossy (INT8) swap: it is
+        # never published, since a later hit would hand other requests
+        # lossy KV where a recompute is exact.  Cleared on drop (a
+        # recompute rebuilds exact KV)
+        self._lossy_kv: set = set()
         # bounded profiling rings (entries lead with a perf_counter stamp):
         #   iter_times:    (t_mono, ctx_tokens, batch, dt)
-        #   prefill_times: (t_mono, n_tokens, dt)
+        #   prefill_times: (t_mono, n_tokens, dt, rows): rows is 1 for a
+        #                  chunk, the member count for a pack (one entry)
         self.iter_times: Deque[tuple] = deque(maxlen=cfg.profile_window)
         self.prefill_times: Deque[tuple] = deque(maxlen=cfg.profile_window)
         self._generated_of: Dict[int, List[int]] = {}
@@ -254,6 +310,8 @@ class ServingEngine:
         # its own lock so poll_events() never blocks on a step
         self.step_lock = threading.RLock()
         self._events_lock = threading.Lock()
+        self._backlog_cache = 0.0                  # refreshed under step_lock
+        self._backlog_q90 = 0.0                    # p90 surface (admission)
         self.device = cfg.device or default_device_label(model.device)
         if cfg.warmup_compile:
             self.warmup()
@@ -313,9 +371,12 @@ class ServingEngine:
 
     def _chunk_prework(self, chunk: PrefillChunk, t: float):
         """Everything a chunk needs before its dispatch: residency and lane
-        checks, page reservation, memory admission.  Returns ``(status,
-        start, target_toks)`` with status ``"blocked"`` (cannot run this
-        iteration) or ``"ready"``."""
+        checks, shared-prefix matching, page reservation, memory
+        admission.  Returns ``(status, start, target_toks)`` with status
+        ``"blocked"`` (cannot run this iteration), ``"covered"`` (the
+        prefix cache holds the whole span: no compute) or ``"ready"``.
+        Idempotent, so a pack may prework members it then runs through the
+        single-chunk path."""
         r = chunk.req
         rid = r.req_id
         if self.mem.location_of(r) == KVLocation.DRAM:
@@ -327,6 +388,15 @@ class ServingEngine:
         if not self.kv.has(rid) and self.kv.free_slot() is None:
             return "blocked", 0, None   # lanes exhausted; retry next iter
         target_toks = self._prefill_target_tokens(r)
+        if (self._prefix_ok and chunk.start == 0 and r.prefilled == 0
+                and not self.kv.has(rid)):
+            # a fresh prefill (or a recompute) matches the index now (the
+            # submit-time hint may be stale either way); a hit maps or
+            # copies the cached prefix in and moves the watermark forward
+            hit = self.kv.prefix_acquire(rid, target_toks)
+            if hit:
+                r.prefilled = hit
+                r.cached_prefix_hint = hit
         start = max(chunk.start, r.prefilled)
         # the chunk's coverage may need fresh pages: spill the largest-
         # context other resident (prefer fully-prefilled victims)
@@ -346,19 +416,50 @@ class ServingEngine:
         r.state = RequestState.RUNNING
         if r.first_scheduled_time is None:
             r.first_scheduled_time = t
+        if start >= chunk.end and not chunk.last:
+            # the cached prefix covers the whole chunk: no compute; the
+            # scheduler re-plans from the new watermark (a last chunk
+            # always runs: hits stop one token short of the target, whose
+            # logits must come from a real call)
+            return "covered", start, target_toks
         return "ready", start, target_toks
+
+    def _chunk_postwork(self, chunk: PrefillChunk, logits_row, target_toks,
+                        generated_of, t: float) -> None:
+        """Everything after a chunk's call: on the final chunk, publish its
+        full pages to the prefix index (unless its KV is lossy), and
+        sample the first token of a fresh prefill.  Shared by the single
+        chunk and each member of a pack."""
+        r = chunk.req
+        if (chunk.last and self._prefix_ok
+                and r.req_id not in self._lossy_kv):
+            # the next request that shares this prefix hits it (the
+            # partial tail page stays private: decode writes it)
+            self.kv.prefix_publish(r.req_id, target_toks, r.prefilled)
+        if chunk.last and r.generated == 0:   # fresh prefill emits a token
+            tok, reason = self._sample_host(
+                logits_row, r.req_id, 1, r.context_len + 1,
+                self._true_len_of(r))
+            self._accept_token(r, tok, generated_of, t, reason=reason)
+
+    def _synced_since(self, t0: float, logits) -> float:
+        """Seconds since ``t0`` once the device has finished ``logits``."""
+        if logits.is_cuda:
+            torch.cuda.synchronize(logits.device)
+        return time.perf_counter() - t0
 
     def _exec_prefill_chunk(self, chunk: PrefillChunk, generated_of,
                             t: float) -> bool:
-        """Execute one PrefillChunk: claim a lane and admit memory, run the
-        chunk through the backend's resumable prefill (or, for a family
-        without one, the whole target through the monolithic prefill) and,
-        when the final chunk of a fresh prefill completes, sample the first
+        """Execute one PrefillChunk: match the prefix cache (first chunk),
+        claim a lane and admit memory, run the uncached part of the chunk
+        through the backend's resumable prefill (or, for a family without
+        one, the whole target through the monolithic prefill) and, when
+        the final chunk of a fresh prefill completes, sample the first
         token.  Returns whether the chunk made progress."""
         r = chunk.req
         status, start, target_toks = self._chunk_prework(chunk, t)
         if status != "ready":
-            return False
+            return status == "covered"
         t0 = time.perf_counter()
         if self._chunked_ok:
             logits = self.kv.prefill_chunk(
@@ -371,17 +472,62 @@ class ServingEngine:
                                    "partial chunk")
             logits = self._run_prefill(r, target_toks)
             r.prefilled = n_toks = len(target_toks)
-        if chunk.last and r.generated == 0:   # fresh prefill emits a token
-            tok, reason = self._sample_host(
-                logits[0], r.req_id, 1, r.context_len + 1,
-                self._true_len_of(r))
-            dt = time.perf_counter() - t0
-            self._accept_token(r, tok, generated_of, t, reason=reason)
-        else:
-            if logits.is_cuda:
-                torch.cuda.synchronize(logits.device)
-            dt = time.perf_counter() - t0
-        self.prefill_times.append((t0, n_toks, dt))
+        self.prefill_times.append(
+            (t0, n_toks, self._synced_since(t0, logits), 1))
+        self._chunk_postwork(chunk, logits[0], target_toks, generated_of, t)
+        return True
+
+    def _exec_prefill_pack(self, pk: PrefillPack, generated_of,
+                           t: float) -> bool:
+        """Execute one PrefillPack: every member's prework, then every
+        ready member through the backend's packed prefill as one call (rows
+        padded to the pack's bucket and width).  A member whose prework
+        blocks is skipped; the scheduler re-plans it, as a blocked single
+        chunk.  A pack left with one ready member runs it through the
+        single-chunk path, which warmup() has also captured."""
+        ready: List[tuple] = []
+        ran_any = False
+        for chunk in pk.chunks:
+            status, start, target_toks = self._chunk_prework(chunk, t)
+            if status == "covered":
+                ran_any = True
+            elif status == "ready":
+                ready.append((chunk, start, target_toks))
+        # prework admits each member alone, but the pack claims lanes and
+        # pages for all of them at once: drop the members the shared free
+        # supply cannot cover (the scheduler re-plans them)
+        free_lanes = sum(1 for x in self.kv.slot_req if x is None)
+        pool = getattr(self.kv, "pool", None)
+        free_pages = len(pool.free_pages) if pool is not None else 0
+        fit = []
+        for c, s, toks in ready:
+            rid = c.req.req_id
+            need_lane = 0 if self.kv.has(rid) else 1
+            need_pages = 0
+            if pool is not None:
+                need_pages = max(0, pool.pages_needed(c.end)
+                                 - len(pool.page_table.get(rid, [])))
+            if need_lane > free_lanes or need_pages > free_pages:
+                continue
+            free_lanes -= need_lane
+            free_pages -= need_pages
+            fit.append((c, s, toks))
+        ready = fit
+        if not ready:
+            return ran_any
+        if len(ready) == 1:
+            return self._exec_prefill_chunk(ready[0][0], generated_of,
+                                            t) or ran_any
+        items = [(c.req.req_id, toks[s:c.end], s) for c, s, toks in ready]
+        t0 = time.perf_counter()
+        logits = self.kv.prefill_pack(self.params, items, bucket=pk.bucket)
+        dt = self._synced_since(t0, logits)
+        total = sum(c.end - s for c, s, _ in ready)
+        self.prefill_times.append((t0, total, dt, len(ready)))
+        for i, (chunk, _, target_toks) in enumerate(ready):
+            chunk.req.prefilled = chunk.end
+            self._chunk_postwork(chunk, logits[i], target_toks, generated_of,
+                                 t)
         return True
 
     # -------------------------------------------------------------- warmup
@@ -389,9 +535,11 @@ class ServingEngine:
         """Make the first use of every step graph serving can hit, and load
         every kernel library it can reach, on an idle engine: each chunk
         bucket of the menu (on the dense backend in every lane: each lane
-        has its own graph), the fused decode step at ``max_slots`` lanes
-        (or the per-slot decode, eagerly), and one short prompt and one
-        offload/upload round trip of a warm lane (:meth:`_warm_libraries`).
+        has its own graph), with packing one pack per bucket (one member:
+        the padding rows fill the rest of the fixed width), the fused
+        decode step at ``max_slots`` lanes (or the per-slot decode,
+        eagerly), and one short prompt and one offload/upload round trip
+        of a warm lane (:meth:`_warm_libraries`).
         A key's first use runs it twice and captures it; each bucket is
         then run once more and that replay's seconds land in
         ``self.latency.bucket_costs``, so EWT prices a bucketed chunk at its
@@ -427,6 +575,11 @@ class ServingEngine:
                     logits.cpu()
                     costs[b] = time.perf_counter() - t0
                     self.kv.clear(warm_rid)
+        if self._pack_ok:
+            for b in self._graph_menu:
+                self.kv.prefill_pack(self.params, [(warm_rid, [1], 0)],
+                                     bucket=b).cpu()
+                self.kv.clear(warm_rid)
         self._warm_libraries(warm_rid)
         B = self.cfg.max_slots
         zeros = np.zeros((B,), np.int32)
@@ -470,7 +623,16 @@ class ServingEngine:
 
     # ------------------------------------------------------------ swapping
     def _offload(self, req: Request) -> None:
-        self.host_pool[req.req_id] = self.kv.offload(req.req_id)
+        blob = self.kv.offload(req.req_id)
+        if self.cfg.quantize_offload:
+            self._lossy_kv.add(req.req_id)
+        else:
+            # an exact blob names the tokens it covers, so that the
+            # upload can map still-shared prefix pages in again instead
+            # of forking private copies
+            blob["tokens"] = self._prefill_target_tokens(req)[
+                :blob["lengths"]]
+        self.host_pool[req.req_id] = blob
 
     def _upload(self, req: Request) -> None:
         self.kv.upload(req.req_id, self.host_pool.pop(req.req_id))
@@ -479,6 +641,7 @@ class ServingEngine:
         """Delete all engine-side KV for a request (lane/pages + host pool)."""
         self.kv.clear(req_id)
         self.host_pool.pop(req_id, None)
+        self._lossy_kv.discard(req_id)
 
     def _spill(self, victim: Request, t: float, reason: str) -> None:
         """Preempt a resident victim to host DRAM — the single offload path
@@ -495,7 +658,14 @@ class ServingEngine:
         its existing ``output_tokens`` via the recompute path."""
         with self.step_lock:
             self._generated_of[req.req_id] = list(req.output_tokens)
+            if self._prefix_ok and req.prompt_tokens:
+                # speculative pricing: the scheduler charges only the
+                # uncached suffix (matched for real at prefill time); probed
+                # before sched.submit, so the predictor sees the watermark
+                req.cached_prefix_hint = self.kv.prefix_probe(
+                    self._prefill_target_tokens(req))
             self.sched.submit(req, now)
+            self._refresh_backlog()
 
     def poll_events(self) -> List[EngineEvent]:
         """Drain streaming events produced since the last poll (recorded
@@ -519,6 +689,7 @@ class ServingEngine:
             self.sched.release(req)
             self._generated_of.pop(req_id, None)
             req.state = RequestState.QUEUED
+            self._refresh_backlog()
             return req
 
     def drain(self) -> List[Request]:
@@ -538,11 +709,81 @@ class ServingEngine:
             self._emit_event(EngineEvent("cancel", req_id, t))
         return True
 
+    # ------------------------------------------------ scheduler-facing reads
+    def _refresh_backlog(self) -> None:
+        self._backlog_cache, self._backlog_q90 = \
+            self.sched.backlog_quantiles()
+
+    def queue_depth(self) -> int:
+        return len(self.sched.live)
+
+    def predicted_backlog(self, quantile: Optional[float] = None) -> float:
+        """Predicted remaining seconds of live work (routing, admission):
+        the snapshot refreshed under ``step_lock`` at the end of every
+        step, submit and release, so a caller on another thread never
+        races a step.  ``quantile >= 0.9`` reads the p90 remaining-length
+        surface (the conservative backlog), else the p50 one.  The port
+        has no submit mailbox, so no parked arrivals add to it."""
+        if quantile is not None and quantile >= 0.9:
+            return self._backlog_q90
+        return self._backlog_cache
+
+    def gauges(self) -> Dict[str, float]:
+        """Replica-level occupancy snapshot: memory, queue and backlog,
+        MLFQ depths, page pool, prefix cache and the predictor's
+        gauges."""
+        g = self.mem.gauges()
+        g["queue_depth"] = float(self.queue_depth())
+        g["backlog_s"] = float(self._backlog_cache)
+        g["live_requests"] = float(len(self.sched.live))
+        for i, d in enumerate(self.sched.queue_depths()):
+            g[f"mlfq_q{i}_depth"] = float(d)
+        pool = getattr(self.kv, "pool", None)
+        if pool is not None:
+            g["pool_free_pages"] = float(len(pool.free_pages))
+            g["pool_total_pages"] = float(pool.cfg.num_pages)
+            g["pool_utilization"] = float(pool.utilization())
+        if self._prefix_ok:
+            st = self.kv.prefix_stats().as_dict()
+            probes = st["hits"] + st["partial_hits"] + st["misses"]
+            g["prefix_hit_ratio"] = ((st["hits"] + st["partial_hits"])
+                                     / probes if probes else 0.0)
+            for k, v in st.items():
+                g[f"prefix_{k}"] = float(v)
+        g.update(self.predictor.gauges())
+        index = self.model.device.index
+        g["device_index"] = float(index) if index is not None else -1.0
+        return g
+
+    def prefix_probe(self, prompt_tokens) -> int:
+        """Expected shared-prefix hit for a prompt on this engine (0 when
+        the cache is off)."""
+        if not self._prefix_ok or not prompt_tokens:
+            return 0
+        return self.kv.prefix_probe(prompt_tokens)
+
+    def prefill_estimate(self, prompt_len: int,
+                         prompt_tokens=None) -> float:
+        """Prefill term of an expected-TTFT admission gate: with chunked
+        prefill only the first chunk gates (later chunks interleave with
+        decode), a monolithic prefill charges the whole prompt; with the
+        prefix cache only the uncached suffix is charged."""
+        chunk = self.sched.cfg.prefill_chunk
+        cap = max(prompt_len - 1, 0)
+        hit = min(self.prefix_probe(prompt_tokens), cap)
+        if hit <= 0:
+            return self.latency.first_chunk_time(prompt_len, chunk)
+        rem = prompt_len - hit
+        return self.latency.prefill_chunk_time(
+            hit, min(rem, chunk) if chunk else rem)
+
     def serve(self, requests: List[Request], realtime: bool = False,
               max_wall_s: float = 600.0) -> List[Request]:
         """Batch driver: serve all requests to completion on the wall clock
-        (a thin wrapper over submit()/step()/poll_events())."""
-        t_start = time.perf_counter()
+        (a thin wrapper over submit()/step()/poll_events()).  The clock's
+        zero, to which the requests' times are relative, is the
+        ``time.perf_counter()`` stamp kept in ``self.serve_started``."""
+        t_start = self.serve_started = time.perf_counter()
         pending = sorted(requests, key=lambda r: r.arrival_time)
         i_arr = 0
 
@@ -612,12 +853,10 @@ class ServingEngine:
             for item in plan.items:
                 if isinstance(item, DecodeLane):
                     decode_lanes.append(item.req)
-                elif isinstance(item, PrefillChunk):
-                    ran_any |= self._exec_prefill_chunk(item, generated_of, t)
+                elif isinstance(item, PrefillPack):
+                    ran_any |= self._exec_prefill_pack(item, generated_of, t)
                 else:
-                    raise NotImplementedError(
-                        f"{type(item).__name__} plan items are not ported "
-                        "yet (ROADMAP.md Queue 1 item 8)")
+                    ran_any |= self._exec_prefill_chunk(item, generated_of, t)
 
             runnable = [r for r in decode_lanes if self.kv.has(r.req_id)]
             if runnable:
@@ -672,6 +911,7 @@ class ServingEngine:
                     self._accept_token(r, tok, generated_of, t,
                                        reason=reason)
                 ran_any = True
+            self._refresh_backlog()
         # learning happens outside step_lock, after the dispatch work
         self.predictor.drain_feedback()
         return ran_any
@@ -701,6 +941,15 @@ class ServingEngine:
                 self._spill(victim, t, "hbm_grow")
                 self.mem.grow(req)
         if reason:
+            if (self._prefix_ok and req.prompt_tokens
+                    and req.req_id not in self._lossy_kv):
+                # finish-time publish: a multi-turn follow-up resends the
+                # whole conversation, so the generated tokens' full pages
+                # are worth caching too (materialized up to the prefilled
+                # watermark; the fed token's KV is not)
+                self.kv.prefix_publish(req.req_id,
+                                       self._prefill_target_tokens(req),
+                                       req.prefilled)
             self._drop_kv(req.req_id)      # lane/pages or host-pool copy
             self.sched.note_finished(req, t)
             self._generated_of.pop(req.req_id, None)
@@ -715,5 +964,22 @@ class ServingEngine:
         """Fit Eq. 3-5 coefficients from this engine's measured step
         times."""
         decode = [(ctx / max(b, 1), dt) for _, ctx, b, dt in self.iter_times]
-        prefill = [(n, dt) for _, n, dt in self.prefill_times]
+        prefill = [(n, dt) for _, n, dt, _ in self.prefill_times]
         return LatencyModel.fit(prefill, decode)
+
+    def autotune_token_budget(self, target_tpot: float) -> Optional[int]:
+        """Set ``iter_token_budget`` from the fitted latency model: the
+        budget whose predicted mixed-iteration time (a full decode batch
+        plus prefill-chunk fill) meets ``target_tpot``.  Needs profiled
+        iterations (serve a warm batch first); returns the chosen budget
+        (None leaves the budget unbounded)."""
+        lm = self.fit_latency_model()
+        if self.iter_times:
+            ctx = float(np.mean([c / max(b, 1)
+                                 for _, c, b, _ in self.iter_times]))
+        else:
+            ctx = self.cfg.max_seq_len / 2
+        budget = lm.budget_for_tpot(target_tpot, self.cfg.max_slots, ctx)
+        with self.step_lock:
+            self.sched.cfg.iter_token_budget = budget
+        return budget

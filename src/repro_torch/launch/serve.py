@@ -7,6 +7,10 @@ model (batch mode).
         --n-requests 16 --max-slots 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         --arch-size full --n-requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch-size full \
+        --kv-backend paged --prefill-chunk 256 --prefill-pack \
+        --prefix-cache --predictor online --iter-token-budget auto \
+        --target-tpot 0.03 --warmup
 
 run granite-3-8b on the dense KV backend (a K/V stripe per lane; the
 default, as in the JAX launcher; without ``--prefill-chunk`` each prompt is
@@ -22,6 +26,15 @@ reference.  On a GPU the fused decode step and the prefill chunks of the
 bucket menu run as CUDA graphs; ``--warmup`` captures them (and loads
 every kernel library serving can reach) before the first request, so
 serving captures and loads nothing.
+
+``--predictor online`` is the learned hit-aware quantile length predictor
+(``serving/prediction``); ``--iter-token-budget auto`` serves a warm batch,
+fits the latency model to it and picks the budget whose predicted
+iteration time meets ``--target-tpot``; ``--prefill-pack`` runs
+equal-bucket chunks of up to ``--prefill-pack-width`` requests as one
+call (over the pow2 bucket menu of ``--prefill-chunk`` unless
+``--prefill-buckets`` names one); ``--prefix-cache`` shares the K/V of
+repeated prompt prefixes across requests.
 """
 from __future__ import annotations
 
@@ -36,6 +49,7 @@ from repro_torch.core.engine import EngineConfig, ServingEngine
 from repro_torch.core.predictor import OraclePredictor, RetrievalPredictor
 from repro_torch.core.request import Request, reset_request_counter
 from repro_torch.models.model import Model
+from repro_torch.serving.prediction import OnlineQuantilePredictor
 from repro_torch.utils import resolve_device
 
 # per arch size: (max_seq_len, max_new_tokens); the smoke size is the JAX
@@ -46,6 +60,8 @@ SIZES = {"smoke": (96, 48), "full": (2048, 64)}
 def _mk_predictor(kind: str, seed: int = 0):
     if kind == "oracle":
         return OraclePredictor()
+    if kind == "online":
+        return OnlineQuantilePredictor(seed=seed)
     return RetrievalPredictor(seed=seed)
 
 
@@ -91,31 +107,52 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
           strategy: str = "alise", n_requests: int = 12, max_slots: int = 4,
           seed: int = 0, predictor_kind: str = "oracle",
           quantize: bool = True, prefill_chunk: Optional[int] = None,
-          iter_token_budget: Optional[int] = None,
+          iter_token_budget=None, target_tpot: float = 0.05,
+          prefill_buckets=None, prefill_pack: bool = False,
+          prefill_pack_width: int = 4, prefix_cache: bool = False,
           paged_attn_impl: Optional[str] = None,
           chunk_attn: Optional[str] = None, page_size: int = 16,
           kv_backend: str = "dense", device=None, model_and_params=None,
           warmup: bool = False, verbose: bool = True,
-          cuda_graphs: bool = True):
-    """Build (or take) the model, serve ``n_requests`` through
-    ``ServingEngine.serve`` and print a summary.  ``kv_backend`` is
-    ``dense`` (the default, as in the JAX launcher) or ``paged`` (attention
-    family only).  ``cuda_graphs=False`` runs the serving steps eagerly on
-    the card (``EngineConfig.cuda_graphs``).  Returns ``(requests,
-    engine)``."""
+          cuda_graphs: bool = True, requests=None):
+    """Build (or take) the model, serve ``n_requests`` (or ``requests``)
+    through ``ServingEngine.serve`` and print a summary.  ``kv_backend``
+    is ``dense`` (the default, as in the JAX launcher) or ``paged``
+    (attention family only).  ``iter_token_budget`` is an int, None
+    (unbounded) or ``"auto"``: then a warm batch of ``max(4, max_slots)``
+    requests is served first and ``autotune_token_budget(target_tpot)``
+    sets the budget from its fitted latency model.  ``cuda_graphs=False``
+    runs the serving steps eagerly on the card (``EngineConfig.
+    cuda_graphs``).  Returns ``(requests, engine)``."""
     dev = resolve_device(device)
     model, params = model_and_params or build_model(
         arch, arch_size, dev, chunk_attn, seed)
     impl = paged_attn_impl or ("kernel" if dev.type == "cuda" else "gather")
     max_seq, max_new = SIZES[arch_size]
+    autotune = iter_token_budget == "auto"
     eng = ServingEngine(model, params, EngineConfig(
         max_slots=max_slots, max_seq_len=max_seq, max_new_tokens=max_new,
         strategy=strategy, quantize_offload=quantize, kv_backend=kv_backend,
         page_size=page_size, paged_attn_impl=impl,
-        prefill_chunk=prefill_chunk, iter_token_budget=iter_token_budget,
+        prefill_chunk=prefill_chunk,
+        iter_token_budget=None if autotune else iter_token_budget,
+        prefill_buckets=prefill_buckets, prefill_pack=prefill_pack,
+        prefill_pack_width=prefill_pack_width, prefix_cache=prefix_cache,
         warmup_compile=warmup, cuda_graphs=cuda_graphs, seed=seed),
         predictor=_mk_predictor(predictor_kind, seed))
-    reqs = build_requests(model.cfg, n_requests, seed, arch_size)
+    if autotune:
+        # profile a warm batch, then pick the budget whose predicted
+        # mixed-iteration time meets the target TPOT
+        eng.serve(build_requests(model.cfg, max(4, max_slots), seed + 1,
+                                 arch_size))
+        budget = eng.autotune_token_budget(target_tpot)
+        if verbose:
+            lm = eng.fit_latency_model()
+            print(f"[serve] auto-tuned iter_token_budget={budget} (target "
+                  f"TPOT {target_tpot * 1e3:.1f}ms; fit t0={lm.t0:.2e}s/tok "
+                  f"alpha={lm.alpha:.2e} beta={lm.beta:.2e})")
+    reqs = (requests if requests is not None
+            else build_requests(model.cfg, n_requests, seed, arch_size))
     eng.serve(reqs)
     if verbose:
         lat = [r.e2e_latency for r in reqs if r.e2e_latency is not None]
@@ -138,6 +175,16 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
             print(f"[serve] warmup: {w['keys']} step keys, {w['captures']} "
                   f"CUDA graphs captured (pool {w['pool_bytes'] / 2**20:.1f}"
                   f" MiB), {w['compiles']} compile events")
+        members = [m for t, _, _, m in eng.prefill_times
+                   if m > 1 and t >= eng.serve_started]
+        if members:     # this serve's packs (not the auto warm batch's)
+            print(f"[serve] prefill packs: {len(members)} dispatched, mean "
+                  f"{np.mean(members):.2f} of {prefill_pack_width} rows")
+        st = eng.kv.prefix_stats()
+        if st is not None:
+            print(f"[serve] prefix cache: {st.hits} hits ({st.partial_hits} "
+                  f"partial), {st.misses} misses, {st.hit_tokens} tokens "
+                  f"served from cache, {st.inserted_pages} pages published")
         lm = eng.fit_latency_model()
         print(f"[serve] fitted latency model: t0={lm.t0:.2e}s/tok "
               f"alpha={lm.alpha:.2e} beta={lm.beta:.2e}")
@@ -159,13 +206,38 @@ def main():
     ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--predictor", default="oracle",
-                    choices=["oracle", "retrieval"])
+                    choices=["oracle", "retrieval", "online"],
+                    help="length predictor: 'oracle' (true lengths), "
+                         "'retrieval' (static hashed-ngram KNN) or "
+                         "'online' (hit-aware p50/p90 quantile regressor "
+                         "that learns from served traffic)")
     ap.add_argument("--no-quantize", action="store_true",
                     help="swap KV to the host in the working dtype instead "
                          "of INT8")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="max prompt tokens per prefill chunk")
-    ap.add_argument("--iter-token-budget", type=int, default=None)
+    ap.add_argument("--iter-token-budget", default=None,
+                    help="scheduler token budget per iteration: an "
+                         "integer, or 'auto' to fit it from a profiled "
+                         "warm batch against --target-tpot (default: "
+                         "unbounded)")
+    ap.add_argument("--target-tpot", type=float, default=0.05,
+                    help="TPOT target (s) for --iter-token-budget auto")
+    ap.add_argument("--prefill-buckets", default=None, metavar="B1,B2,...",
+                    help="fixed menu of prefill chunk-shape buckets "
+                         "(comma-separated token counts); default: the "
+                         "pow2 ladder up to --prefill-chunk")
+    ap.add_argument("--prefill-pack", action="store_true",
+                    help="run equal-bucket prefill chunks of several "
+                         "requests as one call (greedy outputs unchanged on "
+                         "the CPU in float32)")
+    ap.add_argument("--prefill-pack-width", type=int, default=4,
+                    help="requests per packed prefill call")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="cross-request shared-prefix KV cache: repeated "
+                         "prompt prefixes reuse cached K/V instead of "
+                         "being prefilled again (greedy outputs "
+                         "unchanged on the CPU in float32)")
     ap.add_argument("--paged-attn-impl", default=None,
                     choices=["gather", "kernel"],
                     help="decode attention: page gather + masked softmax "
@@ -186,10 +258,20 @@ def main():
                          "bucket) as CUDA graphs, load every kernel library "
                          "and time each bucket before serving")
     args = ap.parse_args()
+    buckets = None
+    if args.prefill_buckets:
+        buckets = tuple(sorted({int(x) for x in
+                                args.prefill_buckets.split(",") if x.strip()}))
+    budget = args.iter_token_budget
+    if budget is not None and budget != "auto":
+        budget = int(budget)
     serve(args.arch, args.arch_size, args.strategy, args.n_requests,
           args.max_slots, seed=args.seed, predictor_kind=args.predictor,
           quantize=not args.no_quantize, prefill_chunk=args.prefill_chunk,
-          iter_token_budget=args.iter_token_budget,
+          iter_token_budget=budget, target_tpot=args.target_tpot,
+          prefill_buckets=buckets, prefill_pack=args.prefill_pack,
+          prefill_pack_width=args.prefill_pack_width,
+          prefix_cache=args.prefix_cache,
           paged_attn_impl=args.paged_attn_impl, chunk_attn=args.chunk_attn,
           kv_backend=args.kv_backend, device=args.device, warmup=args.warmup)
 

@@ -283,12 +283,16 @@ class Model:
         return self._last_logits(params, x, chunk_len)
 
     def _last_logits(self, params, x, chunk_len):
-        """The logits (1, V) float32 of chunk row ``chunk_len - 1`` (clamped
-        to the chunk), selected by a device index."""
-        C = x.shape[1]
-        last = (_scalar(chunk_len, x.device).long() - 1).clamp(0, C - 1)
-        x_last = self._norm(params["final_norm"],
-                            x.index_select(1, last)[:, 0])
+        """The logits (N, V) float32 of each row's chunk position
+        ``chunk_len - 1`` (clamped to the chunk), selected by a device
+        index.  ``x``: (N, C, D); ``chunk_len``: an int (N = 1) or an (N,)
+        integer tensor."""
+        N, C, D = x.shape
+        n = (chunk_len.reshape(N) if isinstance(chunk_len, torch.Tensor)
+             else _scalar(chunk_len, x.device))
+        last = (n.to(x.device).long() - 1).clamp(0, C - 1)
+        x_last = x.gather(1, last.view(N, 1, 1).expand(N, 1, D))[:, 0]
+        x_last = self._norm(params["final_norm"], x_last)
         return self._logits(params, x_last).float()
 
     # ------------------------------------------------------- paged decode
@@ -461,6 +465,117 @@ class Model:
             attn = self._chunk_attn(q, k_l[None], v_l[None], q_pos, kv_pos,
                                     start_vec)
             x = x + attn.reshape(1, C, -1) @ p_l["attn"]["wo"]
+            x = self._ffn_block(p_l, x)
+        return self._last_logits(params, x, chunk_len)
+
+    # ------------------------------------------------------ packed prefill
+    def supports_prefill_pack(self) -> bool:
+        """Packed prefill runs several requests' chunks as the rows of one
+        batch.  Attention, the norms and the dense FFN treat rows
+        independently, so each row computes what its single chunk would;
+        an MoE's expert capacity depends on the total token count, so
+        packing covers the dense-FFN chunked-prefill family."""
+        return (self.supports_chunked_prefill()
+                and self.cfg.ffn_kind(0) != "moe")
+
+    def _check_pack(self) -> None:
+        if not self.supports_prefill_pack():
+            raise ValueError(f"packed prefill unsupported for family="
+                             f"{self.cfg.family} ffn={self.cfg.ffn_kind(0)}")
+
+    @torch.no_grad()
+    def prefill_pack(self, params, k_cache, v_cache, lanes, tokens, start,
+                     chunk_len):
+        """N prefill chunks of distinct requests in one call over the
+        dense cache: the batched twin of :meth:`prefill_chunk`, row ``i``
+        computing what its own chunk would over its lane's stripe.
+
+        ``k_cache``/``v_cache``: (L, lanes, Smax, KVH, hd), written **in
+        place**; ``lanes``, ``start`` and ``chunk_len``: (N,) integer
+        tensors on the model's device (so no host value is baked into a
+        captured graph); ``tokens``: (N, C) right-padded.  Per layer the N
+        stripes are gathered into a scratch (N, Smax, KVH, hd) (one layer
+        at a time: the reference gathers every layer's stripes up front),
+        each row's chunk K/V written at ``(start + i) mod Smax`` (the old
+        value where ``start + i >= Smax``, as :meth:`prefill_chunk`), the
+        chunk attends its gathered stripe through :meth:`_chunk_attn`, and
+        the written rows go back to the cache.
+
+        A row with ``chunk_len`` 0 is pack padding: its outputs are
+        garbage the caller discards, and its write-back is masked by
+        writing row 0's rows again (the same indices and the same values,
+        so the duplicate scatter is deterministic) in place of its own.
+        Row 0 must be a member, or a row with ``start >= Smax``, which
+        writes only old values (a pack that changes nothing).  Returns the
+        last-position logits (N, V) float32."""
+        self._check_pack()
+        cfg = self.cfg
+        dev = tokens.device
+        N, C = tokens.shape
+        Smax = k_cache.shape[2]
+        start = start.reshape(N).to(torch.int32)   # as the flash kernel takes
+        x = self._embed_in(params, tokens)
+        q_pos = start.long()[:, None] + torch.arange(C, device=dev)[None]
+        kv_pos = torch.arange(Smax, device=dev)[None, :]
+        n = min(C, Smax)                     # rows that may land
+        rows = q_pos[:, :n] % Smax                              # (N, n)
+        inside = (q_pos[:, :n] < Smax)[..., None, None]
+        ar = torch.arange(N, device=dev)
+        src = torch.where(chunk_len.reshape(N) > 0, ar, torch.zeros_like(ar))
+        lanes = lanes.reshape(N).long()
+        dst = (lanes[src][:, None].expand(N, n), rows[src])
+        for li, p_l in enumerate(params["layers"]):
+            h1 = self._norm(p_l["ln1"], x)
+            q, k, v = L._project_qkv(cfg, p_l["attn"], h1, q_pos)
+            kg = k_cache[li].index_select(0, lanes)     # (N, Smax, KVH, hd)
+            vg = v_cache[li].index_select(0, lanes)
+            for g, new in ((kg, k), (vg, v)):
+                g[ar[:, None], rows] = torch.where(
+                    inside, new[:, :n].to(g.dtype), g[ar[:, None], rows])
+            attn = self._chunk_attn(q, kg, vg, q_pos, kv_pos, start)
+            k_cache[li].index_put_(dst, kg[src[:, None], rows[src]])
+            v_cache[li].index_put_(dst, vg[src[:, None], rows[src]])
+            x = x + attn.reshape(N, C, -1) @ p_l["attn"]["wo"]
+            x = self._ffn_block(p_l, x)
+        return self._last_logits(params, x, chunk_len)
+
+    @torch.no_grad()
+    def paged_prefill_pack(self, params, kv, tokens, block_tables,
+                           write_page, write_off, start, chunk_len):
+        """N prefill chunks of distinct requests in one call whose K/V
+        lands in the page pool: the batched twin of
+        :meth:`paged_prefill_chunk`.
+
+        ``kv``: {"k","v"} (L, num_pages, page, KVH, hd), written **in
+        place**; ``tokens``: (N, C); ``block_tables``: (N, max_pages) with
+        unused entries at the scratch page; ``write_page``/``write_off``:
+        (N, C) physical destination of each token (the scratch page for
+        padded columns and for pack-padding rows, which carry
+        ``chunk_len`` 0); ``start``/``chunk_len``: (N,) integer tensors on
+        the model's device.  Returns the last-position logits (N, V)
+        float32."""
+        self._check_pack()
+        cfg = self.cfg
+        dev = tokens.device
+        N, C = tokens.shape
+        page = kv["k"].shape[2]
+        Smax = block_tables.shape[1] * page
+        start = start.reshape(N).to(torch.int32)   # as the flash kernel takes
+        x = self._embed_in(params, tokens)
+        q_pos = start.long()[:, None] + torch.arange(C, device=dev)[None]
+        kv_pos = torch.arange(Smax, device=dev)[None, :]
+        wp, wo = write_page.long(), write_off.long()
+        tables = block_tables.long()
+        for li, p_l in enumerate(params["layers"]):
+            k_pool, v_pool = kv["k"][li], kv["v"][li]
+            h1 = self._norm(p_l["ln1"], x)
+            q, k, v = L._project_qkv(cfg, p_l["attn"], h1, q_pos)
+            k_pool.index_put_((wp, wo), k.to(k_pool.dtype))
+            v_pool.index_put_((wp, wo), v.to(v_pool.dtype))
+            kg = k_pool[tables].reshape(N, Smax, *k_pool.shape[2:])
+            vg = v_pool[tables].reshape(N, Smax, *v_pool.shape[2:])
+            attn = self._chunk_attn(q, kg, vg, q_pos, kv_pos, start)
+            x = x + attn.reshape(N, C, -1) @ p_l["attn"]["wo"]
             x = self._ffn_block(p_l, x)
         return self._last_logits(params, x, chunk_len)
 

@@ -5,9 +5,10 @@ Three layers live here, as in ``repro.serving.kv_cache``:
 
   * :class:`PagedKVPool` — the vLLM-style block allocator (physical pages +
     refcounted per-request page tables) ALISE's request-level swapping
-    sits on.  The pool tensors live on the device and are written **in
-    place** (``index_put_`` / ``index_copy_``) where the JAX package
-    rebuilt them functionally.
+    and the shared-prefix cache sit on: a page may be mapped into several
+    page tables and the prefix index at once.  The pool tensors live on
+    the device and are written **in place** (``index_put_`` /
+    ``index_copy_``) where the JAX package rebuilt them functionally.
   * :class:`PagedKVBackend` — the engine-facing device KV residency:
     decode-lane (slot) assignment, resumable chunked prefill into pages,
     request-granular offload/upload blobs, and ``decode()`` — one fused
@@ -20,31 +21,43 @@ Three layers live here, as in ``repro.serving.kv_cache``:
     decode), for the ``ssm`` family a request's constant-size conv and SSM
     state (monolithic prefill).  It is written in place too.
 
-The fused decode step and the prefill chunks of the engine's bucket menu
-run through :class:`~repro_torch.serving.step_graphs.StepGraphs`: on the
-card each is a CUDA graph captured at its key's first use (the engine's
-warmup makes that happen before serving) and replayed, with its integer
-inputs staged by one host-to-device copy.  Other chunks (a whole prompt
-when no chunk size is set), swaps and the per-slot decode run eagerly.
+Both attention backends also run packed prefill (``prefill_pack``: up to
+``prefill_pack_width`` requests' chunks of one bucket as the rows of one
+call) and the shared-prefix cache (``prefix_*``: the paged backend aliases
+pool pages, the dense one copies through a private page store;
+``serving/prefix_cache.py``).
+
+The fused decode step, the prefill chunks of the engine's bucket menu and
+the packs of that menu run through
+:class:`~repro_torch.serving.step_graphs.StepGraphs`: on the card each is
+a CUDA graph captured at its key's first use (the engine's warmup makes
+that happen before serving) and replayed, with its integer inputs staged
+by one host-to-device copy.  A pack always has ``prefill_pack_width``
+rows (padding rows compute garbage that is dropped), so that the flash
+kernel's split plan and the weight products see one shape per bucket.
+Other chunks (a whole prompt when no chunk size is set), swaps, prefix
+copies and the per-slot decode run eagerly.
 
 Offload/upload of K/V run the INT8 ``kv_quant`` kernels on the device when
 ``quantize_offload`` is set (paper Eq. 8): the host link carries the INT8
 payload plus float32 per-row scales and zeros.  Conv and SSM state cross
 raw, as in the reference: INT8 applies to K/V only.
 
-Not ported yet (a config that asks for one raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item): packed prefill, the shared-prefix cache,
-the cluster KV tier and speculative decoding.
+Not ported yet: speculative decoding (``ROADMAP.md`` Queue 1 item 9; the
+engine raises ``NotImplementedError`` for it) and the cluster KV tier
+(item 10), whose hooks are absent.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.kv_quant import kv_dequantize, kv_quantize
+from repro_torch.serving.prefix_cache import (DensePrefixCache,
+                                              PagedPrefixCache)
 from repro_torch.serving.step_graphs import StepGraphs, pack, unpack
 from repro_torch.utils import dtype_of
 
@@ -64,9 +77,11 @@ class PagedKVConfig:
 class PagedKVPool:
     """Physical page pool + per-request page tables (one layer set each).
 
-    Pages are refcounted: every table entry holds one reference and a page
-    returns to the free list when its count reaches zero.  ``k``/``v`` are
-    device tensors (L, num_pages, page, KVH, d) updated in place.
+    Pages are refcounted so that the shared-prefix cache can alias one
+    physical page into many page tables and its own index: every table
+    entry and every index entry holds one reference, and a page returns to
+    the free list when its count reaches zero.  ``k``/``v`` are device
+    tensors (L, num_pages, page, KVH, d) updated in place.
     """
 
     def __init__(self, cfg: PagedKVConfig, device=None):
@@ -88,6 +103,9 @@ class PagedKVPool:
         self.refs[page] = 1
         return page
 
+    def incref(self, page: int) -> None:
+        self.refs[page] = self.refs.get(page, 0) + 1
+
     def decref(self, page: int) -> int:
         """Drop one reference; a page at zero returns to the free list."""
         n = self.refs.get(page, 0) - 1
@@ -97,6 +115,14 @@ class PagedKVPool:
             return 0
         self.refs[page] = n
         return n
+
+    def cow_page(self, src: int) -> int:
+        """Copy-on-write: a fresh page (refcount 1) holding a copy of
+        ``src``'s K/V in every layer, for the caller to own alone."""
+        dst = self.take_page()
+        self.k[:, dst].copy_(self.k[:, src])
+        self.v[:, dst].copy_(self.v[:, src])
+        return dst
 
     # ------------------------------------------------------------ allocator
     def pages_needed(self, tokens: int) -> int:
@@ -146,6 +172,9 @@ class PagedKVPool:
         for page in self.page_table.pop(req_id, []):
             self.decref(page)
         self.lengths.pop(req_id, None)
+
+    def utilization(self) -> float:
+        return 1.0 - len(self.free_pages) / self.cfg.num_pages
 
     def block_table_array(self, req_ids: List[int], device=None) -> tuple:
         """(tables (B, max_pages) int32, lengths (B,) int32) padded."""
@@ -198,12 +227,17 @@ class KVBackendConfig:
     quantize_offload: bool = True
     page_size: int = 16
     attn_impl: str = "gather"      # paged decode attention: gather | kernel
+    prefix_cache: bool = False     # cross-request shared-prefix KV cache
+    prefix_cache_pages: int = 0    # dense backend: private store capacity
+                                   # (0 = one full batch of stripes)
     seed: int = 0
     prefill_buckets: Optional[Tuple[int, ...]] = None
     # fixed, sorted menu of chunk-shape buckets: chunk dispatch shapes are
     # rounded up to the nearest entry (else pow2 buckets, min 8)
     graph_buckets: Tuple[int, ...] = ()
-    # chunk buckets that run as step graphs (the engine's warmed menu)
+    # chunk and pack buckets that run as step graphs (the engine's warmed
+    # menu)
+    prefill_pack_width: int = 4    # rows of every packed-prefill call
     cuda_graphs: bool = True       # capture the steps on a CUDA device
 
 
@@ -215,7 +249,8 @@ class KVBackend:
     step covering embedding, the layer stack, KV writes, attention,
     sampling and termination — the engine copies a single small
     ``(tokens, reasons)`` pair to the host per iteration.  ``graphs``
-    runs it and the menu's chunks as step graphs.
+    runs it and the menu's chunks and packs as step graphs.  ``prefix`` is
+    the shared-prefix cache, or None when it is off.
     """
 
     def __init__(self, model, cfg: KVBackendConfig):
@@ -224,6 +259,7 @@ class KVBackend:
         self.device = model.device
         self.slot_req: List[Optional[int]] = [None] * cfg.max_slots
         self.graphs = StepGraphs(self.device, cfg.cuda_graphs)
+        self.prefix = None
 
     # --------------------------------------------------------------- lanes
     def slot_of(self, rid: int) -> Optional[int]:
@@ -271,9 +307,9 @@ class KVBackend:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     def _run_chunk(self, key: tuple, staged: np.ndarray, step, neutral):
-        """A chunk step: a step graph when its bucket is on the graph menu,
-        else an eager call on the staged input.  Returns the logits (1, V),
-        copied out of the graph's pool."""
+        """A chunk or pack step: a step graph when its bucket is on the
+        graph menu, else an eager call on the staged input.  Returns the
+        logits (rows, V), copied out of the graph's pool."""
         if key[1] in self.cfg.graph_buckets:
             return self.graphs.run(key, staged, step, neutral).clone()
         return step(torch.from_numpy(staged).to(self.device))
@@ -322,6 +358,75 @@ class KVBackend:
         (always 0 without a page pool)."""
         return 0
 
+    # ------------------------------------------------------ packed prefill
+    def supports_pack(self) -> bool:
+        """Whether :meth:`prefill_pack` is available (the model packs)."""
+        return self.model.supports_prefill_pack()
+
+    def prefill_pack(self, params, items: Sequence[Tuple[int, List[int],
+                                                         int]],
+                     bucket: int = 0):
+        """Run several requests' prefill chunks as one call of
+        ``prefill_pack_width`` rows.
+
+        ``items``: up to ``prefill_pack_width`` tuples ``(rid, tokens,
+        start)`` of distinct requests, each chunk at most ``bucket``
+        tokens (0: the bucket of the longest).  A request's first chunk
+        claims a lane.  A pack of a menu bucket runs as the step graph
+        ``("pack", bucket)``; the rows past the members are padding.
+        Returns each member's last-position logits (len(items), V), in
+        item order."""
+        N = self.cfg.prefill_pack_width
+        if not 0 < len(items) <= N:
+            raise ValueError(f"a pack of {len(items)} members, width {N}")
+        longest = max(len(t) for _, t, _ in items)
+        Cb = bucket or self._chunk_bucket(longest)
+        if longest > Cb:
+            raise ValueError(f"a {longest}-token member exceeds the pack "
+                             f"bucket {Cb}")
+        staged = self._pack_inputs(items, Cb)
+        logits = self._run_chunk(
+            ("pack", Cb), staged,
+            lambda buf: self._pack_step(params, buf, Cb),
+            lambda: self._pack_inputs([], Cb))
+        return logits[:len(items)]
+
+    # ------------------------------------------------ shared-prefix cache
+    def prefix_probe(self, tokens) -> int:
+        """Expected cached-prefix hit for ``tokens`` (a pricing hint;
+        touch-free, so probes cannot skew the LRU)."""
+        if self.prefix is None or not tokens:
+            return 0
+        return self.prefix.probe(list(tokens))
+
+    def prefix_acquire(self, rid: int, tokens) -> int:
+        """Materialize the longest cached prefix of ``tokens`` for ``rid``
+        (claiming its lane) and return the hit length, the request's
+        starting ``prefilled`` watermark (0: a miss, or the cache off)."""
+        return 0
+
+    def prefix_publish(self, rid: int, tokens, upto: int) -> int:
+        """Share ``rid``'s materialized KV of ``tokens[:upto]`` (full
+        pages only) into the index; returns the pages newly shared."""
+        return 0
+
+    def prefix_reclaim(self, n_pages: int) -> int:
+        """Evict up to ``n_pages`` cached pages no request references
+        (LRU): the first victims of a page shortfall, ahead of any
+        resident request's pages."""
+        if self.prefix is None:
+            return 0
+        return self.prefix.reclaim(n_pages)
+
+    def prefix_pages(self) -> Tuple[int, int]:
+        """(pages the cache holds, pages reclaimable now)."""
+        if self.prefix is None:
+            return (0, 0)
+        return self.prefix.held_pages()
+
+    def prefix_stats(self):
+        return None if self.prefix is None else self.prefix.stats
+
 
 class PagedKVBackend(KVBackend):
     """Paged KV storage: decode lanes share one physical page pool.
@@ -345,9 +450,22 @@ class PagedKVBackend(KVBackend):
             head_dim=acfg.hd, num_layers=acfg.num_layers,
             dtype=model.kv_dtype), device=self.device)
         self.scratch_page = self.pool.reserve_scratch()
+        if cfg.prefix_cache:
+            self.prefix = PagedPrefixCache(self.pool, cfg.page_size)
 
     def _kv(self) -> dict:
         return {"k": self.pool.k, "v": self.pool.v}
+
+    def _claim(self, rid: int, slot: Optional[int] = None) -> None:
+        """Give ``rid`` a lane (``slot`` when given, else the first free
+        one) and an empty page table if it has none; chunks extend it."""
+        slot = self.free_slot() if slot is None else slot
+        if slot is None or self.slot_req[slot] is not None:
+            raise RuntimeError("no free decode lane: the caller must "
+                               "check free_slot()")
+        self.slot_req[slot] = rid
+        if rid not in self.pool.page_table:
+            self.pool.allocate(rid, 0)
 
     # ---------------------------------------------------------- interface
     def prefill_chunk(self, params, rid: int, tokens: List[int],
@@ -360,13 +478,7 @@ class PagedKVBackend(KVBackend):
         bucket)``: its pages are gathered into the graph's own memory, so
         one graph serves every lane."""
         if self.slot_of(rid) is None:       # first chunk: claim a lane
-            slot = self.free_slot() if slot is None else slot
-            if slot is None or self.slot_req[slot] is not None:
-                raise RuntimeError("no free decode lane: the caller must "
-                                   "check free_slot()")
-            self.slot_req[slot] = rid
-            if rid not in self.pool.page_table:
-                self.pool.allocate(rid, 0)  # empty table; chunks extend it
+            self._claim(rid, slot)
         C = len(tokens)
         # grow page coverage to the chunk's end (caller checked
         # chunk_pages_shortfall); a chunk may start/end mid-page
@@ -384,18 +496,48 @@ class PagedKVBackend(KVBackend):
         ``Cb``, each row's physical page and offset (padded rows at the
         scratch page), ``start`` and the token count.  No pages and no
         tokens give a chunk that writes only the scratch page."""
+        return pack(*self._chunk_fields(pt, tokens, start, Cb))
+
+    def _chunk_fields(self, pt: List[int], tokens: List[int], start: int,
+                      Cb: int) -> tuple:
+        """:meth:`_chunk_inputs`'s arrays, in its order."""
         C, pg = len(tokens), self.cfg.page_size
-        toks = np.zeros((1, Cb), np.int32)
-        toks[0, :C] = tokens
+        toks = np.zeros((Cb,), np.int32)
+        toks[:C] = tokens
         wp = np.full((Cb,), self.scratch_page, np.int32)
         wo = np.arange(Cb, dtype=np.int32) % pg     # harmless scratch offsets
         pos = start + np.arange(C)
         wp[:C] = np.asarray(pt, np.int32)[pos // pg]
         wo[:C] = pos % pg
-        tables = np.full((1, self.max_pages_per_seq), self.scratch_page,
+        tables = np.full((self.max_pages_per_seq,), self.scratch_page,
                          np.int32)
-        tables[0, :len(pt)] = pt
-        return pack(tables, toks, wp, wo, [start], [C])
+        tables[:len(pt)] = pt
+        return tables, toks, wp, wo, start, C
+
+    def _pack_inputs(self, items, Cb: int) -> np.ndarray:
+        """A pack's staged input: :meth:`_chunk_fields` of each member
+        (claiming lanes and growing page coverage to each chunk's end:
+        the caller checked the shortfall), then of padding rows (no pages,
+        no tokens: they write only the scratch page), stacked field by
+        field."""
+        rows = []
+        for rid, tokens, start in items:
+            if self.slot_of(rid) is None:   # first chunk: claim a lane
+                self._claim(rid)
+            self.pool.extend_to(rid, start + len(tokens))
+            rows.append(self._chunk_fields(self.pool.page_table[rid],
+                                           tokens, start, Cb))
+        pad = self._chunk_fields([], [], 0, Cb)
+        rows += [pad] * (self.cfg.prefill_pack_width - len(items))
+        return pack(*(np.stack([np.asarray(r[f]) for r in rows])
+                      for f in range(len(pad))))
+
+    def _pack_step(self, params, buf, Cb: int):
+        N, maxp = self.cfg.prefill_pack_width, self.max_pages_per_seq
+        tables, toks, wp, wo, start, n = unpack(
+            buf, (N, maxp), (N, Cb), (N, Cb), (N, Cb), (N,), (N,))
+        return self.model.paged_prefill_pack(params, self._kv(), toks,
+                                             tables, wp, wo, start, n)
 
     def _chunk_step(self, params, buf, Cb: int):
         tables, toks, wp, wo, start, n = unpack(
@@ -408,6 +550,26 @@ class PagedKVBackend(KVBackend):
         have = len(self.pool.page_table.get(rid, []))
         return max(0, self.pool.pages_needed(end) - have
                    - len(self.pool.free_pages))
+
+    def prefix_acquire(self, rid: int, tokens) -> int:
+        """Zero-copy hit: map the cached prefix's pages into ``rid``'s page
+        table (a reference each; a partial page copied on write) and claim
+        its lane, so chunked prefill resumes at the hit watermark."""
+        if (self.prefix is None or self.has(rid)
+                or rid in self.pool.page_table):
+            return 0
+        slot = self.free_slot()
+        if slot is None:
+            return 0
+        hit = self.prefix.acquire(rid, list(tokens))
+        if hit:
+            self.slot_req[slot] = rid
+        return hit
+
+    def prefix_publish(self, rid: int, tokens, upto: int) -> int:
+        if self.prefix is None:
+            return 0
+        return self.prefix.publish(rid, list(tokens), upto)
 
     def clear(self, rid: int) -> None:
         slot = self.slot_of(rid)
@@ -441,18 +603,36 @@ class PagedKVBackend(KVBackend):
     def upload(self, rid: int, blob: dict) -> None:
         """Restore an offloaded blob into fresh pages and a free lane
         (dequantized to float32 on the device, then cast to the pool's
-        dtype)."""
+        dtype).  An exact blob that names its ``tokens`` rejoins the
+        shared-prefix pool: the pages of its prefix still in the index
+        are mapped in again (a reference each) instead of forked into
+        private copies, and only the rest is copied."""
         slot = self.free_slot()
         if slot is None:
             raise RuntimeError("no free decode lane for upload")
         length = blob["lengths"]
+        toks = blob.get("tokens")
+        shared: List[int] = []
+        if toks is not None and self.prefix is not None:
+            full, _ = self.prefix.index.match(
+                list(toks), min(length, len(toks)), touch=False)
+            shared = [n.page for n in full]
+            for p in shared:
+                # pin before any reclaim: an index-only page is exactly
+                # what prefix_reclaim would evict
+                self.pool.incref(p)
         n_need = self.pool.pages_needed(length)
-        if n_need > len(self.pool.free_pages):
+        short = n_need - len(shared) - len(self.pool.free_pages)
+        if short > 0:       # cached pages no request references go first
+            self.prefix_reclaim(short)
+        if n_need - len(shared) > len(self.pool.free_pages):
+            for p in shared:
+                self.pool.decref(p)
             raise RuntimeError(
-                f"page pool exhausted on upload: need {n_need}, free "
-                f"{len(self.pool.free_pages)}")
-        fresh = [self.pool.take_page() for _ in range(n_need)]
-        self.pool.page_table[rid] = fresh
+                f"page pool exhausted on upload: need "
+                f"{n_need - len(shared)}, free {len(self.pool.free_pages)}")
+        fresh = [self.pool.take_page() for _ in range(n_need - len(shared))]
+        self.pool.page_table[rid] = shared + fresh
         self.pool.lengths[rid] = length
         idx = torch.as_tensor(fresh, dtype=torch.long, device=self.device)
         for key in ("k", "v"):
@@ -462,8 +642,10 @@ class PagedKVBackend(KVBackend):
                                            device=self.device)
             else:
                 src = item.to(self.device)
-            arr = getattr(self.pool, key)
-            arr.index_copy_(1, idx, src[:, :n_need].to(arr.dtype))
+            if fresh:
+                arr = getattr(self.pool, key)
+                arr.index_copy_(1, idx,
+                                src[:, len(shared):n_need].to(arr.dtype))
         self.slot_req[slot] = rid
 
     def pages_shortfall(self, rids: List[int]) -> int:
@@ -519,12 +701,24 @@ class DenseKVBackend(KVBackend):
     axis, written **in place** where the reference rebuilt the cache.  For
     the attention family every lane owns a full ``max_seq_len`` K/V stripe
     per layer; for ``ssm`` a constant-size conv window and SSM state.
+
+    The pack graph ``("pack", bucket)`` needs no lane in its key (a
+    chunk's graph does): the flash kernel reads a per-layer gather of the
+    members' stripes, a scratch at a fixed address in the graph's pool,
+    and never the stripes themselves.
     """
 
     def __init__(self, model, cfg: KVBackendConfig):
         super().__init__(model, cfg)
         self.cache = model.init_cache(cfg.max_slots, cfg.max_seq_len)
         self._axes = self._cache_batch_axes()
+        if cfg.prefix_cache and model.supports_chunked_prefill():
+            acfg = model.cfg
+            capacity = cfg.prefix_cache_pages or (
+                cfg.max_slots * cfg.max_seq_len // cfg.page_size)
+            self.prefix = DensePrefixCache(
+                acfg.num_layers, acfg.num_kv_heads, acfg.hd, cfg.page_size,
+                capacity, self.cache["k"].dtype, self.device)
 
     def _cache_batch_axes(self) -> Dict[str, int]:
         """Batch (lane) axis of each cache key."""
@@ -587,6 +781,66 @@ class DenseKVBackend(KVBackend):
         return self.model.prefill_chunk(
             params, self._lane("k", lane), self._lane("v", lane), toks,
             start, n)
+
+    def _pack_inputs(self, items, Cb: int) -> np.ndarray:
+        """A pack's staged input: each row's lane, tokens padded to
+        ``Cb``, start and token count (claiming lanes for first chunks and
+        setting each member lane's length to its chunk's end).  Padding
+        rows read the first row's lane with a token count of 0, which
+        masks their write-back (``Model.prefill_pack``); with no members,
+        every row starts at ``max_seq_len`` and the pack writes
+        nothing."""
+        N, Smax = self.cfg.prefill_pack_width, self.cfg.max_seq_len
+        lanes = np.zeros((N,), np.int32)
+        toks = np.zeros((N, Cb), np.int32)
+        starts = np.full((N,), 0 if items else Smax, np.int32)
+        lens = np.zeros((N,), np.int32)
+        for i, (rid, tokens, start) in enumerate(items):
+            lane = self.slot_of(rid)
+            if lane is None:                # first chunk: claim a lane
+                lane = self._claim(rid)
+            toks[i, :len(tokens)] = tokens
+            lanes[i], starts[i], lens[i] = lane, start, len(tokens)
+            self.cache["lengths"][lane] = start + len(tokens)
+        lanes[len(items):] = lanes[0]
+        return pack(lanes, toks, starts, lens)
+
+    def _pack_step(self, params, buf, Cb: int):
+        N = self.cfg.prefill_pack_width
+        lanes, toks, start, n = unpack(buf, (N,), (N, Cb), (N,), (N,))
+        return self.model.prefill_pack(params, self.cache["k"],
+                                       self.cache["v"], lanes, toks, start,
+                                       n)
+
+    def prefix_acquire(self, rid: int, tokens) -> int:
+        """Copy-based hit: claim a lane and copy the cached prefix's K/V
+        from the private page store into its stripe, so chunked prefill
+        resumes at the hit watermark (the prefix's prefill compute is
+        skipped)."""
+        if self.prefix is None or self.has(rid):
+            return 0
+        slot = self.free_slot()
+        if slot is None:
+            return 0
+        hit, k, v = self.prefix.fetch(list(tokens))
+        if hit == 0:
+            return 0
+        self._claim(rid, slot)
+        span = min(k.shape[1], self.cfg.max_seq_len)
+        for key, src in (("k", k), ("v", v)):
+            self._lane(key, slot)[:, :span].copy_(src[:, :span])
+        self.cache["lengths"][slot] = hit
+        return hit
+
+    def prefix_publish(self, rid: int, tokens, upto: int) -> int:
+        if self.prefix is None:
+            return 0
+        slot = self.slot_of(rid)
+        if slot is None:
+            return 0
+        return self.prefix.publish(list(tokens), upto,
+                                   self._lane("k", slot),
+                                   self._lane("v", slot))
 
     def clear(self, rid: int) -> None:
         slot = self.slot_of(rid)

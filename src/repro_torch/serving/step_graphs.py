@@ -2,8 +2,9 @@
 serve time.
 
 A KV backend runs each serving step that has a fixed shape (the fused
-decode step at ``max_slots`` lanes, a prefill chunk of a menu bucket)
-through :class:`StepGraphs`.  The step is a function of one flat int32
+decode step at ``max_slots`` lanes, a prefill chunk of a menu bucket, a
+pack of ``prefill_pack_width`` chunks of a menu bucket) through
+:class:`StepGraphs`.  The step is a function of one flat int32
 input tensor (:func:`pack` / :func:`unpack` lay the step's integer inputs
 out in it), so one persistent device tensor per key holds every input of a
 graph.  Per call the host fills one pinned staging buffer and issues one
@@ -70,8 +71,8 @@ class _Entry:
 
 class StepGraphs:
     """One engine's step graphs, keyed by ``(kind, ...)`` tuples (``kind``
-    is ``"decode"`` or ``"chunk"``).  ``enabled`` captures on a CUDA
-    device; elsewhere, or when off, each key runs eagerly."""
+    is ``"decode"``, ``"chunk"`` or ``"pack"``).  ``enabled`` captures on
+    a CUDA device; elsewhere, or when off, each key runs eagerly."""
 
     def __init__(self, device, enabled: bool = True):
         self.device = torch.device(device)
@@ -82,7 +83,7 @@ class StepGraphs:
         self._outs: Dict[tuple, torch.Tensor] = {}   # pinned to_host buffers
         self._done = None
         self.captures = 0
-        self.replays = {"decode": 0, "chunk": 0}
+        self.replays = {"decode": 0, "chunk": 0, "pack": 0}
         self.pool_bytes = 0       # reserved memory the captures added
 
     def __len__(self) -> int:

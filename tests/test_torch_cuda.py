@@ -18,7 +18,9 @@ multiples of the block or of the 16-byte vector and rows at misaligned
 addresses, INT8 dequantize bit for bit through both of its bodies, and SSD
 chunks whose length, head dim and state size are not multiples of the
 kernel's tiles, at small and at the model's decay, each through the body
-its plan names.  The two autograd Functions' gradients
+its plan names, and the prefix flash kernel at a pack's shape (four
+rows, mixed starts, a padding row).  Packs replayed as CUDA graphs are
+held to eager packs bit for bit.  The two autograd Functions' gradients
 are held against autograd through the plain versions, and the smoke
 config's loss and gradients on the card with kernels against those
 without.  Tolerances are those of ``tests/test_kernels.py`` and
@@ -1036,3 +1038,110 @@ def test_zero_captures_after_warmup_on_the_card(dev, backend):
     assert sum(r.preempt_count for r in reqs) > 0
     assert (eng.kv.graphs.replays["decode"] - w["replays"]["decode"]
             == len(eng.iter_times))
+
+
+# ------------------------------------------------- packed prefill on the card
+
+# per bucket C, each pack row's chunk length (the last row is padding)
+PACK_LENS = {256: [256, 200, 17, 0], 32: [32, 25, 17, 0], 16: [16, 9, 1, 0]}
+
+
+@pytest.mark.parametrize("C", sorted(PACK_LENS))
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_prefix_pack_rows(dev, G, dtype, C):
+    """The prefix flash kernel at a pack's shape: B = 4 rows at mixed
+    starts, whose chunks (ragged, e.g. 256, 200, 17 and 0 tokens at bucket
+    256, the last a padding row) fill each stripe only up to their ends,
+    past which the stripe holds stale values; KVH 8 as granite's.  The
+    kernel computes every row's C queries (the model keeps each row's
+    first chunk-length ones), against its plain version (f32 2e-5, bf16
+    5e-2), through the body and merge the plan names: in bf16 bucket 16
+    splits the keys (body and merge) at every G, 32 at G 1 and 4, 256
+    never."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill_prefix,
+                                                   flash_prefill_prefix_ref)
+    from repro_torch.kernels.flash_prefill.plan import num_splits
+    B, KVH, Smax, d = 4, 8, 2048, 128
+    starts, lens = [0, 256, 512, 1000], PACK_LENS[C]
+    rng = np.random.default_rng(G * 1000 + C)
+    q = _randn(rng, (B, C, G * KVH, d), dtype, dev).transpose(1, 2)
+    k = _randn(rng, (B, Smax, KVH, d), dtype, dev)
+    v = _randn(rng, (B, Smax, KVH, d), dtype, dev)
+    for b, (s, n) in enumerate(zip(starts, lens)):   # stale past each end
+        k[b, s + n:] = _randn(rng, (Smax - s - n, KVH, d), dtype, dev)
+        v[b, s + n:] = _randn(rng, (Smax - s - n, KVH, d), dtype, dev)
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    n0 = flash_prefill_prefix.launches
+    out, bodies = _bodies(lambda: flash_prefill_prefix(q, kt, vt, start))
+    assert flash_prefill_prefix.launches == n0 + 1
+    assert bodies["fma"] == 0 and sum(bodies.values()) >= 1, bodies
+    if dtype == torch.bfloat16:
+        split = num_splits(B, KVH, G, C, Smax) > 1
+        assert bodies["wgmma"] == 1 and bool(bodies["merge"]) == split, \
+            bodies
+    ref = flash_prefill_prefix_ref(q, kt, vt, start)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+def _pack_backend(model, backend, cuda_graphs):
+    from repro_torch.serving.kv_cache import (DenseKVBackend,
+                                              KVBackendConfig, PagedKVBackend)
+    bcfg = KVBackendConfig(max_slots=6, max_seq_len=64, page_size=16,
+                           attn_impl="kernel", graph_buckets=(8, 16),
+                           prefill_pack_width=4, cuda_graphs=cuda_graphs,
+                           eos_token=-1)
+    if backend == "paged":
+        return PagedKVBackend(model, bcfg, num_pages=40)
+    return DenseKVBackend(model, bcfg)
+
+
+@pytest.mark.parametrize("backend", ["paged", "dense"])
+def test_graphed_pack_equals_eager_pack(dev, backend):
+    """Packs of buckets 8 and 16 (members with earlier chunks, fresh ones,
+    padding rows) replayed as CUDA graphs give the eager packs' logits and
+    K/V bit for bit, and move the launch counters alike (each key's first
+    use, a capture on one side, is made before the counted window)."""
+    from repro_torch.kernels import counters
+    model, params = _graph_model(dev, "dense")
+    rng = np.random.default_rng(11)
+    prompts = {rid: rng.integers(2, 512, 40).tolist() for rid in range(5)}
+
+    def run(graphs):
+        kv = _pack_backend(model, backend, graphs)
+        for rid in (1, 2, 3):               # earlier chunks
+            kv.prefill_chunk(params, rid, prompts[rid][:16], 0)
+        for bucket in (8, 16):              # each pack key's first use
+            kv.prefill_pack(params, [(-1, [1], 0)], bucket)
+            kv.clear(-1)
+        torch.cuda.synchronize()
+        before = counters.snapshot()
+        outs = [kv.prefill_pack(params, [(0, prompts[0][:5], 0),
+                                         (1, prompts[1][16:29], 16),
+                                         (2, prompts[2][16:24], 16)], 16),
+                kv.prefill_pack(params, [(3, prompts[3][16:20], 16),
+                                         (4, prompts[4][:8], 0)], 8),
+                kv.prefill_pack(params, [(0, prompts[0][5:13], 5),
+                                         (1, prompts[1][29:33], 29),
+                                         (2, prompts[2][24:32], 24),
+                                         (3, prompts[3][20:28], 20)], 8)]
+        torch.cuda.synchronize()
+        return outs, counters.delta(before, counters.snapshot()), kv
+
+    (og, cg, kg), (oe, ce, ke) = run(True), run(False)
+    for a, b in zip(og, oe):
+        assert torch.equal(a, b)
+    if backend == "paged":
+        live = [p for p in range(kg.pool.k.shape[1])
+                if p != kg.scratch_page]
+        pairs = [(kg.pool.k[:, live], ke.pool.k[:, live]),
+                 (kg.pool.v[:, live], ke.pool.v[:, live])]
+    else:
+        pairs = [(kg.cache[k], ke.cache[k]) for k in ("k", "v")]
+    for a, b in pairs:
+        assert torch.equal(a, b)
+    assert cg == ce and cg["flash_prefill_prefix"] == 3 * model.cfg.num_layers
+    assert kg.graphs.replays["pack"] == 5 and ke.graphs.replays["pack"] == 0

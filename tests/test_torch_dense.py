@@ -493,5 +493,5 @@ def test_serve_launcher_dense_on_cpu():
     assert all(r.done and r.generated >= 1 for r in reqs)
     assert eng.kv_backend == "dense" and eng._chunked_ok
     # each prompt went through the stripe as one chunk (prefill_chunk None)
-    assert sorted(n for _, n, _ in eng.prefill_times) == sorted(
+    assert sorted(n for _, n, _, _ in eng.prefill_times) == sorted(
         r.prompt_len for r in reqs)
