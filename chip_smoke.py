@@ -158,21 +158,50 @@ the final line:
      learned predictor off, and how many requests' greedy tokens agree
      (printed, not gated: the wall clock sets the schedule and a pack's
      shape gives other bits).
+ 21. speculative verify-k decoding and the observability bus (spec_k 3),
+     on both backends: (a) one verify step of 8 lanes x 4 positions at
+     contexts 64..1600 (a paged lane at length % 16 == 14, so that its
+     span crosses into its scratch page; K/V random bf16 from a seed)
+     against 4 sequential eager decode steps from the same state fed the
+     tokens they sample, both against the float32 truth (the same steps
+     of the weights and state upcast): the verify's logits and written
+     K/V no farther from the truth than 1.25 times the bf16 steps' (plus
+     1e-3; the verify against the bf16 steps printed), the prefix flash
+     kernel once per layer through the wgmma body and its merge; then the
+     verify step as the engine calls it, graphed and eager, under the
+     profiler (the wgmma kernel must run); (b) phase 5's
+     12 requests on a warmed speculative engine of phase 5's (paged) and
+     phase 16's (dense) configuration with a wall-clock ``EventBus``
+     attached: all finish, drafts proposed, no capture or library load
+     after warmup, one verify replay per decode iteration, 40 prefix
+     flash launches per verify step on top of 40 per prefill chunk, the
+     bus's decode iterations carrying the drafted and accepted counts,
+     and greedy tokens equal, bit for bit, to the same serve run eagerly
+     without the bus; printed beside the spec-off serve's tokens/s, with
+     accepted / drafted, tokens per lane iteration and how many requests
+     agree with the spec-off serve (not gated); (c) the trace and its
+     ``.prom`` written to a temporary directory, the JSON loaded back
+     and its events counted by name.
 
-The serve phases 5, 6, 9, 10, 16, 17 and 20 run warmed engines (every step
-graph captured and every kernel library loaded before the first request):
-each prints its warmup's seconds, captures and graph-pool size, and fails
-on any capture or library build or load while serving
-(``utils/compile_counter.CompileCounter``) and on any decode step that
-did not run as a replay.  A replay adds its captured launches to every
-wrapper's ``launches`` and to the libraries' body counters, so the
-main-path counts below count replays.
+The serve phases 5, 6, 9, 10, 16, 17, 20 and 21 run warmed engines
+(every step graph captured and every kernel library loaded before the
+first request): each prints its warmup's seconds, captures and
+graph-pool size, and fails on any capture or library build or load while
+serving (``utils/compile_counter.CompileCounter``) and on any decode (or,
+with speculative decoding, verify) step that did not run as a replay.  A
+replay adds its captured launches to every wrapper's ``launches`` and to
+the libraries' body counters, so the main-path counts below count
+replays.
 
-Phases 15-20 run after phase 7, with the granite model still loaded.
-Phase 3 also holds the prefix flash kernel at the packs' shapes (B 4,
-starts 0/256/512/1000, ragged chunk lengths with a padding row, at bucket
-256 and at the split buckets 32 and 16: each member's rows by the bf16
-bound above, the planned body and merge), the INT8 paged attention (the bench's shape and
+Phases 15-21 run after phase 7, with the granite model still loaded.
+Phase 3 also holds the prefix flash kernel at the verify step's shape (B
+8, C 4, starts 60..2040, Smax 2048 and 2064, the last key tile of 2064
+partial: the bf16 bound, the wgmma body and its merge, its time, bound,
+plain and SDPA times, in the kernels line's ``verify_shape``), at the
+packs' shapes (B 4, starts 0/256/512/1000, ragged chunk lengths with a
+padding row, at bucket 256 and at the split buckets 32 and 16: each
+member's rows by the bf16 bound above, the planned body and merge), the
+INT8 paged attention (the bench's shape and
 granite's decode shape, codes from the ``kv_quantize`` kernel; against its
 plain version and, within 0.05, float attention on the unquantized
 pages), the full-sequence flash kernel at the training shape
@@ -191,8 +220,8 @@ phase 18 (the INT8 paged attention), mamba's phases 9 and 10 (the RMSNorm
 and SSD chunk kernels must have launched, every SSD call through the
 tensor-core body) and training's phase 13 (the
 flash and RMSNorm kernels must have launched); then phase 19's two packs
-and phase 20's two serves, each counted from 0 and added to the kernels
-line's launches.  Each phase
+and phase 20's and phase 21's two serves each, each counted from 0 and
+added to the kernels line's launches.  Each phase
 prints its seconds.  Then a ``kernels`` JSON line (each row also names
 the ``csrc`` headers its source includes), the card's name and
 power limit, and the final ``{"ok": true, "device": {...}}`` line.  Needs
@@ -642,6 +671,83 @@ def check_flash_prefix_pack(torch, dev):
               f"{plain:.4f}", flush=True)
         del q, k, v, out, ref, truth, absv
     torch.cuda.empty_cache()
+
+# the verify step's kernel shape: B 8 lanes of C = spec_k + 1 = 4 queries,
+# ragged starts from 60 to 2040 (the last two within a few tokens of the
+# dense stripe's end), Smax 2048 (dense) and 2064 (paged: 128 pages of 16
+# plus the lane's scratch page, so the last key tile is partial)
+VERIFY_STARTS = (60, 300, 700, 1100, 1500, 1900, 2030, 2040)
+VERIFY_C = 4
+
+
+def check_flash_prefix_verify(torch, dev):
+    """The prefix kernel at the verify step's shapes on granite (B 8, C 4,
+    H 32, KVH 8, d 128, bf16, starts VERIFY_STARTS; q, k and v as the
+    transposed views the verify passes) at Smax 2048 and 2064: the derived
+    bf16 bound and the float32-truth check (``check_bf16_attention``), the
+    body counters (the wgmma body, and its merge when the plan splits),
+    the kernel's time, its bound from this run's starts, the plain
+    version's time and SDPA's, pinned to one backend and named.  Returns
+    ``{Smax: row}``."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill_prefix,
+                                                   flash_prefill_prefix_ref)
+    from repro_torch.kernels.flash_prefill.plan import num_splits
+    B, H, KVH, d, C = len(VERIFY_STARTS), 32, 8, 128, VERIFY_C
+    dt = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    start = torch.tensor(VERIFY_STARTS, dtype=torch.int32, device=dev)
+    rows = {}
+    for Smax in (2048, 2064):
+        label = f"flash_prefill_prefix verify B={B} C={C} Smax={Smax}"
+        q = torch.randn((B, C, H, d), generator=g,
+                        device=dev).to(dt).transpose(1, 2)
+        k = torch.randn((B, Smax, KVH, d), generator=g,
+                        device=dev).to(dt).transpose(1, 2)
+        v = torch.randn((B, Smax, KVH, d), generator=g,
+                        device=dev).to(dt).transpose(1, 2)
+        out = flash_prefill_prefix(q, k, v, start)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        ref = flash_prefill_prefix_ref(q, k, v, start)
+        qpos = start[:, None] + torch.arange(C, device=dev)[None]
+        mask = (torch.arange(Smax, device=dev)[None, None, :]
+                <= qpos[:, :, None])[:, None]              # (B, 1, C, Smax)
+        lib, backend = sdpa_call(torch, q, k, v, mask=mask)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out.float()).all()):
+            fail(f"{label}: non-finite output rows")
+        err, t_err, l_err = check_bf16_attention(
+            torch, label, out, ref, flash_prefill_prefix_ref(qf, kf, vf,
+                                                             start),
+            flash_prefill_prefix_ref(qf, kf, vf.abs(), start), lib())
+        nsplit = num_splits(B, KVH, H // KVH, C, Smax)
+        want = "wgmma+merge" if nsplit > 1 else "wgmma"
+        body = check_body(torch, label,
+                          lambda: flash_prefill_prefix(q, k, v, start),
+                          "wgmma")
+        if body != want:
+            fail(f"{label}: took {body}, the plan ({nsplit} splits) names "
+                 f"{want}")
+        ms = time_ms(lambda: flash_prefill_prefix(q, k, v, start))
+        plain = time_ms(lambda: flash_prefill_prefix_ref(q, k, v, start), 5)
+        lib_ms = time_ms(lib)
+        e_ms = eager_ms(lambda: flash_prefill_prefix(q, k, v, start))
+        # this run's work: lane b's C queries see start_b + i + 1 keys
+        visible = sum(C * s + C * (C + 1) // 2 for s in VERIFY_STARTS)
+        n_kv = sum(min(s + C, Smax) for s in VERIFY_STARTS)
+        moved = nbytes(q) * 2 + 2 * n_kv * KVH * d * 2 + 4 * B
+        b_ms, b_by = bound(moved, 4.0 * visible * H * d, "bfloat16")
+        print(f"[kernel] {label} starts {list(VERIFY_STARTS)}: body {body} "
+              f"({nsplit} splits) max_err={err:.3g} truth_err={t_err:.3g} "
+              f"(SDPA {l_err:.3g}) kernel_ms={ms:.4f} ({b_ms / ms:.1%} of "
+              f"bound) plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"library_ms={lib_ms:.4f} (SDPA {backend}) eager_ms="
+              f"{e_ms:.4f}", flush=True)
+        rows[Smax] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return rows
+
 
 def check_flash_prefill(torch, dev):
     """The full-sequence flash kernel at the training path's shape (B 4,
@@ -1110,13 +1216,16 @@ def graph_gate(label: str, eng, counter, saw_warmup: bool) -> None:
     was built), which must be none, and, for a serve with graphs, its
     decode and pack replays, which must equal its decode steps and its
     packs since the warmup (the auto budget's warm batch's among them:
-    the replay counters are not read between the two serves)."""
+    the replay counters are not read between the two serves; with
+    speculative decoding, its verify replays)."""
     w = eng.warm_stats
     if w is None:
         fail(f"{label}: the engine was not warmed")
     seen = counter.events[w["compiles"]:] if saw_warmup else counter.events
     g = eng.kv.graphs
-    replays = g.replays["decode"] - w["replays"]["decode"]
+    # a speculative engine's decode step is the verify step
+    kind = "verify" if eng._spec_ok else "decode"
+    replays = g.replays[kind] - w["replays"][kind]
     steps = len(eng.iter_times)
     pack_replays = g.replays["pack"] - w["replays"]["pack"]
     packs = sum(1 for *_, rows in eng.prefill_times if rows > 1)
@@ -1124,7 +1233,7 @@ def graph_gate(label: str, eng, counter, saw_warmup: bool) -> None:
           f"keys, {w['captures']} CUDA graphs captured, {w['compiles']} "
           f"compile events, graph pool {w['pool_bytes'] / 2**20:.1f} MiB; "
           f"serving: {len(seen)} new "
-          f"captures or library loads, {replays} decode replays for {steps} "
+          f"captures or library loads, {replays} {kind} replays for {steps} "
           f"decode steps, {g.replays['chunk'] - w['replays']['chunk']} "
           f"chunk replays, {pack_replays} pack replays for "
           f"{packs} packs", flush=True)
@@ -2224,6 +2333,364 @@ def phase_serve20(torch, model, params, kernels, backend):
     return counts
 
 
+# ------------------------------------------------------------- phase 21
+
+VERIFY_VS_DECODE = 1.25   # the verify's error from the f32 truth, at most
+                          # this times the bf16 decode steps' error
+SPEC_K = 3
+VERIFY_CTX = np.linspace(64, 1600, 8).astype(int)
+VERIFY_CTX[1] = 286     # 286 % 16 == 14: this paged lane's span of 4
+                        # crosses into its scratch page
+
+
+def _verify_backend(torch, model, backend, graphs=False):
+    """A KV backend with ``spec_k`` 3 holding 8 lanes at VERIFY_CTX, its
+    K/V random bf16 from a seed (paged: each lane's pages allocated)."""
+    from repro_torch.serving.kv_cache import (DenseKVBackend,
+                                              KVBackendConfig, PagedKVBackend)
+    B = len(VERIFY_CTX)
+    bcfg = KVBackendConfig(max_slots=B, max_seq_len=2048, page_size=16,
+                           attn_impl="kernel", cuda_graphs=graphs,
+                           spec_k=SPEC_K)
+    g = torch.Generator(device=model.device).manual_seed(SEED + 21)
+    if backend == "paged":
+        kv = PagedKVBackend(model, bcfg, num_pages=B * 130)
+        for i, c in enumerate(VERIFY_CTX):
+            kv.pool.allocate(i, int(c))
+            kv.slot_req[i] = i
+        tensors = [kv.pool.k, kv.pool.v]
+    else:
+        kv = DenseKVBackend(model, bcfg)
+        kv.cache["lengths"].copy_(torch.from_numpy(VERIFY_CTX.astype(
+            np.int32)))
+        tensors = [kv.cache["k"], kv.cache["v"]]
+    for t in tensors:
+        t.normal_(generator=g)
+    return kv, tensors
+
+
+def _verify_vs_decode(torch, model, params, params32, backend):
+    """Phase 21 (a), one backend: one verify step of B 8 lanes x K1 4
+    positions at VERIFY_CTX against 4 sequential eager decode steps from
+    the same state (dense: ``decode_step``, plain decode attention; paged:
+    ``paged_decode_step`` with the paged-attention kernel, at the verify's
+    own write destinations), fed the tokens those steps sample greedily,
+    and both against the float32 truth: the same 4 decode steps of the
+    model in float32 (``params32``: the bf16 weights upcast) from the
+    state upcast.  Gates: the verify's logits and written K/V are no
+    farther from the truth than VERIFY_VS_DECODE times the bf16 decode
+    steps' (plus 1e-3), and its flash calls run once per layer through
+    the wgmma body (and its merge when the plan splits).  The verify
+    against the bf16 decode steps directly is printed: both are about 5%
+    from the truth after 40 bf16 layers, so they differ by as much."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_prefix
+    from repro_torch.kernels.flash_prefill.ops import body_launches
+    from repro_torch.kernels.flash_prefill.plan import num_splits
+    from repro_torch.models.model import Model
+    from repro_torch.serving.step_graphs import unpack
+    cfg, dev = model.cfg, model.device
+    B, K1 = len(VERIFY_CTX), SPEC_K + 1
+    kv, tensors = _verify_backend(torch, model, backend)
+    snap = [t.clone() for t in tensors]
+    ctx = torch.from_numpy(VERIFY_CTX.astype(np.int32)).to(dev)
+    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    z = np.zeros((B,), np.int32)
+    if backend == "paged":
+        maxp = kv.max_pages_per_seq + 1
+        staged = torch.from_numpy(kv._verify_inputs(
+            np.zeros((B, K1), np.int32), z, np.ones((B,), bool), z, z, z,
+            z)).to(dev)
+        tables, lens, wp, wo = unpack(staged[:B * (maxp + 1 + 2 * K1)],
+                                      (B, maxp), (B,), (B, K1), (B, K1))
+        state = {"k": kv.pool.k, "v": kv.pool.v}
+        scratch_col = int((tables[1] == kv.lane_scratch[1]).nonzero()[0])
+        if int(wp[1, 2]) != kv.lane_scratch[1] or scratch_col != 18:
+            fail("phase 21: lane 1's span does not cross into its scratch "
+                 "page")
+
+        def written(st):
+            return torch.stack([st[k][:, wp.long(), wo.long()]
+                                for k in ("k", "v")])
+    else:
+        state = kv.cache
+        pos = ctx.long()[:, None] + torch.arange(K1, device=dev)[None]
+        lanes = torch.arange(B, device=dev)[:, None]
+
+        def written(st):
+            return torch.stack([st[k][:, lanes, pos] for k in ("k", "v")])
+
+    def decode_steps(m, prm, st, feed):
+        """4 sequential decode steps fed ``feed`` (the greedy tokens of
+        the first run are appended to it)."""
+        out = []
+        for i in range(K1):
+            if backend == "paged":
+                lg = m.paged_decode_step(prm, st, feed[i], tables, lens + i,
+                                         wp[:, i], wo[:, i],
+                                         attn_impl="kernel")
+            else:
+                lg = m.decode_step(prm, st, feed[i], active)
+            out.append(lg)
+            if len(feed) == i + 1:
+                feed.append(lg.argmax(-1, keepdim=True))
+        return torch.stack(out, dim=1)
+
+    def restore():
+        for t, s in zip(tensors, snap):
+            t.copy_(s)
+        if backend == "dense":
+            kv.cache["lengths"].copy_(ctx)
+
+    rng = np.random.default_rng(SEED + 21)
+    toks = [torch.from_numpy(rng.integers(2, cfg.vocab_size, (B, 1))).to(
+        dev)]
+    seq = decode_steps(model, params, state, toks)
+    seq_rows = written(state)
+    restore()
+    st32 = {k: v.float() for k, v in state.items() if k != "lengths"}
+    if backend == "dense":
+        st32["lengths"] = ctx.clone()
+    m32 = Model(cfg.scaled(param_dtype="float32"), kv_dtype="float32",
+                device=dev)
+    truth = decode_steps(m32, params32, st32, list(toks))
+    truth_rows = written(st32)
+    del st32
+    drafts = torch.cat(toks[:K1], dim=1).to(torch.int32)
+    bodies, n0 = body_launches(), flash_prefill_prefix.launches
+    if backend == "paged":
+        ver = model.paged_decode_verify(params, state, drafts, tables, lens,
+                                        wp, wo)
+    else:
+        ver = model.decode_verify(params, kv.cache, drafts, active)
+    torch.cuda.synchronize()
+    bodies = {k: n - bodies[k] for k, n in body_launches().items()}
+    launched = flash_prefill_prefix.launches - n0
+    label = f"{backend} verify (phase 21)"
+    errs = {}
+    for what, v, sq, tr in (("logits", ver, seq, truth),
+                            ("K/V", written(state), seq_rows, truth_rows)):
+        if not bool(torch.isfinite(v.float()).all()):
+            fail(f"{label} {what}: non-finite values")
+        errs[what] = (_rel(v, tr), _rel(sq, tr), _rel(v, sq))
+    agree = (ver.argmax(-1) == seq.argmax(-1)).float().mean().item()
+    L = cfg.num_layers
+    Smax = tables.shape[1] * 16 if backend == "paged" else 2048
+    split = num_splits(B, cfg.num_kv_heads,
+                       cfg.num_heads // cfg.num_kv_heads, K1, Smax) > 1
+    print(f"[verify] {label}: B={B} K1={K1} ctx {VERIFY_CTX.tolist()} "
+          f"Smax={Smax}, one verify step vs {K1} sequential bf16 decode "
+          f"steps fed their greedy tokens, each against the f32 truth: "
+          + "; ".join(f"{w} rel_l2 verify {a:.4g}, decode {b:.4g} (verify "
+                      f"vs decode {c:.4g})" for w, (a, b, c) in errs.items())
+          + f"; argmax agree {agree:.3f}; flash_prefill_prefix launches "
+          f"{launched}, bodies {bodies}", flush=True)
+    for what, (a, b, _) in errs.items():
+        if not a <= VERIFY_VS_DECODE * b + 1e-3:
+            fail(f"{label} {what}: {a:.4g} from the f32 truth, more than "
+                 f"{VERIFY_VS_DECODE} x the decode steps' {b:.4g}")
+    if launched != L or bodies["wgmma"] != L or bodies["fma"] \
+            or bodies["tf32x3"] or bodies["merge"] != (L if split else 0):
+        fail(f"{label}: the verify's flash calls did not all take the "
+             f"wgmma body{' and its merge' if split else ''}")
+    del kv, tensors, snap, m32
+    torch.cuda.empty_cache()
+
+
+def _rel(got, want) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def engine_verify(model, params, backend, cuda_graphs):
+    """A step for profiling a KV backend's verify step as the engine calls
+    it (host inputs staged, samples, emit counts and reasons back on the
+    host), with or without CUDA graphs: 8 lanes at VERIFY_CTX, each with 3
+    seeded drafts; each call starts from the same lengths (dense: the
+    lengths reset on the device; paged: the pool's lengths and page
+    tables, a promoted scratch page dropped).  The first call captures
+    the graph."""
+    import torch
+    kv, _ = _verify_backend(torch, model, backend, cuda_graphs)
+    B, K1 = len(VERIFY_CTX), SPEC_K + 1
+    rng = np.random.default_rng(SEED + 22)
+    ctx = VERIFY_CTX.astype(np.int32)
+    args = (rng.integers(2, model.cfg.vocab_size, (B, K1)).astype(np.int32),
+            np.full((B,), SPEC_K, np.int32), np.ones((B,), bool),
+            np.ones((B,), np.int32), ctx + 1,
+            np.full((B,), np.iinfo(np.int32).max, np.int32),
+            np.arange(B, dtype=np.int32))
+    lens = torch.from_numpy(ctx).to(model.device)
+    n_pages = ({i: len(kv.pool.page_table[i]) for i in range(B)}
+               if backend == "paged" else {})
+
+    def step():
+        if backend == "dense":
+            kv.cache["lengths"].copy_(lens)
+        for i, n in n_pages.items():
+            del kv.pool.page_table[i][n:]
+            kv.pool.lengths[i] = int(ctx[i])
+        return kv.decode_verify(params, *args)
+    return step
+
+
+def phase_verify_model(torch, model, params):
+    """Phase 21 (a): the verify step against sequential decode steps and
+    the float32 truth on both backends (:func:`_verify_vs_decode`; the
+    weights upcast once, 33 GB), then the verify step as
+    the engine calls it, graphed and eager, under the profiler (the wgmma
+    flash body must run)."""
+    from repro_torch.utils import tree_map
+    params32 = tree_map(lambda t: t.float(), params)
+    for backend in ("dense", "paged"):
+        _verify_vs_decode(torch, model, params, params32, backend)
+    del params32
+    torch.cuda.empty_cache()
+    for backend in ("dense", "paged"):
+        for graphs in (True, False):
+            how = "graphed" if graphs else "eager"
+            profile_step(torch, f"engine verify step ({how}, {backend}, B=8,"
+                         f" K1={SPEC_K + 1}, ctx 64..1600)",
+                         engine_verify(model, params, backend, graphs), n=3,
+                         watch=("flash_attn_wgmma",))
+            torch.cuda.empty_cache()
+
+
+def _spec_engine(model, params, backend, graphs):
+    """Phase 5's (paged) or phase 16's (dense) engine, warmed, with
+    speculative decoding at spec_k 3: the configuration ``serve()`` builds
+    from PAGED_SERVE or DENSE_SERVE plus ``spec_decode``."""
+    from repro_torch.core.engine import EngineConfig, ServingEngine
+    from repro_torch.core.predictor import OraclePredictor
+    return ServingEngine(model, params, EngineConfig(
+        max_slots=8, max_seq_len=2048, max_new_tokens=64, strategy="alise",
+        quantize_offload=False, kv_backend=backend, page_size=16,
+        paged_attn_impl="kernel",
+        prefill_chunk=256 if backend == "paged" else None,
+        spec_decode=True, spec_k=SPEC_K, warmup_compile=True,
+        cuda_graphs=graphs, seed=SEED), predictor=OraclePredictor())
+
+
+def _spec_serve(model, params, kernels, backend, graphs, bus=None):
+    """Phase 5's 12 requests through :func:`_spec_engine`; returns the
+    requests, the engine, its launches during the warmup and the serve's
+    wall (from the end of the warmup)."""
+    import torch
+    from repro_torch.launch.serve import build_requests
+    counts0 = read_counts(kernels)
+    eng = _spec_engine(model, params, backend, graphs)
+    warm = {n: c - counts0[n] for n, c in read_counts(kernels).items()}
+    if bus is not None:
+        eng.attach_bus(bus, "engine0")
+    reqs = build_requests(model.cfg, 12, SEED, "full")
+    t0 = time.perf_counter()
+    eng.serve(reqs)
+    torch.cuda.synchronize()
+    return reqs, eng, warm, time.perf_counter() - t0
+
+
+def _tok_s(reqs) -> float:
+    """Generated tokens per second of a serve, over the latest finish
+    (the engine's clock: seconds since ``serve()`` began)."""
+    return sum(r.generated for r in reqs) / max(r.finish_time for r in reqs)
+
+
+def phase_spec_serve(torch, model, params, kernels, backend, spec_off):
+    """Phase 21 (b) and (c), one backend: phase 5's 12 requests on a
+    warmed speculative engine (spec_k 3) with a wall-clock EventBus
+    attached, counted from 0 (the main path); gates: every request
+    finishes, drafts were proposed, no capture or library load after the
+    warmup and one verify replay per decode iteration (``graph_gate``),
+    the prefix flash kernel launched 40 times per verify step on top of
+    40 per prefill chunk, the bus's decode iterations carry the drafted
+    and accepted counts, and the greedy tokens equal those of the same
+    serve run eagerly without the bus, bit for bit; printed: accepted /
+    drafted, tokens per lane iteration, tokens/s beside the spec-off
+    serve's (``spec_off``: phase 5's or 16's requests), decode-iteration
+    p50, and how many requests' tokens agree with the spec-off serve (not
+    gated: a (B x 4)-row verify rounds otherwise than a B-row decode).
+    (c): the trace and its ``.prom`` written to a temporary directory, the
+    JSON loaded back, its events counted by name.  Returns the launches."""
+    import tempfile
+    from collections import Counter
+    from repro_torch.launch.serve import _export_trace
+    from repro_torch.serving.observability import EventBus, analyze_quality
+    from repro_torch.utils.compile_counter import CompileCounter
+    label = f"granite {backend} spec serve (phase 21)"
+    reset_counts(kernels)
+    counter = CompileCounter()
+    bus = EventBus(clock="wall")
+    reqs, eng, warm, wall = _spec_serve(model, params, kernels, backend,
+                                        True, bus)
+    counts = read_counts(kernels)
+    graph_gate(label, eng, counter, True)
+    counter.detach()
+    L = model.cfg.num_layers
+    done = [r for r in reqs if r.finish_time is not None]
+    drafted = sum(r.spec_drafted for r in reqs)
+    accepted = sum(r.spec_accepted for r in reqs)
+    iters = sum(r.spec_iters for r in reqs)
+    steps, chunks = len(eng.iter_times), len(eng.prefill_times)
+    flash = counts["flash_prefill_prefix"] - warm["flash_prefill_prefix"]
+    events = bus.snapshot()
+    dec = [e for e in events if e.kind == "decode_iter"]
+    step_ms = [dt * 1e3 for *_, dt in eng.iter_times]
+    print(f"[spec] {label}: {len(done)}/{len(reqs)} finished, "
+          f"{sum(r.generated for r in reqs)} tokens, {_tok_s(reqs):.1f} "
+          f"tok/s (spec off, phase {5 if backend == 'paged' else 16}: "
+          f"{_tok_s(spec_off):.1f}, by the same measure), wall "
+          f"{wall:.2f}s; {accepted}/{drafted} drafts accepted "
+          f"({accepted / max(drafted, 1):.3f}), "
+          f"{(iters + accepted) / max(iters, 1):.3f} tokens per lane "
+          f"iteration; {steps} verify steps p50 {np.median(step_ms):.2f} "
+          f"ms; {chunks} prefill chunks; flash_prefill_prefix launches "
+          f"after warmup {flash} ({L} x ({steps} + {chunks}) = "
+          f"{L * (steps + chunks)}); launches {counts}", flush=True)
+    if len(done) != len(reqs):
+        fail(f"{label}: {len(done)}/{len(reqs)} requests finished")
+    if drafted <= 0:
+        fail(f"{label}: no draft was proposed")
+    if flash != L * (steps + chunks):
+        fail(f"{label}: flash_prefill_prefix launched {flash} times after "
+             f"the warmup, want {L * (steps + chunks)}")
+    if (len(dec) != steps or sum(e.data["drafted"] for e in dec) != drafted
+            or sum(e.data["accepted"] for e in dec) != accepted):
+        fail(f"{label}: the bus's decode_iter events do not carry the "
+             "serve's drafted and accepted counts")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        _export_trace(bus, analyze_quality(bus), path)
+        with open(path) as f:
+            trace = json.load(f)
+        prom = os.path.getsize(path + ".prom")
+    names = Counter("request spans" if e["name"].startswith("req ")
+                    else e["name"] for e in trace["traceEvents"]
+                    if e.get("ph") != "M")
+    print(f"[trace] {label}: {len(events)} bus events, "
+          f"{len(trace['traceEvents'])} trace events loaded back, "
+          f"{prom} bytes of Prometheus text; by name: "
+          + ", ".join(f"{k} {v}" for k, v in sorted(names.items())),
+          flush=True)
+    if not dec or prom <= 0 or names["finish"] != len(reqs):
+        fail(f"{label}: the exported trace lacks its events")
+    del eng, bus, events, trace
+    torch.cuda.empty_cache()
+    eager, eng, _, wall = _spec_serve(model, params, kernels, backend,
+                                      False)
+    print(f"[spec-eager] {label}, cuda_graphs=False, no bus: "
+          f"{_tok_s(eager):.1f} tok/s, wall {wall:.2f}s", flush=True)
+    same_tokens(label + " (traced, graphed vs untraced, eager)", reqs,
+                eager)
+    agree = sum(list(a.output_tokens) == list(b.output_tokens)
+                for a, b in zip(reqs, spec_off))
+    print(f"[spec] {label}: {agree}/{len(reqs)} requests' greedy tokens "
+          f"agree with the spec-off serve (not gated: in bf16 a (B x "
+          f"{SPEC_K + 1})-row verify and a B-row decode round "
+          f"differently)", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ------------------------------------------------------ phases 8 to 11
 
 def mamba_reference_check(torch, model, params):
@@ -2696,6 +3163,7 @@ def main() -> None:
         pa = check_paged_attention(torch, dev)
         fp = check_flash_prefix(torch, dev)
         check_flash_prefix_pack(torch, dev)
+        fpv = check_flash_prefix_verify(torch, dev)
         fa = check_flash_prefill(torch, dev)
         kq, kd = check_kv_quant(torch, dev)
         pq8 = check_paged_attention_q8(torch, dev)
@@ -2770,6 +3238,16 @@ def main() -> None:
               flush=True)
         totals = {k: totals[k] + counts[k] for k in totals}
         clock.lap(f"granite {backend} serve (phase 20)")
+    # phase 21: speculative verify-k decoding and the observability bus
+    phase_verify_model(torch, model, params)
+    clock.lap("verify vs sequential decode + verify profile (phase 21a)")
+    for backend, spec_off in (("paged", paged_reqs), ("dense", dense_reqs)):
+        counts = phase_spec_serve(torch, model, params, kernels, backend,
+                                  spec_off)
+        print(f"[main-path] granite {backend} spec serve with the bus "
+              f"(phase 21) launches {counts}", flush=True)
+        totals = {k: totals[k] + counts[k] for k in totals}
+        clock.lap(f"granite {backend} spec serve + export (phase 21)")
     del model, params, ref
     torch.cuda.empty_cache()
 
@@ -2827,7 +3305,8 @@ def main() -> None:
         dict(name="flash_prefill_prefix", route="cuda",
              source=src + "flash_prefill_prefix.cu",
              replaces="src/repro/kernels/flash_prefill/flash_prefill.py:119",
-             launches=launches["flash_prefill_prefix"], **fp),
+             launches=launches["flash_prefill_prefix"], **fp,
+             verify_shape={str(k): v for k, v in fpv.items()}),
         dict(name="flash_prefill", route="cuda",
              source=src + "flash_prefill_prefix.cu",
              replaces="src/repro/kernels/flash_prefill/flash_prefill.py:165",
@@ -2852,7 +3331,7 @@ def main() -> None:
     ]
     root = os.path.dirname(os.path.abspath(__file__))
     for r in rows:
-        r["launches"] += totals[r["name"]]      # phases 19-20
+        r["launches"] += totals[r["name"]]      # phases 19-21
         # the csrc headers the source includes (flash and SSD bodies, the
         # 3xTF32 primitives), as the build key follows them
         r["headers"] = [os.path.relpath(str(h), root) for h in

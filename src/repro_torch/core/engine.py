@@ -29,6 +29,14 @@ JAX package (its own copy) and executes each
     reasons)`` pair.  ``fused_decode=False`` (dense backend only) is the
     reference's legacy path: one ``Model.decode_step`` for the logits,
     then host sampling lane by lane;
+  * with ``spec_decode`` (attention family, fused decode), each decode
+    iteration is one verify-k step instead (``Model.decode_verify_
+    sampled`` / ``paged_decode_verify_sampled``): a model-free draft
+    source (``serving/draft.py``: the request's own n-grams, and the
+    prefix index when the prefix cache is on) proposes ``spec_k`` tokens
+    per lane, the step scores the fed token and the drafts through the
+    chunk attention and accepts the longest exact-match run on the device,
+    so a lane emits 1 to ``spec_k + 1`` tokens per iteration;
   * request-level swapping between the device and a host pool: K/V
     quantized to INT8 on the device by the ``kv_quant`` kernels (Eq. 8) so
     the host link carries the INT8 payload; an SSM request's conv and SSM
@@ -36,9 +44,10 @@ JAX package (its own copy) and executes each
   * per-iteration wall-time profiling (bounded ring buffers) used to fit
     the Eq. 3-5 latency model.
 
-On a CUDA device the fused decode step and the prefill chunks and packs
-of the bucket menu run as CUDA graphs (``EngineConfig.cuda_graphs``, on
-by default; ``serving/step_graphs.py``), each captured at its first use.
+On a CUDA device the fused decode (or verify) step and the prefill chunks
+and packs of the bucket menu run as CUDA graphs (``EngineConfig.
+cuda_graphs``, on by default; ``serving/step_graphs.py``), each captured
+at its first use.
 :meth:`ServingEngine.warmup` makes every first use happen before serving
 and loads every kernel library serving can reach, as the reference's
 warmup compiles every shape: a warmed engine then captures, builds and
@@ -48,21 +57,24 @@ the ``ssm`` family's monolithic prefill, a prompt prefilled as one chunk
 when ``prefill_chunk`` is None, swaps, prefix-cache copies and the
 per-slot decode.
 
-Not ported yet: speculative decoding (``spec_decode`` raises
-``NotImplementedError`` naming ``ROADMAP.md`` Queue 1 item 9); the cluster
-KV tier (item 10) and the observability bus (item 16) are left out, with
-no hooks.
+:meth:`ServingEngine.attach_bus` wires an observability
+:class:`~repro_torch.serving.observability.EventBus` through the
+scheduler, the prefix cache and the engine's own execution spans; with
+no bus attached nothing is recorded.  Not ported yet: the cluster KV tier
+(``ROADMAP.md`` Queue 1 item 10), whose hooks are absent.
 
 Correctness invariant (tested): with greedy sampling and quantization off,
 generated tokens do not depend on how jobs are preempted and swapped, on
 the backend (dense | paged), on chunked or monolithic prefill, on packed
 or single chunks, on the prefix cache, on the length predictor, on fused
-or per-slot decode, on ``paged_attn_impl`` (gather | kernel) or on
+or per-slot decode, on speculative decoding and its drafts, on the
+observability bus, on ``paged_attn_impl`` (gather | kernel) or on
 ``Model.chunk_attn_impl`` (masked | flash).  The tests hold it on the CPU
 in float32.  On the card in bfloat16 a product's bits depend on its
 shape: a pack's rows, or another chunk split, round differently from
 single chunks (a pack's head product differs in the last bits), so greedy
-tokens there may differ wherever packing or chunking changes a shape.
+tokens there may differ wherever packing, chunking or a verify step (B x
+(spec_k + 1) rows where decode has B) changes a shape.
 """
 from __future__ import annotations
 
@@ -84,6 +96,7 @@ from repro_torch.core.scheduler import (DecodeLane, PrefillChunk,
                                         PrefillPack, Scheduler,
                                         SchedulerConfig)
 from repro_torch.models.model import Model
+from repro_torch.serving.draft import make_draft_source
 from repro_torch.serving.kv_cache import (DenseKVBackend, KVBackendConfig,
                                           PagedKVBackend)
 from repro_torch.serving.sampler import REASONS, sample_and_reason
@@ -158,7 +171,11 @@ class EngineConfig:
                                            # cache (needs chunked prefill)
     prefix_cache_pages: int = 0            # dense backend: private store
                                            # capacity (0 = one batch's worth)
-    spec_decode: bool = False              # not ported (Queue 1 item 9)
+    spec_decode: bool = False              # verify-k speculative decode
+                                           # (attention family, fused
+                                           # decode; output-identical)
+    spec_k: int = 3                        # draft tokens per lane per
+                                           # verify step (paged: < page_size)
     warmup_compile: bool = False           # run warmup() at construction
     cuda_graphs: bool = True               # port only: on a CUDA device the
                                            # decode step and the menu's
@@ -191,17 +208,10 @@ def _kv_backend(cfg: EngineConfig, model: Model) -> str:
     return backend
 
 
-def _not_ported(cfg: EngineConfig) -> None:
-    if cfg.spec_decode:
-        raise NotImplementedError("spec_decode (ROADMAP.md Queue 1 item 9) "
-                                  "is not ported yet")
-
-
 class ServingEngine:
     def __init__(self, model: Model, params, cfg: EngineConfig,
                  predictor: Optional[LengthPredictor] = None,
                  latency: Optional[LatencyModel] = None):
-        _not_ported(cfg)
         self.kv_backend = _kv_backend(cfg, model)
         self.model = model
         self.params = params
@@ -263,7 +273,11 @@ class ServingEngine:
             prefill_chunk=(cfg.prefill_chunk if self._chunked_ok else None),
             iter_token_budget=cfg.iter_token_budget,
             prefill_buckets=buckets, prefill_pack=self._pack_ok,
-            prefill_pack_width=cfg.prefill_pack_width)
+            prefill_pack_width=cfg.prefill_pack_width,
+            decode_width=(cfg.spec_k + 1
+                          if (cfg.spec_decode and cfg.fused_decode
+                              and model.supports_spec_decode())
+                          else 1))
         self.sched = Scheduler(sched_cfg, self.predictor, self.latency, self.mem)
 
         bcfg = KVBackendConfig(
@@ -276,13 +290,23 @@ class ServingEngine:
             prefix_cache_pages=cfg.prefix_cache_pages, seed=cfg.seed,
             prefill_buckets=buckets, graph_buckets=self._graph_menu,
             prefill_pack_width=cfg.prefill_pack_width,
-            cuda_graphs=cfg.cuda_graphs)
+            cuda_graphs=cfg.cuda_graphs,
+            spec_k=(cfg.spec_k
+                    if cfg.spec_decode and cfg.fused_decode else 0))
         if self.kv_backend == "paged":
             num_pages = max(1, int(hbm // (cfg.page_size * bpt)))
             self.kv = PagedKVBackend(model, bcfg, num_pages)
         else:
             self.kv = DenseKVBackend(model, bcfg)
         self._prefix_ok = self.kv.prefix is not None
+        # speculative verify-k decode: the backend gates on the model and
+        # spec_k > 0 (an ssm engine ignores spec_decode); correctness does
+        # not depend on the drafts, so the source needs no warmup
+        self._spec_ok = self.kv.supports_spec_decode()
+        self._draft = None
+        if self._spec_ok:
+            self._draft = make_draft_source(
+                self.kv.prefix.index if self._prefix_ok else None)
         if self._prefix_ok:
             # cached pages no request references are the lowest KV tier:
             # every page-shortfall path reclaims them before spilling
@@ -312,9 +336,35 @@ class ServingEngine:
         self._events_lock = threading.Lock()
         self._backlog_cache = 0.0                  # refreshed under step_lock
         self._backlog_q90 = 0.0                    # p90 surface (admission)
+        # observability: attach_bus() sets a bus; None keeps every emit
+        # site to one attribute load and branch
+        self.bus = None
+        self.name = ""                             # replica lane name
+        self._step_wall0 = 0.0                     # perf_counter at step()
         self.device = cfg.device or default_device_label(model.device)
         if cfg.warmup_compile:
             self.warmup()
+
+    # -------------------------------------------------------- observability
+    def attach_bus(self, bus, name: str = "") -> None:
+        """Wire an observability EventBus through this engine, its
+        scheduler (queue join, promote, demote, predictions) and its
+        prefix cache (CoW, dedupe, evict), under one replica lane
+        ``name``."""
+        self.bus = bus
+        self.name = name
+        self.sched.bus = bus
+        self.sched.replica = name
+        if self._prefix_ok:
+            self.kv.prefix.bus = bus
+            self.kv.prefix.replica = name
+
+    def _span_t(self, t: float, t0: float) -> float:
+        """Trace placement of an in-step span that started at wall clock
+        ``t0``: the iteration's timestamp ``t`` plus the wall time elapsed
+        since step entry (exact on a wall clock; monotone within the
+        iteration on a virtual one)."""
+        return t + (t0 - self._step_wall0)
 
     # -------------------------------------------------------------- prefill
     def _sample_host(self, logits_row, rid: int, new_gen: int, new_ctx: int,
@@ -397,6 +447,9 @@ class ServingEngine:
             if hit:
                 r.prefilled = hit
                 r.cached_prefix_hint = hit
+                if self.bus is not None:
+                    self.bus.emit("prefix_hit", t=t, req_id=rid,
+                                  replica=self.name, tokens=hit)
         start = max(chunk.start, r.prefilled)
         # the chunk's coverage may need fresh pages: spill the largest-
         # context other resident (prefer fully-prefilled victims)
@@ -424,18 +477,26 @@ class ServingEngine:
             return "covered", start, target_toks
         return "ready", start, target_toks
 
-    def _chunk_postwork(self, chunk: PrefillChunk, logits_row, target_toks,
-                        generated_of, t: float) -> None:
-        """Everything after a chunk's call: on the final chunk, publish its
-        full pages to the prefix index (unless its KV is lossy), and
-        sample the first token of a fresh prefill.  Shared by the single
-        chunk and each member of a pack."""
+    def _chunk_postwork(self, chunk: PrefillChunk, start: int, n_toks: int,
+                        logits_row, target_toks, generated_of, t: float,
+                        t0: float, dt: float, pack_size: int = 1) -> None:
+        """Everything after a chunk's call: the ``prefill_chunk`` event, on
+        the final chunk a publish of its full pages to the prefix index
+        (unless its KV is lossy), and the first token of a fresh prefill.
+        Shared by the single chunk (``pack_size`` 1) and each member of a
+        pack."""
         r = chunk.req
+        if self.bus is not None:
+            self.bus.emit("prefill_chunk", t=self._span_t(t, t0), dur=dt,
+                          req_id=r.req_id, replica=self.name, start=start,
+                          end=chunk.end, tokens=n_toks, last=chunk.last,
+                          fresh=chunk.fresh, bucket=chunk.bucket,
+                          pack_size=pack_size)
         if (chunk.last and self._prefix_ok
                 and r.req_id not in self._lossy_kv):
             # the next request that shares this prefix hits it (the
             # partial tail page stays private: decode writes it)
-            self.kv.prefix_publish(r.req_id, target_toks, r.prefilled)
+            self._publish(r, target_toks, t)
         if chunk.last and r.generated == 0:   # fresh prefill emits a token
             tok, reason = self._sample_host(
                 logits_row, r.req_id, 1, r.context_len + 1,
@@ -472,9 +533,10 @@ class ServingEngine:
                                    "partial chunk")
             logits = self._run_prefill(r, target_toks)
             r.prefilled = n_toks = len(target_toks)
-        self.prefill_times.append(
-            (t0, n_toks, self._synced_since(t0, logits), 1))
-        self._chunk_postwork(chunk, logits[0], target_toks, generated_of, t)
+        dt = self._synced_since(t0, logits)
+        self.prefill_times.append((t0, n_toks, dt, 1))
+        self._chunk_postwork(chunk, start, n_toks, logits[0], target_toks,
+                             generated_of, t, t0, dt)
         return True
 
     def _exec_prefill_pack(self, pk: PrefillPack, generated_of,
@@ -524,10 +586,11 @@ class ServingEngine:
         dt = self._synced_since(t0, logits)
         total = sum(c.end - s for c, s, _ in ready)
         self.prefill_times.append((t0, total, dt, len(ready)))
-        for i, (chunk, _, target_toks) in enumerate(ready):
+        for i, (chunk, start, target_toks) in enumerate(ready):
             chunk.req.prefilled = chunk.end
-            self._chunk_postwork(chunk, logits[i], target_toks, generated_of,
-                                 t)
+            self._chunk_postwork(chunk, start, chunk.end - start, logits[i],
+                                 target_toks, generated_of, t, t0, dt,
+                                 pack_size=len(ready))
         return True
 
     # -------------------------------------------------------------- warmup
@@ -537,9 +600,11 @@ class ServingEngine:
         bucket of the menu (on the dense backend in every lane: each lane
         has its own graph), with packing one pack per bucket (one member:
         the padding rows fill the rest of the fixed width), the fused
-        decode step at ``max_slots`` lanes (or the per-slot decode,
-        eagerly), and one short prompt and one offload/upload round trip
-        of a warm lane (:meth:`_warm_libraries`).
+        decode step at ``max_slots`` lanes (with ``spec_decode`` the verify
+        step at ``(max_slots, spec_k + 1)`` in its place, its second run's
+        seconds in ``self.latency.verify_cost``; without fused decode the
+        per-slot decode, eagerly), and one short prompt and one
+        offload/upload round trip of a warm lane (:meth:`_warm_libraries`).
         A key's first use runs it twice and captures it; each bucket is
         then run once more and that replay's seconds land in
         ``self.latency.bucket_costs``, so EWT prices a bucketed chunk at its
@@ -551,10 +616,10 @@ class ServingEngine:
         Warm runs touch only state they release at once: a warm chunk's KV
         lands in a lane that is cleared (dense: its rows are never attended
         before a prompt rewrites them; paged: its pages are freed), the
-        all-inactive decode writes only the paged backend's scratch page
-        (the dense backend keeps inactive lanes' state), so a warmed engine
-        serves the same tokens bit for bit as a cold one.  A family without
-        chunked prefill has no bucket."""
+        all-inactive decode or verify writes only the paged backend's
+        shared scratch page (the dense backend keeps inactive lanes'
+        state), so a warmed engine serves the same tokens bit for bit as a
+        cold one.  A family without chunked prefill has no bucket."""
         if self.sched.live:
             raise RuntimeError("warmup() requires an idle engine")
         t_start = time.perf_counter()
@@ -584,11 +649,21 @@ class ServingEngine:
         B = self.cfg.max_slots
         zeros = np.zeros((B,), np.int32)
         tokens, active = np.zeros((B, 1), np.int32), np.zeros((B,), bool)
-        if self.cfg.fused_decode:
+        tl = np.full((B,), np.iinfo(np.int32).max, np.int32)
+        if self._spec_ok:
+            # the serve path's only decode step is the verify step (one
+            # (B, spec_k + 1) shape; draft counts ride n_drafts): its
+            # second run's seconds price speculative iterations in EWT
+            vtok = np.zeros((B, self.cfg.spec_k + 1), np.int32)
             for _ in range(2):
-                self.kv.decode(self.params, tokens, active, zeros, zeros,
-                               np.full((B,), np.iinfo(np.int32).max,
-                                       np.int32), zeros)
+                t0 = time.perf_counter()
+                self.kv.decode_verify(self.params, vtok, zeros, active,
+                                      zeros, zeros, tl, zeros)
+                self.latency.verify_cost = time.perf_counter() - t0
+        elif self.cfg.fused_decode:
+            for _ in range(2):
+                self.kv.decode(self.params, tokens, active, zeros, zeros, tl,
+                               zeros)
         else:
             self.kv.decode_logits(self.params, tokens, active).cpu()
         if costs:
@@ -642,15 +717,35 @@ class ServingEngine:
         self.kv.clear(req_id)
         self.host_pool.pop(req_id, None)
         self._lossy_kv.discard(req_id)
+        if self._draft is not None:
+            self._draft.release(req_id)
 
     def _spill(self, victim: Request, t: float, reason: str) -> None:
         """Preempt a resident victim to host DRAM — the single offload path
         shared by the planned swap-out, page-shortfall and mid-iteration
-        grow sites (KV move + memory accounting + request state)."""
+        grow sites (KV move + memory accounting + request state +
+        events)."""
+        t0 = time.perf_counter()
         self._offload(victim)
-        self.mem.offload(victim, t)
+        op = self.mem.offload(victim, t)
         victim.state = RequestState.PREEMPTED
         victim.preempt_count += 1
+        if self.bus is not None:
+            self.bus.emit("preempt", t=t, req_id=victim.req_id,
+                          replica=self.name, reason=reason)
+            self.bus.emit("swap_out", t=self._span_t(t, t0),
+                          dur=max(op.done_time - op.issue_time, 0.0),
+                          req_id=victim.req_id, replica=self.name,
+                          bytes=op.bytes,
+                          quantized=self.cfg.quantize_offload)
+
+    def _publish(self, req: Request, tokens, t: float) -> None:
+        """Publish ``req``'s materialized full pages of ``tokens`` (up to
+        its prefilled watermark) to the prefix index."""
+        pages = self.kv.prefix_publish(req.req_id, tokens, req.prefilled)
+        if pages and self.bus is not None:
+            self.bus.emit("prefix_publish", t=t, req_id=req.req_id,
+                          replica=self.name, pages=pages)
 
     # ------------------------------------------------------------ main loop
     def submit(self, req: Request, now: float = 0.0) -> None:
@@ -827,13 +922,18 @@ class ServingEngine:
         wall clock the caller owns); returns whether work ran."""
         generated_of = self._generated_of
         with self.step_lock:
+            self._step_wall0 = time.perf_counter()
             plan = self.sched.plan(t)
 
             for r in plan.drop:            # recompute-strategy eviction
+                dropped_ctx = r.context_len
                 self._drop_kv(r.req_id)
                 self.mem.drop(r)
                 r.state = RequestState.QUEUED
                 r.preempt_count += 1
+                if self.bus is not None:
+                    self.bus.emit("drop", t=t, req_id=r.req_id,
+                                  replica=self.name, tokens=dropped_ctx)
             for r in plan.swap_out:
                 if not self.kv.has(r.req_id):
                     continue               # already off-lane; nothing to move
@@ -841,10 +941,16 @@ class ServingEngine:
             for r in plan.swap_in:
                 if self.kv.free_slot() is None:
                     continue               # retry next iteration
+                t0 = time.perf_counter()
                 self._upload(r)
-                self.mem.upload(r, t)
+                op = self.mem.upload(r, t)
                 r.state = RequestState.PREEMPTED
                 self.sched._swap_ready_at[r.req_id] = 0.0
+                if self.bus is not None:
+                    self.bus.emit("swap_in", t=self._span_t(t, t0),
+                                  dur=max(op.done_time - op.issue_time, 0.0),
+                                  req_id=r.req_id, replica=self.name,
+                                  bytes=op.bytes)
 
             ran_any = False
             # prefill chunks execute as encountered; decode lanes collect
@@ -864,7 +970,9 @@ class ServingEngine:
             if runnable:
                 t0 = time.perf_counter()
                 B = self.cfg.max_slots
-                tokens = np.zeros((B, 1), np.int32)
+                k1 = (self.cfg.spec_k + 1) if self._spec_ok else 1
+                tokens = np.zeros((B, k1), np.int32)
+                n_drafts = np.zeros((B,), np.int32)
                 active = np.zeros((B,), bool)
                 base_gen = np.zeros((B,), np.int32)
                 base_ctx = np.zeros((B,), np.int32)
@@ -876,6 +984,12 @@ class ServingEngine:
                     slot_of[r.req_id] = slot
                     gen = generated_of[r.req_id]
                     tokens[slot, 0] = gen[-1] if gen else r.prompt_tokens[-1]
+                    if self._spec_ok:
+                        drafts = self._draft.propose(
+                            r.req_id, list(r.prompt_tokens) + gen,
+                            self.cfg.spec_k)
+                        tokens[slot, 1:1 + len(drafts)] = drafts
+                        n_drafts[slot] = len(drafts)
                     active[slot] = True
                     base_gen[slot] = r.generated
                     base_ctx[slot] = r.context_len
@@ -883,7 +997,15 @@ class ServingEngine:
                     if self.cfg.respect_true_len:
                         true_len[slot] = r.true_out_len
                     r.state = RequestState.RUNNING
-                if self.cfg.fused_decode:
+                if self._spec_ok:
+                    # one verify-k step: score the fed token and every
+                    # draft, accept the longest exact-match run, sample the
+                    # bonus token, terminate; one host sync for up to
+                    # spec_k + 1 tokens per lane
+                    samples, n_emit, reasons = self.kv.decode_verify(
+                        self.params, tokens, n_drafts, active, base_gen,
+                        base_ctx, true_len, rids)
+                elif self.cfg.fused_decode:
                     # one step: decode + sample + terminate on the device
                     toks, reasons = self.kv.decode(
                         self.params, tokens, active, base_gen + 1,
@@ -896,11 +1018,34 @@ class ServingEngine:
                 ctx_tokens = int(sum(r.context_len for r in runnable))
                 dt = time.perf_counter() - t0
                 self.iter_times.append((t0, ctx_tokens, len(runnable), dt))
+                if self.bus is not None:
+                    extra = {}
+                    if self._spec_ok:
+                        extra = dict(
+                            drafted=int(n_drafts.sum()),
+                            accepted=int(sum(
+                                max(int(n_emit[sl]) - 1, 0)
+                                for sl in slot_of.values())))
+                    self.bus.emit("decode_iter", t=self._span_t(t, t0),
+                                  dur=dt, replica=self.name,
+                                  batch=len(runnable),
+                                  ctx_tokens=ctx_tokens, **extra)
                 for r in runnable:
                     # accepted even if a neighbour's mem.grow() spill
                     # offloaded r mid-loop: this decode already wrote r's
                     # fed token's KV, so skipping would duplicate it
                     slot = slot_of[r.req_id]
+                    if self._spec_ok:
+                        m = int(n_emit[slot])
+                        r.spec_iters += 1
+                        r.spec_drafted += int(n_drafts[slot])
+                        r.spec_accepted += max(m - 1, 0)
+                        for i in range(m):
+                            self._accept_token(
+                                r, int(samples[slot, i]), generated_of, t,
+                                reason=(REASONS[int(reasons[slot])]
+                                        if i == m - 1 else ""))
+                        continue
                     if self.cfg.fused_decode:
                         tok, reason = int(toks[slot]), REASONS[
                             int(reasons[slot])]
@@ -911,6 +1056,14 @@ class ServingEngine:
                     self._accept_token(r, tok, generated_of, t,
                                        reason=reason)
                 ran_any = True
+            if self.bus is not None and plan.hol_blocked:
+                # charge each blocked higher-priority request the wall time
+                # of the iteration that ran lower-priority work ahead of it
+                iter_dt = time.perf_counter() - self._step_wall0
+                for r in plan.hol_blocked:
+                    self.bus.emit("hol_blocked", t=t, dur=iter_dt,
+                                  req_id=r.req_id, replica=self.name,
+                                  level=r.priority_level)
             self._refresh_backlog()
         # learning happens outside step_lock, after the dispatch work
         self.predictor.drain_feedback()
@@ -947,11 +1100,22 @@ class ServingEngine:
                 # whole conversation, so the generated tokens' full pages
                 # are worth caching too (materialized up to the prefilled
                 # watermark; the fed token's KV is not)
-                self.kv.prefix_publish(req.req_id,
-                                       self._prefill_target_tokens(req),
-                                       req.prefilled)
+                self._publish(req, self._prefill_target_tokens(req), t)
             self._drop_kv(req.req_id)      # lane/pages or host-pool copy
             self.sched.note_finished(req, t)
+            if self.bus is not None:
+                # self-contained: arrival, first token and prediction ride
+                # along, so an engine-only trace yields length and TTFT
+                # error distributions
+                self.bus.emit("finish", t=t, req_id=req.req_id,
+                              replica=self.name, reason=reason,
+                              generated=req.generated,
+                              predicted=req.predicted_len,
+                              cached_prefix=req.cached_prefix_hint,
+                              arrival_t=req.arrival_time,
+                              first_token_t=req.first_token_time,
+                              preempts=req.preempt_count,
+                              demotions=req.demotions)
             self._generated_of.pop(req.req_id, None)
             if self.stream_events:
                 self._emit_event(EngineEvent(

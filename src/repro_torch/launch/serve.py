@@ -27,6 +27,13 @@ bucket menu run as CUDA graphs; ``--warmup`` captures them (and loads
 every kernel library serving can reach) before the first request, so
 serving captures and loads nothing.
 
+``--spec-decode`` turns on speculative verify-k decoding (``--spec-k``
+model-free drafts per lane scored in one step, greedy and sampled outputs
+unchanged; granite only).  ``--trace-out PATH`` attaches an observability
+event bus and, after serving, writes a Chrome/Perfetto trace to PATH, its
+Prometheus gauge text to ``PATH.prom`` and the scheduler-quality
+highlights to the console.
+
 ``--predictor online`` is the learned hit-aware quantile length predictor
 (``serving/prediction``); ``--iter-token-budget auto`` serves a warm batch,
 fits the latency model to it and picks the budget whose predicted
@@ -63,6 +70,30 @@ def _mk_predictor(kind: str, seed: int = 0):
     if kind == "online":
         return OnlineQuantilePredictor(seed=seed)
     return RetrievalPredictor(seed=seed)
+
+
+def _export_trace(bus, quality: dict, trace_out: str) -> None:
+    """Write the Chrome/Perfetto trace (and a .prom gauge dump) and print
+    the scheduler-quality highlights derived from the same stream."""
+    from repro_torch.serving.observability import (render_prometheus,
+                                                   write_chrome_trace)
+    obj = write_chrome_trace(bus, trace_out)
+    print(f"[trace] wrote {len(obj['traceEvents'])} trace events -> "
+          f"{trace_out} (load in https://ui.perfetto.dev)")
+    with open(trace_out + ".prom", "w") as f:
+        f.write(render_prometheus(bus))
+    print(f"[trace] wrote Prometheus gauges -> {trace_out}.prom")
+    q = quality.get("queueing", {})
+    e = quality.get("estimate_error", {})
+    for label, d in [("ttft decomposition p50 (s): ",
+                      {k: v.get("p50") for k, v in q.items()
+                       if isinstance(v, dict) and v.get("n", 0)}),
+                     ("EWT err (s) ", e.get("ewt_signed_s", {})),
+                     ("len err (tok) ", e.get("len_signed_tok", {}))]:
+        if isinstance(d, dict) and d and d.get("n", 1):
+            stats = ", ".join(f"{k}={v:.3f}" for k, v in d.items()
+                              if isinstance(v, float))
+            print(f"[quality] {label}{stats}")
 
 
 def build_model(arch: str = "granite-3-8b", arch_size: str = "smoke",
@@ -114,7 +145,9 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
           chunk_attn: Optional[str] = None, page_size: int = 16,
           kv_backend: str = "dense", device=None, model_and_params=None,
           warmup: bool = False, verbose: bool = True,
-          cuda_graphs: bool = True, requests=None):
+          cuda_graphs: bool = True, requests=None,
+          spec_decode: bool = False, spec_k: int = 3,
+          trace_out: Optional[str] = None):
     """Build (or take) the model, serve ``n_requests`` (or ``requests``)
     through ``ServingEngine.serve`` and print a summary.  ``kv_backend``
     is ``dense`` (the default, as in the JAX launcher) or ``paged``
@@ -123,7 +156,9 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
     requests is served first and ``autotune_token_budget(target_tpot)``
     sets the budget from its fitted latency model.  ``cuda_graphs=False``
     runs the serving steps eagerly on the card (``EngineConfig.
-    cuda_graphs``).  Returns ``(requests, engine)``."""
+    cuda_graphs``).  ``spec_decode``/``spec_k`` are the engine's verify-k
+    decoding; ``trace_out`` attaches a wall-clock ``EventBus`` and exports
+    its trace there after serving.  Returns ``(requests, engine)``."""
     dev = resolve_device(device)
     model, params = model_and_params or build_model(
         arch, arch_size, dev, chunk_attn, seed)
@@ -138,8 +173,12 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
         iter_token_budget=None if autotune else iter_token_budget,
         prefill_buckets=prefill_buckets, prefill_pack=prefill_pack,
         prefill_pack_width=prefill_pack_width, prefix_cache=prefix_cache,
-        warmup_compile=warmup, cuda_graphs=cuda_graphs, seed=seed),
+        spec_decode=spec_decode, spec_k=spec_k, warmup_compile=warmup,
+        cuda_graphs=cuda_graphs, seed=seed),
         predictor=_mk_predictor(predictor_kind, seed))
+    if trace_out:
+        from repro_torch.serving.observability import EventBus
+        eng.attach_bus(EventBus(clock="wall"), "engine0")
     if autotune:
         # profile a warm batch, then pick the budget whose predicted
         # mixed-iteration time meets the target TPOT
@@ -185,9 +224,20 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
             print(f"[serve] prefix cache: {st.hits} hits ({st.partial_hits} "
                   f"partial), {st.misses} misses, {st.hit_tokens} tokens "
                   f"served from cache, {st.inserted_pages} pages published")
+        if eng._spec_ok:
+            drafted = sum(r.spec_drafted for r in reqs)
+            accepted = sum(r.spec_accepted for r in reqs)
+            iters = sum(r.spec_iters for r in reqs)
+            print(f"[serve] spec decode (k={spec_k}): {accepted}/{drafted} "
+                  f"drafts accepted, "
+                  f"{(iters + accepted) / max(iters, 1):.2f} tokens per "
+                  "lane iteration")
         lm = eng.fit_latency_model()
         print(f"[serve] fitted latency model: t0={lm.t0:.2e}s/tok "
               f"alpha={lm.alpha:.2e} beta={lm.beta:.2e}")
+    if trace_out:
+        from repro_torch.serving.observability import analyze_quality
+        _export_trace(eng.bus, analyze_quality(eng.bus), trace_out)
     return reqs, eng
 
 
@@ -254,9 +304,26 @@ def main():
                          "only backend of mamba2-2.7b) or the paged pool "
                          "(granite only; CUDA paged attention)")
     ap.add_argument("--warmup", action="store_true",
-                    help="capture the serving steps (decode, every prefill "
-                         "bucket) as CUDA graphs, load every kernel library "
-                         "and time each bucket before serving")
+                    help="capture the serving steps (decode or verify, "
+                         "every prefill bucket) as CUDA graphs, load every "
+                         "kernel library and time each bucket before "
+                         "serving")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="verify-k speculative decoding: model-free "
+                         "n-gram/prefix-index drafts scored k+1 positions "
+                         "at a time in one fused step; outputs equal plain "
+                         "decoding's (greedy and sampled; bit for bit on "
+                         "the CPU in float32). Pair with --warmup so the "
+                         "verify step is captured before serving")
+    ap.add_argument("--spec-k", type=int, default=3,
+                    help="draft tokens per decode lane per verify step "
+                         "(paged backend: must be < page size)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record the request lifecycle on the "
+                         "observability event bus and export a Chrome/"
+                         "Perfetto trace JSON to PATH after serving (plus "
+                         "PATH.prom gauge dump and scheduler-quality "
+                         "highlights)")
     args = ap.parse_args()
     buckets = None
     if args.prefill_buckets:
@@ -273,7 +340,9 @@ def main():
           prefill_pack_width=args.prefill_pack_width,
           prefix_cache=args.prefix_cache,
           paged_attn_impl=args.paged_attn_impl, chunk_attn=args.chunk_attn,
-          kv_backend=args.kv_backend, device=args.device, warmup=args.warmup)
+          kv_backend=args.kv_backend, device=args.device, warmup=args.warmup,
+          spec_decode=args.spec_decode, spec_k=args.spec_k,
+          trace_out=args.trace_out)
 
 
 if __name__ == "__main__":

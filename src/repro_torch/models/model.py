@@ -1,7 +1,8 @@
 """Model assembly for the PyTorch port: the serving entry points of the
 attention-family decoder (chunked paged prefill and fused paged decode;
 monolithic prefill, chunked prefill over a dense per-lane stripe and fused
-dense decode) and of the Mamba-2 (``ssm``) family (monolithic prefill,
+dense decode; fused verify-k speculative decode over either) and of the
+Mamba-2 (``ssm``) family (monolithic prefill,
 fused recurrent decode over a dense state cache), and the training loss of
 the attention family (dense FFN).
 
@@ -25,7 +26,7 @@ from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models.config import ArchConfig
-from repro_torch.serving.sampler import sample_and_reason
+from repro_torch.serving.sampler import sample_and_reason, verify_and_reason
 from repro_torch.utils import dtype_of, resolve_device, tree_map
 
 Params = Dict[str, Any]
@@ -367,6 +368,82 @@ class Model:
             new_gen=new_gen, new_ctx=new_ctx, true_len=true_len)
         return tok, torch.where(active, reason, torch.zeros_like(reason))
 
+    # -------------------------------------------------- speculative decode
+    def supports_spec_decode(self) -> bool:
+        """Verify-k decode shares chunked prefill's requirements: scoring
+        k+1 positions against cached K/V is a (tiny) prefill chunk."""
+        return self.supports_chunked_prefill()
+
+    def _check_spec(self) -> None:
+        if not self.supports_spec_decode():
+            raise ValueError(f"verify-k decode unsupported for family="
+                             f"{self.cfg.family}")
+
+    @torch.no_grad()
+    def paged_decode_verify(self, params, kv, tokens, block_tables, lengths,
+                            write_page, write_off):
+        """Score K1 = k+1 decode positions per lane over the page pool.
+
+        ``kv``: {"k","v"} (L, num_pages, page, KVH, hd), written **in
+        place**; ``tokens``: (B, K1), column 0 each lane's fed token,
+        columns 1..k its drafts; ``block_tables``: (B, max_pages + 1) with
+        the lane's scratch page right after its real pages, so a
+        scratch-resident position's gather index equals its logical
+        position; ``lengths``: (B,) int32; ``write_page``/``write_off``:
+        (B, K1) host-computed physical destination of each position (an
+        inactive lane's at the backend's shared scratch page).  Position
+        ``i`` sits at ``lengths + i`` and attends the lane's pages gathered
+        in logical order through :meth:`_chunk_attn` (the prefix flash
+        kernel on the card), as :meth:`paged_prefill_pack` does; stale
+        scratch offsets lie past every query and are causally masked.
+        Returns logits (B, K1, V) float32."""
+        self._check_spec()
+        cfg = self.cfg
+        B, K1 = tokens.shape
+        page = kv["k"].shape[2]
+        Smax = block_tables.shape[1] * page
+        dev = tokens.device
+        start = lengths.reshape(B).to(torch.int32)  # as the flash kernel takes
+        x = self._embed_in(params, tokens)
+        q_pos = start.long()[:, None] + torch.arange(K1, device=dev)[None]
+        kv_pos = torch.arange(Smax, device=dev)[None, :]
+        wp, wo = write_page.long(), write_off.long()
+        tables = block_tables.long()
+        for li, p_l in enumerate(params["layers"]):
+            k_pool, v_pool = kv["k"][li], kv["v"][li]
+            h1 = self._norm(p_l["ln1"], x)
+            q, k, v = L._project_qkv(cfg, p_l["attn"], h1, q_pos)
+            k_pool.index_put_((wp, wo), k.to(k_pool.dtype))
+            v_pool.index_put_((wp, wo), v.to(v_pool.dtype))
+            kg = k_pool[tables].reshape(B, Smax, *k_pool.shape[2:])
+            vg = v_pool[tables].reshape(B, Smax, *v_pool.shape[2:])
+            attn = self._chunk_attn(q, kg, vg, q_pos, kv_pos, start)
+            x = x + attn.reshape(B, K1, -1) @ p_l["attn"]["wo"]
+            x = self._ffn_block(p_l, x)
+        x = self._norm(params["final_norm"], x)
+        return self._logits(params, x).float()
+
+    def paged_decode_verify_sampled(self, params, kv, tokens, block_tables,
+                                    lengths, write_page, write_off, n_drafts,
+                                    active, base_gen, base_ctx, true_len,
+                                    rids, *, seed: int = 0,
+                                    greedy_sampling=True, temp: float = 1.0,
+                                    top_k: int = 0, eos_token: int = 1,
+                                    max_new_tokens: int = 128,
+                                    max_seq_len: int = 256):
+        """Fused paged verify-k: score + sample + accept + terminate on the
+        device.  The paged backend keeps lengths on the host and commits
+        page-table state after the sync.  Returns ``(samples (B, K1),
+        n_emit (B,), reason (B,))`` int32."""
+        logits = self.paged_decode_verify(params, kv, tokens, block_tables,
+                                          lengths, write_page, write_off)
+        return verify_and_reason(
+            logits, tokens, n_drafts, rids, active, seed=seed,
+            greedy_sampling=greedy_sampling, temp=temp, top_k=top_k,
+            eos_token=eos_token, max_new_tokens=max_new_tokens,
+            max_seq_len=max_seq_len, base_gen=base_gen, base_ctx=base_ctx,
+            true_len=true_len)
+
     # ------------------------------------------------- monolithic prefill
     @torch.no_grad()
     def prefill(self, params, batch):
@@ -673,6 +750,77 @@ class Model:
             max_new_tokens=max_new_tokens, max_seq_len=max_seq_len,
             new_gen=new_gen, new_ctx=new_ctx, true_len=true_len)
         return tok, torch.where(active, reason, torch.zeros_like(reason))
+
+    @torch.no_grad()
+    def decode_verify(self, params, cache, tokens, active=None):
+        """Score K1 = k+1 decode positions per lane over the dense cache.
+
+        ``tokens``: (B, K1), column 0 each lane's fed token, columns 1..k
+        its drafts.  Position ``i``'s K/V is written **in place** at
+        ``lengths + i`` and it attends the lane's stripe causally through
+        :meth:`_chunk_attn` (the prefix flash kernel on the card), so it
+        sees the context the sequential path would have.  ``lengths`` is
+        left unchanged: the caller commits accepted positions; rejected
+        positions' K/V lies past the watermark, where nothing attends.
+
+        Two differences from the reference, whose scatter writes every
+        lane and silently drops positions past Smax: a position at or past
+        Smax is dropped explicitly, and with ``active`` given an inactive
+        lane writes nothing.  Row ``i`` goes to ``(lengths + i) mod Smax``
+        with the new value where it lands and the old one otherwise, so
+        the K1 indices of a lane are distinct (K1 <= Smax) and no host
+        value is baked into a captured graph.  Returns logits (B, K1, V)
+        float32."""
+        self._check_spec()
+        cfg = self.cfg
+        B, K1 = tokens.shape
+        Smax = cache["k"].shape[2]
+        dev = tokens.device
+        start = cache["lengths"]
+        x = self._embed_in(params, tokens)
+        q_pos = start.long()[:, None] + torch.arange(K1, device=dev)[None]
+        kv_pos = torch.arange(Smax, device=dev)[None, :]
+        lanes = torch.arange(B, device=dev)[:, None]
+        rows = q_pos % Smax
+        keep = q_pos < Smax
+        if active is not None:
+            keep = keep & active[:, None]
+        keep = keep[..., None, None]
+        for li, p_l in enumerate(params["layers"]):
+            kc, vc = cache["k"][li], cache["v"][li]
+            h1 = self._norm(p_l["ln1"], x)
+            q, k, v = L._project_qkv(cfg, p_l["attn"], h1, q_pos)
+            for dst, new in ((kc, k), (vc, v)):
+                dst[lanes, rows] = torch.where(keep, new.to(dst.dtype),
+                                               dst[lanes, rows])
+            attn = self._chunk_attn(q, kc, vc, q_pos, kv_pos, start)
+            x = x + attn.reshape(B, K1, -1) @ p_l["attn"]["wo"]
+            x = self._ffn_block(p_l, x)
+        x = self._norm(params["final_norm"], x)
+        return self._logits(params, x).float()
+
+    def decode_verify_sampled(self, params, cache, tokens, n_drafts, active,
+                              base_gen, base_ctx, true_len, rids, *,
+                              seed: int = 0, greedy_sampling=True,
+                              temp: float = 1.0, top_k: int = 0,
+                              eos_token: int = 1, max_new_tokens: int = 128,
+                              max_seq_len: int = 256):
+        """Fused dense verify-k: score k+1 positions, sample each with its
+        own draw, accept the longest exact-match draft prefix and resolve
+        termination on the device; each lane's ``lengths`` advances by its
+        ``n_emit`` (the last emitted token's K/V stays unwritten: the next
+        step feeds it, as in plain decode).  Inactive lanes keep their
+        state.  Returns ``(samples (B, K1), n_emit (B,), reason (B,))``
+        int32."""
+        logits = self.decode_verify(params, cache, tokens, active)
+        s, n_emit, reason = verify_and_reason(
+            logits, tokens, n_drafts, rids, active, seed=seed,
+            greedy_sampling=greedy_sampling, temp=temp, top_k=top_k,
+            eos_token=eos_token, max_new_tokens=max_new_tokens,
+            max_seq_len=max_seq_len, base_gen=base_gen, base_ctx=base_ctx,
+            true_len=true_len)
+        cache["lengths"] += n_emit
+        return s, n_emit, reason
 
     # --------------------------------------------------------- cache specs
     def cache_shapes(self, batch: int, max_len: int) -> Dict[str, Any]:

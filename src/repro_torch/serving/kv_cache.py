@@ -38,14 +38,22 @@ kernel's split plan and the weight products see one shape per bucket.
 Other chunks (a whole prompt when no chunk size is set), swaps, prefix
 copies and the per-slot decode run eagerly.
 
+With ``spec_k > 0`` the attention backends also run the fused verify-k
+step (``decode_verify``: the fed token and ``spec_k`` drafts scored per
+lane in one call, accepted on the device), as the step graph
+``("verify",)``.  The dense backend commits accepted positions on the
+device by advancing ``lengths``; the paged one writes speculative
+positions past a lane's last page to the lane's own scratch page and,
+after the sync, promotes that page into the page table when the accepted
+span reaches it.
+
 Offload/upload of K/V run the INT8 ``kv_quant`` kernels on the device when
 ``quantize_offload`` is set (paper Eq. 8): the host link carries the INT8
 payload plus float32 per-row scales and zeros.  Conv and SSM state cross
 raw, as in the reference: INT8 applies to K/V only.
 
-Not ported yet: speculative decoding (``ROADMAP.md`` Queue 1 item 9; the
-engine raises ``NotImplementedError`` for it) and the cluster KV tier
-(item 10), whose hooks are absent.
+Not ported yet: the cluster KV tier (``ROADMAP.md`` Queue 1 item 10),
+whose hooks are absent.
 """
 from __future__ import annotations
 
@@ -239,6 +247,7 @@ class KVBackendConfig:
     # menu)
     prefill_pack_width: int = 4    # rows of every packed-prefill call
     cuda_graphs: bool = True       # capture the steps on a CUDA device
+    spec_k: int = 0                # speculative verify-k draft width
 
 
 class KVBackend:
@@ -332,6 +341,67 @@ class KVBackend:
         """A decode step's staged sampling fields (the dense step's whole
         input; the paged step's tail)."""
         return pack(tokens, active, new_gen, new_ctx, true_len, rids)
+
+    # ------------------------------------------------- speculative decode
+    def supports_spec_decode(self) -> bool:
+        """Whether :meth:`decode_verify` is available (``spec_k > 0`` and
+        the model family has the verify-k step)."""
+        return self.cfg.spec_k > 0 and self.model.supports_spec_decode()
+
+    def decode_verify(self, params, tokens, n_drafts, active, base_gen,
+                      base_ctx, true_len, rids):
+        """One fused verify-k iteration as the step graph ``("verify",)``.
+
+        ``tokens``: (B, spec_k+1), column 0 each lane's fed token, columns
+        1..k its drafts (zero-padded past ``n_drafts[b]``; padding never
+        matches); ``base_gen``/``base_ctx``: generated count / context
+        length *before* the step.  Returns ``(samples (B, spec_k+1),
+        n_emit (B,), reason (B,))`` numpy, one copy to the host: the caller
+        accepts ``samples[b, :n_emit[b]]`` and applies ``reason[b]`` to the
+        last of them.  Each active lane's K/V state advances by exactly
+        ``n_emit[b]`` positions; inactive lanes' state is untouched."""
+        K1 = self.cfg.spec_k + 1
+        staged = self._verify_inputs(tokens, n_drafts, active, base_gen,
+                                     base_ctx, true_len, rids)
+        out = self.graphs.to_host(self.graphs.run(
+            ("verify",), staged, lambda buf: self._verify_step(params, buf),
+            self._neutral_verify))
+        n_emit = out[:, K1]
+        self._commit_verify(n_emit, active)
+        return out[:, :K1], n_emit, out[:, K1 + 1]
+
+    def _verify_inputs(self, tokens, n_drafts, active, base_gen, base_ctx,
+                       true_len, rids) -> np.ndarray:
+        """A verify step's staged tokens and lane scalars (the dense
+        step's whole input; the paged step's tail)."""
+        return pack(tokens, n_drafts, active, base_gen, base_ctx, true_len,
+                    rids)
+
+    def _verify_views(self, buf):
+        """(tokens (B, K1), n_drafts, active (B,) bool, base_gen,
+        base_ctx, true_len, rids) views of :meth:`_verify_inputs`'s part
+        of a step's input."""
+        B, K1 = self.cfg.max_slots, self.cfg.spec_k + 1
+        toks, nd, act, *rest = unpack(buf, (B, K1), *[(B,)] * 6)
+        return (toks, nd, act != 0, *rest)
+
+    def _neutral_verify(self) -> np.ndarray:
+        """A verify input that writes no live state: every lane
+        inactive."""
+        B, K1 = self.cfg.max_slots, self.cfg.spec_k + 1
+        z = np.zeros((B,), np.int32)
+        return self._verify_inputs(np.zeros((B, K1), np.int32), z, z, z, z,
+                                   z, z)
+
+    @staticmethod
+    def _verify_out(s, n_emit, reason):
+        """The verify step's one output: (B, K1 + 2) int32 of the samples,
+        then ``n_emit`` and ``reason``."""
+        return torch.cat([s, n_emit[:, None], reason[:, None]], dim=1)
+
+    def _commit_verify(self, n_emit, active) -> None:
+        """Host-side bookkeeping after a verify step's sync (none on the
+        dense backend: its step advanced ``lengths`` on the device)."""
 
     def _decode_views(self, buf):
         """(tokens (B, 1), active (B,) bool, new_gen, new_ctx, true_len,
@@ -442,14 +512,28 @@ class PagedKVBackend(KVBackend):
             raise ValueError("max_seq_len must be a page_size multiple")
         if cfg.attn_impl not in ("gather", "kernel"):
             raise ValueError(f"paged_attn_impl={cfg.attn_impl!r}")
+        if cfg.spec_k >= cfg.page_size:
+            raise ValueError(
+                f"spec_k ({cfg.spec_k}) must be < page_size "
+                f"({cfg.page_size}) so a lane's speculative span never "
+                "needs more than its one scratch page")
         acfg = model.cfg
+        spec_on = self.supports_spec_decode()
         self.max_pages_per_seq = cfg.max_seq_len // cfg.page_size
         self.pool = PagedKVPool(PagedKVConfig(
-            num_pages=num_pages + 1,                # +1 sacrificial scratch
+            # +1 sacrificial scratch page, plus one private scratch page
+            # per lane with verify-k (speculative K/V lands there until
+            # accepted)
+            num_pages=num_pages + 1 + (cfg.max_slots if spec_on else 0),
             page_size=cfg.page_size, num_kv_heads=acfg.num_kv_heads,
             head_dim=acfg.hd, num_layers=acfg.num_layers,
             dtype=model.kv_dtype), device=self.device)
         self.scratch_page = self.pool.reserve_scratch()
+        # per-lane speculative scratch pages: a commit moves one into the
+        # request's page table and takes a fresh one from the pool
+        self.lane_scratch: List[int] = (
+            [self.pool.reserve_scratch() for _ in range(cfg.max_slots)]
+            if spec_on else [])
         if cfg.prefix_cache:
             self.prefix = PagedPrefixCache(self.pool, cfg.page_size)
 
@@ -649,10 +733,19 @@ class PagedKVBackend(KVBackend):
         self.slot_req[slot] = rid
 
     def pages_shortfall(self, rids: List[int]) -> int:
-        """Physical pages missing to decode one token for each of
-        ``rids``."""
+        """Physical pages missing to decode one token (with verify-k: one
+        step) for each of ``rids``."""
         pg = self.cfg.page_size
-        need_new = sum(1 for rid in rids if self.pool.lengths[rid] % pg == 0)
+        if self.lane_scratch:
+            # verify-k: a lane whose longest accepted span (k+1 tokens)
+            # could reach its scratch page needs one free page for the
+            # scratch page's replacement after the commit
+            k1 = self.cfg.spec_k + 1
+            need_new = sum(1 for rid in rids if self.pool.lengths[rid] + k1
+                           > len(self.pool.page_table[rid]) * pg)
+        else:
+            need_new = sum(1 for rid in rids
+                           if self.pool.lengths[rid] % pg == 0)
         return max(0, need_new - len(self.pool.free_pages))
 
     def _decode_inputs(self, tokens, active, new_gen, new_ctx, true_len,
@@ -693,6 +786,67 @@ class PagedKVBackend(KVBackend):
             params, self._kv(), toks, tables, lens, wp, wo, active, *fields,
             attn_impl=self.cfg.attn_impl, **self._sample_kwargs())
         return torch.stack([tok, reason])
+
+    def _verify_inputs(self, tokens, n_drafts, active, base_gen, base_ctx,
+                       true_len, rids) -> np.ndarray:
+        """Stage a verify step's input: block tables with one extra column
+        holding each active lane's scratch page right after its real
+        pages (a scratch-resident write at logical position p, p // page
+        == len(table), gathers back at exactly p), lengths, each
+        position's physical page and offset (inactive lanes at the shared
+        scratch page), then the tokens and lane scalars.  No page is
+        claimed: the commit promotes a scratch page on accept."""
+        B, pg = self.cfg.max_slots, self.cfg.page_size
+        K1 = self.cfg.spec_k + 1
+        tables = np.full((B, self.max_pages_per_seq + 1), self.scratch_page,
+                         np.int32)
+        lens = np.zeros((B,), np.int32)
+        wp = np.full((B, K1), self.scratch_page, np.int32)
+        wo = np.broadcast_to(np.arange(K1, dtype=np.int32) % pg,
+                             (B, K1)).copy()
+        for slot, rid in enumerate(self.slot_req):
+            if rid is None or not active[slot]:
+                continue
+            pos = self.pool.lengths[rid]
+            pt = self.pool.page_table[rid]
+            tables[slot, :len(pt)] = pt
+            tables[slot, len(pt)] = self.lane_scratch[slot]
+            lens[slot] = pos
+            for i in range(K1):
+                p = pos + i
+                wp[slot, i] = (pt[p // pg] if p // pg < len(pt)
+                               else self.lane_scratch[slot])
+                wo[slot, i] = p % pg
+        return pack(tables, lens, wp, wo, super()._verify_inputs(
+            tokens, n_drafts, active, base_gen, base_ctx, true_len, rids))
+
+    def _verify_step(self, params, buf):
+        B, maxp = self.cfg.max_slots, self.max_pages_per_seq + 1
+        K1 = self.cfg.spec_k + 1
+        head = B * (maxp + 1 + 2 * K1)
+        tables, lens, wp, wo = unpack(buf[:head], (B, maxp), (B,), (B, K1),
+                                      (B, K1))
+        toks, *lane = self._verify_views(buf[head:])
+        return self._verify_out(*self.model.paged_decode_verify_sampled(
+            params, self._kv(), toks, tables, lens, wp, wo, *lane,
+            **self._sample_kwargs()))
+
+    def _commit_verify(self, n_emit, active) -> None:
+        """Advance each active lane's pool length by its ``n_emit``; a lane
+        whose accepted span reached its scratch page moves that page into
+        its page table (no copy) and takes a fresh scratch page (the
+        caller guaranteed one through :meth:`pages_shortfall`).  Rejected
+        positions are rolled back by not counting them."""
+        pg = self.cfg.page_size
+        for slot, rid in enumerate(self.slot_req):
+            if rid is None or not active[slot] or n_emit[slot] == 0:
+                continue
+            pt = self.pool.page_table[rid]
+            new_len = self.pool.lengths[rid] + int(n_emit[slot])
+            if new_len > len(pt) * pg:
+                pt.append(self.lane_scratch[slot])
+                self.lane_scratch[slot] = self.pool.take_page()
+            self.pool.lengths[rid] = new_len
 
 
 class DenseKVBackend(KVBackend):
@@ -905,6 +1059,11 @@ class DenseKVBackend(KVBackend):
             params, self.cache, *self._decode_views(buf),
             **self._sample_kwargs())
         return torch.stack([tok, reason])
+
+    def _verify_step(self, params, buf):
+        return self._verify_out(*self.model.decode_verify_sampled(
+            params, self.cache, *self._verify_views(buf),
+            **self._sample_kwargs()))
 
     def decode_logits(self, params, tokens, active):
         """The per-slot path's decode: one ``Model.decode_step`` over every

@@ -32,8 +32,10 @@ reference.  The two storage front-ends are rewritten for torch:
     the cached pages into the request's stripe, a publish copies stripe
     rows into the store, each as one torch index copy.
 
-The observability bus and the cluster KV tier are not ported (``ROADMAP.md``
-Queue 1 items 16 and 10), so neither front-end has their hooks.
+Both front-ends emit ``prefix_cow``, ``prefix_dedupe`` and
+``prefix_evict`` events to an observability bus when the engine attaches
+one (``bus`` None: nothing is recorded).  The cluster KV tier is not
+ported (``ROADMAP.md`` Queue 1 item 10), so neither has its hooks.
 """
 from __future__ import annotations
 
@@ -233,6 +235,8 @@ class PagedPrefixCache:
         self.pool = pool
         self.index = RadixPageIndex(page_size)
         self.stats = PrefixCacheStats()
+        self.bus = None                # observability EventBus (None = off)
+        self.replica = ""
 
     def probe(self, tokens) -> int:
         """Expected hit length in tokens (pricing only: touch-free, so
@@ -269,6 +273,9 @@ class PagedPrefixCache:
                 hit += m
                 self.stats.partial_hits += 1
                 self.stats.cow_pages += 1
+                if self.bus is not None:
+                    self.bus.emit("prefix_cow", req_id=rid,
+                                  replica=self.replica, tokens=m)
         if hit == 0:
             self.stats.misses += 1
             return 0
@@ -315,7 +322,11 @@ class PagedPrefixCache:
                 table[i] = node.page
                 pool.decref(old)
                 deduped += 1
-        self.stats.deduped_pages += deduped
+        if deduped:
+            self.stats.deduped_pages += deduped
+            if self.bus is not None:
+                self.bus.emit("prefix_dedupe", req_id=rid,
+                              replica=self.replica, pages=deduped)
         self.stats.inserted_pages += len(created)
         return len(created)
 
@@ -328,6 +339,9 @@ class PagedPrefixCache:
         for p in freed:
             self.pool.decref(p)
         self.stats.evicted_pages += len(freed)
+        if freed and self.bus is not None:
+            self.bus.emit("prefix_evict", replica=self.replica,
+                          pages=len(freed))
         return len(freed)
 
     def drop_all(self) -> int:
@@ -374,6 +388,8 @@ class DensePrefixCache:
         self.free_pages: List[int] = list(range(self.capacity))
         self.index = RadixPageIndex(page_size)
         self.stats = PrefixCacheStats()
+        self.bus = None                # observability EventBus (None = off)
+        self.replica = ""
 
     def probe(self, tokens) -> int:
         if not tokens:
@@ -454,6 +470,9 @@ class DensePrefixCache:
         freed = self.index.evict_lru(n, can_evict=lambda p: True)
         self.free_pages.extend(freed)
         self.stats.evicted_pages += len(freed)
+        if freed and self.bus is not None:
+            self.bus.emit("prefix_evict", replica=self.replica,
+                          pages=len(freed))
         return len(freed)
 
     def reclaim(self, n_pages: int) -> int:

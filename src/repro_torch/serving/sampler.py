@@ -109,3 +109,51 @@ def sample_and_reason(logits, rids, idx, *, greedy_sampling: bool,
                         eos_token=eos_token, max_new_tokens=max_new_tokens,
                         max_seq_len=max_seq_len)
     return tok, reason.to(torch.int32)
+
+
+def verify_and_reason(logits, drafts, n_drafts, rids, active, *,
+                      greedy_sampling: bool, seed: int, temp: float,
+                      top_k: int, eos_token: int, max_new_tokens: int,
+                      max_seq_len: int, base_gen, base_ctx, true_len):
+    """Verify-k acceptance + sampling + termination on the logits' device.
+
+    Exact-match verification: position ``i`` of each lane is sampled with
+    its own draw ``(rids[b], base_gen[b] + i)`` (the fused decode step
+    names the same token's draw the same way); draft ``drafts[:, i]`` (i
+    >= 1) is accepted iff it equals the sample at position ``i - 1`` and
+    every earlier draft was accepted.  An accepted position's logits come
+    from the context the sequential path would have seen, so the emitted
+    stream is the non-speculative one for any sampling method.
+
+    ``logits``: (B, K1, V); ``drafts``: (B, K1) with column 0 the fed
+    previous token (never matched) and columns 1..k the drafts (padding
+    past ``n_drafts`` never matches); ``base_gen``/``base_ctx``: (B,)
+    generated count / context length *before* this step.  Emission stops
+    at the first terminal token even when later drafts match.  Returns
+    ``(samples (B, K1), n_emit (B,), reason (B,))`` int32: the caller
+    emits ``samples[b, :n_emit[b]]`` and applies ``reason[b]`` to the last
+    of them; inactive lanes get 0 and 0."""
+    B, K1, V = logits.shape
+    dev = logits.device
+    pos = torch.arange(K1, device=dev)[None, :]                # (1, K1)
+    idx = base_gen.long()[:, None] + pos
+    s = sample_tokens(logits.reshape(B * K1, V),
+                      rids.repeat_interleave(K1), idx.reshape(-1),
+                      greedy_sampling=greedy_sampling, seed=seed, temp=temp,
+                      top_k=top_k).reshape(B, K1)
+    prev = torch.roll(s, 1, dims=1)                 # prev[:, i] = s[:, i-1]
+    match = (pos == 0) | ((drafts == prev)
+                          & (pos <= n_drafts.long()[:, None]))
+    m_cand = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+    reason = _reason_of(s, base_gen.long()[:, None] + 1 + pos,
+                        base_ctx.long()[:, None] + 1 + pos,
+                        true_len.long()[:, None], eos_token=eos_token,
+                        max_new_tokens=max_new_tokens,
+                        max_seq_len=max_seq_len)
+    first_term = torch.where(reason > 0, pos,
+                             torch.full_like(pos, K1)).amin(dim=1)
+    m = torch.clamp(torch.minimum(m_cand, first_term + 1), 1, K1)
+    last = reason.gather(1, (m - 1)[:, None])[:, 0]
+    zero = torch.zeros_like(m)
+    return (s, torch.where(active, m, zero).to(torch.int32),
+            torch.where(active, last, zero).to(torch.int32))

@@ -2,15 +2,17 @@
 serve time.
 
 A KV backend runs each serving step that has a fixed shape (the fused
-decode step at ``max_slots`` lanes, a prefill chunk of a menu bucket, a
-pack of ``prefill_pack_width`` chunks of a menu bucket) through
+decode step at ``max_slots`` lanes, the fused verify-k step at
+``(max_slots, spec_k + 1)``, a prefill chunk of a menu bucket, a pack of
+``prefill_pack_width`` chunks of a menu bucket) through
 :class:`StepGraphs`.  The step is a function of one flat int32
 input tensor (:func:`pack` / :func:`unpack` lay the step's integer inputs
 out in it), so one persistent device tensor per key holds every input of a
 graph.  Per call the host fills one pinned staging buffer and issues one
 non-blocking host-to-device copy, then replays the graph; the decode
 step's ``(tokens, reasons)`` come back by one copy into pinned memory and
-an event wait (:meth:`StepGraphs.to_host`).
+an event wait (:meth:`StepGraphs.to_host`), and so do the verify step's
+``(samples, n_emit, reason)``.
 
 A key is captured at its first use: two eager runs on a side stream on
 the step's *neutral* input (one that writes no live state: inactive lanes,
@@ -71,7 +73,7 @@ class _Entry:
 
 class StepGraphs:
     """One engine's step graphs, keyed by ``(kind, ...)`` tuples (``kind``
-    is ``"decode"``, ``"chunk"`` or ``"pack"``).  ``enabled`` captures on
+    is ``"decode"``, ``"verify"``, ``"chunk"`` or ``"pack"``).  ``enabled`` captures on
     a CUDA device; elsewhere, or when off, each key runs eagerly."""
 
     def __init__(self, device, enabled: bool = True):
@@ -83,7 +85,7 @@ class StepGraphs:
         self._outs: Dict[tuple, torch.Tensor] = {}   # pinned to_host buffers
         self._done = None
         self.captures = 0
-        self.replays = {"decode": 0, "chunk": 0, "pack": 0}
+        self.replays = {"decode": 0, "chunk": 0, "pack": 0, "verify": 0}
         self.pool_bytes = 0       # reserved memory the captures added
 
     def __len__(self) -> int:

@@ -1145,3 +1145,196 @@ def test_graphed_pack_equals_eager_pack(dev, backend):
         assert torch.equal(a, b)
     assert cg == ce and cg["flash_prefill_prefix"] == 3 * model.cfg.num_layers
     assert kg.graphs.replays["pack"] == 5 and ke.graphs.replays["pack"] == 0
+
+
+# ------------------------------------------ speculative verify on the card
+
+@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("Smax", [2048, 2064])
+def test_flash_prefill_prefix_verify_shape(dev, C, Smax):
+    """The prefix flash kernel at the verify step's shape on granite: B 8
+    lanes of C = spec_k + 1 queries, H 32, KVH 8, d 128, bf16, ragged
+    starts up to Smax - C (2064 = 129 pages of 16, the paged verify's
+    gathered stripe: its last key tile is partial), q, k and v as the
+    transposed views the model passes.  Held against the plain version by
+    the derived bf16 bound, through the wgmma body (and its merge when the
+    plan splits the keys)."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill_prefix,
+                                                   flash_prefill_prefix_ref,
+                                                   plan)
+    B, H, KVH, d = 8, 32, 8, 128
+    rng = np.random.default_rng(C * 10 + Smax)
+    q = _randn(rng, (B, C, H, d), torch.bfloat16, dev).transpose(1, 2)
+    k = _randn(rng, (B, Smax, KVH, d), torch.bfloat16, dev).transpose(1, 2)
+    v = _randn(rng, (B, Smax, KVH, d), torch.bfloat16, dev).transpose(1, 2)
+    starts = [0, 60, 700, 1500, 2040 - C, Smax - C - 1, Smax - C - 16,
+              Smax - C]
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    n0 = flash_prefill_prefix.launches
+    out, bodies = _bodies(lambda: flash_prefill_prefix(q, k, v, start))
+    assert flash_prefill_prefix.launches == n0 + 1
+    split = plan.num_splits(B, KVH, H // KVH, C, Smax) > 1
+    assert bodies == {"fma": 0, "wgmma": 1, "merge": int(split),
+                      "tf32x3": 0}, bodies
+    plain = flash_prefill_prefix_ref(q, k, v, start)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    truth = flash_prefill_prefix_ref(qf, kf, vf, start)
+    absv = flash_prefill_prefix_ref(qf, kf, vf.abs(), start)
+    pos = start.long()[:, None] + torch.arange(C, device=dev)[None]
+    mask = (torch.arange(Smax, device=dev)[None, None]
+            <= pos[:, :, None])[:, None]                  # (B, 1, C, Smax)
+    assert torch.isfinite(out.float()).all()
+    _check_bf16_attention(out, plain, truth, absv,
+                          _sdpa_bf16(q, k, v, mask=mask))
+
+
+def _verify_model(dev):
+    """The smoke granite config in float32 with heads of 64 (the flash
+    kernel's f32 3xTF32 body), kernels on."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    cfg = get_smoke_config("granite-3-8b").scaled(param_dtype="float32",
+                                                  head_dim=64)
+    model = Model(cfg, kv_dtype="float32", chunk_attn_impl="flash",
+                  device=dev)
+    return model, model.init(torch.Generator(device=dev).manual_seed(4))
+
+
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_verify_step_equals_sequential_decode_on_the_card(dev, backend):
+    """One verify step of K1 = 4 positions per lane (the prefix flash
+    kernel over the stripe, or over the lane's pages gathered with its
+    scratch page appended) against K1 sequential decode steps fed the same
+    tokens (dense: plain decode attention; paged: the paged-attention
+    kernel), in float32: logits within 1e-4, and the K/V rows the steps
+    write within 1e-5.  A paged lane's span crosses into its scratch
+    page; a dense lane sits two tokens from Smax (its two last positions
+    are dropped, and the sequential steps drop them too)."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_prefix
+    model, params = _verify_model(dev)
+    cfg = model.cfg
+    B, K1, page, Smax = 3, 4, 16, 64
+    rng = np.random.default_rng(12)
+    tokens = torch.from_numpy(rng.integers(2, 512, (B, K1)).astype(
+        np.int32)).to(dev)
+    L, KVH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.hd
+    n0 = flash_prefill_prefix.launches
+    if backend == "dense":
+        lengths = torch.tensor([5, 40, Smax - 2], dtype=torch.int32,
+                               device=dev)
+        k0 = _randn(rng, (L, B, Smax, KVH, hd), torch.float32, dev)
+        v0 = _randn(rng, (L, B, Smax, KVH, hd), torch.float32, dev)
+        caches = [{"k": k0.clone(), "v": v0.clone(),
+                   "lengths": lengths.clone()} for _ in "ab"]
+        ver = model.decode_verify(params, caches[0], tokens)
+        seq = torch.stack([model.decode_step(params, caches[1],
+                                             tokens[:, i:i + 1].long())
+                           for i in range(K1)], dim=1)
+        pairs = [(caches[0][k], caches[1][k]) for k in ("k", "v")]
+    else:
+        maxp, n_pages = Smax // page, 16
+        shared, lane_scratch = 15, [12, 13, 14]
+        pts = [[0, 1], [2, 3, 4], [5]]
+        lengths = torch.tensor([2 * page - 2, 40, 3], dtype=torch.int32,
+                               device=dev)
+        kv0 = {k: _randn(rng, (L, n_pages, page, KVH, hd), torch.float32,
+                         dev) for k in ("k", "v")}
+        tables = np.full((B, maxp + 1), shared, np.int32)
+        wp = np.zeros((B, K1), np.int32)
+        wo = np.zeros((B, K1), np.int32)
+        for b, pt in enumerate(pts):
+            tables[b, :len(pt)] = pt
+            tables[b, len(pt)] = lane_scratch[b]
+            for i in range(K1):
+                p = int(lengths[b]) + i
+                wp[b, i] = tables[b, p // page]
+                wo[b, i] = p % page
+        assert wp[0].tolist() == [1, 1, 12, 12]
+
+        def t(a):
+            return torch.from_numpy(a).to(dev)
+        kv = {k: x.clone() for k, x in kv0.items()}
+        ver = model.paged_decode_verify(params, kv, tokens, t(tables),
+                                        lengths, t(wp), t(wo))
+        kv_seq = {k: x.clone() for k, x in kv0.items()}
+        seq = torch.stack([model.paged_decode_step(
+            params, kv_seq, tokens[:, i:i + 1].long(), t(tables),
+            lengths + i, t(wp[:, i]), t(wo[:, i]), attn_impl="kernel")
+            for i in range(K1)], dim=1)
+        pairs = [(kv[k], kv_seq[k]) for k in ("k", "v")]
+    torch.cuda.synchronize()
+    assert flash_prefill_prefix.launches == n0 + cfg.num_layers
+    torch.testing.assert_close(ver, seq, atol=1e-4, rtol=0)
+    for a, b in pairs:
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("backend", ["paged", "dense"])
+def test_graphed_verify_equals_eager_verify(dev, backend):
+    """The verify step replayed as a CUDA graph gives the eager verify
+    step's samples, emit counts, reasons and K/V bit for bit, over three
+    steps of three lanes with n-gram-free drafts (the first step's own
+    samples fed back), and moves the launch counters alike."""
+    from repro_torch.kernels import counters
+    from repro_torch.serving.kv_cache import (DenseKVBackend,
+                                              KVBackendConfig, PagedKVBackend)
+    model, params = _graph_model(dev, "dense")
+    rng = np.random.default_rng(13)
+    prompts = {rid: rng.integers(2, 512, n).tolist()
+               for rid, n in ((1, 13), (2, 30), (3, 7))}
+
+    def run(graphs):
+        bcfg = KVBackendConfig(max_slots=4, max_seq_len=64, page_size=16,
+                               attn_impl="kernel", cuda_graphs=graphs,
+                               eos_token=-1, spec_k=3)
+        kv = (PagedKVBackend(model, bcfg, num_pages=32)
+              if backend == "paged" else DenseKVBackend(model, bcfg))
+        B, K1 = 4, 4
+        z = np.zeros((B,), np.int32)
+        tl = np.full((B,), 2 ** 31 - 1, np.int32)
+        kv.decode_verify(params, np.zeros((B, K1), np.int32), z,
+                         np.zeros((B,), bool), z, z, tl, z)
+        toks = np.zeros((B, K1), np.int32)
+        active = np.zeros((B,), bool)
+        ctx = np.zeros((B,), np.int32)
+        rids = np.zeros((B,), np.int32)
+        for rid, p in prompts.items():
+            logits = kv.prefill_chunk(params, rid, p, 0)
+            slot = kv.slot_of(rid)
+            toks[slot, 0] = int(logits[0].argmax())
+            active[slot], ctx[slot], rids[slot] = True, len(p), rid
+        torch.cuda.synchronize()
+        before = counters.snapshot()
+        outs, gen = [], np.ones((B,), np.int32)
+        nd = np.where(active, 3, 0).astype(np.int32)
+        for _ in range(3):
+            s, n, r = kv.decode_verify(params, toks, nd, active, gen, ctx,
+                                       tl, rids)
+            outs.append((s, n, r))
+            last = s[np.arange(B), np.maximum(n - 1, 0)]
+            toks[:, 0] = np.where(active, last, 0)
+            toks[:, 1:] = s[:, :3]            # drafts: last step's samples
+            gen, ctx = gen + n, ctx + n
+        torch.cuda.synchronize()
+        return outs, counters.delta(before, counters.snapshot()), kv
+
+    (og, cg, kg), (oe, ce, ke) = run(True), run(False)
+    for a, b in zip(og, oe):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    if backend == "paged":
+        live = [p for p in range(kg.pool.k.shape[1])
+                if p != kg.scratch_page]
+        pairs = [(kg.pool.k[:, live], ke.pool.k[:, live]),
+                 (kg.pool.v[:, live], ke.pool.v[:, live])]
+        assert kg.pool.page_table == ke.pool.page_table
+        assert kg.lane_scratch == ke.lane_scratch
+    else:
+        pairs = [(kg.cache[k], ke.cache[k]) for k in kg.cache]
+    for a, b in pairs:
+        assert torch.equal(a, b)
+    assert cg == ce and cg["flash_prefill_prefix"] == 3 * model.cfg.num_layers
+    # the idle step before the prompts was the key's first use: its
+    # capture and one replay
+    assert kg.graphs.captures == 1 and kg.graphs.replays["verify"] == 4
+    assert ke.graphs.captures == 0 and ke.graphs.replays["verify"] == 0

@@ -1,5 +1,6 @@
 """The port's defaults against the JAX package's: ``EngineConfig`` field by
-field and the serve launcher's ``--kv-backend``, so that a run that names
+field and the serve launcher's ``--kv-backend``, ``--spec-decode``,
+``--spec-k`` and ``--trace-out``, so that a run that names
 no backend takes the same path in both frameworks (the dense KV backend),
 and a granite engine built without one serves on it."""
 import argparse
@@ -34,6 +35,9 @@ def test_engine_config_defaults_match_the_reference():
     differ = {n: (port[n], ref[n]) for n in shared if port[n] != ref[n]}
     assert differ == {}, differ
     assert port_engine.EngineConfig().kv_backend == "dense"
+    assert {"spec_decode", "spec_k"} <= set(shared)
+    assert port_engine.EngineConfig().spec_k == ref_engine.EngineConfig(
+    ).spec_k == 3
 
 
 class _Parsed(Exception):
@@ -76,3 +80,20 @@ def test_granite_engine_without_a_backend_serves_dense():
     eng = port_engine.ServingEngine(model, params,
                                     port_engine.EngineConfig(max_slots=2))
     assert eng.kv_backend == "dense" and isinstance(eng.kv, DenseKVBackend)
+
+
+def test_serve_launcher_spec_defaults_match_the_reference(monkeypatch):
+    """``--spec-decode`` (off), ``--spec-k`` (3) and ``--trace-out`` (none)
+    parse to the reference launcher's defaults, and ``serve()`` takes the
+    same keyword defaults."""
+    port = _parsed_defaults(port_serve.main, monkeypatch)
+    ref = _parsed_defaults(ref_serve.main, monkeypatch)
+    for name in ("spec_decode", "spec_k", "trace_out"):
+        assert getattr(port, name) == getattr(ref, name), name
+    assert (port.spec_decode, port.spec_k, port.trace_out) == (False, 3,
+                                                               None)
+    import inspect
+    for name in ("spec_decode", "spec_k", "trace_out"):
+        assert (inspect.signature(port_serve.serve).parameters[name].default
+                == inspect.signature(ref_serve.serve).parameters[name]
+                .default), name

@@ -294,14 +294,6 @@ def test_cancel_and_drain_free_everything(setup):
     assert len(eng.kv.pool.free_pages) == eng.kv.pool.cfg.num_pages - 1
 
 
-@pytest.mark.parametrize("opt", [dict(spec_decode=True)])
-def test_options_not_ported_raise(setup, opt):
-    cfg, _, _, tparams = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-        port_engine.ServingEngine(_port_model(cfg), tparams,
-                                  port_engine.EngineConfig(**opt))
-
-
 def test_serve_launcher_on_cpu():
     from repro_torch.launch.serve import serve
     reqs, eng = serve(arch_size="smoke", n_requests=4, max_slots=2,
@@ -318,7 +310,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter (this test process has JAX loaded): import
     the port's package, engine, model, Mamba-2 block, kernels, configs,
     sampler, kv_cache, the online length predictor, the prefix cache, the
-    step graphs, the compile counter, training modules, gradient
+    step graphs, the draft sources, the observability bus and its
+    exporters, the compile counter, training modules, gradient
     compression and both launchers, then check that no ``jax*`` or
     ``repro.*`` module was loaded."""
     code = (
@@ -332,6 +325,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.serving.prediction\n"
         "import repro_torch.serving.prefix_cache\n"
         "import repro_torch.serving.step_graphs\n"
+        "import repro_torch.serving.draft\n"
+        "import repro_torch.serving.observability\n"
+        "import repro_torch.serving.observability.quality\n"
+        "import repro_torch.serving.observability.trace_export\n"
         "import repro_torch.utils.compile_counter\n"
         "import repro_torch.launch.serve, repro_torch.launch.train\n"
         "import repro_torch.training.optimizer, repro_torch.training.data\n"

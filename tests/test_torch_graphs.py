@@ -356,7 +356,8 @@ def test_step_graphs_note_each_key_once_on_the_cpu():
     assert cc.events == ["first-use:('decode',)", "first-use:('chunk', 8)"]
     assert [s.tolist() for s in seen] == [[1, 2], [3, 4], [5, 6], [1]]
     assert len(graphs) == 2 and graphs.captures == 0
-    assert graphs.replays == {"decode": 0, "chunk": 0, "pack": 0}
+    assert graphs.replays == {"decode": 0, "chunk": 0, "pack": 0,
+                              "verify": 0}
     cc.detach()
 
 
