@@ -144,8 +144,8 @@ the final line:
      the same 4 chunks as graphed single chunks (printed, not gated);
  20. serving with the online predictor, packs of 4 and the prefix cache,
      paged (with the auto token budget at a target TPOT of 30 ms) and
-     dense, each through ``serve(..., warmup=True)``: 32 requests at t=0,
-     24 of them in 3 families that share a 1024-token system prompt; all
+     dense, each through ``serve(..., warmup=True)``: 24 requests at t=0,
+     18 of them in 3 families that share a 1024-token system prompt; all
      must finish with prefix hits, the dense serve (no budget) with packs
      in its own traffic (the paged serve's own packs are printed: its auto
      budget of a few dozen tokens seldom leaves room for two chunks of
@@ -153,7 +153,8 @@ the final line:
      load after warmup, a replay per decode step and per pack, and no page,
      refcount or prefix entry left after the drain; it prints tokens/s,
      TTFT p50 of hit and cold requests, decode and pack p50, the budget
-     and its fit, the predictor's gauges and predict latency; after the
+     and its fit (the warm batch's t0, alpha and beta, its rings' sample
+     counts and mean context), the predictor's gauges and predict latency; after the
      paged serve, the same requests with the cache, packing and the
      learned predictor off, and how many requests' greedy tokens agree
      (printed, not gated: the wall clock sets the schedule and a pack's
@@ -182,8 +183,34 @@ the final line:
      agree with the spec-off serve (not gated); (c) the trace and its
      ``.prom`` written to a temporary directory, the JSON loaded back
      and its events counted by name.
+ 22. two replicas on the one card sharing a host KV tier
+     (``serving/kv_tier.HostKVTier``), replica B's weights placed by
+     ``distributed/placement.place_params`` (the same tensors: device
+     memory must grow by less than B's pool plus 1 GiB): (a) paged replica
+     A (pages of 16, chunks of 256) serves a 1024-token system prompt plus
+     a tail and publishes it into an fp tier; paged replica B imports the
+     prompt (``_tier_import``, ``tier_fill``): B's imported pages equal
+     A's bit for bit, and B's last logits for a request sharing the
+     prompt equal A's for the same request from its local prefix hit, bit
+     for bit; the same for a dense B through its private store; then A
+     publishes into an INT8 tier and a paged importer serves the request:
+     payload bytes beside the raw bytes, the ``kv_quantize`` and
+     ``kv_dequantize`` kernels launched, the imported pages within the
+     INT8 round trip's bound (relative 0.02), the importer lossy and
+     publishing nothing, no library load and no pinned page left; the
+     publishes' host copies and the fills timed; (b) two warmed paged
+     engines of phase 5's configuration with the prefix cache and an fp
+     tier: A serves the 3 families' heads, B 12 requests (9 in 3 families
+     sharing a 1024-token system prompt, 3 distinct; outputs 16-32): all
+     finish, a tier import in every family, no capture or library load
+     while serving, a replay per decode step, no page, refcount, prefix
+     entry or tier pin left after the drain, and B's greedy tokens equal,
+     bit for bit, those of B serving the same requests again with the tier
+     off and its cache cleared; it prints tokens/s, TTFT p50 of imported,
+     local-hit and cold requests, each fill's and each publish's time, the
+     effective rates and the tier's gauges.
 
-The serve phases 5, 6, 9, 10, 16, 17, 20 and 21 run warmed engines
+The serve phases 5, 6, 9, 10, 16, 17, 20, 21 and 22 (b) run warmed engines
 (every step graph captured and every kernel library loaded before the
 first request): each prints its warmup's seconds, captures and
 graph-pool size, and fails on any capture or library build or load while
@@ -193,7 +220,7 @@ replay adds its captured launches to every wrapper's ``launches`` and to
 the libraries' body counters, so the main-path counts below count
 replays.
 
-Phases 15-21 run after phase 7, with the granite model still loaded.
+Phases 15-22 run after phase 7, with the granite model still loaded.
 Phase 3 also holds the prefix flash kernel at the verify step's shape (B
 8, C 4, starts 60..2040, Smax 2048 and 2064, the last key tile of 2064
 partial: the bf16 bound, the wgmma body and its merge, its time, bound,
@@ -201,6 +228,8 @@ plain and SDPA times, in the kernels line's ``verify_shape``), at the
 packs' shapes (B 4, starts 0/256/512/1000, ragged chunk lengths with a
 padding row, at bucket 256 and at the split buckets 32 and 16: each
 member's rows by the bf16 bound above, the planned body and merge), the
+INT8 quantize and dequantize at the KV tier's page shape (5120 rows of 128,
+float32 in, bfloat16 out; the kernels line's ``tier_page_shape``), the
 INT8 paged attention (the bench's shape and
 granite's decode shape, codes from the ``kv_quantize`` kernel; against its
 plain version and, within 0.05, float attention on the unquantized
@@ -220,8 +249,8 @@ phase 18 (the INT8 paged attention), mamba's phases 9 and 10 (the RMSNorm
 and SSD chunk kernels must have launched, every SSD call through the
 tensor-core body) and training's phase 13 (the
 flash and RMSNorm kernels must have launched); then phase 19's two packs
-and phase 20's and phase 21's two serves each, each counted from 0 and
-added to the kernels line's launches.  Each phase
+and phase 20's and phase 21's two serves each, and phase 22, each counted
+from 0 and added to the kernels line's launches.  Each phase
 prints its seconds.  Then a ``kernels`` JSON line (each row also names
 the ``csrc`` headers its source includes), the card's name and
 power limit, and the final ``{"ok": true, "device": {...}}`` line.  Needs
@@ -384,6 +413,19 @@ def nbytes(*ts) -> int:
 
 # ------------------------------------------------------------- phase 3
 
+def check_table(label: str, tables, num_pages: int, shape) -> None:
+    """A page table drawn on the card, checked on the host before any
+    gather reads it: its shape, and every entry in ``[0, num_pages)``.  A
+    failure names the table's min, max, shape and dtype, so that a bad
+    draw fails here and not as a device-side assert in the gather."""
+    host = tables.cpu()
+    lo, hi = int(host.min()), int(host.max())
+    if tuple(host.shape) != tuple(shape) or lo < 0 or hi >= num_pages:
+        fail(f"{label}: drawn page table out of range: min {lo}, max {hi}, "
+             f"shape {tuple(host.shape)} (want {tuple(shape)}, entries in "
+             f"[0, {num_pages})), dtype {host.dtype}")
+
+
 def check_paged_attention(torch, dev):
     """Decode attention over bf16 and f32 pages at granite's decode shape
     (B 8, H 32, KVH 8, d 128, pages of 16, lengths 1..2048 drawn from 2048
@@ -401,6 +443,7 @@ def check_paged_attention(torch, dev):
                            device=dev)
     tables = torch.randperm(num_pages - 1, generator=g, device=dev)[
         :B * max_pages].reshape(B, max_pages).to(torch.int32)
+    check_table("paged_attention", tables, num_pages, (B, max_pages))
     rows = {}
     for name in ("float32", "bfloat16"):
         dt = getattr(torch, name)
@@ -898,6 +941,60 @@ def check_kv_quant(torch, dev):
                  bound_by=dby, library_ms=None))
 
 
+def check_kv_quant_page(torch, dev):
+    """INT8 quantize and dequantize at the KV tier's page shape (phase
+    22): one granite page of K, 40 layers x 16 tokens x 8 KV heads =
+    5120 rows of 128, float32 in (``quantize_kv_device``'s copy) and
+    bfloat16 out (the pool's dtype), against their plain versions with
+    :func:`check_kv_quant`'s tolerances (codes within 1, scales within
+    1e-6 relative, zeros within 1, dequantize bit for bit), each with its
+    time, plain time and bound.  Returns the two rows' numbers."""
+    from repro_torch.kernels.kv_quant import (kv_dequantize,
+                                              kv_dequantize_ref, kv_quantize,
+                                              kv_quantize_ref)
+    T, d = 40 * 16 * 8, 128
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    x = torch.randn((T, d), generator=g, device=dev) * 4.0
+    q, lam, z = kv_quantize(x)
+    qr, lamr, zr = kv_quantize_ref(x)
+    xh = kv_dequantize(q, lam, z, dtype=torch.bfloat16)
+    xr = kv_dequantize_ref(q, lam, z, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    code_err = (q.int() - qr.int()).abs().max().item()
+    if not (code_err <= 1 and torch.allclose(lam, lamr, rtol=1e-6, atol=0)
+            and (z - zr).abs().max().item() <= 1):
+        fail(f"kv_quantize at the tier page shape: codes differ by "
+             f"{code_err}, or the scales/zeros differ")
+    if not torch.equal(xh.view(torch.int16), xr.view(torch.int16)):
+        fail("kv_dequantize at the tier page shape: not bit for bit the "
+             "plain version")
+    rel = ((xh.float() - x).abs().max() / x.abs().max()).item()
+    if not rel < 0.02:
+        fail(f"kv quant round trip at the tier page shape: {rel} >= 0.02")
+    rows = {}
+    for name, fn, plain, moved, flops in (
+            ("kv_quantize", lambda: kv_quantize(x),
+             lambda: kv_quantize_ref(x), nbytes(x, q, lam, z), 6.0 * T * d),
+            ("kv_dequantize", lambda: kv_dequantize(q, lam, z,
+                                                    dtype=torch.bfloat16),
+             lambda: kv_dequantize_ref(q, lam, z, dtype=torch.bfloat16),
+             nbytes(q, lam, z, xh), 3.0 * T * d)):
+        ms = time_ms(fn)
+        pms = time_ms(plain, 5)
+        b_ms, b_by = bound(moved, flops, "float32")
+        rows[name] = dict(rows=T, d=d, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                          bound_by=b_by,
+                          max_abs_err=(float(code_err) if name ==
+                                       "kv_quantize" else 0.0))
+        print(f"[kernel] {name} tier page T={T} d={d} "
+              f"{'f32->int8' if name == 'kv_quantize' else 'int8->bf16'}: "
+              f"{'code_err=%d' % code_err if name == 'kv_quantize' else 'bitwise equal'}"
+              f" roundtrip_rel={rel:.4f} kernel_ms={ms:.4f} ({b_ms / ms:.1%} "
+              f"of bound) plain_ms={pms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              "library_ms=none", flush=True)
+    return rows
+
+
 def _q8_pool(torch, kv_quantize, k):
     """INT8 codes and float32 per-row scales and zeros of a (num_pages,
     page, KVH, d) pool through the ``kv_quantize`` kernel."""
@@ -945,6 +1042,7 @@ def check_paged_attention_q8(torch, dev):
                 :B * maxp].reshape(B, maxp).to(torch.int32)
             lengths = torch.tensor(np.linspace(1, maxp * page, B)
                                    .astype(np.int32), device=dev)
+        check_table(f"paged_attention_q8 {label}", tables, npg, (B, maxp))
         kq, klam, kz = _q8_pool(torch, kv_quantize, k)
         vq, vlam, vz = _q8_pool(torch, kv_quantize, v)
         args = (q, kq, klam, kz, vq, vlam, vz, tables, lengths)
@@ -1758,6 +1856,8 @@ def phase_bench_rows(torch, model, params, kernels):
                                   device=dev)) for _ in range(2)]
     tables = torch.randint(0, npg, (B, maxp), generator=g, device=dev,
                            dtype=torch.int32)
+    check_table("paged_attention_q8 bench (phase 18)", tables, npg,
+                (B, maxp))
     lengths = torch.full((B,), maxp * page, dtype=torch.int32, device=dev)
     args = (q, *pools[0], *pools[1], tables, lengths)
     reset_counts(kernels)
@@ -2166,18 +2266,18 @@ def phase_pack_prefix(torch, model, params, kernels):
 
 
 def phase20_requests(cfg):
-    """Phase 20's traffic, all at t = 0: 3 families of 8 requests that
+    """Phase 20's traffic, all at t = 0: 3 families of 6 requests that
     share a 1024-token system prompt, each with its own tail of 16-256
-    tokens, and 8 distinct prompts of 32-200 tokens; outputs of 16-64
+    tokens, and 6 distinct prompts of 32-200 tokens; outputs of 16-64
     tokens; in a seeded shuffled order."""
     from repro_torch.core.request import Request, reset_request_counter
     rng = np.random.default_rng(SEED + 20)
     V = cfg.vocab_size
     systems = [rng.integers(2, V, 1024).tolist() for _ in range(3)]
     prompts = [systems[f] + rng.integers(2, V, int(rng.integers(16, 257)))
-               .tolist() for f in range(3) for _ in range(8)]
+               .tolist() for f in range(3) for _ in range(6)]
     prompts += [rng.integers(2, V, int(rng.integers(32, 201))).tolist()
-                for _ in range(8)]
+                for _ in range(6)]
     outs = rng.integers(16, 65, len(prompts))
     order = rng.permutation(len(prompts))
     reset_request_counter()
@@ -2218,6 +2318,30 @@ def _no_leaks(eng) -> str:
     if bad:
         fail(f"leaks after the drain: {bad}")
     return f"no leak ({held} pages held by the index, then dropped)"
+
+
+def _budget_fit(eng, target_tpot: float) -> str:
+    """The auto token budget's fit, as ``autotune_token_budget`` made it
+    from the warm batch's timing rings (their entries stamped before this
+    serve's start): the fitted t0, alpha and beta, the samples in each
+    ring, the mean per-lane context, and the budget they give beside the
+    one the engine chose (printed, not gated)."""
+    from repro_torch.core.latency_model import LatencyModel
+    t0 = eng.serve_started
+    iters = [e for e in eng.iter_times if e[0] < t0]
+    pre = [e for e in eng.prefill_times if e[0] < t0]
+    lm = LatencyModel.fit([(n, dt) for _, n, dt, _ in pre],
+                          [(c / max(b, 1), dt) for _, c, b, dt in iters])
+    ctx = (float(np.mean([c / max(b, 1) for _, c, b, _ in iters]))
+           if iters else eng.cfg.max_seq_len / 2)
+    again = lm.budget_for_tpot(target_tpot, eng.cfg.max_slots, ctx)
+    packs = sum(1 for *_, rows in pre if rows > 1)
+    return (f"auto budget fit from the warm batch: t0={lm.t0:.4e} s/token "
+            f"alpha={lm.alpha:.4e} s/ctx-token beta={lm.beta:.4e} s; "
+            f"{len(iters)} decode-step samples, {len(pre)} prefill samples "
+            f"({packs} packs, {sum(n for _, n, _, _ in pre)} tokens), mean "
+            f"per-lane context {ctx:.1f}; budget {again} (the engine chose "
+            f"{eng.sched.cfg.iter_token_budget})")
 
 
 def phase_serve20(torch, model, params, kernels, backend):
@@ -2312,6 +2436,8 @@ def phase_serve20(torch, model, params, kernels, backend):
               f"gated)", flush=True)
     if auto and not isinstance(budget, int):
         fail(f"{label}: the auto budget is {budget!r}, not an integer")
+    if auto:
+        print(f"[serve20] {label}: {_budget_fit(eng, 0.030)}", flush=True)
     if g["predictor_feedback_depth"]:
         fail(f"{label}: the predictor's feedback was not drained")
     print(f"[serve20] {label}: {_no_leaks(eng)}", flush=True)
@@ -2692,6 +2818,349 @@ def phase_spec_serve(torch, model, params, kernels, backend, spec_off):
 
 
 # ------------------------------------------------------ phases 8 to 11
+
+# ------------------------------------------------------------- phase 22
+
+TIER_ENGINE = dict(max_slots=4, max_seq_len=2048, max_new_tokens=64,
+                   strategy="alise", quantize_offload=False,
+                   kv_backend="paged", page_size=16,
+                   paged_attn_impl="kernel", prefill_chunk=256,
+                   prefix_cache=True, cuda_graphs=False, seed=SEED)
+TIER_SYSTEM = 1024                      # the shared system prompt's tokens
+TIER_Q8_BOUND = 0.02                    # phase 3's INT8 round-trip bound
+
+
+def _tier_engine(model, params, tier=None, **kw):
+    from repro_torch.core.engine import EngineConfig, ServingEngine
+    from repro_torch.core.predictor import OraclePredictor
+    eng = ServingEngine(model, params, EngineConfig(**{**TIER_ENGINE, **kw}),
+                        predictor=OraclePredictor())
+    if tier is not None:
+        eng.attach_tier(tier)
+    return eng
+
+
+def _index_pages(kv, toks, n):
+    """The pages (pool or store) a prefix cache's index holds for the
+    first ``n`` tokens of ``toks``."""
+    return [node.page for node in kv.prefix.index.match(toks, n,
+                                                        touch=False)[0]]
+
+
+def _same_pages(torch, src_pool, src_pages, dst, dst_pages) -> bool:
+    """Whether ``dst`` (a pool or a dense store: ``k``/``v`` (L, pages,
+    page, KVH, hd)) holds at ``dst_pages`` the bits ``src_pool`` holds at
+    ``src_pages``."""
+    a = torch.as_tensor(src_pages, device=src_pool.k.device)
+    b = torch.as_tensor(dst_pages, device=dst.k.device)
+    return (len(src_pages) == len(dst_pages)
+            and torch.equal(src_pool.k[:, a], dst.k[:, b])
+            and torch.equal(src_pool.v[:, a], dst.v[:, b]))
+
+
+def _timed_publishes(tier, log):
+    """Wrap ``tier.publish`` so that each call's seconds (the host copies
+    or quantizations of the pages it stores, each synchronized) and pages
+    land in ``log``."""
+    real = tier.publish
+
+    def publish(tokens, upto, fetch_page):
+        t0 = time.perf_counter()
+        n = real(tokens, upto, fetch_page)
+        log.append((time.perf_counter() - t0, n))
+        return n
+    tier.publish = publish
+
+
+def _timed_fills(torch, eng, log):
+    """Wrap ``eng.kv.tier_fill`` so that each fill's seconds (until the
+    device has the pages), payload bytes and tokens land in ``log``."""
+    real = eng.kv.tier_fill
+
+    def tier_fill(tokens, handle):
+        t0 = time.perf_counter()
+        got = real(tokens, handle)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0, handle.nbytes, got))
+        return got
+    eng.kv.tier_fill = tier_fill
+
+
+def _rate(log) -> str:
+    secs = sum(x[0] for x in log)
+    nbytes = sum(x[1] for x in log)
+    return (f"{len(log)} calls, {nbytes / 1e6:.1f} MB in {secs * 1e3:.1f} ms"
+            f" ({nbytes / max(secs, 1e-12) / 1e9:.2f} GB/s)")
+
+
+def _tier_model_level(torch, model, params, kernels):
+    """Phase 22 (a): the import of a 1024-token system prompt, model-level,
+    gated bit for bit (fp tier, paged and dense importers) and within the
+    INT8 round trip (quantized tier).  See the module docstring."""
+    from repro_torch.core.request import Request, reset_request_counter
+    from repro_torch.distributed.placement import place_params
+    from repro_torch.serving.kv_tier import HostKVTier
+    from repro_torch.utils import tree_leaves
+    from repro_torch.utils.compile_counter import CompileCounter
+    V, pg = model.cfg.vocab_size, TIER_ENGINE["page_size"]
+    rng = np.random.default_rng(SEED + 221)
+    system = rng.integers(2, V, TIER_SYSTEM).tolist()
+    prompt_a = system + rng.integers(2, V, 200).tolist()
+    x = system + rng.integers(2, V, 100).tolist()
+    tier = HostKVTier(8e9, pg)
+    pubs, fills = [], []
+    _timed_publishes(tier, pubs)
+    a = _tier_engine(model, params, tier)
+    page_bytes = 2 * a.kv.pool.k[:, 0].numel() * a.kv.pool.k.element_size()
+    reset_request_counter()
+    a.serve([Request(prompt_len=len(prompt_a), arrival_time=0.0,
+                     true_out_len=2, prompt_tokens=list(prompt_a))])
+    torch.cuda.synchronize()
+    # A's own request with the shared prefix: a local hit of 1024
+    hit_a = a.kv.prefix_acquire(1000, x)
+    logits_a = a.kv.prefill_chunk(params, 1000, x[hit_a:], hit_a)
+    pages_a = _index_pages(a.kv, x, TIER_SYSTEM)
+    # replica B on the same card: the same weights (no copy), its own pool
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params_b = place_params(params, model.device)
+    shared = all(p is q for (_, p), (_, q) in zip(tree_leaves(params),
+                                                  tree_leaves(params_b)))
+    b = _tier_engine(model, params_b, tier)
+    torch.cuda.synchronize()
+    grew = torch.cuda.memory_allocated() - before
+    pool_b = 2 * b.kv.pool.k.numel() * b.kv.pool.k.element_size()
+    print(f"[tier] phase 22 (a): replica B placed on {model.device}: "
+          f"{'the same' if shared else 'COPIED'} weight tensors, device "
+          f"memory grew {grew / 2**30:.2f} GiB for a {pool_b / 2**30:.2f} "
+          f"GiB pool", flush=True)
+    if not shared or grew >= pool_b + 2**30:
+        fail("phase 22 (a): replica B does not share replica A's weights")
+    _timed_fills(torch, b, fills)
+    got = b._tier_import(2000, x, 0.0)
+    hit_b = b.kv.prefix_acquire(2000, x)
+    logits_b = b.kv.prefill_chunk(params_b, 2000, x[hit_b:], hit_b)
+    torch.cuda.synchronize()
+    pages_b = _index_pages(b.kv, x, TIER_SYSTEM)
+    same_pages = _same_pages(torch, a.kv.pool, pages_a, b.kv.pool, pages_b)
+    same_logits = torch.equal(logits_a, logits_b)
+    print(f"[tier] phase 22 (a) paged B: imported {got} tokens "
+          f"({len(pages_b)} pages), hit {hit_b} (A's local hit {hit_a}); "
+          f"pages {'equal' if same_pages else 'DIFFER from'} A's bit for "
+          f"bit; last logits "
+          + ("equal A's bit for bit" if same_logits else
+             f"DIFFER (max_abs "
+             f"{(logits_a - logits_b).abs().max().item():.4g})")
+          + f"; publishes (host copies) {_rate([(t, n * page_bytes) for t, n in pubs])}"
+          f"; tier_fill {_rate(fills)}", flush=True)
+    if not (got == hit_b == hit_a == TIER_SYSTEM and same_pages
+            and same_logits):
+        fail("phase 22 (a): the paged import is not bit for bit A's prefix")
+    if tier.pinned_pages():
+        fail("phase 22 (a): the import left tier pages pinned")
+    del b, params_b
+    torch.cuda.empty_cache()
+    # a dense importer: the tier payload lands in its private store
+    d = _tier_engine(model, params, tier, kv_backend="dense")
+    got = d._tier_import(3000, x, 0.0)
+    store = _index_pages(d.kv, x, TIER_SYSTEM)
+    same_pages = _same_pages(torch, a.kv.pool, pages_a, d.kv.prefix, store)
+    hit_d = d.kv.prefix_acquire(3000, x)
+    logits_d = d.kv.prefill_chunk(params, 3000, x[hit_d:], hit_d)
+    torch.cuda.synchronize()
+    same_logits = torch.equal(logits_a, logits_d)
+    print(f"[tier] phase 22 (a) dense B: imported {got} tokens into its "
+          f"store ({len(store)} pages), hit {hit_d}; pages "
+          f"{'equal' if same_pages else 'DIFFER from'} A's bit for bit; "
+          f"last logits "
+          + ("equal A's bit for bit" if same_logits else
+             f"DIFFER (max_abs "
+             f"{(logits_a - logits_d).abs().max().item():.4g})"), flush=True)
+    if not (got == hit_d == TIER_SYSTEM and same_pages and same_logits):
+        fail("phase 22 (a): the dense import is not bit for bit A's prefix")
+    raw_bytes = sum(tier.entries[n.page].nbytes for n in
+                    tier.index.match(x, TIER_SYSTEM, touch=False)[0])
+    del d
+    a.kv.clear(1000)
+    torch.cuda.empty_cache()
+    # the quantized tier: A publishes its prompt again (its cache dropped)
+    # into an INT8 tier, and a paged importer serves the shared request
+    q8 = HostKVTier(8e9, pg, quantize=True)
+    counter = CompileCounter()
+    start = read_counts(kernels)
+    a.attach_tier(q8)
+    qpubs, qfills = [], []
+    _timed_publishes(q8, qpubs)
+    a.kv.prefix.drop_all()
+    a.serve([Request(prompt_len=len(prompt_a), arrival_time=0.0,
+                     true_out_len=2, prompt_tokens=list(prompt_a))])
+    pages_a = _index_pages(a.kv, x, TIER_SYSTEM)
+    bq = _tier_engine(model, params, q8)
+    _timed_fills(torch, bq, qfills)
+    seen, publishes = [], q8.stats.publishes
+    real_import = bq._tier_import
+
+    def tier_import(rid, toks, t):
+        got = real_import(rid, toks, t)
+        seen.append((got, rid in bq._lossy_kv))
+        return got
+    bq._tier_import = tier_import
+    bq._publish = lambda req, toks, t: fail(
+        "phase 22 (a): a lossy importer published")
+    reset_request_counter()
+    req = Request(prompt_len=len(x), arrival_time=0.0, true_out_len=4,
+                  prompt_tokens=list(x))
+    bq.serve([req])
+    torch.cuda.synchronize()
+    launches = {k: n - start[k] for k, n in read_counts(kernels).items()}
+    pages_q = _index_pages(bq.kv, x, TIER_SYSTEM)
+    ia = torch.as_tensor(pages_a, device=model.device)
+    ib = torch.as_tensor(pages_q, device=model.device)
+    err = max(((bq.kv.pool.k[:, ib].float() - a.kv.pool.k[:, ia].float())
+               .abs().max() / a.kv.pool.k[:, ia].float().abs().max()).item(),
+              ((bq.kv.pool.v[:, ib].float() - a.kv.pool.v[:, ia].float())
+               .abs().max() / a.kv.pool.v[:, ia].float().abs().max()).item())
+    q8_bytes = sum(q8.entries[n.page].nbytes for n in
+                   q8.index.match(x, TIER_SYSTEM, touch=False)[0])
+    q8_page = q8_bytes // len(pages_q)
+    loads = [e for e in counter.events if not e.startswith("first-use")]
+    counter.detach()
+    print(f"[tier] phase 22 (a) q8 tier: {TIER_SYSTEM}-token prefix "
+          f"payload {q8_bytes / 1e6:.2f} MB vs raw {raw_bytes / 1e6:.2f} MB "
+          f"({q8_bytes / raw_bytes:.3f}x); kv_quantize launches "
+          f"{launches['kv_quantize']}, kv_dequantize launches "
+          f"{launches['kv_dequantize']}; publishes (quantize + host "
+          f"copies) {_rate([(t, n * q8_page) for t, n in qpubs])}; tier_fill "
+          f"{_rate(qfills)}; imports {seen} (tokens, lossy); "
+          f"imported pages' relative error {err:.4g} (bound "
+          f"{TIER_Q8_BOUND}); tier publishes {publishes} -> "
+          f"{q8.stats.publishes}; {req.generated} tokens served; pinned "
+          f"pages {q8.pinned_pages()}; library loads or captures "
+          f"{loads}", flush=True)
+    if not (launches["kv_quantize"] > 0 and launches["kv_dequantize"] > 0):
+        fail("phase 22 (a): the q8 tier did not launch the kv_quant kernels")
+    if not (seen and seen[0] == (TIER_SYSTEM, True)):
+        fail("phase 22 (a): the q8 import was not a lossy 1024-token import")
+    if not (err < TIER_Q8_BOUND and q8.stats.publishes == publishes
+            and q8.pinned_pages() == 0 and req.generated >= 1 and not loads):
+        fail("phase 22 (a): the q8 import broke a gate")
+    del a, bq
+    torch.cuda.empty_cache()
+
+
+def phase22_prompts(cfg):
+    """Phase 22 (b)'s traffic: 3 families sharing a 1024-token system
+    prompt, each a head (a tail of 16 tokens, so that an import of the
+    head's prompt stops at 1024, a chunk boundary) and 2 members (tails of
+    16-256 tokens), and 3 distinct prompts of 64-512 tokens; outputs of
+    16-32 tokens.  Returns (prompts, outputs): the heads first."""
+    rng = np.random.default_rng(SEED + 222)
+    V = cfg.vocab_size
+    systems = [rng.integers(2, V, TIER_SYSTEM).tolist() for _ in range(3)]
+    prompts = [s + rng.integers(2, V, 16).tolist() for s in systems]
+    prompts += [s + rng.integers(2, V, int(rng.integers(16, 257))).tolist()
+                for s in systems for _ in range(2)]
+    prompts += [rng.integers(2, V, int(rng.integers(64, 513))).tolist()
+                for _ in range(3)]
+    return prompts, rng.integers(16, 33, len(prompts)).tolist()
+
+
+def _requests22(prompts, outs):
+    from repro_torch.core.request import Request, reset_request_counter
+    reset_request_counter()
+    return [Request(prompt_len=len(p), arrival_time=0.0, true_out_len=o,
+                    prompt_tokens=list(p)) for p, o in zip(prompts, outs)]
+
+
+def _tier_serve(torch, model, params):
+    """Phase 22 (b): two warmed paged engines of phase 5's configuration
+    sharing an fp tier; A serves the families' heads, B all 12 requests;
+    then B again with the tier off and its cache cleared (see the module
+    docstring)."""
+    from repro_torch.distributed.placement import place_params
+    from repro_torch.serving.kv_tier import HostKVTier
+    from repro_torch.serving.observability import EventBus
+    from repro_torch.utils.compile_counter import CompileCounter
+    prompts, outs = phase22_prompts(model.cfg)
+    fam = {i: (i if i < 3 else (i - 3) // 2 if i < 9 else None)
+           for i in range(len(prompts))}
+    serve_cfg = dict(max_slots=8, max_new_tokens=64, cuda_graphs=True,
+                     warmup_compile=True)
+    tier = HostKVTier(8e9, TIER_ENGINE["page_size"])
+    pubs, fills = [], []
+    _timed_publishes(tier, pubs)
+    a = _tier_engine(model, params, tier, **serve_cfg)
+    b = _tier_engine(model, place_params(params, model.device), tier,
+                     **serve_cfg)
+    bus = EventBus(clock="wall")
+    b.attach_bus(bus, "B")
+    _timed_fills(torch, b, fills)
+    # both engines are warm: every event from here on is a serve-time one
+    counter = CompileCounter()
+    a.serve(_requests22(prompts[:3], outs[:3]))
+    reqs = _requests22(prompts, outs)
+    b.serve(reqs)
+    torch.cuda.synchronize()
+    graph_gate("phase 22 (b) replicas A and B", a, counter, False)
+    graph_gate("phase 22 (b) replica B", b, counter, False)
+    counter.detach()
+    done = [r for r in reqs if r.finish_time is not None]
+    imported = {ev.req_id for ev in bus.snapshot()
+                if ev.kind == "tier_import"}
+    idx = {r.req_id: i for i, r in enumerate(reqs)}
+    families = {fam[idx[rid]] for rid in imported} - {None}
+
+    def p50(keep):
+        got = [r.first_token_time - r.arrival_time for r in reqs if keep(r)]
+        return (f"{np.median(got) if got else float('nan'):.3f}s "
+                f"({len(got)})")
+    g = tier.gauges()
+    page_bytes = 2 * b.kv.pool.k[:, 0].numel() * b.kv.pool.k.element_size()
+    print(f"[tier] phase 22 (b): B served {len(done)}/{len(reqs)}, "
+          f"{_tok_s(reqs):.1f} tok/s; TTFT p50 imported "
+          f"{p50(lambda r: r.req_id in imported)}, local hit "
+          f"{p50(lambda r: r.req_id not in imported and r.cached_prefix_hint)}"
+          f", cold {p50(lambda r: not r.cached_prefix_hint)}; tier imports "
+          f"{len(imported)} over families {sorted(families)}; tier_fill "
+          f"{_rate(fills)}: {[round(t * 1e3, 2) for t, *_ in fills]} ms; "
+          f"publishes (host copies) "
+          f"{_rate([(t, n * page_bytes) for t, n in pubs])}: "
+          f"{[round(t * 1e3, 2) for t, _ in pubs]} ms; tier gauges "
+          f"{ {k: round(v, 4) for k, v in g.items()} }", flush=True)
+    if len(done) != len(reqs) or families != {0, 1, 2}:
+        fail("phase 22 (b): unfinished requests or a family without a "
+             "tier import")
+    if tier.pinned_pages():
+        fail("phase 22 (b): tier pages left pinned")
+    print(f"[tier] phase 22 (b) replica A: {_no_leaks(a)}; replica B: "
+          f"{_no_leaks(b)}; tier pins 0", flush=True)
+    # B again, the tier off and its local cache cleared (by _no_leaks)
+    b.tier = b.kv.prefix.tier = None
+    ref = _requests22(prompts, outs)
+    b.serve(ref)
+    torch.cuda.synchronize()
+    differ = [i for i, (r, q) in enumerate(zip(reqs, ref))
+              if list(r.output_tokens) != list(q.output_tokens)]
+    print(f"[tier] phase 22 (b) replica B with the tier off and its cache "
+          f"cleared: {_tok_s(ref):.1f} tok/s, {sum(r.generated for r in ref)}"
+          f" tokens; greedy tokens "
+          + ("equal the tier serve's bit for bit" if not differ
+             else f"DIFFER in requests {differ}"), flush=True)
+    if differ:
+        fail("phase 22 (b): B's greedy tokens depend on the tier")
+    del a, b
+    torch.cuda.empty_cache()
+
+
+def phase_tier(torch, model, params, kernels):
+    """Phase 22: two granite-3-8b replicas on one card sharing a host KV
+    tier, (a) at the model level and (b) serving.  Returns the launches of
+    both parts, counted from 0."""
+    reset_counts(kernels)
+    _tier_model_level(torch, model, params, kernels)
+    _tier_serve(torch, model, params)
+    return read_counts(kernels)
+
 
 def mamba_reference_check(torch, model, params):
     """Kernel path vs plain path of the full-width mamba2-2.7b on one
@@ -3166,6 +3635,7 @@ def main() -> None:
         fpv = check_flash_prefix_verify(torch, dev)
         fa = check_flash_prefill(torch, dev)
         kq, kd = check_kv_quant(torch, dev)
+        kpage = check_kv_quant_page(torch, dev)
         pq8 = check_paged_attention_q8(torch, dev)
         rn = check_fused_rmsnorm(torch, dev)
         sc = check_ssd_chunk(torch, dev)
@@ -3248,6 +3718,12 @@ def main() -> None:
               f"(phase 21) launches {counts}", flush=True)
         totals = {k: totals[k] + counts[k] for k in totals}
         clock.lap(f"granite {backend} spec serve + export (phase 21)")
+    # phase 22: two replicas sharing a host KV tier, counted from 0
+    counts = phase_tier(torch, model, params, kernels)
+    print(f"[main-path] granite two replicas sharing a KV tier (phase 22) "
+          f"launches {counts}", flush=True)
+    totals = {k: totals[k] + counts[k] for k in totals}
+    clock.lap("two replicas sharing a KV tier (phase 22)")
     del model, params, ref
     torch.cuda.empty_cache()
 
@@ -3313,10 +3789,12 @@ def main() -> None:
              launches=t_launches["flash_prefill"], **fa),
         dict(name="kv_quantize", route="cuda", source=src + "kv_quant.cu",
              replaces="src/repro/kernels/kv_quant/kv_quant.py:37",
-             launches=launches["kv_quantize"], **kq),
+             launches=launches["kv_quantize"], **kq,
+             tier_page_shape=kpage["kv_quantize"]),
         dict(name="kv_dequantize", route="cuda", source=src + "kv_quant.cu",
              replaces="src/repro/kernels/kv_quant/kv_quant.py:62",
-             launches=launches["kv_dequantize"], **kd),
+             launches=launches["kv_dequantize"], **kd,
+             tier_page_shape=kpage["kv_dequantize"]),
         dict(name="paged_attention_q8", route="cuda",
              source=src + "paged_attention.cu",
              replaces="src/repro/kernels/kv_quant/kv_quant.py:123",
@@ -3331,7 +3809,7 @@ def main() -> None:
     ]
     root = os.path.dirname(os.path.abspath(__file__))
     for r in rows:
-        r["launches"] += totals[r["name"]]      # phases 19-21
+        r["launches"] += totals[r["name"]]      # phases 19-22
         # the csrc headers the source includes (flash and SSD bodies, the
         # 3xTF32 primitives), as the build key follows them
         r["headers"] = [os.path.relpath(str(h), root) for h in

@@ -1,9 +1,12 @@
 """Architecture registry of the PyTorch port.
 
-Only the architectures the port runs are registered.  Each lives in its
+The architectures the port runs are registered by id.  Each lives in its
 own module (``repro_torch/configs/<id>.py``) exposing ``CONFIG`` (full
 size) and ``smoke_config()`` (reduced, CPU-runnable), as in the JAX
-package's registry.
+package's registry.  :func:`get_config` also knows the paper's own models
+(``paper_models.CONFIGS``: OPT, LLaMA, Pythia), which the analytic
+simulator and cluster models price; the port runs none of them, so
+:func:`get_smoke_config` and the launchers take only the registered ids.
 """
 from __future__ import annotations
 
@@ -28,10 +31,19 @@ def _module(name: str):
 
 
 def get_config(name: str) -> ArchConfig:
-    return _module(name).CONFIG
+    """The full-size config of a registered architecture, else of one of
+    the paper's models (the analytic models' inputs)."""
+    if name in _ASSIGNED:
+        return _module(name).CONFIG
+    from repro_torch.configs import paper_models
+    if name in paper_models.CONFIGS:
+        return paper_models.CONFIGS[name]
+    raise KeyError(f"unknown architecture {name!r}; known: "
+                   f"{sorted(list(_ASSIGNED) + list(paper_models.CONFIGS))}")
 
 
 def get_smoke_config(name: str) -> ArchConfig:
+    """The reduced config of an architecture the port runs."""
     return _module(name).smoke_config()
 
 

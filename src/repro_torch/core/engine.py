@@ -60,8 +60,13 @@ per-slot decode.
 :meth:`ServingEngine.attach_bus` wires an observability
 :class:`~repro_torch.serving.observability.EventBus` through the
 scheduler, the prefix cache and the engine's own execution spans; with
-no bus attached nothing is recorded.  Not ported yet: the cluster KV tier
-(``ROADMAP.md`` Queue 1 item 10), whose hooks are absent.
+no bus attached nothing is recorded.  :meth:`ServingEngine.attach_tier`
+joins the replica to a cluster KV tier (``serving/kv_tier.HostKVTier``):
+its prefix publishes export their pages to the tier, and a fresh prefill
+first imports the pages a peer published past its local match
+(``_tier_import``), at transfer cost instead of prefill compute.  With
+``realtime_swap`` the modeled transfer time of swaps and imports is
+slept off after each step, outside ``step_lock``.
 
 Correctness invariant (tested): with greedy sampling and quantization off,
 generated tokens do not depend on how jobs are preempted and swapped, on
@@ -98,7 +103,9 @@ from repro_torch.core.scheduler import (DecodeLane, PrefillChunk,
 from repro_torch.models.model import Model
 from repro_torch.serving.draft import make_draft_source
 from repro_torch.serving.kv_cache import (DenseKVBackend, KVBackendConfig,
-                                          PagedKVBackend)
+                                          PagedKVBackend,
+                                          dequantize_kv_device,
+                                          quantize_kv_device)
 from repro_torch.serving.sampler import REASONS, sample_and_reason
 from repro_torch.utils.compile_counter import CompileCounter
 
@@ -147,6 +154,12 @@ class EngineConfig:
     quantize_offload: bool = True
     hbm_bytes: Optional[float] = None      # default: fits ~max_slots*max_seq
     swap_bw: float = 32e9
+    realtime_swap: bool = False            # wall-clock mode: enforce the
+                                           # modeled swap and tier-import
+                                           # transfer time (the host copy
+                                           # may be faster than the modeled
+                                           # link); slept off after the
+                                           # step, outside step_lock
     kv_backend: str = "dense"              # dense | paged
     page_size: int = 16                    # paged backend page granularity
     paged_attn_impl: str = "gather"        # gather (bit-exact reference) |
@@ -336,10 +349,14 @@ class ServingEngine:
         self._events_lock = threading.Lock()
         self._backlog_cache = 0.0                  # refreshed under step_lock
         self._backlog_q90 = 0.0                    # p90 surface (admission)
+        self._stall_debt = 0.0                     # modeled transfer seconds
         # observability: attach_bus() sets a bus; None keeps every emit
         # site to one attribute load and branch
         self.bus = None
         self.name = ""                             # replica lane name
+        # cluster KV tier (serving/kv_tier.py): attach_tier() sets it; None
+        # keeps the tier paths to one attribute load and branch
+        self.tier = None
         self._step_wall0 = 0.0                     # perf_counter at step()
         self.device = cfg.device or default_device_label(model.device)
         if cfg.warmup_compile:
@@ -358,6 +375,24 @@ class ServingEngine:
         if self._prefix_ok:
             self.kv.prefix.bus = bus
             self.kv.prefix.replica = name
+        if self.tier is not None and self.tier.bus is None:
+            self.tier.bus = bus        # a shared tier: the first replica
+
+    def attach_tier(self, tier) -> None:
+        """Join this replica to a cluster KV tier (``serving/kv_tier.
+        HostKVTier``): local prefix publishes export their pages to it, and
+        a fresh prefill imports a peer replica's pages instead of
+        prefilling them.  A quantized tier's ``kv_quant`` library is loaded
+        here (one round trip of one row), not at its first publish."""
+        self.tier = tier
+        if self._prefix_ok:
+            self.kv.prefix.tier = tier
+        if self.bus is not None and tier.bus is None:
+            tier.bus = self.bus
+        if tier.quantize:
+            x = torch.zeros((1, self.model.cfg.hd), device=self.model.device)
+            dequantize_kv_device(quantize_kv_device(x),
+                                 device=self.model.device)
 
     def _span_t(self, t: float, t0: float) -> float:
         """Trace placement of an in-step span that started at wall clock
@@ -442,7 +477,12 @@ class ServingEngine:
                 and not self.kv.has(rid)):
             # a fresh prefill (or a recompute) matches the index now (the
             # submit-time hint may be stale either way); a hit maps or
-            # copies the cached prefix in and moves the watermark forward
+            # copies the cached prefix in and moves the watermark forward.
+            # When the cluster tier holds more of the prompt than the local
+            # index (a peer computed it), import the difference first, so
+            # that the acquire sees the extended index
+            if self.tier is not None:
+                self._tier_import(rid, target_toks, t)
             hit = self.kv.prefix_acquire(rid, target_toks)
             if hit:
                 r.prefilled = hit
@@ -697,7 +737,63 @@ class ServingEngine:
             torch.cuda.synchronize(self.model.device)
 
     # ------------------------------------------------------------ swapping
+    def _swap_stall(self, n_tokens: int, t0: float) -> None:
+        """With ``realtime_swap``, record the modeled transfer time of an
+        offload or upload of ``n_tokens`` tokens, less the wall time the
+        host copy (started at ``t0``) already took.  It is accumulated and
+        slept off at the end of :meth:`step`, after ``step_lock`` is
+        released."""
+        if not self.cfg.realtime_swap:
+            return
+        bpt = self.mem.cfg.bytes_per_token_fp
+        if self.cfg.quantize_offload:
+            bpt *= self.mem.cfg.quant_ratio   # the INT8 payload (Eq. 8)
+        need = n_tokens * bpt / self.cfg.swap_bw - (time.perf_counter() - t0)
+        if need > 0:
+            self._stall_debt += need
+
+    def _tier_import(self, rid: int, toks: List[int], t: float) -> int:
+        """Pull a cluster-tier prefix into the local prefix cache when the
+        tier holds more of ``toks`` than the local index.  The pages land
+        in the index under the refcount discipline of a local publish, so
+        the caller's ``prefix_acquire`` then maps (paged) or copies (dense)
+        them like any local hit.  Returns the imported token watermark (0:
+        the tier adds nothing over the local cache)."""
+        cap = len(toks) - 1
+        if cap <= 0 or not self._prefix_ok:
+            return 0
+        local = self.kv.prefix_probe(toks)
+        want = self.tier.probe(toks, cap)
+        if want <= local:
+            return 0
+        handle = self.tier.acquire(toks, want)
+        if handle is None:
+            return 0
+        t0 = time.perf_counter()
+        try:
+            if handle.lossy:
+                # a quantized tier's pages went through INT8: like an INT8
+                # swap, nothing derived from them is ever published
+                self._lossy_kv.add(rid)
+            got = self.kv.tier_fill(toks, handle)
+        finally:
+            handle.release()
+        if got > local:
+            self.mem.note_tier_import(t, handle.nbytes)
+            if self.cfg.realtime_swap:
+                need = (handle.nbytes / self.cfg.swap_bw
+                        - (time.perf_counter() - t0))
+                if need > 0:
+                    self._stall_debt += need
+            if self.bus is not None:
+                self.bus.emit("tier_import", t=t, req_id=rid,
+                              replica=self.name, tokens=got,
+                              bytes=handle.nbytes,
+                              pages=len(handle.payloads))
+        return got
+
     def _offload(self, req: Request) -> None:
+        t0 = time.perf_counter()
         blob = self.kv.offload(req.req_id)
         if self.cfg.quantize_offload:
             self._lossy_kv.add(req.req_id)
@@ -708,9 +804,13 @@ class ServingEngine:
             blob["tokens"] = self._prefill_target_tokens(req)[
                 :blob["lengths"]]
         self.host_pool[req.req_id] = blob
+        self._swap_stall(blob["lengths"], t0)
 
     def _upload(self, req: Request) -> None:
-        self.kv.upload(req.req_id, self.host_pool.pop(req.req_id))
+        t0 = time.perf_counter()
+        blob = self.host_pool.pop(req.req_id)
+        self.kv.upload(req.req_id, blob)
+        self._swap_stall(blob["lengths"], t0)
 
     def _drop_kv(self, req_id: int) -> None:
         """Delete all engine-side KV for a request (lane/pages + host pool)."""
@@ -845,6 +945,8 @@ class ServingEngine:
                                      / probes if probes else 0.0)
             for k, v in st.items():
                 g[f"prefix_{k}"] = float(v)
+        if self.tier is not None:
+            g.update(self.tier.gauges())
         g.update(self.predictor.gauges())
         index = self.model.device.index
         g["device_index"] = float(index) if index is not None else -1.0
@@ -862,15 +964,27 @@ class ServingEngine:
         """Prefill term of an expected-TTFT admission gate: with chunked
         prefill only the first chunk gates (later chunks interleave with
         decode), a monolithic prefill charges the whole prompt; with the
-        prefix cache only the uncached suffix is charged."""
+        prefix cache only the uncached suffix is charged.  With a cluster
+        tier, a prompt the tier holds further costs its transfer plus the
+        first uncached chunk from the imported watermark, when that is
+        less."""
         chunk = self.sched.cfg.prefill_chunk
         cap = max(prompt_len - 1, 0)
         hit = min(self.prefix_probe(prompt_tokens), cap)
         if hit <= 0:
-            return self.latency.first_chunk_time(prompt_len, chunk)
-        rem = prompt_len - hit
-        return self.latency.prefill_chunk_time(
-            hit, min(rem, chunk) if chunk else rem)
+            est = self.latency.first_chunk_time(prompt_len, chunk)
+        else:
+            rem = prompt_len - hit
+            est = self.latency.prefill_chunk_time(
+                hit, min(rem, chunk) if chunk else rem)
+        if self.tier is not None and prompt_tokens:
+            t_hit, t_bytes = self.tier.probe_bytes(prompt_tokens, cap)
+            if t_hit > hit:
+                rem = prompt_len - t_hit
+                est = min(est, t_bytes / self.cfg.swap_bw
+                          + self.latency.prefill_chunk_time(
+                              t_hit, min(rem, chunk) if chunk else rem))
+        return est
 
     def serve(self, requests: List[Request], realtime: bool = False,
               max_wall_s: float = 600.0) -> List[Request]:
@@ -1065,8 +1179,11 @@ class ServingEngine:
                                   req_id=r.req_id, replica=self.name,
                                   level=r.priority_level)
             self._refresh_backlog()
+            stall, self._stall_debt = self._stall_debt, 0.0
         # learning happens outside step_lock, after the dispatch work
         self.predictor.drain_feedback()
+        if stall > 0:
+            time.sleep(stall)              # modeled transfers, lock released
         return ran_any
 
     def _accept_token(self, req: Request, tok: int, generated_of, t: float,

@@ -103,6 +103,8 @@ def build_model(arch: str = "granite-3-8b", arch_size: str = "smoke",
     ``seed``.  ``chunk_attn`` defaults to ``flash`` on a GPU, ``masked``
     elsewhere."""
     dev = resolve_device(device)
+    if arch not in ASSIGNED_ARCHS:      # the paper's models are priced only
+        raise KeyError(f"the port runs {list(ASSIGNED_ARCHS)}, not {arch!r}")
     cfg = get_config(arch) if arch_size == "full" else get_smoke_config(arch)
     chunk_attn = chunk_attn or ("flash" if dev.type == "cuda" else "masked")
     model = Model(cfg, chunk_attn_impl=chunk_attn, device=dev,

@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ASSIGNED_ARCHS, get_config, get_smoke_config
 from repro_torch.models.model import Model
 from repro_torch.training.checkpoint import (latest_step, restore_checkpoint,
                                              save_checkpoint)
@@ -42,6 +42,8 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
     the final state, each step's loss, and each step's host seconds (the
     step ends when its loss is read back, which waits for the device)."""
     dev = resolve_device(device)
+    if arch not in ASSIGNED_ARCHS:      # the paper's models are priced only
+        raise KeyError(f"the port runs {list(ASSIGNED_ARCHS)}, not {arch!r}")
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     over = {"param_dtype": param_dtype}
     if num_layers is not None:

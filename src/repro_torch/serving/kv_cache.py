@@ -52,8 +52,13 @@ Offload/upload of K/V run the INT8 ``kv_quant`` kernels on the device when
 payload plus float32 per-row scales and zeros.  Conv and SSM state cross
 raw, as in the reference: INT8 applies to K/V only.
 
-Not ported yet: the cluster KV tier (``ROADMAP.md`` Queue 1 item 10),
-whose hooks are absent.
+Both attention backends land a cluster-tier import (``tier_fill``: pages
+of ``serving/kv_tier.HostKVTier`` another replica published) in their
+prefix cache, eagerly, like swaps: the paged backend writes only the
+pages past its local radix match into fresh pool pages and indexes them,
+the dense one publishes the payload into its private store.  Both write
+the device storage in place, so that the captured step graphs, which
+hold its addresses, see the imported pages.
 """
 from __future__ import annotations
 
@@ -655,6 +660,47 @@ class PagedKVBackend(KVBackend):
             return 0
         return self.prefix.publish(rid, list(tokens), upto)
 
+    def tier_fill(self, tokens, handle) -> int:
+        """Land a cluster-tier import (a pinned ``TierHandle``) in the
+        local prefix cache.  Only the pages past the local radix match
+        transfer; cached pages no request references are reclaimed when
+        the pool is short, and the import is clipped to the free pages.
+        Each lands in a fresh pool page, written in place, and enters the
+        index owning its single refcount (index-held, like a published
+        page); the caller's ``prefix_acquire`` then maps them.  Returns
+        the token watermark now cached locally."""
+        if self.prefix is None or handle is None:
+            return 0
+        pg = self.cfg.page_size
+        toks = list(tokens)[:handle.tokens]
+        n = len(toks) // pg
+        if n <= 0:
+            return 0
+        full, _ = self.prefix.index.match(toks, n * pg, touch=False)
+        have = len(full)
+        if have >= n:
+            return have * pg        # the local cache covers the import
+        short = (n - have) - len(self.pool.free_pages)
+        if short > 0:
+            self.prefix_reclaim(short)
+        n = min(n, have + len(self.pool.free_pages))
+        if n <= have:
+            return have * pg        # pool too tight to land the import
+        mats = handle.materialize(self.pool.k.dtype, self.device, have, n)
+        fresh = [self.pool.take_page() for _ in range(n - have)]
+        idx = torch.as_tensor(fresh, dtype=torch.long, device=self.device)
+        for j, key in enumerate(("k", "v")):
+            getattr(self.pool, key).index_copy_(
+                1, idx, torch.stack([m[j] for m in mats], dim=1))
+        created = self.prefix.index.insert(toks, n * pg,
+                                           lambda i: fresh[i - have])
+        used = {node.page for node in created}
+        for p in fresh:             # chain clipped early: hand pages back
+            if p not in used:
+                self.pool.decref(p)
+        self.prefix.stats.inserted_pages += len(created)
+        return n * pg
+
     def clear(self, rid: int) -> None:
         slot = self.slot_of(rid)
         if slot is not None:
@@ -995,6 +1041,27 @@ class DenseKVBackend(KVBackend):
         return self.prefix.publish(list(tokens), upto,
                                    self._lane("k", slot),
                                    self._lane("v", slot))
+
+    def tier_fill(self, tokens, handle) -> int:
+        """Land a cluster-tier import (a pinned ``TierHandle``) in the
+        private prefix store: lanes cannot alias host pages, so the import
+        is a normal publish whose source is the tier payload, dequantized
+        or copied onto the device, instead of a lane's stripe (a pow2
+        span is not needed: eager torch has no compile cost).  The
+        caller's ``prefix_acquire`` then copies it like any local hit.
+        Returns the cached token watermark."""
+        if self.prefix is None or handle is None:
+            return 0
+        pg = self.prefix.page_size
+        toks = list(tokens)[:handle.tokens]
+        n = len(toks) // pg
+        if n <= 0:
+            return 0
+        mats = handle.materialize(self.cache["k"].dtype, self.device, 0, n)
+        self.prefix.publish(toks, n * pg,
+                            torch.cat([m[0] for m in mats], dim=1),
+                            torch.cat([m[1] for m in mats], dim=1))
+        return n * pg
 
     def clear(self, rid: int) -> None:
         slot = self.slot_of(rid)

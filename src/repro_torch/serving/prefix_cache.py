@@ -34,8 +34,11 @@ reference.  The two storage front-ends are rewritten for torch:
 
 Both front-ends emit ``prefix_cow``, ``prefix_dedupe`` and
 ``prefix_evict`` events to an observability bus when the engine attaches
-one (``bus`` None: nothing is recorded).  The cluster KV tier is not
-ported (``ROADMAP.md`` Queue 1 item 10), so neither has its hooks.
+one (``bus`` None: nothing is recorded).  With a cluster KV tier attached
+(``tier``: a ``serving/kv_tier.HostKVTier``), each publish that indexes
+new pages exports its span to the tier, which fetches only the pages it
+lacks: one page of the pool, or of the source stripe, as device views
+that the tier copies to the host or quantizes on the device.
 """
 from __future__ import annotations
 
@@ -237,6 +240,7 @@ class PagedPrefixCache:
         self.stats = PrefixCacheStats()
         self.bus = None                # observability EventBus (None = off)
         self.replica = ""
+        self.tier = None               # cluster HostKVTier (None = off)
 
     def probe(self, tokens) -> int:
         """Expected hit length in tokens (pricing only: touch-free, so
@@ -328,6 +332,13 @@ class PagedPrefixCache:
                 self.bus.emit("prefix_dedupe", req_id=rid,
                               replica=self.replica, pages=deduped)
         self.stats.inserted_pages += len(created)
+        if self.tier is not None and created:
+            # export the span to the cluster tier, which fetches only the
+            # pages it does not hold (re-publishing a prefix the cluster
+            # knows copies nothing)
+            def fetch_page(i):
+                return pool.k[:, table[i]], pool.v[:, table[i]]
+            self.tier.publish(tokens, upto, fetch_page)
         return len(created)
 
     def reclaim(self, n_pages: int) -> int:
@@ -390,6 +401,7 @@ class DensePrefixCache:
         self.stats = PrefixCacheStats()
         self.bus = None                # observability EventBus (None = off)
         self.replica = ""
+        self.tier = None               # cluster HostKVTier (None = off)
 
     def probe(self, tokens) -> int:
         if not tokens:
@@ -464,6 +476,13 @@ class DensePrefixCache:
             if page not in used:
                 self.free_pages.append(page)
         self.stats.inserted_pages += len(created)
+        if self.tier is not None and created:
+            # export the span to the cluster tier (it fetches only the
+            # pages it does not hold)
+            def fetch_page(i):
+                return (k_src[:, i * pg:(i + 1) * pg],
+                        v_src[:, i * pg:(i + 1) * pg])
+            self.tier.publish(tokens, upto, fetch_page)
         return len(created)
 
     def _evict(self, n: int) -> int:
@@ -506,6 +525,8 @@ class SimPrefixIndex:
         self.capacity = max(capacity_pages, 1)
         self._ids = itertools.count()
         self.stats = PrefixCacheStats()
+        self.bus = None                # observability EventBus (None = off)
+        self.replica = ""
 
     def probe(self, tokens) -> int:
         if not tokens:
@@ -519,6 +540,9 @@ class SimPrefixIndex:
         if over > 0:
             evicted = self.index.evict_lru(over, can_evict=lambda p: True)
             self.stats.evicted_pages += len(evicted)
+            if evicted and self.bus is not None:
+                self.bus.emit("prefix_evict", replica=self.replica,
+                              pages=len(evicted))
         self.stats.inserted_pages += len(created)
         return len(created)
 

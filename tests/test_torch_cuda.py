@@ -1338,3 +1338,127 @@ def test_graphed_verify_equals_eager_verify(dev, backend):
     # capture and one replay
     assert kg.graphs.captures == 1 and kg.graphs.replays["verify"] == 4
     assert ke.graphs.captures == 0 and ke.graphs.replays["verify"] == 0
+
+
+# --------------------------------------------------- the cluster KV tier
+
+def test_kv_quant_at_the_tier_page_shape(dev):
+    """One granite page of K as the quantized tier stores it (40 layers x
+    16 tokens x 8 KV heads = 5120 rows of 128): float32 in, codes within
+    1 of the plain version, scales within 1e-6 relative, zeros within 1;
+    dequantized to the pool's bfloat16 bit for bit the plain version; and
+    through ``quantize_kv_device`` / ``dequantize_kv_device`` from a bf16
+    page of that shape, the blob on the host and the page back on the
+    card within the INT8 round trip's 2%."""
+    from repro_torch.kernels.kv_quant import (kv_dequantize,
+                                              kv_dequantize_ref, kv_quantize,
+                                              kv_quantize_ref)
+    from repro_torch.serving.kv_cache import (dequantize_kv_device,
+                                              quantize_kv_device)
+    rng = np.random.default_rng(22)
+    x = _randn(rng, (40 * 16 * 8, 128), torch.float32, dev) * 4.0
+    q, lam, z = kv_quantize(x)
+    qr, lamr, zr = kv_quantize_ref(x)
+    torch.cuda.synchronize()
+    assert (q.int() - qr.int()).abs().max().item() <= 1
+    torch.testing.assert_close(lam, lamr, atol=0, rtol=1e-6)
+    assert (z - zr).abs().max().item() <= 1
+    out = kv_dequantize(q, lam, z, dtype=torch.bfloat16)
+    assert torch.equal(out.view(torch.int16), kv_dequantize_ref(
+        q, lam, z, torch.bfloat16).view(torch.int16))
+    page = x.reshape(40, 16, 8, 128).to(torch.bfloat16)
+    blob = quantize_kv_device(page)
+    assert all(t.device.type == "cpu" for t in blob[:3])
+    assert blob[0].shape == (5120, 128) and blob[3] == (40, 16, 8, 128)
+    back = dequantize_kv_device(blob, torch.bfloat16, dev)
+    assert back.device == dev and back.dtype == torch.bfloat16
+    rel = ((back.float() - page.float()).abs().max()
+           / page.float().abs().max()).item()
+    assert rel < 0.02
+
+
+def _tier_engines(dev, backend, tier):
+    from repro_torch.core.engine import EngineConfig, ServingEngine
+    from repro_torch.core.predictor import OraclePredictor
+    model, params = _graph_model(dev, "dense")
+    engs = []
+    for warm in (False, True):
+        eng = ServingEngine(model, params, EngineConfig(
+            max_slots=2, max_seq_len=64, max_new_tokens=8, strategy="alise",
+            quantize_offload=False, kv_backend=backend, page_size=16,
+            paged_attn_impl="kernel", prefill_chunk=16, prefix_cache=True,
+            eos_token=-1, warmup_compile=warm), predictor=OraclePredictor())
+        eng.attach_tier(tier)
+        engs.append(eng)
+    return model, engs
+
+
+@pytest.mark.parametrize("backend", ["paged", "dense"])
+def test_tier_fill_on_a_warmed_engine(dev, backend):
+    """A warmed engine imports a peer's prefix: ``tier_fill`` writes the
+    existing device storage in place (the pool, or the dense store and
+    then the lane's stripe: the captured graphs hold their addresses),
+    the imported pages equal the peer's bit for bit, and the requests's
+    decode steps, replays of the warmed graph, read them: its greedy
+    tokens equal the peer's for the same request from its local hit, with
+    no capture or library load."""
+    from repro_torch.core.request import Request, reset_request_counter
+    from repro_torch.serving.kv_tier import HostKVTier
+    from repro_torch.utils.compile_counter import CompileCounter
+    tier = HostKVTier(1e9, 16)
+    model, (a, b) = _tier_engines(dev, backend, tier)
+    rng = np.random.default_rng(23)
+    system = rng.integers(2, 512, 32).tolist()
+    prompt = system + rng.integers(2, 512, 5).tolist()
+    reset_request_counter()
+    a.serve([Request(prompt_len=37, arrival_time=0.0, true_out_len=2,
+                     prompt_tokens=system + [7, 8, 9])])
+    store = b.kv.pool if backend == "paged" else b.kv.prefix
+    ptrs = (store.k.data_ptr(), store.v.data_ptr())
+    lanes = (None if backend == "paged"
+             else (b.kv.cache["k"].data_ptr(), b.kv.cache["v"].data_ptr()))
+    replays = b.kv.graphs.replays["decode"]
+    counter = CompileCounter()
+    with counter.expect_no_compiles(f"tier import [{backend}]"):
+        got_b = Request(prompt_len=37, arrival_time=0.0, true_out_len=6,
+                        prompt_tokens=list(prompt))
+        b.serve([got_b])
+    counter.detach()
+    assert tier.stats.imports == 1 and tier.pinned_pages() == 0
+    assert (store.k.data_ptr(), store.v.data_ptr()) == ptrs
+    if lanes is not None:
+        assert (b.kv.cache["k"].data_ptr(),
+                b.kv.cache["v"].data_ptr()) == lanes
+    assert b.kv.graphs.replays["decode"] - replays == len(b.iter_times) > 0
+    src = a.kv.pool if backend == "paged" else a.kv.prefix
+    pa = [n.page for n in a.kv.prefix.index.match(system, 32,
+                                                  touch=False)[0]]
+    pb = [n.page for n in b.kv.prefix.index.match(system, 32,
+                                                  touch=False)[0]]
+    assert len(pa) == len(pb) == 2
+    for x, y in ((src.k, store.k), (src.v, store.v)):
+        assert torch.equal(x[:, pa], y[:, pb])
+    want = Request(prompt_len=37, arrival_time=0.0, true_out_len=6,
+                   prompt_tokens=list(prompt))
+    a.serve([want])
+    assert a.kv.prefix_stats().hit_tokens >= 32
+    assert list(got_b.output_tokens) == list(want.output_tokens)
+
+
+def test_place_params_on_the_card_keeps_the_storages(dev):
+    """Placing a replica on the device its weights already live on moves
+    nothing: the same tensors, the same storages."""
+    from repro_torch.distributed.placement import (available_devices,
+                                                   device_label, place_params)
+    model, params = _graph_model(dev, "dense")
+    for where in (dev, "cuda", "cuda:0"):
+        placed = place_params(params, where)
+        assert placed["embed"] is params["embed"]
+        for a, b in zip(params["layers"], placed["layers"]):
+            for sub in a:
+                for k in a[sub]:
+                    assert b[sub][k] is a[sub][k]
+                    assert b[sub][k].data_ptr() == a[sub][k].data_ptr()
+    assert device_label(torch.device("cuda")) == "cuda:0"
+    assert available_devices("auto")[0] == dev
+    assert available_devices("cuda:0") == [dev]

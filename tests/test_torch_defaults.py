@@ -28,10 +28,14 @@ def _defaults(cls):
 
 
 def test_engine_config_defaults_match_the_reference():
+    """Every field of the reference's ``EngineConfig`` is the port's, with
+    the same default; the port adds only ``cuda_graphs``."""
     port, ref = _defaults(port_engine.EngineConfig), _defaults(
         ref_engine.EngineConfig)
-    shared = sorted(set(port) & set(ref))
-    assert "kv_backend" in shared and len(shared) >= 20
+    assert set(ref) <= set(port), sorted(set(ref) - set(port))
+    assert set(port) - set(ref) == {"cuda_graphs"}
+    shared = sorted(ref)
+    assert "kv_backend" in shared and "realtime_swap" in shared
     differ = {n: (port[n], ref[n]) for n in shared if port[n] != ref[n]}
     assert differ == {}, differ
     assert port_engine.EngineConfig().kv_backend == "dense"
