@@ -209,8 +209,26 @@ the final line:
      off and its cache cleared; it prints tokens/s, TTFT p50 of imported,
      local-hit and cold requests, each fill's and each publish's time, the
      effective rates and the tier's gauges.
+ 23. two granite-3-8b replicas behind the online gateway
+     (``launch/serve.serve_gateway``, ``serving/gateway``): (a) two warmed
+     paged replicas of phase 5's configuration (B shares A's weights, both
+     on cuda:0) serve 24 sharegpt arrivals at 6/s (prompts clamped to
+     1536, outputs to 64, a quarter interactive) in wall clock under the
+     concurrent pump (one step thread per replica), EWT routing, with the
+     bus and gauge snapshots every 0.5 s: 24 of 24 streams end in
+     ``finish``, each stream's tokens are its request's (none lost or
+     repeated), both replicas serve, no capture or library load in either
+     pump thread, no pump raised, gauges recorded, and the paged
+     attention, prefix flash and RMSNorm launches (counted from 0 after
+     the warmups) equal exactly what the replicas' graph replays launched
+     (``StepGraphs.replayed``); it prints tokens/s, TTFT p50/p90 per
+     class, normalized latency, dispatches and each replica's step walls;
+     (b) fresh copies of the requests served at t=0 by replica A alone
+     (``ServingEngine.serve``): (a)'s streams equal them bit for bit; (c)
+     the lockstep pump over A and B on fresh copies: tokens equal (b), its
+     tokens/s and TTFT beside (a)'s (printed, not gated).
 
-The serve phases 5, 6, 9, 10, 16, 17, 20, 21 and 22 (b) run warmed engines
+The serve phases 5, 6, 9, 10, 16, 17, 20, 21, 22 (b) and 23 run warmed engines
 (every step graph captured and every kernel library loaded before the
 first request): each prints its warmup's seconds, captures and
 graph-pool size, and fails on any capture or library build or load while
@@ -220,7 +238,7 @@ replay adds its captured launches to every wrapper's ``launches`` and to
 the libraries' body counters, so the main-path counts below count
 replays.
 
-Phases 15-22 run after phase 7, with the granite model still loaded.
+Phases 15-23 run after phase 7, with the granite model still loaded.
 Phase 3 also holds the prefix flash kernel at the verify step's shape (B
 8, C 4, starts 60..2040, Smax 2048 and 2064, the last key tile of 2064
 partial: the bf16 bound, the wgmma body and its merge, its time, bound,
@@ -249,8 +267,8 @@ phase 18 (the INT8 paged attention), mamba's phases 9 and 10 (the RMSNorm
 and SSD chunk kernels must have launched, every SSD call through the
 tensor-core body) and training's phase 13 (the
 flash and RMSNorm kernels must have launched); then phase 19's two packs
-and phase 20's and phase 21's two serves each, and phase 22, each counted
-from 0 and added to the kernels line's launches.  Each phase
+and phase 20's and phase 21's two serves each, phase 22 and phase 23 (a),
+each counted from 0 and added to the kernels line's launches.  Each phase
 prints its seconds.  Then a ``kernels`` JSON line (each row also names
 the ``csrc`` headers its source includes), the card's name and
 power limit, and the final ``{"ok": true, "device": {...}}`` line.  Needs
@@ -1521,8 +1539,13 @@ def profile_step(torch, label: str, step, n: int = 5, watch=()) -> None:
     median; the device's idle gaps inside the call are in it), then the
     device's busy time per call (sum of kernel times) and its top kernels
     from ``torch.profiler`` over ``n`` more calls, and every kernel whose
-    name holds one of ``watch`` (fails when such a kernel never ran)."""
+    name holds one of ``watch`` (fails when such a kernel never ran).
+    The profiler records the device's activity alone: every figure here
+    is a device event's, and an eager step's host ops made the event list
+    cost 5-8 s a profile.  The line ends with the profile's cost (timed
+    calls, profiler session, event list)."""
     from torch.profiler import ProfilerActivity, profile
+    t_begin = time.perf_counter()
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -1536,11 +1559,12 @@ def profile_step(torch, label: str, step, n: int = 5, watch=()) -> None:
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
     span = statistics.median(b.elapsed_time(e) for b, e in marks)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_timed = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             step()
         torch.cuda.synchronize()
+    t_profiled = time.perf_counter()
     by_kernel = {}
     for e in prof.events():
         if _is_kernel(torch, e):
@@ -1548,6 +1572,9 @@ def profile_step(torch, label: str, step, n: int = 5, watch=()) -> None:
             by_kernel[name] = (by_kernel.get(name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / n)
     busy = sum(by_kernel.values())
+    cost = (f"; cost: timed {t_timed - t_begin:.1f}s, profiled "
+            f"{t_profiled - t_timed:.1f}s, events "
+            f"{time.perf_counter() - t_profiled:.1f}s")
     if busy <= 0:
         print(f"[profile] {label}: wall {wall:.2f} ms, device span "
               f"{span:.2f} ms; the profiler saw no device time (device busy "
@@ -1567,7 +1594,7 @@ def profile_step(torch, label: str, step, n: int = 5, watch=()) -> None:
           + "".join(f"; watched: {k} {v:.2f} ms ({v / busy:.1%})"
                     for k, v in seen)
           + (f"; watched together {watched:.2f} ms ({watched / busy:.1%})"
-             if len(seen) > 1 else ""), flush=True)
+             if len(seen) > 1 else "") + cost, flush=True)
 
 
 def phase_profile(torch, model, params):
@@ -3162,6 +3189,199 @@ def phase_tier(torch, model, params, kernels):
     return read_counts(kernels)
 
 
+# ------------------------------------------------------------- phase 23
+
+# the launcher's gateway mode on phase 5's engine configuration (raw
+# swaps, the oracle predictor, warmed replicas), in wall clock with the
+# concurrent pump and tracing on; sharegpt arrivals at 6/s
+GATEWAY23 = dict(arch_size="full", dataset="sharegpt", rate=6.0,
+                 n_requests=24, n_engines=2, max_slots=8, router="ewt",
+                 interactive_frac=0.25, seed=SEED, predictor_kind="oracle",
+                 kv_backend="paged", prefill_chunk=256, warmup=True,
+                 virtual_dt=None,
+                 pump="concurrent", trace=True, metrics_interval=0.5)
+GATEWAY23_ROWS = ("paged_attention", "flash_prefill_prefix", "fused_rmsnorm")
+
+
+def _copies(reqs, arrival=None):
+    """Fresh requests with the same prompts, output lengths, classes and
+    (unless ``arrival`` is given) arrival times."""
+    from repro_torch.core.request import Request
+    return [Request(prompt_len=r.prompt_len,
+                    arrival_time=(r.arrival_time if arrival is None
+                                  else arrival),
+                    true_out_len=r.true_out_len,
+                    prompt_tokens=list(r.prompt_tokens),
+                    slo_class=r.slo_class) for r in reqs]
+
+
+def _replayed(engines):
+    """The launch counters the engines' graph replays advanced so far,
+    summed over engines and keys."""
+    out = {}
+    for e in engines:
+        for n, per in e.kv.graphs.replayed().values():
+            for c, k in per.items():
+                out[c] = out.get(c, 0) + n * k
+    return out
+
+
+def _steps_since(eng, since):
+    """Decode-step and prefill wall times (ms) of ``eng`` that began at or
+    after the perf_counter stamp ``since``."""
+    steps = [dt * 1e3 for t0, _, _, dt in eng.iter_times if t0 >= since]
+    pre = [dt * 1e3 for t0, _, dt, _ in eng.prefill_times if t0 >= since]
+    return steps, pre
+
+
+def _gateway_summary(gw, streams, wall, since):
+    """tokens/s over both replicas, TTFT p50/p90 per class, normalized
+    latency, dispatches and each replica's step walls, as one string;
+    also returns (tokens/s, TTFT p50 of all requests)."""
+    m = gw.metrics.summary()
+    reqs = [s.request for s in streams]
+    tokens = sum(len(s.token_values) for s in streams)
+    norm = [r.normalized_latency for r in reqs if r.normalized_latency]
+    ttft = [r.first_token_time - r.arrival_time for r in reqs]
+    per = {}
+    for d in gw.router.drivers:
+        steps, pre = _steps_since(d.engine, since)
+        per[d.name] = (f"decode p50 {np.median(steps):.2f} ms ({len(steps)}"
+                       f" steps), prefill p50 {np.median(pre):.2f} ms "
+                       f"({len(pre)})")
+    text = (f"{tokens} tokens in {wall:.2f}s, {tokens / wall:.1f} tok/s; "
+            + "; ".join(f"{c} TTFT p50/p90 {m[c]['ttft_p50']:.3f}/"
+                        f"{m[c]['ttft_p90']:.3f}s (n={m[c]['completed']})"
+                        for c in ("interactive", "batch"))
+            + f"; TTFT p50 all {np.median(ttft):.3f}s; normalized latency "
+            f"{np.mean(norm) * 1e3:.1f} ms/token; "
+            + "; ".join(f"{k}: {v}" for k, v in per.items()))
+    return text, tokens / wall, float(np.median(ttft))
+
+
+def phase_gateway(torch, model, params, kernels):
+    """Phase 23: two warmed replicas behind the online gateway, built and
+    served by ``launch/serve.serve_gateway`` in wall clock under the
+    concurrent pump; (b) the batch serve on replica A and (c) the
+    lockstep pump against it.  Returns (a)'s launches, counted from 0
+    once the replicas are warm."""
+    import asyncio
+    import dataclasses
+
+    from repro_torch.launch.serve import serve_gateway
+    from repro_torch.serving.gateway import Gateway, GatewayConfig
+    from repro_torch.utils.compile_counter import CompileCounter
+    state = {}
+
+    def ready(gw):
+        engines = [d.engine for d in gw.router.drivers]
+        for e in engines:
+            # one card: every pump thread starts on the process's device
+            if e.model.device.type != "cuda" or torch.device(
+                    e.device) != torch.device("cuda:0"):
+                fail(f"phase 23: a replica is on {e.device}, not cuda:0")
+        if engines[1].params["embed"] is not params["embed"]:
+            fail("phase 23: replica B does not share A's weights")
+        torch.cuda.synchronize()
+        state["counter"] = CompileCounter()
+        state["replayed"] = _replayed(engines)
+        reset_counts(kernels)
+        state["t0"] = time.perf_counter()
+
+    try:
+        streams, gw = serve_gateway(**GATEWAY23, device=model.device,
+                                    model_and_params=(model, params),
+                                    on_ready=ready)
+    except Exception as exc:     # stop_pumps re-raises a pump's failure
+        fail(f"phase 23 (a): the concurrent serve raised {exc!r}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - state["t0"]
+    launches = read_counts(kernels)
+    counter = state["counter"]
+    counter.detach()
+    engines = [d.engine for d in gw.router.drivers]
+    for d in gw.router.drivers:
+        graph_gate(f"gateway {d.name} (phase 23)", d.engine, counter, False)
+    replayed = _replayed(engines)
+    want = {k: replayed.get(k, 0) - state["replayed"].get(k, 0)
+            for k in kernels}
+    events = gw.bus.snapshot()
+    dispatch = {}
+    for e in events:
+        if e.kind == "dispatch":
+            dispatch[e.replica] = dispatch.get(e.replica, 0) + 1
+    gauges = sum(1 for e in events if e.kind == "gauge")
+    ends = {}
+    for s in streams:
+        ends[s.events_log[-1].kind] = ends.get(s.events_log[-1].kind, 0) + 1
+    text, tok_s, ttft = _gateway_summary(gw, streams, wall, state["t0"])
+    print(f"[gateway] (a) concurrent pump, 2 replicas: {text}; dispatches "
+          f"{dispatch}; {gauges} gauge snapshots; stream ends {ends}; "
+          f"launches {launches}, replays {want}", flush=True)
+    if len(streams) != GATEWAY23["n_requests"] or ends != {
+            "finish": len(streams)}:
+        fail(f"phase 23 (a): streams ended {ends}")
+    for s in streams:
+        idx = [ev.index for ev in s.events_log if ev.kind == "token"]
+        if (s.token_values != list(s.request.output_tokens)
+                or idx != list(range(len(idx)))):
+            fail(f"phase 23 (a): stream {s.request.req_id} lost or "
+                 "repeated a token")
+    if len(dispatch) != 2 or not all(e.sched.finished for e in engines):
+        fail(f"phase 23 (a): both replicas must serve (dispatches "
+             f"{dispatch})")
+    if not gauges:
+        fail("phase 23 (a): the bus holds no gauge snapshot")
+    if launches != want or not all(launches[k] > 0 for k in GATEWAY23_ROWS):
+        fail(f"phase 23 (a): launches {launches} are not the replays' "
+             f"{want}, or a row of {GATEWAY23_ROWS} did not launch")
+
+    # (b) the same requests at t=0 on replica A alone, batch mode
+    a = engines[0]
+    batch = _copies([s.request for s in streams], arrival=0.0)
+    t0 = time.perf_counter()
+    a.serve(batch)
+    torch.cuda.synchronize()
+    b_wall = time.perf_counter() - t0
+    want_tokens = [list(r.output_tokens) for r in batch]
+    got = [s.token_values for s in streams]
+    differ = [i for i, (x, y) in enumerate(zip(got, want_tokens)) if x != y]
+    steps, pre = _steps_since(a, t0)
+    b_tokens = sum(r.generated for r in batch)
+    print(f"[gateway] (b) batch serve on replica A: {b_tokens} tokens in "
+          f"{b_wall:.2f}s, {b_tokens / b_wall:.1f} tok/s, decode p50 "
+          f"{np.median(steps):.2f} ms ({len(steps)} steps), prefill p50 "
+          f"{np.median(pre):.2f} ms, preemptions "
+          f"{sum(r.preempt_count for r in batch)}; streams of (a) "
+          + ("equal bit for bit" if not differ else f"{differ} differ"),
+          flush=True)
+    if differ:
+        fail(f"phase 23 (b): streams {differ} differ from the batch serve")
+
+    # (c) the lockstep pump over the same replicas and requests
+    lock_gw = Gateway(engines, GatewayConfig(
+        router_policy=GATEWAY23["router"], concurrent_pump=False),
+        admission=dataclasses.replace(gw.admission.cfg))
+    copies = _copies([s.request for s in streams])
+    t0 = time.perf_counter()
+    lock_streams = asyncio.run(lock_gw.replay(copies))
+    torch.cuda.synchronize()
+    c_wall = time.perf_counter() - t0
+    c_text, c_tok_s, c_ttft = _gateway_summary(lock_gw, lock_streams, c_wall,
+                                               t0)
+    same = [s.token_values for s in lock_streams] == want_tokens
+    print(f"[gateway] (c) lockstep pump, 2 replicas: {c_text}; tokens "
+          + ("equal (b)" if same else "differ from (b)"), flush=True)
+    print(f"[gateway] concurrent vs lockstep: {tok_s:.1f} vs {c_tok_s:.1f} "
+          f"tok/s, TTFT p50 {ttft:.3f} vs {c_ttft:.3f}s (printed, not "
+          "gated)", flush=True)
+    if not same:
+        fail("phase 23 (c): the lockstep pump's tokens differ from (b)")
+    del a, engines, gw, lock_gw
+    torch.cuda.empty_cache()
+    return launches
+
+
 def mamba_reference_check(torch, model, params):
     """Kernel path vs plain path of the full-width mamba2-2.7b on one
     300-token prompt (one chunk of 256 and a ragged one padded to 256) and
@@ -3724,6 +3944,12 @@ def main() -> None:
           f"launches {counts}", flush=True)
     totals = {k: totals[k] + counts[k] for k in totals}
     clock.lap("two replicas sharing a KV tier (phase 22)")
+    # phase 23: two replicas behind the gateway, counted from 0 once warm
+    counts = phase_gateway(torch, model, params, kernels)
+    print(f"[main-path] granite two replicas behind the gateway, "
+          f"concurrent pump (phase 23) launches {counts}", flush=True)
+    totals = {k: totals[k] + counts[k] for k in totals}
+    clock.lap("two replicas behind the gateway (phase 23)")
     del model, params, ref
     torch.cuda.empty_cache()
 
@@ -3809,7 +4035,7 @@ def main() -> None:
     ]
     root = os.path.dirname(os.path.abspath(__file__))
     for r in rows:
-        r["launches"] += totals[r["name"]]      # phases 19-22
+        r["launches"] += totals[r["name"]]      # phases 19-23
         # the csrc headers the source includes (flash and SSD bodies, the
         # 3xTF32 primitives), as the build key follows them
         r["headers"] = [os.path.relpath(str(h), root) for h in

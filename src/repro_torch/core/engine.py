@@ -68,6 +68,14 @@ first imports the pages a peer published past its local match
 ``realtime_swap`` the modeled transfer time of swaps and imports is
 slept off after each step, outside ``step_lock``.
 
+A front end on another thread (the gateway's concurrent pump) hands
+requests over through :meth:`ServingEngine.submit_nowait`, a mailbox the
+next step drains, and takes events back through
+:meth:`ServingEngine.poll_events`; :meth:`ServingEngine.step_and_poll` is
+one pump iteration.  Every step holds ``serving/step_graphs.CAPTURE_GATE``
+shared, so a graph capture in one replica's thread never overlaps another
+replica's step.
+
 Correctness invariant (tested): with greedy sampling and quantization off,
 generated tokens do not depend on how jobs are preempted and swapped, on
 the backend (dense | paged), on chunked or monolithic prefill, on packed
@@ -107,6 +115,7 @@ from repro_torch.serving.kv_cache import (DenseKVBackend, KVBackendConfig,
                                           dequantize_kv_device,
                                           quantize_kv_device)
 from repro_torch.serving.sampler import REASONS, sample_and_reason
+from repro_torch.serving.step_graphs import CAPTURE_GATE
 from repro_torch.utils.compile_counter import CompileCounter
 
 
@@ -350,6 +359,11 @@ class ServingEngine:
         self._backlog_cache = 0.0                  # refreshed under step_lock
         self._backlog_q90 = 0.0                    # p90 surface (admission)
         self._stall_debt = 0.0                     # modeled transfer seconds
+        # submit mailbox: intake that never waits on step_lock behind an
+        # in-flight iteration, drained at the start of the next step
+        # (symmetric to the event buffer going the other way)
+        self._submit_box: List = []                # [(Request, now), ...]
+        self._submit_lock = threading.Lock()
         # observability: attach_bus() sets a bus; None keeps every emit
         # site to one attribute load and branch
         self.bus = None
@@ -662,6 +676,10 @@ class ServingEngine:
         cold one.  A family without chunked prefill has no bucket."""
         if self.sched.live:
             raise RuntimeError("warmup() requires an idle engine")
+        with self.step_lock, CAPTURE_GATE.shared():
+            return self._warmup()
+
+    def _warmup(self) -> Dict[int, float]:
         t_start = time.perf_counter()
         counter = CompileCounter()
         costs: Dict[int, float] = {}
@@ -862,6 +880,28 @@ class ServingEngine:
             self.sched.submit(req, now)
             self._refresh_backlog()
 
+    def submit_nowait(self, req: Request, now: float = 0.0) -> None:
+        """Non-blocking intake for the concurrent pump: park the request in
+        the submit mailbox (drained at the start of the next step) instead
+        of waiting on ``step_lock`` behind an in-flight iteration.  Depth
+        and backlog count parked requests at once; the cached-prefix hint
+        is set here, before parking, so the mailbox term of
+        :meth:`predicted_backlog` prices only the uncached suffix (the
+        probe takes no lock: it reads the index and degrades to 0 on a
+        racing mutation)."""
+        if self._prefix_ok and req.prompt_tokens:
+            req.cached_prefix_hint = self.kv.prefix_probe(
+                self._prefill_target_tokens(req))
+        with self._submit_lock:
+            self._submit_box.append((req, now))
+
+    def _drain_submit_box(self) -> None:
+        """Move mailbox arrivals into the scheduler (under step_lock)."""
+        with self._submit_lock:
+            box, self._submit_box = self._submit_box, []
+        for req, t in box:
+            self.submit(req, t)
+
     def poll_events(self) -> List[EngineEvent]:
         """Drain streaming events produced since the last poll (recorded
         only while ``stream_events`` is set)."""
@@ -876,7 +916,7 @@ class ServingEngine:
     def release(self, req_id: int) -> Optional[Request]:
         """Detach a live request without finishing it (drain / cancel):
         frees its lane/pages, host-pool KV and memory accounting."""
-        with self.step_lock:
+        with self.step_lock, CAPTURE_GATE.shared():
             req = self.sched.live.get(req_id)
             if req is None:
                 return None
@@ -888,12 +928,26 @@ class ServingEngine:
             return req
 
     def drain(self) -> List[Request]:
-        """Release every live request for re-enqueue elsewhere."""
+        """Release every live request, and every mailbox arrival not yet
+        scheduled, for re-enqueue elsewhere."""
+        with self._submit_lock:
+            box, self._submit_box = self._submit_box, []
         with self.step_lock:
-            return [self.release(rid) for rid in list(self.sched.live.keys())]
+            out = [self.release(rid) for rid in list(self.sched.live.keys())]
+        return out + [req for req, _ in box]
 
     def cancel(self, req_id: int, t: float = 0.0) -> bool:
         """Client abort: free all engine state and emit a cancel event."""
+        # parked in the submit mailbox: cancellable without the step lock
+        with self._submit_lock:
+            for i, (req, _) in enumerate(self._submit_box):
+                if req.req_id == req_id:
+                    del self._submit_box[i]
+                    req.state = RequestState.CANCELLED
+                    req.finish_time = t
+                    if self.stream_events:
+                        self._emit_event(EngineEvent("cancel", req_id, t))
+                    return True
         with self.step_lock:
             req = self.release(req_id)
             if req is None:
@@ -910,18 +964,28 @@ class ServingEngine:
             self.sched.backlog_quantiles()
 
     def queue_depth(self) -> int:
-        return len(self.sched.live)
+        return len(self.sched.live) + len(self._submit_box)
 
     def predicted_backlog(self, quantile: Optional[float] = None) -> float:
         """Predicted remaining seconds of live work (routing, admission):
         the snapshot refreshed under ``step_lock`` at the end of every
         step, submit and release, so a caller on another thread never
         races a step.  ``quantile >= 0.9`` reads the p90 remaining-length
-        surface (the conservative backlog), else the p50 one.  The port
-        has no submit mailbox, so no parked arrivals add to it."""
-        if quantile is not None and quantile >= 0.9:
-            return self._backlog_q90
-        return self._backlog_cache
+        surface (the conservative backlog), else the p50 one.  Mailbox
+        arrivals not yet scheduled add their remaining prefill estimate
+        (the chunked-prefill cost model over the prefill target, less what
+        is already materialized or hinted cached), so back-to-back
+        dispatches do not all see a stale zero."""
+        chunk = self.sched.cfg.prefill_chunk
+        with self._submit_lock:
+            pending = sum(self.latency.prefill_time_remaining(
+                              req.prefill_target,
+                              max(req.prefilled, req.cached_prefix_hint),
+                              chunk)
+                          for req, _ in self._submit_box)
+        base = (self._backlog_q90 if quantile is not None and quantile >= 0.9
+                else self._backlog_cache)
+        return base + pending
 
     def gauges(self) -> Dict[str, float]:
         """Replica-level occupancy snapshot: memory, queue and backlog,
@@ -1035,8 +1099,9 @@ class ServingEngine:
         """One scheduling + execution iteration at time ``t`` (a virtual or
         wall clock the caller owns); returns whether work ran."""
         generated_of = self._generated_of
-        with self.step_lock:
+        with self.step_lock, CAPTURE_GATE.shared():
             self._step_wall0 = time.perf_counter()
+            self._drain_submit_box()
             plan = self.sched.plan(t)
 
             for r in plan.drop:            # recompute-strategy eviction
@@ -1185,6 +1250,13 @@ class ServingEngine:
         if stall > 0:
             time.sleep(stall)              # modeled transfers, lock released
         return ran_any
+
+    def step_and_poll(self, t: float) -> Tuple[bool, List[EngineEvent]]:
+        """One iteration plus its events, as one call for an executor
+        thread (the gateway's pump dispatches them on the loop thread, in
+        order)."""
+        ran = self.step(t)
+        return ran, self.poll_events()
 
     def _accept_token(self, req: Request, tok: int, generated_of, t: float,
                       reason: str = ""):

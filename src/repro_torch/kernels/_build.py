@@ -37,6 +37,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# the launch counters' one lock: a wrapper holds it across its launch entry
+# (whose library counts its bodies in C) and its ``launches`` bump, and
+# ``kernels/counters`` holds it to read and advance them, so threads that
+# launch or replay at once lose no count
+COUNT_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:

@@ -9,7 +9,10 @@ kernels without running either, so the step-graph runner
 (:func:`snapshot`), takes back what the capture counted (a capture
 launches nothing) and adds that difference again on every replay
 (:func:`advance`).  The counts then read the same under replay as under
-eager runs.
+eager runs.  Reads and advances hold ``_build.COUNT_LOCK``, which every
+wrapper holds across its launch and its count, so threads that launch
+and replay at once (replicas under the gateway's concurrent pump) lose no
+count.
 """
 from __future__ import annotations
 
@@ -42,10 +45,13 @@ def snapshot() -> Dict[Hashable, int]:
     """Every wrapper's launches (keyed by name) and the body counters of
     every library already loaded (keyed by ``(library, body)``); a library
     not loaded yet is not loaded to read it."""
-    out: Dict[Hashable, int] = {n: f.launches for n, f in WRAPPERS.items()}
-    for lib, mod in BODIES.items():
-        if _build.loaded(lib):
-            out.update({(lib, k): n for k, n in mod.body_launches().items()})
+    with _build.COUNT_LOCK:
+        out: Dict[Hashable, int] = {n: f.launches
+                                    for n, f in WRAPPERS.items()}
+        for lib, mod in BODIES.items():
+            if _build.loaded(lib):
+                out.update({(lib, k): n
+                            for k, n in mod.body_launches().items()})
     return out
 
 
@@ -58,9 +64,10 @@ def delta(before: Dict[Hashable, int],
 
 def advance(moved: Dict[Hashable, int], times: int = 1) -> None:
     """Add ``times`` x ``moved`` (a :func:`delta`) to the counters."""
-    for key, n in moved.items():
-        if isinstance(key, tuple):
-            lib, body = key
-            BODIES[lib].REPLAYED[body] += n * times
-        else:
-            WRAPPERS[key].launches += n * times
+    with _build.COUNT_LOCK:
+        for key, n in moved.items():
+            if isinstance(key, tuple):
+                lib, body = key
+                BODIES[lib].REPLAYED[body] += n * times
+            else:
+                WRAPPERS[key].launches += n * times

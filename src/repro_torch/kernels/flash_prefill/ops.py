@@ -74,8 +74,9 @@ def body_launches():
     A replayed CUDA graph's launches are in it too (``REPLAYED``, which
     ``kernels/counters.py`` advances)."""
     got = (ctypes.c_longlong * len(BODIES))()
-    _entry("flash_prefill_body_launches", [_P])(ctypes.addressof(got))
-    return {k: n + REPLAYED[k] for k, n in zip(BODIES, got)}
+    with _build.COUNT_LOCK:
+        _entry("flash_prefill_body_launches", [_P])(ctypes.addressof(got))
+        return {k: n + REPLAYED[k] for k, n in zip(BODIES, got)}
 
 
 def _split(q, B, KVH, C, Smax):
@@ -137,14 +138,16 @@ def flash_prefill_prefix(q, k, v, start):
     scratch, nsplit = _split(q, B, KVH, C, Smax)
     part = None if scratch is None else scratch.data_ptr()
     qs, ks, vs, os_ = _strides(q), _strides(k), _strides(v), _strides(out)
-    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), start.data_ptr(),
-                out.data_ptr(), part, nsplit, ctypes.addressof(qs),
-                ctypes.addressof(ks), ctypes.addressof(vs),
-                ctypes.addressof(os_), B, H, KVH, C, Smax, d,
-                _build.dtype_code(q.dtype),
-                torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_prefill_prefix")
-    flash_prefill_prefix.launches += 1
+    fn = _fn()
+    with _build.COUNT_LOCK:
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), start.data_ptr(),
+                 out.data_ptr(), part, nsplit, ctypes.addressof(qs),
+                 ctypes.addressof(ks), ctypes.addressof(vs),
+                 ctypes.addressof(os_), B, H, KVH, C, Smax, d,
+                 _build.dtype_code(q.dtype),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, "flash_prefill_prefix")
+        flash_prefill_prefix.launches += 1
     return out
 
 
@@ -169,13 +172,15 @@ def flash_prefill(q, k, v, *, causal: bool = True):
     scratch, nsplit = _split(q, B, KVH, S, S)
     part = None if scratch is None else scratch.data_ptr()
     qs, ks, vs, os_ = _strides(q), _strides(k), _strides(v), _strides(out)
-    err = _full_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     part, nsplit, ctypes.addressof(qs), ctypes.addressof(ks),
-                     ctypes.addressof(vs), ctypes.addressof(os_), B, H, KVH,
-                     S, d, int(bool(causal)), _build.dtype_code(q.dtype),
-                     torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_prefill")
-    flash_prefill.launches += 1
+    fn = _full_fn()
+    with _build.COUNT_LOCK:
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 part, nsplit, ctypes.addressof(qs), ctypes.addressof(ks),
+                 ctypes.addressof(vs), ctypes.addressof(os_), B, H, KVH,
+                 S, d, int(bool(causal)), _build.dtype_code(q.dtype),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, "flash_prefill")
+        flash_prefill.launches += 1
     return out
 
 

@@ -50,12 +50,14 @@ def fused_rmsnorm(x, scale, eps: float = 1e-5):
         raise ValueError(f"fused_rmsnorm: scale must be a contiguous ({d},) "
                          f"tensor on {x.device}")
     out = torch.empty_like(x)
-    err = _fn()(x.data_ptr(), scale.data_ptr(), out.data_ptr(), T, d,
-                float(eps), _build.dtype_code(x.dtype),
-                _build.dtype_code(scale.dtype),
-                torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "fused_rmsnorm")
-    fused_rmsnorm.launches += 1
+    fn = _fn()
+    with _build.COUNT_LOCK:
+        err = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), T, d,
+                 float(eps), _build.dtype_code(x.dtype),
+                 _build.dtype_code(scale.dtype),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(err, "fused_rmsnorm")
+        fused_rmsnorm.launches += 1
     return out
 
 

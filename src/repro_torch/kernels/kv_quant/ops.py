@@ -49,8 +49,9 @@ def body_launches():
     A replayed CUDA graph's launches are in it too (``REPLAYED``, which
     ``kernels/counters.py`` advances)."""
     got = (ctypes.c_longlong * len(DEQUANTIZE_BODIES))()
-    _lib().kv_quant_body_launches(ctypes.addressof(got))
-    return {k: n + REPLAYED[k] for k, n in zip(DEQUANTIZE_BODIES, got)}
+    with _build.COUNT_LOCK:
+        _lib().kv_quant_body_launches(ctypes.addressof(got))
+        return {k: n + REPLAYED[k] for k, n in zip(DEQUANTIZE_BODIES, got)}
 
 
 def kv_quantize(x):
@@ -66,11 +67,13 @@ def kv_quantize(x):
     q = torch.empty((T, d), dtype=torch.int8, device=x.device)
     lam = torch.empty((T, 1), dtype=torch.float32, device=x.device)
     z = torch.empty((T, 1), dtype=torch.float32, device=x.device)
-    err = _lib().kv_quantize_launch(
-        x.data_ptr(), q.data_ptr(), lam.data_ptr(), z.data_ptr(), T, d,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "kv_quantize")
-    kv_quantize.launches += 1
+    fn = _lib().kv_quantize_launch
+    with _build.COUNT_LOCK:
+        err = fn(
+            x.data_ptr(), q.data_ptr(), lam.data_ptr(), z.data_ptr(), T, d,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(err, "kv_quantize")
+        kv_quantize.launches += 1
     return q, lam, z
 
 
@@ -91,11 +94,13 @@ def kv_dequantize(q, lam, z, dtype=torch.float32):
                              f"float32 (T, 1) on {q.device}")
     code = _build.dtype_code(dtype)
     x = torch.empty((T, d), dtype=dtype, device=q.device)
-    err = _lib().kv_dequantize_launch(
-        q.data_ptr(), lam.data_ptr(), z.data_ptr(), x.data_ptr(), T, d,
-        code, torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "kv_dequantize")
-    kv_dequantize.launches += 1
+    fn = _lib().kv_dequantize_launch
+    with _build.COUNT_LOCK:
+        err = fn(
+            q.data_ptr(), lam.data_ptr(), z.data_ptr(), x.data_ptr(), T, d,
+            code, torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, "kv_dequantize")
+        kv_dequantize.launches += 1
     return x
 
 
@@ -155,16 +160,18 @@ def paged_attention_q8(q, kq, k_lam, k_z, vq, v_lam, v_z, block_tables,
                          "16-byte boundary")
     out = torch.empty_like(q)
     scratch, nsplit = split(q, B, KVH, d, page, max_pages)
-    err = _q8_fn()(q.data_ptr(), kq.data_ptr(), k_lam.data_ptr(),
-                   k_z.data_ptr(), vq.data_ptr(), v_lam.data_ptr(),
-                   v_z.data_ptr(), block_tables.data_ptr(),
-                   lengths.data_ptr(), out.data_ptr(),
-                   None if scratch is None else scratch.data_ptr(), nsplit,
-                   B, H, KVH, d, page,
-                   num_pages, max_pages, _build.dtype_code(q.dtype),
-                   torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "paged_attention_q8")
-    paged_attention_q8.launches += 1
+    fn = _q8_fn()
+    with _build.COUNT_LOCK:
+        err = fn(q.data_ptr(), kq.data_ptr(), k_lam.data_ptr(),
+                 k_z.data_ptr(), vq.data_ptr(), v_lam.data_ptr(),
+                 v_z.data_ptr(), block_tables.data_ptr(),
+                 lengths.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), nsplit,
+                 B, H, KVH, d, page,
+                 num_pages, max_pages, _build.dtype_code(q.dtype),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, "paged_attention_q8")
+        paged_attention_q8.launches += 1
     return out
 
 

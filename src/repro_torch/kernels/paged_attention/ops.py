@@ -42,8 +42,9 @@ def body_launches():
     got = (ctypes.c_longlong * 2)()
     f = _build.load("paged_attention").paged_attention_body_launches
     f.argtypes, f.restype = [_P], _I
-    f(ctypes.addressof(got))
-    return {k: n + REPLAYED[k] for k, n in zip(BODIES, got)}
+    with _build.COUNT_LOCK:
+        f(ctypes.addressof(got))
+        return {k: n + REPLAYED[k] for k, n in zip(BODIES, got)}
 
 
 def split(q, B, KVH, d, page, max_pages):
@@ -99,14 +100,16 @@ def paged_attention(q, k_cache, v_cache, block_tables, lengths):
                          "16-byte boundary")
     out = torch.empty_like(q)
     scratch, nsplit = split(q, B, KVH, d, page, max_pages)
-    err = _fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), nsplit,
-                B, H, KVH, d, page, num_pages, max_pages,
-                _build.dtype_code(q.dtype), _build.dtype_code(k_cache.dtype),
-                torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "paged_attention")
-    paged_attention.launches += 1
+    fn = _fn()
+    with _build.COUNT_LOCK:
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), nsplit,
+                 B, H, KVH, d, page, num_pages, max_pages,
+                 _build.dtype_code(q.dtype), _build.dtype_code(k_cache.dtype),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, "paged_attention")
+        paged_attention.launches += 1
     return out
 
 

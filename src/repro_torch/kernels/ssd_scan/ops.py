@@ -58,8 +58,9 @@ def body_launches():
     A replayed CUDA graph's launches are in it too (``REPLAYED``, which
     ``kernels/counters.py`` advances)."""
     got = (ctypes.c_longlong * len(plan.BODIES))()
-    _entry("ssd_chunk_body_launches", [_P])(ctypes.addressof(got))
-    return {k: n + REPLAYED[k] for k, n in zip(plan.BODIES, got)}
+    with _build.COUNT_LOCK:
+        _entry("ssd_chunk_body_launches", [_P])(ctypes.addressof(got))
+        return {k: n + REPLAYED[k] for k, n in zip(plan.BODIES, got)}
 
 
 def ssd_chunk(xbar, dA, Bc, Cc):
@@ -98,13 +99,15 @@ def ssd_chunk(xbar, dA, Bc, Cc):
                             device=dev)
         groups = plan.heads_per_block(B * C, Q, H)
         heads = (ctypes.c_int * len(groups))(*groups)
-    err = _fn()(xbar.data_ptr(), dA.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
-                y.data_ptr(), st.data_ptr(), dk.data_ptr(),
-                None if score is None else score.data_ptr(),
-                None if heads is None else ctypes.addressof(heads), B * C, Q,
-                H, P, N, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "ssd_chunk")
-    ssd_chunk.launches += 1
+    fn = _fn()
+    with _build.COUNT_LOCK:
+        err = fn(xbar.data_ptr(), dA.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+                 y.data_ptr(), st.data_ptr(), dk.data_ptr(),
+                 None if score is None else score.data_ptr(),
+                 None if heads is None else ctypes.addressof(heads), B * C, Q,
+                 H, P, N, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "ssd_chunk")
+        ssd_chunk.launches += 1
     return y, st, dk
 
 

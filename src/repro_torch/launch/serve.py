@@ -1,5 +1,5 @@
 """Serving launcher of the PyTorch port: end-to-end ALISE serving of a real
-model (batch mode).
+model, in batch mode or through the online gateway.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch-size full \
         --kv-backend paged --n-requests 16 --prefill-chunk 256
@@ -42,10 +42,28 @@ equal-bucket chunks of up to ``--prefill-pack-width`` requests as one
 call (over the pow2 bucket menu of ``--prefill-chunk`` unless
 ``--prefill-buckets`` names one); ``--prefix-cache`` shares the K/V of
 repeated prompt prefixes across requests.
+
+Gateway mode (``--gateway``) replays a Poisson trace (``--dataset``,
+``--rate``, ``--n-requests``) through SLO-class admission, routing over
+``--n-engines`` replicas and streaming delivery (``serving/gateway``), on
+a virtual clock, or in wall clock with ``--wall`` (``--pump concurrent``:
+one step thread per replica; ``lockstep``: one barrier loop):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --gateway \
+        --arch-size full --kv-backend paged --prefill-chunk 256 \
+        --max-slots 8 --n-engines 2 --dataset sharegpt --rate 6 \
+        --n-requests 24 --wall --warmup
+
+Replicas on one device share one copy of the weights; ``--devices``
+places them round-robin over devices (``distributed/placement``), and
+``--kv-tier`` joins them to one shared host-RAM prefix tier
+(``serving/kv_tier``; ``--tier-bytes``, ``--tier-quantize``).
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
+import copy
 from typing import Optional
 
 import numpy as np
@@ -54,14 +72,24 @@ import torch
 from repro_torch.configs import ASSIGNED_ARCHS, get_config, get_smoke_config
 from repro_torch.core.engine import EngineConfig, ServingEngine
 from repro_torch.core.predictor import OraclePredictor, RetrievalPredictor
-from repro_torch.core.request import Request, reset_request_counter
+from repro_torch.core.request import Request, SLOClass, reset_request_counter
+from repro_torch.core.trace import (TraceConfig, clamp_requests,
+                                    generate_trace)
+from repro_torch.distributed.placement import (assign_devices, device_label,
+                                               device_scope, place_params)
 from repro_torch.models.model import Model
+from repro_torch.serving.gateway import (AdmissionConfig, Gateway,
+                                         GatewayConfig)
+from repro_torch.serving.kv_tier import HostKVTier
 from repro_torch.serving.prediction import OnlineQuantilePredictor
 from repro_torch.utils import resolve_device
 
 # per arch size: (max_seq_len, max_new_tokens); the smoke size is the JAX
 # launcher's
 SIZES = {"smoke": (96, 48), "full": (2048, 64)}
+# gateway mode's prompt clamp per arch size (the smoke one is the JAX
+# launcher's; the full one is build_requests' longest prompt)
+GATEWAY_MAX_PROMPT = {"smoke": 24, "full": 1536}
 
 
 def _mk_predictor(kind: str, seed: int = 0):
@@ -243,6 +271,141 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
     return reqs, eng
 
 
+def serve_gateway(arch: str = "granite-3-8b", strategy: str = "alise",
+                  dataset: str = "alpaca", rate: float = 8.0,
+                  n_requests: int = 32, n_engines: int = 2,
+                  max_slots: int = 4, router: str = "ewt",
+                  interactive_frac: float = 0.25, seed: int = 0,
+                  predictor_kind: str = "oracle",
+                  virtual_dt: Optional[float] = 0.05,
+                  pump: str = "concurrent",
+                  ttft_target_interactive: Optional[float] = None,
+                  ttft_target_batch: Optional[float] = None,
+                  ttft_miss_policy: str = "shed",
+                  ttft_quantile: float = 0.5,
+                  kv_backend: str = "dense",
+                  prefill_chunk: Optional[int] = None,
+                  iter_token_budget: Optional[int] = None,
+                  prefix_cache: bool = False,
+                  trace_out: Optional[str] = None,
+                  metrics_interval: Optional[float] = None,
+                  prefill_buckets=None, prefill_pack: bool = False,
+                  prefill_pack_width: int = 4,
+                  warmup: bool = False, chunk_attn: Optional[str] = None,
+                  spec_decode: bool = False, spec_k: int = 3,
+                  kv_tier: bool = False, tier_bytes: float = 256e6,
+                  tier_quantize: bool = False,
+                  devices: Optional[str] = None,
+                  arch_size: str = "smoke", device=None,
+                  model_and_params=None, requests=None,
+                  paged_attn_impl: Optional[str] = None,
+                  trace: Optional[bool] = None, on_ready=None):
+    """Replay a synthetic Poisson trace (or ``requests``) through the
+    online Gateway and print per-class TTFT/E2E percentiles (and SLO
+    attainment when targets are set).  ``virtual_dt=None`` serves in wall
+    clock; ``pump`` selects the concurrent per-engine pump or the lockstep
+    barrier there.
+
+    The trace's prompts are clamped to ``GATEWAY_MAX_PROMPT[arch_size]``
+    tokens and its outputs to the size's ``max_new_tokens`` (``SIZES``),
+    inside the model's vocabulary.  ``devices`` places each replica on its
+    own device (round-robin, ``distributed/placement``); without it every
+    replica runs on ``device`` and they share one copy of the weights.
+    ``kv_tier`` joins every replica to one shared host-RAM prefix tier
+    (``serving/kv_tier``).  The engines swap raw (``quantize_offload``
+    off), as the reference launcher's do.  ``trace`` attaches the
+    observability bus without writing a file (default: when
+    ``trace_out`` is set).  ``on_ready`` is called with the gateway once
+    the replicas are built (and warmed) and before the replay starts.
+    Returns ``(streams, gateway)``."""
+    dev = resolve_device(device)
+    model, params = model_and_params or build_model(
+        arch, arch_size, dev, chunk_attn, seed)
+    impl = paged_attn_impl or ("kernel" if dev.type == "cuda" else "gather")
+    max_seq, max_new = SIZES[arch_size]
+
+    dev_list = (assign_devices(n_engines, devices) if devices is not None
+                else [None] * n_engines)
+    tier = None
+    if kv_tier:
+        tier = HostKVTier(tier_bytes, EngineConfig().page_size,
+                          quantize=tier_quantize)
+
+    def mk_engine(d):
+        m = model
+        if d is not None and device_label(d) != device_label(model.device):
+            m = copy.copy(model)        # the same model, on another device
+            m.device = d
+        with device_scope(d):
+            eng = ServingEngine(m, place_params(params, d), EngineConfig(
+                max_slots=max_slots, max_seq_len=max_seq,
+                max_new_tokens=max_new, strategy=strategy,
+                quantize_offload=False, kv_backend=kv_backend,
+                paged_attn_impl=impl,
+                prefill_chunk=prefill_chunk,
+                iter_token_budget=iter_token_budget,
+                prefix_cache=prefix_cache, prefill_buckets=prefill_buckets,
+                prefill_pack=prefill_pack,
+                prefill_pack_width=prefill_pack_width,
+                spec_decode=spec_decode, spec_k=spec_k,
+                device=device_label(d) if d is not None else None,
+                warmup_compile=warmup, seed=seed),
+                predictor=_mk_predictor(predictor_kind, seed))
+        if tier is not None:
+            eng.attach_tier(tier)
+        return eng
+
+    if requests is None:
+        reset_request_counter()
+        trace_reqs = generate_trace(TraceConfig(
+            dataset=dataset, rate=rate, duration=1e9,
+            max_requests=n_requests, seed=seed)).requests
+        requests = clamp_requests(trace_reqs, vocab=model.cfg.vocab_size,
+                                  max_prompt=GATEWAY_MAX_PROMPT[arch_size],
+                                  max_new=max_new)
+        rng = np.random.default_rng(seed)
+        for r in requests:
+            if rng.random() < interactive_frac:
+                r.slo_class = SLOClass.INTERACTIVE
+
+    gw = Gateway([mk_engine(d) for d in dev_list],
+                 GatewayConfig(virtual_dt=virtual_dt, router_policy=router,
+                               concurrent_pump=(pump == "concurrent"),
+                               trace=(bool(trace_out) if trace is None
+                                      else trace),
+                               metrics_interval_s=metrics_interval,
+                               heartbeat=metrics_interval is not None),
+                 admission=AdmissionConfig(
+                     max_queue_depth=max(8 * n_engines * max_slots, 32),
+                     defer_high_watermark=4 * n_engines * max_slots,
+                     ttft_target_interactive=ttft_target_interactive,
+                     ttft_target_batch=ttft_target_batch,
+                     ttft_miss_policy=ttft_miss_policy,
+                     ttft_quantile=ttft_quantile))
+    if on_ready is not None:
+        on_ready(gw)
+    streams = asyncio.run(gw.replay(requests))
+    done = sum(1 for s in streams if s.finished)
+    clock = "virtual" if virtual_dt is not None else f"wall/{pump}"
+    placement = (" [" + ", ".join(device_label(d) for d in dev_list)
+                 + "]") if devices is not None else ""
+    print(f"[gateway] {strategy}/{router} x{n_engines} engines{placement} "
+          f"on {dev} ({model.cfg.name} {arch_size}, {kv_backend}) "
+          f"({clock}), {dataset}@{rate}/s: {done}/{len(requests)} streams "
+          "finished")
+    print(gw.metrics.format())
+    if tier is not None:
+        st = tier.stats
+        print(f"[kv-tier] {tier.bytes / 1e6:.1f}/"
+              f"{tier.capacity_bytes / 1e6:.1f} MB, {st.published_pages} "
+              f"pages published, {st.imports} imports "
+              f"({st.imported_pages} pages, {st.hit_bytes / 1e6:.1f} MB), "
+              f"{st.evicted_pages} evicted")
+    if trace_out:
+        _export_trace(gw.bus, gw.quality(), trace_out)
+    return streams, gw
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-8b", choices=ASSIGNED_ARCHS)
@@ -326,6 +489,60 @@ def main():
                          "Perfetto trace JSON to PATH after serving (plus "
                          "PATH.prom gauge dump and scheduler-quality "
                          "highlights)")
+    ap.add_argument("--kv-tier", action="store_true",
+                    help="gateway mode: join every replica to one shared "
+                         "host-RAM prefix pool: re-routed sessions import "
+                         "a peer's prefix pages at transfer cost instead "
+                         "of prefilling them again (implies "
+                         "--prefix-cache)")
+    ap.add_argument("--tier-bytes", type=float, default=256e6,
+                    help="shared tier payload capacity in bytes "
+                         "(default 256e6; LRU-evicts unpinned pages)")
+    ap.add_argument("--tier-quantize", action="store_true",
+                    help="store tier payloads INT8 through the kv_quant "
+                         "kernels (about 2x the prefixes per byte; lossy: "
+                         "greedy tier-on/off bit identity no longer "
+                         "holds)")
+    ap.add_argument("--devices", default=None, metavar="SPEC",
+                    help="gateway mode: place each replica on its own "
+                         "device, round-robin over SPEC: 'auto' (every "
+                         "CUDA device), a type ('cuda', 'cpu') or a list "
+                         "('cuda:0,cuda:1' or '0,1')")
+    ap.add_argument("--gateway", action="store_true",
+                    help="online mode: replay a Poisson trace through the "
+                         "streaming gateway instead of a pre-built batch")
+    ap.add_argument("--dataset", default="alpaca",
+                    choices=["alpaca", "sharegpt"])
+    ap.add_argument("--rate", type=float, default=8.0)
+    ap.add_argument("--n-engines", type=int, default=2)
+    ap.add_argument("--router", default="ewt",
+                    choices=["ewt", "join_shortest_queue", "round_robin",
+                             "prefix_ewt"])
+    ap.add_argument("--interactive-frac", type=float, default=0.25)
+    ap.add_argument("--wall", action="store_true",
+                    help="gateway mode: serve in wall clock (default is "
+                         "deterministic virtual-clock replay)")
+    ap.add_argument("--pump", default="concurrent",
+                    choices=["concurrent", "lockstep"],
+                    help="wall-clock pump: one step thread per replica or "
+                         "the lockstep barrier")
+    ap.add_argument("--ttft-target-interactive", type=float, default=None,
+                    help="TTFT SLO target (s) for interactive traffic; "
+                         "enables TTFT-attainment admission")
+    ap.add_argument("--ttft-target-batch", type=float, default=None)
+    ap.add_argument("--ttft-miss-policy", default="shed",
+                    choices=["shed", "defer", "observe"])
+    ap.add_argument("--ttft-quantile", type=float, default=0.5,
+                    help="backlog quantile the TTFT admission gate prices: "
+                         "0.5 = the routing/EWT p50 surface (default); "
+                         "0.9 = the calibrated-P90 remaining-length "
+                         "surface (needs --predictor online to differ "
+                         "from 0.5)")
+    ap.add_argument("--metrics-interval", type=float, default=None,
+                    metavar="SECONDS",
+                    help="gateway mode: print a one-line metrics "
+                         "heartbeat every SECONDS (gauges are sampled "
+                         "at the same cadence when tracing)")
     args = ap.parse_args()
     buckets = None
     if args.prefill_buckets:
@@ -334,6 +551,46 @@ def main():
     budget = args.iter_token_budget
     if budget is not None and budget != "auto":
         budget = int(budget)
+    if args.gateway and budget == "auto":
+        print("[serve] --iter-token-budget auto is batch-mode only "
+              "(per-replica profiling); gateway runs unbounded")
+    if args.kv_tier and not args.prefix_cache:
+        args.prefix_cache = True       # the tier extends the prefix cache
+    if (args.kv_tier or args.devices) and not args.gateway:
+        print("[serve] --kv-tier/--devices are gateway-mode only "
+              "(batch mode runs a single replica); ignoring")
+    if args.gateway:
+        serve_gateway(args.arch, args.strategy, args.dataset, args.rate,
+                      args.n_requests, args.n_engines, args.max_slots,
+                      router=args.router,
+                      interactive_frac=args.interactive_frac,
+                      seed=args.seed, predictor_kind=args.predictor,
+                      virtual_dt=None if args.wall else 0.05,
+                      pump=args.pump,
+                      ttft_target_interactive=args.ttft_target_interactive,
+                      ttft_target_batch=args.ttft_target_batch,
+                      ttft_miss_policy=args.ttft_miss_policy,
+                      ttft_quantile=args.ttft_quantile,
+                      kv_backend=args.kv_backend,
+                      prefill_chunk=args.prefill_chunk,
+                      iter_token_budget=(None if budget == "auto"
+                                         else budget),
+                      prefix_cache=args.prefix_cache,
+                      prefill_buckets=buckets,
+                      prefill_pack=args.prefill_pack,
+                      prefill_pack_width=args.prefill_pack_width,
+                      warmup=args.warmup, chunk_attn=args.chunk_attn,
+                      spec_decode=args.spec_decode, spec_k=args.spec_k,
+                      kv_tier=args.kv_tier, tier_bytes=args.tier_bytes,
+                      tier_quantize=args.tier_quantize,
+                      devices=args.devices, trace_out=args.trace_out,
+                      metrics_interval=args.metrics_interval,
+                      arch_size=args.arch_size, device=args.device,
+                      paged_attn_impl=args.paged_attn_impl)
+        return
+    if args.metrics_interval is not None:
+        print("[serve] --metrics-interval is gateway-mode only "
+              "(batch serving prints a final summary)")
     serve(args.arch, args.arch_size, args.strategy, args.n_requests,
           args.max_slots, seed=args.seed, predictor_kind=args.predictor,
           quantize=not args.no_quantize, prefill_chunk=args.prefill_chunk,

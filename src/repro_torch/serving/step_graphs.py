@@ -29,9 +29,23 @@ same step functions run eagerly on the same staged input.  Every first use
 of a key is reported to ``utils/compile_counter`` (``capture:<key>`` when
 captured, else ``first-use:<key>``), so the compile gate means the same on
 every device.
+
+Replicas that serve from several threads at once (the gateway's
+concurrent pump) share one process, one device and the launch counters.
+A capture is therefore run alone: every engine step holds
+:data:`CAPTURE_GATE` shared, and a capture holds it exclusively, so no
+other thread launches work, allocates or synchronizes while a graph is
+captured, the pool reading sees only the capture's memory, and the
+counters that move during the capture are the capture's own.  Steps of
+different replicas run side by side whenever no capture is open.  The
+cyclic garbage collector is held off during a capture: it would destroy
+an unreachable engine's graphs inside it.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import numpy as np
@@ -58,6 +72,76 @@ def unpack(buf: torch.Tensor, *shapes) -> Tuple[torch.Tensor, ...]:
     return tuple(out)
 
 
+class CaptureGate:
+    """A readers-writer gate: engine steps hold it shared (re-entrantly,
+    per thread), a graph capture holds it alone.  A thread that holds it
+    shared and opens a capture gives its hold up while it waits and takes
+    it back afterwards, so two replicas that capture at once take turns.
+    Waiting captures go before new steps."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = 0
+        self._writer: Optional[int] = None
+        self._waiting = 0                  # captures waiting for the gate
+        self._local = threading.local()
+
+    def _depth(self) -> int:
+        return getattr(self._local, "depth", 0)
+
+    @contextlib.contextmanager
+    def shared(self):
+        depth = self._depth()
+        if depth == 0 and self._writer != threading.get_ident():
+            with self._cond:
+                while self._writer is not None or self._waiting:
+                    self._cond.wait()
+                self._readers += 1
+            held = True
+        else:
+            held = False
+        self._local.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._local.depth = depth
+            if held:
+                with self._cond:
+                    self._readers -= 1
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        me = threading.get_ident()
+        if self._writer == me:             # nested: already alone
+            yield
+            return
+        reading = self._depth() > 0 and self._writer is None
+        with self._cond:
+            if reading:
+                self._readers -= 1
+                self._cond.notify_all()
+            self._waiting += 1
+            while self._writer is not None or self._readers:
+                self._cond.wait()
+            self._waiting -= 1
+            self._writer = me
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._writer = None
+                self._cond.notify_all()
+                if reading:
+                    while self._writer is not None:
+                        self._cond.wait()
+                    self._readers += 1
+
+
+# the process's one gate: every engine's steps and captures go through it
+CAPTURE_GATE = CaptureGate()
+
+
 class _Entry:
     """One key: its staging buffer, its device input, its graph."""
 
@@ -69,6 +153,7 @@ class _Entry:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out = None
         self.moved: Dict[Hashable, int] = {}   # counters per replay
+        self.replays = 0
 
 
 class StepGraphs:
@@ -103,15 +188,23 @@ class StepGraphs:
         if e is None:
             e = self._entries[key] = _Entry(staged.size, self.device)
             if self.capture:
-                self._capture(e, step, neutral())
+                with CAPTURE_GATE.exclusive():
+                    self._capture(e, step, neutral())
             note(f"{'capture' if self.capture else 'first-use'}:{key}")
         self._stage(e, staged)
         if e.graph is None:
             return step(e.static)
         e.graph.replay()
         counters.advance(e.moved)
+        e.replays += 1
         self.replays[key[0]] += 1
         return e.out
+
+    def replayed(self) -> Dict[tuple, Tuple[int, Dict[Hashable, int]]]:
+        """Per captured key: its replays so far and the counters one
+        replay advances (what its capture launched)."""
+        return {k: (e.replays, dict(e.moved))
+                for k, e in self._entries.items() if e.graph is not None}
 
     def _stage(self, e: _Entry, staged: np.ndarray) -> None:
         """One copy of ``staged`` into the key's device input; waits first
@@ -142,8 +235,18 @@ class StepGraphs:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, stream=side):
-            out = step(e.static)
+        # no collection inside the capture: a dead engine's graphs (a cycle
+        # the collector frees) destroyed mid-capture would invalidate it,
+        # as CUDA forbids that call while a stream captures; the collector
+        # frees them after the capture instead
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=side):
+                out = step(e.static)
+        finally:
+            if collecting:
+                gc.enable()
         self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
         e.moved = counters.delta(before, counters.snapshot())
         counters.advance(e.moved, -1)       # the capture launched nothing

@@ -1462,3 +1462,141 @@ def test_place_params_on_the_card_keeps_the_storages(dev):
     assert device_label(torch.device("cuda")) == "cuda:0"
     assert available_devices("auto")[0] == dev
     assert available_devices("cuda:0") == [dev]
+
+
+# ------------------------------------------- the gateway's concurrent pump
+
+def _gateway_engine(model, params, warm):
+    from repro_torch.core.engine import EngineConfig, ServingEngine
+    from repro_torch.core.predictor import OraclePredictor
+    return ServingEngine(model, params, EngineConfig(
+        max_slots=2, max_seq_len=64, max_new_tokens=16, strategy="alise",
+        quantize_offload=False, kv_backend="paged", page_size=16,
+        paged_attn_impl="kernel", prefill_chunk=16, warmup_compile=warm),
+        predictor=OraclePredictor())
+
+
+def _gateway_trace(cfg):
+    """12 Poisson arrivals (alpaca, 40/s), prompts of at most 30 tokens,
+    outputs of 3 or 16."""
+    from repro_torch.core.request import SLOClass, reset_request_counter
+    from repro_torch.core.trace import (TraceConfig, clamp_requests,
+                                        generate_trace)
+    reset_request_counter()
+    trace = generate_trace(TraceConfig(dataset="alpaca", rate=40.0,
+                                       duration=1e9, max_requests=12,
+                                       seed=0))
+    reqs = clamp_requests(trace.requests, vocab=cfg.vocab_size,
+                          max_prompt=30, max_new=16)
+    for i, r in enumerate(reqs):
+        r.slo_class = SLOClass.INTERACTIVE if i % 4 == 0 else SLOClass.BATCH
+        r.true_out_len = 3 if i % 4 == 0 else 16
+    return reqs
+
+
+def _serve_concurrent(engines, reqs):
+    """A wall-clock replay under the concurrent pump; returns the streams
+    and the counters' movement over it."""
+    import asyncio
+
+    from repro_torch.kernels import counters
+    from repro_torch.serving.gateway import Gateway, GatewayConfig
+    gw = Gateway(engines, GatewayConfig(virtual_dt=None, max_wall_s=300.0,
+                                        concurrent_pump=True))
+    torch.cuda.synchronize()
+    before = counters.snapshot()
+    streams = asyncio.run(gw.replay(reqs))
+    torch.cuda.synchronize()
+    assert all(s.events_log[-1].kind == "finish" for s in streams)
+    assert all(s.token_values == list(s.request.output_tokens)
+               for s in streams)
+    assert not gw._pump_tasks and not gw._executors
+    return streams, counters.delta(before, counters.snapshot())
+
+
+def _batch_serve(eng, reqs):
+    from repro_torch.core.request import Request
+    copies = [Request(prompt_len=r.prompt_len, arrival_time=0.0,
+                      true_out_len=r.true_out_len,
+                      prompt_tokens=list(r.prompt_tokens)) for r in reqs]
+    eng.serve(copies)
+    return [list(r.output_tokens) for r in copies]
+
+
+def test_gateway_concurrent_pump_streams_the_batch_tokens(dev):
+    """Two warmed smoke-size replicas on the card under the concurrent
+    pump (one step thread each) stream the batch serve's tokens bit for
+    bit, capture and load nothing while serving, and every launch the
+    serve counted is one of their graphs' replays."""
+    from repro_torch.utils.compile_counter import CompileCounter
+    model, params = _graph_model(dev, "dense")
+    a, b = (_gateway_engine(model, params, True) for _ in range(2))
+    before = {e: e.kv.graphs.replayed() for e in (a, b)}
+    reqs = _gateway_trace(model.cfg)
+    counter = CompileCounter()
+    with counter.expect_no_compiles("gateway serve"):
+        streams, moved = _serve_concurrent([a, b], reqs)
+    counter.detach()
+    assert all(e.sched.finished for e in (a, b))
+    want = {}
+    for e in (a, b):
+        for key, (n, per) in e.kv.graphs.replayed().items():
+            for c, k in per.items():
+                want[c] = want.get(c, 0) + (n - before[e][key][0]) * k
+    assert moved == {c: n for c, n in want.items() if n}
+    assert moved["paged_attention"] > 0 and moved["fused_rmsnorm"] > 0
+    assert [s.token_values for s in streams] == _batch_serve(a, reqs)
+
+
+def test_gateway_unwarmed_replica_captures_beside_a_warmed_one(dev):
+    """An unwarmed replica captures its step graphs at first use in its
+    pump thread while a warmed replica serves in the other: the captures
+    succeed, the served tokens equal the batch serve's, each key's
+    per-replay launches equal the warmed replica's for the same key, and
+    the counters moved by exactly the replays plus the two eager runs
+    before each capture."""
+    model, params = _graph_model(dev, "dense")
+    warm = _gateway_engine(model, params, True)
+    cold = _gateway_engine(model, params, False)
+    assert len(cold.kv.graphs) == 0
+    before = warm.kv.graphs.replayed()
+    reqs = _gateway_trace(model.cfg)
+    streams, moved = _serve_concurrent([warm, cold], reqs)
+    assert cold.kv.graphs.captures > 0 and cold.sched.finished
+    got = cold.kv.graphs.replayed()
+    ref = warm.kv.graphs.replayed()
+    for key, (_, per) in got.items():
+        if key in ref:
+            assert per == ref[key][1], key
+    want = {}
+    for key, (n, per) in ref.items():
+        for c, k in per.items():
+            want[c] = want.get(c, 0) + (n - before[key][0]) * k
+    for key, (n, per) in got.items():
+        for c, k in per.items():
+            want[c] = want.get(c, 0) + (n + 2) * k
+    assert moved == {c: n for c, n in want.items() if n}
+    assert [s.token_values for s in streams] == _batch_serve(warm, reqs)
+
+
+def test_no_collection_inside_a_capture(dev):
+    """The cyclic collector is off while a step is captured (it would
+    destroy an unreachable engine's graphs mid-capture, which invalidates
+    the capture) and on again after it, around the two eager runs."""
+    import gc
+
+    from repro_torch.serving.step_graphs import StepGraphs
+    graphs = StepGraphs(dev)
+    seen = []
+
+    def step(x):
+        seen.append(gc.isenabled())
+        return x * 2
+
+    staged = np.arange(4, dtype=np.int32)
+    out = graphs.run(("decode",), staged, step,
+                     lambda: np.zeros(4, np.int32))
+    torch.cuda.synchronize()
+    assert seen == [True, True, False]
+    assert gc.isenabled() and graphs.captures == 1
+    assert out.cpu().tolist() == [0, 2, 4, 6]

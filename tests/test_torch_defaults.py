@@ -101,3 +101,46 @@ def test_serve_launcher_spec_defaults_match_the_reference(monkeypatch):
         assert (inspect.signature(port_serve.serve).parameters[name].default
                 == inspect.signature(ref_serve.serve).parameters[name]
                 .default), name
+
+
+def test_gateway_config_defaults_match_the_reference():
+    """``GatewayConfig`` and ``AdmissionConfig`` of the port's gateway have
+    the reference's fields with the reference's defaults."""
+    from repro.serving import gateway as ref_gw
+    from repro_torch.serving import gateway as port_gw
+    for name in ("GatewayConfig", "AdmissionConfig"):
+        port = _defaults(getattr(port_gw, name))
+        ref = _defaults(getattr(ref_gw, name))
+        assert list(port) == list(ref), name
+        assert {k: (v.value if hasattr(v, "value") else v)
+                for k, v in port.items()} == {
+            k: (v.value if hasattr(v, "value") else v)
+            for k, v in ref.items()}, name
+    assert port_gw.GatewayConfig().concurrent_pump is True
+    assert port_gw.__all__ == ref_gw.__all__
+
+
+_GATEWAY_FLAGS = ("gateway", "dataset", "rate", "n_engines", "router",
+                  "interactive_frac", "wall", "pump",
+                  "ttft_target_interactive", "ttft_target_batch",
+                  "ttft_miss_policy", "ttft_quantile", "metrics_interval",
+                  "kv_tier", "tier_bytes", "tier_quantize", "devices")
+
+
+def test_serve_launcher_gateway_flags_match_the_reference(monkeypatch):
+    """The gateway mode's flags parse from an empty command line to the
+    reference launcher's values, and ``serve_gateway`` takes the
+    reference's keyword defaults for every parameter they share, apart
+    from ``chunk_attn``, whose default is the device's (``flash`` on a
+    GPU, as in the port's batch mode)."""
+    import inspect
+    port = _parsed_defaults(port_serve.main, monkeypatch)
+    ref = _parsed_defaults(ref_serve.main, monkeypatch)
+    for name in _GATEWAY_FLAGS:
+        assert getattr(port, name) == getattr(ref, name), name
+    pp = inspect.signature(port_serve.serve_gateway).parameters
+    rp = inspect.signature(ref_serve.serve_gateway).parameters
+    assert set(rp) <= set(pp), sorted(set(rp) - set(pp))
+    differ = {n: (pp[n].default, rp[n].default) for n in rp
+              if pp[n].default != rp[n].default}
+    assert differ == {"chunk_attn": (None, "masked")}, differ

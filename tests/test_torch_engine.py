@@ -312,10 +312,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     sampler, kv_cache, the online length predictor, the prefix cache, the
     step graphs, the draft sources, the observability bus and its
     exporters, the compile counter, training modules, gradient
-    compression, both launchers, replica placement, the KV tier and the
-    analytic models (and run the simulator with its tier path, whose
-    imports are lazy), then check that no ``jax*`` or ``repro.*`` module
-    was loaded."""
+    compression, both launchers, replica placement, the KV tier, the
+    online gateway and the analytic models (and run the simulator with its
+    tier path, whose imports are lazy), then check that no ``jax*`` or
+    ``repro.*`` module was loaded."""
     code = (
         "import sys\n"
         "import repro_torch\n"
@@ -341,6 +341,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.core.trace, repro_torch.core.simulator\n"
         "import repro_torch.core.cluster, repro_torch.core.quantization\n"
         "import repro_torch.serving.kv_tier\n"
+        "import repro_torch.serving.gateway\n"
+        "import repro_torch.serving.gateway.server\n"
         "import repro_torch.configs.paper_models\n"
         "from repro_torch.core.simulator import run_sim\n"
         "run_sim(duration=2.0, rate=2.0, prefix_cache=True, kv_tier=True,\n"
