@@ -227,8 +227,36 @@ the final line:
      (``ServingEngine.serve``): (a)'s streams equal them bit for bit; (c)
      the lockstep pump over A and B on fresh copies: tokens equal (b), its
      tokens/s and TTFT beside (a)'s (printed, not gated).
+ 24. granite-moe-3b-a800m at full width and depth (32 layers, 40 experts
+     of 1536 x 512 top 8, capacity factor 1.25; random bf16 weights from
+     a seed, the router f32), after the granite model is freed: (a) one
+     MoE layer in f32 on the card against the CPU over 64 tokens (the
+     router's top-9 margin above four times the logits' card-vs-CPU
+     difference, then equal expert choices and kept masks, outputs within
+     1e-5 of their scale); (b) the kernel path against the plain path on
+     phase 4's kind of request in f32 (relative L2 < 1e-3, equal greedy
+     tokens) and in bf16 (printed), each with the count of routing
+     decisions that differ, and beside bf16 two witnesses: bf16 plain
+     against f32 plain (printed) and the bf16 kernel path on the plain
+     path's routing (relative L2 < 0.05); (c) phase 5's 12 requests on a
+     warmed paged
+     engine of phase 5's configuration with graphs; (d) phase 6's 2-lane
+     INT8 swap trace; (e) 8 requests through ``serve(...)`` on the dense
+     backend, warmed; then (c) again with eager steps, whose tokens must
+     equal (c)'s bit for bit, and (f) a profile of the graphed engine
+     decode step (B 8) with the MoE block's device time at the decode
+     shape split into routing/dispatch and expert products.  (c) and (d)
+     run on a virtual clock (0.1 s a step; the eager engine gets the
+     graphed one's measured chunk costs): an MoE token depends on which
+     requests share its step, so the two serves compare on one schedule.
+     Each serve gates that all finish, no capture or library load after
+     warmup, every decode step a replay, and its kernels launched (the
+     paged attention, prefix flash and RMSNorm kernels; the INT8 quant
+     kernels in (d)); it prints tokens/s, TTFT p50 (wall), decode p50 and
+     the share of decode steps' (token, k) assignments dropped (counted
+     through ``Model.moe_tap`` in the eager serve).
 
-The serve phases 5, 6, 9, 10, 16, 17, 20, 21, 22 (b) and 23 run warmed engines
+The serve phases 5, 6, 9, 10, 16, 17, 20, 21, 22 (b), 23 and 24 run warmed engines
 (every step graph captured and every kernel library loaded before the
 first request): each prints its warmup's seconds, captures and
 graph-pool size, and fails on any capture or library build or load while
@@ -239,8 +267,14 @@ the libraries' body counters, so the main-path counts below count
 replays.
 
 Phases 15-23 run after phase 7, with the granite model still loaded.
-Phase 3 also holds the prefix flash kernel at the verify step's shape (B
-8, C 4, starts 60..2040, Smax 2048 and 2064, the last key tile of 2064
+Phase 3 also holds the paged attention (f32 and bf16) and the prefix
+flash kernel (bf16) at granite-moe's decode shape (B 8, H 24, KVH 8, d
+64: G 3, pages of 16, lengths 1..2048) and its 256-token chunk at 1000,
+the INT8 quantize and dequantize at granite-moe's swap rows (86,016 of
+64) and the RMSNorm at its width 1536 (the kernels line's ``moe_shape``;
+gated as granite's rows), and holds the prefix
+flash kernel at the verify step's shape (B 8, C 4, starts 60..2040,
+Smax 2048 and 2064, the last key tile of 2064
 partial: the bf16 bound, the wgmma body and its merge, its time, bound,
 plain and SDPA times, in the kernels line's ``verify_shape``), at the
 packs' shapes (B 4, starts 0/256/512/1000, ragged chunk lengths with a
@@ -255,7 +289,8 @@ pages), the full-sequence flash kernel at the training shape
 (B 4, H 32, KVH 8, S 1024, d 128: f32 causal and bidirectional, bf16
 causal, a ragged S of 1000, d 64 bidirectional, and bf16 causal at B 1,
 S 2048; SDPA timed as the yardstick), the RMSNorm kernel (rows of 2560 and 5120 for mamba,
-4096 for granite, bf16 and f32, with ``torch.nn.functional.rms_norm`` timed
+4096 for granite, 1536 for granite-moe, bf16 and f32, with
+``torch.nn.functional.rms_norm`` timed
 as the library yardstick) and the SSD chunk kernel (B 1, S 1024 = 4 chunks
 of 256, with small and with model-range decay, and one ragged chunk of 200
 rows; 80 heads of 64, state 128, f32) against their plain versions.
@@ -267,8 +302,9 @@ phase 18 (the INT8 paged attention), mamba's phases 9 and 10 (the RMSNorm
 and SSD chunk kernels must have launched, every SSD call through the
 tensor-core body) and training's phase 13 (the
 flash and RMSNorm kernels must have launched); then phase 19's two packs
-and phase 20's and phase 21's two serves each, phase 22 and phase 23 (a),
-each counted from 0 and added to the kernels line's launches.  Each phase
+and phase 20's and phase 21's two serves each, phase 22, phase 23 (a) and
+phase 24's serves (c)-(e), each counted from 0 and added to the kernels
+line's launches.  Each phase
 prints its seconds.  Then a ``kernels`` JSON line (each row also names
 the ``csrc`` headers its source includes), the card's name and
 power limit, and the final ``{"ok": true, "device": {...}}`` line.  Needs
@@ -444,16 +480,17 @@ def check_table(label: str, tables, num_pages: int, shape) -> None:
              f"[0, {num_pages})), dtype {host.dtype}")
 
 
-def check_paged_attention(torch, dev):
+def check_paged_attention(torch, dev, H=32, d=128):
     """Decode attention over bf16 and f32 pages at granite's decode shape
     (B 8, H 32, KVH 8, d 128, pages of 16, lengths 1..2048 drawn from 2048
-    + 1 pool pages).  Each call must run the split-KV body and its merge
-    once (the library's counters); the bf16 row (the serve path's) must be
-    no slower than its plain version in every reading, and prints its
-    time over its bytes bound.  Returns the bf16 row."""
+    + 1 pool pages), or with granite-moe's heads (``H`` 24, ``d`` 64: G 3).
+    Each call must run the split-KV body and its merge once (the library's
+    counters); the bf16 row (the serve path's) must be no slower than its
+    plain version in every reading, and prints its time over its bytes
+    bound.  Returns the bf16 row."""
     from repro_torch.kernels.paged_attention import (ops, paged_attention,
                                                      paged_attention_ref)
-    B, H, KVH, d, page = 8, 32, 8, 128, 16
+    B, KVH, page = 8, 8, 16
     max_pages = 2048 // page
     num_pages = B * max_pages + 1
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -501,8 +538,9 @@ def check_paged_attention(torch, dev):
               f"plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by}) "
               "library_ms=none", flush=True)
         if name == "bfloat16":
-            verdict(f"paged_attention {name} B={B} lengths 1..2048", ms,
-                    mine, plain, theirs, "its plain version", b_ms)
+            verdict(f"paged_attention {name} B={B} H={H} d={d} lengths "
+                    "1..2048", ms, mine, plain, theirs, "its plain version",
+                    b_ms)
     return rows["bfloat16"]
 
 
@@ -580,27 +618,32 @@ def check_body(torch, label, fn, want):
     return "+".join(k for k in BODIES if took[k])
 
 
-def check_flash_prefix(torch, dev):
+FLASH_PREFIX_CASES = (("float32", 256, 1000), ("bfloat16", 16, 0),
+                      ("bfloat16", 16, 1000), ("bfloat16", 256, 0),
+                      ("bfloat16", 256, 1000))
+
+
+def check_flash_prefix(torch, dev, H=32, d=128, cases=FLASH_PREFIX_CASES):
     """The prefix kernel at granite's chunk shapes (B 1, H 32, KVH 8, d
     128, Smax 2048, strided k/v as the serve path passes them): f32 (the
     FMA body, 2e-5) and bf16 (the wgmma body: the derived element-wise
     bound, the float32-truth check against SDPA, 5e-2) at chunks of 16 and
-    256 at positions 0 and 1000.  The body counters name the bodies each
-    takes (C 16 at 1000 splits its keys: body and merge).  SDPA with the
-    position mask, pinned to one backend (printed), is the yardstick.
-    Times are device times (:func:`time_ms`) and, for bf16, also a host
-    loop's per-call time (:func:`eager_ms`).  Returns the bf16 C 256 row at
-    position 1000."""
+    256 at positions 0 and 1000; or at ``cases`` with granite-moe's heads
+    (``H`` 24, ``d`` 64: G 3, 21 rows of each head in the body's 64).  The
+    body counters name the bodies each takes (C 16 at 1000 splits its
+    keys: body and merge).  SDPA with the position mask, pinned to one
+    backend (printed), is the yardstick; the bf16 C 256 row at 1000 must be
+    no slower in every reading.  Times are device times (:func:`time_ms`)
+    and, for bf16, also a host loop's per-call time (:func:`eager_ms`).
+    Returns the bf16 C 256 row at position 1000."""
     from repro_torch.kernels.flash_prefill import (flash_prefill_prefix,
                                                    flash_prefill_prefix_ref)
-    B, H, KVH, d, Smax = 1, 32, 8, 128, 2048
+    B, KVH, Smax = 1, 8, 2048
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     main = None
-    for name, C, st in (("float32", 256, 1000), ("bfloat16", 16, 0),
-                        ("bfloat16", 16, 1000), ("bfloat16", 256, 0),
-                        ("bfloat16", 256, 1000)):
+    for name, C, st in cases:
         dt = getattr(torch, name)
-        label = f"flash_prefill_prefix {name} C={C} start={st}"
+        label = f"flash_prefill_prefix {name} H={H} d={d} C={C} start={st}"
         q = torch.randn((B, H, C, d), generator=g, device=dev).to(dt)
         # k/v as the serve path passes them: transposed views of the
         # page-gathered (B, Smax, KVH, d) stripe
@@ -657,8 +700,9 @@ def check_flash_prefix(torch, dev):
         if name == "bfloat16" and C == 256 and st == 1000:
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms)
-            verdict("flash_prefill_prefix bf16 C=256 start=1000", ms, mine,
-                    lib_ms, theirs, f"SDPA {backend}", b_ms)
+            verdict(f"flash_prefill_prefix bf16 H={H} d={d} C=256 "
+                    "start=1000", ms, mine, lib_ms, theirs, f"SDPA {backend}",
+                    b_ms)
         del q, k, v, out, ref
     torch.cuda.empty_cache()
     return main
@@ -889,9 +933,17 @@ def check_flash_prefill(torch, dev):
     return main
 
 
-def check_kv_quant(torch, dev):
+KV_QUANT_GRANITE = (40 * 64 * 16 * 8, 128)   # 1024 tokens of granite K
+KV_QUANT_MOE = (32 * 21 * 16 * 8, 64)        # granite-moe's 336-token lane
+
+
+def check_kv_quant(torch, dev, shape=KV_QUANT_GRANITE):
     """INT8 quantize and dequantize at one granite swap's rows (327,680 x
-    128): codes within 1 of the plain version, scales within 1e-6
+    128), or at ``shape``: granite-moe's swap of one lane's 336-token
+    budget (phase 24 (d): 32 layers x 21 pages of 16 x 8 KV heads = 86,016
+    rows of 64, where the 16-byte dequantize body lays 4 threads on a row
+    and 64 rows on a block, against 8 and 32 at 128).  Codes within 1 of
+    the plain version, scales within 1e-6
     relative, zeros within 1; dequantize equal to its plain version bit for
     bit in float32 (same operations in the same order) and in bfloat16 (its
     round to nearest even), through the 16-byte body (``ops.body_launches``);
@@ -902,7 +954,7 @@ def check_kv_quant(torch, dev):
                                               kv_dequantize_ref, kv_quantize,
                                               kv_quantize_ref)
     from repro_torch.kernels.kv_quant import ops as kv_ops
-    T, d = 40 * 64 * 16 * 8, 128          # one swap's rows at full width
+    T, d = shape
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     x = torch.randn((T, d), generator=g, device=dev) * 4.0
     q, lam, z = kv_quantize(x)
@@ -1109,20 +1161,22 @@ def check_paged_attention_q8(torch, dev):
 def check_fused_rmsnorm(torch, dev):
     """The RMSNorm kernel at each main path's widths, bf16 and f32: mamba's
     d_model 2560 and gate-norm d_inner 5120 for a decode batch (8 rows) and
-    a 1024-token prefill, granite's d_model 4096 for a decode batch and a
-    256-token prefill chunk; ``torch.nn.functional.rms_norm`` is the
+    a 1024-token prefill, granite's d_model 4096 and granite-moe's 1536
+    for a decode batch and a 256-token prefill chunk;
+    ``torch.nn.functional.rms_norm`` is the
     library yardstick.  float32 must agree to 2e-5 (relative beyond 1);
     bfloat16 must be within one bfloat16 rounding step of the plain output,
     element by element (both sum in float32, so only the final rounding can
     differ).  Times are device times (:func:`time_ms`) and a host loop's
     per-call times (:func:`eager_ms`) of the kernel and the library call.
-    Returns the bf16 (1024, 5120) row."""
+    Returns the bf16 (1024, 5120) row and the bf16 (256, 1536) one
+    (granite-moe's chunk)."""
     import torch.nn.functional as F
     from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm, rmsnorm_ref
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
-    main = None
+    rows = {}
     shapes = ((8, 2560), (1024, 2560), (8, 5120), (1024, 5120), (8, 4096),
-              (256, 4096))
+              (256, 4096), (8, 1536), (256, 1536))
     for name in ("float32", "bfloat16"):
         dt = getattr(torch, name)
         for T, d in shapes:
@@ -1156,14 +1210,16 @@ def check_fused_rmsnorm(torch, dev):
                   f"plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by}) "
                   f"library_ms={lib_ms:.4f} eager_ms={eager_ms(kern, 50):.4f}"
                   f" library_eager_ms={eager_ms(lib, 50):.4f}", flush=True)
+            if name == "bfloat16":
+                rows[(T, d)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                    bound_ms=b_ms, bound_by=b_by,
+                                    library_ms=lib_ms)
             if name == "bfloat16" and T == 1024 and d == 5120:
-                main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
                 y = torch.empty_like(x)
                 verdict("fused_rmsnorm bf16 (1024, 5120)", ms, mine, lib_ms,
                         theirs, "F.rms_norm", b_ms,
                         copy_ms=time_ms(lambda: y.copy_(x), 50))
-    return main
+    return rows[(1024, 5120)], rows[(256, 1536)]
 
 
 def ssd_flops(B, C, Q, H, P, N) -> float:
@@ -1255,6 +1311,46 @@ def check_ssd_chunk(torch, dev):
 
 # ------------------------------------------------------- phases 4 to 6
 
+def _request_logits(torch, model, params, prompt, impl, toks=None):
+    """One request through the model's kernel path (``impl`` "kernel":
+    paged-attention kernel, prefix flash kernel, RMSNorm kernel) or its
+    plain path ("gather": page gather, masked chunk attention, plain
+    RMSNorm) on its own pool: the prompt in two chunks (its first 64
+    tokens, then the rest), then 4 decode steps fed ``toks[1:]`` (greedy
+    from this path's logits when None).  Returns (the 6 logit rows
+    float32, the tokens fed: the prompt's greedy next token, then each
+    step's)."""
+    from repro_torch.serving.kv_cache import KVBackendConfig, PagedKVBackend
+    impl0 = model.chunk_attn_impl
+    model.chunk_attn_impl = "flash" if impl == "kernel" else "masked"
+    model.use_kernels = impl == "kernel"
+    kv = PagedKVBackend(model, KVBackendConfig(
+        max_slots=1, max_seq_len=2048, page_size=16, attn_impl=impl),
+        num_pages=16)
+    rows = [kv.prefill_chunk(params, 7, prompt[:64], 0),
+            kv.prefill_chunk(params, 7, prompt[64:], 64)]
+    fed = [int(rows[-1].argmax()) if toks is None else toks[0]]
+    for i in range(4):
+        kv.pool.extend(7, 1)
+        pos = kv.pool.lengths[7] - 1
+        pt = kv.pool.page_table[7]
+        tables = torch.full((1, kv.max_pages_per_seq), kv.scratch_page,
+                            dtype=torch.int32, device=model.device)
+        tables[0, :len(pt)] = torch.tensor(pt, dtype=torch.int32)
+        t = torch.tensor([[fed[-1]]], device=model.device)
+        logits = model.paged_decode_step(
+            params, {"k": kv.pool.k, "v": kv.pool.v}, t, tables,
+            torch.tensor([pos], dtype=torch.int32, device=model.device),
+            torch.tensor([pt[pos // 16]], device=model.device),
+            torch.tensor([pos % 16], device=model.device),
+            attn_impl=impl)
+        rows.append(logits)
+        fed.append(int(logits.argmax()) if toks is None else toks[i + 1])
+    model.chunk_attn_impl = impl0
+    model.use_kernels = True
+    return torch.cat(rows).float(), fed
+
+
 def reference_check(torch, model, params):
     """Kernel path vs plain path of the full-width model on one short
     request: prefill 100 tokens in two chunks, then 4 decode steps, each
@@ -1262,44 +1358,14 @@ def reference_check(torch, model, params):
     masked chunk attention, plain RMSNorm).  Every logit row finite,
     relative L2 error of the kernel path's logits < 0.05 (bf16 rounding
     through 40 layers), and the same greedy tokens fed to both."""
-    from repro_torch.serving.kv_cache import KVBackendConfig, PagedKVBackend
     rng = np.random.default_rng(SEED + 3)
     prompt = rng.integers(2, model.cfg.vocab_size, 100).tolist()
     outs = {}
-    impl0 = model.chunk_attn_impl
-    for impl, chunk in (("kernel", "flash"), ("gather", "masked")):
-        model.chunk_attn_impl = chunk
-        model.use_kernels = impl == "kernel"
-        kv = PagedKVBackend(model, KVBackendConfig(
-            max_slots=1, max_seq_len=2048, page_size=16, attn_impl=impl),
-            num_pages=16)
-        rows = [kv.prefill_chunk(params, 7, prompt[:64], 0),
-                kv.prefill_chunk(params, 7, prompt[64:], 64)]
-        tok = int(rows[-1].argmax()) if impl == "kernel" else outs["tok"][0]
-        toks = [tok]
-        for i in range(4):
-            kv.pool.extend(7, 1)
-            pos = kv.pool.lengths[7] - 1
-            pt = kv.pool.page_table[7]
-            tables = torch.full((1, kv.max_pages_per_seq), kv.scratch_page,
-                                dtype=torch.int32, device=model.device)
-            tables[0, :len(pt)] = torch.tensor(pt, dtype=torch.int32)
-            t = torch.tensor([[toks[-1]]], device=model.device)
-            logits = model.paged_decode_step(
-                params, {"k": kv.pool.k, "v": kv.pool.v}, t, tables,
-                torch.tensor([pos], dtype=torch.int32, device=model.device),
-                torch.tensor([pt[pos // 16]], device=model.device),
-                torch.tensor([pos % 16], device=model.device),
-                attn_impl=impl)
-            rows.append(logits)
-            if impl == "kernel":
-                toks.append(int(logits.argmax()))
-            else:
-                toks.append(outs["tok"][i + 1])
-        outs[impl] = torch.cat(rows).float()
-        outs.setdefault("tok", toks)
-    model.chunk_attn_impl = impl0
-    model.use_kernels = True
+    outs["kernel"], tok = _request_logits(torch, model, params, prompt,
+                                          "kernel")
+    outs["gather"], _ = _request_logits(torch, model, params, prompt,
+                                        "gather", tok)
+    outs["tok"] = tok
     a, b = outs["kernel"], outs["gather"]
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
         fail("reference: non-finite logits")
@@ -1396,6 +1462,53 @@ MAMBA_SERVE = dict(arch="mamba2-2.7b", arch_size="full", strategy="alise",
                    verbose=False)
 
 
+SWAP_TRACE = ((200, 264, 120, 136, 150, 170), (48, 48, 6, 6, 6, 6))
+
+
+def swap_requests(cfg):
+    """Phase 6's trace (prompt and output lengths ``SWAP_TRACE``, tokens
+    from seed ``SEED + 4``): two long requests, then four short ones."""
+    from repro_torch.core.request import Request, reset_request_counter
+    reset_request_counter()
+    rng = np.random.default_rng(SEED + 4)
+    return [Request(prompt_len=p, arrival_time=0.0, true_out_len=o,
+                    prompt_tokens=rng.integers(2, cfg.vocab_size, p).tolist())
+            for p, o in zip(*SWAP_TRACE)]
+
+
+def virtual_serve(torch, eng, reqs, stage=0):
+    """Serve ``reqs`` on a virtual clock (``t`` advances 0.1 s a step, so
+    the schedule depends on nothing measured): all at t=0, or with
+    ``stage`` the first ``stage`` five steps before the rest; then until
+    the engine drains (at most 2000 more steps).  Returns the serve's
+    wall seconds and each request's wall seconds to its first token."""
+    t, first = 0.0, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    def step():
+        nonlocal t
+        eng.step(t)
+        t += 0.1
+        now = time.perf_counter() - t0
+        for r in reqs:
+            if r.generated and r.req_id not in first:
+                first[r.req_id] = now
+    for r in reqs[:stage] if stage else reqs:
+        eng.submit(r, t)
+    if stage:
+        for _ in range(5):
+            step()
+        for r in reqs[stage:]:
+            eng.submit(r, t)
+    for _ in range(2000):
+        if not eng.sched.live:
+            break
+        step()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, first
+
+
 def serve_summary(eng, reqs, wall):
     """tokens/s, TTFT p50, decode steps p50 and prefills p50 of a serve
     (mamba's TTFT as phase 9 takes it: each prompt's prefill end, from the
@@ -1472,16 +1585,10 @@ def phase_swap(torch, model, params, kernels):
     from repro_torch.core.engine import EngineConfig, ServingEngine
     from repro_torch.core.predictor import OraclePredictor
     from repro_torch.core.quantization import kv_bytes_per_token
-    from repro_torch.core.request import Request, reset_request_counter
     from repro_torch.utils.compile_counter import CompileCounter
     cfg = model.cfg
     bpt = kv_bytes_per_token(cfg.num_layers, cfg.num_kv_heads, cfg.hd)
-    prompts, outs = (200, 264, 120, 136, 150, 170), (48, 48, 6, 6, 6, 6)
-    reset_request_counter()
-    rng = np.random.default_rng(SEED + 4)
-    reqs = [Request(prompt_len=p, arrival_time=0.0, true_out_len=o,
-                    prompt_tokens=rng.integers(2, cfg.vocab_size, p).tolist())
-            for p, o in zip(prompts, outs)]
+    reqs = swap_requests(cfg)
     eng = ServingEngine(model, params, EngineConfig(
         max_slots=2, max_seq_len=2048, max_new_tokens=64, strategy="alise",
         quantize_offload=True, hbm_bytes=2 * 336 * bpt, kv_backend="paged",
@@ -1489,20 +1596,7 @@ def phase_swap(torch, model, params, kernels):
         warmup_compile=True), predictor=OraclePredictor())
     counter = CompileCounter()
     before = read_counts(kernels)
-    t = 0.0
-    for r in reqs[:2]:
-        eng.submit(r, t)
-    for _ in range(5):
-        eng.step(t)
-        t += 0.1
-    for r in reqs[2:]:
-        eng.submit(r, t)
-    for _ in range(2000):
-        if not eng.sched.live:
-            break
-        eng.step(t)
-        t += 0.1
-    torch.cuda.synchronize()
+    virtual_serve(torch, eng, reqs, stage=2)
     counts = {n: c - before[n] for n, c in read_counts(kernels).items()}
     graph_gate("granite paged swap (phase 6)", eng, counter, False)
     counter.detach()
@@ -1804,36 +1898,17 @@ def phase_dense_swap(torch, model, params, kernels):
     from repro_torch.core.engine import EngineConfig, ServingEngine
     from repro_torch.core.predictor import OraclePredictor
     from repro_torch.core.quantization import kv_bytes_per_token
-    from repro_torch.core.request import Request, reset_request_counter
     from repro_torch.utils.compile_counter import CompileCounter
     cfg = model.cfg
     bpt = kv_bytes_per_token(cfg.num_layers, cfg.num_kv_heads, cfg.hd)
-    prompts, outs = (200, 264, 120, 136, 150, 170), (48, 48, 6, 6, 6, 6)
-    reset_request_counter()
-    rng = np.random.default_rng(SEED + 4)
-    reqs = [Request(prompt_len=p, arrival_time=0.0, true_out_len=o,
-                    prompt_tokens=rng.integers(2, cfg.vocab_size, p).tolist())
-            for p, o in zip(prompts, outs)]
+    reqs = swap_requests(cfg)
     eng = ServingEngine(model, params, EngineConfig(
         max_slots=2, max_seq_len=2048, max_new_tokens=64, strategy="alise",
         quantize_offload=True, hbm_bytes=2 * 336 * bpt, kv_backend="dense",
         prefill_chunk=256, warmup_compile=True), predictor=OraclePredictor())
     counter = CompileCounter()
     before = read_counts(kernels)
-    t = 0.0
-    for r in reqs[:2]:
-        eng.submit(r, t)
-    for _ in range(5):
-        eng.step(t)
-        t += 0.1
-    for r in reqs[2:]:
-        eng.submit(r, t)
-    for _ in range(2000):
-        if not eng.sched.live:
-            break
-        eng.step(t)
-        t += 0.1
-    torch.cuda.synchronize()
+    virtual_serve(torch, eng, reqs, stage=2)
     counts = {n: c - before[n] for n, c in read_counts(kernels).items()}
     graph_gate("granite dense swap (phase 17)", eng, counter, False)
     counter.detach()
@@ -3382,6 +3457,383 @@ def phase_gateway(torch, model, params, kernels):
     return launches
 
 
+# ------------------------------------------------------------- phase 24
+
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_LAYER_TOKENS = 64                   # (a): one MoE layer's tokens
+MOE_F32_REL = 1e-3                      # (b): f32 kernel vs plain logits
+MOE_SERVE_ROWS = ("paged_attention", "flash_prefill_prefix",
+                  "fused_rmsnorm")
+MOE_DENSE_REQUESTS = 8                  # (e): a cut of phase 16's 12
+
+
+def _top_margin(logits, k: int) -> float:
+    """The smallest gap between consecutive values among each row's k + 1
+    largest router logits: the order of the top k and the k-th / (k+1)-th
+    boundary, which decide the expert choices and their flat order."""
+    top = logits.float().topk(k + 1, dim=-1).values
+    return (top[..., :-1] - top[..., 1:]).min().item()
+
+
+def moe_layer_check(torch, dev, cfg):
+    """Phase 24 (a): one full-width MoE layer in float32 (a float32 router
+    over 40 experts of 1536 x 512, top 8, capacity factor 1.25, one
+    group), drawn from a seed on the CPU, over 64 tokens on the card and on
+    the CPU.  The router logits' top-9 margin must exceed four times their
+    largest card-vs-CPU difference; then the expert choices and the
+    kept/dropped masks must be equal exactly and the outputs within 1e-5
+    of the CPU's largest |y|.  Returns the drop count."""
+    from repro_torch.models import layers as L
+    c32 = cfg.scaled(param_dtype="float32")
+    gen = torch.Generator().manual_seed(SEED + 24)
+    p_cpu = L.init_moe(c32, gen, torch.float32)
+    x_cpu = torch.randn((1, MOE_LAYER_TOKENS, cfg.d_model), generator=gen)
+    p_dev = {k: v.to(dev) for k, v in p_cpu.items()}
+    taps = []
+
+    def tap(shape, idx, keep):
+        taps.append((idx.cpu(), keep.cpu()))
+    y_cpu, aux_cpu = L.apply_moe(c32, p_cpu, x_cpu, tap=tap)
+    y_dev, aux_dev = L.apply_moe(c32, p_dev, x_cpu.to(dev), tap=tap)
+    torch.cuda.synchronize()
+    lg_cpu = x_cpu @ p_cpu["router"]
+    lg_dev = (x_cpu.to(dev) @ p_dev["router"]).cpu()
+    delta = (lg_cpu - lg_dev).abs().max().item()
+    margin = _top_margin(lg_cpu, cfg.top_k)
+    (i_cpu, k_cpu), (i_dev, k_dev) = taps
+    cap = L.moe_capacity(c32, MOE_LAYER_TOKENS)
+    dropped = int((~k_cpu).sum())
+    err = (y_dev.cpu() - y_cpu).abs().max().item()
+    scale = max(1.0, y_cpu.abs().max().item())
+    print(f"[moe] (a) one full-width MoE layer f32, {MOE_LAYER_TOKENS} "
+          f"tokens, E {cfg.num_experts} top {cfg.top_k} capacity {cap}: "
+          f"router top-{cfg.top_k + 1} margin {margin:.3g} vs card-CPU "
+          f"logit diff {delta:.3g}; {dropped}/{k_cpu.numel()} assignments "
+          f"dropped; choices "
+          f"{'equal' if torch.equal(i_cpu, i_dev) else 'DIFFER'}, kept "
+          f"masks {'equal' if torch.equal(k_cpu, k_dev) else 'DIFFER'}; "
+          f"max |dy| {err:.3g} (|y| up to {scale:.3g}); aux "
+          f"{aux_dev.item():.6f} vs {aux_cpu.item():.6f}", flush=True)
+    if not margin > 4 * delta:
+        fail(f"phase 24 (a): router margin {margin} not above 4 x the "
+             f"card-vs-CPU logit difference {delta}: a tie decides")
+    if not (torch.equal(i_cpu, i_dev) and torch.equal(k_cpu, k_dev)):
+        fail("phase 24 (a): expert choices or kept masks differ card vs CPU")
+    if not err <= 1e-5 * scale:
+        fail(f"phase 24 (a): outputs differ by {err} (> 1e-5 x {scale})")
+    return dropped
+
+
+def moe_reference_check(torch, model, params):
+    """Phase 24 (b): the full-depth model's kernel path against its plain
+    path (``use_kernels=False``, page gather, masked chunk attention) on
+    phase 4's kind of short request (128 prompt tokens in two full chunks
+    of 64, so that no padded row routes, then 4 decode steps, every run fed
+    the f32 kernel path's tokens), in float32 (the bf16 weights cast:
+    13.2 GB), gated at a relative L2 of 1e-3 with equal greedy tokens, and
+    in bf16 beside it (printed).  Each run's routing decisions (every
+    call's set of K experts per token) are recorded through
+    ``Model.moe_tap`` and the count of (token, k) choices that differ
+    between two runs, as sets, is printed.  Two witnesses stand beside the
+    bf16 line: the bf16 plain path against the f32 plain path (no kernel
+    in either: what bf16 rounding alone does to the routing and the
+    logits), and the bf16 kernel path with every router call's output
+    replaced by the bf16 plain path's (routing fixed), gated within
+    granite's 0.05 of the bf16 plain path."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.utils import tree_map
+    rng = np.random.default_rng(SEED + 3)
+    prompt = rng.integers(2, model.cfg.vocab_size, 128).tolist()
+    m32 = Model(model.cfg.scaled(param_dtype="float32"),
+                chunk_attn_impl="flash", kv_dtype="float32",
+                device=model.device)
+    p32 = tree_map(lambda t: t.float(), params)
+    real_route = L._route
+    routes = []
+
+    def run(m, p, impl, toks, route=None):
+        """(logits, tokens fed, routing decisions) of one run; ``route``
+        stands in for ``layers._route`` during it."""
+        seen = []
+        m.moe_tap = lambda shape, idx, keep: seen.append(idx.sort(-1).values)
+        L._route = route or real_route
+        try:
+            out, fed = _request_logits(torch, m, p, prompt, impl, toks)
+        finally:
+            m.moe_tap, L._route = None, real_route
+        if not torch.isfinite(out).all():
+            fail(f"phase 24 (b): non-finite {impl} logits")
+        return out, fed, seen
+
+    def record(cfg, p, xf):
+        routes.append(real_route(cfg, p, xf))
+        return routes[-1]
+
+    def compare(what, a, b):
+        (x, _, cx), (y, _, cy) = a, b
+        flips = sum(int((u != w).sum()) for u, w in zip(cx, cy))
+        n = sum(u.numel() for u in cx)
+        rel = ((x - y).norm() / y.norm()).item()
+        agree = (x.argmax(-1) == y.argmax(-1)).float().mean().item()
+        print(f"[moe] (b) {MOE_ARCH} full width/depth {what}, 6 logit rows: "
+              f"rel_l2={rel:.4g} argmax_agree={agree:.2f}; routing decisions "
+              f"differing {flips}/{n}", flush=True)
+        return rel, agree, flips
+    k32 = run(m32, p32, "kernel", None)
+    toks = k32[1]
+    g32 = run(m32, p32, "gather", toks)
+    res = {"f32": compare("f32, kernel vs plain path", k32, g32)}
+    del m32, p32
+    torch.cuda.empty_cache()
+    k16 = run(model, params, "kernel", toks)
+    g16 = run(model, params, "gather", toks, route=record)
+    res["bf16"] = compare("bf16, kernel vs plain path", k16, g16)
+    res["bf16_plain_vs_f32"] = compare(
+        "witness 1: bf16 plain vs f32 plain path", g16, g32)
+    replay = iter(routes)
+    fixed = run(model, params, "kernel", toks,
+                route=lambda cfg, p, xf: next(replay))
+    res["bf16_fixed_routing"] = compare(
+        "witness 2: bf16 kernel path on the plain path's routing vs plain",
+        fixed, g16)
+    rel, agree, flips = res["f32"]
+    if not (rel < MOE_F32_REL and agree == 1.0):
+        fail(f"phase 24 (b): f32 kernel-path logits differ (rel_l2 {rel}, "
+             f"argmax agree {agree}, {flips} routing decisions differ)")
+    rel = res["bf16_fixed_routing"][0]
+    if not rel < 0.05:
+        fail(f"phase 24 (b): with the routing fixed the bf16 kernel path is "
+             f"{rel} from the plain path (>= 0.05)")
+    return res
+
+
+def _moe_engine(model, params, *, graphs=True, **kw):
+    """Phase 5's engine configuration (paged, chunks of 256, 8 lanes,
+    kernels, unquantized swaps, warmed), with ``kw`` over it."""
+    from repro_torch.core.engine import EngineConfig, ServingEngine
+    from repro_torch.core.predictor import OraclePredictor
+    opts = dict(max_slots=8, max_seq_len=2048, max_new_tokens=64,
+                strategy="alise", quantize_offload=False, kv_backend="paged",
+                page_size=16, paged_attn_impl="kernel", prefill_chunk=256,
+                warmup_compile=True, cuda_graphs=graphs, seed=SEED)
+    opts.update(kw)
+    return ServingEngine(model, params, EngineConfig(**opts),
+                         predictor=OraclePredictor())
+
+
+def _moe_summary(eng, reqs, wall, first) -> str:
+    gen = sum(r.generated for r in reqs)
+    step_ms = [dt * 1e3 for *_, dt in eng.iter_times]
+    chunk_ms = [dt * 1e3 for _, _, dt, _ in eng.prefill_times]
+    return (f"{sum(r.finish_time is not None for r in reqs)}/{len(reqs)} "
+            f"finished, {gen} tokens, {gen / wall:.1f} tok/s, wall "
+            f"{wall:.2f}s, TTFT p50 {np.median(list(first.values())):.3f}s "
+            f"(wall), {len(step_ms)} decode steps p50 "
+            f"{np.median(step_ms):.2f} ms, {len(chunk_ms)} prefill chunks "
+            f"p50 {np.median(chunk_ms):.2f} ms, preemptions "
+            f"{sum(r.preempt_count for r in reqs)}")
+
+
+def _served(label, model, reqs) -> None:
+    if any(r.finish_time is None for r in reqs):
+        fail(f"{label}: not every request finished")
+    for r in reqs:
+        if len(r.output_tokens) != r.generated or r.generated < 1:
+            fail(f"{label}: request {r.req_id} produced no tokens")
+        if not all(0 <= t < model.cfg.vocab_size for t in r.output_tokens):
+            fail(f"{label}: request {r.req_id} emitted an out-of-vocab "
+                 "token")
+
+
+def moe_block_times(torch, model, params, step_ms) -> None:
+    """Phase 24 (f), the MoE block alone at the decode step's shape (8
+    tokens, capacity 2, one layer's weights): device times (:func:`time_ms`)
+    of the whole block, of its routing and dispatch (router, top-k, the
+    capacity plan, the scatter into the expert rows) and of its expert
+    products (three batched products over 40 x 2 rows), against the step's
+    device span ``step_ms`` for 32 layers; the bytes bound of the block is
+    its weights' read (every expert runs)."""
+    from repro_torch.models import layers as L
+    cfg = model.cfg
+    p = params["layers"][0]["ffn"]
+    g = torch.Generator(device=model.device).manual_seed(SEED + 25)
+    x = torch.randn((8, 1, cfg.d_model), generator=g,
+                    device=model.device).to(model.dtype)
+    E, K = cfg.num_experts, cfg.top_k
+    cap = L.moe_capacity(cfg, 8)
+
+    def route():
+        w, idx, aux, e_alloc = L._route(cfg, p, x.reshape(1, 8, -1))
+        dest, keep = L._dispatch_plan(idx.reshape(1, -1), e_alloc, cap)
+        buf = torch.zeros((1, E * cap + 1, cfg.d_model), dtype=x.dtype,
+                          device=x.device)
+        xk = x.reshape(1, 8, 1, -1).expand(1, 8, K, -1).reshape(1, 8 * K, -1)
+        return buf.scatter_(1, dest[..., None].expand_as(xk), xk)
+    buf = torch.randn((1, E, cap, cfg.d_model), generator=g,
+                      device=model.device).to(model.dtype)
+
+    def experts():
+        h = torch.nn.functional.silu(buf @ p["wg"]) * (buf @ p["wi"])
+        return h @ p["wo"]
+    whole = time_ms(lambda: L.apply_moe(cfg, p, x))
+    r_ms, e_ms = time_ms(route), time_ms(experts)
+    w_bytes = nbytes(p["wi"], p["wg"], p["wo"], p["router"])
+    b_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+    L_ = cfg.num_layers
+    print(f"[moe] (f) MoE block at decode (8 tokens, capacity {cap}), one "
+          f"layer: {whole:.4f} ms device (bytes bound {b_ms:.4f} ms: "
+          f"{w_bytes / 2**20:.0f} MiB of weights, {b_ms / whole:.1%}); "
+          f"routing + dispatch {r_ms:.4f} ms, expert products {e_ms:.4f} ms"
+          f"; x {L_} layers = {whole * L_:.2f} ms of the graphed step's "
+          f"{step_ms:.2f} ms device span ({whole * L_ / step_ms:.1%}; "
+          f"routing + dispatch {r_ms * L_ / step_ms:.1%}, expert products "
+          f"{e_ms * L_ / step_ms:.1%})", flush=True)
+
+
+def phase_moe(torch, dev, kernels):
+    """Phase 24: granite-moe-3b-a800m at full width and depth (random
+    weights from a seed, bf16).  (a) one MoE layer card vs CPU; (b) the
+    kernel path vs the plain path; then the main path, counted from 0:
+    (c) phase 5's 12 requests on a warmed paged engine with graphs, (d) a
+    2-lane INT8 swap serve on the paged backend (phase 6's trace), (e) the
+    dense backend through ``serve(...)`` (warmed, 8 requests); then (c)'s
+    requests again eagerly (bit for bit), and (f) a profile of the graphed
+    decode step with the MoE block's share.  (c) and (d) run on a virtual
+    clock: the MoE's tokens depend on which requests share a step, so a
+    graphed and an eager serve compare only on one schedule.  Returns the
+    launch counts of (c)-(e)."""
+    from repro_torch.core.quantization import kv_bytes_per_token
+    from repro_torch.launch.serve import build_model, build_requests, serve
+    from repro_torch.utils import tree_leaves
+    from repro_torch.utils.compile_counter import CompileCounter
+    clock = Clock(time.perf_counter())
+    model, params = build_model(MOE_ARCH, "full", dev, "flash", SEED)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    print(f"[model] {MOE_ARCH} full width/depth ({cfg.num_layers}L "
+          f"d{cfg.d_model} {cfg.num_heads}/{cfg.num_kv_heads}H hd{cfg.hd} "
+          f"{cfg.num_experts} experts top {cfg.top_k} ff{cfg.d_ff} "
+          f"V{cfg.vocab_size}), {n_params:,} params bf16 (router f32)",
+          flush=True)
+    moe_layer_check(torch, dev, cfg)
+    moe_reference_check(torch, model, params)
+    clock.lap("MoE layer + reference (phase 24 a-b)")
+
+    reset_counts(kernels)
+    counter = CompileCounter()
+    eng = _moe_engine(model, params)
+    reqs = build_requests(cfg, 12, SEED, "full")
+    wall, first = virtual_serve(torch, eng, reqs)
+    counts = read_counts(kernels)
+    graph_gate("granite-moe paged serve (phase 24 c)", eng, counter, True)
+    counter.detach()
+    print(f"[moe] (c) paged, chunks of 256, 8 lanes, graphed: "
+          f"{_moe_summary(eng, reqs, wall, first)}; launches {counts}",
+          flush=True)
+    _served("phase 24 (c)", model, reqs)
+    for n in MOE_SERVE_ROWS:
+        if counts[n] <= 0:
+            fail(f"phase 24 (c): kernel {n} never launched")
+    costs = dict(eng.latency.bucket_costs or {})
+    del eng
+    clock.lap("MoE paged serve (phase 24 c)")
+
+    bpt = kv_bytes_per_token(cfg.num_layers, cfg.num_kv_heads, cfg.hd)
+    swap_reqs = swap_requests(cfg)
+    before = read_counts(kernels)
+    counter = CompileCounter()
+    eng = _moe_engine(model, params, max_slots=2, quantize_offload=True,
+                      hbm_bytes=2 * 336 * bpt)
+    virtual_serve(torch, eng, swap_reqs, stage=2)
+    moved = {n: c - before[n] for n, c in read_counts(kernels).items()}
+    graph_gate("granite-moe paged INT8 swap (phase 24 d)", eng, counter,
+               True)
+    counter.detach()
+    pre = sum(r.preempt_count for r in swap_reqs)
+    print(f"[moe] (d) 2 lanes, KV budget {2 * 336} tokens, INT8 offload: "
+          f"{sum(r.finish_time is not None for r in swap_reqs)}/"
+          f"{len(swap_reqs)} finished, preemptions {pre}, launches {moved}",
+          flush=True)
+    _served("phase 24 (d)", model, swap_reqs)
+    if pre <= 0:
+        fail("phase 24 (d): no preemption was forced")
+    for n in ("kv_quantize", "kv_dequantize"):
+        if moved[n] <= 0:
+            fail(f"phase 24 (d): kernel {n} never launched")
+    del eng
+    clock.lap("MoE INT8 swap (phase 24 d)")
+
+    before = read_counts(kernels)
+    counter = CompileCounter()
+    dreqs, deng = serve(**{**DENSE_SERVE, "n_requests": MOE_DENSE_REQUESTS},
+                        arch=MOE_ARCH, device=dev,
+                        model_and_params=(model, params))
+    torch.cuda.synchronize()
+    dwall = time.perf_counter() - deng.warm_stats["end"]
+    moved = {n: c - before[n] for n, c in read_counts(kernels).items()}
+    graph_gate("granite-moe dense serve (phase 24 e)", deng, counter, True)
+    counter.detach()
+    print(f"[moe] (e) dense KV, whole-prompt chunks, 8 lanes, graphed, "
+          f"serve(): {serve_summary(deng, dreqs, dwall)}; launches {moved}",
+          flush=True)
+    _served("phase 24 (e)", model, dreqs)
+    for n in ("flash_prefill_prefix", "fused_rmsnorm"):
+        if moved[n] <= 0:
+            fail(f"phase 24 (e): kernel {n} never launched")
+    del deng
+    launches = read_counts(kernels)
+    clock.lap("MoE dense serve (phase 24 e)")
+
+    # (c)'s requests again with eager steps: the same schedule (the
+    # graphed engine's measured chunk costs, which price the plans' EWT)
+    # must give the same tokens; the tap counts the decode steps' drops
+    drops = {"n": 0, "dropped": torch.zeros((), dtype=torch.long,
+                                             device=dev)}
+
+    def tap(shape, idx, keep):
+        if shape[0] == 8 and shape[1] == 1:        # a decode step
+            drops["n"] += keep.numel()
+            drops["dropped"] += (~keep).sum()
+    eng = _moe_engine(model, params, graphs=False)
+    eng.latency.bucket_costs = costs
+    ereqs = build_requests(cfg, 12, SEED, "full")
+    model.moe_tap = tap
+    try:
+        ewall, efirst = virtual_serve(torch, eng, ereqs)
+    finally:
+        model.moe_tap = None
+    print(f"[serve-eager] granite-moe paged (phase 24 c), cuda_graphs=False: "
+          f"{_moe_summary(eng, ereqs, ewall, efirst)}", flush=True)
+    share = int(drops["dropped"]) / max(drops["n"], 1)
+    print(f"[moe] decode steps dropped {int(drops['dropped'])} of "
+          f"{drops['n']} (token, k) assignments ({share:.1%}; every lane "
+          "routes, idle ones too)", flush=True)
+    same_tokens("granite-moe paged (phase 24 c)", reqs, ereqs)
+    del eng
+    clock.lap("MoE eager serve (phase 24 c)")
+
+    ctx = np.linspace(64, 1600, 8).astype(int)
+    step = engine_decode(model, params, "paged", True, ctx)
+    span = []
+    profile_step(torch, "granite-moe engine decode step (graphed, B=8, ctx "
+                 "64..1600)", step, n=3, watch=("paged_attention",))
+    for _ in range(5):
+        b, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        b.record()
+        step()
+        e.record()
+        torch.cuda.synchronize()
+        span.append(b.elapsed_time(e))
+    moe_block_times(torch, model, params, statistics.median(span))
+    del step, model, params
+    torch.cuda.empty_cache()
+    clock.lap("MoE profile (phase 24 f)")
+    return launches
+
+
 def mamba_reference_check(torch, model, params):
     """Kernel path vs plain path of the full-width mamba2-2.7b on one
     300-token prompt (one chunk of 256 and a ragged one padded to 256) and
@@ -3851,13 +4303,18 @@ def main() -> None:
     with torch.no_grad():
         pa = check_paged_attention(torch, dev)
         fp = check_flash_prefix(torch, dev)
+        # rows 1 and 2 at granite-moe's decode and chunk shapes (G 3, d 64)
+        pa_moe = check_paged_attention(torch, dev, H=24, d=64)
+        fp_moe = check_flash_prefix(torch, dev, H=24, d=64,
+                                    cases=(("bfloat16", 256, 1000),))
         check_flash_prefix_pack(torch, dev)
         fpv = check_flash_prefix_verify(torch, dev)
         fa = check_flash_prefill(torch, dev)
         kq, kd = check_kv_quant(torch, dev)
+        kq_moe, kd_moe = check_kv_quant(torch, dev, KV_QUANT_MOE)
         kpage = check_kv_quant_page(torch, dev)
         pq8 = check_paged_attention_q8(torch, dev)
-        rn = check_fused_rmsnorm(torch, dev)
+        rn, rn_moe = check_fused_rmsnorm(torch, dev)
         sc = check_ssd_chunk(torch, dev)
     clock.lap("kernels (phase 3)")
 
@@ -3953,6 +4410,13 @@ def main() -> None:
     del model, params, ref
     torch.cuda.empty_cache()
 
+    # phase 24: granite-moe-3b-a800m, its serves counted from 0
+    counts = phase_moe(torch, dev, kernels)
+    print(f"[main-path] {MOE_ARCH} paged, INT8 swap and dense serves "
+          f"(phase 24) launches {counts}", flush=True)
+    totals = {k: totals[k] + counts[k] for k in totals}
+    clock.lap("granite-moe-3b-a800m (phase 24)")
+
     t0 = time.perf_counter()
     model, params = build_model("mamba2-2.7b", "full", dev, None, SEED)
     torch.cuda.synchronize()
@@ -4003,12 +4467,14 @@ def main() -> None:
         dict(name="paged_attention", route="cuda",
              source=src + "paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/paged_attention.py:66",
-             launches=launches["paged_attention"], **pa),
+             launches=launches["paged_attention"], **pa,
+             moe_shape=pa_moe),
         dict(name="flash_prefill_prefix", route="cuda",
              source=src + "flash_prefill_prefix.cu",
              replaces="src/repro/kernels/flash_prefill/flash_prefill.py:119",
              launches=launches["flash_prefill_prefix"], **fp,
-             verify_shape={str(k): v for k, v in fpv.items()}),
+             verify_shape={str(k): v for k, v in fpv.items()},
+             moe_shape=fp_moe),
         dict(name="flash_prefill", route="cuda",
              source=src + "flash_prefill_prefix.cu",
              replaces="src/repro/kernels/flash_prefill/flash_prefill.py:165",
@@ -4016,11 +4482,11 @@ def main() -> None:
         dict(name="kv_quantize", route="cuda", source=src + "kv_quant.cu",
              replaces="src/repro/kernels/kv_quant/kv_quant.py:37",
              launches=launches["kv_quantize"], **kq,
-             tier_page_shape=kpage["kv_quantize"]),
+             tier_page_shape=kpage["kv_quantize"], moe_shape=kq_moe),
         dict(name="kv_dequantize", route="cuda", source=src + "kv_quant.cu",
              replaces="src/repro/kernels/kv_quant/kv_quant.py:62",
              launches=launches["kv_dequantize"], **kd,
-             tier_page_shape=kpage["kv_dequantize"]),
+             tier_page_shape=kpage["kv_dequantize"], moe_shape=kd_moe),
         dict(name="paged_attention_q8", route="cuda",
              source=src + "paged_attention.cu",
              replaces="src/repro/kernels/kv_quant/kv_quant.py:123",
@@ -4028,14 +4494,14 @@ def main() -> None:
         dict(name="fused_rmsnorm", route="cuda",
              source=src + "fused_rmsnorm.cu",
              replaces="src/repro/kernels/fused_rmsnorm/fused_rmsnorm.py:23",
-             launches=m_launches["fused_rmsnorm"], **rn),
+             launches=m_launches["fused_rmsnorm"], **rn, moe_shape=rn_moe),
         dict(name="ssd_chunk", route="cuda", source=src + "ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_scan/ssd_scan.py:51",
              launches=m_launches["ssd_chunk"], **sc),
     ]
     root = os.path.dirname(os.path.abspath(__file__))
     for r in rows:
-        r["launches"] += totals[r["name"]]      # phases 19-23
+        r["launches"] += totals[r["name"]]      # phases 19-24
         # the csrc headers the source includes (flash and SSD bodies, the
         # 3xTF32 primitives), as the build key follows them
         r["headers"] = [os.path.relpath(str(h), root) for h in

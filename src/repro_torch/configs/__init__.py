@@ -1,9 +1,12 @@
-"""Architecture registry of the PyTorch port.
+"""Architecture registry of the PyTorch port: the ten assigned
+architectures, as in the JAX package's registry.
 
-The architectures the port runs are registered by id.  Each lives in its
-own module (``repro_torch/configs/<id>.py``) exposing ``CONFIG`` (full
-size) and ``smoke_config()`` (reduced, CPU-runnable), as in the JAX
-package's registry.  :func:`get_config` also knows the paper's own models
+Each lives in its own module (``repro_torch/configs/<id>.py``) exposing
+``CONFIG`` (full size) and ``smoke_config()`` (reduced, CPU-runnable).
+The port's ``Model`` runs the attention family (dense and MoE FFNs, the
+VLM's token backbone) and Mamba-2; the hybrid and encoder-decoder configs
+are registered but ``Model`` refuses them (ROADMAP.md Queue 1 item 13).
+:func:`get_config` also knows the paper's own models
 (``paper_models.CONFIGS``: OPT, LLaMA, Pythia), which the analytic
 simulator and cluster models price; the port runs none of them, so
 :func:`get_smoke_config` and the launchers take only the registered ids.
@@ -16,8 +19,16 @@ from repro_torch.models.config import ArchConfig
 
 # architecture id -> module name
 _ASSIGNED = {
-    "granite-3-8b": "granite_3_8b",
+    "internvl2-2b": "internvl2_2b",
     "mamba2-2.7b": "mamba2_2p7b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "command-r-35b": "command_r_35b",
+    "qwen1.5-32b": "qwen1p5_32b",
+    "granite-3-8b": "granite_3_8b",
+    "stablelm-3b": "stablelm_3b",
+    "dbrx-132b": "dbrx_132b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "jamba-1.5-large-398b": "jamba_1p5_large_398b",
 }
 
 ASSIGNED_ARCHS = tuple(_ASSIGNED)

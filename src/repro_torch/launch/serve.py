@@ -7,15 +7,21 @@ model, in batch mode or through the online gateway.
         --n-requests 16 --max-slots 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         --arch-size full --n-requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m --arch-size full --kv-backend paged \
+        --prefill-chunk 256 --max-slots 8 --warmup
     PYTHONPATH=src python -m repro_torch.launch.serve --arch-size full \
         --kv-backend paged --prefill-chunk 256 --prefill-pack \
         --prefix-cache --predictor online --iter-token-budget auto \
         --target-tpot 0.03 --warmup
 
-run granite-3-8b on the dense KV backend (a K/V stripe per lane; the
-default, as in the JAX launcher; without ``--prefill-chunk`` each prompt is
-one chunk over the lane's stripe) or on the paged backend, and
-mamba2-2.7b on the dense state backend, at full width on the GPU with
+run granite-3-8b (or another attention-family config: granite-moe-3b-
+a800m and dbrx-132b with a capacity-based MoE FFN, command-r-35b,
+qwen1.5-32b, stablelm-3b, internvl2-2b's token backbone) on the dense KV
+backend (a K/V stripe per lane; the default, as in the JAX launcher;
+without ``--prefill-chunk`` each prompt is one chunk over the lane's
+stripe) or on the paged backend, and mamba2-2.7b on the dense state
+backend, at full width on the GPU with
 random weights from ``--seed``; ``--arch-size smoke --device cpu`` runs
 the reduced config on the CPU.  On a GPU the paged decode attention and
 the chunk attention default to the CUDA kernels (``--paged-attn-impl
@@ -29,7 +35,10 @@ serving captures and loads nothing.
 
 ``--spec-decode`` turns on speculative verify-k decoding (``--spec-k``
 model-free drafts per lane scored in one step, greedy and sampled outputs
-unchanged; granite only).  ``--trace-out PATH`` attaches an observability
+unchanged; the attention family.  An MoE's expert capacity is shared by
+the tokens of a step, so its outputs depend on what shares the step:
+with speculation, packs (never used for MoE) or prefix hits they may
+differ).  ``--trace-out PATH`` attaches an observability
 event bus and, after serving, writes a Chrome/Perfetto trace to PATH, its
 Prometheus gauge text to ``PATH.prom`` and the scheduler-quality
 highlights to the console.
@@ -465,9 +474,10 @@ def main():
     ap.add_argument("--kv-backend", default="dense",
                     choices=["dense", "paged"],
                     help="device KV storage: the dense slotted cache (the "
-                         "default; a K/V stripe per lane for granite, the "
-                         "only backend of mamba2-2.7b) or the paged pool "
-                         "(granite only; CUDA paged attention)")
+                         "default; a K/V stripe per lane for the attention "
+                         "family, the only backend of mamba2-2.7b) or the "
+                         "paged pool (the attention family; CUDA paged "
+                         "attention)")
     ap.add_argument("--warmup", action="store_true",
                     help="capture the serving steps (decode or verify, "
                          "every prefill bucket) as CUDA graphs, load every "

@@ -6,8 +6,10 @@ checkpoint/restart built in.
     PYTHONPATH=src python -m repro_torch.launch.train --full --steps 5 \
         --batch-size 4 --seq-len 1024 --num-layers 8
 
-trains the attention family (dense FFN) in float32 with AdamW on the
-synthetic bigram stream, as ``repro.launch.train`` does; ``--full`` takes
+trains the attention family (a dense or an MoE FFN, the MoE's aux loss
+in the objective) in float32 with AdamW on the synthetic bigram stream,
+as ``repro.launch.train`` does (``--arch granite-moe-3b-a800m`` for the
+MoE family; on the card it is not tried yet); ``--full`` takes
 the published width, and ``--num-layers`` cuts the depth so that params,
 gradients and moments fit one card.  The card is the default device; the
 CPU runs only when asked (``--device cpu``).  On the card every RMSNorm
@@ -52,8 +54,8 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
     if not Model.supports_family(cfg) or cfg.layer_kind(0) != "attn":
         raise NotImplementedError(
             f"training family={cfg.family} is not ported yet: ROADMAP.md "
-            "Queue 1 item 14 (the port trains the attention family with a "
-            "dense FFN)")
+            "Queue 1 item 14 (the port trains the attention family, with a "
+            "dense or an MoE FFN)")
     model = Model(cfg, attn_chunk=max(seq_len // 2, 16),
                   ssd_chunk=min(64, seq_len), device=dev)
     step_fn = make_train_step(model, AdamWConfig(lr=lr),

@@ -1,6 +1,6 @@
 """Composable model layers, attention-family subset: norms (RMSNorm through
 the fused kernel), RoPE, GQA attention (full / chunked through the flash
-kernel / decode), dense FFN.
+kernel / decode), dense FFN, capacity-based (GShard) MoE.
 
 Everything is a plain function over an explicit parameter dict, mirroring
 ``repro.models.layers`` so each function can be checked against its jnp
@@ -243,3 +243,139 @@ def apply_ffn(cfg: ArchConfig, p, x):
     h = x @ p["wi"]
     g = x @ p["wg"] if cfg.act == "swiglu" else None
     return _act(cfg, h, g) @ p["wo"]
+
+
+# --------------------------------------------------------------------- MoE
+
+def init_moe(cfg: ArchConfig, gen, dtype, device=None,
+             pad_experts_to: int = 0):
+    """Router (D, E_alloc) in float32 whatever ``dtype`` is, and the
+    experts' ``wi``/``wg`` (E_alloc, D, F) and ``wo`` (E_alloc, F, D) in
+    ``dtype``; ``pad_experts_to`` allocates padding experts the router
+    never picks."""
+    D, Fd = cfg.d_model, cfg.d_ff
+    E_alloc = max(cfg.num_experts, pad_experts_to)
+    p = {
+        "router": _dense_init(gen, (D, E_alloc), scale=0.02,
+                              dtype=torch.float32, device=device),
+        "wi": _dense_init(gen, (E_alloc, D, Fd), dtype=dtype, device=device),
+        "wo": _dense_init(gen, (E_alloc, Fd, D), dtype=dtype, device=device),
+    }
+    if cfg.act == "swiglu":
+        p["wg"] = _dense_init(gen, (E_alloc, D, Fd), dtype=dtype,
+                              device=device)
+    return p
+
+
+def _onehot(idx, n: int):
+    """float32 one-hot over the last axis by comparison with ``arange``
+    (``F.one_hot`` checks its range on the host, a sync on CUDA)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
+def _route(cfg: ArchConfig, p, xf):
+    """Router: softmax in float32 over the real experts (padded slots
+    masked to -1e30), top-k, weights renormalised to sum 1.  Returns
+    ``(gate_w, gate_idx, aux_loss, E_alloc)``; the aux loss is the
+    load-balancing term ``E * sum(density * mean prob)``, density counted
+    on each token's first choice."""
+    E = cfg.num_experts
+    logits = xf.float() @ p["router"]
+    E_alloc = logits.shape[-1]
+    if E_alloc > E:
+        pad = torch.arange(E_alloc, device=logits.device) >= E
+        logits = torch.where(pad, torch.full_like(logits, -1e30), logits)
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, gate_idx = torch.topk(probs, cfg.top_k, dim=-1)
+    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+    lead = tuple(range(gate_idx.dim() - 1))
+    density = _onehot(gate_idx[..., 0], E_alloc).mean(dim=lead)
+    density_proxy = probs.mean(dim=lead)
+    aux_loss = E * torch.sum(density * density_proxy)
+    return gate_w, gate_idx, aux_loss, E_alloc
+
+
+def _dispatch_plan(flat_idx, E_alloc: int, capacity: int):
+    """Each flat ``(token, k)`` assignment's destination row and whether it
+    was kept: in token-major order an assignment takes the next free of
+    its expert's ``capacity`` rows (position by a cumsum over a float32
+    one-hot, as the reference counts); past capacity it goes to the drop
+    row ``E_alloc * capacity``.  flat_idx: (G, T*K).  Returns ``(dest,
+    keep)``, int64 and bool (G, T*K)."""
+    onehot = _onehot(flat_idx, E_alloc)                          # (G,TK,E)
+    pos_in_e = ((torch.cumsum(onehot, dim=1) * onehot).sum(-1)
+                - 1.0).to(torch.int64)
+    keep = pos_in_e < capacity
+    dest = torch.where(keep, flat_idx * capacity + pos_in_e,
+                       torch.full_like(flat_idx, E_alloc * capacity))
+    return dest, keep
+
+
+def _dispatch_compute_combine(cfg, p, xg, gate_w, gate_idx, E_alloc,
+                              capacity):
+    """Grouped capacity dispatch (:func:`_dispatch_plan` per group), the
+    experts as one batched product over (E_alloc, capacity) rows (so every
+    expert's weights are read), and the combine: each token's kept
+    outputs weighted by its gates and summed over k in xg's dtype; a
+    dropped assignment contributes 0.
+
+    xg: (G, Tg, D); gate_*: (G, Tg, K).  Returns ``(y (G, Tg, D) in xg's
+    dtype, keep (G, Tg*K) bool)``.  Every shape is static and nothing
+    reads a value back to the host, so the block can be captured in a CUDA
+    graph."""
+    G, Tg, D = xg.shape
+    K = cfg.top_k
+    dest, keep = _dispatch_plan(gate_idx.reshape(G, Tg * K), E_alloc,
+                                capacity)
+    xk = xg[:, :, None, :].expand(G, Tg, K, D).reshape(G, Tg * K, D)
+    buf = torch.zeros((G, E_alloc * capacity + 1, D), dtype=xg.dtype,
+                      device=xg.device)
+    # kept rows have distinct destinations; dropped ones share the drop
+    # row, which is cut off before the experts run
+    buf.scatter_(1, dest[..., None].expand(G, Tg * K, D), xk)
+    buf = buf[:, :-1].reshape(G, E_alloc, capacity, D)
+    h = torch.matmul(buf, p["wi"])                       # (G, E, cap, F)
+    if cfg.act == "swiglu":
+        h = F.silu(torch.matmul(buf, p["wg"])) * h
+    else:
+        h = _act(cfg, h)
+    out = torch.matmul(h, p["wo"])                       # (G, E, cap, D)
+    outf = out.reshape(G, E_alloc * capacity, D)
+    safe = torch.clamp(dest, 0, E_alloc * capacity - 1)
+    gathered = torch.gather(outf, 1, safe[..., None].expand(G, Tg * K, D))
+    gathered = torch.where(keep[..., None], gathered,
+                           torch.zeros_like(gathered))
+    return (gathered.reshape(G, Tg, K, D)
+            * gate_w[..., None].to(xg.dtype)).sum(dim=2), keep
+
+
+def moe_capacity(cfg: ArchConfig, tokens: int) -> int:
+    """Rows per expert for a group of ``tokens`` tokens, evaluated as the
+    reference writes it (Python floats, then ``int``)."""
+    return max(int(cfg.capacity_factor * tokens * cfg.top_k
+                   / cfg.num_experts), 1)
+
+
+def apply_moe(cfg: ArchConfig, p, x, *, groups: int = 1, tap=None):
+    """Capacity-based top-k MoE (GShard): x (B, S, D) -> ``(y (B, S, D),
+    aux_loss)``.  The B*S tokens split into ``groups`` equal groups (1 when
+    ``groups`` does not divide them), each with its own capacity
+    ``max(int(cf * Tg * K / E), 1)``; an assignment past its expert's
+    capacity is dropped (the residual passes it through).  So one token's
+    output depends on the other tokens of its group.
+
+    ``tap``, when given, is called as ``tap(x.shape, gate_idx, keep)``
+    with the (G, Tg, K) expert choices and the (G, Tg*K) bool kept mask,
+    device tensors (nothing is read back): a measurement hook (routing
+    decisions, drop shares) that a captured graph does not call."""
+    B, S, D = x.shape
+    T = B * S
+    G = groups if (groups > 1 and T % groups == 0) else 1
+    Tg = T // G
+    xg = x.reshape(G, Tg, D)
+    gate_w, gate_idx, aux_loss, E_alloc = _route(cfg, p, xg)
+    y, keep = _dispatch_compute_combine(cfg, p, xg, gate_w, gate_idx,
+                                        E_alloc, moe_capacity(cfg, Tg))
+    if tap is not None:
+        tap(tuple(x.shape), gate_idx, keep)
+    return y.reshape(B, S, D), aux_loss

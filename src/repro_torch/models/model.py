@@ -1,14 +1,16 @@
 """Model assembly for the PyTorch port: the serving entry points of the
-attention-family decoder (chunked paged prefill and fused paged decode;
-monolithic prefill, chunked prefill over a dense per-lane stripe and fused
-dense decode; fused verify-k speculative decode over either) and of the
-Mamba-2 (``ssm``) family (monolithic prefill,
-fused recurrent decode over a dense state cache), and the training loss of
-the attention family (dense FFN).
+attention-family decoder, with a dense or a capacity-based MoE FFN
+(chunked paged prefill and fused paged decode; monolithic prefill, chunked
+prefill over a dense per-lane stripe and fused dense decode; fused
+verify-k speculative decode over either) and of the Mamba-2 (``ssm``)
+family (monolithic prefill, fused recurrent decode over a dense state
+cache), and the training loss of the attention family.
 
 Parameters are a plain dict: ``embed``, ``final_norm.scale`` and a list
 ``layers`` with one dict per layer (``ln1`` and ``attn.{wq,wk,wv,wo}`` or
-``ssm.*``, then ``ln2`` and ``ffn.*`` where the family has an FFN).  Where
+``ssm.*``, then ``ln2`` and ``ffn.*`` where the family has an FFN: the
+dense FFN's ``wi``/``wg``/``wo``, or the MoE's float32 ``router`` and its
+experts' ``wi``/``wg``/``wo`` stacked on a leading expert axis).  Where
 the JAX reference runs ``lax.scan`` over layers stacked on axis 0, the
 port loops over the list in Python.  Where the reference rebuilt the page
 pool or the decode cache functionally and returned it, the port writes it
@@ -66,9 +68,25 @@ def params_from_numpy(cfg: ArchConfig, np_params, device=None) -> Params:
     return out
 
 
+def _last_writer(write_page, write_off) -> torch.Tensor:
+    """For each of the N flat destinations ``(write_page, write_off)``, the
+    flat index of the last row that writes the same slot.  A scatter that
+    writes each row the value of that row writes equal values to a shared
+    slot, so the slot ends as a sequential scatter leaves it (the last
+    duplicate wins) on any device, where a CUDA scatter of differing
+    duplicates keeps no order.  (N,) int64; no value is read back."""
+    dest = torch.stack([write_page.reshape(-1).long(),
+                        write_off.reshape(-1).long()])
+    same = (dest[:, :, None] == dest[:, None, :]).all(0)          # (N, N)
+    idx = torch.arange(same.shape[0], device=same.device)
+    return torch.where(same, idx[None, :], torch.full_like(same, -1,
+                                                           dtype=idx.dtype)
+                       ).amax(1)
+
+
 class Model:
-    """Attention-family decoder (dense FFN) or Mamba-2 stack: pure functions
-    over explicit params, on one device.
+    """Attention-family decoder (dense or MoE FFN) or Mamba-2 stack: pure
+    functions over explicit params, on one device.
 
     ``use_kernels`` (default True) sends every RMSNorm, the SSD chunk step
     and the training loss's full-sequence attention to their kernels (CUDA
@@ -77,12 +95,18 @@ class Model:
     held against on the card.  The serving attention kernels have their own
     switches (``chunk_attn_impl``, the decode step's ``attn_impl``).
     ``attn_chunk`` sizes the query and key chunks of the plain
-    ``chunked_attention``.
+    ``chunked_attention``.  ``moe_groups`` and ``pad_experts_to`` are the
+    reference's MoE options: the dispatch groups of every MoE call except
+    the single-token decode steps (which use one group, as the
+    reference's), and padding experts the router never picks.
+    ``moe_tap`` (None) is passed to every MoE call as ``apply_moe``'s
+    measurement hook.
     """
 
     def __init__(self, cfg: ArchConfig, *, kv_dtype: str = "bfloat16",
                  chunk_attn_impl: str = "masked", attn_chunk: int = 1024,
                  ssd_chunk: int = 256, use_kernels: bool = True,
+                 moe_groups: int = 1, pad_experts_to: int = 0,
                  device=None):
         if chunk_attn_impl not in ("masked", "flash"):
             raise ValueError(f"chunk_attn_impl={chunk_attn_impl!r} "
@@ -91,20 +115,22 @@ class Model:
             raise NotImplementedError(
                 f"family={cfg.family} (enc_dec={cfg.is_encoder_decoder}, "
                 f"moe={cfg.has_moe}) is not ported yet: ROADMAP.md Queue 1 "
-                "item 13 (MoE, hybrid, encoder-decoder)")
+                "item 13 (hybrid, encoder-decoder)")
         self.cfg = cfg
         self.chunk_attn_impl = chunk_attn_impl
         self.attn_chunk = attn_chunk
         self.ssd_chunk = ssd_chunk
         self.use_kernels = use_kernels
+        self.moe_groups = moe_groups
+        self.pad_experts_to = pad_experts_to
+        self.moe_tap = None
         self.kv_dtype = kv_dtype
         self.dtype = dtype_of(cfg.param_dtype)
         self.device = resolve_device(device)
 
     @staticmethod
     def supports_family(cfg: ArchConfig) -> bool:
-        return (cfg.family != "hybrid" and not cfg.is_encoder_decoder
-                and not cfg.has_moe)
+        return cfg.family != "hybrid" and not cfg.is_encoder_decoder
 
     def _norm(self, p, x):
         return L.apply_norm(self.cfg, p, x, use_kernel=self.use_kernels)
@@ -131,7 +157,8 @@ class Model:
 
     def _init_layer(self, generator):
         """One layer in the reference's layout (``_init_sublayer``): ``ln1``
-        and the mixer, then ``ln2`` and ``ffn`` unless ``d_ff == 0``."""
+        and the mixer, then ``ln2`` and the dense or MoE ``ffn`` unless
+        ``d_ff == 0``."""
         cfg, dtype, dev = self.cfg, self.dtype, self.device
         p = {"ln1": L.init_norm(cfg, cfg.d_model, dtype, dev)}
         if cfg.layer_kind(0) == "ssm":
@@ -141,6 +168,10 @@ class Model:
         if cfg.ffn_kind(0) == "dense":
             p["ln2"] = L.init_norm(cfg, cfg.d_model, dtype, dev)
             p["ffn"] = L.init_ffn(cfg, generator, dtype, dev)
+        elif cfg.ffn_kind(0) == "moe":
+            p["ln2"] = L.init_norm(cfg, cfg.d_model, dtype, dev)
+            p["ffn"] = L.init_moe(cfg, generator, dtype, dev,
+                                  self.pad_experts_to)
         return p
 
     # --------------------------------------------------------------- embed
@@ -152,11 +183,19 @@ class Model:
                 else params["lm_head"])
         return h @ head
 
-    def _ffn_block(self, p_l, h):
+    def _ffn_block(self, p_l, h, groups=None):
+        """``h`` plus the layer's FFN of ``ln2(h)``, and the MoE aux loss
+        (None without experts).  An MoE dispatches in ``groups`` groups
+        (default ``moe_groups``; the decode steps pass 1)."""
         if "ffn" not in p_l:                # d_ff == 0: the mixer is all
-            return h
-        return h + L.apply_ffn(self.cfg, p_l["ffn"],
-                               self._norm(p_l["ln2"], h))
+            return h, None
+        x = self._norm(p_l["ln2"], h)
+        if self.cfg.ffn_kind(0) == "moe":
+            out, aux = L.apply_moe(self.cfg, p_l["ffn"], x,
+                                   groups=groups or self.moe_groups,
+                                   tap=self.moe_tap)
+            return h + out, aux
+        return h + L.apply_ffn(self.cfg, p_l["ffn"], x), None
 
     # ------------------------------------------------------------ training
     def loss(self, params, batch):
@@ -189,12 +228,14 @@ class Model:
         """The attention-family decoder stack over whole sequences (the
         reference's non-hybrid, non-encoder-decoder branch): per layer
         ``ln1``, causal ``chunked_attention``, ``wo``, then the FFN block.
-        Returns ``(x, moe_aux, caches)``: aux is 0 (no experts in the
-        port); with ``want_cache``, caches is ``{"k", "v"}`` (L, B, S,
-        KVH, hd), every layer's projected keys and values, else None."""
+        Returns ``(x, moe_aux, caches)``: aux is the layers' MoE aux losses
+        summed (0 without experts); with ``want_cache``, caches is
+        ``{"k", "v"}`` (L, B, S, KVH, hd), every layer's projected keys and
+        values, else None."""
         cfg = self.cfg
         B, S = x.shape[:2]
         ks, vs = [], []
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for p_l in params["layers"]:
             h = self._norm(p_l["ln1"], x)
             q, k, v = L._project_qkv(cfg, p_l["attn"], h, positions)
@@ -202,14 +243,15 @@ class Model:
                 cfg, q, k, v, causal=True, q_chunk=self.attn_chunk,
                 kv_chunk=self.attn_chunk, use_kernel=self.use_kernels)
             x = x + attn.reshape(B, S, -1) @ p_l["attn"]["wo"]
-            x = self._ffn_block(p_l, x)
+            x, aux_l = self._ffn_block(p_l, x)
+            if aux_l is not None:
+                aux = aux + aux_l
             if want_cache:
                 ks.append(k)
                 vs.append(v)
         caches = ({"k": torch.stack(ks), "v": torch.stack(vs)}
                   if want_cache else None)
-        return (x, torch.zeros((), dtype=torch.float32, device=x.device),
-                caches)
+        return x, aux, caches
 
     # ------------------------------------------------------ chunked prefill
     def supports_chunked_prefill(self) -> bool:
@@ -280,7 +322,7 @@ class Model:
             vg = v_pool[tables].reshape(1, Smax, *v_pool.shape[2:])
             attn = self._chunk_attn(q, kg, vg, q_pos, kv_pos, start_vec)
             x = x + attn.reshape(1, C, -1) @ p_l["attn"]["wo"]
-            x = self._ffn_block(p_l, x)
+            x, _ = self._ffn_block(p_l, x)
         return self._last_logits(params, x, chunk_len)
 
     def _last_logits(self, params, x, chunk_len):
@@ -326,12 +368,14 @@ class Model:
         lens1 = (lengths + 1).to(torch.int32)
         tables_l = block_tables.long()
         n_pages = block_tables.shape[1]
+        src = _last_writer(wp, wo)      # inactive lanes share the scratch
         for li, p_l in enumerate(params["layers"]):
             k_pool, v_pool = kv["k"][li], kv["v"][li]
             h1 = self._norm(p_l["ln1"], x)
             q, k, v = L._project_qkv(cfg, p_l["attn"], h1, positions)
-            k_pool.index_put_((wp, wo), k[:, 0].to(k_pool.dtype))
-            v_pool.index_put_((wp, wo), v[:, 0].to(v_pool.dtype))
+            k, v = k[src, 0], v[src, 0]
+            k_pool.index_put_((wp, wo), k.to(k_pool.dtype))
+            v_pool.index_put_((wp, wo), v.to(v_pool.dtype))
             if attn_impl == "kernel":
                 attn = paged_attention(q[:, 0].contiguous(), k_pool, v_pool,
                                        block_tables, lens1)
@@ -342,7 +386,7 @@ class Model:
                                               *v_pool.shape[2:])
                 attn = L.decode_attention(cfg, q[:, 0], kg, vg, lens1)
             x = x + (attn.reshape(B, -1) @ p_l["attn"]["wo"])[:, None, :]
-            x = self._ffn_block(p_l, x)
+            x, _ = self._ffn_block(p_l, x, groups=1)
         x = self._norm(params["final_norm"], x[:, -1, :])
         return self._logits(params, x).float()
 
@@ -409,17 +453,20 @@ class Model:
         kv_pos = torch.arange(Smax, device=dev)[None, :]
         wp, wo = write_page.long(), write_off.long()
         tables = block_tables.long()
+        src = _last_writer(wp, wo)      # inactive lanes share the scratch
         for li, p_l in enumerate(params["layers"]):
             k_pool, v_pool = kv["k"][li], kv["v"][li]
             h1 = self._norm(p_l["ln1"], x)
             q, k, v = L._project_qkv(cfg, p_l["attn"], h1, q_pos)
+            k = k.reshape(B * K1, *k.shape[2:])[src].reshape(k.shape)
+            v = v.reshape(B * K1, *v.shape[2:])[src].reshape(v.shape)
             k_pool.index_put_((wp, wo), k.to(k_pool.dtype))
             v_pool.index_put_((wp, wo), v.to(v_pool.dtype))
             kg = k_pool[tables].reshape(B, Smax, *k_pool.shape[2:])
             vg = v_pool[tables].reshape(B, Smax, *v_pool.shape[2:])
             attn = self._chunk_attn(q, kg, vg, q_pos, kv_pos, start)
             x = x + attn.reshape(B, K1, -1) @ p_l["attn"]["wo"]
-            x = self._ffn_block(p_l, x)
+            x, _ = self._ffn_block(p_l, x)
         x = self._norm(params["final_norm"], x)
         return self._logits(params, x).float()
 
@@ -487,7 +534,7 @@ class Model:
             out, state = M.mamba_block(cfg, p_l["ssm"], h,
                                        chunk=self.ssd_chunk, return_state=True,
                                        use_kernel=self.use_kernels)
-            x = self._ffn_block(p_l, x + out)
+            x, _ = self._ffn_block(p_l, x + out)
             convs.append(state["conv"])
             ssms.append(state["ssm"])
         x_last = self._norm(params["final_norm"], x[:, -1, :])
@@ -542,7 +589,7 @@ class Model:
             attn = self._chunk_attn(q, k_l[None], v_l[None], q_pos, kv_pos,
                                     start_vec)
             x = x + attn.reshape(1, C, -1) @ p_l["attn"]["wo"]
-            x = self._ffn_block(p_l, x)
+            x, _ = self._ffn_block(p_l, x)
         return self._last_logits(params, x, chunk_len)
 
     # ------------------------------------------------------ packed prefill
@@ -613,7 +660,7 @@ class Model:
             k_cache[li].index_put_(dst, kg[src[:, None], rows[src]])
             v_cache[li].index_put_(dst, vg[src[:, None], rows[src]])
             x = x + attn.reshape(N, C, -1) @ p_l["attn"]["wo"]
-            x = self._ffn_block(p_l, x)
+            x, _ = self._ffn_block(p_l, x)
         return self._last_logits(params, x, chunk_len)
 
     @torch.no_grad()
@@ -653,7 +700,7 @@ class Model:
             vg = v_pool[tables].reshape(N, Smax, *v_pool.shape[2:])
             attn = self._chunk_attn(q, kg, vg, q_pos, kv_pos, start)
             x = x + attn.reshape(N, C, -1) @ p_l["attn"]["wo"]
-            x = self._ffn_block(p_l, x)
+            x, _ = self._ffn_block(p_l, x)
         return self._last_logits(params, x, chunk_len)
 
     # ------------------------------------------------------- dense decode
@@ -672,9 +719,13 @@ class Model:
         ``active`` (B,) bool, when given, limits the writes and the
         ``lengths`` advance to active lanes: an inactive lane's state or
         stripe (a request prefilled this iteration, or a free lane) is left
-        as it was.  Without it every lane advances, as the reference's
-        ``decode_step`` (a lane at ``lengths == Smax`` writes nothing, as
-        the reference's scatter drops it)."""
+        as it was.  An attention-family inactive lane still attends its new
+        K/V, written before attention as the reference's step writes every
+        lane and put back after it: an MoE lane's expert choices, and with
+        them the capacity its step's other tokens get, follow from that
+        attention.  Without ``active`` every lane advances, as the
+        reference's ``decode_step`` (a lane at ``lengths == Smax`` writes
+        nothing, as the reference's scatter drops it)."""
         x = self._embed_in(params, tokens)                      # (B, 1, D)
         if self.cfg.family == "ssm":
             x = self._ssm_decode_layers(params, cache, x, active)
@@ -691,26 +742,25 @@ class Model:
         lengths = cache["lengths"]
         Smax = cache["k"].shape[2]
         lanes = torch.arange(B, device=x.device)
-        keep = lengths < Smax
-        if active is not None:
-            keep = keep & active
+        inside = (lengths < Smax).view(B, 1, 1)
+        keep = inside if active is None else inside & active.view(B, 1, 1)
         pos = lengths.clamp(max=Smax - 1).long()
-        keep = keep.view(B, 1, 1)
         lens1 = lengths + 1
-
-        def write(dst, src):             # dst (B, Smax, KVH, hd) in place
-            old = dst[lanes, pos]
-            dst[lanes, pos] = torch.where(keep, src.to(dst.dtype), old)
 
         for li, p_l in enumerate(params["layers"]):
             kc, vc = cache["k"][li], cache["v"][li]
             h1 = self._norm(p_l["ln1"], x)
             q, k, v = L._project_qkv(cfg, p_l["attn"], h1, lengths[:, None])
-            write(kc, k[:, 0])
-            write(vc, v[:, 0])
+            new = ((kc, k[:, 0]), (vc, v[:, 0]))
+            old = [dst[lanes, pos] for dst, _ in new]
+            for (dst, src), o in zip(new, old):
+                dst[lanes, pos] = torch.where(inside, src.to(dst.dtype), o)
             attn = L.decode_attention(cfg, q[:, 0], kc, vc, lens1)
+            if active is not None:       # inactive lanes keep their K/V
+                for (dst, src), o in zip(new, old):
+                    dst[lanes, pos] = torch.where(keep, src.to(dst.dtype), o)
             x = x + (attn.reshape(B, -1) @ p_l["attn"]["wo"])[:, None, :]
-            x = self._ffn_block(p_l, x)
+            x, _ = self._ffn_block(p_l, x, groups=1)
         return x
 
     def _ssm_decode_layers(self, params, cache, x, active):
@@ -730,7 +780,7 @@ class Model:
                                            use_kernel=self.use_kernels)
             write(state["conv"], new["conv"])
             write(state["ssm"], new["ssm"])
-            x = self._ffn_block(p_l, x + out[:, None, :])
+            x, _ = self._ffn_block(p_l, x + out[:, None, :], groups=1)
         return x
 
     def decode_step_sampled(self, params, cache, tokens, active, new_gen,
@@ -766,7 +816,9 @@ class Model:
         Two differences from the reference, whose scatter writes every
         lane and silently drops positions past Smax: a position at or past
         Smax is dropped explicitly, and with ``active`` given an inactive
-        lane writes nothing.  Row ``i`` goes to ``(lengths + i) mod Smax``
+        lane keeps its stripe (it attends its new K/V all the same, put back
+        after attention, as :meth:`decode_step` does).  Row ``i`` goes to
+        ``(lengths + i) mod Smax``
         with the new value where it lands and the old one otherwise, so
         the K1 indices of a lane are distinct (K1 <= Smax) and no host
         value is baked into a captured graph.  Returns logits (B, K1, V)
@@ -782,20 +834,24 @@ class Model:
         kv_pos = torch.arange(Smax, device=dev)[None, :]
         lanes = torch.arange(B, device=dev)[:, None]
         rows = q_pos % Smax
-        keep = q_pos < Smax
-        if active is not None:
-            keep = keep & active[:, None]
-        keep = keep[..., None, None]
+        inside = (q_pos < Smax)[..., None, None]
+        keep = (inside if active is None
+                else inside & active[:, None, None, None])
         for li, p_l in enumerate(params["layers"]):
             kc, vc = cache["k"][li], cache["v"][li]
             h1 = self._norm(p_l["ln1"], x)
             q, k, v = L._project_qkv(cfg, p_l["attn"], h1, q_pos)
-            for dst, new in ((kc, k), (vc, v)):
-                dst[lanes, rows] = torch.where(keep, new.to(dst.dtype),
-                                               dst[lanes, rows])
+            new = ((kc, k), (vc, v))
+            old = [dst[lanes, rows] for dst, _ in new]
+            for (dst, src), o in zip(new, old):
+                dst[lanes, rows] = torch.where(inside, src.to(dst.dtype), o)
             attn = self._chunk_attn(q, kc, vc, q_pos, kv_pos, start)
+            if active is not None:       # inactive lanes keep their K/V
+                for (dst, src), o in zip(new, old):
+                    dst[lanes, rows] = torch.where(keep, src.to(dst.dtype),
+                                                   o)
             x = x + attn.reshape(B, K1, -1) @ p_l["attn"]["wo"]
-            x = self._ffn_block(p_l, x)
+            x, _ = self._ffn_block(p_l, x)
         x = self._norm(params["final_norm"], x)
         return self._logits(params, x).float()
 

@@ -80,7 +80,7 @@ def test_paged_attention_kernel(dev, B, H, KVH, d, page, npages, maxp, dtype):
                                rtol=_tol(dtype))
 
 
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 6, 8])
 @pytest.mark.parametrize("page", [16, 32, 64])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -268,10 +268,11 @@ def _check_bf16_attention(out, plain, truth, absv, sdpa):
 
 # the bf16 Hopper body: chunks of 1, 16, 256 and 2048 at start 0 and ending
 # at Smax (2100, not a multiple of the 64-key tile), and a batch of two at
-# both starts; GQA groups 1, 4 and 8 packed into the 64-row tile; d 64, 128
+# both starts; GQA groups 1-8 packed into the 64-row tile (the configs'
+# 1, 2, 3, 4, 6, 8: 64 // G positions a head, 64 % G rows idle); d 64, 128
 @pytest.mark.parametrize("C", [1, 16, 256, 2048])
 @pytest.mark.parametrize("where", ["start0", "at_smax", "mixed"])
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 6, 8])
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_prefill_prefix_bf16_sweep(dev, C, where, G, d):
     from repro_torch.kernels.flash_prefill import (flash_prefill_prefix,
@@ -470,12 +471,13 @@ def test_fused_rmsnorm_kernel(dev, T, d, dtype, scale_dtype):
 
 
 # 16-byte and scalar instances: the serving widths at a decode batch of 8
-# and a 1024-row prefill, widths that are no multiple of the vector (1000 is
-# one for bf16, 100 only for f32), a row too long to stay in registers
-# (40000), and contiguous (T, d) views at an odd row offset of a larger
+# and a 1024-row prefill (granite-moe's 1536 at a 256-row chunk), widths
+# that are no multiple of the vector (1000 is one for bf16, 100 only for
+# f32), a row too long to stay in registers (40000), and contiguous (T, d) views at an odd row offset of a larger
 # buffer (d 1001: misaligned rows in both dtypes; d 100: aligned in f32)
 @pytest.mark.parametrize("T,d,offset", [
     (8, 4096, 0), (8, 2560, 0), (8, 5120, 0), (1024, 5120, 0),
+    (8, 1536, 0), (256, 1536, 0),
     (256, 4096, 0), (9, 1000, 0), (3, 100, 0), (2, 40000, 0), (5, 1001, 1),
     (8, 100, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -871,11 +873,13 @@ def test_dense_granite_kernel_path_matches_plain(dev):
 
 def _graph_model(dev, family):
     """The smoke config of a family in bf16, the serving dtype; granite's
-    with heads of 64 (the flash kernel's head dims)."""
+    and granite-moe's with heads of 64 (the flash kernel's head dims)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import Model
     if family == "ssm":
         cfg = get_smoke_config("mamba2-2.7b")
+    elif family == "moe":
+        cfg = get_smoke_config("granite-moe-3b-a800m").scaled(head_dim=64)
     else:
         cfg = get_smoke_config("granite-3-8b").scaled(head_dim=64)
     model = Model(cfg, kv_dtype="bfloat16", chunk_attn_impl="flash",
@@ -1040,6 +1044,66 @@ def test_zero_captures_after_warmup_on_the_card(dev, backend):
             == len(eng.iter_times))
 
 
+@pytest.mark.parametrize("backend", ["paged", "dense"])
+def test_moe_engine_graphed_equals_eager(dev, backend):
+    """A warmed engine of the smoke MoE config (capacity factor 1.25: an
+    inactive lane's routed token competes with the active ones, and the
+    paged backend's inactive lanes share the scratch page) serves a staged
+    trace with swaps on a virtual clock, graphed and eagerly, on the same
+    plan (the graphed engine's measured chunk costs given to the eager
+    one): greedy tokens equal bit for bit, no capture or library load
+    while the graphed engine serves, every decode step a replay."""
+    from repro_torch.core.engine import EngineConfig, ServingEngine
+    from repro_torch.core.predictor import OraclePredictor
+    from repro_torch.core.quantization import kv_bytes_per_token
+    from repro_torch.core.request import Request, reset_request_counter
+    from repro_torch.utils.compile_counter import CompileCounter
+    model, params = _graph_model(dev, "moe")
+    cfg = model.cfg
+    bpt = kv_bytes_per_token(cfg.num_layers, cfg.num_kv_heads, cfg.hd)
+
+    def run(graphs, costs=None):
+        eng = ServingEngine(model, params, EngineConfig(
+            max_slots=4, max_seq_len=64, max_new_tokens=24,
+            strategy="alise", quantize_offload=False,
+            hbm_bytes=2 * 40 * bpt, kv_backend=backend, page_size=16,
+            paged_attn_impl="kernel", prefill_chunk=16,
+            iter_token_budget=24, eos_token=-1, warmup_compile=True,
+            cuda_graphs=graphs), predictor=OraclePredictor())
+        if costs is not None:
+            eng.latency.bucket_costs = dict(costs)
+        w = eng.warm_stats
+        reset_request_counter()
+        rng = np.random.default_rng(5)
+        reqs = [Request(prompt_len=p, arrival_time=0.0, true_out_len=o,
+                        prompt_tokens=rng.integers(2, 512, p).tolist())
+                for p, o in zip((7, 30, 9, 17, 3, 12), (20, 20, 4, 6, 3, 5))]
+        counter = CompileCounter()
+        t = 0.0
+        with counter.expect_no_compiles(f"moe serve[{backend}]"):
+            for r in reqs[:2]:
+                eng.submit(r, t)
+            for _ in range(5):
+                eng.step(t)
+                t += 0.1
+            for r in reqs[2:]:
+                eng.submit(r, t)
+            while eng.sched.live:
+                eng.step(t)
+                t += 0.1
+        counter.detach()
+        assert all(r.done for r in reqs)
+        if graphs:
+            assert (eng.kv.graphs.replays["decode"] - w["replays"]["decode"]
+                    == len(eng.iter_times))
+        return [list(r.output_tokens) for r in reqs], eng
+
+    graphed, eng = run(True)
+    eager, _ = run(False, eng.latency.bucket_costs)
+    assert graphed == eager
+    assert eng.warm_stats["captures"] > 0
+
+
 # ------------------------------------------------- packed prefill on the card
 
 # per bucket C, each pack row's chunk length (the last row is padding)
@@ -1047,7 +1111,7 @@ PACK_LENS = {256: [256, 200, 17, 0], 32: [32, 25, 17, 0], 16: [16, 9, 1, 0]}
 
 
 @pytest.mark.parametrize("C", sorted(PACK_LENS))
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 6, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_prefill_prefix_pack_rows(dev, G, dtype, C):
     """The prefix flash kernel at a pack's shape: B = 4 rows at mixed
@@ -1151,19 +1215,22 @@ def test_graphed_pack_equals_eager_pack(dev, backend):
 
 @pytest.mark.parametrize("C", [2, 4, 8])
 @pytest.mark.parametrize("Smax", [2048, 2064])
-def test_flash_prefill_prefix_verify_shape(dev, C, Smax):
+@pytest.mark.parametrize("G,d", [(4, 128), (2, 128), (3, 64), (6, 128)])
+def test_flash_prefill_prefix_verify_shape(dev, C, Smax, G, d):
     """The prefix flash kernel at the verify step's shape on granite: B 8
     lanes of C = spec_k + 1 queries, H 32, KVH 8, d 128, bf16, ragged
     starts up to Smax - C (2064 = 129 pages of 16, the paged verify's
     gathered stripe: its last key tile is partial), q, k and v as the
     transposed views the model passes.  Held against the plain version by
     the derived bf16 bound, through the wgmma body (and its merge when the
-    plan splits the keys)."""
+    plan splits the keys).  Also at the other configs' groups and head
+    dims: internvl2's G 2, granite-moe's G 3 with d 64, dbrx's G 6."""
     from repro_torch.kernels.flash_prefill import (flash_prefill_prefix,
                                                    flash_prefill_prefix_ref,
                                                    plan)
-    B, H, KVH, d = 8, 32, 8, 128
-    rng = np.random.default_rng(C * 10 + Smax)
+    B, KVH = 8, 8
+    H = G * KVH
+    rng = np.random.default_rng(C * 10 + Smax + G)
     q = _randn(rng, (B, C, H, d), torch.bfloat16, dev).transpose(1, 2)
     k = _randn(rng, (B, Smax, KVH, d), torch.bfloat16, dev).transpose(1, 2)
     v = _randn(rng, (B, Smax, KVH, d), torch.bfloat16, dev).transpose(1, 2)

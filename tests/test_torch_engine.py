@@ -308,7 +308,8 @@ def test_serve_launcher_on_cpu():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter (this test process has JAX loaded): import
-    the port's package, engine, model, Mamba-2 block, kernels, configs,
+    the port's package, engine, model (its MoE layers too), Mamba-2
+    block, kernels, all ten configs,
     sampler, kv_cache, the online length predictor, the prefix cache, the
     step graphs, the draft sources, the observability bus and its
     exporters, the compile counter, training modules, gradient
@@ -344,6 +345,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.serving.gateway\n"
         "import repro_torch.serving.gateway.server\n"
         "import repro_torch.configs.paper_models\n"
+        "from repro_torch.configs import ASSIGNED_ARCHS, get_config\n"
+        "for name in ASSIGNED_ARCHS:\n"
+        "    get_config(name)\n"
+        "from repro_torch.models.layers import apply_moe, init_moe\n"
         "from repro_torch.core.simulator import run_sim\n"
         "run_sim(duration=2.0, rate=2.0, prefix_cache=True, kv_tier=True,\n"
         "        pretrain_requests=16)\n"

@@ -94,7 +94,7 @@ def _old_paged_prefill_chunk(model, params, kv, tokens, block_tables,
         vg = v_pool[tables].reshape(1, Smax, *v_pool.shape[2:])
         attn = model._chunk_attn(q, kg, vg, q_pos, kv_pos, start_vec)
         x = x + attn.reshape(1, C, -1) @ p_l["attn"]["wo"]
-        x = model._ffn_block(p_l, x)
+        x, _ = model._ffn_block(p_l, x)
     last = min(max(chunk_len - 1, 0), C - 1)
     return model._logits(params, model._norm(params["final_norm"],
                                              x[:, last])).float()
@@ -120,7 +120,7 @@ def _old_prefill_chunk(model, params, k_stripe, v_stripe, tokens, start,
         attn = model._chunk_attn(q, k_l[None], v_l[None], q_pos, kv_pos,
                                  start_vec)
         x = x + attn.reshape(1, C, -1) @ p_l["attn"]["wo"]
-        x = model._ffn_block(p_l, x)
+        x, _ = model._ffn_block(p_l, x)
     last = min(max(chunk_len - 1, 0), C - 1)
     return model._logits(params, model._norm(params["final_norm"],
                                              x[:, last])).float()

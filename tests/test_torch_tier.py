@@ -512,39 +512,53 @@ def test_tier_events_gauges_and_prometheus(setup):
 def test_realtime_swap_adds_stall_time(setup):
     """``realtime_swap`` charges a swap and a tier import their modeled
     transfer time (less the copy's own), and ``step`` sleeps it off after
-    releasing ``step_lock``; off, nothing is charged."""
+    releasing ``step_lock``; off, nothing is charged.  The copies are timed
+    here around the calls, so the bounds hold however loaded the host is:
+    the debt lies between the modeled time less those walls and the
+    modeled time (a missing charge falls below, a double one above), and
+    the bandwidth is low enough that the modeled time dwarfs a copy."""
     cfg = setup[0]
+    bw = 5e4
     p1, _ = _prompts(cfg, 7, n1=30)
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t0
+
     for on in (False, True):
         port_request.reset_request_counter()
         eng = _engine(setup, kv_backend="paged", realtime_swap=on,
-                      swap_bw=2e6)
+                      swap_bw=bw)
         r = port_request.Request(prompt_len=30, arrival_time=0.0,
                                  true_out_len=8, prompt_tokens=list(p1))
         eng.submit(r, 0.0)
         eng.step(0.0)
-        eng._offload(r)
+        _, wall_off = timed(eng._offload, r)
         n = eng.host_pool[r.req_id]["lengths"]
         debt = eng._stall_debt
-        eng._upload(r)
+        _, wall_up = timed(eng._upload, r)
         assert n > 0
         assert (debt > 0) == on and (eng._stall_debt > debt) == on
-        want = 2 * n * eng.mem.cfg.bytes_per_token_fp / 2e6
+        one = n * eng.mem.cfg.bytes_per_token_fp / bw
         if on:
-            assert want * 0.5 < eng._stall_debt <= want
+            assert one - wall_off <= debt <= one
+            assert 2 * one - wall_off - wall_up <= eng._stall_debt <= 2 * one
+        owed = eng._stall_debt
         t0 = time.perf_counter()
         eng.step(0.1)
         assert eng._stall_debt == 0.0
-        if on:
-            assert time.perf_counter() - t0 >= want * 0.5
+        assert time.perf_counter() - t0 >= owed
     tier = HostKVTier(64e6, page_size=PAGE)
     e0 = _engine(setup, tier, kv_backend="paged")
     e0.serve([port_request.Request(prompt_len=30, arrival_time=0.0,
                                    true_out_len=2, prompt_tokens=list(p1))])
     e1 = _engine(setup, tier, kv_backend="paged", realtime_swap=True,
-                 swap_bw=2e6)
-    assert e1._tier_import(99, p1, 0.0) == 24
-    assert e1._stall_debt > 0.5 * tier.probe_bytes(p1, 29)[1] / 2e6
+                 swap_bw=bw)
+    got, wall = timed(e1._tier_import, 99, p1, 0.0)
+    assert got == 24
+    want = tier.probe_bytes(p1, 29)[1] / bw
+    assert want - wall <= e1._stall_debt <= want
 
 
 # ---------------------------------------------------- across frameworks
