@@ -255,6 +255,37 @@ the final line:
      kernels in (d)); it prints tokens/s, TTFT p50 (wall), decode p50 and
      the share of decode steps' (token, k) assignments dropped (counted
      through ``Model.moe_tap`` in the eager serve).
+ 25. the encoder-decoder family and the embeds input, after phase 24's
+     model is freed: seamless-m4t-large-v2 at full width and depth (24 +
+     24 layers, d_model 1024, 16 heads of 64, d_ff 8192, vocab 256206,
+     LayerNorm, gelu; random bf16 weights from a seed).  (a) one request
+     of 4096 speech frames through ``Model.prefill`` and 4 dense decode
+     steps, the kernel path (the flash kernel, bidirectional in the
+     encoder, causal in the decoder's prefill) against the plain path:
+     at full width and 2 + 2 layers in f32 (relative L2 < 1e-3, equal
+     greedy tokens), and the full bf16 model (<= 0.05); (b) the serving
+     path the reference's dense KV backend runs (its engine cannot
+     prefill an encoder-decoder, and the port's refuses one): 8 requests
+     of 4096 frames (``cross_kv_len``) with a 1-token decoder start and
+     outputs of 16-64 tokens through 8 lanes of ``max_seq_len`` 128, each
+     ``Model.prefill``ed alone and placed by ``write_prefill``, then fused
+     decode steps as a CUDA graph until every request ends, one lane
+     offloaded and uploaded at step 8 (k/v INT8 through the kv_quant
+     kernels, the 4096-frame xk/xv raw): all finish, 48 flash launches a
+     request, the swap's blob kinds, every step a replay, and the same
+     serve with eager steps equal bit for bit; tokens/s, decode p50,
+     prefill ms per request, the swap's bytes and times; then one
+     prefill profiled, and the graphed decode step at full batch
+     profiled (busy time) beside the
+     cross-attention's device time alone and the step's bytes bound
+     (decoder and head weights plus the lanes' cross caches); (c)
+     internvl2-2b at full width and depth fed 4 rows of 1024 patch
+     embeddings, right-padded, with ``last_index``: kernel path against
+     plain path (<= 0.05), and ``embeds = embed[tokens]`` equal to the
+     token path bit for bit; (d) ``launch/train.train`` on seamless at
+     full width and depth in f32, batch 2 x 1024, 3 AdamW steps: losses
+     finite, the flash kernel and its (plain, recomputed) backward once
+     per layer and step; ms/step and peak memory.
 
 The serve phases 5, 6, 9, 10, 16, 17, 20, 21, 22 (b), 23 and 24 run warmed engines
 (every step graph captured and every kernel library loaded before the
@@ -272,7 +303,13 @@ flash kernel (bf16) at granite-moe's decode shape (B 8, H 24, KVH 8, d
 64: G 3, pages of 16, lengths 1..2048) and its 256-token chunk at 1000,
 the INT8 quantize and dequantize at granite-moe's swap rows (86,016 of
 64) and the RMSNorm at its width 1536 (the kernels line's ``moe_shape``;
-gated as granite's rows), and holds the prefix
+gated as granite's rows), the prefix flash kernel at stablelm-3b's head
+dim 80 (H = KVH = 32, bf16, C 256 at 1000) and the full-sequence one at
+its training shape (f32 causal, B 4, S 1024; both ``stablelm_shape``,
+gated as granite's rows, each beside the d-128 body at the same heads
+and shape, ``d128_ms``), the full-sequence kernel at seamless's encoder
+(bf16 bidirectional, B 1, H 16, S 4096, d 64; ``seamless_shape``, gated
+as granite's rows), and holds the prefix
 flash kernel at the verify step's shape (B 8, C 4, starts 60..2040,
 Smax 2048 and 2064, the last key tile of 2064
 partial: the bf16 bound, the wgmma body and its merge, its time, bound,
@@ -302,9 +339,9 @@ phase 18 (the INT8 paged attention), mamba's phases 9 and 10 (the RMSNorm
 and SSD chunk kernels must have launched, every SSD call through the
 tensor-core body) and training's phase 13 (the
 flash and RMSNorm kernels must have launched); then phase 19's two packs
-and phase 20's and phase 21's two serves each, phase 22, phase 23 (a) and
-phase 24's serves (c)-(e), each counted from 0 and added to the kernels
-line's launches.  Each phase
+and phase 20's and phase 21's two serves each, phase 22, phase 23 (a),
+phase 24's serves (c)-(e) and phase 25's serve (b) and training (d),
+each counted from 0 and added to the kernels line's launches.  Each phase
 prints its seconds.  Then a ``kernels`` JSON line (each row also names
 the ``csrc`` headers its source includes), the card's name and
 power limit, and the final ``{"ok": true, "device": {...}}`` line.  Needs
@@ -623,13 +660,16 @@ FLASH_PREFIX_CASES = (("float32", 256, 1000), ("bfloat16", 16, 0),
                       ("bfloat16", 256, 1000))
 
 
-def check_flash_prefix(torch, dev, H=32, d=128, cases=FLASH_PREFIX_CASES):
+def check_flash_prefix(torch, dev, H=32, d=128, cases=FLASH_PREFIX_CASES,
+                       KVH=8):
     """The prefix kernel at granite's chunk shapes (B 1, H 32, KVH 8, d
     128, Smax 2048, strided k/v as the serve path passes them): f32 (the
     FMA body, 2e-5) and bf16 (the wgmma body: the derived element-wise
     bound, the float32-truth check against SDPA, 5e-2) at chunks of 16 and
     256 at positions 0 and 1000; or at ``cases`` with granite-moe's heads
-    (``H`` 24, ``d`` 64: G 3, 21 rows of each head in the body's 64).  The
+    (``H`` 24, ``d`` 64: G 3, 21 rows of each head in the body's 64) or
+    stablelm-3b's (``H`` = ``KVH`` = 32, ``d`` 80: two 64-column panels,
+    the second zero past column 80).  The
     body counters name the bodies each takes (C 16 at 1000 splits its
     keys: body and merge).  SDPA with the position mask, pinned to one
     backend (printed), is the yardstick; the bf16 C 256 row at 1000 must be
@@ -638,12 +678,13 @@ def check_flash_prefix(torch, dev, H=32, d=128, cases=FLASH_PREFIX_CASES):
     Returns the bf16 C 256 row at position 1000."""
     from repro_torch.kernels.flash_prefill import (flash_prefill_prefix,
                                                    flash_prefill_prefix_ref)
-    B, KVH, Smax = 1, 8, 2048
+    B, Smax = 1, 2048
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     main = None
     for name, C, st in cases:
         dt = getattr(torch, name)
-        label = f"flash_prefill_prefix {name} H={H} d={d} C={C} start={st}"
+        label = (f"flash_prefill_prefix {name} H={H} KVH={KVH} d={d} C={C} "
+                 f"start={st}")
         q = torch.randn((B, H, C, d), generator=g, device=dev).to(dt)
         # k/v as the serve path passes them: transposed views of the
         # page-gathered (B, Smax, KVH, d) stripe
@@ -700,7 +741,7 @@ def check_flash_prefix(torch, dev, H=32, d=128, cases=FLASH_PREFIX_CASES):
         if name == "bfloat16" and C == 256 and st == 1000:
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms)
-            verdict(f"flash_prefill_prefix bf16 H={H} d={d} C=256 "
+            verdict(f"flash_prefill_prefix bf16 H={H} KVH={KVH} d={d} C=256 "
                     "start=1000", ms, mine, lib_ms, theirs, f"SDPA {backend}",
                     b_ms)
         del q, k, v, out, ref
@@ -854,28 +895,35 @@ def check_flash_prefix_verify(torch, dev):
     return rows
 
 
-def check_flash_prefill(torch, dev):
+# granite's training shape first (the row the kernels line reports), then
+# bidirectional, bf16, a ragged S, d 64 and one serving prompt of 2048
+FLASH_FULL_CASES = (("float32", 4, 1024, 128, True),
+                    ("float32", 4, 1024, 128, False),
+                    ("bfloat16", 4, 1024, 128, True),
+                    ("float32", 4, 1000, 128, True),
+                    ("float32", 4, 1024, 64, False),
+                    ("bfloat16", 1, 2048, 128, True))
+
+
+def check_flash_prefill(torch, dev, H=32, KVH=8, cases=FLASH_FULL_CASES):
     """The full-sequence flash kernel at the training path's shape (B 4,
     H 32, KVH 8, S 1024, d 128, the (B, S, H, d) projections viewed as
     (B, H, S, d) without a copy): f32 causal and bidirectional (2e-5, the
-    FMA body), bf16 causal (the wgmma body, held as
+    3xTF32 body), bf16 causal (the wgmma body, held as
     :func:`check_bf16_attention` holds it), a ragged S of 1000 and d 64
     bidirectional (f32, 2e-5), and bf16 causal at B 1, S 2048 (one prompt
-    of ``Model.prefill``'s largest serving bucket).  SDPA pinned to its
-    flash backend is the yardstick.  The bound counts the visible (query,
-    key) pairs: 4 d flops each.  Returns the f32 causal row, the shape
-    training runs."""
+    of ``Model.prefill``'s largest serving bucket); or ``cases`` at other
+    heads (stablelm-3b's training shape, H = KVH = 32, d 80; seamless's
+    encoder, bf16 bidirectional, H = KVH = 16, S 4096, d 64).  SDPA pinned
+    to one backend is the yardstick; the first case must be no slower
+    (:func:`verdict`).  The bound counts the visible (query, key) pairs: 4
+    d flops each.  Returns the first case's row (granite's: the shape
+    training runs)."""
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    flash_prefill_ref)
-    H, KVH = 32, 8
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
     main = None
-    for name, B, S, d, causal in (("float32", 4, 1024, 128, True),
-                                  ("float32", 4, 1024, 128, False),
-                                  ("bfloat16", 4, 1024, 128, True),
-                                  ("float32", 4, 1000, 128, True),
-                                  ("float32", 4, 1024, 64, False),
-                                  ("bfloat16", 1, 2048, 128, True)):
+    for name, B, S, d, causal in cases:
         dt = getattr(torch, name)
 
         def mk(heads):
@@ -1626,7 +1674,7 @@ def _is_kernel(torch, e) -> bool:
             and not getattr(e, "is_user_annotation", False))
 
 
-def profile_step(torch, label: str, step, n: int = 5, watch=()) -> None:
+def profile_step(torch, label: str, step, n: int = 3, watch=()) -> None:
     """One line on where ``step``'s time goes: host wall ms per call
     without the profiler (``n`` calls, synchronized) and the device span
     of a call (CUDA events recorded before and after it on the stream,
@@ -1636,8 +1684,11 @@ def profile_step(torch, label: str, step, n: int = 5, watch=()) -> None:
     name holds one of ``watch`` (fails when such a kernel never ran).
     The profiler records the device's activity alone: every figure here
     is a device event's, and an eager step's host ops made the event list
-    cost 5-8 s a profile.  The line ends with the profile's cost (timed
-    calls, profiler session, event list)."""
+    cost 5-8 s a profile.  The kernels are read from the profiler's raw
+    events, not ``prof.events()``, whose tree of FunctionEvents cost 1.3-1.9
+    s more a profile.  The line ends with the profile's cost (timed calls,
+    profiler session, event list).  Returns the busy ms per call
+    (None when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
     t_begin = time.perf_counter()
     for _ in range(2):
@@ -1660,11 +1711,13 @@ def profile_step(torch, label: str, step, n: int = 5, watch=()) -> None:
         torch.cuda.synchronize()
     t_profiled = time.perf_counter()
     by_kernel = {}
-    for e in prof.events():
-        if _is_kernel(torch, e):
-            name = _kernel_name(e.name)
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == cuda and not e.is_user_annotation()
+                and not getattr(e, "is_hidden_event", lambda: False)()):
+            name = _kernel_name(e.name())
             by_kernel[name] = (by_kernel.get(name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3 / n)
+                               + e.duration_ns() / 1e6 / n)
     busy = sum(by_kernel.values())
     cost = (f"; cost: timed {t_timed - t_begin:.1f}s, profiled "
             f"{t_profiled - t_timed:.1f}s, events "
@@ -1673,7 +1726,7 @@ def profile_step(torch, label: str, step, n: int = 5, watch=()) -> None:
         print(f"[profile] {label}: wall {wall:.2f} ms, device span "
               f"{span:.2f} ms; the profiler saw no device time (device busy "
               "not measured)", flush=True)
-        return
+        return None
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
     seen = [(k, v) for k, v in sorted(by_kernel.items())
             if any(w in k for w in watch)]
@@ -1689,6 +1742,7 @@ def profile_step(torch, label: str, step, n: int = 5, watch=()) -> None:
                     for k, v in seen)
           + (f"; watched together {watched:.2f} ms ({watched / busy:.1%})"
              if len(seen) > 1 else "") + cost, flush=True)
+    return busy
 
 
 def phase_profile(torch, model, params):
@@ -1751,19 +1805,22 @@ def phase_profile(torch, model, params):
         torch.cuda.empty_cache()
 
 
-def engine_decode(model, params, backend, cuda_graphs, ctx):
+def engine_decode(model, params, backend, cuda_graphs, ctx,
+                  max_seq_len=2048):
     """A step for profiling a KV backend's fused decode step as the
     engine calls it (host inputs staged, tokens and reasons back on the
     host), with or without CUDA graphs: every lane active, lane i at
     context ``ctx[i]`` (paged: pages allocated; a step grows each lane by
     one token; dense granite: each call starts from ``ctx`` again),
-    greedy.  The first call captures the graph."""
+    greedy.  The first call captures the graph.  The step's ``kv``
+    attribute is its backend."""
     import torch
     from repro_torch.serving.kv_cache import (DenseKVBackend,
                                               KVBackendConfig, PagedKVBackend)
     B = len(ctx)
-    bcfg = KVBackendConfig(max_slots=B, max_seq_len=2048, page_size=16,
-                           attn_impl="kernel", cuda_graphs=cuda_graphs)
+    bcfg = KVBackendConfig(max_slots=B, max_seq_len=max_seq_len,
+                           page_size=16, attn_impl="kernel",
+                           cuda_graphs=cuda_graphs)
     if backend == "paged":
         kv = PagedKVBackend(model, bcfg, num_pages=B * 128)
         for i, c in enumerate(ctx):
@@ -1784,6 +1841,7 @@ def engine_decode(model, params, backend, cuda_graphs, ctx):
         if reset:
             kv.cache["lengths"].copy_(lens)
         return kv.decode(params, *args)
+    step.kv = kv
     return step
 
 
@@ -3724,7 +3782,7 @@ def phase_moe(torch, dev, kernels):
     reset_counts(kernels)
     counter = CompileCounter()
     eng = _moe_engine(model, params)
-    reqs = build_requests(cfg, 12, SEED, "full")
+    reqs = build_requests(cfg, PAGED_SERVE["n_requests"], SEED, "full")
     wall, first = virtual_serve(torch, eng, reqs)
     counts = read_counts(kernels)
     graph_gate("granite-moe paged serve (phase 24 c)", eng, counter, True)
@@ -3798,7 +3856,7 @@ def phase_moe(torch, dev, kernels):
             drops["dropped"] += (~keep).sum()
     eng = _moe_engine(model, params, graphs=False)
     eng.latency.bucket_costs = costs
-    ereqs = build_requests(cfg, 12, SEED, "full")
+    ereqs = build_requests(cfg, PAGED_SERVE["n_requests"], SEED, "full")
     model.moe_tap = tap
     try:
         ewall, efirst = virtual_serve(torch, eng, ereqs)
@@ -3832,6 +3890,456 @@ def phase_moe(torch, dev, kernels):
     torch.cuda.empty_cache()
     clock.lap("MoE profile (phase 24 f)")
     return launches
+
+
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+VLM_ARCH = "internvl2-2b"
+ENCDEC_F32_REL = 1e-3                   # (a): f32 kernel vs plain logits
+ENCDEC_SERVE = dict(requests=8, lanes=8, max_seq_len=128, swap_step=8)
+VLM_LENGTHS = (1024, 896, 640, 256)     # (c): each row's true patch count
+ENCDEC_TRAIN = dict(batch=2, seq=1024, steps=3)
+
+
+def _encdec_logits(torch, model, params, frames, start, toks=None):
+    """(logits (5, V) float32, tokens fed) of one request: ``Model.prefill``
+    of ``frames`` (1, T, D) and the 1-token decoder start ``start``, then 4
+    dense decode steps over a 1-lane cache of 16 positions fed ``toks``
+    (greedy from this run's logits when None)."""
+    dev = model.device
+    logits, pc = model.prefill(params, {
+        "enc_embeds": frames, "tokens": torch.tensor([[start]], device=dev)})
+    cache = model.init_cache(1, 16)
+    for key in ("k", "v"):
+        cache[key][:, :, :1] = pc[key]
+    for key in ("xk", "xv"):
+        cache[key].copy_(pc[key])
+    cache["lengths"].fill_(1)
+    rows, fed = [logits[0]], []
+    for i in range(4):
+        fed.append(int(rows[-1].argmax()) if toks is None else toks[i])
+        rows.append(model.decode_step(
+            params, cache, torch.tensor([[fed[-1]]], device=dev))[0])
+    return torch.stack(rows).float(), fed
+
+
+def _kernel_vs_plain(torch, label, model, params, frames, start):
+    """The kernel path (flash attention in the encoder and the decoder's
+    prefill) against the plain path (``use_kernels=False``) of one
+    request, both fed the kernel path's greedy tokens.  Returns (rel_l2,
+    argmax agreement)."""
+    model.use_kernels = True
+    a, fed = _encdec_logits(torch, model, params, frames, start)
+    model.use_kernels = False
+    b, _ = _encdec_logits(torch, model, params, frames, start, fed)
+    model.use_kernels = True
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        fail(f"phase 25 (a) {label}: non-finite logits")
+    rel = ((a - b).norm() / b.norm()).item()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    print(f"[encdec] (a) {ENCDEC_ARCH} {label}, 4096 frames, 5 logit rows: "
+          f"kernel vs plain path rel_l2={rel:.4g} argmax_agree={agree:.2f}",
+          flush=True)
+    return rel, agree
+
+
+def encdec_reference_check(torch, dev, model, params):
+    """Phase 25 (a): the kernel path against the plain path on one request
+    of 4096 speech frames drawn from the seed: at full width and 2 + 2
+    layers in float32 (relative L2 < 1e-3, equal greedy tokens), then the
+    full 24 + 24-layer bf16 ``model`` (relative L2 <= 0.05)."""
+    from repro_torch.models.model import Model
+    cfg = model.cfg
+    g = torch.Generator(device=dev).manual_seed(SEED + 25)
+    frames = torch.randn((1, cfg.cross_kv_len, cfg.d_model), generator=g,
+                         device=dev)
+    c32 = cfg.scaled(num_layers=2, num_encoder_layers=2,
+                     param_dtype="float32")
+    m32 = Model(c32, kv_dtype="float32", device=dev)
+    p32 = m32.init(torch.Generator(device=dev).manual_seed(SEED))
+    rel, agree = _kernel_vs_plain(torch, "f32, 2 + 2 layers", m32, p32,
+                                  frames, 5)
+    if not (rel < ENCDEC_F32_REL and agree == 1.0):
+        fail(f"phase 25 (a): f32 kernel path differs (rel_l2 {rel}, argmax "
+             f"agree {agree})")
+    del m32, p32
+    torch.cuda.empty_cache()
+    rel, _ = _kernel_vs_plain(torch, "bf16, 24 + 24 layers", model, params,
+                              frames.to(model.dtype), 5)
+    if not rel <= BF16_TOL:
+        fail(f"phase 25 (a): bf16 kernel path differs (rel_l2 {rel})")
+
+
+def _encdec_requests(torch, cfg, dev):
+    """(rid, frames (1, 4096, D) bf16, decoder start token, output length
+    16..64) of phase 25 (b)'s requests, drawn from the seed."""
+    rng = np.random.default_rng(SEED + 25)
+    g = torch.Generator(device=dev).manual_seed(SEED + 26)
+    return [(rid, torch.randn((1, cfg.cross_kv_len, cfg.d_model),
+                              generator=g, device=dev).to(torch.bfloat16),
+             int(rng.integers(2, cfg.vocab_size)),
+             int(rng.integers(16, 65)))
+            for rid in range(ENCDEC_SERVE["requests"])]
+
+
+def _blob_bytes(blob) -> int:
+    """Bytes of an offload blob: INT8 codes with their scales and zeros,
+    or a raw tensor."""
+    n = 0
+    for key, item in blob.items():
+        if key == "lengths":
+            continue
+        kind, payload = item
+        parts = payload[:3] if kind == "q8" else (payload,)
+        n += sum(t.numel() * t.element_size() for t in parts)
+    return n
+
+
+def encdec_serve(torch, model, params, reqs, graphs: bool):
+    """Phase 25 (b)'s serve through a ``DenseKVBackend`` as the reference's
+    backend path runs an encoder-decoder (the engine cannot prefill one):
+    each request ``Model.prefill``ed alone when a lane is free (its first
+    token the prefill's greedy one) and placed by ``write_prefill``, then
+    fused decode steps over all lanes (the step graph ``("decode",)``
+    when ``graphs``) until every request ends (EOS or its output length);
+    at decode step ``swap_step`` the lowest-numbered live request is
+    offloaded (k/v as INT8 through ``kv_quantize``, xk/xv raw) and
+    uploaded (``kv_dequantize``).  Returns ({rid: tokens}, stats)."""
+    from repro_torch.serving.kv_cache import DenseKVBackend, KVBackendConfig
+    cfg = ENCDEC_SERVE
+    kv = DenseKVBackend(model, KVBackendConfig(
+        max_slots=cfg["lanes"], max_seq_len=cfg["max_seq_len"],
+        max_new_tokens=64, quantize_offload=True, cuda_graphs=graphs,
+        seed=SEED))
+    B, dev = cfg["lanes"], model.device
+    pending = list(reqs)
+    out, true_len, ends = {}, {}, {}
+    st = dict(prefill_ms=[], decode_ms=[], swap=None)
+    step = 0
+    t_start = time.perf_counter()
+    while pending or any(r is not None for r in kv.slot_req):
+        while pending and kv.free_slot() is not None:
+            rid, frames, start, n = pending.pop(0)
+            t0 = time.perf_counter()
+            logits, pc = model.prefill(params, {
+                "enc_embeds": frames,
+                "tokens": torch.tensor([[start]], device=dev)})
+            kv.write_prefill(rid, pc, 1)
+            out[rid] = [int(logits[0].argmax())]
+            torch.cuda.synchronize()
+            st["prefill_ms"].append((time.perf_counter() - t0) * 1e3)
+            true_len[rid] = n
+            del pc
+        if step == cfg["swap_step"]:
+            rid = min(r for r in kv.slot_req if r is not None)
+            t0 = time.perf_counter()
+            blob = kv.offload(rid)
+            t1 = time.perf_counter()
+            kv.upload(rid, blob)
+            torch.cuda.synchronize()
+            st["swap"] = dict(
+                rid=rid, kinds={k: blob[k][0] for k in ("k", "v", "xk",
+                                                        "xv")},
+                bytes=_blob_bytes(blob), out_ms=(t1 - t0) * 1e3,
+                in_ms=(time.perf_counter() - t1) * 1e3)
+            del blob
+        toks = np.zeros((B, 1), np.int32)
+        active = np.zeros((B,), bool)
+        gen, ctx, tl, rids = (np.zeros((B,), np.int32) for _ in range(4))
+        for slot, rid in enumerate(kv.slot_req):
+            if rid is not None:
+                toks[slot, 0], active[slot], rids[slot] = (out[rid][-1], True,
+                                                          rid)
+                gen[slot] = ctx[slot] = len(out[rid]) + 1
+                tl[slot] = true_len[rid]
+        t0 = time.perf_counter()
+        got, reason = kv.decode(params, toks, active, gen, ctx, tl, rids)
+        st["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+        for slot, rid in enumerate(list(kv.slot_req)):
+            if rid is not None:
+                out[rid].append(int(got[slot]))
+                if int(reason[slot]):
+                    ends[rid] = int(reason[slot])
+                    kv.clear(rid)
+        step += 1
+    st["wall"] = time.perf_counter() - t_start
+    st["ends"] = ends
+    st["replays"] = kv.graphs.replays["decode"]
+    del kv
+    torch.cuda.empty_cache()
+    return out, st
+
+
+def encdec_profile(torch, model, params):
+    """Phase 25 (b)'s prefill of one request (eager, as the serve runs it)
+    and its decode step at full batch (8 lanes at context 64 of
+    ``max_seq_len`` 128, every lane's 4096-frame cross cache) as the
+    engine calls it, graphed: wall, device span and busy
+    (:func:`profile_step`), and the cross-attention alone (the 24 decoder
+    layers' ``_apply_cross`` at the step's shape, device time by
+    :func:`time_ms`) against that busy time; the step's bytes bound is its
+    decoder and head weights plus the lanes' cross caches."""
+    from repro_torch.utils import tree_leaves
+    cfg = model.cfg
+    B, Smax = ENCDEC_SERVE["lanes"], ENCDEC_SERVE["max_seq_len"]
+    g = torch.Generator(device=model.device).manual_seed(SEED + 27)
+    frames = torch.randn((1, cfg.cross_kv_len, cfg.d_model), generator=g,
+                         device=model.device).to(model.dtype)
+    start = torch.tensor([[5]], device=model.device)
+    profile_step(torch, f"{ENCDEC_ARCH} prefill ({cfg.cross_kv_len} frames "
+                 "+ a 1-token decoder start, eager)",
+                 lambda: model.prefill(params, {"enc_embeds": frames,
+                                                "tokens": start}), n=3,
+                 watch=("flash_attn_wgmma",))
+    del frames
+    step = engine_decode(model, params, "dense", True, np.full(B, 64),
+                         max_seq_len=Smax)
+    kv = step.kv
+    for key in ("xk", "xv"):            # frames' K/V, not zeros
+        kv.cache[key].normal_(generator=g)
+    busy = profile_step(torch, f"{ENCDEC_ARCH} engine decode step (graphed, "
+                        f"B={B}, ctx 64 of {Smax}, cross "
+                        f"{cfg.cross_kv_len} frames)", step, n=3)
+    marks = []
+    for _ in range(5):
+        b, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        b.record()
+        step()
+        e.record()
+        marks.append((b, e))
+    torch.cuda.synchronize()
+    span = statistics.median(b.elapsed_time(e) for b, e in marks)
+    x = torch.randn((B, 1, cfg.d_model), generator=g,
+                    device=model.device).to(model.dtype)
+
+    def cross():
+        for li in range(cfg.num_layers):
+            model._apply_cross(params["cross"][li], x, kv.cache["xk"][li],
+                               kv.cache["xv"][li])
+    with torch.no_grad():
+        c_ms = time_ms(cross, iters=3)
+    weights = sum(t.numel() * t.element_size() for path, t in
+                  tree_leaves({"layers": params["layers"],
+                               "cross": params["cross"]})
+                  if path[-1] not in ("wk", "wv") or path[0] != "cross")
+    weights += nbytes(params["lm_head"], params["final_norm"]["scale"])
+    xbytes = nbytes(kv.cache["xk"], kv.cache["xv"])
+    b_ms = (weights + xbytes) / HBM_BYTES_PER_S * 1e3
+    share = ("busy not measured" if busy is None else
+             f"{c_ms / busy:.1%} of the busy {busy:.2f} ms, the rest "
+             f"{busy - c_ms:.2f} ms")
+    print(f"[encdec] (b) decode step graphed: device span {span:.2f} ms "
+          f"against a {b_ms:.3f} ms bytes bound ({weights / 1e9:.2f} GB of "
+          f"decoder and head weights + {xbytes / 1e9:.2f} GB of cross cache, "
+          f"{b_ms / span:.1%}); cross-attention of {cfg.num_layers} layers "
+          f"alone {c_ms:.2f} ms ({share})", flush=True)
+    del step, kv
+    torch.cuda.empty_cache()
+
+
+def phase_encdec_serve(torch, model, params, kernels):
+    """Phase 25 (b): 8 requests of 4096 frames through 8 lanes of the
+    dense backend, graphed, counted from 0 (the flash kernel once per
+    encoder layer, bidirectional, and once per decoder layer, causal, for
+    each prefill; kv_quantize and kv_dequantize twice for the swap), then
+    the same requests eagerly: equal bit for bit; then the profile.
+    Returns the graphed serve's launch counts."""
+    cfg = model.cfg
+    reqs = _encdec_requests(torch, cfg, model.device)
+    reset_counts(kernels)
+    out, st = encdec_serve(torch, model, params, reqs, graphs=True)
+    counts = read_counts(kernels)
+    n_req = len(reqs)
+    gen = sum(len(t) for t in out.values())
+    sw = st["swap"]
+    print(f"[encdec] (b) {ENCDEC_ARCH} full width/depth, dense backend, "
+          f"{ENCDEC_SERVE['lanes']} lanes, max_seq_len "
+          f"{ENCDEC_SERVE['max_seq_len']}, {n_req} requests of "
+          f"{cfg.cross_kv_len} frames, graphed: {len(st['ends'])}/{n_req} "
+          f"finished, {gen} tokens, {gen / st['wall']:.1f} tok/s, wall "
+          f"{st['wall']:.2f}s, prefill ms per request p50 "
+          f"{np.median(st['prefill_ms']):.2f} (each: "
+          f"{', '.join(f'{t:.1f}' for t in st['prefill_ms'])}), "
+          f"{len(st['decode_ms'])} decode steps p50 "
+          f"{np.median(st['decode_ms']):.2f} ms ({st['replays']} replays); "
+          f"swap of request {sw['rid']} at step {ENCDEC_SERVE['swap_step']}:"
+          f" {sw['kinds']}, {sw['bytes'] / 1e6:.1f} MB to the host, out "
+          f"{sw['out_ms']:.1f} ms, in {sw['in_ms']:.1f} ms; launches "
+          f"{counts}", flush=True)
+    if len(st["ends"]) != n_req:
+        fail("phase 25 (b): not every request finished")
+    for rid, toks in out.items():
+        if not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"phase 25 (b): request {rid} emitted an out-of-vocab token")
+    if sw["kinds"] != {"k": "q8", "v": "q8", "xk": "raw", "xv": "raw"}:
+        fail(f"phase 25 (b): swap blob kinds {sw['kinds']}")
+    want = n_req * (cfg.num_encoder_layers + cfg.num_layers)
+    if counts["flash_prefill"] != want:
+        fail(f"phase 25 (b): {counts['flash_prefill']} flash launches, want "
+             f"{want} (each prefill's encoder and decoder layers)")
+    for n in ("kv_quantize", "kv_dequantize"):
+        if counts[n] <= 0:
+            fail(f"phase 25 (b): kernel {n} never launched")
+    if st["replays"] != len(st["decode_ms"]):
+        fail(f"phase 25 (b): {len(st['decode_ms'])} decode steps, "
+             f"{st['replays']} replays")
+    eout, est = encdec_serve(torch, model, params, reqs, graphs=False)
+    same = eout == out
+    print(f"[graphs] {ENCDEC_ARCH} dense serve (phase 25 b): graphed vs "
+          f"eager, {n_req} requests, {gen} tokens: "
+          + ("equal bit for bit" if same else "DIFFER")
+          + f"; eager {sum(map(len, eout.values())) / est['wall']:.1f} tok/s, "
+          f"decode p50 {np.median(est['decode_ms']):.2f} ms", flush=True)
+    if not same:
+        fail("phase 25 (b): graphed and eager greedy tokens differ")
+    encdec_profile(torch, model, params)
+    return counts
+
+
+def phase_vlm(torch, dev):
+    """Phase 25 (c): internvl2-2b at full width and depth fed patch
+    embeddings: 4 rows of 1024, drawn from the seed at the embedding
+    table's scale and right-padded to ``VLM_LENGTHS`` with ``last_index``;
+    ``Model.prefill``'s kernel path (flash, RMSNorm) against its plain
+    path, relative L2 <= 0.05; and ``embeds = embed[tokens]`` through the
+    kernel path must give the token path's logits and K/V bit for bit."""
+    from repro_torch.launch.serve import build_model
+    from repro_torch.utils import tree_leaves
+    model, params = build_model(VLM_ARCH, "full", dev, None, SEED)
+    cfg = model.cfg
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    g = torch.Generator(device=dev).manual_seed(SEED + 28)
+    B, S = len(VLM_LENGTHS), max(VLM_LENGTHS)
+    embeds = (0.02 * torch.randn((B, S, cfg.d_model), generator=g,
+                                 device=dev)).to(model.dtype)
+    lens = torch.tensor(VLM_LENGTHS, device=dev)
+    embeds[torch.arange(S, device=dev)[None, :] >= lens[:, None]] = 0
+    batch = {"embeds": embeds, "last_index": (lens - 1).to(torch.int32)}
+    outs = {}
+    for use in (True, False):
+        model.use_kernels = use
+        outs[use], _ = model.prefill(params, batch)
+    model.use_kernels = True
+    a, b = outs[True], outs[False]
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        fail("phase 25 (c): non-finite logits")
+    rel = ((a - b).norm() / b.norm()).item()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    rng = np.random.default_rng(SEED + 28)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, (B, S))).to(dev)
+    lt, ct = model.prefill(params, {"tokens": toks})
+    le, ce = model.prefill(params, {"embeds": params["embed"][toks]})
+    same = (torch.equal(lt, le) and torch.equal(ct["k"], ce["k"])
+            and torch.equal(ct["v"], ce["v"]))
+    print(f"[encdec] (c) {VLM_ARCH} full width/depth ({cfg.num_layers}L "
+          f"d{cfg.d_model} {cfg.num_heads}/{cfg.num_kv_heads}H hd{cfg.hd} "
+          f"V{cfg.vocab_size}), {n_params:,} params bf16, {B} rows of patch "
+          f"embeddings (true lengths {VLM_LENGTHS}): kernel vs plain path "
+          f"rel_l2={rel:.4g} argmax_agree={agree:.2f}; embeds = "
+          f"embed[tokens] vs the token path: "
+          + ("logits and K/V equal bit for bit" if same else "DIFFER"),
+          flush=True)
+    if not rel <= BF16_TOL:
+        fail(f"phase 25 (c): kernel path differs (rel_l2 {rel})")
+    if not same:
+        fail("phase 25 (c): embeds of the embedding rows differ from the "
+             "token path")
+
+
+def phase_encdec_train(torch, dev, kernels):
+    """Phase 25 (d): ``launch/train.train`` on seamless at full width and
+    depth in float32 (1.63 B parameters: 26.1 GB with gradients and AdamW
+    moments), batch 2 x 1024 (the encoder reads the one-hot frames of the
+    tokens, as the reference's launcher builds them), 3 steps: every loss
+    finite, the flash kernel launched once per layer and step and
+    ``FlashPrefill``'s backward (the plain recompute) run as often.
+    Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_prefill import FlashPrefill
+    from repro_torch.launch.train import train
+    from repro_torch.utils import tree_leaves
+    cfg = ENCDEC_TRAIN
+    backward = FlashPrefill.backward
+    calls = [0]
+
+    def counted(ctx, grad_out):
+        calls[0] += 1
+        return backward(ctx, grad_out)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    FlashPrefill.backward = staticmethod(counted)
+    t0 = time.perf_counter()
+    try:
+        state, losses, step_s = train(
+            ENCDEC_ARCH, smoke=False, batch_size=cfg["batch"],
+            seq_len=cfg["seq"], steps=cfg["steps"], log_every=cfg["steps"],
+            device=dev)
+    finally:
+        FlashPrefill.backward = staticmethod(backward)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for _, p in tree_leaves(state["params"]))
+    p50 = float(np.median(step_s))
+    toks = cfg["batch"] * cfg["seq"]
+    print(f"[train] {ENCDEC_ARCH} full width and depth (24 + 24 layers), "
+          f"f32, {n_params:,} params, AdamW, batch {cfg['batch']}x"
+          f"{cfg['seq']}: {len(losses)} steps, ms/step p50 {p50 * 1e3:.1f} "
+          f"(each: {', '.join(f'{t * 1e3:.1f}' for t in step_s)}), "
+          f"{toks / p50:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB "
+          f"({peak:,} B), loss first {losses[0]:.4f} last {losses[-1]:.4f}, "
+          f"wall {wall:.1f}s with init; flash backward (plain recompute) "
+          f"{calls[0]} calls; launches {counts}", flush=True)
+    if len(losses) != cfg["steps"] or not all(np.isfinite(losses)):
+        fail(f"phase 25 (d): losses {losses}")
+    arch = get_config(ENCDEC_ARCH)
+    layers = arch.num_encoder_layers + arch.num_layers
+    if counts["flash_prefill"] != cfg["steps"] * layers or \
+            calls[0] != cfg["steps"] * layers:
+        fail(f"phase 25 (d): {counts['flash_prefill']} flash launches and "
+             f"{calls[0]} backward calls, want {cfg['steps'] * layers} each")
+    del state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_encdec(torch, dev, kernels):
+    """Phase 25: the encoder-decoder family and the embeds input.
+    seamless-m4t-large-v2 at full width and depth (24 + 24 layers, d_model
+    1024, 16 heads of 64, d_ff 8192, vocab 256206, LayerNorm, gelu; random
+    bf16 weights from the seed): (a) the kernel path against the plain
+    path, (b) the dense-backend serve (main path, counted from 0), graphed
+    against eager, with its profile; (c) internvl2-2b fed patch embeddings;
+    (d) seamless training (main path, counted from 0).  Returns (b)'s and
+    (d)'s launch counts, summed."""
+    from repro_torch.launch.serve import build_model
+    from repro_torch.utils import tree_leaves
+    clock = Clock(time.perf_counter())
+    model, params = build_model(ENCDEC_ARCH, "full", dev, None, SEED)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    print(f"[model] {ENCDEC_ARCH} full width/depth ({cfg.num_encoder_layers}"
+          f" + {cfg.num_layers}L d{cfg.d_model} {cfg.num_heads}/"
+          f"{cfg.num_kv_heads}H hd{cfg.hd} ff{cfg.d_ff} V{cfg.vocab_size}, "
+          f"cross {cfg.cross_kv_len} frames), {n_params:,} params bf16",
+          flush=True)
+    with torch.no_grad():
+        encdec_reference_check(torch, dev, model, params)
+    clock.lap("seamless kernel vs plain (phase 25 a)")
+    with torch.no_grad():
+        counts = phase_encdec_serve(torch, model, params, kernels)
+    clock.lap("seamless dense-backend serve + profile (phase 25 b)")
+    del model, params
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        phase_vlm(torch, dev)
+    torch.cuda.empty_cache()
+    clock.lap("internvl2 patch embeddings (phase 25 c)")
+    t_counts = phase_encdec_train(torch, dev, kernels)
+    clock.lap("seamless training (phase 25 d)")
+    return {k: counts[k] + t_counts[k] for k in counts}
 
 
 def mamba_reference_check(torch, model, params):
@@ -4293,7 +4801,8 @@ def main() -> None:
     smem = _build.load("flash_prefill_prefix").flash_prefill_wgmma_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     print(f"[build] flash_attn_wgmma_kernel dynamic shared memory: d 64 "
-          f"{smem(64)} B, d 128 {smem(128)} B", flush=True)
+          f"{smem(64)} B, d 80 {smem(80)} B, d 128 {smem(128)} B",
+          flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4307,9 +4816,27 @@ def main() -> None:
         pa_moe = check_paged_attention(torch, dev, H=24, d=64)
         fp_moe = check_flash_prefix(torch, dev, H=24, d=64,
                                     cases=(("bfloat16", 256, 1000),))
+        # row 2 at stablelm-3b's chunk (H = KVH = 32, d 80), and the d-128
+        # body at the same heads, chunk and start: what d 80's panel
+        # padding costs
+        fp_stablelm = check_flash_prefix(torch, dev, H=32, KVH=32, d=80,
+                                         cases=(("bfloat16", 256, 1000),))
+        fp_stablelm["d128_ms"] = check_flash_prefix(
+            torch, dev, H=32, KVH=32, d=128,
+            cases=(("bfloat16", 256, 1000),))["ms"]
         check_flash_prefix_pack(torch, dev)
         fpv = check_flash_prefix_verify(torch, dev)
         fa = check_flash_prefill(torch, dev)
+        # row 6 at stablelm-3b's training shape and at seamless's encoder
+        # (4096 frames, bidirectional), each gated as granite's
+        fa_stablelm = check_flash_prefill(
+            torch, dev, H=32, KVH=32, cases=(("float32", 4, 1024, 80, True),))
+        fa_stablelm["d128_ms"] = check_flash_prefill(
+            torch, dev, H=32, KVH=32,
+            cases=(("float32", 4, 1024, 128, True),))["ms"]
+        fa_seamless = check_flash_prefill(
+            torch, dev, H=16, KVH=16,
+            cases=(("bfloat16", 1, 4096, 64, False),))
         kq, kd = check_kv_quant(torch, dev)
         kq_moe, kd_moe = check_kv_quant(torch, dev, KV_QUANT_MOE)
         kpage = check_kv_quant_page(torch, dev)
@@ -4417,6 +4944,14 @@ def main() -> None:
     totals = {k: totals[k] + counts[k] for k in totals}
     clock.lap("granite-moe-3b-a800m (phase 24)")
 
+    # phase 25: seamless (encoder-decoder) served through the dense backend
+    # and trained, internvl2 fed patch embeddings; (b) and (d) counted
+    counts = phase_encdec(torch, dev, kernels)
+    print(f"[main-path] {ENCDEC_ARCH} dense-backend serve and training "
+          f"(phase 25) launches {counts}", flush=True)
+    totals = {k: totals[k] + counts[k] for k in totals}
+    clock.lap("seamless-m4t-large-v2 + internvl2-2b (phase 25)")
+
     t0 = time.perf_counter()
     model, params = build_model("mamba2-2.7b", "full", dev, None, SEED)
     torch.cuda.synchronize()
@@ -4474,11 +5009,12 @@ def main() -> None:
              replaces="src/repro/kernels/flash_prefill/flash_prefill.py:119",
              launches=launches["flash_prefill_prefix"], **fp,
              verify_shape={str(k): v for k, v in fpv.items()},
-             moe_shape=fp_moe),
+             moe_shape=fp_moe, stablelm_shape=fp_stablelm),
         dict(name="flash_prefill", route="cuda",
              source=src + "flash_prefill_prefix.cu",
              replaces="src/repro/kernels/flash_prefill/flash_prefill.py:165",
-             launches=t_launches["flash_prefill"], **fa),
+             launches=t_launches["flash_prefill"], **fa,
+             stablelm_shape=fa_stablelm, seamless_shape=fa_seamless),
         dict(name="kv_quantize", route="cuda", source=src + "kv_quant.cu",
              replaces="src/repro/kernels/kv_quant/kv_quant.py:37",
              launches=launches["kv_quantize"], **kq,

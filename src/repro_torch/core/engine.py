@@ -216,6 +216,23 @@ class EngineConfig:
     seed: int = 0
 
 
+def _refuse_encoder_decoder(cfg) -> None:
+    """Raise for an encoder-decoder config: the engine prefills a request
+    from its decoder prompt tokens alone, and such a model's prefill needs
+    its encoder's inputs (``enc_embeds``).  The reference's engine cannot
+    prefill one either: its ``_run_prefill`` passes only ``tokens``, and
+    its ``Model.prefill`` fails with ``KeyError: 'enc_embeds'``.  Such a
+    model is served by driving ``Model.prefill`` and the dense backend
+    (``write_prefill``, ``decode``, ``offload``/``upload``) directly."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the serving engine cannot prefill an "
+            "encoder-decoder model (its requests carry decoder tokens, not "
+            "the encoder's enc_embeds; the reference's engine fails the "
+            "same way, KeyError: 'enc_embeds'); drive Model.prefill and "
+            "DenseKVBackend directly")
+
+
 def _kv_backend(cfg: EngineConfig, model: Model) -> str:
     """``cfg.kv_backend``, checked against the model and the decode step."""
     backend = cfg.kv_backend
@@ -234,6 +251,7 @@ class ServingEngine:
     def __init__(self, model: Model, params, cfg: EngineConfig,
                  predictor: Optional[LengthPredictor] = None,
                  latency: Optional[LatencyModel] = None):
+        _refuse_encoder_decoder(model.cfg)
         self.kv_backend = _kv_backend(cfg, model)
         self.model = model
         self.params = params

@@ -244,34 +244,31 @@ int dispatch(const void* q, const void* k, const void* v, const void* start,
   const Strides vs{v_strides[0], v_strides[1], v_strides[2]};
   const Strides os{o_strides[0], o_strides[1], o_strides[2]};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1 && (d == 64 || d == 128)) {
-    const int err =
-        d == 64 ? wg::launch<64, M>(q, k, v, start, out, scratch, nsplit,
-                                    q_strides, k_strides, v_strides,
-                                    o_strides, B, H, KVH, C, Smax, s)
-                : wg::launch<128, M>(q, k, v, start, out, scratch, nsplit,
-                                     q_strides, k_strides, v_strides,
-                                     o_strides, B, H, KVH, C, Smax, s);
-    if (err != wg::kNotTaken) return err;
+  // each body in turn for each head dim: the tensor-core bodies return
+  // kNotTaken for a view they cannot take, which the FMA body then takes
+#define FLASH_CASE(DIM)                                                       \
+  if (d == DIM) {                                                             \
+    if (dtype == 1) {                                                         \
+      const int err = wg::launch<DIM, M>(q, k, v, start, out, scratch,        \
+                                         nsplit, q_strides, k_strides,        \
+                                         v_strides, o_strides, B, H, KVH, C,  \
+                                         Smax, s);                            \
+      if (err != wg::kNotTaken) return err;                                   \
+      return launch<__nv_bfloat16, DIM, M>(q, k, v, start, out, qs, ks, vs,   \
+                                           os, B, H, KVH, C, Smax, s);        \
+    }                                                                         \
+    if (dtype == 0) {                                                         \
+      const int err = tf::launch<DIM, M>(q, k, v, start, out, q_strides,      \
+                                         k_strides, v_strides, o_strides, B,  \
+                                         H, KVH, C, Smax, s);                 \
+      if (err != tf::kNotTaken) return err;                                   \
+      return launch<float, DIM, M>(q, k, v, start, out, qs, ks, vs, os, B, H, \
+                                   KVH, C, Smax, s);                          \
+    }                                                                         \
   }
-  if (dtype == 0 && (d == 64 || d == 128)) {
-    const int err =
-        d == 64 ? tf::launch<64, M>(q, k, v, start, out, q_strides, k_strides,
-                                    v_strides, o_strides, B, H, KVH, C, Smax,
-                                    s)
-                : tf::launch<128, M>(q, k, v, start, out, q_strides,
-                                     k_strides, v_strides, o_strides, B, H,
-                                     KVH, C, Smax, s);
-    if (err != tf::kNotTaken) return err;
-  }
-#define FLASH_CASE(DT, T, DIM)                                                \
-  if (dtype == DT && d == DIM)                                                \
-    return launch<T, DIM, M>(q, k, v, start, out, qs, ks, vs, os, B, H, KVH, \
-                             C, Smax, s);
-#define FLASH_DIMS(DT, T) FLASH_CASE(DT, T, 64) FLASH_CASE(DT, T, 128)
-  FLASH_DIMS(0, float)
-  FLASH_DIMS(1, __nv_bfloat16)
-#undef FLASH_DIMS
+  FLASH_CASE(64)
+  FLASH_CASE(80)
+  FLASH_CASE(128)
 #undef FLASH_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -280,7 +277,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* start,
 
 // strides: 4 arrays of 3 element strides (batch, head, sequence) for q, k,
 // v, out; the last axis of each must be contiguous.  dtype codes: 0 =
-// float32, 1 = bfloat16 (q, k, v and out share it).  Head dims 64 and 128.
+// float32, 1 = bfloat16 (q, k, v and out share it).  Head dims 64, 80
+// (stablelm-3b) and 128.
 // scratch / nsplit: the bf16 body's split-KV (kernels/flash_prefill/plan.py
 // sizes both): nsplit 1 needs no scratch; nsplit > 1 needs nsplit * B * KVH
 // * (q tiles) * 64 * (d + 2) floats.  The f32 and FMA bodies ignore them.
@@ -316,7 +314,10 @@ extern "C" int flash_prefill_launch(
 // Dynamic shared memory of the bf16 body for head dim d (bytes), for the
 // build report; 0 for a d it does not take.
 extern "C" int flash_prefill_wgmma_smem_bytes(int d) {
-  return d == 64 ? wg::smem_bytes<64>() : d == 128 ? wg::smem_bytes<128>() : 0;
+  return d == 64    ? wg::smem_bytes<64>()
+         : d == 80  ? wg::smem_bytes<80>()
+         : d == 128 ? wg::smem_bytes<128>()
+                    : 0;
 }
 
 // Launches of the FMA body, the bf16 wgmma body, its split-KV merge and

@@ -17,8 +17,8 @@
 // - One block of 4 warps owns 64 query rows of one (b, head), 16 rows a
 //   warp; the grid and the order of q tiles are the FMA body's (in full
 //   mode the last q tile first, so the causal kernel's long tiles start
-//   first).  Keys come in tiles of kBK (64 for d 64, 32 for d 128, so that
-//   two blocks fit an SM).  Under a causal mask, tiles past the q tile's
+//   first).  Keys come in tiles of kBK (64 for d 64, 32 for d 80 and 128,
+//   so that two blocks fit an SM).  Under a causal mask, tiles past the q tile's
 //   last position are never read.
 // - Both products are mma.sync.m16n8k8 tf32 with f32 accumulators.  S =
 //   Q K^T takes Q (A) and K (B) from shared memory with the k index
@@ -30,13 +30,16 @@
 //   stands: P never leaves registers, and stays in f32 (split like any
 //   operand).  V's output columns are permuted so that one thread's B
 //   values of four n-tiles are one 16-byte load, and its output elements
-//   of a row are contiguous (2 D/8-element runs).
+//   of a row are contiguous (2 D/8-element runs).  For d 80 (10 n-tiles,
+//   runs of 10 floats) the loads and stores are 8 bytes, two n-tiles each.
 // - Q and double-buffered K/V tiles arrive by 16-byte cp.async (rows past
 //   C or Smax zero-filled), the next K/V tile while this one computes.
 //   Shared memory holds unpadded rows with their 16-byte chunks XOR-
 //   swizzled so that each quarter-warp's 16-byte loads hit 8 distinct bank
-//   groups: chunk c of a Q/K row r at c ^ 4 (r & 1); of a V row at c ^ t,
-//   t = (r / 2) % 4 (d 128) or with t's bit 1 moved to bit 2 (d 64).
+//   groups: chunk c of a Q/K row r at c ^ 4 (r & 1) (d 80 needs none: its
+//   row of 20 chunks already puts odd rows 4 bank groups over); of a V row
+//   at c ^ t, t = (r / 2) % 4 (d 80, 128) or with t's bit 1 moved to bit 2
+//   (d 64).
 // - Online softmax in the log2 domain in the accumulator's layout: a
 //   thread holds rows g and g + 8 of its warp's 16 (g = lane / 4) and
 //   columns 2t, 2t + 1 of each 8-key n-tile (t = lane % 4); a row's max is
@@ -69,13 +72,18 @@ constexpr int smem_bytes() { return (kBQ + 4 * key_tile<D>()) * D * 4; }
 // float offset of logical element c of row r (rows of D floats)
 template <int D>
 __device__ __forceinline__ int at_qk(int r, int c) {
-  return r * D + ((((c >> 2) ^ ((r & 1) << 2))) << 2) + (c & 3);
+  const int s = (D / 4) % 8 == 0 ? (r & 1) << 2 : 0;
+  return r * D + (((c >> 2) ^ s) << 2) + (c & 3);
 }
 template <int D>
 __device__ __forceinline__ int at_v(int r, int c) {
   const int t = (r >> 1) & 3;
-  const int s = D == 128 ? t : ((t & 1) | ((t & 2) << 1));
+  const int s = D == 64 ? ((t & 1) | ((t & 2) << 1)) : t;
   return r * D + (((c >> 2) ^ s) << 2) + (c & 3);
+}
+
+__device__ __forceinline__ float2 lds2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
 
 // M: 0 prefix (causal on start[b] + i), 1 causal, 2 bidirectional
@@ -245,18 +253,35 @@ flash_attn_tf32x3_kernel(const float* __restrict__ q,
       uint32_t ph[4], pl[4];
       split4(pa, ph, pl);
       const int r0 = ks * 8 + 2 * t;
+      if constexpr (NO % 4 == 0) {
 #pragma unroll
-      for (int jq = 0; jq < NO / 4; ++jq) {
-        const float4 v0 = lds4(sV + at_v<D>(r0, g * NO + 4 * jq));
-        const float4 v1 = lds4(sV + at_v<D>(r0 + 1, g * NO + 4 * jq));
-        const float w0[4] = {v0.x, v0.y, v0.z, v0.w};
-        const float w1[4] = {v1.x, v1.y, v1.z, v1.w};
+        for (int jq = 0; jq < NO / 4; ++jq) {
+          const float4 v0 = lds4(sV + at_v<D>(r0, g * NO + 4 * jq));
+          const float4 v1 = lds4(sV + at_v<D>(r0 + 1, g * NO + 4 * jq));
+          const float w0[4] = {v0.x, v0.y, v0.z, v0.w};
+          const float w1[4] = {v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          uint32_t bh[2], bl[2];
-          split(w0[jj], bh[0], bl[0]);
-          split(w1[jj], bh[1], bl[1]);
-          mma3(o[4 * jq + jj], ph, pl, bh, bl);
+          for (int jj = 0; jj < 4; ++jj) {
+            uint32_t bh[2], bl[2];
+            split(w0[jj], bh[0], bl[0]);
+            split(w1[jj], bh[1], bl[1]);
+            mma3(o[4 * jq + jj], ph, pl, bh, bl);
+          }
+        }
+      } else {   // d 80: runs of 10 floats, 8-byte loads
+#pragma unroll
+        for (int jp = 0; jp < NO / 2; ++jp) {
+          const float2 v0 = lds2(sV + at_v<D>(r0, g * NO + 2 * jp));
+          const float2 v1 = lds2(sV + at_v<D>(r0 + 1, g * NO + 2 * jp));
+          const float w0[2] = {v0.x, v0.y};
+          const float w1[2] = {v1.x, v1.y};
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            uint32_t bh[2], bl[2];
+            split(w0[jj], bh[0], bl[0]);
+            split(w1[jj], bh[1], bl[1]);
+            mma3(o[2 * jp + jj], ph, pl, bh, bl);
+          }
         }
       }
     }
@@ -278,11 +303,19 @@ flash_attn_tf32x3_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int side = 0; side < 2; ++side) {
       float* dst = row + (2 * t + side) * NO;
+      if constexpr (NO % 4 == 0) {
 #pragma unroll
-      for (int j = 0; j < NO; j += 4)
-        *reinterpret_cast<float4*>(dst + j) = make_float4(
-            o[j][2 * half + side] * inv, o[j + 1][2 * half + side] * inv,
-            o[j + 2][2 * half + side] * inv, o[j + 3][2 * half + side] * inv);
+        for (int j = 0; j < NO; j += 4)
+          *reinterpret_cast<float4*>(dst + j) = make_float4(
+              o[j][2 * half + side] * inv, o[j + 1][2 * half + side] * inv,
+              o[j + 2][2 * half + side] * inv,
+              o[j + 3][2 * half + side] * inv);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NO; j += 2)
+          *reinterpret_cast<float2*>(dst + j) = make_float2(
+              o[j][2 * half + side] * inv, o[j + 1][2 * half + side] * inv);
+      }
     }
   }
 }

@@ -52,6 +52,15 @@
 //   thread per 4 columns of a row.  A block whose range is one tile (ns
 //   1: a chunk at the head of the stripe) writes its output directly.
 //
+// - Head dim 80 (stablelm-3b) runs in the d-128 layout: two 64-column
+//   panels, the tensor map's global width the true 80 (a 160-byte row
+//   stride), so TMA zero-fills columns 80..127 of the second panel's
+//   boxes.  S = Q K^T takes only the 5 k16 steps over real columns; O +=
+//   P V is the n128 product, whose columns past 80 are zero and never
+//   stored (128 / 80 = 1.6x the P V work; the whole body does 208 / 160 =
+//   1.3x the work of an exact d 80).  Only 80 columns of O, of a split's
+//   partials and of Q are read or written in global memory.
+//
 // Numerics, a difference by design: P is rounded to bf16 before P V, as
 // SDPA's flash backend and FlashAttention do; the plain version and the
 // TPU kernel keep P in f32.  Both products accumulate in f32, the output is
@@ -75,16 +84,24 @@ constexpr int kBN = 64;         // keys per tile
 constexpr int kStages = 2;      // K/V ring depth
 constexpr int kCols = 64;       // bf16 columns in one 128-byte swizzled row
 
+// columns a head dim D occupies in shared memory: whole 64-column panels
+template <int D>
+__host__ __device__ constexpr int panels_cols() {
+  return (D + kCols - 1) / kCols * kCols;
+}
+
 // Launches of each device body since the library was loaded (host
 // counters, read through flash_prefill_body_launches): which body a call
 // took.
 enum Body { kFmaBody, kWgmmaBody, kMergeBody, kTf32x3Body };
 inline long long launched[4] = {0, 0, 0, 0};
 
-// dynamic shared memory: Q and kStages x (K, V), plus slack to align the
-// first panel to 1024 bytes
+// dynamic shared memory: Q and kStages x (K, V) in whole panels, plus
+// slack to align the first panel to 1024 bytes
 template <int D>
-constexpr int smem_bytes() { return (kBM + 2 * kStages * kBN) * D * 2 + 1024; }
+constexpr int smem_bytes() {
+  return (kBM + 2 * kStages * kBN) * panels_cols<D>() * 2 + 1024;
+}
 
 struct Params {
   const __nv_bfloat16* q;
@@ -272,18 +289,20 @@ __device__ __forceinline__ Span block_span(const Params& p, int b, int mt) {
 }
 
 // Thread 0: the K and V tiles of keys [t kBN, (t + 1) kBN) into the stage
-// at dst (K, then V), completing on barrier bar, by TMA.
-template <int D>
+// at dst (K, then V), completing on barrier bar, by TMA.  DP is the tile's
+// width in whole panels; columns past the map's width arrive as zeros and
+// count towards the barrier's bytes like the rest of the box.
+template <int DP>
 __device__ __forceinline__ void issue_tile(const CUtensorMap* kmap,
                                            const CUtensorMap* vmap,
                                            const Params& p, uint32_t bar,
                                            uint32_t dst, int t, int kvh,
                                            int b) {
-  constexpr int kTileBytes = kBN * D * 2, kPanel = kBN * 128;
+  constexpr int kTileBytes = kBN * DP * 2, kPanel = kBN * 128;
   const int k0 = t * kBN;
   mbar_expect_tx(bar, 2 * kTileBytes);
 #pragma unroll
-  for (int pn = 0; pn < D / kCols; ++pn) {
+  for (int pn = 0; pn < DP / kCols; ++pn) {
     tma_load_4d(dst + pn * kPanel, kmap, bar, pn * kCols,
                 map_coord(p.kperm, 1, k0, kvh, b),
                 map_coord(p.kperm, 2, k0, kvh, b),
@@ -301,8 +320,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap kmap,
                         __grid_constant__ const CUtensorMap vmap,
                         const Params p) {
-  constexpr int kQBytes = kBM * D * 2;        // D / 64 panels of kBM rows
-  constexpr int kTileBytes = kBN * D * 2;     // one K or V tile
+  constexpr int DP = panels_cols<D>();       // D in whole 64-column panels
+  constexpr int kQBytes = kBM * DP * 2;       // DP / 64 panels of kBM rows
+  constexpr int kTileBytes = kBN * DP * 2;    // one K or V tile
   constexpr int kPanel = kBN * 128;           // one 64-column panel of it
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kStages];
@@ -333,10 +353,11 @@ flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap kmap,
 
   if (tid == 0)
     for (int t = t_lo; t < min(t_hi, t_lo + kStages); ++t)
-      issue_tile<D>(&kmap, &vmap, p, smem_u32(&bars[(t - t_lo) % kStages]),
-                    sKV + (t - t_lo) % kStages * 2 * kTileBytes, t, kvh, b);
+      issue_tile<DP>(&kmap, &vmap, p, smem_u32(&bars[(t - t_lo) % kStages]),
+                     sKV + (t - t_lo) % kStages * 2 * kTileBytes, t, kvh, b);
 
-  // Q: 16-byte loads into the swizzled panels; empty rows are zeros
+  // Q: 16-byte loads into the swizzled panels; empty rows are zeros (a
+  // panel's columns past D are never read: S stops at column D)
   constexpr int kChunks = D / 8;              // 16-byte chunks per row
   for (int e = tid; e < kBM * kChunks; e += kThreads) {
     const int r = e / kChunks, c = e % kChunks;
@@ -360,9 +381,9 @@ flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap kmap,
   const int pos_b = sp.st + sp.q0 + rb % p.P;
   const int pos_min = sp.st + sp.q0;          // the block's first position
 
-  float o[D / 2], sc[kBN / 2];
+  float o[DP / 2], sc[kBN / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < kBN / 2; ++i) sc[i] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
@@ -372,7 +393,7 @@ flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap kmap,
     const uint32_t sK = sKV + s * 2 * kTileBytes, sV = sK + kTileBytes;
     mbar_wait(smem_u32(&bars[s]), (it / kStages) & 1);
 
-    // S = Q K^T: D / 16 steps of k16
+    // S = Q K^T: D / 16 steps of k16 (the zero columns past D skipped)
     fence_regs(sc);
     wgmma_fence();
 #pragma unroll
@@ -439,7 +460,7 @@ flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap kmap,
     l_a = l_a * corr_a + ps_a;
     l_b = l_b * corr_b + ps_b;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DP / 8; ++j) {
       o[4 * j] *= corr_a;
       o[4 * j + 1] *= corr_a;
       o[4 * j + 2] *= corr_b;
@@ -454,7 +475,7 @@ flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap kmap,
       const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                              pa[4 * kk + 3]};
       const uint64_t dv = sw128_desc(sV + kk * 16 * 128, kPanel, 1024);
-      if constexpr (D == 128)
+      if constexpr (DP == 128)
         wgmma_m64n128k16_rs_tb(o, a, dv);
       else
         wgmma_m64n64k16_rs_tb(o, a, dv);
@@ -465,8 +486,8 @@ flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap kmap,
 
     __syncthreads();   // every warp is done with stage s
     if (tid == 0 && t + kStages < t_hi)
-      issue_tile<D>(&kmap, &vmap, p, smem_u32(&bars[s]), sK, t + kStages,
-                    kvh, b);
+      issue_tile<DP>(&kmap, &vmap, p, smem_u32(&bars[s]), sK, t + kStages,
+                     kvh, b);
   }
 
 #pragma unroll
@@ -514,22 +535,24 @@ constexpr int kMergeThreads = 256;
 
 // Combines each row's ns partials in split order: M = max m_s, w_s =
 // exp2(m_s - M) (0 for an empty partial), out = sum w_s acc_s / max(sum w_s
-// l_s, 1e-30).  A thread owns 4 columns of one row; a block 256 / (D / 4)
-// rows of one (b * KVH + kvh, q tile), so a short chunk's few tiles still
-// spread over many blocks.  Tiles whose block had one split wrote their
-// output themselves.
+// l_s, 1e-30).  A thread owns 4 columns of one row: the tile's kBM x D / 4
+// (row, 4 columns) items in row order, 256 a block (D a multiple of 16, so
+// a tile is whole blocks), so a short chunk's few tiles still spread over
+// many blocks.  Tiles whose block had one split wrote their output
+// themselves.
 template <int D, int M>
 __global__ void __launch_bounds__(kMergeThreads)
 flash_attn_merge_kernel(const Params p) {
-  constexpr int kQuads = D / 4;                    // float4s per row
-  constexpr int kRows = kMergeThreads / kQuads;    // rows per block
-  constexpr int kParts = kBM / kRows;              // blocks per tile
+  constexpr int kQuads = D / 4;                             // float4s per row
+  constexpr int kParts = kBM * kQuads / kMergeThreads;      // blocks per tile
+  static_assert(kBM * kQuads % kMergeThreads == 0, "whole blocks a tile");
   const int part = blockIdx.x % kParts, tile_id = blockIdx.x / kParts;
   const int bk = tile_id % p.nbk, mt = tile_id / p.nbk;
   const int b = bk / p.KVH, kvh = bk % p.KVH;
   const Span sp = block_span<M>(p, b, mt);
-  const int r = part * kRows + threadIdx.x / kQuads;
-  const int c = (threadIdx.x % kQuads) * 4;
+  const int item = part * kMergeThreads + threadIdx.x;
+  const int r = item / kQuads;
+  const int c = (item % kQuads) * 4;
   const int g = r / p.P, i = r % p.P;
   if (sp.ns == 1 || g >= p.G || sp.q0 + i >= p.C) return;
   const long long n_part = (long long)p.nbk * p.n_mt;   // tiles per split
@@ -600,7 +623,8 @@ constexpr int kNotTaken = -1;   // the view does not suit this body
 
 // A bf16 TMA map over k/v (B, KVH, Smax, D) with element strides (b, h, s)
 // and a contiguous last axis; boxes of 64 columns x kBN keys, 128-byte
-// swizzle.  The dims after d are sorted by stride (a size-1 dim, whose
+// swizzle (for D 80, the second panel's box reads columns 64..79 and
+// zero-fills the rest).  The dims after d are sorted by stride (a size-1 dim, whose
 // stride never moves an address, goes last).  *perm gets the slot (1..3)
 // of S, KVH and B, 2 bits each.  Returns 0, kNotTaken when TMA cannot take
 // the view (an address or a stride not a multiple of 16 bytes: the caller

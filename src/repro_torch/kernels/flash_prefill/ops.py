@@ -33,7 +33,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _Strides = ctypes.c_longlong * 3
 
 # the head dims the kernels are built for (csrc/flash_prefill_prefix.cu)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 
 
 _FNS = {}

@@ -17,7 +17,9 @@ model, in batch mode or through the online gateway.
 
 run granite-3-8b (or another attention-family config: granite-moe-3b-
 a800m and dbrx-132b with a capacity-based MoE FFN, command-r-35b,
-qwen1.5-32b, stablelm-3b, internvl2-2b's token backbone) on the dense KV
+qwen1.5-32b, stablelm-3b, internvl2-2b's token backbone; the engine
+refuses an encoder-decoder such as seamless-m4t-large-v2, as the
+reference's engine cannot prefill one either) on the dense KV
 backend (a K/V stripe per lane; the default, as in the JAX launcher;
 without ``--prefill-chunk`` each prompt is one chunk over the lane's
 stripe) or on the paged backend, and mamba2-2.7b on the dense state

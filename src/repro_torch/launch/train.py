@@ -7,9 +7,13 @@ checkpoint/restart built in.
         --batch-size 4 --seq-len 1024 --num-layers 8
 
 trains the attention family (a dense or an MoE FFN, the MoE's aux loss
-in the objective) in float32 with AdamW on the synthetic bigram stream,
-as ``repro.launch.train`` does (``--arch granite-moe-3b-a800m`` for the
-MoE family; on the card it is not tried yet); ``--full`` takes
+in the objective) and the encoder-decoder family in float32 with AdamW on
+the synthetic bigram stream, as ``repro.launch.train`` does
+(``--arch granite-moe-3b-a800m`` for the MoE family, on the card not
+tried yet; ``--arch seamless-m4t-large-v2`` for the encoder-decoder,
+whose encoder reads one-hot frames of the tokens, as an ``embeds``
+decoder such as internvl2-2b reads its input, the reference's stand-in
+for a frontend); ``--full`` takes
 the published width, and ``--num-layers`` cuts the depth so that params,
 gradients and moments fit one card.  The card is the default device; the
 CPU runs only when asked (``--device cpu``).  On the card every RMSNorm
@@ -34,6 +38,23 @@ from repro_torch.training.train_step import init_train_state, make_train_step
 from repro_torch.utils import resolve_device
 
 
+def model_batch(cfg, batch):
+    """The model's batch of a stream batch, as the reference's launcher
+    builds it: an ``embeds`` decoder reads ``one_hot(tokens % d_model)``
+    in place of its tokens, an encoder-decoder's encoder reads the same
+    one-hot frames beside the decoder's tokens; float32 one-hots, cast
+    by the model."""
+    if not (cfg.input_mode == "embeds" or cfg.is_encoder_decoder):
+        return batch
+    tokens = batch["tokens"]
+    emb = (tokens.long() % cfg.d_model)[..., None] == torch.arange(
+        cfg.d_model, device=tokens.device)
+    if cfg.is_encoder_decoder:
+        return {"enc_embeds": emb.float(), "tokens": tokens,
+                "targets": batch["targets"]}
+    return {"embeds": emb.float(), "targets": batch["targets"]}
+
+
 def train(arch: str, *, smoke: bool = True, steps: int = 50,
           batch_size: int = 8, seq_len: int = 64, ckpt_dir: str = None,
           ckpt_every: int = 25, lr: float = 3e-4, log_every: int = 10,
@@ -55,7 +76,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
         raise NotImplementedError(
             f"training family={cfg.family} is not ported yet: ROADMAP.md "
             "Queue 1 item 14 (the port trains the attention family, with a "
-            "dense or an MoE FFN)")
+            "dense or an MoE FFN, and the encoder-decoder family)")
     model = Model(cfg, attn_chunk=max(seq_len // 2, 16),
                   ssd_chunk=min(64, seq_len), device=dev)
     step_fn = make_train_step(model, AdamWConfig(lr=lr),
@@ -75,7 +96,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
     it = data.iterate(start_step=start, device=dev)
     for step in range(start, steps):
         t1 = time.perf_counter()
-        state, metrics = step_fn(state, next(it))
+        state, metrics = step_fn(state, model_batch(cfg, next(it)))
         loss = float(metrics["loss"])
         step_s.append(time.perf_counter() - t1)
         losses.append(loss)

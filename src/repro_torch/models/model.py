@@ -2,19 +2,26 @@
 attention-family decoder, with a dense or a capacity-based MoE FFN
 (chunked paged prefill and fused paged decode; monolithic prefill, chunked
 prefill over a dense per-lane stripe and fused dense decode; fused
-verify-k speculative decode over either) and of the Mamba-2 (``ssm``)
-family (monolithic prefill, fused recurrent decode over a dense state
-cache), and the training loss of the attention family.
+verify-k speculative decode over either), of the encoder-decoder family
+(monolithic prefill of encoder frames and a decoder start, fused dense
+decode against a static cross cache) and of the Mamba-2 (``ssm``) family
+(monolithic prefill, fused recurrent decode over a dense state cache), and
+the training loss of the attention and encoder-decoder families.  A
+decoder whose ``input_mode`` is ``embeds`` (a VLM's patch embeddings)
+takes ``embeds`` in place of ``tokens`` in :meth:`Model.prefill` and
+:meth:`Model.loss`.
 
 Parameters are a plain dict: ``embed``, ``final_norm.scale`` and a list
 ``layers`` with one dict per layer (``ln1`` and ``attn.{wq,wk,wv,wo}`` or
 ``ssm.*``, then ``ln2`` and ``ffn.*`` where the family has an FFN: the
 dense FFN's ``wi``/``wg``/``wo``, or the MoE's float32 ``router`` and its
-experts' ``wi``/``wg``/``wo`` stacked on a leading expert axis).  Where
-the JAX reference runs ``lax.scan`` over layers stacked on axis 0, the
-port loops over the list in Python.  Where the reference rebuilt the page
-pool or the decode cache functionally and returned it, the port writes it
-**in place** and returns only the logits.
+experts' ``wi``/``wg``/``wo`` stacked on a leading expert axis).  An
+encoder-decoder also has ``encoder`` (a list of attention + dense-FFN
+layers), ``cross`` (per decoder layer ``lnx`` and ``xattn.{wq,wk,wv,wo}``)
+and ``enc_final_norm``.  Where the JAX reference runs ``lax.scan`` over
+layers stacked on axis 0, the port loops over the list in Python.  Where
+the reference rebuilt the page pool or the decode cache functionally and
+returned it, the port writes it **in place** and returns only the logits.
 """
 from __future__ import annotations
 
@@ -56,15 +63,20 @@ def _to_tensor(a, device) -> torch.Tensor:
 def params_from_numpy(cfg: ArchConfig, np_params, device=None) -> Params:
     """Turn the JAX ``Model.init`` pytree, already converted to numpy by the
     caller (``jax.tree_util.tree_map(np.asarray, params)``), into the
-    port's parameters: the same names, with ``layers`` (stacked on axis 0)
-    split into one dict per layer."""
+    port's parameters: the same names, with ``layers`` and ``cross``
+    (stacked on axis 0 over the decoder's layers) and ``encoder`` (over
+    the encoder's) split into one dict per layer."""
     device = resolve_device(device)
+    stacks = {"layers": cfg.num_layers, "cross": cfg.num_layers,
+              "encoder": cfg.num_encoder_layers}
     out: Params = {k: tree_map(lambda a: _to_tensor(a, device), v)
-                   for k, v in np_params.items() if k != "layers"}
-    out["layers"] = [
-        tree_map(lambda a, i=i: _to_tensor(np.asarray(a)[i], device),
-                  np_params["layers"])
-        for i in range(cfg.num_layers)]
+                   for k, v in np_params.items() if k not in stacks}
+    for key, n in stacks.items():
+        if key in np_params:
+            out[key] = [
+                tree_map(lambda a, i=i: _to_tensor(np.asarray(a)[i], device),
+                         np_params[key])
+                for i in range(n)]
     return out
 
 
@@ -85,8 +97,8 @@ def _last_writer(write_page, write_off) -> torch.Tensor:
 
 
 class Model:
-    """Attention-family decoder (dense or MoE FFN) or Mamba-2 stack: pure
-    functions over explicit params, on one device.
+    """Attention-family decoder (dense or MoE FFN), encoder-decoder or
+    Mamba-2 stack: pure functions over explicit params, on one device.
 
     ``use_kernels`` (default True) sends every RMSNorm, the SSD chunk step
     and the training loss's full-sequence attention to their kernels (CUDA
@@ -113,9 +125,8 @@ class Model:
                              "(want 'masked' or 'flash')")
         if not self.supports_family(cfg):
             raise NotImplementedError(
-                f"family={cfg.family} (enc_dec={cfg.is_encoder_decoder}, "
-                f"moe={cfg.has_moe}) is not ported yet: ROADMAP.md Queue 1 "
-                "item 13 (hybrid, encoder-decoder)")
+                f"family={cfg.family} is not ported yet: ROADMAP.md Queue 1 "
+                "item 13 (the hybrid family)")
         self.cfg = cfg
         self.chunk_attn_impl = chunk_attn_impl
         self.attn_chunk = attn_chunk
@@ -130,7 +141,7 @@ class Model:
 
     @staticmethod
     def supports_family(cfg: ArchConfig) -> bool:
-        return cfg.family != "hybrid" and not cfg.is_encoder_decoder
+        return cfg.family != "hybrid"
 
     def _norm(self, p, x):
         return L.apply_norm(self.cfg, p, x, use_kernel=self.use_kernels)
@@ -153,12 +164,22 @@ class Model:
                 device=dev)
         params["layers"] = [self._init_layer(generator)
                             for _ in range(cfg.num_layers)]
+        if cfg.is_encoder_decoder:
+            params["encoder"] = [self._init_layer(generator)
+                                 for _ in range(cfg.num_encoder_layers)]
+            params["cross"] = [
+                {"lnx": L.init_norm(cfg, cfg.d_model, dtype, dev),
+                 "xattn": L.init_attention(cfg, generator, dtype, dev)}
+                for _ in range(cfg.num_layers)]
+            params["enc_final_norm"] = L.init_norm(cfg, cfg.d_model, dtype,
+                                                   dev)
         return params
 
     def _init_layer(self, generator):
         """One layer in the reference's layout (``_init_sublayer``): ``ln1``
         and the mixer, then ``ln2`` and the dense or MoE ``ffn`` unless
-        ``d_ff == 0``."""
+        ``d_ff == 0`` (an encoder layer is the same attention + dense FFN
+        layer)."""
         cfg, dtype, dev = self.cfg, self.dtype, self.device
         p = {"ln1": L.init_norm(cfg, cfg.d_model, dtype, dev)}
         if cfg.layer_kind(0) == "ssm":
@@ -175,7 +196,12 @@ class Model:
         return p
 
     # --------------------------------------------------------------- embed
-    def _embed_in(self, params, tokens):
+    def _embed_in(self, params, tokens=None, embeds=None):
+        """The decoder's input rows: ``embeds`` (B, S, D) cast to the
+        model's dtype when given (a VLM's patch embeddings), else the
+        embedding rows of ``tokens``."""
+        if embeds is not None:
+            return embeds.to(self.dtype)
         return params["embed"][tokens.long()]
 
     def _logits(self, params, h):
@@ -201,19 +227,21 @@ class Model:
     def loss(self, params, batch):
         """Mean next-token cross-entropy plus the z-loss (and the MoE aux
         term, 0 without experts) of one batch, as the reference's
-        ``Model.loss``.  ``batch``: ``tokens`` and ``targets`` (B, S)
-        integer tensors on the model's device.  Returns ``(total, {"ce",
-        "zloss", "moe_aux"})``, float32 scalars that carry the graph when
-        the params require grad."""
+        ``Model.loss``.  ``batch``: ``targets`` (B, S) and ``tokens`` (B, S)
+        or ``embeds`` (B, S, D), with ``enc_embeds`` (B, T, D) for an
+        encoder-decoder, tensors on the model's device.  Returns ``(total,
+        {"ce", "zloss", "moe_aux"})``, float32 scalars that carry the graph
+        when the params require grad."""
         if self.cfg.family == "ssm":
             raise NotImplementedError(
                 "training the ssm family is not ported yet: ROADMAP.md "
                 "Queue 1 item 14 (the SSD chunk kernel has no autograd "
                 "Function)")
-        x = self._embed_in(params, batch["tokens"])
+        x = self._embed_in(params, batch.get("tokens"), batch.get("embeds"))
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        x, aux, _ = self._run_stack_full(params, x, positions)
+        x, aux, _ = self._run_stack_full(params, x, positions,
+                                         enc_ctx=self._enc_ctx(params, batch))
         x = self._norm(params["final_norm"], x)
         logits = self._logits(params, x).float()
         logz = torch.logsumexp(logits, dim=-1)
@@ -224,25 +252,84 @@ class Model:
         total = ce + zloss + MOE_AUX_COEF * aux
         return total, {"ce": ce, "zloss": zloss, "moe_aux": aux}
 
-    def _run_stack_full(self, params, x, positions, want_cache=False):
-        """The attention-family decoder stack over whole sequences (the
-        reference's non-hybrid, non-encoder-decoder branch): per layer
-        ``ln1``, causal ``chunked_attention``, ``wo``, then the FFN block.
-        Returns ``(x, moe_aux, caches)``: aux is the layers' MoE aux losses
-        summed (0 without experts); with ``want_cache``, caches is
-        ``{"k", "v"}`` (L, B, S, KVH, hd), every layer's projected keys and
-        values, else None."""
-        cfg = self.cfg
+    def _self_attn(self, p_l, x, positions, causal: bool):
+        """``x`` plus the layer's self-attention over whole sequences
+        (``ln1``, ``chunked_attention``: the flash kernel on the card,
+        ``wo``), and the projected ``k``, ``v`` (B, S, KVH, hd)."""
         B, S = x.shape[:2]
+        h = self._norm(p_l["ln1"], x)
+        q, k, v = L._project_qkv(self.cfg, p_l["attn"], h, positions)
+        attn = L.chunked_attention(
+            self.cfg, q, k, v, causal=causal, q_chunk=self.attn_chunk,
+            kv_chunk=self.attn_chunk, use_kernel=self.use_kernels)
+        return x + attn.reshape(B, S, -1) @ p_l["attn"]["wo"], k, v
+
+    # ------------------------------------------------------------- encoder
+    def _encode(self, params, enc_embeds):
+        """The encoder over ``enc_embeds`` (B, T, D): per layer
+        bidirectional self-attention and the dense FFN, then
+        ``enc_final_norm``.  Returns (B, T, D) in the model's dtype."""
+        x = enc_embeds.to(self.dtype)
+        B, T = x.shape[:2]
+        positions = torch.arange(T, device=x.device)[None].expand(B, T)
+        for p_l in params["encoder"]:
+            x, _, _ = self._self_attn(p_l, x, positions, causal=False)
+            x, _ = self._ffn_block(p_l, x)
+        return self._norm(params["enc_final_norm"], x)
+
+    def _cross_kv(self, params, enc_out):
+        """Every decoder layer's cross-attention keys and values of the
+        encoder output ``enc_out`` (B, T, D): ``{"xk", "xv"}`` (L, B, T,
+        KVH, hd) in ``kv_dtype``."""
+        cfg = self.cfg
+        B, T, _ = enc_out.shape
+        kvd = dtype_of(self.kv_dtype)
+        xk, xv = [], []
+        for p_x in params["cross"]:
+            xk.append((enc_out @ p_x["xattn"]["wk"]).reshape(
+                B, T, cfg.num_kv_heads, cfg.hd).to(kvd))
+            xv.append((enc_out @ p_x["xattn"]["wv"]).reshape(
+                B, T, cfg.num_kv_heads, cfg.hd).to(kvd))
+        return {"xk": torch.stack(xk), "xv": torch.stack(xv)}
+
+    def _enc_ctx(self, params, batch):
+        """The cross K/V of ``batch["enc_embeds"]`` for an encoder-decoder,
+        else None."""
+        if not self.cfg.is_encoder_decoder:
+            return None
+        return self._cross_kv(params, self._encode(params,
+                                                   batch["enc_embeds"]))
+
+    def _apply_cross(self, p_x, x, xk, xv):
+        """``x`` (B, S, D) plus one decoder layer's cross-attention over
+        ``xk``/``xv`` (B, T, KVH, hd): ``lnx``, a query projection without
+        RoPE, non-causal attention (plain torch: the reference has no
+        Pallas kernel here) and ``wo``."""
+        cfg = self.cfg
+        h = self._norm(p_x["lnx"], x)
+        B, S, _ = h.shape
+        q = (h @ p_x["xattn"]["wq"]).reshape(B, S, cfg.num_heads, cfg.hd)
+        attn = L.full_attention(cfg, q, xk.to(self.dtype), xv.to(self.dtype),
+                                causal=False)
+        return x + attn.reshape(B, S, -1) @ p_x["xattn"]["wo"]
+
+    def _run_stack_full(self, params, x, positions, want_cache=False,
+                        enc_ctx=None):
+        """The decoder stack over whole sequences (the reference's
+        non-hybrid branches): per layer ``ln1``, causal
+        ``chunked_attention``, ``wo``, with ``enc_ctx`` (an
+        encoder-decoder's ``{"xk", "xv"}``) the cross sublayer, then the
+        FFN block.  Returns ``(x, moe_aux, caches)``: aux is the layers'
+        MoE aux losses summed (0 without experts); with ``want_cache``,
+        caches is ``{"k", "v"}`` (L, B, S, KVH, hd), every layer's
+        projected keys and values, else None."""
         ks, vs = [], []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for p_l in params["layers"]:
-            h = self._norm(p_l["ln1"], x)
-            q, k, v = L._project_qkv(cfg, p_l["attn"], h, positions)
-            attn = L.chunked_attention(
-                cfg, q, k, v, causal=True, q_chunk=self.attn_chunk,
-                kv_chunk=self.attn_chunk, use_kernel=self.use_kernels)
-            x = x + attn.reshape(B, S, -1) @ p_l["attn"]["wo"]
+        for li, p_l in enumerate(params["layers"]):
+            x, k, v = self._self_attn(p_l, x, positions, causal=True)
+            if enc_ctx is not None:
+                x = self._apply_cross(params["cross"][li], x,
+                                      enc_ctx["xk"][li], enc_ctx["xv"][li])
             x, aux_l = self._ffn_block(p_l, x)
             if aux_l is not None:
                 aux = aux + aux_l
@@ -255,15 +342,23 @@ class Model:
 
     # ------------------------------------------------------ chunked prefill
     def supports_chunked_prefill(self) -> bool:
-        """Chunked (resumable) prefill covers the attention family; an SSM
-        state would need a cross-chunk handoff, so ``ssm`` prefills
+        """Chunked (resumable) prefill covers the attention-family decoder;
+        an SSM state would need a cross-chunk handoff and an
+        encoder-decoder carries a static cross cache, so both prefill
         monolithically (:meth:`prefill`)."""
-        return self.cfg.family != "ssm"
+        return self.cfg.family != "ssm" and not self.cfg.is_encoder_decoder
 
     def supports_paged(self) -> bool:
-        """Paged KV covers the attention family; SSM state is constant-size
-        (paging buys nothing) and lives in the dense backend."""
-        return self.cfg.family != "ssm"
+        """Paged KV covers the attention-family decoder; SSM state is
+        constant-size (paging buys nothing) and an encoder-decoder carries
+        a static cross cache: both live in the dense backend."""
+        return self.cfg.family != "ssm" and not self.cfg.is_encoder_decoder
+
+    def _unsupported(self, what: str) -> ValueError:
+        """The reference's refusal of ``what`` for this model's family."""
+        cfg = self.cfg
+        return ValueError(f"{what} unsupported for family={cfg.family} "
+                          f"enc_dec={cfg.is_encoder_decoder}")
 
     def _chunk_attn(self, q, k_all, v_all, q_pos, kv_pos, start):
         """Attention for one prefill chunk.
@@ -300,6 +395,8 @@ class Model:
         baked into its graph).  Returns the last-position logits (1, V)
         float32, taken at ``chunk_len - 1``.
         """
+        if not self.supports_chunked_prefill():
+            raise self._unsupported("chunked prefill")
         cfg = self.cfg
         dev = tokens.device
         C = tokens.shape[1]
@@ -359,6 +456,8 @@ class Model:
         """
         if attn_impl not in ("gather", "kernel"):
             raise ValueError(f"attn_impl={attn_impl!r}")
+        if not self.supports_paged():
+            raise self._unsupported("paged decode")
         cfg = self.cfg
         B = tokens.shape[0]
         page = kv["k"].shape[2]
@@ -420,8 +519,7 @@ class Model:
 
     def _check_spec(self) -> None:
         if not self.supports_spec_decode():
-            raise ValueError(f"verify-k decode unsupported for family="
-                             f"{self.cfg.family}")
+            raise self._unsupported("verify-k decode")
 
     @torch.no_grad()
     def paged_decode_verify(self, params, kv, tokens, block_tables, lengths,
@@ -441,7 +539,8 @@ class Model:
         kernel on the card), as :meth:`paged_prefill_pack` does; stale
         scratch offsets lie past every query and are causally masked.
         Returns logits (B, K1, V) float32."""
-        self._check_spec()
+        if not (self.supports_spec_decode() and self.supports_paged()):
+            raise self._unsupported("paged verify-k")
         cfg = self.cfg
         B, K1 = tokens.shape
         page = kv["k"].shape[2]
@@ -498,26 +597,32 @@ class Model:
         (B, V) float32, cache), the cache in the reference's
         ``_pack_cache`` layout with ``lengths`` (B,) int32 = S.
 
-        Attention family: ``batch`` holds ``tokens`` (B, S), right-padded
-        where ``last_index`` (B,) names each row's true last token (its
+        Attention family: ``batch`` holds ``tokens`` (B, S) or, for an
+        ``embeds`` model, ``embeds`` (B, S, D), right-padded where
+        ``last_index`` (B,) names each row's true last position (its
         logits are returned); the stack's attention is
         ``layers.chunked_attention`` (the flash kernel on the card).  The
         cache holds every layer's ``k``/``v`` (L, B, S, KVH, hd) in
         ``kv_dtype``, padded positions included (the serving engine
         prefills attention prompts through :meth:`prefill_chunk` instead).
+        An encoder-decoder takes ``enc_embeds`` (B, T, D) and the decoder's
+        ``tokens`` (a 1-token start); its encoder runs bidirectional
+        ``chunked_attention`` and the cache adds every decoder layer's
+        cross ``xk``/``xv`` (L, B, T, KVH, hd) in ``kv_dtype``.
 
         ``ssm``: ``tokens`` unpadded (an SSM state depends on every step);
         the cache holds ``conv`` (L, B, W-1, Ch) in the working dtype and
         ``ssm`` (L, B, H, P, N) float32."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = self._embed_in(params, tokens)
+        x = self._embed_in(params, batch.get("tokens"), batch.get("embeds"))
         B, S = x.shape[:2]
         lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
         if cfg.family != "ssm":
             positions = torch.arange(S, device=x.device)[None].expand(B, S)
+            enc_ctx = self._enc_ctx(params, batch)
             x, _, caches = self._run_stack_full(params, x, positions,
-                                                want_cache=True)
+                                                want_cache=True,
+                                                enc_ctx=enc_ctx)
             last = batch.get("last_index")
             if last is not None:
                 x_last = x[torch.arange(B, device=x.device), last.long()]
@@ -526,7 +631,7 @@ class Model:
             x_last = self._norm(params["final_norm"], x_last)
             kvd = dtype_of(self.kv_dtype)
             cache = {"lengths": lengths, "k": caches["k"].to(kvd),
-                     "v": caches["v"].to(kvd)}
+                     "v": caches["v"].to(kvd), **(enc_ctx or {})}
             return self._logits(params, x_last).float(), cache
         convs, ssms = [], []
         for p_l in params["layers"]:
@@ -565,8 +670,7 @@ class Model:
         past Smax), so the scatter is deterministic.  Returns the logits
         (1, V) float32 at ``chunk_len - 1``."""
         if not self.supports_chunked_prefill():
-            raise ValueError(f"chunked prefill unsupported for family="
-                             f"{self.cfg.family}")
+            raise self._unsupported("chunked prefill")
         cfg = self.cfg
         dev = tokens.device
         C = tokens.shape[1]
@@ -604,8 +708,10 @@ class Model:
 
     def _check_pack(self) -> None:
         if not self.supports_prefill_pack():
-            raise ValueError(f"packed prefill unsupported for family="
-                             f"{self.cfg.family} ffn={self.cfg.ffn_kind(0)}")
+            cfg = self.cfg
+            raise ValueError(
+                f"packed prefill unsupported for family={cfg.family} "
+                f"ffn={cfg.ffn_kind(0)} enc_dec={cfg.is_encoder_decoder}")
 
     @torch.no_grad()
     def prefill_pack(self, params, k_cache, v_cache, lanes, tokens, start,
@@ -713,7 +819,9 @@ class Model:
         and it attends ``lengths + 1`` positions through
         ``layers.decode_attention``.  That attention is plain torch, as in
         the reference (jnp there, no Pallas kernel); the norms take the
-        RMSNorm kernel.  ``ssm``: the conv window and SSM state advance one
+        RMSNorm kernel.  An encoder-decoder's layer then attends its lane's
+        cross ``xk``/``xv`` (read only, plain torch as in the reference)
+        before the FFN.  ``ssm``: the conv window and SSM state advance one
         step.
 
         ``active`` (B,) bool, when given, limits the writes and the
@@ -760,6 +868,9 @@ class Model:
                 for (dst, src), o in zip(new, old):
                     dst[lanes, pos] = torch.where(keep, src.to(dst.dtype), o)
             x = x + (attn.reshape(B, -1) @ p_l["attn"]["wo"])[:, None, :]
+            if self.cfg.is_encoder_decoder:
+                x = self._apply_cross(params["cross"][li], x,
+                                      cache["xk"][li], cache["xv"][li])
             x, _ = self._ffn_block(p_l, x, groups=1)
         return x
 
@@ -882,8 +993,10 @@ class Model:
     def cache_shapes(self, batch: int, max_len: int) -> Dict[str, Any]:
         """``{key: (shape, dtype)}`` of a dense decode cache for ``batch``
         lanes of ``max_len`` positions: ``k``/``v`` (L, batch, max_len,
-        KVH, hd) in ``kv_dtype`` for the attention family; for ``ssm`` the
-        constant-size ``conv`` and ``ssm`` state (``max_len`` unused)."""
+        KVH, hd) in ``kv_dtype`` for the attention family, and for an
+        encoder-decoder the cross ``xk``/``xv`` (L, batch, cross_kv_len,
+        KVH, hd); for ``ssm`` the constant-size ``conv`` and ``ssm`` state
+        (``max_len`` unused)."""
         cfg = self.cfg
         n = cfg.num_layers
         out: Dict[str, Any] = {"lengths": ((batch,), torch.int32)}
@@ -897,6 +1010,11 @@ class Model:
             shape = (n, batch, max_len, cfg.num_kv_heads, cfg.hd)
             out["k"] = (shape, kvd)
             out["v"] = (shape, kvd)
+            if cfg.is_encoder_decoder:
+                xshape = (n, batch, cfg.cross_kv_len, cfg.num_kv_heads,
+                          cfg.hd)
+                out["xk"] = (xshape, kvd)
+                out["xv"] = (xshape, kvd)
         return out
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:

@@ -900,7 +900,10 @@ class DenseKVBackend(KVBackend):
     max_seq_len)`` on the device, one slice per lane along each key's batch
     axis, written **in place** where the reference rebuilt the cache.  For
     the attention family every lane owns a full ``max_seq_len`` K/V stripe
-    per layer; for ``ssm`` a constant-size conv window and SSM state.
+    per layer (an encoder-decoder also a ``cross_kv_len`` cross K/V
+    stripe, written once by :meth:`write_prefill`); for ``ssm`` a
+    constant-size conv window and SSM state.  Every key stays at one
+    address, so the decode step graph holds them all.
 
     The pack graph ``("pack", bucket)`` needs no lane in its key (a
     chunk's graph does): the flash kernel reads a per-layer gather of the
@@ -924,7 +927,10 @@ class DenseKVBackend(KVBackend):
         """Batch (lane) axis of each cache key."""
         if self.model.cfg.family == "ssm":
             return {"lengths": 0, "conv": 1, "ssm": 1}
-        return {"lengths": 0, "k": 1, "v": 1}
+        axes = {"lengths": 0, "k": 1, "v": 1}
+        if self.model.cfg.is_encoder_decoder:
+            axes.update(xk=1, xv=1)
+        return axes
 
     def _lane(self, key: str, slot: int):
         """View of one lane's slice of ``cache[key]``."""
@@ -941,15 +947,32 @@ class DenseKVBackend(KVBackend):
     # ---------------------------------------------------------- interface
     def write_prefill(self, rid: int, pcache, length: int) -> None:
         """Place batch index 0 of a ``Model.prefill`` cache into a free
-        lane (the ``ssm`` family's monolithic prefill; an attention prompt
-        takes :meth:`prefill_chunk`)."""
+        lane (the ``ssm`` family's and an encoder-decoder's monolithic
+        prefill; an attention prompt takes :meth:`prefill_chunk`).  K/V
+        are written trimmed to ``length`` and zero past it, as the
+        reference writes them; an encoder-decoder's cross ``xk``/``xv``
+        must hold the config's ``cross_kv_len`` frames (the cache's fixed
+        length), else this raises."""
+        for key in ("xk", "xv"):
+            if key in self.cache:
+                got = pcache[key].shape[2]
+                if got != self.cache[key].shape[2]:
+                    raise ValueError(
+                        f"write_prefill: {key} holds {got} encoder frames, "
+                        f"the cache cross_kv_len = "
+                        f"{self.cache[key].shape[2]}")
         slot = self._claim(rid)
+        self.cache["lengths"][slot] = length
         for key in self.cache:
             if key == "lengths":
-                self.cache[key][slot] = length
+                continue
+            lane = self._lane(key, slot)
+            src = pcache[key].select(self._axes[key], 0)
+            if key in ("k", "v"):     # seq axis: trim the pad, zero to Smax
+                lane.zero_()
+                lane[:, :length].copy_(src[:, :length])
             else:
-                self._lane(key, slot).copy_(
-                    pcache[key].select(self._axes[key], 0))
+                lane.copy_(src)
 
     def prefill_chunk(self, params, rid: int, tokens: List[int],
                       start: int, slot: Optional[int] = None):
@@ -1076,7 +1099,8 @@ class DenseKVBackend(KVBackend):
         ``max_seq_len``) with the rows past the length zeroed, as the
         reference's blob (no stale positions cross the link); INT8 through
         the ``kv_quantize`` kernel when ``quantize_offload``.  Conv and SSM
-        state travel raw, as in the reference."""
+        state and an encoder-decoder's cross ``xk``/``xv`` travel raw, as
+        in the reference."""
         slot = self.slot_of(rid)
         length = int(self.cache["lengths"][slot])
         span = min(self._pow2_bucket(length), self.cfg.max_seq_len)

@@ -27,8 +27,17 @@ def make_train_step(model: Model, opt_cfg: Optional[AdamWConfig] = None,
     def train_step(state, batch):
         params = state["params"]
         loss, metrics = model.loss(params, batch)
-        leaves = [p for _, p in tree_leaves(params)]
-        flat = iter(torch.autograd.grad(loss, leaves))
+        paths, leaves = zip(*tree_leaves(params))
+        # under ``embeds`` the loss need not read ``embed`` (an untied
+        # table): it gets zeros, as jax.grad gives it; any other leaf the
+        # loss does not reach is an error
+        may_skip = {("embed",)} if "embeds" in batch else set()
+        raw = torch.autograd.grad(loss, leaves, allow_unused=True)
+        for path, g in zip(paths, raw):
+            if g is None and path not in may_skip:
+                raise RuntimeError(f"the loss does not reach {path}")
+        flat = iter(torch.zeros_like(p) if g is None else g
+                    for p, g in zip(leaves, raw))
         grads = tree_map(lambda _: next(flat), params)
         if grad_compression:
             grads = compress_grads_int8(grads)

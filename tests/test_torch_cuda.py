@@ -7,7 +7,8 @@ so they run where JAX is not installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Shapes sweep beyond the serving and training paths' own (which
-``chip_smoke.py`` checks): GQA group sizes 1 to 8, head dims 64 and 128,
+``chip_smoke.py`` checks): GQA group sizes 1 to 8, head dims 64 and 128
+(and 80, stablelm-3b's, in the flash kernels),
 the bf16 flash body at chunks of 1 to 2048 tokens at both ends of a
 ragged stripe (held against the float32 truth beside SDPA's error),
 pages of 8 to 32 tokens, chunk and sequence lengths that are not multiples
@@ -190,6 +191,7 @@ def test_paged_attention_q8_kernel(dev, G, d, page, dtype):
 @pytest.mark.parametrize("B,H,KVH,Smax,d,C", [
     (1, 4, 4, 64, 64, 16), (2, 8, 2, 128, 64, 24), (1, 8, 1, 256, 128, 8),
     (2, 4, 4, 96, 128, 24), (1, 32, 8, 2048, 128, 200),
+    (2, 8, 2, 128, 80, 24), (1, 32, 32, 2048, 80, 256),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_prefill_prefix_kernel(dev, B, H, KVH, Smax, d, C, dtype):
@@ -269,11 +271,12 @@ def _check_bf16_attention(out, plain, truth, absv, sdpa):
 # the bf16 Hopper body: chunks of 1, 16, 256 and 2048 at start 0 and ending
 # at Smax (2100, not a multiple of the 64-key tile), and a batch of two at
 # both starts; GQA groups 1-8 packed into the 64-row tile (the configs'
-# 1, 2, 3, 4, 6, 8: 64 // G positions a head, 64 % G rows idle); d 64, 128
+# 1, 2, 3, 4, 6, 8: 64 // G positions a head, 64 % G rows idle); d 64, 80
+# (two panels, the second zero past column 80), 128
 @pytest.mark.parametrize("C", [1, 16, 256, 2048])
 @pytest.mark.parametrize("where", ["start0", "at_smax", "mixed"])
 @pytest.mark.parametrize("G", [1, 2, 3, 4, 6, 8])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_flash_prefill_prefix_bf16_sweep(dev, C, where, G, d):
     from repro_torch.kernels.flash_prefill import (flash_prefill_prefix,
                                                    flash_prefill_prefix_ref,
@@ -368,6 +371,44 @@ def test_flash_f32_unaligned_views_take_the_fma_body(dev, mode):
     out2, bodies = _bodies(lambda: call(q.clone(), k.clone(), v))
     assert bodies == {"fma": 0, "wgmma": 0, "merge": 0, "tf32x3": 1}, bodies
     torch.testing.assert_close(out2, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_head_dim_80_unaligned_views_take_the_fma_body(dev, dtype):
+    """Head dim 80 in the FMA body: views one element past a 16-byte
+    boundary, prefix and full-sequence causal, within the dtype's
+    tolerance of the plain version (bf16: one bf16 step of it, as that
+    body keeps P in float32).  A head dim the kernels are not built for
+    raises."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_prefix,
+                                                   flash_prefill_prefix_ref,
+                                                   flash_prefill_ref)
+    rng = np.random.default_rng(24)
+    B, H, KVH, C, S, d = 2, 8, 2, 40, 300, 80
+
+    def shifted(shape):
+        flat = _randn(rng, (int(np.prod(shape)) + 1,), dtype, dev)
+        return flat[1:].view(shape)
+    k = shifted((B, S, KVH, d)).transpose(1, 2)
+    v = _randn(rng, (B, S, KVH, d), dtype, dev).transpose(1, 2)
+    start = torch.tensor([0, 200], dtype=torch.int32, device=dev)
+    qc = shifted((B, H, C, d))
+    qs = shifted((B, S, H, d)).transpose(1, 2)
+    for call, ref in (
+            (lambda: flash_prefill_prefix(qc, k, v, start),
+             flash_prefill_prefix_ref(qc, k, v, start)),
+            (lambda: flash_prefill(qs, k, v, causal=True),
+             flash_prefill_ref(qs, k, v, causal=True))):
+        out, bodies = _bodies(call)
+        assert bodies == {"fma": 1, "wgmma": 0, "merge": 0, "tf32x3": 0}, \
+            bodies
+        diff = (out.float() - ref.float()).abs()
+        assert bool((diff <= (2.0 ** -7 if dtype == torch.bfloat16 else 0)
+                     * ref.float().abs() + 2e-5).all()), diff.max().item()
+    z = torch.zeros((1, 2, 4, 96), dtype=dtype, device=dev)
+    with pytest.raises(ValueError, match="takes d in"):
+        flash_prefill(z, z, z, causal=True)
 
 
 def test_flash_split_without_scratch_is_an_error(dev):
@@ -698,6 +739,8 @@ def test_kernels_reject_what_they_do_not_take(dev):
     (1, 4, 4, 64, 64), (2, 8, 2, 128, 64), (1, 8, 1, 256, 128),
     (2, 4, 4, 96, 128), (1, 4, 2, 1, 64), (2, 8, 2, 1000, 128),
     (1, 8, 2, 37, 64), (4, 32, 8, 1024, 128),
+    (1, 4, 4, 37, 80), (2, 8, 2, 200, 80), (4, 32, 32, 1024, 80),
+    (1, 16, 16, 4096, 64),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
@@ -867,6 +910,108 @@ def test_dense_granite_kernel_path_matches_plain(dev):
         for key in ("k", "v"):
             torch.testing.assert_close(a[i][key], b[i][key], atol=1e-5,
                                        rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stablelm_head_dim_80_kernel_path_matches_plain(dev, dtype):
+    """stablelm-3b at full width (d_model 2560, 32 heads of 80) and 2
+    layers: a prompt of 300 tokens through ``Model.prefill`` (the
+    full-sequence flash kernel, causal) and into a lane's stripe as two
+    chunks of 256 and 44 (the prefix flash kernel), each kernel path
+    against the plain path (``use_kernels=False``, masked chunk
+    attention): logits within a relative L2 of 1e-4 in float32 and 0.05
+    in bfloat16 (the repo's bf16 tolerance), the bf16 chunks through the
+    wgmma body."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_prefix)
+    from repro_torch.models.model import Model
+    cfg = get_config("stablelm-3b").scaled(num_layers=2, param_dtype=dtype)
+    assert cfg.hd == 80
+    model = Model(cfg, kv_dtype=dtype, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(25).integers(
+        2, cfg.vocab_size, (1, 300))).to(dev)
+    out = {}
+    for use in (True, False):
+        model.use_kernels = use
+        model.chunk_attn_impl = "flash" if use else "masked"
+        n0 = (flash_prefill.launches, flash_prefill_prefix.launches)
+        whole, _ = model.prefill(params, {"tokens": toks})
+        lane = model.init_cache(1, 512)
+        chunks, bodies = [], {}
+        for s0, e0 in ((0, 256), (256, 300)):
+            got, b = _bodies(lambda: model.prefill_chunk(
+                params, lane["k"][:, 0], lane["v"][:, 0], toks[:, s0:e0], s0,
+                e0 - s0))
+            chunks.append(got)
+            bodies = {k: bodies.get(k, 0) + n for k, n in b.items()}
+        n1 = (flash_prefill.launches, flash_prefill_prefix.launches)
+        assert (n1[0] > n0[0] and n1[1] > n0[1]) == use
+        if use and dtype == "bfloat16":
+            assert bodies["wgmma"] == 2 * cfg.num_layers and not bodies["fma"]
+        out[use] = [whole] + chunks
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    for a, b in zip(out[True], out[False]):
+        rel = ((a - b).norm() / b.norm()).item()
+        assert rel <= tol, rel
+
+
+def test_seamless_decode_graphed_equals_eager(dev):
+    """seamless's smoke config in bf16 (heads of 64) on the dense backend:
+    three requests of 32 encoder frames each prefilled by ``Model.prefill``
+    (the flash kernel, bidirectional in the encoder and causal in the
+    decoder) and placed by ``write_prefill``, then 6 fused decode steps
+    with an INT8 swap of one lane after the second: the step graph's
+    tokens, reasons and every cache key (the cross cache included) equal
+    the eager steps' bit for bit, and each graphed step is a replay."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.models.model import Model
+    from repro_torch.serving.kv_cache import DenseKVBackend, KVBackendConfig
+    cfg = get_smoke_config("seamless-m4t-large-v2").scaled(head_dim=64)
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(3))
+    rng = np.random.default_rng(26)
+    frames = [_randn(rng, (1, cfg.cross_kv_len, cfg.d_model), torch.bfloat16,
+                     dev) for _ in range(3)]
+
+    def run(graphs):
+        kv = DenseKVBackend(model, KVBackendConfig(
+            max_slots=4, max_seq_len=16, quantize_offload=True,
+            cuda_graphs=graphs, eos_token=-1))
+        B = 4
+        toks = np.zeros((B, 1), np.int32)
+        active = np.zeros((B,), bool)
+        n0 = flash_prefill.launches
+        for rid, f in enumerate(frames):
+            logits, pc = model.prefill(params, {
+                "enc_embeds": f, "tokens": torch.tensor([[rid + 2]],
+                                                        device=dev)})
+            kv.write_prefill(rid, pc, 1)
+            toks[rid, 0], active[rid] = int(logits[0].argmax()), True
+        assert flash_prefill.launches - n0 == 3 * (cfg.num_encoder_layers
+                                                   + cfg.num_layers)
+        outs = []
+        for i in range(6):
+            if i == 2:
+                kv.upload(0, kv.offload(0))
+            gen = np.full((B,), i + 2, np.int32)
+            got = kv.decode(params, toks, active, gen, gen,
+                            np.full((B,), 2 ** 31 - 1, np.int32),
+                            np.arange(B, dtype=np.int32))
+            outs.append(got)
+            toks[:, 0] = got[0]
+        torch.cuda.synchronize()
+        return outs, kv
+    (og, kg), (oe, ke) = run(True), run(False)
+    for (ta, ra), (tb, rb) in zip(og, oe):
+        np.testing.assert_array_equal(ta, tb)
+        np.testing.assert_array_equal(ra, rb)
+    for key in kg.cache:
+        assert torch.equal(kg.cache[key], ke.cache[key]), key
+    assert kg.graphs.replays["decode"] == 6 and kg.graphs.captures == 1
+    assert ke.graphs.captures == 0
 
 
 # ------------------------------------------ CUDA graphs of the serving steps

@@ -490,8 +490,7 @@ def test_copied_configs_prefill_and_decode_match_jax(name):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
 
 
-@pytest.mark.parametrize("name", ["jamba-1.5-large-398b",
-                                  "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("name", ["jamba-1.5-large-398b"])
 def test_unported_families_are_refused(name):
     cfg = port_configs.get_smoke_config(name)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
