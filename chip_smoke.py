@@ -143,7 +143,8 @@ the final line:
      the wall of a graphed pack of 4 chunks at buckets 64 and 128 against
      the same 4 chunks as graphed single chunks (printed, not gated);
  20. serving with the online predictor, packs of 4 and the prefix cache,
-     paged (with the auto token budget at a target TPOT of 30 ms) and
+     on granite cut to 20 of its 40 layers since phase 26 came (the
+     script's time), paged (with the auto token budget at a target TPOT of 30 ms) and
      dense, each through ``serve(..., warmup=True)``: 24 requests at t=0,
      18 of them in 3 families that share a 1024-token system prompt; all
      must finish with prefix hits, the dense serve (no budget) with packs
@@ -209,7 +210,8 @@ the final line:
      off and its cache cleared; it prints tokens/s, TTFT p50 of imported,
      local-hit and cold requests, each fill's and each publish's time, the
      effective rates and the tier's gauges.
- 23. two granite-3-8b replicas behind the online gateway
+ 23. two granite-3-8b replicas (phase 20's model: 20 of 40 layers) behind
+     the online gateway
      (``launch/serve.serve_gateway``, ``serving/gateway``): (a) two warmed
      paged replicas of phase 5's configuration (B shares A's weights, both
      on cuda:0) serve 24 sharegpt arrivals at 6/s (prompts clamped to
@@ -227,7 +229,8 @@ the final line:
      (``ServingEngine.serve``): (a)'s streams equal them bit for bit; (c)
      the lockstep pump over A and B on fresh copies: tokens equal (b), its
      tokens/s and TTFT beside (a)'s (printed, not gated).
- 24. granite-moe-3b-a800m at full width and depth (32 layers, 40 experts
+ 24. granite-moe-3b-a800m at full width and 16 of its 32 layers (cut for
+     the script's time since phase 26 came; 40 experts
      of 1536 x 512 top 8, capacity factor 1.25; random bf16 weights from
      a seed, the router f32), after the granite model is freed: (a) one
      MoE layer in f32 on the card against the CPU over 64 tokens (the
@@ -286,8 +289,43 @@ the final line:
      full width and depth in f32, batch 2 x 1024, 3 AdamW steps: losses
      finite, the flash kernel and its (plain, recomputed) backward once
      per layer and step; ms/step and peak memory.
+ 26. the hybrid family and the ssm family's training, after phase 25's
+     models are freed (device memory allocated printed first):
+     jamba-1.5-large-398b at full width (d_model 8192, 64/8 heads of 128,
+     d_ff 24576, Mamba heads of 128 with state 128, vocab 65536) and one
+     8-layer group of its 72 (7 Mamba layers, attention at layer 3, MoE
+     on odd layers), each MoE layer holding a share of its 16 experts
+     (``Model(expert_shard=)``: the device-local half of the reference's
+     expert parallelism, routing, capacity and aux loss over all 16; the
+     other chips' shares and the exchange are left out).  (a) f32, 2 of
+     16 experts (11.3 B parameters): one 1000-token prompt's prefill
+     logits and 4 decode steps, the kernel path (the SSD chunk's
+     tensor-core body through the 128-column head split, every call; the
+     flash kernel; RMSNorm at 8192 and 16384) against the plain path,
+     relative L2 < 1e-3 and equal greedy tokens.  (b) bf16, 8 of 16
+     experts (25.81 B parameters, 51.6 GB): kernel vs plain (<= 0.05),
+     then the main path, counted from 0: 12 requests (prompts 64-1536,
+     outputs 16-64) through ``serve(..., kv_backend="dense",
+     warmup=True)`` with 8 lanes (lanes turn over), the decode step a
+     CUDA graph, each prompt prefilled whole, and one 1000-token lane's
+     INT8 swap on its backend (K/V through rows 3-4, conv and SSM state
+     raw: restored bit for bit, K/V within 0.02); then the graphed and
+     the eager engine serve the same requests on a virtual clock, equal
+     bit for bit (the MoE couples a step's lanes and the wall clock's
+     schedule moves with measured time); tokens/s, TTFT p50, decode p50,
+     prefill ms a request, the swap's bytes.  (c) the graphed decode step
+     at 8 lanes profiled against its bytes bound, with the device times
+     of its MoE blocks, Mamba steps and plain attention, and a 1024-token
+     prefill whose SSD kernels' share the profile names.  (d)
+     mamba2-2.7b at full width and depth in f32: the loss and every
+     gradient leaf through ``SsdChunk`` and ``FusedRMSNorm`` against the
+     plain path (loss 1e-4 relative, each leaf nonzero within rel_l2
+     1e-3), then ``launch/train.train``, 3 AdamW steps at batch 1 x 1024
+     (main path, counted from 0): losses finite, 64 SSD launches a step;
+     ms/step, tokens/s, peak memory.
 
-The serve phases 5, 6, 9, 10, 16, 17, 20, 21, 22 (b), 23 and 24 run warmed engines
+The serve phases 5, 6, 9, 10, 16, 17, 20, 21, 22 (b), 23, 24 and 26 (b)
+run warmed engines
 (every step graph captured and every kernel library loaded before the
 first request): each prints its warmup's seconds, captures and
 graph-pool size, and fails on any capture or library build or load while
@@ -297,7 +335,8 @@ replay adds its captured launches to every wrapper's ``launches`` and to
 the libraries' body counters, so the main-path counts below count
 replays.
 
-Phases 15-23 run after phase 7, with the granite model still loaded.
+Phases 15-23 run after phase 7, with the granite model still loaded
+(phases 20 and 23 on its first 20 layers).
 Phase 3 also holds the paged attention (f32 and bf16) and the prefix
 flash kernel (bf16) at granite-moe's decode shape (B 8, H 24, KVH 8, d
 64: G 3, pages of 16, lengths 1..2048) and its 256-token chunk at 1000,
@@ -326,11 +365,16 @@ pages), the full-sequence flash kernel at the training shape
 (B 4, H 32, KVH 8, S 1024, d 128: f32 causal and bidirectional, bf16
 causal, a ragged S of 1000, d 64 bidirectional, and bf16 causal at B 1,
 S 2048; SDPA timed as the yardstick), the RMSNorm kernel (rows of 2560 and 5120 for mamba,
-4096 for granite, 1536 for granite-moe, bf16 and f32, with
+4096 for granite, 1536 for granite-moe, 8192 and 16384 for jamba (a
+1024-token prefill; the kernels line's ``jamba_shape``), bf16 and f32, with
 ``torch.nn.functional.rms_norm`` timed
 as the library yardstick) and the SSD chunk kernel (B 1, S 1024 = 4 chunks
 of 256, with small and with model-range decay, and one ragged chunk of 200
-rows; 80 heads of 64, state 128, f32) against their plain versions.
+rows; 80 heads of 64, state 128, f32; and jamba's prefill layer, 128 heads
+of 128 through the head split, at both decays: ``jamba_shape``) against
+their plain versions; the full-sequence flash kernel also at jamba's
+attention layer (bf16 causal, B 1, H 64, KVH 8, S 1024, d 128;
+``jamba_shape``, gated as granite's rows).
 There are five main paths, each driven with every kernel's launch count set to 0 just before it and
 read just after: granite's phases 5 and 6 (the paged-attention, prefix
 flash and INT8 quant kernels must have launched), granite's dense phases
@@ -340,8 +384,9 @@ and SSD chunk kernels must have launched, every SSD call through the
 tensor-core body) and training's phase 13 (the
 flash and RMSNorm kernels must have launched); then phase 19's two packs
 and phase 20's and phase 21's two serves each, phase 22, phase 23 (a),
-phase 24's serves (c)-(e) and phase 25's serve (b) and training (d),
-each counted from 0 and added to the kernels line's launches.  Each phase
+phase 24's serves (c)-(e), phase 25's serve (b) and training (d), and
+phase 26's serve and swap (b) and training (d), each counted from 0 and
+added to the kernels line's launches.  Each phase
 prints its seconds.  Then a ``kernels`` JSON line (each row also names
 the ``csrc`` headers its source includes), the card's name and
 power limit, and the final ``{"ok": true, "device": {...}}`` line.  Needs
@@ -350,6 +395,7 @@ one CUDA card; exits non-zero without one.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import os
 import re
@@ -387,6 +433,14 @@ class Clock:
 def fail(msg: str) -> None:
     print(f"[chip_smoke] FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def free_memory(torch) -> None:
+    """Collect the reference cycles that can still hold a deleted model's
+    tensors (engines, graphs and closures that refer back to each other),
+    then return the cached blocks to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _scrub_l2():
@@ -1210,21 +1264,23 @@ def check_fused_rmsnorm(torch, dev):
     """The RMSNorm kernel at each main path's widths, bf16 and f32: mamba's
     d_model 2560 and gate-norm d_inner 5120 for a decode batch (8 rows) and
     a 1024-token prefill, granite's d_model 4096 and granite-moe's 1536
-    for a decode batch and a 256-token prefill chunk;
+    for a decode batch and a 256-token prefill chunk, jamba's d_model 8192
+    and gate-norm d_inner 16384 for a 1024-token prefill;
     ``torch.nn.functional.rms_norm`` is the
     library yardstick.  float32 must agree to 2e-5 (relative beyond 1);
     bfloat16 must be within one bfloat16 rounding step of the plain output,
     element by element (both sum in float32, so only the final rounding can
     differ).  Times are device times (:func:`time_ms`) and a host loop's
     per-call times (:func:`eager_ms`) of the kernel and the library call.
-    Returns the bf16 (1024, 5120) row and the bf16 (256, 1536) one
-    (granite-moe's chunk)."""
+    Returns the bf16 (1024, 5120) row, the bf16 (256, 1536) one
+    (granite-moe's chunk) and jamba's bf16 rows by width."""
     import torch.nn.functional as F
     from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm, rmsnorm_ref
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     rows = {}
     shapes = ((8, 2560), (1024, 2560), (8, 5120), (1024, 5120), (8, 4096),
-              (256, 4096), (8, 1536), (256, 1536))
+              (256, 4096), (8, 1536), (256, 1536), (1024, 8192),
+              (1024, 16384))
     for name in ("float32", "bfloat16"):
         dt = getattr(torch, name)
         for T, d in shapes:
@@ -1267,7 +1323,8 @@ def check_fused_rmsnorm(torch, dev):
                 verdict("fused_rmsnorm bf16 (1024, 5120)", ms, mine, lib_ms,
                         theirs, "F.rms_norm", b_ms,
                         copy_ms=time_ms(lambda: y.copy_(x), 50))
-    return rows[(1024, 5120)], rows[(256, 1536)]
+    return rows[(1024, 5120)], rows[(256, 1536)], {
+        str(d): rows[(1024, d)] for d in (8192, 16384)}
 
 
 def ssd_flops(B, C, Q, H, P, N) -> float:
@@ -1289,25 +1346,31 @@ def ssd_bodies(torch, fn):
     return out, {k: n - before[k] for k, n in ops.body_launches().items()}
 
 
-def check_ssd_chunk(torch, dev):
+SSD_CASES = ((4, 256, "0.1|randn|"), (4, 256, "softplus"),
+             (1, 200, "0.1|randn|"))
+
+
+def check_ssd_chunk(torch, dev, H=80, P=64, cases=SSD_CASES):
     """The SSD chunk kernel at one full-width mamba2-2.7b prefill layer of
     1024 tokens (B 1, C 4 chunks of Q 256, H 80, P 64, N 128, f32), with
     dA = -0.1 |randn| and at the model's decay range (dA = -softplus(randn),
     as A = -1 and dt = softplus(.) make it: cum reaches about -180 over a
     chunk, where exp(cum[q]) . exp(-cum[s]) would overflow), and at a
     prompt shorter than a chunk, whose single chunk of Q 200 is not a
-    multiple of the kernel's tiles.  Every output finite and within
+    multiple of the kernel's tiles; or ``cases`` at other heads (jamba's
+    prefill layer: H 128 heads of P 128, which the wrapper runs as 256
+    heads of 64).  Every output finite and within
     1e-4 x sqrt(Q N / 1024) of the plain version; each call must take the
-    body ``plan.body`` names (the tensor-core body for all three, by the
-    body counters).  The bound is :func:`f32_bound`'s (3xTF32).  The
-    kernel is gated against its plain version (:func:`verdict`).  Returns
-    the Q 256 row with dA = -0.1 |randn|."""
+    body ``plan.body`` names (the tensor-core body for all of them, by the
+    body counters).  The kernel's worst error from the float64 truth must
+    be no larger than the plain version's.  The bound is
+    :func:`f32_bound`'s (3xTF32).  The kernel is gated against its plain
+    version (:func:`verdict`).  Returns the first case's row."""
     from repro_torch.kernels.ssd_scan import plan, ssd_chunk, ssd_chunk_ref
-    B, H, P, N = 1, 80, 64, 128
+    B, N = 1, 128
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     main = None
-    for C, Q, decay in ((4, 256, "0.1|randn|"), (4, 256, "softplus"),
-                        (1, 200, "0.1|randn|")):
+    for C, Q, decay in cases:
         xbar = torch.randn((B, C, Q, H, P), generator=g, device=dev)
         dA = torch.randn((B, C, Q, H), generator=g, device=dev)
         dA = (-torch.nn.functional.softplus(dA) if decay == "softplus"
@@ -1317,7 +1380,7 @@ def check_ssd_chunk(torch, dev):
         outs, body = ssd_bodies(torch, lambda: ssd_chunk(xbar, dA, Bc, Cc))
         refs = ssd_chunk_ref(xbar, dA, Bc, Cc)
         torch.cuda.synchronize()
-        label = f"ssd_chunk Q={Q} dA=-{decay}"
+        label = f"ssd_chunk H={H} P={P} Q={Q} dA=-{decay}"
         want = plan.body(Q, P, N, [t.data_ptr() for t in (xbar, Bc, Cc,
                                                           *outs[:2])])
         took = {"fma": 1, "tf32x3_states": 0, "tf32x3_y": 0} if want == "fma" \
@@ -1329,6 +1392,19 @@ def check_ssd_chunk(torch, dev):
         # 1e-4 at the Pallas tests' shapes (Q * N <= 1024), scaled by the
         # square root of the sums' lengths beyond them (float32 sums)
         tol = 1e-4 * (Q * N / 1024) ** 0.5
+        # each path's error from the float64 truth (the plain version on
+        # float64 inputs), relative to 1 + |truth|, its worst output
+        truth = ssd_chunk_ref(*(t.double() for t in (xbar, dA, Bc, Cc)))
+
+        def off(got):
+            return max((((g.double() - t).abs() / (1 + t.abs())).max().item()
+                        for g, t in zip(got, truth)))
+        k_off, p_off = off(outs), off(refs)
+        t_err = f"truth_err={k_off:.3g} (plain {p_off:.3g})"
+        del truth
+        if k_off > p_off:
+            fail(f"{label}: {t_err}: the kernel is further from the float64 "
+                 "truth than the plain version")
         for name, o, r in zip(("y_diag", "states", "chunk_decay"), outs,
                               refs):
             if not torch.isfinite(o).all():
@@ -1344,11 +1420,11 @@ def check_ssd_chunk(torch, dev):
         b_ms, b_by, basis = f32_bound(nbytes(xbar, dA, Bc, Cc, *outs),
                                       ssd_flops(B, C, Q, H, P, N))
         cum = torch.cumsum(dA, dim=2).min().item()
-        print(f"[kernel] {label} f32 B={B} C={C} H={H} P={P} N={N}: "
+        print(f"[kernel] {label} f32 B={B} C={C} N={N}: "
               f"max_err={err:.3g} (tol {tol:.2g}) cum_min={cum:.1f} body "
-              f"{want} kernel_ms={ms:.4f} ({b_ms / ms:.1%} of bound) "
+              f"{want} (heads split {plan.head_split(P)}) kernel_ms={ms:.4f} ({b_ms / ms:.1%} of bound) "
               f"plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by}, {basis}) "
-              f"library_ms=none", flush=True)
+              f"library_ms=none {t_err}", flush=True)
         verdict(label, ms, mine, plain, theirs, "its plain version", b_ms)
         if main is None:
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain,
@@ -2504,6 +2580,33 @@ def _budget_fit(eng, target_tpot: float) -> str:
             f"{eng.sched.cfg.iter_token_budget})")
 
 
+GRANITE_CUT = 20                        # phases 20 and 23: 20 of 40 layers
+
+
+def build(torch, dev, cfg, **kw):
+    """(model, params) of ``cfg`` on the card as ``serve``'s
+    ``build_model`` builds a model (flash chunk attention, the KV cache in
+    the weights' dtype, random weights from the seed); ``kw`` goes to
+    ``Model``."""
+    from repro_torch.models.model import Model
+    model = Model(cfg, chunk_attn_impl="flash", kv_dtype=cfg.param_dtype,
+                  device=dev, **kw)
+    return model, model.init(torch.Generator(device=dev).manual_seed(SEED))
+
+
+def granite_cut(model, params):
+    """granite-3-8b at full width and its first ``GRANITE_CUT`` of 40
+    layers: ``model``'s options over ``params``' first layers, with no
+    second draw."""
+    from repro_torch.models.model import Model
+    cut = Model(model.cfg.scaled(num_layers=GRANITE_CUT),
+                chunk_attn_impl=model.chunk_attn_impl,
+                kv_dtype=model.kv_dtype, device=model.device)
+    print(f"[model] granite-3-8b full width, {GRANITE_CUT} of 40 layers "
+          "(phases 20 and 23)", flush=True)
+    return cut, {**params, "layers": params["layers"][:GRANITE_CUT]}
+
+
 def phase_serve20(torch, model, params, kernels, backend):
     """Phase 20, one backend: phase20_requests through
     ``serve(..., warmup=True)`` with the online predictor, packs of 4 and
@@ -3518,6 +3621,7 @@ def phase_gateway(torch, model, params, kernels):
 # ------------------------------------------------------------- phase 24
 
 MOE_ARCH = "granite-moe-3b-a800m"
+MOE_LAYERS = 16                         # of 32: the script's time ceiling
 MOE_LAYER_TOKENS = 64                   # (a): one MoE layer's tokens
 MOE_F32_REL = 1e-3                      # (b): f32 kernel vs plain logits
 MOE_SERVE_ROWS = ("paged_attention", "flash_prefill_prefix",
@@ -3583,12 +3687,13 @@ def moe_layer_check(torch, dev, cfg):
 
 
 def moe_reference_check(torch, model, params):
-    """Phase 24 (b): the full-depth model's kernel path against its plain
+    """Phase 24 (b): the model's kernel path against its plain
     path (``use_kernels=False``, page gather, masked chunk attention) on
     phase 4's kind of short request (128 prompt tokens in two full chunks
     of 64, so that no padded row routes, then 4 decode steps, every run fed
     the f32 kernel path's tokens), in float32 (the bf16 weights cast:
-    13.2 GB), gated at a relative L2 of 1e-3 with equal greedy tokens, and
+    6.7 GB at 16 layers), gated at a relative L2 of 1e-3 with equal
+    greedy tokens, and
     in bf16 beside it (printed).  Each run's routing decisions (every
     call's set of K experts per token) are recorded through
     ``Model.moe_tap`` and the count of (token, k) choices that differ
@@ -3634,7 +3739,8 @@ def moe_reference_check(torch, model, params):
         n = sum(u.numel() for u in cx)
         rel = ((x - y).norm() / y.norm()).item()
         agree = (x.argmax(-1) == y.argmax(-1)).float().mean().item()
-        print(f"[moe] (b) {MOE_ARCH} full width/depth {what}, 6 logit rows: "
+        print(f"[moe] (b) {MOE_ARCH} full width, {MOE_LAYERS} layers, {what},"
+              f" 6 logit rows: "
               f"rel_l2={rel:.4g} argmax_agree={agree:.2f}; routing decisions "
               f"differing {flips}/{n}", flush=True)
         return rel, agree, flips
@@ -3643,7 +3749,7 @@ def moe_reference_check(torch, model, params):
     g32 = run(m32, p32, "gather", toks)
     res = {"f32": compare("f32, kernel vs plain path", k32, g32)}
     del m32, p32
-    torch.cuda.empty_cache()
+    free_memory(torch)
     k16 = run(model, params, "kernel", toks)
     g16 = run(model, params, "gather", toks, route=record)
     res["bf16"] = compare("bf16, kernel vs plain path", k16, g16)
@@ -3668,7 +3774,8 @@ def moe_reference_check(torch, model, params):
 
 def _moe_engine(model, params, *, graphs=True, **kw):
     """Phase 5's engine configuration (paged, chunks of 256, 8 lanes,
-    kernels, unquantized swaps, warmed), with ``kw`` over it."""
+    kernels, unquantized swaps, warmed), with ``kw`` over it (phase 26:
+    ``serve``'s dense engine, whole prompts, INT8 swaps)."""
     from repro_torch.core.engine import EngineConfig, ServingEngine
     from repro_torch.core.predictor import OraclePredictor
     opts = dict(max_slots=8, max_seq_len=2048, max_new_tokens=64,
@@ -3710,7 +3817,7 @@ def moe_block_times(torch, model, params, step_ms) -> None:
     of the whole block, of its routing and dispatch (router, top-k, the
     capacity plan, the scatter into the expert rows) and of its expert
     products (three batched products over 40 x 2 rows), against the step's
-    device span ``step_ms`` for 32 layers; the bytes bound of the block is
+    device span ``step_ms`` for its layers; the bytes bound of the block is
     its weights' read (every expert runs)."""
     from repro_torch.models import layers as L
     cfg = model.cfg
@@ -3750,7 +3857,8 @@ def moe_block_times(torch, model, params, step_ms) -> None:
 
 
 def phase_moe(torch, dev, kernels):
-    """Phase 24: granite-moe-3b-a800m at full width and depth (random
+    """Phase 24: granite-moe-3b-a800m at full width and ``MOE_LAYERS`` of
+    its 32 layers (random
     weights from a seed, bf16).  (a) one MoE layer card vs CPU; (b) the
     kernel path vs the plain path; then the main path, counted from 0:
     (c) phase 5's 12 requests on a warmed paged engine with graphs, (d) a
@@ -3761,16 +3869,17 @@ def phase_moe(torch, dev, kernels):
     clock: the MoE's tokens depend on which requests share a step, so a
     graphed and an eager serve compare only on one schedule.  Returns the
     launch counts of (c)-(e)."""
+    from repro_torch.configs import get_config
     from repro_torch.core.quantization import kv_bytes_per_token
-    from repro_torch.launch.serve import build_model, build_requests, serve
+    from repro_torch.launch.serve import build_requests, serve
     from repro_torch.utils import tree_leaves
     from repro_torch.utils.compile_counter import CompileCounter
     clock = Clock(time.perf_counter())
-    model, params = build_model(MOE_ARCH, "full", dev, "flash", SEED)
+    cfg = get_config(MOE_ARCH).scaled(num_layers=MOE_LAYERS)
+    model, params = build(torch, dev, cfg)
     torch.cuda.synchronize()
-    cfg = model.cfg
     n_params = sum(t.numel() for _, t in tree_leaves(params))
-    print(f"[model] {MOE_ARCH} full width/depth ({cfg.num_layers}L "
+    print(f"[model] {MOE_ARCH} full width, {cfg.num_layers} of 32 layers ("
           f"d{cfg.d_model} {cfg.num_heads}/{cfg.num_kv_heads}H hd{cfg.hd} "
           f"{cfg.num_experts} experts top {cfg.top_k} ff{cfg.d_ff} "
           f"V{cfg.vocab_size}), {n_params:,} params bf16 (router f32)",
@@ -3887,7 +3996,7 @@ def phase_moe(torch, dev, kernels):
         span.append(b.elapsed_time(e))
     moe_block_times(torch, model, params, statistics.median(span))
     del step, model, params
-    torch.cuda.empty_cache()
+    free_memory(torch)
     clock.lap("MoE profile (phase 24 f)")
     return launches
 
@@ -3962,7 +4071,7 @@ def encdec_reference_check(torch, dev, model, params):
         fail(f"phase 25 (a): f32 kernel path differs (rel_l2 {rel}, argmax "
              f"agree {agree})")
     del m32, p32
-    torch.cuda.empty_cache()
+    free_memory(torch)
     rel, _ = _kernel_vs_plain(torch, "bf16, 24 + 24 layers", model, params,
                               frames.to(model.dtype), 5)
     if not rel <= BF16_TOL:
@@ -4332,13 +4441,411 @@ def phase_encdec(torch, dev, kernels):
         counts = phase_encdec_serve(torch, model, params, kernels)
     clock.lap("seamless dense-backend serve + profile (phase 25 b)")
     del model, params
-    torch.cuda.empty_cache()
+    free_memory(torch)
     with torch.no_grad():
         phase_vlm(torch, dev)
     torch.cuda.empty_cache()
     clock.lap("internvl2 patch embeddings (phase 25 c)")
     t_counts = phase_encdec_train(torch, dev, kernels)
     clock.lap("seamless training (phase 25 d)")
+    return {k: counts[k] + t_counts[k] for k in counts}
+
+
+HYBRID_ARCH = "jamba-1.5-large-398b"
+HYBRID_LAYERS = 8                       # one 8-layer group of 72
+HYBRID_F32_SHARD = (0, 8)               # (a): 2 of 16 experts (45 GB f32)
+HYBRID_SHARD = (0, 2)                   # (b)-(c): one of 2 chips' share
+HYBRID_PROMPT = 1000                    # (a)-(b): the reference prompt
+HYBRID_F32_REL = 1e-3                   # (a): f32 kernel vs plain logits
+HYBRID_SERVE = dict(arch=HYBRID_ARCH, arch_size="full", strategy="alise",
+                    n_requests=12, max_slots=8, seed=SEED,
+                    predictor_kind="oracle", kv_backend="dense",
+                    quantize=True, warmup=True, verbose=False)
+HYBRID_ROWS = ("flash_prefill", "fused_rmsnorm", "ssd_chunk", "kv_quantize",
+               "kv_dequantize")
+MAMBA_TRAIN = dict(batch=1, seq=1024, steps=3)
+
+
+def _hybrid_model(torch, dev, dtype, shard):
+    """jamba-1.5-large-398b at full width, one 8-layer group, holding the
+    ``shard`` share of every MoE layer's 16 experts, random weights from
+    the seed in ``dtype`` (the routers f32), by :func:`build`."""
+    from repro_torch.configs import get_config
+    from repro_torch.utils import tree_leaves
+    cfg = get_config(HYBRID_ARCH).scaled(num_layers=HYBRID_LAYERS,
+                                         param_dtype=dtype)
+    t0 = time.perf_counter()
+    model, params = build(torch, dev, cfg, expert_shard=shard)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in tree_leaves(params))
+    nb = sum(t.numel() * t.element_size() for _, t in tree_leaves(params))
+    lo, hi = model.experts
+    print(f"[model] {HYBRID_ARCH} full width ({HYBRID_LAYERS} of 72 layers: "
+          f"7 Mamba + 1 attention, 4 MoE; d{cfg.d_model} {cfg.num_heads}/"
+          f"{cfg.num_kv_heads}H hd{cfg.hd} ff{cfg.d_ff} Mamba {cfg.ssm_heads}"
+          f"x{cfg.ssm_headdim} N{cfg.ssm_state} V{cfg.vocab_size}), experts "
+          f"[{lo}, {hi}) of {cfg.num_experts} held (share {shard[0]} of "
+          f"{shard[1]}), {n:,} params {dtype} ({nb / 1e9:.2f} GB), init "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return model, params
+
+
+def _hybrid_logits(torch, model, params, prompt, toks=None):
+    """(logits (5, V) float32, tokens fed) of one request: ``Model.prefill``
+    of ``prompt`` (1, S), its cache placed in a 1-lane cache of S + 8
+    positions, then 4 dense decode steps fed ``toks`` (greedy from this
+    run's logits when None)."""
+    logits, pc = model.prefill(params, {"tokens": prompt})
+    S = prompt.shape[1]
+    cache = model.init_cache(1, S + 8)
+    for key in ("k", "v"):
+        cache[key][:, :, :S] = pc[key]
+    for key in ("conv", "ssm", "lengths"):
+        cache[key].copy_(pc[key])
+    rows, fed = [logits[0]], []
+    for i in range(4):
+        fed.append(int(rows[-1].argmax()) if toks is None else toks[i])
+        rows.append(model.decode_step(
+            params, cache, torch.tensor([[fed[-1]]], device=model.device))[0])
+    return torch.stack(rows).float(), fed
+
+
+def hybrid_kernel_vs_plain(torch, label, model, params, tol):
+    """Phase 26's kernel path (the SSD chunk's tensor-core body through the
+    P-128 split, the full-sequence flash kernel, RMSNorm) against the plain
+    path (``use_kernels=False``) on one ``HYBRID_PROMPT``-token prompt from
+    the seed: prefill logits and 4 decode steps, both fed the kernel
+    path's greedy tokens; fails above ``tol`` (relative L2) or, in f32, on
+    an argmax that differs.  Every SSD call of the kernel path must take
+    the tensor-core body."""
+    rng = np.random.default_rng(SEED + 26)
+    prompt = torch.tensor(rng.integers(2, model.cfg.vocab_size,
+                                       (1, HYBRID_PROMPT)),
+                          device=model.device)
+    (a, fed), body = ssd_bodies(
+        torch, lambda: _hybrid_logits(torch, model, params, prompt))
+    model.use_kernels = False
+    b, _ = _hybrid_logits(torch, model, params, prompt, fed)
+    model.use_kernels = True
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        fail(f"phase 26 {label}: non-finite logits")
+    rel = ((a - b).norm() / b.norm()).item()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    n_ssm = sum(model.cfg.layer_kind(i) == "ssm"
+                for i in range(model.cfg.num_layers))
+    print(f"[hybrid] {label}: {HYBRID_PROMPT}-token prefill + 4 decode "
+          f"steps, 5 logit rows: kernel vs plain path rel_l2={rel:.4g} "
+          f"argmax_agree={agree:.2f}; SSD bodies {body}", flush=True)
+    if body != {"fma": 0, "tf32x3_states": n_ssm, "tf32x3_y": n_ssm}:
+        fail(f"phase 26 {label}: the SSD calls did not all take the "
+             f"tensor-core body ({body})")
+    f32 = model.dtype == torch.float32
+    if not (rel <= tol and (agree == 1.0 or not f32)):
+        fail(f"phase 26 {label}: kernel path differs (rel_l2 {rel}, argmax "
+             f"agree {agree})")
+
+
+def hybrid_swap(torch, model, params, kv):
+    """One lane's INT8 swap on the serve's dense backend: a
+    ``HYBRID_PROMPT``-token prefill placed by ``write_prefill``, offloaded
+    (K/V as INT8 through ``kv_quantize``, conv and SSM state raw) and
+    uploaded (``kv_dequantize``) into another lane: conv and SSM state
+    bit for bit, K/V within phase 3's INT8 round-trip bound, the length
+    kept.  Prints the bytes and times."""
+    rng = np.random.default_rng(SEED + 27)
+    prompt = torch.tensor(rng.integers(2, model.cfg.vocab_size,
+                                       (1, HYBRID_PROMPT)),
+                          device=model.device)
+    _, pc = model.prefill(params, {"tokens": prompt})
+    kv.slot_req[0] = -2                   # the swap lands in another lane
+    kv.write_prefill(-1, pc, HYBRID_PROMPT)
+    src = kv.slot_of(-1)
+    before = {k: kv._lane(k, src).clone() for k in kv.cache if k != "lengths"}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = kv.offload(-1)
+    t1 = time.perf_counter()
+    kv.slot_req[src] = -3
+    kv.upload(-1, blob)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dst = kv.slot_of(-1)
+    kinds = {k: blob[k][0] for k in ("k", "v", "conv", "ssm")}
+    exact = all(torch.equal(kv._lane(k, dst), before[k])
+                for k in ("conv", "ssm"))
+    err = max(((kv._lane(k, dst)[:, :HYBRID_PROMPT].float()
+                - before[k][:, :HYBRID_PROMPT].float()).norm()
+               / before[k][:, :HYBRID_PROMPT].float().norm()).item()
+              for k in ("k", "v"))
+    kept = int(kv.cache["lengths"][dst]) == HYBRID_PROMPT
+    print(f"[hybrid] (b) INT8 swap of a {HYBRID_PROMPT}-token lane (lane "
+          f"{src} -> {dst}): {kinds}, {_blob_bytes(blob) / 1e6:.1f} MB to the "
+          f"host (K/V span {blob['k'][1][3][1]}), out {(t1 - t0) * 1e3:.1f} "
+          f"ms, in {(t2 - t1) * 1e3:.1f} ms; conv and SSM state "
+          + ("equal bit for bit" if exact else "DIFFER")
+          + f", K/V rel_l2 {err:.4g}, length "
+          + ("kept" if kept else "LOST"), flush=True)
+    if kinds != {"k": "q8", "v": "q8", "conv": "raw", "ssm": "raw"}:
+        fail(f"phase 26 (b): swap blob kinds {kinds}")
+    if not (exact and kept and err < TIER_Q8_BOUND):
+        fail("phase 26 (b): the swap did not restore the lane")
+    for rid in (-1, -2, -3):
+        kv.clear(rid)
+    del pc, before, blob
+
+
+def phase_hybrid_serve(torch, model, params, kernels):
+    """Phase 26 (b): the main path, counted from 0: ``HYBRID_SERVE``'s 12
+    requests (prompts 64-1536, outputs 16-64, 8 lanes, so lanes turn over)
+    through ``serve(...)`` on the dense backend, warmed, the decode step a
+    CUDA graph, each prompt prefilled whole; then one lane's INT8 swap on
+    its backend.  Then the graphed and the eager engine serve the same
+    requests on a virtual clock (0.1 s a step): the MoE's capacity couples
+    a step's lanes, so a token depends on which requests share its step,
+    and the ALISE schedule on the wall clock (aging, EWT) depends on
+    measured time; on one schedule the two must give equal tokens bit for
+    bit.  Returns the main path's launch counts."""
+    from repro_torch.launch.serve import build_requests, serve
+    from repro_torch.utils.compile_counter import CompileCounter
+    reset_counts(kernels)
+    counter = CompileCounter()
+    reqs, eng = serve(**HYBRID_SERVE, device=model.device,
+                      model_and_params=(model, params))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - eng.warm_stats["end"]
+    graph_gate("jamba dense serve (phase 26 b)", eng, counter, True)
+    counter.detach()
+    _served("phase 26 (b)", model, reqs)
+    pre = [dt * 1e3 for _, _, dt, _ in eng.prefill_times]
+    print(f"[hybrid] (b) {HYBRID_ARCH} dense KV and state, 8 lanes, "
+          f"graphed, serve(): {serve_summary(eng, reqs, wall)}; prefill ms a "
+          f"request {np.mean(pre):.1f} mean over {len(pre)}", flush=True)
+    if len(pre) != len(reqs):
+        fail(f"phase 26 (b): {len(pre)} prefills for {len(reqs)} requests")
+    hybrid_swap(torch, model, params, eng.kv)
+    counts = read_counts(kernels)
+    print(f"[main-path] {HYBRID_ARCH} serve + swap (phase 26 b) launches "
+          f"{counts}", flush=True)
+    for n in HYBRID_ROWS:
+        if counts[n] <= 0:
+            fail(f"phase 26 (b): kernel {n} never launched")
+    del eng
+    torch.cuda.empty_cache()
+    got = {}
+    for graphs in (True, False):       # no chunk buckets: nothing measured
+        e = _moe_engine(model, params, graphs=graphs, kv_backend="dense",
+                        prefill_chunk=None, quantize_offload=True)
+        rs = build_requests(model.cfg, HYBRID_SERVE["n_requests"], SEED,
+                            "full")
+        w, first = virtual_serve(torch, e, rs)
+        how = "graphed" if graphs else "eager"
+        print(f"[hybrid] (b) virtual clock, {how}: "
+              f"{_moe_summary(e, rs, w, first)}", flush=True)
+        _served(f"phase 26 (b) {how}", model, rs)
+        got[graphs] = rs
+        del e
+        torch.cuda.empty_cache()
+    same_tokens("jamba dense (phase 26 b)", got[True], got[False])
+    return counts
+
+
+def hybrid_profile(torch, model, params):
+    """Phase 26 (c): the graphed engine decode step at full batch (8 lanes
+    at contexts 64..1600) as the engine calls it: wall, device span, busy
+    (:func:`profile_step`) against its bytes bound (the weights a step
+    reads, every held expert's included, with the lanes' SSM state read
+    and written); the device times (:func:`time_ms`) of the 4 MoE blocks,
+    the 7 Mamba decode steps and the attention layer's plain decode
+    attention at the step's shape, and their shares of the step's span;
+    then one 1024-token prefill, whose SSD chunk kernels' share of busy
+    the profile names."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+    from repro_torch.utils import tree_leaves
+    cfg = model.cfg
+    B = 8
+    ctx = np.linspace(64, 1600, B).astype(int)
+    step = engine_decode(model, params, "dense", True, ctx)
+    busy = profile_step(torch, f"{HYBRID_ARCH} engine decode step (graphed, "
+                        f"B={B}, ctx 64..1600)", step, n=3)
+    marks = []
+    for _ in range(5):
+        b, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        b.record()
+        step()
+        e.record()
+        marks.append((b, e))
+    torch.cuda.synchronize()
+    span = statistics.median(b.elapsed_time(e) for b, e in marks)
+    cache = step.kv.cache
+    weights = sum(t.numel() * t.element_size()
+                  for path, t in tree_leaves(params) if path != ("embed",))
+    state = nbytes(cache["ssm"], cache["conv"])
+    kvb = int(sum(ctx)) * 2 * cfg.num_kv_heads * cfg.hd * 2
+    b_ms = (weights + 2 * state + kvb) / HBM_BYTES_PER_S * 1e3
+    g = torch.Generator(device=model.device).manual_seed(SEED + 28)
+    x = torch.randn((B, 1, cfg.d_model), generator=g,
+                    device=model.device).to(model.dtype)
+    layers = params["layers"]
+    moe = [i for i in range(cfg.num_layers) if cfg.ffn_kind(i) == "moe"]
+    ssm = [i for i in range(cfg.num_layers) if cfg.layer_kind(i) == "ssm"]
+    attn = [i for i in range(cfg.num_layers) if cfg.layer_kind(i) == "attn"]
+    st = {"conv": cache["conv"][0, 0], "ssm": cache["ssm"][0, 0]}
+    q = torch.randn((B, cfg.num_heads, cfg.hd), generator=g,
+                    device=model.device).to(model.dtype)
+    lens = torch.tensor(ctx, dtype=torch.int32, device=model.device)
+    with torch.no_grad():
+        moe_ms = time_ms(lambda: [L.apply_moe(cfg, layers[i]["ffn"], x,
+                                              experts=model.experts)
+                                  for i in moe], iters=5)
+        ssm_ms = time_ms(lambda: [M.mamba_decode_step(cfg, layers[i]["ssm"],
+                                                      x[:, 0], st)
+                                  for i in ssm], iters=5)
+        att_ms = time_ms(lambda: [L.decode_attention(
+            cfg, q, cache["k"][0], cache["v"][0], lens) for _ in attn],
+            iters=5)
+    del step, cache, st
+    torch.cuda.empty_cache()
+
+    def share(ms):
+        return f"{ms:.2f} ms ({ms / span:.1%})"
+    print(f"[hybrid] (c) decode step graphed: device span {span:.2f} ms, "
+          f"busy {'not measured' if busy is None else f'{busy:.2f} ms'}, "
+          f"against a {b_ms:.3f} ms bytes bound ({weights / 1e9:.2f} GB of "
+          f"weights, every held expert's, + {2 * state / 1e9:.2f} GB of "
+          f"Mamba state read and written + {kvb / 1e9:.3f} GB of K/V, "
+          f"{b_ms / span:.1%}); {len(moe)} MoE blocks {share(moe_ms)}, "
+          f"{len(ssm)} Mamba decode steps {share(ssm_ms)}, the plain decode "
+          f"attention {share(att_ms)}", flush=True)
+    prompt = torch.full((1, 1024), 7, device=model.device)
+    profile_step(torch, f"{HYBRID_ARCH} prefill (kernel, S=1024, eager)",
+                 lambda: model.prefill(params, {"tokens": prompt}), n=3,
+                 watch=("ssd_",))
+
+
+def mamba_train_reference(torch, dev, cfg, batch):
+    """Phase 26 (d) first: mamba2-2.7b's loss and gradients through the
+    kernels (the SSD chunk through ``SsdChunk``, RMSNorm through
+    ``FusedRMSNorm``, each with a plain recomputed backward) against
+    ``use_kernels=False`` on the same random params and batch, held as
+    phase 12 holds granite's (:func:`kernel_vs_plain_grads`); ``SsdChunk``'s
+    backward must run once a layer."""
+    from repro_torch.kernels.ssd_scan import SsdChunk
+    from repro_torch.models.model import Model
+    model = Model(cfg, ssd_chunk=min(64, MAMBA_TRAIN["seq"]), device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    backward = SsdChunk.backward
+    calls = [0]
+
+    def counted(ctx, *grads):
+        calls[0] += 1
+        return backward(ctx, *grads)
+    torch.cuda.reset_peak_memory_stats()
+    SsdChunk.backward = staticmethod(counted)
+    try:
+        r = kernel_vs_plain_grads(torch, "phase 26 (d)", model, params, batch)
+    finally:
+        SsdChunk.backward = staticmethod(backward)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train-reference] mamba2-2.7b full width and depth, f32, "
+          f"{r['params']:,} params, batch {MAMBA_TRAIN['batch']}x"
+          f"{MAMBA_TRAIN['seq']}: loss kernel {r['loss'][0]:.6f} plain "
+          f"{r['loss'][1]:.6f} (rel {r['rel_loss']:.3g}); {r['leaves']} "
+          f"gradient leaves, worst rel_l2 {r['worst']:.3g} at "
+          f"{r['worst_at']}; SsdChunk backward {calls[0]} calls; loss+grad "
+          f"{r['seconds'][0]:.2f}s kernel path, {r['seconds'][1]:.2f}s plain "
+          f"path; peak memory {peak / 2**30:.2f} GiB", flush=True)
+    if calls[0] != cfg.num_layers:
+        fail(f"phase 26 (d): {calls[0]} SsdChunk backwards, want "
+             f"{cfg.num_layers}")
+    del params, model
+    torch.cuda.empty_cache()
+
+
+def phase_mamba_train(torch, dev, kernels):
+    """Phase 26 (d): mamba2-2.7b trained at full width and depth (64
+    layers, f32: 43.2 GB of weights, gradients and AdamW moments), batch
+    ``MAMBA_TRAIN``: kernel vs plain loss and gradients
+    (:func:`mamba_train_reference`), then ``launch/train.train``'s 3 AdamW
+    steps counted from 0: losses finite, the SSD chunk (forward kernel,
+    plain recomputed backward) and RMSNorm kernels launched; ms/step,
+    tokens/s and peak memory.  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    cfg = get_config("mamba2-2.7b").scaled(param_dtype="float32")
+    batch = next(SyntheticLM(cfg, DataConfig(
+        batch_size=MAMBA_TRAIN["batch"], seq_len=MAMBA_TRAIN["seq"]))
+        .iterate(device=dev))
+    mamba_train_reference(torch, dev, cfg, batch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    state, losses, step_s = train(
+        "mamba2-2.7b", smoke=False, batch_size=MAMBA_TRAIN["batch"],
+        seq_len=MAMBA_TRAIN["seq"], steps=MAMBA_TRAIN["steps"],
+        log_every=MAMBA_TRAIN["steps"], device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(step_s))
+    toks = MAMBA_TRAIN["batch"] * MAMBA_TRAIN["seq"]
+    print(f"[train] mamba2-2.7b full width and depth (64 layers), f32, "
+          f"AdamW, batch {MAMBA_TRAIN['batch']}x{MAMBA_TRAIN['seq']}: "
+          f"{len(losses)} steps, ms/step p50 {p50 * 1e3:.1f} (each: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in step_s)}), {toks / p50:.0f} "
+          f"tokens/s, peak memory {peak / 2**30:.2f} GiB ({peak:,} B), loss "
+          f"first {losses[0]:.4f} last {losses[-1]:.4f}, wall {wall:.1f}s "
+          f"with init, launches {counts}", flush=True)
+    if len(losses) != MAMBA_TRAIN["steps"] or not all(np.isfinite(losses)):
+        fail(f"phase 26 (d): losses {losses}")
+    chunks = MAMBA_TRAIN["steps"] * cfg.num_layers
+    if counts["ssd_chunk"] != chunks or counts["fused_rmsnorm"] <= 0:
+        fail(f"phase 26 (d): {counts['ssd_chunk']} SSD launches (want "
+             f"{chunks}), {counts['fused_rmsnorm']} RMSNorm launches")
+    del state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_hybrid(torch, dev, kernels):
+    """Phase 26: the hybrid family and the ssm family's training.
+    jamba-1.5-large-398b at full width, one 8-layer group, holding a share
+    of its experts (the device-local half of the reference's expert
+    parallelism; the other chips' shares and their exchange are left
+    out): (a) f32, 2 of 16 experts, kernel vs plain path; (b) bf16, 8 of
+    16 (25.81 B parameters), kernel vs plain, then the main path (serve +
+    an INT8 swap, counted from 0) and graphed == eager on one schedule;
+    (c) the decode step's profile; (d) mamba2-2.7b trained at full depth
+    (main path, counted from 0).  Returns (b)'s and (d)'s launch counts,
+    summed."""
+    clock = Clock(time.perf_counter())
+    free_memory(torch)
+    print(f"[hybrid] device memory allocated before phase 26: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    with torch.no_grad():
+        model, params = _hybrid_model(torch, dev, "float32", HYBRID_F32_SHARD)
+        hybrid_kernel_vs_plain(torch, "(a) f32, 2 of 16 experts", model,
+                               params, HYBRID_F32_REL)
+        del model, params
+        free_memory(torch)
+        print(f"[hybrid] device memory allocated before (b): "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+        clock.lap("jamba f32 kernel vs plain (phase 26 a)")
+        model, params = _hybrid_model(torch, dev, "bfloat16", HYBRID_SHARD)
+        hybrid_kernel_vs_plain(torch, "(b) bf16, 8 of 16 experts", model,
+                               params, BF16_TOL)
+        clock.lap("jamba bf16 init + kernel vs plain (phase 26 b)")
+        counts = phase_hybrid_serve(torch, model, params, kernels)
+        clock.lap("jamba serve + swap + graphed vs eager (phase 26 b)")
+        hybrid_profile(torch, model, params)
+        del model, params
+        free_memory(torch)
+        clock.lap("jamba profile (phase 26 c)")
+    t_counts = phase_mamba_train(torch, dev, kernels)
+    clock.lap("mamba2-2.7b training (phase 26 d)")
     return {k: counts[k] + t_counts[k] for k in counts}
 
 
@@ -4586,18 +5093,16 @@ def _train_setup(torch, dev):
     return model, next(data.iterate(device=dev))
 
 
-def train_reference(torch, dev):
-    """The training path's loss and gradients through the kernels (flash
-    forward + plain recomputed backward, RMSNorm kernel + plain backward)
-    against ``use_kernels=False`` (the plain online-softmax attention and
-    plain RMSNorm, autograd throughout) on the same random params and
-    batch: the loss within 1e-4 relative, every gradient leaf present,
-    finite, nonzero and within a relative L2 of 1e-3.  A kernel that cut
-    the graph would leave its inputs' leaves without gradient or with a
-    wrong one."""
+def kernel_vs_plain_grads(torch, label, model, params, batch) -> dict:
+    """The loss and gradients of ``model`` on ``batch`` through its kernels
+    (forward kernels, plain recomputed backwards) against
+    ``use_kernels=False`` (plain versions, autograd throughout) on the same
+    ``params``: the loss within 1e-4 relative, every gradient leaf
+    present, finite, nonzero and within a relative L2 of 1e-3 (``label``
+    names a failure).  A kernel that cut the graph would leave its inputs'
+    leaves without gradient or with a wrong one.  Returns the losses, ce
+    terms, leaf count, worst leaf and each path's seconds."""
     from repro_torch.utils import tree_leaves
-    model, batch = _train_setup(torch, dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     named = [(path, p.requires_grad_(True)) for path, p in
              tree_leaves(params)]
     leaves = [p for _, p in named]
@@ -4616,28 +5121,42 @@ def train_reference(torch, dev):
     worst, worst_at = -1.0, None
     for (path, _), a, b in zip(named, gk, gp):
         if a is None or b is None:
-            fail(f"train reference: no gradient for {path}")
+            fail(f"{label}: no gradient for {path}")
         if not (torch.isfinite(a).all() and a.abs().max().item() > 0):
-            fail(f"train reference: gradient of {path} is zero or "
-                 "non-finite")
+            fail(f"{label}: gradient of {path} is zero or non-finite")
         rel = ((a - b).norm() / b.norm()).item()
         if rel > worst:
             worst, worst_at = rel, path
     rel_loss = abs(lk - lp) / abs(lp)
-    n_params = sum(p.numel() for p in leaves)
-    print(f"[train-reference] granite-3-8b full width, {TRAIN['layers']} "
-          f"layers, f32, {n_params:,} params, batch {TRAIN['batch']}x"
-          f"{TRAIN['seq']}: loss kernel {lk:.6f} plain {lp:.6f} (rel "
-          f"{rel_loss:.3g}, ce {cek:.6f}/{cep:.6f}); {len(leaves)} gradient "
-          f"leaves, worst rel_l2 {worst:.3g} at {'.'.join(map(str, worst_at))}"
-          f"; loss+grad {tk:.2f}s kernel path, {tp:.2f}s plain path "
-          "(first calls)", flush=True)
+    res = dict(loss=(lk, lp), ce=(cek, cep), rel_loss=rel_loss,
+               leaves=len(leaves), params=sum(p.numel() for p in leaves),
+               worst=worst, worst_at=".".join(map(str, worst_at)),
+               seconds=(tk, tp))
     if not rel_loss <= 1e-4:
-        fail(f"train reference: loss differs by {rel_loss} relative")
+        fail(f"{label}: loss differs by {rel_loss} relative")
     if not worst <= 1e-3:
-        fail(f"train reference: gradient of {worst_at} differs by rel_l2 "
-             f"{worst}")
-    del out, gk, gp, params, named, leaves
+        fail(f"{label}: gradient of {worst_at} differs by rel_l2 {worst}")
+    return res
+
+
+def train_reference(torch, dev):
+    """The training path's loss and gradients through the kernels (flash
+    forward + plain recomputed backward, RMSNorm kernel + plain backward)
+    against ``use_kernels=False`` (the plain online-softmax attention and
+    plain RMSNorm, autograd throughout) on the same random params and
+    batch, held by :func:`kernel_vs_plain_grads`."""
+    model, batch = _train_setup(torch, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    r = kernel_vs_plain_grads(torch, "train reference", model, params, batch)
+    print(f"[train-reference] granite-3-8b full width, {TRAIN['layers']} "
+          f"layers, f32, {r['params']:,} params, batch {TRAIN['batch']}x"
+          f"{TRAIN['seq']}: loss kernel {r['loss'][0]:.6f} plain "
+          f"{r['loss'][1]:.6f} (rel {r['rel_loss']:.3g}, ce "
+          f"{r['ce'][0]:.6f}/{r['ce'][1]:.6f}); {r['leaves']} gradient "
+          f"leaves, worst rel_l2 {r['worst']:.3g} at {r['worst_at']}; "
+          f"loss+grad {r['seconds'][0]:.2f}s kernel path, "
+          f"{r['seconds'][1]:.2f}s plain path (first calls)", flush=True)
+    del params
     torch.cuda.empty_cache()
 
 
@@ -4837,12 +5356,21 @@ def main() -> None:
         fa_seamless = check_flash_prefill(
             torch, dev, H=16, KVH=16,
             cases=(("bfloat16", 1, 4096, 64, False),))
+        # and at jamba's attention layer in a bf16 prefill (64/8 heads)
+        fa_jamba = check_flash_prefill(
+            torch, dev, H=64, KVH=8,
+            cases=(("bfloat16", 1, 1024, 128, True),))
         kq, kd = check_kv_quant(torch, dev)
         kq_moe, kd_moe = check_kv_quant(torch, dev, KV_QUANT_MOE)
         kpage = check_kv_quant_page(torch, dev)
         pq8 = check_paged_attention_q8(torch, dev)
-        rn, rn_moe = check_fused_rmsnorm(torch, dev)
+        rn, rn_moe, rn_jamba = check_fused_rmsnorm(torch, dev)
         sc = check_ssd_chunk(torch, dev)
+        # row 8 at jamba's prefill layer (1000 tokens: 4 chunks of 256; 128
+        # heads of 128 through the split), at the model's decay
+        sc_jamba = check_ssd_chunk(torch, dev, H=128, P=128,
+                                   cases=((4, 256, "softplus"),
+                                          (4, 256, "0.1|randn|")))
     clock.lap("kernels (phase 3)")
 
     kernels = dict(counters.WRAPPERS)       # the 8 wrappers, by name
@@ -4905,8 +5433,12 @@ def main() -> None:
     print(f"[main-path] granite packs (phase 19) launches {totals}",
           flush=True)
     clock.lap("pack + prefix parity (phase 19)")
+    # phases 20 and 23 serve granite cut to GRANITE_CUT of its 40 layers
+    # (each compares its serves with each other only), for the script's
+    # time since phase 26 came
+    cut, cut_params = granite_cut(model, params)
     for backend in ("paged", "dense"):
-        counts = phase_serve20(torch, model, params, kernels, backend)
+        counts = phase_serve20(torch, cut, cut_params, kernels, backend)
         print(f"[main-path] granite {backend} serve with packs, prefix "
               f"cache and online predictor (phase 20) launches {counts}",
               flush=True)
@@ -4929,13 +5461,13 @@ def main() -> None:
     totals = {k: totals[k] + counts[k] for k in totals}
     clock.lap("two replicas sharing a KV tier (phase 22)")
     # phase 23: two replicas behind the gateway, counted from 0 once warm
-    counts = phase_gateway(torch, model, params, kernels)
+    counts = phase_gateway(torch, cut, cut_params, kernels)
     print(f"[main-path] granite two replicas behind the gateway, "
           f"concurrent pump (phase 23) launches {counts}", flush=True)
     totals = {k: totals[k] + counts[k] for k in totals}
     clock.lap("two replicas behind the gateway (phase 23)")
-    del model, params, ref
-    torch.cuda.empty_cache()
+    del model, params, ref, cut, cut_params
+    free_memory(torch)
 
     # phase 24: granite-moe-3b-a800m, its serves counted from 0
     counts = phase_moe(torch, dev, kernels)
@@ -4951,6 +5483,14 @@ def main() -> None:
           f"(phase 25) launches {counts}", flush=True)
     totals = {k: totals[k] + counts[k] for k in totals}
     clock.lap("seamless-m4t-large-v2 + internvl2-2b (phase 25)")
+
+    # phase 26: jamba's 8-layer group holding 8 of 16 experts, served with
+    # an INT8 swap, and mamba2-2.7b trained; (b) and (d) counted from 0
+    counts = phase_hybrid(torch, dev, kernels)
+    print(f"[main-path] {HYBRID_ARCH} dense serve with a swap and "
+          f"mamba2-2.7b training (phase 26) launches {counts}", flush=True)
+    totals = {k: totals[k] + counts[k] for k in totals}
+    clock.lap("jamba-1.5-large-398b + mamba2-2.7b training (phase 26)")
 
     t0 = time.perf_counter()
     model, params = build_model("mamba2-2.7b", "full", dev, None, SEED)
@@ -4982,7 +5522,7 @@ def main() -> None:
     phase_mamba_profile(torch, model, params)
     clock.lap("mamba profile (phase 11)")
     del model, params
-    torch.cuda.empty_cache()
+    free_memory(torch)
 
     train_reference(torch, dev)
     clock.lap("train reference (phase 12)")
@@ -5014,7 +5554,8 @@ def main() -> None:
              source=src + "flash_prefill_prefix.cu",
              replaces="src/repro/kernels/flash_prefill/flash_prefill.py:165",
              launches=t_launches["flash_prefill"], **fa,
-             stablelm_shape=fa_stablelm, seamless_shape=fa_seamless),
+             stablelm_shape=fa_stablelm, seamless_shape=fa_seamless,
+             jamba_shape=fa_jamba),
         dict(name="kv_quantize", route="cuda", source=src + "kv_quant.cu",
              replaces="src/repro/kernels/kv_quant/kv_quant.py:37",
              launches=launches["kv_quantize"], **kq,
@@ -5030,14 +5571,15 @@ def main() -> None:
         dict(name="fused_rmsnorm", route="cuda",
              source=src + "fused_rmsnorm.cu",
              replaces="src/repro/kernels/fused_rmsnorm/fused_rmsnorm.py:23",
-             launches=m_launches["fused_rmsnorm"], **rn, moe_shape=rn_moe),
+             launches=m_launches["fused_rmsnorm"], **rn, moe_shape=rn_moe,
+             jamba_shape=rn_jamba),
         dict(name="ssd_chunk", route="cuda", source=src + "ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_scan/ssd_scan.py:51",
-             launches=m_launches["ssd_chunk"], **sc),
+             launches=m_launches["ssd_chunk"], **sc, jamba_shape=sc_jamba),
     ]
     root = os.path.dirname(os.path.abspath(__file__))
     for r in rows:
-        r["launches"] += totals[r["name"]]      # phases 19-24
+        r["launches"] += totals[r["name"]]      # phases 19-26
         # the csrc headers the source includes (flash and SSD bodies, the
         # 3xTF32 primitives), as the build key follows them
         r["headers"] = [os.path.relpath(str(h), root) for h in

@@ -3,7 +3,8 @@ ALISE scheduling over an actual model (paper §3.3), on a pluggable KV
 backend: the paged KV pool (the attention family's default here) or the
 dense slotted cache (``kv_backend="dense"``: a full K/V stripe per lane
 for the attention family, the reference's default backend, and the only
-backend of the ``ssm`` family, whose per-lane state is constant-size).
+backend of the ``ssm`` and hybrid families, whose per-lane state is
+constant-size or holds one.
 
 The engine drives the same Scheduler / TieredKVManager policy code as the
 JAX package (its own copy) and executes each
@@ -53,9 +54,9 @@ and loads every kernel library serving can reach, as the reference's
 warmup compiles every shape: a warmed engine then captures, builds and
 loads nothing at serve time (``utils/compile_counter.CompileCounter``
 counts it).  What stays eager is what the reference does not warm either:
-the ``ssm`` family's monolithic prefill, a prompt prefilled as one chunk
-when ``prefill_chunk`` is None, swaps, prefix-cache copies and the
-per-slot decode.
+the ``ssm`` and hybrid families' monolithic prefill, a prompt prefilled
+as one chunk when ``prefill_chunk`` is None, swaps, prefix-cache copies
+and the per-slot decode.
 
 :meth:`ServingEngine.attach_bus` wires an observability
 :class:`~repro_torch.serving.observability.EventBus` through the
@@ -457,10 +458,10 @@ class ServingEngine:
         return int(out[0, 0]), REASONS[int(out[1, 0])]
 
     def _run_prefill(self, req: Request, tokens: List[int]):
-        """Monolithic prefill for a family without chunked prefill (``ssm``):
-        one ``Model.prefill`` pass over the unpadded prompt (the state
-        depends on every step), its cache placed into a free lane.  Returns
-        the last-token logits (1, V)."""
+        """Monolithic prefill for a family without chunked prefill (``ssm``,
+        hybrid): one ``Model.prefill`` pass over the unpadded prompt (the
+        state depends on every step), its cache placed into a free lane.
+        Returns the last-token logits (1, V)."""
         return self._run_prefill_tokens(req.req_id, tokens)
 
     def _run_prefill_tokens(self, rid: int, tokens: List[int]):
@@ -757,8 +758,8 @@ class ServingEngine:
 
     def _warm_libraries(self, warm_rid: int) -> None:
         """Load every kernel library serving can reach: one short prompt
-        through the route a prompt takes (a chunk, or the ``ssm`` family's
-        monolithic prefill) into a free lane, then one offload/upload round
+        through the route a prompt takes (a chunk, or the ``ssm`` and
+        hybrid families' monolithic prefill) into a free lane, then one offload/upload round
         trip of that lane (INT8 through the ``kv_quant`` kernels when
         ``quantize_offload``), then clear it."""
         if self.cfg.max_seq_len < 8:

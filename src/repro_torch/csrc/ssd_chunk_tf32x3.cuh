@@ -9,8 +9,10 @@
 // at B 1, C 4, Q 256, H 80, P 64, N 128, just above the 0.0159 ms its 53
 // MB take at 3.35 TB/s.
 //
-// Takes Q <= 256, P 64, N 128 (mamba2-2.7b's heads and state) and 16-byte
-// aligned tensors; the FMA body in ssd_chunk.cu takes every other shape.
+// Takes Q <= 256, P 64, N 128 (mamba2-2.7b's heads and state; jamba's
+// heads of 128 columns come as two heads of 64, kernels/ssd_scan/plan.py)
+// and 16-byte aligned tensors; the FMA body in ssd_chunk.cu takes every
+// other shape.
 // Two launches, in stream order:
 //  1. ssd_states_tf32x3_kernel.  Blocks [0, n_bc * H) each own one (b, c,
 //     head): the head's cumsum, chunk_decay and its (P x N) state, the
@@ -42,7 +44,11 @@
 //     the mask for the tiles below the diagonal, and scaling cum by log2 e
 //     before the difference (also less accurate).
 // Every block computes the cumsum of its heads with one warp a head (lane l
-// sums rows 8l..8l+7, then a shuffle scan).
+// sums rows 8l..8l+7, then a shuffle scan), in double, and keeps float
+// offsets from a reference row near the rows whose decays it takes
+// (warp_cumsum): float cumsums of the model's decay (about -180 over a
+// chunk) left the kernel's y up to twice as far from the float64 truth
+// as the plain version's at 128 heads of 128.
 
 // Fragment layouts (tf32x3.cuh gives the mma's).  The k slots of a k-step
 // are permuted so that wide loads feed them: in C . B^T slot t of k-step
@@ -112,29 +118,44 @@ __device__ __forceinline__ int at_k(int r, int c) {
   return r * kN + (((c >> 2) ^ ((r & 1) << 2)) << 2) + (c & 3);
 }
 
-// Inclusive cumsum of dA[base + q * H], q < Q, into cum[0:256] by one
-// warp; rows past Q repeat cum[Q - 1].
-__device__ __forceinline__ void warp_cumsum(const float* __restrict__ dA,
-                                            long long base, int H, int Q,
-                                            float* cum, int lane) {
-  float v[8];
-  float run = 0.f;
+// Inclusive cumsum of dA[base + q * H], q < Q, by one warp, in double,
+// stored into cum[0:256] as float offsets from the cumsum at row ref,
+// cum[q] = cumsum[q] - cumsum[ref] (rows past Q repeat row Q - 1);
+// returns cumsum[ref] as a float.  The decay's exponents are differences
+// of these offsets: taken from a reference row near the rows that weigh
+// (a q tile's middle, the chunk's last row), they are small where the
+// decay is not, so their float rounding stays near the difference's own,
+// where float cumsums reaching -180 over a chunk (the model's decay)
+// would each carry an error of many units in the last place of 180.
+__device__ __forceinline__ float warp_cumsum(const float* __restrict__ dA,
+                                             long long base, int H, int Q,
+                                             int ref, float* cum, int lane) {
+  double v[8];
+  double run = 0.0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int q = lane * 8 + i;
-    if (q < Q) run += dA[base + (long long)q * H];
+    if (q < Q) run += (double)dA[base + (long long)q * H];
     v[i] = run;
   }
-  float incl = run;
+  double incl = run;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const float n = __shfl_up_sync(0xffffffffu, incl, o);
+    const double n = __shfl_up_sync(0xffffffffu, incl, o);
     if (lane >= o) incl += n;
   }
-  float before = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) before = 0.f;
+  double before = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) before = 0.0;
+  double at_ref = 0.0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) cum[lane * 8 + i] = before + v[i];
+  for (int i = 0; i < 8; ++i) {
+    v[i] += before;
+    if (lane * 8 + i == ref) at_ref = v[i];
+  }
+  at_ref = __shfl_sync(0xffffffffu, at_ref, ref >> 3);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) cum[lane * 8 + i] = (float)(v[i] - at_ref);
+  return (float)at_ref;
 }
 
 // score n-tiles of warp w's rows in q tile qt: every s < min(Q, q0 + 64)
@@ -182,12 +203,15 @@ __device__ __forceinline__ void states_job(
   };
   load(0);
 
-  if (warp == 0) warp_cumsum(dA, bc * Q * H + h, H, Q, cum, lane);
+  // offsets from the last row: dec[s] = exp(cumsum[Q-1] - cumsum[s])
+  if (warp == 0) {
+    const float last = warp_cumsum(dA, bc * Q * H + h, H, Q, Q - 1, cum,
+                                   lane);
+    if (lane == 0) dk[bc * H + h] = expf(last);
+  }
   __syncthreads();
-  const float last = cum[Q - 1];
   for (int s = tid; s < kMaxQ; s += kThreads)
-    dec[s] = s < Q ? expf(last - cum[s]) : 0.f;
-  if (tid == 0) dk[bc * H + h] = expf(last);
+    dec[s] = s < Q ? expf(-cum[s]) : 0.f;
 
   float acc[4][4][4];
 #pragma unroll
@@ -429,8 +453,12 @@ ssd_y_tf32x3_kernel(const float* __restrict__ xbar,
   };
   load(0);
 
+  // offsets from the q tile's middle row (its decays' exponents are
+  // differences of rows near it)
+  const int ref = min(q0 + kQT / 2, Q - 1);
   for (int hh = warp; hh < nh; hh += kThreads / 32)
-    warp_cumsum(dA, bc * Q * H + h0 + hh, H, Q, cum + hh * kMaxQ, lane);
+    warp_cumsum(dA, bc * Q * H + h0 + hh, H, Q, ref, cum + hh * kMaxQ,
+                lane);
 
   // this warp's scores, in registers for every head of the group
   const int nj = warp_ntiles(Q, q0, warp);

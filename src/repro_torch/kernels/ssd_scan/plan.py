@@ -5,7 +5,12 @@
 with head dim :data:`TC_P` and state size :data:`TC_N` (mamba2-2.7b's) in
 tensors whose addresses are multiples of 16 bytes; every other shape takes
 the FMA body.  The choice is made here, from the shapes and addresses,
-before the launch: :func:`body`.
+before the launch: :func:`body`.  A head of ``2 * TC_P`` columns
+(jamba's 128) takes the tensor-core body too, as two heads of
+:data:`TC_P` with the same decay (:func:`head_split`): the columns of a
+head never mix, since ``y[q, p]`` reads only ``xbar[:, p]`` (through the
+scores ``C . B^T``, which the body shares across heads) and
+``states[p, :]`` only column ``p``.
 
 The tensor-core body's second kernel runs one block per (b, c, 64-row q
 tile, group of heads).  A block of q tile ``i`` reads ``i + 1`` tiles of
@@ -34,10 +39,17 @@ SCORE_FLOATS = 4 * (MAX_Q // 8) * 32 * 4
 BODIES = ("fma", "tf32x3_states", "tf32x3_y")
 
 
+def head_split(P: int) -> int:
+    """Heads of :data:`TC_P` columns that one head of ``P`` columns runs as
+    on the tensor-core body: 2 for P 128, else 1."""
+    return 2 if P == 2 * TC_P else 1
+
+
 def body(Q: int, P: int, N: int, addresses: Sequence[int] = ()) -> str:
-    """``"tf32x3"`` (the tensor-core body) for Q <= 256, P 64, N 128 and
-    addresses that are multiples of 16 bytes, else ``"fma"``."""
-    ok = (1 <= Q <= MAX_Q and P == TC_P and N == TC_N
+    """``"tf32x3"`` (the tensor-core body) for Q <= 256, P 64 or 128 (as
+    :func:`head_split` heads of 64), N 128 and addresses that are
+    multiples of 16 bytes, else ``"fma"``."""
+    ok = (1 <= Q <= MAX_Q and P in (TC_P, 2 * TC_P) and N == TC_N
           and all(a % 16 == 0 for a in addresses))
     return "tf32x3" if ok else "fma"
 

@@ -22,8 +22,12 @@ refuses an encoder-decoder such as seamless-m4t-large-v2, as the
 reference's engine cannot prefill one either) on the dense KV
 backend (a K/V stripe per lane; the default, as in the JAX launcher;
 without ``--prefill-chunk`` each prompt is one chunk over the lane's
-stripe) or on the paged backend, and mamba2-2.7b on the dense state
-backend, at full width on the GPU with
+stripe) or on the paged backend, and mamba2-2.7b (dense state) and
+jamba-1.5-large-398b (dense K/V and state, each prompt prefilled whole;
+its full size needs more than one card, so ``serve(model_and_params=...)``
+takes a model that holds a share of its experts,
+``Model(expert_shard=...)``) on the dense backend, at full width on the
+GPU with
 random weights from ``--seed``; ``--arch-size smoke --device cpu`` runs
 the reduced config on the CPU.  On a GPU the paged decode attention and
 the chunk attention default to the CUDA kernels (``--paged-attn-impl
@@ -241,6 +245,8 @@ def serve(arch: str = "granite-3-8b", arch_size: str = "smoke",
             path = f"paged, attn {impl}/{model.chunk_attn_impl}"
         elif model.cfg.family == "ssm":
             path = "dense state"
+        elif model.cfg.family == "hybrid":
+            path = "dense KV and state, whole prompts"
         else:
             path = (f"dense KV, prefill chunks of {prefill_chunk or 'a prompt'}"
                     f" ({model.chunk_attn_impl})")

@@ -6,19 +6,20 @@ checkpoint/restart built in.
     PYTHONPATH=src python -m repro_torch.launch.train --full --steps 5 \
         --batch-size 4 --seq-len 1024 --num-layers 8
 
-trains the attention family (a dense or an MoE FFN, the MoE's aux loss
-in the objective) and the encoder-decoder family in float32 with AdamW on
-the synthetic bigram stream, as ``repro.launch.train`` does
-(``--arch granite-moe-3b-a800m`` for the MoE family, on the card not
-tried yet; ``--arch seamless-m4t-large-v2`` for the encoder-decoder,
-whose encoder reads one-hot frames of the tokens, as an ``embeds``
-decoder such as internvl2-2b reads its input, the reference's stand-in
-for a frontend); ``--full`` takes
-the published width, and ``--num-layers`` cuts the depth so that params,
-gradients and moments fit one card.  The card is the default device; the
-CPU runs only when asked (``--device cpu``).  On the card every RMSNorm
-and every attention layer's forward run the CUDA kernels, their backwards
-the plain versions.
+trains every family in float32 with AdamW on the synthetic bigram
+stream, as ``repro.launch.train`` does: the attention family (a dense or
+an MoE FFN, the MoE's aux loss in the objective; ``--arch
+granite-moe-3b-a800m``, on the card not tried yet), the Mamba-2 family
+(``--arch mamba2-2.7b``), the hybrid family (``--arch
+jamba-1.5-large-398b``, on the CPU at the smoke size) and the
+encoder-decoder family (``--arch seamless-m4t-large-v2``, whose encoder
+reads one-hot frames of the tokens, as an ``embeds`` decoder such as
+internvl2-2b reads its input, the reference's stand-in for a frontend);
+``--full`` takes the published width, and ``--num-layers`` cuts the
+depth so that params, gradients and moments fit one card.  The card is
+the default device; the CPU runs only when asked (``--device cpu``).  On
+the card every RMSNorm, every attention layer's and every SSD chunk's
+forward run the CUDA kernels, their backwards the plain versions.
 """
 from __future__ import annotations
 
@@ -72,11 +73,6 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
     if num_layers is not None:
         over["num_layers"] = num_layers
     cfg = cfg.scaled(**over)
-    if not Model.supports_family(cfg) or cfg.layer_kind(0) != "attn":
-        raise NotImplementedError(
-            f"training family={cfg.family} is not ported yet: ROADMAP.md "
-            "Queue 1 item 14 (the port trains the attention family, with a "
-            "dense or an MoE FFN, and the encoder-decoder family)")
     model = Model(cfg, attn_chunk=max(seq_len // 2, 16),
                   ssd_chunk=min(64, seq_len), device=dev)
     step_fn = make_train_step(model, AdamWConfig(lr=lr),

@@ -248,21 +248,25 @@ def apply_ffn(cfg: ArchConfig, p, x):
 # --------------------------------------------------------------------- MoE
 
 def init_moe(cfg: ArchConfig, gen, dtype, device=None,
-             pad_experts_to: int = 0):
+             pad_experts_to: int = 0, experts=None):
     """Router (D, E_alloc) in float32 whatever ``dtype`` is, and the
-    experts' ``wi``/``wg`` (E_alloc, D, F) and ``wo`` (E_alloc, F, D) in
+    experts' ``wi``/``wg`` (E_held, D, F) and ``wo`` (E_held, F, D) in
     ``dtype``; ``pad_experts_to`` allocates padding experts the router
-    never picks."""
+    never picks.  ``experts=(lo, hi)`` holds experts ``[lo, hi)`` only (a
+    device's share under the reference's expert parallelism, whose
+    ``distributed/sharding.py`` shards the expert axis of ``wi``/``wg``/
+    ``wo``); the router stays whole.  Default: every expert."""
     D, Fd = cfg.d_model, cfg.d_ff
     E_alloc = max(cfg.num_experts, pad_experts_to)
+    lo, hi = experts or (0, E_alloc)
     p = {
         "router": _dense_init(gen, (D, E_alloc), scale=0.02,
                               dtype=torch.float32, device=device),
-        "wi": _dense_init(gen, (E_alloc, D, Fd), dtype=dtype, device=device),
-        "wo": _dense_init(gen, (E_alloc, Fd, D), dtype=dtype, device=device),
+        "wi": _dense_init(gen, (hi - lo, D, Fd), dtype=dtype, device=device),
+        "wo": _dense_init(gen, (hi - lo, Fd, D), dtype=dtype, device=device),
     }
     if cfg.act == "swiglu":
-        p["wg"] = _dense_init(gen, (E_alloc, D, Fd), dtype=dtype,
+        p["wg"] = _dense_init(gen, (hi - lo, D, Fd), dtype=dtype,
                               device=device)
     return p
 
@@ -312,38 +316,46 @@ def _dispatch_plan(flat_idx, E_alloc: int, capacity: int):
 
 
 def _dispatch_compute_combine(cfg, p, xg, gate_w, gate_idx, E_alloc,
-                              capacity):
+                              capacity, experts=None):
     """Grouped capacity dispatch (:func:`_dispatch_plan` per group), the
-    experts as one batched product over (E_alloc, capacity) rows (so every
-    expert's weights are read), and the combine: each token's kept
-    outputs weighted by its gates and summed over k in xg's dtype; a
-    dropped assignment contributes 0.
+    held experts as one batched product over (E_held, capacity) rows (so
+    every held expert's weights are read), and the combine: each token's
+    kept outputs weighted by its gates and summed over k in xg's dtype; a
+    dropped assignment contributes 0.  ``experts=(lo, hi)`` (default every
+    expert) names the held experts, ``p``'s ``wi``/``wg``/``wo`` rows: the
+    plan is the whole layer's (every expert's capacity counted over every
+    assignment, in token-major order), and an assignment to an expert
+    outside ``[lo, hi)`` contributes 0 here, as it would on the device
+    that holds its expert.
 
     xg: (G, Tg, D); gate_*: (G, Tg, K).  Returns ``(y (G, Tg, D) in xg's
-    dtype, keep (G, Tg*K) bool)``.  Every shape is static and nothing
-    reads a value back to the host, so the block can be captured in a CUDA
-    graph."""
+    dtype, keep (G, Tg*K) bool)``, ``keep`` over every expert.  Every
+    shape is static and nothing reads a value back to the host, so the
+    block can be captured in a CUDA graph."""
     G, Tg, D = xg.shape
     K = cfg.top_k
-    dest, keep = _dispatch_plan(gate_idx.reshape(G, Tg * K), E_alloc,
-                                capacity)
+    lo, hi = experts or (0, E_alloc)
+    rows = (hi - lo) * capacity            # the held experts' rows
+    flat_idx = gate_idx.reshape(G, Tg * K)
+    dest, keep = _dispatch_plan(flat_idx, E_alloc, capacity)
+    held = keep & (flat_idx >= lo) & (flat_idx < hi)
+    dest = torch.where(held, dest - lo * capacity, torch.full_like(dest, rows))
     xk = xg[:, :, None, :].expand(G, Tg, K, D).reshape(G, Tg * K, D)
-    buf = torch.zeros((G, E_alloc * capacity + 1, D), dtype=xg.dtype,
-                      device=xg.device)
-    # kept rows have distinct destinations; dropped ones share the drop
-    # row, which is cut off before the experts run
+    buf = torch.zeros((G, rows + 1, D), dtype=xg.dtype, device=xg.device)
+    # held rows have distinct destinations; the rest share the drop row,
+    # which is cut off before the experts run
     buf.scatter_(1, dest[..., None].expand(G, Tg * K, D), xk)
-    buf = buf[:, :-1].reshape(G, E_alloc, capacity, D)
+    buf = buf[:, :-1].reshape(G, hi - lo, capacity, D)
     h = torch.matmul(buf, p["wi"])                       # (G, E, cap, F)
     if cfg.act == "swiglu":
         h = F.silu(torch.matmul(buf, p["wg"])) * h
     else:
         h = _act(cfg, h)
     out = torch.matmul(h, p["wo"])                       # (G, E, cap, D)
-    outf = out.reshape(G, E_alloc * capacity, D)
-    safe = torch.clamp(dest, 0, E_alloc * capacity - 1)
+    outf = out.reshape(G, rows, D)
+    safe = torch.clamp(dest, 0, rows - 1)
     gathered = torch.gather(outf, 1, safe[..., None].expand(G, Tg * K, D))
-    gathered = torch.where(keep[..., None], gathered,
+    gathered = torch.where(held[..., None], gathered,
                            torch.zeros_like(gathered))
     return (gathered.reshape(G, Tg, K, D)
             * gate_w[..., None].to(xg.dtype)).sum(dim=2), keep
@@ -356,13 +368,21 @@ def moe_capacity(cfg: ArchConfig, tokens: int) -> int:
                    / cfg.num_experts), 1)
 
 
-def apply_moe(cfg: ArchConfig, p, x, *, groups: int = 1, tap=None):
+def apply_moe(cfg: ArchConfig, p, x, *, groups: int = 1, tap=None,
+              experts=None):
     """Capacity-based top-k MoE (GShard): x (B, S, D) -> ``(y (B, S, D),
     aux_loss)``.  The B*S tokens split into ``groups`` equal groups (1 when
     ``groups`` does not divide them), each with its own capacity
     ``max(int(cf * Tg * K / E), 1)``; an assignment past its expert's
     capacity is dropped (the residual passes it through).  So one token's
     output depends on the other tokens of its group.
+
+    ``experts=(lo, hi)`` computes the share of a device that holds
+    experts ``[lo, hi)`` (``p``'s ``wi``/``wg``/``wo`` hold those rows
+    only; the router is whole): the routing, the capacity, each
+    assignment's position and the aux loss are the whole layer's, and
+    only the held experts' products are computed and combined, so the
+    shares of a partition of the experts sum to the whole layer's output.
 
     ``tap``, when given, is called as ``tap(x.shape, gate_idx, keep)``
     with the (G, Tg, K) expert choices and the (G, Tg*K) bool kept mask,
@@ -375,7 +395,8 @@ def apply_moe(cfg: ArchConfig, p, x, *, groups: int = 1, tap=None):
     xg = x.reshape(G, Tg, D)
     gate_w, gate_idx, aux_loss, E_alloc = _route(cfg, p, xg)
     y, keep = _dispatch_compute_combine(cfg, p, xg, gate_w, gate_idx,
-                                        E_alloc, moe_capacity(cfg, Tg))
+                                        E_alloc, moe_capacity(cfg, Tg),
+                                        experts)
     if tap is not None:
         tap(tuple(x.shape), gate_idx, keep)
     return y.reshape(B, S, D), aux_loss

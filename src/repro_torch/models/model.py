@@ -4,24 +4,27 @@ attention-family decoder, with a dense or a capacity-based MoE FFN
 prefill over a dense per-lane stripe and fused dense decode; fused
 verify-k speculative decode over either), of the encoder-decoder family
 (monolithic prefill of encoder frames and a decoder start, fused dense
-decode against a static cross cache) and of the Mamba-2 (``ssm``) family
-(monolithic prefill, fused recurrent decode over a dense state cache), and
-the training loss of the attention and encoder-decoder families.  A
-decoder whose ``input_mode`` is ``embeds`` (a VLM's patch embeddings)
-takes ``embeds`` in place of ``tokens`` in :meth:`Model.prefill` and
+decode against a static cross cache), of the Mamba-2 (``ssm``) family
+and of the hybrid family (Jamba: Mamba-2 and attention layers, dense and
+MoE FFNs; monolithic prefill, fused dense decode over a cache of K/V and
+recurrent state), and the training loss of every family.  A decoder
+whose ``input_mode`` is ``embeds`` (a VLM's patch embeddings) takes
+``embeds`` in place of ``tokens`` in :meth:`Model.prefill` and
 :meth:`Model.loss`.
 
 Parameters are a plain dict: ``embed``, ``final_norm.scale`` and a list
 ``layers`` with one dict per layer (``ln1`` and ``attn.{wq,wk,wv,wo}`` or
-``ssm.*``, then ``ln2`` and ``ffn.*`` where the family has an FFN: the
-dense FFN's ``wi``/``wg``/``wo``, or the MoE's float32 ``router`` and its
-experts' ``wi``/``wg``/``wo`` stacked on a leading expert axis).  An
-encoder-decoder also has ``encoder`` (a list of attention + dense-FFN
-layers), ``cross`` (per decoder layer ``lnx`` and ``xattn.{wq,wk,wv,wo}``)
-and ``enc_final_norm``.  Where the JAX reference runs ``lax.scan`` over
-layers stacked on axis 0, the port loops over the list in Python.  Where
-the reference rebuilt the page pool or the decode cache functionally and
-returned it, the port writes it **in place** and returns only the logits.
+``ssm.*`` as ``cfg.layer_kind(i)`` says, then ``ln2`` and ``ffn.*`` as
+``cfg.ffn_kind(i)`` says: the dense FFN's ``wi``/``wg``/``wo``, or the
+MoE's float32 ``router`` and its experts' ``wi``/``wg``/``wo`` stacked on
+a leading expert axis).  An encoder-decoder also has ``encoder`` (a list
+of attention + dense-FFN layers), ``cross`` (per decoder layer ``lnx`` and
+``xattn.{wq,wk,wv,wo}``) and ``enc_final_norm``.  Where the JAX reference
+runs ``lax.scan`` over layers stacked on axis 0 (the hybrid family: over
+8-layer groups of three stacks, :data:`HYBRID_ORDER`), the port loops
+over the list in Python.  Where the reference rebuilt the page pool or the
+decode cache functionally and returned it, the port writes it **in place**
+and returns only the logits.
 """
 from __future__ import annotations
 
@@ -43,6 +46,41 @@ Params = Dict[str, Any]
 MOE_AUX_COEF = 0.01
 ZLOSS_COEF = 1e-4
 
+# The reference's Jamba group (``models/model.py``): 8 layers, layer j of
+# a group taken from stack ``HYBRID_ORDER[j]`` of the group's parameters
+# ("sd" Mamba + dense FFN, "sm" Mamba + MoE, "am" attention + MoE), the
+# same kinds ``cfg.layer_kind`` and ``cfg.ffn_kind`` name; the cache holds
+# one K/V per group and the conv and SSM state of its 7 Mamba layers, in
+# the order of ``HYBRID_SSM_J``.
+HYBRID_GROUP = 8
+HYBRID_ORDER = [("sd", 0), ("sm", 0), ("sd", 1), ("am", 0),
+                ("sd", 2), ("sm", 1), ("sd", 3), ("sm", 2)]
+HYBRID_SSM_J = [0, 1, 2, 4, 5, 6, 7]
+
+
+def hybrid_groups(cfg: ArchConfig) -> int:
+    """The hybrid stack's 8-layer groups (the reference's assertion)."""
+    gs = cfg.attn_every
+    assert gs == HYBRID_GROUP and cfg.num_layers % gs == 0, \
+        "hybrid assumes Jamba 8-layer groups"
+    return cfg.num_layers // gs
+
+
+def expert_range(cfg: ArchConfig, expert_shard=(0, 1)):
+    """Experts ``[lo, hi)`` that share ``(index, count)`` of an MoE holds:
+    the ``index``-th of ``count`` equal parts of the expert axis, as the
+    reference's expert parallelism shards it (``distributed/sharding.py``:
+    ``wi``/``wg``/``wo`` over the ``model`` mesh axis).  None for the
+    whole layer (count 1)."""
+    index, count = expert_shard
+    if count == 1:
+        return None
+    E = cfg.num_experts
+    if not cfg.has_moe or E % count or not 0 <= index < count:
+        raise ValueError(f"expert_shard={expert_shard} does not split "
+                         f"{E} experts into equal shares")
+    return index * E // count, (index + 1) * E // count
+
 
 def _scalar(v, device) -> torch.Tensor:
     """(1,) int32 tensor on ``device`` of an int or a one-element integer
@@ -61,22 +99,35 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 
 def params_from_numpy(cfg: ArchConfig, np_params, device=None) -> Params:
-    """Turn the JAX ``Model.init`` pytree, already converted to numpy by the
-    caller (``jax.tree_util.tree_map(np.asarray, params)``), into the
-    port's parameters: the same names, with ``layers`` and ``cross``
-    (stacked on axis 0 over the decoder's layers) and ``encoder`` (over
-    the encoder's) split into one dict per layer."""
+    """Turn the JAX ``Model.init`` pytree (or a gradient of that shape),
+    already converted to numpy by the caller
+    (``jax.tree_util.tree_map(np.asarray, params)``), into the port's
+    parameters: the same names, with ``layers`` and ``cross`` (stacked on
+    axis 0 over the decoder's layers) and ``encoder`` (over the encoder's)
+    split into one dict per layer.  A hybrid's ``layers`` (per 8-layer
+    group ``g`` the stacks ``sd`` (g, 4, ...), ``sm`` (g, 3, ...) and
+    ``am`` (g, ...)) become one dict per absolute layer ``8 g + j``, from
+    stack ``HYBRID_ORDER[j]``."""
     device = resolve_device(device)
     stacks = {"layers": cfg.num_layers, "cross": cfg.num_layers,
               "encoder": cfg.num_encoder_layers}
     out: Params = {k: tree_map(lambda a: _to_tensor(a, device), v)
                    for k, v in np_params.items() if k not in stacks}
+
+    def layer(tree, *idx):
+        return tree_map(lambda a: _to_tensor(np.asarray(a)[idx], device),
+                        tree)
     for key, n in stacks.items():
-        if key in np_params:
+        if key not in np_params:
+            continue
+        if key == "layers" and cfg.family == "hybrid":
             out[key] = [
-                tree_map(lambda a, i=i: _to_tensor(np.asarray(a)[i], device),
-                         np_params[key])
-                for i in range(n)]
+                layer(np_params[key][stack], g, *(() if stack == "am"
+                                                  else (idx,)))
+                for g in range(hybrid_groups(cfg))
+                for stack, idx in HYBRID_ORDER]
+        else:
+            out[key] = [layer(np_params[key], i) for i in range(n)]
     return out
 
 
@@ -97,8 +148,9 @@ def _last_writer(write_page, write_off) -> torch.Tensor:
 
 
 class Model:
-    """Attention-family decoder (dense or MoE FFN), encoder-decoder or
-    Mamba-2 stack: pure functions over explicit params, on one device.
+    """Attention-family decoder (dense or MoE FFN), encoder-decoder,
+    Mamba-2 or hybrid stack: pure functions over explicit params, on one
+    device.
 
     ``use_kernels`` (default True) sends every RMSNorm, the SSD chunk step
     and the training loss's full-sequence attention to their kernels (CUDA
@@ -112,21 +164,27 @@ class Model:
     the single-token decode steps (which use one group, as the
     reference's), and padding experts the router never picks.
     ``moe_tap`` (None) is passed to every MoE call as ``apply_moe``'s
-    measurement hook.
+    measurement hook.  ``expert_shard=(index, count)`` (default ``(0,
+    1)``: every expert) holds the ``index``-th of ``count`` equal shares
+    of every MoE layer's experts (:func:`expert_range`), the device-local
+    half of the reference's expert parallelism: routing, capacity and
+    the aux loss stay the whole layer's, and an assignment to an expert
+    held elsewhere adds 0 (no exchange with the other shares is made).
     """
 
     def __init__(self, cfg: ArchConfig, *, kv_dtype: str = "bfloat16",
                  chunk_attn_impl: str = "masked", attn_chunk: int = 1024,
                  ssd_chunk: int = 256, use_kernels: bool = True,
                  moe_groups: int = 1, pad_experts_to: int = 0,
-                 device=None):
+                 expert_shard=(0, 1), device=None):
         if chunk_attn_impl not in ("masked", "flash"):
             raise ValueError(f"chunk_attn_impl={chunk_attn_impl!r} "
                              "(want 'masked' or 'flash')")
-        if not self.supports_family(cfg):
-            raise NotImplementedError(
-                f"family={cfg.family} is not ported yet: ROADMAP.md Queue 1 "
-                "item 13 (the hybrid family)")
+        if cfg.family == "hybrid":
+            hybrid_groups(cfg)
+        self.experts = expert_range(cfg, expert_shard)
+        if self.experts is not None and pad_experts_to:
+            raise ValueError("expert_shard and pad_experts_to do not combine")
         self.cfg = cfg
         self.chunk_attn_impl = chunk_attn_impl
         self.attn_chunk = attn_chunk
@@ -138,10 +196,6 @@ class Model:
         self.kv_dtype = kv_dtype
         self.dtype = dtype_of(cfg.param_dtype)
         self.device = resolve_device(device)
-
-    @staticmethod
-    def supports_family(cfg: ArchConfig) -> bool:
-        return cfg.family != "hybrid"
 
     def _norm(self, p, x):
         return L.apply_norm(self.cfg, p, x, use_kernel=self.use_kernels)
@@ -162,10 +216,11 @@ class Model:
             params["lm_head"] = L._dense_init(
                 generator, (cfg.d_model, cfg.vocab_size), dtype=dtype,
                 device=dev)
-        params["layers"] = [self._init_layer(generator)
-                            for _ in range(cfg.num_layers)]
+        params["layers"] = [
+            self._init_layer(generator, cfg.layer_kind(i), cfg.ffn_kind(i))
+            for i in range(cfg.num_layers)]
         if cfg.is_encoder_decoder:
-            params["encoder"] = [self._init_layer(generator)
+            params["encoder"] = [self._init_layer(generator, "attn", "dense")
                                  for _ in range(cfg.num_encoder_layers)]
             params["cross"] = [
                 {"lnx": L.init_norm(cfg, cfg.d_model, dtype, dev),
@@ -175,24 +230,24 @@ class Model:
                                                    dev)
         return params
 
-    def _init_layer(self, generator):
+    def _init_layer(self, generator, kind: str, ffn_kind: str):
         """One layer in the reference's layout (``_init_sublayer``): ``ln1``
-        and the mixer, then ``ln2`` and the dense or MoE ``ffn`` unless
-        ``d_ff == 0`` (an encoder layer is the same attention + dense FFN
-        layer)."""
+        and the ``kind`` mixer (``attn`` or ``ssm``), then ``ln2`` and the
+        ``ffn_kind`` FFN (``dense``, ``moe``: the held experts only, or
+        ``none``)."""
         cfg, dtype, dev = self.cfg, self.dtype, self.device
         p = {"ln1": L.init_norm(cfg, cfg.d_model, dtype, dev)}
-        if cfg.layer_kind(0) == "ssm":
+        if kind == "ssm":
             p["ssm"] = M.init_mamba_block(cfg, generator, dtype, dev)
         else:
             p["attn"] = L.init_attention(cfg, generator, dtype, dev)
-        if cfg.ffn_kind(0) == "dense":
+        if ffn_kind == "dense":
             p["ln2"] = L.init_norm(cfg, cfg.d_model, dtype, dev)
             p["ffn"] = L.init_ffn(cfg, generator, dtype, dev)
-        elif cfg.ffn_kind(0) == "moe":
+        elif ffn_kind == "moe":
             p["ln2"] = L.init_norm(cfg, cfg.d_model, dtype, dev)
             p["ffn"] = L.init_moe(cfg, generator, dtype, dev,
-                                  self.pad_experts_to)
+                                  self.pad_experts_to, self.experts)
         return p
 
     # --------------------------------------------------------------- embed
@@ -210,16 +265,18 @@ class Model:
         return h @ head
 
     def _ffn_block(self, p_l, h, groups=None):
-        """``h`` plus the layer's FFN of ``ln2(h)``, and the MoE aux loss
-        (None without experts).  An MoE dispatches in ``groups`` groups
-        (default ``moe_groups``; the decode steps pass 1)."""
-        if "ffn" not in p_l:                # d_ff == 0: the mixer is all
+        """``h`` plus the layer's FFN of ``ln2(h)`` (none where ``p_l`` has
+        no ``ffn``, MoE where its ``ffn`` holds a ``router``, else dense),
+        and the MoE aux loss (None without experts).  An MoE dispatches in
+        ``groups`` groups (default ``moe_groups``; the decode steps pass
+        1)."""
+        if "ffn" not in p_l:
             return h, None
         x = self._norm(p_l["ln2"], h)
-        if self.cfg.ffn_kind(0) == "moe":
+        if "router" in p_l["ffn"]:
             out, aux = L.apply_moe(self.cfg, p_l["ffn"], x,
                                    groups=groups or self.moe_groups,
-                                   tap=self.moe_tap)
+                                   tap=self.moe_tap, experts=self.experts)
             return h + out, aux
         return h + L.apply_ffn(self.cfg, p_l["ffn"], x), None
 
@@ -232,11 +289,6 @@ class Model:
         encoder-decoder, tensors on the model's device.  Returns ``(total,
         {"ce", "zloss", "moe_aux"})``, float32 scalars that carry the graph
         when the params require grad."""
-        if self.cfg.family == "ssm":
-            raise NotImplementedError(
-                "training the ssm family is not ported yet: ROADMAP.md "
-                "Queue 1 item 14 (the SSD chunk kernel has no autograd "
-                "Function)")
         x = self._embed_in(params, batch.get("tokens"), batch.get("embeds"))
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
@@ -315,44 +367,86 @@ class Model:
 
     def _run_stack_full(self, params, x, positions, want_cache=False,
                         enc_ctx=None):
-        """The decoder stack over whole sequences (the reference's
-        non-hybrid branches): per layer ``ln1``, causal
-        ``chunked_attention``, ``wo``, with ``enc_ctx`` (an
-        encoder-decoder's ``{"xk", "xv"}``) the cross sublayer, then the
-        FFN block.  Returns ``(x, moe_aux, caches)``: aux is the layers'
-        MoE aux losses summed (0 without experts); with ``want_cache``,
-        caches is ``{"k", "v"}`` (L, B, S, KVH, hd), every layer's
-        projected keys and values, else None."""
-        ks, vs = [], []
+        """The decoder stack over whole sequences: per layer ``i`` its
+        ``cfg.layer_kind(i)`` mixer (``ln1``, then causal
+        ``chunked_attention`` and ``wo``, or the Mamba-2 block over the
+        whole sequence), with ``enc_ctx`` (an encoder-decoder's ``{"xk",
+        "xv"}``) the cross sublayer, then its ``cfg.ffn_kind(i)`` FFN
+        block.  Returns ``(x, moe_aux, caches)``: aux is the layers' MoE
+        aux losses summed (0 without experts); with ``want_cache``, caches
+        holds the attention layers' projected ``k``/``v`` and the Mamba
+        layers' final ``conv``/``ssm`` state in the reference's layout
+        (:meth:`_stack_caches`), else None."""
+        cfg = self.cfg
+        kv, states = [], []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for li, p_l in enumerate(params["layers"]):
-            x, k, v = self._self_attn(p_l, x, positions, causal=True)
+            if cfg.layer_kind(li) == "attn":
+                x, k, v = self._self_attn(p_l, x, positions, causal=True)
+                if want_cache:
+                    kv.append((k, v))
+            else:
+                out, state = M.mamba_block(
+                    cfg, p_l["ssm"], self._norm(p_l["ln1"], x),
+                    chunk=self.ssd_chunk, return_state=True,
+                    use_kernel=self.use_kernels)
+                x = x + out
+                if want_cache:
+                    states.append(state)
             if enc_ctx is not None:
                 x = self._apply_cross(params["cross"][li], x,
                                       enc_ctx["xk"][li], enc_ctx["xv"][li])
             x, aux_l = self._ffn_block(p_l, x)
             if aux_l is not None:
                 aux = aux + aux_l
-            if want_cache:
-                ks.append(k)
-                vs.append(v)
-        caches = ({"k": torch.stack(ks), "v": torch.stack(vs)}
-                  if want_cache else None)
+        caches = self._stack_caches(kv, states) if want_cache else None
         return x, aux, caches
+
+    def _stack_caches(self, kv, states):
+        """The per-layer ``(k, v)`` (B, S, KVH, hd) and Mamba ``{"conv",
+        "ssm"}`` states, in layer order, stacked as the reference's
+        ``_pack_cache`` lays them out: ``k``/``v`` (L, B, S, KVH, hd) and
+        ``conv``/``ssm`` (L, B, ...); for the hybrid family ``k``/``v``
+        (g, B, S, KVH, hd), one attention layer a group, and ``conv``/
+        ``ssm`` (g, 7, B, ...)."""
+        out = {}
+        if kv:
+            out["k"] = torch.stack([k for k, _ in kv])
+            out["v"] = torch.stack([v for _, v in kv])
+        if states:
+            for key in ("conv", "ssm"):
+                t = torch.stack([st[key] for st in states])
+                if self.cfg.family == "hybrid":
+                    t = t.reshape(-1, len(HYBRID_SSM_J), *t.shape[1:])
+                out[key] = t
+        return out
+
+    def _slot(self, li: int):
+        """Layer ``li``'s index into the cache: into ``k``/``v`` for an
+        attention layer, ``conv``/``ssm`` for a Mamba layer (the layer
+        itself; for the hybrid family its group, and the group's Mamba
+        layer ``HYBRID_SSM_J.index(j)`` for a Mamba layer)."""
+        if self.cfg.family != "hybrid":
+            return li
+        g, j = divmod(li, HYBRID_GROUP)
+        if self.cfg.layer_kind(li) == "attn":
+            return g
+        return g, HYBRID_SSM_J.index(j)
 
     # ------------------------------------------------------ chunked prefill
     def supports_chunked_prefill(self) -> bool:
         """Chunked (resumable) prefill covers the attention-family decoder;
-        an SSM state would need a cross-chunk handoff and an
-        encoder-decoder carries a static cross cache, so both prefill
-        monolithically (:meth:`prefill`)."""
-        return self.cfg.family != "ssm" and not self.cfg.is_encoder_decoder
+        an SSM state (the ``ssm`` and hybrid families) would need a
+        cross-chunk handoff and an encoder-decoder carries a static cross
+        cache, so they prefill monolithically (:meth:`prefill`)."""
+        return (self.cfg.family not in ("ssm", "hybrid")
+                and not self.cfg.is_encoder_decoder)
 
     def supports_paged(self) -> bool:
         """Paged KV covers the attention-family decoder; SSM state is
         constant-size (paging buys nothing) and an encoder-decoder carries
-        a static cross cache: both live in the dense backend."""
-        return self.cfg.family != "ssm" and not self.cfg.is_encoder_decoder
+        a static cross cache: they live in the dense backend."""
+        return self.supports_chunked_prefill()
 
     def _unsupported(self, what: str) -> ValueError:
         """The reference's refusal of ``what`` for this model's family."""
@@ -610,41 +704,29 @@ class Model:
         ``chunked_attention`` and the cache adds every decoder layer's
         cross ``xk``/``xv`` (L, B, T, KVH, hd) in ``kv_dtype``.
 
-        ``ssm``: ``tokens`` unpadded (an SSM state depends on every step);
-        the cache holds ``conv`` (L, B, W-1, Ch) in the working dtype and
-        ``ssm`` (L, B, H, P, N) float32."""
-        cfg = self.cfg
+        ``ssm`` and hybrid: ``tokens`` unpadded (an SSM state depends on
+        every step); the cache holds the Mamba layers' ``conv`` (L, B, W-1,
+        Ch) in the working dtype and ``ssm`` (L, B, H, P, N) float32, for
+        the hybrid family ``conv``/``ssm`` (g, 7, B, ...) and the
+        attention layers' ``k``/``v`` (g, B, S, KVH, hd)."""
         x = self._embed_in(params, batch.get("tokens"), batch.get("embeds"))
         B, S = x.shape[:2]
-        lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
-        if cfg.family != "ssm":
-            positions = torch.arange(S, device=x.device)[None].expand(B, S)
-            enc_ctx = self._enc_ctx(params, batch)
-            x, _, caches = self._run_stack_full(params, x, positions,
-                                                want_cache=True,
-                                                enc_ctx=enc_ctx)
-            last = batch.get("last_index")
-            if last is not None:
-                x_last = x[torch.arange(B, device=x.device), last.long()]
-            else:
-                x_last = x[:, -1, :]
-            x_last = self._norm(params["final_norm"], x_last)
-            kvd = dtype_of(self.kv_dtype)
-            cache = {"lengths": lengths, "k": caches["k"].to(kvd),
-                     "v": caches["v"].to(kvd), **(enc_ctx or {})}
-            return self._logits(params, x_last).float(), cache
-        convs, ssms = [], []
-        for p_l in params["layers"]:
-            h = self._norm(p_l["ln1"], x)
-            out, state = M.mamba_block(cfg, p_l["ssm"], h,
-                                       chunk=self.ssd_chunk, return_state=True,
-                                       use_kernel=self.use_kernels)
-            x, _ = self._ffn_block(p_l, x + out)
-            convs.append(state["conv"])
-            ssms.append(state["ssm"])
-        x_last = self._norm(params["final_norm"], x[:, -1, :])
-        cache = {"lengths": lengths,
-                 "conv": torch.stack(convs), "ssm": torch.stack(ssms)}
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        enc_ctx = self._enc_ctx(params, batch)
+        x, _, caches = self._run_stack_full(params, x, positions,
+                                            want_cache=True, enc_ctx=enc_ctx)
+        last = batch.get("last_index")
+        if last is not None:
+            x_last = x[torch.arange(B, device=x.device), last.long()]
+        else:
+            x_last = x[:, -1, :]
+        x_last = self._norm(params["final_norm"], x_last)
+        kvd = dtype_of(self.kv_dtype)
+        cache = {"lengths": torch.full((B,), S, dtype=torch.int32,
+                                       device=x.device),
+                 **{k: t.to(kvd) if k in ("k", "v") else t
+                    for k, t in caches.items()},
+                 **(enc_ctx or {})}
         return self._logits(params, x_last).float(), cache
 
     @torch.no_grad()
@@ -703,15 +785,14 @@ class Model:
         independently, so each row computes what its single chunk would;
         an MoE's expert capacity depends on the total token count, so
         packing covers the dense-FFN chunked-prefill family."""
-        return (self.supports_chunked_prefill()
-                and self.cfg.ffn_kind(0) != "moe")
+        return self.supports_chunked_prefill() and not self.cfg.has_moe
 
     def _check_pack(self) -> None:
         if not self.supports_prefill_pack():
             cfg = self.cfg
             raise ValueError(
                 f"packed prefill unsupported for family={cfg.family} "
-                f"ffn={cfg.ffn_kind(0)} enc_dec={cfg.is_encoder_decoder}")
+                f"moe={cfg.has_moe} enc_dec={cfg.is_encoder_decoder}")
 
     @torch.no_grad()
     def prefill_pack(self, params, k_cache, v_cache, lanes, tokens, start,
@@ -815,84 +896,94 @@ class Model:
         """One decode iteration over the dense cache, written **in place**.
         ``tokens`` (B, 1).  Returns logits (B, V) float32.
 
-        Attention family: each lane's new K/V is written at ``lengths``
-        and it attends ``lengths + 1`` positions through
-        ``layers.decode_attention``.  That attention is plain torch, as in
-        the reference (jnp there, no Pallas kernel); the norms take the
-        RMSNorm kernel.  An encoder-decoder's layer then attends its lane's
-        cross ``xk``/``xv`` (read only, plain torch as in the reference)
-        before the FFN.  ``ssm``: the conv window and SSM state advance one
-        step.
+        Each layer's mixer is its ``cfg.layer_kind``'s.  Attention: each
+        lane's new K/V is written at ``lengths`` and it attends ``lengths
+        + 1`` positions through ``layers.decode_attention``.  That
+        attention is plain torch, as in the reference (jnp there, no
+        Pallas kernel); the norms take the RMSNorm kernel.  An
+        encoder-decoder's layer then attends its lane's cross ``xk``/``xv``
+        (read only, plain torch as in the reference) before the FFN.
+        Mamba (the ``ssm`` and hybrid families): the conv window and SSM
+        state advance one step.
 
         ``active`` (B,) bool, when given, limits the writes and the
         ``lengths`` advance to active lanes: an inactive lane's state or
         stripe (a request prefilled this iteration, or a free lane) is left
-        as it was.  An attention-family inactive lane still attends its new
-        K/V, written before attention as the reference's step writes every
-        lane and put back after it: an MoE lane's expert choices, and with
-        them the capacity its step's other tokens get, follow from that
-        attention.  Without ``active`` every lane advances, as the
-        reference's ``decode_step`` (a lane at ``lengths == Smax`` writes
-        nothing, as the reference's scatter drops it)."""
+        as it was.  An inactive lane still attends its new K/V, written
+        before attention as the reference's step writes every lane and put
+        back after it: an MoE lane's expert choices, and with them the
+        capacity its step's other tokens get, follow from that attention
+        (an inactive lane's Mamba state is not stepped, where the
+        reference steps it with the fed token).  Without ``active`` every
+        lane advances, as the reference's ``decode_step`` (a lane at
+        ``lengths == Smax`` writes nothing, as the reference's scatter
+        drops it)."""
+        cfg = self.cfg
         x = self._embed_in(params, tokens)                      # (B, 1, D)
-        if self.cfg.family == "ssm":
-            x = self._ssm_decode_layers(params, cache, x, active)
-        else:
-            x = self._attn_decode_layers(params, cache, x, active)
+        at = (self._decode_rows(cache["lengths"], cache["k"].shape[2], active)
+              if "k" in cache else None)
+        for li, p_l in enumerate(params["layers"]):
+            slot = self._slot(li)
+            if cfg.layer_kind(li) == "attn":
+                x = self._attn_decode(p_l, cache["k"][slot], cache["v"][slot],
+                                      x, at)
+            else:
+                x = self._ssm_decode(p_l, cache["conv"][slot],
+                                     cache["ssm"][slot], x, active)
+            if cfg.is_encoder_decoder:
+                x = self._apply_cross(params["cross"][li], x,
+                                      cache["xk"][li], cache["xv"][li])
+            x, _ = self._ffn_block(p_l, x, groups=1)
         cache["lengths"] += (1 if active is None
                              else active.to(cache["lengths"].dtype))
         x = self._norm(params["final_norm"], x[:, -1, :])
         return self._logits(params, x).float()
 
-    def _attn_decode_layers(self, params, cache, x, active):
-        cfg = self.cfg
-        B = x.shape[0]
-        lengths = cache["lengths"]
-        Smax = cache["k"].shape[2]
-        lanes = torch.arange(B, device=x.device)
+    @staticmethod
+    def _decode_rows(lengths, Smax: int, active):
+        """What every attention layer of a decode step shares: ``(lengths,
+        lanes, pos, inside, keep)``, each lane's write row ``pos``, whether
+        it lands (``inside``) and whether it stays (``keep``: None without
+        ``active``)."""
+        B = lengths.shape[0]
         inside = (lengths < Smax).view(B, 1, 1)
-        keep = inside if active is None else inside & active.view(B, 1, 1)
-        pos = lengths.clamp(max=Smax - 1).long()
-        lens1 = lengths + 1
+        keep = None if active is None else inside & active.view(B, 1, 1)
+        return (lengths, torch.arange(B, device=lengths.device),
+                lengths.clamp(max=Smax - 1).long(), inside, keep)
 
-        for li, p_l in enumerate(params["layers"]):
-            kc, vc = cache["k"][li], cache["v"][li]
-            h1 = self._norm(p_l["ln1"], x)
-            q, k, v = L._project_qkv(cfg, p_l["attn"], h1, lengths[:, None])
-            new = ((kc, k[:, 0]), (vc, v[:, 0]))
-            old = [dst[lanes, pos] for dst, _ in new]
+    def _attn_decode(self, p_l, kc, vc, x, rows):
+        """``x`` (B, 1, D) plus one attention layer's decode over its
+        stripes ``kc``/``vc`` (B, Smax, KVH, hd), written in place at
+        :meth:`_decode_rows`' ``rows``."""
+        lengths, lanes, pos, inside, keep = rows
+        B = x.shape[0]
+        h1 = self._norm(p_l["ln1"], x)
+        q, k, v = L._project_qkv(self.cfg, p_l["attn"], h1, lengths[:, None])
+        new = ((kc, k[:, 0]), (vc, v[:, 0]))
+        old = [dst[lanes, pos] for dst, _ in new]
+        for (dst, src), o in zip(new, old):
+            dst[lanes, pos] = torch.where(inside, src.to(dst.dtype), o)
+        attn = L.decode_attention(self.cfg, q[:, 0], kc, vc, lengths + 1)
+        if keep is not None:             # inactive lanes keep their K/V
             for (dst, src), o in zip(new, old):
-                dst[lanes, pos] = torch.where(inside, src.to(dst.dtype), o)
-            attn = L.decode_attention(cfg, q[:, 0], kc, vc, lens1)
-            if active is not None:       # inactive lanes keep their K/V
-                for (dst, src), o in zip(new, old):
-                    dst[lanes, pos] = torch.where(keep, src.to(dst.dtype), o)
-            x = x + (attn.reshape(B, -1) @ p_l["attn"]["wo"])[:, None, :]
-            if self.cfg.is_encoder_decoder:
-                x = self._apply_cross(params["cross"][li], x,
-                                      cache["xk"][li], cache["xv"][li])
-            x, _ = self._ffn_block(p_l, x, groups=1)
-        return x
+                dst[lanes, pos] = torch.where(keep, src.to(dst.dtype), o)
+        return x + (attn.reshape(B, -1) @ p_l["attn"]["wo"])[:, None, :]
 
-    def _ssm_decode_layers(self, params, cache, x, active):
-        cfg = self.cfg
-
-        def write(dst, src):
+    def _ssm_decode(self, p_l, conv, ssm, x, active):
+        """``x`` (B, 1, D) plus one Mamba layer's recurrent step from its
+        state ``conv``/``ssm`` (B, ...), written in place (active lanes
+        only, when ``active`` is given)."""
+        h = self._norm(p_l["ln1"], x)
+        out, new = M.mamba_decode_step(self.cfg, p_l["ssm"], h[:, 0, :],
+                                       {"conv": conv, "ssm": ssm},
+                                       use_kernel=self.use_kernels)
+        for dst, src in ((conv, new["conv"]), (ssm, new["ssm"])):
             if active is None:
                 dst.copy_(src)
             else:
                 keep = active.view(-1, *([1] * (src.dim() - 1)))
                 dst.copy_(torch.where(keep, src.to(dst.dtype), dst))
-
-        for li, p_l in enumerate(params["layers"]):
-            h = self._norm(p_l["ln1"], x)
-            state = {"conv": cache["conv"][li], "ssm": cache["ssm"][li]}
-            out, new = M.mamba_decode_step(cfg, p_l["ssm"], h[:, 0, :], state,
-                                           use_kernel=self.use_kernels)
-            write(state["conv"], new["conv"])
-            write(state["ssm"], new["ssm"])
-            x, _ = self._ffn_block(p_l, x + out[:, None, :], groups=1)
-        return x
+        return x + out[:, None, :]
 
     def decode_step_sampled(self, params, cache, tokens, active, new_gen,
                             new_ctx, true_len, rids, *, seed: int = 0,
@@ -996,25 +1087,29 @@ class Model:
         KVH, hd) in ``kv_dtype`` for the attention family, and for an
         encoder-decoder the cross ``xk``/``xv`` (L, batch, cross_kv_len,
         KVH, hd); for ``ssm`` the constant-size ``conv`` and ``ssm`` state
-        (``max_len`` unused)."""
+        (``max_len`` unused); for the hybrid family, per 8-layer group
+        ``g``, ``k``/``v`` (g, batch, max_len, KVH, hd) and ``conv``/
+        ``ssm`` (g, 7, batch, ...), the reference's layout."""
         cfg = self.cfg
+        kvd = dtype_of(self.kv_dtype)
         n = cfg.num_layers
         out: Dict[str, Any] = {"lengths": ((batch,), torch.int32)}
-        if cfg.family == "ssm":
-            out["conv"] = ((n, batch, cfg.conv_width - 1,
-                            cfg.d_inner + 2 * cfg.ssm_state), self.dtype)
-            out["ssm"] = ((n, batch, cfg.ssm_heads, cfg.ssm_headdim,
-                           cfg.ssm_state), torch.float32)
-        else:
-            kvd = dtype_of(self.kv_dtype)
-            shape = (n, batch, max_len, cfg.num_kv_heads, cfg.hd)
+        if cfg.family != "ssm":
+            n_kv = hybrid_groups(cfg) if cfg.family == "hybrid" else n
+            shape = (n_kv, batch, max_len, cfg.num_kv_heads, cfg.hd)
             out["k"] = (shape, kvd)
             out["v"] = (shape, kvd)
-            if cfg.is_encoder_decoder:
-                xshape = (n, batch, cfg.cross_kv_len, cfg.num_kv_heads,
-                          cfg.hd)
-                out["xk"] = (xshape, kvd)
-                out["xv"] = (xshape, kvd)
+        if cfg.family in ("ssm", "hybrid"):
+            lead = ((hybrid_groups(cfg), len(HYBRID_SSM_J))
+                    if cfg.family == "hybrid" else (n,))
+            out["conv"] = ((*lead, batch, cfg.conv_width - 1,
+                            cfg.d_inner + 2 * cfg.ssm_state), self.dtype)
+            out["ssm"] = ((*lead, batch, cfg.ssm_heads, cfg.ssm_headdim,
+                           cfg.ssm_state), torch.float32)
+        if cfg.is_encoder_decoder:
+            xshape = (n, batch, cfg.cross_kv_len, cfg.num_kv_heads, cfg.hd)
+            out["xk"] = (xshape, kvd)
+            out["xv"] = (xshape, kvd)
         return out
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:

@@ -19,7 +19,8 @@ Three layers live here, as in ``repro.serving.kv_cache``:
     ``max_seq_len`` K/V stripe per lane (resumable chunked prefill, a
     whole prompt as one chunk when no chunk size is set; fused or per-slot
     decode), for the ``ssm`` family a request's constant-size conv and SSM
-    state (monolithic prefill).  It is written in place too.
+    state, for the hybrid family both (monolithic prefill).  It is
+    written in place too.
 
 Both attention backends also run packed prefill (``prefill_pack``: up to
 ``prefill_pack_width`` requests' chunks of one bucket as the rows of one
@@ -902,8 +903,9 @@ class DenseKVBackend(KVBackend):
     the attention family every lane owns a full ``max_seq_len`` K/V stripe
     per layer (an encoder-decoder also a ``cross_kv_len`` cross K/V
     stripe, written once by :meth:`write_prefill`); for ``ssm`` a
-    constant-size conv window and SSM state.  Every key stays at one
-    address, so the decode step graph holds them all.
+    constant-size conv window and SSM state; for the hybrid family a K/V
+    stripe per 8-layer group and the state of its 7 Mamba layers.  Every
+    key stays at one address, so the decode step graph holds them all.
 
     The pack graph ``("pack", bucket)`` needs no lane in its key (a
     chunk's graph does): the flash kernel reads a per-layer gather of the
@@ -924,12 +926,18 @@ class DenseKVBackend(KVBackend):
                 capacity, self.cache["k"].dtype, self.device)
 
     def _cache_batch_axes(self) -> Dict[str, int]:
-        """Batch (lane) axis of each cache key."""
-        if self.model.cfg.family == "ssm":
-            return {"lengths": 0, "conv": 1, "ssm": 1}
-        axes = {"lengths": 0, "k": 1, "v": 1}
-        if self.model.cfg.is_encoder_decoder:
-            axes.update(xk=1, xv=1)
+        """Batch (lane) axis of each cache key (the hybrid family's conv
+        and SSM state sit behind their (group, Mamba layer) axes)."""
+        fam = self.model.cfg.family
+        axes = {"lengths": 0}
+        if fam == "ssm":
+            axes.update(conv=1, ssm=1)
+        elif fam == "hybrid":
+            axes.update(k=1, v=1, conv=2, ssm=2)
+        else:
+            axes.update(k=1, v=1)
+            if self.model.cfg.is_encoder_decoder:
+                axes.update(xk=1, xv=1)
         return axes
 
     def _lane(self, key: str, slot: int):

@@ -16,8 +16,8 @@ import torch
 
 from repro_torch.utils import tree_leaves, tree_map
 
-# the subtree whose leaves the reference stacks on a leading layer axis
-STACKED = "layers"
+# the subtrees whose leaves the reference stacks on a leading layer axis
+STACKED = ("layers", "encoder", "cross")
 
 
 @dataclass(frozen=True)
@@ -55,13 +55,15 @@ def _schedule(cfg: AdamWConfig, step):
 
 def decays(path, p) -> bool:
     """Whether a leaf takes weight decay: the reference decays leaves of
-    ``ndim >= 2`` (matrices), but it stacks every leaf under ``layers`` on
-    a leading layer axis, so each per-layer leaf there (norm scales and
-    biases included) counts one more axis than its shape here.  So the
-    port decays every leaf under ``layers`` and the matrices outside it
-    (``embed``, ``lm_head``), and leaves ``final_norm`` alone, as the
-    reference does."""
-    return p.dim() + (1 if path and path[0] == STACKED else 0) >= 2
+    ``ndim >= 2`` (matrices), but it stacks every leaf under ``layers``
+    (an encoder-decoder's ``encoder`` and ``cross`` too) on a leading
+    layer axis (a hybrid's on two, group and layer), so each per-layer
+    leaf there (norm scales and biases included) counts at least one more
+    axis than its shape here.  So the port decays every leaf of those
+    stacks and the matrices outside them (``embed``, ``lm_head``), and
+    leaves ``final_norm`` and ``enc_final_norm`` alone, as the reference
+    does."""
+    return p.dim() + (1 if path and path[0] in STACKED else 0) >= 2
 
 
 @torch.no_grad()

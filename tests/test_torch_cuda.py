@@ -586,7 +586,8 @@ def _ssd_took(body):
 
 # The FMA body's shapes (head dim or state size other than 64 / 128, or Q
 # past 256), then the tensor-core body's: Q from 1 to a full chunk of 256
-# with 3 and 80 heads (no multiple of the planned head groups).  Every
+# with 3 and 80 heads (no multiple of the planned head groups), and heads
+# of 128 columns (jamba's), which it runs as two heads of 64.  Every
 # shape at small decay; at the model's decay every shape within the
 # model's chunk (Q <= 256, cum down to about -180).  At Q 1024 the model's
 # decay takes cum to about -800, where two float32 cumsums of the same
@@ -599,6 +600,8 @@ _SSD_SHAPES = [
     (1, 1, 1024, 2, 128, 256), (1, 1, 1, 3, 64, 128), (2, 2, 16, 3, 64, 128),
     (1, 1, 200, 3, 64, 128), (1, 2, 256, 3, 64, 128), (1, 1, 1, 80, 64, 128),
     (1, 2, 16, 80, 64, 128), (1, 1, 200, 80, 64, 128),
+    (1, 1, 1, 3, 128, 128), (2, 2, 16, 3, 128, 128),
+    (1, 1, 200, 5, 128, 128), (1, 4, 256, 128, 128, 128),
 ]
 
 
@@ -619,7 +622,8 @@ def test_ssd_chunk_kernel(dev, B, C, Q, H, P, N, decay):
         torch.testing.assert_close(o, r, atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("Q,P,N", [(1024, 128, 256), (256, 64, 128)])
+@pytest.mark.parametrize("Q,P,N", [(1024, 128, 256), (256, 64, 128),
+                                   (256, 128, 128)])
 def test_ssd_chunk_long_chunk_against_float64(dev, Q, P, N):
     """At the model's decay over a chunk of 1024 (cum to about -800) and of
     256, the kernel is no further from the float64 truth (the plain version
@@ -643,12 +647,14 @@ def test_ssd_chunk_long_chunk_against_float64(dev, Q, P, N):
 @pytest.mark.parametrize("Q,P,N,offset", [
     (256, 64, 128, 0), (200, 64, 128, 0), (1, 64, 128, 0),
     (257, 64, 128, 0), (256, 32, 128, 0), (256, 64, 64, 0),
-    (256, 64, 128, 1), (64, 64, 128, 2)])
+    (256, 64, 128, 1), (64, 64, 128, 2), (256, 128, 128, 0),
+    (100, 128, 128, 0), (256, 128, 128, 1), (256, 96, 128, 0)])
 def test_ssd_chunk_takes_the_planned_body(dev, Q, P, N, offset):
     """Each call takes the body ``plan.body`` names from the shapes and
-    addresses: the tensor-core body for Q <= 256, P 64, N 128 in 16-byte
-    aligned tensors, the FMA body for other shapes and for contiguous
-    views ``offset`` floats into a buffer."""
+    addresses: the tensor-core body for Q <= 256, P 64 or 128 (two heads
+    of 64 a head), N 128 in 16-byte aligned tensors, the FMA body for
+    other shapes and for contiguous views ``offset`` floats into a
+    buffer."""
     from repro_torch.kernels.ssd_scan import plan, ssd_chunk, ssd_chunk_ref
     B, C, H = 1, 2, 5
     rng = np.random.default_rng(Q + P + N + offset)
@@ -662,13 +668,43 @@ def test_ssd_chunk_takes_the_planned_body(dev, Q, P, N, offset):
     Bc, Cc = view((B, C, Q, N)), view((B, C, Q, N))
     out, took = _ssd_bodies(lambda: ssd_chunk(xbar, dA, Bc, Cc))
     want = plan.body(Q, P, N, [t.data_ptr() for t in (xbar, Bc, Cc)])
-    assert want == ("tf32x3" if (Q <= 256 and (P, N) == (64, 128)
+    assert want == ("tf32x3" if (Q <= 256 and P in (64, 128) and N == 128
                                  and offset == 0) else "fma")
     assert took == _ssd_took(want)
     for o, r in zip(out, ssd_chunk_ref(xbar, dA, Bc, Cc)):
         tol = _ssd_tol(Q, N)
         torch.testing.assert_close(o, r, atol=tol, rtol=tol)
 
+
+
+@pytest.mark.parametrize("P", [64, 128])
+def test_ssd_chunk_function_backward_on_the_card(dev, P):
+    """``SsdChunk`` on the card (the kernel forward through the body its
+    plan names, the plain recomputed backward) at the model's decay: its
+    outputs within the chunk's tolerance of the plain version, and its
+    gradients against autograd through ``ssd_chunk_ref`` on the same
+    inputs and upstream gradients (the same plain backward, from the
+    saved inputs: 1e-5)."""
+    from repro_torch.kernels.ssd_scan import SsdChunk, ssd_chunk_ref
+    rng = np.random.default_rng(40 + P)
+    B, C, Q, H, N = 1, 2, 256, 4, 128
+    ins = _ssd_inputs(rng, B, C, Q, H, P, N, "model", dev)
+    ups = [_randn(rng, s, torch.float32, dev)
+           for s in ((B, C, Q, H, P), (B, C, H, P, N), (B, C, H))]
+    grads, outs = [], []
+    for fn in (SsdChunk.apply, ssd_chunk_ref):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        out = fn(*leaves)
+        outs.append(out)
+        total = sum((o * u).sum() for o, u in zip(out, ups))
+        grads.append(torch.autograd.grad(total, leaves))
+    tol = _ssd_tol(Q, N)
+    for o, r in zip(*outs):
+        torch.testing.assert_close(o.detach(), r.detach(), atol=tol,
+                                   rtol=tol)
+    for g, w in zip(*grads):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
 
 
 def test_ssd_chunked_kernel_path_matches_plain(dev):
@@ -996,6 +1032,64 @@ def test_seamless_decode_graphed_equals_eager(dev):
         for i in range(6):
             if i == 2:
                 kv.upload(0, kv.offload(0))
+            gen = np.full((B,), i + 2, np.int32)
+            got = kv.decode(params, toks, active, gen, gen,
+                            np.full((B,), 2 ** 31 - 1, np.int32),
+                            np.arange(B, dtype=np.int32))
+            outs.append(got)
+            toks[:, 0] = got[0]
+        torch.cuda.synchronize()
+        return outs, kv
+    (og, kg), (oe, ke) = run(True), run(False)
+    for (ta, ra), (tb, rb) in zip(og, oe):
+        np.testing.assert_array_equal(ta, tb)
+        np.testing.assert_array_equal(ra, rb)
+    for key in kg.cache:
+        assert torch.equal(kg.cache[key], ke.cache[key]), key
+    assert kg.graphs.replays["decode"] == 6 and kg.graphs.captures == 1
+    assert ke.graphs.captures == 0
+
+
+def test_hybrid_decode_graphed_equals_eager(dev):
+    """jamba's smoke config in bf16 (attention heads of 64, one Mamba head
+    of 128 with state 128: the SSD chunk's tensor-core body through the
+    head split) on the dense backend: three unpadded prompts prefilled by
+    ``Model.prefill`` and placed by ``write_prefill``, then 6 fused decode
+    steps with an INT8 swap of one lane after the second: the step
+    graph's tokens, reasons and every cache key equal the eager steps'
+    bit for bit, each graphed step is a replay, and every prefill's SSD
+    calls took the tensor-core body."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models.model import Model
+    from repro_torch.serving.kv_cache import DenseKVBackend, KVBackendConfig
+    cfg = get_smoke_config("jamba-1.5-large-398b").scaled(
+        head_dim=64, ssm_headdim=128, ssm_state=128)
+    model = Model(cfg, chunk_attn_impl="flash", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(3))
+    rng = np.random.default_rng(27)
+    prompts = [torch.from_numpy(rng.integers(2, cfg.vocab_size, (1, n))
+                                ).to(dev) for n in (5, 37, 300)]
+
+    def run(graphs):
+        kv = DenseKVBackend(model, KVBackendConfig(
+            max_slots=4, max_seq_len=320, quantize_offload=True,
+            cuda_graphs=graphs, eos_token=-1))
+        B = 4
+        toks = np.zeros((B, 1), np.int32)
+        active = np.zeros((B,), bool)
+        before = ssd_ops.body_launches()
+        for rid, prompt in enumerate(prompts):
+            logits, pc = model.prefill(params, {"tokens": prompt})
+            kv.write_prefill(rid, pc, prompt.shape[1])
+            toks[rid, 0], active[rid] = int(logits[0].argmax()), True
+        torch.cuda.synchronize()
+        body = {k: n - before[k] for k, n in ssd_ops.body_launches().items()}
+        assert body == {"fma": 0, "tf32x3_states": 3 * 7, "tf32x3_y": 3 * 7}
+        outs = []
+        for i in range(6):
+            if i == 2:
+                kv.upload(2, kv.offload(2))
             gen = np.full((B,), i + 2, np.int32)
             got = kv.decode(params, toks, active, gen, gen,
                             np.full((B,), 2 ** 31 - 1, np.int32),

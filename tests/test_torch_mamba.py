@@ -306,8 +306,9 @@ def test_model_family_switches(setup):
     gran = Model(dataclasses.replace(get_smoke_config("granite-3-8b"),
                                      param_dtype="float32"), device="cpu")
     assert gran.supports_chunked_prefill() and gran.supports_paged()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.loss(tparams, {"tokens": None, "targets": None})
+    toks = torch.zeros((1, 8), dtype=torch.int64)
+    loss, parts = model.loss(tparams, {"tokens": toks, "targets": toks})
+    assert torch.isfinite(loss) and float(parts["moe_aux"]) == 0.0
 
 
 def test_dense_backend_offload_upload_round_trip(setup):

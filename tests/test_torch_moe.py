@@ -491,12 +491,21 @@ def test_copied_configs_prefill_and_decode_match_jax(name):
 
 
 @pytest.mark.parametrize("name", ["jamba-1.5-large-398b"])
-def test_unported_families_are_refused(name):
+def test_hybrid_smoke_config_builds(name):
+    """The hybrid config (jamba's smoke size, equal to the reference's)
+    builds a model whose layers follow ``cfg.layer_kind`` and
+    ``cfg.ffn_kind`` (tests/test_torch_hybrid.py holds it to the
+    reference)."""
     cfg = port_configs.get_smoke_config(name)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         get_smoke_config(name))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Model(cfg, device="cpu")
+    model = Model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    assert len(params["layers"]) == cfg.num_layers
+    for i, p_l in enumerate(params["layers"]):
+        assert ("attn" in p_l) == (cfg.layer_kind(i) == "attn")
+        assert ("router" in p_l["ffn"]) == (cfg.ffn_kind(i) == "moe")
+    assert not model.supports_chunked_prefill()
 
 
 def test_registry_holds_the_references_ten():
