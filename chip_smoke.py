@@ -323,6 +323,36 @@ the final line:
      1e-3), then ``launch/train.train``, 3 AdamW steps at batch 1 x 1024
      (main path, counted from 0): losses finite, 64 SSD launches a step;
      ms/step, tokens/s, peak memory.
+ 27. sharded execution over a device mesh, after phase 11 (mamba freed;
+     phases 12-14 follow): two ranks share the card over a gloo group
+     (NCCL refuses two ranks on one device; every collective is staged
+     through a host copy), processes this script starts
+     (``--shard-rank``) and waits for;
+     a rank that fails fails the phase.  Each rank draws the whole model
+     from the seed and keeps its block (``Model.shard``); rank 0 first
+     computes the one-rank result on the whole weights.  (a) granite-3-8b
+     at full width and 8 of its 40 layers (``SHARD27``, cut for the
+     script's time), mesh data 1 x model 2 (16/4 heads of 128 a rank; the odd vocab's tied embed
+     split over d_model, the reference's re-homed spec): ``Model.prefill``
+     of 2 prompts of 1024 and 8 teacher-forced ``decode_step`` calls, bf16
+     logits within 0.05 relative L2 of one rank at every step, greedy
+     agreement printed;
+     the per-rank weight bytes must equal the dry run's
+     (``launch/dryrun.param_bytes``).  (b) granite-moe-3b-a800m at 8 of
+     its 32 layers, experts and heads over model 2 (20 experts, 12/4
+     heads a rank): the same run on the one-rank run's routing (gated at
+     0.05; greedy agreement printed), with the share of routing decisions
+     that the sharded router, given the same inputs, makes differently
+     (printed).  (c) one FSDP step of granite-3-8b at full width and 2
+     layers in f32, mesh data 2 x model 1, batch 2 x 1024, AdamW: loss
+     within 1e-5 relative, the clipped global norm within 1e-6 relative,
+     and every gradient leaf and both AdamW moments within rel_l2 1e-4 of
+     one rank's step (each rank holds its block of one rank's gradients
+     and moments; the squared sums cross ranks).  The sharded runs (every rank's) are counted from 0 and added
+     to the kernels line (rows 6 and 7 must launch in each part).  The
+     ranks start before phase 8 and wait for the phase's go, so that
+     their start overlaps phases 8-11, and their exits overlap phases
+     12-14.
 
 The serve phases 5, 6, 9, 10, 16, 17, 20, 21, 22 (b), 23, 24 and 26 (b)
 run warmed engines
@@ -374,7 +404,11 @@ rows; 80 heads of 64, state 128, f32; and jamba's prefill layer, 128 heads
 of 128 through the head split, at both decays: ``jamba_shape``) against
 their plain versions; the full-sequence flash kernel also at jamba's
 attention layer (bf16 causal, B 1, H 64, KVH 8, S 1024, d 128;
-``jamba_shape``, gated as granite's rows).
+``jamba_shape``, gated as granite's rows) and at phase 27's per-rank
+heads (bf16 causal, B 2, S 1024: granite's 16/4 of d 128 and
+granite-moe's 12/4 of d 64; ``sharded_shape``, gated as granite's
+rows), and the RMSNorm at
+phase 27's 2 x 1024 prefill rows of 4096 and 1536 (``sharded_shape``).
 There are five main paths, each driven with every kernel's launch count set to 0 just before it and
 read just after: granite's phases 5 and 6 (the paged-attention, prefix
 flash and INT8 quant kernels must have launched), granite's dense phases
@@ -385,8 +419,9 @@ tensor-core body) and training's phase 13 (the
 flash and RMSNorm kernels must have launched); then phase 19's two packs
 and phase 20's and phase 21's two serves each, phase 22, phase 23 (a),
 phase 24's serves (c)-(e), phase 25's serve (b) and training (d), and
-phase 26's serve and swap (b) and training (d), each counted from 0 and
-added to the kernels line's launches.  Each phase
+phase 26's serve and swap (b) and training (d), and phase 27's sharded
+runs on both ranks, each counted from 0 and added to the kernels line's
+launches.  Each phase
 prints its seconds.  Then a ``kernels`` JSON line (each row also names
 the ``csrc`` headers its source includes), the card's name and
 power limit, and the final ``{"ok": true, "device": {...}}`` line.  Needs
@@ -406,6 +441,7 @@ import time
 
 import numpy as np
 
+T0 = time.perf_counter()               # this script's start (phase 27)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
@@ -1029,7 +1065,8 @@ def check_flash_prefill(torch, dev, H=32, KVH=8, cases=FLASH_FULL_CASES):
         if main is None:
             main = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms)
-            verdict(label, ms, mine, lib_ms, theirs, f"SDPA {backend}", b_ms)
+            verdict(label, ms, mine, lib_ms, theirs, f"SDPA {backend}",
+                    b_ms)
         del q, k, v, out, ref
     torch.cuda.empty_cache()
     return main
@@ -1273,14 +1310,15 @@ def check_fused_rmsnorm(torch, dev):
     differ).  Times are device times (:func:`time_ms`) and a host loop's
     per-call times (:func:`eager_ms`) of the kernel and the library call.
     Returns the bf16 (1024, 5120) row, the bf16 (256, 1536) one
-    (granite-moe's chunk) and jamba's bf16 rows by width."""
+    (granite-moe's chunk), jamba's bf16 rows by width and phase 27's (a
+    2 x 1024 prefill of granite and of granite-moe) by width."""
     import torch.nn.functional as F
     from repro_torch.kernels.fused_rmsnorm import fused_rmsnorm, rmsnorm_ref
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     rows = {}
     shapes = ((8, 2560), (1024, 2560), (8, 5120), (1024, 5120), (8, 4096),
               (256, 4096), (8, 1536), (256, 1536), (1024, 8192),
-              (1024, 16384))
+              (1024, 16384), (2048, 4096), (2048, 1536))
     for name in ("float32", "bfloat16"):
         dt = getattr(torch, name)
         for T, d in shapes:
@@ -1324,7 +1362,8 @@ def check_fused_rmsnorm(torch, dev):
                         theirs, "F.rms_norm", b_ms,
                         copy_ms=time_ms(lambda: y.copy_(x), 50))
     return rows[(1024, 5120)], rows[(256, 1536)], {
-        str(d): rows[(1024, d)] for d in (8192, 16384)}
+        str(d): rows[(1024, d)] for d in (8192, 16384)}, {
+        str(d): rows[(2048, d)] for d in (4096, 1536)}
 
 
 def ssd_flops(B, C, Q, H, P, N) -> float:
@@ -5288,6 +5327,459 @@ def ptxas_report(logs) -> list:
             for src, entry, used, spill in rows]
 
 
+# (a) and (b) at 8 layers: at GRANITE_CUT and MOE_LAYERS the script took
+# 288.9 s on the H100 machine against its 290 s ceiling (the ranks'
+# collectives cross the host)
+SHARD27 = dict(granite_layers=8, prompts=2, prompt_len=1024, decode=8,
+               moe_layers=8, train_layers=2, train_batch=2, train_seq=1024,
+               timeout=900)
+SHARD27_LOSS_REL = 1e-5                  # (c): loss against one rank
+SHARD27_GRAD_REL = 1e-4                  # (c): each gradient, moment leaf
+SHARD27_NORM_REL = 1e-6                  # (c): the clipped global norm
+
+
+def _rel_l2(torch, got, want) -> float:
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want).clamp(min=1e-30))
+
+
+def _shard27_logits(torch, model, params, prompts, forced):
+    """f32 logits of ``Model.prefill`` of ``prompts`` (B, S) and of one
+    ``decode_step`` per column of ``forced`` (T, B, 1), teacher-forced, the
+    prefill's cache placed in a cache of S + T positions; and the wall
+    seconds of the prefill and of the decode steps."""
+    B, S = prompts.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    full = model.init_cache(B, S + forced.shape[0])
+    for k in ("k", "v"):
+        full[k][:, :, :S] = cache[k]
+    full["lengths"][:] = S
+    del cache
+    outs = [logits.float().cpu()]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for t in range(forced.shape[0]):
+        outs.append(model.decode_step(params, full, forced[t]).float().cpu())
+    torch.cuda.synchronize()
+    return outs, t1 - t0, (time.perf_counter() - t2) / forced.shape[0]
+
+
+def _shard27_serve(torch, dev, rank, arch, layers, kernels, log):
+    """Part (a) or (b) on this rank: ``arch`` at full width and ``layers``
+    of its depth, mesh data 1 x model 2.  Rank 0 first computes the
+    one-rank logits on the whole weights; each rank then keeps its block
+    (``Model.shard``) and runs the sharded prefill and decode steps,
+    counted from 0.  An MoE's bf16 rounding flips routing decisions
+    between the two (its router's near-ties), and a flipped route changes
+    a token's output wholly, so an MoE runs sharded on the one-rank run's
+    routing (every ``layers._route`` output recorded on rank 0 and sent to
+    rank 1), as phase 24 (b) fixes its routing; each replayed call also
+    runs the sharded router on its own inputs, and the share of its
+    choices that differ from the recorded ones is printed."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.ctx import Mesh
+    from repro_torch.launch.dryrun import param_bytes
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.utils import tree_size_bytes
+    t_start = time.perf_counter()
+    real_route = L._route
+    cfg = get_config(arch).scaled(num_layers=layers)
+    mesh = make_test_mesh(1, 2)
+    rng = np.random.default_rng(SEED + 27)
+    B, S, T = SHARD27["prompts"], SHARD27["prompt_len"], SHARD27["decode"]
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+    forced = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (T, B, 1)).astype(np.int32)).to(dev)
+    one, whole = build(torch, dev, cfg)
+    torch.cuda.synchronize()
+    marks = {"draw": time.perf_counter() - t_start}
+    out = {}
+    recorded = [None]
+    if rank == 0:
+        recorded = []
+
+        def record(*args):
+            recorded.append(real_route(*args))
+            return recorded[-1]
+        L._route = record
+        try:
+            ref, pre_s, dec_s = _shard27_logits(torch, one, whole, prompts,
+                                                forced)
+        finally:
+            L._route = real_route
+        out["one_prefill_s"], out["one_decode_s"] = pre_s, dec_s
+        recorded = [[(w.cpu(), i.cpu(), a.cpu(), e) for w, i, a, e in
+                     recorded]]
+    if cfg.has_moe:
+        dist.broadcast_object_list(recorded, src=0)
+    marks["one_rank"] = time.perf_counter() - t_start
+    sharded = Model(cfg, chunk_attn_impl="flash", kv_dtype=cfg.param_dtype,
+                    mesh=mesh, device=dev)
+    params = sharded.shard(whole)
+    torch.cuda.synchronize()
+    marks["shard"] = time.perf_counter() - t_start
+    meta = Model(cfg, device="meta").init(torch.Generator())
+    out["weight_bytes"] = tree_size_bytes(params)
+    out["dry_weight_bytes"] = param_bytes(
+        cfg, meta, "serving", Mesh(("data", "model"), (1, 2)))[0]
+    marks["dry"] = time.perf_counter() - t_start
+    del whole, one
+    free_memory(torch)
+    marks["free"] = time.perf_counter() - t_start
+    flips = []
+    if cfg.has_moe:                      # on the one-rank routing
+        replay = iter([(w.to(dev), i.to(dev), a.to(dev), e)
+                       for w, i, a, e in recorded[0]])
+
+        def replayed(*args):
+            routed = next(replay)
+            own = real_route(*args)[1]
+            flips.append((own != routed[1]).float().mean())
+            return routed
+        L._route = replayed
+    reset_counts(kernels)
+    try:
+        got, pre_s, dec_s = _shard27_logits(torch, sharded, params, prompts,
+                                            forced)
+    finally:
+        L._route = real_route
+    out["launches"] = read_counts(kernels)
+    out["prefill_s"], out["decode_s"] = pre_s, dec_s
+    marks["sharded"] = time.perf_counter() - t_start
+    if rank == 0:
+        out["rel_l2"] = [_rel_l2(torch, g, w) for g, w in zip(got, ref)]
+        out["greedy_agree"] = float(np.mean(
+            [bool(a) for g, w in zip(got, ref)
+             for a in (g.argmax(-1) == w.argmax(-1)).tolist()]))
+        if flips:
+            out["routes_differing"] = float(torch.stack(flips).mean())
+    held = (f", experts [{sharded.experts[0]}, {sharded.experts[1]})"
+            if cfg.has_moe else "")
+    log(f"{arch} {layers} layers, heads {cfg.num_heads // 2}/"
+        f"{cfg.num_kv_heads // 2} a rank{held}: "
+        f"{out['weight_bytes']:,} weight bytes (dry run "
+        f"{out['dry_weight_bytes']:,}), prefill {pre_s * 1e3:.1f} ms, "
+        f"decode {dec_s * 1e3:.2f} ms a step, launches {out['launches']}; "
+        f"part {time.perf_counter() - t_start:.1f}s (at "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in marks.items())})")
+    del sharded, params
+    free_memory(torch)
+    return out
+
+
+def _shard27_train(torch, dev, rank, kernels, log):
+    """Part (c) on this rank: granite-3-8b at full width and
+    ``train_layers`` layers in f32, mesh data 2 x model 1 (FSDP), AdamW.
+    Each rank first takes one rank's step on the whole batch and keeps its
+    block of that step's gradients and AdamW moments and the step's
+    clipped global norm; then each takes the sharded step on its row,
+    counted from 0, and compares its gradient and moment blocks with those
+    (each leaf's squared differences and squares summed over the ranks:
+    one rel_l2 per leaf, with nothing gathered) and its norm with that
+    norm."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import shard_leaf, spec_at
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.utils import tree_leaves, tree_map
+    t_start = time.perf_counter()
+    cfg = get_config("granite-3-8b").scaled(
+        num_layers=SHARD27["train_layers"], param_dtype="float32")
+    mesh = make_test_mesh(2, 1)
+    rng = np.random.default_rng(SEED + 28)
+    shape = (SHARD27["train_batch"], SHARD27["train_seq"])
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)
+                                 .astype(np.int32)).to(dev)
+             for k in ("tokens", "targets")}
+    one = Model(cfg, device=dev)
+    whole = one.init(torch.Generator(device=dev).manual_seed(SEED))
+    sharded = Model(cfg, mesh=mesh, device=dev)
+    specs = sharded.specs("train")
+    torch.cuda.synchronize()
+    marks = {"draw": time.perf_counter() - t_start}
+    out = {}
+
+    def state_of(params):
+        for _, p in tree_leaves(params):
+            p.requires_grad_(True)
+        return {"params": params, **init_opt_state(params)}
+    state = state_of(tree_map(lambda t: t.clone(), whole))
+    step = make_train_step(one, AdamWConfig(), keep_grads=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    out["one_step_s"] = time.perf_counter() - t0
+    ref_loss, ref_norm = float(m["loss"]), float(m["grad_norm"])
+    trees = {"grads": m["grads"], "m": state["m"], "v": state["v"]}
+    ref = {(name,) + path: shard_leaf(g, spec_at(specs, path),
+                                      mesh).detach().clone()
+           for name, tree in trees.items() for path, g in tree_leaves(tree)}
+    del state, m, trees
+    marks["one_rank"] = time.perf_counter() - t_start
+    state = state_of(sharded.shard(whole, "train"))
+    del whole
+    free_memory(torch)
+    step = make_train_step(sharded, AdamWConfig(), keep_grads=True)
+    rows = {k: v[rank:rank + 1] for k, v in batch.items()}
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, rows)
+    torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
+    marks["sharded"] = time.perf_counter() - t_start
+    out["launches"] = read_counts(kernels)
+    out["loss"], out["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
+    trees = {"grads": m["grads"], "m": state["m"], "v": state["v"]}
+    names, sums = [], []
+    for name, tree in trees.items():
+        for path, g in tree_leaves(tree):
+            want = ref[(name,) + path].double()
+            names.append(name)
+            sums.append(torch.stack([(g.double() - want).square().sum(),
+                                     want.square().sum()]))
+    sums = torch.stack(sums).cpu()
+    dist.all_reduce(sums)
+    if not bool((sums[:, 1] > 0).all()):
+        fail("phase 27 (c): a one-rank gradient or moment leaf is 0")
+    rel = (sums[:, 0] / sums[:, 1]).sqrt()
+    out["ref_loss"], out["ref_grad_norm"] = ref_loss, ref_norm
+    for name in trees:
+        out[f"worst_{name}_rel"] = float(max(
+            r for n, r in zip(names, rel.tolist()) if n == name))
+    out["leaves"] = names.count("grads")
+    log(f"granite-3-8b {SHARD27['train_layers']} layers f32, FSDP over "
+        f"data 2: step {out['step_s'] * 1e3:.1f} ms (one rank "
+        f"{out['one_step_s'] * 1e3:.1f} ms), loss {out['loss']:.6f}, "
+        f"launches {out['launches']}; part "
+        f"{time.perf_counter() - t_start:.1f}s (at "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in marks.items())})")
+    del state, m, trees, sharded, ref
+    free_memory(torch)
+    return out
+
+
+def shard27_rank(rank: int, world: int, port: int, jobdir: str) -> None:
+    """One rank of phase 27 (a child process :func:`start_shard_ranks`
+    starts): the gloo group over the two ranks on the one card, then, once
+    the parent writes ``jobdir/go`` (:func:`phase_sharded`), (a), (b) and
+    (c); the results as JSON for the parent.  A rank whose parent is gone
+    exits."""
+    import torch
+    from repro_torch.kernels import counters
+    from repro_torch.launch.mesh import init_distributed
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = init_distributed(rank, world, port, dev, backend="gloo")
+    kernels = dict(counters.WRAPPERS)
+
+    def log(msg):
+        print(f"[shard] rank {rank}: {msg}", flush=True)
+    log(f"joined a {backend} group of {world} on "
+        f"{torch.cuda.get_device_name(0)}, {time.perf_counter() - T0:.1f}s "
+        f"after the script started")
+    # the first meta-tensor op loads PyTorch's meta kernels (seconds): do it
+    # while waiting (Model.shard reads the whole model's shapes on meta)
+    torch.empty((1,), device="meta") * 1.0
+    go, parent = os.path.join(jobdir, "go"), os.getppid()
+    while not os.path.exists(go):
+        if os.getppid() != parent:
+            sys.exit(1)
+        time.sleep(0.1)
+    t_go = time.perf_counter()
+    res = {"a": _shard27_serve(torch, dev, rank, "granite-3-8b",
+                               SHARD27["granite_layers"], kernels, log),
+           "b": _shard27_serve(torch, dev, rank, MOE_ARCH,
+                               SHARD27["moe_layers"], kernels, log),
+           "c": _shard27_train(torch, dev, rank, kernels, log)}
+    log(f"results written {time.perf_counter() - t_go:.1f}s after the go")
+    path = os.path.join(jobdir, f"rank{rank}.json")
+    with open(path + ".tmp", "w") as fh:
+        json.dump(res, fh)
+    os.replace(path + ".tmp", path)       # the parent reads it whole
+    os._exit(0)       # no teardown of the group: the parent has the results
+
+
+def start_shard_ranks():
+    """Start phase 27's two rank processes (this script with
+    ``--shard-rank``) ahead of the phase, so that their start (Python,
+    torch, the card's context, the gloo group) overlaps the phases before
+    it; they wait for :func:`phase_sharded`'s go.  Returns ``(jobdir,
+    [(process, log file)])``; the processes are stopped when this script
+    exits, however it exits."""
+    import atexit
+    import socket
+    import tempfile
+    jobdir = tempfile.mkdtemp(prefix="chip_smoke27_")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    here = os.path.abspath(__file__)
+    env = {**os.environ, "PYTHONPATH": os.path.join(
+        os.path.dirname(here), "src")}
+    procs = []
+    for r in range(2):
+        logf = open(os.path.join(jobdir, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, here, "--shard-rank", str(r), "2", str(port),
+             jobdir], env=env, stdout=logf, stderr=subprocess.STDOUT), logf))
+
+    def stop():
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    atexit.register(stop)
+    return jobdir, procs
+
+
+def phase_sharded(torch, dev, kernels, ranks):
+    """Phase 27: sharded execution over a device mesh, two ranks sharing
+    the one card over a gloo group (NCCL refuses two ranks on one device;
+    each collective is staged through a host copy).  Frees this process's
+    cached memory, tells the waiting ranks of :func:`start_shard_ranks` to
+    go, waits for both ranks' results (a rank that fails, or results that
+    do not come within ``SHARD27["timeout"]``, fail the phase, and both
+    ranks are stopped), prints their lines and gates what rank 0
+    measured; :func:`end_shard_ranks` waits for their exits.  Returns
+    both ranks' launch counts of the sharded runs, summed."""
+    jobdir, procs = ranks
+    free_memory(torch)
+    open(os.path.join(jobdir, "go"), "w").close()
+    t_go = time.perf_counter()
+    deadline = t_go + SHARD27["timeout"]
+    results = [os.path.join(jobdir, f"rank{r}.json") for r in range(2)]
+    done = False
+    # until both results are in, a rank fails (the other would wait on
+    # it) or the time runs out
+    while time.perf_counter() < deadline:
+        done = all(os.path.exists(f) for f in results)
+        if done or any(p.poll() for p, _ in procs):
+            break
+        time.sleep(0.2)
+    print(f"[shard] both ranks' results {'in' if done else 'missing'} "
+          f"{time.perf_counter() - t_go:.1f}s after the go", flush=True)
+    if not done:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    # a rank that failed first, then one stopped because of it
+    for r in sorted(range(2), key=lambda r: (procs[r][0].poll() or 0) < 0):
+        with open(os.path.join(jobdir, f"rank{r}.log")) as fh:
+            text = fh.read()
+        for line in text.splitlines():
+            if line.startswith("[shard]"):
+                print(line, flush=True)
+        if not done and procs[r][0].returncode:
+            print(text[-6000:], flush=True)
+            fail(f"phase 27: rank {r} exited {procs[r][0].returncode}")
+    if not done:
+        fail(f"phase 27: no results within {SHARD27['timeout']} s")
+    res = []
+    for f in results:
+        with open(f) as fh:
+            res.append(json.load(fh))
+    return shard27_gates(res, kernels)
+
+
+def end_shard_ranks(ranks) -> None:
+    """Wait for phase 27's rank processes to exit (each ends right after
+    writing its results; the card's context is released as it exits) and
+    fail on an exit other than 0."""
+    _, procs = ranks
+    for r, (p, logf) in enumerate(procs):
+        try:
+            code = p.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            fail(f"phase 27: rank {r} did not exit")
+        logf.close()
+        if code != 0:
+            fail(f"phase 27: rank {r} exited {code}")
+
+
+def shard27_gates(res, kernels):
+    """Phase 27's gates on the ranks' results (rank 0 measured against
+    one rank); returns the launch counts of both ranks' sharded runs."""
+    r0 = res[0]
+    for part, arch in (("a", "granite-3-8b"), ("b", MOE_ARCH)):
+        got = r0[part]
+        worst = max(got["rel_l2"])
+        routes = got.get("routes_differing")
+        print(f"[shard] ({part}) {arch}, data 1 x model 2: bf16 logits vs "
+              f"one rank{'' if routes is None else ' on its routing'} "
+              f"rel_l2 prefill {got['rel_l2'][0]:.4f}, decode "
+              f"{', '.join(f'{x:.4f}' for x in got['rel_l2'][1:])} (worst "
+              f"{worst:.4f}, gate {BF16_TOL})"
+              + f"; greedy agreement {got['greedy_agree']:.3f} (not gated)"
+              + ("" if routes is None else f"; the sharded router's own "
+                 f"choices differing {routes:.4f} (not gated)")
+              + f"; per-rank weights {got['weight_bytes'] / 1e9:.3f} GB, "
+              f"dry run {got['dry_weight_bytes'] / 1e9:.3f} GB; sharded "
+              f"prefill {got['prefill_s'] * 1e3:.1f} ms (one rank "
+              f"{got['one_prefill_s'] * 1e3:.1f}), decode "
+              f"{got['decode_s'] * 1e3:.2f} ms a step (one rank "
+              f"{got['one_decode_s'] * 1e3:.2f})", flush=True)
+        if not worst <= BF16_TOL:
+            fail(f"phase 27 ({part}): rel_l2 {worst} > {BF16_TOL}")
+        if got["weight_bytes"] != got["dry_weight_bytes"]:
+            fail(f"phase 27 ({part}): per-rank weights differ from the "
+                 "dry run's")
+    c = r0["c"]
+    loss_rel = abs(c["loss"] - c["ref_loss"]) / abs(c["ref_loss"])
+    norm_rel = abs(c["grad_norm"] - c["ref_grad_norm"]) / c["ref_grad_norm"]
+    print(f"[shard] (c) granite-3-8b FSDP, data 2 x model 1: loss "
+          f"{c['loss']:.6f} vs one rank {c['ref_loss']:.6f} (rel "
+          f"{loss_rel:.2e}, gate {SHARD27_LOSS_REL}); global norm "
+          f"{c['grad_norm']:.6f} vs {c['ref_grad_norm']:.6f} (rel "
+          f"{norm_rel:.2e}, gate {SHARD27_NORM_REL}); worst of "
+          f"{c['leaves']} leaves rel_l2: gradients "
+          f"{c['worst_grads_rel']:.2e}, m {c['worst_m_rel']:.2e}, v "
+          f"{c['worst_v_rel']:.2e} (gate {SHARD27_GRAD_REL}); step "
+          f"{c['step_s'] * 1e3:.1f} ms (one rank "
+          f"{c['one_step_s'] * 1e3:.1f})", flush=True)
+    if not loss_rel <= SHARD27_LOSS_REL:
+        fail(f"phase 27 (c): loss rel {loss_rel} > {SHARD27_LOSS_REL}")
+    if not norm_rel <= SHARD27_NORM_REL:
+        fail(f"phase 27 (c): global norm rel {norm_rel} > "
+             f"{SHARD27_NORM_REL}")
+    for name in ("grads", "m", "v"):
+        worst = c[f"worst_{name}_rel"]
+        if not worst <= SHARD27_GRAD_REL:
+            fail(f"phase 27 (c): {name} rel_l2 {worst} > "
+                 f"{SHARD27_GRAD_REL}")
+    counts = {k: 0 for k in kernels}
+    for r in res:
+        for part in ("a", "b", "c"):
+            for k, n in r[part]["launches"].items():
+                counts[k] += n
+    for part, names in (("a", ("flash_prefill", "fused_rmsnorm")),
+                        ("b", ("flash_prefill", "fused_rmsnorm")),
+                        ("c", ("flash_prefill", "fused_rmsnorm"))):
+        for r in res:
+            for n in names:
+                if r[part]["launches"][n] <= 0:
+                    fail(f"phase 27 ({part}): {n} never launched")
+    return counts
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5360,11 +5852,21 @@ def main() -> None:
         fa_jamba = check_flash_prefill(
             torch, dev, H=64, KVH=8,
             cases=(("bfloat16", 1, 1024, 128, True),))
+        # and at phase 27's per-rank heads (a 2 x 1024 prefill on a model
+        # axis of 2: granite's 16/4 of d 128, granite-moe's 12/4 of d 64),
+        # held to plain and to SDPA as granite's rows
+        fa_shard = {
+            "granite_H16_KVH4_d128": check_flash_prefill(
+                torch, dev, H=16, KVH=4,
+                cases=(("bfloat16", 2, 1024, 128, True),)),
+            "granite_moe_H12_KVH4_d64": check_flash_prefill(
+                torch, dev, H=12, KVH=4,
+                cases=(("bfloat16", 2, 1024, 64, True),))}
         kq, kd = check_kv_quant(torch, dev)
         kq_moe, kd_moe = check_kv_quant(torch, dev, KV_QUANT_MOE)
         kpage = check_kv_quant_page(torch, dev)
         pq8 = check_paged_attention_q8(torch, dev)
-        rn, rn_moe, rn_jamba = check_fused_rmsnorm(torch, dev)
+        rn, rn_moe, rn_jamba, rn_shard = check_fused_rmsnorm(torch, dev)
         sc = check_ssd_chunk(torch, dev)
         # row 8 at jamba's prefill layer (1000 tokens: 4 chunks of 256; 128
         # heads of 128 through the split), at the model's decay
@@ -5492,6 +5994,8 @@ def main() -> None:
     totals = {k: totals[k] + counts[k] for k in totals}
     clock.lap("jamba-1.5-large-398b + mamba2-2.7b training (phase 26)")
 
+    # phase 27's ranks start now, their start overlapping phases 8-11
+    ranks = start_shard_ranks()
     t0 = time.perf_counter()
     model, params = build_model("mamba2-2.7b", "full", dev, None, SEED)
     torch.cuda.synchronize()
@@ -5524,6 +6028,15 @@ def main() -> None:
     del model, params
     free_memory(torch)
 
+    # phase 27: sharded execution, two ranks sharing the card; each rank's
+    # sharded runs counted from 0 there, summed; the ranks' exits overlap
+    # phases 12-14
+    counts = phase_sharded(torch, dev, kernels, ranks)
+    print(f"[main-path] sharded prefill, decode and FSDP training, two "
+          f"ranks (phase 27) launches {counts}", flush=True)
+    totals = {k: totals[k] + counts[k] for k in totals}
+    clock.lap("sharded execution over a mesh of two ranks (phase 27)")
+
     train_reference(torch, dev)
     clock.lap("train reference (phase 12)")
     # the training main path is phase 13: counts start at 0 there and are
@@ -5537,6 +6050,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     clock.lap("train profile (phase 14)")
 
+    end_shard_ranks(ranks)
     src = "src/repro_torch/csrc/"
     rows = [
         dict(name="paged_attention", route="cuda",
@@ -5555,7 +6069,7 @@ def main() -> None:
              replaces="src/repro/kernels/flash_prefill/flash_prefill.py:165",
              launches=t_launches["flash_prefill"], **fa,
              stablelm_shape=fa_stablelm, seamless_shape=fa_seamless,
-             jamba_shape=fa_jamba),
+             jamba_shape=fa_jamba, sharded_shape=fa_shard),
         dict(name="kv_quantize", route="cuda", source=src + "kv_quant.cu",
              replaces="src/repro/kernels/kv_quant/kv_quant.py:37",
              launches=launches["kv_quantize"], **kq,
@@ -5572,14 +6086,14 @@ def main() -> None:
              source=src + "fused_rmsnorm.cu",
              replaces="src/repro/kernels/fused_rmsnorm/fused_rmsnorm.py:23",
              launches=m_launches["fused_rmsnorm"], **rn, moe_shape=rn_moe,
-             jamba_shape=rn_jamba),
+             jamba_shape=rn_jamba, sharded_shape=rn_shard),
         dict(name="ssd_chunk", route="cuda", source=src + "ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_scan/ssd_scan.py:51",
              launches=m_launches["ssd_chunk"], **sc, jamba_shape=sc_jamba),
     ]
     root = os.path.dirname(os.path.abspath(__file__))
     for r in rows:
-        r["launches"] += totals[r["name"]]      # phases 19-26
+        r["launches"] += totals[r["name"]]      # phases 19-27
         # the csrc headers the source includes (flash and SSD bodies, the
         # 3xTF32 primitives), as the build key follows them
         r["headers"] = [os.path.relpath(str(h), root) for h in
@@ -5597,4 +6111,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--shard-rank"]:          # phase 27's ranks
+        shard27_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                     sys.argv[5])
+    else:
+        main()

@@ -3,9 +3,9 @@ architectures, as in the JAX package's registry.
 
 Each lives in its own module (``repro_torch/configs/<id>.py``) exposing
 ``CONFIG`` (full size) and ``smoke_config()`` (reduced, CPU-runnable).
-The port's ``Model`` runs the attention family (dense and MoE FFNs, the
-VLM's token backbone) and Mamba-2; the hybrid and encoder-decoder configs
-are registered but ``Model`` refuses them (ROADMAP.md Queue 1 item 13).
+The port's ``Model`` runs every family: the attention family (dense and
+MoE FFNs, the VLM's token and embeds inputs), Mamba-2, the hybrid family
+(Jamba) and the encoder-decoder family (seamless).
 :func:`get_config` also knows the paper's own models
 (``paper_models.CONFIGS``: OPT, LLaMA, Pythia), which the analytic
 simulator and cluster models price; the port runs none of them, so

@@ -1,0 +1,522 @@
+"""Mesh context, logical axes and the port's collectives, the torch twin of
+``repro.distributed.ctx``.
+
+A :class:`Mesh` names its axes (``data``, ``model``, with ``pod`` on two
+pods) and their sizes, and knows this process's coordinate on each.  A
+*real* mesh sits over an initialised ``torch.distributed`` process group
+(:func:`repro_torch.launch.mesh.make_test_mesh` builds one with
+``init_device_mesh``); a *dry* mesh has sizes and no process group (the
+production meshes of the dry run).  Model code names *logical* axes
+(``batch``, ``model``, ``expert``, ``seq``, ``fsdp``); the active mesh
+resolves them to physical axes (:func:`resolve_axis`, the reference's
+map).
+
+The reference's ``shard_hint`` has no counterpart: a rank here already
+holds only its rows and its heads, so a layout hint has nothing to do.
+In its place this module holds the port's only collectives, each named by
+a logical axis and each an autograd Function with the Megatron pairing:
+
+- :func:`reduce_from`: the all-reduce that follows a row-parallel product
+  (forward sum, backward identity);
+- :func:`copy_to`: the input of a column-parallel product (forward
+  identity, backward sum);
+- :func:`gather_from` / :func:`split_to`: the all-gather of a split
+  activation and its inverse;
+- :func:`fsdp_gather`: a parameter's FSDP gather, whose backward is the
+  reduce-scatter of its gradient.
+
+Each is the identity outside a mesh (and over axes of size 1), so every
+single-device path runs bit for bit as before.  Under a dry mesh each
+records its kind and operand bytes in ``mesh.records`` and returns a
+tensor of the right shape without communicating.  On a ``gloo`` group a
+CUDA tensor is staged through a host copy for every collective, by design
+(ranks that share one card cannot use NCCL).
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import itertools
+import math
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+Logical = Union[None, str, Sequence[str]]
+Spec = Tuple            # one entry per dim: None, an axis name or a tuple
+
+
+class Mesh:
+    """A mesh of ranks: ``axis_names`` and ``shape`` (their sizes, in
+    order), this process's ``coords`` on each axis (global rank = the
+    coordinates' mixed radix, the last axis fastest), and for a real mesh
+    the ``torch.distributed`` groups of every set of axes (``group(axes)``:
+    the ranks that differ only on ``axes``) and the ``DeviceMesh``.  A dry
+    mesh (``dry=True``) has no groups; its collectives append
+    ``{"kind", "axes", "bytes"}`` to ``records``."""
+
+    def __init__(self, axis_names: Sequence[str], shape: Sequence[int], *,
+                 coords: Optional[Sequence[int]] = None, dry: bool = True,
+                 groups: Optional[Dict[frozenset, object]] = None,
+                 device_mesh=None, backend: Optional[str] = None):
+        if len(axis_names) != len(shape):
+            raise ValueError(f"axes {axis_names} and shape {shape} differ")
+        self.axis_names = tuple(axis_names)
+        self.shape = tuple(int(s) for s in shape)
+        self.coords = tuple(coords) if coords is not None else \
+            (0,) * len(self.shape)
+        self.dry = dry
+        self.groups = groups or {}
+        self.device_mesh = device_mesh
+        self.backend = backend
+        self.records: List[dict] = []
+
+    # ------------------------------------------------------------- layout
+    @property
+    def sizes(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.shape))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def coord(self, axis: str) -> int:
+        return self.coords[self.axis_names.index(axis)] \
+            if axis in self.axis_names else 0
+
+    def axis_size(self, axes) -> int:
+        sizes = self.sizes
+        return math.prod(sizes.get(a, 1) for a in _as_tuple(axes))
+
+    def rank_of(self, coords: Sequence[int]) -> int:
+        r = 0
+        for c, s in zip(coords, self.shape):
+            r = r * s + c
+        return r
+
+    def coords_of(self, rank: int) -> Tuple[int, ...]:
+        out = []
+        for s in reversed(self.shape):
+            out.append(rank % s)
+            rank //= s
+        return tuple(reversed(out))
+
+    @property
+    def rank(self) -> int:
+        return self.rank_of(self.coords)
+
+    def members(self, axes) -> List[Tuple[int, ...]]:
+        """Coordinates of the ranks of this rank's group over ``axes``, in
+        group order (the mixed radix of their ``axes`` coordinates, in
+        mesh-axis order)."""
+        axes = set(_as_tuple(axes))
+        ranges = [range(s) if a in axes else (c,)
+                  for a, s, c in zip(self.axis_names, self.shape,
+                                     self.coords)]
+        return list(itertools.product(*ranges))
+
+    def group(self, axes):
+        return self.groups[frozenset(_as_tuple(axes))]
+
+    def describe(self) -> str:
+        return " x ".join(f"{a} {s}" for a, s in zip(self.axis_names,
+                                                      self.shape))
+
+
+_MESH: contextvars.ContextVar[Optional[Mesh]] = contextvars.ContextVar(
+    "repro_torch_mesh", default=None)
+
+
+@contextlib.contextmanager
+def mesh_context(mesh: Optional[Mesh]):
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def current_mesh() -> Optional[Mesh]:
+    return _MESH.get()
+
+
+def resolve_axis(mesh: Mesh, logical: Logical):
+    """Map a logical axis name to physical mesh axes present on `mesh`."""
+    if logical is None:
+        return None
+    if isinstance(logical, (tuple, list)):
+        phys = sum((_as_tuple(resolve_axis(mesh, l)) for l in logical), ())
+        return phys if phys else None
+    names = mesh.axis_names
+    if logical == "batch":
+        phys = tuple(n for n in ("pod", "data") if n in names)
+        return phys if phys else None
+    if logical in ("model", "expert"):
+        return "model" if "model" in names else None
+    if logical == "seq":   # long-context sequence sharding reuses the data axis
+        return "data" if "data" in names else None
+    if logical == "fsdp":  # parameter sharding axis for ZeRO/FSDP
+        return "data" if "data" in names else None
+    if logical in names:
+        return logical
+    return None
+
+
+def _as_tuple(x):
+    if x is None:
+        return ()
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def logical_to_spec(mesh: Mesh, axes: Sequence[Logical]) -> Spec:
+    return tuple(resolve_axis(mesh, a) for a in axes)
+
+
+# ------------------------------------------------------------ primitives
+
+def _active(logical) -> Tuple[Optional[Mesh], Tuple[str, ...]]:
+    """The current mesh and the physical axes of ``logical`` on it that
+    have more than one rank (an empty tuple: nothing to do)."""
+    mesh = _MESH.get()
+    if mesh is None:
+        return None, ()
+    sizes = mesh.sizes
+    axes = tuple(a for a in _as_tuple(resolve_axis(mesh, logical))
+                 if sizes[a] > 1)
+    return mesh, axes
+
+
+def _record(mesh: Mesh, kind: str, axes, t: torch.Tensor) -> None:
+    mesh.records.append({"kind": kind, "axes": list(_as_tuple(axes)),
+                         "bytes": t.numel() * t.element_size()})
+
+
+def _staged(mesh: Mesh, t: torch.Tensor) -> bool:
+    return mesh.backend == "gloo" and t.is_cuda
+
+
+def _all_reduce(mesh: Mesh, axes, t: torch.Tensor,
+                op: str = "sum") -> torch.Tensor:
+    """Sum (or, with ``op="max"``, maximum) of ``t`` over the group of
+    ``axes`` (a new tensor)."""
+    if mesh.dry:
+        _record(mesh, "all-reduce", axes, t)
+        return t.clone()
+    import torch.distributed as dist
+    buf = t.detach().cpu() if _staged(mesh, t) else t.detach().clone()
+    buf = buf.contiguous()
+    dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM,
+                             "max": dist.ReduceOp.MAX}[op],
+                    group=mesh.group(axes))
+    return buf.to(t.device)
+
+
+def _all_gather(mesh: Mesh, axes, t: torch.Tensor) -> torch.Tensor:
+    """(n, *t.shape): every member's ``t`` over the group of ``axes``, in
+    group order."""
+    n = mesh.axis_size(axes)
+    if mesh.dry:
+        _record(mesh, "all-gather", axes, t)
+        return t.new_empty((n, *t.shape))
+    import torch.distributed as dist
+    src = (t.detach().cpu() if _staged(mesh, t) else t.detach()).contiguous()
+    out = src.new_empty((n * src.numel(),))
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    gather(out, src.reshape(-1), group=mesh.group(axes))
+    return out.reshape(n, *t.shape).to(t.device)
+
+
+def _reduce_scatter(mesh: Mesh, axes, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (n, *block): member ``i`` gets the sum over members of
+    ``t[i]``."""
+    if mesh.dry:
+        _record(mesh, "reduce-scatter", axes, t)
+        return t.new_empty(t.shape[1:])
+    import torch.distributed as dist
+    src = (t.detach().cpu() if _staged(mesh, t) else t.detach()).contiguous()
+    out = src.new_empty(src.shape[1:])
+    scatter = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    scatter(out.reshape(-1), src.reshape(-1), group=mesh.group(axes))
+    return out.to(t.device)
+
+
+def _my_index(mesh: Mesh, axes) -> int:
+    """This rank's index in its group over ``axes``."""
+    idx = 0
+    for a in mesh.axis_names:
+        if a in _as_tuple(axes):
+            idx = idx * mesh.sizes[a] + mesh.coord(a)
+    return idx
+
+
+# ---------------------------------------------------- Megatron functions
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _all_reduce(mesh, axes, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(ctx.mesh, ctx.axes, g), None, None
+
+
+def _split(mesh, axes, x, dim):
+    n = mesh.axis_size(axes)
+    return x.chunk(n, dim=dim)[_my_index(mesh, axes)].contiguous()
+
+
+def _gather(mesh, axes, x, dim):
+    parts = _all_gather(mesh, axes, x.contiguous())
+    return torch.cat(list(parts.unbind(0)), dim=dim)
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _gather(mesh, axes, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _split(ctx.mesh, ctx.axes, g, ctx.dim), None, None, None
+
+
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _split(mesh, axes, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(ctx.mesh, ctx.axes, g, ctx.dim), None, None, None
+
+
+def reduce_from(x: torch.Tensor, logical: Logical = "model") -> torch.Tensor:
+    """Sum ``x`` over the ranks of ``logical`` (the all-reduce after a
+    row-parallel product; backward: identity).  Identity outside a
+    mesh."""
+    mesh, axes = _active(logical)
+    return x if not axes else _ReduceFrom.apply(x, mesh, axes)
+
+
+def copy_to(x: torch.Tensor, logical: Logical = "model") -> torch.Tensor:
+    """``x`` as the replicated input of a column-parallel product:
+    forward identity, backward the sum of the ranks' gradients."""
+    mesh, axes = _active(logical)
+    return x if not axes else _CopyTo.apply(x, mesh, axes)
+
+
+def gather_from(x: torch.Tensor, logical: Logical = "model",
+                dim: int = -1) -> torch.Tensor:
+    """All-gather of a split activation along ``dim`` (backward: this
+    rank's chunk)."""
+    mesh, axes = _active(logical)
+    return x if not axes else _GatherFrom.apply(x, mesh, axes, dim)
+
+
+def split_to(x: torch.Tensor, logical: Logical = "model",
+             dim: int = -1) -> torch.Tensor:
+    """This rank's chunk of a replicated ``x`` along ``dim`` (backward:
+    the all-gather)."""
+    mesh, axes = _active(logical)
+    return x if not axes else _SplitTo.apply(x, mesh, axes, dim)
+
+
+def axis_index(logical: Logical) -> Tuple[int, int]:
+    """``(index, count)`` of this rank over the ranks of ``logical``
+    (``(0, 1)`` outside a mesh)."""
+    mesh, axes = _active(logical)
+    if not axes:
+        return 0, 1
+    return _my_index(mesh, axes), mesh.axis_size(axes)
+
+
+# ------------------------------------------------------- blocks and FSDP
+
+def _entries(spec: Spec, ndim: int):
+    """The last ``ndim`` entries of ``spec`` (leading stack entries of a
+    per-layer leaf dropped), each as a tuple of axis names."""
+    spec = tuple(spec)[len(spec) - ndim:] if len(spec) >= ndim else \
+        tuple(spec) + (None,) * (ndim - len(spec))
+    return [_as_tuple(e) for e in spec]
+
+
+def block_region(mesh: Mesh, full_shape, spec: Spec, coords,
+                 keep=None) -> List[Tuple[int, int]]:
+    """``[start, stop)`` per dim of the block that the rank at ``coords``
+    holds of a leaf of ``full_shape`` laid out by ``spec``; with ``keep``
+    (a set of axis names) only those axes split (the others are
+    gathered)."""
+    sizes = mesh.sizes
+    region = []
+    for n, axes in zip(full_shape, _entries(spec, len(full_shape))):
+        axes = [a for a in axes if keep is None or a in keep]
+        parts, idx = 1, 0
+        for a in axes:
+            parts *= sizes[a]
+            idx = idx * sizes[a] + coords[mesh.axis_names.index(a)]
+        step = n // parts
+        region.append((idx * step, (idx + 1) * step))
+    return region
+
+
+def _fsdp_layout(mesh: Mesh, spec: Spec, ndim: int):
+    """``(gather_axes, keep)`` of a parameter: the axes its FSDP gather
+    runs over (every axis of its spec but ``model``, with ``model`` too
+    where a dim splits over another axis before ``model``, whose model
+    block the gather alone cannot make contiguous) and the axes its
+    compute block stays split over."""
+    sizes = mesh.sizes
+    gather, model_too = set(), False
+    for axes in _entries(spec, ndim):
+        for a in axes:
+            if a != "model" and sizes[a] > 1:
+                gather.add(a)
+        if "model" in axes and axes.index("model") > 0 and any(
+                sizes[a] > 1 for a in axes[:axes.index("model")]):
+            model_too = True
+    if model_too and sizes.get("model", 1) > 1:
+        gather.add("model")
+    keep = set() if "model" in gather else {"model"}
+    return tuple(a for a in mesh.axis_names if a in gather), keep
+
+
+def _assemble(mesh, full_shape, spec, members, blocks, region):
+    """The tensor over ``region`` of a leaf from the ``blocks`` (one per
+    member coordinate) that overlap it."""
+    out = blocks.new_zeros([b - a for a, b in region])
+    for c, blk in zip(members, blocks.unbind(0)):
+        src = block_region(mesh, full_shape, spec, c)
+        sl_out, sl_blk = [], []
+        for (a, b), (s, e) in zip(region, src):
+            lo, hi = max(a, s), min(b, e)
+            if lo >= hi:
+                break
+            sl_out.append(slice(lo - a, hi - a))
+            sl_blk.append(slice(lo - s, hi - s))
+        else:
+            out[tuple(sl_out)] = blk[tuple(sl_blk)]
+    return out
+
+
+def _pieces(mesh, full_shape, spec, members, g, region, block_shape):
+    """Per member, the part of ``g`` (over ``region``) inside that
+    member's block, zero elsewhere: (n, *block_shape)."""
+    out = g.new_zeros((len(members), *block_shape))
+    for i, c in enumerate(members):
+        if c is None:           # this rank sends that member nothing
+            continue
+        dst = block_region(mesh, full_shape, spec, c)
+        sl_g, sl_blk = [], []
+        for (a, b), (s, e) in zip(region, dst):
+            lo, hi = max(a, s), min(b, e)
+            if lo >= hi:
+                break
+            sl_g.append(slice(lo - a, hi - a))
+            sl_blk.append(slice(lo - s, hi - s))
+        else:
+            out[i][tuple(sl_blk)] = g[tuple(sl_g)]
+    return out
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, mesh, spec, full_shape):
+        gather, keep = _fsdp_layout(mesh, spec, local.dim())
+        region = block_region(mesh, full_shape, spec, mesh.coords, keep)
+        ctx.mesh, ctx.spec, ctx.full_shape = mesh, spec, full_shape
+        ctx.gather, ctx.region = gather, region
+        ctx.block_shape = tuple(local.shape)
+        if not gather:
+            return local.view_as(local)
+        members = mesh.members(gather)
+        blocks = _all_gather(mesh, gather, local.contiguous())
+        return _assemble(mesh, full_shape, spec, members, blocks, region)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        if ctx.gather:
+            members = mesh.members(ctx.gather)
+            if "model" in ctx.gather:
+                # the compute view is replicated over ``model`` and so is
+                # its gradient: each block takes it from the ranks of its
+                # own model coordinate only (once per data rank)
+                mi = mesh.axis_names.index("model")
+                members_w = [c if c[mi] == mesh.coords[mi] else None
+                             for c in members]
+            else:
+                members_w = members
+            pieces = _pieces(mesh, ctx.full_shape, ctx.spec, members_w, g,
+                             ctx.region, ctx.block_shape)
+            g = _reduce_scatter(mesh, ctx.gather, pieces)
+        rest = tuple(a for a in ("pod", "data") if a in mesh.axis_names
+                     and mesh.sizes[a] > 1 and a not in ctx.gather)
+        if rest:             # replicated over these batch axes: sum
+            g = _all_reduce(mesh, rest, g)
+        return g, None, None, None
+
+
+def fsdp_gather(local: torch.Tensor, spec: Spec, full_shape
+                ) -> torch.Tensor:
+    """A parameter's compute block from its FSDP block: its shards over
+    the batch axes (``data``) gathered, leaving only its ``model`` split
+    (a contiguous block).  Backward: the reduce-scatter of its gradient
+    over the gathered axes (an all-reduce over the batch axes it is
+    replicated on).  Identity outside a mesh or where nothing is sharded
+    over a batch axis of more than one rank."""
+    mesh = _MESH.get()
+    if mesh is None or all(mesh.sizes[a] == 1 for a in ("pod", "data")
+                           if a in mesh.axis_names):
+        return local
+    return _FsdpGather.apply(local, mesh, spec, tuple(full_shape))
+
+
+def gather_full(local: torch.Tensor, spec: Spec, full_shape,
+                mesh: Mesh) -> torch.Tensor:
+    """The whole leaf of ``full_shape`` from every rank's block by
+    ``spec`` (a collective over every axis the spec splits on)."""
+    axes = tuple(a for a in mesh.axis_names
+                 if any(a in e for e in _entries(spec, local.dim()))
+                 and mesh.sizes[a] > 1)
+    if not axes:
+        return local.detach().clone()
+    blocks = _all_gather(mesh, axes, local.detach().contiguous())
+    region = [(0, n) for n in full_shape]
+    return _assemble(mesh, full_shape, spec, mesh.members(axes), blocks,
+                     region)
+
+
+def all_reduce_sum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None,
+                   op: str = "sum") -> torch.Tensor:
+    """Plain (non-autograd) sum of ``x`` (or, with ``op="max"``, its
+    maximum) over the physical ``axes`` of ``mesh`` (default: the current
+    mesh); identity over axes of size 1."""
+    mesh = mesh or _MESH.get()
+    if mesh is None:
+        return x
+    axes = tuple(a for a in _as_tuple(axes) if mesh.sizes.get(a, 1) > 1)
+    return _all_reduce(mesh, axes, x, op) if axes else x
+
+
+def gather_counts(x: torch.Tensor, logical: Logical) -> torch.Tensor:
+    """Plain (non-autograd) all-gather of ``x`` over the ranks of
+    ``logical``: (n, *x.shape) in group order (``x[None]`` outside a mesh
+    or over axes of one rank)."""
+    mesh, axes = _active(logical)
+    return _all_gather(mesh, axes, x) if axes else x[None]

@@ -1,0 +1,310 @@
+"""Sharding rules: map every param/input/cache leaf to a partition spec,
+the torch twin of ``repro.distributed.sharding`` (its rules copied with
+their behaviour unchanged).
+
+Two modes:
+  * ``serving``  — Megatron-style TP over the ``model`` axis only (weights
+    replicated across ``data``/``pod``), batch over (pod, data);
+  * ``train``    — FSDP x TP: each weight's natural TP dim goes to ``model``
+    and its largest remaining dim to ``data`` (ZeRO-3-style fully sharded;
+    optimizer moments share the param spec).
+
+MoE experts shard over ``model`` (EP).
+
+A spec is a tuple with one entry per dimension: ``None``, an axis name or
+a tuple of names.  The reference stacks the layers of a stack on a
+leading axis (a hybrid's on two: group and layer); the port holds a list
+of per-layer dicts.  So the port's spec of a per-layer leaf is the
+reference's spec of the stacked leaf it belongs to, computed on the
+stacked shape (:func:`ref_leaf`), leading stack entries included; a rank
+holds a layer's block by the entries of the leaf's own dims
+(:func:`shard_leaf` refuses a spec that splits the stack itself).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.distributed.ctx import Mesh, Spec, _as_tuple, _entries
+from repro_torch.models.config import ArchConfig, ShapeSpec
+
+# the reference's hybrid group layout (repro_torch.models.model's
+# HYBRID_ORDER; repeated here so that the rules import no model code)
+_HYBRID_ORDER = [("sd", 0), ("sm", 0), ("sd", 1), ("am", 0),
+                 ("sd", 2), ("sm", 1), ("sd", 3), ("sm", 2)]
+_HYBRID_STACK = {"sd": 4, "sm": 3}
+
+
+def _mesh_sizes(mesh) -> Dict[str, int]:
+    """Axis sizes of a port :class:`Mesh` or of anything with
+    ``axis_names`` and ``devices.shape`` (the reference's reading)."""
+    if isinstance(mesh, Mesh):
+        return mesh.sizes
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def _batch_axes(mesh):
+    axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return axes if axes else None
+
+
+def _pad(spec_tail, ndim) -> Spec:
+    """Left-pad a trailing spec with None for leading stack dims."""
+    return tuple([None] * (ndim - len(spec_tail)) + list(spec_tail))
+
+
+def param_partition_spec(cfg: ArchConfig, path: str, shape: tuple,
+                         mode: str) -> Spec:
+    """Spec for one parameter leaf.  `path` is the '/'-joined key path."""
+    name = path.split("/")[-1]
+    nd = len(shape)
+    train = mode == "train"
+    E = cfg.num_experts
+
+    def tp_last():                      # (.., D, F) -> F on model, D on data
+        return _pad(["data" if train else None, "model"], nd)
+
+    def tp_penult():                    # (.., F, D) -> F on model, D on data
+        return _pad(["model", "data" if train else None], nd)
+
+    if name == "embed":
+        return ("model", "data" if train else None)
+    if name == "lm_head":
+        return ("data" if train else None, "model")
+    if name in ("wq", "wk", "wv"):
+        return tp_last()
+    if name in ("bq", "bk", "bv"):
+        return _pad(["model"], nd)
+    if name in ("wi", "wg"):
+        if nd >= 3 and shape[-3] == E and shape[-1] == cfg.d_ff:
+            return _pad(["model", "data" if train else None, None], nd)  # MoE EP
+        return tp_last()
+    if name == "wo":
+        if nd >= 3 and shape[-3] == E and shape[-2] == cfg.d_ff:
+            return _pad(["model", None, "data" if train else None], nd)  # MoE EP
+        return tp_penult()
+    if name == "router":
+        return _pad([None, None], nd)
+    if name == "in_proj":
+        return tp_last()
+    if name == "out_proj":
+        return tp_penult()
+    if name == "conv_w":
+        return _pad([None, "model"], nd)
+    if name == "conv_b":
+        return _pad(["model"], nd)
+    if name in ("A_log", "D_skip", "dt_bias"):
+        return _pad([None], nd)
+    if name in ("scale", "bias"):       # norms (gate_norm scale is sharded)
+        if shape[-1] == cfg.d_inner and cfg.has_ssm:
+            return _pad(["model"], nd)
+        return _pad([None], nd)
+    return tuple([None] * nd)
+
+
+def ref_leaf(cfg: ArchConfig, path: tuple, shape) -> Tuple[str, tuple]:
+    """The reference's '/'-joined path and stacked shape of the port's
+    leaf at ``path`` (a tuple of keys and list indices) of ``shape``:
+    ``("layers", i, "attn", "wq")`` is ``layers/attn/wq`` of (L, *shape);
+    a hybrid's layer ``8 g + j`` sits in stack ``sd`` (g, 4, ...), ``sm``
+    (g, 3, ...) or ``am`` (g, ...) as ``params_from_numpy`` maps it."""
+    shape = tuple(shape)
+    if path and path[0] in ("layers", "encoder", "cross"):
+        rest = "/".join(str(p) for p in path[2:])
+        if path[0] == "layers" and cfg.family == "hybrid":
+            stack = _HYBRID_ORDER[path[1] % len(_HYBRID_ORDER)][0]
+            g = cfg.num_layers // len(_HYBRID_ORDER)
+            lead = (g, _HYBRID_STACK[stack]) if stack in _HYBRID_STACK \
+                else (g,)
+            return f"layers/{stack}/{rest}", lead + shape
+        n = cfg.num_encoder_layers if path[0] == "encoder" \
+            else cfg.num_layers
+        return f"{path[0]}/{rest}", (n,) + shape
+    return "/".join(str(p) for p in path), shape
+
+
+def param_specs(cfg: ArchConfig, params, mode: str):
+    """Spec tree matching the port's params tree (tensors or anything with
+    ``.shape``): each leaf's reference spec on its stacked shape."""
+    def visit(path, leaf):
+        ref_path, shape = ref_leaf(cfg, path, leaf.shape)
+        return param_partition_spec(cfg, ref_path, shape, mode)
+    return map_with_path(visit, params)
+
+
+def sanitized_param_specs(cfg: ArchConfig, params, mode: str, mesh):
+    """:func:`param_specs` repaired by :func:`sanitize_spec` on each
+    leaf's stacked shape, as the reference's ``sanitize_specs`` does."""
+    def visit(path, leaf):
+        ref_path, shape = ref_leaf(cfg, path, leaf.shape)
+        return sanitize_spec(shape, param_partition_spec(
+            cfg, ref_path, shape, mode), mesh)
+    return map_with_path(visit, params)
+
+
+def map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a tree of dicts and lists, the same
+    structure out (a path as :func:`repro_torch.utils.tree_leaves` gives
+    it)."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeSpec, mesh) -> Dict[str, Spec]:
+    """Input specs for train/prefill batches."""
+    b = _batch_axes(mesh)
+    specs: Dict[str, Spec] = {}
+    if shape.kind == "train":
+        specs["targets"] = (b, None)
+        if cfg.input_mode == "embeds" and not cfg.is_encoder_decoder:
+            specs["embeds"] = (b, None, None)
+        else:
+            specs["tokens"] = (b, None)
+        if cfg.is_encoder_decoder:
+            specs["enc_embeds"] = (b, None, None)
+    elif shape.kind == "prefill":
+        if cfg.is_encoder_decoder:
+            specs["enc_embeds"] = (b, None, None)
+            specs["tokens"] = (b, None)
+        elif cfg.input_mode == "embeds":
+            specs["embeds"] = (b, None, None)
+        else:
+            specs["tokens"] = (b, None)
+    else:
+        specs["tokens"] = (b, None)
+    return specs
+
+
+def cache_specs(cfg: ArchConfig, shape: ShapeSpec, mesh) -> Dict[str, Spec]:
+    """Decode-cache specs.  batch over (pod,data); kv heads over model.
+    For global_batch=1 (long_500k) the KV sequence dim shards over data
+    instead (flash-decoding-style context split)."""
+    b = _batch_axes(mesh)
+    B = shape.global_batch
+    seq_shard = B == 1
+    bb = None if seq_shard else b
+    sd = "data" if (seq_shard and "data" in mesh.axis_names) else None
+    specs: Dict[str, Spec] = {"lengths": (bb,)}
+    if cfg.family == "ssm":
+        specs["conv"] = (None, bb, None, "model")
+        specs["ssm"] = (None, bb, "model", None, None)
+    elif cfg.family == "hybrid":
+        specs["k"] = (None, bb, sd, "model", None)
+        specs["v"] = (None, bb, sd, "model", None)
+        specs["conv"] = (None, None, bb, None, "model")
+        specs["ssm"] = (None, None, bb, "model", None, None)
+    else:
+        specs["k"] = (None, bb, sd, "model", None)
+        specs["v"] = (None, bb, sd, "model", None)
+        if cfg.is_encoder_decoder:
+            specs["xk"] = (None, bb, None, "model", None)
+            specs["xv"] = (None, bb, None, "model", None)
+    return specs
+
+
+def _astuple(a):
+    if a is None:
+        return ()
+    return tuple(a) if isinstance(a, (tuple, list)) else (a,)
+
+
+def sanitize_spec(shape: tuple, spec: Spec, mesh) -> Spec:
+    """Repair a spec for jit-boundary divisibility.
+
+    GSPMD pads *internal* ops but jit inputs must divide evenly.  Axes that
+    don't divide their dim are re-homed onto the largest dim where they do
+    (e.g. kv_heads=8 on a 16-way ``model`` axis falls through to the KV
+    *sequence* dim -> flash-decoding-style context sharding; a non-multiple
+    vocab moves its axis to d_model).  Axes that fit nowhere are dropped
+    (replicated).
+    """
+    sizes = _mesh_sizes(mesh)
+    dims = [list(_astuple(spec[i])) if i < len(spec) else []
+            for i in range(len(shape))]
+    orphans = []
+    for i, axes in enumerate(dims):
+        keep = []
+        for ax in axes:
+            factor = int(np.prod([sizes[a] for a in keep + [ax]]))
+            if shape[i] % factor == 0:
+                keep.append(ax)
+            else:
+                orphans.append(ax)
+        dims[i] = keep
+    for ax in orphans:
+        order = sorted(range(len(shape)), key=lambda i: -shape[i])
+        for i in order:
+            factor = int(np.prod([sizes[a] for a in dims[i] + [ax]]))
+            if shape[i] >= factor and shape[i] % factor == 0:
+                dims[i].append(ax)
+                break
+    return tuple(tuple(d) if len(d) > 1 else (d[0] if d else None)
+                 for d in dims)
+
+
+def sanitize_specs(shape_tree, spec_tree, mesh):
+    """Tree-wide sanitize over dicts of shapes (tuples) and specs."""
+    return {k: sanitize_spec(tuple(shape_tree[k]), spec_tree[k], mesh)
+            for k in spec_tree if k in shape_tree}
+
+
+# ------------------------------------------------------------ rank blocks
+
+def local_shape(shape, spec: Spec, mesh: Mesh) -> tuple:
+    """The shape of one rank's block of a leaf of ``shape`` by ``spec``
+    (a stacked spec's leading entries split the leading dims of a stacked
+    ``shape``, or are dropped for a per-layer one)."""
+    sizes = mesh.sizes
+    out = []
+    for n, axes in zip(shape, _entries(spec, len(shape))):
+        parts = math.prod(sizes[a] for a in axes)
+        if n % parts:
+            raise ValueError(f"dim {n} does not split {parts} ways "
+                             f"({spec} on {mesh.describe()})")
+        out.append(n // parts)
+    return tuple(out)
+
+
+def shard_leaf(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of the whole leaf ``t`` by ``spec`` (a copy).  A
+    per-layer leaf whose stacked spec splits the layer stack raises: the
+    port keeps every layer on every rank."""
+    extra = len(spec) - t.dim()
+    if extra > 0 and any(_as_tuple(e) for e in spec[:extra]):
+        raise ValueError(f"spec {spec} splits the layer stack of a leaf "
+                         f"of shape {tuple(t.shape)} on {mesh.describe()}")
+    from repro_torch.distributed.ctx import block_region
+    region = block_region(mesh, tuple(t.shape), spec, mesh.coords)
+    return t[tuple(slice(a, b) for a, b in region)].clone()
+
+
+def shard_params(params, specs, mesh: Mesh):
+    """:func:`shard_leaf` over a tree of whole leaves and its spec tree."""
+    return zip_map(lambda t, s: shard_leaf(t, s, mesh), params, specs)
+
+
+def spec_at(specs, path):
+    """The spec at ``path`` (a tuple of keys and list indices, as
+    :func:`repro_torch.utils.tree_leaves` gives it) of a spec tree."""
+    for p in path:
+        specs = specs[p]
+    return specs
+
+
+def split_axes(spec: Spec, ndim: int, mesh: Mesh) -> Tuple[str, ...]:
+    """The axes of more than one rank that ``spec`` splits a leaf of
+    ``ndim`` dims over (its blocks are disjoint over their ranks)."""
+    own = _entries(spec, ndim)
+    return tuple(a for a in mesh.axis_names
+                 if mesh.sizes[a] > 1 and any(a in e for e in own))
+
+
+def zip_map(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of leaves and its spec tree."""
+    return map_with_path(lambda path, t: fn(t, spec_at(specs, path)), tree)

@@ -1,0 +1,313 @@
+"""Multi-pod dry run of the port: every (architecture x input-shape) cell on
+the production meshes, with no device and no process group, recording
+per-rank memory, the H100 roofline and per-rank collectives.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--shape S]
+        [--mesh single|multi|both] [--out runs/dryrun.jsonl] [--force]
+
+The reference (``repro.launch.dryrun``) compiles each cell through XLA's
+SPMD partitioner and parses the collectives out of the HLO.  The port has
+no partitioner: a rank runs its own block of the computation.  So for each
+cell it
+
+- sums each rank's bytes of parameters, AdamW state, cache and batch from
+  the sanitized specs (:mod:`repro_torch.distributed.sharding`);
+- takes FLOPs and HBM bytes from ``roofline.cell_cost``, the reference's
+  own analytic route, against the H100's peak rates;
+- runs one rank's step (``Model.prefill``, ``Model.decode_step`` or the
+  train step) on meta tensors under a *dry* mesh, whose collectives
+  (:mod:`repro_torch.distributed.ctx`, the same helpers a real run calls)
+  record their kind and operand bytes without communicating: it counts the
+  code that runs, as the reference parses the HLO it compiled.
+
+A cell the port cannot execute sharded (the ``ssm``, hybrid and
+encoder-decoder families, heads the ``model`` axis would split inside,
+the ``long_500k`` cell whose KV sequence the spec splits over ``data``)
+records its memory and roofline with ``"collectives": null`` and the
+reason.  Results append to a JSONL file, so the sweep is resumable.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import time
+import traceback
+from pathlib import Path
+
+import torch
+
+from repro_torch.configs import ASSIGNED_ARCHS, get_config
+from repro_torch.distributed.ctx import Mesh
+from repro_torch.distributed.sharding import (batch_specs, cache_specs,
+                                              local_shape, ref_leaf,
+                                              sanitize_specs,
+                                              sanitized_param_specs,
+                                              spec_at, zip_map)
+from repro_torch.launch import roofline
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models.config import SHAPES, cell_is_supported
+from repro_torch.models.model import SHARDING_ITEM, Model
+from repro_torch.utils import dtype_of, tree_leaves
+
+_COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                "collective-permute")
+
+
+def _model_for(cfg, opt: dict, mesh=None) -> Model:
+    # 1024-wide attention chunks, as the reference's dry run
+    return Model(cfg, attn_chunk=opt.get("attn_chunk", 1024), ssd_chunk=256,
+                 kv_dtype=opt.get("kv_dtype", "bfloat16"),
+                 moe_groups=opt.get("moe_groups", 1),
+                 pad_experts_to=opt.get("pad_experts_to", 0), mesh=mesh,
+                 device="meta")
+
+
+def input_shapes(cfg, shape, model: Model) -> dict:
+    """``{name: (shape, dtype)}`` of every input of the cell, as the
+    reference's ``Model.input_specs`` (the decode cell's ``cache`` a dict
+    of its own)."""
+    B, S = shape.global_batch, shape.seq_len
+    D, dt, i32 = cfg.d_model, model.dtype, torch.int32
+    if shape.kind == "train":
+        batch = {"targets": ((B, S), i32)}
+        if cfg.input_mode == "embeds" and not cfg.is_encoder_decoder:
+            batch["embeds"] = ((B, S, D), dt)
+        else:
+            batch["tokens"] = ((B, S), i32)
+        if cfg.is_encoder_decoder:
+            batch["enc_embeds"] = ((B, S, D), dt)
+        return batch
+    if shape.kind == "prefill":
+        if cfg.is_encoder_decoder:
+            return {"enc_embeds": ((B, S, D), dt), "tokens": ((B, 1), i32)}
+        if cfg.input_mode == "embeds":
+            return {"embeds": ((B, S, D), dt)}
+        return {"tokens": ((B, S), i32)}
+    return {"tokens": ((B, 1), i32), "cache": model.cache_shapes(B, S)}
+
+
+def _bytes(shapes: dict, specs: dict, mesh: Mesh) -> int:
+    return sum(math.prod(local_shape(s, specs[k], mesh))
+               * torch.empty((), dtype=dt).element_size()
+               for k, (s, dt) in shapes.items())
+
+
+def param_bytes(cfg, whole, mode: str, mesh: Mesh):
+    """Per-rank bytes of the params (and, in ``train`` mode, of the f32
+    AdamW moments ``m`` and ``v``), summed over the reference's stacked
+    leaves by their sanitized specs."""
+    specs = sanitized_param_specs(cfg, whole, mode, mesh)
+    stacked = {}
+    for path, t in tree_leaves(whole):
+        ref, shape = ref_leaf(cfg, path, t.shape)
+        stacked[ref] = (shape, spec_at(specs, path), t.element_size())
+    p = sum(math.prod(local_shape(s, spec, mesh)) * item
+            for s, spec, item in stacked.values())
+    m = sum(math.prod(local_shape(s, spec, mesh)) * 4
+            for s, spec, _ in stacked.values())
+    return p, (2 * m + 4 if mode == "train" else 0)
+
+
+def _refusal(cfg, shape, mesh, cspec, opt) -> str:
+    """Why the port cannot run this cell sharded ('' when it can)."""
+    try:
+        Model._check_mesh(cfg, mesh, opt.get("pad_experts_to", 0))
+    except ValueError as e:
+        return str(e)
+    if cspec and any(cspec.get(k, (None,) * 5)[2] for k in ("k", "v")):
+        return (f"{cfg.name} {shape.name}: the spec splits the KV sequence "
+                f"over 'data' (the flash-decoding context split), which "
+                f"waits in {SHARDING_ITEM}")
+    return ""
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def run_rank_step(cfg, shape, mesh: Mesh, opt: dict, whole) -> dict:
+    """One rank's step of the cell on meta tensors under the dry ``mesh``:
+    its collectives' kinds, counts and operand bytes (per rank)."""
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    mesh.records.clear()
+    model = _model_for(cfg, opt, mesh)
+    mode = "train" if shape.kind == "train" else "serving"
+    model._check_layout(mode)
+    specs = model.specs(mode)
+    params = zip_map(lambda t, s: _meta(local_shape(t.shape, s, mesh),
+                                        t.dtype), whole, specs)
+    one = _model_for(cfg, opt)
+    ins = input_shapes(cfg, shape, one)
+    shapes_b = {k: v for k, v in ins.items() if k != "cache"}
+    bspec = sanitize_specs({k: s for k, (s, _) in shapes_b.items()},
+                           batch_specs(cfg, shape, mesh), mesh)
+    batch = {k: _meta(local_shape(s, bspec[k], mesh), dt)
+             for k, (s, dt) in shapes_b.items()}
+    if shape.kind == "train":
+        for _, p in tree_leaves(params):
+            p.requires_grad_(True)
+        state = {"params": params, **init_opt_state(params)}
+        make_train_step(model)(state, batch)
+    elif shape.kind == "prefill":
+        model.prefill(params, batch)
+    else:
+        cache_sh = ins["cache"]
+        cspec = sanitize_specs({k: s for k, (s, _) in cache_sh.items()},
+                               cache_specs(cfg, shape, mesh), mesh)
+        cache = {k: _meta(local_shape(s, cspec[k], mesh), dt)
+                 for k, (s, dt) in cache_sh.items()}
+        model.decode_step(params, cache, batch["tokens"])
+    per_kind = {k: 0 for k in _COLLECTIVES}
+    counts = {k: 0 for k in _COLLECTIVES}
+    for r in mesh.records:
+        per_kind[r["kind"]] += r["bytes"]
+        counts[r["kind"]] += 1
+    return {"per_kind_bytes": per_kind, "counts": counts,
+            "per_device_bytes": sum(per_kind.values())}
+
+
+def dry_cell(arch: str, shape_name: str, mesh: Mesh, *, opt: dict = None,
+             cfg=None) -> dict:
+    """The record of one cell on the dry ``mesh`` (rank 0's view)."""
+    opt = opt or {}
+    cfg = cfg or get_config(arch)
+    shape = SHAPES[shape_name]
+    chips = mesh.size
+    t0 = time.time()
+    one = _model_for(cfg, opt)
+    whole = one.init(torch.Generator())
+    mode = "train" if shape.kind == "train" else "serving"
+    p_bytes, opt_bytes = param_bytes(cfg, whole, mode, mesh)
+    ins = input_shapes(cfg, shape, one)
+    bspec = batch_specs(cfg, shape, mesh)
+    shapes_b = {k: v for k, v in ins.items() if k != "cache"}
+    b_bytes = _bytes(shapes_b, sanitize_specs(
+        {k: s for k, (s, _) in shapes_b.items()}, bspec, mesh), mesh)
+    c_bytes, cspec = 0, None
+    if "cache" in ins:
+        cs = ins["cache"]
+        cspec = sanitize_specs({k: s for k, (s, _) in cs.items()},
+                               cache_specs(cfg, shape, mesh), mesh)
+        c_bytes = _bytes(cs, cspec, mesh)
+    kv_bytes = dtype_of(opt.get("kv_dtype", "bfloat16")).itemsize
+    cost = roofline.cell_cost(cfg, shape, attn_chunk=opt.get(
+        "attn_chunk", 1024), kv_bytes=kv_bytes)
+    reason = _refusal(cfg, shape, mesh, cspec, opt)
+    coll = None if reason else run_rank_step(cfg, shape, mesh, opt, whole)
+    flops_dev, bytes_dev = cost.flops / chips, cost.hbm_bytes / chips
+    coll_dev = coll["per_device_bytes"] if coll else 0
+    terms = roofline.roofline_terms(cfg, shape, chips, coll_dev,
+                                    kv_bytes=kv_bytes,
+                                    attn_chunk=opt.get("attn_chunk", 1024))
+    if coll is None:
+        terms["collective_s"] = None
+    return {
+        "arch": arch, "shape": shape_name,
+        "mesh": "x".join(str(s) for s in mesh.shape), "chips": chips,
+        "device": roofline.DEVICE, "opt": opt,
+        "memory": {"param_bytes": p_bytes, "opt_state_bytes": opt_bytes,
+                   "cache_bytes": c_bytes, "batch_bytes": b_bytes,
+                   "total_bytes": p_bytes + opt_bytes + c_bytes + b_bytes},
+        "cost": {"flops_per_device": flops_dev,
+                 "bytes_per_device": bytes_dev},
+        "collectives": coll,
+        "collectives_reason": reason or None,
+        "roofline": terms,
+        "step_s": round(time.time() - t0, 2),
+    }
+
+
+def run_cells(archs, shapes, meshes, out_path: Path, force: bool = False,
+              opt: dict = None):
+    opt = opt or {}
+    opt_key = json.dumps(opt, sort_keys=True)
+    done = set()
+    if out_path.exists() and not force:
+        for line in out_path.read_text().splitlines():
+            try:
+                r = json.loads(line)
+                done.add((r["arch"], r["shape"], r["mesh"],
+                          json.dumps(r.get("opt") or {}, sort_keys=True)))
+            except Exception:
+                pass
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    mesh_objs = {}
+    if "single" in meshes:
+        mesh_objs["16x16"] = make_production_mesh(multi_pod=False)
+    if "multi" in meshes:
+        mesh_objs["2x16x16"] = make_production_mesh(multi_pod=True)
+
+    with out_path.open("a") as fh:
+        for arch in archs:
+            cfg = get_config(arch)
+            for shape_name in shapes:
+                ok, reason = cell_is_supported(cfg, SHAPES[shape_name])
+                for mesh_name, mesh in mesh_objs.items():
+                    key = (arch, shape_name, mesh_name, opt_key)
+                    if key in done:
+                        print(f"[skip-cached] {key}")
+                        continue
+                    if not ok:
+                        rec = {"arch": arch, "shape": shape_name,
+                               "mesh": mesh_name, "skipped": True,
+                               "reason": reason, "opt": opt}
+                        fh.write(json.dumps(rec) + "\n")
+                        fh.flush()
+                        print(f"[skip] {arch} {shape_name}: {reason}")
+                        continue
+                    print(f"[dry] {arch} {shape_name} {mesh_name} opt={opt} "
+                          "...", flush=True)
+                    t0 = time.time()
+                    try:
+                        rec = dry_cell(arch, shape_name, mesh, opt=opt)
+                        rec["wall_s"] = round(time.time() - t0, 1)
+                        coll = rec["collectives"]
+                        print(f"  ok in {rec['wall_s']}s "
+                              f"dominant={rec['roofline']['dominant']} "
+                              f"collectives="
+                              f"{coll['per_device_bytes'] if coll else None}",
+                              flush=True)
+                    except Exception as e:
+                        rec = {"arch": arch, "shape": shape_name,
+                               "mesh": mesh_name, "error": str(e)[:2000],
+                               "traceback": traceback.format_exc()[-4000:],
+                               "opt": opt, "wall_s": round(time.time() - t0, 1)}
+                        print(f"  FAILED: {e}", flush=True)
+                    fh.write(json.dumps(rec) + "\n")
+                    fh.flush()
+
+
+def _parse_opt(s: str) -> dict:
+    out = {}
+    if not s:
+        return out
+    for kv in s.split(","):
+        k, v = kv.split("=")
+        try:
+            out[k] = int(v)
+        except ValueError:
+            out[k] = v if v not in ("true", "false") else (v == "true")
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="both", choices=["single", "multi", "both"])
+    ap.add_argument("--out", default="runs/dryrun.jsonl")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--opt", default="", help="k=v,... perf-variant options "
+                    "(kv_dtype, moe_groups, pad_experts_to, attn_chunk)")
+    args = ap.parse_args(argv)
+    archs = [args.arch] if args.arch else list(ASSIGNED_ARCHS)
+    shapes = [args.shape] if args.shape else list(SHAPES)
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    run_cells(archs, shapes, meshes, Path(args.out), force=args.force,
+              opt=_parse_opt(args.opt))
+
+
+if __name__ == "__main__":
+    main()

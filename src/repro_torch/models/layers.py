@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.ctx import (axis_index, copy_to, gather_counts,
+                                        reduce_from)
 from repro_torch.kernels.flash_prefill import FlashPrefill
 from repro_torch.kernels.fused_rmsnorm import (FusedRMSNorm, fused_rmsnorm,
                                                rmsnorm_ref)
@@ -101,16 +103,20 @@ def init_attention(cfg: ArchConfig, gen, dtype, device=None):
 
 
 def _project_qkv(cfg: ArchConfig, p, x, positions, rope: bool = True):
+    """q (B, S, H, hd), k and v (B, S, KVH, hd) of x (B, S, D); the head
+    counts are the projections' (a rank's H/m and KVH/m under tensor
+    parallelism, whose column-parallel products take ``copy_to(x)``)."""
     B, S, _ = x.shape
-    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    hd = cfg.hd
+    x = copy_to(x, "model")
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KVH, hd)
-    v = v.reshape(B, S, KVH, hd)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if rope:
         pos = positions[:, None, :]
         q = apply_rope(q.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
@@ -240,9 +246,13 @@ def _act(cfg: ArchConfig, h, g=None):
 
 
 def apply_ffn(cfg: ArchConfig, p, x):
+    """The dense FFN.  Under tensor parallelism ``wi``/``wg`` hold a
+    rank's columns and ``wo`` its rows: the product of the rank's d_ff/m
+    is a partial sum, all-reduced over ``model``."""
+    x = copy_to(x, "model")
     h = x @ p["wi"]
     g = x @ p["wg"] if cfg.act == "swiglu" else None
-    return _act(cfg, h, g) @ p["wo"]
+    return reduce_from(_act(cfg, h, g) @ p["wo"], "model")
 
 
 # --------------------------------------------------------------------- MoE
@@ -282,7 +292,9 @@ def _route(cfg: ArchConfig, p, xf):
     masked to -1e30), top-k, weights renormalised to sum 1.  Returns
     ``(gate_w, gate_idx, aux_loss, E_alloc)``; the aux loss is the
     load-balancing term ``E * sum(density * mean prob)``, density counted
-    on each token's first choice."""
+    on each token's first choice.  On a mesh whose batch axes split the
+    tokens both means are over every rank's tokens (equal counts a
+    rank), as the whole batch's."""
     E = cfg.num_experts
     logits = xf.float() @ p["router"]
     E_alloc = logits.shape[-1]
@@ -295,28 +307,40 @@ def _route(cfg: ArchConfig, p, xf):
     lead = tuple(range(gate_idx.dim() - 1))
     density = _onehot(gate_idx[..., 0], E_alloc).mean(dim=lead)
     density_proxy = probs.mean(dim=lead)
+    nb = axis_index("batch")[1]
+    if nb > 1:
+        density = reduce_from(density, "batch") / nb
+        density_proxy = reduce_from(density_proxy, "batch") / nb
     aux_loss = E * torch.sum(density * density_proxy)
     return gate_w, gate_idx, aux_loss, E_alloc
 
 
-def _dispatch_plan(flat_idx, E_alloc: int, capacity: int):
+def _dispatch_plan(flat_idx, E_alloc: int, capacity: int, before=None,
+                   limit=None):
     """Each flat ``(token, k)`` assignment's destination row and whether it
     was kept: in token-major order an assignment takes the next free of
     its expert's ``capacity`` rows (position by a cumsum over a float32
     one-hot, as the reference counts); past capacity it goes to the drop
-    row ``E_alloc * capacity``.  flat_idx: (G, T*K).  Returns ``(dest,
+    row ``E_alloc * capacity``.  flat_idx: (G, T*K).  Where the group's
+    earlier tokens lie on other ranks, ``before`` (E_alloc,) counts their
+    assignments to each expert; ``limit`` (default ``capacity``) is the
+    group's capacity: an assignment is kept while its position in the
+    whole group is below ``limit``, and takes its row by its position
+    here.  Returns ``(dest,
     keep)``, int64 and bool (G, T*K)."""
     onehot = _onehot(flat_idx, E_alloc)                          # (G,TK,E)
     pos_in_e = ((torch.cumsum(onehot, dim=1) * onehot).sum(-1)
                 - 1.0).to(torch.int64)
-    keep = pos_in_e < capacity
+    ahead = pos_in_e if before is None else pos_in_e + before[flat_idx]
+    keep = ahead < (capacity if limit is None else limit)
     dest = torch.where(keep, flat_idx * capacity + pos_in_e,
                        torch.full_like(flat_idx, E_alloc * capacity))
     return dest, keep
 
 
 def _dispatch_compute_combine(cfg, p, xg, gate_w, gate_idx, E_alloc,
-                              capacity, experts=None):
+                              capacity, experts=None, before=None,
+                              limit=None):
     """Grouped capacity dispatch (:func:`_dispatch_plan` per group), the
     held experts as one batched product over (E_held, capacity) rows (so
     every held expert's weights are read), and the combine: each token's
@@ -326,7 +350,9 @@ def _dispatch_compute_combine(cfg, p, xg, gate_w, gate_idx, E_alloc,
     plan is the whole layer's (every expert's capacity counted over every
     assignment, in token-major order), and an assignment to an expert
     outside ``[lo, hi)`` contributes 0 here, as it would on the device
-    that holds its expert.
+    that holds its expert.  ``before`` and ``limit``: the group's
+    assignments on earlier ranks and its capacity (:func:`_dispatch_plan`;
+    ``capacity`` sizes the rows).
 
     xg: (G, Tg, D); gate_*: (G, Tg, K).  Returns ``(y (G, Tg, D) in xg's
     dtype, keep (G, Tg*K) bool)``, ``keep`` over every expert.  Every
@@ -335,9 +361,11 @@ def _dispatch_compute_combine(cfg, p, xg, gate_w, gate_idx, E_alloc,
     G, Tg, D = xg.shape
     K = cfg.top_k
     lo, hi = experts or (0, E_alloc)
+    xg = copy_to(xg, "model")           # the experts' input (EP: a share)
+    gate_w = copy_to(gate_w, "model")
     rows = (hi - lo) * capacity            # the held experts' rows
     flat_idx = gate_idx.reshape(G, Tg * K)
-    dest, keep = _dispatch_plan(flat_idx, E_alloc, capacity)
+    dest, keep = _dispatch_plan(flat_idx, E_alloc, capacity, before, limit)
     held = keep & (flat_idx >= lo) & (flat_idx < hi)
     dest = torch.where(held, dest - lo * capacity, torch.full_like(dest, rows))
     xk = xg[:, :, None, :].expand(G, Tg, K, D).reshape(G, Tg * K, D)
@@ -368,6 +396,17 @@ def moe_capacity(cfg: ArchConfig, tokens: int) -> int:
                    / cfg.num_experts), 1)
 
 
+def _earlier(flat_idx, E_alloc: int, span: int):
+    """(E_alloc,) assignments to each expert made on the earlier ranks of
+    this rank's dispatch group, which spans ``span`` consecutive ranks of
+    the batch axes: each rank's counts all-gathered over them."""
+    counts = _onehot(flat_idx, E_alloc).sum(dim=(0, 1)).to(torch.int64)
+    every = gather_counts(counts, "batch")                     # (nb, E)
+    me = axis_index("batch")[0]
+    first = me - me % span
+    return every[first:me].sum(dim=0)
+
+
 def apply_moe(cfg: ArchConfig, p, x, *, groups: int = 1, tap=None,
               experts=None):
     """Capacity-based top-k MoE (GShard): x (B, S, D) -> ``(y (B, S, D),
@@ -383,6 +422,18 @@ def apply_moe(cfg: ArchConfig, p, x, *, groups: int = 1, tap=None,
     assignment's position and the aux loss are the whole layer's, and
     only the held experts' products are computed and combined, so the
     shares of a partition of the experts sum to the whole layer's output.
+    Under a mesh (expert parallelism over ``model``, tokens replicated
+    across it) that sum is the exchange: the shares' combines are
+    all-reduced over ``model``; outside one a share's absent experts add
+    0.  On a mesh whose batch axes split the tokens over ``nb`` ranks
+    (each rank's rows consecutive, in rank order), ``x`` is a rank's
+    tokens and the groups, capacities and positions stay the whole
+    batch's: with ``groups`` a multiple of ``nb`` a rank's tokens are
+    ``groups / nb`` whole groups; with ``groups`` dividing ``nb`` a group
+    spans ``nb / groups`` ranks, and each assignment's position in it
+    counts the earlier ranks' assignments (an all-gather of per-expert
+    counts, :func:`_earlier`); any other pair raises.  The aux term is
+    over every rank's tokens.
 
     ``tap``, when given, is called as ``tap(x.shape, gate_idx, keep)``
     with the (G, Tg, K) expert choices and the (G, Tg*K) bool kept mask,
@@ -390,13 +441,27 @@ def apply_moe(cfg: ArchConfig, p, x, *, groups: int = 1, tap=None,
     decisions, drop shares) that a captured graph does not call."""
     B, S, D = x.shape
     T = B * S
-    G = groups if (groups > 1 and T % groups == 0) else 1
+    nb = axis_index("batch")[1]
+    G = groups if (groups > 1 and T * nb % groups == 0) else 1
+    if G % nb and nb % G:
+        raise ValueError(f"{groups} MoE dispatch groups over {nb} batch "
+                         f"ranks: neither divides the other")
+    span = nb // G if G < nb else 1         # ranks a group spans
+    G = max(G // nb, 1)                     # this rank's groups
     Tg = T // G
     xg = x.reshape(G, Tg, D)
     gate_w, gate_idx, aux_loss, E_alloc = _route(cfg, p, xg)
+    limit = moe_capacity(cfg, Tg * span)    # the whole group's capacity
+    before, rows = None, limit
+    if span > 1:      # a rank's own positions stay below its Tg tokens
+        before = _earlier(gate_idx.reshape(1, Tg * cfg.top_k), E_alloc,
+                          span)
+        rows = min(limit, Tg)
     y, keep = _dispatch_compute_combine(cfg, p, xg, gate_w, gate_idx,
-                                        E_alloc, moe_capacity(cfg, Tg),
-                                        experts)
+                                        E_alloc, rows, experts, before,
+                                        limit)
+    if experts is not None:
+        y = reduce_from(y, "model")     # the exchange: sum of the shares
     if tap is not None:
         tap(tuple(x.shape), gate_idx, keep)
     return y.reshape(B, S, D), aux_loss

@@ -28,18 +28,24 @@ and returns only the logits.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from repro_torch.distributed import ctx as C
+from repro_torch.distributed.sharding import (map_with_path,
+                                              sanitized_param_specs,
+                                              shard_params, spec_at)
 from repro_torch.kernels.flash_prefill import flash_prefill_prefix
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models.config import ArchConfig
 from repro_torch.serving.sampler import sample_and_reason, verify_and_reason
-from repro_torch.utils import dtype_of, resolve_device, tree_map
+from repro_torch.utils import (dtype_of, resolve_device, tree_leaves,
+                               tree_map)
 
 Params = Dict[str, Any]
 
@@ -80,6 +86,50 @@ def expert_range(cfg: ArchConfig, expert_shard=(0, 1)):
         raise ValueError(f"expert_shard={expert_shard} does not split "
                          f"{E} experts into equal shares")
     return index * E // count, (index + 1) * E // count
+
+
+SHARDING_ITEM = "ROADMAP.md Queue 1 item 5"
+
+
+def _sharded(method):
+    """An entry point that runs over the model's mesh: its collectives
+    resolve against ``self.mesh`` (identity without one)."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with C.mesh_context(self.mesh):
+            return method(self, *args, **kwargs)
+    return run
+
+
+def _one_rank(method):
+    """An entry point that runs on one rank only: the reference never
+    shards the engine's calls (paged and chunk entries, packs, verify)."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        if self.mesh is not None and self.mesh.size > 1:
+            raise ValueError(
+                f"{method.__name__} does not run sharded "
+                f"({self.mesh.describe()}); sharded engine calls wait in "
+                f"{SHARDING_ITEM}")
+        return method(self, *args, **kwargs)
+    return run
+
+
+class _Gathered:
+    """A layer list whose layers pass through ``fn(index, layer)`` as they
+    are reached (the FSDP gather of a layer just before its use)."""
+
+    def __init__(self, layers, fn):
+        self.layers, self.fn = layers, fn
+
+    def __len__(self):
+        return len(self.layers)
+
+    def __getitem__(self, i):
+        return self.fn(i, self.layers[i])
+
+    def __iter__(self):
+        return (self.fn(i, p) for i, p in enumerate(self.layers))
 
 
 def _scalar(v, device) -> torch.Tensor:
@@ -150,7 +200,7 @@ def _last_writer(write_page, write_off) -> torch.Tensor:
 class Model:
     """Attention-family decoder (dense or MoE FFN), encoder-decoder,
     Mamba-2 or hybrid stack: pure functions over explicit params, on one
-    device.
+    device or as one rank of a mesh (``mesh``).
 
     ``use_kernels`` (default True) sends every RMSNorm, the SSD chunk step
     and the training loss's full-sequence attention to their kernels (CUDA
@@ -164,25 +214,52 @@ class Model:
     the single-token decode steps (which use one group, as the
     reference's), and padding experts the router never picks.
     ``moe_tap`` (None) is passed to every MoE call as ``apply_moe``'s
-    measurement hook.  ``expert_shard=(index, count)`` (default ``(0,
-    1)``: every expert) holds the ``index``-th of ``count`` equal shares
+    measurement hook.  ``expert_shard=(index, count)`` (default: every
+    expert; on a mesh the mesh sets it) holds the ``index``-th of
+    ``count`` equal shares
     of every MoE layer's experts (:func:`expert_range`), the device-local
     half of the reference's expert parallelism: routing, capacity and
     the aux loss stay the whole layer's, and an assignment to an expert
     held elsewhere adds 0 (no exchange with the other shares is made).
+
+    ``mesh`` (a :class:`repro_torch.distributed.ctx.Mesh`, default None:
+    one device) makes this the model of one rank of the reference's
+    sharded execution (``distributed/sharding.py``): Megatron tensor
+    parallelism over the ``model`` axis (H/m query heads, KVH/m KV heads
+    and d_ff/m of the FFN a rank; each ``wo`` product followed by the
+    ``model`` all-reduce), expert parallelism (the rank's ``model``
+    coordinate sets ``expert_shard``, and the shares' outputs are summed
+    over ``model``: the exchange), the batch over (``pod``, ``data``).
+    :meth:`prefill` and :meth:`decode_step` take the rank's block of the
+    serving-mode params (:meth:`shard`), its rows of the batch and its
+    heads of the cache; :meth:`loss` takes the train-mode (FSDP x TP)
+    blocks and gathers each layer's ``data`` shards just before its use.
+    :meth:`init` draws the whole model.  Only the attention family runs
+    sharded, and only where the spec keeps heads whole; the other entry
+    points, and the ``ssm``, hybrid and encoder-decoder families, raise on
+    a mesh of more than one rank.
     """
 
     def __init__(self, cfg: ArchConfig, *, kv_dtype: str = "bfloat16",
                  chunk_attn_impl: str = "masked", attn_chunk: int = 1024,
                  ssd_chunk: int = 256, use_kernels: bool = True,
                  moe_groups: int = 1, pad_experts_to: int = 0,
-                 expert_shard=(0, 1), device=None):
+                 expert_shard=None, mesh=None, device=None):
         if chunk_attn_impl not in ("masked", "flash"):
             raise ValueError(f"chunk_attn_impl={chunk_attn_impl!r} "
                              "(want 'masked' or 'flash')")
         if cfg.family == "hybrid":
             hybrid_groups(cfg)
-        self.experts = expert_range(cfg, expert_shard)
+        self.mesh = mesh
+        self._layouts = {}
+        if mesh is not None:
+            if expert_shard is not None:
+                raise ValueError("the mesh sets expert_shard: pass one")
+            m = mesh.sizes.get("model", 1)
+            expert_shard = (mesh.coord("model"), m) if cfg.has_moe \
+                else (0, 1)
+            self._check_mesh(cfg, mesh, pad_experts_to)
+        self.experts = expert_range(cfg, expert_shard or (0, 1))
         if self.experts is not None and pad_experts_to:
             raise ValueError("expert_shard and pad_experts_to do not combine")
         self.cfg = cfg
@@ -199,6 +276,98 @@ class Model:
 
     def _norm(self, p, x):
         return L.apply_norm(self.cfg, p, x, use_kernel=self.use_kernels)
+
+    # ---------------------------------------------------------------- mesh
+    @staticmethod
+    def _check_mesh(cfg: ArchConfig, mesh, pad_experts_to: int) -> None:
+        """Refuse what the port cannot execute on ``mesh``: a family other
+        than the attention family's, heads or experts that the ``model``
+        axis does not split whole (the reference's spec would split inside
+        a head, or re-home the axis), and padding experts."""
+        if mesh.size == 1:
+            return
+        where = f"{cfg.name} on a mesh of {mesh.describe()}"
+        if cfg.family in ("ssm", "hybrid") or cfg.is_encoder_decoder:
+            raise ValueError(
+                f"{where}: the {cfg.family} family "
+                f"(encoder-decoder={cfg.is_encoder_decoder}) does not run "
+                f"sharded; it waits in {SHARDING_ITEM}")
+        m = mesh.sizes.get("model", 1)
+        H, KVH = cfg.num_heads, cfg.num_kv_heads
+        if H % m or KVH % m:
+            raise ValueError(
+                f"{where}: {KVH} KV heads and {H} query heads do not split "
+                f"whole over the 'model' axis of {m}; the reference's spec "
+                f"splits inside a head, which the port does not execute")
+        if cfg.has_moe and (cfg.num_experts % m or pad_experts_to):
+            raise ValueError(f"{where}: {cfg.num_experts} experts (padded "
+                             f"to {pad_experts_to}) do not split over the "
+                             f"'model' axis of {m}")
+        if cfg.d_ff % m:
+            raise ValueError(f"{where}: d_ff {cfg.d_ff} does not split "
+                             f"over the 'model' axis of {m}")
+
+    def _whole_shapes(self):
+        """The whole model's parameters as meta tensors (shapes only)."""
+        if "whole" not in self._layouts:
+            whole = Model(self.cfg, kv_dtype=self.kv_dtype,
+                          pad_experts_to=self.pad_experts_to, device="meta")
+            self._layouts["whole"] = whole.init(torch.Generator())
+        return self._layouts["whole"]
+
+    def specs(self, mode: str = "serving"):
+        """The sanitized spec of every parameter leaf on the model's mesh
+        in ``mode`` (``serving`` or ``train``), a tree of the params'
+        structure (each spec the reference's, on the stacked shape)."""
+        if mode not in self._layouts:
+            self._layouts[mode] = sanitized_param_specs(
+                self.cfg, self._whole_shapes(), mode, self.mesh)
+        return self._layouts[mode]
+
+    def shard(self, params, mode: str = "serving"):
+        """This rank's blocks of the whole ``params`` (as :meth:`init` or
+        ``params_from_numpy`` give them) by the ``mode`` specs, checking
+        that each leaf's ``model`` split is one the entry points execute
+        (:meth:`_check_layout`)."""
+        self._check_layout(mode)
+        return shard_params(params, self.specs(mode), self.mesh)
+
+    def _check_layout(self, mode: str) -> None:
+        """Every leaf's ``model`` split on the dim the port's products
+        expect: columns of ``wq``/``wk``/``wv``/``wi``/``wg``, rows of each
+        ``wo``, the expert axis of an MoE, either dim of ``embed`` and
+        ``lm_head`` (vocab or d_model), nothing else split."""
+        if self.mesh is None or self.mesh.sizes.get("model", 1) == 1:
+            return
+        want = {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
+                "wi": 1, "wg": 1, "wo": 0}
+        whole, specs = self._whole_shapes(), self.specs(mode)
+        for path, leaf in tree_leaves(whole):
+            spec = spec_at(specs, path)
+            own = C._entries(spec, leaf.dim())
+            dims = [i for i, e in enumerate(own) if "model" in e]
+            name = path[-1]
+            if name in ("embed", "lm_head"):
+                ok = len(dims) <= 1
+            elif "router" in spec_at(whole, path[:-1]):     # an MoE FFN
+                ok = dims == ([0] if name in ("wi", "wg", "wo") else [])
+            else:
+                ok = dims == ([want[name]] if name in want else [])
+            if not ok:
+                raise ValueError(
+                    f"{self.cfg.name}: {'/'.join(map(str, path))} "
+                    f"{tuple(leaf.shape)} would split over 'model' as "
+                    f"{spec} on {self.mesh.describe()}, a layout the "
+                    f"port does not execute")
+
+    def _fsdp(self, path, tree):
+        """``tree`` (a subtree of train-mode blocks at ``path``) with each
+        leaf's ``data`` shards gathered (:func:`ctx.fsdp_gather`)."""
+        whole = spec_at(self._whole_shapes(), path)
+        specs = spec_at(self.specs("train"), path)
+        return map_with_path(lambda p, t: C.fsdp_gather(
+            t, spec_at(specs, p), tuple(spec_at(whole, p).shape)),
+            tree)
 
     # ------------------------------------------------------------- params
     def init(self, generator: torch.Generator) -> Params:
@@ -247,7 +416,8 @@ class Model:
         elif ffn_kind == "moe":
             p["ln2"] = L.init_norm(cfg, cfg.d_model, dtype, dev)
             p["ffn"] = L.init_moe(cfg, generator, dtype, dev,
-                                  self.pad_experts_to, self.experts)
+                                  self.pad_experts_to,
+                                  None if self.mesh else self.experts)
         return p
 
     # --------------------------------------------------------------- embed
@@ -257,12 +427,41 @@ class Model:
         embedding rows of ``tokens``."""
         if embeds is not None:
             return embeds.to(self.dtype)
-        return params["embed"][tokens.long()]
+        emb = params["embed"]
+        V = self.cfg.vocab_size
+        if emb.shape[0] != V:            # vocab split over ``model``
+            lo = C.axis_index("model")[0] * emb.shape[0]
+            ids = tokens.long() - lo
+            inside = (ids >= 0) & (ids < emb.shape[0])
+            rows = emb[ids.clamp(0, emb.shape[0] - 1)]
+            rows = rows * inside[..., None].to(rows.dtype)
+            return C.reduce_from(rows, "model")
+        rows = emb[tokens.long()]
+        if emb.shape[1] != self.cfg.d_model:     # d_model split
+            rows = C.gather_from(rows, "model", dim=-1)
+        return rows
 
     def _logits(self, params, h):
+        """``h @ head``: the tied ``embed.T`` or ``lm_head`` (D, V).  A head
+        split by columns (the vocab) takes the replicated ``h`` and
+        all-gathers the logits; one split by rows (d_model, where the
+        reference's spec re-homes an odd vocab's axis) takes this rank's
+        columns of ``h`` and all-reduces the partial logits."""
         head = (params["embed"].T if self.cfg.tie_embeddings
                 else params["lm_head"])
+        if head.shape[1] != self.cfg.vocab_size:
+            return C.gather_from(C.copy_to(h, "model") @ head, "model",
+                                 dim=-1)
+        if head.shape[0] != self.cfg.d_model:
+            return C.reduce_from(C.split_to(h, "model", dim=-1) @ head,
+                                 "model")
         return h @ head
+
+    @staticmethod
+    def _wo(attn_flat, wo):
+        """The attention's output product: row-parallel over ``model``
+        under a mesh (this rank's heads), then the all-reduce."""
+        return C.reduce_from(attn_flat @ wo, "model")
 
     def _ffn_block(self, p_l, h, groups=None):
         """``h`` plus the layer's FFN of ``ln2(h)`` (none where ``p_l`` has
@@ -281,6 +480,7 @@ class Model:
         return h + L.apply_ffn(self.cfg, p_l["ffn"], x), None
 
     # ------------------------------------------------------------ training
+    @_sharded
     def loss(self, params, batch):
         """Mean next-token cross-entropy plus the z-loss (and the MoE aux
         term, 0 without experts) of one batch, as the reference's
@@ -288,7 +488,15 @@ class Model:
         or ``embeds`` (B, S, D), with ``enc_embeds`` (B, T, D) for an
         encoder-decoder, tensors on the model's device.  Returns ``(total,
         {"ce", "zloss", "moe_aux"})``, float32 scalars that carry the graph
-        when the params require grad."""
+        when the params require grad.
+
+        On a mesh, ``params`` are the rank's train-mode blocks and
+        ``batch`` its rows: each layer's ``data`` shards are gathered just
+        before its use (their gradients reduce-scattered in the backward)
+        and the means are over every rank's rows (the MoE's dispatch and
+        aux term over every rank's tokens, :func:`layers.apply_moe`), so
+        each rank returns the whole batch's loss."""
+        params = self._train_view(params)
         x = self._embed_in(params, batch.get("tokens"), batch.get("embeds"))
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
@@ -299,10 +507,25 @@ class Model:
         logz = torch.logsumexp(logits, dim=-1)
         tgt = torch.gather(logits, -1,
                            batch["targets"].long()[..., None])[..., 0]
-        ce = (logz - tgt).mean()
-        zloss = ZLOSS_COEF * (logz ** 2).mean()
+        nb = C.axis_index("batch")[1]
+        ce = C.reduce_from((logz - tgt).mean(), "batch") / nb
+        zloss = ZLOSS_COEF * C.reduce_from((logz ** 2).mean(), "batch") / nb
         total = ce + zloss + MOE_AUX_COEF * aux
         return total, {"ce": ce, "zloss": zloss, "moe_aux": aux}
+
+    def _train_view(self, params):
+        """``params`` (train-mode blocks) as the loss uses them: with every
+        ``data`` shard of a leaf gathered, each layer's as it is reached
+        (identity off a mesh or where the batch axes have one rank)."""
+        if self.mesh is None or C.axis_index("batch")[1] == 1:
+            return params
+        view = {k: (v if k == "layers" else
+                    self._fsdp((k,), v))
+                for k, v in params.items()}
+        view["layers"] = _Gathered(
+            params["layers"],
+            lambda i, p: self._fsdp(("layers", i), p))
+        return view
 
     def _self_attn(self, p_l, x, positions, causal: bool):
         """``x`` plus the layer's self-attention over whole sequences
@@ -314,7 +537,7 @@ class Model:
         attn = L.chunked_attention(
             self.cfg, q, k, v, causal=causal, q_chunk=self.attn_chunk,
             kv_chunk=self.attn_chunk, use_kernel=self.use_kernels)
-        return x + attn.reshape(B, S, -1) @ p_l["attn"]["wo"], k, v
+        return x + self._wo(attn.reshape(B, S, -1), p_l["attn"]["wo"]), k, v
 
     # ------------------------------------------------------------- encoder
     def _encode(self, params, enc_embeds):
@@ -363,7 +586,7 @@ class Model:
         q = (h @ p_x["xattn"]["wq"]).reshape(B, S, cfg.num_heads, cfg.hd)
         attn = L.full_attention(cfg, q, xk.to(self.dtype), xv.to(self.dtype),
                                 causal=False)
-        return x + attn.reshape(B, S, -1) @ p_x["xattn"]["wo"]
+        return x + self._wo(attn.reshape(B, S, -1), p_x["xattn"]["wo"])
 
     def _run_stack_full(self, params, x, positions, want_cache=False,
                         enc_ctx=None):
@@ -472,6 +695,7 @@ class Model:
         return L.full_attention(self.cfg, q, k_all, v_all, causal=True,
                                 q_positions=q_pos, kv_positions=kv_pos)
 
+    @_one_rank
     @torch.no_grad()
     def paged_prefill_chunk(self, params, kv, tokens, block_tables,
                             write_page, write_off, start, chunk_len):
@@ -512,7 +736,7 @@ class Model:
             kg = k_pool[tables].reshape(1, Smax, *k_pool.shape[2:])
             vg = v_pool[tables].reshape(1, Smax, *v_pool.shape[2:])
             attn = self._chunk_attn(q, kg, vg, q_pos, kv_pos, start_vec)
-            x = x + attn.reshape(1, C, -1) @ p_l["attn"]["wo"]
+            x = x + self._wo(attn.reshape(1, C, -1), p_l["attn"]["wo"])
             x, _ = self._ffn_block(p_l, x)
         return self._last_logits(params, x, chunk_len)
 
@@ -530,6 +754,7 @@ class Model:
         return self._logits(params, x_last).float()
 
     # ------------------------------------------------------- paged decode
+    @_one_rank
     @torch.no_grad()
     def paged_decode_step(self, params, kv, tokens, block_tables, lengths,
                           write_page, write_off, *,
@@ -578,7 +803,7 @@ class Model:
                 vg = v_pool[tables_l].reshape(B, n_pages * page,
                                               *v_pool.shape[2:])
                 attn = L.decode_attention(cfg, q[:, 0], kg, vg, lens1)
-            x = x + (attn.reshape(B, -1) @ p_l["attn"]["wo"])[:, None, :]
+            x = x + self._wo(attn.reshape(B, -1), p_l["attn"]["wo"])[:, None, :]
             x, _ = self._ffn_block(p_l, x, groups=1)
         x = self._norm(params["final_norm"], x[:, -1, :])
         return self._logits(params, x).float()
@@ -615,6 +840,7 @@ class Model:
         if not self.supports_spec_decode():
             raise self._unsupported("verify-k decode")
 
+    @_one_rank
     @torch.no_grad()
     def paged_decode_verify(self, params, kv, tokens, block_tables, lengths,
                             write_page, write_off):
@@ -658,7 +884,7 @@ class Model:
             kg = k_pool[tables].reshape(B, Smax, *k_pool.shape[2:])
             vg = v_pool[tables].reshape(B, Smax, *v_pool.shape[2:])
             attn = self._chunk_attn(q, kg, vg, q_pos, kv_pos, start)
-            x = x + attn.reshape(B, K1, -1) @ p_l["attn"]["wo"]
+            x = x + self._wo(attn.reshape(B, K1, -1), p_l["attn"]["wo"])
             x, _ = self._ffn_block(p_l, x)
         x = self._norm(params["final_norm"], x)
         return self._logits(params, x).float()
@@ -685,6 +911,7 @@ class Model:
             true_len=true_len)
 
     # ------------------------------------------------- monolithic prefill
+    @_sharded
     @torch.no_grad()
     def prefill(self, params, batch):
         """Process whole prompts in one pass; return (last-token logits
@@ -729,6 +956,7 @@ class Model:
                  **(enc_ctx or {})}
         return self._logits(params, x_last).float(), cache
 
+    @_one_rank
     @torch.no_grad()
     def prefill_chunk(self, params, k_stripe, v_stripe, tokens, start,
                       chunk_len):
@@ -774,7 +1002,7 @@ class Model:
                 inside, v[0, :n].to(v_l.dtype), v_l[rows]))
             attn = self._chunk_attn(q, k_l[None], v_l[None], q_pos, kv_pos,
                                     start_vec)
-            x = x + attn.reshape(1, C, -1) @ p_l["attn"]["wo"]
+            x = x + self._wo(attn.reshape(1, C, -1), p_l["attn"]["wo"])
             x, _ = self._ffn_block(p_l, x)
         return self._last_logits(params, x, chunk_len)
 
@@ -794,6 +1022,7 @@ class Model:
                 f"packed prefill unsupported for family={cfg.family} "
                 f"moe={cfg.has_moe} enc_dec={cfg.is_encoder_decoder}")
 
+    @_one_rank
     @torch.no_grad()
     def prefill_pack(self, params, k_cache, v_cache, lanes, tokens, start,
                      chunk_len):
@@ -846,10 +1075,11 @@ class Model:
             attn = self._chunk_attn(q, kg, vg, q_pos, kv_pos, start)
             k_cache[li].index_put_(dst, kg[src[:, None], rows[src]])
             v_cache[li].index_put_(dst, vg[src[:, None], rows[src]])
-            x = x + attn.reshape(N, C, -1) @ p_l["attn"]["wo"]
+            x = x + self._wo(attn.reshape(N, C, -1), p_l["attn"]["wo"])
             x, _ = self._ffn_block(p_l, x)
         return self._last_logits(params, x, chunk_len)
 
+    @_one_rank
     @torch.no_grad()
     def paged_prefill_pack(self, params, kv, tokens, block_tables,
                            write_page, write_off, start, chunk_len):
@@ -886,11 +1116,12 @@ class Model:
             kg = k_pool[tables].reshape(N, Smax, *k_pool.shape[2:])
             vg = v_pool[tables].reshape(N, Smax, *v_pool.shape[2:])
             attn = self._chunk_attn(q, kg, vg, q_pos, kv_pos, start)
-            x = x + attn.reshape(N, C, -1) @ p_l["attn"]["wo"]
+            x = x + self._wo(attn.reshape(N, C, -1), p_l["attn"]["wo"])
             x, _ = self._ffn_block(p_l, x)
         return self._last_logits(params, x, chunk_len)
 
     # ------------------------------------------------------- dense decode
+    @_sharded
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, active=None):
         """One decode iteration over the dense cache, written **in place**.
@@ -967,7 +1198,8 @@ class Model:
         if keep is not None:             # inactive lanes keep their K/V
             for (dst, src), o in zip(new, old):
                 dst[lanes, pos] = torch.where(keep, src.to(dst.dtype), o)
-        return x + (attn.reshape(B, -1) @ p_l["attn"]["wo"])[:, None, :]
+        return x + self._wo(attn.reshape(B, -1),
+                            p_l["attn"]["wo"])[:, None, :]
 
     def _ssm_decode(self, p_l, conv, ssm, x, active):
         """``x`` (B, 1, D) plus one Mamba layer's recurrent step from its
@@ -1003,6 +1235,7 @@ class Model:
             new_gen=new_gen, new_ctx=new_ctx, true_len=true_len)
         return tok, torch.where(active, reason, torch.zeros_like(reason))
 
+    @_one_rank
     @torch.no_grad()
     def decode_verify(self, params, cache, tokens, active=None):
         """Score K1 = k+1 decode positions per lane over the dense cache.
@@ -1052,7 +1285,7 @@ class Model:
                 for (dst, src), o in zip(new, old):
                     dst[lanes, rows] = torch.where(keep, src.to(dst.dtype),
                                                    o)
-            x = x + attn.reshape(B, K1, -1) @ p_l["attn"]["wo"]
+            x = x + self._wo(attn.reshape(B, K1, -1), p_l["attn"]["wo"])
             x, _ = self._ffn_block(p_l, x)
         x = self._norm(params["final_norm"], x)
         return self._logits(params, x).float()
@@ -1084,7 +1317,8 @@ class Model:
     def cache_shapes(self, batch: int, max_len: int) -> Dict[str, Any]:
         """``{key: (shape, dtype)}`` of a dense decode cache for ``batch``
         lanes of ``max_len`` positions: ``k``/``v`` (L, batch, max_len,
-        KVH, hd) in ``kv_dtype`` for the attention family, and for an
+        KVH, hd) in ``kv_dtype`` for the attention family (KVH/m on a mesh
+        whose ``model`` axis has m ranks), and for an
         encoder-decoder the cross ``xk``/``xv`` (L, batch, cross_kv_len,
         KVH, hd); for ``ssm`` the constant-size ``conv`` and ``ssm`` state
         (``max_len`` unused); for the hybrid family, per 8-layer group
@@ -1093,10 +1327,12 @@ class Model:
         cfg = self.cfg
         kvd = dtype_of(self.kv_dtype)
         n = cfg.num_layers
+        kvh = cfg.num_kv_heads // (self.mesh.sizes.get("model", 1)
+                                   if self.mesh is not None else 1)
         out: Dict[str, Any] = {"lengths": ((batch,), torch.int32)}
         if cfg.family != "ssm":
             n_kv = hybrid_groups(cfg) if cfg.family == "hybrid" else n
-            shape = (n_kv, batch, max_len, cfg.num_kv_heads, cfg.hd)
+            shape = (n_kv, batch, max_len, kvh, cfg.hd)
             out["k"] = (shape, kvd)
             out["v"] = (shape, kvd)
         if cfg.family in ("ssm", "hybrid"):

@@ -1,9 +1,10 @@
-"""Synthetic LM data pipeline: deterministic and restart-safe, the torch
-twin of ``repro.training.data`` (own copy; no mesh).
+"""Synthetic LM data pipeline: deterministic, shardable and restart-safe,
+the torch twin of ``repro.training.data`` (own copy).
 
 Batches are a pure function of (seed, step), made with numpy exactly as the
 reference makes them, so a restarted job resumes the exact data order from
-its checkpoint step and both frameworks see the same tokens.
+its checkpoint step and both frameworks see the same tokens.  With a mesh,
+each rank takes its rows over the (pod, data) axes.
 """
 from __future__ import annotations
 
@@ -51,13 +52,25 @@ class SyntheticLM:
         return {"tokens": toks[:, :-1].astype(np.int32),
                 "targets": toks[:, 1:].astype(np.int32)}
 
-    def iterate(self, start_step: int = 0,
-                device=None) -> Iterator[dict]:
+    def iterate(self, start_step: int = 0, device=None,
+                mesh=None) -> Iterator[dict]:
         """Batches from ``start_step`` on, as int32 tensors on ``device``
-        (the card unless the caller asks for another)."""
+        (the card unless the caller asks for another); with ``mesh`` this
+        rank's rows, split over its (pod, data) axes."""
         dev = resolve_device(device)
+        lo, hi = 0, self.dc.batch_size
+        if mesh is not None:
+            idx, n = 0, 1
+            for a in ("pod", "data"):
+                if a in mesh.axis_names:
+                    idx, n = idx * mesh.sizes[a] + mesh.coord(a), \
+                        n * mesh.sizes[a]
+            if self.dc.batch_size % n:
+                raise ValueError(f"batch {self.dc.batch_size} does not "
+                                 f"split over {n} ranks")
+            lo, hi = idx * hi // n, (idx + 1) * hi // n
         step = start_step
         while True:
-            yield {k: torch.from_numpy(v).to(dev)
+            yield {k: torch.from_numpy(v[lo:hi]).to(dev)
                    for k, v in self.batch_at(step).items()}
             step += 1

@@ -14,6 +14,8 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.distributed.ctx import all_reduce_sum
+from repro_torch.distributed.sharding import spec_at, split_axes
 from repro_torch.utils import tree_leaves, tree_map
 
 # the subtrees whose leaves the reference stacks on a leading layer axis
@@ -43,9 +45,21 @@ def init_opt_state(params) -> Dict[str, Any]:
                                 device=_device(params))}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for _, x in tree_leaves(tree)))
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree``.  On a mesh (``specs`` the
+    tree's specs) each leaf's squares are summed over the ranks that hold
+    its disjoint blocks, once: a leaf replicated over an axis counts one
+    copy."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for _, x in tree_leaves(tree)))
+    sums = {}
+    for path, x in tree_leaves(tree):
+        axes = split_axes(spec_at(specs, path), x.dim(), mesh)
+        sq = torch.sum(torch.square(x.float()))
+        sums[axes] = sums[axes] + sq if axes in sums else sq
+    return torch.sqrt(sum(all_reduce_sum(v, axes, mesh)
+                          for axes, v in sums.items()))
 
 
 def _schedule(cfg: AdamWConfig, step):
@@ -67,11 +81,14 @@ def decays(path, p) -> bool:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, opt_state):
+def adamw_update(cfg: AdamWConfig, params, grads, opt_state, mesh=None,
+                 specs=None):
     """One AdamW step, writing ``params`` and the moments in place.
     Returns ``(params, opt_state, metrics)`` (the same param tree, the
-    moments and the advanced step; ``grad_norm`` and ``lr``)."""
-    gnorm = global_norm(grads)
+    moments and the advanced step; ``grad_norm`` and ``lr``).  On a mesh
+    the trees are the rank's blocks (the moments share the params'
+    ``specs``) and only the norm crosses ranks."""
+    gnorm = global_norm(grads, mesh, specs)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = opt_state["step"] + 1

@@ -1,5 +1,7 @@
 """Train and serve step builders, the torch twin of
-``repro.training.train_step``, on one device."""
+``repro.training.train_step``: on one device, or as one rank of FSDP x TP
+over the model's mesh (parameters and both AdamW moments stored as the
+train-mode specs say)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -14,15 +16,21 @@ from repro_torch.utils import tree_leaves, tree_map
 
 
 def make_train_step(model: Model, opt_cfg: Optional[AdamWConfig] = None,
-                    grad_compression: bool = False):
+                    grad_compression: bool = False,
+                    keep_grads: bool = False):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     state = {"params", "m", "v", "step"}, params requiring grad (see
     :func:`init_train_state`); batch = {"tokens", "targets"} tensors on the
-    model's device.  The step differentiates ``model.loss``, optionally
-    round-trips the gradients through INT8 (``grad_compression``), and
-    runs AdamW, which writes params and moments in place."""
+    model's device (on a mesh: the rank's blocks and rows).  The step
+    differentiates ``model.loss``, optionally round-trips the gradients
+    through INT8 (``grad_compression``: on a mesh, each leaf's rank blocks
+    at its whole leaf's scale), and runs AdamW, which writes params and
+    moments in place.
+    ``keep_grads`` puts the gradient tree in the metrics (``grads``)."""
     opt_cfg = opt_cfg or AdamWConfig()
+    mesh = model.mesh
+    specs = model.specs("train") if mesh is not None else None
 
     def train_step(state, batch):
         params = state["params"]
@@ -40,13 +48,15 @@ def make_train_step(model: Model, opt_cfg: Optional[AdamWConfig] = None,
                     for p, g in zip(leaves, raw))
         grads = tree_map(lambda _: next(flat), params)
         if grad_compression:
-            grads = compress_grads_int8(grads)
+            grads = compress_grads_int8(grads, mesh, specs)
         opt_state = {"m": state["m"], "v": state["v"], "step": state["step"]}
         new_params, new_opt, opt_metrics = adamw_update(
-            opt_cfg, params, grads, opt_state)
+            opt_cfg, params, grads, opt_state, mesh=mesh, specs=specs)
         new_state = {"params": new_params, **new_opt}
         metrics = {**{k: v.detach() for k, v in metrics.items()},
                    **opt_metrics, "loss": loss.detach()}
+        if keep_grads:
+            metrics["grads"] = grads
         return new_state, metrics
 
     return train_step
@@ -55,8 +65,11 @@ def make_train_step(model: Model, opt_cfg: Optional[AdamWConfig] = None,
 def init_train_state(model: Model, generator: torch.Generator
                      ) -> Dict[str, Any]:
     """Random params from ``generator`` (on the model's device), each
-    requiring grad, with zero AdamW moments and step 0."""
+    requiring grad, with zero AdamW moments and step 0; on a mesh the
+    rank's train-mode blocks of the whole draw."""
     params = model.init(generator)
+    if model.mesh is not None:
+        params = model.shard(params, "train")
     for _, p in tree_leaves(params):
         p.requires_grad_(True)
     return {"params": params, **init_opt_state(params)}

@@ -1,6 +1,8 @@
 """Small shared utilities."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 DTYPES = {
@@ -48,3 +50,31 @@ def tree_leaves(tree, path=()):
             yield from tree_leaves(v, path + (i,))
     else:
         yield path, tree
+
+
+def tree_size_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for _, x in tree_leaves(tree))
+
+
+def tree_param_count(tree) -> int:
+    return sum(math.prod(x.shape) for _, x in tree_leaves(tree))
+
+
+def human_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024.0:
+            return f"{n:.2f}{unit}"
+        n /= 1024.0
+    return f"{n:.2f}PiB"
+
+
+def _keystr(path) -> str:
+    return "".join(f"[{p!r}]" for p in path)
+
+
+def assert_no_nans(tree, where: str = ""):
+    for path, leaf in tree_leaves(tree):
+        t = torch.as_tensor(leaf)
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"non-finite values at {_keystr(path)} "
+                                 f"{where}")

@@ -1906,3 +1906,44 @@ def test_no_collection_inside_a_capture(dev):
     assert seen == [True, True, False]
     assert gc.isenabled() and graphs.captures == 1
     assert out.cpu().tolist() == [0, 2, 4, 6]
+
+
+def test_sharded_prefill_two_ranks_share_the_card(dev, tmp_path):
+    """Two ranks over a gloo group on the one card (NCCL refuses two ranks
+    on one device; every collective is staged through a host copy), on a
+    (data 1, model 2) mesh: smoke granite's (head dim 64) sharded
+    ``prefill`` and three ``decode_step`` calls in float32 against one
+    rank's on the whole weights (the flash kernel at half the heads on
+    each rank)."""
+    from test_torch_distributed import CHUNK, launch_ranks
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.utils import tree_map
+    over = {"head_dim": 64}             # a head dim the flash kernel takes
+    cfg = get_smoke_config("granite-3-8b").scaled(param_dtype="float32",
+                                                  **over)
+    one = Model(cfg, attn_chunk=CHUNK, kv_dtype="float32", device=dev)
+    whole = one.init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+    decode = [rng.integers(0, cfg.vocab_size, (4, 1)).astype(np.int32)
+              for _ in range(3)]
+    task = {"kind": "serve", "arch": "granite-3-8b", "overrides": over,
+            "layout": "port", "tokens": tokens, "decode": decode,
+            "params": tree_map(lambda t: t.cpu().numpy(), whole)}
+    outs = launch_ranks({"mesh": (1, 2), "device": "cuda",
+                         "tasks": {"g": task}}, tmp_path, world=2)
+    logits, cache = one.prefill(whole, {"tokens": torch.from_numpy(
+        tokens).to(dev)})
+    full = one.init_cache(4, 64 + 3)
+    for k in ("k", "v"):
+        full[k][:, :, :64] = cache[k]
+    full["lengths"][:] = 64
+    want = [logits.cpu().numpy()] + [
+        one.decode_step(whole, full, torch.from_numpy(s).to(dev)
+                        ).cpu().numpy() for s in decode]
+    for o in outs:
+        got = [o["g"]["prefill"]] + o["g"]["decode"]
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)

@@ -315,8 +315,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     exporters, the compile counter, training modules, gradient
     compression, both launchers, replica placement, the KV tier, the
     online gateway and the analytic models (and run the simulator with its
-    tier path, whose imports are lazy), then check that no ``jax*`` or
-    ``repro.*`` module was loaded."""
+    tier path, whose imports are lazy), the mesh context and sharding
+    rules, the mesh builders, the dry run and roofline, the tokenizer, then
+    check that no ``jax*`` or ``repro.*`` module was loaded."""
     code = (
         "import sys\n"
         "import repro_torch\n"
@@ -345,6 +346,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.serving.gateway\n"
         "import repro_torch.serving.gateway.server\n"
         "import repro_torch.configs.paper_models\n"
+        "import repro_torch.distributed.ctx\n"
+        "import repro_torch.distributed.sharding\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.roofline\n"
+        "import repro_torch.launch.dryrun\n"
+        "import repro_torch.serving.tokenizer\n"
         "from repro_torch.configs import ASSIGNED_ARCHS, get_config\n"
         "for name in ASSIGNED_ARCHS:\n"
         "    get_config(name)\n"

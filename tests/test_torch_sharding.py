@@ -1,0 +1,271 @@
+"""The port's sharding rules, mesh refusals, dry run and small copies against
+the JAX package, in process and with no ranks.
+
+- Spec equality: for all ten registered configs, full and smoke, every
+  ``SHAPES`` entry and the meshes 16x16, 2x16x16, 2x4, 2x2 and 1x4, the
+  port's sanitized param specs (serving and train), batch specs and cache
+  specs equal the reference's leaf by leaf.  Each port leaf maps to the
+  reference's stacked leaf as ``params_from_numpy`` maps them
+  (``sharding.ref_leaf``).  The reference's rules read only
+  ``mesh.axis_names`` and ``mesh.devices.shape``, so a stand-in with
+  ``devices = np.empty(shape)`` serves and no JAX devices are needed.
+- Refusals: a mesh whose ``model`` axis would split inside a head, the
+  ``ssm``, hybrid and encoder-decoder families on a mesh of more than one
+  rank, and the one-rank entry points on such a mesh.
+- The dry run on full granite-3-8b's ``decode_32k`` cell: per-rank bytes
+  equal to the sum over the reference's sanitized specs; on 16x16 null
+  collectives whose reason names the KV heads, on 2x4 collectives with
+  bytes; the CLI writes its JSONL records.
+- The copies: the tokenizer and the utils helpers.
+"""
+import json
+import math
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import utils as JU  # noqa: E402
+from repro.configs import ASSIGNED_ARCHS, SHAPES  # noqa: E402
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
+from repro.distributed import sharding as JS  # noqa: E402
+from repro.models.model import Model as JaxModel  # noqa: E402
+from repro.serving import tokenizer as JT  # noqa: E402
+from repro_torch import utils as U  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.distributed import sharding as S  # noqa: E402
+from repro_torch.distributed.ctx import Mesh  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.serving import tokenizer as T  # noqa: E402
+
+MESHES = {"16x16": (("data", "model"), (16, 16)),
+          "2x16x16": (("pod", "data", "model"), (2, 16, 16)),
+          "2x4": (("data", "model"), (2, 4)),
+          "2x2": (("data", "model"), (2, 2)),
+          "1x4": (("data", "model"), (1, 4))}
+
+
+class _RefMesh:
+    """What the reference's rules read of a mesh."""
+
+    def __init__(self, names, shape):
+        self.axis_names = names
+        self.devices = np.empty(shape)
+
+
+def _ref_leaves(tree):
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    return {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in kp): leaf for kp, leaf in flat}
+
+
+@pytest.mark.parametrize("size", ["full", "smoke"])
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_specs_equal_the_reference(arch, size):
+    jcfg = jax_config(arch) if size == "full" else jax_smoke(arch)
+    cfg = get_config(arch) if size == "full" else get_smoke_config(arch)
+    jm = JaxModel(jcfg)
+    jshape = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0)))
+    jleaves = _ref_leaves(jshape)
+    whole = Model(cfg, device="meta").init(torch.Generator())
+    mapped = {}
+    for path, t in U.tree_leaves(whole):
+        ref, shape = S.ref_leaf(cfg, path, t.shape)
+        assert tuple(jleaves[ref].shape) == shape, (path, ref)
+        mapped[path] = ref
+    assert set(mapped.values()) == set(jleaves)
+    port_model = Model(cfg, device="meta")
+    for mname, (names, shape) in MESHES.items():
+        jmesh, mesh = _RefMesh(names, shape), Mesh(names, shape)
+        for mode in ("serving", "train"):
+            jspecs = _ref_leaves(JS.sanitize_specs(
+                jshape, JS.param_specs(jcfg, jshape, mode), jmesh))
+            specs = S.sanitized_param_specs(cfg, whole, mode, mesh)
+            for path, ref in mapped.items():
+                assert S.spec_at(specs, path) == tuple(jspecs[ref]), \
+                    (mname, mode, path)
+        for sname, shp in SHAPES.items():
+            jins = jm.input_specs(shp)
+            batch_shapes = {k: v.shape for k, v in jins.items()
+                            if k != "cache"}
+            if shp.kind == "decode":
+                batch_shapes = {"tokens": jins["tokens"].shape}
+            jb = JS.sanitize_specs(
+                {k: jins[k] for k in batch_shapes},
+                {k: v for k, v in JS.batch_specs(jcfg, shp, jmesh).items()
+                 if k in batch_shapes}, jmesh)
+            pb = S.sanitize_specs(batch_shapes,
+                                  S.batch_specs(cfg, shp, mesh), mesh)
+            assert pb == {k: tuple(v) for k, v in jb.items()}, (mname,
+                                                                 sname)
+            jcache = jm.cache_shapes(shp.global_batch, shp.seq_len)
+            cshapes = {k: s for k, (s, _) in port_model.cache_shapes(
+                shp.global_batch, shp.seq_len).items()}
+            assert cshapes == {k: tuple(v.shape) for k, v in jcache.items()}
+            jc = JS.sanitize_specs(jcache, JS.cache_specs(jcfg, shp, jmesh),
+                                   jmesh)
+            pc = S.sanitize_specs(cshapes, S.cache_specs(cfg, shp, mesh),
+                                  mesh)
+            assert pc == {k: tuple(v) for k, v in jc.items()}, (mname,
+                                                                 sname)
+
+
+def _smoke(arch, **kw):
+    return get_smoke_config(arch).scaled(param_dtype="float32", **kw)
+
+
+def test_a_head_split_inside_a_head_raises():
+    cfg = _smoke("granite-3-8b")
+    assert cfg.num_kv_heads == 2
+    with pytest.raises(ValueError, match="2 KV heads.*inside a head"):
+        Model(cfg, mesh=Mesh(("data", "model"), (1, 4)), device="cpu")
+    Model(cfg, mesh=Mesh(("data", "model"), (2, 2)), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-1.5-large-398b",
+                                  "seamless-m4t-large-v2"])
+def test_families_without_sharded_execution_raise(arch):
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 5"):
+        Model(_smoke(arch), mesh=Mesh(("data", "model"), (2, 2)),
+              device="cpu")
+    Model(_smoke(arch), mesh=Mesh(("data", "model"), (1, 1)), device="cpu")
+
+
+def test_one_rank_entry_points_raise_on_a_mesh():
+    cfg = _smoke("granite-3-8b")
+    m = Model(cfg, mesh=Mesh(("data", "model"), (1, 2)), device="cpu")
+    for name in ("paged_prefill_chunk", "paged_decode_step",
+                 "paged_decode_verify", "prefill_chunk", "prefill_pack",
+                 "paged_prefill_pack", "decode_verify"):
+        with pytest.raises(ValueError, match="does not run sharded"):
+            getattr(m, name)(None, None, None, None, None, None, None)
+
+
+def test_the_mesh_sets_the_expert_share():
+    cfg = _smoke("granite-moe-3b-a800m")
+    m = Model(cfg, mesh=Mesh(("data", "model"), (1, 2), coords=(0, 1)),
+              device="cpu")
+    assert m.experts == (cfg.num_experts // 2, cfg.num_experts)
+    with pytest.raises(ValueError, match="sets expert_shard"):
+        Model(cfg, mesh=Mesh(("data", "model"), (1, 2)),
+              expert_shard=(0, 2), device="cpu")
+
+
+@pytest.mark.parametrize("groups", [2, 4])
+def test_moe_groups_that_do_not_tile_the_batch_ranks_raise(groups):
+    """On 3 batch ranks, 2 or 4 dispatch groups neither cover whole ranks
+    nor split into whole ranks: the whole batch's dispatch cannot be
+    kept, so the MoE refuses (before any collective)."""
+    from repro_torch.distributed.ctx import mesh_context
+    from repro_torch.models import layers as L
+    cfg = _smoke("granite-moe-3b-a800m")
+    p = L.init_moe(cfg, torch.Generator().manual_seed(0), torch.float32)
+    x = torch.zeros((4, 3, cfg.d_model))
+    with mesh_context(Mesh(("data", "model"), (3, 1))):
+        with pytest.raises(ValueError, match="neither divides"):
+            L.apply_moe(cfg, p, x, groups=groups)
+
+
+def _ref_bytes(jcfg, shp, names, shape, mode):
+    """Per-rank param (+ cache) bytes summed over the reference's
+    sanitized specs."""
+    jmesh = _RefMesh(names, shape)
+    sizes = dict(zip(names, shape))
+    jm = JaxModel(jcfg)
+    pshape = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0)))
+
+    def total(shapes, specs):
+        n = 0
+        for k, leaf in shapes.items():
+            loc = [d // math.prod(sizes[a] for a in
+                                  ((e,) if isinstance(e, str) else e or ()))
+                   for d, e in zip(leaf.shape, specs[k])]
+            n += math.prod(loc) * leaf.dtype.itemsize
+        return n
+    p = total(_ref_leaves(pshape), _ref_leaves(JS.sanitize_specs(
+        pshape, JS.param_specs(jcfg, pshape, mode), jmesh)))
+    cache = jm.input_specs(shp)["cache"]
+    c = total(cache, JS.sanitize_specs(cache, JS.cache_specs(jcfg, shp,
+                                                             jmesh), jmesh))
+    return p, c
+
+
+def test_dryrun_decode_cell_on_the_production_and_a_small_mesh():
+    jcfg = jax_config("granite-3-8b")
+    shp = SHAPES["decode_32k"]
+    rec = dryrun.dry_cell("granite-3-8b", "decode_32k",
+                          make_production_mesh(multi_pod=False))
+    p, c = _ref_bytes(jcfg, shp, ("data", "model"), (16, 16), "serving")
+    assert rec["memory"]["param_bytes"] == p
+    assert rec["memory"]["cache_bytes"] == c
+    assert rec["collectives"] is None
+    assert "8 KV heads" in rec["collectives_reason"]
+    assert rec["roofline"]["dominant"] in ("compute", "memory")
+    assert rec["device"].startswith("NVIDIA H100")
+    rec = dryrun.dry_cell("granite-3-8b", "decode_32k",
+                          Mesh(("data", "model"), (2, 4)))
+    p, c = _ref_bytes(jcfg, shp, ("data", "model"), (2, 4), "serving")
+    assert (rec["memory"]["param_bytes"], rec["memory"]["cache_bytes"]) \
+        == (p, c)
+    coll = rec["collectives"]
+    # each layer's two row-parallel all-reduces, and the head's
+    assert coll["counts"]["all-reduce"] >= 2 * jcfg.num_layers
+    assert coll["per_kind_bytes"]["all-reduce"] > 0
+    assert coll["per_device_bytes"] == sum(coll["per_kind_bytes"].values())
+
+
+def test_dryrun_cli_writes_records(tmp_path):
+    out = tmp_path / "dry.jsonl"
+    dryrun.main(["--arch", "granite-3-8b", "--mesh", "single", "--out",
+                 str(out)])
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    assert [r["shape"] for r in recs] == list(SHAPES)
+    for r in recs:
+        if r.get("skipped"):
+            assert r["shape"] == "long_500k"
+            continue
+        assert r["mesh"] == "16x16" and r["chips"] == 256
+        assert r["memory"]["total_bytes"] > 0
+        assert r["collectives"] is None and r["collectives_reason"]
+        assert r["roofline"]["bound_s"] > 0
+    dryrun.main(["--arch", "granite-3-8b", "--mesh", "single", "--out",
+                 str(out)])               # resumes: nothing new
+    assert len(out.read_text().splitlines()) == len(recs)
+
+
+def test_tokenizer_copy():
+    text = "naïve café, 東京 ✓"
+    assert T.encode(text) == JT.encode(text)
+    assert T.encode(text, add_bos=False) == JT.encode(text, add_bos=False)
+    toks = T.encode(text) + [T.EOS, T.PAD, 300]
+    assert T.decode(toks) == JT.decode(toks) == text
+    assert (T.BOS, T.EOS, T.PAD, T.VOCAB_SIZE) == \
+        (JT.BOS, JT.EOS, JT.PAD, JT.VOCAB_SIZE)
+
+
+def test_utils_copies():
+    rng = np.random.default_rng(0)
+    arrays = {"a": rng.standard_normal((3, 4)).astype(np.float32),
+              "b": [rng.standard_normal(5).astype(np.float32),
+                    rng.integers(0, 9, (2, 2)).astype(np.int32)]}
+    tt = U.tree_map(torch.from_numpy, arrays)
+    jt = jax.tree_util.tree_map(jax.numpy.asarray, arrays)
+    assert U.tree_size_bytes(tt) == JU.tree_size_bytes(jt)
+    assert U.tree_param_count(tt) == JU.tree_param_count(jt)
+    for n in (0, 1023, 1024, 5.5e6, 3e9, 7e12, 2e16):
+        assert U.human_bytes(n) == JU.human_bytes(n)
+    U.assert_no_nans(tt)
+    arrays["b"][0][2] = np.nan
+    tt = U.tree_map(torch.from_numpy, arrays)
+    with pytest.raises(AssertionError) as mine:
+        U.assert_no_nans(tt, "here")
+    with pytest.raises(AssertionError) as theirs:
+        JU.assert_no_nans(jax.tree_util.tree_map(jax.numpy.asarray, arrays),
+                          "here")
+    assert str(mine.value) == str(theirs.value)
