@@ -48,7 +48,10 @@ the final line:
      copy of its bytes), the f32 causal flash kernel at the training
      shape against SDPA, the bf16 paged attention, the SSD chunk (each
      case) and the f32 INT8 dequantize (beside a copy of its bytes)
-     against their plain versions;
+     against their plain versions; row 7's split-row entries
+     (``rmsnorm_sumsq``, ``rmsnorm_apply``: a row's columns over two
+     ranks) at phase 27's per-rank shapes of the gated norm, against their
+     plain twins and, the halves side by side, the whole-row kernel;
   4. reference: the full-width model's kernel path (paged-attention
      kernel + prefix flash kernel + RMSNorm kernel) against its plain path
      (page gather + masked attention + plain RMSNorm) on one short
@@ -112,7 +115,7 @@ the final line:
      (the full-sequence flash kernel), each followed by 4 dense decode
      steps (plain decode attention), against phase 4's paged kernel path,
      relative L2 <= 0.05 in bf16;
- 16. dense serve: phase 5's 12 requests through ``serve(...,
+ 16. dense serve: phase 5's 8 requests through ``serve(...,
      warmup=True)`` on the dense backend with the reference engine's
      defaults (no chunk size: each prompt one eager chunk over its stripe;
      fused decode as a CUDA graph, ``max_seq_len`` 2048, 8 lanes), swaps
@@ -143,8 +146,8 @@ the final line:
      the wall of a graphed pack of 4 chunks at buckets 64 and 128 against
      the same 4 chunks as graphed single chunks (printed, not gated);
  20. serving with the online predictor, packs of 4 and the prefix cache,
-     on granite cut to 20 of its 40 layers since phase 26 came (the
-     script's time), paged (with the auto token budget at a target TPOT of 30 ms) and
+     on granite cut to 12 of its 40 layers (20 since phase 26 came, 12
+     since phase 27's (d)-(g): the script's time), paged (with the auto token budget at a target TPOT of 30 ms) and
      dense, each through ``serve(..., warmup=True)``: 24 requests at t=0,
      18 of them in 3 families that share a 1024-token system prompt; all
      must finish with prefix hits, the dense serve (no budget) with packs
@@ -172,7 +175,7 @@ the final line:
      kernel once per layer through the wgmma body and its merge; then the
      verify step as the engine calls it, graphed and eager, under the
      profiler (the wgmma kernel must run); (b) phase 5's
-     12 requests on a warmed speculative engine of phase 5's (paged) and
+     8 requests on a warmed speculative engine of phase 5's (paged) and
      phase 16's (dense) configuration with a wall-clock ``EventBus``
      attached: all finish, drafts proposed, no capture or library load
      after warmup, one verify replay per decode iteration, 40 prefix
@@ -210,7 +213,7 @@ the final line:
      off and its cache cleared; it prints tokens/s, TTFT p50 of imported,
      local-hit and cold requests, each fill's and each publish's time, the
      effective rates and the tier's gauges.
- 23. two granite-3-8b replicas (phase 20's model: 20 of 40 layers) behind
+ 23. two granite-3-8b replicas (phase 20's model: 12 of 40 layers) behind
      the online gateway
      (``launch/serve.serve_gateway``, ``serving/gateway``): (a) two warmed
      paged replicas of phase 5's configuration (B shares A's weights, both
@@ -229,8 +232,9 @@ the final line:
      (``ServingEngine.serve``): (a)'s streams equal them bit for bit; (c)
      the lockstep pump over A and B on fresh copies: tokens equal (b), its
      tokens/s and TTFT beside (a)'s (printed, not gated).
- 24. granite-moe-3b-a800m at full width and 16 of its 32 layers (cut for
-     the script's time since phase 26 came; 40 experts
+ 24. granite-moe-3b-a800m at full width and 8 of its 32 layers (cut for
+     the script's time: 16 since phase 26 came, 8 since phase 27's
+     (d)-(g); 40 experts
      of 1536 x 512 top 8, capacity factor 1.25; random bf16 weights from
      a seed, the router f32), after the granite model is freed: (a) one
      MoE layer in f32 on the card against the CPU over 64 tokens (the
@@ -241,7 +245,7 @@ the final line:
      tokens) and in bf16 (printed), each with the count of routing
      decisions that differ, and beside bf16 two witnesses: bf16 plain
      against f32 plain (printed) and the bf16 kernel path on the plain
-     path's routing (relative L2 < 0.05); (c) phase 5's 12 requests on a
+     path's routing (relative L2 < 0.05); (c) phase 5's 8 requests on a
      warmed paged
      engine of phase 5's configuration with graphs; (d) phase 6's 2-lane
      INT8 swap trace; (e) 8 requests through ``serve(...)`` on the dense
@@ -343,16 +347,36 @@ the final line:
      heads a rank): the same run on the one-rank run's routing (gated at
      0.05; greedy agreement printed), with the share of routing decisions
      that the sharded router, given the same inputs, makes differently
-     (printed).  (c) one FSDP step of granite-3-8b at full width and 2
-     layers in f32, mesh data 2 x model 1, batch 2 x 1024, AdamW: loss
+     (printed).  (c) one FSDP step of granite-3-8b at full width and 1
+     layer (2 before PR 27) in f32, mesh data 2 x model 1, batch 2 x
+     1024, AdamW: loss
      within 1e-5 relative, the clipped global norm within 1e-6 relative,
      and every gradient leaf and both AdamW moments within rel_l2 1e-4 of
      one rank's step (each rank holds its block of one rank's gradients
-     and moments; the squared sums cross ranks).  The sharded runs (every rank's) are counted from 0 and added
-     to the kernels line (rows 6 and 7 must launch in each part).  The
-     ranks start before phase 8 and wait for the phase's go, so that
-     their start overlaps phases 8-11, and their exits overlap phases
-     12-14.
+     and moments; the squared sums cross ranks).  (d) mamba2-2.7b at 16 of
+     64 layers (40 of 80 SSM heads a rank: its heads' z, x and dt columns
+     of ``in_proj``, B and C whole; the gated norm over d_inner through row
+     7's split-row entries, the sum of squares all-reduced between them):
+     prefill 2 x 1024 and 8 decode steps as (a).  (e) seamless-m4t-large-v2
+     at 8 of 24 encoder and 8 of 24 decoder layers (8/8 heads of 64 a
+     rank): prefill from 4096 frames and a 1-token decoder start, then 8
+     decode steps.  (f) jamba-1.5-large-398b's one 8-layer group (32/4
+     attention heads and 64 of 128 Mamba heads a rank), holding 4 of its
+     16 experts split over the ranks (2 each; routing over all 16, an
+     absent expert adds 0), each rank drawing its blocks layer by layer
+     (``Model.init(..., "serving")``); prefill 1 x 1024 and 8 decode steps;
+     rank 0 then draws the one-rank model of the same 4 experts and runs
+     it on the sharded run's routing.  (d)-(f) are gated as (a) (bf16
+     0.05), weights against the dry run.  (g) one step of mamba2-2.7b at
+     2 layers in f32, mesh data 1 x model 2, batch 1 x 1024, gated as
+     (c): the split norm's backward crosses the ranks.  Each part prints
+     its ranks' peak device memory.  The sharded runs (every rank's) are
+     counted from 0 and added to the kernels line (``SHARD27_ROWS``: the
+     rows each part must launch; row 7's split-row entries
+     ``rmsnorm_sumsq`` and ``rmsnorm_apply`` in (d), (f) and (g), their
+     rows in the kernels line).  The ranks start before phase 8 and wait
+     for the phase's go, so that their start overlaps phases 8-11, and
+     their exits overlap phases 12-14.
 
 The serve phases 5, 6, 9, 10, 16, 17, 20, 21, 22 (b), 23, 24 and 26 (b)
 run warmed engines
@@ -1366,6 +1390,90 @@ def check_fused_rmsnorm(torch, dev):
         str(d): rows[(2048, d)] for d in (4096, 1536)}
 
 
+SPLIT_NORM_SHAPES = {"mamba2": (2048, 2560), "jamba": (1024, 8192)}
+
+
+def check_split_rmsnorm(torch, dev):
+    """Row 7's split-row entries at phase 27's per-rank shapes of the gated
+    norm (a row's d_inner over two ranks): mamba2's 2 x 1024-token prefill
+    (2048, 2560) and jamba's 1024-token one (1024, 8192), bf16 and f32.
+    Each rank's half of a (T, 2 d) row: ``rmsnorm_sumsq`` of each half
+    against its plain twin (float32, 1e-5 relative to the sum), then
+    ``rmsnorm_apply`` of each half from the two sums added, against its
+    plain twin and, the halves side by side, against the whole-row
+    kernel on the whole row (float32 2e-5; bf16 within one bfloat16
+    rounding step of the plain output, element by element).  Times as the
+    other rows (device times, inputs out of L2); no one PyTorch call
+    computes either function.  Returns, by entry, the bf16 rows by
+    shape."""
+    from repro_torch.kernels.fused_rmsnorm import (fused_rmsnorm,
+                                                   rmsnorm_apply,
+                                                   rmsnorm_apply_ref,
+                                                   rmsnorm_sumsq,
+                                                   rmsnorm_sumsq_ref)
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    rows = {"rmsnorm_sumsq": {}, "rmsnorm_apply": {}}
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        for label, (T, d) in SPLIT_NORM_SHAPES.items():
+            x = (torch.randn((T, 2 * d), generator=g, device=dev) * 3).to(dt)
+            scale = (1 + 0.1 * torch.randn((2 * d,), generator=g,
+                                           device=dev)).to(dt)
+            halves = [x[:, :d].contiguous(), x[:, d:].contiguous()]
+            scales = [scale[:d].contiguous(), scale[d:].contiguous()]
+            sums = [rmsnorm_sumsq(h) for h in halves]
+            plain_sums = [rmsnorm_sumsq_ref(h) for h in halves]
+            err_s = max(((a - b).abs() / b.abs().clamp(min=1e-30)).max()
+                        .item() for a, b in zip(sums, plain_sums))
+            if not err_s <= 1e-5:
+                fail(f"rmsnorm_sumsq {name} ({T}, {d}): relative error "
+                     f"{err_s}")
+            total = sums[0] + sums[1]
+            outs = [rmsnorm_apply(h, total, sc, 2 * d)
+                    for h, sc in zip(halves, scales)]
+            plains = [rmsnorm_apply_ref(h, total, sc, 2 * d)
+                      for h, sc in zip(halves, scales)]
+            whole = fused_rmsnorm(x, scale)
+            torch.cuda.synchronize()
+            err_a = 0.0
+            for got, want in ((torch.cat(outs, -1), torch.cat(plains, -1)),
+                              (torch.cat(outs, -1), whole)):
+                diff = (got.float() - want.float()).abs()
+                err_a = max(err_a, diff.max().item())
+                if name == "float32":
+                    ok = diff.max().item() <= 2e-5 * max(
+                        1.0, want.float().abs().max().item())
+                else:
+                    ok = bool((diff <= 2.0 ** -7 * want.float().abs()).all())
+                if not ok:
+                    fail(f"rmsnorm_apply {name} ({T}, {d}): max_abs_err "
+                         f"{diff.max().item()}")
+            h, sc, out = halves[0], scales[0], outs[0]
+            cases = {
+                "rmsnorm_sumsq": (lambda: rmsnorm_sumsq(h),
+                                  lambda: rmsnorm_sumsq_ref(h),
+                                  nbytes(h, sums[0]), 2.0 * T * d, err_s),
+                "rmsnorm_apply": (lambda: rmsnorm_apply(h, total, sc, 2 * d),
+                                  lambda: rmsnorm_apply_ref(h, total, sc,
+                                                            2 * d),
+                                  nbytes(h, total, sc, out), 3.0 * T * d,
+                                  err_a)}
+            for entry, (kern, plain_fn, nb, flops, err) in cases.items():
+                ms = time_ms(kern, 50)
+                plain = time_ms(plain_fn, 20)
+                b_ms, b_by = bound(nb, flops, name)
+                print(f"[kernel] {entry} {name} {label} T={T} d={d} of "
+                      f"{2 * d}: max_err={err:.3g} kernel_ms={ms:.4f} "
+                      f"({b_ms / ms:.1%} of bound) plain_ms={plain:.4f} "
+                      f"bound_ms={b_ms:.4f} ({b_by}) library_ms=null",
+                      flush=True)
+                if name == "bfloat16":
+                    rows[entry][label] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return rows
+
+
 def ssd_flops(B, C, Q, H, P, N) -> float:
     """Operations the SSD chunk step needs: the lower-triangular C . B^T
     once per chunk (it is shared by the heads), and per head the decayed
@@ -1609,13 +1717,16 @@ def same_tokens(label: str, graphed, eager) -> None:
 # the serve phases' launcher arguments (phases 5, 16 and 9), shared by the
 # graphed serve and its eager comparison.  Swaps travel unquantized here,
 # so the greedy tokens do not depend on when the wall clock's schedule
-# preempts (phases 6 and 17 force the INT8 swaps)
-PAGED_SERVE = dict(arch_size="full", strategy="alise", n_requests=12,
+# preempts (phases 6 and 17 force the INT8 swaps).  8 requests (12 before
+# PR 27, 16 before PR 19): phases 5, 16, 21 and 24 (c) serve them, each
+# graphed and again eagerly, and phase 27's (d)-(g) took their seconds
+# under the script's 290 s ceiling
+PAGED_SERVE = dict(arch_size="full", strategy="alise", n_requests=8,
                    max_slots=8, seed=SEED, predictor_kind="oracle",
                    prefill_chunk=256, kv_backend="paged",
                    paged_attn_impl="kernel", chunk_attn="flash",
                    page_size=16, quantize=False, warmup=True)
-DENSE_SERVE = dict(arch_size="full", strategy="alise", n_requests=12,
+DENSE_SERVE = dict(arch_size="full", strategy="alise", n_requests=8,
                    max_slots=8, seed=SEED, predictor_kind="oracle",
                    kv_backend="dense", quantize=False, warmup=True,
                    verbose=False)
@@ -2017,7 +2128,7 @@ def dense_reference_check(torch, model, params, ref):
 
 
 def phase_dense_serve(torch, model, params, kernels):
-    """Phase 5's 12 requests through ``ServingEngine.serve`` on the dense
+    """Phase 5's 8 requests through ``ServingEngine.serve`` on the dense
     backend with the reference engine's defaults: no chunk size (each
     prompt one chunk over its lane's stripe, through the prefix flash
     kernel), fused decode, ``max_seq_len`` 2048, 8 lanes."""
@@ -2619,7 +2730,10 @@ def _budget_fit(eng, target_tpot: float) -> str:
             f"{eng.sched.cfg.iter_token_budget})")
 
 
-GRANITE_CUT = 20                        # phases 20 and 23: 20 of 40 layers
+# phases 20 and 23: 12 of 40 layers (20 in PRs 25-26; a slow host and
+# phase 20's auto budget at 52 took the script to 301.7 s in PR 27's
+# run 4, against its 290 s ceiling)
+GRANITE_CUT = 12
 
 
 def build(torch, dev, cfg, **kw):
@@ -2999,7 +3113,7 @@ def _spec_engine(model, params, backend, graphs):
 
 
 def _spec_serve(model, params, kernels, backend, graphs, bus=None):
-    """Phase 5's 12 requests through :func:`_spec_engine`; returns the
+    """Phase 5's 8 requests through :func:`_spec_engine`; returns the
     requests, the engine, its launches during the warmup and the serve's
     wall (from the end of the warmup)."""
     import torch
@@ -3009,7 +3123,7 @@ def _spec_serve(model, params, kernels, backend, graphs, bus=None):
     warm = {n: c - counts0[n] for n, c in read_counts(kernels).items()}
     if bus is not None:
         eng.attach_bus(bus, "engine0")
-    reqs = build_requests(model.cfg, 12, SEED, "full")
+    reqs = build_requests(model.cfg, PAGED_SERVE["n_requests"], SEED, "full")
     t0 = time.perf_counter()
     eng.serve(reqs)
     torch.cuda.synchronize()
@@ -3023,7 +3137,7 @@ def _tok_s(reqs) -> float:
 
 
 def phase_spec_serve(torch, model, params, kernels, backend, spec_off):
-    """Phase 21 (b) and (c), one backend: phase 5's 12 requests on a
+    """Phase 21 (b) and (c), one backend: phase 5's 8 requests on a
     warmed speculative engine (spec_k 3) with a wall-clock EventBus
     attached, counted from 0 (the main path); gates: every request
     finishes, drafts were proposed, no capture or library load after the
@@ -3660,7 +3774,7 @@ def phase_gateway(torch, model, params, kernels):
 # ------------------------------------------------------------- phase 24
 
 MOE_ARCH = "granite-moe-3b-a800m"
-MOE_LAYERS = 16                         # of 32: the script's time ceiling
+MOE_LAYERS = 8                          # of 32: the script's time ceiling
 MOE_LAYER_TOKENS = 64                   # (a): one MoE layer's tokens
 MOE_F32_REL = 1e-3                      # (b): f32 kernel vs plain logits
 MOE_SERVE_ROWS = ("paged_attention", "flash_prefill_prefix",
@@ -3730,8 +3844,8 @@ def moe_reference_check(torch, model, params):
     path (``use_kernels=False``, page gather, masked chunk attention) on
     phase 4's kind of short request (128 prompt tokens in two full chunks
     of 64, so that no padded row routes, then 4 decode steps, every run fed
-    the f32 kernel path's tokens), in float32 (the bf16 weights cast:
-    6.7 GB at 16 layers), gated at a relative L2 of 1e-3 with equal
+    the f32 kernel path's tokens), in float32 (the bf16 weights cast),
+    gated at a relative L2 of 1e-3 with equal
     greedy tokens, and
     in bf16 beside it (printed).  Each run's routing decisions (every
     call's set of K experts per token) are recorded through
@@ -3900,7 +4014,7 @@ def phase_moe(torch, dev, kernels):
     its 32 layers (random
     weights from a seed, bf16).  (a) one MoE layer card vs CPU; (b) the
     kernel path vs the plain path; then the main path, counted from 0:
-    (c) phase 5's 12 requests on a warmed paged engine with graphs, (d) a
+    (c) phase 5's 8 requests on a warmed paged engine with graphs, (d) a
     2-lane INT8 swap serve on the paged backend (phase 6's trace), (e) the
     dense backend through ``serve(...)`` (warmed, 8 requests); then (c)'s
     requests again eagerly (bit for bit), and (f) a profile of the graphed
@@ -5327,15 +5441,42 @@ def ptxas_report(logs) -> list:
             for src, entry, used, spill in rows]
 
 
-# (a) and (b) at 8 layers: at GRANITE_CUT and MOE_LAYERS the script took
-# 288.9 s on the H100 machine against its 290 s ceiling (the ranks'
-# collectives cross the host)
+# (a) and (b) at 8 layers: at 20 and 16 layers the script took 288.9 s on
+# the H100 machine against its 290 s ceiling (the ranks' collectives cross
+# the host).  (d) mamba2-2.7b at 16 of 64 layers, (e)
+# seamless at 8 of 24 encoder and 8 of 24 decoder layers, (f) jamba's one
+# 8-layer group holding 4 of 16 experts (2 a rank), each for the same
+# ceiling; (f)'s share is what two ranks of jamba's group fit on one card
 SHARD27 = dict(granite_layers=8, prompts=2, prompt_len=1024, decode=8,
-               moe_layers=8, train_layers=2, train_batch=2, train_seq=1024,
-               timeout=900)
-SHARD27_LOSS_REL = 1e-5                  # (c): loss against one rank
-SHARD27_GRAD_REL = 1e-4                  # (c): each gradient, moment leaf
-SHARD27_NORM_REL = 1e-6                  # (c): the clipped global norm
+               moe_layers=8, train_layers=1, train_batch=2, train_seq=1024,
+               mamba_layers=16, seamless_layers=8, seamless_frames=4096,
+               hybrid_share=(0, 4), mamba_train_layers=2, timeout=900)
+SHARD27_LOSS_REL = 1e-5                  # (c), (g): loss against one rank
+SHARD27_GRAD_REL = 1e-4                  # (c), (g): each gradient, moment
+SHARD27_NORM_REL = 1e-6                  # (c), (g): the clipped global norm
+# (d), (f): a Mamba stack's bf16 logits move as far as 0.06 rel_l2 under
+# any change of rounding (one rank's own kernel path against its plain
+# path, (d)'s witness, as far as the sharded run), so there the sharded
+# run is held to one rank in f32 (SHARD27_F32_REL) and its bf16 error
+# from the f32 truth to at most twice one rank's (the bound PR 15 set the
+# bf16 flash kernel against SDPA's error)
+SHARD27_F32_REL = 1e-3
+SHARD27_TRUTH_RATIO = 2.0
+SHARD27_MAMBA = ("d", "f")
+# the rows whose launches each part must show (row 7's split-row entries
+# wherever a Mamba layer's gated norm runs over two ranks)
+SHARD27_ROWS = {
+    "a": ("flash_prefill", "fused_rmsnorm"),
+    "b": ("flash_prefill", "fused_rmsnorm"),
+    "c": ("flash_prefill", "fused_rmsnorm"),
+    "d": ("fused_rmsnorm", "rmsnorm_sumsq", "rmsnorm_apply", "ssd_chunk"),
+    "e": ("flash_prefill",),
+    "f": ("flash_prefill", "fused_rmsnorm", "rmsnorm_sumsq",
+          "rmsnorm_apply", "ssd_chunk"),
+    "g": ("fused_rmsnorm", "rmsnorm_sumsq", "rmsnorm_apply", "ssd_chunk")}
+SHARD27_SERVES = {"a": "granite-3-8b", "b": "granite-moe-3b-a800m",
+                  "d": "mamba2-2.7b", "e": "seamless-m4t-large-v2",
+                  "f": "jamba-1.5-large-398b"}
 
 
 def _rel_l2(torch, got, want) -> float:
@@ -5344,21 +5485,25 @@ def _rel_l2(torch, got, want) -> float:
                  / torch.linalg.vector_norm(want).clamp(min=1e-30))
 
 
-def _shard27_logits(torch, model, params, prompts, forced):
-    """f32 logits of ``Model.prefill`` of ``prompts`` (B, S) and of one
-    ``decode_step`` per column of ``forced`` (T, B, 1), teacher-forced, the
-    prefill's cache placed in a cache of S + T positions; and the wall
-    seconds of the prefill and of the decode steps."""
-    B, S = prompts.shape
+def _shard27_logits(torch, model, params, batch, forced):
+    """f32 logits of ``Model.prefill`` of ``batch`` (``tokens`` (B, S),
+    with ``enc_embeds`` for an encoder-decoder) and of one ``decode_step``
+    per column of ``forced`` (T, B, 1), teacher-forced, the prefill's
+    cache placed in a decode cache of S + T positions (its K/V at the
+    first S, the recurrent state and the cross K/V whole); and the wall
+    seconds of the prefill and of a decode step."""
+    B, S = batch["tokens"].shape
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompts})
+    logits, cache = model.prefill(params, batch)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     full = model.init_cache(B, S + forced.shape[0])
-    for k in ("k", "v"):
-        full[k][:, :, :S] = cache[k]
-    full["lengths"][:] = S
+    for k, t in cache.items():
+        if k in ("k", "v"):
+            full[k][:, :, :S] = t
+        else:
+            full[k].copy_(t)
     del cache
     outs = [logits.float().cpu()]
     torch.cuda.synchronize()
@@ -5369,20 +5514,92 @@ def _shard27_logits(torch, model, params, prompts, forced):
     return outs, t1 - t0, (time.perf_counter() - t2) / forced.shape[0]
 
 
-def _shard27_serve(torch, dev, rank, arch, layers, kernels, log):
-    """Part (a) or (b) on this rank: ``arch`` at full width and ``layers``
-    of its depth, mesh data 1 x model 2.  Rank 0 first computes the
-    one-rank logits on the whole weights; each rank then keeps its block
-    (``Model.shard``) and runs the sharded prefill and decode steps,
-    counted from 0.  An MoE's bf16 rounding flips routing decisions
-    between the two (its router's near-ties), and a flipped route changes
-    a token's output wholly, so an MoE runs sharded on the one-rank run's
-    routing (every ``layers._route`` output recorded on rank 0 and sent to
-    rank 1), as phase 24 (b) fixes its routing; each replayed call also
-    runs the sharded router on its own inputs, and the share of its
-    choices that differ from the recorded ones is printed."""
-    import torch.distributed as dist
+def _rel_all(torch, got, want) -> float:
+    """rel_l2 of every step's logits taken together."""
+    return _rel_l2(torch, torch.cat(got), torch.cat(want))
+
+
+def _shard27_cfg(part: str, dtype: str = "bfloat16"):
+    """Part ``part``'s config: its arch at full width in ``dtype``, depth
+    cut as :data:`SHARD27` says."""
     from repro_torch.configs import get_config
+    cfg = get_config(SHARD27_SERVES[part]).scaled(param_dtype=dtype)
+    cut = {"a": dict(num_layers=SHARD27["granite_layers"]),
+           "b": dict(num_layers=SHARD27["moe_layers"]),
+           "d": dict(num_layers=SHARD27["mamba_layers"]),
+           "e": dict(num_layers=SHARD27["seamless_layers"],
+                     num_encoder_layers=SHARD27["seamless_layers"]),
+           "f": dict(num_layers=HYBRID_LAYERS)}[part]
+    return cfg.scaled(**cut)
+
+
+def _shard27_inputs(torch, dev, cfg, part: str):
+    """Part ``part``'s prefill batch and teacher-forced decode tokens (T,
+    B, 1), from the seed: 2 prompts of 1024 tokens, jamba's one; seamless
+    one request of 4096 frames and a 1-token decoder start."""
+    rng = np.random.default_rng(SEED + 27)
+    T = SHARD27["decode"]
+    if cfg.is_encoder_decoder:
+        B = 1
+        batch = {"enc_embeds": torch.from_numpy(rng.standard_normal(
+            (B, SHARD27["seamless_frames"], cfg.d_model)).astype(
+                np.float32)).to(dev, getattr(torch, cfg.param_dtype)),
+            "tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (B, 1)).astype(np.int32)).to(dev)}
+    else:
+        B = 1 if part == "f" else SHARD27["prompts"]
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (B, SHARD27["prompt_len"])).astype(
+                np.int32)).to(dev)}
+    forced = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (T, B, 1)).astype(np.int32)).to(dev)
+    return batch, forced
+
+
+def _heads(cfg, m: int = 2) -> str:
+    """What a rank of ``m`` holds of ``cfg``'s heads, for the log."""
+    out = []
+    if cfg.family != "ssm":
+        out.append(f"heads {cfg.num_heads // m}/{cfg.num_kv_heads // m}")
+    if cfg.has_ssm:
+        out.append(f"SSM heads {cfg.ssm_heads // m} of {cfg.ssm_heads}")
+    return ", ".join(out) + " a rank"
+
+
+def _record_routes(L, store, replay=None, flips=None):
+    """``layers._route`` recording each call's output in ``store`` or,
+    with ``replay`` (an iterator of recorded outputs), returning those
+    while the share of its own choices that differ goes to ``flips``."""
+    real = L._route
+
+    def route(*args):
+        own = real(*args)
+        if replay is None:
+            store.append(own)
+            return own
+        routed = next(replay)
+        flips.append((own[1] != routed[1]).float().mean())
+        return routed
+    return route
+
+
+def _shard27_serve(torch, dev, rank, part, kernels, log,
+                   dtype="bfloat16"):
+    """Part (a), (b), (d) or (e) on this rank: ``SHARD27_SERVES[part]`` at
+    full width in ``dtype`` (depth cut by :func:`_shard27_cfg`), mesh data
+    1 x model 2.  Returns the results and the sharded and (rank 0's;
+    None on rank 1) one-rank logits.
+    Rank 0 first computes the one-rank logits on the whole weights; each
+    rank then keeps its block (``Model.shard``) and runs the sharded
+    prefill and decode steps, counted from 0.  An MoE's bf16 rounding
+    flips routing decisions between the two (its router's near-ties), and
+    a flipped route changes a token's output wholly, so an MoE runs
+    sharded on the one-rank run's routing (every ``layers._route`` output
+    recorded on rank 0 and sent to rank 1), as phase 24 (b) fixes its
+    routing; each replayed call also runs the sharded router on its own
+    inputs, and the share of its choices that differ from the recorded
+    ones is printed."""
+    import torch.distributed as dist
     from repro_torch.distributed.ctx import Mesh
     from repro_torch.launch.dryrun import param_bytes
     from repro_torch.launch.mesh import make_test_mesh
@@ -5390,29 +5607,22 @@ def _shard27_serve(torch, dev, rank, arch, layers, kernels, log):
     from repro_torch.models.model import Model
     from repro_torch.utils import tree_size_bytes
     t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
     real_route = L._route
-    cfg = get_config(arch).scaled(num_layers=layers)
+    cfg = _shard27_cfg(part, dtype)
     mesh = make_test_mesh(1, 2)
-    rng = np.random.default_rng(SEED + 27)
-    B, S, T = SHARD27["prompts"], SHARD27["prompt_len"], SHARD27["decode"]
-    prompts = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
-    forced = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (T, B, 1)).astype(np.int32)).to(dev)
+    batch, forced = _shard27_inputs(torch, dev, cfg, part)
     one, whole = build(torch, dev, cfg)
+    ref = None
     torch.cuda.synchronize()
     marks = {"draw": time.perf_counter() - t_start}
     out = {}
     recorded = [None]
     if rank == 0:
         recorded = []
-
-        def record(*args):
-            recorded.append(real_route(*args))
-            return recorded[-1]
-        L._route = record
+        L._route = _record_routes(L, recorded)
         try:
-            ref, pre_s, dec_s = _shard27_logits(torch, one, whole, prompts,
+            ref, pre_s, dec_s = _shard27_logits(torch, one, whole, batch,
                                                 forced)
         finally:
             L._route = real_route
@@ -5437,23 +5647,18 @@ def _shard27_serve(torch, dev, rank, arch, layers, kernels, log):
     marks["free"] = time.perf_counter() - t_start
     flips = []
     if cfg.has_moe:                      # on the one-rank routing
-        replay = iter([(w.to(dev), i.to(dev), a.to(dev), e)
-                       for w, i, a, e in recorded[0]])
-
-        def replayed(*args):
-            routed = next(replay)
-            own = real_route(*args)[1]
-            flips.append((own != routed[1]).float().mean())
-            return routed
-        L._route = replayed
+        L._route = _record_routes(
+            L, None, iter([(w.to(dev), i.to(dev), a.to(dev), e)
+                           for w, i, a, e in recorded[0]]), flips)
     reset_counts(kernels)
     try:
-        got, pre_s, dec_s = _shard27_logits(torch, sharded, params, prompts,
+        got, pre_s, dec_s = _shard27_logits(torch, sharded, params, batch,
                                             forced)
     finally:
         L._route = real_route
     out["launches"] = read_counts(kernels)
     out["prefill_s"], out["decode_s"] = pre_s, dec_s
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     marks["sharded"] = time.perf_counter() - t_start
     if rank == 0:
         out["rel_l2"] = [_rel_l2(torch, g, w) for g, w in zip(got, ref)]
@@ -5464,28 +5669,178 @@ def _shard27_serve(torch, dev, rank, arch, layers, kernels, log):
             out["routes_differing"] = float(torch.stack(flips).mean())
     held = (f", experts [{sharded.experts[0]}, {sharded.experts[1]})"
             if cfg.has_moe else "")
-    log(f"{arch} {layers} layers, heads {cfg.num_heads // 2}/"
-        f"{cfg.num_kv_heads // 2} a rank{held}: "
-        f"{out['weight_bytes']:,} weight bytes (dry run "
-        f"{out['dry_weight_bytes']:,}), prefill {pre_s * 1e3:.1f} ms, "
-        f"decode {dec_s * 1e3:.2f} ms a step, launches {out['launches']}; "
-        f"part {time.perf_counter() - t_start:.1f}s (at "
+    log(f"({part}) {cfg.name} {cfg.num_layers} layers {dtype}"
+        + (f" + {cfg.num_encoder_layers} encoder layers"
+           if cfg.is_encoder_decoder else "")
+        + f", {_heads(cfg)}{held}: {out['weight_bytes']:,} weight bytes "
+        f"(dry run {out['dry_weight_bytes']:,}), prefill {pre_s * 1e3:.1f} "
+        f"ms, decode {dec_s * 1e3:.2f} ms a step, peak "
+        f"{out['peak_bytes'] / 2 ** 30:.2f} GiB, launches "
+        f"{out['launches']}; part {time.perf_counter() - t_start:.1f}s (at "
         f"{', '.join(f'{k} {v:.1f}' for k, v in marks.items())})")
     del sharded, params
     free_memory(torch)
+    return out, got, ref
+
+
+def _shard27_mamba(torch, dev, rank, kernels, log):
+    """Part (d): mamba2-2.7b as :func:`_shard27_serve` runs it, in bf16 and
+    then in f32 (both runs' launches counted); rank 0 holds the f32
+    sharded logits to one rank's (``f32_rel_l2``), measures each bf16
+    run's error from one rank's f32 logits, the truth (``truth_err``:
+    sharded, one rank), and how far one rank's own bf16 kernel path is
+    from its plain path (``witness_rel_l2``: the bf16 spread of the
+    stack, whatever the sharding)."""
+    from repro_torch.models.model import Model
+    out, got16, ref16 = _shard27_serve(torch, dev, rank, "d", kernels, log)
+    if rank == 0:    # the witness: one rank's plain path, the same weights
+        cfg = _shard27_cfg("d")
+        batch, forced = _shard27_inputs(torch, dev, cfg, "d")
+        _, whole = build(torch, dev, cfg)
+        plain = Model(cfg, kv_dtype=cfg.param_dtype, use_kernels=False,
+                      device=dev)
+        want, _, _ = _shard27_logits(torch, plain, whole, batch, forced)
+        out["witness_rel_l2"] = [_rel_l2(torch, g, w)
+                                 for g, w in zip(ref16, want)]
+        del whole, plain
+        free_memory(torch)
+    f32, got32, truth = _shard27_serve(torch, dev, rank, "d", kernels, log,
+                                       dtype="float32")
+    out["launches"] = {k: n + f32["launches"][k]
+                       for k, n in out["launches"].items()}
+    out["f32"] = {k: f32[k] for k in ("prefill_s", "decode_s", "peak_bytes",
+                                      "weight_bytes", "dry_weight_bytes")
+                  if k in f32}
+    if rank == 0:
+        out["f32"].update(one_prefill_s=f32["one_prefill_s"],
+                          one_decode_s=f32["one_decode_s"])
+        out["f32_rel_l2"] = f32["rel_l2"]
+        out["truth_err"] = [_rel_all(torch, got16, truth),
+                            _rel_all(torch, ref16, truth)]
     return out
 
 
-def _shard27_train(torch, dev, rank, kernels, log):
-    """Part (c) on this rank: granite-3-8b at full width and
-    ``train_layers`` layers in f32, mesh data 2 x model 1 (FSDP), AdamW.
-    Each rank first takes one rank's step on the whole batch and keeps its
-    block of that step's gradients and AdamW moments and the step's
-    clipped global norm; then each takes the sharded step on its row,
-    counted from 0, and compares its gradient and moment blocks with those
-    (each leaf's squared differences and squares summed over the ranks:
-    one rel_l2 per leaf, with nothing gathered) and its norm with that
-    norm."""
+def _shard27_hybrid(torch, dev, rank, kernels, log):
+    """Part (f) on this rank: jamba-1.5-large-398b's one 8-layer group at
+    full width, mesh data 1 x model 2 (32/4 attention heads and 64 of 128
+    Mamba heads a rank), holding the ``hybrid_share`` of every MoE layer's
+    16 experts split over the two ranks (2 each), routing over all 16 (an
+    absent expert adds 0): the card does not hold two ranks of the whole
+    group.  Each rank draws the group from the seed layer by layer and
+    keeps its blocks (``Model.init(..., "serving")``: no rank holds the
+    whole group), runs the sharded prefill of one 1024-token prompt and 8
+    decode steps, counted from 0, recording every ``layers._route``
+    output, and frees its blocks; then rank 0 alone draws the one-rank
+    model of the same share and runs the same calls on the sharded run's
+    routing (each replayed call's own choices compared), while rank 1
+    waits.  A route flipped by bf16 rounding at a near-tie changes a
+    token's output wholly, so the comparison holds the two on one
+    routing, as (b) does."""
+    import torch.distributed as dist
+    from repro_torch.distributed.ctx import Mesh
+    from repro_torch.launch.dryrun import param_bytes
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.utils import tree_size_bytes
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    real_route = L._route
+    cfg = _shard27_cfg("f")
+    share = SHARD27["hybrid_share"]
+    mesh = make_test_mesh(1, 2)
+    batch, forced = _shard27_inputs(torch, dev, cfg, "f")
+    sharded = Model(cfg, chunk_attn_impl="flash", kv_dtype=cfg.param_dtype,
+                    mesh=mesh, expert_shard=share, device=dev)
+    params = sharded.init(torch.Generator(device=dev).manual_seed(SEED),
+                          "serving")
+    torch.cuda.synchronize()
+    marks = {"draw": time.perf_counter() - t_start}
+    out = {"weight_bytes": tree_size_bytes(params)}
+    meta = Model(cfg, expert_shard=share, device="meta").init(
+        torch.Generator())
+    out["dry_weight_bytes"] = param_bytes(
+        cfg, meta, "serving", Mesh(("data", "model"), (1, 2)))[0]
+    recorded = []
+    L._route = _record_routes(L, recorded)
+    reset_counts(kernels)
+    try:
+        got, pre_s, dec_s = _shard27_logits(torch, sharded, params, batch,
+                                            forced)
+    finally:
+        L._route = real_route
+    out["launches"] = read_counts(kernels)
+    out["prefill_s"], out["decode_s"] = pre_s, dec_s
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    held = sharded.experts
+    marks["sharded"] = time.perf_counter() - t_start
+    del sharded, params
+    free_memory(torch)
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats(dev)
+        one, whole = build(torch, dev, cfg, expert_shard=share)
+        flips = []
+        L._route = _record_routes(L, None, iter(recorded), flips)
+        try:
+            ref, one_pre, one_dec = _shard27_logits(torch, one, whole, batch,
+                                                    forced)
+        finally:
+            L._route = real_route
+        out["one_prefill_s"], out["one_decode_s"] = one_pre, one_dec
+        out["rel_l2"] = [_rel_l2(torch, g, w) for g, w in zip(got, ref)]
+        out["greedy_agree"] = float(np.mean(
+            [bool(a) for g, w in zip(got, ref)
+             for a in (g.argmax(-1) == w.argmax(-1)).tolist()]))
+        out["routes_differing"] = float(torch.stack(flips).mean())
+        del one, whole
+        free_memory(torch)
+        marks["one_rank"] = time.perf_counter() - t_start
+        # the truth: one rank of the same share in f32, on the same routing
+        one, whole = build(torch, dev, cfg.scaled(param_dtype="float32"),
+                           expert_shard=share)
+        L._route = _record_routes(L, None, iter(recorded), [])
+        try:
+            truth, _, _ = _shard27_logits(torch, one, whole, batch, forced)
+        finally:
+            L._route = real_route
+        out["one_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out["truth_err"] = [_rel_all(torch, got, truth),
+                            _rel_all(torch, ref, truth)]
+        del one, whole
+        free_memory(torch)
+        marks["f32_truth"] = time.perf_counter() - t_start
+    del recorded
+    dist.barrier()                  # the reference's memory is free again
+    E = cfg.num_experts
+    log(f"(f) {cfg.name} {cfg.num_layers} layers, {_heads(cfg)}, experts "
+        f"[{held[0]}, {held[1]}) of the share [{share[0] * E // share[1]}, "
+        f"{(share[0] + 1) * E // share[1]}): {out['weight_bytes']:,} weight "
+        f"bytes (dry run {out['dry_weight_bytes']:,}), prefill "
+        f"{pre_s * 1e3:.1f} ms, decode {dec_s * 1e3:.2f} ms a step, peak "
+        f"{out['peak_bytes'] / 2 ** 30:.2f} GiB"
+        + (f" (one rank's references, bf16 and the f32 truth, "
+           f"{out['one_peak_bytes'] / 2 ** 30:.2f} GiB)" if rank == 0
+           else "")
+        + f", launches {out['launches']}; part "
+        f"{time.perf_counter() - t_start:.1f}s (at "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in marks.items())})")
+    return out
+
+
+def _shard27_train(torch, dev, rank, part, kernels, log):
+    """Part (c) or (g) on this rank, in f32 with AdamW: (c) granite-3-8b at
+    full width and ``train_layers`` layers, mesh data 2 x model 1 (FSDP),
+    batch 2 x 1024, a row a rank; (g) mamba2-2.7b at full width and
+    ``mamba_train_layers`` layers, mesh data 1 x model 2 (tensor
+    parallelism: 40 of 80 SSM heads a rank, the gated norm's statistic
+    summed over the ranks in the forward and its gradient in the
+    backward), batch 1 x 1024.  Each rank first takes one rank's step on
+    the whole batch and keeps its block (by the layouts) of that step's
+    gradients and AdamW moments and the step's clipped global norm; then
+    each takes the sharded step on its rows, counted from 0, and compares
+    its gradient and moment blocks with those (each leaf's squared
+    differences and squares summed over the ranks: one rel_l2 per leaf,
+    with nothing gathered) and its norm with that norm."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import shard_leaf, spec_at
@@ -5495,18 +5850,22 @@ def _shard27_train(torch, dev, rank, kernels, log):
     from repro_torch.training.train_step import make_train_step
     from repro_torch.utils import tree_leaves, tree_map
     t_start = time.perf_counter()
-    cfg = get_config("granite-3-8b").scaled(
-        num_layers=SHARD27["train_layers"], param_dtype="float32")
-    mesh = make_test_mesh(2, 1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    arch, layers, mesh_shape, shape = {
+        "c": ("granite-3-8b", SHARD27["train_layers"], (2, 1),
+              (SHARD27["train_batch"], SHARD27["train_seq"])),
+        "g": ("mamba2-2.7b", SHARD27["mamba_train_layers"], (1, 2),
+              (1, SHARD27["train_seq"]))}[part]
+    cfg = get_config(arch).scaled(num_layers=layers, param_dtype="float32")
+    mesh = make_test_mesh(*mesh_shape)
     rng = np.random.default_rng(SEED + 28)
-    shape = (SHARD27["train_batch"], SHARD27["train_seq"])
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)
                                  .astype(np.int32)).to(dev)
              for k in ("tokens", "targets")}
     one = Model(cfg, device=dev)
     whole = one.init(torch.Generator(device=dev).manual_seed(SEED))
     sharded = Model(cfg, mesh=mesh, device=dev)
-    specs = sharded.specs("train")
+    specs = sharded.layouts("train")
     torch.cuda.synchronize()
     marks = {"draw": time.perf_counter() - t_start}
     out = {}
@@ -5533,7 +5892,9 @@ def _shard27_train(torch, dev, rank, kernels, log):
     del whole
     free_memory(torch)
     step = make_train_step(sharded, AdamWConfig(), keep_grads=True)
-    rows = {k: v[rank:rank + 1] for k, v in batch.items()}
+    d, nd = mesh.coord("data"), mesh.sizes["data"]
+    rows = {k: v[d * shape[0] // nd:(d + 1) * shape[0] // nd]
+            for k, v in batch.items()}
     reset_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5543,6 +5904,7 @@ def _shard27_train(torch, dev, rank, kernels, log):
     marks["sharded"] = time.perf_counter() - t_start
     out["launches"] = read_counts(kernels)
     out["loss"], out["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     trees = {"grads": m["grads"], "m": state["m"], "v": state["v"]}
     names, sums = [], []
     for name, tree in trees.items():
@@ -5554,18 +5916,18 @@ def _shard27_train(torch, dev, rank, kernels, log):
     sums = torch.stack(sums).cpu()
     dist.all_reduce(sums)
     if not bool((sums[:, 1] > 0).all()):
-        fail("phase 27 (c): a one-rank gradient or moment leaf is 0")
+        fail(f"phase 27 ({part}): a one-rank gradient or moment leaf is 0")
     rel = (sums[:, 0] / sums[:, 1]).sqrt()
     out["ref_loss"], out["ref_grad_norm"] = ref_loss, ref_norm
     for name in trees:
         out[f"worst_{name}_rel"] = float(max(
             r for n, r in zip(names, rel.tolist()) if n == name))
     out["leaves"] = names.count("grads")
-    log(f"granite-3-8b {SHARD27['train_layers']} layers f32, FSDP over "
-        f"data 2: step {out['step_s'] * 1e3:.1f} ms (one rank "
-        f"{out['one_step_s'] * 1e3:.1f} ms), loss {out['loss']:.6f}, "
-        f"launches {out['launches']}; part "
-        f"{time.perf_counter() - t_start:.1f}s (at "
+    log(f"({part}) {arch} {layers} layers f32, data {mesh_shape[0]} x model "
+        f"{mesh_shape[1]}: step {out['step_s'] * 1e3:.1f} ms (one rank "
+        f"{out['one_step_s'] * 1e3:.1f} ms), loss {out['loss']:.6f}, peak "
+        f"{out['peak_bytes'] / 2 ** 30:.2f} GiB, launches "
+        f"{out['launches']}; part {time.perf_counter() - t_start:.1f}s (at "
         f"{', '.join(f'{k} {v:.1f}' for k, v in marks.items())})")
     del state, m, trees, sharded, ref
     free_memory(torch)
@@ -5575,8 +5937,8 @@ def _shard27_train(torch, dev, rank, kernels, log):
 def shard27_rank(rank: int, world: int, port: int, jobdir: str) -> None:
     """One rank of phase 27 (a child process :func:`start_shard_ranks`
     starts): the gloo group over the two ranks on the one card, then, once
-    the parent writes ``jobdir/go`` (:func:`phase_sharded`), (a), (b) and
-    (c); the results as JSON for the parent.  A rank whose parent is gone
+    the parent writes ``jobdir/go`` (:func:`phase_sharded`), parts (a) to
+    (g); the results as JSON for the parent.  A rank whose parent is gone
     exits."""
     import torch
     from repro_torch.kernels import counters
@@ -5602,11 +5964,17 @@ def shard27_rank(rank: int, world: int, port: int, jobdir: str) -> None:
             sys.exit(1)
         time.sleep(0.1)
     t_go = time.perf_counter()
-    res = {"a": _shard27_serve(torch, dev, rank, "granite-3-8b",
-                               SHARD27["granite_layers"], kernels, log),
-           "b": _shard27_serve(torch, dev, rank, MOE_ARCH,
-                               SHARD27["moe_layers"], kernels, log),
-           "c": _shard27_train(torch, dev, rank, kernels, log)}
+    res = {}
+    for part in "abcdefg":
+        if part in "cg":
+            res[part] = _shard27_train(torch, dev, rank, part, kernels, log)
+        elif part == "d":
+            res[part] = _shard27_mamba(torch, dev, rank, kernels, log)
+        elif part == "f":
+            res[part] = _shard27_hybrid(torch, dev, rank, kernels, log)
+        else:
+            res[part] = _shard27_serve(torch, dev, rank, part, kernels,
+                                       log)[0]
     log(f"results written {time.perf_counter() - t_go:.1f}s after the go")
     path = os.path.join(jobdir, f"rank{rank}.json")
     with open(path + ".tmp", "w") as fh:
@@ -5719,61 +6087,100 @@ def shard27_gates(res, kernels):
     """Phase 27's gates on the ranks' results (rank 0 measured against
     one rank); returns the launch counts of both ranks' sharded runs."""
     r0 = res[0]
-    for part, arch in (("a", "granite-3-8b"), ("b", MOE_ARCH)):
+    for part, arch in SHARD27_SERVES.items():
         got = r0[part]
         worst = max(got["rel_l2"])
         routes = got.get("routes_differing")
+        peaks = ", ".join(f"{r[part]['peak_bytes'] / 2 ** 30:.2f}"
+                          for r in res)
+        gate = ("not gated: see the f32 truth" if part in SHARD27_MAMBA
+                else f"gate {BF16_TOL}")
         print(f"[shard] ({part}) {arch}, data 1 x model 2: bf16 logits vs "
-              f"one rank{'' if routes is None else ' on its routing'} "
+              f"one rank{'' if routes is None else ' on one routing'} "
               f"rel_l2 prefill {got['rel_l2'][0]:.4f}, decode "
               f"{', '.join(f'{x:.4f}' for x in got['rel_l2'][1:])} (worst "
-              f"{worst:.4f}, gate {BF16_TOL})"
+              f"{worst:.4f}, {gate})"
               + f"; greedy agreement {got['greedy_agree']:.3f} (not gated)"
-              + ("" if routes is None else f"; the sharded router's own "
+              + ("" if routes is None else f"; the other run's router's own "
                  f"choices differing {routes:.4f} (not gated)")
               + f"; per-rank weights {got['weight_bytes'] / 1e9:.3f} GB, "
               f"dry run {got['dry_weight_bytes'] / 1e9:.3f} GB; sharded "
               f"prefill {got['prefill_s'] * 1e3:.1f} ms (one rank "
               f"{got['one_prefill_s'] * 1e3:.1f}), decode "
               f"{got['decode_s'] * 1e3:.2f} ms a step (one rank "
-              f"{got['one_decode_s'] * 1e3:.2f})", flush=True)
-        if not worst <= BF16_TOL:
+              f"{got['one_decode_s'] * 1e3:.2f}); peak GiB by rank {peaks}"
+              + (f", one rank's references "
+                 f"{got['one_peak_bytes'] / 2 ** 30:.2f}"
+                 if "one_peak_bytes" in got else ""), flush=True)
+        if part in SHARD27_MAMBA:
+            err, one_err = got["truth_err"]
+            f32 = got.get("f32_rel_l2")
+            wit = got.get("witness_rel_l2")
+            print(f"[shard] ({part}) against one rank's f32 logits (the "
+                  f"truth): sharded bf16 rel_l2 {err:.4f}, one rank's bf16 "
+                  f"{one_err:.4f} (ratio {err / one_err:.3f}, gate "
+                  f"{SHARD27_TRUTH_RATIO})"
+                  + ("" if wit is None else
+                     f"; one rank's bf16 kernel path vs its plain path "
+                     f"(the witness, not gated) worst {max(wit):.4f}")
+                  + ("" if f32 is None else
+                     f"; f32 sharded vs one rank rel_l2 worst "
+                     f"{max(f32):.2e} (gate {SHARD27_F32_REL}), prefill "
+                     f"{got['f32']['prefill_s'] * 1e3:.1f} ms (one rank "
+                     f"{got['f32']['one_prefill_s'] * 1e3:.1f}), decode "
+                     f"{got['f32']['decode_s'] * 1e3:.2f} ms a step, "
+                     f"{got['f32']['weight_bytes']:,} weight bytes a rank "
+                     f"(dry run {got['f32']['dry_weight_bytes']:,})"),
+                  flush=True)
+            if not err <= SHARD27_TRUTH_RATIO * one_err:
+                fail(f"phase 27 ({part}): bf16 error from the f32 truth "
+                     f"{err} > {SHARD27_TRUTH_RATIO} x one rank's {one_err}")
+            if f32 is not None and not max(f32) <= SHARD27_F32_REL:
+                fail(f"phase 27 ({part}): f32 rel_l2 {max(f32)} > "
+                     f"{SHARD27_F32_REL}")
+            if f32 is not None and got["f32"]["weight_bytes"] != \
+                    got["f32"]["dry_weight_bytes"]:
+                fail(f"phase 27 ({part}): f32 per-rank weights differ from "
+                     "the dry run's")
+        elif not worst <= BF16_TOL:
             fail(f"phase 27 ({part}): rel_l2 {worst} > {BF16_TOL}")
         if got["weight_bytes"] != got["dry_weight_bytes"]:
             fail(f"phase 27 ({part}): per-rank weights differ from the "
                  "dry run's")
-    c = r0["c"]
-    loss_rel = abs(c["loss"] - c["ref_loss"]) / abs(c["ref_loss"])
-    norm_rel = abs(c["grad_norm"] - c["ref_grad_norm"]) / c["ref_grad_norm"]
-    print(f"[shard] (c) granite-3-8b FSDP, data 2 x model 1: loss "
-          f"{c['loss']:.6f} vs one rank {c['ref_loss']:.6f} (rel "
-          f"{loss_rel:.2e}, gate {SHARD27_LOSS_REL}); global norm "
-          f"{c['grad_norm']:.6f} vs {c['ref_grad_norm']:.6f} (rel "
-          f"{norm_rel:.2e}, gate {SHARD27_NORM_REL}); worst of "
-          f"{c['leaves']} leaves rel_l2: gradients "
-          f"{c['worst_grads_rel']:.2e}, m {c['worst_m_rel']:.2e}, v "
-          f"{c['worst_v_rel']:.2e} (gate {SHARD27_GRAD_REL}); step "
-          f"{c['step_s'] * 1e3:.1f} ms (one rank "
-          f"{c['one_step_s'] * 1e3:.1f})", flush=True)
-    if not loss_rel <= SHARD27_LOSS_REL:
-        fail(f"phase 27 (c): loss rel {loss_rel} > {SHARD27_LOSS_REL}")
-    if not norm_rel <= SHARD27_NORM_REL:
-        fail(f"phase 27 (c): global norm rel {norm_rel} > "
-             f"{SHARD27_NORM_REL}")
-    for name in ("grads", "m", "v"):
-        worst = c[f"worst_{name}_rel"]
-        if not worst <= SHARD27_GRAD_REL:
-            fail(f"phase 27 (c): {name} rel_l2 {worst} > "
-                 f"{SHARD27_GRAD_REL}")
+    for part, what in (("c", "granite-3-8b FSDP, data 2 x model 1"),
+                       ("g", "mamba2-2.7b tensor parallel, data 1 x "
+                             "model 2")):
+        c = r0[part]
+        loss_rel = abs(c["loss"] - c["ref_loss"]) / abs(c["ref_loss"])
+        norm_rel = (abs(c["grad_norm"] - c["ref_grad_norm"])
+                    / c["ref_grad_norm"])
+        print(f"[shard] ({part}) {what}: loss {c['loss']:.6f} vs one rank "
+              f"{c['ref_loss']:.6f} (rel {loss_rel:.2e}, gate "
+              f"{SHARD27_LOSS_REL}); global norm {c['grad_norm']:.6f} vs "
+              f"{c['ref_grad_norm']:.6f} (rel {norm_rel:.2e}, gate "
+              f"{SHARD27_NORM_REL}); worst of {c['leaves']} leaves rel_l2: "
+              f"gradients {c['worst_grads_rel']:.2e}, m "
+              f"{c['worst_m_rel']:.2e}, v {c['worst_v_rel']:.2e} (gate "
+              f"{SHARD27_GRAD_REL}); step {c['step_s'] * 1e3:.1f} ms (one "
+              f"rank {c['one_step_s'] * 1e3:.1f}); peak GiB by rank "
+              + ", ".join(f"{r[part]['peak_bytes'] / 2 ** 30:.2f}"
+                          for r in res), flush=True)
+        if not loss_rel <= SHARD27_LOSS_REL:
+            fail(f"phase 27 ({part}): loss rel {loss_rel} > "
+                 f"{SHARD27_LOSS_REL}")
+        if not norm_rel <= SHARD27_NORM_REL:
+            fail(f"phase 27 ({part}): global norm rel {norm_rel} > "
+                 f"{SHARD27_NORM_REL}")
+        for name in ("grads", "m", "v"):
+            worst = c[f"worst_{name}_rel"]
+            if not worst <= SHARD27_GRAD_REL:
+                fail(f"phase 27 ({part}): {name} rel_l2 {worst} > "
+                     f"{SHARD27_GRAD_REL}")
     counts = {k: 0 for k in kernels}
     for r in res:
-        for part in ("a", "b", "c"):
+        for part, names in SHARD27_ROWS.items():
             for k, n in r[part]["launches"].items():
                 counts[k] += n
-    for part, names in (("a", ("flash_prefill", "fused_rmsnorm")),
-                        ("b", ("flash_prefill", "fused_rmsnorm")),
-                        ("c", ("flash_prefill", "fused_rmsnorm"))):
-        for r in res:
             for n in names:
                 if r[part]["launches"][n] <= 0:
                     fail(f"phase 27 ({part}): {n} never launched")
@@ -5867,6 +6274,7 @@ def main() -> None:
         kpage = check_kv_quant_page(torch, dev)
         pq8 = check_paged_attention_q8(torch, dev)
         rn, rn_moe, rn_jamba, rn_shard = check_fused_rmsnorm(torch, dev)
+        rn_split = check_split_rmsnorm(torch, dev)
         sc = check_ssd_chunk(torch, dev)
         # row 8 at jamba's prefill layer (1000 tokens: 4 chunks of 256; 128
         # heads of 128 through the split), at the model's decay
@@ -5875,7 +6283,7 @@ def main() -> None:
                                           (4, 256, "0.1|randn|")))
     clock.lap("kernels (phase 3)")
 
-    kernels = dict(counters.WRAPPERS)       # the 8 wrappers, by name
+    kernels = dict(counters.WRAPPERS)       # every wrapper, by name
     t0 = time.perf_counter()
     model, params = build_model("granite-3-8b", "full", dev, "flash", SEED)
     torch.cuda.synchronize()
@@ -6091,6 +6499,13 @@ def main() -> None:
              replaces="src/repro/kernels/ssd_scan/ssd_scan.py:51",
              launches=m_launches["ssd_chunk"], **sc, jamba_shape=sc_jamba),
     ]
+    # row 7's split-row entries, launched on phase 27's path only (mamba2's
+    # per-rank prefill shape, jamba's beside it)
+    for entry, by_shape in rn_split.items():
+        rows.append(dict(
+            name=entry, route="cuda", source=src + "fused_rmsnorm.cu",
+            replaces="src/repro/kernels/fused_rmsnorm/fused_rmsnorm.py:23",
+            launches=0, **by_shape["mamba2"], jamba_shape=by_shape["jamba"]))
     root = os.path.dirname(os.path.abspath(__file__))
     for r in rows:
         r["launches"] += totals[r["name"]]      # phases 19-27

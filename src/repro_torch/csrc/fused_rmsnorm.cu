@@ -32,6 +32,19 @@
 // store pass each read it (from L2 the second time).  The TPU kernel's
 // tile of 256 rows in VMEM becomes one row per block, so any T runs
 // without padding.
+//
+// Split rows (a row whose columns lie on several ranks: Mamba-2's gated
+// norm over d_inner under tensor parallelism, each rank holding its heads'
+// columns) run the same body in two entries, with the cross-rank sum in
+// between (an all-reduce on the host side):
+//   rmsnorm_sumsq_launch: per row, the f32 sum of squares of the rank's
+//     columns, stored to sumsq (T,): the body's loads and reduction, no
+//     store pass;
+//   rmsnorm_apply_launch: the body's scale-and-store, with the row's
+//     rsqrt(sumsq[row] / d_full + eps) taken from the summed sumsq in
+//     place of the reduction.
+// Each keeps the body's 16-byte and scalar instances and its streaming
+// form for long rows.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -101,12 +114,18 @@ __device__ __forceinline__ void store_items(__nv_bfloat16* p,
   }
 }
 
+// What a launch of the body does with a row
+enum Mode { kRow = 0, kSumsq = 1, kApply = 2 };
+
 // VEC: 16-byte items (else one element each); N: items a thread holds in
-// registers, or 0 to stream the row twice.
-template <typename T, typename S, bool VEC, int N>
+// registers, or 0 to stream the row twice; MODE: the whole row (kRow), its
+// sum of squares only (kSumsq, to sumsq[row]) or the scale-and-store from
+// a given sum over d_full columns (kApply).
+template <typename T, typename S, bool VEC, int N, int MODE>
 __global__ void __launch_bounds__(kMaxThreads)
 rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
-               T* __restrict__ out, int d, float eps) {
+               T* __restrict__ out, float* __restrict__ sumsq, int d,
+               float d_full, float eps) {
   constexpr int E = VEC ? 16 / (int)sizeof(T) : 1;   // elements per item
   __shared__ float warp_sums[kMaxThreads / 32];
   const long long row = blockIdx.x;
@@ -131,19 +150,29 @@ rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
     for (int j = 0; j < N; ++j)
 #pragma unroll
       for (int e = 0; e < E; ++e) ss += v[j][e] * v[j][e];
-  } else {
+  } else if constexpr (MODE != kApply) {
     for (int it = tid; it < items; it += nt) {
       load_items<T, E>(xr + it * E, v[0]);
 #pragma unroll
       for (int e = 0; e < E; ++e) ss += v[0][e] * v[0][e];
     }
   }
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  if ((tid & 31) == 0) warp_sums[tid >> 5] = ss;
-  __syncthreads();
-  float tot = 0.0f;
-  for (int w = 0; w < (nt + 31) / 32; ++w) tot += warp_sums[w];
-  const float r = rsqrtf(tot / (float)d + eps);
+  float r;
+  if constexpr (MODE == kApply) {
+    r = rsqrtf(sumsq[row] / d_full + eps);
+  } else {
+    for (int o = 16; o > 0; o >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if ((tid & 31) == 0) warp_sums[tid >> 5] = ss;
+    __syncthreads();
+    float tot = 0.0f;
+    for (int w = 0; w < (nt + 31) / 32; ++w) tot += warp_sums[w];
+    if constexpr (MODE == kSumsq) {
+      if (tid == 0) sumsq[row] = tot;
+      return;
+    }
+    r = rsqrtf(tot / (float)d + eps);
+  }
 
   float sc[E];
   if constexpr (N > 0) {
@@ -168,9 +197,10 @@ rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
   }
 }
 
-template <typename T, typename S, bool VEC>
-int launch_items(const void* x, const void* scale, void* out,
-                 long long rows, int d, float eps, cudaStream_t s) {
+template <typename T, typename S, bool VEC, int MODE>
+int launch_items(const void* x, const void* scale, void* out, float* sumsq,
+                 long long rows, int d, float d_full, float eps,
+                 cudaStream_t s) {
   constexpr int E = VEC ? 16 / (int)sizeof(T) : 1;
   const int items = d / E;
   int n = 1;
@@ -181,47 +211,85 @@ int launch_items(const void* x, const void* scale, void* out,
   const S* sp = (const S*)scale;
   T* op = (T*)out;
   if (threads > kMaxThreads) {
-    rmsnorm_kernel<T, S, VEC, 0><<<grid, kMaxThreads, 0, s>>>(xp, sp, op, d,
-                                                              eps);
+    rmsnorm_kernel<T, S, VEC, 0, MODE><<<grid, kMaxThreads, 0, s>>>(
+        xp, sp, op, sumsq, d, d_full, eps);
   } else if (n == 1) {
-    rmsnorm_kernel<T, S, VEC, 1><<<grid, threads, 0, s>>>(xp, sp, op, d, eps);
+    rmsnorm_kernel<T, S, VEC, 1, MODE><<<grid, threads, 0, s>>>(
+        xp, sp, op, sumsq, d, d_full, eps);
   } else if (n == 2) {
-    rmsnorm_kernel<T, S, VEC, 2><<<grid, threads, 0, s>>>(xp, sp, op, d, eps);
+    rmsnorm_kernel<T, S, VEC, 2, MODE><<<grid, threads, 0, s>>>(
+        xp, sp, op, sumsq, d, d_full, eps);
   } else {
-    rmsnorm_kernel<T, S, VEC, 4><<<grid, threads, 0, s>>>(xp, sp, op, d, eps);
+    rmsnorm_kernel<T, S, VEC, 4, MODE><<<grid, threads, 0, s>>>(
+        xp, sp, op, sumsq, d, d_full, eps);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename S>
-int launch(const void* x, const void* scale, void* out, long long rows,
-           int d, float eps, cudaStream_t s) {
+// the 16-byte instance where d and every pointer the mode reads or writes
+// (x; with kRow and kApply also scale and out) allow it
+template <typename T, typename S, int MODE>
+int launch(const void* x, const void* scale, void* out, float* sumsq,
+           long long rows, int d, float d_full, float eps, cudaStream_t s) {
   constexpr int E = 16 / (int)sizeof(T);
-  const bool aligned = d % E == 0 &&
-                       reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(scale) % 16 == 0;
-  return aligned ? launch_items<T, S, true>(x, scale, out, rows, d, eps, s)
-                 : launch_items<T, S, false>(x, scale, out, rows, d, eps, s);
+  const bool aligned =
+      d % E == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+      (MODE == kSumsq || (reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                          reinterpret_cast<uintptr_t>(scale) % 16 == 0));
+  return aligned
+             ? launch_items<T, S, true, MODE>(x, scale, out, sumsq, rows, d,
+                                              d_full, eps, s)
+             : launch_items<T, S, false, MODE>(x, scale, out, sumsq, rows, d,
+                                               d_full, eps, s);
+}
+
+template <int MODE>
+int dispatch(const void* x, const void* scale, void* out, float* sumsq,
+             long long T, int d, float d_full, float eps, int x_dtype,
+             int scale_dtype, cudaStream_t s) {
+  if (T <= 0 || d <= 0 || T > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (x_dtype == 0 && scale_dtype == 0)
+    return launch<float, float, MODE>(x, scale, out, sumsq, T, d, d_full,
+                                      eps, s);
+  if (x_dtype == 0 && scale_dtype == 1)
+    return launch<float, __nv_bfloat16, MODE>(x, scale, out, sumsq, T, d,
+                                              d_full, eps, s);
+  if (x_dtype == 1 && scale_dtype == 0)
+    return launch<__nv_bfloat16, float, MODE>(x, scale, out, sumsq, T, d,
+                                              d_full, eps, s);
+  if (x_dtype == 1 && scale_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16, MODE>(x, scale, out, sumsq,
+                                                      T, d, d_full, eps, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x_dtype / scale_dtype: 0 = float32, 1 = bfloat16.  Returns
+// x_dtype / scale_dtype: 0 = float32, 1 = bfloat16.  Each entry returns
 // cudaGetLastError(), or cudaErrorInvalidValue on a bad shape or dtype.
 extern "C" int fused_rmsnorm_launch(const void* x, const void* scale,
                                     void* out, long long T, int d, float eps,
                                     int x_dtype, int scale_dtype,
                                     void* stream) {
-  if (T <= 0 || d <= 0 || T > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (x_dtype == 0 && scale_dtype == 0)
-    return launch<float, float>(x, scale, out, T, d, eps, s);
-  if (x_dtype == 0 && scale_dtype == 1)
-    return launch<float, __nv_bfloat16>(x, scale, out, T, d, eps, s);
-  if (x_dtype == 1 && scale_dtype == 0)
-    return launch<__nv_bfloat16, float>(x, scale, out, T, d, eps, s);
-  if (x_dtype == 1 && scale_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, T, d, eps, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<kRow>(x, scale, out, nullptr, T, d, (float)d, eps, x_dtype,
+                        scale_dtype, (cudaStream_t)stream);
+}
+
+// sumsq (T,) float32: each row's sum of squares of its d columns.
+extern "C" int rmsnorm_sumsq_launch(const void* x, float* sumsq, long long T,
+                                    int d, int x_dtype, void* stream) {
+  return dispatch<kSumsq>(x, nullptr, nullptr, sumsq, T, d, (float)d, 0.0f,
+                          x_dtype, 0, (cudaStream_t)stream);
+}
+
+// out = x * rsqrt(sumsq[row] / d_full + eps) * scale over the row's d
+// columns; sumsq (T,) float32 is the whole row's sum of squares.
+extern "C" int rmsnorm_apply_launch(const void* x, const float* sumsq,
+                                    const void* scale, void* out, long long T,
+                                    int d, int d_full, float eps, int x_dtype,
+                                    int scale_dtype, void* stream) {
+  if (d_full < d) return (int)cudaErrorInvalidValue;
+  return dispatch<kApply>(x, scale, out, const_cast<float*>(sumsq), T, d,
+                          (float)d_full, eps, x_dtype, scale_dtype,
+                          (cudaStream_t)stream);
 }

@@ -23,7 +23,15 @@ a logical axis and each an autograd Function with the Megatron pairing:
 - :func:`gather_from` / :func:`split_to`: the all-gather of a split
   activation and its inverse;
 - :func:`fsdp_gather`: a parameter's FSDP gather, whose backward is the
-  reduce-scatter of its gradient.
+  reduce-scatter of its gradient;
+- :func:`all_sum`: a sum over ranks whose gradient is a sum too (each
+  rank uses the summed statistic for its own columns: the split-row
+  RMSNorm's sum of squares).
+
+A leaf whose rank block is not one contiguous block of the whole leaf
+(Mamba-2's ``in_proj``, whose rank holds its heads' z, x and dt columns and
+the B and C columns whole) has a :class:`HeadSplit` spec: the blocks are
+contiguous in the leaf with its last dim re-ordered rank by rank.
 
 Each is the identity outside a mesh (and over axes of size 1), so every
 single-device path runs bit for bit as before.  Under a dry mesh each
@@ -44,6 +52,40 @@ import torch
 
 Logical = Union[None, str, Sequence[str]]
 Spec = Tuple            # one entry per dim: None, an axis name or a tuple
+
+
+class HeadSplit(tuple):
+    """A spec over the *expanded* leaf: the whole leaf with its last dim
+    re-ordered (and some columns repeated) so that each rank's block is
+    contiguous; ``index[j]`` is the whole leaf's column at expanded
+    position ``j``.  A column that appears more than once is replicated
+    (the first copy counts as its owner's, :func:`owned_columns`).  As a
+    tuple it is the spec's entries on the expanded leaf."""
+
+    def __new__(cls, spec, index):
+        obj = super().__new__(cls, spec)
+        obj.index = tuple(int(i) for i in index)
+        first = {}
+        for j, i in enumerate(obj.index):
+            first.setdefault(i, j)
+        # the expanded position of each whole column's first copy
+        obj.first = tuple(first[i] for i in range(len(first)))
+        obj.width = len(obj.first)
+        return obj
+
+
+def expanded_shape(shape, spec) -> tuple:
+    """``shape`` of a whole leaf as its spec splits it: the last dim of a
+    :class:`HeadSplit` leaf is its expanded width."""
+    shape = tuple(shape)
+    if isinstance(spec, HeadSplit):
+        return shape[:-1] + (len(spec.index),)
+    return shape
+
+
+def _whole_columns(x: torch.Tensor, spec: HeadSplit) -> torch.Tensor:
+    """The whole leaf from the expanded one: each column's first copy."""
+    return x.index_select(-1, torch.tensor(spec.first, device=x.device))
 
 
 class Mesh:
@@ -274,6 +316,17 @@ class _CopyTo(torch.autograd.Function):
         return _all_reduce(ctx.mesh, ctx.axes, g), None, None
 
 
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _all_reduce(mesh, axes, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(ctx.mesh, ctx.axes, g), None, None
+
+
 def _split(mesh, axes, x, dim):
     n = mesh.axis_size(axes)
     return x.chunk(n, dim=dim)[_my_index(mesh, axes)].contiguous()
@@ -319,6 +372,16 @@ def copy_to(x: torch.Tensor, logical: Logical = "model") -> torch.Tensor:
     forward identity, backward the sum of the ranks' gradients."""
     mesh, axes = _active(logical)
     return x if not axes else _CopyTo.apply(x, mesh, axes)
+
+
+def all_sum(x: torch.Tensor, logical: Logical = "model") -> torch.Tensor:
+    """Sum ``x`` over the ranks of ``logical``, where every rank then uses
+    the sum for its own part of the output (the split-row RMSNorm's
+    statistic): the gradient of each rank's ``x`` is the sum of the ranks'
+    gradients of the sum (where :func:`reduce_from`'s is the identity).
+    Identity outside a mesh."""
+    mesh, axes = _active(logical)
+    return x if not axes else _AllSum.apply(x, mesh, axes)
 
 
 def gather_from(x: torch.Tensor, logical: Logical = "model",
@@ -484,7 +547,8 @@ def fsdp_gather(local: torch.Tensor, spec: Spec, full_shape
     if mesh is None or all(mesh.sizes[a] == 1 for a in ("pod", "data")
                            if a in mesh.axis_names):
         return local
-    return _FsdpGather.apply(local, mesh, spec, tuple(full_shape))
+    return _FsdpGather.apply(local, mesh, tuple(spec),
+                             expanded_shape(full_shape, spec))
 
 
 def gather_full(local: torch.Tensor, spec: Spec, full_shape,
@@ -495,11 +559,13 @@ def gather_full(local: torch.Tensor, spec: Spec, full_shape,
                  if any(a in e for e in _entries(spec, local.dim()))
                  and mesh.sizes[a] > 1)
     if not axes:
-        return local.detach().clone()
-    blocks = _all_gather(mesh, axes, local.detach().contiguous())
-    region = [(0, n) for n in full_shape]
-    return _assemble(mesh, full_shape, spec, mesh.members(axes), blocks,
-                     region)
+        out = local.detach().clone()
+    else:
+        blocks = _all_gather(mesh, axes, local.detach().contiguous())
+        shape = expanded_shape(full_shape, spec)
+        out = _assemble(mesh, shape, tuple(spec), mesh.members(axes),
+                        blocks, [(0, n) for n in shape])
+    return _whole_columns(out, spec) if isinstance(spec, HeadSplit) else out
 
 
 def all_reduce_sum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None,

@@ -19,16 +19,31 @@ reference's spec of the stacked leaf it belongs to, computed on the
 stacked shape (:func:`ref_leaf`), leading stack entries included; a rank
 holds a layer's block by the entries of the leaf's own dims
 (:func:`shard_leaf` refuses a spec that splits the stack itself).
+
+Where the reference's rules let GSPMD cut a leaf anywhere and reshard
+after, the port executes blocks that follow the computation: a Mamba-2
+layer's ``model`` rank holds its heads.  ``in_proj`` packs the columns z,
+x, B, C and dt (D, 2 di + 2 N + H), so a contiguous block of them (the
+spec's) mixes all five; the port's rank ``r`` of ``m`` holds z and x of
+heads ``[r H/m, (r+1) H/m)``, B and C whole (one group: they feed every
+head, as in Mamba's own tensor parallelism) and dt of its heads; the same
+channels of ``conv_w``/``conv_b`` and of the ``conv`` cache; its heads of
+``A_log``/``D_skip``/``dt_bias`` (replicated in the spec).
+:func:`param_layouts` and :func:`cache_layouts` give these leaves a
+:class:`~repro_torch.distributed.ctx.HeadSplit` spec in place of the
+reference's; every other leaf keeps the sanitized spec.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.distributed.ctx import Mesh, Spec, _as_tuple, _entries
+from repro_torch.distributed.ctx import (HeadSplit, Mesh, Spec, _as_tuple,
+                                        _entries, block_region,
+                                        expanded_shape)
 from repro_torch.models.config import ArchConfig, ShapeSpec
 
 # the reference's hybrid group layout (repro_torch.models.model's
@@ -256,11 +271,113 @@ def sanitize_specs(shape_tree, spec_tree, mesh):
 
 # ------------------------------------------------------------ rank blocks
 
+# --------------------------------------------------- the port's Mamba blocks
+
+# the Mamba leaves the port holds by heads, and what their last dim holds:
+# the packed projection, the conv's channels, one entry per head
+MAMBA_LEAVES = {"in_proj": "proj", "conv_w": "conv", "conv_b": "conv",
+                "A_log": "head", "D_skip": "head", "dt_bias": "head"}
+
+
+def head_split_index(cfg: ArchConfig, m: int, kind: str) -> list:
+    """The whole leaf's column at each position of the expanded last dim
+    of a Mamba leaf of ``kind`` (``proj``: in_proj's z, x, B, C, dt;
+    ``conv``: x, B, C; ``head``: one per head) on a ``model`` axis of
+    ``m``: rank by rank, its heads' z and x, B and C whole, its dt."""
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    out = []
+    for r in range(m):
+        xs = list(range(r * di // m, (r + 1) * di // m))
+        hs = range(r * H // m, (r + 1) * H // m)
+        if kind == "proj":
+            out += xs + [di + i for i in xs] + list(range(2 * di,
+                                                          2 * di + 2 * N))
+            out += [2 * di + 2 * N + h for h in hs]
+        elif kind == "conv":
+            out += xs + list(range(di, di + 2 * N))
+        else:
+            out += list(hs)
+    return out
+
+
+def _head_split(cfg: ArchConfig, kind: str, spec: Spec, mesh: Mesh):
+    """``spec`` (sanitized, on the stacked leaf) as the port's
+    :class:`HeadSplit` of a Mamba leaf of ``kind``, or the spec itself
+    where the ``model`` axis has one rank or the spec does not split the
+    last dim over ``model`` alone (:meth:`Model._check_layout` refuses
+    that layout)."""
+    m = mesh.sizes.get("model", 1)
+    spec = tuple(spec)
+    last = _as_tuple(spec[-1]) if spec else ()
+    if m == 1 or (kind != "head" and last != ("model",)) or \
+            (kind == "head" and last):
+        return spec
+    return HeadSplit(spec[:-1] + ("model",),
+                     head_split_index(cfg, m, kind))
+
+
+def param_layouts(cfg: ArchConfig, params, mode: str, mesh: Mesh,
+                  specs=None):
+    """The spec tree by which the port holds ``params`` (whole leaves or
+    anything with ``.shape``) on ``mesh``: ``specs`` (default
+    :func:`sanitized_param_specs`), with each Mamba leaf of
+    :data:`MAMBA_LEAVES` under a layer's ``ssm`` as its :class:`HeadSplit`,
+    and a spec that splits a layer stack replaced by the leaf's own rule
+    on its per-layer shape (the reference's MoE rule, which reads the
+    stacked shape, takes a hybrid's stack of 4 dense FFNs for experts when
+    there are 4 experts, as in jamba's smoke config, and puts ``model`` on
+    the stack; the port holds every layer on every rank, so such a leaf is
+    held as the dense FFN it is)."""
+    if specs is None:
+        specs = sanitized_param_specs(cfg, params, mode, mesh)
+
+    def visit(path, leaf):
+        spec = spec_at(specs, path)
+        extra = len(spec) - len(leaf.shape)
+        if extra > 0 and any(_as_tuple(e) for e in spec[:extra]):
+            ref_path, stacked = ref_leaf(cfg, path, leaf.shape)
+            own = param_partition_spec(cfg, ref_path, tuple(leaf.shape),
+                                       mode)
+            spec = sanitize_spec(stacked, (None,) * extra + tuple(own),
+                                 mesh)
+        kind = MAMBA_LEAVES.get(path[-1])
+        if kind and len(path) >= 2 and path[-2] == "ssm":
+            return _head_split(cfg, kind, spec, mesh)
+        return spec
+    return map_with_path(visit, params)
+
+
+def cache_layouts(cfg: ArchConfig, shapes: Dict[str, tuple],
+                  shape: ShapeSpec, mesh) -> Dict[str, Spec]:
+    """The sanitized cache specs of a cache of ``shapes`` (whole shapes by
+    key) as the port holds it: the ``conv`` state's channels by
+    :func:`_head_split`."""
+    specs = sanitize_specs(shapes, cache_specs(cfg, shape, mesh), mesh)
+    if "conv" in specs:
+        specs["conv"] = _head_split(cfg, "conv", specs["conv"], mesh)
+    return specs
+
+
+def owned_columns(spec: Spec, mesh: Mesh) -> Optional[torch.Tensor]:
+    """The positions of this rank's block of a :class:`HeadSplit` leaf
+    (on its last dim) whose column this rank owns: each replicated
+    column's first copy (rank 0's B and C), so that a sum over the ranks
+    counts every column once; None for any other spec (every position)."""
+    if not isinstance(spec, HeadSplit):
+        return None
+    lo, hi = block_region(mesh, (len(spec.index),), spec[-1:],
+                          mesh.coords)[0]
+    return torch.tensor([j - lo for j in range(lo, hi)
+                         if spec.first[spec.index[j]] == j])
+
+
 def local_shape(shape, spec: Spec, mesh: Mesh) -> tuple:
     """The shape of one rank's block of a leaf of ``shape`` by ``spec``
     (a stacked spec's leading entries split the leading dims of a stacked
-    ``shape``, or are dropped for a per-layer one)."""
+    ``shape``, or are dropped for a per-layer one; a :class:`HeadSplit`
+    splits the expanded last dim)."""
     sizes = mesh.sizes
+    shape = expanded_shape(shape, spec)
     out = []
     for n, axes in zip(shape, _entries(spec, len(shape))):
         parts = math.prod(sizes[a] for a in axes)
@@ -279,8 +396,9 @@ def shard_leaf(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
     if extra > 0 and any(_as_tuple(e) for e in spec[:extra]):
         raise ValueError(f"spec {spec} splits the layer stack of a leaf "
                          f"of shape {tuple(t.shape)} on {mesh.describe()}")
-    from repro_torch.distributed.ctx import block_region
-    region = block_region(mesh, tuple(t.shape), spec, mesh.coords)
+    if isinstance(spec, HeadSplit):
+        t = t.index_select(-1, torch.tensor(spec.index, device=t.device))
+    region = block_region(mesh, tuple(t.shape), tuple(spec), mesh.coords)
     return t[tuple(slice(a, b) for a, b in region)].clone()
 
 

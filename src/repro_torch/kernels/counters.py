@@ -33,6 +33,9 @@ WRAPPERS = {
     "kv_dequantize": _kv_quant.kv_dequantize,
     "paged_attention_q8": _kv_quant.paged_attention_q8,
     "fused_rmsnorm": _rmsnorm.fused_rmsnorm,
+    # row 7's split-row entries (a row's columns over the ``model`` ranks)
+    "rmsnorm_sumsq": _rmsnorm.rmsnorm_sumsq,
+    "rmsnorm_apply": _rmsnorm.rmsnorm_apply,
     "ssd_chunk": _ssd.ssd_chunk,
 }
 # library (csrc/<name>.cu) -> the wrapper module whose body_launches()

@@ -20,11 +20,15 @@ cell it
   record their kind and operand bytes without communicating: it counts the
   code that runs, as the reference parses the HLO it compiled.
 
-A cell the port cannot execute sharded (the ``ssm``, hybrid and
-encoder-decoder families, heads the ``model`` axis would split inside,
-the ``long_500k`` cell whose KV sequence the spec splits over ``data``)
-records its memory and roofline with ``"collectives": null`` and the
-reason.  Results append to a JSONL file, so the sweep is resumable.
+Per-rank bytes follow the blocks the port holds (``Model.layouts``):
+where a Mamba layer's rank holds B and C whole and its heads of the SSM
+constants (``distributed/sharding.py``), the record gives the spec's
+figure beside it (``spec_param_bytes``, ``spec_opt_state_bytes``,
+``spec_cache_bytes``).  A cell the port cannot execute sharded (heads the
+``model`` axis would split inside, the ``long_500k`` cell whose KV
+sequence the spec splits over ``data``) records its memory and roofline
+with ``"collectives": null`` and the reason.  Results append to a JSONL
+file, so the sweep is resumable.
 """
 from __future__ import annotations
 
@@ -39,8 +43,9 @@ import torch
 
 from repro_torch.configs import ASSIGNED_ARCHS, get_config
 from repro_torch.distributed.ctx import Mesh
-from repro_torch.distributed.sharding import (batch_specs, cache_specs,
-                                              local_shape, ref_leaf,
+from repro_torch.distributed.sharding import (batch_specs, cache_layouts,
+                                              cache_specs, local_shape,
+                                              param_layouts, ref_leaf,
                                               sanitize_specs,
                                               sanitized_param_specs,
                                               spec_at, zip_map)
@@ -93,11 +98,13 @@ def _bytes(shapes: dict, specs: dict, mesh: Mesh) -> int:
                for k, (s, dt) in shapes.items())
 
 
-def param_bytes(cfg, whole, mode: str, mesh: Mesh):
+def param_bytes(cfg, whole, mode: str, mesh: Mesh, spec: bool = False):
     """Per-rank bytes of the params (and, in ``train`` mode, of the f32
     AdamW moments ``m`` and ``v``), summed over the reference's stacked
-    leaves by their sanitized specs."""
-    specs = sanitized_param_specs(cfg, whole, mode, mesh)
+    leaves by the blocks the port holds (``sharding.param_layouts``), or
+    with ``spec`` by the reference's sanitized specs."""
+    specs = (sanitized_param_specs if spec else param_layouts)(
+        cfg, whole, mode, mesh)
     stacked = {}
     for path, t in tree_leaves(whole):
         ref, shape = ref_leaf(cfg, path, t.shape)
@@ -135,7 +142,7 @@ def run_rank_step(cfg, shape, mesh: Mesh, opt: dict, whole) -> dict:
     model = _model_for(cfg, opt, mesh)
     mode = "train" if shape.kind == "train" else "serving"
     model._check_layout(mode)
-    specs = model.specs(mode)
+    specs = model.layouts(mode)
     params = zip_map(lambda t, s: _meta(local_shape(t.shape, s, mesh),
                                         t.dtype), whole, specs)
     one = _model_for(cfg, opt)
@@ -154,8 +161,8 @@ def run_rank_step(cfg, shape, mesh: Mesh, opt: dict, whole) -> dict:
         model.prefill(params, batch)
     else:
         cache_sh = ins["cache"]
-        cspec = sanitize_specs({k: s for k, (s, _) in cache_sh.items()},
-                               cache_specs(cfg, shape, mesh), mesh)
+        cspec = cache_layouts(cfg, {k: s for k, (s, _) in cache_sh.items()},
+                              shape, mesh)
         cache = {k: _meta(local_shape(s, cspec[k], mesh), dt)
                  for k, (s, dt) in cache_sh.items()}
         model.decode_step(params, cache, batch["tokens"])
@@ -180,6 +187,8 @@ def dry_cell(arch: str, shape_name: str, mesh: Mesh, *, opt: dict = None,
     whole = one.init(torch.Generator())
     mode = "train" if shape.kind == "train" else "serving"
     p_bytes, opt_bytes = param_bytes(cfg, whole, mode, mesh)
+    spec_bytes = dict(zip(("spec_param_bytes", "spec_opt_state_bytes"),
+                          param_bytes(cfg, whole, mode, mesh, spec=True)))
     ins = input_shapes(cfg, shape, one)
     bspec = batch_specs(cfg, shape, mesh)
     shapes_b = {k: v for k, v in ins.items() if k != "cache"}
@@ -188,9 +197,13 @@ def dry_cell(arch: str, shape_name: str, mesh: Mesh, *, opt: dict = None,
     c_bytes, cspec = 0, None
     if "cache" in ins:
         cs = ins["cache"]
-        cspec = sanitize_specs({k: s for k, (s, _) in cs.items()},
-                               cache_specs(cfg, shape, mesh), mesh)
-        c_bytes = _bytes(cs, cspec, mesh)
+        shapes_c = {k: s for k, (s, _) in cs.items()}
+        cspec = sanitize_specs(shapes_c, cache_specs(cfg, shape, mesh), mesh)
+        c_bytes = _bytes(cs, cache_layouts(cfg, shapes_c, shape, mesh), mesh)
+        spec_bytes["spec_cache_bytes"] = _bytes(cs, cspec, mesh)
+    own = {"spec_param_bytes": p_bytes, "spec_opt_state_bytes": opt_bytes,
+           "spec_cache_bytes": c_bytes}
+    spec_bytes = {k: n for k, n in spec_bytes.items() if n != own[k]}
     kv_bytes = dtype_of(opt.get("kv_dtype", "bfloat16")).itemsize
     cost = roofline.cell_cost(cfg, shape, attn_chunk=opt.get(
         "attn_chunk", 1024), kv_bytes=kv_bytes)
@@ -209,7 +222,8 @@ def dry_cell(arch: str, shape_name: str, mesh: Mesh, *, opt: dict = None,
         "device": roofline.DEVICE, "opt": opt,
         "memory": {"param_bytes": p_bytes, "opt_state_bytes": opt_bytes,
                    "cache_bytes": c_bytes, "batch_bytes": b_bytes,
-                   "total_bytes": p_bytes + opt_bytes + c_bytes + b_bytes},
+                   "total_bytes": p_bytes + opt_bytes + c_bytes + b_bytes,
+                   **spec_bytes},
         "cost": {"flops_per_device": flops_dev,
                  "bytes_per_device": bytes_dev},
         "collectives": coll,

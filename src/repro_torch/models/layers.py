@@ -12,11 +12,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.ctx import (axis_index, copy_to, gather_counts,
-                                        reduce_from)
+from repro_torch.distributed.ctx import (all_sum, axis_index, copy_to,
+                                        gather_counts, reduce_from)
 from repro_torch.kernels.flash_prefill import FlashPrefill
-from repro_torch.kernels.fused_rmsnorm import (FusedRMSNorm, fused_rmsnorm,
-                                               rmsnorm_ref)
+from repro_torch.kernels.fused_rmsnorm import (FusedRMSNorm, RMSNormApply,
+                                               RMSNormSumsq, fused_rmsnorm,
+                                               rmsnorm_apply,
+                                               rmsnorm_apply_ref,
+                                               rmsnorm_ref, rmsnorm_sumsq,
+                                               rmsnorm_sumsq_ref)
 from repro_torch.models.config import ArchConfig
 
 # --------------------------------------------------------------------- init
@@ -40,18 +44,28 @@ def init_norm(cfg: ArchConfig, dim: int, dtype, device=None):
 
 
 def apply_norm(cfg: ArchConfig, p, x, eps: float = 1e-5, *,
-               use_kernel: bool = True):
+               use_kernel: bool = True, over_model: bool = False):
     """RMSNorm or LayerNorm over the last axis, in float32, returned in x's
     dtype.  RMSNorm goes through the fused kernel (the CUDA kernel for a
     CUDA tensor, its plain version for a CPU tensor) over x viewed as
     (rows, d): through its autograd Function when grad mode is on and an
     input requires grad, else through the raw wrapper, which costs less
     host time per call (the decode steps); ``use_kernel=False`` takes the
-    plain version on any device.  LayerNorm stays plain."""
+    plain version on any device.  LayerNorm stays plain.
+
+    ``over_model``: x holds this rank's columns of rows split over the
+    ``model`` axis (Mamba-2's gated norm over ``d_inner``, each rank
+    holding its heads' columns).  Where that axis has more than one rank
+    the norm takes the split form (:func:`_split_rmsnorm`); elsewhere it is
+    the norm above, bit for bit."""
     if cfg.norm_type != "layernorm":
         rows = x.reshape(-1, x.shape[-1]).contiguous()
         scale = p["scale"]
-        if not use_kernel:
+        m = axis_index("model")[1] if over_model else 1
+        if m > 1:
+            y = _split_rmsnorm(rows, scale, rows.shape[1] * m, eps,
+                               use_kernel)
+        elif not use_kernel:
             y = rmsnorm_ref(rows, scale, eps)
         elif torch.is_grad_enabled() and (rows.requires_grad
                                           or scale.requires_grad):
@@ -59,11 +73,34 @@ def apply_norm(cfg: ArchConfig, p, x, eps: float = 1e-5, *,
         else:
             y = fused_rmsnorm(rows, scale, eps)
         return y.reshape(x.shape)
+    if over_model and axis_index("model")[1] > 1:
+        raise ValueError("a LayerNorm over columns split over 'model' is "
+                         "not executed")
     xf = x.float()
     xf = xf - xf.mean(-1, keepdim=True)
     var = (xf * xf).mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * p["scale"].float() + p["bias"].float()
     return y.to(x.dtype)
+
+
+def _split_rmsnorm(rows, scale, d_full: int, eps: float, use_kernel: bool):
+    """RMSNorm of rows whose ``d_full`` columns lie on the ``model`` ranks,
+    ``rows`` (T, d) and ``scale`` (d,) this rank's: each rank's float32
+    sum of squares, summed over the ranks (:func:`ctx.all_sum`, whose
+    gradient is summed too), then each rank's scale-and-store from the
+    sum.  Row 7's split entries (``rmsnorm_sumsq``, ``rmsnorm_apply``)
+    through their autograd Functions when an input requires grad, their
+    raw wrappers otherwise, or their plain twins with ``use_kernel``
+    off."""
+    if not use_kernel:
+        total = all_sum(rmsnorm_sumsq_ref(rows), "model")
+        return rmsnorm_apply_ref(rows, total, scale, d_full, eps)
+    if torch.is_grad_enabled() and (rows.requires_grad
+                                    or scale.requires_grad):
+        total = all_sum(RMSNormSumsq.apply(rows), "model")
+        return RMSNormApply.apply(rows, total, scale, d_full, eps)
+    total = all_sum(rmsnorm_sumsq(rows), "model")
+    return rmsnorm_apply(rows, total, scale, d_full, eps)
 
 
 # --------------------------------------------------------------------- RoPE

@@ -13,12 +13,25 @@ State:   ssm (B,H,P,N) float32, conv (B,W-1,di+2N).
 step to their kernel wrappers, which launch the CUDA kernels for CUDA
 tensors and take the plain versions for CPU tensors; False runs the plain
 versions on any device.
+
+Under tensor parallelism (a mesh whose ``model`` axis has m > 1 ranks) a
+block's parameters are the rank's heads (``distributed/sharding.py``:
+``in_proj`` columns z and x of its H/m heads, B and C whole, dt of its
+heads; the conv's channels likewise; its heads of ``A_log``, ``D_skip``,
+``dt_bias``, of the gated norm's scale and of ``out_proj``'s rows).  The
+block then takes its input through ``copy_to``, runs the conv, the SSD
+scan and the recurrent step on its heads (B and C on every rank), the
+gated norm over ``d_inner`` in its split form (the sum of squares summed
+over the ranks) and ``out_proj``'s partial sum through ``reduce_from``.
+The sizes come from the parameters, so one code path serves one device
+and a rank.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.ctx import axis_index, copy_to, reduce_from
 from repro_torch.kernels.ssd_scan import ssd_chunked_fused
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _dense_init, apply_norm, init_norm
@@ -89,8 +102,28 @@ def init_mamba_block(cfg: ArchConfig, gen: torch.Generator, dtype,
     }
 
 
-def _split_proj(cfg: ArchConfig, zxbcdt):
-    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+def _sizes(cfg: ArchConfig, p):
+    """``(di, N, H, P)`` of the block ``p``: its heads (H/m of a rank's
+    block, all of them on one device), their ``di = H P`` columns, the
+    state size and the head dim."""
+    H = p["A_log"].shape[0]
+    return H * cfg.ssm_headdim, cfg.ssm_state, H, cfg.ssm_headdim
+
+
+def _shared_bc(w, lo: int, hi: int):
+    """``w`` whose columns ``[lo, hi)`` (B and C, held whole by every
+    ``model`` rank) take the sum of the ranks' gradients (each rank's B and
+    C feed only its heads), when gradients flow and the axis has more
+    than one rank; else ``w`` itself."""
+    if not (torch.is_grad_enabled() and w.requires_grad) or \
+            axis_index("model")[1] == 1:
+        return w
+    return torch.cat([w[..., :lo], copy_to(w[..., lo:hi], "model"),
+                      w[..., hi:]], dim=-1)
+
+
+def _split_proj(cfg: ArchConfig, zxbcdt, H: int):
+    di, N = H * cfg.ssm_headdim, cfg.ssm_state
     z = zxbcdt[..., :di]
     xBC = zxbcdt[..., di:di + di + 2 * N]
     dt = zxbcdt[..., di + di + 2 * N:]
@@ -98,6 +131,15 @@ def _split_proj(cfg: ArchConfig, zxbcdt):
         raise ValueError(f"in_proj width gives {dt.shape[-1]} dt heads, "
                          f"want {H}")
     return z, xBC, dt
+
+
+def _project(cfg: ArchConfig, p, x, di: int, N: int):
+    """``x @ in_proj`` (replicated ``x`` for the rank's columns) and the
+    conv's weight and bias, B and C's gradients summed over ``model``."""
+    x = copy_to(x, "model")
+    zxbcdt = x @ _shared_bc(p["in_proj"], 2 * di, 2 * di + 2 * N)
+    return (zxbcdt, _shared_bc(p["conv_w"], di, di + 2 * N),
+            _shared_bc(p["conv_b"], di, di + 2 * N))
 
 
 def _causal_conv(xBC, w, b, initial=None):
@@ -121,11 +163,11 @@ def mamba_block(cfg: ArchConfig, p, x, *, chunk: int = 256, initial=None,
     """Full-sequence Mamba-2 mixer.  x: (B,S,D) -> (B,S,D) (and the final
     ``{"conv", "ssm"}`` state when ``return_state``)."""
     Bsz, S, D = x.shape
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
-    zxbcdt = x @ p["in_proj"]
-    z, xBC, dt = _split_proj(cfg, zxbcdt)
+    di, N, H, P = _sizes(cfg, p)
+    zxbcdt, conv_w, conv_b = _project(cfg, p, x, di, N)
+    z, xBC, dt = _split_proj(cfg, zxbcdt, H)
     conv_init = initial["conv"] if initial is not None else None
-    xBC, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_init)
+    xBC, conv_state = _causal_conv(xBC, conv_w, conv_b, conv_init)
     xs = xBC[..., :di].reshape(Bsz, S, H, P)
     Bmat = xBC[..., di:di + N]
     Cmat = xBC[..., di + N:]
@@ -136,8 +178,9 @@ def mamba_block(cfg: ArchConfig, p, x, *, chunk: int = 256, initial=None,
                                initial_state=ssm_init, use_kernel=use_kernel)
     y = y + xs * p["D_skip"][None, None, :, None].to(y.dtype)
     y = y.reshape(Bsz, S, di)
-    y = apply_norm(cfg, p["gate_norm"], y * F.silu(z), use_kernel=use_kernel)
-    out = y @ p["out_proj"]
+    y = apply_norm(cfg, p["gate_norm"], y * F.silu(z), use_kernel=use_kernel,
+                   over_model=True)
+    out = reduce_from(y @ p["out_proj"], "model")
     if return_state:
         return out, {"conv": conv_state, "ssm": ssm_state}
     return out
@@ -148,14 +191,14 @@ def mamba_decode_step(cfg: ArchConfig, p, x, state, *,
     """One-token decode.  x: (B,D); state: {conv:(B,W-1,Ch), ssm:(B,H,P,N)}.
     Returns (out (B,D), new state); the inputs are not modified."""
     Bsz, D = x.shape
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
-    zxbcdt = x @ p["in_proj"]
-    z, xBC, dt = _split_proj(cfg, zxbcdt)
+    di, N, H, P = _sizes(cfg, p)
+    zxbcdt, conv_w, conv_b = _project(cfg, p, x, di, N)
+    z, xBC, dt = _split_proj(cfg, zxbcdt, H)
     # conv: shift register, in float32
     window = torch.cat([state["conv"], xBC[:, None, :].to(state["conv"].dtype)],
                        dim=1)                                      # (B,W,Ch)
-    out = torch.einsum("bwc,wc->bc", window.float(), p["conv_w"].float())
-    xBC = F.silu(out + p["conv_b"].float()).to(x.dtype)
+    out = torch.einsum("bwc,wc->bc", window.float(), conv_w.float())
+    xBC = F.silu(out + conv_b.float()).to(x.dtype)
     new_conv = window[:, 1:, :]
     xs = xBC[..., :di].reshape(Bsz, H, P)
     Bmat = xBC[..., di:di + N]
@@ -165,8 +208,10 @@ def mamba_decode_step(cfg: ArchConfig, p, x, state, *,
     y, new_ssm = ssd_decode_step(state["ssm"], xs, dt, A, Bmat, Cmat)
     y = y + xs * p["D_skip"][None, :, None].to(y.dtype)
     y = y.reshape(Bsz, di)
-    y = apply_norm(cfg, p["gate_norm"], y * F.silu(z), use_kernel=use_kernel)
-    return y @ p["out_proj"], {"conv": new_conv, "ssm": new_ssm}
+    y = apply_norm(cfg, p["gate_norm"], y * F.silu(z), use_kernel=use_kernel,
+                   over_model=True)
+    return (reduce_from(y @ p["out_proj"], "model"),
+            {"conv": new_conv, "ssm": new_ssm})
 
 
 def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16,

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed import ctx as C
-from repro_torch.distributed.sharding import (map_with_path,
+from repro_torch.distributed.sharding import (map_with_path, param_layouts,
                                               sanitized_param_specs,
                                               shard_params, spec_at)
 from repro_torch.kernels.flash_prefill import flash_prefill_prefix
@@ -227,17 +227,22 @@ class Model:
     sharded execution (``distributed/sharding.py``): Megatron tensor
     parallelism over the ``model`` axis (H/m query heads, KVH/m KV heads
     and d_ff/m of the FFN a rank; each ``wo`` product followed by the
-    ``model`` all-reduce), expert parallelism (the rank's ``model``
-    coordinate sets ``expert_shard``, and the shares' outputs are summed
-    over ``model``: the exchange), the batch over (``pod``, ``data``).
-    :meth:`prefill` and :meth:`decode_step` take the rank's block of the
-    serving-mode params (:meth:`shard`), its rows of the batch and its
+    ``model`` all-reduce; a Mamba-2 layer's H/m SSM heads, its gated norm
+    split over the ranks and ``out_proj`` followed by the all-reduce; an
+    encoder's and a cross-attention's heads likewise), expert parallelism
+    (the rank's ``model`` coordinate sets its part of the experts, and the
+    parts' outputs are summed over ``model``: the exchange; an explicit
+    ``expert_shard`` is split further over ``model``), the batch over
+    (``pod``, ``data``).  Every family runs sharded: :meth:`prefill` and
+    :meth:`decode_step` take the rank's block of the serving-mode params
+    (:meth:`shard`, by :meth:`layouts`), its rows of the batch and its
     heads of the cache; :meth:`loss` takes the train-mode (FSDP x TP)
     blocks and gathers each layer's ``data`` shards just before its use.
-    :meth:`init` draws the whole model.  Only the attention family runs
-    sharded, and only where the spec keeps heads whole; the other entry
-    points, and the ``ssm``, hybrid and encoder-decoder families, raise on
-    a mesh of more than one rank.
+    :meth:`init` draws the whole model (or, given a ``mode``, keeps the
+    rank's blocks layer by layer).  Heads that the ``model`` axis would
+    split inside, the seq-split decode cache and the engine's entry points
+    (paged, chunk, pack and verify calls) raise on a mesh of more than one
+    rank.
     """
 
     def __init__(self, cfg: ArchConfig, *, kv_dtype: str = "bfloat16",
@@ -252,13 +257,15 @@ class Model:
             hybrid_groups(cfg)
         self.mesh = mesh
         self._layouts = {}
+        # the experts every rank's draw holds (None: all of them)
+        self.share = expert_range(cfg, expert_shard or (0, 1))
         if mesh is not None:
-            if expert_shard is not None:
-                raise ValueError("the mesh sets expert_shard: pass one")
-            m = mesh.sizes.get("model", 1)
-            expert_shard = (mesh.coord("model"), m) if cfg.has_moe \
-                else (0, 1)
             self._check_mesh(cfg, mesh, pad_experts_to)
+            m = mesh.sizes.get("model", 1)
+            i, n = expert_shard or (0, 1)
+            # an explicit share is split further over ``model``
+            expert_shard = (i * m + mesh.coord("model"), n * m) \
+                if cfg.has_moe else (0, 1)
         self.experts = expert_range(cfg, expert_shard or (0, 1))
         if self.experts is not None and pad_experts_to:
             raise ValueError("expert_shard and pad_experts_to do not combine")
@@ -280,25 +287,25 @@ class Model:
     # ---------------------------------------------------------------- mesh
     @staticmethod
     def _check_mesh(cfg: ArchConfig, mesh, pad_experts_to: int) -> None:
-        """Refuse what the port cannot execute on ``mesh``: a family other
-        than the attention family's, heads or experts that the ``model``
-        axis does not split whole (the reference's spec would split inside
-        a head, or re-home the axis), and padding experts."""
+        """Refuse what the port cannot execute on ``mesh``: attention or
+        SSM heads and experts that the ``model`` axis does not split whole
+        (the reference's spec would split inside a head, or re-home the
+        axis), and padding experts."""
         if mesh.size == 1:
             return
         where = f"{cfg.name} on a mesh of {mesh.describe()}"
-        if cfg.family in ("ssm", "hybrid") or cfg.is_encoder_decoder:
-            raise ValueError(
-                f"{where}: the {cfg.family} family "
-                f"(encoder-decoder={cfg.is_encoder_decoder}) does not run "
-                f"sharded; it waits in {SHARDING_ITEM}")
         m = mesh.sizes.get("model", 1)
         H, KVH = cfg.num_heads, cfg.num_kv_heads
-        if H % m or KVH % m:
+        if cfg.family != "ssm" and (H % m or KVH % m):
             raise ValueError(
                 f"{where}: {KVH} KV heads and {H} query heads do not split "
                 f"whole over the 'model' axis of {m}; the reference's spec "
-                f"splits inside a head, which the port does not execute")
+                f"splits inside a head, which the port does not execute "
+                f"(heads split inside a head wait in {SHARDING_ITEM})")
+        if cfg.has_ssm and cfg.ssm_heads % m:
+            raise ValueError(
+                f"{where}: {cfg.ssm_heads} SSM heads do not split whole "
+                f"over the 'model' axis of {m}")
         if cfg.has_moe and (cfg.num_experts % m or pad_experts_to):
             raise ValueError(f"{where}: {cfg.num_experts} experts (padded "
                              f"to {pad_experts_to}) do not split over the "
@@ -324,24 +331,42 @@ class Model:
                 self.cfg, self._whole_shapes(), mode, self.mesh)
         return self._layouts[mode]
 
+    def layouts(self, mode: str = "serving"):
+        """The specs by which a rank holds its blocks in ``mode``: the
+        :meth:`specs`, with each Mamba leaf's port layout (its heads' z, x
+        and dt, B and C whole: ``sharding.param_layouts``)."""
+        key = ("layouts", mode)
+        if key not in self._layouts:
+            self._layouts[key] = param_layouts(
+                self.cfg, self._whole_shapes(), mode, self.mesh,
+                self.specs(mode))
+        return self._layouts[key]
+
     def shard(self, params, mode: str = "serving"):
         """This rank's blocks of the whole ``params`` (as :meth:`init` or
-        ``params_from_numpy`` give them) by the ``mode`` specs, checking
+        ``params_from_numpy`` give them) by the ``mode`` layouts, checking
         that each leaf's ``model`` split is one the entry points execute
         (:meth:`_check_layout`)."""
         self._check_layout(mode)
-        return shard_params(params, self.specs(mode), self.mesh)
+        return shard_params(params, self.layouts(mode), self.mesh)
+
+    # the dim of a leaf's own shape that a rank's block splits over
+    # ``model``, as the products expect it (MoE experts: dim 0)
+    _MODEL_DIM = {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
+                  "wi": 1, "wg": 1, "wo": 0, "in_proj": 1, "conv_w": 1,
+                  "conv_b": 0, "out_proj": 0, "A_log": 0, "D_skip": 0,
+                  "dt_bias": 0}
 
     def _check_layout(self, mode: str) -> None:
         """Every leaf's ``model`` split on the dim the port's products
-        expect: columns of ``wq``/``wk``/``wv``/``wi``/``wg``, rows of each
-        ``wo``, the expert axis of an MoE, either dim of ``embed`` and
-        ``lm_head`` (vocab or d_model), nothing else split."""
+        expect: columns of ``wq``/``wk``/``wv``/``wi``/``wg`` and of a
+        Mamba ``in_proj``, rows of each ``wo`` and of ``out_proj``, the
+        channels of the conv, the heads of the SSM constants, the gated
+        norm's columns, the expert axis of an MoE, either dim of ``embed``
+        and ``lm_head`` (vocab or d_model), nothing else split."""
         if self.mesh is None or self.mesh.sizes.get("model", 1) == 1:
             return
-        want = {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
-                "wi": 1, "wg": 1, "wo": 0}
-        whole, specs = self._whole_shapes(), self.specs(mode)
+        whole, specs = self._whole_shapes(), self.layouts(mode)
         for path, leaf in tree_leaves(whole):
             spec = spec_at(specs, path)
             own = C._entries(spec, leaf.dim())
@@ -351,8 +376,11 @@ class Model:
                 ok = len(dims) <= 1
             elif "router" in spec_at(whole, path[:-1]):     # an MoE FFN
                 ok = dims == ([0] if name in ("wi", "wg", "wo") else [])
+            elif path[-2:] == ("gate_norm", "scale"):
+                ok = dims == [0]
             else:
-                ok = dims == ([want[name]] if name in want else [])
+                want = self._MODEL_DIM.get(name)
+                ok = dims == ([] if want is None else [want])
             if not ok:
                 raise ValueError(
                     f"{self.cfg.name}: {'/'.join(map(str, path))} "
@@ -364,39 +392,58 @@ class Model:
         """``tree`` (a subtree of train-mode blocks at ``path``) with each
         leaf's ``data`` shards gathered (:func:`ctx.fsdp_gather`)."""
         whole = spec_at(self._whole_shapes(), path)
-        specs = spec_at(self.specs("train"), path)
+        specs = spec_at(self.layouts("train"), path)
         return map_with_path(lambda p, t: C.fsdp_gather(
             t, spec_at(specs, p), tuple(spec_at(whole, p).shape)),
             tree)
 
     # ------------------------------------------------------------- params
-    def init(self, generator: torch.Generator) -> Params:
+    def init(self, generator: torch.Generator, mode=None) -> Params:
         """Random parameters drawn on the model's device from
         ``generator`` (a ``torch.Generator`` on that device), with the
         scales of ``layers._dense_init``: normal x 1/sqrt(fan_in), the
-        embedding x 0.02."""
+        embedding x 0.02.  With ``mode`` (``serving`` or ``train``) on a
+        mesh, the rank's blocks by :meth:`layouts` of the same draw
+        (``shard(init(generator), mode)``), each kept as soon as its
+        layer is drawn: a rank holds one whole layer at most."""
         cfg, dtype, dev = self.cfg, self.dtype, self.device
+        if mode is not None:
+            self._check_layout(mode)
+            layouts = self.layouts(mode)
+
+            def keep(path, tree):
+                return shard_params(tree, spec_at(layouts, path), self.mesh)
+        else:
+            def keep(path, tree):
+                return tree
         params: Params = {
-            "embed": L._dense_init(generator, (cfg.vocab_size, cfg.d_model),
-                                   scale=0.02, dtype=dtype, device=dev),
-            "final_norm": L.init_norm(cfg, cfg.d_model, dtype, dev),
+            "embed": keep(("embed",), L._dense_init(
+                generator, (cfg.vocab_size, cfg.d_model), scale=0.02,
+                dtype=dtype, device=dev)),
+            "final_norm": keep(("final_norm",),
+                               L.init_norm(cfg, cfg.d_model, dtype, dev)),
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = L._dense_init(
+            params["lm_head"] = keep(("lm_head",), L._dense_init(
                 generator, (cfg.d_model, cfg.vocab_size), dtype=dtype,
-                device=dev)
+                device=dev))
         params["layers"] = [
-            self._init_layer(generator, cfg.layer_kind(i), cfg.ffn_kind(i))
+            keep(("layers", i), self._init_layer(
+                generator, cfg.layer_kind(i), cfg.ffn_kind(i)))
             for i in range(cfg.num_layers)]
         if cfg.is_encoder_decoder:
-            params["encoder"] = [self._init_layer(generator, "attn", "dense")
-                                 for _ in range(cfg.num_encoder_layers)]
+            params["encoder"] = [
+                keep(("encoder", i),
+                     self._init_layer(generator, "attn", "dense"))
+                for i in range(cfg.num_encoder_layers)]
             params["cross"] = [
-                {"lnx": L.init_norm(cfg, cfg.d_model, dtype, dev),
-                 "xattn": L.init_attention(cfg, generator, dtype, dev)}
-                for _ in range(cfg.num_layers)]
-            params["enc_final_norm"] = L.init_norm(cfg, cfg.d_model, dtype,
-                                                   dev)
+                keep(("cross", i),
+                     {"lnx": L.init_norm(cfg, cfg.d_model, dtype, dev),
+                      "xattn": L.init_attention(cfg, generator, dtype, dev)})
+                for i in range(cfg.num_layers)]
+            params["enc_final_norm"] = keep(
+                ("enc_final_norm",), L.init_norm(cfg, cfg.d_model, dtype,
+                                                 dev))
         return params
 
     def _init_layer(self, generator, kind: str, ffn_kind: str):
@@ -417,7 +464,7 @@ class Model:
             p["ln2"] = L.init_norm(cfg, cfg.d_model, dtype, dev)
             p["ffn"] = L.init_moe(cfg, generator, dtype, dev,
                                   self.pad_experts_to,
-                                  None if self.mesh else self.experts)
+                                  self.share if self.mesh else self.experts)
         return p
 
     # --------------------------------------------------------------- embed
@@ -559,12 +606,13 @@ class Model:
         cfg = self.cfg
         B, T, _ = enc_out.shape
         kvd = dtype_of(self.kv_dtype)
+        enc_out = C.copy_to(enc_out, "model")     # column-parallel wk, wv
         xk, xv = [], []
         for p_x in params["cross"]:
             xk.append((enc_out @ p_x["xattn"]["wk"]).reshape(
-                B, T, cfg.num_kv_heads, cfg.hd).to(kvd))
+                B, T, -1, cfg.hd).to(kvd))
             xv.append((enc_out @ p_x["xattn"]["wv"]).reshape(
-                B, T, cfg.num_kv_heads, cfg.hd).to(kvd))
+                B, T, -1, cfg.hd).to(kvd))
         return {"xk": torch.stack(xk), "xv": torch.stack(xv)}
 
     def _enc_ctx(self, params, batch):
@@ -583,7 +631,8 @@ class Model:
         cfg = self.cfg
         h = self._norm(p_x["lnx"], x)
         B, S, _ = h.shape
-        q = (h @ p_x["xattn"]["wq"]).reshape(B, S, cfg.num_heads, cfg.hd)
+        q = (C.copy_to(h, "model") @ p_x["xattn"]["wq"]).reshape(
+            B, S, -1, cfg.hd)
         attn = L.full_attention(cfg, q, xk.to(self.dtype), xv.to(self.dtype),
                                 causal=False)
         return x + self._wo(attn.reshape(B, S, -1), p_x["xattn"]["wo"])
@@ -1323,12 +1372,15 @@ class Model:
         KVH, hd); for ``ssm`` the constant-size ``conv`` and ``ssm`` state
         (``max_len`` unused); for the hybrid family, per 8-layer group
         ``g``, ``k``/``v`` (g, batch, max_len, KVH, hd) and ``conv``/
-        ``ssm`` (g, 7, batch, ...), the reference's layout."""
+        ``ssm`` (g, 7, batch, ...), the reference's layout.  On a mesh
+        whose ``model`` axis has m ranks a rank's cache holds its heads:
+        KVH/m of ``k``/``v`` and ``xk``/``xv``, H/m of ``ssm`` and the
+        conv channels of its heads with B and C (di/m + 2 N)."""
         cfg = self.cfg
         kvd = dtype_of(self.kv_dtype)
         n = cfg.num_layers
-        kvh = cfg.num_kv_heads // (self.mesh.sizes.get("model", 1)
-                                   if self.mesh is not None else 1)
+        m = self.mesh.sizes.get("model", 1) if self.mesh is not None else 1
+        kvh = cfg.num_kv_heads // m
         out: Dict[str, Any] = {"lengths": ((batch,), torch.int32)}
         if cfg.family != "ssm":
             n_kv = hybrid_groups(cfg) if cfg.family == "hybrid" else n
@@ -1339,11 +1391,11 @@ class Model:
             lead = ((hybrid_groups(cfg), len(HYBRID_SSM_J))
                     if cfg.family == "hybrid" else (n,))
             out["conv"] = ((*lead, batch, cfg.conv_width - 1,
-                            cfg.d_inner + 2 * cfg.ssm_state), self.dtype)
-            out["ssm"] = ((*lead, batch, cfg.ssm_heads, cfg.ssm_headdim,
+                            cfg.d_inner // m + 2 * cfg.ssm_state), self.dtype)
+            out["ssm"] = ((*lead, batch, cfg.ssm_heads // m, cfg.ssm_headdim,
                            cfg.ssm_state), torch.float32)
         if cfg.is_encoder_decoder:
-            xshape = (n, batch, cfg.cross_kv_len, cfg.num_kv_heads, cfg.hd)
+            xshape = (n, batch, cfg.cross_kv_len, kvh, cfg.hd)
             out["xk"] = (xshape, kvd)
             out["xv"] = (xshape, kvd)
         return out

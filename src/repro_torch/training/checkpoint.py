@@ -12,9 +12,11 @@ as bfloat16 on restore.
 
 On a mesh, :func:`save_checkpoint` gathers each leaf's blocks into the
 whole array and rank 0 alone writes; :func:`restore_checkpoint` reads the
-whole arrays and keeps each rank's block by the target mesh's sanitized
-spec, so a checkpoint written on one mesh restores onto any other (or
-onto one device): the elastic path.
+whole arrays and keeps each rank's block by the target mesh's layout
+(``Model.layouts``: the sanitized specs, a Mamba layer's leaves by its
+heads), so a checkpoint written on one mesh restores onto any other (or
+onto one device): the elastic path.  The file holds every leaf whole, in
+the reference's layout, whatever the mesh.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.distributed.ctx import gather_full
+from repro_torch.distributed.ctx import HeadSplit, _entries, gather_full
 from repro_torch.distributed.sharding import shard_leaf, spec_at
 from repro_torch.utils import tree_leaves, tree_map
 
@@ -53,9 +55,13 @@ def _whole(state, mesh, spec_tree):
 
 
 def _full_shape(t, spec, mesh):
-    from repro_torch.distributed.ctx import _entries
-    return tuple(n * mesh.axis_size(axes)
+    """The whole leaf's shape from a rank's block ``t`` by ``spec`` (a
+    :class:`HeadSplit` leaf's last dim is its whole width)."""
+    full = tuple(n * mesh.axis_size(axes)
                  for n, axes in zip(t.shape, _entries(spec, t.dim())))
+    if isinstance(spec, HeadSplit):
+        full = full[:-1] + (spec.width,)
+    return full
 
 
 def save_checkpoint(ckpt_dir: str | Path, state, step: int, mesh=None,
@@ -113,9 +119,9 @@ def restore_checkpoint(ckpt_dir: str | Path, state_template,
     """Restore onto ``state_template``'s tree: each leaf takes the
     template's dtype and device, and requires grad where the template's
     leaf does.  With ``mesh`` and ``spec_tree`` (the target mesh's
-    sanitized specs of the state) each rank keeps its block of the whole
-    array; the target mesh need not match the one that wrote the
-    checkpoint.  Returns ``(state, step)``."""
+    layouts of the state, as ``Model.layouts`` gives them) each rank keeps
+    its block of the whole array; the target mesh need not match the one
+    that wrote the checkpoint.  Returns ``(state, step)``."""
     ckpt_dir = Path(ckpt_dir)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:

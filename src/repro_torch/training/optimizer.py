@@ -15,7 +15,8 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.distributed.ctx import all_reduce_sum
-from repro_torch.distributed.sharding import spec_at, split_axes
+from repro_torch.distributed.sharding import (owned_columns, spec_at,
+                                              split_axes)
 from repro_torch.utils import tree_leaves, tree_map
 
 # the subtrees whose leaves the reference stacks on a leading layer axis
@@ -49,13 +50,18 @@ def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
     """The L2 norm of every leaf of ``tree``.  On a mesh (``specs`` the
     tree's specs) each leaf's squares are summed over the ranks that hold
     its disjoint blocks, once: a leaf replicated over an axis counts one
-    copy."""
+    copy, and so does a column that a :class:`HeadSplit` block repeats
+    on every ``model`` rank (a Mamba layer's B and C)."""
     if mesh is None:
         return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                               for _, x in tree_leaves(tree)))
     sums = {}
     for path, x in tree_leaves(tree):
-        axes = split_axes(spec_at(specs, path), x.dim(), mesh)
+        spec = spec_at(specs, path)
+        axes = split_axes(spec, x.dim(), mesh)
+        own = owned_columns(spec, mesh)
+        if own is not None:
+            x = x.index_select(-1, own.to(x.device))
         sq = torch.sum(torch.square(x.float()))
         sums[axes] = sums[axes] + sq if axes in sums else sq
     return torch.sqrt(sum(all_reduce_sum(v, axes, mesh)

@@ -1,7 +1,7 @@
 """Train and serve step builders, the torch twin of
 ``repro.training.train_step``: on one device, or as one rank of FSDP x TP
 over the model's mesh (parameters and both AdamW moments stored as the
-train-mode specs say)."""
+train-mode layouts say)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -30,7 +30,7 @@ def make_train_step(model: Model, opt_cfg: Optional[AdamWConfig] = None,
     ``keep_grads`` puts the gradient tree in the metrics (``grads``)."""
     opt_cfg = opt_cfg or AdamWConfig()
     mesh = model.mesh
-    specs = model.specs("train") if mesh is not None else None
+    specs = model.layouts("train") if mesh is not None else None
 
     def train_step(state, batch):
         params = state["params"]

@@ -544,6 +544,77 @@ def test_fused_rmsnorm_widths_and_views(dev, T, d, offset, dtype,
         assert bool((diff <= 2.0 ** -7 * ref.abs()).all()), diff.max().item()
 
 
+# row 7's split-row entries: a (T, 2 d) row's halves on two "ranks" (the
+# sum of squares of each half added, then each half scaled), widths 64 to
+# 16384 a half, aligned and misaligned rows (an odd row offset of a larger
+# buffer; d 1001 misaligned in both dtypes), a half too long for the
+# registers (16384 in f32, 40000); against the plain twins and, the
+# halves side by side, against the whole-row kernel on the whole row
+@pytest.mark.parametrize("T,d,offset", [
+    (1, 64, 0), (8, 2560, 0), (2048, 2560, 0), (1024, 8192, 0),
+    (4, 16384, 0), (33, 1000, 0), (5, 1001, 1), (8, 100, 3),
+    (2, 40000, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+def test_split_rmsnorm_entries(dev, T, d, offset, dtype, scale_dtype):
+    from repro_torch.kernels.fused_rmsnorm import (fused_rmsnorm,
+                                                   rmsnorm_apply,
+                                                   rmsnorm_apply_ref,
+                                                   rmsnorm_sumsq,
+                                                   rmsnorm_sumsq_ref)
+    rng = np.random.default_rng(T * 5 + d + offset)
+    x = (_randn(rng, (T + 2 * offset, 2 * d), dtype, dev)
+         * 3)[offset:offset + T]
+    s = _randn(rng, (2 * d,), scale_dtype, dev)
+    halves = [x[:, :d].contiguous(), x[:, d:].contiguous()]
+    if offset:                       # each half at an odd row offset too
+        halves = [(torch.cat([h[:1], h, h[:1]]))[1:T + 1] for h in halves]
+        assert all(h.is_contiguous() for h in halves)
+    scales = [s[:d].contiguous(), s[d:].contiguous()]
+    n0 = (rmsnorm_sumsq.launches, rmsnorm_apply.launches)
+    sums = [rmsnorm_sumsq(h) for h in halves]
+    for got, h in zip(sums, halves):
+        assert got.dtype == torch.float32 and got.shape == (T,)
+        want = rmsnorm_sumsq_ref(h)
+        assert bool(((got - want).abs() <= 1e-5 * want.abs()).all())
+    total = sums[0] + sums[1]
+    outs = [rmsnorm_apply(h, total, sc, 2 * d)
+            for h, sc in zip(halves, scales)]
+    torch.cuda.synchronize()
+    assert (rmsnorm_sumsq.launches, rmsnorm_apply.launches) == \
+        (n0[0] + 2, n0[1] + 2)
+    plains = torch.cat([rmsnorm_apply_ref(h, total, sc, 2 * d)
+                        for h, sc in zip(halves, scales)], -1).float()
+    whole = fused_rmsnorm(x.contiguous(), s).float()
+    got = torch.cat(outs, -1).float()
+    assert got.shape == (T, 2 * d) and outs[0].dtype == dtype
+    for want in (plains, whole):
+        diff = (got - want).abs()
+        if dtype == torch.float32:
+            assert diff.max().item() <= 2e-5 * max(1.0,
+                                                   want.abs().max().item())
+        else:
+            assert bool((diff <= 2.0 ** -7 * want.abs()).all()), \
+                diff.max().item()
+
+
+def test_split_rmsnorm_entries_refuse_bad_layouts(dev):
+    """A CUDA tensor never goes to the plain twin: a bad layout raises."""
+    from repro_torch.kernels.fused_rmsnorm import rmsnorm_apply, rmsnorm_sumsq
+    x = torch.randn((4, 64), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm_sumsq(x.t())
+    with pytest.raises(ValueError, match="sumsq must be"):
+        rmsnorm_apply(x, torch.ones(4, device=dev, dtype=torch.float64),
+                      torch.ones(64, device=dev), 128)
+    with pytest.raises(ValueError, match="d_full"):
+        rmsnorm_apply(x, torch.ones(4, device=dev), torch.ones(64, device=dev),
+                      32)
+    with pytest.raises(ValueError, match="scale must be"):
+        rmsnorm_apply(x, torch.ones(4, device=dev), torch.ones(32, device=dev),
+                      128)
+
+
 def _ssd_tol(Q, N):
     """1e-4 (``tests/test_kernels_ssd.py``) up to its shapes (Q * N <= 64 *
     16); beyond them float32 accumulation error grows with the square root

@@ -26,6 +26,16 @@ On a (``data`` 2, ``model`` 2) mesh, in float32:
   gradient compression;
 - a checkpoint saved on 2x2 restores onto 1x4 and onto one rank with
   every leaf equal bit for bit.
+
+The same for the ``ssm``, hybrid and encoder-decoder families' smoke
+configs (mamba2-2.7b, jamba-1.5-large-398b, seamless-m4t-large-v2): a
+Mamba-2 layer's rank holds its heads (B and C whole, the gated norm over
+``d_inner`` split over ``model``), seamless's encoder and cross-attention
+their heads; prefill, decode steps (the conv and SSM state and the cross
+K/V carried in the rank's cache), loss, global norm and every gradient
+leaf equal one rank within 1e-5 and the JAX model within the port's f32
+tolerance of 2e-5; a mamba2 checkpoint saved on 2x2 restores onto 1x4
+bit for bit.
 """
 import os
 import pickle
@@ -58,7 +68,15 @@ VARIANTS = {"granite": ("granite-3-8b", {}, {}),
                                  {"capacity_factor": 1.0}, {}),
             "granite-moe-groups": ("granite-moe-3b-a800m",
                                    {"capacity_factor": 1.0},
-                                   {"moe_groups": 2})}
+                                   {"moe_groups": 2}),
+            "mamba2": ("mamba2-2.7b", {}, {}),
+            "jamba": ("jamba-1.5-large-398b", {}, {}),
+            "seamless": ("seamless-m4t-large-v2", {}, {})}
+# each variant's tolerance against the JAX model's logits: the port's 1e-4
+# (PR 26's variants), the repo's f32 2e-5 for the three families
+JAX_ATOL = {"mamba2": 2e-5, "jamba": 2e-5, "seamless": 2e-5}
+# the variants whose FSDP x TP state is saved and restored onto 1x4
+CHECKPOINTED = ("granite", "mamba2")
 
 
 def _free_port() -> int:
@@ -132,18 +150,30 @@ def _serve(task, mesh, dev):
         whole = params_from_numpy(cfg, task["params"], dev)
     params = model.shard(whole)
     rows = _rows(mesh, task["tokens"].shape[0])
-    toks = torch.from_numpy(task["tokens"][rows]).to(dev)
-    logits, cache = model.prefill(params, {"tokens": toks})
-    s = toks.shape[1]
-    full = model.init_cache(toks.shape[0], s + len(task["decode"]))
-    for k in ("k", "v"):
-        full[k][:, :, :s] = cache[k]
-    full["lengths"][:] = s
+    batch = {k: torch.from_numpy(task[k][rows]).to(dev)
+             for k in ("tokens", "enc_embeds") if k in task}
+    logits, cache = model.prefill(params, batch)
+    full = _decode_cache(model, cache, batch["tokens"].shape,
+                         len(task["decode"]))
     out = {"prefill": logits.cpu().numpy(), "decode": [], "rows": rows}
     for step in task["decode"]:
         out["decode"].append(model.decode_step(
             params, full, torch.from_numpy(step[rows]).to(dev)).cpu().numpy())
     return out
+
+
+def _decode_cache(model, cache, shape, steps):
+    """A decode cache of ``shape[1] + steps`` positions holding the
+    prefill's ``cache``: its K/V at the first positions, the recurrent
+    state and the cross K/V whole."""
+    B, s = shape
+    full = model.init_cache(B, s + steps)
+    for k, t in cache.items():
+        if k in ("k", "v"):
+            full[k][:, :, :s] = t
+        else:
+            full[k].copy_(t)
+    return full
 
 
 def _gathered(tree, specs, whole, mesh):
@@ -163,8 +193,10 @@ def _train(task, mesh, dev, jobdir):
     from repro_torch.training.train_step import make_train_step
     from repro_torch.utils import tree_leaves
     cfg = _port_cfg(task["arch"], task["overrides"])
-    model = Model(cfg, mesh=mesh, attn_chunk=CHUNK, device=dev,
-                  **task.get("model_kw", {}))
+    # float32 cross K/V (an encoder-decoder's loss reads them in
+    # kv_dtype), as the JAX model's
+    model = Model(cfg, mesh=mesh, attn_chunk=CHUNK, kv_dtype="float32",
+                  device=dev, **task.get("model_kw", {}))
     whole = params_from_numpy(cfg, task["params"], dev)
     params = model.shard(whole, "train")
     for _, p in tree_leaves(params):
@@ -172,7 +204,7 @@ def _train(task, mesh, dev, jobdir):
     state = {"params": params, **init_opt_state(params)}
     step = make_train_step(model, AdamWConfig(**OPT), keep_grads=True,
                            grad_compression=task.get("q8", False))
-    specs = model.specs("train")
+    specs = model.layouts("train")
     out = {"loss": [], "grad_norm": [], "grads": []}
     for batch in task["batches"]:
         rows = _rows(mesh, batch["tokens"].shape[0])
@@ -186,26 +218,52 @@ def _train(task, mesh, dev, jobdir):
                    "step": state["step"]}
     out["state"] = _gathered(state, spec_tree, whole_state, mesh)
     if task.get("checkpoint"):
-        ckpt.save_checkpoint(jobdir / "ckpt", state, 2, mesh=mesh,
-                             spec_tree=spec_tree)
-        out["restored"] = _restore_1x4(cfg, whole, state, jobdir)
+        where = jobdir / task["checkpoint"]
+        ckpt.save_checkpoint(where, state, 2, mesh=mesh, spec_tree=spec_tree)
+        out["restored"] = _restore_1x4(cfg, whole, state, where)
     return out
 
 
-def _restore_1x4(cfg, whole, template, jobdir):
-    """The checkpoint restored onto a (data 1, model 4) mesh of the same
-    ranks, every leaf gathered back whole."""
-    from repro_torch.distributed.sharding import sanitized_param_specs
+def _restore_1x4(cfg, whole, template, where):
+    """The checkpoint at ``where`` restored onto a (data 1, model 4) mesh
+    of the same ranks (by that mesh's layouts: a Mamba layer's heads are
+    regrouped), every leaf gathered back whole."""
+    from repro_torch.distributed.sharding import param_layouts
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.training import checkpoint as ckpt
     mesh = make_test_mesh(1, 4)
-    specs = sanitized_param_specs(cfg, whole, "train", mesh)
+    specs = param_layouts(cfg, whole, "train", mesh)
     spec_tree = {"params": specs, "m": specs, "v": specs, "step": ()}
-    state, step = ckpt.restore_checkpoint(jobdir / "ckpt", template,
-                                          mesh=mesh, spec_tree=spec_tree)
+    state, step = ckpt.restore_checkpoint(where, template, mesh=mesh,
+                                          spec_tree=spec_tree)
     whole_state = {"params": whole, "m": whole, "v": whole,
                    "step": template["step"]}
     return _gathered(state, spec_tree, whole_state, mesh)
+
+
+def _norm(task, mesh):
+    """The gated norm's split form on this rank's columns of ``x`` (T, d)
+    (``layers.apply_norm(over_model=True)``, kernel entries and plain twins
+    alike): its output and the gradients of ``sum(out * g)`` with respect
+    to its columns of ``x`` and ``scale``."""
+    from repro_torch.distributed.ctx import mesh_context
+    from repro_torch.models import layers as L
+    cfg = _port_cfg("mamba2-2.7b", {})
+    c, m = mesh.coord("model"), mesh.sizes["model"]
+    d = task["x"].shape[1]
+    cols = slice(c * d // m, (c + 1) * d // m)
+    out = {}
+    for use_kernel in (True, False):
+        x = torch.from_numpy(task["x"][:, cols].copy()).requires_grad_(True)
+        scale = torch.from_numpy(task["scale"][cols].copy()).requires_grad_(
+            True)
+        with mesh_context(mesh):
+            y = L.apply_norm(cfg, {"scale": scale}, x, use_kernel=use_kernel,
+                             over_model=True)
+        (y * torch.from_numpy(task["g"][:, cols].copy())).sum().backward()
+        out[use_kernel] = {"y": y.detach().numpy(), "dx": x.grad.numpy(),
+                           "dscale": scale.grad.numpy(), "cols": cols}
+    return out
 
 
 def _rank_main(rank, world, port, jobdir):
@@ -221,6 +279,8 @@ def _rank_main(rank, world, port, jobdir):
     for name, task in job["tasks"].items():
         if task["kind"] == "serve":
             out[name] = _serve(task, mesh, dev)
+        elif task["kind"] == "norm":
+            out[name] = _norm(task, mesh)
         else:
             out[name] = _train(task, mesh, dev, jobdir)
     out["jax_loaded"] = sorted(m for m in sys.modules
@@ -249,14 +309,15 @@ def _jax_params(arch, overrides, model_kw):
     return jm, p, jax.tree_util.tree_map(np.asarray, p)
 
 
-def _jax_serve(jm, jparams, tokens, decode):
+def _jax_serve(jm, jparams, batch, decode):
     import jax.numpy as jnp
-    logits, cache = jm.prefill(jparams, {"tokens": jnp.asarray(tokens)})
+    tokens = batch["tokens"]
+    logits, cache = jm.prefill(jparams, {k: jnp.asarray(v)
+                                         for k, v in batch.items()})
     full = jm.init_cache(tokens.shape[0], tokens.shape[1] + len(decode))
     s = tokens.shape[1]
-    full = {**full, "k": full["k"].at[:, :, :s].set(cache["k"]),
-            "v": full["v"].at[:, :, :s].set(cache["v"]),
-            "lengths": jnp.full_like(full["lengths"], s)}
+    full = {k: (full[k].at[:, :, :s].set(t) if k in ("k", "v") else t)
+            for k, t in cache.items()}
     outs = [np.asarray(logits)]
     for step in decode:
         lg, full = jm.decode_step(jparams, full, jnp.asarray(step))
@@ -264,7 +325,7 @@ def _jax_serve(jm, jparams, tokens, decode):
     return outs
 
 
-def _one_rank_serve(arch, overrides, model_kw, np_params, tokens, decode):
+def _one_rank_serve(arch, overrides, model_kw, np_params, batch, decode):
     """The one-rank logits of the prefill and each decode step, and how
     many of the MoE's assignments were dropped (0 without experts)."""
     from repro_torch.models.model import Model, params_from_numpy
@@ -275,12 +336,9 @@ def _one_rank_serve(arch, overrides, model_kw, np_params, tokens, decode):
     model.moe_tap = lambda shape, idx, keep: dropped.append(
         int((~keep).sum()))
     params = params_from_numpy(cfg, np_params, "cpu")
-    logits, cache = model.prefill(params, {"tokens": torch.from_numpy(tokens)})
-    s = tokens.shape[1]
-    full = model.init_cache(tokens.shape[0], s + len(decode))
-    for k in ("k", "v"):
-        full[k][:, :, :s] = cache[k]
-    full["lengths"][:] = s
+    logits, cache = model.prefill(params, {k: torch.from_numpy(v)
+                                           for k, v in batch.items()})
+    full = _decode_cache(model, cache, batch["tokens"].shape, len(decode))
     outs = [logits.numpy()]
     for step in decode:
         outs.append(model.decode_step(params, full,
@@ -295,7 +353,8 @@ def _one_rank_train(arch, overrides, model_kw, np_params, batches,
     from repro_torch.training.train_step import make_train_step
     from repro_torch.utils import tree_leaves
     cfg = _port_cfg(arch, overrides)
-    model = Model(cfg, attn_chunk=CHUNK, device="cpu", **model_kw)
+    model = Model(cfg, attn_chunk=CHUNK, kv_dtype="float32", device="cpu",
+                  **model_kw)
     params = params_from_numpy(cfg, np_params, "cpu")
     for _, p in tree_leaves(params):
         p.requires_grad_(True)
@@ -314,10 +373,19 @@ def _one_rank_train(arch, overrides, model_kw, np_params, batches,
     return out
 
 
-def _batches(vocab, seed):
+def _batches(cfg, seed):
+    """Two training batches; an encoder-decoder's with ``enc_embeds``
+    frames (TRAIN_B, TRAIN_S, D)."""
     rng = np.random.default_rng(seed)
-    return [{k: rng.integers(0, vocab, (TRAIN_B, TRAIN_S)).astype(np.int32)
-             for k in ("tokens", "targets")} for _ in range(2)]
+    out = []
+    for _ in range(2):
+        b = {k: rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(
+            np.int32) for k in ("tokens", "targets")}
+        if cfg.is_encoder_decoder:
+            b["enc_embeds"] = rng.standard_normal(
+                (TRAIN_B, TRAIN_S, cfg.d_model)).astype(np.float32)
+        out.append(b)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -328,23 +396,30 @@ def mesh_run(tmp_path_factory):
     rng = np.random.default_rng(7)
     for name, (arch, ov, kw) in VARIANTS.items():
         jm, jparams, np_params = _jax_params(arch, ov, kw)
-        vocab = jm.cfg.vocab_size
-        tokens = rng.integers(0, vocab, (B, S)).astype(np.int32)
+        cfg = jm.cfg
+        vocab = cfg.vocab_size
+        if cfg.is_encoder_decoder:       # frames, then a decoder start
+            batch = {"enc_embeds": rng.standard_normal(
+                (B, cfg.cross_kv_len, cfg.d_model)).astype(np.float32),
+                "tokens": rng.integers(0, vocab, (B, 1)).astype(np.int32)}
+        else:
+            batch = {"tokens": rng.integers(0, vocab, (B, S)).astype(
+                np.int32)}
         decode = [rng.integers(0, vocab, (B, 1)).astype(np.int32)
                   for _ in range(T)]
         common = {"arch": arch, "overrides": ov, "model_kw": kw,
                   "params": np_params}
-        tasks[name] = {"kind": "serve", **common, "tokens": tokens,
+        tasks[name] = {"kind": "serve", **common, **batch,
                        "decode": decode}
-        batches = _batches(vocab, 11)
-        tasks[name + "/train"] = {"kind": "train", **common,
-                                  "batches": batches,
-                                  "checkpoint": name == "granite"}
+        batches = _batches(cfg, 11)
+        tasks[name + "/train"] = {
+            "kind": "train", **common, "batches": batches,
+            "checkpoint": f"ckpt_{name}" if name in CHECKPOINTED else None}
         jloss, _ = jm.loss(jparams, {k: jnp.asarray(v)
                                      for k, v in batches[0].items()})
-        one, dropped = _one_rank_serve(arch, ov, kw, np_params, tokens,
+        one, dropped = _one_rank_serve(arch, ov, kw, np_params, batch,
                                        decode)
-        ref[name] = {"jax": _jax_serve(jm, jparams, tokens, decode),
+        ref[name] = {"jax": _jax_serve(jm, jparams, batch, decode),
                      "one": one, "dropped": dropped,
                      "train": _one_rank_train(arch, ov, kw, np_params,
                                               batches),
@@ -354,6 +429,12 @@ def mesh_run(tmp_path_factory):
                                          "checkpoint": False, "q8": True}
             ref[name + "-q8"] = {"train": _one_rank_train(
                 arch, ov, kw, np_params, batches, q8=True)}
+    nrng = np.random.default_rng(5)
+    tasks["norm"] = {"kind": "norm",
+                     "x": nrng.standard_normal((6, 128)).astype(np.float32),
+                     "scale": nrng.standard_normal(128).astype(np.float32),
+                     "g": nrng.standard_normal((6, 128)).astype(np.float32)}
+    ref["norm"] = tasks["norm"]
     jobdir = tmp_path_factory.mktemp("mesh2x2")
     outs = launch_ranks({"mesh": (2, 2), "device": "cpu", "tasks": tasks},
                         jobdir, world=4)
@@ -382,31 +463,40 @@ def test_sharded_prefill_and_decode_match_one_rank_and_jax(mesh_run, name):
         assert len(got) == len(one) == T + 1
         for g, w, j in zip(got, one, jx):
             np.testing.assert_allclose(g, w[r["rows"]], atol=1e-5, rtol=0)
-            np.testing.assert_allclose(g, j[r["rows"]], atol=1e-4, rtol=0)
+            np.testing.assert_allclose(g, j[r["rows"]],
+                                       atol=JAX_ATOL.get(name, 1e-4), rtol=0)
 
 
 TRAIN_RUNS = {**{name: name + "/train" for name in VARIANTS},
               "granite-q8": "granite/train-q8"}
 
 
-def _assert_state_follows(got, one, grads_got, grads_one, lrs,
+def _assert_state_follows(got, one, grads_got, grads_one, lrs, norms,
                           moments=True):
     """The gathered state after the steps against one rank's: each moment
     within rel_l2 1e-5 (with ``moments``), and each weight within 8 ulps
     plus what its gradients' float32 differences can move an Adam step:
     an update ``m / (sqrt(v) + eps)`` changes by at most about
     ``|dg| / eps`` (and by 2 at most) where ``|g|`` is near ``eps``, so
-    the weight by ``lr`` times that, each step."""
+    the weight by ``lr`` times that, each step.  ``norms`` (the two runs'
+    global norms, step by step) add the clip's share: where the norm
+    passes the clip, every gradient is scaled by ``clip / norm``, and the
+    norms' relative float32 difference ``d`` moves each step's scale by
+    ``d``; scales that differ from step to step move an update by at most
+    ``d / (1 - b1)``."""
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.utils import tree_leaves
-    eps = AdamWConfig(**OPT).eps
+    cfg = AdamWConfig(**OPT)
+    eps = cfg.eps
+    d = max(abs(a - b) / b for a, b in zip(*norms))
     for path, t in tree_leaves(one):
         want = t.detach().numpy()
         if path[0] == "params":
             dg = sum(np.abs(gg[path[1:]] - go[path[1:]])
                      for gg, go in zip(grads_got, grads_one))
             tol = (8 * np.spacing(np.abs(want))
-                   + sum(lrs) * np.minimum(2.0, 4.0 * dg / eps))
+                   + sum(lrs) * np.minimum(2.0, 4.0 * dg / eps)
+                   + sum(lrs) * 2 * d / (1 - cfg.b1))
             assert np.all(np.abs(got[path] - want) <= tol), path
         elif path[0] in ("m", "v") and moments:
             assert _rel_l2(got[path], want) < 1e-5, path
@@ -450,26 +540,79 @@ def test_fsdp_tp_train_steps_match_one_rank_and_jax(mesh_run, name):
         # the INT8 run's moments carry the codes held above
         _assert_state_follows(r["state"], one["state"], r["grads"],
                               one["grads"], one["lr"],
+                              (r["grad_norm"], one["grad_norm"]),
                               moments=not name.endswith("-q8"))
 
 
-def test_checkpoint_restores_onto_other_meshes_bit_for_bit(mesh_run):
+def _assert_restores(mesh_run, name):
+    """The 2x2 state of ``name``'s training, gathered on every rank, equal
+    bit for bit to its restore onto 1x4 and onto one rank."""
     from repro_torch.training import checkpoint as ckpt
-    from repro_torch.utils import tree_map
+    from repro_torch.utils import tree_leaves, tree_map
     outs, ref, jobdir = mesh_run
-    saved = outs[0]["granite/train"]["state"]
+    saved = outs[0][name + "/train"]["state"]
     for o in outs:
-        for restored in (o["granite/train"]["restored"],
-                         o["granite/train"]["state"]):
+        for restored in (o[name + "/train"]["restored"],
+                         o[name + "/train"]["state"]):
             assert restored.keys() == saved.keys()
             for path, a in saved.items():
                 np.testing.assert_array_equal(restored[path], a,
                                               err_msg=str(path))
-    one_state = ref["granite"]["train"]["state"]
+    one_state = ref[name]["train"]["state"]
     template = tree_map(lambda t: t.detach(), one_state)
-    state, step = ckpt.restore_checkpoint(jobdir / "ckpt", template)
+    state, step = ckpt.restore_checkpoint(jobdir / f"ckpt_{name}", template)
     assert step == 2
-    from repro_torch.utils import tree_leaves
     for path, t in tree_leaves(state):
         np.testing.assert_array_equal(t.numpy(), saved[path],
                                       err_msg=str(path))
+
+
+def test_checkpoint_restores_onto_other_meshes_bit_for_bit(mesh_run):
+    _assert_restores(mesh_run, "granite")
+
+
+def test_mamba2_checkpoint_restores_onto_other_meshes_bit_for_bit(mesh_run):
+    """The Mamba leaves' head-aware blocks (B and C on both ``model``
+    ranks of 2x2) regroup onto 1x4's four ranks of two heads each."""
+    _assert_restores(mesh_run, "mamba2")
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_split_rmsnorm_across_ranks_matches_the_whole_row_and_jax(
+        mesh_run, use_kernel):
+    """The gated norm's split form on two ``model`` ranks (each 64 of the
+    row's 128 columns), its pieces concatenated: the output against the
+    whole-row norm and the JAX ``apply_norm``, and the gradients of
+    ``sum(out * g)`` (crossing the ranks through the summed statistic)
+    against ``jax.grad`` of the whole row's, in float32."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_smoke_config
+    from repro.models import layers as JL
+    from repro_torch.kernels.fused_rmsnorm import rmsnorm_ref
+    outs, ref, _ = mesh_run
+    task = ref["norm"]
+    by_model = {}
+    for o in outs:                   # the two data rows hold equal copies
+        r = o["norm"][use_kernel]
+        by_model[r["cols"].start] = r
+    parts = [by_model[k] for k in sorted(by_model)]
+    assert len(parts) == 2
+    got = {k: np.concatenate([p[k] for p in parts], axis=-1)
+           for k in ("y", "dx", "dscale")}
+    whole = rmsnorm_ref(torch.from_numpy(task["x"]),
+                        torch.from_numpy(task["scale"])).numpy()
+    np.testing.assert_allclose(got["y"], whole, atol=1e-6, rtol=0)
+    jcfg = get_smoke_config("mamba2-2.7b")
+
+    def f(x, scale):
+        y = JL.apply_norm(jcfg, {"scale": scale}, x)
+        return jnp.sum(y * task["g"]), y
+    (_, jy), (jdx, jdscale) = jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True)(jnp.asarray(task["x"]),
+                                         jnp.asarray(task["scale"]))
+    np.testing.assert_allclose(got["y"], np.asarray(jy), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got["dx"], np.asarray(jdx), atol=2e-5,
+                               rtol=0)
+    np.testing.assert_allclose(got["dscale"], np.asarray(jdscale),
+                               atol=2e-5, rtol=0)

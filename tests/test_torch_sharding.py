@@ -9,13 +9,20 @@ the JAX package, in process and with no ranks.
   (``sharding.ref_leaf``).  The reference's rules read only
   ``mesh.axis_names`` and ``mesh.devices.shape``, so a stand-in with
   ``devices = np.empty(shape)`` serves and no JAX devices are needed.
-- Refusals: a mesh whose ``model`` axis would split inside a head, the
-  ``ssm``, hybrid and encoder-decoder families on a mesh of more than one
-  rank, and the one-rank entry points on such a mesh.
+- Refusals: a mesh whose ``model`` axis would split inside a head (jamba
+  on a model axis of 4 at smoke size), the seq-split decode cache, and
+  the one-rank entry points on a mesh of more than one rank; the ``ssm``,
+  hybrid and encoder-decoder families construct and shard on 2x2.
+- The port's Mamba blocks: a rank's ``in_proj`` and ``conv_w`` hold its
+  heads' z, x and dt and B and C whole, and reassemble into the
+  reference's whole leaf; the split-row RMSNorm's plain twins against the
+  whole-row norm and the JAX ``apply_norm``.
 - The dry run on full granite-3-8b's ``decode_32k`` cell: per-rank bytes
   equal to the sum over the reference's sanitized specs; on 16x16 null
   collectives whose reason names the KV heads, on 2x4 collectives with
-  bytes; the CLI writes its JSONL records.
+  bytes; the CLI writes its JSONL records.  mamba2-2.7b and
+  seamless-m4t-large-v2 record collectives on the production meshes,
+  jamba-1.5-large-398b null with the head reason.
 - The copies: the tokenizer and the utils helpers.
 """
 import json
@@ -131,10 +138,123 @@ def test_a_head_split_inside_a_head_raises():
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-1.5-large-398b",
                                   "seamless-m4t-large-v2"])
 def test_families_without_sharded_execution_raise(arch):
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 5"):
-        Model(_smoke(arch), mesh=Mesh(("data", "model"), (2, 2)),
-              device="cpu")
-    Model(_smoke(arch), mesh=Mesh(("data", "model"), (1, 1)), device="cpu")
+    """The ``ssm``, hybrid and encoder-decoder families construct and
+    shard on 2x2 (every rank's blocks of every leaf, in both modes, equal
+    to the blocks ``Model.init(gen, mode)`` keeps layer by layer); the
+    refusals that stay still raise: heads split inside a head (jamba's 2
+    KV heads at smoke size on a model axis of 4), the seq-split decode
+    cache (jamba's ``long_500k``), and the engine's one-rank entry
+    points."""
+    from repro_torch.models.config import SHAPES as PSHAPES
+    cfg = _smoke(arch)
+    whole = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    for coords in ((0, 0), (1, 1)):
+        m = Model(cfg, mesh=Mesh(("data", "model"), (2, 2), coords=coords),
+                  device="cpu")
+        for mode in ("serving", "train"):
+            blocks = m.shard(whole, mode)
+            drawn = m.init(torch.Generator().manual_seed(0), mode)
+            for (path, t), (path2, t2) in zip(U.tree_leaves(blocks),
+                                              U.tree_leaves(drawn)):
+                assert path == path2 and torch.equal(t, t2), path
+                assert tuple(t.shape) == S.local_shape(
+                    S.spec_at(m._whole_shapes(), path).shape,
+                    S.spec_at(m.layouts(mode), path), m.mesh), path
+    with pytest.raises(ValueError, match="does not run sharded"):
+        m.prefill_chunk(None, None, None, None, None, None)
+    if arch == "jamba-1.5-large-398b":
+        with pytest.raises(ValueError, match="2 KV heads.*inside a head"):
+            Model(cfg, mesh=Mesh(("data", "model"), (1, 4)), device="cpu")
+        rec = dryrun.dry_cell(arch, "long_500k",
+                              Mesh(("data", "model"), (2, 2)), cfg=cfg)
+        assert PSHAPES["long_500k"].global_batch == 1
+        assert rec["collectives"] is None
+        assert "splits the KV sequence" in rec["collectives_reason"]
+    else:
+        Model(cfg, mesh=Mesh(("data", "model"), (1, 4)), device="cpu")
+
+
+def test_mamba_blocks_hold_their_heads_and_gather_back_whole():
+    """On a model axis of 2, rank r's ``in_proj`` columns are z and x of
+    its heads, B and C whole and dt of its heads, and ``conv_w``'s the
+    same channels; the ranks' blocks laid side by side (the expanded leaf)
+    give back the reference's whole leaf.  At full width mamba2-2.7b's
+    rank holds 5416 columns of ``in_proj``, where the spec's block is
+    5288."""
+    from repro_torch.distributed.ctx import HeadSplit, _whole_columns
+    cfg = _smoke("mamba2-2.7b")
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    whole = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    p = whole["layers"][0]["ssm"]
+    for name, kind in (("in_proj", "proj"), ("conv_w", "conv")):
+        blocks = []
+        for r in range(2):
+            m = Model(cfg, mesh=Mesh(("data", "model"), (1, 2),
+                                     coords=(0, r)), device="cpu")
+            spec = S.spec_at(m.layouts(), ("layers", 0, "ssm", name))
+            assert isinstance(spec, HeadSplit)
+            blk = m.shard(whole)["layers"][0]["ssm"][name]
+            heads = slice(r * di // 2, (r + 1) * di // 2)
+            w = p[name]
+            if kind == "proj":
+                want = torch.cat([w[:, heads], w[:, di:2 * di][:, heads],
+                                  w[:, 2 * di:2 * di + 2 * N],
+                                  w[:, 2 * di + 2 * N:][:, r * H // 2:
+                                                        (r + 1) * H // 2]],
+                                 dim=-1)
+            else:
+                want = torch.cat([w[:, heads], w[:, di:di + 2 * N]], dim=-1)
+            assert torch.equal(blk, want), (name, r)
+            blocks.append(blk)
+        assert torch.equal(_whole_columns(torch.cat(blocks, -1), spec),
+                           p[name])
+    full = get_config("mamba2-2.7b")
+    meta = Model(full, device="meta").init(torch.Generator())
+    mesh = Mesh(("data", "model"), (1, 2))
+    shape = meta["layers"][0]["ssm"]["in_proj"].shape
+    lay = S.param_layouts(full, meta, "serving", mesh)
+    spec = S.sanitized_param_specs(full, meta, "serving", mesh)
+    path = ("layers", 0, "ssm", "in_proj")
+    assert S.local_shape(shape, S.spec_at(lay, path), mesh)[-1] == 5416
+    assert S.local_shape(shape, S.spec_at(spec, path), mesh)[-1] == 5288
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_rmsnorm_twins_match_the_whole_row_and_jax(dtype):
+    """The split-row entries' plain twins over two ranks' halves of each
+    row (their sums of squares added, then each half scaled), laid side by
+    side, against the whole-row norm and the JAX ``apply_norm``; on the
+    CPU the wrappers take the twins, count no launch, and refuse a raw
+    call under grad."""
+    import jax.numpy as jnp
+    from repro.models import layers as JL
+    from repro_torch.kernels import fused_rmsnorm as K
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((7, 96)).astype(
+        np.float32)).to(tdt)
+    scale = torch.from_numpy(rng.standard_normal(96).astype(np.float32))
+    halves = (slice(0, 48), slice(48, 96))
+    n0 = (K.rmsnorm_sumsq.launches, K.rmsnorm_apply.launches)
+    total = sum(K.rmsnorm_sumsq(x[:, h].contiguous()) for h in halves)
+    got = torch.cat([K.rmsnorm_apply(x[:, h].contiguous(), total, scale[h],
+                                     96) for h in halves], dim=-1)
+    assert (K.rmsnorm_sumsq.launches, K.rmsnorm_apply.launches) == n0
+    assert got.dtype == tdt
+    tol = 1e-6 if dtype == "float32" else 2 ** -7
+    torch.testing.assert_close(got.float(), K.rmsnorm_ref(x, scale).float(),
+                               atol=tol, rtol=0)
+    jcfg = jax_smoke("mamba2-2.7b")
+    want = np.asarray(JL.apply_norm(
+        jcfg, {"scale": jnp.asarray(scale.numpy())},
+        jnp.asarray(x.float().numpy()).astype(dtype))).astype(np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               atol=2e-5 if dtype == "float32" else 2 ** -7,
+                               rtol=0)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        K.rmsnorm_sumsq(x.float().requires_grad_(True))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        K.rmsnorm_apply(x.float(), total, scale.requires_grad_(True), 96)
 
 
 def test_one_rank_entry_points_raise_on_a_mesh():
@@ -148,13 +268,20 @@ def test_one_rank_entry_points_raise_on_a_mesh():
 
 
 def test_the_mesh_sets_the_expert_share():
+    """The rank's ``model`` coordinate sets its part of the experts; an
+    explicit share (a card-fitting cut) is split further over ``model``,
+    and one that does not split raises."""
     cfg = _smoke("granite-moe-3b-a800m")
+    E = cfg.num_experts
     m = Model(cfg, mesh=Mesh(("data", "model"), (1, 2), coords=(0, 1)),
               device="cpu")
-    assert m.experts == (cfg.num_experts // 2, cfg.num_experts)
-    with pytest.raises(ValueError, match="sets expert_shard"):
-        Model(cfg, mesh=Mesh(("data", "model"), (1, 2)),
+    assert m.experts == (E // 2, E)
+    m = Model(cfg, mesh=Mesh(("data", "model"), (1, 2), coords=(0, 1)),
               expert_shard=(0, 2), device="cpu")
+    assert (m.share, m.experts) == ((0, E // 2), (E // 4, E // 2))
+    with pytest.raises(ValueError, match="does not split"):
+        Model(cfg, mesh=Mesh(("data", "model"), (1, 2)),
+              expert_shard=(0, E), device="cpu")
 
 
 @pytest.mark.parametrize("groups", [2, 4])
@@ -218,6 +345,33 @@ def test_dryrun_decode_cell_on_the_production_and_a_small_mesh():
     assert coll["counts"]["all-reduce"] >= 2 * jcfg.num_layers
     assert coll["per_kind_bytes"]["all-reduce"] > 0
     assert coll["per_device_bytes"] == sum(coll["per_kind_bytes"].values())
+
+
+def test_dryrun_records_collectives_of_the_families():
+    """mamba2-2.7b's and seamless-m4t-large-v2's decode cells record
+    collectives on the production meshes (each Mamba layer's
+    ``out_proj`` all-reduce and its gated norm's sum of squares;
+    seamless's self- and cross-attention and FFN all-reduces), with
+    mamba's per-rank bytes by the port's blocks beside the spec's;
+    jamba-1.5-large-398b's 8 KV heads stay refused on the 16-way
+    ``model`` axis."""
+    single = make_production_mesh(multi_pod=False)
+    rec = dryrun.dry_cell("mamba2-2.7b", "decode_32k", single)
+    cfg = get_config("mamba2-2.7b")
+    coll = rec["collectives"]
+    assert coll["counts"]["all-reduce"] >= 2 * cfg.num_layers
+    assert coll["per_device_bytes"] > 0
+    mem = rec["memory"]
+    assert mem["param_bytes"] > mem["spec_param_bytes"] > 0
+    assert mem["cache_bytes"] > mem["spec_cache_bytes"] > 0
+    rec = dryrun.dry_cell("seamless-m4t-large-v2", "decode_32k",
+                          make_production_mesh(multi_pod=True))
+    scfg = get_config("seamless-m4t-large-v2")
+    assert rec["collectives"]["counts"]["all-reduce"] >= 3 * scfg.num_layers
+    assert "spec_param_bytes" not in rec["memory"]
+    rec = dryrun.dry_cell("jamba-1.5-large-398b", "decode_32k", single)
+    assert rec["collectives"] is None
+    assert "8 KV heads" in rec["collectives_reason"]
 
 
 def test_dryrun_cli_writes_records(tmp_path):
