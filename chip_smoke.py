@@ -64,20 +64,21 @@ the final line:
      that greedy tokens do not depend on the wall clock's schedule; every
      request must finish and the paged-attention and prefix-flash kernels
      must have launched, the paged one through its split-KV body and
-     merge.  After phase 6, the same requests are served again with
-     ``cuda_graphs=False`` and their greedy tokens must equal the graphed
-     serve's bit for bit;
+     merge.  After phase 6, the backend's graphed decode step against the
+     same step run eagerly on the same staged inputs
+     (``graphed_vs_eager_step``: 8 lanes at contexts 64..1600, K/V drawn
+     from the seed, 3 steps): tokens, reasons and the pool bit for bit;
   6. swap: the same model with 2 lanes and a KV budget of a little over
      two sequences, staged arrivals on a virtual clock: requests must be
      preempted, swapped out and in as INT8 through the kv_quant kernels,
      and all finish;
   7. profile: where a full-batch decode step's and a 256-token prefill
-     chunk's time goes, with each attention path, under
-     ``torch.profiler`` (the kernel decode step prints the paged kernels'
-     share of device busy; the flash chunk must run the bf16 wgmma body),
-     then both steps as the engine calls them (through the paged backend:
-     inputs staged, tokens back on the host), as CUDA-graph replays and
-     eagerly: wall, device span (CUDA events) and device busy each;
+     chunk's time goes on the kernel path under ``torch.profiler`` (the
+     decode step prints the paged kernels' share of device busy; the
+     chunk must run the bf16 wgmma body), then both steps as the engine
+     calls them (through the paged backend: inputs staged, tokens back on
+     the host), as CUDA-graph replays: wall, device span (CUDA events)
+     and device busy each;
   8. mamba reference: mamba2-2.7b at full width and depth (64 layers,
      d_model 2560, 80 heads of 64, state 128; random bf16 weights from a
      seed), its kernel path (fused RMSNorm + SSD chunk kernels) against its
@@ -86,8 +87,9 @@ the final line:
      f32);
   9. mamba serve: 8 requests through ``serve(..., warmup=True)`` on the
      dense state backend (monolithic prefill, eager; fused recurrent
-     decode as a CUDA graph), then (after phase 10) again with
-     ``cuda_graphs=False``: greedy tokens equal bit for bit;
+     decode as a CUDA graph), then (after phase 10) its graphed decode
+     step against the same step eager, as phase 5's: tokens, reasons and
+     the conv and SSM state bit for bit;
  10. mamba swap: 2 lanes and staged arrivals force preemptions that swap a
      request's conv and SSM state to the host and back; each preempted
      request's greedy tokens must equal, bit for bit, those of a run of the
@@ -120,8 +122,9 @@ the final line:
      defaults (no chunk size: each prompt one eager chunk over its stripe;
      fused decode as a CUDA graph, ``max_seq_len`` 2048, 8 lanes), swaps
      unquantized; every request must finish and the prefix flash and
-     RMSNorm kernels must have launched; after phase 17 the same requests
-     again with ``cuda_graphs=False``, greedy tokens equal bit for bit;
+     RMSNorm kernels must have launched; after phase 17 its graphed decode
+     step against the same step eager, as phase 5's (the dense stripes
+     bit for bit);
  17. dense swap: phase 6's setup on the dense backend with chunks of 256:
      requests must be preempted and their K/V stripes swapped as INT8
      through the kv_quant kernels, and all finish;
@@ -181,8 +184,9 @@ the final line:
      after warmup, one verify replay per decode iteration, 40 prefix
      flash launches per verify step on top of 40 per prefill chunk, the
      bus's decode iterations carrying the drafted and accepted counts,
-     and greedy tokens equal, bit for bit, to the same serve run eagerly
-     without the bus; printed beside the spec-off serve's tokens/s, with
+     and greedy tokens equal, bit for bit, to the same serve without the
+     bus; then the verify step graphed against its eager step, as phase
+     5's decode step; printed beside the spec-off serve's tokens/s, with
      accepted / drafted, tokens per lane iteration and how many requests
      agree with the spec-off serve (not gated); (c) the trace and its
      ``.prom`` written to a temporary directory, the JSON loaded back
@@ -279,8 +283,9 @@ the final line:
      decode steps as a CUDA graph until every request ends, one lane
      offloaded and uploaded at step 8 (k/v INT8 through the kv_quant
      kernels, the 4096-frame xk/xv raw): all finish, 48 flash launches a
-     request, the swap's blob kinds, every step a replay, and the same
-     serve with eager steps equal bit for bit; tokens/s, decode p50,
+     request, the swap's blob kinds, every step a replay, and the graphed
+     decode step equal to its eager step bit for bit (8 lanes at context
+     64, as phase 5's); tokens/s, decode p50,
      prefill ms per request, the swap's bytes and times; then one
      prefill profiled, and the graphed decode step at full batch
      profiled (busy time) beside the
@@ -313,10 +318,9 @@ the final line:
      warmup=True)`` with 8 lanes (lanes turn over), the decode step a
      CUDA graph, each prompt prefilled whole, and one 1000-token lane's
      INT8 swap on its backend (K/V through rows 3-4, conv and SSM state
-     raw: restored bit for bit, K/V within 0.02); then the graphed and
-     the eager engine serve the same requests on a virtual clock, equal
-     bit for bit (the MoE couples a step's lanes and the wall clock's
-     schedule moves with measured time); tokens/s, TTFT p50, decode p50,
+     raw: restored bit for bit, K/V within 0.02); then the graphed decode
+     step equal to its eager step bit for bit, as phase 5's; tokens/s,
+     TTFT p50, decode p50,
      prefill ms a request, the swap's bytes.  (c) the graphed decode step
      at 8 lanes profiled against its bytes bound, with the device times
      of its MoE blocks, Mamba steps and plain attention, and a 1024-token
@@ -378,8 +382,41 @@ the final line:
      for the phase's go, so that their start overlaps phases 8-11, and
      their exits overlap phases 12-14.
 
-The serve phases 5, 6, 9, 10, 16, 17, 20, 21, 22 (b), 23, 24 and 26 (b)
-run warmed engines
+ 28. the three registered configs no earlier phase runs, after phase 26's
+     models are freed, one at a time at full width, random bf16 weights
+     from the seed through ``Model.init`` on the card, each freed before
+     the next: qwen1.5-32b at 32 of its 64 layers (d_model 5120, 40 = 40
+     heads of 128: G 1, QKV biases, d_ff 27392, vocab 152064; 36.75 GB),
+     command-r-35b at all 40 (d_model 8192, 64/8 heads: G 8, LayerNorm, a
+     tied 256000-row head; 60.57 GB) and dbrx-132b at 8 of 40 holding all
+     16 experts, top 4 (d_model 6144, 48/8 heads: G 6, LayerNorm, d_ff
+     10752; 54.61 GB), depth the only cut.  Each: (1) the kernel path
+     against the plain path on the same weights: two prompts (1024 and
+     600 tokens) prefilled in chunks of 256 on a 2-lane paged backend,
+     then 8 decode steps of both lanes, the plain path fed the kernel
+     path's tokens (dbrx on its routing, as phase 24 (b)): relative L2 of
+     the 18 logit rows <= 0.05; (2) the main path, counted from 0: 8
+     requests (prompts 64-1536, outputs 16-64) through ``serve(...,
+     warmup=True)`` on the paged backend with chunks of 256, graphed,
+     INT8 swaps (the compile gate as phase 5's; all finish), then one
+     forced INT8 swap of a 1000-token lane on its backend (K/V within
+     phase 3's round-trip bound); (3) the graphed decode step against its
+     eager step, as phase 5's; (4) the graphed engine decode step at 8
+     lanes profiled, against its bytes bound (the weights a step reads and
+     the lanes' K/V); the paged attention, prefix flash, INT8 quant and,
+     for qwen, RMSNorm kernels must have launched.
+ 29. granite-moe-3b-a800m trained on the card in f32: at 8 of its 32
+     layers, batch 4 x 1024, the loss (the aux term in it) and every
+     gradient leaf through the kernels against ``use_kernels=False`` as
+     phase 12 holds granite's, on one routing (the kernel path's choices
+     replayed in the plain path, gate weights from its own router, so the
+     router's gradient is compared too); then ``launch/train.train`` at all
+     32 layers (3.30 B parameters), batch 1 x 1024, 3 AdamW steps, counted
+     from 0: losses finite, the flash and RMSNorm kernels launched;
+     ms/step, tokens/s, peak memory.
+
+The serve phases 5, 6, 9, 10, 16, 17, 20, 21, 22 (b), 23, 24, 26 (b) and
+28 (2) run warmed engines
 (every step graph captured and every kernel library loaded before the
 first request): each prints its warmup's seconds, captures and
 graph-pool size, and fails on any capture or library build or load while
@@ -390,7 +427,8 @@ the libraries' body counters, so the main-path counts below count
 replays.
 
 Phases 15-23 run after phase 7, with the granite model still loaded
-(phases 20 and 23 on its first 20 layers).
+(phases 20 and 23 on its first 12 layers); phases 28 and 29 after phase
+26, before phase 27's ranks start.
 Phase 3 also holds the paged attention (f32 and bf16) and the prefix
 flash kernel (bf16) at granite-moe's decode shape (B 8, H 24, KVH 8, d
 64: G 3, pages of 16, lengths 1..2048) and its 256-token chunk at 1000,
@@ -431,8 +469,13 @@ attention layer (bf16 causal, B 1, H 64, KVH 8, S 1024, d 128;
 ``jamba_shape``, gated as granite's rows) and at phase 27's per-rank
 heads (bf16 causal, B 2, S 1024: granite's 16/4 of d 128 and
 granite-moe's 12/4 of d 64; ``sharded_shape``, gated as granite's
-rows), and the RMSNorm at
-phase 27's 2 x 1024 prefill rows of 4096 and 1536 (``sharded_shape``).
+rows), the RMSNorm at
+phase 27's 2 x 1024 prefill rows of 4096 and 1536 (``sharded_shape``),
+and the paged kernel (bf16) at phase 28's decode shapes (B 8, d 128,
+pages of 16, lengths 1..2048: qwen1.5-32b's 40 = 40 heads, G 1, and
+dbrx-132b's 48/8, G 6) and the prefix flash kernel (bf16, C 256 at 1000)
+at their heads and command-r-35b's 64/8, G 8 (``big_shapes``, gated as
+granite's rows).
 There are five main paths, each driven with every kernel's launch count set to 0 just before it and
 read just after: granite's phases 5 and 6 (the paged-attention, prefix
 flash and INT8 quant kernels must have launched), granite's dense phases
@@ -443,9 +486,10 @@ tensor-core body) and training's phase 13 (the
 flash and RMSNorm kernels must have launched); then phase 19's two packs
 and phase 20's and phase 21's two serves each, phase 22, phase 23 (a),
 phase 24's serves (c)-(e), phase 25's serve (b) and training (d), and
-phase 26's serve and swap (b) and training (d), and phase 27's sharded
-runs on both ranks, each counted from 0 and added to the kernels line's
-launches.  Each phase
+phase 26's serve and swap (b) and training (d), phase 27's sharded
+runs on both ranks, phase 28's serves, swaps, graphed steps and profiles
+and phase 29's training, each counted from 0 and added to the kernels
+line's launches.  Each phase
 prints its seconds.  Then a ``kernels`` JSON line (each row also names
 the ``csrc`` headers its source includes), the card's name and
 power limit, and the final ``{"ok": true, "device": {...}}`` line.  Needs
@@ -461,6 +505,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -476,6 +521,9 @@ PEAK_FLOPS = {"bfloat16": 989e12,       # dense tensor-core rate
 L2_BYTES = 50 * 2 ** 20                 # H100 SXM data sheet
 _SCRUB = []                             # the L2 scrub's buffer, made once
 SEED = 0
+# the lanes of the profiled and checked decode steps: 8 at contexts spread
+# over the serves' range
+PROFILE_CTX = np.linspace(64, 1600, 8).astype(int)
 
 
 class Clock:
@@ -631,17 +679,20 @@ def check_table(label: str, tables, num_pages: int, shape) -> None:
              f"[0, {num_pages})), dtype {host.dtype}")
 
 
-def check_paged_attention(torch, dev, H=32, d=128):
+def check_paged_attention(torch, dev, H=32, d=128, KVH=8,
+                          dtypes=("float32", "bfloat16")):
     """Decode attention over bf16 and f32 pages at granite's decode shape
     (B 8, H 32, KVH 8, d 128, pages of 16, lengths 1..2048 drawn from 2048
-    + 1 pool pages), or with granite-moe's heads (``H`` 24, ``d`` 64: G 3).
+    + 1 pool pages), or with granite-moe's heads (``H`` 24, ``d`` 64: G 3),
+    or in bf16 alone (``dtypes``) with phase 28's: qwen1.5-32b's (``H`` =
+    ``KVH`` = 40: G 1) and dbrx-132b's (48/8: G 6).
     Each call must run the split-KV body and its merge once (the library's
     counters); the bf16 row (the serve path's) must be no slower than its
     plain version in every reading, and prints its time over its bytes
     bound.  Returns the bf16 row."""
     from repro_torch.kernels.paged_attention import (ops, paged_attention,
                                                      paged_attention_ref)
-    B, KVH, page = 8, 8, 16
+    B, page = 8, 16
     max_pages = 2048 // page
     num_pages = B * max_pages + 1
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -651,7 +702,7 @@ def check_paged_attention(torch, dev, H=32, d=128):
         :B * max_pages].reshape(B, max_pages).to(torch.int32)
     check_table("paged_attention", tables, num_pages, (B, max_pages))
     rows = {}
-    for name in ("float32", "bfloat16"):
+    for name in dtypes:
         dt = getattr(torch, name)
         q = torch.randn((B, H, d), generator=g, device=dev).to(dt)
         kc = torch.randn((num_pages, page, KVH, d), generator=g,
@@ -689,9 +740,9 @@ def check_paged_attention(torch, dev, H=32, d=128):
               f"plain_ms={plain:.4f} bound_ms={b_ms:.4f} ({b_by}) "
               "library_ms=none", flush=True)
         if name == "bfloat16":
-            verdict(f"paged_attention {name} B={B} H={H} d={d} lengths "
-                    "1..2048", ms, mine, plain, theirs, "its plain version",
-                    b_ms)
+            verdict(f"paged_attention {name} B={B} H={H} KVH={KVH} d={d} "
+                    "lengths 1..2048", ms, mine, plain, theirs,
+                    "its plain version", b_ms)
     return rows["bfloat16"]
 
 
@@ -1714,13 +1765,12 @@ def same_tokens(label: str, graphed, eager) -> None:
         fail(f"{label}: graphed and eager greedy tokens differ")
 
 
-# the serve phases' launcher arguments (phases 5, 16 and 9), shared by the
-# graphed serve and its eager comparison.  Swaps travel unquantized here,
-# so the greedy tokens do not depend on when the wall clock's schedule
-# preempts (phases 6 and 17 force the INT8 swaps).  8 requests (12 before
-# PR 27, 16 before PR 19): phases 5, 16, 21 and 24 (c) serve them, each
-# graphed and again eagerly, and phase 27's (d)-(g) took their seconds
-# under the script's 290 s ceiling
+# the serve phases' launcher arguments (phases 5, 16 and 9).  Swaps travel
+# unquantized here, so the greedy tokens do not depend on when the wall
+# clock's schedule preempts (phases 6 and 17 force the INT8 swaps; phase
+# 21 compares its speculative serves' tokens with phases 5's and 16's).
+# Phases 5, 16, 21 and 24 (c) serve these 8 requests, few enough for the
+# script's time
 PAGED_SERVE = dict(arch_size="full", strategy="alise", n_requests=8,
                    max_slots=8, seed=SEED, predictor_kind="oracle",
                    prefill_chunk=256, kv_backend="paged",
@@ -1802,21 +1852,6 @@ def serve_summary(eng, reqs, wall):
             f"{sum(r.preempt_count for r in reqs)}")
 
 
-def eager_serve(torch, label, model, params, graphed, args) -> None:
-    """The same requests served again with ``cuda_graphs=False`` (eager
-    steps on the card, warmed alike): its summary, and its greedy tokens
-    against the graphed serve's, which must be equal bit for bit."""
-    from repro_torch.launch.serve import serve
-    torch.cuda.synchronize()
-    reqs, eng = serve(**{**args, "verbose": False}, cuda_graphs=False,
-                      device=model.device, model_and_params=(model, params))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - eng.warm_stats["end"]
-    print(f"[serve-eager] {label}, cuda_graphs=False: "
-          f"{serve_summary(eng, reqs, wall)}", flush=True)
-    same_tokens(label, graphed, reqs)
-
-
 def phase_serve(torch, model, params, kernels):
     from repro_torch.launch.serve import serve
     from repro_torch.utils.compile_counter import CompileCounter
@@ -1886,6 +1921,15 @@ def phase_swap(torch, model, params, kernels):
         if counts[n] <= 0:
             fail(f"swap: kernel {n} never launched")
     return counts
+
+
+def _start_profiler(torch) -> None:
+    """One profiled kernel: a process's first ``torch.profiler`` session
+    starts CUPTI, which costs seconds once; later sessions do not."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]):
+        (x + 1).sum().item()
 
 
 def _kernel_name(name: str) -> str:
@@ -1972,11 +2016,12 @@ def profile_step(torch, label: str, step, n: int = 3, watch=()) -> None:
 
 
 def phase_profile(torch, model, params):
-    """Where the time goes in the two model steps of the serve path, with
-    each attention implementation: a full-batch decode step (8 lanes at
-    contexts spread over 64..1600 tokens, the serve phase's range) and one
-    256-token prefill chunk starting at position 1024, whose flash route
-    must run the bf16 wgmma body (its time and share printed)."""
+    """Where the time goes in the two model steps of the serve path, on the
+    kernels: a full-batch decode step (8 lanes at contexts spread over
+    64..1600 tokens, the serve phase's range) and one 256-token prefill
+    chunk starting at position 1024, whose flash route must run the bf16
+    wgmma body (its time and share printed); then both as the engine's
+    graph replays."""
     from repro_torch.serving.kv_cache import KVBackendConfig, PagedKVBackend
     B, pg = 8, 16
     kv = PagedKVBackend(model, KVBackendConfig(
@@ -1993,42 +2038,33 @@ def phase_profile(torch, model, params):
         wp[i], wo[i] = pages[c // pg], c % pg
     dec = [x.to(dev) for x in (torch.full((B, 1), 7), tables,
                                torch.tensor(ctx, dtype=torch.int32), wp, wo)]
-    for impl in ("kernel", "gather"):
-        profile_step(torch, f"decode step ({impl}, B={B}, ctx 64..1600)",
-                     lambda: model.paged_decode_step(params, pool, *dec,
-                                                     attn_impl=impl),
-                     watch=("paged_attention",) if impl == "kernel" else ())
+    profile_step(torch, f"decode step (kernel, B={B}, ctx 64..1600)",
+                 lambda: model.paged_decode_step(params, pool, *dec,
+                                                 attn_impl="kernel"),
+                 watch=("paged_attention",))
     start, C = 1024, 256
     pos = start + torch.arange(C)
     pages = torch.tensor(kv.pool.page_table[B - 1], dtype=torch.long)
     pre = [torch.full((1, C), 7, device=dev), tables[B - 1:].to(dev),
            pages[pos // pg].to(dev), (pos % pg).to(dev)]
-    impl0 = model.chunk_attn_impl
-    for chunk in ("flash", "masked"):
-        model.chunk_attn_impl = chunk
-        profile_step(torch, f"prefill chunk ({chunk}, C={C}, start={start})",
-                     lambda: model.paged_prefill_chunk(params, pool, *pre,
-                                                       start, C),
-                     watch=("flash_attn_wgmma",) if chunk == "flash" else ())
-    model.chunk_attn_impl = impl0
+    profile_step(torch, f"prefill chunk (flash, C={C}, start={start})",
+                 lambda: model.paged_prefill_chunk(params, pool, *pre, start,
+                                                   C),
+                 watch=("flash_attn_wgmma",))
     del kv, pool, dec, pre
     torch.cuda.empty_cache()
-    for graphs in (True, False):
-        how = "graphed" if graphs else "eager"
-        profile_step(torch, f"engine decode step ({how}, B={B}, ctx "
-                     "64..1600)", engine_decode(model, params, "paged",
-                                                graphs, ctx), n=3)
-        # a chunk of 256 at position 1024 of a request whose pages exist
-        kv = PagedKVBackend(model, KVBackendConfig(
-            max_slots=1, max_seq_len=2048, page_size=pg,
-            graph_buckets=(C,), cuda_graphs=graphs), num_pages=130)
-        kv.pool.allocate(0, start)
-        profile_step(torch, f"engine prefill chunk ({how}, C={C}, "
-                     f"start={start})",
-                     lambda: kv.prefill_chunk(params, 0, [7] * C, start),
-                     n=3)
-        del kv
-        torch.cuda.empty_cache()
+    profile_step(torch, f"engine decode step (graphed, B={B}, ctx 64..1600)",
+                 engine_decode(model, params, "paged", True, ctx), n=3)
+    # a chunk of 256 at position 1024 of a request whose pages exist
+    kv = PagedKVBackend(model, KVBackendConfig(
+        max_slots=1, max_seq_len=2048, page_size=pg, graph_buckets=(C,)),
+        num_pages=130)
+    kv.pool.allocate(0, start)
+    profile_step(torch, f"engine prefill chunk (graphed, C={C}, "
+                 f"start={start})",
+                 lambda: kv.prefill_chunk(params, 0, [7] * C, start), n=3)
+    del kv
+    torch.cuda.empty_cache()
 
 
 def engine_decode(model, params, backend, cuda_graphs, ctx,
@@ -3145,7 +3181,9 @@ def phase_spec_serve(torch, model, params, kernels, backend, spec_off):
     the prefix flash kernel launched 40 times per verify step on top of
     40 per prefill chunk, the bus's decode iterations carry the drafted
     and accepted counts, and the greedy tokens equal those of the same
-    serve run eagerly without the bus, bit for bit; printed: accepted /
+    serve without the bus, bit for bit; then the
+    verify step graphed against eager (:func:`graphed_vs_eager_step`, 8
+    lanes at ``VERIFY_CTX``, 3 drafts); printed: accepted /
     drafted, tokens per lane iteration, tokens/s beside the spec-off
     serve's (``spec_off``: phase 5's or 16's requests), decode-iteration
     p50, and how many requests' tokens agree with the spec-off serve (not
@@ -3216,20 +3254,21 @@ def phase_spec_serve(torch, model, params, kernels, backend, spec_off):
         fail(f"{label}: the exported trace lacks its events")
     del eng, bus, events, trace
     torch.cuda.empty_cache()
-    eager, eng, _, wall = _spec_serve(model, params, kernels, backend,
-                                      False)
-    print(f"[spec-eager] {label}, cuda_graphs=False, no bus: "
-          f"{_tok_s(eager):.1f} tok/s, wall {wall:.2f}s", flush=True)
-    same_tokens(label + " (traced, graphed vs untraced, eager)", reqs,
-                eager)
+    untraced, eng, _, wall = _spec_serve(model, params, kernels, backend,
+                                         True)
+    print(f"[spec] {label}, no bus: {_tok_s(untraced):.1f} tok/s, wall "
+          f"{wall:.2f}s", flush=True)
+    same_tokens(label + " (traced vs untraced)", reqs, untraced)
+    del eng
+    torch.cuda.empty_cache()
+    graphed_vs_eager_step(torch, label, model, params, backend, VERIFY_CTX,
+                          spec_k=SPEC_K)
     agree = sum(list(a.output_tokens) == list(b.output_tokens)
                 for a, b in zip(reqs, spec_off))
     print(f"[spec] {label}: {agree}/{len(reqs)} requests' greedy tokens "
           f"agree with the spec-off serve (not gated: in bf16 a (B x "
           f"{SPEC_K + 1})-row verify and a B-row decode round "
           f"differently)", flush=True)
-    del eng
-    torch.cuda.empty_cache()
     return counts
 
 
@@ -4404,7 +4443,8 @@ def phase_encdec_serve(torch, model, params, kernels):
     dense backend, graphed, counted from 0 (the flash kernel once per
     encoder layer, bidirectional, and once per decoder layer, causal, for
     each prefill; kv_quantize and kv_dequantize twice for the swap), then
-    the same requests eagerly: equal bit for bit; then the profile.
+    the graphed decode step against its eager step at 8 lanes of context
+    64 (:func:`graphed_vs_eager_step`); then the profile.
     Returns the graphed serve's launch counts."""
     cfg = model.cfg
     reqs = _encdec_requests(torch, cfg, model.device)
@@ -4445,15 +4485,9 @@ def phase_encdec_serve(torch, model, params, kernels):
     if st["replays"] != len(st["decode_ms"]):
         fail(f"phase 25 (b): {len(st['decode_ms'])} decode steps, "
              f"{st['replays']} replays")
-    eout, est = encdec_serve(torch, model, params, reqs, graphs=False)
-    same = eout == out
-    print(f"[graphs] {ENCDEC_ARCH} dense serve (phase 25 b): graphed vs "
-          f"eager, {n_req} requests, {gen} tokens: "
-          + ("equal bit for bit" if same else "DIFFER")
-          + f"; eager {sum(map(len, eout.values())) / est['wall']:.1f} tok/s, "
-          f"decode p50 {np.median(est['decode_ms']):.2f} ms", flush=True)
-    if not same:
-        fail("phase 25 (b): graphed and eager greedy tokens differ")
+    graphed_vs_eager_step(torch, f"{ENCDEC_ARCH} dense (phase 25 b)", model,
+                          params, "dense", np.full(ENCDEC_SERVE["lanes"], 64),
+                          max_seq_len=ENCDEC_SERVE["max_seq_len"])
     encdec_profile(torch, model, params)
     return counts
 
@@ -4752,13 +4786,10 @@ def phase_hybrid_serve(torch, model, params, kernels):
     requests (prompts 64-1536, outputs 16-64, 8 lanes, so lanes turn over)
     through ``serve(...)`` on the dense backend, warmed, the decode step a
     CUDA graph, each prompt prefilled whole; then one lane's INT8 swap on
-    its backend.  Then the graphed and the eager engine serve the same
-    requests on a virtual clock (0.1 s a step): the MoE's capacity couples
-    a step's lanes, so a token depends on which requests share its step,
-    and the ALISE schedule on the wall clock (aging, EWT) depends on
-    measured time; on one schedule the two must give equal tokens bit for
-    bit.  Returns the main path's launch counts."""
-    from repro_torch.launch.serve import build_requests, serve
+    its backend.  Then the graphed decode step against its eager step
+    (:func:`graphed_vs_eager_step`).  Returns the main path's launch
+    counts."""
+    from repro_torch.launch.serve import serve
     from repro_torch.utils.compile_counter import CompileCounter
     reset_counts(kernels)
     counter = CompileCounter()
@@ -4783,22 +4814,9 @@ def phase_hybrid_serve(torch, model, params, kernels):
         if counts[n] <= 0:
             fail(f"phase 26 (b): kernel {n} never launched")
     del eng
-    torch.cuda.empty_cache()
-    got = {}
-    for graphs in (True, False):       # no chunk buckets: nothing measured
-        e = _moe_engine(model, params, graphs=graphs, kv_backend="dense",
-                        prefill_chunk=None, quantize_offload=True)
-        rs = build_requests(model.cfg, HYBRID_SERVE["n_requests"], SEED,
-                            "full")
-        w, first = virtual_serve(torch, e, rs)
-        how = "graphed" if graphs else "eager"
-        print(f"[hybrid] (b) virtual clock, {how}: "
-              f"{_moe_summary(e, rs, w, first)}", flush=True)
-        _served(f"phase 26 (b) {how}", model, rs)
-        got[graphs] = rs
-        del e
-        torch.cuda.empty_cache()
-    same_tokens("jamba dense (phase 26 b)", got[True], got[False])
+    free_memory(torch)
+    graphed_vs_eager_step(torch, "jamba dense (phase 26 b)", model, params,
+                          "dense", PROFILE_CTX)
     return counts
 
 
@@ -5000,6 +5018,471 @@ def phase_hybrid(torch, dev, kernels):
     t_counts = phase_mamba_train(torch, dev, kernels)
     clock.lap("mamba2-2.7b training (phase 26 d)")
     return {k: counts[k] + t_counts[k] for k in counts}
+
+
+# ------------------------------------------------------ phases 28 and 29
+
+# phase 28: the three registered configs no earlier phase runs, at full
+# width, one at a time; depth cut where the card (80 GB) or the script's
+# time asks for it: (config, layers held or None for all)
+BIG_ARCHS = (("qwen1.5-32b", 32),         # of 64: 36.8 GB of bf16 weights
+             ("command-r-35b", None),     # all 40: 60.6 GB
+             ("dbrx-132b", 8))            # of 40, all 16 experts: 54.6 GB
+BIG_PROMPTS = (1024, 600)                 # (1): two prompts, chunks of 256
+BIG_CHUNK = 256
+BIG_DECODE = 8                            # (1): decode steps of both lanes
+BIG_STEPS = 3                             # (3): graphed vs eager steps
+BIG_SERVE = dict(arch_size="full", strategy="alise", n_requests=8,
+                 max_slots=8, seed=SEED, predictor_kind="oracle",
+                 prefill_chunk=BIG_CHUNK, kv_backend="paged",
+                 paged_attn_impl="kernel", chunk_attn="flash", page_size=16,
+                 quantize=True, warmup=True, verbose=False)
+BIG_ROWS = ("paged_attention", "flash_prefill_prefix", "kv_quantize",
+            "kv_dequantize")             # and RMSNorm's kernel where RMSNorm
+BIG_SWAP_TOKENS = 1000                    # (2): the forced INT8 swap's lane
+
+
+def _big_logits(torch, model, params, prompts, impl, toks=None):
+    """Phase 28 (1)'s run on one path (``impl`` "kernel": the prefix flash
+    and paged-attention kernels and, where the config has RMSNorm, its
+    kernel; "gather": page gather, masked chunk attention, plain norms) on
+    its own 2-lane paged backend: each of ``prompts`` prefilled in chunks of
+    ``BIG_CHUNK``, then ``BIG_DECODE`` decode steps of both lanes at once,
+    fed ``toks`` (greedy from this path's logits when None).  Returns (the
+    2 + 2 * BIG_DECODE logit rows float32, the tokens fed)."""
+    from repro_torch.serving.kv_cache import KVBackendConfig, PagedKVBackend
+    kernel = impl == "kernel"
+    impl0 = model.chunk_attn_impl
+    model.chunk_attn_impl = "flash" if kernel else "masked"
+    model.use_kernels = kernel
+    dev, pg = model.device, 16
+    try:
+        kv = PagedKVBackend(model, KVBackendConfig(
+            max_slots=2, max_seq_len=2048, page_size=pg, attn_impl=impl),
+            num_pages=2 * 2048 // pg)
+        rows = []
+        for rid, p in enumerate(prompts):
+            for s in range(0, len(p), BIG_CHUNK):
+                last = kv.prefill_chunk(params, rid, p[s:s + BIG_CHUNK], s)
+            rows.append(last)
+        fed = [[int(r.argmax()) for r in rows] if toks is None else toks[0]]
+        for i in range(BIG_DECODE):
+            tables = torch.full((2, kv.max_pages_per_seq), kv.scratch_page,
+                                dtype=torch.int32)
+            pos, wp, wo = [], [], []
+            for rid in range(2):
+                kv.pool.extend(rid, 1)
+                n = kv.pool.lengths[rid] - 1
+                pt = kv.pool.page_table[rid]
+                tables[rid, :len(pt)] = torch.tensor(pt, dtype=torch.int32)
+                pos.append(n)
+                wp.append(pt[n // pg])
+                wo.append(n % pg)
+            logits = model.paged_decode_step(
+                params, {"k": kv.pool.k, "v": kv.pool.v},
+                torch.tensor(fed[-1], device=dev)[:, None], tables.to(dev),
+                torch.tensor(pos, dtype=torch.int32, device=dev),
+                torch.tensor(wp, device=dev), torch.tensor(wo, device=dev),
+                attn_impl=impl)
+            rows.append(logits)
+            fed.append(logits.argmax(-1).tolist() if toks is None
+                       else toks[i + 1])
+    finally:
+        model.chunk_attn_impl = impl0
+        model.use_kernels = True
+    return torch.cat(rows).float(), fed
+
+
+def big_kernel_vs_plain(torch, model, params) -> float:
+    """Phase 28 (1): the kernel path against the plain path on the same
+    weights, both fed the kernel path's tokens: relative L2 of all 18
+    logit rows within ``BF16_TOL``, the greedy agreement printed.  An MoE
+    (dbrx) runs the plain path on the kernel path's routing (every router
+    call's output recorded, then replayed), as phase 24 (b) fixes its
+    routing, and prints the share of choices the plain router makes
+    otherwise."""
+    from repro_torch.models import layers as L
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 28)
+    prompts = [rng.integers(2, cfg.vocab_size, n).tolist()
+               for n in BIG_PROMPTS]
+    store, flips = [], []
+    real = L._route
+    try:
+        if cfg.has_moe:
+            L._route = _record_routes(L, store)
+        a, fed = _big_logits(torch, model, params, prompts, "kernel")
+        if cfg.has_moe:         # the plain path on the kernel path's routes
+            L._route = real
+            L._route = _record_routes(L, None, iter(store), flips)
+        b, _ = _big_logits(torch, model, params, prompts, "gather", fed)
+    finally:
+        L._route = real
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        fail(f"phase 28 {cfg.name}: non-finite logits")
+    rel = _rel_l2(torch, a, b)
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    routed = (f"; on the kernel path's routing ({len(store)} router calls; "
+              f"the plain router's own choices differ on "
+              f"{float(torch.stack(flips).mean()):.2%})" if flips else "")
+    print(f"[big] (1) {cfg.name} prompts {BIG_PROMPTS} in chunks of "
+          f"{BIG_CHUNK} + {BIG_DECODE} decode steps of both lanes, "
+          f"{a.shape[0]} logit rows: kernel vs plain path rel_l2={rel:.4g} "
+          f"argmax_agree={agree:.2f}{routed}", flush=True)
+    if not rel <= BF16_TOL:
+        fail(f"phase 28 {cfg.name}: kernel path is {rel} from the plain path "
+             f"(> {BF16_TOL})")
+    return rel
+
+
+def big_swap(torch, model, params, kv) -> None:
+    """Phase 28 (2)'s forced INT8 swap on the serve's paged backend: a
+    ``BIG_SWAP_TOKENS``-token prompt prefilled in chunks of ``BIG_CHUNK``,
+    offloaded (its pages as INT8 through ``kv_quantize``) and uploaded
+    into fresh pages (``kv_dequantize``): K/V within phase 3's INT8 round
+    trip bound, the length kept.  Prints the bytes and times."""
+    rng = np.random.default_rng(SEED + 29)
+    prompt = rng.integers(2, model.cfg.vocab_size, BIG_SWAP_TOKENS).tolist()
+    for s in range(0, len(prompt), BIG_CHUNK):
+        kv.prefill_chunk(params, -1, prompt[s:s + BIG_CHUNK], s)
+    n = BIG_SWAP_TOKENS
+
+    def rows(pages):
+        idx = torch.tensor(pages, dtype=torch.long, device=model.device)
+        return {k: getattr(kv.pool, k)[:, idx].flatten(1, 2)[:, :n].float()
+                for k in ("k", "v")}
+    before = rows(kv.pool.page_table[-1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = kv.offload(-1)
+    t1 = time.perf_counter()
+    kv.upload(-1, blob)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    after = rows(kv.pool.page_table[-1])
+    err = max(_rel_l2(torch, after[k], before[k]) for k in ("k", "v"))
+    kinds = {k: blob[k][0] for k in ("k", "v")}
+    kept = kv.pool.lengths[-1] == n
+    print(f"[big] (2) forced INT8 swap of a {n}-token lane: {kinds}, "
+          f"{_blob_bytes(blob) / 1e6:.1f} MB to the host, out "
+          f"{(t1 - t0) * 1e3:.1f} ms, in {(t2 - t1) * 1e3:.1f} ms; K/V "
+          f"rel_l2 {err:.4g}, length {'kept' if kept else 'LOST'}",
+          flush=True)
+    if kinds != {"k": "q8", "v": "q8"} or not (kept and err < TIER_Q8_BOUND):
+        fail(f"phase 28 {model.cfg.name}: the INT8 swap did not restore "
+             f"the lane ({kinds}, rel_l2 {err})")
+    kv.clear(-1)
+    del before, after, blob
+
+
+def graphed_vs_eager_step(torch, label, model, params, backend, ctx,
+                          steps=BIG_STEPS, spec_k=0,
+                          max_seq_len=2048) -> None:
+    """A KV backend's fused decode step (with ``spec_k``, its verify-k
+    step) as the engine runs it, a CUDA graph replay, against the same
+    step function run eagerly on the same staged inputs, bit for bit:
+    every lane active, lane i at context ``ctx[i]``, the K/V (and any
+    conv, SSM or cross state) drawn from the seed, ``steps`` steps each
+    fed the graphed step's tokens (a verify step also ``spec_k`` drafts
+    from the seed, its accepted span committed as the engine commits it);
+    after each step the step's output (tokens, reasons; a verify's
+    samples and accepted counts), and after the last the whole cache (the
+    paged pool but its shared scratch page, the target of the capture's
+    neutral runs), must be equal.  This is what an eager serve of the same
+    requests checked, at a few steps' cost."""
+    from repro_torch.serving.kv_cache import (DenseKVBackend,
+                                              KVBackendConfig, PagedKVBackend)
+    B, pg, dev, K1 = len(ctx), 16, model.device, spec_k + 1
+    ctx = np.asarray(ctx, np.int32)
+    bcfg = KVBackendConfig(max_slots=B, max_seq_len=max_seq_len,
+                           page_size=pg, attn_impl="kernel", eos_token=-1,
+                           spec_k=spec_k)
+    if backend == "paged":
+        kv = PagedKVBackend(model, bcfg, num_pages=B + sum(
+            -(-(int(c) + steps * K1) // pg) for c in ctx))
+        for i, c in enumerate(ctx):
+            kv.pool.allocate(i, int(c))
+            kv.slot_req[i] = i
+        state = {"k": kv.pool.k, "v": kv.pool.v}
+    else:
+        kv = DenseKVBackend(model, bcfg)
+        state = kv.cache
+        if "lengths" in state:
+            state["lengths"].copy_(torch.from_numpy(ctx))
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    for t in state.values():
+        if t.is_floating_point():
+            for row in t:                  # a layer at a time: no big temp
+                row.copy_(torch.randn(row.shape, generator=g, device=dev))
+    snap = {k: t.clone() for k, t in state.items()}
+    rng = np.random.default_rng(SEED + 30)
+    kind = "verify" if spec_k else "decode"
+    step = getattr(kv, f"_{kind}_step")
+    neutral = getattr(kv, f"_neutral_{kind}")
+    toks, active = np.full((B, K1), 7, np.int32), np.ones((B,), bool)
+    gen, cur = np.zeros((B,), np.int32), ctx.copy()
+    lanes = (np.full((B,), 2 ** 31 - 1, np.int32),
+             np.arange(B, dtype=np.int32))
+    staged, graphed = [], []
+    for i in range(steps):
+        if spec_k:
+            toks[:, 1:] = rng.integers(2, model.cfg.vocab_size, (B, spec_k))
+            staged.append(kv._verify_inputs(
+                toks, np.full((B,), spec_k, np.int32), active, gen, cur,
+                *lanes))
+        else:
+            staged.append(kv._decode_inputs(toks, active, gen + 1, cur + 1,
+                                            *lanes))
+        out = kv.graphs.run((kind,), staged[-1],
+                            lambda buf: step(params, buf), neutral).cpu()
+        graphed.append(out)
+        if spec_k:
+            n = out[:, K1].numpy().astype(np.int32)
+            kv._commit_verify(n, active)
+            toks[:, 0] = out.numpy()[np.arange(B), n - 1]
+        else:
+            n = np.ones((B,), np.int32)
+            toks[:, 0] = out[0].numpy()
+        gen, cur = gen + n, cur + n
+    after = {k: t.clone() for k, t in state.items()}
+    for k, t in state.items():
+        t.copy_(snap[k])
+    del snap
+    same = all(torch.equal(step(params, torch.from_numpy(s).to(dev)).cpu(),
+                           want) for s, want in zip(staged, graphed))
+    if backend == "paged":
+        live = torch.tensor([p for p in range(kv.pool.k.shape[1])
+                             if p != kv.scratch_page], device=dev)
+        differ = [k for k, t in state.items()
+                  if not torch.equal(t[:, live], after[k][:, live])]
+    else:
+        differ = [k for k, t in state.items() if not torch.equal(t, after[k])]
+    replays = kv.graphs.replays[kind]
+    print(f"[graphs] {label}: graphed {kind} step vs the same step eager, "
+          f"{B} lanes at ctx {int(ctx.min())}..{int(ctx.max())}"
+          + (f", {spec_k} drafts" if spec_k else "")
+          + f", {steps} steps ({replays} replays): outputs "
+          f"{'equal' if same else 'DIFFER'}, cache "
+          + (f"DIFFERS in {differ}" if differ else "equal bit for bit"),
+          flush=True)
+    if not same or differ or replays != steps:
+        fail(f"{label}: the graphed {kind} step differs from its eager step")
+    del kv, state, after
+
+
+def big_profile(torch, model, params) -> None:
+    """Phase 28 (4): one graphed engine decode step at 8 lanes and
+    contexts 64..1600 profiled (:func:`profile_step`: wall, span, busy,
+    idle, top kernels), against its bytes bound: the weights a step reads
+    (the head, never the embedding table's unread rows; a tied head reads
+    the table, every expert of an MoE layer) and the lanes' K/V."""
+    from repro_torch.utils import tree_leaves
+    cfg = model.cfg
+    ctx = PROFILE_CTX
+    step = engine_decode(model, params, "paged", True, ctx)
+    busy = profile_step(torch, f"{cfg.name} engine decode step (graphed, "
+                        "B=8, ctx 64..1600)", step, n=3,
+                        watch=("paged_attention",))
+    weights = sum(t.numel() * t.element_size()
+                  for path, t in tree_leaves(params)
+                  if path != ("embed",) or cfg.tie_embeddings)
+    kvb = int(sum(ctx)) * 2 * cfg.num_layers * cfg.num_kv_heads * cfg.hd * 2
+    b_ms = (weights + kvb) / HBM_BYTES_PER_S * 1e3
+    print(f"[big] (4) {cfg.name} decode step bound {b_ms:.3f} ms (bytes: "
+          f"{weights / 1e9:.2f} GB of weights + {kvb / 1e9:.3f} GB of K/V)"
+          + ("" if busy is None else
+             f"; busy {busy:.2f} ms = {b_ms / busy:.1%} of the bound"),
+          flush=True)
+    del step
+    free_memory(torch)
+
+
+def phase_big(torch, dev, kernels):
+    """Phase 28: qwen1.5-32b, command-r-35b and dbrx-132b at full width
+    (``BIG_ARCHS``' depth), one at a time, random bf16 weights from the
+    seed through ``Model.init`` on the card: (1) kernel vs plain path; (2)
+    the main path, counted from 0: a graphed ``serve(...)`` of 8 requests
+    on the paged backend (chunks of 256, warmed), then one forced INT8
+    swap on its backend; (3) the graphed decode step against its eager
+    step, bit for bit; (4) one profiled graphed decode step against its
+    bound.  Returns the launch counts of (2)-(4), summed over the
+    configs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.utils import tree_leaves
+    from repro_torch.utils.compile_counter import CompileCounter
+    clock = Clock(time.perf_counter())
+    free_memory(torch)
+    totals = None
+    with torch.no_grad():
+        for name, layers in BIG_ARCHS:
+            full = get_config(name)
+            cfg = full if layers is None else full.scaled(num_layers=layers)
+            t0 = time.perf_counter()
+            model, params = build(torch, dev, cfg)
+            torch.cuda.synchronize()
+            n = sum(t.numel() for _, t in tree_leaves(params))
+            nb = sum(t.numel() * t.element_size()
+                     for _, t in tree_leaves(params))
+            moe = (f", {cfg.num_experts} experts top {cfg.top_k} (all held)"
+                   if cfg.has_moe else "")
+            print(f"[model] {name} full width, {cfg.num_layers} of "
+                  f"{full.num_layers} layers (d{cfg.d_model} {cfg.num_heads}/"
+                  f"{cfg.num_kv_heads}H hd{cfg.hd} ff{cfg.d_ff} V"
+                  f"{cfg.vocab_size}, {cfg.norm_type}"
+                  f"{', QKV bias' if cfg.qkv_bias else ''}"
+                  f"{', tied head' if cfg.tie_embeddings else ''}{moe}), "
+                  f"{n:,} params bf16 ({nb / 1e9:.2f} GB), init "
+                  f"{time.perf_counter() - t0:.1f}s", flush=True)
+            big_kernel_vs_plain(torch, model, params)
+            clock.lap(f"{name} init + kernel vs plain (phase 28 1)")
+
+            reset_counts(kernels)
+            counter = CompileCounter()
+            reqs, eng = serve(**BIG_SERVE, arch=name, device=dev,
+                              model_and_params=(model, params))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - eng.warm_stats["end"]
+            graph_gate(f"{name} paged serve (phase 28 2)", eng, counter,
+                       True)
+            counter.detach()
+            _served(f"phase 28 {name}", model, reqs)
+            print(f"[big] (2) {name} paged, chunks of {BIG_CHUNK}, 8 lanes, "
+                  f"graphed, serve(): {serve_summary(eng, reqs, wall)}",
+                  flush=True)
+            big_swap(torch, model, params, eng.kv)
+            del eng
+            free_memory(torch)
+            clock.lap(f"{name} serve + INT8 swap (phase 28 2)")
+            graphed_vs_eager_step(torch, f"{name} (phase 28 3)", model,
+                                  params, "paged", PROFILE_CTX)
+            big_profile(torch, model, params)
+            counts = read_counts(kernels)
+            print(f"[main-path] {name} serve, swap, graphed step and profile "
+                  f"(phase 28) launches {counts}", flush=True)
+            rows = BIG_ROWS + (("fused_rmsnorm",)
+                               if cfg.norm_type == "rmsnorm" else ())
+            for k in rows:
+                if counts[k] <= 0:
+                    fail(f"phase 28 {name}: kernel {k} never launched")
+            totals = counts if totals is None else {
+                k: totals[k] + counts[k] for k in totals}
+            del model, params, reqs
+            free_memory(torch)
+            clock.lap(f"{name} graphed step + profile (phase 28 3-4)")
+    return totals
+
+
+MOE_TRAIN = dict(ref_layers=8, ref_batch=4, seq=1024, batch=1, steps=3)
+
+
+def _route_on(torch, real, recorded, flips):
+    """A router (``layers._route``'s signature) taking each call's experts
+    from ``recorded`` (the top-k choices of another run, in call order) and
+    its gate weights and aux term from this call's own router
+    probabilities, as ``_route`` computes them, so that gradients reach
+    the router; ``flips`` gets the count of (token, k) choices that
+    ``real``'s own top-k makes otherwise."""
+    it = iter(recorded)
+
+    def route(cfg, p, xf):
+        _, own, _, E_alloc = real(cfg, p, xf)
+        idx = next(it)
+        flips.append((own.sort(-1).values != idx.sort(-1).values).sum())
+        probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+        w = probs.gather(-1, idx)
+        w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
+        lead = tuple(range(idx.dim() - 1))
+        first = torch.nn.functional.one_hot(idx[..., 0], E_alloc).float()
+        aux = cfg.num_experts * (first.mean(dim=lead)
+                                 * probs.mean(dim=lead)).sum()
+        return w, idx, aux, E_alloc
+    return route
+
+
+def phase_moe_train(torch, dev, kernels):
+    """Phase 29: granite-moe-3b-a800m trained on the card in float32.
+    First at ``MOE_TRAIN``'s 8 of 32 layers, batch 4 x 1024: the loss (the
+    aux term in it) and every gradient leaf through the kernels (flash
+    forward, RMSNorm kernel, plain recomputed backwards) against
+    ``use_kernels=False`` (:func:`kernel_vs_plain_grads`: loss 1e-4
+    relative, every leaf present, finite, nonzero, rel_l2 1e-3) on one
+    routing: the kernel path's router choices, replayed in the plain path
+    with its own gate weights (:func:`_route_on`).  Then
+    ``launch/train.train`` at all 32 layers (3.30 B parameters: 52.8 GB
+    with gradients and AdamW moments), batch 1 x 1024, 3 AdamW steps, the
+    main path counted from 0: losses finite, the flash and RMSNorm kernels
+    launched; ms/step, tokens/s, peak memory.  Returns the launch
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    free_memory(torch)
+    T = MOE_TRAIN
+    cfg = get_config(MOE_ARCH).scaled(param_dtype="float32",
+                                      num_layers=T["ref_layers"])
+    model = Model(cfg, attn_chunk=T["seq"] // 2, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    batch = next(SyntheticLM(cfg, DataConfig(
+        batch_size=T["ref_batch"], seq_len=T["seq"])).iterate(device=dev))
+    real, store, flips = L._route, [], []
+
+    def record(cfg_, p, xf):
+        out = real(cfg_, p, xf)
+        store.append(out[1].detach())
+        return out
+
+    def before(use):
+        L._route = record if use else _route_on(torch, real, store, flips)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        r = kernel_vs_plain_grads(torch, "phase 29", model, params, batch,
+                                  before=before)
+    finally:
+        L._route = real
+    n = sum(int(t.numel()) for t in store)
+    print(f"[train-reference] {MOE_ARCH} full width, {T['ref_layers']} of "
+          f"32 layers, f32, {r['params']:,} params, batch {T['ref_batch']}x"
+          f"{T['seq']}: loss kernel {r['loss'][0]:.6f} plain "
+          f"{r['loss'][1]:.6f} (rel {r['rel_loss']:.3g}, ce "
+          f"{r['ce'][0]:.6f}/{r['ce'][1]:.6f}); {r['leaves']} gradient "
+          f"leaves, worst rel_l2 {r['worst']:.3g} at {r['worst_at']}; one "
+          f"routing ({len(store)} router calls, the plain router's own "
+          f"choices differ on {int(sum(flips))}/{n}); loss+grad "
+          f"{r['seconds'][0]:.2f}s kernel path, {r['seconds'][1]:.2f}s plain "
+          f"path; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del model, params, batch, store
+    free_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    state, losses, step_s = train(
+        MOE_ARCH, smoke=False, batch_size=T["batch"], seq_len=T["seq"],
+        steps=T["steps"], log_every=T["steps"], device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(step_s))
+    toks = T["batch"] * T["seq"]
+    print(f"[train] {MOE_ARCH} full width and depth (32 layers, 40 experts "
+          f"top 8), f32, AdamW, batch {T['batch']}x{T['seq']}: "
+          f"{len(losses)} steps, ms/step p50 {p50 * 1e3:.1f} (each: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in step_s)}), {toks / p50:.0f} "
+          f"tokens/s, peak memory {peak / 2**30:.2f} GiB ({peak:,} B), loss "
+          f"first {losses[0]:.4f} last {losses[-1]:.4f}, wall {wall:.1f}s "
+          f"with init, launches {counts}", flush=True)
+    if len(losses) != T["steps"] or not all(np.isfinite(losses)):
+        fail(f"phase 29: losses {losses}")
+    for k in ("flash_prefill", "fused_rmsnorm"):
+        if counts[k] <= 0:
+            fail(f"phase 29: kernel {k} never launched on the training path")
+    del state
+    free_memory(torch)
+    return counts
 
 
 def mamba_reference_check(torch, model, params):
@@ -5246,15 +5729,18 @@ def _train_setup(torch, dev):
     return model, next(data.iterate(device=dev))
 
 
-def kernel_vs_plain_grads(torch, label, model, params, batch) -> dict:
+def kernel_vs_plain_grads(torch, label, model, params, batch,
+                          before=None) -> dict:
     """The loss and gradients of ``model`` on ``batch`` through its kernels
     (forward kernels, plain recomputed backwards) against
     ``use_kernels=False`` (plain versions, autograd throughout) on the same
     ``params``: the loss within 1e-4 relative, every gradient leaf
     present, finite, nonzero and within a relative L2 of 1e-3 (``label``
     names a failure).  A kernel that cut the graph would leave its inputs'
-    leaves without gradient or with a wrong one.  Returns the losses, ce
-    terms, leaf count, worst leaf and each path's seconds."""
+    leaves without gradient or with a wrong one.  ``before(use_kernels)``,
+    when given, runs before each path (phase 29 fixes the routing there).
+    Returns the losses, ce terms, leaf count, worst leaf and each path's
+    seconds."""
     from repro_torch.utils import tree_leaves
     named = [(path, p.requires_grad_(True)) for path, p in
              tree_leaves(params)]
@@ -5262,6 +5748,8 @@ def kernel_vs_plain_grads(torch, label, model, params, batch) -> dict:
     out = {}
     for use in (True, False):
         model.use_kernels = use
+        if before is not None:
+            before(use)
         t0 = time.perf_counter()
         loss, parts = model.loss(params, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -6210,7 +6698,12 @@ def main() -> None:
           f"cuda {torch.version.cuda}", flush=True)
 
     t_start = t0 = time.perf_counter()
+    # the profiler's first session starts CUPTI (11-14 s on an H100's
+    # host): paid here, beside nvcc, not by the first profiled phase
+    warm = threading.Thread(target=_start_profiler, args=(torch,))
+    warm.start()
     logs = _build.build_all(verbose=True)
+    warm.join()
     build_s = time.perf_counter() - t0
     print(f"[build] {len(_build.sources())} sources with nvcc for sm_90a in "
           f"{build_s:.1f}s", flush=True)
@@ -6269,6 +6762,17 @@ def main() -> None:
             "granite_moe_H12_KVH4_d64": check_flash_prefill(
                 torch, dev, H=12, KVH=4,
                 cases=(("bfloat16", 2, 1024, 64, True),))}
+        # rows 1 and 2 at phase 28's heads (d 128): the paged kernel at
+        # qwen1.5-32b's decode shape (40 = 40 heads: G 1) and dbrx-132b's
+        # (48/8: G 6), the prefix kernel at their chunks and command-r-35b's
+        # (64/8: G 8), bf16, gated as granite's rows
+        pa_big = {f"{n}_H{H}_KVH{K}": check_paged_attention(
+            torch, dev, H=H, KVH=K, dtypes=("bfloat16",))
+            for n, H, K in (("qwen", 40, 40), ("dbrx", 48, 8))}
+        fp_big = {f"{n}_H{H}_KVH{K}": check_flash_prefix(
+            torch, dev, H=H, KVH=K, cases=(("bfloat16", 256, 1000),))
+            for n, H, K in (("qwen", 40, 40), ("dbrx", 48, 8),
+                            ("command_r", 64, 8))}
         kq, kd = check_kv_quant(torch, dev)
         kq_moe, kd_moe = check_kv_quant(torch, dev, KV_QUANT_MOE)
         kpage = check_kv_quant_page(torch, dev)
@@ -6310,10 +6814,11 @@ def main() -> None:
     if passes["body"] != launches["paged_attention"] or passes["merge"] <= 0:
         fail("the paged path did not run the split-KV body and its merge")
     clock.lap("granite serve + swap (phases 5-6)")
-    # phase 5's requests again, eagerly (after the main path's counts)
-    eager_serve(torch, "granite paged (phase 5)", model, params, paged_reqs,
-                PAGED_SERVE)
-    clock.lap("granite paged eager serve (phase 5)")
+    # phase 5's graphed decode step against its eager step (after the main
+    # path's counts)
+    graphed_vs_eager_step(torch, "granite paged (phase 5)", model, params,
+                          "paged", PROFILE_CTX)
+    clock.lap("granite paged graphed vs eager step (phase 5)")
     phase_profile(torch, model, params)
     clock.lap("granite profile (phase 7)")
     # granite on the dense backend, with the same model (the paged engines
@@ -6328,9 +6833,9 @@ def main() -> None:
     print(f"[main-path] granite-3-8b dense (phases 16-17) launches "
           f"{d_launches}", flush=True)
     clock.lap("granite dense serve + swap (phases 16-17)")
-    eager_serve(torch, "granite dense (phase 16)", model, params, dense_reqs,
-                DENSE_SERVE)
-    clock.lap("granite dense eager serve (phase 16)")
+    graphed_vs_eager_step(torch, "granite dense (phase 16)", model, params,
+                          "dense", PROFILE_CTX)
+    clock.lap("granite dense graphed vs eager step (phase 16)")
     # row 5's path is the kernel bench (phase 18): counts start at 0 there
     q_launches = phase_bench_rows(torch, model, params, kernels)
     print(f"[main-path] kernel bench (phase 18) launches {q_launches}",
@@ -6402,6 +6907,22 @@ def main() -> None:
     totals = {k: totals[k] + counts[k] for k in totals}
     clock.lap("jamba-1.5-large-398b + mamba2-2.7b training (phase 26)")
 
+    # phase 28: qwen1.5-32b, command-r-35b and dbrx-132b at full width, each
+    # served with an INT8 swap, its graphed step held to its eager step and
+    # profiled; counted from 0
+    counts = phase_big(torch, dev, kernels)
+    print(f"[main-path] qwen1.5-32b, command-r-35b and dbrx-132b serves, "
+          f"swaps, graphed steps and profiles (phase 28) launches {counts}",
+          flush=True)
+    totals = {k: totals[k] + counts[k] for k in totals}
+    clock.lap("qwen1.5-32b, command-r-35b, dbrx-132b (phase 28)")
+    # phase 29: granite-moe trained on the card, counted from 0
+    counts = phase_moe_train(torch, dev, kernels)
+    print(f"[main-path] {MOE_ARCH} training (phase 29) launches {counts}",
+          flush=True)
+    totals = {k: totals[k] + counts[k] for k in totals}
+    clock.lap(f"{MOE_ARCH} training (phase 29)")
+
     # phase 27's ranks start now, their start overlapping phases 8-11
     ranks = start_shard_ranks()
     t0 = time.perf_counter()
@@ -6418,7 +6939,7 @@ def main() -> None:
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     reset_counts(kernels)
     ssd_before = ssd_ops.body_launches()
-    mamba_reqs = phase_mamba_serve(torch, model, params)
+    phase_mamba_serve(torch, model, params)
     m_launches, ssd_after = phase_mamba_swap(torch, model, params, kernels)
     ssd_body = {k: n - ssd_before[k] for k, n in ssd_after.items()}
     print(f"[main-path] mamba2-2.7b (phases 9-10) launches {m_launches}; "
@@ -6428,9 +6949,9 @@ def main() -> None:
         fail("the mamba path's SSD chunk calls did not all take the "
              "tensor-core body")
     clock.lap("mamba serve + swap (phases 9-10)")
-    eager_serve(torch, "mamba (phase 9)", model, params, mamba_reqs,
-                MAMBA_SERVE)
-    clock.lap("mamba eager serve (phase 9)")
+    graphed_vs_eager_step(torch, "mamba (phase 9)", model, params, "dense",
+                          PROFILE_CTX)
+    clock.lap("mamba graphed vs eager step (phase 9)")
     phase_mamba_profile(torch, model, params)
     clock.lap("mamba profile (phase 11)")
     del model, params
@@ -6465,13 +6986,14 @@ def main() -> None:
              source=src + "paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/paged_attention.py:66",
              launches=launches["paged_attention"], **pa,
-             moe_shape=pa_moe),
+             moe_shape=pa_moe, big_shapes=pa_big),
         dict(name="flash_prefill_prefix", route="cuda",
              source=src + "flash_prefill_prefix.cu",
              replaces="src/repro/kernels/flash_prefill/flash_prefill.py:119",
              launches=launches["flash_prefill_prefix"], **fp,
              verify_shape={str(k): v for k, v in fpv.items()},
-             moe_shape=fp_moe, stablelm_shape=fp_stablelm),
+             moe_shape=fp_moe, stablelm_shape=fp_stablelm,
+             big_shapes=fp_big),
         dict(name="flash_prefill", route="cuda",
              source=src + "flash_prefill_prefix.cu",
              replaces="src/repro/kernels/flash_prefill/flash_prefill.py:165",

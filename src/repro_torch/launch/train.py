@@ -9,7 +9,7 @@ checkpoint/restart built in.
 trains every family in float32 with AdamW on the synthetic bigram
 stream, as ``repro.launch.train`` does: the attention family (a dense or
 an MoE FFN, the MoE's aux loss in the objective; ``--arch
-granite-moe-3b-a800m``, on the card not tried yet), the Mamba-2 family
+granite-moe-3b-a800m``), the Mamba-2 family
 (``--arch mamba2-2.7b``), the hybrid family (``--arch
 jamba-1.5-large-398b``, on the CPU at the smoke size) and the
 encoder-decoder family (``--arch seamless-m4t-large-v2``, whose encoder
@@ -60,9 +60,13 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
           batch_size: int = 8, seq_len: int = 64, ckpt_dir: str = None,
           ckpt_every: int = 25, lr: float = 3e-4, log_every: int = 10,
           grad_compression: bool = False, param_dtype: str = "float32",
-          num_layers: Optional[int] = None, device=None):
+          num_layers: Optional[int] = None, head_dim: Optional[int] = None,
+          device=None):
     """Train ``arch`` for ``steps`` steps (resuming from ``ckpt_dir``'s
-    latest checkpoint, if any).  Returns ``(state, losses, step_seconds)``:
+    latest checkpoint, if any).  ``num_layers`` cuts the depth and
+    ``head_dim`` sets the heads' width (the card's flash kernels take 64,
+    80 and 128; the smoke configs' heads are narrower).  Returns ``(state,
+    losses, step_seconds)``:
     the final state, each step's loss, and each step's host seconds (the
     step ends when its loss is read back, which waits for the device)."""
     dev = resolve_device(device)
@@ -72,6 +76,8 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
     over = {"param_dtype": param_dtype}
     if num_layers is not None:
         over["num_layers"] = num_layers
+    if head_dim is not None:
+        over["head_dim"] = head_dim
     cfg = cfg.scaled(**over)
     model = Model(cfg, attn_chunk=max(seq_len // 2, 16),
                   ssd_chunk=min(64, seq_len), device=dev)

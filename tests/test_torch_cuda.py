@@ -214,6 +214,68 @@ def test_flash_prefill_prefix_kernel(dev, B, H, KVH, Smax, d, C, dtype):
                                rtol=_tol(dtype))
 
 
+# phase 28's configs at their own heads (d 128): qwen1.5-32b's 40 = 40
+# (G 1, 40 KV heads), dbrx-132b's 48/8 (G 6: 10 positions of each head in
+# the bf16 body's 64 rows, 4 idle) and command-r-35b's 64/8 (G 8)
+@pytest.mark.parametrize("H,KVH", [(40, 40), (48, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_at_the_big_configs_heads(dev, H, KVH, dtype):
+    """The decode shape of phase 28 (B 8, pages of 16, lengths 1..2048 over
+    a shuffled pool): the split-KV body and its merge once each, against
+    the plain version."""
+    from repro_torch.kernels.paged_attention import (ops, paged_attention,
+                                                     paged_attention_ref)
+    B, d, page, maxp = 8, 128, 16, 128
+    npages = B * maxp + 1
+    rng = np.random.default_rng(H * 10 + KVH)
+    q = _randn(rng, (B, H, d), dtype, dev)
+    kc = _randn(rng, (npages, page, KVH, d), dtype, dev)
+    vc = _randn(rng, (npages, page, KVH, d), dtype, dev)
+    tables = torch.from_numpy(rng.permutation(npages - 1)[:B * maxp]
+                              .reshape(B, maxp).astype(np.int32)).to(dev)
+    lengths = torch.from_numpy(np.linspace(1, maxp * page, B)
+                               .astype(np.int32)).to(dev)
+    before = ops.body_launches()
+    out = paged_attention(q, kc, vc, tables, lengths)
+    torch.cuda.synchronize()
+    after = ops.body_launches()
+    assert {k: after[k] - before[k] for k in after} == {"body": 1,
+                                                        "merge": 1}
+    ref = paged_attention_ref(q, kc, vc, tables, lengths)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("H,KVH", [(40, 40), (48, 8), (64, 8)])
+def test_flash_prefill_prefix_at_the_big_configs_heads(dev, H, KVH):
+    """A 256-token bf16 chunk at positions 0 and 1000 of a 2048-position
+    stripe (strided k/v, as the model passes them) through the wgmma
+    body: against the plain version and the float32 truth beside SDPA's
+    error (``_check_bf16_attention``)."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill_prefix,
+                                                   flash_prefill_prefix_ref,
+                                                   plan)
+    B, C, Smax, d = 2, 256, 2048, 128
+    rng = np.random.default_rng(H + KVH)
+    q = _randn(rng, (B, H, C, d), torch.bfloat16, dev)
+    k = _randn(rng, (B, Smax, KVH, d), torch.bfloat16, dev).transpose(1, 2)
+    v = _randn(rng, (B, Smax, KVH, d), torch.bfloat16, dev).transpose(1, 2)
+    start = torch.tensor([0, 1000], dtype=torch.int32, device=dev)
+    out, bodies = _bodies(lambda: flash_prefill_prefix(q, k, v, start))
+    split = plan.num_splits(B, KVH, H // KVH, C, Smax) > 1
+    assert bodies == {"fma": 0, "wgmma": 1, "merge": int(split),
+                      "tf32x3": 0}, bodies
+    plain = flash_prefill_prefix_ref(q, k, v, start)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    pos = start.long()[:, None] + torch.arange(C, device=dev)[None]
+    mask = (torch.arange(Smax, device=dev)[None, None]
+            <= pos[:, :, None])[:, None]
+    _check_bf16_attention(out, plain,
+                          flash_prefill_prefix_ref(qf, kf, vf, start),
+                          flash_prefill_prefix_ref(qf, kf, vf.abs(), start),
+                          _sdpa_bf16(q, k, v, mask=mask))
+
+
 def _sdpa_bf16(q, k, v, mask=None, causal=False):
     """SDPA on the same bf16 inputs, GQA heads expanded, on the first
     backend that takes the call (flash unless there is a mask, then the

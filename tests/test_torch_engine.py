@@ -316,8 +316,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     compression, both launchers, replica placement, the KV tier, the
     online gateway and the analytic models (and run the simulator with its
     tier path, whose imports are lazy), the mesh context and sharding
-    rules, the mesh builders, the dry run and roofline, the tokenizer, then
-    check that no ``jax*`` or ``repro.*`` module was loaded."""
+    rules, the mesh builders, the dry run and roofline, the tokenizer, and
+    load the port's four examples (``examples/*_torch.py``, their ``main``
+    not run), then check that no ``jax*`` or ``repro.*`` module was
+    loaded."""
+    examples = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples")
     code = (
         "import sys\n"
         "import repro_torch\n"
@@ -358,6 +362,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from repro_torch.core.simulator import run_sim\n"
         "run_sim(duration=2.0, rate=2.0, prefix_cache=True, kv_tier=True,\n"
         "        pretrain_requests=16)\n"
+        "import importlib.util\n"
+        "for name in ('quickstart_torch', 'scheduler_comparison_torch',\n"
+        "             'cluster_simulation_torch', 'gateway_streaming_torch'):\n"
+        f"    spec = importlib.util.spec_from_file_location(name, "
+        f"{examples!r} + '/' + name + '.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
