@@ -151,8 +151,9 @@ the final line:
  20. serving with the online predictor, packs of 4 and the prefix cache,
      on granite cut to 12 of its 40 layers (20 since phase 26 came, 12
      since phase 27's (d)-(g): the script's time), paged (with the auto token budget at a target TPOT of 30 ms) and
-     dense, each through ``serve(..., warmup=True)``: 24 requests at t=0,
-     18 of them in 3 families that share a 1024-token system prompt; all
+     dense, each through ``serve(..., warmup=True)``: 16 requests at t=0
+     (cut for the script's time), 12 of them in 3 families that share a
+     1024-token system prompt; all
      must finish with prefix hits, the dense serve (no budget) with packs
      in its own traffic (the paged serve's own packs are printed: its auto
      budget of a few dozen tokens seldom leaves room for two chunks of
@@ -221,10 +222,11 @@ the final line:
      the online gateway
      (``launch/serve.serve_gateway``, ``serving/gateway``): (a) two warmed
      paged replicas of phase 5's configuration (B shares A's weights, both
-     on cuda:0) serve 24 sharegpt arrivals at 6/s (prompts clamped to
+     on cuda:0) serve 16 sharegpt arrivals at 6/s (cut for the script's
+     time; prompts clamped to
      1536, outputs to 64, a quarter interactive) in wall clock under the
      concurrent pump (one step thread per replica), EWT routing, with the
-     bus and gauge snapshots every 0.5 s: 24 of 24 streams end in
+     bus and gauge snapshots every 0.5 s: 16 of 16 streams end in
      ``finish``, each stream's tokens are its request's (none lost or
      repeated), both replicas serve, no capture or library load in either
      pump thread, no pump raised, gauges recorded, and the paged
@@ -325,11 +327,12 @@ the final line:
      at 8 lanes profiled against its bytes bound, with the device times
      of its MoE blocks, Mamba steps and plain attention, and a 1024-token
      prefill whose SSD kernels' share the profile names.  (d)
-     mamba2-2.7b at full width and depth in f32: the loss and every
+     mamba2-2.7b at full width and 32 of its 64 layers in f32 (cut for
+     the script's time): the loss and every
      gradient leaf through ``SsdChunk`` and ``FusedRMSNorm`` against the
      plain path (loss 1e-4 relative, each leaf nonzero within rel_l2
      1e-3), then ``launch/train.train``, 3 AdamW steps at batch 1 x 1024
-     (main path, counted from 0): losses finite, 64 SSD launches a step;
+     (main path, counted from 0): losses finite, 32 SSD launches a step;
      ms/step, tokens/s, peak memory.
  27. sharded execution over a device mesh, after phase 11 (mamba freed;
      phases 12-14 follow): two ranks share the card over a gloo group
@@ -357,8 +360,9 @@ the final line:
      within 1e-5 relative, the clipped global norm within 1e-6 relative,
      and every gradient leaf and both AdamW moments within rel_l2 1e-4 of
      one rank's step (each rank holds its block of one rank's gradients
-     and moments; the squared sums cross ranks).  (d) mamba2-2.7b at 16 of
-     64 layers (40 of 80 SSM heads a rank: its heads' z, x and dt columns
+     and moments; the squared sums cross ranks).  (d) mamba2-2.7b at 8 of
+     64 layers (cut for the script's time; 40 of 80 SSM heads a
+     rank: its heads' z, x and dt columns
      of ``in_proj``, B and C whole; the gated norm over d_inner through row
      7's split-row entries, the sum of squares all-reduced between them):
      prefill 2 x 1024 and 8 decode steps as (a).  (e) seamless-m4t-large-v2
@@ -378,17 +382,41 @@ the final line:
      counted from 0 and added to the kernels line (``SHARD27_ROWS``: the
      rows each part must launch; row 7's split-row entries
      ``rmsnorm_sumsq`` and ``rmsnorm_apply`` in (d), (f) and (g), their
-     rows in the kernels line).  The ranks start before phase 8 and wait
-     for the phase's go, so that their start overlaps phases 8-11, and
-     their exits overlap phases 12-14.
+     rows in the kernels line).  (h) granite-3-8b at full width and 8 of
+     its 40 layers on three ranks of their own, mesh data 1 x model 3: its
+     32/8 heads laid out as 9 KV / 36 query slots (3 / 12 a rank, rank 0's
+     third KV slot a zero padding head; ``sharding.head_layout``), d_ff
+     12800 as 4266, 4267 and 4267 columns: the serving run of (a), every
+     rank's weight bytes against the dry run's for its coordinate; then
+     one tensor-parallel step at 1 layer in f32, batch 2 x 1024, gated as
+     (c), no padding slot in any rank's gradients, moments or weights, and
+     the gradients of the padded leaves gathered whole
+     (``ctx.gather_full``) within 1e-4 of one rank's.  (i)
+     jamba-1.5-large-398b's ``long_500k`` cell, its global batch of 1 with
+     the cache's positions split over ``data`` (mesh data 2 x model 1,
+     the one group at full width holding 2 of 16 experts, the weights
+     whole on both ranks): rank 0 prefills one 12288-token prompt on its
+     own, each rank keeps its half of a 16384-position cache (every new
+     token lands on rank 1), and 8 teacher-forced ``decode_step(...,
+     seq_split=True)`` calls follow; every step's merged attention
+     (``layers.decode_attention`` over ``seq``: one max and one sum
+     all-reduce)
+     within 1e-5 relative L2 of one rank's unsplit float32 attention on
+     the same query and cache, the new K/V rows equal to one rank's bit
+     for bit; the logits' rel_l2 and greedy agreement printed.  The ranks
+     of (a)-(g) and (i) and the three of (h) start before phase 8 and
+     wait for their go, so that their start overlaps phases 8-11; (h)'s
+     go follows the first group's exit, and its ranks' exits overlap
+     phases 12-14.
 
  28. the three registered configs no earlier phase runs, after phase 26's
      models are freed, one at a time at full width, random bf16 weights
      from the seed through ``Model.init`` on the card, each freed before
-     the next: qwen1.5-32b at 32 of its 64 layers (d_model 5120, 40 = 40
-     heads of 128: G 1, QKV biases, d_ff 27392, vocab 152064; 36.75 GB),
-     command-r-35b at all 40 (d_model 8192, 64/8 heads: G 8, LayerNorm, a
-     tied 256000-row head; 60.57 GB) and dbrx-132b at 8 of 40 holding all
+     the next: qwen1.5-32b at 16 of its 64 layers (d_model 5120, 40 = 40
+     heads of 128: G 1, QKV biases, d_ff 27392, vocab 152064),
+     command-r-35b at 20 of 40 (d_model 8192, 64/8 heads: G 8, LayerNorm,
+     a tied 256000-row head; both cut for the script's time) and
+     dbrx-132b at 8 of 40 holding all
      16 experts, top 4 (d_model 6144, 48/8 heads: G 6, LayerNorm, d_ff
      10752; 54.61 GB), depth the only cut.  Each: (1) the kernel path
      against the plain path on the same weights: two prompts (1024 and
@@ -466,10 +494,12 @@ rows; 80 heads of 64, state 128, f32; and jamba's prefill layer, 128 heads
 of 128 through the head split, at both decays: ``jamba_shape``) against
 their plain versions; the full-sequence flash kernel also at jamba's
 attention layer (bf16 causal, B 1, H 64, KVH 8, S 1024, d 128;
-``jamba_shape``, gated as granite's rows) and at phase 27's per-rank
-heads (bf16 causal, B 2, S 1024: granite's 16/4 of d 128 and
-granite-moe's 12/4 of d 64; ``sharded_shape``, gated as granite's
-rows), the RMSNorm at
+``jamba_shape``, gated as granite's rows), at phase 27 (i)'s prompt
+length (bf16 causal, B 1, S 12288, 8/1 heads of 128; ``long_shape``,
+gated as granite's rows) and at phase 27's per-rank
+heads (bf16 causal, B 2, S 1024: granite's 16/4 of d 128,
+granite-moe's 12/4 of d 64 and (h)'s padded 12/3 of d 128;
+``sharded_shape``, gated as granite's rows), the RMSNorm at
 phase 27's 2 x 1024 prefill rows of 4096 and 1536 (``sharded_shape``),
 and the paged kernel (bf16) at phase 28's decode shapes (B 8, d 128,
 pages of 16, lengths 1..2048: qwen1.5-32b's 40 = 40 heads, G 1, and
@@ -2688,18 +2718,18 @@ def phase_pack_prefix(torch, model, params, kernels):
 
 
 def phase20_requests(cfg):
-    """Phase 20's traffic, all at t = 0: 3 families of 6 requests that
+    """Phase 20's traffic, all at t = 0: 3 families of 4 requests that
     share a 1024-token system prompt, each with its own tail of 16-256
-    tokens, and 6 distinct prompts of 32-200 tokens; outputs of 16-64
+    tokens, and 4 distinct prompts of 32-200 tokens; outputs of 16-64
     tokens; in a seeded shuffled order."""
     from repro_torch.core.request import Request, reset_request_counter
     rng = np.random.default_rng(SEED + 20)
     V = cfg.vocab_size
     systems = [rng.integers(2, V, 1024).tolist() for _ in range(3)]
     prompts = [systems[f] + rng.integers(2, V, int(rng.integers(16, 257)))
-               .tolist() for f in range(3) for _ in range(6)]
+               .tolist() for f in range(3) for _ in range(4)]
     prompts += [rng.integers(2, V, int(rng.integers(32, 201))).tolist()
-                for _ in range(6)]
+                for _ in range(4)]
     outs = rng.integers(16, 65, len(prompts))
     order = rng.permutation(len(prompts))
     reset_request_counter()
@@ -3623,7 +3653,7 @@ def phase_tier(torch, model, params, kernels):
 # swaps, the oracle predictor, warmed replicas), in wall clock with the
 # concurrent pump and tracing on; sharegpt arrivals at 6/s
 GATEWAY23 = dict(arch_size="full", dataset="sharegpt", rate=6.0,
-                 n_requests=24, n_engines=2, max_slots=8, router="ewt",
+                 n_requests=16, n_engines=2, max_slots=8, router="ewt",
                  interactive_frac=0.25, seed=SEED, predictor_kind="oracle",
                  kv_backend="paged", prefill_chunk=256, warmup=True,
                  virtual_dt=None,
@@ -4650,7 +4680,7 @@ HYBRID_SERVE = dict(arch=HYBRID_ARCH, arch_size="full", strategy="alise",
                     quantize=True, warmup=True, verbose=False)
 HYBRID_ROWS = ("flash_prefill", "fused_rmsnorm", "ssd_chunk", "kv_quantize",
                "kv_dequantize")
-MAMBA_TRAIN = dict(batch=1, seq=1024, steps=3)
+MAMBA_TRAIN = dict(batch=1, seq=1024, steps=3, layers=32)    # of 64
 
 
 def _hybrid_model(torch, dev, dtype, shard):
@@ -4919,7 +4949,8 @@ def mamba_train_reference(torch, dev, cfg, batch):
     finally:
         SsdChunk.backward = staticmethod(backward)
     peak = torch.cuda.max_memory_allocated()
-    print(f"[train-reference] mamba2-2.7b full width and depth, f32, "
+    print(f"[train-reference] mamba2-2.7b full width, {cfg.num_layers} of "
+          f"64 layers, f32, "
           f"{r['params']:,} params, batch {MAMBA_TRAIN['batch']}x"
           f"{MAMBA_TRAIN['seq']}: loss kernel {r['loss'][0]:.6f} plain "
           f"{r['loss'][1]:.6f} (rel {r['rel_loss']:.3g}); {r['leaves']} "
@@ -4935,8 +4966,9 @@ def mamba_train_reference(torch, dev, cfg, batch):
 
 
 def phase_mamba_train(torch, dev, kernels):
-    """Phase 26 (d): mamba2-2.7b trained at full width and depth (64
-    layers, f32: 43.2 GB of weights, gradients and AdamW moments), batch
+    """Phase 26 (d): mamba2-2.7b trained at full width and 32 of its 64
+    layers (f32; all 64: 43.2 GB of weights, gradients and AdamW moments),
+    batch
     ``MAMBA_TRAIN``: kernel vs plain loss and gradients
     (:func:`mamba_train_reference`), then ``launch/train.train``'s 3 AdamW
     steps counted from 0: losses finite, the SSD chunk (forward kernel,
@@ -4945,7 +4977,8 @@ def phase_mamba_train(torch, dev, kernels):
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train
     from repro_torch.training.data import DataConfig, SyntheticLM
-    cfg = get_config("mamba2-2.7b").scaled(param_dtype="float32")
+    cfg = get_config("mamba2-2.7b").scaled(param_dtype="float32",
+                                           num_layers=MAMBA_TRAIN["layers"])
     batch = next(SyntheticLM(cfg, DataConfig(
         batch_size=MAMBA_TRAIN["batch"], seq_len=MAMBA_TRAIN["seq"]))
         .iterate(device=dev))
@@ -4956,14 +4989,16 @@ def phase_mamba_train(torch, dev, kernels):
     state, losses, step_s = train(
         "mamba2-2.7b", smoke=False, batch_size=MAMBA_TRAIN["batch"],
         seq_len=MAMBA_TRAIN["seq"], steps=MAMBA_TRAIN["steps"],
-        log_every=MAMBA_TRAIN["steps"], device=dev)
+        log_every=MAMBA_TRAIN["steps"], num_layers=MAMBA_TRAIN["layers"],
+        device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts(kernels)
     peak = torch.cuda.max_memory_allocated()
     p50 = float(np.median(step_s))
     toks = MAMBA_TRAIN["batch"] * MAMBA_TRAIN["seq"]
-    print(f"[train] mamba2-2.7b full width and depth (64 layers), f32, "
+    print(f"[train] mamba2-2.7b full width, {cfg.num_layers} of 64 "
+          f"layers, f32, "
           f"AdamW, batch {MAMBA_TRAIN['batch']}x{MAMBA_TRAIN['seq']}: "
           f"{len(losses)} steps, ms/step p50 {p50 * 1e3:.1f} (each: "
           f"{', '.join(f'{t * 1e3:.1f}' for t in step_s)}), {toks / p50:.0f} "
@@ -4989,7 +5024,8 @@ def phase_hybrid(torch, dev, kernels):
     out): (a) f32, 2 of 16 experts, kernel vs plain path; (b) bf16, 8 of
     16 (25.81 B parameters), kernel vs plain, then the main path (serve +
     an INT8 swap, counted from 0) and graphed == eager on one schedule;
-    (c) the decode step's profile; (d) mamba2-2.7b trained at full depth
+    (c) the decode step's profile; (d) mamba2-2.7b trained at 32 of 64
+    layers
     (main path, counted from 0).  Returns (b)'s and (d)'s launch counts,
     summed."""
     clock = Clock(time.perf_counter())
@@ -5025,8 +5061,8 @@ def phase_hybrid(torch, dev, kernels):
 # phase 28: the three registered configs no earlier phase runs, at full
 # width, one at a time; depth cut where the card (80 GB) or the script's
 # time asks for it: (config, layers held or None for all)
-BIG_ARCHS = (("qwen1.5-32b", 32),         # of 64: 36.8 GB of bf16 weights
-             ("command-r-35b", None),     # all 40: 60.6 GB
+BIG_ARCHS = (("qwen1.5-32b", 16),         # of 64 (32: 36.8 GB of bf16)
+             ("command-r-35b", 20),       # of 40 (all 40: 60.6 GB)
              ("dbrx-132b", 8))            # of 40, all 16 experts: 54.6 GB
 BIG_PROMPTS = (1024, 600)                 # (1): two prompts, chunks of 256
 BIG_CHUNK = 256
@@ -5931,14 +5967,19 @@ def ptxas_report(logs) -> list:
 
 # (a) and (b) at 8 layers: at 20 and 16 layers the script took 288.9 s on
 # the H100 machine against its 290 s ceiling (the ranks' collectives cross
-# the host).  (d) mamba2-2.7b at 16 of 64 layers, (e)
+# the host).  (d) mamba2-2.7b at 8 of 64 layers, (e)
 # seamless at 8 of 24 encoder and 8 of 24 decoder layers, (f) jamba's one
 # 8-layer group holding 4 of 16 experts (2 a rank), each for the same
 # ceiling; (f)'s share is what two ranks of jamba's group fit on one card
 SHARD27 = dict(granite_layers=8, prompts=2, prompt_len=1024, decode=8,
                moe_layers=8, train_layers=1, train_batch=2, train_seq=1024,
-               mamba_layers=16, seamless_layers=8, seamless_frames=4096,
-               hybrid_share=(0, 4), mamba_train_layers=2, timeout=900)
+               mamba_layers=8, seamless_layers=8, seamless_frames=4096,
+               hybrid_share=(0, 4), mamba_train_layers=2, timeout=900,
+               long_share=(0, 8), long_prompt=12288, long_cache=16384)
+# the parts' meshes (data, model): two ranks on model 2 unless named; (h)
+# three ranks of their own, (c) and (i) two on data 2
+SHARD27_MESH = {"c": (2, 1), "g": (1, 2), "h": (1, 3), "i": (2, 1)}
+SHARD27_ATTN_REL = 1e-5       # (i): the merged attention against one rank
 SHARD27_LOSS_REL = 1e-5                  # (c), (g): loss against one rank
 SHARD27_GRAD_REL = 1e-4                  # (c), (g): each gradient, moment
 SHARD27_NORM_REL = 1e-6                  # (c), (g): the clipped global norm
@@ -5961,7 +6002,11 @@ SHARD27_ROWS = {
     "e": ("flash_prefill",),
     "f": ("flash_prefill", "fused_rmsnorm", "rmsnorm_sumsq",
           "rmsnorm_apply", "ssd_chunk"),
-    "g": ("fused_rmsnorm", "rmsnorm_sumsq", "rmsnorm_apply", "ssd_chunk")}
+    "g": ("fused_rmsnorm", "rmsnorm_sumsq", "rmsnorm_apply", "ssd_chunk"),
+    "h": ("flash_prefill", "fused_rmsnorm"),
+    "i": ("ssd_chunk", "fused_rmsnorm")}
+# rows a part launches on rank 0 only: (i)'s prefill is rank 0's alone
+SHARD27_RANK0_ROWS = {"i": ("ssd_chunk",)}
 SHARD27_SERVES = {"a": "granite-3-8b", "b": "granite-moe-3b-a800m",
                   "d": "mamba2-2.7b", "e": "seamless-m4t-large-v2",
                   "f": "jamba-1.5-large-398b"}
@@ -5980,18 +6025,13 @@ def _shard27_logits(torch, model, params, batch, forced):
     cache placed in a decode cache of S + T positions (its K/V at the
     first S, the recurrent state and the cross K/V whole); and the wall
     seconds of the prefill and of a decode step."""
-    B, S = batch["tokens"].shape
+    S = batch["tokens"].shape[1]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, batch)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    full = model.init_cache(B, S + forced.shape[0])
-    for k, t in cache.items():
-        if k in ("k", "v"):
-            full[k][:, :, :S] = t
-        else:
-            full[k].copy_(t)
+    full = model.decode_cache(cache, S + forced.shape[0])
     del cache
     outs = [logits.float().cpu()]
     torch.cuda.synchronize()
@@ -6011,8 +6051,10 @@ def _shard27_cfg(part: str, dtype: str = "bfloat16"):
     """Part ``part``'s config: its arch at full width in ``dtype``, depth
     cut as :data:`SHARD27` says."""
     from repro_torch.configs import get_config
-    cfg = get_config(SHARD27_SERVES[part]).scaled(param_dtype=dtype)
+    arch = "granite-3-8b" if part == "h" else SHARD27_SERVES[part]
+    cfg = get_config(arch).scaled(param_dtype=dtype)
     cut = {"a": dict(num_layers=SHARD27["granite_layers"]),
+           "h": dict(num_layers=SHARD27["granite_layers"]),
            "b": dict(num_layers=SHARD27["moe_layers"]),
            "d": dict(num_layers=SHARD27["mamba_layers"]),
            "e": dict(num_layers=SHARD27["seamless_layers"],
@@ -6045,10 +6087,15 @@ def _shard27_inputs(torch, dev, cfg, part: str):
 
 
 def _heads(cfg, m: int = 2) -> str:
-    """What a rank of ``m`` holds of ``cfg``'s heads, for the log."""
+    """What a rank of ``m`` holds of ``cfg``'s heads, for the log: its
+    query and KV head slots, as ``sharding.head_layout`` lays them out."""
+    from repro_torch.distributed.sharding import head_layout
     out = []
     if cfg.family != "ssm":
-        out.append(f"heads {cfg.num_heads // m}/{cfg.num_kv_heads // m}")
+        lay = head_layout(cfg, m)
+        out.append(f"heads {lay.q_slots}/{lay.kv_slots}"
+                   + (f" (each KV head on {lay.rep} ranks)" if lay.rep > 1
+                      else ""))
     if cfg.has_ssm:
         out.append(f"SSM heads {cfg.ssm_heads // m} of {cfg.ssm_heads}")
     return ", ".join(out) + " a rank"
@@ -6098,7 +6145,8 @@ def _shard27_serve(torch, dev, rank, part, kernels, log,
     torch.cuda.reset_peak_memory_stats(dev)
     real_route = L._route
     cfg = _shard27_cfg(part, dtype)
-    mesh = make_test_mesh(1, 2)
+    shape = SHARD27_MESH.get(part, (1, 2))
+    mesh = make_test_mesh(*shape)
     batch, forced = _shard27_inputs(torch, dev, cfg, part)
     one, whole = build(torch, dev, cfg)
     ref = None
@@ -6128,7 +6176,8 @@ def _shard27_serve(torch, dev, rank, part, kernels, log,
     meta = Model(cfg, device="meta").init(torch.Generator())
     out["weight_bytes"] = tree_size_bytes(params)
     out["dry_weight_bytes"] = param_bytes(
-        cfg, meta, "serving", Mesh(("data", "model"), (1, 2)))[0]
+        cfg, meta, "serving", Mesh(("data", "model"), shape,
+                                   coords=mesh.coords))[0]
     marks["dry"] = time.perf_counter() - t_start
     del whole, one
     free_memory(torch)
@@ -6160,7 +6209,8 @@ def _shard27_serve(torch, dev, rank, part, kernels, log,
     log(f"({part}) {cfg.name} {cfg.num_layers} layers {dtype}"
         + (f" + {cfg.num_encoder_layers} encoder layers"
            if cfg.is_encoder_decoder else "")
-        + f", {_heads(cfg)}{held}: {out['weight_bytes']:,} weight bytes "
+        + f", {_heads(cfg, shape[1])}{held}: {out['weight_bytes']:,} "
+        f"weight bytes "
         f"(dry run {out['dry_weight_bytes']:,}), prefill {pre_s * 1e3:.1f} "
         f"ms, decode {dec_s * 1e3:.2f} ms a step, peak "
         f"{out['peak_bytes'] / 2 ** 30:.2f} GiB, launches "
@@ -6315,6 +6365,141 @@ def _shard27_hybrid(torch, dev, rank, kernels, log):
     return out
 
 
+def _attention_tap(torch, L, mesh, worst):
+    """``layers.decode_attention`` that also holds the attention merged
+    over ``seq``, in float32 on this rank's query and cache block, to one
+    rank's unsplit attention over the ranks' blocks laid side by side
+    (gathered over ``data``; the valid counts summed), appending the
+    rel_l2 to ``worst`` on rank 0."""
+    import torch.distributed as dist
+    real = L.decode_attention
+    group = mesh.group("data")
+
+    def gathered(t):
+        parts = [torch.empty_like(t.cpu()) for _ in range(2)]
+        dist.all_gather(parts, t.cpu().contiguous(), group=group)
+        return torch.cat(parts, dim=1).to(t.device)
+
+    def tapped(cfg, q, k, v, valid, over=None):
+        out = real(cfg, q, k, v, valid, over)
+        merged = real(cfg, q.float(), k, v, valid, over)
+        n = valid.cpu().clone()
+        dist.all_reduce(n, group=group)
+        kw, vw = gathered(k), gathered(v)
+        if mesh.coord("data") == 0:
+            want = real(cfg, q.float(), kw, vw, n.to(q.device))
+            worst.append(_rel_l2(torch, merged, want))
+        return out
+    return tapped
+
+
+def _shard27_long(torch, dev, rank, kernels, log):
+    """Part (i) on this rank: jamba-1.5-large-398b's ``long_500k`` cell,
+    its global batch of 1 with the decode cache's positions split over
+    ``data`` (mesh data 2 x model 1): the one 8-layer group at full width
+    holding ``long_share`` of every MoE layer's 16 experts (routing over
+    all 16), the weights whole on each rank.  Rank 0 prefills one
+    ``long_prompt``-token prompt on its own (its weights are the one-rank
+    model's) and sends the cache to rank 1; each rank keeps its block of
+    a ``long_cache``-position decode cache (rank 1's holds every new
+    token), and both run 8 teacher-forced decode steps with
+    ``seq_split``, the prefill and the steps counted from 0.  Every step's
+    merged attention is held to one rank's unsplit attention in float32
+    (:func:`_attention_tap`); then rank 0 runs one rank's decode steps on
+    the whole cache, rank 1's new K/V rows are held to its bit for bit,
+    and the logits' rel_l2 and greedy agreement are printed."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import cache_layouts, shard_leaf
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.utils import tree_size_bytes
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    from repro_torch.configs import get_config
+    cfg = get_config(HYBRID_ARCH).scaled(num_layers=HYBRID_LAYERS)
+    share, S, Smax = (SHARD27["long_share"], SHARD27["long_prompt"],
+                      SHARD27["long_cache"])
+    mesh = make_test_mesh(*SHARD27_MESH["i"])
+    sharded = Model(cfg, chunk_attn_impl="flash", kv_dtype=cfg.param_dtype,
+                    mesh=mesh, expert_shard=share, device=dev)
+    params = sharded.init(torch.Generator(device=dev).manual_seed(SEED),
+                          "serving")
+    one = Model(cfg, chunk_attn_impl="flash", kv_dtype=cfg.param_dtype,
+                expert_shard=share, device=dev)
+    rng = np.random.default_rng(SEED + 29)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S)).astype(
+        np.int32)).to(dev)
+    forced = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SHARD27["decode"], 1, 1)).astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    marks = {"draw": time.perf_counter() - t_start}
+    out = {"weight_bytes": tree_size_bytes(params)}
+    reset_counts(kernels)
+    box = [None]
+    if rank == 0:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = one.prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        box = [{k: t.cpu() for k, t in cache.items()}]
+        del cache
+    dist.broadcast_object_list(box, src=0, group=mesh.group("data"))
+    ref = one.decode_cache({k: t.to(dev) for k, t in box[0].items()}, Smax)
+    del box
+    specs = cache_layouts(cfg, {k: tuple(t.shape) for k, t in ref.items()},
+                          ShapeSpec("long", Smax, 1, "decode"), mesh)
+    full = {k: shard_leaf(t, specs[k], mesh) for k, t in ref.items()}
+    marks["prefill"] = time.perf_counter() - t_start
+    worst, got = [], []
+    real_attention = L.decode_attention
+    L.decode_attention = _attention_tap(torch, L, mesh, worst)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(forced.shape[0]):
+            got.append(sharded.decode_step(params, full, forced[t],
+                                           seq_split=True).float().cpu())
+        torch.cuda.synchronize()
+        out["decode_s"] = (time.perf_counter() - t0) / forced.shape[0]
+    finally:
+        L.decode_attention = real_attention
+    out["launches"] = read_counts(kernels)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    marks["sharded"] = time.perf_counter() - t_start
+    # rank 1's block: the new tokens' K/V rows (its positions from Smax/2)
+    lo = S - Smax // 2
+    rows = [full[k][:, :, lo:lo + forced.shape[0]].cpu() for k in ("k", "v")]
+    box = [rows if rank == 1 else None]
+    dist.broadcast_object_list(box, src=1, group=mesh.group("data"))
+    if rank == 0:
+        out["attn_rel"] = worst
+        want = [one.decode_step(params, ref, forced[t]).float().cpu()
+                for t in range(forced.shape[0])]
+        out["rows_equal"] = all(
+            torch.equal(r, ref[k][:, :, S:S + forced.shape[0]].cpu())
+            for r, k in zip(box[0], ("k", "v")))
+        out["rel_l2"] = [_rel_l2(torch, g, w) for g, w in zip(got, want)]
+        out["greedy_agree"] = float(np.mean(
+            [bool((g.argmax(-1) == w.argmax(-1)).all())
+             for g, w in zip(got, want)]))
+    del box, full, ref, sharded, one, params
+    free_memory(torch)
+    dist.barrier()
+    log(f"(i) {cfg.name} {cfg.num_layers} layers bf16, data 2 x model 1, "
+        f"experts {share[0] * 16 // share[1]}-"
+        f"{(share[0] + 1) * 16 // share[1]} of 16, a {S}-token prompt in a "
+        f"{Smax}-position cache split at {Smax // 2}: "
+        f"{out['weight_bytes']:,} weight bytes, decode "
+        f"{out['decode_s'] * 1e3:.2f} ms a step, peak "
+        f"{out['peak_bytes'] / 2 ** 30:.2f} GiB, launches {out['launches']}; "
+        f"part {time.perf_counter() - t_start:.1f}s (at "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in marks.items())})")
+    return out
+
+
 def _shard27_train(torch, dev, rank, part, kernels, log):
     """Part (c) or (g) on this rank, in f32 with AdamW: (c) granite-3-8b at
     full width and ``train_layers`` layers, mesh data 2 x model 1 (FSDP),
@@ -6331,6 +6516,7 @@ def _shard27_train(torch, dev, rank, part, kernels, log):
     with nothing gathered) and its norm with that norm."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
+    from repro_torch.distributed.ctx import HeadSplit
     from repro_torch.distributed.sharding import shard_leaf, spec_at
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models.model import Model
@@ -6339,11 +6525,14 @@ def _shard27_train(torch, dev, rank, part, kernels, log):
     from repro_torch.utils import tree_leaves, tree_map
     t_start = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
-    arch, layers, mesh_shape, shape = {
-        "c": ("granite-3-8b", SHARD27["train_layers"], (2, 1),
+    arch, layers, shape = {
+        "c": ("granite-3-8b", SHARD27["train_layers"],
               (SHARD27["train_batch"], SHARD27["train_seq"])),
-        "g": ("mamba2-2.7b", SHARD27["mamba_train_layers"], (1, 2),
-              (1, SHARD27["train_seq"]))}[part]
+        "g": ("mamba2-2.7b", SHARD27["mamba_train_layers"],
+              (1, SHARD27["train_seq"])),
+        "h": ("granite-3-8b", SHARD27["train_layers"],
+              (SHARD27["train_batch"], SHARD27["train_seq"]))}[part]
+    mesh_shape = SHARD27_MESH[part]
     cfg = get_config(arch).scaled(num_layers=layers, param_dtype="float32")
     mesh = make_test_mesh(*mesh_shape)
     rng = np.random.default_rng(SEED + 28)
@@ -6374,6 +6563,10 @@ def _shard27_train(torch, dev, rank, part, kernels, log):
     ref = {(name,) + path: shard_leaf(g, spec_at(specs, path),
                                       mesh).detach().clone()
            for name, tree in trees.items() for path, g in tree_leaves(tree)}
+    # the leaves a rank holds by padded units, whole: the sharded step's
+    # gathered gradients must be these, with no padding slot
+    split = {path: g.detach().clone() for path, g in tree_leaves(m["grads"])
+             if part == "h" and isinstance(spec_at(specs, path), HeadSplit)}
     del state, m, trees
     marks["one_rank"] = time.perf_counter() - t_start
     state = state_of(sharded.shard(whole, "train"))
@@ -6411,6 +6604,9 @@ def _shard27_train(torch, dev, rank, part, kernels, log):
         out[f"worst_{name}_rel"] = float(max(
             r for n, r in zip(names, rel.tolist()) if n == name))
     out["leaves"] = names.count("grads")
+    if split:
+        out.update(_padded_slots(torch, mesh, specs, trees, split,
+                                 state["params"]))
     log(f"({part}) {arch} {layers} layers f32, data {mesh_shape[0]} x model "
         f"{mesh_shape[1]}: step {out['step_s'] * 1e3:.1f} ms (one rank "
         f"{out['one_step_s'] * 1e3:.1f} ms), loss {out['loss']:.6f}, peak "
@@ -6422,12 +6618,40 @@ def _shard27_train(torch, dev, rank, part, kernels, log):
     return out
 
 
+def _padded_slots(torch, mesh, specs, trees, whole_grads, params) -> dict:
+    """The leaves a rank holds by padded units (attention head slots, an
+    uneven ``d_ff``): each rank's stored gradient, moments and weights
+    hold its real units only (``HeadSplit.stored``), the ranks' units
+    cover each whole unit, and the gradients gathered whole
+    (``ctx.gather_full``) have the whole leaf's shape and follow one
+    rank's (``whole_grads``): the worst rel_l2 of those."""
+    from repro_torch.distributed.ctx import gather_full
+    from repro_torch.distributed.sharding import spec_at
+    stored_ok, worst = True, 0.0
+    for path, want in whole_grads.items():
+        spec = spec_at(specs, path)
+        n = len(spec.stored(mesh))
+        for t in (trees["grads"], trees["m"], trees["v"], params):
+            t = spec_at(t, path)
+            stored_ok &= t.shape[spec.dim] == n
+        units = set()
+        for c in range(mesh.sizes["model"]):
+            units.update(spec.stored(mesh, (0, c)))
+        stored_ok &= units == set(range(spec.width))
+        got = gather_full(spec_at(trees["grads"], path), spec,
+                          tuple(want.shape), mesh)
+        stored_ok &= tuple(got.shape) == tuple(want.shape)
+        worst = max(worst, _rel_l2(torch, got, want))
+    return {"pad_free": bool(stored_ok), "gathered_grads_rel": worst,
+            "padded_leaves": len(whole_grads)}
+
+
 def shard27_rank(rank: int, world: int, port: int, jobdir: str) -> None:
     """One rank of phase 27 (a child process :func:`start_shard_ranks`
-    starts): the gloo group over the two ranks on the one card, then, once
+    starts): the gloo group over the ranks on the one card, then, once
     the parent writes ``jobdir/go`` (:func:`phase_sharded`), parts (a) to
-    (g); the results as JSON for the parent.  A rank whose parent is gone
-    exits."""
+    (g) and (i) on two ranks, part (h) on three; the results as JSON for
+    the parent.  A rank whose parent is gone exits."""
     import torch
     from repro_torch.kernels import counters
     from repro_torch.launch.mesh import init_distributed
@@ -6453,8 +6677,15 @@ def shard27_rank(rank: int, world: int, port: int, jobdir: str) -> None:
         time.sleep(0.1)
     t_go = time.perf_counter()
     res = {}
-    for part in "abcdefg":
-        if part in "cg":
+    for part in ("h" if world == 3 else "abcdefgi"):
+        if part == "h":
+            res[part] = _shard27_serve(torch, dev, rank, part, kernels,
+                                       log)[0]
+            res["h_train"] = _shard27_train(torch, dev, rank, part, kernels,
+                                            log)
+        elif part == "i":
+            res[part] = _shard27_long(torch, dev, rank, kernels, log)
+        elif part in "cg":
             res[part] = _shard27_train(torch, dev, rank, part, kernels, log)
         elif part == "d":
             res[part] = _shard27_mamba(torch, dev, rank, kernels, log)
@@ -6471,8 +6702,8 @@ def shard27_rank(rank: int, world: int, port: int, jobdir: str) -> None:
     os._exit(0)       # no teardown of the group: the parent has the results
 
 
-def start_shard_ranks():
-    """Start phase 27's two rank processes (this script with
+def start_shard_ranks(world: int):
+    """Start ``world`` rank processes of phase 27 (this script with
     ``--shard-rank``) ahead of the phase, so that their start (Python,
     torch, the card's context, the gloo group) overlaps the phases before
     it; they wait for :func:`phase_sharded`'s go.  Returns ``(jobdir,
@@ -6489,11 +6720,12 @@ def start_shard_ranks():
     env = {**os.environ, "PYTHONPATH": os.path.join(
         os.path.dirname(here), "src")}
     procs = []
-    for r in range(2):
+    for r in range(world):
         logf = open(os.path.join(jobdir, f"rank{r}.log"), "w")
         procs.append((subprocess.Popen(
-            [sys.executable, here, "--shard-rank", str(r), "2", str(port),
-             jobdir], env=env, stdout=logf, stderr=subprocess.STDOUT), logf))
+            [sys.executable, here, "--shard-rank", str(r), str(world),
+             str(port), jobdir], env=env, stdout=logf,
+            stderr=subprocess.STDOUT), logf))
 
     def stop():
         for p, _ in procs:
@@ -6504,22 +6736,23 @@ def start_shard_ranks():
     return jobdir, procs
 
 
-def phase_sharded(torch, dev, kernels, ranks):
-    """Phase 27: sharded execution over a device mesh, two ranks sharing
-    the one card over a gloo group (NCCL refuses two ranks on one device;
-    each collective is staged through a host copy).  Frees this process's
+def phase_sharded(torch, dev, kernels, ranks, gates):
+    """Phase 27: sharded execution over a device mesh, ranks sharing the
+    one card over a gloo group (NCCL refuses two ranks on one device; each
+    collective is staged through a host copy).  Frees this process's
     cached memory, tells the waiting ranks of :func:`start_shard_ranks` to
-    go, waits for both ranks' results (a rank that fails, or results that
-    do not come within ``SHARD27["timeout"]``, fail the phase, and both
-    ranks are stopped), prints their lines and gates what rank 0
-    measured; :func:`end_shard_ranks` waits for their exits.  Returns
-    both ranks' launch counts of the sharded runs, summed."""
+    go, waits for every rank's results (a rank that fails, or results
+    that do not come within ``SHARD27["timeout"]``, fail the phase, and
+    the ranks are stopped), prints their lines and runs ``gates`` on
+    them; :func:`end_shard_ranks` waits for their exits.  Returns the
+    ranks' launch counts of the sharded runs, summed."""
     jobdir, procs = ranks
+    world = len(procs)
     free_memory(torch)
     open(os.path.join(jobdir, "go"), "w").close()
     t_go = time.perf_counter()
     deadline = t_go + SHARD27["timeout"]
-    results = [os.path.join(jobdir, f"rank{r}.json") for r in range(2)]
+    results = [os.path.join(jobdir, f"rank{r}.json") for r in range(world)]
     done = False
     # until both results are in, a rank fails (the other would wait on
     # it) or the time runs out
@@ -6528,15 +6761,17 @@ def phase_sharded(torch, dev, kernels, ranks):
         if done or any(p.poll() for p, _ in procs):
             break
         time.sleep(0.2)
-    print(f"[shard] both ranks' results {'in' if done else 'missing'} "
-          f"{time.perf_counter() - t_go:.1f}s after the go", flush=True)
+    print(f"[shard] the {world} ranks' results "
+          f"{'in' if done else 'missing'} {time.perf_counter() - t_go:.1f}s "
+          f"after the go", flush=True)
     if not done:
         for p, _ in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     # a rank that failed first, then one stopped because of it
-    for r in sorted(range(2), key=lambda r: (procs[r][0].poll() or 0) < 0):
+    for r in sorted(range(world),
+                    key=lambda r: (procs[r][0].poll() or 0) < 0):
         with open(os.path.join(jobdir, f"rank{r}.log")) as fh:
             text = fh.read()
         for line in text.splitlines():
@@ -6551,7 +6786,7 @@ def phase_sharded(torch, dev, kernels, ranks):
     for f in results:
         with open(f) as fh:
             res.append(json.load(fh))
-    return shard27_gates(res, kernels)
+    return gates(res, kernels)
 
 
 def end_shard_ranks(ranks) -> None:
@@ -6571,108 +6806,185 @@ def end_shard_ranks(ranks) -> None:
             fail(f"phase 27: rank {r} exited {code}")
 
 
-def shard27_gates(res, kernels):
-    """Phase 27's gates on the ranks' results (rank 0 measured against
-    one rank); returns the launch counts of both ranks' sharded runs."""
-    r0 = res[0]
-    for part, arch in SHARD27_SERVES.items():
-        got = r0[part]
-        worst = max(got["rel_l2"])
-        routes = got.get("routes_differing")
-        peaks = ", ".join(f"{r[part]['peak_bytes'] / 2 ** 30:.2f}"
-                          for r in res)
-        gate = ("not gated: see the f32 truth" if part in SHARD27_MAMBA
-                else f"gate {BF16_TOL}")
-        print(f"[shard] ({part}) {arch}, data 1 x model 2: bf16 logits vs "
-              f"one rank{'' if routes is None else ' on one routing'} "
-              f"rel_l2 prefill {got['rel_l2'][0]:.4f}, decode "
-              f"{', '.join(f'{x:.4f}' for x in got['rel_l2'][1:])} (worst "
-              f"{worst:.4f}, {gate})"
-              + f"; greedy agreement {got['greedy_agree']:.3f} (not gated)"
-              + ("" if routes is None else f"; the other run's router's own "
-                 f"choices differing {routes:.4f} (not gated)")
-              + f"; per-rank weights {got['weight_bytes'] / 1e9:.3f} GB, "
-              f"dry run {got['dry_weight_bytes'] / 1e9:.3f} GB; sharded "
-              f"prefill {got['prefill_s'] * 1e3:.1f} ms (one rank "
-              f"{got['one_prefill_s'] * 1e3:.1f}), decode "
-              f"{got['decode_s'] * 1e3:.2f} ms a step (one rank "
-              f"{got['one_decode_s'] * 1e3:.2f}); peak GiB by rank {peaks}"
-              + (f", one rank's references "
-                 f"{got['one_peak_bytes'] / 2 ** 30:.2f}"
-                 if "one_peak_bytes" in got else ""), flush=True)
-        if part in SHARD27_MAMBA:
-            err, one_err = got["truth_err"]
-            f32 = got.get("f32_rel_l2")
-            wit = got.get("witness_rel_l2")
-            print(f"[shard] ({part}) against one rank's f32 logits (the "
-                  f"truth): sharded bf16 rel_l2 {err:.4f}, one rank's bf16 "
-                  f"{one_err:.4f} (ratio {err / one_err:.3f}, gate "
-                  f"{SHARD27_TRUTH_RATIO})"
-                  + ("" if wit is None else
-                     f"; one rank's bf16 kernel path vs its plain path "
-                     f"(the witness, not gated) worst {max(wit):.4f}")
-                  + ("" if f32 is None else
-                     f"; f32 sharded vs one rank rel_l2 worst "
-                     f"{max(f32):.2e} (gate {SHARD27_F32_REL}), prefill "
-                     f"{got['f32']['prefill_s'] * 1e3:.1f} ms (one rank "
-                     f"{got['f32']['one_prefill_s'] * 1e3:.1f}), decode "
-                     f"{got['f32']['decode_s'] * 1e3:.2f} ms a step, "
-                     f"{got['f32']['weight_bytes']:,} weight bytes a rank "
-                     f"(dry run {got['f32']['dry_weight_bytes']:,})"),
-                  flush=True)
-            if not err <= SHARD27_TRUTH_RATIO * one_err:
-                fail(f"phase 27 ({part}): bf16 error from the f32 truth "
-                     f"{err} > {SHARD27_TRUTH_RATIO} x one rank's {one_err}")
-            if f32 is not None and not max(f32) <= SHARD27_F32_REL:
-                fail(f"phase 27 ({part}): f32 rel_l2 {max(f32)} > "
-                     f"{SHARD27_F32_REL}")
-            if f32 is not None and got["f32"]["weight_bytes"] != \
-                    got["f32"]["dry_weight_bytes"]:
-                fail(f"phase 27 ({part}): f32 per-rank weights differ from "
-                     "the dry run's")
-        elif not worst <= BF16_TOL:
-            fail(f"phase 27 ({part}): rel_l2 {worst} > {BF16_TOL}")
-        if got["weight_bytes"] != got["dry_weight_bytes"]:
+def _gate_serve(part: str, arch: str, res) -> None:
+    """A serving part's gates on its ranks' results (rank 0 measured
+    against one rank; every rank's weights against the dry run's)."""
+    got = res[0][part]
+    m = SHARD27_MESH.get(part, (1, 2))[1]
+    worst = max(got["rel_l2"])
+    routes = got.get("routes_differing")
+    peaks = ", ".join(f"{r[part]['peak_bytes'] / 2 ** 30:.2f}"
+                      for r in res)
+    gate = ("not gated: see the f32 truth" if part in SHARD27_MAMBA
+            else f"gate {BF16_TOL}")
+    print(f"[shard] ({part}) {arch}, data 1 x model {m}: bf16 logits vs "
+          f"one rank{'' if routes is None else ' on one routing'} "
+          f"rel_l2 prefill {got['rel_l2'][0]:.4f}, decode "
+          f"{', '.join(f'{x:.4f}' for x in got['rel_l2'][1:])} (worst "
+          f"{worst:.4f}, {gate})"
+          + f"; greedy agreement {got['greedy_agree']:.3f} (not gated)"
+          + ("" if routes is None else f"; the other run's router's own "
+             f"choices differing {routes:.4f} (not gated)")
+          + "; per-rank weights GB "
+          + ", ".join(f"{r[part]['weight_bytes'] / 1e9:.3f}" for r in res)
+          + ", dry run "
+          + ", ".join(f"{r[part]['dry_weight_bytes'] / 1e9:.3f}"
+                      for r in res)
+          + f"; sharded prefill {got['prefill_s'] * 1e3:.1f} ms (one rank "
+          f"{got['one_prefill_s'] * 1e3:.1f}), decode "
+          f"{got['decode_s'] * 1e3:.2f} ms a step (one rank "
+          f"{got['one_decode_s'] * 1e3:.2f}); peak GiB by rank {peaks}"
+          + (f", one rank's references "
+             f"{got['one_peak_bytes'] / 2 ** 30:.2f}"
+             if "one_peak_bytes" in got else ""), flush=True)
+    if part in SHARD27_MAMBA:
+        err, one_err = got["truth_err"]
+        f32 = got.get("f32_rel_l2")
+        wit = got.get("witness_rel_l2")
+        print(f"[shard] ({part}) against one rank's f32 logits (the "
+              f"truth): sharded bf16 rel_l2 {err:.4f}, one rank's bf16 "
+              f"{one_err:.4f} (ratio {err / one_err:.3f}, gate "
+              f"{SHARD27_TRUTH_RATIO})"
+              + ("" if wit is None else
+                 f"; one rank's bf16 kernel path vs its plain path "
+                 f"(the witness, not gated) worst {max(wit):.4f}")
+              + ("" if f32 is None else
+                 f"; f32 sharded vs one rank rel_l2 worst "
+                 f"{max(f32):.2e} (gate {SHARD27_F32_REL}), prefill "
+                 f"{got['f32']['prefill_s'] * 1e3:.1f} ms (one rank "
+                 f"{got['f32']['one_prefill_s'] * 1e3:.1f}), decode "
+                 f"{got['f32']['decode_s'] * 1e3:.2f} ms a step, "
+                 f"{got['f32']['weight_bytes']:,} weight bytes a rank "
+                 f"(dry run {got['f32']['dry_weight_bytes']:,})"),
+              flush=True)
+        if not err <= SHARD27_TRUTH_RATIO * one_err:
+            fail(f"phase 27 ({part}): bf16 error from the f32 truth "
+                 f"{err} > {SHARD27_TRUTH_RATIO} x one rank's {one_err}")
+        if f32 is not None and not max(f32) <= SHARD27_F32_REL:
+            fail(f"phase 27 ({part}): f32 rel_l2 {max(f32)} > "
+                 f"{SHARD27_F32_REL}")
+        if f32 is not None and got["f32"]["weight_bytes"] != \
+                got["f32"]["dry_weight_bytes"]:
+            fail(f"phase 27 ({part}): f32 per-rank weights differ from "
+                 "the dry run's")
+    elif not worst <= BF16_TOL:
+        fail(f"phase 27 ({part}): rel_l2 {worst} > {BF16_TOL}")
+    for r in res:
+        if r[part]["weight_bytes"] != r[part]["dry_weight_bytes"]:
             fail(f"phase 27 ({part}): per-rank weights differ from the "
                  "dry run's")
-    for part, what in (("c", "granite-3-8b FSDP, data 2 x model 1"),
-                       ("g", "mamba2-2.7b tensor parallel, data 1 x "
-                             "model 2")):
-        c = r0[part]
-        loss_rel = abs(c["loss"] - c["ref_loss"]) / abs(c["ref_loss"])
-        norm_rel = (abs(c["grad_norm"] - c["ref_grad_norm"])
-                    / c["ref_grad_norm"])
-        print(f"[shard] ({part}) {what}: loss {c['loss']:.6f} vs one rank "
-              f"{c['ref_loss']:.6f} (rel {loss_rel:.2e}, gate "
-              f"{SHARD27_LOSS_REL}); global norm {c['grad_norm']:.6f} vs "
-              f"{c['ref_grad_norm']:.6f} (rel {norm_rel:.2e}, gate "
-              f"{SHARD27_NORM_REL}); worst of {c['leaves']} leaves rel_l2: "
-              f"gradients {c['worst_grads_rel']:.2e}, m "
-              f"{c['worst_m_rel']:.2e}, v {c['worst_v_rel']:.2e} (gate "
-              f"{SHARD27_GRAD_REL}); step {c['step_s'] * 1e3:.1f} ms (one "
-              f"rank {c['one_step_s'] * 1e3:.1f}); peak GiB by rank "
-              + ", ".join(f"{r[part]['peak_bytes'] / 2 ** 30:.2f}"
-                          for r in res), flush=True)
-        if not loss_rel <= SHARD27_LOSS_REL:
-            fail(f"phase 27 ({part}): loss rel {loss_rel} > "
-                 f"{SHARD27_LOSS_REL}")
-        if not norm_rel <= SHARD27_NORM_REL:
-            fail(f"phase 27 ({part}): global norm rel {norm_rel} > "
-                 f"{SHARD27_NORM_REL}")
-        for name in ("grads", "m", "v"):
-            worst = c[f"worst_{name}_rel"]
-            if not worst <= SHARD27_GRAD_REL:
-                fail(f"phase 27 ({part}): {name} rel_l2 {worst} > "
-                     f"{SHARD27_GRAD_REL}")
+
+
+def _gate_train(part: str, what: str, c: dict, res) -> None:
+    """A training part's gates on rank 0's results ``c`` (loss, clipped
+    norm, every gradient leaf and moment against one rank's; with padded
+    units, none held and the gathered gradients whole)."""
+    loss_rel = abs(c["loss"] - c["ref_loss"]) / abs(c["ref_loss"])
+    norm_rel = (abs(c["grad_norm"] - c["ref_grad_norm"])
+                / c["ref_grad_norm"])
+    print(f"[shard] ({part}) {what}: loss {c['loss']:.6f} vs one rank "
+          f"{c['ref_loss']:.6f} (rel {loss_rel:.2e}, gate "
+          f"{SHARD27_LOSS_REL}); global norm {c['grad_norm']:.6f} vs "
+          f"{c['ref_grad_norm']:.6f} (rel {norm_rel:.2e}, gate "
+          f"{SHARD27_NORM_REL}); worst of {c['leaves']} leaves rel_l2: "
+          f"gradients {c['worst_grads_rel']:.2e}, m "
+          f"{c['worst_m_rel']:.2e}, v {c['worst_v_rel']:.2e} (gate "
+          f"{SHARD27_GRAD_REL}); step {c['step_s'] * 1e3:.1f} ms (one "
+          f"rank {c['one_step_s'] * 1e3:.1f}); peak GiB by rank "
+          + ", ".join(f"{r[part]['peak_bytes'] / 2 ** 30:.2f}"
+                      for r in res)
+          + ("" if "pad_free" not in c else
+             f"; {c['padded_leaves']} leaves by padded units: no padding "
+             f"slot held {all(r[part]['pad_free'] for r in res)}, "
+             f"gathered gradients vs one rank rel_l2 "
+             f"{c['gathered_grads_rel']:.2e}"), flush=True)
+    if not loss_rel <= SHARD27_LOSS_REL:
+        fail(f"phase 27 ({part}): loss rel {loss_rel} > "
+             f"{SHARD27_LOSS_REL}")
+    if not norm_rel <= SHARD27_NORM_REL:
+        fail(f"phase 27 ({part}): global norm rel {norm_rel} > "
+             f"{SHARD27_NORM_REL}")
+    for name in ("grads", "m", "v"):
+        worst = c[f"worst_{name}_rel"]
+        if not worst <= SHARD27_GRAD_REL:
+            fail(f"phase 27 ({part}): {name} rel_l2 {worst} > "
+                 f"{SHARD27_GRAD_REL}")
+    if "pad_free" in c:
+        if not all(r[part]["pad_free"] for r in res):
+            fail(f"phase 27 ({part}): a padding slot in the state")
+        if not c["gathered_grads_rel"] <= SHARD27_GRAD_REL:
+            fail(f"phase 27 ({part}): gathered gradients rel_l2 "
+                 f"{c['gathered_grads_rel']} > {SHARD27_GRAD_REL}")
+
+
+def _gate_long(res) -> None:
+    """Part (i)'s gates: every step's merged attention against one rank's
+    unsplit attention, and the new K/V rows bit for bit."""
+    c = res[0]["i"]
+    worst = max(c["attn_rel"])
+    print(f"[shard] (i) {HYBRID_ARCH} long_500k context split, data 2 x "
+          f"model 1: merged attention vs one rank's unsplit f32 rel_l2 "
+          f"worst {worst:.2e} over {len(c['attn_rel'])} steps (gate "
+          f"{SHARD27_ATTN_REL}); new K/V rows equal one rank's "
+          f"{c['rows_equal']}; bf16 logits vs one rank rel_l2 "
+          f"{', '.join(f'{x:.4f}' for x in c['rel_l2'])}, greedy "
+          f"agreement {c['greedy_agree']:.3f} (neither gated: a random "
+          f"Mamba stack's bf16 spread); rank 0's one-rank prefill of "
+          f"{SHARD27['long_prompt']} tokens {c['prefill_s'] * 1e3:.1f} ms, "
+          f"decode {c['decode_s'] * 1e3:.2f} ms a step; weights "
+          + ", ".join(f"{r['i']['weight_bytes'] / 1e9:.3f}" for r in res)
+          + " GB, peak GiB by rank "
+          + ", ".join(f"{r['i']['peak_bytes'] / 2 ** 30:.2f}" for r in res),
+          flush=True)
+    if not worst <= SHARD27_ATTN_REL:
+        fail(f"phase 27 (i): merged attention rel_l2 {worst} > "
+             f"{SHARD27_ATTN_REL}")
+    if not c["rows_equal"]:
+        fail("phase 27 (i): a new K/V row differs from one rank's")
+
+
+def _launch_counts(res, kernels):
+    """The ranks' launch counts of their parts, summed; every part's rows
+    (``SHARD27_ROWS``) must have launched on every rank."""
     counts = {k: 0 for k in kernels}
     for r in res:
         for part, names in SHARD27_ROWS.items():
-            for k, n in r[part]["launches"].items():
-                counts[k] += n
+            runs = [r[k]["launches"] for k in (part, part + "_train")
+                    if k in r]
+            if not runs:
+                continue
+            for run in runs:
+                for k, n in run.items():
+                    counts[k] += n
             for n in names:
-                if r[part]["launches"][n] <= 0:
+                if r is not res[0] and n in SHARD27_RANK0_ROWS.get(part, ()):
+                    continue
+                if sum(run[n] for run in runs) <= 0:
                     fail(f"phase 27 ({part}): {n} never launched")
     return counts
+
+
+def shard27_gates(res, kernels):
+    """Phase 27's gates on the two ranks' results (parts (a)-(g) and (i));
+    returns the launch counts of both ranks' sharded runs."""
+    for part, arch in SHARD27_SERVES.items():
+        _gate_serve(part, arch, res)
+    for part, what in (("c", "granite-3-8b FSDP, data 2 x model 1"),
+                       ("g", "mamba2-2.7b tensor parallel, data 1 x "
+                             "model 2")):
+        _gate_train(part, what, res[0][part], res)
+    _gate_long(res)
+    return _launch_counts(res, kernels)
+
+
+def shard27_padded_gates(res, kernels):
+    """Part (h)'s gates on its three ranks' results: granite-3-8b with its
+    heads padded to 9 KV / 36 query slots and ``d_ff`` to 12801, served
+    and trained; returns their launch counts."""
+    _gate_serve("h", "granite-3-8b, heads and d_ff padded", res)
+    _gate_train("h_train", "granite-3-8b tensor parallel, padded, data 1 "
+                "x model 3", res[0]["h_train"], res)
+    return _launch_counts(res, kernels)
 
 
 def main() -> None:
@@ -6752,16 +7064,28 @@ def main() -> None:
         fa_jamba = check_flash_prefill(
             torch, dev, H=64, KVH=8,
             cases=(("bfloat16", 1, 1024, 128, True),))
+        # and at phase 27 (i)'s prompt length (12288 positions in one
+        # launch, jamba's group of 8), at 8/1 heads: the plain version's
+        # (S, S) float32 scores of 64 heads would take 38.6 GB
+        fa_long = check_flash_prefill(
+            torch, dev, H=8, KVH=1,
+            cases=(("bfloat16", 1, 12288, 128, True),))
         # and at phase 27's per-rank heads (a 2 x 1024 prefill on a model
-        # axis of 2: granite's 16/4 of d 128, granite-moe's 12/4 of d 64),
-        # held to plain and to SDPA as granite's rows
+        # axis of 2: granite's 16/4 of d 128, granite-moe's 12/4 of d 64;
+        # on 3, granite's padded 12/3 of d 128), held to plain and to SDPA
+        # as granite's rows
         fa_shard = {
             "granite_H16_KVH4_d128": check_flash_prefill(
                 torch, dev, H=16, KVH=4,
                 cases=(("bfloat16", 2, 1024, 128, True),)),
             "granite_moe_H12_KVH4_d64": check_flash_prefill(
                 torch, dev, H=12, KVH=4,
-                cases=(("bfloat16", 2, 1024, 64, True),))}
+                cases=(("bfloat16", 2, 1024, 64, True),)),
+            # and phase 27 (h)'s: granite's heads padded on a model axis
+            # of 3, 12 query slots over 3 KV slots a rank
+            "granite_padded_H12_KVH3_d128": check_flash_prefill(
+                torch, dev, H=12, KVH=3,
+                cases=(("bfloat16", 2, 1024, 128, True),))}
         # rows 1 and 2 at phase 28's heads (d 128): the paged kernel at
         # qwen1.5-32b's decode shape (40 = 40 heads: G 1) and dbrx-132b's
         # (48/8: G 6), the prefix kernel at their chunks and command-r-35b's
@@ -6924,7 +7248,7 @@ def main() -> None:
     clock.lap(f"{MOE_ARCH} training (phase 29)")
 
     # phase 27's ranks start now, their start overlapping phases 8-11
-    ranks = start_shard_ranks()
+    ranks, ranks3 = start_shard_ranks(2), start_shard_ranks(3)
     t0 = time.perf_counter()
     model, params = build_model("mamba2-2.7b", "full", dev, None, SEED)
     torch.cuda.synchronize()
@@ -6960,11 +7284,18 @@ def main() -> None:
     # phase 27: sharded execution, two ranks sharing the card; each rank's
     # sharded runs counted from 0 there, summed; the ranks' exits overlap
     # phases 12-14
-    counts = phase_sharded(torch, dev, kernels, ranks)
+    counts = phase_sharded(torch, dev, kernels, ranks, shard27_gates)
     print(f"[main-path] sharded prefill, decode and FSDP training, two "
-          f"ranks (phase 27) launches {counts}", flush=True)
+          f"ranks (phase 27 (a)-(g), (i)) launches {counts}", flush=True)
     totals = {k: totals[k] + counts[k] for k in totals}
     clock.lap("sharded execution over a mesh of two ranks (phase 27)")
+    end_shard_ranks(ranks)
+    counts = phase_sharded(torch, dev, kernels, ranks3,
+                           shard27_padded_gates)
+    print(f"[main-path] padded heads and d_ff, three ranks (phase 27 (h)) "
+          f"launches {counts}", flush=True)
+    totals = {k: totals[k] + counts[k] for k in totals}
+    clock.lap("padded heads over a mesh of three ranks (phase 27 (h))")
 
     train_reference(torch, dev)
     clock.lap("train reference (phase 12)")
@@ -6979,7 +7310,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     clock.lap("train profile (phase 14)")
 
-    end_shard_ranks(ranks)
+    end_shard_ranks(ranks3)
     src = "src/repro_torch/csrc/"
     rows = [
         dict(name="paged_attention", route="cuda",
@@ -6999,7 +7330,8 @@ def main() -> None:
              replaces="src/repro/kernels/flash_prefill/flash_prefill.py:165",
              launches=t_launches["flash_prefill"], **fa,
              stablelm_shape=fa_stablelm, seamless_shape=fa_seamless,
-             jamba_shape=fa_jamba, sharded_shape=fa_shard),
+             jamba_shape=fa_jamba, long_shape=fa_long,
+             sharded_shape=fa_shard),
         dict(name="kv_quantize", route="cuda", source=src + "kv_quant.cu",
              replaces="src/repro/kernels/kv_quant/kv_quant.py:37",
              launches=launches["kv_quantize"], **kq,

@@ -26,12 +26,19 @@ a logical axis and each an autograd Function with the Megatron pairing:
   reduce-scatter of its gradient;
 - :func:`all_sum`: a sum over ranks whose gradient is a sum too (each
   rank uses the summed statistic for its own columns: the split-row
-  RMSNorm's sum of squares).
+  RMSNorm's sum of squares);
+- :func:`copy_to_replicas`: a block that several ``model`` ranks hold
+  alike (a replicated KV head's ``wk``/``wv``), its gradient summed over
+  them.
 
 A leaf whose rank block is not one contiguous block of the whole leaf
 (Mamba-2's ``in_proj``, whose rank holds its heads' z, x and dt columns and
-the B and C columns whole) has a :class:`HeadSplit` spec: the blocks are
-contiguous in the leaf with its last dim re-ordered rank by rank.
+the B and C columns whole; attention heads, a ``d_ff`` or experts that
+``model`` does not split evenly, replicated or padded to equal slots a
+rank) has a :class:`HeadSplit` spec: the blocks are contiguous in the leaf
+with one dim re-ordered rank by rank, padding slots added.  Inside
+:func:`replicated_batch` (the long-context cell, global batch 1) the
+collectives named ``batch`` are identities.
 
 Each is the identity outside a mesh (and over axes of size 1), so every
 single-device path runs bit for bit as before.  Under a dry mesh each
@@ -55,37 +62,89 @@ Spec = Tuple            # one entry per dim: None, an axis name or a tuple
 
 
 class HeadSplit(tuple):
-    """A spec over the *expanded* leaf: the whole leaf with its last dim
-    re-ordered (and some columns repeated) so that each rank's block is
-    contiguous; ``index[j]`` is the whole leaf's column at expanded
-    position ``j``.  A column that appears more than once is replicated
-    (the first copy counts as its owner's, :func:`owned_columns`).  As a
-    tuple it is the spec's entries on the expanded leaf."""
+    """A spec over the *expanded* leaf: the whole leaf with its dim ``dim``
+    re-ordered (some units repeated, padding slots added) so that each
+    rank's block is contiguous; ``index[j]`` is the whole leaf's unit
+    (column, row or expert) at expanded position ``j``, -1 a padding slot.
+    A unit that appears more than once is replicated (the first copy
+    counts as its owner's, :func:`owned_columns`).  A padding slot is a
+    zero block: a parameter's rank stores its real units only (its block
+    less its padding slots, so ranks may hold different counts), while a
+    cache's (``holds_pads``) stores the whole expanded block, its padding
+    slots zero.  As a tuple it is the spec's entries on the expanded
+    leaf."""
 
-    def __new__(cls, spec, index):
+    def __new__(cls, spec, index, dim: int = -1, holds_pads: bool = False):
         obj = super().__new__(cls, spec)
         obj.index = tuple(int(i) for i in index)
+        obj.dim = dim
+        obj.holds_pads = holds_pads
         first = {}
         for j, i in enumerate(obj.index):
-            first.setdefault(i, j)
-        # the expanded position of each whole column's first copy
+            if i >= 0:
+                first.setdefault(i, j)
+        # the expanded position of each whole unit's first copy
         obj.first = tuple(first[i] for i in range(len(first)))
         obj.width = len(obj.first)
         return obj
 
+    def units(self, mesh: "Mesh", coords=None) -> Tuple[int, ...]:
+        """The whole units at the expanded positions of the block of the
+        rank at ``coords`` (default: this rank), -1 where a slot pads."""
+        lo, hi = block_region(mesh, (len(self.index),), (self[self.dim],),
+                              mesh.coords if coords is None else coords)[0]
+        return self.index[lo:hi]
+
+    def stored(self, mesh: "Mesh", coords=None) -> Tuple[int, ...]:
+        """The whole units a rank stores, in order: its block's real units,
+        or with ``holds_pads`` every slot (-1 for a zero one)."""
+        units = self.units(mesh, coords)
+        return units if self.holds_pads else tuple(u for u in units
+                                                   if u >= 0)
+
 
 def expanded_shape(shape, spec) -> tuple:
-    """``shape`` of a whole leaf as its spec splits it: the last dim of a
+    """``shape`` of a whole leaf as its spec splits it: the split dim of a
     :class:`HeadSplit` leaf is its expanded width."""
     shape = tuple(shape)
     if isinstance(spec, HeadSplit):
-        return shape[:-1] + (len(spec.index),)
+        d = spec.dim % len(shape)
+        return shape[:d] + (len(spec.index),) + shape[d + 1:]
     return shape
 
 
 def _whole_columns(x: torch.Tensor, spec: HeadSplit) -> torch.Tensor:
-    """The whole leaf from the expanded one: each column's first copy."""
-    return x.index_select(-1, torch.tensor(spec.first, device=x.device))
+    """The whole leaf from the expanded one: each unit's first copy."""
+    return x.index_select(spec.dim, torch.tensor(spec.first,
+                                                 device=x.device))
+
+
+def take_units(t: torch.Tensor, dim: int, units) -> torch.Tensor:
+    """``t``'s units ``units`` along ``dim`` (a copy), a zero block where a
+    unit is -1."""
+    dim = dim % t.dim()
+    real = [j for j, u in enumerate(units) if u >= 0]
+    src = t.index_select(dim, torch.tensor([units[j] for j in real],
+                                           dtype=torch.long,
+                                           device=t.device))
+    if len(real) == len(units):
+        return src
+    shape = list(t.shape)
+    shape[dim] = len(units)
+    return src.new_zeros(shape).index_copy(
+        dim, torch.tensor(real, dtype=torch.long, device=t.device), src)
+
+
+def _expanded_block(local: torch.Tensor, spec: HeadSplit,
+                    mesh: "Mesh") -> torch.Tensor:
+    """A rank's stored block of a :class:`HeadSplit` leaf as its whole
+    expanded block (its padding slots zero)."""
+    if spec.holds_pads:
+        return local
+    units = spec.units(mesh)
+    at = itertools.count()
+    return take_units(local, spec.dim, [next(at) if u >= 0 else -1
+                                        for u in units])
 
 
 class Mesh:
@@ -167,6 +226,8 @@ class Mesh:
 
 _MESH: contextvars.ContextVar[Optional[Mesh]] = contextvars.ContextVar(
     "repro_torch_mesh", default=None)
+_BATCH_WHOLE: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "repro_torch_batch_whole", default=False)
 
 
 @contextlib.contextmanager
@@ -180,6 +241,19 @@ def mesh_context(mesh: Optional[Mesh]):
 
 def current_mesh() -> Optional[Mesh]:
     return _MESH.get()
+
+
+@contextlib.contextmanager
+def replicated_batch(on: bool = True):
+    """With ``on``, the batch is whole on every rank of the batch axes
+    (the long-context cell's global batch of 1, whose cache splits its
+    positions over ``data`` instead): the collectives named ``batch`` are
+    identities inside."""
+    token = _BATCH_WHOLE.set(on)
+    try:
+        yield
+    finally:
+        _BATCH_WHOLE.reset(token)
 
 
 def resolve_axis(mesh: Mesh, logical: Logical):
@@ -220,8 +294,8 @@ def _active(logical) -> Tuple[Optional[Mesh], Tuple[str, ...]]:
     """The current mesh and the physical axes of ``logical`` on it that
     have more than one rank (an empty tuple: nothing to do)."""
     mesh = _MESH.get()
-    if mesh is None:
-        return None, ()
+    if mesh is None or (logical == "batch" and _BATCH_WHOLE.get()):
+        return mesh, ()
     sizes = mesh.sizes
     axes = tuple(a for a in _as_tuple(resolve_axis(mesh, logical))
                  if sizes[a] > 1)
@@ -372,6 +446,27 @@ def copy_to(x: torch.Tensor, logical: Logical = "model") -> torch.Tensor:
     forward identity, backward the sum of the ranks' gradients."""
     mesh, axes = _active(logical)
     return x if not axes else _CopyTo.apply(x, mesh, axes)
+
+
+def replica_axis(rep: int) -> str:
+    """The group name of the runs of ``rep`` consecutive ``model`` ranks
+    (the ranks that hold one replicated KV head), ``rep`` a proper divisor
+    of the axis; a real mesh holds each rank's run as
+    ``groups[frozenset({replica_axis(rep)})]``."""
+    return f"model/{rep}"
+
+
+def copy_to_replicas(w: torch.Tensor, rep: int) -> torch.Tensor:
+    """``w``, a block held alike by ``rep`` consecutive ``model`` ranks
+    (a replicated KV head's ``wk``/``wv``), whose gradient is summed over
+    them: each rank's gradient is that of its own query heads.  Identity
+    outside a mesh, for ``rep`` 1 and where no gradient flows."""
+    mesh = _MESH.get()
+    if mesh is None or rep == 1 or not (torch.is_grad_enabled()
+                                        and w.requires_grad):
+        return w
+    axes = "model" if rep == mesh.sizes["model"] else replica_axis(rep)
+    return _CopyTo.apply(w, mesh, (axes,))
 
 
 def all_sum(x: torch.Tensor, logical: Logical = "model") -> torch.Tensor:
@@ -547,14 +642,22 @@ def fsdp_gather(local: torch.Tensor, spec: Spec, full_shape
     if mesh is None or all(mesh.sizes[a] == 1 for a in ("pod", "data")
                            if a in mesh.axis_names):
         return local
-    return _FsdpGather.apply(local, mesh, tuple(spec),
-                             expanded_shape(full_shape, spec))
+    full = list(expanded_shape(full_shape, spec))
+    if isinstance(spec, HeadSplit):
+        # the ranks of a gather share this rank's ``model`` coordinate and
+        # so its stored units: the split dim is gathered at their width
+        d = spec.dim % local.dim()
+        full[d] = local.shape[d] * mesh.axis_size(_entries(spec,
+                                                           local.dim())[d])
+    return _FsdpGather.apply(local, mesh, tuple(spec), tuple(full))
 
 
 def gather_full(local: torch.Tensor, spec: Spec, full_shape,
                 mesh: Mesh) -> torch.Tensor:
     """The whole leaf of ``full_shape`` from every rank's block by
     ``spec`` (a collective over every axis the spec splits on)."""
+    if isinstance(spec, HeadSplit):
+        local = _expanded_block(local, spec, mesh)
     axes = tuple(a for a in mesh.axis_names
                  if any(a in e for e in _entries(spec, local.dim()))
                  and mesh.sizes[a] > 1)

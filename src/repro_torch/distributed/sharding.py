@@ -31,19 +31,27 @@ channels of ``conv_w``/``conv_b`` and of the ``conv`` cache; its heads of
 ``A_log``/``D_skip``/``dt_bias`` (replicated in the spec).
 :func:`param_layouts` and :func:`cache_layouts` give these leaves a
 :class:`~repro_torch.distributed.ctx.HeadSplit` spec in place of the
-reference's; every other leaf keeps the sanitized spec.
+reference's.  Where the ``model`` axis does not split the attention heads
+evenly (the reference's spec splits inside a head, or re-homes the axis,
+and GSPMD pads), :func:`head_layout` gives every rank the same query and
+KV head slots: KV heads replicated on several ranks, or padded with zero
+heads; an uneven ``d_ff`` or expert count spreads over the ranks as
+evenly as it goes (:func:`even_blocks`).  Those leaves, and the cache's
+``k``/``v``, take a :class:`HeadSplit` with padding slots; every other
+leaf keeps the sanitized spec.
 """
 from __future__ import annotations
 
+import itertools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.distributed.ctx import (HeadSplit, Mesh, Spec, _as_tuple,
                                         _entries, block_region,
-                                        expanded_shape)
+                                        expanded_shape, take_units)
 from repro_torch.models.config import ArchConfig, ShapeSpec
 
 # the reference's hybrid group layout (repro_torch.models.model's
@@ -316,20 +324,125 @@ def _head_split(cfg: ArchConfig, kind: str, spec: Spec, mesh: Mesh):
                      head_split_index(cfg, m, kind))
 
 
+# ----------------------------------------- heads, d_ff and experts padded
+
+class HeadLayout(NamedTuple):
+    """The attention heads a ``model`` rank holds (:func:`head_layout`):
+    ``q_slots`` query and ``kv_slots`` KV head slots a rank (real heads
+    first, then zero padding), each KV head on ``rep`` ranks, and per rank
+    its real ``(query heads, KV heads)``."""
+    q_slots: int
+    kv_slots: int
+    rep: int
+    blocks: list
+
+
+def head_layout(cfg: ArchConfig, m: int) -> HeadLayout:
+    """The heads of ``cfg`` on a ``model`` axis of ``m``, every rank with
+    the same slots and the same group size.  KVH' is the smallest count
+    at or above KVH that ``m`` divides or that divides ``m``.  With KVH'
+    >= m a rank holds KVH'/m KV head slots, its real KV heads
+    ``[c KVH/m, (c+1) KVH/m)`` and the G query heads of each.  With KVH'
+    < m each KV head is replicated on r = m/KVH' ranks, and its G query
+    heads spread over them, ``ceil(G/r)`` slots a rank (G' = r ceil(G/r)
+    padded).  A padding slot is a zero head."""
+    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    G = H // KVH
+    kvp = next(k for k in itertools.count(KVH) if k % m == 0 or m % k == 0)
+    if kvp >= m:
+        blocks = []
+        for c in range(m):
+            kv = list(range(c * KVH // m, (c + 1) * KVH // m))
+            blocks.append(([h * G + g for h in kv for g in range(G)], kv))
+        return HeadLayout(G * kvp // m, kvp // m, 1, blocks)
+    r = m // kvp
+    blocks = []
+    for c in range(m):
+        j, s = divmod(c, r)
+        blocks.append(([j * G + g for g in range(s * G // r,
+                                                 (s + 1) * G // r)], [j])
+                      if j < KVH else ([], []))
+    return HeadLayout(-(-G // r), 1, r, blocks)
+
+
+def even_blocks(n: int, m: int) -> list:
+    """``n`` units over ``m`` ranks as evenly as they go: rank ``c`` holds
+    ``[c n/m, (c+1) n/m)``."""
+    return [list(range(c * n // m, (c + 1) * n // m)) for c in range(m)]
+
+
+def unit_index(blocks, slots: int, unit: int = 1) -> list:
+    """The expanded index of ranks holding ``blocks`` (each rank's units,
+    padded to ``slots``), each unit ``unit`` columns wide."""
+    out = []
+    for units in blocks:
+        units = list(units) + [-1] * (slots - len(units))
+        out += [u * unit + i if u >= 0 else -1
+                for u in units for i in range(unit)]
+    return out
+
+
+# the attention leaves held by heads: which heads, and the dim they lie on
+_ATTN_UNITS = {"wq": ("q", -1), "bq": ("q", -1), "wo": ("q", -2),
+               "wk": ("kv", -1), "bk": ("kv", -1), "wv": ("kv", -1),
+               "bv": ("kv", -1)}
+_FFN_DIM = {"wi": -1, "wg": -1, "wo": -2}
+
+
+def _split_on(spec: Spec, dim: int, index, holds_pads: bool = False
+              ) -> HeadSplit:
+    """``spec`` with ``model`` taken off every dim and put on ``dim`` alone,
+    as the :class:`HeadSplit` of ``index``."""
+    dims = [tuple(a for a in _as_tuple(e) if a != "model") for e in spec]
+    dims[dim] = ("model",)
+    return HeadSplit(tuple(d[0] if len(d) == 1 else (d or None)
+                           for d in dims), index, dim, holds_pads)
+
+
+def _unit_split(cfg: ArchConfig, path: tuple, leaf, params, m: int):
+    """``(dim, index)`` of a leaf the port holds by whole units on a
+    ``model`` axis of ``m`` where the axis does not split them evenly:
+    attention heads (:func:`head_layout`), a dense FFN's ``d_ff`` and an
+    MoE's experts (each padded to a multiple of ``m``,
+    :func:`even_blocks`; experts padded by ``pad_experts_to`` always);
+    None for any other leaf."""
+    name, parent = path[-1], (path[-2] if len(path) >= 2 else None)
+    if parent in ("attn", "xattn") and name in _ATTN_UNITS and \
+            cfg.num_kv_heads % m:
+        lay = head_layout(cfg, m)
+        which, dim = _ATTN_UNITS[name]
+        i, slots = (0, lay.q_slots) if which == "q" else (1, lay.kv_slots)
+        return dim, unit_index([b[i] for b in lay.blocks], slots, cfg.hd)
+    if parent == "ffn" and name in _FFN_DIM:
+        moe = "router" in spec_at(params, path[:-1])
+        dim = -3 if moe else _FFN_DIM[name]
+        n = leaf.shape[dim]
+        # the reference's MoE rule reads experts by their count, so it
+        # takes padding experts (``pad_experts_to``) for a dense FFN's
+        if n % m or (moe and n != cfg.num_experts):
+            return dim, unit_index(even_blocks(n, m), -(-n // m))
+    return None
+
+
 def param_layouts(cfg: ArchConfig, params, mode: str, mesh: Mesh,
                   specs=None):
     """The spec tree by which the port holds ``params`` (whole leaves or
     anything with ``.shape``) on ``mesh``: ``specs`` (default
     :func:`sanitized_param_specs`), with each Mamba leaf of
     :data:`MAMBA_LEAVES` under a layer's ``ssm`` as its :class:`HeadSplit`,
-    and a spec that splits a layer stack replaced by the leaf's own rule
-    on its per-layer shape (the reference's MoE rule, which reads the
-    stacked shape, takes a hybrid's stack of 4 dense FFNs for experts when
-    there are 4 experts, as in jamba's smoke config, and puts ``model`` on
-    the stack; the port holds every layer on every rank, so such a leaf is
-    held as the dense FFN it is)."""
+    each attention, dense-FFN and MoE leaf whose heads, ``d_ff`` or
+    experts the ``model`` axis does not split evenly as the
+    :class:`HeadSplit` of :func:`_unit_split` (the reference's spec would
+    split inside a unit or re-home the axis; GSPMD pads), and a spec that
+    splits a layer stack replaced by the leaf's own rule on its per-layer
+    shape (the reference's MoE rule, which reads the stacked shape, takes
+    a hybrid's stack of 4 dense FFNs for experts when there are 4 experts,
+    as in jamba's smoke config, and puts ``model`` on the stack; the port
+    holds every layer on every rank, so such a leaf is held as the dense
+    FFN it is)."""
     if specs is None:
         specs = sanitized_param_specs(cfg, params, mode, mesh)
+    m = mesh.sizes.get("model", 1)
 
     def visit(path, leaf):
         spec = spec_at(specs, path)
@@ -340,6 +453,9 @@ def param_layouts(cfg: ArchConfig, params, mode: str, mesh: Mesh,
                                        mode)
             spec = sanitize_spec(stacked, (None,) * extra + tuple(own),
                                  mesh)
+        split = _unit_split(cfg, path, leaf, params, m) if m > 1 else None
+        if split is not None:
+            return _split_on(spec, *split)
         kind = MAMBA_LEAVES.get(path[-1])
         if kind and len(path) >= 2 and path[-2] == "ssm":
             return _head_split(cfg, kind, spec, mesh)
@@ -351,31 +467,46 @@ def cache_layouts(cfg: ArchConfig, shapes: Dict[str, tuple],
                   shape: ShapeSpec, mesh) -> Dict[str, Spec]:
     """The sanitized cache specs of a cache of ``shapes`` (whole shapes by
     key) as the port holds it: the ``conv`` state's channels by
-    :func:`_head_split`."""
+    :func:`_head_split`; where the ``model`` axis does not split the KV
+    heads evenly, each rank's KV head slots of ``k``/``v`` (and the cross
+    ``xk``/``xv``) by :func:`head_layout`, padding slots held as zeros."""
     specs = sanitize_specs(shapes, cache_specs(cfg, shape, mesh), mesh)
     if "conv" in specs:
         specs["conv"] = _head_split(cfg, "conv", specs["conv"], mesh)
+    m = mesh.sizes.get("model", 1)
+    if cfg.family != "ssm" and cfg.num_kv_heads % m:
+        lay = head_layout(cfg, m)
+        index = unit_index([b[1] for b in lay.blocks], lay.kv_slots)
+        for k in ("k", "v", "xk", "xv"):
+            if k in specs:
+                specs[k] = _split_on(specs[k], -2, index, holds_pads=True)
     return specs
 
 
 def owned_columns(spec: Spec, mesh: Mesh) -> Optional[torch.Tensor]:
-    """The positions of this rank's block of a :class:`HeadSplit` leaf
-    (on its last dim) whose column this rank owns: each replicated
-    column's first copy (rank 0's B and C), so that a sum over the ranks
-    counts every column once; None for any other spec (every position)."""
+    """The positions along a :class:`HeadSplit` leaf's split dim of this
+    rank's stored block whose unit this rank owns: each replicated unit's
+    first copy (rank 0's B and C of a Mamba layer, the first of a KV
+    head's ranks), so that a sum over the ranks counts every unit once;
+    None for any other spec (every position)."""
     if not isinstance(spec, HeadSplit):
         return None
-    lo, hi = block_region(mesh, (len(spec.index),), spec[-1:],
-                          mesh.coords)[0]
-    return torch.tensor([j - lo for j in range(lo, hi)
-                         if spec.first[spec.index[j]] == j])
+    lo = block_region(mesh, (len(spec.index),), (spec[spec.dim],),
+                      mesh.coords)[0][0]
+    units = spec.units(mesh)
+    stored = [j for j, u in enumerate(units) if u >= 0 or spec.holds_pads]
+    return torch.tensor([i for i, j in enumerate(stored)
+                         if units[j] >= 0
+                         and spec.first[units[j]] == lo + j],
+                        dtype=torch.long)
 
 
 def local_shape(shape, spec: Spec, mesh: Mesh) -> tuple:
     """The shape of one rank's block of a leaf of ``shape`` by ``spec``
     (a stacked spec's leading entries split the leading dims of a stacked
     ``shape``, or are dropped for a per-layer one; a :class:`HeadSplit`
-    splits the expanded last dim)."""
+    splits the expanded dim, whose block a parameter's rank stores less
+    its padding slots)."""
     sizes = mesh.sizes
     shape = expanded_shape(shape, spec)
     out = []
@@ -385,6 +516,8 @@ def local_shape(shape, spec: Spec, mesh: Mesh) -> tuple:
             raise ValueError(f"dim {n} does not split {parts} ways "
                              f"({spec} on {mesh.describe()})")
         out.append(n // parts)
+    if isinstance(spec, HeadSplit):
+        out[spec.dim % len(out)] = len(spec.stored(mesh))
     return tuple(out)
 
 
@@ -397,8 +530,11 @@ def shard_leaf(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
         raise ValueError(f"spec {spec} splits the layer stack of a leaf "
                          f"of shape {tuple(t.shape)} on {mesh.describe()}")
     if isinstance(spec, HeadSplit):
-        t = t.index_select(-1, torch.tensor(spec.index, device=t.device))
+        t = take_units(t, spec.dim, spec.stored(mesh))
     region = block_region(mesh, tuple(t.shape), tuple(spec), mesh.coords)
+    if isinstance(spec, HeadSplit):
+        d = spec.dim % t.dim()
+        region[d] = (0, t.shape[d])
     return t[tuple(slice(a, b) for a, b in region)].clone()
 
 

@@ -22,13 +22,16 @@ cell it
 
 Per-rank bytes follow the blocks the port holds (``Model.layouts``):
 where a Mamba layer's rank holds B and C whole and its heads of the SSM
-constants (``distributed/sharding.py``), the record gives the spec's
-figure beside it (``spec_param_bytes``, ``spec_opt_state_bytes``,
-``spec_cache_bytes``).  A cell the port cannot execute sharded (heads the
-``model`` axis would split inside, the ``long_500k`` cell whose KV
-sequence the spec splits over ``data``) records its memory and roofline
-with ``"collectives": null`` and the reason.  Results append to a JSONL
-file, so the sweep is resumable.
+constants, or a rank holds its attention head slots, its part of an
+unevenly split ``d_ff`` or of the experts (``distributed/sharding.py``),
+the record gives the largest rank's bytes and the spec's figure beside
+them (``spec_param_bytes``, ``spec_opt_state_bytes``,
+``spec_cache_bytes``).  The ``long_500k`` cell, whose KV sequence the
+spec splits over ``data``, runs its rank's step with ``seq_split``.  A
+cell the port cannot execute sharded (SSM heads the ``model`` axis does
+not split whole) records its memory and roofline with ``"collectives":
+null`` and the reason.  Results append to a JSONL file, so the sweep is
+resumable.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.configs import ASSIGNED_ARCHS, get_config
-from repro_torch.distributed.ctx import Mesh
+from repro_torch.distributed.ctx import Mesh, _as_tuple
 from repro_torch.distributed.sharding import (batch_specs, cache_layouts,
                                               cache_specs, local_shape,
                                               param_layouts, ref_leaf,
@@ -52,7 +55,7 @@ from repro_torch.distributed.sharding import (batch_specs, cache_layouts,
 from repro_torch.launch import roofline
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.config import SHAPES, cell_is_supported
-from repro_torch.models.model import SHARDING_ITEM, Model
+from repro_torch.models.model import Model
 from repro_torch.utils import dtype_of, tree_leaves
 
 _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
@@ -98,35 +101,51 @@ def _bytes(shapes: dict, specs: dict, mesh: Mesh) -> int:
                for k, (s, dt) in shapes.items())
 
 
-def param_bytes(cfg, whole, mode: str, mesh: Mesh, spec: bool = False):
-    """Per-rank bytes of the params (and, in ``train`` mode, of the f32
-    AdamW moments ``m`` and ``v``), summed over the reference's stacked
-    leaves by the blocks the port holds (``sharding.param_layouts``), or
-    with ``spec`` by the reference's sanitized specs."""
+def param_bytes(cfg, whole, mode: str, mesh: Mesh, spec: bool = False,
+                ranks: bool = False):
+    """Bytes of the params (and, in ``train`` mode, of the f32 AdamW
+    moments ``m`` and ``v``) of the rank at ``mesh.coords``, summed over
+    the reference's stacked leaves by the blocks the port holds
+    (``sharding.param_layouts``), or with ``spec`` by the reference's
+    sanitized specs; with ``ranks``, the largest over the ``model``
+    axis's ranks (where they hold unequal blocks)."""
     specs = (sanitized_param_specs if spec else param_layouts)(
         cfg, whole, mode, mesh)
     stacked = {}
     for path, t in tree_leaves(whole):
         ref, shape = ref_leaf(cfg, path, t.shape)
         stacked[ref] = (shape, spec_at(specs, path), t.element_size())
-    p = sum(math.prod(local_shape(s, spec, mesh)) * item
-            for s, spec, item in stacked.values())
-    m = sum(math.prod(local_shape(s, spec, mesh)) * 4
-            for s, spec, _ in stacked.values())
-    return p, (2 * m + 4 if mode == "train" else 0)
+    out = (0, 0)
+    axis = mesh.axis_names.index("model") if "model" in mesh.axis_names \
+        else None
+    for c in range(mesh.sizes["model"] if ranks and axis is not None
+                   else 1):
+        at = mesh
+        if ranks:
+            coords = list(mesh.coords)
+            coords[axis] = c
+            at = Mesh(mesh.axis_names, mesh.shape, coords=coords)
+        p = sum(math.prod(local_shape(s, sp, at)) * item
+                for s, sp, item in stacked.values())
+        m = sum(math.prod(local_shape(s, sp, at)) * 4
+                for s, sp, _ in stacked.values())
+        out = max(out, (p, 2 * m + 4 if mode == "train" else 0))
+    return out
 
 
-def _refusal(cfg, shape, mesh, cspec, opt) -> str:
+def _refusal(cfg, shape, mesh, opt) -> str:
     """Why the port cannot run this cell sharded ('' when it can)."""
     try:
         Model._check_mesh(cfg, mesh, opt.get("pad_experts_to", 0))
     except ValueError as e:
-        return str(e)
-    if cspec and any(cspec.get(k, (None,) * 5)[2] for k in ("k", "v")):
-        return (f"{cfg.name} {shape.name}: the spec splits the KV sequence "
-                f"over 'data' (the flash-decoding context split), which "
-                f"waits in {SHARDING_ITEM}")
+        return f"{shape.name}: {e}"
     return ""
+
+
+def _seq_split(cspec) -> bool:
+    """Whether the cache specs split the KV sequence over ``data``."""
+    return any("data" in _as_tuple(cspec[k][2]) for k in ("k", "v")
+               if k in cspec)
 
 
 def _meta(shape, dtype):
@@ -139,7 +158,10 @@ def run_rank_step(cfg, shape, mesh: Mesh, opt: dict, whole) -> dict:
     from repro_torch.training.optimizer import init_opt_state
     from repro_torch.training.train_step import make_train_step
     mesh.records.clear()
-    model = _model_for(cfg, opt, mesh)
+    # the attention holds no collective: on meta tensors it runs as one
+    # chunk, which costs the host far less than the plain version's loop
+    # over 1024-wide chunks
+    model = _model_for(cfg, {**opt, "attn_chunk": shape.seq_len}, mesh)
     mode = "train" if shape.kind == "train" else "serving"
     model._check_layout(mode)
     specs = model.layouts(mode)
@@ -165,7 +187,8 @@ def run_rank_step(cfg, shape, mesh: Mesh, opt: dict, whole) -> dict:
                               shape, mesh)
         cache = {k: _meta(local_shape(s, cspec[k], mesh), dt)
                  for k, (s, dt) in cache_sh.items()}
-        model.decode_step(params, cache, batch["tokens"])
+        model.decode_step(params, cache, batch["tokens"],
+                          seq_split=_seq_split(cspec))
     per_kind = {k: 0 for k in _COLLECTIVES}
     counts = {k: 0 for k in _COLLECTIVES}
     for r in mesh.records:
@@ -177,7 +200,8 @@ def run_rank_step(cfg, shape, mesh: Mesh, opt: dict, whole) -> dict:
 
 def dry_cell(arch: str, shape_name: str, mesh: Mesh, *, opt: dict = None,
              cfg=None) -> dict:
-    """The record of one cell on the dry ``mesh`` (rank 0's view)."""
+    """The record of one cell on the dry ``mesh``: rank 0's step and
+    collectives, the largest rank's bytes."""
     opt = opt or {}
     cfg = cfg or get_config(arch)
     shape = SHAPES[shape_name]
@@ -186,7 +210,7 @@ def dry_cell(arch: str, shape_name: str, mesh: Mesh, *, opt: dict = None,
     one = _model_for(cfg, opt)
     whole = one.init(torch.Generator())
     mode = "train" if shape.kind == "train" else "serving"
-    p_bytes, opt_bytes = param_bytes(cfg, whole, mode, mesh)
+    p_bytes, opt_bytes = param_bytes(cfg, whole, mode, mesh, ranks=True)
     spec_bytes = dict(zip(("spec_param_bytes", "spec_opt_state_bytes"),
                           param_bytes(cfg, whole, mode, mesh, spec=True)))
     ins = input_shapes(cfg, shape, one)
@@ -194,7 +218,7 @@ def dry_cell(arch: str, shape_name: str, mesh: Mesh, *, opt: dict = None,
     shapes_b = {k: v for k, v in ins.items() if k != "cache"}
     b_bytes = _bytes(shapes_b, sanitize_specs(
         {k: s for k, (s, _) in shapes_b.items()}, bspec, mesh), mesh)
-    c_bytes, cspec = 0, None
+    c_bytes = 0
     if "cache" in ins:
         cs = ins["cache"]
         shapes_c = {k: s for k, (s, _) in cs.items()}
@@ -207,7 +231,7 @@ def dry_cell(arch: str, shape_name: str, mesh: Mesh, *, opt: dict = None,
     kv_bytes = dtype_of(opt.get("kv_dtype", "bfloat16")).itemsize
     cost = roofline.cell_cost(cfg, shape, attn_chunk=opt.get(
         "attn_chunk", 1024), kv_bytes=kv_bytes)
-    reason = _refusal(cfg, shape, mesh, cspec, opt)
+    reason = _refusal(cfg, shape, mesh, opt)
     coll = None if reason else run_rank_step(cfg, shape, mesh, opt, whole)
     flops_dev, bytes_dev = cost.flops / chips, cost.hbm_bytes / chips
     coll_dev = coll["per_device_bytes"] if coll else 0

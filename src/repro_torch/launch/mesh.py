@@ -14,7 +14,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.distributed.ctx import Mesh
+from repro_torch.distributed.ctx import Mesh, replica_axis
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -52,7 +52,9 @@ def init_distributed(rank: int, world_size: int, port: int, device,
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
     """A real mesh of ``shape`` over the initialised process group (its
     world size the shape's product), with the group of every set of axes
-    (all ranks create every group, in one order)."""
+    and of every run of ``r`` consecutive ``model`` ranks, ``r`` a proper
+    divisor of its size (``ctx.replica_axis``; all ranks create every
+    group, in one order)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     backend = dist.get_backend()
@@ -75,6 +77,18 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
                        else dist.new_group(ranks, backend=backend))
                 if mesh.rank in ranks:
                     mesh.groups[frozenset(axes)] = grp
+    # the runs of r consecutive ``model`` ranks (a replicated KV head's)
+    m = mesh.sizes.get("model", 1)
+    for r in (r for r in range(2, m) if m % r == 0):
+        for c in itertools.product(*[range(s) for s in mesh.shape]):
+            at = dict(zip(names, c))
+            if at["model"] % r:
+                continue
+            ranks = [mesh.rank_of(tuple(at[a] + (i if a == "model" else 0)
+                                        for a in names)) for i in range(r)]
+            grp = dist.new_group(ranks, backend=backend)
+            if mesh.rank in ranks:
+                mesh.groups[frozenset((replica_axis(r),))] = grp
     return mesh
 
 

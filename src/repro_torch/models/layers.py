@@ -12,8 +12,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.ctx import (all_sum, axis_index, copy_to,
-                                        gather_counts, reduce_from)
+from repro_torch.distributed.ctx import (_active, all_reduce_sum, all_sum,
+                                        axis_index, copy_to,
+                                        copy_to_replicas, gather_counts,
+                                        reduce_from)
 from repro_torch.kernels.flash_prefill import FlashPrefill
 from repro_torch.kernels.fused_rmsnorm import (FusedRMSNorm, RMSNormApply,
                                                RMSNormSumsq, fused_rmsnorm,
@@ -139,25 +141,41 @@ def init_attention(cfg: ArchConfig, gen, dtype, device=None):
     return p
 
 
-def _project_qkv(cfg: ArchConfig, p, x, positions, rope: bool = True):
+def pad_heads(t, n: int):
+    """``t`` (B, S, h, hd) with zero heads after its h up to ``n`` (``t``
+    itself where it has them)."""
+    return F.pad(t, (0, 0, 0, n - t.shape[2])) if n > t.shape[2] else t
+
+
+def _project_qkv(cfg: ArchConfig, p, x, positions, rope: bool = True,
+                 heads=None):
     """q (B, S, H, hd), k and v (B, S, KVH, hd) of x (B, S, D); the head
     counts are the projections' (a rank's H/m and KVH/m under tensor
-    parallelism, whose column-parallel products take ``copy_to(x)``)."""
+    parallelism, whose column-parallel products take ``copy_to(x)``).
+    ``heads`` (``Model.heads``: a rank's query and KV head slots and the
+    ranks each KV head is on) pads q, k and v with zero heads to the
+    rank's slots, and sums the gradients of ``wk``/``wv`` (``bk``/``bv``)
+    over the ranks that hold the same KV head."""
     B, S, _ = x.shape
     hd = cfg.hd
     x = copy_to(x, "model")
+    rep = heads[2] if heads else 1
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = x @ copy_to_replicas(p["wk"], rep)
+    v = x @ copy_to_replicas(p["wv"], rep)
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, -1, hd)
-    k = k.reshape(B, S, -1, hd)
-    v = v.reshape(B, S, -1, hd)
+        q, k, v = (q + p["bq"], k + copy_to_replicas(p["bk"], rep),
+                   v + copy_to_replicas(p["bv"], rep))
+    q = q.reshape(B, S, q.shape[-1] // hd, hd)
+    k = k.reshape(B, S, k.shape[-1] // hd, hd)
+    v = v.reshape(B, S, v.shape[-1] // hd, hd)
     if rope:
         pos = positions[:, None, :]
         q = apply_rope(q.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
         k = apply_rope(k.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
+    if heads:
+        q, k, v = (pad_heads(q, heads[0]), pad_heads(k, heads[1]),
+                   pad_heads(v, heads[1]))
     return q, k, v
 
 
@@ -246,20 +264,34 @@ def chunked_attention(cfg: ArchConfig, q, k, v, *, causal: bool,
     return out[:, :S_orig].to(q.dtype)
 
 
-def decode_attention(cfg: ArchConfig, q, k_cache, v_cache, lengths):
+def decode_attention(cfg: ArchConfig, q, k_cache, v_cache, lengths,
+                     over=None):
     """Single-token decode.  q:(B,H,hd), caches:(B,Smax,KVH,hd), lengths:(B,)
-    = number of valid cached tokens (including the token just written)."""
+    = number of valid cached tokens (including the token just written).
+
+    ``over`` names the logical axis whose ranks each hold a block of the
+    positions (``"seq"``, flash-decoding's context split; ``lengths`` then
+    counts this rank's valid ones, 0 where it has none): each rank's
+    partial softmax in float32 (scores against the ranks' common row
+    maximum, one max all-reduce; its weighted V and sum of exponentials)
+    is summed over them (one sum all-reduce).  Both are the identity
+    without ``over`` or over an axis of one rank."""
     B, H, hd = q.shape
     Smax, KVH = k_cache.shape[1], k_cache.shape[2]
     G = H // KVH
+    mesh, axes = _active(over)
     qg = q.reshape(B, KVH, G, hd)
     scale = 1.0 / (hd ** 0.5)
     s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) * scale
     valid = (torch.arange(Smax, device=q.device)[None, :]
              < lengths.long()[:, None])                         # (B, Smax)
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30))
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", w, v_cache.float())
+    top = all_reduce_sum(s.amax(-1), axes, mesh, op="max")      # (B, KVH, G)
+    p = torch.exp(s - top[..., None])
+    part = torch.cat([torch.einsum("bkgs,bskd->bkgd", p, v_cache.float()),
+                      p.sum(-1)[..., None]], dim=-1)
+    total = all_reduce_sum(part, axes, mesh)
+    o = total[..., :hd] / total[..., hd:]
     return o.reshape(B, H, hd).to(q.dtype)
 
 

@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch.distributed import ctx as C
-from repro_torch.distributed.sharding import (map_with_path, param_layouts,
+from repro_torch.distributed.sharding import (head_layout, map_with_path,
+                                              param_layouts,
                                               sanitized_param_specs,
                                               shard_params, spec_at)
 from repro_torch.kernels.flash_prefill import flash_prefill_prefix
@@ -93,10 +94,14 @@ SHARDING_ITEM = "ROADMAP.md Queue 1 item 5"
 
 def _sharded(method):
     """An entry point that runs over the model's mesh: its collectives
-    resolve against ``self.mesh`` (identity without one)."""
+    resolve against ``self.mesh`` (identity without one).  Called with
+    ``seq_split=True`` (the long-context cell, global batch 1) it runs
+    with the batch replicated over the batch axes
+    (:func:`ctx.replicated_batch`)."""
     @functools.wraps(method)
     def run(self, *args, **kwargs):
-        with C.mesh_context(self.mesh):
+        with C.mesh_context(self.mesh), \
+                C.replicated_batch(kwargs.get("seq_split", False)):
             return method(self, *args, **kwargs)
     return run
 
@@ -233,16 +238,26 @@ class Model:
     (the rank's ``model`` coordinate sets its part of the experts, and the
     parts' outputs are summed over ``model``: the exchange; an explicit
     ``expert_shard`` is split further over ``model``), the batch over
-    (``pod``, ``data``).  Every family runs sharded: :meth:`prefill` and
-    :meth:`decode_step` take the rank's block of the serving-mode params
-    (:meth:`shard`, by :meth:`layouts`), its rows of the batch and its
-    heads of the cache; :meth:`loss` takes the train-mode (FSDP x TP)
-    blocks and gathers each layer's ``data`` shards just before its use.
-    :meth:`init` draws the whole model (or, given a ``mode``, keeps the
-    rank's blocks layer by layer).  Heads that the ``model`` axis would
-    split inside, the seq-split decode cache and the engine's entry points
-    (paged, chunk, pack and verify calls) raise on a mesh of more than one
-    rank.
+    (``pod``, ``data``).  Where ``model`` does not split the heads evenly,
+    every rank holds the same query and KV head slots
+    (``sharding.head_layout``: a KV head replicated on several ranks, or
+    padded with zero heads), so the attention sees an ordinary GQA shape
+    (``self.heads``); a padding head is built by the forward, never a
+    parameter, and adds exactly 0.  ``d_ff`` and experts that ``model``
+    does not split evenly spread over the ranks as evenly as they go
+    (padding units are layout only: a rank computes its real ones).
+    Every family runs sharded: :meth:`prefill` and :meth:`decode_step`
+    take the rank's block of the serving-mode params (:meth:`shard`, by
+    :meth:`layouts`), its rows of the batch and its heads of the cache
+    (:meth:`decode_step` with ``seq_split``, the long-context cell: the
+    batch whole on every rank and the cache's positions split over
+    ``data``); :meth:`loss`
+    takes the train-mode (FSDP x TP) blocks and gathers each layer's
+    ``data`` shards just before its use.  :meth:`init` draws the whole
+    model (or, given a ``mode``, keeps the rank's blocks layer by layer).
+    SSM heads that ``model`` does not split whole and the engine's entry
+    points (paged, chunk, pack and verify calls) raise on a mesh of more
+    than one rank.
     """
 
     def __init__(self, cfg: ArchConfig, *, kv_dtype: str = "bfloat16",
@@ -259,16 +274,29 @@ class Model:
         self._layouts = {}
         # the experts every rank's draw holds (None: all of them)
         self.share = expert_range(cfg, expert_shard or (0, 1))
+        if self.share is not None and pad_experts_to:
+            raise ValueError("expert_shard and pad_experts_to do not combine")
+        self.experts = self.share
+        # (query slots, KV slots, ranks a KV head is on) where ``model``
+        # does not split the heads evenly
+        self.heads = None
         if mesh is not None:
             self._check_mesh(cfg, mesh, pad_experts_to)
-            m = mesh.sizes.get("model", 1)
-            i, n = expert_shard or (0, 1)
-            # an explicit share is split further over ``model``
-            expert_shard = (i * m + mesh.coord("model"), n * m) \
-                if cfg.has_moe else (0, 1)
-        self.experts = expert_range(cfg, expert_shard or (0, 1))
-        if self.experts is not None and pad_experts_to:
-            raise ValueError("expert_shard and pad_experts_to do not combine")
+            m, c = mesh.sizes.get("model", 1), mesh.coord("model")
+            if cfg.family != "ssm" and cfg.num_kv_heads % m:
+                self.heads = head_layout(cfg, m)[:3]
+            if cfg.has_moe and m > 1:
+                # the share (default every expert) split over ``model``:
+                # evenly where a share is given (its layouts follow the
+                # whole layer's), else as evenly as the experts go
+                lo, hi = self.share or (0, max(cfg.num_experts,
+                                               pad_experts_to))
+                n = hi - lo
+                if n < m or (self.share and n % m):
+                    raise ValueError(
+                        f"the share of {n} experts does not split evenly "
+                        f"over the 'model' axis of {m}")
+                self.experts = (lo + c * n // m, lo + (c + 1) * n // m)
         self.cfg = cfg
         self.chunk_attn_impl = chunk_attn_impl
         self.attn_chunk = attn_chunk
@@ -287,32 +315,23 @@ class Model:
     # ---------------------------------------------------------------- mesh
     @staticmethod
     def _check_mesh(cfg: ArchConfig, mesh, pad_experts_to: int) -> None:
-        """Refuse what the port cannot execute on ``mesh``: attention or
-        SSM heads and experts that the ``model`` axis does not split whole
-        (the reference's spec would split inside a head, or re-home the
-        axis), and padding experts."""
+        """Refuse what the port cannot execute on ``mesh``: SSM heads that
+        the ``model`` axis does not split whole (no reference cell needs
+        them padded), and fewer experts than its ranks (a rank would hold
+        padding only)."""
         if mesh.size == 1:
             return
         where = f"{cfg.name} on a mesh of {mesh.describe()}"
         m = mesh.sizes.get("model", 1)
-        H, KVH = cfg.num_heads, cfg.num_kv_heads
-        if cfg.family != "ssm" and (H % m or KVH % m):
-            raise ValueError(
-                f"{where}: {KVH} KV heads and {H} query heads do not split "
-                f"whole over the 'model' axis of {m}; the reference's spec "
-                f"splits inside a head, which the port does not execute "
-                f"(heads split inside a head wait in {SHARDING_ITEM})")
         if cfg.has_ssm and cfg.ssm_heads % m:
             raise ValueError(
                 f"{where}: {cfg.ssm_heads} SSM heads do not split whole "
-                f"over the 'model' axis of {m}")
-        if cfg.has_moe and (cfg.num_experts % m or pad_experts_to):
-            raise ValueError(f"{where}: {cfg.num_experts} experts (padded "
-                             f"to {pad_experts_to}) do not split over the "
+                f"over the 'model' axis of {m} (padded SSM heads wait in "
+                f"{SHARDING_ITEM})")
+        E = max(cfg.num_experts, pad_experts_to)
+        if cfg.has_moe and E < m:
+            raise ValueError(f"{where}: {E} experts do not split over the "
                              f"'model' axis of {m}")
-        if cfg.d_ff % m:
-            raise ValueError(f"{where}: d_ff {cfg.d_ff} does not split "
-                             f"over the 'model' axis of {m}")
 
     def _whole_shapes(self):
         """The whole model's parameters as meta tensors (shapes only)."""
@@ -381,6 +400,8 @@ class Model:
             else:
                 want = self._MODEL_DIM.get(name)
                 ok = dims == ([] if want is None else [want])
+            if isinstance(spec, C.HeadSplit):    # its blocks by ``model``
+                ok = ok and own[spec.dim] == ("model",)
             if not ok:
                 raise ValueError(
                     f"{self.cfg.name}: {'/'.join(map(str, path))} "
@@ -463,8 +484,7 @@ class Model:
         elif ffn_kind == "moe":
             p["ln2"] = L.init_norm(cfg, cfg.d_model, dtype, dev)
             p["ffn"] = L.init_moe(cfg, generator, dtype, dev,
-                                  self.pad_experts_to,
-                                  self.share if self.mesh else self.experts)
+                                  self.pad_experts_to, self.share)
         return p
 
     # --------------------------------------------------------------- embed
@@ -507,8 +527,11 @@ class Model:
     @staticmethod
     def _wo(attn_flat, wo):
         """The attention's output product: row-parallel over ``model``
-        under a mesh (this rank's heads), then the all-reduce."""
-        return C.reduce_from(attn_flat @ wo, "model")
+        under a mesh (this rank's heads), then the all-reduce.  A rank
+        whose head slots end in padding (:attr:`heads`) takes its real
+        heads' columns: a padding head meets zero rows of ``wo``, so it
+        would add exactly 0."""
+        return C.reduce_from(attn_flat[..., :wo.shape[0]] @ wo, "model")
 
     def _ffn_block(self, p_l, h, groups=None):
         """``h`` plus the layer's FFN of ``ln2(h)`` (none where ``p_l`` has
@@ -580,7 +603,8 @@ class Model:
         ``wo``), and the projected ``k``, ``v`` (B, S, KVH, hd)."""
         B, S = x.shape[:2]
         h = self._norm(p_l["ln1"], x)
-        q, k, v = L._project_qkv(self.cfg, p_l["attn"], h, positions)
+        q, k, v = L._project_qkv(self.cfg, p_l["attn"], h, positions,
+                                 heads=self.heads)
         attn = L.chunked_attention(
             self.cfg, q, k, v, causal=causal, q_chunk=self.attn_chunk,
             kv_chunk=self.attn_chunk, use_kernel=self.use_kernels)
@@ -607,12 +631,13 @@ class Model:
         B, T, _ = enc_out.shape
         kvd = dtype_of(self.kv_dtype)
         enc_out = C.copy_to(enc_out, "model")     # column-parallel wk, wv
+        kv_slots, rep = (self.heads or (0, 0, 1))[1:]
         xk, xv = [], []
         for p_x in params["cross"]:
-            xk.append((enc_out @ p_x["xattn"]["wk"]).reshape(
-                B, T, -1, cfg.hd).to(kvd))
-            xv.append((enc_out @ p_x["xattn"]["wv"]).reshape(
-                B, T, -1, cfg.hd).to(kvd))
+            for w, out in ((p_x["xattn"]["wk"], xk), (p_x["xattn"]["wv"], xv)):
+                t = enc_out @ C.copy_to_replicas(w, rep)
+                out.append(L.pad_heads(t.reshape(
+                    B, T, t.shape[-1] // cfg.hd, cfg.hd), kv_slots).to(kvd))
         return {"xk": torch.stack(xk), "xv": torch.stack(xv)}
 
     def _enc_ctx(self, params, batch):
@@ -631,8 +656,9 @@ class Model:
         cfg = self.cfg
         h = self._norm(p_x["lnx"], x)
         B, S, _ = h.shape
-        q = (C.copy_to(h, "model") @ p_x["xattn"]["wq"]).reshape(
-            B, S, -1, cfg.hd)
+        q = C.copy_to(h, "model") @ p_x["xattn"]["wq"]
+        q = L.pad_heads(q.reshape(B, S, q.shape[-1] // cfg.hd, cfg.hd),
+                        (self.heads or (0,))[0])
         attn = L.full_attention(cfg, q, xk.to(self.dtype), xv.to(self.dtype),
                                 causal=False)
         return x + self._wo(attn.reshape(B, S, -1), p_x["xattn"]["wo"])
@@ -1172,9 +1198,19 @@ class Model:
     # ------------------------------------------------------- dense decode
     @_sharded
     @torch.no_grad()
-    def decode_step(self, params, cache, tokens, active=None):
+    def decode_step(self, params, cache, tokens, active=None, *,
+                    seq_split: bool = False):
         """One decode iteration over the dense cache, written **in place**.
         ``tokens`` (B, 1).  Returns logits (B, V) float32.
+
+        ``seq_split`` (on a mesh; the long-context cell, global batch 1,
+        whose cache spec splits the KV sequence over ``data``): every rank
+        of the batch axes takes the whole batch, and rank d of ``data``
+        holds positions ``[d Smax, (d+1) Smax)`` of each ``k``/``v``
+        (``Smax`` its cache's).  The rank that holds position ``lengths``
+        writes the new K/V; ``layers.decode_attention`` merges the ranks'
+        partial softmaxes over their valid positions.
+        The Mamba state is whole on every rank, as the reference's spec.
 
         Each layer's mixer is its ``cfg.layer_kind``'s.  Attention: each
         lane's new K/V is written at ``lengths`` and it attends ``lengths
@@ -1200,8 +1236,8 @@ class Model:
         drops it)."""
         cfg = self.cfg
         x = self._embed_in(params, tokens)                      # (B, 1, D)
-        at = (self._decode_rows(cache["lengths"], cache["k"].shape[2], active)
-              if "k" in cache else None)
+        at = (self._decode_rows(cache["lengths"], cache["k"].shape[2], active,
+                                seq_split) if "k" in cache else None)
         for li, p_l in enumerate(params["layers"]):
             slot = self._slot(li)
             if cfg.layer_kind(li) == "attn":
@@ -1220,30 +1256,38 @@ class Model:
         return self._logits(params, x).float()
 
     @staticmethod
-    def _decode_rows(lengths, Smax: int, active):
+    def _decode_rows(lengths, Smax: int, active, seq_split: bool = False):
         """What every attention layer of a decode step shares: ``(lengths,
-        lanes, pos, inside, keep)``, each lane's write row ``pos``, whether
-        it lands (``inside``) and whether it stays (``keep``: None without
-        ``active``)."""
+        lanes, pos, inside, keep, valid, seq_split)``, each lane's write
+        row ``pos`` of this rank's stripe, whether it lands (``inside``),
+        whether it stays (``keep``: None without ``active``) and the
+        stripe's positions it attends (``valid``).  With ``seq_split`` the
+        stripe holds this rank's block of the positions (rank d of
+        ``data``: from d Smax)."""
         B = lengths.shape[0]
-        inside = (lengths < Smax).view(B, 1, 1)
+        first = C.axis_index("seq")[0] * Smax if seq_split else 0
+        local = lengths.long() - first
+        inside = ((local >= 0) & (local < Smax)).view(B, 1, 1)
         keep = None if active is None else inside & active.view(B, 1, 1)
         return (lengths, torch.arange(B, device=lengths.device),
-                lengths.clamp(max=Smax - 1).long(), inside, keep)
+                local.clamp(0, Smax - 1), inside, keep,
+                (local + 1).clamp(0, Smax), seq_split)
 
     def _attn_decode(self, p_l, kc, vc, x, rows):
         """``x`` (B, 1, D) plus one attention layer's decode over its
         stripes ``kc``/``vc`` (B, Smax, KVH, hd), written in place at
         :meth:`_decode_rows`' ``rows``."""
-        lengths, lanes, pos, inside, keep = rows
+        lengths, lanes, pos, inside, keep, valid, seq_split = rows
         B = x.shape[0]
         h1 = self._norm(p_l["ln1"], x)
-        q, k, v = L._project_qkv(self.cfg, p_l["attn"], h1, lengths[:, None])
+        q, k, v = L._project_qkv(self.cfg, p_l["attn"], h1,
+                                 lengths[:, None], heads=self.heads)
         new = ((kc, k[:, 0]), (vc, v[:, 0]))
         old = [dst[lanes, pos] for dst, _ in new]
         for (dst, src), o in zip(new, old):
             dst[lanes, pos] = torch.where(inside, src.to(dst.dtype), o)
-        attn = L.decode_attention(self.cfg, q[:, 0], kc, vc, lengths + 1)
+        attn = L.decode_attention(self.cfg, q[:, 0], kc, vc, valid,
+                                  over="seq" if seq_split else None)
         if keep is not None:             # inactive lanes keep their K/V
             for (dst, src), o in zip(new, old):
                 dst[lanes, pos] = torch.where(keep, src.to(dst.dtype), o)
@@ -1374,13 +1418,15 @@ class Model:
         ``g``, ``k``/``v`` (g, batch, max_len, KVH, hd) and ``conv``/
         ``ssm`` (g, 7, batch, ...), the reference's layout.  On a mesh
         whose ``model`` axis has m ranks a rank's cache holds its heads:
-        KVH/m of ``k``/``v`` and ``xk``/``xv``, H/m of ``ssm`` and the
-        conv channels of its heads with B and C (di/m + 2 N)."""
+        KVH/m of ``k``/``v`` and ``xk``/``xv`` (its KV head slots where
+        the axis does not split them evenly: :attr:`heads`), H/m of
+        ``ssm`` and the conv channels of its heads with B and C (di/m + 2
+        N)."""
         cfg = self.cfg
         kvd = dtype_of(self.kv_dtype)
         n = cfg.num_layers
         m = self.mesh.sizes.get("model", 1) if self.mesh is not None else 1
-        kvh = cfg.num_kv_heads // m
+        kvh = self.heads[1] if self.heads else cfg.num_kv_heads // m
         out: Dict[str, Any] = {"lengths": ((batch,), torch.int32)}
         if cfg.family != "ssm":
             n_kv = hybrid_groups(cfg) if cfg.family == "hybrid" else n
@@ -1404,3 +1450,18 @@ class Model:
         return {k: torch.zeros(shape, dtype=dt, device=self.device)
                 for k, (shape, dt) in self.cache_shapes(batch,
                                                         max_len).items()}
+
+    def decode_cache(self, prefilled, max_len: int) -> Dict[str, Any]:
+        """A decode cache of ``max_len`` positions holding ``prefilled``
+        (:meth:`prefill`'s cache of its S positions): its K/V at the first
+        S positions, its ``lengths``, the recurrent state and the cross
+        K/V whole.  The long-context cell's rank block of it, positions
+        split over ``data``, is ``sharding.shard_leaf`` of each leaf by
+        ``sharding.cache_layouts``."""
+        full = self.init_cache(prefilled["lengths"].shape[0], max_len)
+        for k, t in prefilled.items():
+            if k in ("k", "v"):
+                full[k][:, :, :t.shape[2]] = t
+            else:
+                full[k].copy_(t)
+        return full

@@ -56,12 +56,12 @@ def _whole(state, mesh, spec_tree):
 
 def _full_shape(t, spec, mesh):
     """The whole leaf's shape from a rank's block ``t`` by ``spec`` (a
-    :class:`HeadSplit` leaf's last dim is its whole width)."""
-    full = tuple(n * mesh.axis_size(axes)
-                 for n, axes in zip(t.shape, _entries(spec, t.dim())))
+    :class:`HeadSplit` leaf's split dim is its whole width)."""
+    full = [n * mesh.axis_size(axes)
+            for n, axes in zip(t.shape, _entries(spec, t.dim()))]
     if isinstance(spec, HeadSplit):
-        full = full[:-1] + (spec.width,)
-    return full
+        full[spec.dim % t.dim()] = spec.width
+    return tuple(full)
 
 
 def save_checkpoint(ckpt_dir: str | Path, state, step: int, mesh=None,

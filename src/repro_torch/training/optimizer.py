@@ -50,8 +50,9 @@ def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
     """The L2 norm of every leaf of ``tree``.  On a mesh (``specs`` the
     tree's specs) each leaf's squares are summed over the ranks that hold
     its disjoint blocks, once: a leaf replicated over an axis counts one
-    copy, and so does a column that a :class:`HeadSplit` block repeats
-    on every ``model`` rank (a Mamba layer's B and C)."""
+    copy, and so does a unit that a :class:`HeadSplit` block repeats on
+    several ``model`` ranks (a Mamba layer's B and C, a replicated KV
+    head)."""
     if mesh is None:
         return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                               for _, x in tree_leaves(tree)))
@@ -61,7 +62,7 @@ def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
         axes = split_axes(spec, x.dim(), mesh)
         own = owned_columns(spec, mesh)
         if own is not None:
-            x = x.index_select(-1, own.to(x.device))
+            x = x.index_select(spec.dim, own.to(x.device))
         sq = torch.sum(torch.square(x.float()))
         sums[axes] = sums[axes] + sq if axes in sums else sq
     return torch.sqrt(sum(all_reduce_sum(v, axes, mesh)

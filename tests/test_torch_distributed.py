@@ -85,10 +85,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch_ranks(job: dict, jobdir: Path, world: int, timeout: float = 240):
-    """Run ``world`` ranks of this file on ``job`` and return their
-    outputs (one per rank).  A rank that fails fails the call, with its
-    error output."""
+def start_ranks(job: dict, jobdir: Path, world: int,
+                script: str = __file__):
+    """Start ``world`` ranks of ``script`` (default this file) on ``job``;
+    :func:`wait_ranks` collects them."""
     jobdir.mkdir(parents=True, exist_ok=True)
     (jobdir / "job.pkl").write_bytes(pickle.dumps(job))
     port = _free_port()
@@ -99,9 +99,17 @@ def launch_ranks(job: dict, jobdir: Path, world: int, timeout: float = 240):
     for r in range(world):
         err = open(jobdir / f"err_{r}.txt", "w")
         procs.append((subprocess.Popen(
-            [sys.executable, __file__, str(r), str(world), str(port),
+            [sys.executable, script, str(r), str(world), str(port),
              str(jobdir)], env=env, stdout=err, stderr=subprocess.STDOUT),
             err))
+    return jobdir, procs
+
+
+def wait_ranks(started, timeout: float = 240):
+    """The outputs (one per rank) of :func:`start_ranks`' ranks.  A rank
+    that fails fails the call, with its error output."""
+    jobdir, procs = started
+    world = len(procs)
     deadline = time.monotonic() + timeout
     try:      # until all end, one fails (the others would wait on it) or
         while time.monotonic() < deadline:        # the time runs out
@@ -123,6 +131,12 @@ def launch_ranks(job: dict, jobdir: Path, world: int, timeout: float = 240):
             + (jobdir / f"err_{r}.txt").read_text()[-4000:])
     return [pickle.loads((jobdir / f"out_{r}.pkl").read_bytes())
             for r in range(world)]
+
+
+def launch_ranks(job: dict, jobdir: Path, world: int, timeout: float = 240):
+    """Run ``world`` ranks of this file on ``job`` and return their
+    outputs (one per rank)."""
+    return wait_ranks(start_ranks(job, jobdir, world), timeout)
 
 
 # ------------------------------------------------------------- rank side
@@ -153,27 +167,13 @@ def _serve(task, mesh, dev):
     batch = {k: torch.from_numpy(task[k][rows]).to(dev)
              for k in ("tokens", "enc_embeds") if k in task}
     logits, cache = model.prefill(params, batch)
-    full = _decode_cache(model, cache, batch["tokens"].shape,
-                         len(task["decode"]))
+    full = model.decode_cache(
+        cache, batch["tokens"].shape[1] + len(task["decode"]))
     out = {"prefill": logits.cpu().numpy(), "decode": [], "rows": rows}
     for step in task["decode"]:
         out["decode"].append(model.decode_step(
             params, full, torch.from_numpy(step[rows]).to(dev)).cpu().numpy())
     return out
-
-
-def _decode_cache(model, cache, shape, steps):
-    """A decode cache of ``shape[1] + steps`` positions holding the
-    prefill's ``cache``: its K/V at the first positions, the recurrent
-    state and the cross K/V whole."""
-    B, s = shape
-    full = model.init_cache(B, s + steps)
-    for k, t in cache.items():
-        if k in ("k", "v"):
-            full[k][:, :, :s] = t
-        else:
-            full[k].copy_(t)
-    return full
 
 
 def _gathered(tree, specs, whole, mesh):
@@ -217,21 +217,25 @@ def _train(task, mesh, dev, jobdir):
     whole_state = {"params": whole, "m": whole, "v": whole,
                    "step": state["step"]}
     out["state"] = _gathered(state, spec_tree, whole_state, mesh)
+    out["blocks"] = {path: t.detach().numpy()
+                     for path, t in tree_leaves(state["params"])}
     if task.get("checkpoint"):
         where = jobdir / task["checkpoint"]
         ckpt.save_checkpoint(where, state, 2, mesh=mesh, spec_tree=spec_tree)
-        out["restored"] = _restore_1x4(cfg, whole, state, where)
+        out["restored"] = _restore(cfg, whole, state, where,
+                                   task.get("restore_to", (1, 4)))
     return out
 
 
-def _restore_1x4(cfg, whole, template, where):
-    """The checkpoint at ``where`` restored onto a (data 1, model 4) mesh
-    of the same ranks (by that mesh's layouts: a Mamba layer's heads are
-    regrouped), every leaf gathered back whole."""
+def _restore(cfg, whole, template, where, shape=(1, 4)):
+    """The checkpoint at ``where`` restored onto a (data, model) mesh of
+    ``shape`` over the same ranks (by that mesh's layouts: a Mamba layer's
+    heads are regrouped, attention heads laid out anew), every leaf
+    gathered back whole."""
     from repro_torch.distributed.sharding import param_layouts
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.training import checkpoint as ckpt
-    mesh = make_test_mesh(1, 4)
+    mesh = make_test_mesh(*shape)
     specs = param_layouts(cfg, whole, "train", mesh)
     spec_tree = {"params": specs, "m": specs, "v": specs, "step": ()}
     state, step = ckpt.restore_checkpoint(where, template, mesh=mesh,
@@ -338,7 +342,8 @@ def _one_rank_serve(arch, overrides, model_kw, np_params, batch, decode):
     params = params_from_numpy(cfg, np_params, "cpu")
     logits, cache = model.prefill(params, {k: torch.from_numpy(v)
                                            for k, v in batch.items()})
-    full = _decode_cache(model, cache, batch["tokens"].shape, len(decode))
+    full = model.decode_cache(cache,
+                              batch["tokens"].shape[1] + len(decode))
     outs = [logits.numpy()]
     for step in decode:
         outs.append(model.decode_step(params, full,
@@ -472,10 +477,11 @@ TRAIN_RUNS = {**{name: name + "/train" for name in VARIANTS},
 
 
 def _assert_state_follows(got, one, grads_got, grads_one, lrs, norms,
-                          moments=True):
+                          moments=True, moment_rel=1e-5):
     """The gathered state after the steps against one rank's: each moment
-    within rel_l2 1e-5 (with ``moments``), and each weight within 8 ulps
-    plus what its gradients' float32 differences can move an Adam step:
+    within rel_l2 ``moment_rel`` (with ``moments``), and each weight within
+    8 ulps plus what its gradients' float32 differences can move an Adam
+    step:
     an update ``m / (sqrt(v) + eps)`` changes by at most about
     ``|dg| / eps`` (and by 2 at most) where ``|g|`` is near ``eps``, so
     the weight by ``lr`` times that, each step.  ``norms`` (the two runs'
@@ -499,7 +505,7 @@ def _assert_state_follows(got, one, grads_got, grads_one, lrs, norms,
                    + sum(lrs) * 2 * d / (1 - cfg.b1))
             assert np.all(np.abs(got[path] - want) <= tol), path
         elif path[0] in ("m", "v") and moments:
-            assert _rel_l2(got[path], want) < 1e-5, path
+            assert _rel_l2(got[path], want) < moment_rel, path
 
 
 def _assert_same_int8(got, want, path):

@@ -9,20 +9,24 @@ the JAX package, in process and with no ranks.
   (``sharding.ref_leaf``).  The reference's rules read only
   ``mesh.axis_names`` and ``mesh.devices.shape``, so a stand-in with
   ``devices = np.empty(shape)`` serves and no JAX devices are needed.
-- Refusals: a mesh whose ``model`` axis would split inside a head (jamba
-  on a model axis of 4 at smoke size), the seq-split decode cache, and
-  the one-rank entry points on a mesh of more than one rank; the ``ssm``,
-  hybrid and encoder-decoder families construct and shard on 2x2.
+- Layouts and refusals: heads the ``model`` axis does not split evenly
+  take ``sharding.head_layout``'s slots (replicated KV heads on a model
+  axis of 4, padded ones on 3), every config constructs on both
+  production meshes, and what stays refused raises (SSM heads the axis
+  does not split whole, the one-rank entry points on a mesh of more than
+  one rank); the ``ssm``, hybrid and encoder-decoder families construct
+  and shard on 2x2, and jamba also on 1x4.
 - The port's Mamba blocks: a rank's ``in_proj`` and ``conv_w`` hold its
   heads' z, x and dt and B and C whole, and reassemble into the
   reference's whole leaf; the split-row RMSNorm's plain twins against the
   whole-row norm and the JAX ``apply_norm``.
-- The dry run on full granite-3-8b's ``decode_32k`` cell: per-rank bytes
-  equal to the sum over the reference's sanitized specs; on 16x16 null
-  collectives whose reason names the KV heads, on 2x4 collectives with
-  bytes; the CLI writes its JSONL records.  mamba2-2.7b and
-  seamless-m4t-large-v2 record collectives on the production meshes,
-  jamba-1.5-large-398b null with the head reason.
+- The dry run on full granite-3-8b's ``decode_32k`` cell: on 16x16 the
+  port's per-rank bytes (a replicated KV head a rank) beside the sum over
+  the reference's sanitized specs, and collectives; on 2x4 bytes equal to
+  the spec's; the CLI writes its JSONL records.  mamba2-2.7b,
+  seamless-m4t-large-v2 and jamba-1.5-large-398b record collectives on
+  the production meshes, jamba's ``long_500k`` the context split's; no
+  supported cell of either production mesh is refused.
 - The copies: the tokenizer and the utils helpers.
 """
 import json
@@ -43,6 +47,7 @@ from repro.models.model import Model as JaxModel  # noqa: E402
 from repro.serving import tokenizer as JT  # noqa: E402
 from repro_torch import utils as U  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.distributed import ctx as C  # noqa: E402
 from repro_torch.distributed import sharding as S  # noqa: E402
 from repro_torch.distributed.ctx import Mesh  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
@@ -128,11 +133,45 @@ def _smoke(arch, **kw):
 
 
 def test_a_head_split_inside_a_head_raises():
+    """Heads the ``model`` axis would split inside take whole-head slots
+    instead (``sharding.head_layout``), as the table of the layouts says:
+    smoke granite's 8/2 heads on 4 ranks (1 KV head on 2 ranks, 2 query
+    heads a rank) and on 3 (padded to 3 KV / 12 query slots, rank 0's all
+    padding), full granite-moe's 24/8 on 16 (G 3 padded to 4) and
+    qwen1.5's 40/40 (padded to 48/48); every rank's blocks of ``wq``,
+    ``wk`` and ``wo`` gather back into the whole leaf.  SSM heads that do
+    not split whole still raise."""
+    from repro_torch.distributed.ctx import _whole_columns
     cfg = _smoke("granite-3-8b")
-    assert cfg.num_kv_heads == 2
-    with pytest.raises(ValueError, match="2 KV heads.*inside a head"):
-        Model(cfg, mesh=Mesh(("data", "model"), (1, 4)), device="cpu")
-    Model(cfg, mesh=Mesh(("data", "model"), (2, 2)), device="cpu")
+    assert (cfg.num_heads, cfg.num_kv_heads) == (8, 2)
+    want = {4: (2, 1, 2, [([0, 1], [0]), ([2, 3], [0]), ([4, 5], [1]),
+                          ([6, 7], [1])]),
+            3: (4, 1, 1, [([], []), ([0, 1, 2, 3], [0]),
+                          ([4, 5, 6, 7], [1])])}
+    whole = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    for m, (q, kv, rep, blocks) in want.items():
+        assert tuple(S.head_layout(cfg, m)) == (q, kv, rep, blocks)
+        for name in ("wq", "wk", "wo"):
+            parts = []
+            for c in range(m):
+                model = Model(cfg, mesh=Mesh(("data", "model"), (1, m),
+                                             coords=(0, c)), device="cpu")
+                assert model.heads == (q, kv, rep)
+                spec = S.spec_at(model.layouts(), ("layers", 0, "attn",
+                                                   name))
+                parts.append(C._expanded_block(
+                    model.shard(whole)["layers"][0]["attn"][name], spec,
+                    model.mesh))
+            np.testing.assert_array_equal(
+                _whole_columns(torch.cat(parts, spec.dim), spec),
+                whole["layers"][0]["attn"][name])
+    assert tuple(S.head_layout(get_config("granite-moe-3b-a800m"),
+                               16))[:3] == (2, 1, 2)
+    assert tuple(S.head_layout(get_config("qwen1.5-32b"), 16))[:3] == \
+        (3, 3, 1)
+    with pytest.raises(ValueError, match="8 SSM heads do not split"):
+        Model(_smoke("jamba-1.5-large-398b"),
+              mesh=Mesh(("data", "model"), (1, 3)), device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-1.5-large-398b",
@@ -140,11 +179,11 @@ def test_a_head_split_inside_a_head_raises():
 def test_families_without_sharded_execution_raise(arch):
     """The ``ssm``, hybrid and encoder-decoder families construct and
     shard on 2x2 (every rank's blocks of every leaf, in both modes, equal
-    to the blocks ``Model.init(gen, mode)`` keeps layer by layer); the
-    refusals that stay still raise: heads split inside a head (jamba's 2
-    KV heads at smoke size on a model axis of 4), the seq-split decode
-    cache (jamba's ``long_500k``), and the engine's one-rank entry
-    points."""
+    to the blocks ``Model.init(gen, mode)`` keeps layer by layer); jamba
+    also on 1x4 (its 2 KV heads at smoke size replicated on two ranks
+    each) and its ``long_500k`` cell (the context split) records the
+    merge's max and sum all-reduces on 2x2; the engine's one-rank entry
+    points still raise."""
     from repro_torch.models.config import SHAPES as PSHAPES
     cfg = _smoke(arch)
     whole = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
@@ -162,16 +201,19 @@ def test_families_without_sharded_execution_raise(arch):
                     S.spec_at(m.layouts(mode), path), m.mesh), path
     with pytest.raises(ValueError, match="does not run sharded"):
         m.prefill_chunk(None, None, None, None, None, None)
+    m4 = Model(cfg, mesh=Mesh(("data", "model"), (1, 4)), device="cpu")
     if arch == "jamba-1.5-large-398b":
-        with pytest.raises(ValueError, match="2 KV heads.*inside a head"):
-            Model(cfg, mesh=Mesh(("data", "model"), (1, 4)), device="cpu")
-        rec = dryrun.dry_cell(arch, "long_500k",
-                              Mesh(("data", "model"), (2, 2)), cfg=cfg)
+        assert m4.heads == (1, 1, 2)
+        mesh = Mesh(("data", "model"), (2, 2))
+        rec = dryrun.dry_cell(arch, "long_500k", mesh, cfg=cfg)
         assert PSHAPES["long_500k"].global_batch == 1
-        assert rec["collectives"] is None
-        assert "splits the KV sequence" in rec["collectives_reason"]
-    else:
-        Model(cfg, mesh=Mesh(("data", "model"), (1, 4)), device="cpu")
+        assert rec["collectives_reason"] is None
+        merges = [r for r in mesh.records if r["axes"] == ["data"]]
+        attn = sum(cfg.layer_kind(i) == "attn"
+                   for i in range(cfg.num_layers))
+        # each attention layer's max and sum over the positions' ranks
+        assert len(merges) == 2 * attn
+        assert rec["collectives"]["counts"]["all-reduce"] > 2 * attn
 
 
 def test_mamba_blocks_hold_their_heads_and_gather_back_whole():
@@ -324,15 +366,24 @@ def _ref_bytes(jcfg, shp, names, shape, mode):
 
 
 def test_dryrun_decode_cell_on_the_production_and_a_small_mesh():
+    """On 16x16 granite's 8 KV heads sit one a rank, each on two ranks:
+    a rank's ``wk`` and ``wv`` hold a whole head (128 columns, where the
+    spec's block is 64) and its cache its head's positions whole (where
+    the spec splits them over ``model``); the spec's bytes stand beside
+    them.  On 2x4 the blocks are the spec's."""
     jcfg = jax_config("granite-3-8b")
     shp = SHAPES["decode_32k"]
     rec = dryrun.dry_cell("granite-3-8b", "decode_32k",
                           make_production_mesh(multi_pod=False))
     p, c = _ref_bytes(jcfg, shp, ("data", "model"), (16, 16), "serving")
-    assert rec["memory"]["param_bytes"] == p
-    assert rec["memory"]["cache_bytes"] == c
-    assert rec["collectives"] is None
-    assert "8 KV heads" in rec["collectives_reason"]
+    mem = rec["memory"]
+    assert (mem["spec_param_bytes"], mem["spec_cache_bytes"]) == (p, c)
+    L, D, hd = jcfg.num_layers, jcfg.d_model, jcfg.hd
+    assert mem["param_bytes"] == p + 2 * L * D * (hd - hd // 2) * 2
+    B = shp.global_batch // 16
+    assert mem["cache_bytes"] == 2 * L * B * shp.seq_len * hd * 2 + B * 4
+    assert rec["collectives"]["counts"]["all-reduce"] >= 2 * L
+    assert rec["collectives_reason"] is None
     assert rec["roofline"]["dominant"] in ("compute", "memory")
     assert rec["device"].startswith("NVIDIA H100")
     rec = dryrun.dry_cell("granite-3-8b", "decode_32k",
@@ -353,8 +404,9 @@ def test_dryrun_records_collectives_of_the_families():
     ``out_proj`` all-reduce and its gated norm's sum of squares;
     seamless's self- and cross-attention and FFN all-reduces), with
     mamba's per-rank bytes by the port's blocks beside the spec's;
-    jamba-1.5-large-398b's 8 KV heads stay refused on the 16-way
-    ``model`` axis."""
+    jamba-1.5-large-398b's too (its 8 KV heads one a rank on the 16-way
+    ``model`` axis, its 16 experts one a rank), with its bytes beside
+    the spec's."""
     single = make_production_mesh(multi_pod=False)
     rec = dryrun.dry_cell("mamba2-2.7b", "decode_32k", single)
     cfg = get_config("mamba2-2.7b")
@@ -370,8 +422,38 @@ def test_dryrun_records_collectives_of_the_families():
     assert rec["collectives"]["counts"]["all-reduce"] >= 3 * scfg.num_layers
     assert "spec_param_bytes" not in rec["memory"]
     rec = dryrun.dry_cell("jamba-1.5-large-398b", "decode_32k", single)
-    assert rec["collectives"] is None
-    assert "8 KV heads" in rec["collectives_reason"]
+    jcfg = get_config("jamba-1.5-large-398b")
+    assert rec["collectives"]["counts"]["all-reduce"] >= 2 * jcfg.num_layers
+    mem = rec["memory"]
+    assert mem["param_bytes"] > mem["spec_param_bytes"] > 0
+    assert mem["cache_bytes"] > mem["spec_cache_bytes"] > 0
+
+
+def test_no_supported_cell_of_the_production_meshes_is_refused():
+    """``dryrun._refusal`` is '' for every supported (config x shape)
+    cell of both production meshes, and ``Model`` constructs there (with
+    the reference's ``pad_experts_to`` option too); what it still refuses
+    it names (SSM heads that a ``model`` axis of 3 does not split)."""
+    from repro_torch.models.config import SHAPES as PSHAPES
+    from repro_torch.models.config import cell_is_supported
+    for multi in (False, True):
+        mesh = make_production_mesh(multi_pod=multi)
+        for arch in ASSIGNED_ARCHS:
+            cfg = get_config(arch)
+            Model(cfg, mesh=mesh, device="meta")
+            if cfg.has_moe:
+                Model(cfg, mesh=mesh, pad_experts_to=48, device="meta")
+            for name, shape in PSHAPES.items():
+                if cell_is_supported(cfg, shape)[0]:
+                    assert dryrun._refusal(cfg, shape, mesh, {}) == "", \
+                        (arch, name)
+    reason = dryrun._refusal(get_config("mamba2-2.7b"), PSHAPES["decode_32k"],
+                             Mesh(("data", "model"), (1, 3)), {})
+    assert "80 SSM heads do not split" in reason
+    rec = dryrun.dry_cell("granite-moe-3b-a800m", "decode_32k",
+                          make_production_mesh(multi_pod=False),
+                          opt={"pad_experts_to": 48})
+    assert rec["collectives"]["counts"]["all-reduce"] > 0
 
 
 def test_dryrun_cli_writes_records(tmp_path):
@@ -386,7 +468,9 @@ def test_dryrun_cli_writes_records(tmp_path):
             continue
         assert r["mesh"] == "16x16" and r["chips"] == 256
         assert r["memory"]["total_bytes"] > 0
-        assert r["collectives"] is None and r["collectives_reason"]
+        assert r["memory"]["spec_param_bytes"] > 0
+        assert r["collectives"]["per_device_bytes"] > 0
+        assert r["collectives_reason"] is None
         assert r["roofline"]["bound_s"] > 0
     dryrun.main(["--arch", "granite-3-8b", "--mesh", "single", "--out",
                  str(out)])               # resumes: nothing new
