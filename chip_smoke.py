@@ -2796,9 +2796,9 @@ def _budget_fit(eng, target_tpot: float) -> str:
             f"{eng.sched.cfg.iter_token_budget})")
 
 
-# phases 20 and 23: 12 of 40 layers (20 in PRs 25-26; a slow host and
-# phase 20's auto budget at 52 took the script to 301.7 s in PR 27's
-# run 4, against its 290 s ceiling)
+# phases 20, 22 and 23: 12 of 40 layers, for the script's 290 s ceiling
+# (at 20 layers a slow host and phase 20's auto budget took it past; phase
+# 22 ran all 40 until phase 30 came)
 GRANITE_CUT = 12
 
 
@@ -2822,7 +2822,7 @@ def granite_cut(model, params):
                 chunk_attn_impl=model.chunk_attn_impl,
                 kv_dtype=model.kv_dtype, device=model.device)
     print(f"[model] granite-3-8b full width, {GRANITE_CUT} of 40 layers "
-          "(phases 20 and 23)", flush=True)
+          "(phases 20, 22 and 23)", flush=True)
     return cut, {**params, "layers": params["layers"][:GRANITE_CUT]}
 
 
@@ -4934,7 +4934,8 @@ def mamba_train_reference(torch, dev, cfg, batch):
     backward must run once a layer."""
     from repro_torch.kernels.ssd_scan import SsdChunk
     from repro_torch.models.model import Model
-    model = Model(cfg, ssd_chunk=min(64, MAMBA_TRAIN["seq"]), device=dev)
+    model = Model(cfg, ssd_chunk=min(64, MAMBA_TRAIN["seq"]), remat=False,
+                  device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     backward = SsdChunk.backward
     calls = [0]
@@ -5459,7 +5460,8 @@ def phase_moe_train(torch, dev, kernels):
     T = MOE_TRAIN
     cfg = get_config(MOE_ARCH).scaled(param_dtype="float32",
                                       num_layers=T["ref_layers"])
-    model = Model(cfg, attn_chunk=T["seq"] // 2, device=dev)
+    # no remat: a recompute would call the recording router again
+    model = Model(cfg, attn_chunk=T["seq"] // 2, remat=False, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     batch = next(SyntheticLM(cfg, DataConfig(
         batch_size=T["ref_batch"], seq_len=T["seq"])).iterate(device=dev))
@@ -5746,20 +5748,21 @@ def phase_mamba_profile(torch, model, params):
 
 # ---------------------------------------------------- phases 12 to 14
 
-TRAIN = dict(layers=8, batch=4, seq=1024, steps=5)
+TRAIN = dict(layers=8, batch=4, seq=1024, steps=3)
 
 
 def _train_setup(torch, dev):
     """granite-3-8b at full width and 8 of its 40 layers in float32, as
     ``launch/train.py`` builds it for ``seq_len`` 1024 (attention chunks of
-    512 for the plain version), and the first batch of the synthetic
-    stream."""
+    512 for the plain version, no remat), and the first batch of the
+    synthetic stream."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.training.data import DataConfig, SyntheticLM
     cfg = get_config("granite-3-8b").scaled(param_dtype="float32",
                                             num_layers=TRAIN["layers"])
-    model = Model(cfg, attn_chunk=TRAIN["seq"] // 2, device=dev)
+    model = Model(cfg, attn_chunk=TRAIN["seq"] // 2, remat=False,
+                  device=dev)
     data = SyntheticLM(cfg, DataConfig(batch_size=TRAIN["batch"],
                                        seq_len=TRAIN["seq"]))
     return model, next(data.iterate(device=dev))
@@ -5839,7 +5842,7 @@ def train_reference(torch, dev):
 
 def phase_train(torch, dev, kernels):
     """``launch/train.train`` on the card: full width, depth 8, float32,
-    batch 4 x 1024, five AdamW steps.  Every loss finite; the flash and
+    batch 4 x 1024, three AdamW steps (five until phase 30 came).  Every loss finite; the flash and
     RMSNorm kernels must launch.  Returns (state, launch counts)."""
     from repro_torch.launch.train import train
     torch.cuda.reset_peak_memory_stats()
@@ -5934,6 +5937,186 @@ def phase_train_profile(torch, dev, state):
           f"RMSNorm kernel {share(norm)}, weight products "
           f"{share(weights)}, other {share(busy - flash - norm - back - weights)}",
           flush=True)
+
+
+# (a) granite at TRAIN's depth and batch, mamba2 at TRAIN's seq; (b)
+# granite at TRAIN's batch and seq
+REMAT = dict(mamba_layers=4, mamba_batch=1, deep_layers=20, steps=3)
+REMAT_GRAD_REL = 1e-6                   # (a): each leaf, remat vs no remat
+CARD_GIB = 79.1                         # the H100's memory as torch sees it
+
+
+def _remat_pair(torch, dev, kernels, label, model, batch) -> dict:
+    """Phase 30 (a) on one model: ``Model.loss`` and ``torch.autograd.grad``
+    with remat off, then on, on the same params and batch, after an
+    untimed warm run.  The loss must
+    be equal bit for bit and every gradient leaf within ``REMAT_GRAD_REL``
+    rel_l2; each run's seconds, its peak above the memory it started from
+    (the other run's gradients are held there) and its launches, counted
+    from 0.  The remat run launches each layer kernel once more a layer
+    (its recompute): the flash and SSD kernels twice as often, the RMSNorm
+    kernel twice less the final norm."""
+    from repro_torch.utils import tree_leaves
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    named = [(path, p.requires_grad_(True))
+             for path, p in tree_leaves(params)]
+    leaves = [p for _, p in named]
+    # a first, untimed run: the card's first products and allocations
+    model.remat = False
+    loss, _ = model.loss(params, batch)
+    torch.autograd.grad(loss, leaves)
+    del loss
+    runs = {}
+    for remat in (False, True):
+        model.remat = remat
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        runs[remat] = dict(loss=loss.detach(), grads=grads,
+                           s=time.perf_counter() - t0,
+                           peak=torch.cuda.max_memory_allocated() - start,
+                           launches=read_counts(kernels))
+        del loss
+    off, on = runs[False], runs[True]
+    same, worst, worst_at, differ = 0, 0.0, None, []
+    for (path, _), a, b in zip(named, off["grads"], on["grads"]):
+        if torch.equal(a, b):
+            same += 1
+            continue
+        differ.append(".".join(map(str, path)))
+        rel = ((b - a).norm() / a.norm()).item()
+        if not rel <= worst:
+            worst, worst_at = rel, ".".join(map(str, path))
+    res = dict(loss=off["loss"].item(),
+               loss_equal=torch.equal(off["loss"], on["loss"]),
+               leaves=len(leaves), same=same, differ=differ, worst=worst,
+               worst_at=worst_at, s=(off["s"], on["s"]),
+               peak=(off["peak"], on["peak"]),
+               launches=(off["launches"], on["launches"]))
+    print(f"[remat] {label}: loss {res['loss']:.6f} equal bit for bit "
+          f"{res['loss_equal']}; {same} of {len(leaves)} gradient leaves "
+          f"equal bit for bit"
+          + (f" (not: {', '.join(differ)}; worst rel_l2 {worst:.3g} at "
+             f"{worst_at}, gate {REMAT_GRAD_REL})" if differ else "")
+          + f"; loss+grad {off['s']:.3f}s without remat, {on['s']:.3f}s "
+          f"with ({on['s'] / off['s']:.2f}x); peak above the start "
+          f"{off['peak'] / 2**30:.2f} GiB without, {on['peak'] / 2**30:.2f}"
+          f" GiB with (saves {(off['peak'] - on['peak']) / 2**30:.2f} GiB); "
+          f"launches without {off['launches']}, with {on['launches']}",
+          flush=True)
+    if not res["loss_equal"]:
+        fail(f"phase 30 (a) {label}: the loss differs with remat")
+    if not worst <= REMAT_GRAD_REL:
+        fail(f"phase 30 (a) {label}: gradient of {worst_at} differs by "
+             f"rel_l2 {worst}")
+    for k in ("flash_prefill", "ssd_chunk", "fused_rmsnorm"):
+        n_off, n_on = off["launches"][k], on["launches"][k]
+        want = 2 * n_off - (k == "fused_rmsnorm")
+        if n_off and n_on != want:
+            fail(f"phase 30 (a) {label}: {k} launched {n_on} times with "
+                 f"remat, want {want} (once more a layer than {n_off})")
+    del params, named, leaves, runs, off, on
+    free_memory(torch)
+    return res
+
+
+def phase_remat(torch, dev, kernels):
+    """Phase 30: the reference's layer rematerialisation on the card.
+    (a) granite-3-8b at full width and 8 of 40 layers, f32, batch 4 x 1024,
+    and mamba2-2.7b at 4 of 64 layers, batch 1 x 1024 (``SsdChunk`` under a
+    recompute): :func:`_remat_pair`.  (b) granite-3-8b at 20 of 40 layers,
+    f32, 4 x 1024, remat on, ``make_train_step`` with AdamW, 3 steps: every
+    loss finite; ms a step, the peak, and the dry run's saved-bytes tally at
+    the same depth with remat on and off (the no-remat total must exceed
+    the card).  Returns the launch counts of (a)'s remat runs and (b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import saved_activation_bytes
+    from repro_torch.models.model import Model
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    from repro_torch.utils import tree_leaves
+    R, T = REMAT, TRAIN
+    free_memory(torch)
+    totals = {k: 0 for k in kernels}
+    model, batch = _train_setup(torch, dev)
+    a = _remat_pair(torch, dev, kernels, f"granite-3-8b full width, "
+                    f"{T['layers']} of 40 layers, f32, batch {T['batch']}x"
+                    f"{T['seq']}", model, batch)
+    del model, batch
+    cfg = get_config("mamba2-2.7b").scaled(param_dtype="float32",
+                                           num_layers=R["mamba_layers"])
+    model = Model(cfg, ssd_chunk=min(64, T["seq"]), device=dev)
+    batch = next(SyntheticLM(cfg, DataConfig(
+        batch_size=R["mamba_batch"], seq_len=T["seq"])).iterate(device=dev))
+    am = _remat_pair(torch, dev, kernels, f"mamba2-2.7b full width, "
+                     f"{R['mamba_layers']} of 64 layers, f32, batch "
+                     f"{R['mamba_batch']}x{T['seq']}", model, batch)
+    del model, batch
+    for r in (a, am):
+        totals = {k: totals[k] + r["launches"][1][k] for k in totals}
+    free_memory(torch)
+
+    # (b): the depth that does not fit without remat
+    L = R["deep_layers"]
+    cfg = get_config("granite-3-8b").scaled(param_dtype="float32",
+                                            num_layers=L)
+    tally = {remat: saved_activation_bytes(cfg, T["batch"], T["seq"],
+                                           remat=remat)
+             for remat in (True, False)}
+    model = Model(cfg, attn_chunk=T["seq"] // 2, device=dev)
+    state = init_train_state(model,
+                             torch.Generator(device=dev).manual_seed(SEED))
+    held = sum(t.numel() * t.element_size()
+               for k in ("params", "m", "v")
+               for _, t in tree_leaves(state[k]))
+    state_b = held + held // 3          # and the gradients, one more copy
+    no_remat = state_b + tally[False]
+    step = make_train_step(model, AdamWConfig())
+    it = SyntheticLM(cfg, DataConfig(batch_size=T["batch"],
+                                     seq_len=T["seq"])).iterate(device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    losses, step_s = [], []
+    for _ in range(R["steps"]):
+        t0 = time.perf_counter()
+        state, metrics = step(state, next(it))
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(step_s))
+    print(f"[remat] granite-3-8b full width, {L} of 40 layers, f32, AdamW, "
+          f"batch {T['batch']}x{T['seq']}, remat on: {len(losses)} steps, "
+          f"ms/step p50 {p50 * 1e3:.1f} (each: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in step_s)}), "
+          f"{T['batch'] * T['seq'] / p50:.0f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB ({peak:,} B), losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; parameters, gradients "
+          f"and moments {state_b / 2**30:.2f} GiB; the dry run's saved-bytes "
+          f"tally at the loss {tally[True] / 2**30:.2f} GiB with remat, "
+          f"{tally[False] / 2**30:.2f} GiB without (so without remat at "
+          f"least {no_remat / 2**30:.2f} GiB, the card {CARD_GIB} GiB); "
+          f"launches {counts}", flush=True)
+    if len(losses) != R["steps"] or not all(np.isfinite(losses)):
+        fail(f"phase 30 (b): losses {losses}")
+    if not no_remat > CARD_GIB * 2**30:
+        fail(f"phase 30 (b): {L} layers would fit without remat "
+             f"({no_remat / 2**30:.2f} GiB)")
+    if counts["flash_prefill"] != 2 * L * R["steps"]:
+        fail(f"phase 30 (b): {counts['flash_prefill']} flash launches, want "
+             f"{2 * L * R['steps']} (forward and recompute)")
+    del state, metrics, model, step
+    free_memory(torch)
+    return {k: totals[k] + counts[k] for k in totals}
 
 
 def ptxas_report(logs) -> list:
@@ -6578,6 +6761,8 @@ def _shard27_train(torch, dev, rank, part, kernels, log):
             for k, v in batch.items()}
     reset_counts(kernels)
     torch.cuda.synchronize()
+    before = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     state, m = step(state, rows)
     torch.cuda.synchronize()
@@ -6585,7 +6770,10 @@ def _shard27_train(torch, dev, rank, part, kernels, log):
     marks["sharded"] = time.perf_counter() - t_start
     out["launches"] = read_counts(kernels)
     out["loss"], out["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
-    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    # the part's peak (the one-rank step's included), and the sharded
+    # step's own (remat on since phase 30)
+    out["step_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["peak_bytes"] = max(before, out["step_peak_bytes"])
     trees = {"grads": m["grads"], "m": state["m"], "v": state["v"]}
     names, sums = [], []
     for name, tree in trees.items():
@@ -6893,6 +7081,9 @@ def _gate_train(part: str, what: str, c: dict, res) -> None:
           f"rank {c['one_step_s'] * 1e3:.1f}); peak GiB by rank "
           + ", ".join(f"{r[part]['peak_bytes'] / 2 ** 30:.2f}"
                       for r in res)
+          + ", the sharded step's own "
+          + ", ".join(f"{r[part]['step_peak_bytes'] / 2 ** 30:.2f}"
+                      for r in res)
           + ("" if "pad_free" not in c else
              f"; {c['padded_leaves']} leaves by padded units: no padding "
              f"slot held {all(r[part]['pad_free'] for r in res)}, "
@@ -7172,9 +7363,9 @@ def main() -> None:
     print(f"[main-path] granite packs (phase 19) launches {totals}",
           flush=True)
     clock.lap("pack + prefix parity (phase 19)")
-    # phases 20 and 23 serve granite cut to GRANITE_CUT of its 40 layers
-    # (each compares its serves with each other only), for the script's
-    # time since phase 26 came
+    # phases 20, 22 and 23 serve granite cut to GRANITE_CUT of its 40
+    # layers (each compares its serves with each other only), for the
+    # script's time since phase 26 came
     cut, cut_params = granite_cut(model, params)
     for backend in ("paged", "dense"):
         counts = phase_serve20(torch, cut, cut_params, kernels, backend)
@@ -7193,8 +7384,9 @@ def main() -> None:
               f"(phase 21) launches {counts}", flush=True)
         totals = {k: totals[k] + counts[k] for k in totals}
         clock.lap(f"granite {backend} spec serve + export (phase 21)")
-    # phase 22: two replicas sharing a host KV tier, counted from 0
-    counts = phase_tier(torch, model, params, kernels)
+    # phase 22: two replicas of the cut granite sharing a host KV tier,
+    # counted from 0
+    counts = phase_tier(torch, cut, cut_params, kernels)
     print(f"[main-path] granite two replicas sharing a KV tier (phase 22) "
           f"launches {counts}", flush=True)
     totals = {k: totals[k] + counts[k] for k in totals}
@@ -7311,6 +7503,13 @@ def main() -> None:
     clock.lap("train profile (phase 14)")
 
     end_shard_ranks(ranks3)
+    # phase 30: layer rematerialisation, after every rank has gone (its
+    # deep run holds 62.4 GiB of training state); counted from 0
+    counts = phase_remat(torch, dev, kernels)
+    print(f"[main-path] granite-3-8b and mamba2-2.7b with remat (phase 30) "
+          f"launches {counts}", flush=True)
+    totals = {k: totals[k] + counts[k] for k in totals}
+    clock.lap("layer rematerialisation (phase 30)")
     src = "src/repro_torch/csrc/"
     rows = [
         dict(name="paged_attention", route="cuda",

@@ -18,7 +18,21 @@ cell it
   train step) on meta tensors under a *dry* mesh, whose collectives
   (:mod:`repro_torch.distributed.ctx`, the same helpers a real run calls)
   record their kind and operand bytes without communicating: it counts the
-  code that runs, as the reference parses the HLO it compiled.
+  code that runs, as the reference parses the HLO it compiled.  Its model
+  rematerialises each layer as the reference's (``Model(remat=True)``),
+  so a train cell's backward re-issues each layer's FSDP gathers and
+  ``model`` collectives as the reference's lowered step does.
+
+A train cell's ``memory`` also records ``saved_activation_bytes``: the
+bytes autograd holds for the backward when that rank's loss is reached
+(:class:`repro_torch.training.saved.SavedBytes`, the parameters and the
+batch not counted; the attention through the flash kernel's Function, as
+on the card).  It is the port's counterpart of the reference's
+``temp_bytes``, and smaller: XLA's figure is the peak of every temporary
+buffer of the compiled step (the backward's and the optimizer's
+transients, the gradients, the rebuilt layer included), where this tally
+is what the forward leaves for the backward to start from, with each
+remat unit's input alone.
 
 Per-rank bytes follow the blocks the port holds (``Model.layouts``):
 where a Mamba layer's rank holds B and C whole and its heads of the SSM
@@ -54,7 +68,8 @@ from repro_torch.distributed.sharding import (batch_specs, cache_layouts,
                                               spec_at, zip_map)
 from repro_torch.launch import roofline
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models.config import SHAPES, cell_is_supported
+from repro_torch.models.config import (SHAPES, ShapeSpec,
+                                       cell_is_supported)
 from repro_torch.models.model import Model
 from repro_torch.utils import dtype_of, tree_leaves
 
@@ -63,12 +78,14 @@ _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
 
 
 def _model_for(cfg, opt: dict, mesh=None) -> Model:
-    # 1024-wide attention chunks, as the reference's dry run
+    # 1024-wide attention chunks and layer rematerialisation, as the
+    # reference's dry run
     return Model(cfg, attn_chunk=opt.get("attn_chunk", 1024), ssd_chunk=256,
-                 kv_dtype=opt.get("kv_dtype", "bfloat16"),
+                 remat=True, kv_dtype=opt.get("kv_dtype", "bfloat16"),
                  moe_groups=opt.get("moe_groups", 1),
-                 pad_experts_to=opt.get("pad_experts_to", 0), mesh=mesh,
-                 device="meta")
+                 pad_experts_to=opt.get("pad_experts_to", 0),
+                 ssm_state_dtype=opt.get("ssm_state_dtype", "float32"),
+                 mesh=mesh, device="meta")
 
 
 def input_shapes(cfg, shape, model: Model) -> dict:
@@ -152,16 +169,15 @@ def _meta(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def run_rank_step(cfg, shape, mesh: Mesh, opt: dict, whole) -> dict:
+def run_rank_step(cfg, shape, mesh: Mesh, opt: dict, whole):
     """One rank's step of the cell on meta tensors under the dry ``mesh``:
-    its collectives' kinds, counts and operand bytes (per rank)."""
+    its collectives' kinds, counts and operand bytes (per rank), and for a
+    train cell the bytes autograd holds at the loss (else None)."""
     from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.saved import saved_at_loss
     from repro_torch.training.train_step import make_train_step
     mesh.records.clear()
-    # the attention holds no collective: on meta tensors it runs as one
-    # chunk, which costs the host far less than the plain version's loop
-    # over 1024-wide chunks
-    model = _model_for(cfg, {**opt, "attn_chunk": shape.seq_len}, mesh)
+    model = _model_for(cfg, opt, mesh)
     mode = "train" if shape.kind == "train" else "serving"
     model._check_layout(mode)
     specs = model.layouts(mode)
@@ -174,11 +190,20 @@ def run_rank_step(cfg, shape, mesh: Mesh, opt: dict, whole) -> dict:
                            batch_specs(cfg, shape, mesh), mesh)
     batch = {k: _meta(local_shape(s, bspec[k], mesh), dt)
              for k, (s, dt) in shapes_b.items()}
+    saved = None
     if shape.kind == "train":
         for _, p in tree_leaves(params):
             p.requires_grad_(True)
         state = {"params": params, **init_opt_state(params)}
+        tallies, loss = [], model.loss
+
+        def tallied(params, batch):         # the tally at the loss
+            out, n = saved_at_loss(loss, params, batch)
+            tallies.append(n)
+            return out
+        model.loss = tallied
         make_train_step(model)(state, batch)
+        saved, = tallies
     elif shape.kind == "prefill":
         model.prefill(params, batch)
     else:
@@ -195,7 +220,23 @@ def run_rank_step(cfg, shape, mesh: Mesh, opt: dict, whole) -> dict:
         per_kind[r["kind"]] += r["bytes"]
         counts[r["kind"]] += 1
     return {"per_kind_bytes": per_kind, "counts": counts,
-            "per_device_bytes": sum(per_kind.values())}
+            "per_device_bytes": sum(per_kind.values())}, saved
+
+
+def saved_activation_bytes(cfg, batch: int, seq: int, *,
+                           remat: bool) -> int:
+    """The bytes autograd holds for the backward when the loss of ``cfg``
+    on one device, on a batch of ``batch`` x ``seq`` tokens, is reached
+    (the dry run's tally, on meta tensors; the parameters and the batch
+    not counted), with or without ``remat``."""
+    from repro_torch.training.saved import saved_at_loss
+    model = Model(cfg, remat=remat, device="meta")
+    params = model.init(torch.Generator())
+    for _, p in tree_leaves(params):
+        p.requires_grad_(True)
+    ins = {k: _meta(s, dt) for k, (s, dt) in input_shapes(
+        cfg, ShapeSpec("train", seq, batch, "train"), model).items()}
+    return saved_at_loss(model.loss, params, ins)[1]
 
 
 def dry_cell(arch: str, shape_name: str, mesh: Mesh, *, opt: dict = None,
@@ -232,7 +273,8 @@ def dry_cell(arch: str, shape_name: str, mesh: Mesh, *, opt: dict = None,
     cost = roofline.cell_cost(cfg, shape, attn_chunk=opt.get(
         "attn_chunk", 1024), kv_bytes=kv_bytes)
     reason = _refusal(cfg, shape, mesh, opt)
-    coll = None if reason else run_rank_step(cfg, shape, mesh, opt, whole)
+    coll, saved = (None, None) if reason else run_rank_step(
+        cfg, shape, mesh, opt, whole)
     flops_dev, bytes_dev = cost.flops / chips, cost.hbm_bytes / chips
     coll_dev = coll["per_device_bytes"] if coll else 0
     terms = roofline.roofline_terms(cfg, shape, chips, coll_dev,
@@ -247,7 +289,9 @@ def dry_cell(arch: str, shape_name: str, mesh: Mesh, *, opt: dict = None,
         "memory": {"param_bytes": p_bytes, "opt_state_bytes": opt_bytes,
                    "cache_bytes": c_bytes, "batch_bytes": b_bytes,
                    "total_bytes": p_bytes + opt_bytes + c_bytes + b_bytes,
-                   **spec_bytes},
+                   **spec_bytes,
+                   **({} if saved is None else
+                      {"saved_activation_bytes": saved})},
         "cost": {"flops_per_device": flops_dev,
                  "bytes_per_device": bytes_dev},
         "collectives": coll,

@@ -79,8 +79,9 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
     if head_dim is not None:
         over["head_dim"] = head_dim
     cfg = cfg.scaled(**over)
+    # no rematerialisation, as the reference's launcher
     model = Model(cfg, attn_chunk=max(seq_len // 2, 16),
-                  ssd_chunk=min(64, seq_len), device=dev)
+                  ssd_chunk=min(64, seq_len), remat=False, device=dev)
     step_fn = make_train_step(model, AdamWConfig(lr=lr),
                               grad_compression=grad_compression)
     data = SyntheticLM(cfg, DataConfig(batch_size=batch_size,

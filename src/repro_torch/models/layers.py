@@ -210,12 +210,14 @@ def chunked_attention(cfg: ArchConfig, q, k, v, *, causal: bool,
 
     For CUDA tensors (and ``use_kernel``) it runs the flash kernel through
     :class:`FlashPrefill` over (B, H, S, hd) views (strided, no copy),
-    which needs T == S.  Otherwise it is the plain online-softmax version
+    which needs T == S; meta tensors take the same Function (its plain
+    version inside), so that a dry run saves for the backward what the
+    card's path saves.  Otherwise it is the plain online-softmax version
     of ``layers.chunked_attention``: query chunks, each walking the kv
     chunks with a running (max, sum, acc), queries padded to a chunk
     multiple and padded keys masked by the original T.  The chunk sizes
     only shape the plain version; the kernel tiles by itself."""
-    if use_kernel and q.is_cuda:
+    if use_kernel and (q.is_cuda or q.is_meta):
         out = FlashPrefill.apply(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal)
         return out.transpose(1, 2)

@@ -25,14 +25,23 @@ runs ``lax.scan`` over layers stacked on axis 0 (the hybrid family: over
 over the list in Python.  Where the reference rebuilt the page pool or the
 decode cache functionally and returned it, the port writes it **in place**
 and returns only the logits.
+
+``Model(remat=True)`` (the reference's default) rematerialises the
+whole-sequence stacks under differentiation as the reference's
+``jax.checkpoint`` does: one ``torch.utils.checkpoint`` unit per decoder
+layer (an encoder-decoder's cross sublayer inside it), per encoder layer
+and per 8-layer group of the hybrid family.  Autograd keeps each unit's
+input only, and the backward runs the unit again (:meth:`Model._remat`).
 """
 from __future__ import annotations
 
+import contextvars
 import functools
 from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import ctx as C
 from repro_torch.distributed.sharding import (head_layout, map_with_path,
@@ -121,8 +130,10 @@ def _one_rank(method):
 
 
 class _Gathered:
-    """A layer list whose layers pass through ``fn(index, layer)`` as they
-    are reached (the FSDP gather of a layer just before its use)."""
+    """A layer list whose layers (or a part of one, :func:`_part`) pass
+    through ``fn(path, tree)`` as they are reached, ``path`` the layer's
+    index and the part's keys (the FSDP gather of a layer just before its
+    use)."""
 
     def __init__(self, layers, fn):
         self.layers, self.fn = layers, fn
@@ -131,10 +142,23 @@ class _Gathered:
         return len(self.layers)
 
     def __getitem__(self, i):
-        return self.fn(i, self.layers[i])
+        return self.fn((i,), self.layers[i])
 
-    def __iter__(self):
-        return (self.fn(i, p) for i, p in enumerate(self.layers))
+
+def _raw(layers, i):
+    """Layer ``i`` as the list holds it (a rank's blocks, not gathered)."""
+    return (layers.layers if isinstance(layers, _Gathered) else layers)[i]
+
+
+def _part(layers, i, *keys):
+    """Layer ``i``'s part at ``keys`` of a layer list, gathered as it is
+    reached where the list is a :class:`_Gathered`."""
+    tree = _raw(layers, i)
+    for k in keys:
+        tree = tree[k]
+    if isinstance(layers, _Gathered):
+        return layers.fn((i, *keys), tree)
+    return tree
 
 
 def _scalar(v, device) -> torch.Tensor:
@@ -258,12 +282,23 @@ class Model:
     SSM heads that ``model`` does not split whole and the engine's entry
     points (paged, chunk, pack and verify calls) raise on a mesh of more
     than one rank.
+
+    ``remat`` (default True, the reference's) rematerialises the
+    whole-sequence stacks where grad is enabled and an input requires it
+    (:meth:`_remat`); no serving path is differentiated, so it changes
+    training only.  ``ssm_state_dtype`` (default ``float32``) is the
+    reference's: the dtype of the ``ssm`` leaf of :meth:`cache_shapes`
+    and :meth:`init_cache`, nothing more (a prefill returns the state in
+    float32, and :meth:`decode_step` on a narrower state returns it in
+    float32, as the reference's does).  The serving backends refuse a
+    narrower state, so the engine's steps never meet one.
     """
 
     def __init__(self, cfg: ArchConfig, *, kv_dtype: str = "bfloat16",
                  chunk_attn_impl: str = "masked", attn_chunk: int = 1024,
                  ssd_chunk: int = 256, use_kernels: bool = True,
                  moe_groups: int = 1, pad_experts_to: int = 0,
+                 remat: bool = True, ssm_state_dtype: str = "float32",
                  expert_shard=None, mesh=None, device=None):
         if chunk_attn_impl not in ("masked", "flash"):
             raise ValueError(f"chunk_attn_impl={chunk_attn_impl!r} "
@@ -305,6 +340,8 @@ class Model:
         self.moe_groups = moe_groups
         self.pad_experts_to = pad_experts_to
         self.moe_tap = None
+        self.remat = remat
+        self.ssm_state_dtype = ssm_state_dtype
         self.kv_dtype = kv_dtype
         self.dtype = dtype_of(cfg.param_dtype)
         self.device = resolve_device(device)
@@ -585,17 +622,44 @@ class Model:
 
     def _train_view(self, params):
         """``params`` (train-mode blocks) as the loss uses them: with every
-        ``data`` shard of a leaf gathered, each layer's as it is reached
-        (identity off a mesh or where the batch axes have one rank)."""
+        ``data`` shard of a leaf gathered, the embedding, final norm and
+        head at once and each layer of ``layers``, ``encoder`` and
+        ``cross`` as it is reached, inside its remat unit (identity off a
+        mesh or where the batch axes have one rank)."""
         if self.mesh is None or C.axis_index("batch")[1] == 1:
             return params
-        view = {k: (v if k == "layers" else
-                    self._fsdp((k,), v))
+        return {k: (_Gathered(v, lambda path, t, k=k: self._fsdp(
+                    (k, *path), t)) if k in ("layers", "encoder", "cross")
+                    else self._fsdp((k,), v))
                 for k, v in params.items()}
-        view["layers"] = _Gathered(
-            params["layers"],
-            lambda i, p: self._fsdp(("layers", i), p))
-        return view
+
+    def _remat(self, fn, x, *args, tree=()):
+        """``fn(x, *args)`` as one unit of the reference's
+        ``jax.checkpoint``, where ``remat`` is on, grad is enabled and
+        ``x`` or a leaf of ``tree`` (the unit's params) requires grad:
+        autograd keeps the unit's tensor inputs only, and the backward runs
+        ``fn`` again to rebuild what it needs.  That run sees the mesh
+        context of the first (the collectives, FSDP gathers and kernel
+        launches of the unit run again, in the same order on every rank),
+        and no ``moe_tap``: the tap sees each MoE call once, in the
+        forward.  Elsewhere ``fn(x, *args)``."""
+        if not (self.remat and torch.is_grad_enabled() and (
+                x.requires_grad or any(t.requires_grad for _, t in
+                                       tree_leaves(tree)))):
+            return fn(x, *args)
+        ctx, first = contextvars.copy_context(), [True]
+
+        def run(*a):
+            if first[0]:
+                first[0] = False
+                return ctx.run(fn, *a)
+            tap, self.moe_tap = self.moe_tap, None
+            try:
+                return ctx.run(fn, *a)
+            finally:
+                self.moe_tap = tap
+        return checkpoint(run, x, *args, use_reentrant=False,
+                          preserve_rng_state=False)
 
     def _self_attn(self, p_l, x, positions, causal: bool):
         """``x`` plus the layer's self-attention over whole sequences
@@ -618,9 +682,15 @@ class Model:
         x = enc_embeds.to(self.dtype)
         B, T = x.shape[:2]
         positions = torch.arange(T, device=x.device)[None].expand(B, T)
-        for p_l in params["encoder"]:
-            x, _, _ = self._self_attn(p_l, x, positions, causal=False)
-            x, _ = self._ffn_block(p_l, x)
+        layers = params["encoder"]
+
+        def unit(h, i):
+            p_l = layers[i]
+            h, _, _ = self._self_attn(p_l, h, positions, causal=False)
+            return self._ffn_block(p_l, h)[0]
+        for i in range(len(layers)):
+            x = self._remat(functools.partial(unit, i=i), x,
+                            tree=_raw(layers, i))
         return self._norm(params["enc_final_norm"], x)
 
     def _cross_kv(self, params, enc_out):
@@ -633,8 +703,9 @@ class Model:
         enc_out = C.copy_to(enc_out, "model")     # column-parallel wk, wv
         kv_slots, rep = (self.heads or (0, 0, 1))[1:]
         xk, xv = [], []
-        for p_x in params["cross"]:
-            for w, out in ((p_x["xattn"]["wk"], xk), (p_x["xattn"]["wv"], xv)):
+        for i in range(len(params["cross"])):
+            for name, out in (("wk", xk), ("wv", xv)):
+                w = _part(params["cross"], i, "xattn", name)
                 t = enc_out @ C.copy_to_replicas(w, rep)
                 out.append(L.pad_heads(t.reshape(
                     B, T, t.shape[-1] // cfg.hd, cfg.hd), kv_slots).to(kvd))
@@ -670,35 +741,65 @@ class Model:
         ``chunked_attention`` and ``wo``, or the Mamba-2 block over the
         whole sequence), with ``enc_ctx`` (an encoder-decoder's ``{"xk",
         "xv"}``) the cross sublayer, then its ``cfg.ffn_kind(i)`` FFN
-        block.  Returns ``(x, moe_aux, caches)``: aux is the layers' MoE
-        aux losses summed (0 without experts); with ``want_cache``, caches
+        block, one remat unit a layer (:meth:`_remat`; the hybrid family's
+        unit is an 8-layer group, as the reference's scan body).  Returns
+        ``(x, moe_aux, caches)``: aux is the layers' MoE aux losses summed
+        in layer order (0 without experts); with ``want_cache``, caches
         holds the attention layers' projected ``k``/``v`` and the Mamba
         layers' final ``conv``/``ssm`` state in the reference's layout
         (:meth:`_stack_caches`), else None."""
-        cfg = self.cfg
+        layers = params["layers"]
+        step = HYBRID_GROUP if self.cfg.family == "hybrid" else 1
         kv, states = [], []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for li, p_l in enumerate(params["layers"]):
-            if cfg.layer_kind(li) == "attn":
-                x, k, v = self._self_attn(p_l, x, positions, causal=True)
+
+        def unit(h, *xkv, lis):
+            out = []
+            for li in lis:
+                h, part, aux_l = self._layer_full(params, li, h, positions,
+                                                  xkv, want_cache)
+                out.append((part, aux_l))
+            return h, out
+        for lo in range(0, len(layers), step):
+            lis = range(lo, min(lo + step, len(layers)))
+            xkv = (() if enc_ctx is None else
+                   (enc_ctx["xk"][lo], enc_ctx["xv"][lo]))
+            x, out = self._remat(functools.partial(unit, lis=lis), x, *xkv,
+                                 tree=[_raw(layers, li) for li in lis])
+            for li, (part, aux_l) in zip(lis, out):
                 if want_cache:
-                    kv.append((k, v))
-            else:
-                out, state = M.mamba_block(
-                    cfg, p_l["ssm"], self._norm(p_l["ln1"], x),
-                    chunk=self.ssd_chunk, return_state=True,
-                    use_kernel=self.use_kernels)
-                x = x + out
-                if want_cache:
-                    states.append(state)
-            if enc_ctx is not None:
-                x = self._apply_cross(params["cross"][li], x,
-                                      enc_ctx["xk"][li], enc_ctx["xv"][li])
-            x, aux_l = self._ffn_block(p_l, x)
-            if aux_l is not None:
-                aux = aux + aux_l
+                    (kv if self.cfg.layer_kind(li) == "attn"
+                     else states).append(part)
+                if aux_l is not None:
+                    aux = aux + aux_l
         caches = self._stack_caches(kv, states) if want_cache else None
         return x, aux, caches
+
+    def _layer_full(self, params, li, x, positions, xkv, want_cache):
+        """Decoder layer ``li`` over whole sequences (its params gathered
+        here under FSDP): ``(x, part, aux)``, ``part`` its cache part
+        (``(k, v)`` or the Mamba state; None without ``want_cache``) and
+        ``aux`` its MoE aux loss (None without experts); ``xkv`` is an
+        encoder-decoder's cross ``(xk, xv)`` of the layer, else empty."""
+        p_l = params["layers"][li]
+        if self.cfg.layer_kind(li) == "attn":
+            x, k, v = self._self_attn(p_l, x, positions, causal=True)
+            part = (k, v)
+        else:
+            out, part = M.mamba_block(
+                self.cfg, p_l["ssm"], self._norm(p_l["ln1"], x),
+                chunk=self.ssd_chunk, return_state=True,
+                use_kernel=self.use_kernels)
+            x = x + out
+        if xkv:
+            # the parts of the cross sublayer it reads (its wk and wv made
+            # the cross K/V already)
+            p_x = {"lnx": _part(params["cross"], li, "lnx"),
+                   "xattn": {w: _part(params["cross"], li, "xattn", w)
+                             for w in ("wq", "wo")}}
+            x = self._apply_cross(p_x, x, *xkv)
+        x, aux_l = self._ffn_block(p_l, x)
+        return x, (part if want_cache else None), aux_l
 
     def _stack_caches(self, kv, states):
         """The per-layer ``(k, v)`` (B, S, KVH, hd) and Mamba ``{"conv",
@@ -1220,7 +1321,10 @@ class Model:
         encoder-decoder's layer then attends its lane's cross ``xk``/``xv``
         (read only, plain torch as in the reference) before the FFN.
         Mamba (the ``ssm`` and hybrid families): the conv window and SSM
-        state advance one step.
+        state advance one step (a state leaf narrower than float32, as
+        ``ssm_state_dtype`` makes it, is replaced in ``cache`` by a float32
+        one first: the one write here that is not in place, which no
+        serving backend meets, since they refuse such a state).
 
         ``active`` (B,) bool, when given, limits the writes and the
         ``lengths`` advance to active lanes: an inactive lane's state or
@@ -1235,6 +1339,11 @@ class Model:
         ``lengths == Smax`` writes nothing, as the reference's scatter
         drops it)."""
         cfg = self.cfg
+        if "ssm" in cache and cache["ssm"].dtype != torch.float32:
+            # the step computes the state in float32 and returns it so, as
+            # the reference's: a narrower state leaf is replaced by its
+            # float32 copy, which the layers then write
+            cache["ssm"] = cache["ssm"].float()
         x = self._embed_in(params, tokens)                      # (B, 1, D)
         at = (self._decode_rows(cache["lengths"], cache["k"].shape[2], active,
                                 seq_split) if "k" in cache else None)
@@ -1414,7 +1523,8 @@ class Model:
         whose ``model`` axis has m ranks), and for an
         encoder-decoder the cross ``xk``/``xv`` (L, batch, cross_kv_len,
         KVH, hd); for ``ssm`` the constant-size ``conv`` and ``ssm`` state
-        (``max_len`` unused); for the hybrid family, per 8-layer group
+        (``max_len`` unused; ``ssm`` in ``ssm_state_dtype``); for the
+        hybrid family, per 8-layer group
         ``g``, ``k``/``v`` (g, batch, max_len, KVH, hd) and ``conv``/
         ``ssm`` (g, 7, batch, ...), the reference's layout.  On a mesh
         whose ``model`` axis has m ranks a rank's cache holds its heads:
@@ -1439,7 +1549,7 @@ class Model:
             out["conv"] = ((*lead, batch, cfg.conv_width - 1,
                             cfg.d_inner // m + 2 * cfg.ssm_state), self.dtype)
             out["ssm"] = ((*lead, batch, cfg.ssm_heads // m, cfg.ssm_headdim,
-                           cfg.ssm_state), torch.float32)
+                           cfg.ssm_state), dtype_of(self.ssm_state_dtype))
         if cfg.is_encoder_decoder:
             xshape = (n, batch, cfg.cross_kv_len, kvh, cfg.hd)
             out["xk"] = (xshape, kvd)

@@ -33,8 +33,8 @@ a JAX replica's ``block_until_ready`` follows the device's order.  A
 step-graph capture in one pump thread excludes the other pumps' steps
 (``serving/step_graphs.CAPTURE_GATE``), so a replica that captures while
 another serves neither breaks the capture nor miscounts its replays.
-The executor threads start on the process's current CUDA device, which
-is where the replicas of a one-card deployment live.
+A CUDA replica's executor thread starts on that replica's card
+(:func:`pump_executor`), so a replica on another card launches there.
 
 Correctness invariant inherited from the engine: with greedy sampling and
 quantization off, streamed tokens are bit-identical to the batch
@@ -49,6 +49,8 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Deque, Dict, List, Optional, Union
+
+import torch
 
 from repro_torch.core.engine import EngineEvent, ServingEngine
 from repro_torch.core.request import Request, RequestState, SLOClass
@@ -105,6 +107,17 @@ class RequestStream:
             self.closed = True
             self._queue.put_nowait(None)
 
+
+
+def pump_executor(d) -> ThreadPoolExecutor:
+    """The single-worker executor of replica ``d``'s pump: for a replica
+    whose model lives on a CUDA device the worker thread sets that device
+    as its current one before its first step (``torch.cuda.set_device``)."""
+    dev = torch.device(d.engine.model.device)
+    pin = (dict(initializer=torch.cuda.set_device, initargs=(dev,))
+           if dev.type == "cuda" else {})
+    return ThreadPoolExecutor(max_workers=1,
+                              thread_name_prefix=f"pump-{d.name}", **pin)
 
 @dataclass
 class GatewayConfig:
@@ -521,8 +534,7 @@ class Gateway:
             backoff = min(backoff * 2, self.cfg.max_idle_sleep_s)
 
     def _spawn_pump(self, d) -> None:
-        ex = ThreadPoolExecutor(max_workers=1,
-                                thread_name_prefix=f"pump-{d.name}")
+        ex = pump_executor(d)
         self._executors.append(ex)
         self._pump_tasks.append(
             asyncio.ensure_future(self._pump_engine(d, ex)))

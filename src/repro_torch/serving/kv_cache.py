@@ -269,6 +269,10 @@ class KVBackend:
     """
 
     def __init__(self, model, cfg: KVBackendConfig):
+        if model.ssm_state_dtype != "float32":
+            # the step writes its float32 state into the lanes in place
+            raise ValueError(f"ssm_state_dtype={model.ssm_state_dtype!r}: "
+                             "a serving backend holds the state in float32")
         self.model = model
         self.cfg = cfg
         self.device = model.device

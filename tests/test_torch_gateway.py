@@ -747,6 +747,29 @@ def test_pump_failure_is_raised(setup):
     assert not gw._pump_tasks and not gw._executors
 
 
+def test_pump_threads_start_on_their_replica_card(monkeypatch):
+    """Each CUDA replica's pump thread sets its own replica's device
+    (``torch.cuda.set_device``, stubbed here) before its first step; a CPU
+    replica's thread sets none."""
+    from repro_torch.serving.gateway import server as port_server
+    calls = []
+    monkeypatch.setattr(torch.cuda, "set_device", lambda dev: calls.append(
+        (threading.current_thread().name, torch.device(dev).index)))
+    drivers = [SimpleNamespace(name=f"r{i}", engine=SimpleNamespace(
+        model=SimpleNamespace(device=torch.device(dev))))
+        for i, dev in enumerate(("cuda:1", "cuda:0", "cpu"))]
+    executors = [port_server.pump_executor(d) for d in drivers]
+    try:
+        names = [ex.submit(lambda: threading.current_thread().name).result()
+                 for ex in executors]
+    finally:
+        for ex in executors:
+            ex.shutdown()
+    assert [n.split("_")[0] for n in names] == ["pump-r0", "pump-r1",
+                                                "pump-r2"]
+    assert sorted(calls) == sorted([(names[0], 1), (names[1], 0)])
+
+
 def test_launch_counters_exact_under_threads():
     """Two threads call a wrapper's CPU path (which counts nothing) and
     ``counters.advance`` many times each, with the interpreter switching
