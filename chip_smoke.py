@@ -51,7 +51,9 @@ the final line:
      against their plain versions; row 7's split-row entries
      (``rmsnorm_sumsq``, ``rmsnorm_apply``: a row's columns over two
      ranks) at phase 27's per-rank shapes of the gated norm, against their
-     plain twins and, the halves side by side, the whole-row kernel;
+     plain twins and, the halves side by side, the whole-row kernel, and
+     (f32) at (j)'s three unequal widths of 1664, 1728 and 1728; the SSD
+     chunk also at (j)'s 26 and 27 heads (``uneven_shapes``);
   4. reference: the full-width model's kernel path (paged-attention
      kernel + prefix flash kernel + RMSNorm kernel) against its plain path
      (page gather + masked attention + plain RMSNorm) on one short
@@ -360,7 +362,7 @@ the final line:
      within 1e-5 relative, the clipped global norm within 1e-6 relative,
      and every gradient leaf and both AdamW moments within rel_l2 1e-4 of
      one rank's step (each rank holds its block of one rank's gradients
-     and moments; the squared sums cross ranks).  (d) mamba2-2.7b at 8 of
+     and moments; the squared sums cross ranks).  (d) mamba2-2.7b at 4 of
      64 layers (cut for the script's time; 40 of 80 SSM heads a
      rank: its heads' z, x and dt columns
      of ``in_proj``, B and C whole; the gated norm over d_inner through row
@@ -403,11 +405,19 @@ the final line:
      all-reduce)
      within 1e-5 relative L2 of one rank's unsplit float32 attention on
      the same query and cache, the new K/V rows equal to one rank's bit
-     for bit; the logits' rel_l2 and greedy agreement printed.  The ranks
-     of (a)-(g) and (i) and the three of (h) start before phase 8 and
-     wait for their go, so that their start overlaps phases 8-11; (h)'s
-     go follows the first group's exit, and its ranks' exits overlap
-     phases 12-14.
+     for bit; the logits' rel_l2 and greedy agreement printed.  (j) on
+     (h)'s three ranks after (h): mamba2-2.7b at full width and 4 of 64
+     layers in f32, its 80 SSM heads as 26, 27 and 27
+     (``sharding.even_blocks``; each rank's heads' columns, conv
+     channels, constants, ``out_proj`` rows, gated-norm columns and SSM
+     state, B and C whole): a 1 x 1024 prefill and 8 decode steps within
+     (d)'s f32 gate of one rank's, every rank's weights the dry run's,
+     each rank's walls and peak printed; then one tensor-parallel AdamW
+     step at 1 x 1024 gated as (c), the padded leaves as (h)'s.  The
+     ranks of (a)-(g) and (i) and the three of (h) and (j) start before
+     phase 8 and wait for their go, so that their start overlaps phases
+     8-11; (h)'s go follows the first group's exit, and its ranks' exits
+     overlap phases 12-14.
 
  28. the three registered configs no earlier phase runs, after phase 26's
      models are freed, one at a time at full width, random bf16 weights
@@ -1552,6 +1562,82 @@ def check_split_rmsnorm(torch, dev):
                     rows[entry][label] = dict(
                         max_abs_err=err, ms=ms, plain_ms=plain,
                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return rows
+
+
+# phase 27 (j)'s gated norm: mamba2's 80 heads of 64 as 26, 27 and 27 on
+# three ranks, a 1024-token prefill's rows (T, widths), in f32
+UNEVEN_NORM = (1024, (1664, 1728, 1728))
+
+
+def check_uneven_split_rmsnorm(torch, dev):
+    """Row 7's split-row entries at phase 27 (j)'s per-rank widths, f32:
+    each rank's columns of a (1024, 5120) row, 1664, 1728 and 1728 wide.
+    ``rmsnorm_sumsq`` of each part against its plain twin (1e-5 relative
+    to the sum), then ``rmsnorm_apply`` of each part from the three sums
+    added, against its plain twin and, the parts side by side, against the
+    whole-row kernel on the whole row (2e-5).  Times as the other rows.
+    Returns, by entry, the rows by width."""
+    from repro_torch.kernels.fused_rmsnorm import (fused_rmsnorm,
+                                                   rmsnorm_apply,
+                                                   rmsnorm_apply_ref,
+                                                   rmsnorm_sumsq,
+                                                   rmsnorm_sumsq_ref)
+    T, widths = UNEVEN_NORM
+    d_full = sum(widths)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x = torch.randn((T, d_full), generator=g, device=dev) * 3
+    scale = 1 + 0.1 * torch.randn((d_full,), generator=g, device=dev)
+    cuts = np.cumsum((0,) + widths).tolist()
+    parts = [x[:, a:b].contiguous() for a, b in zip(cuts, cuts[1:])]
+    scales = [scale[a:b].contiguous() for a, b in zip(cuts, cuts[1:])]
+    sums = [rmsnorm_sumsq(h) for h in parts]
+    plain_sums = [rmsnorm_sumsq_ref(h) for h in parts]
+    err_s = max(((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()
+                for a, b in zip(sums, plain_sums))
+    if not err_s <= 1e-5:
+        fail(f"rmsnorm_sumsq float32 widths {widths}: relative error "
+             f"{err_s}")
+    total = sums[0] + sums[1] + sums[2]
+    outs = [rmsnorm_apply(h, total, sc, d_full)
+            for h, sc in zip(parts, scales)]
+    plains = [rmsnorm_apply_ref(h, total, sc, d_full)
+              for h, sc in zip(parts, scales)]
+    whole = fused_rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    err_a = 0.0
+    for got, want in ((torch.cat(outs, -1), torch.cat(plains, -1)),
+                      (torch.cat(outs, -1), whole)):
+        diff = (got - want).abs().max().item()
+        err_a = max(err_a, diff)
+        if not diff <= 2e-5 * max(1.0, want.abs().max().item()):
+            fail(f"rmsnorm_apply float32 widths {widths}: max_abs_err "
+                 f"{diff}")
+    rows = {"rmsnorm_sumsq": {}, "rmsnorm_apply": {}}
+    for w in sorted(set(widths)):
+        i = widths.index(w)
+        h, sc, out = parts[i], scales[i], outs[i]
+        cases = {
+            "rmsnorm_sumsq": (lambda: rmsnorm_sumsq(h),
+                              lambda: rmsnorm_sumsq_ref(h),
+                              nbytes(h, sums[i]), 2.0 * T * w, err_s),
+            "rmsnorm_apply": (lambda: rmsnorm_apply(h, total, sc, d_full),
+                              lambda: rmsnorm_apply_ref(h, total, sc,
+                                                        d_full),
+                              nbytes(h, total, sc, out), 3.0 * T * w,
+                              err_a)}
+        for entry, (kern, plain_fn, nb, flops, err) in cases.items():
+            ms = time_ms(kern, 50)
+            plain = time_ms(plain_fn, 20)
+            b_ms, b_by = bound(nb, flops, "float32")
+            print(f"[kernel] {entry} float32 mamba2 (j) T={T} d={w} of "
+                  f"{d_full}: max_err={err:.3g} kernel_ms={ms:.4f} "
+                  f"({b_ms / ms:.1%} of bound) plain_ms={plain:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}) library_ms=null",
+                  flush=True)
+            rows[entry][str(w)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
     return rows
 
 
@@ -6150,18 +6236,20 @@ def ptxas_report(logs) -> list:
 
 # (a) and (b) at 8 layers: at 20 and 16 layers the script took 288.9 s on
 # the H100 machine against its 290 s ceiling (the ranks' collectives cross
-# the host).  (d) mamba2-2.7b at 8 of 64 layers, (e)
+# the host).  (d) mamba2-2.7b at 4 of 64 layers (8 until (j) came), (e)
 # seamless at 8 of 24 encoder and 8 of 24 decoder layers, (f) jamba's one
 # 8-layer group holding 4 of 16 experts (2 a rank), each for the same
 # ceiling; (f)'s share is what two ranks of jamba's group fit on one card
 SHARD27 = dict(granite_layers=8, prompts=2, prompt_len=1024, decode=8,
                moe_layers=8, train_layers=1, train_batch=2, train_seq=1024,
-               mamba_layers=8, seamless_layers=8, seamless_frames=4096,
+               mamba_layers=4, seamless_layers=8, seamless_frames=4096,
                hybrid_share=(0, 4), mamba_train_layers=2, timeout=900,
-               long_share=(0, 8), long_prompt=12288, long_cache=16384)
+               long_share=(0, 8), long_prompt=12288, long_cache=16384,
+               uneven_layers=4)
 # the parts' meshes (data, model): two ranks on model 2 unless named; (h)
-# three ranks of their own, (c) and (i) two on data 2
-SHARD27_MESH = {"c": (2, 1), "g": (1, 2), "h": (1, 3), "i": (2, 1)}
+# and (j) three ranks of their own, (c) and (i) two on data 2
+SHARD27_MESH = {"c": (2, 1), "g": (1, 2), "h": (1, 3), "i": (2, 1),
+                "j": (1, 3)}
 SHARD27_ATTN_REL = 1e-5       # (i): the merged attention against one rank
 SHARD27_LOSS_REL = 1e-5                  # (c), (g): loss against one rank
 SHARD27_GRAD_REL = 1e-4                  # (c), (g): each gradient, moment
@@ -6187,12 +6275,18 @@ SHARD27_ROWS = {
           "rmsnorm_apply", "ssd_chunk"),
     "g": ("fused_rmsnorm", "rmsnorm_sumsq", "rmsnorm_apply", "ssd_chunk"),
     "h": ("flash_prefill", "fused_rmsnorm"),
-    "i": ("ssd_chunk", "fused_rmsnorm")}
+    "i": ("ssd_chunk", "fused_rmsnorm"),
+    "j": ("fused_rmsnorm", "rmsnorm_sumsq", "rmsnorm_apply", "ssd_chunk")}
 # rows a part launches on rank 0 only: (i)'s prefill is rank 0's alone
 SHARD27_RANK0_ROWS = {"i": ("ssd_chunk",)}
 SHARD27_SERVES = {"a": "granite-3-8b", "b": "granite-moe-3b-a800m",
                   "d": "mamba2-2.7b", "e": "seamless-m4t-large-v2",
                   "f": "jamba-1.5-large-398b"}
+# the three ranks' parts: (h) granite padded, (j) mamba2's 80 SSM heads
+# as 26, 27 and 27 (in f32, as (d) is gated), each served and trained
+SHARD27_THREE = {"h": ("granite-3-8b", "bfloat16"),
+                 "j": ("mamba2-2.7b", "float32")}
+SHARD27_UNEVEN_HEADS = [26, 27, 27]
 
 
 def _rel_l2(torch, got, want) -> float:
@@ -6234,10 +6328,12 @@ def _shard27_cfg(part: str, dtype: str = "bfloat16"):
     """Part ``part``'s config: its arch at full width in ``dtype``, depth
     cut as :data:`SHARD27` says."""
     from repro_torch.configs import get_config
-    arch = "granite-3-8b" if part == "h" else SHARD27_SERVES[part]
+    arch = (SHARD27_THREE[part][0] if part in SHARD27_THREE
+            else SHARD27_SERVES[part])
     cfg = get_config(arch).scaled(param_dtype=dtype)
     cut = {"a": dict(num_layers=SHARD27["granite_layers"]),
            "h": dict(num_layers=SHARD27["granite_layers"]),
+           "j": dict(num_layers=SHARD27["uneven_layers"]),
            "b": dict(num_layers=SHARD27["moe_layers"]),
            "d": dict(num_layers=SHARD27["mamba_layers"]),
            "e": dict(num_layers=SHARD27["seamless_layers"],
@@ -6248,8 +6344,9 @@ def _shard27_cfg(part: str, dtype: str = "bfloat16"):
 
 def _shard27_inputs(torch, dev, cfg, part: str):
     """Part ``part``'s prefill batch and teacher-forced decode tokens (T,
-    B, 1), from the seed: 2 prompts of 1024 tokens, jamba's one; seamless
-    one request of 4096 frames and a 1-token decoder start."""
+    B, 1), from the seed: 2 prompts of 1024 tokens, jamba's and (j)'s
+    one; seamless one request of 4096 frames and a 1-token decoder
+    start."""
     rng = np.random.default_rng(SEED + 27)
     T = SHARD27["decode"]
     if cfg.is_encoder_decoder:
@@ -6260,7 +6357,7 @@ def _shard27_inputs(torch, dev, cfg, part: str):
             "tokens": torch.from_numpy(rng.integers(
                 0, cfg.vocab_size, (B, 1)).astype(np.int32)).to(dev)}
     else:
-        B = 1 if part == "f" else SHARD27["prompts"]
+        B = 1 if part in "fj" else SHARD27["prompts"]
         batch = {"tokens": torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (B, SHARD27["prompt_len"])).astype(
                 np.int32)).to(dev)}
@@ -6280,7 +6377,10 @@ def _heads(cfg, m: int = 2) -> str:
                    + (f" (each KV head on {lay.rep} ranks)" if lay.rep > 1
                       else ""))
     if cfg.has_ssm:
-        out.append(f"SSM heads {cfg.ssm_heads // m} of {cfg.ssm_heads}")
+        from repro_torch.distributed.sharding import even_blocks
+        out.append("SSM heads " + "/".join(sorted(
+            {str(len(b)) for b in even_blocks(cfg.ssm_heads, m)}))
+            + f" of {cfg.ssm_heads}")
     return ", ".join(out) + " a rank"
 
 
@@ -6303,10 +6403,12 @@ def _record_routes(L, store, replay=None, flips=None):
 
 def _shard27_serve(torch, dev, rank, part, kernels, log,
                    dtype="bfloat16"):
-    """Part (a), (b), (d) or (e) on this rank: ``SHARD27_SERVES[part]`` at
-    full width in ``dtype`` (depth cut by :func:`_shard27_cfg`), mesh data
-    1 x model 2.  Returns the results and the sharded and (rank 0's;
-    None on rank 1) one-rank logits.
+    """Part (a), (b), (d), (e), (h) or (j) on this rank: its arch
+    (``SHARD27_SERVES``, ``SHARD27_THREE``) at full width in ``dtype``
+    (depth cut by :func:`_shard27_cfg`), mesh data 1 x model 2 unless
+    ``SHARD27_MESH`` names another.  Returns the results (the part's wall
+    and this rank's SSM heads among them) and the sharded and (rank 0's;
+    None on the others) one-rank logits.
     Rank 0 first computes the one-rank logits on the whole weights; each
     rank then keeps its block (``Model.shard``) and runs the sharded
     prefill and decode steps, counted from 0.  An MoE's bf16 rounding
@@ -6379,7 +6481,9 @@ def _shard27_serve(torch, dev, rank, part, kernels, log,
     out["launches"] = read_counts(kernels)
     out["prefill_s"], out["decode_s"] = pre_s, dec_s
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["ssm_heads"] = sharded.ssm_heads
     marks["sharded"] = time.perf_counter() - t_start
+    out["wall_s"] = marks["sharded"]
     if rank == 0:
         out["rel_l2"] = [_rel_l2(torch, g, w) for g, w in zip(got, ref)]
         out["greedy_agree"] = float(np.mean(
@@ -6684,14 +6788,17 @@ def _shard27_long(torch, dev, rank, kernels, log):
 
 
 def _shard27_train(torch, dev, rank, part, kernels, log):
-    """Part (c) or (g) on this rank, in f32 with AdamW: (c) granite-3-8b at
-    full width and ``train_layers`` layers, mesh data 2 x model 1 (FSDP),
-    batch 2 x 1024, a row a rank; (g) mamba2-2.7b at full width and
-    ``mamba_train_layers`` layers, mesh data 1 x model 2 (tensor
-    parallelism: 40 of 80 SSM heads a rank, the gated norm's statistic
-    summed over the ranks in the forward and its gradient in the
-    backward), batch 1 x 1024.  Each rank first takes one rank's step on
-    the whole batch and keeps its block (by the layouts) of that step's
+    """Part (c), (g), (h) or (j) on this rank, in f32 with AdamW: (c)
+    granite-3-8b at full width and ``train_layers`` layers, mesh data 2 x
+    model 1 (FSDP), batch 2 x 1024, a row a rank; (g) mamba2-2.7b at full
+    width and ``mamba_train_layers`` layers, mesh data 1 x model 2
+    (tensor parallelism: 40 of 80 SSM heads a rank, the gated norm's
+    statistic summed over the ranks in the forward and its gradient in
+    the backward), batch 1 x 1024; (h) granite's padded heads on model 3;
+    (j) mamba2 at ``uneven_layers`` layers on model 3, its 80 SSM heads
+    as 26, 27 and 27 (padding slots in the layout, none held).  Each rank
+    first takes one rank's step on the whole batch and keeps its block
+    (by the layouts) of that step's
     gradients and AdamW moments and the step's clipped global norm; then
     each takes the sharded step on its rows, counted from 0, and compares
     its gradient and moment blocks with those (each leaf's squared
@@ -6714,7 +6821,9 @@ def _shard27_train(torch, dev, rank, part, kernels, log):
         "g": ("mamba2-2.7b", SHARD27["mamba_train_layers"],
               (1, SHARD27["train_seq"])),
         "h": ("granite-3-8b", SHARD27["train_layers"],
-              (SHARD27["train_batch"], SHARD27["train_seq"]))}[part]
+              (SHARD27["train_batch"], SHARD27["train_seq"])),
+        "j": ("mamba2-2.7b", SHARD27["uneven_layers"],
+              (1, SHARD27["train_seq"]))}[part]
     mesh_shape = SHARD27_MESH[part]
     cfg = get_config(arch).scaled(num_layers=layers, param_dtype="float32")
     mesh = make_test_mesh(*mesh_shape)
@@ -6749,7 +6858,8 @@ def _shard27_train(torch, dev, rank, part, kernels, log):
     # the leaves a rank holds by padded units, whole: the sharded step's
     # gathered gradients must be these, with no padding slot
     split = {path: g.detach().clone() for path, g in tree_leaves(m["grads"])
-             if part == "h" and isinstance(spec_at(specs, path), HeadSplit)}
+             if part in SHARD27_THREE
+             and isinstance(spec_at(specs, path), HeadSplit)}
     del state, m, trees
     marks["one_rank"] = time.perf_counter() - t_start
     state = state_of(sharded.shard(whole, "train"))
@@ -6768,6 +6878,7 @@ def _shard27_train(torch, dev, rank, part, kernels, log):
     torch.cuda.synchronize()
     out["step_s"] = time.perf_counter() - t0
     marks["sharded"] = time.perf_counter() - t_start
+    out["wall_s"] = marks["sharded"]
     out["launches"] = read_counts(kernels)
     out["loss"], out["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
     # the part's peak (the one-rank step's included), and the sharded
@@ -6838,8 +6949,8 @@ def shard27_rank(rank: int, world: int, port: int, jobdir: str) -> None:
     """One rank of phase 27 (a child process :func:`start_shard_ranks`
     starts): the gloo group over the ranks on the one card, then, once
     the parent writes ``jobdir/go`` (:func:`phase_sharded`), parts (a) to
-    (g) and (i) on two ranks, part (h) on three; the results as JSON for
-    the parent.  A rank whose parent is gone exits."""
+    (g) and (i) on two ranks, parts (h) and (j) on three; the results as
+    JSON for the parent.  A rank whose parent is gone exits."""
     import torch
     from repro_torch.kernels import counters
     from repro_torch.launch.mesh import init_distributed
@@ -6865,12 +6976,12 @@ def shard27_rank(rank: int, world: int, port: int, jobdir: str) -> None:
         time.sleep(0.1)
     t_go = time.perf_counter()
     res = {}
-    for part in ("h" if world == 3 else "abcdefgi"):
-        if part == "h":
+    for part in ("hj" if world == 3 else "abcdefgi"):
+        if part in SHARD27_THREE:
             res[part] = _shard27_serve(torch, dev, rank, part, kernels,
-                                       log)[0]
-            res["h_train"] = _shard27_train(torch, dev, rank, part, kernels,
-                                            log)
+                                       log, SHARD27_THREE[part][1])[0]
+            res[part + "_train"] = _shard27_train(torch, dev, rank, part,
+                                                  kernels, log)
         elif part == "i":
             res[part] = _shard27_long(torch, dev, rank, kernels, log)
         elif part in "cg":
@@ -7168,13 +7279,57 @@ def shard27_gates(res, kernels):
     return _launch_counts(res, kernels)
 
 
+def _gate_uneven(res) -> None:
+    """Part (j)'s serving gates: mamba2's 80 SSM heads as 26, 27 and 27
+    on the three ranks, its f32 logits against one rank's within (d)'s
+    f32 gate, every rank's weights those of the dry run; each rank's wall
+    and peak printed beside one rank's."""
+    c = res[0]["j"]
+    worst = max(c["rel_l2"])
+    heads = [r["j"]["ssm_heads"] for r in res]
+    print(f"[shard] (j) mamba2-2.7b {SHARD27['uneven_layers']} layers f32, "
+          f"{sum(heads)} SSM heads as {', '.join(map(str, heads))} on "
+          f"data 1 x "
+          f"model 3: logits vs one rank rel_l2 prefill {c['rel_l2'][0]:.2e}"
+          f", decode {', '.join(f'{x:.2e}' for x in c['rel_l2'][1:])} "
+          f"(worst {worst:.2e}, gate {SHARD27_F32_REL}); greedy agreement "
+          f"{c['greedy_agree']:.3f} (not gated); per-rank weights GB "
+          + ", ".join(f"{r['j']['weight_bytes'] / 1e9:.4f}" for r in res)
+          + ", dry run "
+          + ", ".join(f"{r['j']['dry_weight_bytes'] / 1e9:.4f}"
+                      for r in res)
+          + "; by rank: prefill ms "
+          + ", ".join(f"{r['j']['prefill_s'] * 1e3:.1f}" for r in res)
+          + f" (one rank {c['one_prefill_s'] * 1e3:.1f}), decode ms a step "
+          + ", ".join(f"{r['j']['decode_s'] * 1e3:.2f}" for r in res)
+          + f" (one rank {c['one_decode_s'] * 1e3:.2f}), part wall s "
+          + ", ".join(f"{r['j']['wall_s']:.1f}" for r in res)
+          + ", peak GiB "
+          + ", ".join(f"{r['j']['peak_bytes'] / 2 ** 30:.2f}" for r in res)
+          + "; train part wall s "
+          + ", ".join(f"{r['j_train']['wall_s']:.1f}" for r in res),
+          flush=True)
+    if heads != SHARD27_UNEVEN_HEADS:
+        fail(f"phase 27 (j): SSM heads by rank {heads}, want "
+             f"{SHARD27_UNEVEN_HEADS}")
+    if not worst <= SHARD27_F32_REL:
+        fail(f"phase 27 (j): f32 rel_l2 {worst} > {SHARD27_F32_REL}")
+    for r in res:
+        if r["j"]["weight_bytes"] != r["j"]["dry_weight_bytes"]:
+            fail("phase 27 (j): per-rank weights differ from the dry run's")
+
+
 def shard27_padded_gates(res, kernels):
-    """Part (h)'s gates on its three ranks' results: granite-3-8b with its
-    heads padded to 9 KV / 36 query slots and ``d_ff`` to 12801, served
-    and trained; returns their launch counts."""
+    """Parts (h) and (j)'s gates on their three ranks' results:
+    granite-3-8b with its heads padded to 9 KV / 36 query slots and
+    ``d_ff`` to 12801, and mamba2-2.7b with its 80 SSM heads as 26, 27
+    and 27, each served and trained; returns their launch counts."""
     _gate_serve("h", "granite-3-8b, heads and d_ff padded", res)
     _gate_train("h_train", "granite-3-8b tensor parallel, padded, data 1 "
                 "x model 3", res[0]["h_train"], res)
+    _gate_uneven(res)
+    _gate_train("j_train", "mamba2-2.7b tensor parallel, 80 SSM heads as "
+                "26, 27, 27, data 1 x model 3", res[0]["j_train"], res)
     return _launch_counts(res, kernels)
 
 
@@ -7300,6 +7455,12 @@ def main() -> None:
         sc_jamba = check_ssd_chunk(torch, dev, H=128, P=128,
                                    cases=((4, 256, "softplus"),
                                           (4, 256, "0.1|randn|")))
+        # rows 7 and 8 at phase 27 (j)'s ranks: mamba2's 80 heads as 26,
+        # 27 and 27 of 64 (a 1024-token prefill, f32)
+        rn_uneven = check_uneven_split_rmsnorm(torch, dev)
+        sc_uneven = {f"H{H}": check_ssd_chunk(torch, dev, H=H,
+                                              cases=((4, 256, "softplus"),))
+                     for H in (26, 27)}
     clock.lap("kernels (phase 3)")
 
     kernels = dict(counters.WRAPPERS)       # every wrapper, by name
@@ -7484,10 +7645,11 @@ def main() -> None:
     end_shard_ranks(ranks)
     counts = phase_sharded(torch, dev, kernels, ranks3,
                            shard27_padded_gates)
-    print(f"[main-path] padded heads and d_ff, three ranks (phase 27 (h)) "
-          f"launches {counts}", flush=True)
+    print(f"[main-path] padded heads and d_ff, uneven SSM heads, three "
+          f"ranks (phase 27 (h), (j)) launches {counts}", flush=True)
     totals = {k: totals[k] + counts[k] for k in totals}
-    clock.lap("padded heads over a mesh of three ranks (phase 27 (h))")
+    clock.lap("padded and uneven heads over three ranks (phase 27 (h), "
+              "(j))")
 
     train_reference(torch, dev)
     clock.lap("train reference (phase 12)")
@@ -7550,15 +7712,17 @@ def main() -> None:
              jamba_shape=rn_jamba, sharded_shape=rn_shard),
         dict(name="ssd_chunk", route="cuda", source=src + "ssd_chunk.cu",
              replaces="src/repro/kernels/ssd_scan/ssd_scan.py:51",
-             launches=m_launches["ssd_chunk"], **sc, jamba_shape=sc_jamba),
+             launches=m_launches["ssd_chunk"], **sc, jamba_shape=sc_jamba,
+             uneven_shapes=sc_uneven),
     ]
     # row 7's split-row entries, launched on phase 27's path only (mamba2's
-    # per-rank prefill shape, jamba's beside it)
+    # per-rank prefill shape, jamba's beside it, (j)'s uneven widths)
     for entry, by_shape in rn_split.items():
         rows.append(dict(
             name=entry, route="cuda", source=src + "fused_rmsnorm.cu",
             replaces="src/repro/kernels/fused_rmsnorm/fused_rmsnorm.py:23",
-            launches=0, **by_shape["mamba2"], jamba_shape=by_shape["jamba"]))
+            launches=0, **by_shape["mamba2"], jamba_shape=by_shape["jamba"],
+            uneven_shapes=rn_uneven[entry]))
     root = os.path.dirname(os.path.abspath(__file__))
     for r in rows:
         r["launches"] += totals[r["name"]]      # phases 19-27

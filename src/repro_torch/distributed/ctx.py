@@ -55,6 +55,7 @@ import itertools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 Logical = Union[None, str, Sequence[str]]
@@ -76,31 +77,46 @@ class HeadSplit(tuple):
 
     def __new__(cls, spec, index, dim: int = -1, holds_pads: bool = False):
         obj = super().__new__(cls, spec)
-        obj.index = tuple(int(i) for i in index)
+        idx = np.asarray(index, dtype=np.int64).reshape(-1)
+        obj.index = tuple(idx.tolist())
+        obj.index_array = idx
         obj.dim = dim
         obj.holds_pads = holds_pads
-        first = {}
-        for j, i in enumerate(obj.index):
-            if i >= 0:
-                first.setdefault(i, j)
-        # the expanded position of each whole unit's first copy
-        obj.first = tuple(first[i] for i in range(len(first)))
+        # the expanded position of each whole unit's first copy (the units
+        # are 0 .. width-1)
+        at = np.flatnonzero(idx >= 0)
+        _, first = np.unique(idx[at], return_index=True)
+        obj.first = tuple(at[first].tolist())
         obj.width = len(obj.first)
+        # at each expanded position, the unit whose first copy it is, else
+        # -1 (:func:`owned_columns`)
+        obj.owner = np.full(len(idx), -1, dtype=np.int64)
+        obj.owner[at[first]] = idx[at[first]]
+        obj._stored = {}
         return obj
+
+    def block(self, mesh: "Mesh", coords=None) -> Tuple[int, int]:
+        """``[lo, hi)`` of the expanded positions of the block of the rank
+        at ``coords`` (default: this rank)."""
+        return block_region(mesh, (len(self.index),), (self[self.dim],),
+                            mesh.coords if coords is None else coords)[0]
 
     def units(self, mesh: "Mesh", coords=None) -> Tuple[int, ...]:
         """The whole units at the expanded positions of the block of the
         rank at ``coords`` (default: this rank), -1 where a slot pads."""
-        lo, hi = block_region(mesh, (len(self.index),), (self[self.dim],),
-                              mesh.coords if coords is None else coords)[0]
+        lo, hi = self.block(mesh, coords)
         return self.index[lo:hi]
 
     def stored(self, mesh: "Mesh", coords=None) -> Tuple[int, ...]:
         """The whole units a rank stores, in order: its block's real units,
         or with ``holds_pads`` every slot (-1 for a zero one)."""
-        units = self.units(mesh, coords)
-        return units if self.holds_pads else tuple(u for u in units
-                                                   if u >= 0)
+        lo, hi = self.block(mesh, coords)
+        if self.holds_pads:
+            return self.index[lo:hi]
+        if (lo, hi) not in self._stored:
+            units = self.index_array[lo:hi]
+            self._stored[lo, hi] = tuple(units[units >= 0].tolist())
+        return self._stored[lo, hi]
 
 
 def expanded_shape(shape, spec) -> tuple:

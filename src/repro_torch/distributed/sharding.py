@@ -22,23 +22,28 @@ holds a layer's block by the entries of the leaf's own dims
 
 Where the reference's rules let GSPMD cut a leaf anywhere and reshard
 after, the port executes blocks that follow the computation: a Mamba-2
-layer's ``model`` rank holds its heads.  ``in_proj`` packs the columns z,
-x, B, C and dt (D, 2 di + 2 N + H), so a contiguous block of them (the
-spec's) mixes all five; the port's rank ``r`` of ``m`` holds z and x of
-heads ``[r H/m, (r+1) H/m)``, B and C whole (one group: they feed every
-head, as in Mamba's own tensor parallelism) and dt of its heads; the same
-channels of ``conv_w``/``conv_b`` and of the ``conv`` cache; its heads of
-``A_log``/``D_skip``/``dt_bias`` (replicated in the spec).
-:func:`param_layouts` and :func:`cache_layouts` give these leaves a
-:class:`~repro_torch.distributed.ctx.HeadSplit` spec in place of the
-reference's.  Where the ``model`` axis does not split the attention heads
-evenly (the reference's spec splits inside a head, or re-homes the axis,
-and GSPMD pads), :func:`head_layout` gives every rank the same query and
-KV head slots: KV heads replicated on several ranks, or padded with zero
-heads; an uneven ``d_ff`` or expert count spreads over the ranks as
-evenly as it goes (:func:`even_blocks`).  Those leaves, and the cache's
-``k``/``v``, take a :class:`HeadSplit` with padding slots; every other
-leaf keeps the sanitized spec.
+layer's ``model`` rank holds whole heads, ``even_blocks(H, m)`` of them
+(26, 27 and 27 of mamba2's 80 on 3 ranks).  ``in_proj`` packs the
+columns z, x, B, C and dt (D, 2 di + 2 N + H), so a contiguous block of
+them (the spec's) mixes all five; the port's rank holds z and x of its
+heads, B and C whole (one group: they feed every head, as in Mamba's own
+tensor parallelism) and dt of its heads; the same channels of
+``conv_w``/``conv_b`` and of the ``conv`` cache; its heads of
+``A_log``/``D_skip``/``dt_bias`` (replicated in the spec) and of the
+``ssm`` cache; its heads' rows of ``out_proj`` and columns of the gated
+norm's ``scale``.  :func:`param_layouts` and :func:`cache_layouts` give
+these leaves a :class:`~repro_torch.distributed.ctx.HeadSplit` spec in
+place of the reference's, whatever the sanitized spec kept of ``model``
+(where it does not divide a dim it re-homes or drops the axis).  Where
+the ``model`` axis does not split the attention heads evenly (the
+reference's spec splits inside a head, or re-homes the axis, and GSPMD
+pads), :func:`head_layout` gives every rank the same query and KV head
+slots: KV heads replicated on several ranks, or padded with zero heads;
+an uneven ``d_ff``, expert count or SSM head count spreads over the ranks
+as evenly as it goes (:func:`even_blocks`; a rank past the last expert
+holds none).  Those leaves, and the cache's ``k``/``v``, take a
+:class:`HeadSplit` with padding slots; every other leaf keeps the
+sanitized spec.
 """
 from __future__ import annotations
 
@@ -160,11 +165,17 @@ def param_specs(cfg: ArchConfig, params, mode: str):
 
 def sanitized_param_specs(cfg: ArchConfig, params, mode: str, mesh):
     """:func:`param_specs` repaired by :func:`sanitize_spec` on each
-    leaf's stacked shape, as the reference's ``sanitize_specs`` does."""
+    leaf's stacked shape, as the reference's ``sanitize_specs`` does (once
+    for each stacked leaf: its layers share it)."""
+    done = {}
+
     def visit(path, leaf):
-        ref_path, shape = ref_leaf(cfg, path, leaf.shape)
-        return sanitize_spec(shape, param_partition_spec(
-            cfg, ref_path, shape, mode), mesh)
+        key = ref_leaf(cfg, path, leaf.shape)
+        if key not in done:
+            ref_path, shape = key
+            done[key] = sanitize_spec(shape, param_partition_spec(
+                cfg, ref_path, shape, mode), mesh)
+        return done[key]
     return map_with_path(visit, params)
 
 
@@ -281,47 +292,54 @@ def sanitize_specs(shape_tree, spec_tree, mesh):
 
 # --------------------------------------------------- the port's Mamba blocks
 
-# the Mamba leaves the port holds by heads, and what their last dim holds:
-# the packed projection, the conv's channels, one entry per head
-MAMBA_LEAVES = {"in_proj": "proj", "conv_w": "conv", "conv_b": "conv",
-                "A_log": "head", "D_skip": "head", "dt_bias": "head"}
+# the Mamba leaves the port holds by heads: the kind of their split dim
+# (:func:`head_split_index`) and the dim.  The packed projection, the
+# conv's channels, one entry per head, and the heads' ``d_inner`` columns
+# (``out_proj``'s rows, the gated norm's columns)
+MAMBA_LEAVES = {"in_proj": ("proj", -1), "conv_w": ("conv", -1),
+                "conv_b": ("conv", -1), "A_log": ("head", -1),
+                "D_skip": ("head", -1), "dt_bias": ("head", -1),
+                "out_proj": ("inner", -2)}
 
 
-def head_split_index(cfg: ArchConfig, m: int, kind: str) -> list:
-    """The whole leaf's column at each position of the expanded last dim
+def head_split_index(cfg: ArchConfig, m: int, kind: str) -> np.ndarray:
+    """The whole leaf's column at each position of the expanded split dim
     of a Mamba leaf of ``kind`` (``proj``: in_proj's z, x, B, C, dt;
-    ``conv``: x, B, C; ``head``: one per head) on a ``model`` axis of
-    ``m``: rank by rank, its heads' z and x, B and C whole, its dt."""
-    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    ``conv``: x, B, C; ``head``: one per head; ``inner``: the ``d_inner``
+    columns of its heads) on a ``model`` axis of ``m``: rank by rank, its
+    heads (:func:`even_blocks`, padded to ``ceil(H / m)`` slots, -1 a
+    padding slot) in z and x, B and C whole, its heads in dt."""
+    di, N, H, P = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
+                   cfg.ssm_headdim)
+    blocks, slots = even_blocks(H, m), -(-H // m)
+    bc = np.arange(2 * N)
+
+    def shift(index, by):                # padding slots stay -1
+        return np.where(index >= 0, index + by, -1)
     out = []
-    for r in range(m):
-        xs = list(range(r * di // m, (r + 1) * di // m))
-        hs = range(r * H // m, (r + 1) * H // m)
+    for hs in blocks:
+        cols = unit_index([hs], slots, P)
+        heads = unit_index([hs], slots)
         if kind == "proj":
-            out += xs + [di + i for i in xs] + list(range(2 * di,
-                                                          2 * di + 2 * N))
-            out += [2 * di + 2 * N + h for h in hs]
+            out += [cols, shift(cols, di), bc + 2 * di,
+                    shift(heads, 2 * di + 2 * N)]
         elif kind == "conv":
-            out += xs + list(range(di, di + 2 * N))
+            out += [cols, bc + di]
         else:
-            out += list(hs)
-    return out
+            out.append(cols if kind == "inner" else heads)
+    return np.concatenate(out)
 
 
-def _head_split(cfg: ArchConfig, kind: str, spec: Spec, mesh: Mesh):
+def _head_split(cfg: ArchConfig, kind: str, spec: Spec, mesh: Mesh,
+                dim: int = -1):
     """``spec`` (sanitized, on the stacked leaf) as the port's
-    :class:`HeadSplit` of a Mamba leaf of ``kind``, or the spec itself
-    where the ``model`` axis has one rank or the spec does not split the
-    last dim over ``model`` alone (:meth:`Model._check_layout` refuses
-    that layout)."""
+    :class:`HeadSplit` of a Mamba leaf of ``kind`` over its dim ``dim``,
+    ``model`` taken off every other dim; the spec itself where the
+    ``model`` axis has one rank."""
     m = mesh.sizes.get("model", 1)
-    spec = tuple(spec)
-    last = _as_tuple(spec[-1]) if spec else ()
-    if m == 1 or (kind != "head" and last != ("model",)) or \
-            (kind == "head" and last):
-        return spec
-    return HeadSplit(spec[:-1] + ("model",),
-                     head_split_index(cfg, m, kind))
+    if m == 1:
+        return tuple(spec)
+    return _split_on(tuple(spec), dim, head_split_index(cfg, m, kind))
 
 
 # ----------------------------------------- heads, d_ff and experts padded
@@ -371,15 +389,14 @@ def even_blocks(n: int, m: int) -> list:
     return [list(range(c * n // m, (c + 1) * n // m)) for c in range(m)]
 
 
-def unit_index(blocks, slots: int, unit: int = 1) -> list:
+def unit_index(blocks, slots: int, unit: int = 1) -> np.ndarray:
     """The expanded index of ranks holding ``blocks`` (each rank's units,
     padded to ``slots``), each unit ``unit`` columns wide."""
-    out = []
-    for units in blocks:
-        units = list(units) + [-1] * (slots - len(units))
-        out += [u * unit + i if u >= 0 else -1
-                for u in units for i in range(unit)]
-    return out
+    out = np.full((len(blocks), slots, unit), -1, dtype=np.int64)
+    for r, units in enumerate(blocks):
+        units = np.asarray(units, dtype=np.int64)
+        out[r, :len(units)] = units[:, None] * unit + np.arange(unit)
+    return out.reshape(-1)
 
 
 # the attention leaves held by heads: which heads, and the dim they lie on
@@ -429,50 +446,68 @@ def param_layouts(cfg: ArchConfig, params, mode: str, mesh: Mesh,
     """The spec tree by which the port holds ``params`` (whole leaves or
     anything with ``.shape``) on ``mesh``: ``specs`` (default
     :func:`sanitized_param_specs`), with each Mamba leaf of
-    :data:`MAMBA_LEAVES` under a layer's ``ssm`` as its :class:`HeadSplit`,
-    each attention, dense-FFN and MoE leaf whose heads, ``d_ff`` or
-    experts the ``model`` axis does not split evenly as the
-    :class:`HeadSplit` of :func:`_unit_split` (the reference's spec would
-    split inside a unit or re-home the axis; GSPMD pads), and a spec that
-    splits a layer stack replaced by the leaf's own rule on its per-layer
-    shape (the reference's MoE rule, which reads the stacked shape, takes
-    a hybrid's stack of 4 dense FFNs for experts when there are 4 experts,
-    as in jamba's smoke config, and puts ``model`` on the stack; the port
-    holds every layer on every rank, so such a leaf is held as the dense
-    FFN it is)."""
+    :data:`MAMBA_LEAVES` under a layer's ``ssm`` (and its gated norm) as
+    its :class:`HeadSplit`, each attention, dense-FFN and MoE leaf whose
+    heads, ``d_ff`` or experts the ``model`` axis does not split evenly as
+    the :class:`HeadSplit` of :func:`_unit_split` (the reference's spec
+    would split inside a unit or re-home the axis; GSPMD pads), and a spec
+    that splits a layer stack replaced by the leaf's own rule sanitized on
+    its per-layer shape (the reference's MoE rule, which reads the stacked
+    shape, takes a hybrid's stack of 4 dense FFNs for experts when there
+    are 4 experts, as in jamba's smoke config, and puts ``model`` on the
+    stack; ``sanitize_spec`` re-homes an axis that divides no dim of a
+    layer onto a stack, as ``data`` 3 onto jamba's stacks of 3 Mamba
+    layers; the port holds every layer on every rank, so such a leaf is
+    held as the layer it is, an axis that fits none of its dims dropped).
+    The layers of one stack share their specs, so each is worked out
+    once."""
     if specs is None:
         specs = sanitized_param_specs(cfg, params, mode, mesh)
     m = mesh.sizes.get("model", 1)
+    done = {}
 
     def visit(path, leaf):
         spec = spec_at(specs, path)
-        extra = len(spec) - len(leaf.shape)
-        if extra > 0 and any(_as_tuple(e) for e in spec[:extra]):
-            ref_path, stacked = ref_leaf(cfg, path, leaf.shape)
-            own = param_partition_spec(cfg, ref_path, tuple(leaf.shape),
-                                       mode)
-            spec = sanitize_spec(stacked, (None,) * extra + tuple(own),
-                                 mesh)
-        split = _unit_split(cfg, path, leaf, params, m) if m > 1 else None
-        if split is not None:
-            return _split_on(spec, *split)
-        kind = MAMBA_LEAVES.get(path[-1])
-        if kind and len(path) >= 2 and path[-2] == "ssm":
-            return _head_split(cfg, kind, spec, mesh)
-        return spec
+        ref_path, stacked = ref_leaf(cfg, path, leaf.shape)
+        moe = "router" in spec_at(params, path[:-1])
+        key = (ref_path, stacked, tuple(spec), moe)
+        if key not in done:
+            done[key] = _layout(cfg, path, leaf, params, spec, mode, mesh, m)
+        return done[key]
     return map_with_path(visit, params)
+
+
+def _layout(cfg, path, leaf, params, spec, mode, mesh, m):
+    """One leaf's spec by :func:`param_layouts`."""
+    extra = len(spec) - len(leaf.shape)
+    if extra > 0 and any(_as_tuple(e) for e in spec[:extra]):
+        shape = tuple(leaf.shape)
+        own = param_partition_spec(cfg, ref_leaf(cfg, path, shape)[0],
+                                   shape, mode)
+        spec = (None,) * extra + sanitize_spec(shape, own, mesh)
+    split = _unit_split(cfg, path, leaf, params, m) if m > 1 else None
+    if split is not None:
+        return _split_on(spec, *split)
+    if path[-3:-1] == ("ssm", "gate_norm"):
+        return _head_split(cfg, "inner", spec, mesh)
+    if path[-2:-1] == ("ssm",) and path[-1] in MAMBA_LEAVES:
+        kind, dim = MAMBA_LEAVES[path[-1]]
+        return _head_split(cfg, kind, spec, mesh, dim)
+    return spec
 
 
 def cache_layouts(cfg: ArchConfig, shapes: Dict[str, tuple],
                   shape: ShapeSpec, mesh) -> Dict[str, Spec]:
     """The sanitized cache specs of a cache of ``shapes`` (whole shapes by
-    key) as the port holds it: the ``conv`` state's channels by
-    :func:`_head_split`; where the ``model`` axis does not split the KV
-    heads evenly, each rank's KV head slots of ``k``/``v`` (and the cross
-    ``xk``/``xv``) by :func:`head_layout`, padding slots held as zeros."""
+    key) as the port holds it: the ``conv`` state's channels and the
+    ``ssm`` state's heads by :func:`_head_split` (a rank's real heads
+    only); where the ``model`` axis does not split the KV heads evenly,
+    each rank's KV head slots of ``k``/``v`` (and the cross ``xk``/``xv``)
+    by :func:`head_layout`, padding slots held as zeros."""
     specs = sanitize_specs(shapes, cache_specs(cfg, shape, mesh), mesh)
     if "conv" in specs:
         specs["conv"] = _head_split(cfg, "conv", specs["conv"], mesh)
+        specs["ssm"] = _head_split(cfg, "head", specs["ssm"], mesh, -3)
     m = mesh.sizes.get("model", 1)
     if cfg.family != "ssm" and cfg.num_kv_heads % m:
         lay = head_layout(cfg, m)
@@ -491,14 +526,10 @@ def owned_columns(spec: Spec, mesh: Mesh) -> Optional[torch.Tensor]:
     None for any other spec (every position)."""
     if not isinstance(spec, HeadSplit):
         return None
-    lo = block_region(mesh, (len(spec.index),), (spec[spec.dim],),
-                      mesh.coords)[0][0]
-    units = spec.units(mesh)
-    stored = [j for j, u in enumerate(units) if u >= 0 or spec.holds_pads]
-    return torch.tensor([i for i, j in enumerate(stored)
-                         if units[j] >= 0
-                         and spec.first[units[j]] == lo + j],
-                        dtype=torch.long)
+    lo, hi = spec.block(mesh)
+    units = spec.index_array[lo:hi]
+    stored = np.flatnonzero((units >= 0) | spec.holds_pads)
+    return torch.from_numpy(np.flatnonzero(spec.owner[lo + stored] >= 0))
 
 
 def local_shape(shape, spec: Spec, mesh: Mesh) -> tuple:

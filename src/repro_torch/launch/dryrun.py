@@ -37,13 +37,14 @@ remat unit's input alone.
 Per-rank bytes follow the blocks the port holds (``Model.layouts``):
 where a Mamba layer's rank holds B and C whole and its heads of the SSM
 constants, or a rank holds its attention head slots, its part of an
-unevenly split ``d_ff`` or of the experts (``distributed/sharding.py``),
-the record gives the largest rank's bytes and the spec's figure beside
+unevenly split ``d_ff``, SSM head count or expert count
+(``distributed/sharding.py``), the record gives the largest rank's bytes,
+each ``model`` rank's total (``rank_bytes``) and the spec's figure beside
 them (``spec_param_bytes``, ``spec_opt_state_bytes``,
 ``spec_cache_bytes``).  The ``long_500k`` cell, whose KV sequence the
 spec splits over ``data``, runs its rank's step with ``seq_split``.  A
-cell the port cannot execute sharded (SSM heads the ``model`` axis does
-not split whole) records its memory and roofline with ``"collectives":
+cell whose rank ``Model`` refuses to construct (an option that does not
+fit the mesh) records its memory and roofline with ``"collectives":
 null`` and the reason.  Results append to a JSONL file, so the sweep is
 resumable.
 """
@@ -118,42 +119,50 @@ def _bytes(shapes: dict, specs: dict, mesh: Mesh) -> int:
                for k, (s, dt) in shapes.items())
 
 
+def model_ranks(mesh: Mesh) -> list:
+    """``mesh`` at each coordinate of its ``model`` axis, the other
+    coordinates ``mesh.coords``'s."""
+    if "model" not in mesh.axis_names:
+        return [mesh]
+    axis = mesh.axis_names.index("model")
+    out = []
+    for c in range(mesh.shape[axis]):
+        coords = list(mesh.coords)
+        coords[axis] = c
+        out.append(Mesh(mesh.axis_names, mesh.shape, coords=coords))
+    return out
+
+
 def param_bytes(cfg, whole, mode: str, mesh: Mesh, spec: bool = False,
                 ranks: bool = False):
     """Bytes of the params (and, in ``train`` mode, of the f32 AdamW
     moments ``m`` and ``v``) of the rank at ``mesh.coords``, summed over
     the reference's stacked leaves by the blocks the port holds
     (``sharding.param_layouts``), or with ``spec`` by the reference's
-    sanitized specs; with ``ranks``, the largest over the ``model``
-    axis's ranks (where they hold unequal blocks)."""
+    sanitized specs; with ``ranks``, a list of them, one for each rank of
+    the ``model`` axis (:func:`model_ranks`: they hold unequal blocks
+    where the axis does not split heads, ``d_ff`` or experts evenly)."""
     specs = (sanitized_param_specs if spec else param_layouts)(
         cfg, whole, mode, mesh)
     stacked = {}
     for path, t in tree_leaves(whole):
         ref, shape = ref_leaf(cfg, path, t.shape)
         stacked[ref] = (shape, spec_at(specs, path), t.element_size())
-    out = (0, 0)
-    axis = mesh.axis_names.index("model") if "model" in mesh.axis_names \
-        else None
-    for c in range(mesh.sizes["model"] if ranks and axis is not None
-                   else 1):
-        at = mesh
-        if ranks:
-            coords = list(mesh.coords)
-            coords[axis] = c
-            at = Mesh(mesh.axis_names, mesh.shape, coords=coords)
+    out = []
+    for at in (model_ranks(mesh) if ranks else [mesh]):
         p = sum(math.prod(local_shape(s, sp, at)) * item
                 for s, sp, item in stacked.values())
         m = sum(math.prod(local_shape(s, sp, at)) * 4
                 for s, sp, _ in stacked.values())
-        out = max(out, (p, 2 * m + 4 if mode == "train" else 0))
-    return out
+        out.append((p, 2 * m + 4 if mode == "train" else 0))
+    return out if ranks else out[0]
 
 
 def _refusal(cfg, shape, mesh, opt) -> str:
-    """Why the port cannot run this cell sharded ('' when it can)."""
+    """Why the port cannot run this cell sharded ('' when it can): what
+    the rank's ``Model`` refuses to construct with ``opt`` on ``mesh``."""
     try:
-        Model._check_mesh(cfg, mesh, opt.get("pad_experts_to", 0))
+        _model_for(cfg, opt, mesh)
     except ValueError as e:
         return f"{shape.name}: {e}"
     return ""
@@ -251,7 +260,7 @@ def dry_cell(arch: str, shape_name: str, mesh: Mesh, *, opt: dict = None,
     one = _model_for(cfg, opt)
     whole = one.init(torch.Generator())
     mode = "train" if shape.kind == "train" else "serving"
-    p_bytes, opt_bytes = param_bytes(cfg, whole, mode, mesh, ranks=True)
+    per_rank = param_bytes(cfg, whole, mode, mesh, ranks=True)
     spec_bytes = dict(zip(("spec_param_bytes", "spec_opt_state_bytes"),
                           param_bytes(cfg, whole, mode, mesh, spec=True)))
     ins = input_shapes(cfg, shape, one)
@@ -259,13 +268,18 @@ def dry_cell(arch: str, shape_name: str, mesh: Mesh, *, opt: dict = None,
     shapes_b = {k: v for k, v in ins.items() if k != "cache"}
     b_bytes = _bytes(shapes_b, sanitize_specs(
         {k: s for k, (s, _) in shapes_b.items()}, bspec, mesh), mesh)
-    c_bytes = 0
+    c_per = [0] * len(per_rank)
     if "cache" in ins:
         cs = ins["cache"]
         shapes_c = {k: s for k, (s, _) in cs.items()}
         cspec = sanitize_specs(shapes_c, cache_specs(cfg, shape, mesh), mesh)
-        c_bytes = _bytes(cs, cache_layouts(cfg, shapes_c, shape, mesh), mesh)
+        clay = cache_layouts(cfg, shapes_c, shape, mesh)
+        c_per = [_bytes(cs, clay, at) for at in model_ranks(mesh)]
         spec_bytes["spec_cache_bytes"] = _bytes(cs, cspec, mesh)
+    # each rank of the ``model`` axis: params, moments, cache and batch
+    rank_bytes = [p + o + c + b_bytes for (p, o), c in zip(per_rank, c_per)]
+    p_bytes, opt_bytes = max(per_rank)
+    c_bytes = max(c_per)
     own = {"spec_param_bytes": p_bytes, "spec_opt_state_bytes": opt_bytes,
            "spec_cache_bytes": c_bytes}
     spec_bytes = {k: n for k, n in spec_bytes.items() if n != own[k]}
@@ -288,7 +302,8 @@ def dry_cell(arch: str, shape_name: str, mesh: Mesh, *, opt: dict = None,
         "device": roofline.DEVICE, "opt": opt,
         "memory": {"param_bytes": p_bytes, "opt_state_bytes": opt_bytes,
                    "cache_bytes": c_bytes, "batch_bytes": b_bytes,
-                   "total_bytes": p_bytes + opt_bytes + c_bytes + b_bytes,
+                   "total_bytes": max(rank_bytes),
+                   "rank_bytes": rank_bytes,
                    **spec_bytes,
                    **({} if saved is None else
                       {"saved_activation_bytes": saved})},

@@ -55,18 +55,18 @@ def apply_norm(cfg: ArchConfig, p, x, eps: float = 1e-5, *,
     host time per call (the decode steps); ``use_kernel=False`` takes the
     plain version on any device.  LayerNorm stays plain.
 
-    ``over_model``: x holds this rank's columns of rows split over the
-    ``model`` axis (Mamba-2's gated norm over ``d_inner``, each rank
-    holding its heads' columns).  Where that axis has more than one rank
-    the norm takes the split form (:func:`_split_rmsnorm`); elsewhere it is
-    the norm above, bit for bit."""
+    ``over_model``: x holds this rank's columns of rows of ``d_inner``
+    split over the ``model`` axis (Mamba-2's gated norm, each rank holding
+    its heads' columns, as many as its heads: the ranks may hold unequal
+    widths).  Where that axis has more than one rank the norm takes the
+    split form (:func:`_split_rmsnorm`) over the config's ``d_inner``;
+    elsewhere it is the norm above, bit for bit."""
     if cfg.norm_type != "layernorm":
         rows = x.reshape(-1, x.shape[-1]).contiguous()
         scale = p["scale"]
         m = axis_index("model")[1] if over_model else 1
         if m > 1:
-            y = _split_rmsnorm(rows, scale, rows.shape[1] * m, eps,
-                               use_kernel)
+            y = _split_rmsnorm(rows, scale, cfg.d_inner, eps, use_kernel)
         elif not use_kernel:
             y = rmsnorm_ref(rows, scale, eps)
         elif torch.is_grad_enabled() and (rows.requires_grad
@@ -452,7 +452,12 @@ def _dispatch_compute_combine(cfg, p, xg, gate_w, gate_idx, E_alloc,
         h = _act(cfg, h)
     out = torch.matmul(h, p["wo"])                       # (G, E, cap, D)
     outf = out.reshape(G, rows, D)
-    safe = torch.clamp(dest, 0, rows - 1)
+    if rows == 0:
+        # a share of no expert (fewer experts than ``model`` ranks): one
+        # zero row to gather from, the products kept in the graph so that
+        # the backward's ``model`` collectives run on every rank
+        outf = torch.cat([outf, outf.new_zeros((G, 1, D))], dim=1)
+    safe = torch.clamp(dest, 0, outf.shape[1] - 1)
     gathered = torch.gather(outf, 1, safe[..., None].expand(G, Tg * K, D))
     gathered = torch.where(held[..., None], gathered,
                            torch.zeros_like(gathered))

@@ -16,15 +16,16 @@ versions on any device.
 
 Under tensor parallelism (a mesh whose ``model`` axis has m > 1 ranks) a
 block's parameters are the rank's heads (``distributed/sharding.py``:
-``in_proj`` columns z and x of its H/m heads, B and C whole, dt of its
-heads; the conv's channels likewise; its heads of ``A_log``, ``D_skip``,
-``dt_bias``, of the gated norm's scale and of ``out_proj``'s rows).  The
-block then takes its input through ``copy_to``, runs the conv, the SSD
-scan and the recurrent step on its heads (B and C on every rank), the
-gated norm over ``d_inner`` in its split form (the sum of squares summed
-over the ranks) and ``out_proj``'s partial sum through ``reduce_from``.
-The sizes come from the parameters, so one code path serves one device
-and a rank.
+``in_proj`` columns z and x of its heads, ``even_blocks(H, m)``: H/m
+where m divides H, else 26, 27 and 27 of 80 on 3 ranks; B and C whole,
+dt of its heads; the conv's channels likewise; its heads of ``A_log``,
+``D_skip``, ``dt_bias``, of the gated norm's scale and of ``out_proj``'s
+rows).  The block then takes its input through ``copy_to``, runs the
+conv, the SSD scan and the recurrent step on its heads (B and C on every
+rank), the gated norm over ``d_inner`` in its split form (the sum of
+squares summed over the ranks) and ``out_proj``'s partial sum through
+``reduce_from``.  The sizes come from the parameters, so one code path
+serves one device and a rank, whatever its count of heads.
 """
 from __future__ import annotations
 
@@ -103,8 +104,8 @@ def init_mamba_block(cfg: ArchConfig, gen: torch.Generator, dtype,
 
 
 def _sizes(cfg: ArchConfig, p):
-    """``(di, N, H, P)`` of the block ``p``: its heads (H/m of a rank's
-    block, all of them on one device), their ``di = H P`` columns, the
+    """``(di, N, H, P)`` of the block ``p``: its heads (a rank's share
+    of them, all of them on one device), their ``di = H P`` columns, the
     state size and the head dim."""
     H = p["A_log"].shape[0]
     return H * cfg.ssm_headdim, cfg.ssm_state, H, cfg.ssm_headdim

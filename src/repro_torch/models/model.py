@@ -44,7 +44,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import ctx as C
-from repro_torch.distributed.sharding import (head_layout, map_with_path,
+from repro_torch.distributed.sharding import (even_blocks, head_layout,
+                                              map_with_path,
                                               param_layouts,
                                               sanitized_param_specs,
                                               shard_params, spec_at)
@@ -98,7 +99,16 @@ def expert_range(cfg: ArchConfig, expert_shard=(0, 1)):
     return index * E // count, (index + 1) * E // count
 
 
-SHARDING_ITEM = "ROADMAP.md Queue 1 item 5"
+@functools.lru_cache(maxsize=8)
+def _meta_whole(cfg: ArchConfig, pad_experts_to: int):
+    """The whole model's parameters as meta tensors (shapes only), one
+    tree for every ``Model`` of ``cfg`` (read, never written)."""
+    return Model(cfg, pad_experts_to=pad_experts_to, device="meta").init(
+        torch.Generator())
+
+
+# where the roadmap keeps the engine calls that no mesh runs
+SHARDING_ITEM = "ROADMAP.md Queue 1, \"Not queued: sharded engine calls\""
 
 
 def _sharded(method):
@@ -123,7 +133,7 @@ def _one_rank(method):
         if self.mesh is not None and self.mesh.size > 1:
             raise ValueError(
                 f"{method.__name__} does not run sharded "
-                f"({self.mesh.describe()}); sharded engine calls wait in "
+                f"({self.mesh.describe()}), as the reference's; see "
                 f"{SHARDING_ITEM}")
         return method(self, *args, **kwargs)
     return run
@@ -267,9 +277,11 @@ class Model:
     (``sharding.head_layout``: a KV head replicated on several ranks, or
     padded with zero heads), so the attention sees an ordinary GQA shape
     (``self.heads``); a padding head is built by the forward, never a
-    parameter, and adds exactly 0.  ``d_ff`` and experts that ``model``
-    does not split evenly spread over the ranks as evenly as they go
-    (padding units are layout only: a rank computes its real ones).
+    parameter, and adds exactly 0.  ``d_ff``, experts and SSM heads that
+    ``model`` does not split evenly spread over the ranks as evenly as
+    they go (padding units are layout only: a rank computes its real
+    ones, :attr:`ssm_heads` of a Mamba layer; a rank past the last expert
+    holds none and adds 0 to the exchange).
     Every family runs sharded: :meth:`prefill` and :meth:`decode_step`
     take the rank's block of the serving-mode params (:meth:`shard`, by
     :meth:`layouts`), its rows of the batch and its heads of the cache
@@ -279,9 +291,9 @@ class Model:
     takes the train-mode (FSDP x TP) blocks and gathers each layer's
     ``data`` shards just before its use.  :meth:`init` draws the whole
     model (or, given a ``mode``, keeps the rank's blocks layer by layer).
-    SSM heads that ``model`` does not split whole and the engine's entry
-    points (paged, chunk, pack and verify calls) raise on a mesh of more
-    than one rank.
+    The engine's entry points (paged, chunk, pack and verify calls) raise
+    on a mesh of more than one rank; every mesh whose specs the
+    reference's ``sanitize_spec`` accepts constructs and runs.
 
     ``remat`` (default True, the reference's) rematerialises the
     whole-sequence stacks where grad is enabled and an input requires it
@@ -315,19 +327,23 @@ class Model:
         # (query slots, KV slots, ranks a KV head is on) where ``model``
         # does not split the heads evenly
         self.heads = None
+        # the SSM heads a rank's Mamba layers hold (``sharding.even_blocks``)
+        self.ssm_heads = cfg.ssm_heads if cfg.has_ssm else 0
         if mesh is not None:
-            self._check_mesh(cfg, mesh, pad_experts_to)
             m, c = mesh.sizes.get("model", 1), mesh.coord("model")
             if cfg.family != "ssm" and cfg.num_kv_heads % m:
                 self.heads = head_layout(cfg, m)[:3]
+            if cfg.has_ssm:
+                self.ssm_heads = len(even_blocks(cfg.ssm_heads, m)[c])
             if cfg.has_moe and m > 1:
                 # the share (default every expert) split over ``model``:
                 # evenly where a share is given (its layouts follow the
-                # whole layer's), else as evenly as the experts go
+                # whole layer's), else as evenly as the experts go (a
+                # rank past the last expert holds none and adds 0)
                 lo, hi = self.share or (0, max(cfg.num_experts,
                                                pad_experts_to))
                 n = hi - lo
-                if n < m or (self.share and n % m):
+                if self.share and n % m:
                     raise ValueError(
                         f"the share of {n} experts does not split evenly "
                         f"over the 'model' axis of {m}")
@@ -350,33 +366,9 @@ class Model:
         return L.apply_norm(self.cfg, p, x, use_kernel=self.use_kernels)
 
     # ---------------------------------------------------------------- mesh
-    @staticmethod
-    def _check_mesh(cfg: ArchConfig, mesh, pad_experts_to: int) -> None:
-        """Refuse what the port cannot execute on ``mesh``: SSM heads that
-        the ``model`` axis does not split whole (no reference cell needs
-        them padded), and fewer experts than its ranks (a rank would hold
-        padding only)."""
-        if mesh.size == 1:
-            return
-        where = f"{cfg.name} on a mesh of {mesh.describe()}"
-        m = mesh.sizes.get("model", 1)
-        if cfg.has_ssm and cfg.ssm_heads % m:
-            raise ValueError(
-                f"{where}: {cfg.ssm_heads} SSM heads do not split whole "
-                f"over the 'model' axis of {m} (padded SSM heads wait in "
-                f"{SHARDING_ITEM})")
-        E = max(cfg.num_experts, pad_experts_to)
-        if cfg.has_moe and E < m:
-            raise ValueError(f"{where}: {E} experts do not split over the "
-                             f"'model' axis of {m}")
-
     def _whole_shapes(self):
         """The whole model's parameters as meta tensors (shapes only)."""
-        if "whole" not in self._layouts:
-            whole = Model(self.cfg, kv_dtype=self.kv_dtype,
-                          pad_experts_to=self.pad_experts_to, device="meta")
-            self._layouts["whole"] = whole.init(torch.Generator())
-        return self._layouts["whole"]
+        return _meta_whole(self.cfg, self.pad_experts_to)
 
     def specs(self, mode: str = "serving"):
         """The sanitized spec of every parameter leaf on the model's mesh
@@ -419,12 +411,17 @@ class Model:
         Mamba ``in_proj``, rows of each ``wo`` and of ``out_proj``, the
         channels of the conv, the heads of the SSM constants, the gated
         norm's columns, the expert axis of an MoE, either dim of ``embed``
-        and ``lm_head`` (vocab or d_model), nothing else split."""
+        and ``lm_head`` (vocab or d_model), nothing else split (once for
+        each spec: the layers of a stack share theirs)."""
         if self.mesh is None or self.mesh.sizes.get("model", 1) == 1:
             return
         whole, specs = self._whole_shapes(), self.layouts(mode)
+        seen = set()
         for path, leaf in tree_leaves(whole):
             spec = spec_at(specs, path)
+            if (id(spec), path[-2:]) in seen:
+                continue
+            seen.add((id(spec), path[-2:]))
             own = C._entries(spec, leaf.dim())
             dims = [i for i, e in enumerate(own) if "model" in e]
             name = path[-1]
@@ -1529,9 +1526,9 @@ class Model:
         ``ssm`` (g, 7, batch, ...), the reference's layout.  On a mesh
         whose ``model`` axis has m ranks a rank's cache holds its heads:
         KVH/m of ``k``/``v`` and ``xk``/``xv`` (its KV head slots where
-        the axis does not split them evenly: :attr:`heads`), H/m of
-        ``ssm`` and the conv channels of its heads with B and C (di/m + 2
-        N)."""
+        the axis does not split them evenly: :attr:`heads`), its
+        :attr:`ssm_heads` of ``ssm`` and the conv channels of those heads
+        with B and C (their P columns each, + 2 N)."""
         cfg = self.cfg
         kvd = dtype_of(self.kv_dtype)
         n = cfg.num_layers
@@ -1546,9 +1543,11 @@ class Model:
         if cfg.family in ("ssm", "hybrid"):
             lead = ((hybrid_groups(cfg), len(HYBRID_SSM_J))
                     if cfg.family == "hybrid" else (n,))
+            h = self.ssm_heads
             out["conv"] = ((*lead, batch, cfg.conv_width - 1,
-                            cfg.d_inner // m + 2 * cfg.ssm_state), self.dtype)
-            out["ssm"] = ((*lead, batch, cfg.ssm_heads // m, cfg.ssm_headdim,
+                            h * cfg.ssm_headdim + 2 * cfg.ssm_state),
+                           self.dtype)
+            out["ssm"] = ((*lead, batch, h, cfg.ssm_headdim,
                            cfg.ssm_state), dtype_of(self.ssm_state_dtype))
         if cfg.is_encoder_decoder:
             xshape = (n, batch, cfg.cross_kv_len, kvh, cfg.hd)

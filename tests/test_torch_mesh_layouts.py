@@ -14,7 +14,11 @@ meshes:
   head slots, rank 0's all padding, and ``d_ff`` 128 as 42, 43, 43;
   qwen1.5, 4 = 4 heads with QKV bias as 6 = 6 slots; granite-moe, 4
   experts as 1, 1, 2 of 6 slots, and with the reference's
-  ``pad_experts_to`` 6, 2 a rank, the padding experts rank 2's);
+  ``pad_experts_to`` 6, 2 a rank, the padding experts rank 2's); SSM
+  heads the axis does not split whole (smoke mamba2's 8 as 2, 3, 3, the
+  conv and SSM state by the same heads; smoke jamba's 8 as 2, 3, 3 and its
+  4 experts as 1, 1, 2); fewer experts than ranks (granite-moe with 2
+  experts, top 2: rank 0's share empty);
 - (data 2, model 2) with a global batch of 1: the context-split decode
   cache (jamba, a prompt of 12 in a cache of 20 split at 10; granite with
   one KV head, replicated on both ``model`` ranks, a prompt of 6 in a
@@ -23,7 +27,8 @@ meshes:
   gradient summed over its ranks, then reduce-scattered over ``data``).
 
 Each serve's prefill and 8 decode steps equal one rank within 1e-5 and
-the JAX model within the port's tolerance; its decode cache, gathered by
+the JAX model within the port's tolerance (the f32 2e-5 for the SSM
+layouts and the empty share); its decode cache (every leaf), gathered by
 ``sharding.cache_layouts``, equals one rank's, and its padding head slots
 are exactly 0.  Two AdamW steps follow one rank as
 ``test_torch_distributed`` holds them (loss, norm, every gradient leaf,
@@ -51,20 +56,28 @@ CONFIGS = {"granite": ("granite-3-8b", {}, {}),
            "qwen": ("qwen1.5-32b", {}, {}),
            "granite-kv1": ("granite-3-8b", {"num_kv_heads": 1}, {}),
            "granite-moe-pad": ("granite-moe-3b-a800m", {},
-                               {"pad_experts_to": 6})}
+                               {"pad_experts_to": 6}),
+           "mamba2": ("mamba2-2.7b", {}, {}),
+           "granite-moe-e2": ("granite-moe-3b-a800m",
+                              {"num_experts": 2, "top_k": 2}, {})}
+# the f32 tolerance against the JAX model where it is not the port's 1e-4
+JAX_ATOL = {**D.JAX_ATOL, "granite-moe-e2": 2e-5}
 # each config's serve on every mesh that runs it: (batch, prompt, cache
 # positions); a batch of 1 splits the cache's positions over ``data``
 SERVE = {"granite": (1, 6, 16), "granite-moe": (2, 12, 20),
          "jamba": (1, 12, 20), "qwen": (2, 12, 20),
-         "granite-kv1": (1, 6, 16), "granite-moe-pad": (2, 12, 20)}
+         "granite-kv1": (1, 6, 16), "granite-moe-pad": (2, 12, 20),
+         "mamba2": (2, 12, 20), "granite-moe-e2": (2, 12, 20)}
 # per mesh: the served configs, the trained ones and the mesh each one's
 # checkpoint restores onto
 JOBS = {"1x4": dict(mesh=(1, 4), serve=["granite", "granite-moe", "jamba"],
                     train=["granite", "granite-moe", "jamba"],
                     restore=(2, 2)),
         "1x3": dict(mesh=(1, 3), serve=["granite", "qwen", "granite-moe",
-                                        "granite-moe-pad"],
-                    train=["granite", "qwen", "granite-moe"],
+                                        "granite-moe-pad", "mamba2", "jamba",
+                                        "granite-moe-e2"],
+                    train=["granite", "qwen", "granite-moe", "mamba2",
+                           "jamba", "granite-moe-e2"],
                     restore=(3, 1)),
         "2x2": dict(mesh=(2, 2), serve=["jamba", "granite-kv1"],
                     train=["granite-kv1"], restore=(1, 4))}
@@ -134,13 +147,15 @@ def _serve(task, mesh, dev):
             params, full, torch.from_numpy(step[rows]),
             seq_split=seq).numpy())
     out["cache"] = {k: gather_full(full[k], specs[k], whole[k],
-                                   mesh).numpy() for k in ("k", "v")}
+                                   mesh).numpy() for k in full
+                    if k != "lengths"}
     real = len(model.layouts()["layers"][_attn_layer(cfg)]["attn"]["wk"]
                .stored(mesh)) // cfg.hd if model.heads else None
     out["pads_zero"] = real is None or all(
         not t[..., real:, :].any() for t in (full["k"], full["v"],
                                             cache["k"], cache["v"]))
     out["heads"] = model.heads
+    out["units"] = (model.ssm_heads, model.experts)
     return out
 
 
@@ -201,7 +216,7 @@ def _one_rank_serve(cfg_name, np_params, tokens, decode, max_len):
     for step in decode:
         outs.append(model.decode_step(params, full,
                                       torch.from_numpy(step)).numpy())
-    return outs, {k: full[k].numpy() for k in ("k", "v")}
+    return outs, {k: t.numpy() for k, t in full.items() if k != "lengths"}
 
 
 def _jax_serve(jm, jparams, tokens, decode):
@@ -291,6 +306,17 @@ def test_the_meshes_lay_out_the_table_s_heads(layout_run):
     assert all(o["jamba"]["heads"] is None for o in outs["2x2"])
 
 
+def test_the_1x3_mesh_spreads_ssm_heads_and_experts_unevenly(layout_run):
+    """Each rank's (SSM heads, experts held) on model 3: 8 SSM heads as
+    2, 3, 3; 4 experts as 1, 1, 2; 2 experts as none, 1, 1."""
+    outs, _, _ = layout_run
+    want = {"mamba2": [(2, None), (3, None), (3, None)],
+            "jamba": [(2, (0, 1)), (3, (1, 2)), (3, (2, 4))],
+            "granite-moe-e2": [(0, (0, 0)), (0, (0, 1)), (0, (1, 2))]}
+    for name, units in want.items():
+        assert [o[name]["units"] for o in outs["1x3"]] == units, name
+
+
 @pytest.mark.parametrize("key", SERVES)
 def test_layout_prefill_and_decode_match_one_rank_and_jax(layout_run, key):
     outs, ref, _ = layout_run
@@ -303,11 +329,15 @@ def test_layout_prefill_and_decode_match_one_rank_and_jax(layout_run, key):
         for g, w, j in zip(got, one, jx):
             np.testing.assert_allclose(g, w[r["rows"]], atol=1e-5, rtol=0)
             np.testing.assert_allclose(
-                g, j[r["rows"]], atol=D.JAX_ATOL.get(name, 1e-4), rtol=0)
+                g, j[r["rows"]], atol=JAX_ATOL.get(name, 1e-4), rtol=0)
         assert r["pads_zero"], "a padding head slot of the cache is not 0"
-        for k in ("k", "v"):
-            np.testing.assert_allclose(r["cache"][k], ref[name]["cache"][k],
-                                       atol=1e-5, rtol=0, err_msg=k)
+        assert r["cache"].keys() == ref[name]["cache"].keys()
+        for k, want in ref[name]["cache"].items():
+            # the SSM state sums every position's update (entries near 5
+            # after 20): 1e-5 of its size on top of the absolute 1e-5
+            np.testing.assert_allclose(r["cache"][k], want, atol=1e-5,
+                                       rtol=1e-5 if k == "ssm" else 0,
+                                       err_msg=k)
 
 
 @pytest.mark.parametrize("key", TRAINS)
@@ -347,8 +377,7 @@ def test_layout_train_steps_match_one_rank_and_jax(layout_run, key):
                                   b[name + "/train"]["blocks"][wk])
 
 
-@pytest.mark.parametrize("key", [f"{job}/{j['train'][0]}"
-                                 for job, j in JOBS.items()])
+@pytest.mark.parametrize("key", TRAINS)
 def test_layout_checkpoint_restores_across_meshes_bit_for_bit(layout_run,
                                                               key):
     """A state saved on the job's mesh, gathered on every rank, equal bit

@@ -12,21 +12,25 @@ the JAX package, in process and with no ranks.
 - Layouts and refusals: heads the ``model`` axis does not split evenly
   take ``sharding.head_layout``'s slots (replicated KV heads on a model
   axis of 4, padded ones on 3), every config constructs on both
-  production meshes, and what stays refused raises (SSM heads the axis
-  does not split whole, the one-rank entry points on a mesh of more than
+  production meshes and, on the meta device, on every (data 1 or 2) x
+  (model 1..16) mesh, its layouts holding each leaf's units once; what
+  stays refused raises (the one-rank entry points on a mesh of more than
   one rank); the ``ssm``, hybrid and encoder-decoder families construct
   and shard on 2x2, and jamba also on 1x4.
 - The port's Mamba blocks: a rank's ``in_proj`` and ``conv_w`` hold its
   heads' z, x and dt and B and C whole, and reassemble into the
-  reference's whole leaf; the split-row RMSNorm's plain twins against the
-  whole-row norm and the JAX ``apply_norm``.
+  reference's whole leaf, on model 2 and with uneven heads on model 3
+  (2, 3, 3; the SSD kernel's plan at odd head counts); the split-row
+  RMSNorm's plain twins against the whole-row norm and the JAX
+  ``apply_norm``.
 - The dry run on full granite-3-8b's ``decode_32k`` cell: on 16x16 the
   port's per-rank bytes (a replicated KV head a rank) beside the sum over
   the reference's sanitized specs, and collectives; on 2x4 bytes equal to
   the spec's; the CLI writes its JSONL records.  mamba2-2.7b,
   seamless-m4t-large-v2 and jamba-1.5-large-398b record collectives on
-  the production meshes, jamba's ``long_500k`` the context split's; no
-  supported cell of either production mesh is refused.
+  the production meshes, jamba's ``long_500k`` the context split's, and
+  mamba2 on model 3 each rank's bytes; no supported cell of either
+  production mesh is refused.
 - The copies: the tokenizer and the utils helpers.
 """
 import json
@@ -140,7 +144,8 @@ def test_a_head_split_inside_a_head_raises():
     padding), full granite-moe's 24/8 on 16 (G 3 padded to 4) and
     qwen1.5's 40/40 (padded to 48/48); every rank's blocks of ``wq``,
     ``wk`` and ``wo`` gather back into the whole leaf.  SSM heads that do
-    not split whole still raise."""
+    not split whole construct too: smoke jamba's 8 on 3 ranks as 2, 3, 3
+    (they raised until the port spread them)."""
     from repro_torch.distributed.ctx import _whole_columns
     cfg = _smoke("granite-3-8b")
     assert (cfg.num_heads, cfg.num_kv_heads) == (8, 2)
@@ -169,9 +174,9 @@ def test_a_head_split_inside_a_head_raises():
                                16))[:3] == (2, 1, 2)
     assert tuple(S.head_layout(get_config("qwen1.5-32b"), 16))[:3] == \
         (3, 3, 1)
-    with pytest.raises(ValueError, match="8 SSM heads do not split"):
-        Model(_smoke("jamba-1.5-large-398b"),
-              mesh=Mesh(("data", "model"), (1, 3)), device="cpu")
+    assert [Model(_smoke("jamba-1.5-large-398b"),
+                  mesh=Mesh(("data", "model"), (1, 3), coords=(0, c)),
+                  device="cpu").ssm_heads for c in range(3)] == [2, 3, 3]
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-1.5-large-398b",
@@ -259,6 +264,145 @@ def test_mamba_blocks_hold_their_heads_and_gather_back_whole():
     path = ("layers", 0, "ssm", "in_proj")
     assert S.local_shape(shape, S.spec_at(lay, path), mesh)[-1] == 5416
     assert S.local_shape(shape, S.spec_at(spec, path), mesh)[-1] == 5288
+
+
+def test_head_split_index_of_uneven_heads():
+    """On a model axis of 3, smoke mamba2's 8 SSM heads of 16 columns lie
+    2, 3, 3 on the ranks: each rank's ``in_proj`` holds exactly its heads'
+    z and x columns, B and C whole and its heads' dt; ``conv_w`` and
+    ``conv_b`` its heads' x and B and C; ``A_log``, ``D_skip`` and
+    ``dt_bias`` its heads; ``out_proj`` its heads' rows and the gated
+    norm's ``scale`` their columns; its cache the conv channels and SSM
+    state of its heads.  The blocks gather back into the whole leaf, and
+    ``owned_columns`` counts every column once over the ranks (B and C
+    at rank 0).  Full mamba2's 80 heads of 64 lie 26, 27, 27: 1664, 1728
+    and 1728 columns of z, x and the gated norm a rank."""
+    from repro_torch.distributed.ctx import _expanded_block, _whole_columns
+    from repro_torch.models.config import ShapeSpec
+    cfg = _smoke("mamba2-2.7b")
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    assert (H, P) == (8, 16)
+    heads = [[0, 1], [2, 3, 4], [5, 6, 7]]
+    assert S.even_blocks(H, 3) == heads
+    whole = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    p = whole["layers"][0]["ssm"]
+    parts, owned = {}, {}
+    for c, hs in enumerate(heads):
+        model = Model(cfg, mesh=Mesh(("data", "model"), (1, 3),
+                                     coords=(0, c)), device="cpu")
+        assert model.ssm_heads == len(hs)
+        blk = model.shard(whole)["layers"][0]["ssm"]
+        x = [h * P + i for h in hs for i in range(P)]
+        conv = x + list(range(di, di + 2 * N))
+        want = {"in_proj": x + [di + i for i in x]
+                + list(range(2 * di, 2 * di + 2 * N))
+                + [2 * di + 2 * N + h for h in hs],
+                "conv_w": conv, "conv_b": conv, "A_log": hs, "D_skip": hs,
+                "dt_bias": hs}
+        for name, cols in want.items():
+            assert torch.equal(blk[name], p[name][..., cols]), (name, c)
+        assert torch.equal(blk["out_proj"], p["out_proj"][x])
+        assert torch.equal(blk["gate_norm"]["scale"],
+                           p["gate_norm"]["scale"][x])
+        layouts = model.layouts()["layers"][0]["ssm"]
+        for name in list(want) + ["out_proj", "gate_norm"]:
+            spec = layouts[name]["scale"] if name == "gate_norm" \
+                else layouts[name]
+            t = blk[name]["scale"] if name == "gate_norm" else blk[name]
+            parts.setdefault(name, []).append(
+                (C._expanded_block(t, spec, model.mesh), spec))
+            owned.setdefault(name, []).extend(
+                np.asarray(spec.stored(model.mesh))[
+                    S.owned_columns(spec, model.mesh).numpy()].tolist())
+        cache = model.cache_shapes(2, 8)
+        whole_cache = {k: sh for k, (sh, _) in Model(
+            cfg, device="meta").cache_shapes(2, 8).items()}
+        lay = S.cache_layouts(cfg, whole_cache, ShapeSpec("d", 8, 2,
+                                                          "decode"),
+                              model.mesh)
+        for k in ("conv", "ssm"):
+            assert S.local_shape(whole_cache[k], lay[k], model.mesh) == \
+                cache[k][0], k
+        assert cache["conv"][0][-1] == len(conv)
+        assert cache["ssm"][0][-3] == len(hs)
+    for name, blocks in parts.items():
+        spec = blocks[0][1]
+        got = _whole_columns(torch.cat([b for b, _ in blocks], spec.dim),
+                             spec)
+        w = p["gate_norm"]["scale"] if name == "gate_norm" else p[name]
+        assert torch.equal(got, w), name
+        assert sorted(owned[name]) == list(range(w.shape[spec.dim])), name
+    full = get_config("mamba2-2.7b")
+    idx = S.head_split_index(full, 3, "inner")
+    per = len(idx) // 3
+    assert [sum(u >= 0 for u in idx[c * per:(c + 1) * per])
+            for c in range(3)] == [1664, 1728, 1728]
+
+
+def _covers_once(shape, spec, mesh):
+    """Whether the blocks of ``spec`` (a leaf of ``shape``) hold every unit
+    once over the ranks that differ on the axes it splits: each axis on
+    one dim of the layer (never on a layer stack), each rank's block of
+    whole units (``local_shape``), and a :class:`HeadSplit`'s units each
+    owned by one rank (``owned_columns``: a replicated unit at its first
+    copy only)."""
+    ndim = len(shape)
+    assert not any(C._as_tuple(e) for e in tuple(spec)[:len(spec) - ndim])
+    used = [a for e in C._entries(spec, ndim) for a in e]
+    assert len(used) == len(set(used)), spec
+    for rank in range(mesh.size):
+        S.local_shape(shape, spec, Mesh(mesh.axis_names, mesh.shape,
+                                        coords=mesh.coords_of(rank)))
+    if not isinstance(spec, C.HeadSplit):
+        return True
+    owned = []
+    for c in range(mesh.sizes["model"]):
+        at = Mesh(mesh.axis_names, mesh.shape, coords=tuple(
+            c if a == "model" else 0 for a in mesh.axis_names))
+        lo, hi = spec.block(at)
+        units = spec.index_array[lo:hi]
+        owned.append(units[units >= 0][S.owned_columns(spec, at).numpy()])
+    counts = np.bincount(np.concatenate(owned), minlength=shape[spec.dim])
+    return len(counts) == shape[spec.dim] and bool((counts == 1).all())
+
+
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_every_model_axis_constructs_and_covers_each_leaf_once(arch):
+    """On the meta device, ``arch`` at full size on (data 1 or 2) x
+    (model 1..16), an MoE also with its experts padded to 48 (the
+    reference's ``pad_experts_to``, as the production meshes' test):
+    ``Model``
+    constructs, accepts its ``serving`` and ``train`` layouts
+    (``_check_layout``), each of whose leaves the ranks hold once
+    (:func:`_covers_once`), and ``dryrun._refusal`` is '' for every
+    supported cell.  Before the port spread SSM heads and experts over
+    the ranks as evenly as they go, mamba2 and jamba raised on every
+    ``model`` axis their heads do not divide (3, 6, 7, 9, ...)."""
+    from repro_torch.models.config import SHAPES as PSHAPES
+    from repro_torch.models.config import cell_is_supported
+    cfg = get_config(arch)
+    shapes = [s for s in PSHAPES.values() if cell_is_supported(cfg, s)[0]]
+    for d in (1, 2):
+        for m in range(1, 17):
+            mesh = Mesh(("data", "model"), (d, m))
+            for pad in ((0, 48) if cfg.has_moe else (0,)):
+                model = Model(cfg, mesh=mesh, pad_experts_to=pad,
+                              device="meta")
+                whole = model._whole_shapes()
+                for mode in ("serving", "train"):
+                    model._check_layout(mode)
+                    specs, done = model.layouts(mode), set()
+                    for path, leaf in U.tree_leaves(whole):
+                        spec = S.spec_at(specs, path)
+                        if (id(spec), tuple(leaf.shape)) in done:
+                            continue
+                        done.add((id(spec), tuple(leaf.shape)))
+                        assert _covers_once(tuple(leaf.shape), spec,
+                                            mesh), (d, m, pad, mode, path)
+                for shape in shapes:
+                    assert dryrun._refusal(cfg, shape, mesh,
+                                           {"pad_experts_to": pad}) == "", \
+                        (d, m, pad, shape.name)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -432,8 +576,9 @@ def test_dryrun_records_collectives_of_the_families():
 def test_no_supported_cell_of_the_production_meshes_is_refused():
     """``dryrun._refusal`` is '' for every supported (config x shape)
     cell of both production meshes, and ``Model`` constructs there (with
-    the reference's ``pad_experts_to`` option too); what it still refuses
-    it names (SSM heads that a ``model`` axis of 3 does not split)."""
+    the reference's ``pad_experts_to`` option too); and on a ``model``
+    axis of 3, which mamba2's 80 SSM heads do not divide (refused until
+    the port spread them as 26, 27, 27)."""
     from repro_torch.models.config import SHAPES as PSHAPES
     from repro_torch.models.config import cell_is_supported
     for multi in (False, True):
@@ -449,11 +594,44 @@ def test_no_supported_cell_of_the_production_meshes_is_refused():
                         (arch, name)
     reason = dryrun._refusal(get_config("mamba2-2.7b"), PSHAPES["decode_32k"],
                              Mesh(("data", "model"), (1, 3)), {})
-    assert "80 SSM heads do not split" in reason
+    assert reason == ""
     rec = dryrun.dry_cell("granite-moe-3b-a800m", "decode_32k",
                           make_production_mesh(multi_pod=False),
                           opt={"pad_experts_to": 48})
     assert rec["collectives"]["counts"]["all-reduce"] > 0
+
+
+def test_dryrun_cell_of_uneven_ssm_heads_records_each_rank():
+    """mamba2-2.7b's decode cell on (data 1, model 3), whose 80 SSM heads
+    lie 26, 27, 27: the rank's step runs and records collectives, and the
+    record gives each ``model`` rank's bytes (rank 0's fewer, its heads'
+    blocks and state), the largest its total."""
+    rec = dryrun.dry_cell("mamba2-2.7b", "decode_32k",
+                          Mesh(("data", "model"), (1, 3)))
+    assert rec["collectives_reason"] is None
+    cfg = get_config("mamba2-2.7b")
+    assert rec["collectives"]["counts"]["all-reduce"] >= 2 * cfg.num_layers
+    ranks = rec["memory"]["rank_bytes"]
+    assert len(ranks) == 3 and ranks[0] < ranks[1] == ranks[2]
+    assert rec["memory"]["total_bytes"] == ranks[1]
+
+
+def test_ssd_plan_covers_odd_head_counts():
+    """The SSD kernel's y blocks for a rank's odd head counts (mamba2's 26
+    and 27 of 80 on 3 ranks; jamba's 43 of 128, split into 86 heads of
+    64): each (b, c, q tile)'s groups cover its heads once, none past the
+    kernel's group size."""
+    from repro_torch.kernels.ssd_scan import plan
+    for H in (26, 27, 86):
+        blocks = plan.y_blocks(4, 256, H)
+        for bc in range(4):
+            for qt in range(plan.q_tiles(256)):
+                groups = sorted((h0, h1) for b, q, h0, h1 in blocks
+                                if (b, q) == (bc, qt))
+                assert groups[0][0] == 0 and groups[-1][1] == H
+                assert all(a[1] == b[0] for a, b in zip(groups, groups[1:]))
+                assert all(0 < h1 - h0 <= plan.MAX_GROUP
+                           for h0, h1 in groups)
 
 
 def test_dryrun_cli_writes_records(tmp_path):
