@@ -37,7 +37,15 @@ the final line:
      library's counters that each paged call ran the split-KV body and
      its merge, the SSD library's that each SSD call took the body its
      plan names (the tensor-core body at the mamba shapes), the kv_quant
-     library's that dequantize took its 16-byte body.  The bound of f32
+     library's that quantize (both entries) and dequantize took their
+     16-byte bodies.  The quantize kernel's store entry (the swap's
+     device half: K and V read where they lie, bf16, through a request's
+     page list, positions past its length masked) is held at granite's
+     and granite-moe's swaps and the tier page, timed beside the path it
+     replaced (gather, mask, float32 copy, the (T, d) entry), the codes
+     that differ from the plain version counted; a whole offload is
+     timed the old way and the new (one launch, one pinned copy), with
+     the device memory each adds.  The bound of f32
      work (the flash rows, the SSD chunk) is the smaller of the f32 FMA
      bound and the 3xTF32 one (three times the flops at TF32's rate),
      named (``f32_bound``).  The kernels redesigned for Hopper must not be
@@ -73,7 +81,9 @@ the final line:
   6. swap: the same model with 2 lanes and a KV budget of a little over
      two sequences, staged arrivals on a virtual clock: requests must be
      preempted, swapped out and in as INT8 through the kv_quant kernels,
-     and all finish;
+     and all finish; each offload's wall and the device memory it added
+     are printed (as in the other swap phases: 17, 24 (d), 25 (b), 26 (b),
+     28 (2));
   7. profile: where a full-batch decode step's and a 256-token prefill
      chunk's time goes on the kernel path under ``torch.profiler`` (the
      decode step prints the paged kernels' share of device busy; the
@@ -205,7 +215,7 @@ the final line:
      prompt equal A's for the same request from its local prefix hit, bit
      for bit; the same for a dense B through its private store; then A
      publishes into an INT8 tier and a paged importer serves the request:
-     payload bytes beside the raw bytes, the ``kv_quantize`` and
+     payload bytes beside the raw bytes, the ``kv_quantize_store`` and
      ``kv_dequantize`` kernels launched, the imported pages within the
      INT8 round trip's bound (relative 0.02), the importer lossy and
      publishing nothing, no library load and no pinned page left; the
@@ -1211,15 +1221,15 @@ def check_kv_quant(torch, dev, shape=KV_QUANT_GRANITE):
     T, d = shape
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     x = torch.randn((T, d), generator=g, device=dev) * 4.0
+    before = kv_ops.body_launches("quantize")
     q, lam, z = kv_quantize(x)
-    qr, lamr, zr = kv_quantize_ref(x)
     torch.cuda.synchronize()
-    code_err = (q.int() - qr.int()).abs().max().item()
-    if code_err > 1:
-        fail(f"kv_quantize: codes differ by {code_err} > 1")
-    if not (torch.allclose(lam, lamr, rtol=1e-6, atol=0)
-            and (z - zr).abs().max().item() <= 1):
-        fail("kv_quantize: scales/zeros differ from the plain version")
+    body = {n: c - before[n]
+            for n, c in kv_ops.body_launches("quantize").items()}
+    if body != {"vec16": 1, "scalar": 0}:
+        fail(f"kv_quantize: took bodies {body}, want the 16-byte body")
+    code_err, n_diff = _quant_parity(torch, "kv_quantize", [(q, lam, z)],
+                                     [kv_quantize_ref(x)])
     for dt, view in ((torch.bfloat16, torch.int16),
                      (torch.float32, torch.int32)):
         before = kv_ops.body_launches()
@@ -1249,6 +1259,7 @@ def check_kv_quant(torch, dev, shape=KV_QUANT_GRANITE):
     dst = torch.empty_like(src)
     copy_ms = time_ms(lambda: dst.copy_(src))
     print(f"[kernel] kv_quantize T={T} d={d} f32->int8: code_err={code_err} "
+          f"codes_differing={n_diff} of {T * d}, body vec16 "
           f"kernel_ms={qm:.4f} ({qb / qm:.1%} of bound) plain_ms={qp:.4f} "
           f"bound_ms={qb:.4f} ({qby}) library_ms=none", flush=True)
     print(f"[kernel] kv_dequantize T={T} d={d} int8->f32: bitwise equal "
@@ -1259,8 +1270,9 @@ def check_kv_quant(torch, dev, shape=KV_QUANT_GRANITE):
     verdict(f"kv_dequantize int8->f32 ({T}, {d})", dm, mine, dp, theirs,
             "its plain version", db, copy_ms=copy_ms)
     del src, dst
-    return (dict(max_abs_err=float(code_err), ms=qm, plain_ms=qp,
-                 bound_ms=qb, bound_by=qby, library_ms=None),
+    return (dict(max_abs_err=float(code_err), codes_differing=n_diff,
+                 ms=qm, plain_ms=qp, bound_ms=qb, bound_by=qby,
+                 library_ms=None),
             dict(max_abs_err=deq_err, ms=dm, plain_ms=dp, bound_ms=db,
                  bound_by=dby, library_ms=None))
 
@@ -1268,7 +1280,8 @@ def check_kv_quant(torch, dev, shape=KV_QUANT_GRANITE):
 def check_kv_quant_page(torch, dev):
     """INT8 quantize and dequantize at the KV tier's page shape (phase
     22): one granite page of K, 40 layers x 16 tokens x 8 KV heads =
-    5120 rows of 128, float32 in (``quantize_kv_device``'s copy) and
+    5120 rows of 128, float32 in (the (T, d) entry; the tier's own page
+    goes through the store entry, :func:`check_kv_quant_store`) and
     bfloat16 out (the pool's dtype), against their plain versions with
     :func:`check_kv_quant`'s tolerances (codes within 1, scales within
     1e-6 relative, zeros within 1, dequantize bit for bit), each with its
@@ -1280,15 +1293,12 @@ def check_kv_quant_page(torch, dev):
     g = torch.Generator(device=dev).manual_seed(SEED + 22)
     x = torch.randn((T, d), generator=g, device=dev) * 4.0
     q, lam, z = kv_quantize(x)
-    qr, lamr, zr = kv_quantize_ref(x)
     xh = kv_dequantize(q, lam, z, dtype=torch.bfloat16)
     xr = kv_dequantize_ref(q, lam, z, dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    code_err = (q.int() - qr.int()).abs().max().item()
-    if not (code_err <= 1 and torch.allclose(lam, lamr, rtol=1e-6, atol=0)
-            and (z - zr).abs().max().item() <= 1):
-        fail(f"kv_quantize at the tier page shape: codes differ by "
-             f"{code_err}, or the scales/zeros differ")
+    code_err, n_diff = _quant_parity(torch, "kv_quantize at the tier page "
+                                     "shape", [(q, lam, z)],
+                                     [kv_quantize_ref(x)])
     if not torch.equal(xh.view(torch.int16), xr.view(torch.int16)):
         fail("kv_dequantize at the tier page shape: not bit for bit the "
              "plain version")
@@ -1296,6 +1306,8 @@ def check_kv_quant_page(torch, dev):
     if not rel < 0.02:
         fail(f"kv quant round trip at the tier page shape: {rel} >= 0.02")
     rows = {}
+    held = {"kv_quantize": f"code_err={code_err} codes_differing={n_diff}",
+            "kv_dequantize": "bitwise equal"}
     for name, fn, plain, moved, flops in (
             ("kv_quantize", lambda: kv_quantize(x),
              lambda: kv_quantize_ref(x), nbytes(x, q, lam, z), 6.0 * T * d),
@@ -1312,11 +1324,158 @@ def check_kv_quant_page(torch, dev):
                                        "kv_quantize" else 0.0))
         print(f"[kernel] {name} tier page T={T} d={d} "
               f"{'f32->int8' if name == 'kv_quantize' else 'int8->bf16'}: "
-              f"{'code_err=%d' % code_err if name == 'kv_quantize' else 'bitwise equal'}"
+              f"{held[name]}"
               f" roundtrip_rel={rel:.4f} kernel_ms={ms:.4f} ({b_ms / ms:.1%} "
               f"of bound) plain_ms={pms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
               "library_ms=none", flush=True)
     return rows
+
+
+# the store entry's shapes, a request's pages of a bf16 pool (pool pages,
+# pages taken, tokens): one granite swap of 1000 tokens in 64 pages,
+# granite-moe's lane of phase 24 (d) (21 pages, 330 tokens); the tier
+# page (phase 22) is one page view of K, no length
+KV_STORE_GRANITE = dict(L=40, KVH=8, d=128, pool=129, pages=64, length=1000)
+KV_STORE_MOE = dict(L=32, KVH=8, d=64, pool=43, pages=21, length=330)
+KV_STORE_PAGE = dict(L=40, KVH=8, d=128, pool=8, pages=None, length=None)
+
+
+def _quant_parity(torch, label, got, want):
+    """Codes within 1 of the plain version (the count that differ
+    returned), scales within 1e-6 relative, zeros within 1; else fail."""
+    code_err = max((g[0].int() - w[0].int()).abs().max().item()
+                   for g, w in zip(got, want))
+    n_diff = sum(int((g[0] != w[0]).sum()) for g, w in zip(got, want))
+    if code_err > 1 or not all(
+            torch.allclose(g[1], w[1], rtol=1e-6, atol=0)
+            and (g[2] - w[2]).abs().max().item() <= 1
+            for g, w in zip(got, want)):
+        fail(f"{label}: codes differ by {code_err}, or the scales/zeros "
+             "differ from the plain version")
+    return code_err, n_diff
+
+
+def check_kv_quant_store(torch, dev, label, L, KVH, d, pool, pages, length):
+    """The store entry of the quantize kernel (``kv_quantize_store``), the
+    swap's device half, at a main path's shape: K and V of a bf16 paged
+    pool (L, ``pool``, 16, KVH, d) read where they lie through ``pages``
+    page indices drawn at random, positions past ``length`` masked, one
+    launch (``pages`` None: one page view ``pool[:, 3]`` of K alone, as
+    the KV tier quantizes a page).  Held against its plain version
+    (gather, mask, float32, ``kv_quantize_ref``): codes within 1 (how
+    many differ printed), scales within 1e-6 relative, zeros within 1,
+    the masked rows exactly a zero row's (lam 1e-8, z -0.0, codes -128),
+    the 16-byte body taken.  Timed (``time_ms``) beside its bound (the
+    rows it must read once, its codes, scales and zeros written once), its
+    plain version and the path it replaced (for each of K and V: gather,
+    mask, float32 copy, the (T, d) entry).  With a length, also a whole
+    offload the old way (those steps, then three blocking copies into
+    pageable memory, for K and V) against ``quantize_kv_store`` (one
+    launch, one copy into pinned memory, one sync): walls and the device
+    memory each adds at its peak, the first call apart."""
+    from repro_torch.kernels.kv_quant import (kv_quantize, kv_quantize_store,
+                                              kv_quantize_store_ref)
+    from repro_torch.kernels.kv_quant import ops as kv_ops
+    from repro_torch.kernels.kv_quant.ref import store_view
+    from repro_torch.serving.kv_cache import quantize_kv_store
+    pg = 16
+    g = torch.Generator(device=dev).manual_seed(SEED + 32)
+    k = (torch.randn((L, pool, pg, KVH, d), generator=g, device=dev)
+         * 4.0).to(torch.bfloat16)
+    v = (torch.randn((L, pool, pg, KVH, d), generator=g, device=dev)
+         * 4.0).to(torch.bfloat16)
+    if pages is None:
+        xs, idx, P = (k[:, 3],), None, 1
+    else:
+        xs = (k, v)
+        idx = torch.randperm(pool, generator=g, device=dev)[:pages]
+        P = pages
+    before = kv_ops.body_launches("quantize")
+    got, _ = kv_quantize_store(xs, pages=idx, length=length)
+    torch.cuda.synchronize()
+    body = {n: c - before[n]
+            for n, c in kv_ops.body_launches("quantize").items()}
+    want = kv_quantize_store_ref(xs, idx, length)
+    code_err, n_diff = _quant_parity(torch, f"kv_quantize_store {label}",
+                                     got, want)
+    if body != {"vec16": 1, "scalar": 0}:
+        fail(f"kv_quantize_store {label}: took bodies {body}, want the "
+             "16-byte body")
+    rows = L * P * pg * KVH
+    valid = rows if length is None else L * min(length, P * pg) * KVH
+    if length is not None:
+        for q, lam, z in got:
+            cut = (slice(None), slice(length, None))
+            ql = q.view(L, P * pg, KVH, d)[cut]
+            ll = lam.view(L, P * pg, KVH)[cut]
+            zl = z.view(L, P * pg, KVH)[cut]
+            if not (bool((ql == -128).all()) and bool((ll == 1e-8).all())
+                    and bool((zl == 0).all())
+                    and bool(torch.signbit(zl).all())):
+                fail(f"kv_quantize_store {label}: a masked row is not a "
+                     "zero row's codes (lam 1e-8, z -0.0, codes -128)")
+    pos = (None if length is None else torch.arange(
+        P * pg, device=dev).reshape(1, P, pg, 1, 1))
+
+    def old_path():
+        out = []
+        for x in xs:
+            arr = store_view(x)
+            if idx is not None:
+                arr = arr[:, idx]
+            if pos is not None:
+                arr = torch.where(pos < length, arr, torch.zeros_like(arr))
+            out.append(kv_quantize(arr.reshape(-1, d).float().contiguous()))
+        return out
+    ms = time_ms(lambda: kv_quantize_store(xs, pages=idx, length=length))
+    plain = time_ms(lambda: kv_quantize_store_ref(xs, idx, length), 5)
+    old = time_ms(old_path, 5)
+    n = len(xs)
+    b_ms, b_by = bound(n * (valid * d * 2 + rows * d + 8 * rows),
+                       6.0 * n * rows * d, "float32")
+    print(f"[kernel] kv_quantize_store {label} (L {L}, {P} pages of {pg}, "
+          f"length {length}, KVH {KVH}, d {d}, bf16, {'K and V' if n == 2 else 'K'}"
+          f"): code_err={code_err} codes_differing={n_diff} of "
+          f"{n * rows * d}{'' if length is None else ', masked rows exact'}"
+          f", body vec16 kernel_ms={ms:.4f} "
+          f"({b_ms / ms:.1%} of bound) plain_ms={plain:.4f} old_path_ms="
+          f"{old:.4f} ({old / ms:.2f}x) bound_ms={b_ms:.4f} ({b_by}) "
+          "library_ms=none", flush=True)
+    row = dict(max_abs_err=float(code_err), codes_differing=n_diff, ms=ms,
+               plain_ms=plain, old_path_ms=old, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, shape=dict(L=L, pages=P, page=pg, KVH=KVH,
+                                           d=d, length=length))
+    if length is not None:
+        shape = (L, P, pg, KVH, d)
+
+        def old_offload():
+            return [tuple(t.cpu() for t in trip) for trip in old_path()]
+
+        def new_offload():
+            return quantize_kv_store(xs, shape, pages=idx, length=length)
+
+        # old, new, new, old, 3 calls each: the first call of each apart
+        walls = {"old": [], "new": []}
+        for name in ("old", "new", "new", "old"):
+            fn = old_offload if name == "old" else new_offload
+            walls[name] += [measured_offload(torch, fn)[1:]
+                            for _ in range(3)]
+        kv_bytes = nbytes(*xs) * P // pool
+        for name in ("old", "new"):
+            w = walls[name]
+            later = [x[0] for x in w[1:]]
+            row[f"offload_{name}"] = dict(
+                first_ms=w[0][0], later_ms=statistics.median(later),
+                peak_bytes=max(x[1] for x in w))
+            print(f"[swap] {label} offload, {name} path: first "
+                  f"{w[0][0]:.2f} ms, later {statistics.median(later):.2f} "
+                  f"ms (median of {len(later)}), device memory added "
+                  f"{max(x[1] for x in w) / 1e6:.1f} MB "
+                  f"({max(x[1] for x in w) / kv_bytes:.2f}x the request's "
+                  f"K + V {kv_bytes / 1e6:.1f} MB)", flush=True)
+    del k, v, xs, got, want
+    torch.cuda.empty_cache()
+    return row
 
 
 def _q8_pool(torch, kv_quantize, k):
@@ -2021,6 +2180,7 @@ def phase_swap(torch, model, params, kernels):
         warmup_compile=True), predictor=OraclePredictor())
     counter = CompileCounter()
     before = read_counts(kernels)
+    walls = watch_offloads(torch, eng.kv)
     virtual_serve(torch, eng, reqs, stage=2)
     counts = {n: c - before[n] for n, c in read_counts(kernels).items()}
     graph_gate("granite paged swap (phase 6)", eng, counter, False)
@@ -2028,12 +2188,13 @@ def phase_swap(torch, model, params, kernels):
     pre = sum(r.preempt_count for r in reqs)
     print(f"[swap] 2 lanes, KV budget {2 * 336} tokens, INT8 offload: "
           f"{sum(r.finish_time is not None for r in reqs)}/{len(reqs)} "
-          f"finished, preemptions {pre}, launches {counts}", flush=True)
+          f"finished, preemptions {pre}, {offload_summary(walls)}, "
+          f"launches {counts}", flush=True)
     if eng.sched.live or any(r.finish_time is None for r in reqs):
         fail("swap: engine did not drain")
     if pre <= 0:
         fail("swap: no preemption was forced")
-    for n in ("kv_quantize", "kv_dequantize"):
+    for n in ("kv_quantize_store", "kv_dequantize"):
         if counts[n] <= 0:
             fail(f"swap: kernel {n} never launched")
     return counts
@@ -2344,6 +2505,7 @@ def phase_dense_swap(torch, model, params, kernels):
         prefill_chunk=256, warmup_compile=True), predictor=OraclePredictor())
     counter = CompileCounter()
     before = read_counts(kernels)
+    walls = watch_offloads(torch, eng.kv)
     virtual_serve(torch, eng, reqs, stage=2)
     counts = {n: c - before[n] for n, c in read_counts(kernels).items()}
     graph_gate("granite dense swap (phase 17)", eng, counter, False)
@@ -2353,9 +2515,8 @@ def phase_dense_swap(torch, model, params, kernels):
         fail("dense swap: engine did not drain")
     # one lane of 264 tokens (a 512-position span) round trip, timed alone
     eng.kv.prefill_chunk(params, -1, reqs[1].prompt_tokens, 0)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    blob = eng.kv.offload(-1)
+    walls = walls[:]        # the serve's; the lane below is timed alone
+    blob, out_ms, added = measured_offload(torch, lambda: eng.kv.offload(-1))
     t2 = time.perf_counter()
     eng.kv.upload(-1, blob)
     torch.cuda.synchronize()
@@ -2367,11 +2528,13 @@ def phase_dense_swap(torch, model, params, kernels):
           f"INT8 stripe offload: {sum(r.finish_time is not None for r in reqs)}"
           f"/{len(reqs)} finished, preemptions {pre}; a 264-token lane "
           f"(span {blob['k'][1][3][1]}) crosses as {swap_bytes / 1e6:.2f} MB "
-          f"(codes + scales + zeros), offload {1e3 * (t2 - t1):.1f} ms / "
-          f"upload {1e3 * (t3 - t2):.1f} ms; launches {counts}", flush=True)
+          f"(codes + scales + zeros), offload {out_ms:.1f} ms (device "
+          f"memory added {added / 1e6:.1f} MB) / upload "
+          f"{1e3 * (t3 - t2):.1f} ms; the serve's "
+          f"{offload_summary(walls)}; launches {counts}", flush=True)
     if pre <= 0:
         fail("dense swap: no preemption was forced")
-    for n in ("kv_quantize", "kv_dequantize"):
+    for n in ("kv_quantize_store", "kv_dequantize"):
         if counts[n] <= 0:
             fail(f"dense swap: kernel {n} never launched")
 
@@ -3598,8 +3761,8 @@ def _tier_model_level(torch, model, params, kernels):
     counter.detach()
     print(f"[tier] phase 22 (a) q8 tier: {TIER_SYSTEM}-token prefix "
           f"payload {q8_bytes / 1e6:.2f} MB vs raw {raw_bytes / 1e6:.2f} MB "
-          f"({q8_bytes / raw_bytes:.3f}x); kv_quantize launches "
-          f"{launches['kv_quantize']}, kv_dequantize launches "
+          f"({q8_bytes / raw_bytes:.3f}x); kv_quantize_store launches "
+          f"{launches['kv_quantize_store']}, kv_dequantize launches "
           f"{launches['kv_dequantize']}; publishes (quantize + host "
           f"copies) {_rate([(t, n * q8_page) for t, n in qpubs])}; tier_fill "
           f"{_rate(qfills)}; imports {seen} (tokens, lossy); "
@@ -3608,7 +3771,8 @@ def _tier_model_level(torch, model, params, kernels):
           f"{q8.stats.publishes}; {req.generated} tokens served; pinned "
           f"pages {q8.pinned_pages()}; library loads or captures "
           f"{loads}", flush=True)
-    if not (launches["kv_quantize"] > 0 and launches["kv_dequantize"] > 0):
+    if not (launches["kv_quantize_store"] > 0
+            and launches["kv_dequantize"] > 0):
         fail("phase 22 (a): the q8 tier did not launch the kv_quant kernels")
     if not (seen and seen[0] == (TIER_SYSTEM, True)):
         fail("phase 22 (a): the q8 import was not a lossy 1024-token import")
@@ -4221,6 +4385,7 @@ def phase_moe(torch, dev, kernels):
     counter = CompileCounter()
     eng = _moe_engine(model, params, max_slots=2, quantize_offload=True,
                       hbm_bytes=2 * 336 * bpt)
+    walls = watch_offloads(torch, eng.kv)
     virtual_serve(torch, eng, swap_reqs, stage=2)
     moved = {n: c - before[n] for n, c in read_counts(kernels).items()}
     graph_gate("granite-moe paged INT8 swap (phase 24 d)", eng, counter,
@@ -4229,12 +4394,12 @@ def phase_moe(torch, dev, kernels):
     pre = sum(r.preempt_count for r in swap_reqs)
     print(f"[moe] (d) 2 lanes, KV budget {2 * 336} tokens, INT8 offload: "
           f"{sum(r.finish_time is not None for r in swap_reqs)}/"
-          f"{len(swap_reqs)} finished, preemptions {pre}, launches {moved}",
-          flush=True)
+          f"{len(swap_reqs)} finished, preemptions {pre}, "
+          f"{offload_summary(walls)}, launches {moved}", flush=True)
     _served("phase 24 (d)", model, swap_reqs)
     if pre <= 0:
         fail("phase 24 (d): no preemption was forced")
-    for n in ("kv_quantize", "kv_dequantize"):
+    for n in ("kv_quantize_store", "kv_dequantize"):
         if moved[n] <= 0:
             fail(f"phase 24 (d): kernel {n} never launched")
     del eng
@@ -4411,6 +4576,50 @@ def _blob_bytes(blob) -> int:
     return n
 
 
+def measured_offload(torch, offload):
+    """``offload()`` (a backend's offload of one request) timed alone: the
+    device synchronized before it, its wall in ms (an INT8 offload
+    synchronizes its stream before it returns; a raw one copies to the
+    host) and the device memory it added at its peak over what was
+    allocated before it.  Returns (blob, ms, bytes)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    blob = offload()
+    ms = (time.perf_counter() - t0) * 1e3
+    return blob, ms, torch.cuda.max_memory_allocated() - base
+
+
+def watch_offloads(torch, kv) -> list:
+    """Make every ``kv.offload`` of an engine's backend a
+    :func:`measured_offload`; returns the list each call appends its
+    (ms, added bytes, blob bytes) to."""
+    log, real = [], kv.offload
+
+    def offload(rid):
+        blob, ms, added = measured_offload(torch, lambda: real(rid))
+        log.append((ms, added, _blob_bytes(blob)))
+        return blob
+    kv.offload = offload
+    return log
+
+
+def offload_summary(log) -> str:
+    """One phrase on a run's offloads: the first call's wall apart from
+    the later ones', and the most device memory one added."""
+    if not log:
+        return "no offload"
+    later = [ms for ms, _, _ in log[1:]]
+    return (f"{len(log)} offloads: first {log[0][0]:.2f} ms "
+            f"({log[0][2] / 1e6:.2f} MB), later "
+            + (f"median {statistics.median(later):.2f} ms (min "
+               f"{min(later):.2f}, max {max(later):.2f})" if later else
+               "none")
+            + f", device memory added at most "
+            f"{max(a for _, a, _ in log) / 1e6:.1f} MB")
+
+
 def encdec_serve(torch, model, params, reqs, graphs: bool):
     """Phase 25 (b)'s serve through a ``DenseKVBackend`` as the reference's
     backend path runs an encoder-decoder (the engine cannot prefill one):
@@ -4419,7 +4628,7 @@ def encdec_serve(torch, model, params, reqs, graphs: bool):
     fused decode steps over all lanes (the step graph ``("decode",)``
     when ``graphs``) until every request ends (EOS or its output length);
     at decode step ``swap_step`` the lowest-numbered live request is
-    offloaded (k/v as INT8 through ``kv_quantize``, xk/xv raw) and
+    offloaded (k/v as INT8 through ``kv_quantize_store``, xk/xv raw) and
     uploaded (``kv_dequantize``).  Returns ({rid: tokens}, stats)."""
     from repro_torch.serving.kv_cache import DenseKVBackend, KVBackendConfig
     cfg = ENCDEC_SERVE
@@ -4448,15 +4657,14 @@ def encdec_serve(torch, model, params, reqs, graphs: bool):
             del pc
         if step == cfg["swap_step"]:
             rid = min(r for r in kv.slot_req if r is not None)
-            t0 = time.perf_counter()
-            blob = kv.offload(rid)
+            blob, out_ms, added = measured_offload(torch, lambda: kv.offload(rid))
             t1 = time.perf_counter()
             kv.upload(rid, blob)
             torch.cuda.synchronize()
             st["swap"] = dict(
                 rid=rid, kinds={k: blob[k][0] for k in ("k", "v", "xk",
                                                         "xv")},
-                bytes=_blob_bytes(blob), out_ms=(t1 - t0) * 1e3,
+                bytes=_blob_bytes(blob), out_ms=out_ms, out_added=added,
                 in_ms=(time.perf_counter() - t1) * 1e3)
             del blob
         toks = np.zeros((B, 1), np.int32)
@@ -4558,7 +4766,8 @@ def phase_encdec_serve(torch, model, params, kernels):
     """Phase 25 (b): 8 requests of 4096 frames through 8 lanes of the
     dense backend, graphed, counted from 0 (the flash kernel once per
     encoder layer, bidirectional, and once per decoder layer, causal, for
-    each prefill; kv_quantize and kv_dequantize twice for the swap), then
+    each prefill; kv_quantize_store once (K and V) and kv_dequantize
+    twice for the swap), then
     the graphed decode step against its eager step at 8 lanes of context
     64 (:func:`graphed_vs_eager_step`); then the profile.
     Returns the graphed serve's launch counts."""
@@ -4582,7 +4791,8 @@ def phase_encdec_serve(torch, model, params, kernels):
           f"{np.median(st['decode_ms']):.2f} ms ({st['replays']} replays); "
           f"swap of request {sw['rid']} at step {ENCDEC_SERVE['swap_step']}:"
           f" {sw['kinds']}, {sw['bytes'] / 1e6:.1f} MB to the host, out "
-          f"{sw['out_ms']:.1f} ms, in {sw['in_ms']:.1f} ms; launches "
+          f"{sw['out_ms']:.1f} ms (device memory added "
+          f"{sw['out_added'] / 1e6:.1f} MB), in {sw['in_ms']:.1f} ms; launches "
           f"{counts}", flush=True)
     if len(st["ends"]) != n_req:
         fail("phase 25 (b): not every request finished")
@@ -4595,7 +4805,7 @@ def phase_encdec_serve(torch, model, params, kernels):
     if counts["flash_prefill"] != want:
         fail(f"phase 25 (b): {counts['flash_prefill']} flash launches, want "
              f"{want} (each prefill's encoder and decoder layers)")
-    for n in ("kv_quantize", "kv_dequantize"):
+    for n in ("kv_quantize_store", "kv_dequantize"):
         if counts[n] <= 0:
             fail(f"phase 25 (b): kernel {n} never launched")
     if st["replays"] != len(st["decode_ms"]):
@@ -4764,8 +4974,8 @@ HYBRID_SERVE = dict(arch=HYBRID_ARCH, arch_size="full", strategy="alise",
                     n_requests=12, max_slots=8, seed=SEED,
                     predictor_kind="oracle", kv_backend="dense",
                     quantize=True, warmup=True, verbose=False)
-HYBRID_ROWS = ("flash_prefill", "fused_rmsnorm", "ssd_chunk", "kv_quantize",
-               "kv_dequantize")
+HYBRID_ROWS = ("flash_prefill", "fused_rmsnorm", "ssd_chunk",
+               "kv_quantize_store", "kv_dequantize")
 MAMBA_TRAIN = dict(batch=1, seq=1024, steps=3, layers=32)    # of 64
 
 
@@ -4851,7 +5061,7 @@ def hybrid_kernel_vs_plain(torch, label, model, params, tol):
 def hybrid_swap(torch, model, params, kv):
     """One lane's INT8 swap on the serve's dense backend: a
     ``HYBRID_PROMPT``-token prefill placed by ``write_prefill``, offloaded
-    (K/V as INT8 through ``kv_quantize``, conv and SSM state raw) and
+    (K/V as INT8 through ``kv_quantize_store``, conv and SSM state raw) and
     uploaded (``kv_dequantize``) into another lane: conv and SSM state
     bit for bit, K/V within phase 3's INT8 round-trip bound, the length
     kept.  Prints the bytes and times."""
@@ -4864,9 +5074,7 @@ def hybrid_swap(torch, model, params, kv):
     kv.write_prefill(-1, pc, HYBRID_PROMPT)
     src = kv.slot_of(-1)
     before = {k: kv._lane(k, src).clone() for k in kv.cache if k != "lengths"}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    blob = kv.offload(-1)
+    blob, out_ms, added = measured_offload(torch, lambda: kv.offload(-1))
     t1 = time.perf_counter()
     kv.slot_req[src] = -3
     kv.upload(-1, blob)
@@ -4883,8 +5091,9 @@ def hybrid_swap(torch, model, params, kv):
     kept = int(kv.cache["lengths"][dst]) == HYBRID_PROMPT
     print(f"[hybrid] (b) INT8 swap of a {HYBRID_PROMPT}-token lane (lane "
           f"{src} -> {dst}): {kinds}, {_blob_bytes(blob) / 1e6:.1f} MB to the "
-          f"host (K/V span {blob['k'][1][3][1]}), out {(t1 - t0) * 1e3:.1f} "
-          f"ms, in {(t2 - t1) * 1e3:.1f} ms; conv and SSM state "
+          f"host (K/V span {blob['k'][1][3][1]}), out {out_ms:.1f} ms "
+          f"(device memory added {added / 1e6:.1f} MB), in "
+          f"{(t2 - t1) * 1e3:.1f} ms; conv and SSM state "
           + ("equal bit for bit" if exact else "DIFFER")
           + f", K/V rel_l2 {err:.4g}, length "
           + ("kept" if kept else "LOST"), flush=True)
@@ -5160,7 +5369,7 @@ BIG_SERVE = dict(arch_size="full", strategy="alise", n_requests=8,
                  prefill_chunk=BIG_CHUNK, kv_backend="paged",
                  paged_attn_impl="kernel", chunk_attn="flash", page_size=16,
                  quantize=True, warmup=True, verbose=False)
-BIG_ROWS = ("paged_attention", "flash_prefill_prefix", "kv_quantize",
+BIG_ROWS = ("paged_attention", "flash_prefill_prefix", "kv_quantize_store",
             "kv_dequantize")             # and RMSNorm's kernel where RMSNorm
 BIG_SWAP_TOKENS = 1000                    # (2): the forced INT8 swap's lane
 
@@ -5261,7 +5470,7 @@ def big_kernel_vs_plain(torch, model, params) -> float:
 def big_swap(torch, model, params, kv) -> None:
     """Phase 28 (2)'s forced INT8 swap on the serve's paged backend: a
     ``BIG_SWAP_TOKENS``-token prompt prefilled in chunks of ``BIG_CHUNK``,
-    offloaded (its pages as INT8 through ``kv_quantize``) and uploaded
+    offloaded (its pages as INT8 through ``kv_quantize_store``) and uploaded
     into fresh pages (``kv_dequantize``): K/V within phase 3's INT8 round
     trip bound, the length kept.  Prints the bytes and times."""
     rng = np.random.default_rng(SEED + 29)
@@ -5275,9 +5484,7 @@ def big_swap(torch, model, params, kv) -> None:
         return {k: getattr(kv.pool, k)[:, idx].flatten(1, 2)[:, :n].float()
                 for k in ("k", "v")}
     before = rows(kv.pool.page_table[-1])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    blob = kv.offload(-1)
+    blob, out_ms, added = measured_offload(torch, lambda: kv.offload(-1))
     t1 = time.perf_counter()
     kv.upload(-1, blob)
     torch.cuda.synchronize()
@@ -5288,7 +5495,8 @@ def big_swap(torch, model, params, kv) -> None:
     kept = kv.pool.lengths[-1] == n
     print(f"[big] (2) forced INT8 swap of a {n}-token lane: {kinds}, "
           f"{_blob_bytes(blob) / 1e6:.1f} MB to the host, out "
-          f"{(t1 - t0) * 1e3:.1f} ms, in {(t2 - t1) * 1e3:.1f} ms; K/V "
+          f"{out_ms:.1f} ms (device memory added {added / 1e6:.1f} MB), in "
+          f"{(t2 - t1) * 1e3:.1f} ms; K/V "
           f"rel_l2 {err:.4g}, length {'kept' if kept else 'LOST'}",
           flush=True)
     if kinds != {"k": "q8", "v": "q8"} or not (kept and err < TIER_Q8_BOUND):
@@ -7446,6 +7654,12 @@ def main() -> None:
         kq, kd = check_kv_quant(torch, dev)
         kq_moe, kd_moe = check_kv_quant(torch, dev, KV_QUANT_MOE)
         kpage = check_kv_quant_page(torch, dev)
+        kst = check_kv_quant_store(torch, dev, "granite swap",
+                                   **KV_STORE_GRANITE)
+        kst_moe = check_kv_quant_store(torch, dev, "granite-moe swap",
+                                       **KV_STORE_MOE)
+        kst_page = check_kv_quant_store(torch, dev, "tier page",
+                                        **KV_STORE_PAGE)
         pq8 = check_paged_attention_q8(torch, dev)
         rn, rn_moe, rn_jamba, rn_shard = check_fused_rmsnorm(torch, dev)
         rn_split = check_split_rmsnorm(torch, dev)
@@ -7693,10 +7907,17 @@ def main() -> None:
              stablelm_shape=fa_stablelm, seamless_shape=fa_seamless,
              jamba_shape=fa_jamba, long_shape=fa_long,
              sharded_shape=fa_shard),
+        # the (T, d) entry's row counts every launch of the quantize
+        # kernel, through either entry (the store entry's added below)
         dict(name="kv_quantize", route="cuda", source=src + "kv_quant.cu",
              replaces="src/repro/kernels/kv_quant/kv_quant.py:37",
              launches=launches["kv_quantize"], **kq,
              tier_page_shape=kpage["kv_quantize"], moe_shape=kq_moe),
+        dict(name="kv_quantize_store", route="cuda",
+             source=src + "kv_quant.cu",
+             replaces="src/repro/kernels/kv_quant/kv_quant.py:37",
+             launches=launches["kv_quantize_store"], **kst,
+             moe_shape=kst_moe, tier_page_shape=kst_page),
         dict(name="kv_dequantize", route="cuda", source=src + "kv_quant.cu",
              replaces="src/repro/kernels/kv_quant/kv_quant.py:62",
              launches=launches["kv_dequantize"], **kd,
@@ -7726,6 +7947,12 @@ def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     for r in rows:
         r["launches"] += totals[r["name"]]      # phases 19-27
+    kq_row = next(r for r in rows if r["name"] == "kv_quantize")
+    kq_row["entries"] = {n: r["launches"] for r in rows
+                         for n in ("kv_quantize", "kv_quantize_store")
+                         if r["name"] == n}
+    kq_row["launches"] = sum(kq_row["entries"].values())
+    for r in rows:
         # the csrc headers the source includes (flash and SSD bodies, the
         # 3xTF32 primitives), as the build key follows them
         r["headers"] = [os.path.relpath(str(h), root) for h in

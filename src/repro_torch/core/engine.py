@@ -677,7 +677,9 @@ class ServingEngine:
         step at ``(max_slots, spec_k + 1)`` in its place, its second run's
         seconds in ``self.latency.verify_cost``; without fused decode the
         per-slot decode, eagerly), and one short prompt and one
-        offload/upload round trip of a warm lane (:meth:`_warm_libraries`).
+        offload/upload round trip of a warm lane (:meth:`_warm_libraries`);
+        last, with INT8 swaps on the card, the swap blobs' pinned host
+        memory (``KVBackend.reserve_swap_memory``).
         A key's first use runs it twice and captures it; each bucket is
         then run once more and that replay's seconds land in
         ``self.latency.bucket_costs``, so EWT prices a bucketed chunk at its
@@ -747,6 +749,9 @@ class ServingEngine:
             merged = dict(self.latency.bucket_costs or {})
             merged.update(costs)
             self.latency.bucket_costs = merged
+        # after the last capture: torch.cuda.graph empties the pinned host
+        # cache this fills
+        self.kv.reserve_swap_memory()
         graphs = self.kv.graphs
         end = time.perf_counter()
         self.warm_stats = dict(

@@ -30,6 +30,7 @@ WRAPPERS = {
     "flash_prefill_prefix": _flash.flash_prefill_prefix,
     "flash_prefill": _flash.flash_prefill,
     "kv_quantize": _kv_quant.kv_quantize,
+    "kv_quantize_store": _kv_quant.kv_quantize_store,
     "kv_dequantize": _kv_quant.kv_dequantize,
     "paged_attention_q8": _kv_quant.paged_attention_q8,
     "fused_rmsnorm": _rmsnorm.fused_rmsnorm,

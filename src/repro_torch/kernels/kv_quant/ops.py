@@ -1,14 +1,15 @@
 """INT8 KV quantize / dequantize and decode attention over INT8 pages: the
 CUDA kernels' wrappers.
 
-``kv_quantize`` / ``kv_dequantize`` launch ``csrc/kv_quant.cu`` and
-``paged_attention_q8`` launches the int8 entry of
+``kv_quantize`` / ``kv_quantize_store`` / ``kv_dequantize`` launch
+``csrc/kv_quant.cu`` and ``paged_attention_q8`` launches the int8 entry of
 ``csrc/paged_attention.cu`` (the split-KV body of ``paged_attention``, its
 plan and its scratch) for CUDA tensors; each takes its plain version
 (:mod:`.ref`) for CPU tensors; there is no fallback from one to the other.
 Each wrapper's ``launches`` attribute counts its kernel launches;
-:func:`body_launches` counts ``kv_dequantize``'s two bodies (the kernel
-chooses from d and the addresses: csrc/kv_quant.cu).
+:func:`body_launches` counts the bodies of ``kv_dequantize`` and of the
+quantize kernel (the kernel chooses from d, the dtype and the addresses:
+:func:`quantize_body`, csrc/kv_quant.cu).
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention.ops import check_shape, split
 from repro_torch.kernels.kv_quant.ref import (kv_dequantize_ref,
                                               kv_quantize_ref,
-                                              paged_attention_q8_ref)
+                                              kv_quantize_store_ref,
+                                              paged_attention_q8_ref,
+                                              store_view)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -29,6 +32,9 @@ def _lib():
     lib = _build.load("kv_quant")
     lib.kv_quantize_launch.argtypes = [_P] * 4 + [_L, _I, _P]
     lib.kv_quantize_launch.restype = _I
+    lib.kv_quantize_rows_launch.argtypes = ([_P] * 9 + [_L] * 4 + [_I]
+                                            + [_L] * 5 + [_I, _P])
+    lib.kv_quantize_rows_launch.restype = _I
     lib.kv_dequantize_launch.argtypes = [_P] * 4 + [_L, _I, _I, _P]
     lib.kv_dequantize_launch.restype = _I
     lib.kv_quant_body_launches.argtypes = [_P]
@@ -37,21 +43,48 @@ def _lib():
 
 
 DEQUANTIZE_BODIES = ("vec16", "scalar")
-# launches of each body by replayed CUDA graphs (kernels/counters.py)
+QUANTIZE_BODIES = ("vec16", "scalar")
+# launches of each dequantize body by replayed CUDA graphs
+# (kernels/counters.py); quantize runs in no graph (swaps are eager)
 REPLAYED = dict.fromkeys(DEQUANTIZE_BODIES, 0)
 
 
-def body_launches():
-    """Launches of ``kv_dequantize``'s bodies since the library was
-    loaded: ``{"vec16": n, "scalar": n}`` (16 codes a thread with 16-byte
-    loads and stores, for d a multiple of 16 up to 1024 and 16-byte
-    aligned codes and output; one element a thread otherwise).
-    A replayed CUDA graph's launches are in it too (``REPLAYED``, which
-    ``kernels/counters.py`` advances)."""
-    got = (ctypes.c_longlong * len(DEQUANTIZE_BODIES))()
+def body_launches(kernel: str = "dequantize"):
+    """Launches of a kernel's bodies since the library was loaded:
+    ``{"vec16": n, "scalar": n}``.  ``kv_dequantize``'s (the default):
+    16 codes a thread with 16-byte loads and stores, for d a multiple of 16
+    up to 1024 and 16-byte aligned codes and output; one element a thread
+    otherwise; a replayed CUDA graph's launches are in it too
+    (``REPLAYED``, which ``kernels/counters.py`` advances).
+    ``kernel="quantize"``: the quantize kernel's, both entries
+    (:func:`quantize_body` names the choice)."""
+    if kernel not in ("dequantize", "quantize"):
+        raise ValueError(f"kernel {kernel!r}: dequantize or quantize")
+    got = (ctypes.c_longlong * 4)()
     with _build.COUNT_LOCK:
         _lib().kv_quant_body_launches(ctypes.addressof(got))
+        if kernel == "quantize":
+            return dict(zip(QUANTIZE_BODIES, got[2:]))
         return {k: n + REPLAYED[k] for k, n in zip(DEQUANTIZE_BODIES, got)}
+
+
+def quantize_body(d: int, dtype, aligned: bool = True) -> str:
+    """The body the quantize kernel takes for rows of width ``d`` in
+    ``dtype``: ``"vec16"`` when d is a multiple of the elements a 16-byte
+    load holds (4 float32, 8 bfloat16), 2 to 128 such loads a row, and
+    the addresses are ``aligned`` (every row start on 16 bytes, the codes
+    on a 16-byte load's element count); ``"scalar"`` otherwise."""
+    e = 16 // torch.empty((), dtype=dtype).element_size()
+    return ("vec16" if aligned and d % e == 0 and 2 <= d // e <= 128
+            else "scalar")
+
+
+def _launch(err_of, what: str, wrapper) -> None:
+    """Launch (``err_of`` returns the entry's error code), raise on an
+    error, count the launch on ``wrapper``, under the counters' lock."""
+    with _build.COUNT_LOCK:
+        _build.check(err_of(), what)
+        wrapper.launches += 1
 
 
 def kv_quantize(x):
@@ -68,13 +101,101 @@ def kv_quantize(x):
     lam = torch.empty((T, 1), dtype=torch.float32, device=x.device)
     z = torch.empty((T, 1), dtype=torch.float32, device=x.device)
     fn = _lib().kv_quantize_launch
-    with _build.COUNT_LOCK:
-        err = fn(
-            x.data_ptr(), q.data_ptr(), lam.data_ptr(), z.data_ptr(), T, d,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check(err, "kv_quantize")
-        kv_quantize.launches += 1
+    _launch(lambda: fn(x.data_ptr(), q.data_ptr(), lam.data_ptr(),
+                       z.data_ptr(), T, d,
+                       torch.cuda.current_stream(x.device).cuda_stream),
+            "kv_quantize", kv_quantize)
     return q, lam, z
+
+
+def store_layout(rows: int, d: int, n: int):
+    """Byte offsets ``(codes, scales, zeros)`` of each of ``n`` sources in
+    the store entry's staging buffer, and the buffer's size: source 0's
+    int8 codes (rows, d), float32 scales and zeros (rows, 1), then source
+    1's, each part starting on 16 bytes."""
+    offs, at = [], 0
+    for _ in range(n):
+        part = []
+        for size in (rows * d, 4 * rows, 4 * rows):
+            part.append(at)
+            at += -(-size // 16) * 16
+        offs.append(tuple(part))
+    return offs, at
+
+
+def store_views(buf, rows: int, d: int, n: int):
+    """The ``(q, lam, z)`` views of each source in a staging buffer
+    ``buf`` (uint8, laid out by :func:`store_layout`) on any device."""
+    offs, _ = store_layout(rows, d, n)
+    return [(buf[a:a + rows * d].view(torch.int8).view(rows, d),
+             buf[b:b + 4 * rows].view(torch.float32).view(rows, 1),
+             buf[c:c + 4 * rows].view(torch.float32).view(rows, 1))
+            for a, b, c in offs]
+
+
+def kv_quantize_store(xs, pages=None, length=None):
+    """INT8-quantize one or two KV stores (K and V) where they lie, in one
+    launch: the swap's device half.
+
+    ``xs``: tensors of one shape, strides, dtype (float32 or bfloat16) and
+    device, rank 1 to 5 with the last axis (d) contiguous, read as the
+    (L, N, O, H, d) view :func:`~.ref.store_view` gives; rows are taken
+    in (l, i, o, h) order for i over ``pages`` (a 1-D int64 tensor of
+    indices into N on the same device: a request's pages of a paged pool)
+    or over all of N, as ``x[:, pages]`` flattens.  Row (l, i, o, h) holds
+    position ``i * O + o``; a row at or past ``length`` is not read and
+    quantizes as a zero row (lam 1e-8, z -0.0, codes -128).
+
+    Returns ``(triples, staging)``: a ``(q int8 (R, d), lam (R, 1),
+    z (R, 1))`` triple a source, in float32.  On the card they are views
+    of ``staging``, one uint8 device buffer laid out by
+    :func:`store_layout` (K's codes, scales, zeros, then V's), which one
+    copy can move to the host (:func:`store_views` lays a copy out again).
+    On the CPU they are the plain version's tensors and ``staging`` is
+    None."""
+    xs = tuple(xs)
+    _build.refuse_grad("kv_quantize_store", *xs)
+    if not xs[0].is_cuda:
+        return kv_quantize_store_ref(xs, pages, length), None
+    x0 = xs[0]
+    if not 1 <= len(xs) <= 2 or any(
+            x.device != x0.device or x.dtype != x0.dtype
+            or x.shape != x0.shape or x.stride() != x0.stride()
+            for x in xs):
+        raise ValueError("kv_quantize_store takes one or two tensors of one "
+                         "shape, strides, dtype and device")
+    if not 1 <= x0.dim() <= 5 or x0.stride(-1) != 1:
+        raise ValueError(f"kv_quantize_store: a store of rank 1 to 5 with "
+                         f"its last axis contiguous, got shape "
+                         f"{tuple(x0.shape)} strides {x0.stride()}")
+    code = _build.dtype_code(x0.dtype)
+    view = store_view(x0)
+    L, N, O, H, d = view.shape
+    if pages is not None:
+        if (pages.device != x0.device or pages.dtype != torch.int64
+                or pages.dim() != 1 or not pages.is_contiguous()):
+            raise ValueError("kv_quantize_store: pages must be a contiguous "
+                             f"1-D int64 tensor on {x0.device}")
+    P = N if pages is None else pages.numel()
+    rows = L * P * O * H
+    _, size = store_layout(rows, d, len(xs))
+    staging = torch.empty(size, dtype=torch.uint8, device=x0.device)
+    triples = store_views(staging, rows, d, len(xs))
+    if rows == 0:
+        return triples, staging
+    # a size-1 axis is never stepped: its stride is no alignment concern
+    sL, sN, sO, sH = (0 if n == 1 else s
+                      for n, s in zip(view.shape[:4], view.stride()[:4]))
+    out = [t.data_ptr() for trip in triples for t in trip]
+    out += [None] * (6 - len(out))
+    fn = _lib().kv_quantize_rows_launch
+    _launch(lambda: fn(
+        x0.data_ptr(), xs[1].data_ptr() if len(xs) == 2 else None, *out,
+        None if pages is None else pages.data_ptr(), L, P, O, H, d,
+        sL, sN, sO, sH, P * O if length is None else max(int(length), 0),
+        code, torch.cuda.current_stream(x0.device).cuda_stream),
+        "kv_quantize_store", kv_quantize_store)
+    return triples, staging
 
 
 def kv_dequantize(q, lam, z, dtype=torch.float32):
@@ -176,5 +297,6 @@ def paged_attention_q8(q, kq, k_lam, k_z, vq, v_lam, v_z, block_tables,
 
 
 kv_quantize.launches = 0
+kv_quantize_store.launches = 0
 kv_dequantize.launches = 0
 paged_attention_q8.launches = 0

@@ -50,7 +50,10 @@ span reaches it.
 
 Offload/upload of K/V run the INT8 ``kv_quant`` kernels on the device when
 ``quantize_offload`` is set (paper Eq. 8): the host link carries the INT8
-payload plus float32 per-row scales and zeros.  Conv and SSM state cross
+payload plus float32 per-row scales and zeros.  An offload is one kernel
+pass over the K/V store where it lies (a request's pages, a lane's stripe
+span) into one staging buffer, one copy of it into pinned host memory and
+one stream sync (:func:`quantize_kv_store`).  Conv and SSM state cross
 raw, as in the reference: INT8 applies to K/V only.
 
 Both attention backends land a cluster-tier import (``tier_fill``: pages
@@ -69,7 +72,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.kv_quant import kv_dequantize, kv_quantize
+from repro_torch.kernels.kv_quant import kv_dequantize, kv_quantize_store
+from repro_torch.kernels.kv_quant.ops import store_layout, store_views
 from repro_torch.serving.prefix_cache import (DensePrefixCache,
                                               PagedPrefixCache)
 from repro_torch.serving.step_graphs import StepGraphs, pack, unpack
@@ -206,16 +210,56 @@ class PagedKVPool:
 
 # ------------------------------------------------- device-side quant blobs
 
+def quantize_kv_store(xs, shape, pages=None, length=None,
+                      pinned: bool = True) -> list:
+    """INT8 blobs ``(q, lam, z, shape)`` of one or two KV stores (K and V)
+    with the ``kv_quantize`` kernel's store entry, which reads them where
+    they lie in their own dtype
+    (``kernels/kv_quant/ops.kv_quantize_store``: ``pages`` a long tensor
+    selecting axis 1, rows at positions past ``length`` quantized as zero
+    rows).  ``q`` is (rows, d) int8, ``lam``/``z`` (rows, 1) float32 on
+    the CPU, and ``shape`` the shape the rows are read back into.  On the
+    card the kernel writes one staging buffer, and one copy moves it to
+    the host: a swap's (``pinned``) is a non-blocking copy into pinned
+    memory and one stream sync, so that its upload copies from pinned
+    memory too; a long-lived blob (the KV tier's page) goes to ordinary
+    memory.  The blobs are views of that host buffer.  On the CPU they
+    are the plain version's tensors."""
+    triples, staging = kv_quantize_store(xs, pages, length)
+    if staging is not None:
+        if pinned:
+            host = torch.empty(staging.shape, dtype=torch.uint8,
+                               pin_memory=True)
+            host.copy_(staging, non_blocking=True)
+            torch.cuda.current_stream(staging.device).synchronize()
+        else:
+            host = staging.cpu()
+        triples = store_views(host, *triples[0][0].shape, len(triples))
+    return [(q, lam, z, tuple(shape)) for q, lam, z in triples]
+
+
 def quantize_kv_device(x) -> tuple:
-    """INT8-quantize a KV tensor of any rank on its device (one row per
-    (token, head) over the last axis) with the ``kv_quantize`` kernel, and
-    move the INT8 payload plus float32 scales/zeros to the host.  The input
-    is quantized as a float32 copy.  Returns ``(q, lam, z, shape)`` with
-    CPU tensors ``q`` (rows, d) int8 and ``lam``/``z`` (rows, 1)."""
-    shape = tuple(x.shape)
-    flat = x.reshape(-1, shape[-1]).float().contiguous()
-    q, lam, z = kv_quantize(flat)
-    return q.cpu(), lam.cpu(), z.cpu(), shape
+    """INT8-quantize a KV tensor of rank 1 to 5 on its device (one row per
+    (token, head) over the last axis, which must be contiguous) and move it
+    to the host: :func:`quantize_kv_store` of ``x`` alone.  Returns
+    ``(q, lam, z, shape)``."""
+    return quantize_kv_store((x,), x.shape)[0]
+
+
+def reserve_pinned(nbytes: int) -> int:
+    """Pin one host block of each power-of-two size from 4 KiB up to the
+    first at or above ``nbytes`` and free them into PyTorch's caching host
+    allocator, which rounds pinned requests up to a power of two: the
+    first INT8 blob of each size then finds pinned memory waiting, where
+    page-locking its own would take longer than the copy it serves.
+    Returns the bytes those blocks hold."""
+    sizes = [4096]
+    while sizes[-1] < nbytes:
+        sizes.append(2 * sizes[-1])
+    blocks = [torch.empty(n, dtype=torch.uint8, pin_memory=True)
+              for n in sizes]
+    del blocks
+    return sum(sizes)
 
 
 def dequantize_kv_device(blob: tuple, dtype=torch.float32, device=None):
@@ -289,6 +333,25 @@ class KVBackend:
 
     def has(self, rid: int) -> bool:
         return rid in self.slot_req
+
+    def _k_store(self):
+        """The K store (the page pool's or the dense cache's), or None
+        where the model keeps no K/V."""
+        raise NotImplementedError
+
+    def reserve_swap_memory(self) -> int:
+        """With ``quantize_offload`` on the card, pin host memory for the
+        INT8 swap blobs before the first swap (:func:`reserve_pinned` up
+        to the blob of a lane of ``max_seq_len`` tokens).  A CUDA graph
+        capture empties PyTorch's pinned host cache, so this runs after
+        the last one (the engine's warmup ends with it).  Returns the
+        bytes pinned (0 on the CPU, raw or without K/V)."""
+        k = self._k_store()
+        if (not self.cfg.quantize_offload or k is None
+                or k.device.type != "cuda"):
+            return 0
+        rows = k.shape[0] * self.cfg.max_seq_len * k.shape[-2]
+        return reserve_pinned(store_layout(rows, k.shape[-1], 2)[1])
 
     def free_slot(self) -> Optional[int]:
         for i, r in enumerate(self.slot_req):
@@ -550,6 +613,9 @@ class PagedKVBackend(KVBackend):
     def _kv(self) -> dict:
         return {"k": self.pool.k, "v": self.pool.v}
 
+    def _k_store(self):
+        return self.pool.k
+
     def _claim(self, rid: int, slot: Optional[int] = None) -> None:
         """Give ``rid`` a lane (``slot`` when given, else the first free
         one) and an empty page table if it has none; chunks extend it."""
@@ -721,16 +787,19 @@ class PagedKVBackend(KVBackend):
         pages = self.pool.page_table[rid]
         idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
         length = self.pool.lengths[rid]
-        pg = self.cfg.page_size
-        pos = torch.arange(len(pages) * pg, device=self.device).reshape(
-            len(pages), pg)[None, :, :, None, None]
         stored: dict = {"lengths": length}
-        for key in ("k", "v"):
-            arr = getattr(self.pool, key)[:, idx]
-            arr = torch.where(pos < length, arr, torch.zeros_like(arr))
-            if self.cfg.quantize_offload:
-                stored[key] = ("q8", quantize_kv_device(arr))
-            else:
+        if self.cfg.quantize_offload:
+            k = self.pool.k
+            shape = (k.shape[0], len(pages), *k.shape[2:])
+            stored["k"], stored["v"] = (("q8", b) for b in quantize_kv_store(
+                (k, self.pool.v), shape, pages=idx, length=length))
+        else:
+            pg = self.cfg.page_size
+            pos = torch.arange(len(pages) * pg, device=self.device).reshape(
+                len(pages), pg)[None, :, :, None, None]
+            for key in ("k", "v"):
+                arr = getattr(self.pool, key)[:, idx]
+                arr = torch.where(pos < length, arr, torch.zeros_like(arr))
                 stored[key] = ("raw", arr.cpu())
         self.clear(rid)
         return stored
@@ -944,6 +1013,9 @@ class DenseKVBackend(KVBackend):
                 axes.update(xk=1, xv=1)
         return axes
 
+    def _k_store(self):
+        return self.cache.get("k")
+
     def _lane(self, key: str, slot: int):
         """View of one lane's slice of ``cache[key]``."""
         return self.cache[key].select(self._axes[key], slot)
@@ -1117,8 +1189,16 @@ class DenseKVBackend(KVBackend):
         length = int(self.cache["lengths"][slot])
         span = min(self._pow2_bucket(length), self.cfg.max_seq_len)
         stored: dict = {"lengths": length}
+        q8: dict = {}
+        if self.cfg.quantize_offload and "k" in self.cache:
+            k, v = (self._lane(key, slot)[:, :span] for key in ("k", "v"))
+            q8 = dict(zip(("k", "v"), quantize_kv_store((k, v), k.shape,
+                                                        length=length)))
         for key in self.cache:
             if key == "lengths":
+                continue
+            if key in q8:
+                stored[key] = ("q8", q8[key])
                 continue
             lane = self._lane(key, slot)
             if key in ("k", "v"):
@@ -1126,9 +1206,6 @@ class DenseKVBackend(KVBackend):
                                                              None]
                 arr = lane[:, :span]
                 arr = torch.where(pos < length, arr, torch.zeros_like(arr))
-                if self.cfg.quantize_offload:
-                    stored[key] = ("q8", quantize_kv_device(arr))
-                    continue
                 stored[key] = ("raw", arr.cpu())
             else:
                 stored[key] = ("raw", lane.to("cpu", copy=True))

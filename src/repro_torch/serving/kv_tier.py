@@ -27,8 +27,9 @@ Discipline, as the reference's:
 
 The torch-specific parts: a raw payload is ``("raw", k, v)`` with CPU
 torch tensors (bfloat16 has no numpy dtype); a quantized one is built by
-``serving/kv_cache.quantize_kv_device``, which runs the ``kv_quantize``
-kernel on the page's own device and moves the INT8 blob to the host; and
+``serving/kv_cache.quantize_kv_store``, which runs the ``kv_quantize``
+kernel's store entry on the page's K and V where they lie (their own
+device and dtype, one launch) and copies the INT8 blobs to the host; and
 :meth:`TierHandle.materialize` takes the device to land the pages on
 (the ``kv_dequantize`` kernel runs there for a quantized payload), where
 the reference follows JAX's default-device scope.  A payload covers one
@@ -234,14 +235,16 @@ class HostKVTier:
     def _pack(self, k, v) -> Tuple[tuple, int]:
         """A page's payload: host copies of ``k`` and ``v`` (each
         synchronized with the device before it is stored), or their INT8
-        blobs quantized on their device."""
+        blobs quantized on their device in one launch and copied to
+        ordinary host memory in one copy (a page outlives any swap: it is
+        not worth page-locked memory)."""
         if not self.quantize:
             k = k.detach().to("cpu", copy=True)
             v = v.detach().to("cpu", copy=True)
             return ("raw", k, v), _nbytes(k, v)
-        from repro_torch.serving.kv_cache import quantize_kv_device
-        kb = quantize_kv_device(k.detach())
-        vb = quantize_kv_device(v.detach())
+        from repro_torch.serving.kv_cache import quantize_kv_store
+        kb, vb = quantize_kv_store((k.detach(), v.detach()), k.shape,
+                                   pinned=False)
         return ("q8", kb, vb), _nbytes(*kb, *vb)
 
     # ------------------------------------------------------------- evict

@@ -556,6 +556,166 @@ def test_kv_dequantize_bodies(dev, T, d, offset):
         assert torch.equal(out.view(bits), ref.to(dtype).view(bits))
 
 
+def _quant_close(got, want):
+    """INT8 codes within 1, scales within 1e-6 relative, zeros within 1,
+    source by source (``tests/test_kernels.py``'s tolerance)."""
+    for (q, lam, z), (qr, lamr, zr) in zip(got, want):
+        assert (q.int() - qr.int()).abs().max().item() <= 1
+        torch.testing.assert_close(lam, lamr, atol=0, rtol=1e-6)
+        assert (z - zr).abs().max().item() <= 1
+
+
+def _quantize_bodies(ops, before):
+    return {k: n - before[k]
+            for k, n in ops.body_launches("quantize").items()}
+
+
+# the (T, d) float32 entry through both bodies: 16-byte loads at widths of
+# one to four loads a lane (d 512) and half-warp rows (d 64, 80), one warp
+# a row for d 6 and for rows one element off 16 bytes
+@pytest.mark.parametrize("T,d,offset", [
+    (1000, 128, 0), (1344, 64, 0), (7, 80, 0), (33, 512, 0), (100, 6, 0),
+    (100, 128, 1)])
+def test_kv_quantize_bodies(dev, T, d, offset):
+    from repro_torch.kernels.kv_quant import kv_quantize, kv_quantize_ref
+    from repro_torch.kernels.kv_quant import ops
+    rng = np.random.default_rng(T + d + offset)
+    buf = _randn(rng, (T * d + offset,), torch.float32, dev) * 4.0
+    x = buf[offset:].view(T, d)
+    want = ops.quantize_body(d, torch.float32, x.data_ptr() % 16 == 0)
+    before = ops.body_launches("quantize")
+    got = kv_quantize(x)
+    torch.cuda.synchronize()
+    assert _quantize_bodies(ops, before) == {
+        "vec16": int(want == "vec16"), "scalar": int(want == "scalar")}
+    _quant_close([got], [kv_quantize_ref(x)])
+
+
+def _kv_stores(kind, rng, dtype, d, dev):
+    """``(xs, pages, length)``: ``paged``, K and V of a (3, 9, 16, 2, d)
+    pool through 3 pages, 37 tokens; ``dense``, lane 1's first 32
+    positions of two (3, 3, 64, 2, d) caches, 21 tokens; ``page``, one
+    page view of K; ``flat``, a contiguous (50, d) tensor; ``offset``, a
+    (50, d) view one element into its buffer."""
+    if kind == "paged":
+        xs = tuple(_randn(rng, (3, 9, 16, 2, d), dtype, dev) * 4.0
+                   for _ in range(2))
+        return xs, torch.tensor([7, 2, 5], device=dev), 37
+    if kind == "dense":
+        xs = tuple((_randn(rng, (3, 3, 64, 2, d), dtype, dev) * 4.0)
+                   .select(1, 1)[:, :32] for _ in range(2))
+        return xs, None, 21
+    if kind == "page":
+        return (_randn(rng, (3, 9, 16, 2, d), dtype, dev)[:, 4],), None, None
+    if kind == "flat":
+        return (_randn(rng, (50, d), dtype, dev),), None, None
+    buf = _randn(rng, (50 * d + 1,), dtype, dev)
+    return (buf[1:].view(50, d),), None, None
+
+
+@pytest.mark.parametrize("kind", ["paged", "dense", "page", "flat",
+                                  "offset"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 80, 128, 6])
+def test_kv_quantize_store(dev, kind, dtype, d):
+    """The store entry against its plain version (gather, mask, float32,
+    ``kv_quantize_ref``) wherever the rows lie, one launch for K and V,
+    through the body ``ops.quantize_body`` names; masked rows exactly a
+    zero row's; every output a view of the one staging buffer."""
+    from repro_torch.kernels.kv_quant import (kv_quantize_store,
+                                              kv_quantize_store_ref)
+    from repro_torch.kernels.kv_quant import ops
+    rng = np.random.default_rng(d + len(kind))
+    xs, pages, length = _kv_stores(kind, rng, dtype, d, dev)
+    want_body = ops.quantize_body(d, dtype, xs[0].data_ptr() % 16 == 0)
+    before = ops.body_launches("quantize")
+    n0 = kv_quantize_store.launches
+    got, staging = kv_quantize_store(xs, pages=pages, length=length)
+    torch.cuda.synchronize()
+    assert kv_quantize_store.launches == n0 + 1
+    assert _quantize_bodies(ops, before) == {
+        "vec16": int(want_body == "vec16"),
+        "scalar": int(want_body == "scalar")}
+    _quant_close(got, kv_quantize_store_ref(xs, pages, length))
+    lo = staging.data_ptr()
+    for trip in got:
+        assert all(lo <= t.data_ptr() < lo + staging.numel() for t in trip)
+        if length is not None:
+            q, lam, z = (t.view(3, -1, 2, t.shape[-1]) for t in trip)
+            assert bool((q[:, length:] == -128).all())
+            assert bool((lam[:, length:] == 1e-8).all())
+            assert bool(torch.signbit(z[:, length:]).all())
+            assert bool((z[:, length:] == 0).all())
+
+
+def test_kv_quantize_store_rejects_what_it_does_not_take(dev):
+    from repro_torch.kernels.kv_quant import kv_quantize_store
+    k = torch.zeros((2, 3, 4, 1, 8), device=dev)
+    with pytest.raises(ValueError):
+        kv_quantize_store((k, k[:, :2]))                 # shapes differ
+    with pytest.raises(ValueError):
+        kv_quantize_store((k, k.bfloat16()))             # dtypes differ
+    with pytest.raises(ValueError):
+        kv_quantize_store((k, k, k))                     # three sources
+    with pytest.raises(TypeError):
+        kv_quantize_store((k.half(),))                   # float16
+    with pytest.raises(ValueError):
+        kv_quantize_store((k.transpose(3, 4),))          # d not contiguous
+    with pytest.raises(ValueError):
+        kv_quantize_store((k[None],))                    # rank 6
+    with pytest.raises(ValueError):
+        kv_quantize_store((k,), pages=torch.tensor([0]))  # pages on the CPU
+    with pytest.raises(ValueError):
+        kv_quantize_store((k,), pages=torch.tensor(
+            [0], dtype=torch.int32, device=dev))         # int32 pages
+
+
+def test_offload_blob_is_pinned_views_of_one_buffer(dev):
+    """``quantize_kv_store`` on the card: the K and V blobs are CPU
+    tensors in pinned memory, views of one host buffer, with the blob's
+    shapes, and hold the kernel's values."""
+    from repro_torch.kernels.kv_quant import kv_quantize_store_ref
+    from repro_torch.serving.kv_cache import quantize_kv_store
+    rng = np.random.default_rng(32)
+    xs, pages, length = _kv_stores("paged", rng, torch.bfloat16, 128, dev)
+    shape = (3, 3, 16, 2, 128)
+    kb, vb = quantize_kv_store(xs, shape, pages=pages, length=length)
+    parts = [*kb[:3], *vb[:3]]
+    assert all(t.device.type == "cpu" and t.is_pinned() for t in parts)
+    assert len({t.untyped_storage().data_ptr() for t in parts}) == 1
+    assert kb[3] == vb[3] == shape and kb[0].shape == (3 * 3 * 16 * 2, 128)
+    want = kv_quantize_store_ref(xs, pages, length)
+    _quant_close([b[:3] for b in (kb, vb)],
+                 [tuple(t.cpu() for t in w) for w in want])
+
+
+def test_reserve_swap_memory_covers_a_full_lane(dev):
+    """With INT8 swaps on the card each backend pins one host block of
+    every power-of-two size from 4 KiB up to the first at or above a full
+    lane's blob (``max_seq_len`` tokens); raw swaps and a model without
+    K/V pin nothing."""
+    from repro_torch.kernels.kv_quant.ops import store_layout
+    from repro_torch.serving.kv_cache import (DenseKVBackend,
+                                              KVBackendConfig,
+                                              PagedKVBackend)
+    model, _ = _graph_model(dev, "dense")
+    for make in (lambda c: DenseKVBackend(model, c),
+                 lambda c: PagedKVBackend(model, c, 16)):
+        kv = make(KVBackendConfig(max_slots=2, max_seq_len=64,
+                                  quantize_offload=True))
+        k = kv._k_store()
+        blob = store_layout(k.shape[0] * 64 * k.shape[-2], k.shape[-1], 2)[1]
+        top = 4096
+        while top < blob:
+            top *= 2
+        assert kv.reserve_swap_memory() == 2 * top - 4096
+        kv.cfg.quantize_offload = False
+        assert kv.reserve_swap_memory() == 0
+    ssm, _ = _graph_model(dev, "ssm")
+    assert DenseKVBackend(ssm, KVBackendConfig(
+        max_slots=2, max_seq_len=64)).reserve_swap_memory() == 0
+
+
 @pytest.mark.parametrize("T,d", [(1, 64), (7, 2560), (300, 4096),
                                  (33, 5120), (5, 1000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
